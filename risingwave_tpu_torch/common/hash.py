@@ -1,0 +1,191 @@
+"""64-bit key hashing for state-table slot selection.
+
+Port of the ``hash64_columns`` part of ``risingwave_tpu/common/hash.py``
+(``hash64_columns`` :183, ``_mix64`` :160, ``normalize_null_col`` :32).
+Kernel A (``csrc/hash64.cu``) computes it on the card;
+``hash64_columns_plain`` is its plain PyTorch version, used for CPU
+tensors and as the card-side reference.
+
+Hashes are returned as ``int64`` tensors holding the uint64 bit
+pattern (``.view(np.uint64)`` on the host gives the reference's
+values).  PyTorch's uint64 tensors lack ``>>``, ``%`` and ``<``, so the
+plain version computes in int64: a logical right shift is
+``(x >> k) & ((1 << (64 - k)) - 1)``, multiplies wrap, and ``h % size``
+becomes ``h & (size - 1)`` for the power-of-two table sizes the hash
+table enforces.  The reference's ``~0 -> ~1`` remap is ``-1 -> -2`` on
+the int64 pattern.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from risingwave_tpu_torch import kernels
+from risingwave_tpu_torch.common.chunk import NCol, StrCol
+
+_MIX_K1 = 0x9E3779B97F4A7C15
+_MIX_K2 = 0xBF58476D1CE4E5B9
+_MIX_K3 = 0x94D049BB133111EB
+
+
+def _signed(c: int) -> int:
+    """A uint64 constant as the int64 with the same bit pattern."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+K1 = _signed(_MIX_K1)
+K2 = _signed(_MIX_K2)
+K3 = _signed(_MIX_K3)
+
+
+def srl(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of an int64 tensor's bit pattern."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer on int64 bit patterns (``_mix64``)."""
+    x = (x ^ srl(x, 30)) * K2
+    x = (x ^ srl(x, 27)) * K3
+    return x ^ srl(x, 31)
+
+
+def normalize_null_col(col) -> list:
+    """An ``NCol`` becomes [payload-with-nulls-zeroed, null-flag], so
+    equal values (NULL == NULL included) hash equally."""
+    if not isinstance(col, NCol):
+        return [col]
+    data, null = col.data, col.null
+    if isinstance(data, StrCol):
+        zeroed = StrCol(
+            torch.where(null[:, None], torch.zeros_like(data.data), data.data),
+            torch.where(null, torch.zeros_like(data.lens), data.lens),
+        )
+    else:
+        zeroed = torch.where(null, torch.zeros_like(data), data)
+    return [zeroed, null]
+
+
+_UNSIGNED_MASK = {torch.int16: 0xFFFF, torch.int32: 0xFFFFFFFF,
+                  torch.uint8: 0xFF}
+
+
+def _key_word(col: torch.Tensor) -> torch.Tensor:
+    """One fixed-width key column as int64 words: bool -> 0/1, narrower
+    ints zero-extended (the reference views them unsigned first)."""
+    if col.dtype == torch.bool:
+        return col.to(torch.int64)
+    if col.dtype == torch.int64:
+        return col
+    if col.dtype in _UNSIGNED_MASK:
+        return col.to(torch.int64) & _UNSIGNED_MASK[col.dtype]
+    raise NotImplementedError(
+        f"hash of {col.dtype} keys is not ported yet (floats are queued)")
+
+
+def _fold_str(col: StrCol, state: torch.Tensor) -> torch.Tensor:
+    cap, width = col.data.shape
+    words = width // 8 + (1 if width % 8 else 0)
+    padded = torch.zeros((cap, words * 8), dtype=torch.int64,
+                         device=col.data.device)
+    padded[:, :width] = col.data.to(torch.int64)
+    byte_idx = torch.arange(words * 8, device=col.data.device)
+    masked = torch.where(byte_idx[None, :] < col.lens[:, None].to(torch.int64),
+                         padded, torch.zeros_like(padded))
+    shifts = torch.arange(8, device=col.data.device, dtype=torch.int64) * 8
+    w64 = masked.reshape(cap, words, 8) << shifts[None, None, :]
+    folded = w64.sum(dim=-1)  # disjoint bytes: sum == or
+    for k in range(words):
+        state = mix64(state ^ (folded[:, k] * K1))
+    return mix64(state ^ col.lens.to(torch.int64))
+
+
+def hash64_columns_plain(columns: Sequence) -> torch.Tensor:
+    """Plain PyTorch version of kernel A; int64 [cap] bit patterns."""
+    state = None
+    for raw in columns:
+        for col in normalize_null_col(raw):
+            ref = col.lens if isinstance(col, StrCol) else col
+            if state is None:
+                state = torch.full(ref.shape[:1], K1, dtype=torch.int64,
+                                   device=ref.device)
+            if isinstance(col, StrCol):
+                state = _fold_str(col, state)
+            else:
+                state = mix64(state ^ (_key_word(col) * K1))
+    if state is None:
+        raise ValueError("no key columns")
+    return torch.where(state == -1, torch.full_like(state, -2), state)
+
+
+def key_leaves(columns: Sequence) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
+    """Flatten key columns into fixed-width (data, null-or-None) leaves
+    for the kernels' column descriptors; StrCol keys are refused."""
+    leaves = []
+    for col in columns:
+        data, null = (col.data, col.null) if isinstance(col, NCol) \
+            else (col, None)
+        if isinstance(data, StrCol):
+            raise NotImplementedError(
+                "string keys on CUDA are not ported yet (queued)")
+        leaves.append((data, null))
+    if not leaves:
+        raise ValueError("no key columns")
+    if len(leaves) > kernels.MAX_COLS:
+        raise ValueError(f"more than {kernels.MAX_COLS} key columns")
+    return leaves
+
+
+def _null_u8(null: torch.Tensor | None) -> torch.Tensor | None:
+    return None if null is None else null.contiguous().view(torch.uint8)
+
+
+def hash64_columns_cuda(columns: Sequence, size: int | None = None):
+    """Kernel A: (hashes int64 [cap], first slot int32 [cap] or None)."""
+    leaves = key_leaves(columns)
+    cols = kernels.RwCols()
+    cols.n = len(leaves)
+    tensors = []
+    for k, (data, null) in enumerate(leaves):
+        data = data.contiguous()
+        if data.dtype.is_floating_point:
+            raise NotImplementedError(
+                "hash of float keys is not ported yet (queued)")
+        nu8 = _null_u8(null)
+        tensors += [data] + ([nu8] if nu8 is not None else [])
+        cols.width[k] = data.element_size()
+        cols.in_data[k] = data.data_ptr()
+        cols.in_null[k] = kernels.ptr(nu8)
+    kernels.require_cuda("hash64", *tensors)
+    n = leaves[0][0].shape[0]
+    dev = leaves[0][0].device
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    slot = None
+    if size is not None:
+        if size & (size - 1):
+            raise ValueError(f"size {size} must be a power of two")
+        slot = torch.empty(n, dtype=torch.int32, device=dev)
+    fn = kernels.entry("hash64", "rw_hash64", [
+        kernels.RwCols, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_ulonglong,
+        ctypes.c_void_p])
+    kernels.count_launch("hash64")
+    rc = fn(cols, n, out.data_ptr(), kernels.ptr(slot),
+            (size - 1) if size is not None else 0, kernels.stream_ptr(dev))
+    kernels.check(rc, "hash64")
+    return out, slot
+
+
+def hash64_columns(columns: Sequence) -> torch.Tensor:
+    """64-bit mix hash of key columns, int64 [cap] (uint64 bit pattern).
+
+    CPU tensors take the plain version; CUDA tensors launch kernel A."""
+    first = columns[0].data if isinstance(columns[0], NCol) else columns[0]
+    first = first.lens if isinstance(first, StrCol) else first
+    if first.device.type == "cuda":
+        return hash64_columns_cuda(columns)[0]
+    return hash64_columns_plain(columns)
+

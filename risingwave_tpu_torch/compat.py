@@ -1,0 +1,107 @@
+"""Carry executor state between the JAX reference and the port.
+
+``state_from_numpy(tree)`` turns a reference executor state fetched to
+the host (``jax.device_get``: its ``AggState``, ``MvState``,
+``RingState``, ``HashTable``, ``WmState``, ``NCol`` and ``StrCol``
+nodes with numpy leaves) into the port's state types with torch
+tensors on ``device``; ``state_to_numpy`` maps a port state to the
+same node types of the port with numpy leaves; ``state_mismatches``
+compares the two element for element.  Nodes are recognised
+by class name and fields, so this module imports nothing of the
+reference package.
+
+Reference-only features must be empty to convert (materialized-input
+buckets, DISTINCT tables, the spill ring): the port has no counterpart
+for them yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from risingwave_tpu_torch.common.chunk import NCol, StrCol
+from risingwave_tpu_torch.state.hash_table import HashTable
+from risingwave_tpu_torch.stream.hash_agg import AggState
+from risingwave_tpu_torch.stream.materialize import MvState, RingState
+from risingwave_tpu_torch.stream.watermark import WmState
+
+_STATE_TYPES = {cls.__name__: cls
+                for cls in (AggState, MvState, RingState, WmState, NCol,
+                            StrCol)}
+#: reference AggState fields the port does not carry (must be empty)
+_REF_ONLY = ("minput_vals", "minput_occ", "distinct_tables",
+             "distinct_counts", "spill_rows", "spill_ops", "spill_count")
+
+
+def _empty(v) -> bool:
+    return len(v) == 0 if isinstance(v, tuple) else np.size(v) == 0
+
+
+def state_from_numpy(tree, device="cpu"):
+    """Reference state (numpy leaves) -> port state on ``device``."""
+    name = type(tree).__name__
+    if name == "HashTable":
+        return HashTable(
+            tuple(state_from_numpy(c, device) for c in tree.key_cols),
+            state_from_numpy(tree.occupied, device),
+            state_from_numpy(tree.tombstone, device), tree.size)
+    if name in _STATE_TYPES and hasattr(tree, "_fields"):
+        cls = _STATE_TYPES[name]
+        for f in _REF_ONLY:
+            if not _empty(getattr(tree, f, ())):
+                raise NotImplementedError(
+                    f"{name}.{f} is not ported yet (state must be empty)")
+        return cls(*(state_from_numpy(getattr(tree, f), device)
+                     for f in cls._fields))
+    if isinstance(tree, tuple):
+        return tuple(state_from_numpy(v, device) for v in tree)
+    arr = np.asarray(tree)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def state_to_numpy(tree):
+    """Port state -> the same node types with numpy leaves."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, HashTable):
+        return HashTable(tuple(state_to_numpy(c) for c in tree.key_cols),
+                         state_to_numpy(tree.occupied),
+                         state_to_numpy(tree.tombstone), tree.size)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(state_to_numpy(v) for v in tree))
+    if isinstance(tree, tuple):
+        return tuple(state_to_numpy(v) for v in tree)
+    return tree
+
+
+def state_mismatches(ref, port, path: str = "state") -> list[str]:
+    """Paths where a reference state (numpy leaves) and a port state
+    differ, element for element; empty when they are equal.  Walks the
+    port's tree and reads the reference's fields of the same names."""
+    if isinstance(port, torch.Tensor):
+        port = state_to_numpy(port)
+    if isinstance(port, HashTable):
+        return (state_mismatches(ref.key_cols, port.key_cols, f"{path}.key")
+                + state_mismatches(ref.occupied, port.occupied,
+                                   f"{path}.occupied")
+                + state_mismatches(ref.tombstone, port.tombstone,
+                                   f"{path}.tombstone"))
+    if isinstance(port, tuple) and hasattr(port, "_fields"):
+        out = []
+        for f in port._fields:
+            out += state_mismatches(getattr(ref, f), getattr(port, f),
+                                    f"{path}.{f}")
+        return out
+    if isinstance(port, tuple):
+        if len(ref) != len(port):
+            return [f"{path} (length {len(ref)} vs {len(port)})"]
+        out = []
+        for i, (r, p) in enumerate(zip(ref, port)):
+            out += state_mismatches(r, p, f"{path}[{i}]")
+        return out
+    r = np.asarray(ref)
+    if r.shape != port.shape or r.dtype != port.dtype \
+            or not np.array_equal(r, port):
+        return [path]
+    return []

@@ -1,0 +1,330 @@
+"""Nexmark event generator on the device.
+
+Port of ``risingwave_tpu/connector/nexmark.py``: every field of an
+event is a counter-based hash of (event id, field stream), so a chunk is
+a pure function of its first ordinal and generates on the device in one
+pass of elementwise torch ops.  The same ``(k0, cap)`` gives the same
+columns as the reference.
+
+PyTorch has no uint64 ``%`` or ``>>``, so the generator computes in
+int64: logical shifts mask the sign extension, and the unsigned modulo
+of a 64-bit pattern ``x`` by a positive ``b`` is
+``((x >>> 1) % b * 2 + (x & 1)) % b``.  ``_next_price`` is
+``round(10**(u*6) * 100)`` in float64; its last bits may differ from
+the reference's ``pow`` on some inputs, but not after the rounding (the
+CPU tests check that over a million event ids).
+
+Event layout per 50-event epoch (canonical proportions 1:3:46):
+offset 0 -> Person, 1..3 -> Auction, 4..49 -> Bid.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from fractions import Fraction
+
+import torch
+
+from risingwave_tpu_torch.common.chunk import Chunk, StrCol, encode_strings
+from risingwave_tpu_torch.common.device import resolve_device
+from risingwave_tpu_torch.common.hash import K1, K3, mix64, srl
+from risingwave_tpu_torch.common.types import DataType, Field, Schema
+
+PERSON_PROPORTION = 1
+AUCTION_PROPORTION = 3
+BID_PROPORTION = 46
+TOTAL_PROPORTION = 50
+
+FIRST_PERSON_ID = 1000
+FIRST_AUCTION_ID = 1000
+FIRST_CATEGORY_ID = 10
+
+NUM_CATEGORIES = 5
+HOT_AUCTION_RATIO = 100
+HOT_BIDDER_RATIO = 100
+HOT_SELLER_RATIO = 100
+ACTIVE_PEOPLE = 1000
+IN_FLIGHT_AUCTIONS = 100
+
+#: synthetic start time (unix micros) — 2015-07-15, Beam's BASE_TIME
+BASE_TIME_US = 1_436_918_400_000_000
+
+_U64 = (1 << 64) - 1
+
+
+def _signed(c: int) -> int:
+    c &= _U64
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+# ---------------------------------------------------------------------------
+# counter-based randomness (int64 bit patterns of the reference's uint64)
+
+
+def _umod(x: torch.Tensor, bound) -> torch.Tensor:
+    """Unsigned ``x % bound`` of an int64 bit pattern, ``bound`` > 0."""
+    return ((srl(x, 1) % bound) * 2 + (x & 1)) % bound
+
+
+def _rand(event_id: torch.Tensor, stream: int) -> torch.Tensor:
+    """uint64 uniform random (as int64 bits), keyed on (event id, stream)."""
+    return mix64((event_id * K1) ^ _signed(stream * K3))
+
+
+def _rand_int(event_id, stream: int, bound: int) -> torch.Tensor:
+    return _umod(_rand(event_id, stream), bound)
+
+
+def _rand_unit(event_id, stream: int) -> torch.Tensor:
+    """float64 in [0, 1)."""
+    return srl(_rand(event_id, stream), 11).to(torch.float64) / float(1 << 53)
+
+
+def _last_base0_person_id(n: torch.Tensor) -> torch.Tensor:
+    epoch = n // TOTAL_PROPORTION
+    offset = torch.clamp(n % TOTAL_PROPORTION, max=PERSON_PROPORTION - 1)
+    return epoch * PERSON_PROPORTION + offset
+
+
+def _last_base0_auction_id(n: torch.Tensor) -> torch.Tensor:
+    epoch = n // TOTAL_PROPORTION
+    offset = n % TOTAL_PROPORTION
+    before = offset < PERSON_PROPORTION
+    epoch = torch.where(before, epoch - 1, epoch)
+    offset = torch.where(
+        before, torch.full_like(offset, AUCTION_PROPORTION - 1),
+        torch.clamp(offset - PERSON_PROPORTION, max=AUCTION_PROPORTION - 1))
+    return epoch * AUCTION_PROPORTION + offset
+
+
+def _next_base0_person_id(eid: torch.Tensor, stream: int) -> torch.Tensor:
+    # the reference chains ids from the event id (seed included)
+    num_people = _last_base0_person_id(eid) + 1
+    active = torch.clamp(num_people, max=ACTIVE_PEOPLE)
+    return num_people - active + torch.minimum(
+        _rand_int(eid, stream, ACTIVE_PEOPLE + 1), active)
+
+
+def _next_base0_auction_id(eid: torch.Tensor, stream: int) -> torch.Tensor:
+    max_auction = _last_base0_auction_id(eid)
+    min_auction = torch.clamp(max_auction - IN_FLIGHT_AUCTIONS, min=0)
+    span = max_auction - min_auction + 1
+    return min_auction + _umod(_rand(eid, stream), span)
+
+
+def _next_price(eid: torch.Tensor, stream: int) -> torch.Tensor:
+    """Canonical nextPrice: round(10^(U*6) * 100) — long-tail prices."""
+    u = _rand_unit(eid, stream)
+    return torch.round(torch.pow(10.0, u * 6.0) * 100.0).to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# schemas (same as the reference's)
+
+BID_SCHEMA = Schema((
+    Field("auction", DataType.INT64),
+    Field("bidder", DataType.INT64),
+    Field("price", DataType.INT64),
+    Field("channel", DataType.VARCHAR, str_width=16),
+    Field("url", DataType.VARCHAR, str_width=40),
+    Field("date_time", DataType.TIMESTAMP),
+))
+
+AUCTION_SCHEMA = Schema((
+    Field("id", DataType.INT64),
+    Field("item_name", DataType.VARCHAR, str_width=24),
+    Field("description", DataType.VARCHAR, str_width=32),
+    Field("initial_bid", DataType.INT64),
+    Field("reserve", DataType.INT64),
+    Field("date_time", DataType.TIMESTAMP),
+    Field("expires", DataType.TIMESTAMP),
+    Field("seller", DataType.INT64),
+    Field("category", DataType.INT64),
+))
+
+PERSON_SCHEMA = Schema((
+    Field("id", DataType.INT64),
+    Field("name", DataType.VARCHAR, str_width=24),
+    Field("email_address", DataType.VARCHAR, str_width=32),
+    Field("credit_card", DataType.VARCHAR, str_width=20),
+    Field("city", DataType.VARCHAR, str_width=16),
+    Field("state", DataType.VARCHAR, str_width=4),
+    Field("date_time", DataType.TIMESTAMP),
+))
+
+SCHEMAS = {"bid": BID_SCHEMA, "auction": AUCTION_SCHEMA,
+           "person": PERSON_SCHEMA}
+
+_CHANNELS = ["Google", "Facebook", "Baidu", "Apple"]
+_CITIES = ["Phoenix", "Los Angeles", "San Francisco", "Boise", "Portland",
+           "Bend", "Redmond", "Seattle", "Kent", "Cheyenne"]
+_STATES = ["AZ", "CA", "ID", "OR", "WA", "WY"]
+_FIRST_NAMES = ["Peter", "Paul", "Luke", "John", "Saul", "Vicky", "Kate",
+                "Julie", "Sarah", "Deiter", "Walter"]
+_LAST_NAMES = ["Shultz", "Abrams", "Spencer", "White", "Bartels", "Walton",
+               "Smith", "Jones", "Noris"]
+
+
+@dataclass(frozen=True)
+class NexmarkConfig:
+    """Generator knobs."""
+
+    #: microseconds between consecutive events (event time)
+    inter_event_us: int = 10
+    base_time_us: int = BASE_TIME_US
+    seed: int = 0
+
+
+class NexmarkGenerator:
+    """Generator addressed by per-table ordinal ranges, on ``device``
+    (the GPU unless the caller names another).
+
+    ``gen_bids(k0, cap)`` returns the chunk of bids ``k0 .. k0+cap``;
+    the k-th bid is global event ``(k // 46) * 50 + 4 + (k % 46)``."""
+
+    def __init__(self, config: NexmarkConfig = NexmarkConfig(),
+                 device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        book = self._codebook
+        self._channels = book(_CHANNELS, 16)
+        self._cities = book(_CITIES, 16)
+        self._states = book(_STATES, 4)
+        self._urls = book([f"https://nexmark.io/page{i}/item"
+                           for i in range(32)], 40)
+        self._names = book([f"{f} {l}" for f in _FIRST_NAMES
+                            for l in _LAST_NAMES], 24)
+        self._emails = book([f"{f.lower()}.{l.lower()}@nexmark.io"
+                             for f in _FIRST_NAMES for l in _LAST_NAMES], 32)
+        self._items = book([f"item-lot-{i:04d}" for i in range(64)], 24)
+        self._descs = book([f"auction description {i}" for i in range(32)], 32)
+        self._cards = book([f"{i:04d} {i+1:04d} {i+2:04d} {i+3:04d}"
+                            for i in range(16)], 20)
+
+    def _codebook(self, values: list[str], width: int) -> StrCol:
+        data, lens = encode_strings(values, width)
+        return StrCol(torch.from_numpy(data).to(self.device),
+                      torch.from_numpy(lens).to(self.device))
+
+    @staticmethod
+    def _gather_str(book: StrCol, idx: torch.Tensor) -> StrCol:
+        return StrCol(book.data[idx], book.lens[idx])
+
+    def _timestamp(self, n: torch.Tensor) -> torch.Tensor:
+        return self.config.base_time_us + n * self.config.inter_event_us
+
+    def _event_id(self, n: torch.Tensor) -> torch.Tensor:
+        # the seed folds into the randomness key, not the id chain
+        return n + self.config.seed * (1 << 40)
+
+    def _ordinals(self, k0: int, cap: int) -> torch.Tensor:
+        return k0 + torch.arange(cap, dtype=torch.int64, device=self.device)
+
+    def _chunk(self, cols, schema: Schema) -> Chunk:
+        cap = cols[0].shape[0]
+        return Chunk(cols,
+                     torch.zeros(cap, dtype=torch.int8, device=self.device),
+                     torch.ones(cap, dtype=torch.bool, device=self.device),
+                     schema)
+
+    def gen_bids(self, k0: int, cap: int) -> Chunk:
+        k = self._ordinals(k0, cap)
+        n = (k // BID_PROPORTION) * TOTAL_PROPORTION + PERSON_PROPORTION \
+            + AUCTION_PROPORTION + (k % BID_PROPORTION)
+        eid = self._event_id(n)
+        hot = _rand_int(eid, 1, HOT_AUCTION_RATIO) > 0
+        hot_auction = (_last_base0_auction_id(n) // HOT_AUCTION_RATIO) \
+            * HOT_AUCTION_RATIO
+        auction = torch.where(hot, hot_auction,
+                              _next_base0_auction_id(eid, 2)) \
+            + FIRST_AUCTION_ID
+        hot_b = _rand_int(eid, 3, HOT_BIDDER_RATIO) > 0
+        hot_bidder = (_last_base0_person_id(n) // HOT_BIDDER_RATIO) \
+            * HOT_BIDDER_RATIO + 1
+        bidder = torch.where(hot_b, hot_bidder,
+                             _next_base0_person_id(eid, 4)) \
+            + FIRST_PERSON_ID
+        price = _next_price(eid, 5)
+        channel = self._gather_str(self._channels,
+                                   _rand_int(eid, 6, len(_CHANNELS)))
+        url = self._gather_str(self._urls, _rand_int(eid, 7, 32))
+        return self._chunk((auction, bidder, price, channel, url,
+                            self._timestamp(n)), BID_SCHEMA)
+
+    def gen_auctions(self, k0: int, cap: int) -> Chunk:
+        k = self._ordinals(k0, cap)
+        n = (k // AUCTION_PROPORTION) * TOTAL_PROPORTION \
+            + PERSON_PROPORTION + (k % AUCTION_PROPORTION)
+        eid = self._event_id(n)
+        auction_id = _last_base0_auction_id(n) + FIRST_AUCTION_ID
+        initial_bid = _next_price(eid, 10)
+        reserve = initial_bid + _next_price(eid, 11)
+        hot = _rand_int(eid, 12, HOT_SELLER_RATIO) > 0
+        hot_seller = (_last_base0_person_id(n) // HOT_SELLER_RATIO) \
+            * HOT_SELLER_RATIO
+        seller = torch.where(hot, hot_seller,
+                             _next_base0_person_id(eid, 13)) \
+            + FIRST_PERSON_ID
+        category = FIRST_CATEGORY_ID + _rand_int(eid, 14, NUM_CATEGORIES)
+        ts = self._timestamp(n)
+        expires = ts + (_rand_int(eid, 15, 4) + 1) \
+            * self.config.inter_event_us * TOTAL_PROPORTION * 2
+        item = self._gather_str(self._items, _rand_int(eid, 16, 64))
+        desc = self._gather_str(self._descs, _rand_int(eid, 17, 32))
+        return self._chunk((auction_id, item, desc, initial_bid, reserve,
+                            ts, expires, seller, category), AUCTION_SCHEMA)
+
+    def gen_persons(self, k0: int, cap: int) -> Chunk:
+        k = self._ordinals(k0, cap)
+        n = k * TOTAL_PROPORTION
+        eid = self._event_id(n)
+        person_id = _last_base0_person_id(n) + FIRST_PERSON_ID
+        n_names = len(_FIRST_NAMES) * len(_LAST_NAMES)
+        name = self._gather_str(self._names, _rand_int(eid, 20, n_names))
+        email = self._gather_str(self._emails, _rand_int(eid, 21, n_names))
+        card = self._gather_str(self._cards, _rand_int(eid, 22, 16))
+        city = self._gather_str(self._cities,
+                                _rand_int(eid, 23, len(_CITIES)))
+        state = self._gather_str(self._states,
+                                 _rand_int(eid, 24, len(_STATES)))
+        return self._chunk((person_id, name, email, card, city, state,
+                            self._timestamp(n)), PERSON_SCHEMA)
+
+
+class NexmarkSplitReader:
+    """A source split: a contiguous ordinal block per chunk of one table;
+    the offset (event ordinal) is the checkpointable cursor."""
+
+    def __init__(self, table: str, generator: NexmarkGenerator | None = None,
+                 chunk_capacity: int = 4096, split_id: int = 0,
+                 num_splits: int = 1, offset: int = 0):
+        self.table = table
+        self.gen = generator or NexmarkGenerator()
+        self.cap = chunk_capacity
+        self.split_id = split_id
+        self.num_splits = num_splits
+        self.offset = offset
+        self._fn = {"bid": self.gen.gen_bids,
+                    "auction": self.gen.gen_auctions,
+                    "person": self.gen.gen_persons}[table]
+
+    @property
+    def events_per_row(self) -> Fraction:
+        return {"bid": Fraction(TOTAL_PROPORTION, BID_PROPORTION),
+                "auction": Fraction(TOTAL_PROPORTION, AUCTION_PROPORTION),
+                "person": Fraction(TOTAL_PROPORTION, PERSON_PROPORTION),
+                }[self.table]
+
+    def next_base(self) -> int:
+        """Advance the cursor; the global ordinal of the next block."""
+        base = (self.offset // self.cap) * self.cap * self.num_splits \
+            + self.split_id * self.cap + (self.offset % self.cap)
+        self.offset += self.cap
+        return base
+
+    def next_chunk(self) -> Chunk:
+        return self._fn(self.next_base(), self.cap)
+
+    def state(self) -> dict:
+        return {"table": self.table, "split_id": self.split_id,
+                "offset": self.offset}

@@ -1,0 +1,125 @@
+// Shared device helpers of the port's CUDA kernels (sm_90a).
+//
+// RwCols describes up to RW_MAX_COLS fixed-width columns: for column k,
+// `width[k]` bytes per row, the input rows `in_data[k]` (a chunk's key or
+// value column), an optional store `st_data[k]` (a table's key store or an
+// MV value column) and optional uint8 null planes.  A StrCol passes as two
+// columns (its [cap, w] bytes and its int32 lens), an NCol as its payload
+// with the null plane beside it.  The struct is passed by value, so a kernel
+// reads the descriptor from its parameter space.
+//
+// rw_mix64 / rw_hash_row are the device copy of the reference's 64-bit key
+// hash (risingwave_tpu/common/hash.py `_mix64`, `hash64_columns`): a
+// splitmix64 fold of each key word, words zero-extended to 64 bits, a
+// nullable column folded as [payload-with-nulls-zeroed, null flag], and the
+// all-ones result remapped to ~1.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define RW_MAX_COLS 16
+
+struct RwCols {
+  int n;
+  int width[RW_MAX_COLS];
+  const void* in_data[RW_MAX_COLS];
+  const uint8_t* in_null[RW_MAX_COLS];
+  void* st_data[RW_MAX_COLS];
+  uint8_t* st_null[RW_MAX_COLS];
+};
+
+static constexpr uint64_t RW_K1 = 0x9E3779B97F4A7C15ull;
+static constexpr uint64_t RW_K2 = 0xBF58476D1CE4E5B9ull;
+static constexpr uint64_t RW_K3 = 0x94D049BB133111EBull;
+
+__device__ __forceinline__ uint64_t rw_mix64(uint64_t x) {
+  x = (x ^ (x >> 30)) * RW_K2;
+  x = (x ^ (x >> 27)) * RW_K3;
+  return x ^ (x >> 31);
+}
+
+// One fixed-width value, zero-extended to 64 bits (the reference views
+// int16/int32 as uint16/uint32 before widening, and bool as 0/1).
+__device__ __forceinline__ uint64_t rw_load_word(const void* base, int width,
+                                                 int64_t i) {
+  switch (width) {
+    case 1: return static_cast<const uint8_t*>(base)[i];
+    case 2: return static_cast<const uint16_t*>(base)[i];
+    case 4: return static_cast<const uint32_t*>(base)[i];
+    default: return static_cast<const uint64_t*>(base)[i];
+  }
+}
+
+__device__ __forceinline__ uint64_t rw_hash_row(const RwCols& c, int64_t i) {
+  uint64_t st = RW_K1;  // seed 0 ^ K1
+  for (int k = 0; k < c.n; ++k) {
+    const bool is_null = c.in_null[k] != nullptr && c.in_null[k][i] != 0;
+    const uint64_t w = is_null ? 0ull : rw_load_word(c.in_data[k], c.width[k], i);
+    st = rw_mix64(st ^ (w * RW_K1));
+    if (c.in_null[k] != nullptr) {
+      st = rw_mix64(st ^ (static_cast<uint64_t>(is_null) * RW_K1));
+    }
+  }
+  return st == ~0ull ? ~1ull : st;
+}
+
+// Byte-equality of row `a` of column k's store and row `b` of its input.
+__device__ __forceinline__ bool rw_value_equal(const RwCols& c, int k,
+                                               int64_t a, int64_t b) {
+  const int w = c.width[k];
+  const uint8_t* pa = static_cast<const uint8_t*>(c.st_data[k]) + a * w;
+  const uint8_t* pb = static_cast<const uint8_t*>(c.in_data[k]) + b * w;
+  switch (w) {
+    case 1: return *pa == *pb;
+    case 2: return *reinterpret_cast<const uint16_t*>(pa) ==
+                   *reinterpret_cast<const uint16_t*>(pb);
+    case 4: return *reinterpret_cast<const uint32_t*>(pa) ==
+                   *reinterpret_cast<const uint32_t*>(pb);
+    case 8: return *reinterpret_cast<const uint64_t*>(pa) ==
+                   *reinterpret_cast<const uint64_t*>(pb);
+    default:
+      for (int j = 0; j < w; ++j) {
+        if (pa[j] != pb[j]) return false;
+      }
+      return true;
+  }
+}
+
+// Grouping equality of a stored key and an input key (NULL == NULL), as
+// risingwave_tpu/state/hash_table.py `_keys_equal`.
+__device__ __forceinline__ bool rw_keys_equal(const RwCols& c, int64_t slot,
+                                              int64_t row) {
+  for (int k = 0; k < c.n; ++k) {
+    bool eq = rw_value_equal(c, k, slot, row);
+    if (c.st_null[k] != nullptr) {
+      const bool an = c.st_null[k][slot] != 0;
+      const bool bn = c.in_null[k][row] != 0;
+      eq = (an && bn) || (!an && !bn && eq);
+    }
+    if (!eq) return false;
+  }
+  return true;
+}
+
+// Copy row `src` of every input column into row `dst` of its store.
+__device__ __forceinline__ void rw_store_row(const RwCols& c, int64_t dst,
+                                             int64_t src) {
+  for (int k = 0; k < c.n; ++k) {
+    const int w = c.width[k];
+    uint8_t* pd = static_cast<uint8_t*>(c.st_data[k]) + dst * w;
+    const uint8_t* ps = static_cast<const uint8_t*>(c.in_data[k]) + src * w;
+    switch (w) {
+      case 1: *pd = *ps; break;
+      case 2: *reinterpret_cast<uint16_t*>(pd) =
+                  *reinterpret_cast<const uint16_t*>(ps); break;
+      case 4: *reinterpret_cast<uint32_t*>(pd) =
+                  *reinterpret_cast<const uint32_t*>(ps); break;
+      case 8: *reinterpret_cast<uint64_t*>(pd) =
+                  *reinterpret_cast<const uint64_t*>(ps); break;
+      default:
+        for (int j = 0; j < w; ++j) pd[j] = ps[j];
+    }
+    if (c.st_null[k] != nullptr) c.st_null[k][dst] = c.in_null[k][src];
+  }
+}

@@ -1,0 +1,174 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources live in ``risingwave_tpu_torch/csrc``: one ``.cu`` file per
+kernel plus the shared header ``rw_common.cuh``.  Each source compiles
+with ``nvcc`` into its own shared library with a plain C interface,
+named by a hash of its source, the header and the flags, under
+``build/kernels`` at the root of the checkout.  All missing libraries
+build at once (one ``nvcc`` process per source), at first use.  The
+wrappers call the C entry points through ``ctypes``: tensors pass as
+``data_ptr()`` integers, the stream is PyTorch's current stream, and
+every entry returns ``cudaGetLastError()``, which ``check`` turns into
+an exception.
+
+``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on
+the card.  Nothing here runs at import time: a CPU-only process imports
+the package without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+HEADERS = ("rw_common.cuh",)
+#: kernel name -> source file
+SOURCES = {
+    "hash64": "hash64.cu",
+    "probe": "probe.cu",
+    "agg_scatter": "agg_scatter.cu",
+    "mv_upsert": "mv_upsert.cu",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: wrapper launches per kernel (reset with ``reset_launches``)
+LAUNCHES = {name: 0 for name in SOURCES}
+
+#: max columns in one column descriptor (``RW_MAX_COLS`` in the header)
+MAX_COLS = 16
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+class RwCols(ctypes.Structure):
+    """Mirror of ``struct RwCols`` in ``rw_common.cuh``: up to
+    ``MAX_COLS`` fixed-width columns, each with an input side, a store
+    side and optional null planes (uint8)."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("width", ctypes.c_int * MAX_COLS),
+        ("in_data", ctypes.c_void_p * MAX_COLS),
+        ("in_null", ctypes.c_void_p * MAX_COLS),
+        ("st_data", ctypes.c_void_p * MAX_COLS),
+        ("st_null", ctypes.c_void_p * MAX_COLS),
+    ]
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or NVCC)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in (SOURCES[name],) + HEADERS:
+        h.update((CSRC / f).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(verbose: bool = False) -> float:
+    """Compile every kernel library that is not built yet, all in
+    parallel; returns the seconds spent.  Raises with nvcc's output on
+    failure."""
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    t0 = time.perf_counter()
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for name in todo:
+            out = _lib_path(name)
+            tmp = Path(f"{out}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+                   "-o", str(tmp), str(CSRC / SOURCES[name])]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        errors = []
+        for name, out, tmp, p in procs:
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{name}: nvcc exit {p.returncode}\n{log}")
+                continue
+            os.replace(tmp, out)
+            if verbose:
+                print(f"[build] {name}:\n{log.strip()}")
+        if errors:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of one kernel (built on first use)."""
+    lib = _libs.get(name)
+    if lib is None:
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build_all()
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                _libs[name] = lib
+    return lib
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """A C entry point of kernel ``name`` with its ctypes signature."""
+    fn = getattr(library(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` from a launch."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError {rc})")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Check that every tensor is a contiguous CUDA tensor on one card."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: tensors must share one CUDA device "
+                             f"(got {t.device})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()

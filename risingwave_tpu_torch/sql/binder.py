@@ -1,0 +1,184 @@
+"""Binder: SQL AST expressions -> typed engine expressions.
+
+Port of ``risingwave_tpu/sql/binder.py``: name resolution against the
+in-scope schema, literal typing, DATE/TIMESTAMP literal +- INTERVAL
+folding, aggregate-call extraction.  LIKE, to_char, regexp and array
+subscripts are not ported yet and raise ``BindError``.
+"""
+
+from __future__ import annotations
+
+import datetime as _dt
+from dataclasses import dataclass
+
+from risingwave_tpu_torch.common.types import DataType, Schema
+from risingwave_tpu_torch.expr import agg as agg_mod
+from risingwave_tpu_torch.expr.node import (
+    Expr,
+    FuncCall as EFuncCall,
+    InputRef,
+    Literal as ELiteral,
+    as_expr,
+)
+from risingwave_tpu_torch.sql import ast
+
+AGG_NAMES = {"count", "sum", "avg", "min", "max"}
+
+
+class BindError(ValueError):
+    pass
+
+
+@dataclass
+class Scope:
+    """Visible columns: (qualifier, name) -> input position."""
+
+    schema: Schema
+    qualifiers: tuple  # per-column table qualifier (or None)
+
+    @staticmethod
+    def of(schema: Schema, qualifier: str | None = None) -> "Scope":
+        return Scope(schema, tuple(qualifier for _ in schema))
+
+    def resolve(self, name: str, table: str | None) -> int:
+        hits = [i for i, (f, q) in enumerate(zip(self.schema, self.qualifiers))
+                if f.name == name and (table is None or q == table)]
+        if not hits:
+            raise BindError(f"column {table + '.' if table else ''}{name} "
+                            "not found")
+        if len(hits) > 1:
+            raise BindError(f"column {name} is ambiguous")
+        return hits[0]
+
+
+class Binder:
+    """Binds scalar expressions; collects aggregate calls when allowed."""
+
+    def __init__(self, scope: Scope, allow_aggs: bool = False):
+        self.scope = scope
+        self.allow_aggs = allow_aggs
+        self.agg_calls: list[agg_mod.AggCall] = []
+
+    def bind(self, e) -> Expr:
+        if isinstance(e, ast.ColumnRef):
+            return InputRef(self.scope.resolve(e.name, e.table))
+        if isinstance(e, ast.Literal):
+            return self._bind_literal(e)
+        if isinstance(e, ast.IntervalLit):
+            if e.months:
+                raise BindError("month/year intervals are supported only in "
+                                "date/timestamp literal arithmetic")
+            return ELiteral(e.micros, DataType.INTERVAL)
+        if isinstance(e, ast.UnaryOp):
+            return EFuncCall(e.op, (self.bind(e.operand),))
+        if isinstance(e, ast.BinaryOp):
+            folded = self._fold_datetime_arith(e)
+            if folded is not None:
+                return folded
+            return EFuncCall(e.op, (self.bind(e.left), self.bind(e.right)))
+        if isinstance(e, ast.Cast):
+            t = DataType.from_sql(e.type_name)
+            return EFuncCall(f"cast_{t.name.lower()}", (self.bind(e.operand),))
+        if isinstance(e, ast.FuncCall):
+            if e.name in AGG_NAMES:
+                return self._bind_agg(e)
+            if e.filter_where is not None:
+                raise BindError(f"FILTER specified, but {e.name} is not an "
+                                "aggregate function")
+            if e.name in ("like", "to_char", "array_index", "regexp_match"):
+                raise BindError(f"{e.name} is not ported yet")
+            args = tuple(self.bind(a) for a in e.args)
+            # untyped NULL literals adopt the type of a typed sibling
+            typed = [a for a in args
+                     if not (isinstance(a, ELiteral) and a.value is None)]
+            if typed and len(typed) != len(args):
+                t = typed[0].return_field(self.scope.schema).data_type
+                args = tuple(ELiteral(None, t) if isinstance(a, ELiteral)
+                             and a.value is None else a for a in args)
+            return EFuncCall(e.name, args)
+        raise BindError(f"cannot bind {e!r} (not ported yet)")
+
+    @staticmethod
+    def _bind_literal(e: ast.Literal) -> Expr:
+        if e.type_name == "string":
+            return ELiteral(e.value, DataType.VARCHAR)
+        if e.type_name == "bool":
+            return ELiteral(e.value, DataType.BOOLEAN)
+        if e.type_name == "float":
+            # PG: a decimal-point literal is NUMERIC when the scaled
+            # int64 representation holds it exactly
+            v = e.value
+            if abs(v) < 9e12 and round(v * 10**6) / 10**6 == v:
+                return ELiteral(v, DataType.DECIMAL)
+            return ELiteral(v, DataType.FLOAT64)
+        if e.type_name == "int":
+            return as_expr(e.value)
+        if e.type_name == "date":
+            return ELiteral(e.value, DataType.DATE)
+        if e.type_name == "timestamp":
+            return ELiteral(e.value, DataType.TIMESTAMP)
+        if e.type_name == "null":
+            return ELiteral(None, DataType.INT64)
+        raise BindError(f"unsupported literal {e}")
+
+    def _fold_datetime_arith(self, e: ast.BinaryOp):
+        """Constant-fold ``DATE/TIMESTAMP literal +- INTERVAL``."""
+        if e.op not in ("add", "subtract"):
+            return None
+        lit, iv = e.left, e.right
+        if not (isinstance(lit, ast.Literal)
+                and lit.type_name in ("date", "timestamp")
+                and isinstance(iv, ast.IntervalLit)):
+            return None
+        sign = 1 if e.op == "add" else -1
+        epoch = _dt.datetime(1970, 1, 1)
+        if lit.type_name == "date":
+            base = epoch + _dt.timedelta(days=lit.value)
+        else:
+            base = epoch + _dt.timedelta(microseconds=lit.value)
+        if iv.months:
+            total = base.year * 12 + (base.month - 1) + sign * iv.months
+            y, m = divmod(total, 12)
+            for day in (base.day, 30, 29, 28):
+                try:
+                    base = base.replace(year=y, month=m + 1, day=day)
+                    break
+                except ValueError:
+                    continue
+        base = base + _dt.timedelta(microseconds=sign * iv.micros)
+        if lit.type_name == "date" and base.time() == _dt.time(0, 0):
+            return ELiteral((base.date() - _dt.date(1970, 1, 1)).days,
+                            DataType.DATE)
+        return ELiteral((base - epoch) // _dt.timedelta(microseconds=1),
+                        DataType.TIMESTAMP)
+
+    def _bind_agg(self, e: ast.FuncCall) -> Expr:
+        if not self.allow_aggs:
+            raise BindError(f"aggregate {e.name} not allowed here")
+        filt = None
+        if e.filter_where is not None:
+            filt = Binder(self.scope).bind(e.filter_where)
+        if e.name == "count" and (not e.args
+                                  or isinstance(e.args[0], ast.Star)):
+            if e.distinct:
+                raise BindError("COUNT(DISTINCT *) is not valid")
+            call = agg_mod.AggCall("count_star", None, filter=filt)
+        else:
+            call = agg_mod.AggCall(e.name, self.bind(e.args[0]),
+                                   distinct=e.distinct, filter=filt)
+        self.agg_calls.append(call)
+        return AggRef(len(self.agg_calls) - 1, call)
+
+
+@dataclass(frozen=True, eq=False)
+class AggRef(Expr):
+    """The i-th aggregate output (planner placeholder)."""
+
+    index: int
+    call: agg_mod.AggCall
+
+    def return_field(self, schema):
+        return self.call.out_field(schema)
+
+    def eval(self, chunk):  # pragma: no cover - replaced by the planner
+        raise RuntimeError("AggRef must be rewritten by the planner")

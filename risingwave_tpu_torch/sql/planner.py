@@ -1,0 +1,345 @@
+"""Planner: bound SELECT -> streaming executor pipeline.
+
+Port of the ``UnaryPlan`` part of ``risingwave_tpu/sql/planner.py``:
+``_resolve_input`` for a source (with its watermark filter) and
+TUMBLE/HOP windows, ``_plan_unary``, ``_plan_agg`` and
+``_append_terminal`` (materialize by pk, or the append-only ring).  The
+plan shapes built here are the reference's, executor for executor.
+
+Not ported yet (``PlanError``/``NotImplementedError``): joins,
+subqueries, window functions, TopN, sinks, EMIT ON WINDOW CLOSE, MV-on-MV
+and the pane rewrite of HOP aggregations (q5).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+from risingwave_tpu_torch.common.types import Schema
+from risingwave_tpu_torch.expr.node import Expr, FuncCall as EFuncCall, InputRef
+from risingwave_tpu_torch.meta.catalog import Catalog
+from risingwave_tpu_torch.sql import ast
+from risingwave_tpu_torch.sql.binder import AGG_NAMES, AggRef, Binder, Scope
+from risingwave_tpu_torch.stream.executor import (
+    Executor,
+    FilterExecutor,
+    HopWindowExecutor,
+    ProjectExecutor,
+)
+from risingwave_tpu_torch.stream.fragment import Fragment
+from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+from risingwave_tpu_torch.stream.materialize import (
+    AppendOnlyMaterialize,
+    MaterializeExecutor,
+)
+from risingwave_tpu_torch.stream.watermark import WatermarkFilterExecutor
+
+
+class PlanError(ValueError):
+    pass
+
+
+@dataclass
+class PlannedInput:
+    """One stream input after FROM resolution."""
+
+    reader: Any
+    executors: list[Executor]
+    scope: Scope
+    schema: Schema
+    watermark_col: int | None
+    window_size: int | None
+    append_only: bool
+    window_slide: int | None = None
+
+
+@dataclass
+class UnaryPlan:
+    reader: Any
+    fragment: Fragment
+    mv_index: int                # executor index of the MV in the fragment
+    append_only: bool = True
+
+
+@dataclass
+class PlannerConfig:
+    """The reference's planner knobs, same names and defaults (the join,
+    TopN, spill and distinct sizes are accepted for DDL compatibility;
+    their operators are not ported yet)."""
+
+    agg_table_size: int = 1 << 16
+    agg_emit_capacity: int = 4096
+    join_table_size: int = 1 << 14
+    join_bucket_cap: int = 64
+    join_out_capacity: int = 1 << 15
+    join_left_table_size: int | None = None
+    join_right_table_size: int | None = None
+    join_left_bucket_cap: int | None = None
+    join_right_bucket_cap: int | None = None
+    join_pool_size: int = 1 << 16
+    join_force_dense: bool = False
+    topn_pool_size: int = 4096
+    topn_emit_capacity: int = 1024
+    mv_table_size: int = 1 << 16
+    mv_ring_size: int = 1 << 20
+    chunk_capacity: int = 4096
+    minput_bucket_cap: int = 64
+    distinct_table_size: "int | None" = None
+    agg_spill_ring: "int | None" = None
+    agg_spill_table_size: "int | None" = None
+
+
+class Planner:
+    def __init__(self, catalog: Catalog, config: PlannerConfig | None = None):
+        self.catalog = catalog
+        self.config = config or PlannerConfig()
+
+    def plan(self, select: ast.Select, eowc: bool = False) -> UnaryPlan:
+        if eowc:
+            raise PlanError("EMIT ON WINDOW CLOSE is not ported yet")
+        if isinstance(select.from_, (ast.Join, ast.SubqueryRef)):
+            raise PlanError("joins and subqueries are not ported yet")
+        return self._plan_unary(select)
+
+    # -- inputs ---------------------------------------------------------
+    def _resolve_input(self, from_) -> PlannedInput:
+        if isinstance(from_, ast.TableRef):
+            entry = self.catalog.get(from_.name)
+            if entry.kind != "source":
+                raise PlanError(f"{from_.name}: only streaming sources are "
+                                "ported as plan inputs (MV-on-MV is not)")
+            execs: list[Executor] = []
+            wm_col = None
+            if entry.watermark is not None:
+                col, delay = entry.watermark
+                execs.append(WatermarkFilterExecutor(entry.schema, col, delay))
+                wm_col = col
+            return PlannedInput(
+                entry.reader_factory(), execs,
+                Scope.of(entry.schema, from_.alias or from_.name),
+                entry.schema, wm_col, None, entry.append_only)
+        if isinstance(from_, (ast.Tumble, ast.Hop)):
+            inner = self._resolve_input(from_.table)
+            ts_idx = inner.scope.resolve(from_.time_col, None)
+            size = from_.size.micros
+            slide = size if isinstance(from_, ast.Tumble) \
+                else from_.slide.micros
+            hop = HopWindowExecutor(inner.schema, ts_idx, slide, size)
+            qual = from_.alias or from_.table.name
+            if from_.alias:
+                quals = tuple(qual for _ in hop.out_schema)
+            else:
+                quals = tuple(inner.scope.qualifiers) + (qual, qual)
+            return PlannedInput(
+                inner.reader, inner.executors + [hop],
+                Scope(hop.out_schema, quals), hop.out_schema,
+                inner.watermark_col, size, inner.append_only,
+                window_slide=slide)
+        raise PlanError(f"unsupported FROM clause {from_!r}")
+
+    # -- unary pipelines -------------------------------------------------
+    def _plan_unary(self, select: ast.Select) -> UnaryPlan:
+        if select.from_ is None:
+            raise PlanError("SELECT without FROM is not a streaming job")
+        if any(isinstance(i.expr, ast.WindowCall) for i in select.items):
+            raise PlanError("window functions are not ported yet")
+        pin = self._resolve_input(select.from_)
+        execs = list(pin.executors)
+        scope = pin.scope
+        if select.where is not None:
+            execs.append(FilterExecutor(scope.schema,
+                                        Binder(scope).bind(select.where)))
+        has_agg = bool(select.group_by) or self._has_agg(select)
+        pk_positions: list[int] = []
+        if has_agg:
+            self._refuse_pane_agg(pin)
+            execs2, out_schema, pk_positions = self._plan_agg(select, scope,
+                                                              pin)
+            execs.extend(execs2)
+        else:
+            if not pin.append_only:
+                raise PlanError("retractable input without aggregation is "
+                                "not ported yet")
+            b = Binder(scope)
+            proj = [(name, b.bind(e))
+                    for name, e in self._expand_items(select.items, scope)]
+            execs.append(ProjectExecutor(scope.schema, proj))
+            out_schema = execs[-1].out_schema
+        self._append_terminal(execs, out_schema, select,
+                              input_append_only=pin.append_only,
+                              has_agg=has_agg, pk_positions=pk_positions)
+        return UnaryPlan(pin.reader, Fragment(execs), len(execs) - 1,
+                         append_only=pin.append_only)
+
+    @staticmethod
+    def _refuse_pane_agg(pin: PlannedInput) -> None:
+        """The reference plans an append-only, watermarked HOP
+        aggregation through panes (planner.py:1424); that rewrite is not
+        ported yet, and the plain hop expansion would be a different
+        plan, so refuse."""
+        size, slide = pin.window_size, pin.window_slide
+        if (pin.append_only and size is not None and slide is not None
+                and slide < size and size % slide == 0
+                and pin.watermark_col is not None):
+            raise NotImplementedError(
+                "HOP aggregation (pane rewrite, Nexmark q5) is not ported "
+                "yet")
+
+    def _append_terminal(self, execs, out_schema, select, *,
+                         input_append_only: bool, has_agg: bool,
+                         pk_positions) -> None:
+        """Plan tail: materialize by pk (retractable) or into a ring."""
+        if select.order_by and select.limit is not None:
+            raise PlanError("ORDER BY ... LIMIT (TopN) is not ported yet")
+        if has_agg or not input_append_only:
+            pk = pk_positions or list(range(len(out_schema)))
+            execs.append(MaterializeExecutor(
+                out_schema, pk_indices=pk,
+                table_size=self.config.mv_table_size))
+        else:
+            execs.append(AppendOnlyMaterialize(
+                out_schema, ring_size=self.config.mv_ring_size))
+
+    # -- aggregation ------------------------------------------------------
+    def _has_agg(self, select: ast.Select) -> bool:
+        def walk(e) -> bool:
+            if isinstance(e, ast.FuncCall):
+                if e.name in AGG_NAMES:
+                    return True
+                return any(walk(a) for a in e.args
+                           if not isinstance(a, ast.Star))
+            if isinstance(e, ast.BinaryOp):
+                return walk(e.left) or walk(e.right)
+            if isinstance(e, (ast.UnaryOp, ast.Cast)):
+                return walk(e.operand)
+            if isinstance(e, ast.Case):
+                return any(walk(c) or walk(r) for c, r in e.conditions) or (
+                    e.else_result is not None and walk(e.else_result))
+            return False
+
+        return any(walk(i.expr) for i in select.items
+                   if not isinstance(i.expr, ast.Star))
+
+    def _plan_agg(self, select: ast.Select, scope: Scope,
+                  pin: PlannedInput):
+        cfg = self.config
+        group_asts = list(select.group_by)
+        in_binder = Binder(scope)
+        group_by = []
+        for gi, ga in enumerate(group_asts):
+            name = ga.name if isinstance(ga, ast.ColumnRef) else f"_key{gi}"
+            group_by.append((name, in_binder.bind(ga)))
+        if not group_by:
+            from risingwave_tpu_torch.expr.node import as_expr
+            group_by.append(("_global", as_expr(0)))
+
+        item_binder = Binder(scope, allow_aggs=True)
+        bound_items: list[tuple[str, Expr]] = []
+        for idx, item in enumerate(select.items):
+            if isinstance(item.expr, ast.Star):
+                raise PlanError("SELECT * with GROUP BY is not valid")
+            name = item.alias or self._default_name(item.expr, idx)
+            bound_items.append((name, item_binder.bind(item.expr)))
+        having_expr = None
+        if select.having is not None:
+            having_expr = item_binder.bind(select.having)
+        agg_calls = item_binder.agg_calls
+
+        # watermark-driven cleaning when a group key is the window start
+        wm_idx, lag = None, 0
+        if pin.window_size is not None and pin.watermark_col is not None:
+            for ki, ga in enumerate(group_asts):
+                if isinstance(ga, ast.ColumnRef) and ga.name == "window_start":
+                    wm_idx, lag = ki, pin.window_size
+                elif isinstance(ga, ast.ColumnRef) and ga.name == "window_end":
+                    wm_idx, lag = ki, 0
+        if wm_idx is None:
+            # the reference diverts unbounded key spaces to a spill ring
+            raise NotImplementedError(
+                "aggregation without watermark cleaning (spill ring) is "
+                "not ported yet")
+        agg = HashAggExecutor(
+            scope.schema, group_by, agg_calls,
+            table_size=cfg.agg_table_size,
+            emit_capacity=cfg.agg_emit_capacity,
+            watermark_group_idx=wm_idx, watermark_lag=lag,
+            watermark_src_col=pin.watermark_col,
+            retractable_input=not pin.append_only)
+        execs: list[Executor] = [agg]
+
+        rewritten = [(name, self._rewrite_post_agg(e, group_by,
+                                                   len(group_by)))
+                     for name, e in bound_items]
+        selected_keys = {e.index for _, e in rewritten
+                         if isinstance(e, InputRef) and e.index < len(group_by)}
+        hidden = [(f"_hidden_{agg.out_schema[ki].name}", InputRef(ki))
+                  for ki in range(len(group_by)) if ki not in selected_keys]
+        proj_items = rewritten + hidden
+        if having_expr is not None:
+            execs.append(FilterExecutor(agg.out_schema, self._rewrite_post_agg(
+                having_expr, group_by, len(group_by))))
+        post = ProjectExecutor(agg.out_schema, proj_items)
+        execs.append(post)
+        pk_pos = []
+        for ki in range(len(group_by)):
+            for pi, (_, e) in enumerate(proj_items):
+                if isinstance(e, InputRef) and e.index == ki:
+                    pk_pos.append(pi)
+                    break
+        return execs, post.out_schema, pk_pos
+
+    def _rewrite_post_agg(self, e: Expr, group_by, n_keys: int) -> Expr:
+        """Rewrite a bound select expr to read the agg output schema."""
+        if isinstance(e, AggRef):
+            return InputRef(n_keys + e.index)
+        for ki, (_, ge) in enumerate(group_by):
+            if self._expr_eq(e, ge):
+                return InputRef(ki)
+        if isinstance(e, InputRef):
+            raise PlanError("column referenced outside aggregates must "
+                            "appear in GROUP BY")
+        if isinstance(e, EFuncCall):
+            return EFuncCall(e.name, tuple(
+                self._rewrite_post_agg(a, group_by, n_keys) for a in e.args))
+        return e  # literals
+
+    @staticmethod
+    def _expr_eq(a: Expr, b: Expr) -> bool:
+        from risingwave_tpu_torch.expr.node import Literal as ELit
+
+        if type(a) is not type(b):
+            return False
+        if isinstance(a, InputRef):
+            return a.index == b.index
+        if isinstance(a, EFuncCall):
+            return a.name == b.name and len(a.args) == len(b.args) and all(
+                Planner._expr_eq(x, y) for x, y in zip(a.args, b.args))
+        if isinstance(a, ELit):
+            return a.value == b.value and a.data_type == b.data_type
+        return False
+
+    def _expand_items(self, items, scope: Scope):
+        out = []
+        for idx, item in enumerate(items):
+            if isinstance(item.expr, ast.Star):
+                want = item.expr.table
+                if want is not None and want not in scope.qualifiers:
+                    raise PlanError(f"table {want!r} in {want}.* not found")
+                for ci, f in enumerate(scope.schema):
+                    if f.name.startswith("_hidden_"):
+                        continue
+                    if want is not None and scope.qualifiers[ci] != want:
+                        continue
+                    out.append((f.name, ast.ColumnRef(f.name,
+                                                      scope.qualifiers[ci])))
+                continue
+            out.append((item.alias or self._default_name(item.expr, idx),
+                        item.expr))
+        return out
+
+    @staticmethod
+    def _default_name(e, idx: int) -> str:
+        if isinstance(e, (ast.ColumnRef, ast.FuncCall)):
+            return e.name
+        return f"col{idx}"

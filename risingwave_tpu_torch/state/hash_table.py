@@ -1,0 +1,364 @@
+"""Open-addressing hash table on the device.
+
+Port of ``HashTable`` from ``risingwave_tpu/state/hash_table.py``
+(:152-385) and ``permute_dense`` (:115).  State is a dense table of
+``size`` slots (a power of two):
+
+- ``key_cols``: one ``[size]`` tensor per key column (``NCol`` for
+  nullable keys, ``StrCol`` for strings);
+- ``occupied`` / ``tombstone``: ``bool [size]``.
+
+``lookup_or_insert`` resolves a whole chunk of keys at once with the
+reference's round-based linear probe (``_probe``): the lowest row index
+wins a contended empty slot, tombstones are skipped and never claimed,
+and rows left after ``min(size + 2, 1024)`` rounds overflow.  The slot
+layout is identical to the reference's, so state tensors compare
+element for element.  On the card the probe is kernel B
+(``csrc/probe.cu``); ``_probe_plain`` is its plain PyTorch version.
+
+Unlike the reference's pure functions, the table is updated IN PLACE:
+``lookup_or_insert``, ``clear_where`` and ``clear_slots`` write
+``occupied``, ``tombstone`` and the key store of this table and return
+it, which saves a copy of every table tensor per chunk.  Holders of an
+older view (snapshots) keep clones.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from risingwave_tpu_torch import kernels
+from risingwave_tpu_torch.common.chunk import NCol, StrCol
+from risingwave_tpu_torch.common.hash import (
+    hash64_columns_cuda,
+    hash64_columns_plain,
+    key_leaves,
+)
+
+
+def gather_key(col, idx: torch.Tensor):
+    """Key column values at ``idx`` (NCol/StrCol-aware)."""
+    if isinstance(col, NCol):
+        return NCol(gather_key(col.data, idx), col.null[idx])
+    if isinstance(col, StrCol):
+        return StrCol(col.data[idx], col.lens[idx])
+    return col[idx]
+
+
+def scatter_key_(col, idx: torch.Tensor, values) -> None:
+    """In place: ``col[idx] = values`` (indices unique)."""
+    if isinstance(col, NCol):
+        scatter_key_(col.data, idx, values.data)
+        col.null[idx] = values.null
+    elif isinstance(col, StrCol):
+        col.data[idx] = values.data
+        col.lens[idx] = values.lens
+    else:
+        col[idx] = values
+
+
+def keys_equal(a, b) -> torch.Tensor:
+    """Rowwise grouping equality (NULL == NULL)."""
+    if isinstance(a, NCol) or isinstance(b, NCol):
+        ad, an = (a.data, a.null) if isinstance(a, NCol) else (a, None)
+        bd, bn = (b.data, b.null) if isinstance(b, NCol) else (b, None)
+        data_eq = keys_equal(ad, bd)
+        if an is None:
+            an = torch.zeros_like(bn)
+        if bn is None:
+            bn = torch.zeros_like(an)
+        return (an & bn) | (~an & ~bn & data_eq)
+    if isinstance(a, StrCol):
+        return (a.data == b.data).all(dim=-1) & (a.lens == b.lens)
+    return a == b
+
+
+def _dense_op(arr, fn):
+    if isinstance(arr, NCol):
+        return NCol(_dense_op(arr.data, fn), _dense_op(arr.null, fn))
+    if isinstance(arr, StrCol):
+        return StrCol(_dense_op(arr.data, fn), _dense_op(arr.lens, fn))
+    return fn(arr)
+
+
+def permute_dense(arr, moved: torch.Tensor, init=None):
+    """``out[moved[old]] = arr[old]``; ``moved`` comes from
+    ``HashTable.rehashed`` (dead slots carry the ``size`` sentinel);
+    ``init`` fills untouched slots (zero when None)."""
+    size = moved.shape[0]
+    tgt = moved.to(torch.int64)
+
+    def move(a):
+        out = torch.zeros((size + 1,) + a.shape[1:], dtype=a.dtype,
+                          device=a.device)
+        if init is not None:
+            out.fill_(init)
+        # live targets are unique; dead slots all land on the dump row
+        out.index_put_((tgt,), a)
+        return out[:size].contiguous()
+
+    return _dense_op(arr, move)
+
+
+def _empty_key_col(proto, size: int, device):
+    if isinstance(proto, NCol):
+        return NCol(_empty_key_col(proto.data, size, device),
+                    torch.zeros(size, dtype=torch.bool, device=device))
+    if isinstance(proto, StrCol):
+        return StrCol(
+            torch.zeros((size, proto.data.shape[1]), dtype=torch.uint8,
+                        device=device),
+            torch.zeros(size, dtype=torch.int32, device=device),
+        )
+    return torch.zeros(size, dtype=proto.dtype, device=device)
+
+
+def _probe_entry():
+    return kernels.entry("probe", "rw_probe", [_ProbeArgs, ctypes.c_void_p])
+
+
+class _ProbeArgs(ctypes.Structure):
+    """Mirror of ``struct ProbeArgs`` in ``csrc/probe.cu``."""
+
+    _fields_ = [
+        ("keys", kernels.RwCols),
+        ("start", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+        ("occupied", ctypes.c_void_p), ("tombstone", ctypes.c_void_p),
+        ("slots", ctypes.c_void_p), ("inserted", ctypes.c_void_p),
+        ("pending", ctypes.c_void_p), ("off", ctypes.c_void_p),
+        ("cand", ctypes.c_void_p), ("want", ctypes.c_void_p),
+        ("claim", ctypes.c_void_p), ("n_over", ctypes.c_void_p),
+        ("cap", ctypes.c_int), ("size", ctypes.c_int),
+        ("insert", ctypes.c_int), ("max_iters", ctypes.c_int),
+    ]
+
+
+class HashTable:
+    """Keys + occupancy; value tensors live beside it in executor state."""
+
+    __slots__ = ("key_cols", "occupied", "tombstone", "size")
+
+    def __init__(self, key_cols: tuple, occupied: torch.Tensor,
+                 tombstone: torch.Tensor, size: int):
+        self.key_cols = tuple(key_cols)
+        self.occupied = occupied
+        self.tombstone = tombstone
+        self.size = size
+
+    @staticmethod
+    def create(key_protos: Sequence, size: int, device) -> "HashTable":
+        """Empty table; ``key_protos`` supply per-column dtype/width."""
+        if size & (size - 1):
+            raise ValueError(f"size {size} must be a power of two")
+        return HashTable(
+            tuple(_empty_key_col(p, size, device) for p in key_protos),
+            torch.zeros(size, dtype=torch.bool, device=device),
+            torch.zeros(size, dtype=torch.bool, device=device),
+            size,
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.occupied.device
+
+    def tombstone_count(self) -> torch.Tensor:
+        return (self.tombstone & ~self.occupied).sum(dtype=torch.int64)
+
+    # ------------------------------------------------------------------
+    def lookup(self, key_cols: Sequence, valid: torch.Tensor,
+               hashes: torch.Tensor | None = None):
+        """(slots int32 [cap], found bool [cap]) without inserting."""
+        slots, found, _ = self.lookup_counted(key_cols, valid, hashes)
+        return slots, found
+
+    def lookup_counted(self, key_cols: Sequence, valid: torch.Tensor,
+                       hashes: torch.Tensor | None = None):
+        """``lookup`` plus the probe-bound overflow count (int64 scalar)."""
+        _, slots, found, overflow, n_over = self._probe(
+            key_cols, valid, insert=False, hashes=hashes)
+        return slots, found, n_over
+
+    def lookup_or_insert(self, key_cols: Sequence, valid: torch.Tensor,
+                         hashes: torch.Tensor | None = None):
+        """Find-or-claim slots for a chunk of keys, in place.
+
+        Returns ``(self, slots int32 [cap], inserted bool [cap],
+        overflow bool [cap])``; invalid and overflowed rows get the
+        ``size`` sentinel slot."""
+        table, slots, inserted, overflow, _ = self._probe(
+            key_cols, valid, insert=True, hashes=hashes)
+        return table, slots, inserted, overflow
+
+    # ------------------------------------------------------------------
+    def _probe(self, key_cols, valid, insert: bool, hashes=None):
+        if valid.device.type == "cuda":
+            return self._probe_cuda(key_cols, valid, insert, hashes)
+        return self._probe_plain(key_cols, valid, insert, hashes)
+
+    def _start(self, hashes: torch.Tensor) -> torch.Tensor:
+        return (hashes & (self.size - 1)).to(torch.int32)
+
+    def _probe_plain(self, key_cols, valid, insert: bool, hashes=None):
+        """Plain PyTorch version of kernel B (``HashTable._probe``)."""
+        size = self.size
+        cap = valid.shape[0]
+        dev = valid.device
+        if hashes is None:
+            hashes = hash64_columns_plain(key_cols)
+        start = self._start(hashes)
+        row_idx = torch.arange(cap, dtype=torch.int32, device=dev)
+        slots = torch.full((cap,), size, dtype=torch.int32, device=dev)
+        done = ~valid
+        inserted = torch.zeros(cap, dtype=torch.bool, device=dev)
+        off = torch.zeros(cap, dtype=torch.int32, device=dev)
+        m = 4 * cap
+        for it in range(min(size + 2, 1024)):
+            if it > 0 and bool(done.all()):
+                break
+            cand = (start + off) & (size - 1)
+            cand_l = cand.to(torch.int64)
+            occ = self.occupied[cand_l]
+            tomb = self.tombstone[cand_l] & ~occ
+            match = occ.clone()
+            for s, k in zip(self.key_cols, key_cols):
+                match &= keys_equal(gather_key(s, cand_l), k)
+            hit = ~done & match
+            slots = torch.where(hit, cand, slots)
+            done = done | hit
+            if insert:
+                want = ~done & ~occ & ~tomb
+                sidx = (cand % m).to(torch.int64)
+                claim = torch.full((m + 1,), cap, dtype=torch.int32,
+                                   device=dev)
+                claim.scatter_reduce_(
+                    0, torch.where(want, sidx, torch.full_like(sidx, m)),
+                    torch.where(want, row_idx, torch.full_like(row_idx, cap)),
+                    reduce="amin")
+                won = want & (claim[sidx] == row_idx)
+                pos = cand_l[won]
+                self.occupied[pos] = True
+                for s, k in zip(self.key_cols, key_cols):
+                    scatter_key_(s, pos, gather_key(k, won))
+                slots = torch.where(won, cand, slots)
+                inserted = inserted | won
+                done = done | won
+            else:
+                done = done | (~done & ~occ & ~tomb)
+            advance = (~done & occ & ~match) | (~done & tomb)
+            off = torch.where(advance, off + 1, off)
+        overflow = ~done
+        n_over = (overflow & valid).sum(dtype=torch.int64)
+        if insert:
+            return self, slots, inserted, overflow, n_over
+        found = valid & done & ~inserted & (slots < size)
+        return self, slots, found, overflow, n_over
+
+    def _probe_cuda(self, key_cols, valid, insert: bool, hashes=None):
+        """Kernel B (``csrc/probe.cu``): one launch, no host sync."""
+        size = self.size
+        cap = valid.shape[0]
+        dev = valid.device
+        if hashes is None:
+            _, start = hash64_columns_cuda(key_cols, size)
+        else:
+            start = self._start(hashes)
+        in_leaves = key_leaves(key_cols)
+        st_leaves = key_leaves(self.key_cols)
+        if len(in_leaves) != len(st_leaves):
+            raise ValueError("key column count differs from the table's")
+        args = _ProbeArgs()
+        keys = args.keys
+        keys.n = len(in_leaves)
+        keep = []
+        for k, ((d, nl), (sd, snl)) in enumerate(zip(in_leaves, st_leaves)):
+            d = d.contiguous()
+            if d.dtype != sd.dtype or d.shape[1:] != sd.shape[1:]:
+                raise ValueError(f"key column {k}: {d.dtype} chunk column "
+                                 f"against a {sd.dtype} key store")
+            if (nl is None) != (snl is None):
+                raise ValueError(f"key column {k}: nullability differs")
+            nu8 = None if nl is None else nl.contiguous().view(torch.uint8)
+            snu8 = None if snl is None else snl.view(torch.uint8)
+            keep += [t for t in (d, sd, nu8, snu8) if t is not None]
+            keys.width[k] = d.element_size()
+            keys.in_data[k] = d.data_ptr()
+            keys.st_data[k] = sd.data_ptr()
+            keys.in_null[k] = kernels.ptr(nu8)
+            keys.st_null[k] = kernels.ptr(snu8)
+        valid_u8 = valid.contiguous().view(torch.uint8)
+        start = start.contiguous()
+        occ_u8 = self.occupied.view(torch.uint8)
+        tomb_u8 = self.tombstone.view(torch.uint8)
+        kernels.require_cuda("probe", valid_u8, start, occ_u8, tomb_u8, *keep)
+        i32 = dict(dtype=torch.int32, device=dev)
+        u8 = dict(dtype=torch.uint8, device=dev)
+        slots = torch.empty(cap, **i32)
+        inserted = torch.empty(cap, **u8)
+        pending = torch.empty(cap, **u8)
+        off = torch.empty(cap, **i32)
+        cand = torch.empty(cap, **i32)
+        want = torch.empty(cap, **u8)
+        claim = torch.empty(4 * cap, **i32)
+        n_over = torch.empty((), dtype=torch.int64, device=dev)
+        args.start, args.valid = start.data_ptr(), valid_u8.data_ptr()
+        args.occupied, args.tombstone = occ_u8.data_ptr(), tomb_u8.data_ptr()
+        args.slots, args.inserted = slots.data_ptr(), inserted.data_ptr()
+        args.pending, args.off = pending.data_ptr(), off.data_ptr()
+        args.cand, args.want = cand.data_ptr(), want.data_ptr()
+        args.claim, args.n_over = claim.data_ptr(), n_over.data_ptr()
+        args.cap, args.size = cap, size
+        args.insert = int(insert)
+        args.max_iters = min(size + 2, 1024)
+        kernels.count_launch("probe")
+        rc = _probe_entry()(args, kernels.stream_ptr(dev))
+        kernels.check(rc, "probe")
+        inserted = inserted.view(torch.bool)
+        overflow = pending.view(torch.bool)
+        if insert:
+            return self, slots, inserted, overflow, n_over
+        found = valid & ~overflow & (slots < size)
+        return self, slots, found, overflow, n_over
+
+    # ------------------------------------------------------------------
+    def clear_where(self, pred: torch.Tensor) -> "HashTable":
+        """In place: tombstone the occupied slots where ``pred`` holds."""
+        dead = pred & self.occupied
+        self.occupied &= ~dead
+        self.tombstone |= dead
+        return self
+
+    def clear_slots(self, slots: torch.Tensor, mask: torch.Tensor) -> "HashTable":
+        """In place: tombstone ``slots[mask]`` (sentinel slots dropped)."""
+        pos = torch.where(mask, slots, torch.full_like(slots, self.size))
+        occ = torch.cat([self.occupied, self.occupied.new_zeros(1)])
+        tomb = torch.cat([self.tombstone, self.tombstone.new_zeros(1)])
+        occ[pos.to(torch.int64)] = False
+        tomb[pos.to(torch.int64)] = True
+        self.occupied.copy_(occ[: self.size])
+        self.tombstone.copy_(tomb[: self.size])
+        return self
+
+    def rehashed(self) -> tuple["HashTable", torch.Tensor]:
+        """(fresh table without tombstones, moved int32 [size]) where
+        ``moved`` maps old slot -> new slot (``size`` for dead slots)."""
+        fresh = HashTable.create(
+            tuple(gather_key(c, torch.arange(1, device=self.device))
+                  for c in self.key_cols),
+            self.size, self.device)
+        fresh, new_slots, _, _ = fresh.lookup_or_insert(
+            self.key_cols, self.occupied)
+        return fresh, new_slots
+
+    def gather_keys(self, slots: torch.Tensor) -> tuple:
+        """Key values at ``slots`` (the ``size`` sentinel reads the last
+        slot, as in the reference)."""
+        safe = torch.clamp(slots, max=self.size - 1).to(torch.int64)
+        return tuple(gather_key(c, safe) for c in self.key_cols)
+
+    def clone(self) -> "HashTable":
+        return HashTable(
+            tuple(_dense_op(c, torch.clone) for c in self.key_cols),
+            self.occupied.clone(), self.tombstone.clone(), self.size)

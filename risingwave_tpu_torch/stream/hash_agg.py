@@ -1,0 +1,454 @@
+"""Hash aggregation executor (device-resident groups, emit on barrier).
+
+Port of the append-only count/sum/min/max path of
+``risingwave_tpu/stream/hash_agg.py``: ``apply`` (:368), ``flush``
+(:909), ``_outputs``, ``_interleave``, ``on_watermark``, ``clean_below``
+and ``maybe_rehash``.
+
+Groups live in a ``HashTable`` plus one ``[size]`` tensor per primitive
+state.  ``apply`` takes the reference's PER-ROW branch
+(hash_agg.py:437-444, scatters :633-644): the chunk's keys are hashed
+(kernel A), every row probes the table (kernel B), and every row's
+lifted contribution is scattered into its slot (kernel C,
+``agg_scatter``).  It is the branch the reference runs on the CPU, so
+state compares slot for slot.  The reference's accelerator branch (sort
+by hash + segmented reduce, :396-436) is not ported yet.
+
+``flush`` compacts the dirty slots into ``emit_capacity`` rows with a
+fixed-size cumsum compaction and emits U-/U+ pairs against the ``prev``
+snapshot, as the reference does.
+
+State tensors are updated IN PLACE (the table, prims, row_count, dirty,
+prev_*, emitted): one chunk or barrier never copies a ``[size]`` tensor.
+
+Not ported yet (raise): retractable min/max (``minput``), DISTINCT, the
+spill ring, EMIT ON WINDOW CLOSE.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Sequence
+
+import torch
+
+from risingwave_tpu_torch import kernels
+from risingwave_tpu_torch.common.chunk import (
+    Chunk,
+    NCol,
+    OP_DELETE,
+    OP_INSERT,
+    OP_UPDATE_DELETE,
+    OP_UPDATE_INSERT,
+    StrCol,
+    conform_col,
+    split_col,
+)
+from risingwave_tpu_torch.common.compact import mask_indices
+from risingwave_tpu_torch.common.hash import hash64_columns
+from risingwave_tpu_torch.common.types import Field, Schema
+from risingwave_tpu_torch.expr.agg import _ADD_COUNT, AggCall
+from risingwave_tpu_torch.expr.node import Expr
+from risingwave_tpu_torch.state.hash_table import HashTable, permute_dense
+from risingwave_tpu_torch.stream.executor import Executor
+
+INT64_MIN = -(1 << 63)
+
+
+class AggState(NamedTuple):
+    table: HashTable
+    prims: tuple                  # per-primitive state tensors, each [size]
+    row_count: torch.Tensor       # int64 [size]
+    dirty: torch.Tensor           # bool [size]
+    prev_prims: tuple             # snapshot at the last flush
+    prev_row_count: torch.Tensor
+    emitted: torch.Tensor         # bool [size] — group present downstream
+    overflow: torch.Tensor        # int64 scalar — rows lost to a full table
+    inconsistency: torch.Tensor   # int64 scalar — deletes hitting min/max
+    wm: torch.Tensor              # int64 scalar — latest watermark
+
+
+# ---------------------------------------------------------------------------
+# kernel C: agg_scatter
+
+_MODES = {"add": 0, "min": 1, "max": 2}
+_DTYPES = {torch.int64: 0, torch.int32: 1, torch.float64: 2}
+MAX_PRIMS = 8
+
+
+class _AggArgs(ctypes.Structure):
+    """Mirror of ``struct AggArgs`` in ``csrc/agg_scatter.cu``."""
+
+    _fields_ = [
+        ("n_prims", ctypes.c_int),
+        ("mode", ctypes.c_int * MAX_PRIMS),
+        ("dtype", ctypes.c_int * MAX_PRIMS),
+        ("state", ctypes.c_void_p * MAX_PRIMS),
+        ("value", ctypes.c_void_p * MAX_PRIMS),
+        ("init_i", ctypes.c_longlong * MAX_PRIMS),
+        ("init_f", ctypes.c_double * MAX_PRIMS),
+        ("slots", ctypes.c_void_p), ("inserted", ctypes.c_void_p),
+        ("signs", ctypes.c_void_p), ("row_count", ctypes.c_void_p),
+        ("dirty", ctypes.c_void_p),
+        ("cap", ctypes.c_int), ("size", ctypes.c_int),
+    ]
+
+
+def agg_scatter_plain(prims, modes, inits, values, slots, inserted, signs,
+                      row_count, dirty) -> None:
+    """Plain PyTorch version of kernel C, in place: reset the states of
+    freshly claimed slots to ``inits``, then scatter-add/min/max each
+    row's ``values[p]`` into ``prims[p]`` at its slot, add ``signs``
+    into ``row_count`` and mark the slot dirty.  Sentinel slots
+    (``== size``) are dropped."""
+    size = row_count.shape[0]
+    ins = slots[inserted & (slots < size)].to(torch.int64)
+    live = slots < size
+    idx = slots[live].to(torch.int64)
+    reduce = {"add": "sum", "min": "amin", "max": "amax"}
+    for p, mode, init, val in zip(prims, modes, inits, values):
+        p[ins] = init
+        p.scatter_reduce_(0, idx, val[live].to(p.dtype), reduce=reduce[mode])
+    row_count[ins] = 0
+    row_count.index_add_(0, idx, signs[live])
+    dirty[idx] = True
+
+
+def agg_scatter_cuda(prims, modes, inits, values, slots, inserted, signs,
+                     row_count, dirty) -> None:
+    """Kernel C (``csrc/agg_scatter.cu``): two launches, in place."""
+    if len(prims) > MAX_PRIMS:
+        raise ValueError(f"more than {MAX_PRIMS} primitive states")
+    args = _AggArgs()
+    args.n_prims = len(prims)
+    keep = []
+    for k, (p, mode, init, val) in enumerate(zip(prims, modes, inits, values)):
+        if p.dtype not in _DTYPES or (p.dtype == torch.float64
+                                      and mode != "add"):
+            raise NotImplementedError(
+                f"{mode} over {p.dtype} states is not ported to CUDA yet")
+        val = val.to(p.dtype).contiguous()
+        keep += [p, val]
+        args.mode[k] = _MODES[mode]
+        args.dtype[k] = _DTYPES[p.dtype]
+        args.state[k] = p.data_ptr()
+        args.value[k] = val.data_ptr()
+        if p.dtype == torch.float64:
+            args.init_f[k] = float(init)
+        else:
+            args.init_i[k] = int(init)
+    slots = slots.contiguous()
+    ins_u8 = inserted.contiguous().view(torch.uint8)
+    signs = signs.to(torch.int64).contiguous()
+    dirty_u8 = dirty.view(torch.uint8)
+    kernels.require_cuda("agg_scatter", slots, ins_u8, signs, row_count,
+                         dirty_u8, *keep)
+    args.slots, args.inserted = slots.data_ptr(), ins_u8.data_ptr()
+    args.signs, args.row_count = signs.data_ptr(), row_count.data_ptr()
+    args.dirty = dirty_u8.data_ptr()
+    args.cap, args.size = slots.shape[0], row_count.shape[0]
+    fn = kernels.entry("agg_scatter", "rw_agg_scatter",
+                       [_AggArgs, ctypes.c_void_p])
+    kernels.count_launch("agg_scatter")
+    kernels.check(fn(args, kernels.stream_ptr(slots.device)), "agg_scatter")
+
+
+def agg_scatter(prims, modes, inits, values, slots, inserted, signs,
+                row_count, dirty) -> None:
+    """In-place agg state update; CUDA tensors launch kernel C."""
+    impl = agg_scatter_cuda if slots.device.type == "cuda" \
+        else agg_scatter_plain
+    impl(prims, modes, inits, values, slots, inserted, signs, row_count,
+         dirty)
+
+
+# ---------------------------------------------------------------------------
+
+
+def interleave(old, new):
+    """[n] + [n] -> [2n] with old at even, new at odd positions."""
+    if isinstance(old, NCol):
+        return NCol(interleave(old.data, new.data),
+                    interleave(old.null, new.null))
+    if isinstance(old, StrCol):
+        return StrCol(interleave(old.data, new.data),
+                      interleave(old.lens, new.lens))
+    return torch.stack([old, new], dim=1).reshape(
+        (old.shape[0] * 2,) + tuple(old.shape[1:]))
+
+
+def slot_mask(slots: torch.Tensor, size: int) -> torch.Tensor:
+    """bool [size]: True at the live entries of ``slots`` (the ``size``
+    sentinel lands on a dump entry that is cut off)."""
+    m = torch.zeros(size + 1, dtype=torch.bool, device=slots.device)
+    m[slots.to(torch.int64)] = True
+    return m[:size]
+
+
+class HashAggExecutor(Executor):
+    """GROUP BY aggregation over a device hash table."""
+
+    emits_on_apply = False
+    emits_on_flush = True
+
+    def __init__(
+        self,
+        in_schema: Schema,
+        group_by: Sequence[tuple[str, Expr]],
+        aggs: Sequence[AggCall],
+        table_size: int = 1 << 16,
+        emit_capacity: int = 4096,
+        watermark_group_idx: int | None = None,
+        watermark_lag: int = 0,
+        watermark_src_col: int | None = None,
+        emit_on_window_close: bool = False,
+        retractable_input: bool = False,
+    ):
+        super().__init__(in_schema)
+        self.group_by = tuple(group_by)
+        self.aggs = tuple(aggs)
+        if emit_on_window_close:
+            raise NotImplementedError(
+                "EMIT ON WINDOW CLOSE aggregation is not ported yet")
+        for a in self.aggs:
+            if a.distinct and a.kind not in ("min", "max"):
+                raise NotImplementedError("DISTINCT aggregates are not "
+                                          "ported yet")
+            if retractable_input and a.kind in ("min", "max"):
+                raise NotImplementedError(
+                    "min/max over a retractable input (materialized-input "
+                    "state) is not ported yet")
+        self.watermark_group_idx = watermark_group_idx
+        self.watermark_lag = watermark_lag
+        self.watermark_src_col = watermark_src_col
+        self.table_size = table_size
+        self.emit_capacity = emit_capacity
+        key_fields = []
+        for name, e in self.group_by:
+            f = e.return_field(in_schema)
+            key_fields.append(Field(name, f.data_type, str_width=f.str_width,
+                                    decimal_scale=f.decimal_scale,
+                                    nullable=f.nullable))
+        agg_fields = tuple(a.out_field(in_schema) for a in self.aggs)
+        self._out_schema = Schema(tuple(key_fields) + agg_fields)
+        self._prim_specs = [(ai, ps) for ai, a in enumerate(self.aggs)
+                            for ps in a.spec().states]
+        # hidden non-null-count prims: an aggregate whose argument rows
+        # are all NULL (or all filtered out) outputs NULL
+        self._nn_prim: dict[int, int] = {}
+        for ai, a in enumerate(self.aggs):
+            if a.arg is None or a.kind in ("count", "count_star"):
+                continue
+            if a.arg.return_field(in_schema).nullable or a.filter is not None:
+                self._nn_prim[ai] = len(self._prim_specs)
+                self._prim_specs.append((ai, _ADD_COUNT))
+
+    @property
+    def out_schema(self) -> Schema:
+        return self._out_schema
+
+    # ------------------------------------------------------------------
+    def _key_protos(self, device):
+        protos = []
+        for _, e in self.group_by:
+            f = e.return_field(self.in_schema)
+            if f.data_type.is_string:
+                p = StrCol(torch.zeros((1, f.str_width), dtype=torch.uint8,
+                                       device=device),
+                           torch.zeros(1, dtype=torch.int32, device=device))
+            else:
+                p = torch.zeros(1, dtype=f.data_type.physical_dtype,
+                                device=device)
+            if f.nullable:
+                p = NCol(p, torch.zeros(1, dtype=torch.bool, device=device))
+            protos.append(p)
+        return protos
+
+    def _input_dtype(self, agg_idx: int) -> torch.dtype:
+        a = self.aggs[agg_idx]
+        if a.arg is None:
+            return torch.int64
+        return a.arg.return_field(self.in_schema).data_type.physical_dtype
+
+    def _make_prims(self, device) -> tuple:
+        out = []
+        for agg_idx, ps in self._prim_specs:
+            dt = ps.dtype(self._input_dtype(agg_idx))
+            out.append(torch.full((self.table_size,), ps.init(dt), dtype=dt,
+                                  device=device))
+        return tuple(out)
+
+    def init_state(self, device) -> AggState:
+        size = self.table_size
+        i64 = dict(dtype=torch.int64, device=device)
+        return AggState(
+            table=HashTable.create(self._key_protos(device), size, device),
+            prims=self._make_prims(device),
+            row_count=torch.zeros(size, **i64),
+            dirty=torch.zeros(size, dtype=torch.bool, device=device),
+            prev_prims=self._make_prims(device),
+            prev_row_count=torch.zeros(size, **i64),
+            emitted=torch.zeros(size, dtype=torch.bool, device=device),
+            overflow=torch.zeros((), **i64),
+            inconsistency=torch.zeros((), **i64),
+            wm=torch.full((), INT64_MIN, **i64),
+        )
+
+    # ------------------------------------------------------------------
+    def apply(self, state: AggState, chunk: Chunk):
+        """Apply one chunk: hash, probe and scatter per row, in place."""
+        signs = chunk.signs()
+        valid = chunk.valid
+        cap = chunk.capacity
+        key_cols = [conform_col(e.eval(chunk),
+                                e.return_field(self.in_schema).nullable, cap)
+                    for _, e in self.group_by]
+        h = hash64_columns(key_cols)
+        table, slots, inserted, overflow = state.table.lookup_or_insert(
+            key_cols, valid, hashes=h)
+        n_over = (overflow & valid).sum(dtype=torch.int64)
+
+        modes, inits, values = [], [], []
+        arg_cache: dict[int, object] = {}
+        for pi, (agg_idx, ps) in enumerate(self._prim_specs):
+            a = self.aggs[agg_idx]
+            if a.arg is None:
+                col = torch.ones(cap, dtype=torch.int64, device=chunk.device)
+            else:
+                if agg_idx not in arg_cache:
+                    arg_cache[agg_idx] = a.arg.eval(chunk)
+                col = arg_cache[agg_idx]
+            col, col_null = split_col(col)
+            if isinstance(col, StrCol):
+                raise NotImplementedError(
+                    "aggregates over strings are not ported yet")
+            prim_signs = signs
+            if col_null is not None:
+                # NULL arguments contribute nothing: zero sign and payload
+                col = torch.where(col_null, torch.zeros_like(col), col)
+                prim_signs = torch.where(col_null, torch.zeros_like(signs),
+                                         signs)
+            if a.filter is not None:
+                fcol, fnull = split_col(a.filter.eval(chunk))
+                fm = fcol if fnull is None else fcol & ~fnull
+                prim_signs = torch.where(fm, prim_signs,
+                                         torch.zeros_like(prim_signs))
+            modes.append(ps.mode)
+            inits.append(ps.init(state.prims[pi].dtype))
+            values.append(ps.lift(col, prim_signs))
+        agg_scatter(list(state.prims), modes, inits, values, slots, inserted,
+                    signs.to(torch.int64), state.row_count, state.dirty)
+
+        n_bad = torch.zeros((), dtype=torch.int64, device=chunk.device)
+        if any(not a.spec().retractable for a in self.aggs):
+            n_bad = (valid & (signs < 0)).sum(dtype=torch.int64)
+        return state._replace(
+            table=table,
+            overflow=state.overflow + n_over,
+            inconsistency=state.inconsistency + n_bad,
+        ), None
+
+    # ------------------------------------------------------------------
+    def _outputs(self, prims: tuple, row_count, slots):
+        """Per-emitted-slot output columns from the state tensors."""
+        safe = torch.clamp(slots, max=self.table_size - 1).to(torch.int64)
+        cols = []
+        pi = 0
+        for ai, a in enumerate(self.aggs):
+            spec = a.spec()
+            n = len(spec.states)
+            st = tuple(prims[pi + k][safe] for k in range(n))
+            pi += n
+            out_f = self._out_schema[len(self.group_by) + ai]
+            out = spec.output(st, row_count[safe], out_f)
+            if ai in self._nn_prim:
+                out = NCol(out, prims[self._nn_prim[ai]][safe] == 0)
+            cols.append(out)
+        return cols
+
+    def flush(self, state: AggState, epoch):
+        """Emit up to ``emit_capacity`` dirty groups as a changelog chunk
+        of interleaved (old, new) rows; un-emitted dirty groups stay dirty
+        for the runtime's next drain round."""
+        cap = self.emit_capacity
+        size = self.table_size
+        slots = mask_indices(state.dirty, cap, size)
+        slot_live = slots < size
+        safe = torch.clamp(slots, max=size - 1).to(torch.int64)
+        old_nonempty = state.prev_row_count[safe] > 0
+        new_nonempty = state.row_count[safe] > 0
+        del_side = slot_live & state.emitted[safe] & old_nonempty
+        ins_side = slot_live & new_nonempty
+
+        key_vals = state.table.gather_keys(slots)
+        old_cols = self._outputs(state.prev_prims, state.prev_row_count,
+                                 slots)
+        new_cols = self._outputs(state.prims, state.row_count, slots)
+        out_cols = [interleave(k, k) for k in key_vals]
+        out_cols += [interleave(o, n) for o, n in zip(old_cols, new_cols)]
+
+        both = del_side & ins_side
+        i8 = lambda v: torch.full_like(both, v, dtype=torch.int8)  # noqa: E731
+        op_even = torch.where(both, i8(OP_UPDATE_DELETE), i8(OP_DELETE))
+        op_odd = torch.where(both, i8(OP_UPDATE_INSERT), i8(OP_INSERT))
+        out = Chunk(out_cols, interleave(op_even, op_odd),
+                    interleave(del_side, ins_side), self._out_schema)
+
+        # persist current as prev for the emitted slots; clear their dirt
+        sel = slot_mask(slots, size)
+        for p, c in zip(state.prev_prims, state.prims):
+            torch.where(sel, c, p, out=p)
+        torch.where(sel, state.row_count, state.prev_row_count,
+                    out=state.prev_row_count)
+        torch.where(sel, state.row_count > 0, state.emitted,
+                    out=state.emitted)
+        state.dirty.logical_and_(~sel)
+        return state, out
+
+    def pending_flush(self, state: AggState) -> torch.Tensor:
+        return state.dirty.sum(dtype=torch.int64)
+
+    def on_watermark(self, state: AggState, watermark):
+        if self.watermark_group_idx is None:
+            return state
+        if (self.watermark_src_col is not None
+                and watermark.col_idx != self.watermark_src_col):
+            return state
+        state = state._replace(wm=torch.maximum(state.wm, watermark.value))
+        return self.clean_below(state, self.watermark_group_idx,
+                                watermark.value - self.watermark_lag)
+
+    def clean_below(self, state: AggState, key_col_idx: int, threshold):
+        """Drop groups whose group key ``key_col_idx`` is below
+        ``threshold`` (watermark state cleaning), in place."""
+        key, key_null = split_col(state.table.key_cols[key_col_idx])
+        stale = state.table.occupied & (key < threshold)
+        if key_null is not None:
+            stale &= ~key_null
+        state.table.clear_where(stale)
+        state.row_count.masked_fill_(stale, 0)
+        state.dirty.logical_and_(~stale)
+        state.prev_row_count.masked_fill_(stale, 0)
+        state.emitted.logical_and_(~stale)
+        return state
+
+    def maybe_rehash(self, state: AggState) -> AggState:
+        """Rebuild the group table once tombstones exceed a quarter of it
+        (maintenance-time; reads the tombstone count back)."""
+        if int(state.table.tombstone_count()) <= self.table_size // 4:
+            return state
+        fresh, moved = state.table.rehashed()
+        prims, prev_prims = [], []
+        for pi, (_, ps) in enumerate(self._prim_specs):
+            init = ps.init(state.prims[pi].dtype)
+            prims.append(permute_dense(state.prims[pi], moved, init))
+            prev_prims.append(permute_dense(state.prev_prims[pi], moved, init))
+        return state._replace(
+            table=fresh,
+            prims=tuple(prims),
+            row_count=permute_dense(state.row_count, moved),
+            dirty=permute_dense(state.dirty, moved),
+            prev_prims=tuple(prev_prims),
+            prev_row_count=permute_dense(state.prev_row_count, moved),
+            emitted=permute_dense(state.emitted, moved),
+        )

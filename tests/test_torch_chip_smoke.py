@@ -1,0 +1,46 @@
+"""``chip_smoke.py`` on a machine without a GPU.
+
+It must refuse to report a result (non-zero exit, nothing on stdout)
+without a card or outside a checkout, and its ``--rehearse`` mode must
+run every phase through the plain versions on the CPU.
+"""
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _run(args, cwd):
+    return subprocess.run([sys.executable, *args], cwd=cwd,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_no_gpu_exits_without_result():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the no-GPU exit is not "
+                    "observable here")
+    out = _run(["chip_smoke.py"], ROOT)
+    assert out.returncode == 2
+    assert out.stdout == ""
+
+
+def test_outside_a_checkout_exits_without_result(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run(["chip_smoke.py"], tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_rehearsal_runs_every_phase_on_cpu():
+    out = _run(["chip_smoke.py", "--rehearse"], ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    for tag in ("[hash64] exact", "[probe] exact", "[agg_scatter] exact",
+                "[mv_upsert] exact", "[check] MV equals numpy"):
+        assert tag in out.stdout
+    assert '"ok"' not in out.stdout

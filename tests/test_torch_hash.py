@@ -1,0 +1,117 @@
+"""Port parity: the 64-bit key hash (kernel A's plain version).
+
+The same numpy inputs go through ``risingwave_tpu.common.hash`` and
+``risingwave_tpu_torch.common.hash`` on the CPU.  Tolerance: none — the
+hash is integer arithmetic, so every comparison is bit for bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from risingwave_tpu.common import hash as jhash
+from risingwave_tpu.common.chunk import NCol as JNCol, StrCol as JStrCol
+from risingwave_tpu_torch.common import hash as thash
+from risingwave_tpu_torch.common.chunk import NCol, StrCol
+
+N = 2000
+U64 = (1 << 64) - 1
+
+
+def _cols(kind: str, seed: int):
+    """(reference columns, port columns) of one key shape."""
+    rng = np.random.default_rng(seed)
+    i64 = rng.integers(-2**63, 2**63 - 1, N, dtype=np.int64)
+    i64[: N // 4] = i64[: N // 4] % 5           # duplicates
+    i32 = rng.integers(-2**31, 2**31 - 1, N, dtype=np.int32)
+    i16 = rng.integers(-2**15, 2**15 - 1, N, dtype=np.int16)
+    b = rng.random(N) < 0.5
+    null = rng.random(N) < 0.3
+    j, t = jnp.asarray, torch.from_numpy
+    if kind == "int64":
+        return [j(i64)], [t(i64)]
+    if kind == "int32":
+        return [j(i32)], [t(i32)]
+    if kind == "int16":
+        return [j(i16)], [t(i16)]
+    if kind == "bool":
+        return [j(b)], [t(b)]
+    if kind == "int64 nullable":
+        return [JNCol(j(i64), j(null))], [NCol(t(i64), t(null))]
+    if kind == "multi":
+        return ([j(i64), JNCol(j(i32), j(null)), j(b)],
+                [t(i64), NCol(t(i32), t(null)), t(b)])
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("kind", ["int64", "int32", "int16", "bool",
+                                  "int64 nullable", "multi"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hash64_columns_bit_identical(kind, seed):
+    jcols, tcols = _cols(kind, seed)
+    want = np.asarray(jhash.hash64_columns(jcols))
+    got = thash.hash64_columns(tcols).numpy().view(np.uint64)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_hash64_nulls_zeroed_payload():
+    """NULL rows hash alike whatever their payload (grouping equality)."""
+    data = torch.tensor([1, 2, 3, 4], dtype=torch.int64)
+    null = torch.tensor([True, True, False, False])
+    h = thash.hash64_columns([NCol(data, null)])
+    assert h[0] == h[1] and h[2] != h[3]
+
+
+def test_hash64_string_keys_plain():
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 256, (N, 12), dtype=np.uint8)
+    lens = rng.integers(0, 13, N).astype(np.int32)
+    want = np.asarray(jhash.hash64_columns(
+        [JStrCol(jnp.asarray(data), jnp.asarray(lens))]))
+    got = thash.hash64_columns(
+        [StrCol(torch.from_numpy(data), torch.from_numpy(lens))])
+    np.testing.assert_array_equal(got.numpy().view(np.uint64), want)
+
+
+def test_hash64_matches_numpy_host_twin():
+    vals = np.random.default_rng(9).integers(-2**63, 2**63 - 1, 5000,
+                                             dtype=np.int64)
+    got = thash.hash64_columns([torch.from_numpy(vals)]).numpy()
+    np.testing.assert_array_equal(got.view(np.uint64),
+                                  jhash.hash64_i64_host(vals))
+
+
+def _inv_xorshift(y: int, s: int) -> int:
+    x = y
+    for _ in range(64 // s + 1):
+        x = y ^ (x >> s)
+    return x & U64
+
+
+def _key_hashing_to_all_ones() -> int:
+    """The int64 key whose unfinalized hash is ~0 (the mix inverted)."""
+    k1, k2, k3 = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9,
+                  0x94D049BB133111EB)
+    x = _inv_xorshift(U64, 31)
+    x = _inv_xorshift(x * pow(k3, -1, 1 << 64) & U64, 27)
+    x = _inv_xorshift(x * pow(k2, -1, 1 << 64) & U64, 30)
+    u = ((x ^ k1) * pow(k1, -1, 1 << 64)) & U64
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+def test_hash64_all_ones_remapped():
+    """A key hashing to ~0 maps to ~1, in the port as in the reference."""
+    key = np.array([_key_hashing_to_all_ones(), 7], dtype=np.int64)
+    want = np.asarray(jhash.hash64_columns([jnp.asarray(key)]))
+    got = thash.hash64_columns([torch.from_numpy(key)]).numpy()
+    assert want[0] == np.uint64(U64 - 1)
+    np.testing.assert_array_equal(got.view(np.uint64), want)
+    np.testing.assert_array_equal(got.view(np.uint64),
+                                  jhash.hash64_i64_host(key))
+
+
+def test_string_keys_refused_on_cuda_descriptor():
+    with pytest.raises(NotImplementedError):
+        thash.key_leaves([StrCol(torch.zeros((2, 4), dtype=torch.uint8),
+                                 torch.zeros(2, dtype=torch.int32))])
