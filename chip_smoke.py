@@ -6,17 +6,24 @@
 1. builds the hand-written CUDA kernels from ``risingwave_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) and prints the build time;
 2. holds each kernel against its plain PyTorch version on the card at
-   the shapes Nexmark q7 gives it (8192-row chunks, 2^18-slot tables
-   half full, with tombstones), requiring exact equality, and times
-   kernel, plain version, one PyTorch library call where one exists,
-   and the card's bound for the same bytes;
-3. runs q7 through the port's ``Engine`` at ``bench.py``'s sizes (9
-   warm-up barriers, then 32 timed barriers of 8 chunks) with the
-   launch counters set to 0 just before and read just after, and
-   requires every kernel to have launched;
-4. checks the MV against a numpy recomputation of max(price) and
-   count(*) per 10-second window over the bids the port generated;
-5. prints the ``kernels`` JSON line, the card's name and power limit,
+   the shapes the Nexmark q1/q5/q7 main paths give it (8192-row chunks,
+   2^18-slot tables, 2^23-row ring, 5x hop expansion of the pane
+   deltas), requiring exact equality, and times kernel, plain version,
+   one PyTorch library call where one exists, and the card's bound for
+   the same bytes;
+3. runs q7, q5 and q1 at 2 events/s through the port's ``Engine`` on
+   the card and on the CPU (plain versions, the agg forced onto the
+   card's pre-aggregation branch) and requires equal MV rows and equal
+   state, slot for slot;
+4. runs q1, q5 and q7, each in a fresh ``Engine`` at ``bench.py``'s
+   sizes (9 warm-up barriers, then 32 timed barriers of 8 chunks) with
+   the launch counters set to 0 just before and read just after each
+   timed window, and requires every kernel of that query's path to
+   have launched;
+5. checks each MV against a numpy recomputation over the bids the port
+   generated: q7's max(price) and count(*) per 10-second window, q5's
+   bid count per (auction, hop window), q1's ring rows;
+6. prints the ``kernels`` JSON line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ok line.  Without a GPU, or
@@ -41,12 +48,23 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
-Q7_CONFIG = dict(chunk_capacity=8192, agg_table_size=1 << 18,
-                 agg_emit_capacity=4096, mv_table_size=1 << 18)
+#: bench.py's PlannerConfig for the three queries (ring 2^23 for q1)
+BENCH_CONFIG = dict(chunk_capacity=8192, agg_table_size=1 << 18,
+                    agg_emit_capacity=4096, mv_table_size=1 << 18)
 WARMUP_BARRIERS = 9
 BARRIERS = 32
 CHUNKS_PER_BARRIER = 8
 WINDOW_US = 10_000_000
+HOP_SLIDE_US = 2_000_000
+QUERIES = ("q1", "q5", "q7")
+#: the kernels each query's main path must launch
+PATH_KERNELS = {
+    "q1": ("nexmark_bids", "ring_append"),
+    "q5": ("nexmark_bids", "hop_window", "hash64", "agg_preagg", "probe",
+           "agg_scatter", "mask_indices", "mv_upsert"),
+    "q7": ("nexmark_bids", "hop_window", "hash64", "agg_preagg", "probe",
+           "agg_scatter", "mask_indices", "mv_upsert"),
+}
 
 
 def fail(msg: str, code: int = 1):
@@ -54,9 +72,22 @@ def fail(msg: str, code: int = 1):
     sys.exit(code)
 
 
+#: device cycles per millisecond used to size the queue pre-fill (the
+#: H100 SXM's 1980 MHz boost clock; a slower clock only sleeps longer)
+CYCLES_PER_MS = 1.98e6
+#: host time per call the pre-fill covers (wrappers take ~20-100 us)
+PREFILL_MS_PER_CALL = 0.4
+
+
 class Timer:
     """Mean milliseconds per call of ``fn(i)`` over ``iters`` calls:
-    CUDA events on the card, the host clock in a CPU rehearsal."""
+    CUDA events on the card, the host clock in a CPU rehearsal.
+
+    On the card a sleep kernel first fills the stream, so the calls are
+    queued behind it and the events time the device's work, not the
+    host's launch gaps (a call that synchronises still pays for its
+    wait).  A timing whose enqueue outlasted the sleep includes host
+    time, and a ``[timer]`` line before the phase's result says so."""
 
     def __init__(self, torch, device):
         self.torch = torch
@@ -69,10 +100,18 @@ class Timer:
             torch.cuda.synchronize()
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
+            sleep_ms = min(iters * PREFILL_MS_PER_CALL, 200.0)
+            torch.cuda._sleep(int(sleep_ms * CYCLES_PER_MS))
+            t0 = time.perf_counter()
             e0.record()
             for i in range(iters):
                 fn(i)
             e1.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            if host_ms > sleep_ms:
+                print(f"[timer] {iters} calls took {host_ms:.1f} ms to "
+                      f"enqueue, past the {sleep_ms:.0f} ms pre-fill: their "
+                      "time, reported below, includes host time", flush=True)
             torch.cuda.synchronize()
             return e0.elapsed_time(e1) / iters
         t0 = time.perf_counter()
@@ -89,7 +128,8 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
 
 def max_abs_err(torch, pairs) -> float:
     """Max |a - b| over pairs of tensors; any difference fails the run
-    (every comparison here is exact: the q7 path is integer)."""
+    (every comparison here is exact: the paths are integer, and the
+    float64 prices are compared after rounding, bit for bit)."""
     for name, a, b in pairs:
         if a.shape != b.shape or a.dtype != b.dtype:
             fail(f"{name}: {tuple(a.shape)} {a.dtype} vs "
@@ -127,6 +167,7 @@ def main() -> int:
         print(f"[build] kernels built in {secs:.1f} s "
               f"({', '.join(kernels.SOURCES.values())})", flush=True)
 
+    # -- 2. kernel phases -------------------------------------------------
     timer = Timer(torch, device)
     scale = 1 if device.type == "cuda" else 64
     results = {}
@@ -134,14 +175,33 @@ def main() -> int:
     results["probe"] = phase_probe(torch, device, timer, scale)
     results["agg_scatter"] = phase_agg(torch, device, timer, scale)
     results["mv_upsert"] = phase_mv(torch, device, timer, scale)
-    phase_engine_parity(torch, device)
+    results["agg_preagg"] = phase_preagg(torch, device, timer, scale)
+    results["mask_indices"] = phase_mask_indices(torch, device, timer, scale)
+    results["ring_append"] = phase_ring(torch, device, timer, scale)
+    results["nexmark_bids"] = phase_bids(torch, device, timer, scale)
+    results["hop_window"] = phase_hop(torch, device, timer, scale)
+    if set(results) != set(kernels.KERNELS):
+        fail(f"kernel phases {sorted(results)} do not cover "
+             f"{sorted(kernels.KERNELS)}")
 
-    # -- 3. main path ---------------------------------------------------
-    launches, rate = phase_main_path(torch, device, scale)
-    for name, n in launches.items():
-        results[name]["launches"] = n
-        if device.type == "cuda" and n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    # -- 3. card against CPU --------------------------------------------
+    for query in ("q7", "q5", "q1"):
+        phase_engine_parity(torch, device, query)
+
+    # -- 4-5. main paths --------------------------------------------------
+    rates = {}
+    for r in results.values():
+        r["launches"] = 0
+        r["launches_by_query"] = {}
+    for query in QUERIES:
+        launches, rates[query] = phase_main_path(torch, device, scale, query)
+        for name, n in launches.items():
+            results[name]["launches"] += n
+            results[name]["launches_by_query"][query] = n
+        missing = [k for k in PATH_KERNELS[query] if launches[k] <= 0]
+        if device.type == "cuda" and missing:
+            fail(f"{query}: kernels {missing} were not launched on the "
+                 "main path")
 
     line = {"kernels": [dict(name=name, **r) for name, r in results.items()]}
     print(json.dumps(line))
@@ -151,7 +211,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
-    print(f"[main] q7 rows/s {rate:.0f}")
+    for query in QUERIES:
+        print(f"[main] {query} rows/s {rates[query]:.0f}")
     print(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -410,8 +471,233 @@ def phase_mv(torch, device, timer, scale):
                         ms, plain_ms, b, library_ms, err)
 
 
+def phase_preagg(torch, device, timer, scale):
+    """K5 at the pane agg's chunk shape (8192 rows on (auction, window),
+    99 in 100 on the hot auction) and at the final agg's (the 5x hop
+    expansion of a 2 x 4096-row U-/U+ flush, half of it invisible)."""
+    from risingwave_tpu_torch.common.hash import hash64_columns
+    from risingwave_tpu_torch.stream.hash_agg import (
+        INT64_MIN, agg_preagg_cuda, agg_preagg_plain, sort_by_hash)
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+
+    def case(cap, signed):
+        hot = torch.rand(cap, generator=g) < 0.99
+        auction = torch.where(hot, torch.tensor(1300),
+                              torch.randint(1000, 1400, (cap,), generator=g))
+        ws = torch.randint(0, 3, (cap,), generator=g) * HOP_SLIDE_US \
+            + 1_436_918_400_000_000
+        valid = torch.rand(cap, generator=g) < (0.5 if signed else 0.98)
+        signs = torch.where(torch.rand(cap, generator=g) < 0.5,
+                            torch.tensor(-1), torch.tensor(1)) if signed \
+            else torch.ones(cap, dtype=torch.int64)
+        signs = torch.where(valid, signs, torch.zeros_like(signs))
+        price = torch.randint(100, 10**8, (cap,), generator=g)
+        qty = torch.randint(-2**31, 2**31 - 1, (cap,), generator=g,
+                            dtype=torch.int32)
+        to = lambda t: t.to(device)  # noqa: E731
+        keys = [to(auction), to(ws)]
+        valid, signs = to(valid), to(signs.to(torch.int32))
+        sig64 = signs.to(torch.int64)
+        modes = ["add", "max", "min"]
+        inits = [0, INT64_MIN, 2**31 - 1]
+        values = [sig64, torch.where(sig64 > 0, to(price),
+                                     torch.full_like(sig64, INT64_MIN)),
+                  to(qty)]
+        sk, perm = sort_by_hash(hash64_columns(keys), valid)
+        return (sk, perm, keys, valid, signs, modes, inits, values)
+
+    kernel = agg_preagg_cuda if device.type == "cuda" else agg_preagg_plain
+    pairs = []
+    for tag, cap, signed in (("pane", 8192 // scale, False),
+                             ("final", 5 * 2 * 4096 // scale, True)):
+        args = case(cap, signed)
+        a, b = kernel(*args), agg_preagg_plain(*args)
+        for name in ("s_hash", "rep", "seg_rows", "seg_signs"):
+            pairs.append((f"preagg {tag} {name}", getattr(a, name),
+                          getattr(b, name)))
+        pairs += [(f"preagg {tag} key {i}", x, y)
+                  for i, (x, y) in enumerate(zip(a.s_keys, b.s_keys))]
+        pairs += [(f"preagg {tag} prim {i}", x, y)
+                  for i, (x, y) in enumerate(zip(a.seg_values, b.seg_values))]
+        if tag == "pane":
+            pane_args, n_reps = args, int(b.rep.sum())
+    err = max_abs_err(torch, pairs)
+    ms = timer(lambda i: kernel(*pane_args), 200)
+    plain_ms = timer(lambda i: agg_preagg_plain(*pane_args), 20)
+    cap = pane_args[0].shape[0]
+    # per row read: sorted key 8, perm 8, two keys 16, valid 1, sign 4,
+    # prims 8 + 8 + 4; written: sorted keys 16, hash 8, rep 1, starts 1,
+    # rows 8, signs 8, prims 8 + 8 + 4; ~40 integer ops per row
+    b = bound(cap * (57 + 62), cap * 40)
+    print(f"[agg_preagg] exact (pane and final-agg shapes, {n_reps} "
+          f"representatives of {cap} rows); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b[0]:.5f} ms", flush=True)
+    return kernel_entry("agg_preagg.cu",
+                        "risingwave_tpu/stream/hash_agg.py:394", ms,
+                        plain_ms, b, None, err)
+
+
+def phase_mask_indices(torch, device, timer, scale):
+    """K7 over the agg's 2^18 dirty mask: fewer set bits than the emit
+    capacity (one flush round) and more (a drain)."""
+    from risingwave_tpu_torch.common.compact import (
+        mask_indices, mask_indices_plain)
+
+    g = torch.Generator(device="cpu").manual_seed(6)
+    size, k = (1 << 18) // scale, 4096 // scale
+    pairs = []
+    for density in (3000 / (1 << 18), 0.05):
+        mask = (torch.rand(size, generator=g) < density).to(device)
+        pairs.append((f"mask_indices density {density:.4f}",
+                      mask_indices(mask, k, size),
+                      mask_indices_plain(mask, k, size)))
+    err = max_abs_err(torch, pairs)
+    mask = (torch.rand(size, generator=g) < 3000 / (1 << 18)).to(device)
+    ms = timer(lambda i: mask_indices(mask, k, size), 200)
+    plain_ms = timer(lambda i: mask_indices_plain(mask, k, size), 50)
+    library_ms = timer(lambda i: torch.nonzero(mask)[:k], 200)
+    b = bound(size + 4 * k, size * 4)
+    print(f"[mask_indices] exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, library {library_ms:.4f} ms (torch.nonzero, which syncs "
+          f"with the host), bound {b[0]:.5f} ms", flush=True)
+    return kernel_entry("compact.cu", "risingwave_tpu/common/compact.py:32",
+                        ms, plain_ms, b, library_ms, err)
+
+
+def phase_ring(torch, device, timer, scale):
+    """K8-ring: q1's 8192-row chunks of 4 int64 columns into the 2^23
+    ring, starting just before a lap so positions wrap."""
+    from risingwave_tpu_torch.common.chunk import Chunk
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+    from risingwave_tpu_torch.stream.materialize import (
+        ring_append, ring_append_plain)
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    ring, cap = (1 << 23) // scale, 8192 // scale
+    schema = Schema(tuple(Field(n, DataType.INT64)
+                          for n in ("auction", "bidder", "price", "ts")))
+    cols = tuple(torch.randint(0, 10**12, (cap,), generator=g).to(device)
+                 for _ in range(4))
+    valid = (torch.rand(cap, generator=g) < 0.97).to(device)
+    chunk = Chunk(cols, torch.zeros(cap, dtype=torch.int8, device=device),
+                  valid, schema)
+
+    def fresh():
+        values = tuple(torch.zeros(ring, dtype=torch.int64, device=device)
+                       for _ in range(4))
+        i64 = dict(dtype=torch.int64, device=device)
+        return (values, torch.tensor(ring - cap // 3, **i64),
+                torch.tensor(5, **i64))
+
+    a, b = fresh(), fresh()
+    for _ in range(2):
+        ring_append(*a, chunk, ring)
+        ring_append_plain(*b, chunk, ring)
+    pairs = [(f"ring column {i}", x, y) for i, (x, y) in
+             enumerate(zip(a[0], b[0]))]
+    pairs += [("ring cursor", a[1], b[1]), ("ring overflow", a[2], b[2])]
+    err = max_abs_err(torch, pairs)
+    ms = timer(lambda i: ring_append(*a, chunk, ring), 200)
+    plain_ms = timer(lambda i: ring_append_plain(*b, chunk, ring), 20)
+    n = int(valid.sum())
+    b_ = bound(cap + 2 * n * 32, cap * 10)
+    print(f"[ring_append] exact (values, cursor, lap count); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_[0]:.5f} ms",
+          flush=True)
+    return kernel_entry("compact.cu",
+                        "risingwave_tpu/stream/materialize.py:224", ms,
+                        plain_ms, b_, None, err)
+
+
+def phase_bids(torch, device, timer, scale):
+    """K9 against the plain generator on the card over 2^20 consecutive
+    bids (every price bit for bit), and a seeded chunk far out."""
+    from risingwave_tpu_torch.common.chunk import StrCol
+    from risingwave_tpu_torch.connector.nexmark import (
+        NexmarkConfig, NexmarkGenerator)
+
+    def columns(c):
+        out = [("ops", c.ops), ("valid", c.valid)]
+        for name, col in zip(c.schema.names(), c.columns):
+            if isinstance(col, StrCol):
+                out += [(f"{name} bytes", col.data), (f"{name} lens",
+                                                      col.lens)]
+            else:
+                out.append((name, col))
+        return out
+
+    gen = NexmarkGenerator(device=device)
+    seeded = NexmarkGenerator(NexmarkConfig(inter_event_us=1, seed=3),
+                              device=device)
+    n = (1 << 20) // scale
+    pairs = []
+    for tag, gn, k0, cap in (("2^20 bids", gen, 0, n),
+                             ("seeded", seeded, 10**9 + 7, 8192 // scale)):
+        for (name, x), (_, y) in zip(columns(gn.gen_bids(k0, cap)),
+                                     columns(gn.gen_bids_plain(k0, cap))):
+            pairs.append((f"bids {tag} {name}", x, y))
+    err = max_abs_err(torch, pairs)
+    cap = 8192 // scale
+    ms = timer(lambda i: gen.gen_bids(i * cap, cap), 200)
+    plain_ms = timer(lambda i: gen.gen_bids_plain(i * cap, cap), 20)
+    # per row written: 4 int64 columns, 16 + 40 string bytes, 2 lengths,
+    # ops and valid; ~80 integer ops and one pow
+    b = bound(cap * (32 + 56 + 8 + 2), cap * 100)
+    print(f"[nexmark_bids] exact over {n} bids (prices bit for bit); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b[0]:.5f} ms", flush=True)
+    return kernel_entry("nexmark_bids.cu",
+                        "risingwave_tpu/connector/nexmark.py:249", ms,
+                        plain_ms, b, None, err)
+
+
+def phase_hop(torch, device, timer, scale):
+    """K10: the pane deltas' 5x expansion (8192 interleaved U-/U+ rows,
+    negative timestamps included) and q7's tumble (k = 1)."""
+    from risingwave_tpu_torch.stream.executor import (
+        hop_window, hop_window_plain)
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    cap = 8192 // scale
+    pairs = []
+    for tag, base in (("pane deltas", 1_436_918_400_000_000),
+                      ("negative ts", -30_000_000)):
+        auction = torch.randint(1000, 2000, (cap,), generator=g)
+        ts = base + torch.randint(-20_000_000, 20_000_000, (cap,),
+                                  generator=g)
+        bids = torch.randint(0, 10**6, (cap,), generator=g)
+        ops = torch.tensor([2, 3], dtype=torch.int8).repeat(cap // 2)
+        valid = torch.rand(cap, generator=g) < 0.6
+        args = ([c.to(device) for c in (auction, ts, bids)], ops.to(device),
+                valid.to(device), ts.to(device))
+        for k, slide, size in ((5, HOP_SLIDE_US, WINDOW_US),
+                               (1, WINDOW_US, WINDOW_US)):
+            a = hop_window(*args, k, slide, size)
+            b = hop_window_plain(*args, k, slide, size)
+            flat = lambda r: list(r[0]) + list(r[1:])  # noqa: E731
+            pairs += [(f"hop {tag} k={k} plane {i}", x, y)
+                      for i, (x, y) in enumerate(zip(flat(a), flat(b)))]
+        if tag == "pane deltas":
+            pane_args = args
+    err = max_abs_err(torch, pairs)
+    ms = timer(lambda i: hop_window(*pane_args, 5, HOP_SLIDE_US, WINDOW_US),
+               200)
+    plain_ms = timer(lambda i: hop_window_plain(*pane_args, 5, HOP_SLIDE_US,
+                                                WINDOW_US), 50)
+    # read 3 int64 columns + ops + valid per row; write them 5 times with
+    # the two window columns
+    b = bound(cap * 26 + 5 * cap * (26 + 16), 5 * cap * 10)
+    print(f"[hop_window] exact (k=5 pane deltas and k=1 tumble, negative "
+          f"timestamps); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b[0]:.5f} ms", flush=True)
+    return kernel_entry("hop_window.cu",
+                        "risingwave_tpu/stream/executor.py:142", ms,
+                        plain_ms, b, None, err)
+
+
 # ---------------------------------------------------------------------------
-# 3-4. main path + result check
+# 3-5. card against CPU, main paths, result checks
 
 
 BENCH_SOURCES = """
@@ -434,55 +720,91 @@ CREATE SOURCE auction (
         nexmark.event.rate = '1000000');
 """
 
-Q7 = """
+#: bench.py's query texts
+QUERY_SQL = {
+    "q1": """
+CREATE MATERIALIZED VIEW bench_mv AS
+SELECT auction, bidder, 0.908 * price AS price, date_time
+FROM bid;
+""",
+    "q5": """
+CREATE MATERIALIZED VIEW bench_mv AS
+SELECT auction, window_start, count(*) AS bids
+FROM HOP(bid, date_time, INTERVAL '2' SECOND, INTERVAL '10' SECOND)
+GROUP BY auction, window_start;
+""",
+    "q7": """
 CREATE MATERIALIZED VIEW bench_mv AS
 SELECT window_start, max(price) AS max_price, count(*) AS bids
 FROM TUMBLE(bid, date_time, INTERVAL '10' SECOND)
 GROUP BY window_start;
-"""
+""",
+}
 
 
-def phase_engine_parity(torch, device) -> None:
-    """q7 at 2 events/s through the engine on ``device`` and on the CPU
-    (plain versions), small tables: hundreds of windows, watermark
-    cleaning, tombstones, rehash at maintenance and a multi-round emit
-    drain all run through the kernels.  MV rows and every state tensor
+def _host_value(v):
+    return float(v) if isinstance(v, float) else int(v)
+
+
+def phase_engine_parity(torch, device, query: str) -> None:
+    """``query`` at 2 events/s through the engine on ``device`` and on
+    the CPU (plain versions, the agg forced onto the pre-aggregation
+    branch the card takes), small tables: hundreds of windows, watermark
+    cleaning, tombstones, rehash at maintenance and multi-round emit
+    drains all run through the kernels.  MV rows and every state tensor
     must be equal."""
     from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
     from risingwave_tpu_torch.sql import Engine
     from risingwave_tpu_torch.sql.planner import PlannerConfig
+    from risingwave_tpu_torch.stream import hash_agg
 
     cfg = PlannerConfig(chunk_capacity=256, agg_table_size=1 << 10,
-                        agg_emit_capacity=16, mv_table_size=1 << 10)
+                        agg_emit_capacity=16,
+                        mv_table_size=1 << (14 if query == "q5" else 10),
+                        mv_ring_size=1 << 14)
     engines = []
+    card_branch = hash_agg.accel_tuned
     for dev in (device, torch.device("cpu")):
-        eng = Engine(cfg, device=dev)
-        eng.execute(BENCH_SOURCES.replace("'1000000'", "'2'"))
-        eng.execute(Q7)
-        eng.tick(barriers=10, chunks_per_barrier=4)
+        if dev.type == "cpu":
+            hash_agg.accel_tuned = lambda d: True
+        try:
+            eng = Engine(cfg, device=dev)
+            eng.execute(BENCH_SOURCES.replace("'1000000'", "'2'"))
+            eng.execute(QUERY_SQL[query])
+            eng.tick(barriers=10, chunks_per_barrier=4)
+        finally:
+            hash_agg.accel_tuned = card_branch
         engines.append(eng)
-    rows = [sorted(tuple(int(v) for v in r)
+    rows = [sorted(tuple(_host_value(v) for v in r)
                    for r in e.execute("SELECT * FROM bench_mv"))
             for e in engines]
-    if rows[0] != rows[1]:
-        fail("q7 MV on the card differs from the CPU plain versions")
+    if rows[0] != rows[1] or not rows[0]:
+        fail(f"{query} MV on the card differs from the CPU plain versions")
     bad = state_mismatches(state_to_numpy(engines[1].jobs[0].states),
                            engines[0].jobs[0].states)
     if bad:
-        fail(f"q7 state on the card differs from the CPU: {bad[:5]}")
-    agg = engines[0].jobs[0].states[2]
-    print(f"[parity] q7 at 2 events/s, 10 barriers: {len(rows[0])} MV rows "
-          f"and all state equal to the CPU plain versions "
-          f"({int(agg.table.tombstone_count())} agg tombstones left after "
-          f"rehash)", flush=True)
+        fail(f"{query} state on the card differs from the CPU: {bad[:5]}")
+    tombs = [int(s.table.tombstone_count())
+             for s in engines[0].jobs[0].states if hasattr(s, "table")]
+    print(f"[parity] {query} at 2 events/s, 10 barriers: {len(rows[0])} MV "
+          f"rows and all state equal to the CPU plain versions (tombstones "
+          f"left per table after rehash: {tombs})", flush=True)
 
 
-def profile_window(torch, eng) -> None:
+#: the port's own kernels, by CUDA function name
+PORT_KERNEL_NAMES = ("hash64_kernel", "probe_kernel", "reset_kernel",
+                     "scatter_kernel", "mark_kernel", "apply_kernel",
+                     "preagg_kernel", "count_kernel", "write_kernel",
+                     "ring_append_kernel", "bids_kernel", "hop_kernel")
+
+
+def profile_window(torch, eng, query: str) -> float | None:
     """Two more barriers under torch.profiler: device busy time (the sum
     of CUDA kernel times on the one stream), kernels launched per chunk,
     the share of the port's own kernels, and the top kernels.  The
     profiler slows the host, so its wall time is only the denominator of
-    the busy share it reports, not a rate."""
+    the busy share it reports, not a rate.  Returns the launches per
+    chunk (None when the profiler recorded no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -502,19 +824,18 @@ def profile_window(torch, eng) -> None:
             and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in kern) / 1e3
     if busy_ms == 0:
-        print("[profile] device time not measured (no CUDA kernel "
-              "recorded)", flush=True)
-        return
-    ours = ("hash64_kernel", "probe_kernel", "reset_kernel",
-            "scatter_kernel", "mark_kernel", "apply_kernel")
-    ours_ms = sum(dev_us(e) for e in kern if e.key.startswith(ours)) / 1e3
+        print(f"[profile] {query}: device time not measured (no CUDA "
+              "kernel recorded)", flush=True)
+        return None
+    ours_ms = sum(dev_us(e) for e in kern
+                  if e.key.startswith(PORT_KERNEL_NAMES)) / 1e3
     n_kern = sum(e.count for e in kern)
     chunks = 2 * CHUNKS_PER_BARRIER
-    print(f"[profile] 2 barriers x {CHUNKS_PER_BARRIER} chunks: wall "
-          f"{wall_ms:.2f} ms (profiled), device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), port kernels "
-          f"{ours_ms:.3f} ms, {n_kern} kernel launches "
-          f"({n_kern / chunks:.1f} per chunk)", flush=True)
+    print(f"[profile] {query} 2 barriers x {CHUNKS_PER_BARRIER} chunks: "
+          f"wall {wall_ms:.2f} ms (profiled), device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), port kernels {ours_ms:.3f} "
+          f"ms, {n_kern} kernel launches ({n_kern / chunks:.1f} per "
+          f"chunk)", flush=True)
     for e in sorted(kern, key=lambda e: -dev_us(e))[:12]:
         print(f"[profile]   {dev_us(e) / 1e3:8.3f} ms  x{e.count:5d}  "
               f"{e.key[:100]}", flush=True)
@@ -535,22 +856,100 @@ def profile_window(torch, eng) -> None:
             torch.cuda.synchronize()
         k = [e for e in prof.key_averages()
              if getattr(e, "device_type", None) == DeviceType.CUDA]
-        print(f"[profile] one chunk, {name}: "
+        print(f"[profile] {query} one chunk, {name}: "
               f"{sum(e.count for e in k)} kernel launches, "
               f"{sum(dev_us(e) for e in k) / 1e3:.3f} ms device", flush=True)
+    return n_kern / chunks
 
 
-def phase_main_path(torch, device, scale):
+def _consumed_bids(eng, cap: int):
+    """numpy columns of every bid the job consumed, regenerated."""
     import numpy as np
 
+    reader = eng.jobs[0].source
+    cols = {"auction": [], "bidder": [], "price": [], "ts": []}
+    for i in range(reader.offset // cap):
+        c = reader.gen.gen_bids(i * cap, cap)
+        for name, j in (("auction", 0), ("bidder", 1), ("price", 2),
+                        ("ts", 5)):
+            cols[name].append(c.columns[j].cpu().numpy())
+    return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def check_q7(eng, bids) -> str:
+    import numpy as np
+
+    got = sorted(tuple(int(v) for v in r)
+                 for r in eng.execute("SELECT * FROM bench_mv"))
+    ws = bids["ts"] - bids["ts"] % WINDOW_US
+    want = []
+    for w in np.unique(ws):
+        sel = ws == w
+        want.append((int(w), int(bids["price"][sel].max()), int(sel.sum())))
+    if got != want:
+        fail(f"q7 MV differs from the numpy recomputation: {got[:4]} vs "
+             f"{want[:4]}")
+    return (f"MV equals numpy max/count per window over "
+            f"{bids['price'].shape[0]} bids ({len(want)} windows)")
+
+
+def check_q5(eng, bids) -> str:
+    import numpy as np
+
+    k = WINDOW_US // HOP_SLIDE_US
+    ws0 = bids["ts"] - bids["ts"] % HOP_SLIDE_US
+    base = int(ws0.min()) - (k - 1) * HOP_SLIDE_US
+    n_win = (int(ws0.max()) - base) // HOP_SLIDE_US + 1
+    # pack (auction, window index) into one int64 per hop copy
+    win = np.concatenate([(ws0 - i * HOP_SLIDE_US - base) // HOP_SLIDE_US
+                          for i in range(k)])
+    key = np.tile(bids["auction"], k) * n_win + win
+    uniq, counts = np.unique(key, return_counts=True)
+    rows = eng.execute("SELECT auction, window_start, bids FROM bench_mv")
+    got = np.asarray([(int(a) * n_win + (int(w) - base) // HOP_SLIDE_US,
+                       int(c)) for a, w, c in rows], np.int64)
+    got = got[np.argsort(got[:, 0])] if len(got) else got.reshape(0, 2)
+    if got.shape[0] != uniq.shape[0] or not (
+            np.array_equal(got[:, 0], uniq)
+            and np.array_equal(got[:, 1], counts)):
+        fail(f"q5 MV ({got.shape[0]} rows) differs from the numpy hop "
+             f"counts ({uniq.shape[0]} (auction, window) pairs)")
+    return (f"MV equals numpy hop counts per (auction, window_start) over "
+            f"{bids['auction'].shape[0]} bids ({uniq.shape[0]} rows)")
+
+
+def check_q1(eng, bids) -> str:
+    import numpy as np
+
+    entry = eng.catalog.get("bench_mv")
+    state = eng.jobs[0].states[entry.mv_state_index[0]]
+    n = int(state.cursor)
+    if n != bids["price"].shape[0] or int(state.overflow) != 0 \
+            or n > entry.mv_executor.ring_size:
+        fail(f"q1 ring holds {n} rows (overflow {int(state.overflow)}) for "
+             f"{bids['price'].shape[0]} bids")
+    # 0.908 * price at the engine scale: round(908000 * price * 10^6 / 10^6)
+    price = np.round(np.float64(908_000) * (bids["price"] * 10**6).astype(
+        np.float64) / 1e6).astype(np.int64)
+    for name, col, want in (("auction", 0, bids["auction"]),
+                            ("bidder", 1, bids["bidder"]),
+                            ("price", 2, price), ("date_time", 3, bids["ts"])):
+        got = state.values[col][:n].cpu().numpy()
+        if not np.array_equal(got, want):
+            fail(f"q1 ring column {name} differs from numpy")
+    return f"ring rows equal numpy 0.908 * price over {n} bids, no lap"
+
+
+def phase_main_path(torch, device, scale, query: str):
     from risingwave_tpu_torch import kernels
     from risingwave_tpu_torch.sql import Engine
     from risingwave_tpu_torch.sql.planner import PlannerConfig
 
-    cfg = {k: v // scale for k, v in Q7_CONFIG.items()}
+    cfg = {k: v // scale for k, v in BENCH_CONFIG.items()}
+    cfg["mv_ring_size"] = (1 << (23 if query == "q1" else 21)) // scale
     eng = Engine(PlannerConfig(**cfg), device=device)
     eng.execute(BENCH_SOURCES)
-    eng.execute(Q7)
+    eng.execute(QUERY_SQL[query])
     eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
     eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
     eng.tick(barriers=WARMUP_BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
@@ -564,38 +963,26 @@ def phase_main_path(torch, device, scale):
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     cap = cfg["chunk_capacity"]
-    rows = BARRIERS * CHUNKS_PER_BARRIER * cap
+    chunks = BARRIERS * CHUNKS_PER_BARRIER
+    rows = chunks * cap
     rate = rows / dt
-    print(f"[main] q7 {rows} rows in {dt:.3f} s = {rate:.0f} rows/s; "
-          f"launches {launches}", flush=True)
+    print(f"[main] {query} {rows} rows in {dt:.3f} s = {rate:.0f} rows/s; "
+          f"port kernel launches {launches}", flush=True)
     if device.type == "cuda":
-        profile_window(torch, eng)
+        per_chunk = profile_window(torch, eng, query)
+        print(f"[main] {query} launches per chunk "
+              f"{'not measured' if per_chunk is None else f'{per_chunk:.1f}'}"
+              f" (all CUDA kernels, profiled window)", flush=True)
     # post-window consistency audit: counters are read and raise on
     # overflow / inconsistency
     eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
     eng.tick(barriers=1, chunks_per_barrier=0)
-
-    # -- 4. result check against numpy over the generated bids -----------
-    got = sorted(tuple(int(v) for v in r)
-                 for r in eng.execute("SELECT * FROM bench_mv"))
-    reader = eng.jobs[0].source
-    n_chunks = reader.offset // cap   # every chunk the job consumed
-    price, ts = [], []
-    for i in range(n_chunks):
-        c = reader.gen.gen_bids(i * cap, cap)
-        price.append(c.columns[2].cpu().numpy())
-        ts.append(c.columns[5].cpu().numpy())
-    price, ts = np.concatenate(price), np.concatenate(ts)
-    ws = ts - ts % WINDOW_US
-    want = []
-    for w in np.unique(ws):
-        sel = ws == w
-        want.append((int(w), int(price[sel].max()), int(sel.sum())))
-    if got != want:
-        fail(f"MV differs from the numpy recomputation: {got[:4]} vs "
-             f"{want[:4]}")
-    print(f"[check] MV equals numpy max/count per window over "
-          f"{price.shape[0]} bids ({len(want)} windows)", flush=True)
+    bids = _consumed_bids(eng, cap)
+    msg = {"q1": check_q1, "q5": check_q5, "q7": check_q7}[query](eng, bids)
+    print(f"[check] {query} {msg}", flush=True)
+    del eng
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     return launches, rate
 
 

@@ -10,9 +10,11 @@ compares the two element for element.  Nodes are recognised
 by class name and fields, so this module imports nothing of the
 reference package.
 
-Reference-only features must be empty to convert (materialized-input
-buckets, DISTINCT tables, the spill ring): the port has no counterpart
-for them yet.
+Every state of the ported plans converts: q7's agg, q5's pane agg,
+retractable final agg and MV, q1's ring (``tests/test_torch_preagg.py``
+carries them into a running port engine).  Reference-only features
+must be empty to convert (materialized-input buckets, DISTINCT tables,
+the spill ring): the port has no counterpart for them yet.
 """
 
 from __future__ import annotations

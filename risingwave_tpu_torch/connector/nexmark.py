@@ -3,8 +3,11 @@
 Port of ``risingwave_tpu/connector/nexmark.py``: every field of an
 event is a counter-based hash of (event id, field stream), so a chunk is
 a pure function of its first ordinal and generates on the device in one
-pass of elementwise torch ops.  The same ``(k0, cap)`` gives the same
-columns as the reference.
+pass.  The same ``(k0, cap)`` gives the same columns as the reference.
+On the card ``gen_bids`` is one launch of kernel K9
+(``csrc/nexmark_bids.cu``); ``gen_bids_plain`` is its plain version, a
+pass of elementwise torch ops.  Auctions and persons are plain torch on
+every device (no query of the ported slice reads them).
 
 PyTorch has no uint64 ``%`` or ``>>``, so the generator computes in
 int64: logical shifts mask the sign extension, and the unsigned modulo
@@ -20,11 +23,13 @@ offset 0 -> Person, 1..3 -> Auction, 4..49 -> Bid.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from fractions import Fraction
 
 import torch
 
+from risingwave_tpu_torch import kernels
 from risingwave_tpu_torch.common.chunk import Chunk, StrCol, encode_strings
 from risingwave_tpu_torch.common.device import resolve_device
 from risingwave_tpu_torch.common.hash import K1, K3, mix64, srl
@@ -165,6 +170,25 @@ _LAST_NAMES = ["Shultz", "Abrams", "Spencer", "White", "Bartels", "Walton",
                "Smith", "Jones", "Noris"]
 
 
+class _BidArgs(ctypes.Structure):
+    """Mirror of ``struct BidArgs`` in ``csrc/nexmark_bids.cu``."""
+
+    _fields_ = [
+        ("k0", ctypes.c_longlong), ("cap", ctypes.c_int),
+        ("inter_event_us", ctypes.c_longlong),
+        ("base_time_us", ctypes.c_longlong), ("seed", ctypes.c_longlong),
+        ("channels", ctypes.c_void_p), ("channel_lens", ctypes.c_void_p),
+        ("n_channels", ctypes.c_int), ("ch_w", ctypes.c_int),
+        ("urls", ctypes.c_void_p), ("url_lens", ctypes.c_void_p),
+        ("n_urls", ctypes.c_int), ("url_w", ctypes.c_int),
+        ("auction", ctypes.c_void_p), ("bidder", ctypes.c_void_p),
+        ("price", ctypes.c_void_p), ("channel", ctypes.c_void_p),
+        ("channel_len", ctypes.c_void_p), ("url", ctypes.c_void_p),
+        ("url_len", ctypes.c_void_p), ("date_time", ctypes.c_void_p),
+        ("ops", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+    ]
+
+
 @dataclass(frozen=True)
 class NexmarkConfig:
     """Generator knobs."""
@@ -228,6 +252,54 @@ class NexmarkGenerator:
                      schema)
 
     def gen_bids(self, k0: int, cap: int) -> Chunk:
+        """The chunk of bids ``k0 .. k0+cap``; on the card, kernel K9."""
+        if self.device.type == "cuda":
+            return self.gen_bids_cuda(k0, cap)
+        return self.gen_bids_plain(k0, cap)
+
+    def gen_bids_cuda(self, k0: int, cap: int) -> Chunk:
+        """Kernel K9 (``csrc/nexmark_bids.cu``): one launch."""
+        dev = self.device
+        i64 = dict(dtype=torch.int64, device=dev)
+        auction, bidder, price, date_time = (torch.empty(cap, **i64)
+                                             for _ in range(4))
+        ch, url = self._channels, self._urls
+        channel = StrCol(torch.empty((cap, ch.data.shape[1]),
+                                     dtype=torch.uint8, device=dev),
+                         torch.empty(cap, dtype=torch.int32, device=dev))
+        url_col = StrCol(torch.empty((cap, url.data.shape[1]),
+                                     dtype=torch.uint8, device=dev),
+                         torch.empty(cap, dtype=torch.int32, device=dev))
+        ops = torch.empty(cap, dtype=torch.int8, device=dev)
+        valid = torch.empty(cap, dtype=torch.bool, device=dev)
+        kernels.require_cuda("nexmark_bids", ch.data, ch.lens, url.data,
+                             url.lens, auction, channel.data, url_col.data,
+                             ops, valid)
+        a = _BidArgs()
+        cfg = self.config
+        a.k0, a.cap = k0, cap
+        a.inter_event_us, a.base_time_us = cfg.inter_event_us, \
+            cfg.base_time_us
+        a.seed = cfg.seed
+        a.channels, a.channel_lens = ch.data.data_ptr(), ch.lens.data_ptr()
+        a.n_channels, a.ch_w = ch.data.shape
+        a.urls, a.url_lens = url.data.data_ptr(), url.lens.data_ptr()
+        a.n_urls, a.url_w = url.data.shape
+        a.auction, a.bidder = auction.data_ptr(), bidder.data_ptr()
+        a.price, a.date_time = price.data_ptr(), date_time.data_ptr()
+        a.channel, a.channel_len = (channel.data.data_ptr(),
+                                    channel.lens.data_ptr())
+        a.url, a.url_len = url_col.data.data_ptr(), url_col.lens.data_ptr()
+        a.ops, a.valid = ops.data_ptr(), valid.data_ptr()
+        fn = kernels.entry("nexmark_bids", "rw_nexmark_bids",
+                           [_BidArgs, ctypes.c_void_p])
+        kernels.count_launch("nexmark_bids")
+        kernels.check(fn(a, kernels.stream_ptr(dev)), "nexmark_bids")
+        return Chunk((auction, bidder, price, channel, url_col, date_time),
+                     ops, valid, BID_SCHEMA)
+
+    def gen_bids_plain(self, k0: int, cap: int) -> Chunk:
+        """Plain PyTorch version of kernel K9 (any device)."""
         k = self._ordinals(k0, cap)
         n = (k // BID_PROPORTION) * TOTAL_PROPORTION + PERSON_PROPORTION \
             + AUCTION_PROPORTION + (k % BID_PROPORTION)

@@ -15,10 +15,10 @@
 // sums use atomicAdd(double*) and are not bit-reproducible.
 //
 // Bound: bytes (per row: slot 4 B, sign 8 B, 8 B per primitive; per touched
-// slot: a read-modify-write).  Known hot spot: in Nexmark q7 nearly every
-// row of a chunk falls into one or two tumbling windows, so the atomics of
-// a chunk serialise on one or two addresses.  The reference's TPU branch
-// (sort by hash + segmented reduce, hash_agg.py:396-436) is the later fix.
+// slot: a read-modify-write).  Fed row by row (the CPU's branch), a chunk
+// whose rows share one key serialises its atomics on one address; on the
+// card the pre-aggregation (kernel K5, agg_preagg.cu) feeds it one
+// representative per key with the key's partials instead.
 #include "rw_common.cuh"
 
 #define RW_MAX_PRIMS 8

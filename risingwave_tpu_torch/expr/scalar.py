@@ -2,10 +2,10 @@
 the ported plans reach.
 
 Port of ``risingwave_tpu/expr/scalar.py``: integer/timestamp
-arithmetic, comparisons, boolean logic, ``tumble_start`` (:423) and
-integer/decimal coercion.  Every implementation takes and returns whole
-torch columns.  NUMERIC multiply/divide (float64 rounding, :138) and
-the string functions are not ported yet and raise.
+arithmetic, comparisons, boolean logic, ``tumble_start`` (:423),
+NUMERIC multiply (:137) and integer/decimal coercion.  Every
+implementation takes and returns whole torch columns.  NUMERIC divide
+and the string functions are not ported yet and raise.
 
 torch's ``%`` and ``//`` on integer tensors floor like ``jnp``'s, so
 ``ts - ts % size`` gives the same window start for negative times.
@@ -30,12 +30,20 @@ _SCALE = 10**DEFAULT_DECIMAL_SCALE
 
 def coerce(col, field: Field, target: DataType):
     """Cast a column from its logical type to ``target`` (integral
-    widening and integer -> DECIMAL; other casts are not ported yet)."""
+    widening, integer -> DECIMAL and the DECIMAL rescale to the engine
+    scale; other casts are not ported yet)."""
     t = field.data_type
     if t == target and not (
         t == DataType.DECIMAL and field.decimal_scale != DEFAULT_DECIMAL_SCALE
     ):
         return col
+    if t == DataType.DECIMAL and target == DataType.DECIMAL:
+        # a non-default-scale column rescales to the engine scale, which
+        # the arithmetic below assumes (floor division when narrowing)
+        diff = DEFAULT_DECIMAL_SCALE - field.decimal_scale
+        if diff > 0:
+            return col * (10**diff)
+        return col // (10 ** (-diff))
     if t.is_integral and t != DataType.DECIMAL:
         if target == DataType.DECIMAL:
             return col.to(torch.int64) * _SCALE
@@ -85,8 +93,10 @@ def _sub_ts_iv(a, b):
 def _mul(a, b, fields: Sequence[Field]):
     (a, b), t = _promote_args((a, b), fields)
     if t == DataType.DECIMAL:
-        raise NotImplementedError(
-            "NUMERIC multiply (float64 rounding) is not ported yet")
+        # via float64, in the reference's order: (a * b) / scale, then
+        # round half to even (int64 products of scaled operands overflow)
+        prod = a.to(torch.float64) * b.to(torch.float64) / _SCALE
+        return torch.round(prod).to(torch.int64)
     return a * b
 
 

@@ -11,8 +11,9 @@ wrappers call the C entry points through ``ctypes``: tensors pass as
 every entry returns ``cudaGetLastError()``, which ``check`` turns into
 an exception.
 
-``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on
-the card.  Nothing here runs at import time: a CPU-only process imports
+``KERNELS`` names each kernel entry point with the source it is built
+from (``compact.cu`` holds two), and ``LAUNCHES`` counts, per kernel, the
+wrapper calls that launched it on the card.  Nothing here runs at import time: a CPU-only process imports
 the package without ``nvcc``.
 """
 
@@ -32,18 +33,34 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 HEADERS = ("rw_common.cuh",)
-#: kernel name -> source file
+#: library name -> source file
 SOURCES = {
     "hash64": "hash64.cu",
     "probe": "probe.cu",
     "agg_scatter": "agg_scatter.cu",
     "mv_upsert": "mv_upsert.cu",
+    "agg_preagg": "agg_preagg.cu",
+    "compact": "compact.cu",
+    "nexmark_bids": "nexmark_bids.cu",
+    "hop_window": "hop_window.cu",
+}
+#: kernel (one wrapper, one launch counter) -> library it lives in
+KERNELS = {
+    "hash64": "hash64",
+    "probe": "probe",
+    "agg_scatter": "agg_scatter",
+    "mv_upsert": "mv_upsert",
+    "agg_preagg": "agg_preagg",
+    "mask_indices": "compact",
+    "ring_append": "compact",
+    "nexmark_bids": "nexmark_bids",
+    "hop_window": "hop_window",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: wrapper launches per kernel (reset with ``reset_launches``)
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in KERNELS}
 
 #: max columns in one column descriptor (``RW_MAX_COLS`` in the header)
 MAX_COLS = 16
@@ -127,7 +144,8 @@ def build_all(verbose: bool = False) -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of one kernel (built on first use)."""
+    """The loaded shared library ``name`` of ``SOURCES`` (built on first
+    use)."""
     lib = _libs.get(name)
     if lib is None:
         with _lock:
@@ -141,7 +159,7 @@ def library(name: str) -> ctypes.CDLL:
 
 def entry(name: str, symbol: str, argtypes: list):
     """A C entry point of kernel ``name`` with its ctypes signature."""
-    fn = getattr(library(name), symbol)
+    fn = getattr(library(KERNELS[name]), symbol)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -3,12 +3,13 @@
 Port of the ``UnaryPlan`` part of ``risingwave_tpu/sql/planner.py``:
 ``_resolve_input`` for a source (with its watermark filter) and
 TUMBLE/HOP windows, ``_plan_unary``, ``_plan_agg`` and
-``_append_terminal`` (materialize by pk, or the append-only ring).  The
-plan shapes built here are the reference's, executor for executor.
+``_try_pane_agg`` (the pane rewrite of HOP aggregations, Nexmark q5)
+and ``_append_terminal`` (materialize by pk, or the append-only ring).
+The plan shapes built here are the reference's, executor for executor.
 
 Not ported yet (``PlanError``/``NotImplementedError``): joins,
-subqueries, window functions, TopN, sinks, EMIT ON WINDOW CLOSE, MV-on-MV
-and the pane rewrite of HOP aggregations (q5).
+subqueries, window functions, TopN, sinks, EMIT ON WINDOW CLOSE and
+MV-on-MV.
 """
 
 from __future__ import annotations
@@ -32,6 +33,10 @@ from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
 from risingwave_tpu_torch.stream.materialize import (
     AppendOnlyMaterialize,
     MaterializeExecutor,
+)
+from risingwave_tpu_torch.stream.partial_agg import (
+    TWO_PHASE_KINDS,
+    translated_global_calls,
 )
 from risingwave_tpu_torch.stream.watermark import WatermarkFilterExecutor
 
@@ -153,9 +158,10 @@ class Planner:
         has_agg = bool(select.group_by) or self._has_agg(select)
         pk_positions: list[int] = []
         if has_agg:
-            self._refuse_pane_agg(pin)
-            execs2, out_schema, pk_positions = self._plan_agg(select, scope,
-                                                              pin)
+            pane = self._try_pane_agg(select, scope, pin, execs)
+            if pane is None:
+                pane = self._plan_agg(select, scope, pin)
+            execs2, out_schema, pk_positions = pane
             execs.extend(execs2)
         else:
             if not pin.append_only:
@@ -172,19 +178,135 @@ class Planner:
         return UnaryPlan(pin.reader, Fragment(execs), len(execs) - 1,
                          append_only=pin.append_only)
 
-    @staticmethod
-    def _refuse_pane_agg(pin: PlannedInput) -> None:
-        """The reference plans an append-only, watermarked HOP
-        aggregation through panes (planner.py:1424); that rewrite is not
-        ported yet, and the plain hop expansion would be a different
-        plan, so refuse."""
+    def _try_pane_agg(self, select: ast.Select, scope: Scope,
+                      pin: PlannedInput, execs: list):
+        """Sliding-window (HOP) aggregation through PANES (reference
+        planner.py:1424): aggregate each event once into tumbling panes
+        of the slide's width, expand only the pane DELTAS into their k
+        covering windows, and combine them with the translated
+        two-phase calls.  ``execs`` is edited in place (the hop becomes
+        the pane tumble).
+
+        Eligible: append-only, watermarked hop input, GROUP BY
+        window_start + keys, two-phase calls without DISTINCT/FILTER.
+        Returns None when ineligible (the plain hop plan follows)."""
         size, slide = pin.window_size, pin.window_slide
-        if (pin.append_only and size is not None and slide is not None
-                and slide < size and size % slide == 0
-                and pin.watermark_col is not None):
-            raise NotImplementedError(
-                "HOP aggregation (pane rewrite, Nexmark q5) is not ported "
-                "yet")
+        if not pin.append_only or size is None or slide is None \
+                or slide >= size or size % slide != 0 \
+                or pin.watermark_col is None:
+            return None
+        hop_pos = next((i for i, ex in enumerate(execs)
+                        if isinstance(ex, HopWindowExecutor)), None)
+        if hop_pos is None:
+            return None
+        hop = execs[hop_pos]
+        ws_idx = len(hop.in_schema)  # window_start position (appended)
+
+        def touches_window(e: Expr) -> bool:
+            if isinstance(e, InputRef):
+                return e.index >= ws_idx
+            if isinstance(e, AggRef):
+                return e.call.arg is not None and touches_window(e.call.arg)
+            if isinstance(e, EFuncCall):
+                return any(touches_window(a) for a in e.args)
+            return False
+
+        # bind group keys + items exactly as _plan_agg would
+        in_binder = Binder(scope)
+        group_by: list = []
+        ws_key_pos = None
+        for gi, ga in enumerate(select.group_by):
+            name = ga.name if isinstance(ga, ast.ColumnRef) else f"_key{gi}"
+            ge = in_binder.bind(ga)
+            if isinstance(ge, InputRef) and ge.index == ws_idx:
+                ws_key_pos = gi
+            elif touches_window(ge):
+                return None  # window_end/ts-derived keys: no pane form
+            group_by.append((name, ge))
+        if ws_key_pos is None:
+            return None
+        item_binder = Binder(scope, allow_aggs=True)
+        bound_items = []
+        for idx, item in enumerate(select.items):
+            if isinstance(item.expr, ast.Star):
+                raise PlanError("SELECT * with GROUP BY is not valid")
+            name = item.alias or self._default_name(item.expr, idx)
+            bound_items.append((name, item_binder.bind(item.expr)))
+        having_expr = None
+        if select.having is not None:
+            having_expr = item_binder.bind(select.having)
+        agg_calls = item_binder.agg_calls
+        if any(a.kind not in TWO_PHASE_KINDS or a.distinct
+               or a.filter is not None for a in agg_calls):
+            return None
+        if any(a.arg is not None and touches_window(a.arg)
+               for a in agg_calls):
+            return None
+        # min/max over strings cannot combine retractably: no pane form
+        for a in agg_calls:
+            if a.kind in ("min", "max") and a.arg is not None \
+                    and a.arg.return_field(scope.schema).data_type.is_string:
+                return None
+        # the WHERE filter (already in execs) must not read window cols
+        if any(isinstance(ex, FilterExecutor) and touches_window(ex.predicate)
+               for ex in execs):
+            return None
+
+        cfg = self.config
+        n_keys = len(group_by)
+        # 1. panes: tumble by slide (same schema and positions as the hop)
+        execs[hop_pos] = HopWindowExecutor(hop.in_schema, hop.ts_col, slide,
+                                           slide)
+        # 2. per-pane partial agg (append-only); a pane is cleaned when
+        # its LAST covering window closes: wm >= pane_start + size
+        pane_agg = HashAggExecutor(
+            execs[hop_pos].out_schema, group_by, agg_calls,
+            table_size=cfg.agg_table_size,
+            emit_capacity=cfg.agg_emit_capacity,
+            watermark_group_idx=ws_key_pos, watermark_lag=size,
+            watermark_src_col=pin.watermark_col)
+        # 3. expand the PANE DELTAS to their k covering windows
+        expand = HopWindowExecutor(pane_agg.out_schema, ws_key_pos, slide,
+                                   size)
+        n_pane_out = len(pane_agg.out_schema)
+        # 4. combine partials per (keys..., window_start); pane updates
+        # retract, so the global phase runs retractable (min/max there
+        # needs materialized input, which raises: not ported yet)
+        final_group = [(nm, InputRef(n_pane_out) if gi == ws_key_pos
+                        else InputRef(gi))
+                       for gi, (nm, _) in enumerate(group_by)]
+        final_agg = HashAggExecutor(
+            expand.out_schema, final_group,
+            translated_global_calls(agg_calls, n_keys),
+            table_size=cfg.agg_table_size,
+            emit_capacity=cfg.agg_emit_capacity,
+            watermark_group_idx=ws_key_pos, watermark_lag=size,
+            watermark_src_col=pin.watermark_col,
+            retractable_input=True)
+        execs2: list[Executor] = [pane_agg, expand, final_agg]
+
+        # post projection / having / pk: _plan_agg's tail over the final
+        # agg's output [keys..., agg outs...]
+        rewritten = [(name, self._rewrite_post_agg(e, group_by, n_keys))
+                     for name, e in bound_items]
+        selected_keys = {e.index for _, e in rewritten
+                         if isinstance(e, InputRef) and e.index < n_keys}
+        hidden = [(f"_hidden_{final_agg.out_schema[ki].name}", InputRef(ki))
+                  for ki in range(n_keys) if ki not in selected_keys]
+        proj_items = rewritten + hidden
+        if having_expr is not None:
+            execs2.append(FilterExecutor(
+                final_agg.out_schema,
+                self._rewrite_post_agg(having_expr, group_by, n_keys)))
+        post = ProjectExecutor(final_agg.out_schema, proj_items)
+        execs2.append(post)
+        pk_pos = []
+        for ki in range(n_keys):
+            for pi, (_, e) in enumerate(proj_items):
+                if isinstance(e, InputRef) and e.index == ki:
+                    pk_pos.append(pi)
+                    break
+        return execs2, post.out_schema, pk_pos
 
     def _append_terminal(self, execs, out_schema, select, *,
                          input_append_only: bool, has_agg: bool,

@@ -13,10 +13,12 @@ sees fixed shapes.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Sequence
 
 import torch
 
+from risingwave_tpu_torch import kernels
 from risingwave_tpu_torch.common.chunk import (
     Chunk,
     NCol,
@@ -87,11 +89,94 @@ class ProjectExecutor(Executor):
         return state, chunk.with_columns(cols, self._out_schema)
 
 
+def _planes(col) -> list[torch.Tensor]:
+    """The row-major tensors (payloads, null planes, string bytes and
+    lengths) that make up a column value."""
+    if isinstance(col, NCol):
+        return _planes(col.data) + [col.null]
+    if isinstance(col, StrCol):
+        return [col.data, col.lens]
+    return [col]
+
+
+def _rebuild(col, planes):
+    """``col``'s structure over the next tensors of ``planes``."""
+    if isinstance(col, NCol):
+        data = _rebuild(col.data, planes)
+        return NCol(data, next(planes))
+    if isinstance(col, StrCol):
+        return StrCol(next(planes), next(planes))
+    return next(planes)
+
+
+def hop_window_plain(columns, ops, valid, ts, k: int, slide: int,
+                     size: int):
+    """Plain PyTorch version of kernel K10: (columns, ops, valid,
+    window_start, window_end), each row repeated k times (k == 1 keeps
+    the chunk's own tensors)."""
+    ws0 = ts - ts % slide                 # latest window start (floor mod)
+    if k == 1:
+        return columns, ops, valid, ws0, ws0 + size
+    offs = (torch.arange(k, dtype=torch.int64, device=ts.device)
+            * slide).repeat(ts.shape[0])
+    ws = torch.repeat_interleave(ws0, k, dim=0) - offs
+    planes = iter([torch.repeat_interleave(p, k, dim=0)
+                   for c in columns for p in _planes(c)])
+    cols = tuple(_rebuild(c, planes) for c in columns)
+    return (cols, torch.repeat_interleave(ops, k, dim=0),
+            torch.repeat_interleave(valid, k, dim=0), ws, ws + size)
+
+
+def hop_window_cuda(columns, ops, valid, ts, k: int, slide: int, size: int):
+    """Kernel K10 (``csrc/hop_window.cu``): one launch."""
+    cap = ts.shape[0]
+    dev = ts.device
+    ts = ts.contiguous()
+    pc = kernels.RwCols()
+    outs, keep = [], [ts]
+    if k > 1:
+        ins = [p for c in columns for p in _planes(c)] + [ops, valid]
+        if len(ins) > kernels.MAX_COLS:
+            raise ValueError(f"more than {kernels.MAX_COLS} column planes")
+        for j, p in enumerate(ins):
+            p = p.contiguous()
+            o = torch.empty((cap * k,) + tuple(p.shape[1:]), dtype=p.dtype,
+                            device=dev)
+            keep += [p, o]
+            outs.append(o)
+            pc.width[j] = p.element_size() * (p[0].numel() if p.dim() > 1
+                                              else 1)
+            pc.in_data[j], pc.st_data[j] = p.data_ptr(), o.data_ptr()
+        pc.n = len(ins)
+    kernels.require_cuda("hop_window", *keep)
+    ws = torch.empty(cap * k, dtype=torch.int64, device=dev)
+    we = torch.empty(cap * k, dtype=torch.int64, device=dev)
+    fn = kernels.entry("hop_window", "rw_hop_window", [
+        kernels.RwCols, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p])
+    kernels.count_launch("hop_window")
+    kernels.check(fn(pc, ts.data_ptr(), cap, k, slide, size, ws.data_ptr(),
+                     we.data_ptr(), kernels.stream_ptr(dev)), "hop_window")
+    if k == 1:
+        return columns, ops, valid, ws, we
+    planes = iter(outs)
+    cols = tuple(_rebuild(c, planes) for c in columns)
+    return cols, next(planes), next(planes), ws, we
+
+
+def hop_window(columns, ops, valid, ts, k: int, slide: int, size: int):
+    """Window assignment of a chunk; CUDA tensors launch kernel K10."""
+    impl = hop_window_cuda if ts.device.type == "cuda" else hop_window_plain
+    return impl(columns, ops, valid, ts, k, slide, size)
+
+
 class HopWindowExecutor(Executor):
     """Append ``window_start``/``window_end`` for the windows of each row.
 
     TUMBLE (size == slide) appends the two columns without expanding
-    rows.  HOP with k = size/slide > 1 expands each row into k copies.
+    rows.  HOP with k = size/slide > 1 expands each row into k copies
+    (kernel K10 on the card).
     """
 
     def __init__(self, in_schema: Schema, ts_col: int, slide_us: int,
@@ -112,26 +197,10 @@ class HopWindowExecutor(Executor):
         return self._out_schema
 
     def apply(self, state, chunk: Chunk):
-        cap, k = chunk.capacity, self.k
-
-        def rep(c):
-            if isinstance(c, NCol):
-                return NCol(rep(c.data), rep(c.null))
-            if isinstance(c, StrCol):
-                return StrCol(rep(c.data), rep(c.lens))
-            return torch.repeat_interleave(c, k, dim=0)
-
-        ts = chunk.column(self.ts_col)
-        ws0 = ts - ts % self.slide_us            # latest window start
-        if k == 1:
-            return state, Chunk(
-                chunk.columns + (ws0, ws0 + self.size_us),
-                chunk.ops, chunk.valid, self._out_schema)
-        offs = (torch.arange(k, dtype=torch.int64, device=ts.device)
-                * self.slide_us).repeat(cap)
-        ws = rep(ws0) - offs
-        cols = tuple(rep(c) for c in chunk.columns) + (ws, ws + self.size_us)
-        return state, Chunk(cols, rep(chunk.ops), rep(chunk.valid),
+        cols, ops, valid, ws, we = hop_window(
+            chunk.columns, chunk.ops, chunk.valid, chunk.column(self.ts_col),
+            self.k, self.slide_us, self.size_us)
+        return state, Chunk(tuple(cols) + (ws, we), ops, valid,
                             self._out_schema)
 
 

@@ -1,22 +1,30 @@
 """Hash aggregation executor (device-resident groups, emit on barrier).
 
-Port of the append-only count/sum/min/max path of
+Port of the count/sum/min/max path of
 ``risingwave_tpu/stream/hash_agg.py``: ``apply`` (:368), ``flush``
 (:909), ``_outputs``, ``_interleave``, ``on_watermark``, ``clean_below``
 and ``maybe_rehash``.
 
 Groups live in a ``HashTable`` plus one ``[size]`` tensor per primitive
-state.  ``apply`` takes the reference's PER-ROW branch
-(hash_agg.py:437-444, scatters :633-644): the chunk's keys are hashed
-(kernel A), every row probes the table (kernel B), and every row's
-lifted contribution is scattered into its slot (kernel C,
-``agg_scatter``).  It is the branch the reference runs on the CPU, so
-state compares slot for slot.  The reference's accelerator branch (sort
-by hash + segmented reduce, :396-436) is not ported yet.
+state.  ``apply`` takes one of the reference's two branches, chosen by
+the device of the chunk (``common.compact.accel_tuned``):
 
-``flush`` compacts the dirty slots into ``emit_capacity`` rows with a
-fixed-size cumsum compaction and emits U-/U+ pairs against the ``prev``
-snapshot, as the reference does.
+- on the card, the ACCELERATOR branch (hash_agg.py:394-436, :613-641):
+  the chunk is hashed (kernel A), sorted by hash, pre-aggregated per
+  run of equal keys (kernel K5, ``agg_preagg``), and only each run's
+  representative probes the table (kernel B) and scatters the run's
+  partials (kernel C, ``agg_scatter``);
+- on the CPU, the PER-ROW branch (hash_agg.py:437-444, :633-644): every
+  row probes and scatters its own contribution.
+
+Both are the reference's own branches, so either compares with the
+reference slot for slot when the reference takes the same branch.
+Input with deletes and updates (a retractable input) goes through
+either branch.
+
+``flush`` compacts the dirty slots into ``emit_capacity`` rows (kernel
+K7 on the card) and emits U-/U+ pairs against the ``prev`` snapshot,
+as the reference does.
 
 State tensors are updated IN PLACE (the table, prims, row_count, dirty,
 prev_*, emitted): one chunk or barrier never copies a ``[size]`` tensor.
@@ -44,15 +52,28 @@ from risingwave_tpu_torch.common.chunk import (
     conform_col,
     split_col,
 )
-from risingwave_tpu_torch.common.compact import mask_indices
-from risingwave_tpu_torch.common.hash import hash64_columns
+from risingwave_tpu_torch.common.compact import (
+    accel_tuned,
+    mask_indices,
+    segment_start_positions,
+    segment_starts,
+    segmented_minmax_at_ends,
+    segmented_sum,
+)
+from risingwave_tpu_torch.common.hash import hash64_columns, key_leaves
 from risingwave_tpu_torch.common.types import Field, Schema
 from risingwave_tpu_torch.expr.agg import _ADD_COUNT, AggCall
 from risingwave_tpu_torch.expr.node import Expr
-from risingwave_tpu_torch.state.hash_table import HashTable, permute_dense
+from risingwave_tpu_torch.state.hash_table import (
+    HashTable,
+    gather_key,
+    keys_equal,
+    permute_dense,
+)
 from risingwave_tpu_torch.stream.executor import Executor
 
 INT64_MIN = -(1 << 63)
+INT64_MAX = (1 << 63) - 1
 
 
 class AggState(NamedTuple):
@@ -160,6 +181,167 @@ def agg_scatter(prims, modes, inits, values, slots, inserted, signs,
         else agg_scatter_plain
     impl(prims, modes, inits, values, slots, inserted, signs, row_count,
          dirty)
+
+
+# ---------------------------------------------------------------------------
+# kernel K5: agg_preagg
+
+
+class Preagg(NamedTuple):
+    """A chunk pre-aggregated per run of equal keys, in hash order."""
+
+    s_hash: torch.Tensor      # int64 [cap] sorted key hashes
+    s_keys: list              # key columns in sorted order
+    rep: torch.Tensor         # bool [cap] segment END rows that are valid
+    seg_rows: torch.Tensor    # int64 [cap] valid rows of the segment
+    seg_signs: torch.Tensor   # int64 [cap] sign sum of the segment
+    seg_values: list          # per prim: the segment's reduced partial
+
+
+def sort_by_hash(h: torch.Tensor, valid: torch.Tensor):
+    """(sorted keys, perm): a stable sort of the rows by their UNSIGNED
+    hash (``h ^ 2^63`` in signed order), invalid rows last under
+    ``INT64_MAX`` (no valid row's hash maps there: the hash is never
+    all ones)."""
+    key = torch.where(valid, h ^ INT64_MIN, torch.full_like(h, INT64_MAX))
+    out = torch.sort(key, stable=True)
+    return out.values, out.indices
+
+
+def agg_preagg_plain(sort_key, perm, key_cols, valid, signs, modes, inits,
+                     values) -> Preagg:
+    """Plain PyTorch version of kernel K5: the reference's segment
+    primitives over the hash-sorted chunk.  Segment results stand at
+    each segment's END row; other rows hold the identity (0 for counts
+    and sums, the prim's init for min/max)."""
+    n = sort_key.shape[0]
+    dev = sort_key.device
+    s_hash = sort_key ^ INT64_MIN
+    s_keys = [gather_key(c, perm) for c in key_cols]
+    neq = s_hash[1:] != s_hash[:-1]
+    nxt = torch.arange(1, n, device=dev)
+    cur = torch.arange(0, n - 1, device=dev)
+    for c in s_keys:
+        neq = neq | ~keys_equal(gather_key(c, nxt), gather_key(c, cur))
+    starts = segment_starts(neq)
+    ends = torch.cat([neq, torch.ones(1, dtype=torch.bool, device=dev)])
+    s_valid = valid[perm]
+    start_pos = segment_start_positions(starts)
+    seg_id = torch.cumsum(starts.to(torch.int32), 0, dtype=torch.int32)
+
+    def at_ends(seg, ident=0):
+        return torch.where(ends, seg, torch.full_like(seg, ident))
+
+    seg_values = []
+    for mode, init, val in zip(modes, inits, values):
+        contrib = val[perm]
+        if mode == "add":
+            seg_values.append(at_ends(segmented_sum(contrib, start_pos)))
+        else:
+            seg_values.append(at_ends(segmented_minmax_at_ends(
+                seg_id, contrib, start_pos, mode), init))
+    return Preagg(
+        s_hash, s_keys, ends & s_valid,
+        at_ends(segmented_sum(s_valid.to(torch.int64), start_pos)),
+        at_ends(segmented_sum(signs[perm].to(torch.int64), start_pos)),
+        seg_values)
+
+
+class _PreaggArgs(ctypes.Structure):
+    """Mirror of ``struct PreaggArgs`` in ``csrc/agg_preagg.cu``."""
+
+    _fields_ = [
+        ("keys", kernels.RwCols),
+        ("sort_key", ctypes.c_void_p), ("perm", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p), ("signs", ctypes.c_void_p),
+        ("starts", ctypes.c_void_p), ("s_hash", ctypes.c_void_p),
+        ("rep", ctypes.c_void_p), ("seg_rows", ctypes.c_void_p),
+        ("seg_signs", ctypes.c_void_p),
+        ("n_prims", ctypes.c_int),
+        ("mode", ctypes.c_int * MAX_PRIMS),
+        ("dtype", ctypes.c_int * MAX_PRIMS),
+        ("value", ctypes.c_void_p * MAX_PRIMS),
+        ("seg", ctypes.c_void_p * MAX_PRIMS),
+        ("init_i", ctypes.c_longlong * MAX_PRIMS),
+        ("init_f", ctypes.c_double * MAX_PRIMS),
+        ("n", ctypes.c_int),
+    ]
+
+
+def agg_preagg_cuda(sort_key, perm, key_cols, valid, signs, modes, inits,
+                    values) -> Preagg:
+    """Kernel K5 (``csrc/agg_preagg.cu``): one launch of one block."""
+    if len(values) > MAX_PRIMS:
+        raise ValueError(f"more than {MAX_PRIMS} primitive states")
+    n = sort_key.shape[0]
+    dev = sort_key.device
+    args = _PreaggArgs()
+    leaves = key_leaves(key_cols)
+    keys = args.keys
+    keys.n = len(leaves)
+    keep, s_keys = [], []
+    for k, (d, nl) in enumerate(leaves):
+        d = d.contiguous()
+        od = torch.empty_like(d)
+        nu8 = None if nl is None else nl.contiguous().view(torch.uint8)
+        onu8 = None if nl is None else torch.empty_like(nu8)
+        keep += [t for t in (d, od, nu8, onu8) if t is not None]
+        keys.width[k] = d.element_size() * (d[0].numel() if d.dim() > 1
+                                            else 1)
+        keys.in_data[k], keys.st_data[k] = d.data_ptr(), od.data_ptr()
+        keys.in_null[k], keys.st_null[k] = kernels.ptr(nu8), kernels.ptr(onu8)
+        s_keys.append(od if nl is None else NCol(od, onu8.view(torch.bool)))
+    sort_key = sort_key.contiguous()
+    perm = perm.contiguous()
+    valid_u8 = valid.contiguous().view(torch.uint8)
+    signs = signs.to(torch.int32).contiguous()
+    i64 = dict(dtype=torch.int64, device=dev)
+    starts = torch.empty(n, dtype=torch.uint8, device=dev)
+    s_hash = torch.empty(n, **i64)
+    rep = torch.empty(n, dtype=torch.uint8, device=dev)
+    seg_rows = torch.empty(n, **i64)
+    seg_signs = torch.empty(n, **i64)
+    args.n_prims = len(values)
+    seg_values = []
+    for p, (mode, init, val) in enumerate(zip(modes, inits, values)):
+        if val.dtype not in _DTYPES:
+            raise NotImplementedError(
+                f"{mode} over {val.dtype} is not ported to CUDA yet")
+        val = val.contiguous()
+        out = torch.empty_like(val)
+        keep += [val, out]
+        seg_values.append(out)
+        args.mode[p] = _MODES[mode]
+        args.dtype[p] = _DTYPES[val.dtype]
+        args.value[p], args.seg[p] = val.data_ptr(), out.data_ptr()
+        if val.dtype == torch.float64:
+            args.init_f[p] = float(init)
+        else:
+            args.init_i[p] = int(init)
+    kernels.require_cuda("agg_preagg", sort_key, perm, valid_u8, signs,
+                         starts, *keep)
+    args.sort_key, args.perm = sort_key.data_ptr(), perm.data_ptr()
+    args.valid, args.signs = valid_u8.data_ptr(), signs.data_ptr()
+    args.starts, args.s_hash = starts.data_ptr(), s_hash.data_ptr()
+    args.rep, args.seg_rows = rep.data_ptr(), seg_rows.data_ptr()
+    args.seg_signs = seg_signs.data_ptr()
+    args.n = n
+    fn = kernels.entry("agg_preagg", "rw_agg_preagg",
+                       [_PreaggArgs, ctypes.c_void_p])
+    kernels.count_launch("agg_preagg")
+    kernels.check(fn(args, kernels.stream_ptr(dev)), "agg_preagg")
+    return Preagg(s_hash, s_keys, rep.view(torch.bool), seg_rows, seg_signs,
+                  seg_values)
+
+
+def agg_preagg(key_cols, h, valid, signs, modes, inits, values) -> Preagg:
+    """Sort a chunk by key hash and pre-aggregate each run of equal keys
+    (the sort is ``torch.sort``); CUDA tensors launch kernel K5.
+    ``values`` are the rows' lifted contributions in chunk order, one
+    per primitive, in the primitive's dtype."""
+    sort_key, perm = sort_by_hash(h, valid)
+    impl = agg_preagg_cuda if h.device.type == "cuda" else agg_preagg_plain
+    return impl(sort_key, perm, key_cols, valid, signs, modes, inits, values)
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +478,8 @@ class HashAggExecutor(Executor):
 
     # ------------------------------------------------------------------
     def apply(self, state: AggState, chunk: Chunk):
-        """Apply one chunk: hash, probe and scatter per row, in place."""
+        """Apply one chunk, in place: pre-aggregated per key on the card,
+        per row on the CPU (see the module docstring)."""
         signs = chunk.signs()
         valid = chunk.valid
         cap = chunk.capacity
@@ -304,10 +487,6 @@ class HashAggExecutor(Executor):
                                 e.return_field(self.in_schema).nullable, cap)
                     for _, e in self.group_by]
         h = hash64_columns(key_cols)
-        table, slots, inserted, overflow = state.table.lookup_or_insert(
-            key_cols, valid, hashes=h)
-        n_over = (overflow & valid).sum(dtype=torch.int64)
-
         modes, inits, values = [], [], []
         arg_cache: dict[int, object] = {}
         for pi, (agg_idx, ps) in enumerate(self._prim_specs):
@@ -335,9 +514,23 @@ class HashAggExecutor(Executor):
                                          torch.zeros_like(prim_signs))
             modes.append(ps.mode)
             inits.append(ps.init(state.prims[pi].dtype))
-            values.append(ps.lift(col, prim_signs))
+            values.append(ps.lift(col, prim_signs).to(state.prims[pi].dtype))
+        if accel_tuned(chunk.device):
+            # only each run's representative probes and scatters the
+            # run's partials; an overflowed representative loses its run
+            pa = agg_preagg(key_cols, h, valid, signs, modes, inits, values)
+            table, slots, inserted, overflow = state.table.lookup_or_insert(
+                pa.s_keys, pa.rep, hashes=pa.s_hash)
+            n_over = torch.where(pa.rep & overflow, pa.seg_rows,
+                                 torch.zeros_like(pa.seg_rows)).sum()
+            values, row_signs = pa.seg_values, pa.seg_signs
+        else:
+            table, slots, inserted, overflow = state.table.lookup_or_insert(
+                key_cols, valid, hashes=h)
+            n_over = (overflow & valid).sum(dtype=torch.int64)
+            row_signs = signs.to(torch.int64)
         agg_scatter(list(state.prims), modes, inits, values, slots, inserted,
-                    signs.to(torch.int64), state.row_count, state.dirty)
+                    row_signs, state.row_count, state.dirty)
 
         n_bad = torch.zeros((), dtype=torch.int64, device=chunk.device)
         if any(not a.spec().retractable for a in self.aggs):

@@ -7,7 +7,8 @@ Port of ``risingwave_tpu/stream/materialize.py``:
   upsert (kernel D, ``mv_upsert``) in which the last op in row order
   wins per pk.
 - ``AppendOnlyMaterialize`` (:201-266): a ring of rows + a cursor for
-  pk-less append-only MVs.
+  pk-less append-only MVs.  On the card a chunk appends in one launch of
+  kernel K8-ring (``csrc/compact.cu``, ``rw_ring_append``).
 
 MV state is updated IN PLACE (table, value stores, ring): a chunk never
 copies a table-sized tensor.
@@ -257,6 +258,83 @@ def _host_values(f: Field, store, sel) -> np.ndarray:
     return out
 
 
+# ---------------------------------------------------------------------------
+# kernel K8-ring: ring_append
+
+
+def ring_append_plain(values: tuple, cursor: torch.Tensor,
+                      overflow: torch.Tensor, chunk: Chunk,
+                      ring_size: int) -> None:
+    """Plain PyTorch version of kernel K8-ring, in place: the visible
+    rows, compacted in order, go to ring positions ``(cursor + rank) %
+    ring_size``; the cursor advances by their count and the rows a lap
+    evicts are added to ``overflow``.
+
+    Every one of the ``cap`` positions after the cursor is written, those
+    past the visible rows with their own current values, so the write is
+    one duplicate-free ``index_copy_`` and the host never reads the row
+    count."""
+    cap = chunk.capacity
+    dev = chunk.device
+    idx = mask_indices(chunk.valid, cap, cap).to(torch.int64)
+    n = chunk.cardinality()
+    k = torch.arange(cap, dtype=torch.int64, device=dev)
+    pos = (cursor + k) % ring_size
+    fresh = k < n
+    src = torch.clamp(idx, max=cap - 1)
+    for store, col in zip(values, chunk.columns):
+        for (sd, sn), (d, nl) in zip(value_leaves(store), value_leaves(col)):
+            keep = fresh.view(-1, *([1] * (d.dim() - 1)))
+            sd.index_copy_(0, pos, torch.where(keep, d[src], sd[pos]))
+            if sn is not None:
+                sn.index_copy_(0, pos, torch.where(fresh, nl[src], sn[pos]))
+    lost_before = torch.clamp(cursor - ring_size, min=0)
+    lost_after = torch.clamp(cursor + n - ring_size, min=0)
+    overflow.add_(lost_after - lost_before)
+    cursor.add_(n)
+
+
+def ring_append_cuda(values: tuple, cursor: torch.Tensor,
+                     overflow: torch.Tensor, chunk: Chunk,
+                     ring_size: int) -> None:
+    """Kernel K8-ring (``csrc/compact.cu``): one launch, in place."""
+    cols = kernels.RwCols()
+    keep = []
+    k = 0
+    for store, col in zip(values, chunk.columns):
+        for (sd, sn), (d, n) in zip(value_leaves(store), value_leaves(col)):
+            if k >= kernels.MAX_COLS:
+                raise ValueError(f"more than {kernels.MAX_COLS} value leaves")
+            d = d.contiguous()
+            nu8 = None if n is None else n.contiguous().view(torch.uint8)
+            snu8 = None if sn is None else sn.view(torch.uint8)
+            keep += [t for t in (sd, d, nu8, snu8) if t is not None]
+            cols.width[k] = d.element_size() * (d.shape[1] if d.dim() > 1
+                                                else 1)
+            cols.in_data[k], cols.st_data[k] = d.data_ptr(), sd.data_ptr()
+            cols.in_null[k] = kernels.ptr(nu8)
+            cols.st_null[k] = kernels.ptr(snu8)
+            k += 1
+    cols.n = k
+    valid_u8 = chunk.valid.contiguous().view(torch.uint8)
+    kernels.require_cuda("ring_append", valid_u8, cursor, overflow, *keep)
+    fn = kernels.entry("ring_append", "rw_ring_append", [
+        kernels.RwCols, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    kernels.count_launch("ring_append")
+    kernels.check(fn(cols, valid_u8.data_ptr(), chunk.capacity,
+                     cursor.data_ptr(), overflow.data_ptr(), ring_size,
+                     kernels.stream_ptr(valid_u8.device)), "ring_append")
+
+
+def ring_append(values: tuple, cursor: torch.Tensor, overflow: torch.Tensor,
+                chunk: Chunk, ring_size: int) -> None:
+    """In-place ring append; CUDA tensors launch kernel K8-ring."""
+    impl = ring_append_cuda if chunk.device.type == "cuda" \
+        else ring_append_plain
+    impl(values, cursor, overflow, chunk, ring_size)
+
+
 class RingState(NamedTuple):
     values: tuple            # [ring_size] column stores
     cursor: torch.Tensor     # int64 — total rows written
@@ -284,35 +362,13 @@ class AppendOnlyMaterialize(Executor):
         )
 
     def apply(self, state: RingState, chunk: Chunk):
-        """Append the visible rows at the cursor, in place.
-
-        The chunk's rows are compacted to the front; every one of the
-        ``cap`` ring positions after the cursor is written, the positions
-        past the visible rows with their own current values, so the
-        write is one duplicate-free ``index_copy_`` and the host never
-        reads the row count."""
-        cap = chunk.capacity
-        if cap > self.ring_size:
+        """Append the visible rows at the cursor, in place (values,
+        cursor and overflow counter)."""
+        if chunk.capacity > self.ring_size:
             raise ValueError("chunk capacity exceeds the ring size")
-        dev = chunk.device
-        idx = mask_indices(chunk.valid, cap, cap).to(torch.int64)
-        n = chunk.cardinality()
-        k = torch.arange(cap, dtype=torch.int64, device=dev)
-        pos = (state.cursor + k) % self.ring_size
-        fresh = k < n
-        src = torch.clamp(idx, max=cap - 1)
-        for store, col in zip(state.values, chunk.columns):
-            for (sd, sn), (d, nl) in zip(value_leaves(store),
-                                         value_leaves(col)):
-                keep = fresh.view(-1, *([1] * (d.dim() - 1)))
-                sd.index_copy_(0, pos, torch.where(keep, d[src], sd[pos]))
-                if sn is not None:
-                    sn.index_copy_(0, pos, torch.where(fresh, nl[src],
-                                                       sn[pos]))
-        lost_before = torch.clamp(state.cursor - self.ring_size, min=0)
-        lost_after = torch.clamp(state.cursor + n - self.ring_size, min=0)
-        return RingState(state.values, state.cursor + n,
-                         state.overflow + (lost_after - lost_before)), chunk
+        ring_append(state.values, state.cursor, state.overflow, chunk,
+                    self.ring_size)
+        return state, chunk
 
     def to_host(self, state: RingState, limit: int | None = None) -> list[tuple]:
         total = int(state.cursor)

@@ -41,6 +41,11 @@ def test_rehearsal_runs_every_phase_on_cpu():
     out = _run(["chip_smoke.py", "--rehearse"], ROOT)
     assert out.returncode == 0, out.stderr[-2000:]
     for tag in ("[hash64] exact", "[probe] exact", "[agg_scatter] exact",
-                "[mv_upsert] exact", "[check] MV equals numpy"):
+                "[mv_upsert] exact", "[agg_preagg] exact",
+                "[mask_indices] exact", "[ring_append] exact",
+                "[nexmark_bids] exact", "[hop_window] exact",
+                "[parity] q7", "[parity] q5", "[parity] q1",
+                "[check] q7 MV equals numpy", "[check] q5 MV equals numpy",
+                "[check] q1 ring rows equal numpy"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout

@@ -1,14 +1,18 @@
-"""Port parity: Nexmark q7 end to end through the SQL ``Engine``.
+"""Port parity: Nexmark q1, q5 and q7 end to end through the SQL
+``Engine``.
 
-``bench.py``'s source DDL and q7 text run unchanged through the
+``bench.py``'s source DDL and query text run unchanged through the
 reference engine and the port's engine (``device="cpu"``) at a small
-size: chunk 256, tables 2^10, emit 128, 7 barriers with a snapshot
-every 2 checkpoints.  The MV rows must be identical, the agg state
-equal slot for slot, and ``recover()`` must restore the same MV on
-both.  Tolerance: none — q7 is integer end to end.
+size: chunk 256, agg tables 2^10, emit 128, MV tables 2^10 (q7) or
+2^14 (q5, which keeps every window), a 2^14 ring (q1), 7 barriers with a
+snapshot every 2 checkpoints.  The MV rows must be identical, every
+executor state equal slot for slot, and ``recover()`` must restore the
+same MV on both.  Tolerance: none — q5 and q7 are integer end to end,
+and q1's NUMERIC price is a scaled int64 printed by the same formula.
 """
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -22,25 +26,34 @@ from risingwave_tpu_torch.sql.planner import PlanError, PlannerConfig
 
 SIZES = dict(chunk_capacity=256, agg_table_size=1 << 10,
              agg_emit_capacity=128, mv_table_size=1 << 10)
+#: q5's MV keeps every (auction, window) it has seen: thousands at 2/s
+SIZES_Q5_Q1 = dict(SIZES, mv_table_size=1 << 14, mv_ring_size=1 << 14)
 
 
-def _start(engine, rate: str):
+def _start(engine, rate: str, query: str = "q7"):
     engine.execute(SOURCES.format(rate=rate))
-    engine.execute(QUERIES["q7"])
+    engine.execute(QUERIES[query])
     engine.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 2")
     return engine
 
 
+def _value(v):
+    return float(v) if isinstance(v, (float, np.floating)) else int(v)
+
+
 def _rows(engine, sql="SELECT * FROM bench_mv"):
-    return [tuple(int(v) for v in r) for r in engine.execute(sql)]
+    return [tuple(_value(v) for v in r) for r in engine.execute(sql)]
 
 
 def _assert_same_state(jeng, teng):
+    """Every executor state (watermark, aggs, MV or ring) equal."""
     jst = jax.device_get(jeng.jobs[0].states)
     tst = teng.jobs[0].states
     assert [type(s).__name__ for s in tst] == \
         [type(s).__name__ for s in jst]
-    for i in (0, 2, 4):  # watermark, hash agg, materialize
+    stateful = [i for i, s in enumerate(tst) if s != ()]
+    assert len(stateful) >= 2
+    for i in stateful:
         assert state_mismatches(jst[i], tst[i], f"states[{i}]") == []
 
 
@@ -81,8 +94,47 @@ def test_entry_points_without_device_need_a_gpu(monkeypatch):
         NexmarkGenerator()
 
 
+# q5: pane tumble -> pane agg -> hop expand of the pane deltas ->
+# retractable final agg; q1: NUMERIC project into the append-only ring
+@pytest.mark.parametrize("rate", ["1000000", "2"])
+@pytest.mark.parametrize("query,ordered", [
+    ("q5", "SELECT * FROM bench_mv ORDER BY bids DESC, auction, "
+           "window_start LIMIT 5"),
+    ("q1", "SELECT auction, price, date_time FROM bench_mv "
+           "ORDER BY price DESC, date_time LIMIT 5"),
+])
+def test_q5_q1_engine_rows_state_and_recover(query, ordered, rate):
+    jeng = _start(JEngine(JConfig(**SIZES_Q5_Q1)), rate, query)
+    teng = _start(Engine(PlannerConfig(**SIZES_Q5_Q1), device="cpu"), rate,
+                  query)
+    assert repr(teng.jobs[0].fragment) == repr(jeng.jobs[0].fragment)
+    for e in (jeng, teng):
+        e.tick(barriers=7, chunks_per_barrier=4)
+    assert _rows(teng) == _rows(jeng)
+    assert len(_rows(teng)) > 0
+    _assert_same_state(jeng, teng)
+    assert _rows(teng, ordered) == _rows(jeng, ordered)
+    for e in (jeng, teng):
+        e.recover()
+    assert _rows(teng) == _rows(jeng)
+    _assert_same_state(jeng, teng)
+    for e in (jeng, teng):
+        e.tick(barriers=2, chunks_per_barrier=4)
+    assert _rows(teng) == _rows(jeng)
+    _assert_same_state(jeng, teng)
+
+
+def test_pane_plan_needing_retractable_min_max_raises():
+    """A HOP max() plans through panes, whose final agg would need
+    min/max over a retractable input: not ported, so it raises."""
+    eng = Engine(PlannerConfig(**SIZES), device="cpu")
+    eng.execute(SOURCES.format(rate="1000000"))
+    with pytest.raises(NotImplementedError, match="retractable"):
+        eng.execute(QUERIES["q5"].replace("count(*) AS bids",
+                                          "max(price) AS top"))
+
+
 @pytest.mark.parametrize("query,error", [
-    ("q5", NotImplementedError),   # HOP pane aggregation: queued
     ("q8", PlanError),             # join: queued
 ])
 def test_unported_plans_raise(query, error):
