@@ -6,23 +6,28 @@
 1. builds the hand-written CUDA kernels from ``risingwave_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) and prints the build time;
 2. holds each kernel against its plain PyTorch version on the card at
-   the shapes the Nexmark q1/q5/q7 main paths give it (8192-row chunks,
-   2^18-slot tables, 2^23-row ring, 5x hop expansion of the pane
-   deltas), requiring exact equality, and times kernel, plain version,
-   one PyTorch library call where one exists, and the card's bound for
-   the same bytes;
-3. runs q7, q5 and q1 at 2 events/s through the port's ``Engine`` on
-   the card and on the CPU (plain versions, the agg forced onto the
-   card's pre-aggregation branch) and requires equal MV rows and equal
-   state, slot for slot;
-4. runs q1, q5 and q7, each in a fresh ``Engine`` at ``bench.py``'s
-   sizes (9 warm-up barriers, then 32 timed barriers of 8 chunks) with
-   the launch counters set to 0 just before and read just after each
-   timed window, and requires every kernel of that query's path to
-   have launched;
-5. checks each MV against a numpy recomputation over the bids the port
-   generated: q7's max(price) and count(*) per 10-second window, q5's
-   bid count per (auction, hop window), q1's ring rows;
+   the shapes the Nexmark q1/q5/q7/q8 main paths give it (8192-row
+   chunks, 2^18-slot tables, 2^23-row ring, 5x hop expansion of the pane
+   deltas; for q8 the join state of a bench-size q8 engine after 10
+   barriers, two 2^22-slot tag tables, and its next auction chunk),
+   requiring exact equality (tags bit for bit), and times kernel, plain
+   version, one PyTorch library call where one exists, and the card's
+   bound for the same bytes;
+3. runs q7, q5 and q1 at 2 events/s and q8 at 10,000 events/s through
+   the port's ``Engine`` on the card and on the CPU (plain versions, the
+   agg forced onto the card's pre-aggregation branch) and requires equal
+   MV or ring rows and equal state, slot for slot;
+4. runs q1, q5, q7 and q8, each in a fresh ``Engine`` at ``bench.py``'s
+   sizes (9 warm-up barriers, then 32 timed barriers of 8 chunks, or of
+   8 scheduling rounds of 1 person and 3 auction chunks for q8) with the
+   launch counters set to 0 just before and read just after each timed
+   window, and requires every kernel of that query's path to have
+   launched;
+5. checks each MV against a numpy recomputation over the events the
+   port generated: q7's max(price) and count(*) per 10-second window,
+   q5's bid count per (auction, hop window), q1's ring rows, q8's ring
+   as the inner join of persons and auctions on id = seller within a
+   1-second window;
 6. prints the ``kernels`` JSON line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -56,7 +61,7 @@ BARRIERS = 32
 CHUNKS_PER_BARRIER = 8
 WINDOW_US = 10_000_000
 HOP_SLIDE_US = 2_000_000
-QUERIES = ("q1", "q5", "q7")
+QUERIES = ("q1", "q5", "q7", "q8")
 #: the kernels each query's main path must launch
 PATH_KERNELS = {
     "q1": ("nexmark_bids", "ring_append"),
@@ -64,6 +69,9 @@ PATH_KERNELS = {
            "agg_scatter", "mask_indices", "mv_upsert"),
     "q7": ("nexmark_bids", "hop_window", "hash64", "agg_preagg", "probe",
            "agg_scatter", "mask_indices", "mv_upsert"),
+    "q8": ("nexmark_auctions", "nexmark_persons", "hop_window", "hash64",
+           "tag_insert_ranked", "tag_probe", "join_update", "join_emit",
+           "join_clean", "mask_indices", "ring_append"),
 }
 
 
@@ -75,8 +83,8 @@ def fail(msg: str, code: int = 1):
 #: device cycles per millisecond used to size the queue pre-fill (the
 #: H100 SXM's 1980 MHz boost clock; a slower clock only sleeps longer)
 CYCLES_PER_MS = 1.98e6
-#: host time per call the pre-fill covers (wrappers take ~20-100 us)
-PREFILL_MS_PER_CALL = 0.4
+#: host time per call the pre-fill covers (wrappers take ~20-500 us)
+PREFILL_MS_PER_CALL = 1.0
 
 
 class Timer:
@@ -180,6 +188,8 @@ def main() -> int:
     results["ring_append"] = phase_ring(torch, device, timer, scale)
     results["nexmark_bids"] = phase_bids(torch, device, timer, scale)
     results["hop_window"] = phase_hop(torch, device, timer, scale)
+    results.update(phase_nexmark_events(torch, device, timer, scale))
+    results.update(phase_q8_kernels(torch, device, timer, scale))
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -187,6 +197,7 @@ def main() -> int:
     # -- 3. card against CPU --------------------------------------------
     for query in ("q7", "q5", "q1"):
         phase_engine_parity(torch, device, query)
+    phase_q8_parity(torch, device)
 
     # -- 4-5. main paths --------------------------------------------------
     rates = {}
@@ -194,10 +205,15 @@ def main() -> int:
         r["launches"] = 0
         r["launches_by_query"] = {}
     for query in QUERIES:
-        launches, rates[query] = phase_main_path(torch, device, scale, query)
+        if query == "q8":
+            launches, rates[query] = phase_q8_main_path(torch, device, scale)
+        else:
+            launches, rates[query] = phase_main_path(torch, device, scale,
+                                                     query)
         for name, n in launches.items():
-            results[name]["launches"] += n
-            results[name]["launches_by_query"][query] = n
+            if name in results:
+                results[name]["launches"] += n
+                results[name]["launches_by_query"][query] = n
         missing = [k for k in PATH_KERNELS[query] if launches[k] <= 0]
         if device.type == "cuda" and missing:
             fail(f"{query}: kernels {missing} were not launched on the "
@@ -739,6 +755,13 @@ SELECT window_start, max(price) AS max_price, count(*) AS bids
 FROM TUMBLE(bid, date_time, INTERVAL '10' SECOND)
 GROUP BY window_start;
 """,
+    "q8": """
+CREATE MATERIALIZED VIEW bench_mv AS
+SELECT p.id AS id, p.name AS name, a.reserve AS reserve
+FROM TUMBLE(person, date_time, INTERVAL '1' SECOND) p
+JOIN TUMBLE(auction, date_time, INTERVAL '1' SECOND) a
+ON p.id = a.seller AND p.window_start = a.window_start;
+""",
 }
 
 
@@ -795,23 +818,32 @@ def phase_engine_parity(torch, device, query: str) -> None:
 PORT_KERNEL_NAMES = ("hash64_kernel", "probe_kernel", "reset_kernel",
                      "scatter_kernel", "mark_kernel", "apply_kernel",
                      "preagg_kernel", "count_kernel", "write_kernel",
-                     "ring_append_kernel", "bids_kernel", "hop_kernel")
+                     "ring_append_kernel", "bids_kernel", "hop_kernel",
+                     "auctions_kernel", "persons_kernel", "tag_lookup_kernel",
+                     "tag_insert_kernel", "tag_ranked_kernel",
+                     "join_rank_kernel", "join_update_kernel",
+                     "join_emit_kernel", "join_clean_kernel",
+                     "compact_count_kernel", "compact_tiles_kernel",
+                     "compact_write_kernel")
 
 
-def profile_window(torch, eng, query: str) -> float | None:
-    """Two more barriers under torch.profiler: device busy time (the sum
-    of CUDA kernel times on the one stream), kernels launched per chunk,
-    the share of the port's own kernels, and the top kernels.  The
-    profiler slows the host, so its wall time is only the denominator of
-    the busy share it reports, not a rate.  Returns the launches per
-    chunk (None when the profiler recorded no device time)."""
+def profile_window(torch, eng, query: str, barriers: int = 2,
+                   chunks_per_barrier: int = CHUNKS_PER_BARRIER
+                   ) -> float | None:
+    """More barriers under torch.profiler: device busy time (the sum of
+    CUDA kernel times on the one stream), kernels launched per chunk
+    (``chunks_per_barrier`` chunks a barrier: q8 pulls 4 a round), the
+    share of the port's own kernels, and the top kernels.  The profiler
+    slows the host, so its wall time is only the denominator of the busy
+    share it reports, not a rate.  Returns the launches per chunk (None
+    when the profiler recorded no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.tick(barriers=2, chunks_per_barrier=CHUNKS_PER_BARRIER)
+        eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -830,8 +862,9 @@ def profile_window(torch, eng, query: str) -> float | None:
     ours_ms = sum(dev_us(e) for e in kern
                   if e.key.startswith(PORT_KERNEL_NAMES)) / 1e3
     n_kern = sum(e.count for e in kern)
-    chunks = 2 * CHUNKS_PER_BARRIER
-    print(f"[profile] {query} 2 barriers x {CHUNKS_PER_BARRIER} chunks: "
+    chunks = barriers * chunks_per_barrier
+    print(f"[profile] {query} {barriers} barriers x {chunks_per_barrier} "
+          f"chunks: "
           f"wall {wall_ms:.2f} ms (profiled), device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), port kernels {ours_ms:.3f} "
           f"ms, {n_kern} kernel launches ({n_kern / chunks:.1f} per "
@@ -840,11 +873,13 @@ def profile_window(torch, eng, query: str) -> float | None:
         print(f"[profile]   {dev_us(e) / 1e3:8.3f} ms  x{e.count:5d}  "
               f"{e.key[:100]}", flush=True)
 
+    job = eng.jobs[0]
+    if not hasattr(job, "source"):
+        return n_kern / chunks
     # launches by layer for one chunk (the step runs on a clone: the
     # job's own state must stay as the timed run left it)
     from risingwave_tpu_torch.stream.runtime import clone_tree
 
-    job = eng.jobs[0]
     gen, cap = job.source.gen, job.source.cap
     states = clone_tree(job.states)
     chunk = gen.gen_bids(0, cap)
@@ -980,6 +1015,541 @@ def phase_main_path(torch, device, scale, query: str):
     bids = _consumed_bids(eng, cap)
     msg = {"q1": check_q1, "q5": check_q5, "q7": check_q7}[query](eng, bids)
     print(f"[check] {query} {msg}", flush=True)
+    del eng
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, rate
+
+
+# ---------------------------------------------------------------------------
+# q8: the windowed person x auction join
+
+
+#: bench.py's PlannerConfig for q8 (both join sides are pools of 2^22)
+Q8_CONFIG = dict(chunk_capacity=8192, agg_table_size=1 << 18,
+                 agg_emit_capacity=4096, join_left_table_size=1 << 22,
+                 join_right_table_size=1 << 18, join_pool_size=1 << 22,
+                 join_out_capacity=1 << 12, mv_table_size=1 << 18,
+                 mv_ring_size=1 << 23, topn_pool_size=1 << 14)
+#: the columns q8's sources keep (person: id, name, date_time; auction:
+#: id, seller, reserve, expires, date_time)
+PERSON_COLS = (0, 1, 6)
+AUCTION_COLS = (0, 7, 4, 6, 5)
+Q8_WINDOW_US = 1_000_000
+WM_DELAY_US = 4_000_000
+
+
+def _q8_engine(torch, device, scale, barriers: int):
+    """A q8 engine at bench.py's sizes (divided by ``scale``) after
+    ``barriers`` barriers of 8 scheduling rounds."""
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    cfg = {k: max(v // scale, 64) for k, v in Q8_CONFIG.items()}
+    if scale > 1:
+        # the CPU rehearsal's 1M events/s cover too little event time for
+        # cleaning: pools and ring hold every row of the run instead
+        cfg.update(join_pool_size=1 << 18, mv_ring_size=1 << 19)
+    eng = Engine(PlannerConfig(**cfg), device=device)
+    eng.execute(BENCH_SOURCES)
+    eng.execute(QUERY_SQL["q8"])
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
+    eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    return eng
+
+
+def phase_nexmark_events(torch, device, timer, scale):
+    """K9's auctions and persons against the plain generators on the
+    card: q8's columns and all columns, 2^20 rows from 0 (every price bit
+    for bit) and a seeded chunk far out."""
+    from risingwave_tpu_torch.connector.nexmark import (
+        NexmarkConfig, NexmarkGenerator)
+
+    gen = NexmarkGenerator(device=device)
+    seeded = NexmarkGenerator(NexmarkConfig(inter_event_us=1, seed=3),
+                              device=device)
+    n, cap = (1 << 20) // scale, 8192 // scale
+    out = {}
+    for table, cols_q8, row_bytes in (("auctions", AUCTION_COLS, 5 * 8 + 2),
+                                      ("persons", PERSON_COLS,
+                                       2 * 8 + 24 + 4 + 2)):
+        pairs = []
+        for tag, gn, k0, rows, cols in (
+                (f"2^20 {table}, q8 columns", gen, 0, n, cols_q8),
+                (f"{table}, all columns", gen, 12345, cap, None),
+                (f"seeded {table}", seeded, 10**9 + 7, cap, cols_q8)):
+            kern = getattr(gn, f"gen_{table}")(k0, rows, cols)
+            plain = getattr(gn, f"gen_{table}_plain")(k0, rows, cols)
+            pairs += [(f"{tag} {name}", x, y) for (name, x), (_, y)
+                      in zip(_chunk_planes(kern), _chunk_planes(plain))]
+        err = max_abs_err(torch, pairs)
+        fn = getattr(gen, f"gen_{table}")
+        pfn = getattr(gen, f"gen_{table}_plain")
+        ms = timer(lambda i: fn(i * cap, cap, cols_q8), 200)
+        plain_ms = timer(lambda i: pfn(i * cap, cap, cols_q8), 20)
+        # written per row: the kept columns, ops and valid; ~60 integer
+        # ops (auctions: and two pow) per row
+        b = bound(cap * row_bytes, cap * 60)
+        print(f"[nexmark_{table}] exact over {n} rows (q8 columns, all "
+              f"columns, seeded); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {b[0]:.5f} ms", flush=True)
+        line = {"auctions": "risingwave_tpu/connector/nexmark.py:279",
+                "persons": "risingwave_tpu/connector/nexmark.py:312"}[table]
+        out[f"nexmark_{table}"] = kernel_entry("nexmark_events.cu", line, ms,
+                                               plain_ms, b, None, err)
+    return out
+
+
+def _chunk_planes(c):
+    from risingwave_tpu_torch.common.chunk import StrCol
+
+    out = [("ops", c.ops), ("valid", c.valid)]
+    for name, col in zip(c.schema.names(), c.columns):
+        if isinstance(col, StrCol):
+            out += [(f"{name} bytes", col.data), (f"{name} lens", col.lens)]
+        else:
+            out.append((name, col))
+    return out
+
+
+def _side_planes(tag, s):
+    """Every tensor of a pool side, flattened with names."""
+    from risingwave_tpu_torch.stream.materialize import value_leaves
+
+    out = [(f"{tag} tags", s.table.tags), (f"{tag} count", s.count),
+           (f"{tag} pool_pos", s.pool_pos),
+           (f"{tag} slot_clean", s.slot_clean),
+           (f"{tag} pool_len", s.pool_len), (f"{tag} overflow", s.overflow),
+           (f"{tag} inconsistency", s.inconsistency)]
+    for i, col in enumerate(s.rows):
+        for j, (d, n) in enumerate(value_leaves(col)):
+            out.append((f"{tag} rows[{i}].{j}", d))
+    return out
+
+
+def phase_q8_kernels(torch, device, timer, scale):
+    """K12-K15 at q8's main-path shapes: the join state of a q8 engine at
+    bench sizes after 10 barriers (two 2^22-slot tag tables at the
+    load the main path reaches), the next 8192-row auction chunk of the
+    stream through its fragment, and the kernels against their plain
+    versions on copies of that state."""
+    from risingwave_tpu_torch.common.hash import hash64_columns
+    from risingwave_tpu_torch.state.tag_table import TagTable, pair_tag
+    from risingwave_tpu_torch.stream import hash_join as hj
+    from risingwave_tpu_torch.stream.runtime import clone_tree
+
+    eng = _q8_engine(torch, device, scale, 10)
+    job = eng.jobs[0]
+    join = job.nodes[2].join
+    # the next round's person chunk goes into (a copy of) the person side
+    # first, as the scheduler does, so the auction chunk finds its sellers
+    js = clone_tree(job.states[2])
+    _, pchunk = job.nodes[0].fragment.step(clone_tree(job.states[0]),
+                                           job.sources["p"].next_chunk())
+    js, _ = join.apply_begin(js, pchunk, "left")
+    _, achunk = job.nodes[1].fragment.step(clone_tree(job.states[1]),
+                                           job.sources["a"].next_chunk())
+    cap = achunk.capacity
+    key_cols, null_keys = hj._null_stripped_keys(
+        [e.eval(achunk) for e in join.right_keys])
+    h = hash64_columns(key_cols)
+    is_ins = hj.insert_mask(achunk, null_keys)
+    cr, _, _ = hj._rank_by_sorted(h, is_ins)
+    right, left = js.right, js.left
+    size = right.table.size
+    live = int(right.table.count())
+    tombs = int(right.table.tombstone_count())
+    print(f"[q8 state] after 10 barriers: auction table {live} live + "
+          f"{tombs} tombstones of {size}, pool_len {int(right.pool_len)}; "
+          f"person table {int(left.table.count())} live", flush=True)
+    out = {}
+
+    # -- K12 tag_insert_ranked -------------------------------------------
+    tk, tp = right.table.clone(), right.table.clone()
+    rk = tk._ranked_cuda(h, cr, right.count, is_ins) \
+        if device.type == "cuda" else tk._ranked_plain(h, cr, right.count,
+                                                       is_ins)
+    rp = tp._ranked_plain(h, cr, right.count, is_ins)
+    names = ("slots", "target", "head_slot", "inserted", "existed",
+             "overflow", "iters")
+    pairs = [(f"ranked {nm}", a, b) for nm, a, b in zip(names, rk[1:],
+                                                        rp[1:])]
+    pairs.append(("ranked tags", tk.tags, tp.tags))
+    err = max_abs_err(torch, pairs)
+    n_ins, iters = int(rp[4].sum()), int(rp[-1])
+    n_it = 20
+    clones = [right.table.clone() for _ in range(n_it + 1)]
+    ms = timer(lambda i: clones[i].lookup_or_insert_ranked(
+        h, cr, right.count, is_ins), n_it)
+    pclones = [right.table.clone() for _ in range(3)]
+    plain_ms = timer(lambda i: pclones[i]._ranked_plain(h, cr, right.count,
+                                                        is_ins), 2)
+    # per row: hash 8, rank 4, valid 1 read; slot, target, head 12 and 3
+    # flags written; two table reads (head, target) and one degree read;
+    # 8 B per claimed entry
+    b = bound(cap * (13 + 15 + 2 * 8 + 4) + n_ins * 8, cap * 2 * 60)
+    print(f"[tag_insert_ranked] exact ({n_ins} claims, {iters} rounds); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b[0]:.5f} ms", flush=True)
+    out["tag_insert_ranked"] = kernel_entry(
+        "tag_probe.cu", "risingwave_tpu/state/hash_table.py:525", ms,
+        plain_ms, b, None, err)
+
+    # -- K12 tag_probe: head lookups and the rehash ----------------------
+    zeros = torch.zeros(cap, dtype=torch.int32, device=device)
+    joinable = achunk.valid
+    lk = left.table.lookup_pair_counted(h, zeros, joinable)
+    _, ps, pf, po, _ = left.table._probe_tags_plain(pair_tag(h, zeros),
+                                                    joinable, False)
+    pairs = [("lookup slots", lk[0], ps), ("lookup found", lk[1], pf),
+             ("lookup bound", lk[2], (po & joinable).sum(dtype=torch.int64))]
+    n_found = int(pf.sum())
+    ms = timer(lambda i: left.table.lookup_pair_counted(h, zeros, joinable),
+               200)
+    plain_ms = timer(lambda i: left.table._probe_tags_plain(
+        pair_tag(h, zeros), joinable, False), 5)
+    b = bound(cap * (8 + 4 + 1 + 4 + 2) + cap * 8, cap * 40)
+    # the rehash of the auction table with tombstones raised to ~25%
+    g = torch.Generator(device="cpu").manual_seed(12)
+    tt = right.table.clone()
+    empty = (tt.tags == 0).cpu()
+    want = max(size // 4 - int(tt.tombstone_count()), 0)
+    frac = want / max(int(empty.sum()), 1)
+    tt.tags[(empty & (torch.rand(size, generator=g) < frac)).to(device)] = 1
+    fresh_k, moved_k = tt.rehashed()
+    fresh_p = TagTable.create(size, device)
+    _, moved_p, _, _, _ = fresh_p._probe_tags_plain(tt.tags, tt.occupied,
+                                                    True)
+    pairs += [("rehash tags", fresh_k.tags, fresh_p.tags),
+              ("rehash moved", moved_k, moved_p)]
+    err = max_abs_err(torch, pairs)
+    n_live, n_tomb = int(tt.count()), int(tt.tombstone_count())
+    rehash_ms = timer(lambda i: tt.rehashed(), 10)
+    rehash_plain_ms = timer(lambda i: TagTable.create(size, device)
+                            ._probe_tags_plain(tt.tags, tt.occupied, True),
+                            1)
+    # read the tags once, write the fresh tags and the moved map
+    rb = bound(size * (8 + 8 + 4), n_live * 60)
+    print(f"[tag_probe] exact (lookup of {cap} heads, {n_found} found; "
+          f"rehash of {n_live} live + {n_tomb} tombstones in {size}); "
+          f"lookup kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b[0]:.5f} ms; rehash kernel {rehash_ms:.4f} ms, plain "
+          f"{rehash_plain_ms:.4f} ms, bound {rb[0]:.5f} ms", flush=True)
+    out["tag_probe"] = kernel_entry(
+        "tag_probe.cu", "risingwave_tpu/state/hash_table.py:450", ms,
+        plain_ms, b, None, err)
+    out["tag_probe"].update(rehash_ms=rehash_ms,
+                            rehash_plain_ms=rehash_plain_ms,
+                            rehash_bound_ms=rb[0], rehash_bound_by=rb[1],
+                            rehash_replaces="risingwave_tpu/state/"
+                                            "hash_table.py:686")
+
+    # -- K13 join_update (with K12, against the plain update) ------------
+    sk, sp = clone_tree(right), clone_tree(right)
+    clean = join.right_clean
+    ik = hj.update_side_pool(sk, achunk, clean, key_cols, null_keys, h)[1]
+    ip = hj._update_side_pool_plain(sp, achunk, clean, key_cols, null_keys,
+                                    h)[1]
+    pairs = [(f"update {nm}", a, b) for (nm, a), (_, b)
+             in zip(_side_planes("auction side", sk),
+                    _side_planes("auction side", sp))]
+    pairs.append(("update rounds", ik, ip))
+    err = max_abs_err(torch, pairs)
+    work = clone_tree(right)
+    if device.type == "cuda":
+        ranked = hj.join_rank_cuda(h, is_ins)
+        probe = work.table.clone().lookup_or_insert_ranked(h, ranked[0],
+                                                           work.count, is_ins)
+        sort_ms = timer(lambda i: torch.sort(hj._sort_key(h, is_ins),
+                                             stable=True), 200)
+        rank_ms = timer(lambda i: hj.join_rank_cuda(h, is_ins), 200)
+        upd_ms = timer(lambda i: hj.join_update_cuda(
+            work, achunk, clean, key_cols, null_keys, is_ins, ranked,
+            probe), 50)
+        ms = rank_ms - sort_ms + upd_ms
+        full_ms = timer(lambda i: hj.update_side_pool(
+            clone_tree(right), achunk, clean, key_cols, null_keys, h), 10)
+    else:
+        sort_ms = ms = full_ms = timer(lambda i: hj.update_side_pool(
+            clone_tree(right), achunk, clean, key_cols, null_keys, h), 3)
+    plain_ms = timer(lambda i: hj._update_side_pool_plain(
+        clone_tree(right), achunk, clean, key_cols, null_keys, h), 2)
+    n_cols = 56
+    # per row: flags, slots, ranks, head, order, segment start ~30 B read;
+    # the row's 56 B of columns read and written; pool_pos 4, slot_clean 8
+    b = bound(cap * (30 + 2 * n_cols + 12), cap * 30)
+    print(f"[join_update] exact (the whole pool side after the update, "
+          f"with K12); rank + update kernels {ms:.4f} ms (the sort "
+          f"{sort_ms:.4f} ms apart), whole update {full_ms:.4f} ms, plain "
+          f"update (with plain K12) {plain_ms:.4f} ms, bound {b[0]:.5f} ms",
+          flush=True)
+    out["join_update"] = kernel_entry(
+        "join_update.cu", "risingwave_tpu/stream/hash_join.py:597", ms,
+        plain_ms, b, None, err)
+    out["join_update"].update(whole_update_ms=full_ms, sort_ms=sort_ms)
+
+    # -- K14 join_emit: window 0 of the auction chunk probing persons ----
+    st = js._replace(right=clone_tree(right))
+    st, pending = join.apply_begin(st, achunk, "right")
+    rows, (btable, bpool_pos) = join.build_rows_of(st, "right")
+    out_cap = join.out_capacity
+    args = (rows, btable, bpool_pos, pending, 0, out_cap, "right",
+            join.ops_updown)
+    ek = hj.emit_window(*args)
+    ep = hj.emit_window_plain(*args)
+    from risingwave_tpu_torch.stream.materialize import value_leaves
+    pairs = []
+    for ci, (ca, cb) in enumerate(zip(ek[0], ep[0])):
+        for j, ((da, _), (db, _)) in enumerate(zip(value_leaves(ca),
+                                                   value_leaves(cb))):
+            pairs.append((f"emit column {ci}.{j}", da, db))
+    pairs += [("emit ops", ek[1], ep[1]), ("emit valid", ek[2], ep[2]),
+              ("emit probe_bound", ek[3], ep[3])]
+    err = max_abs_err(torch, pairs)
+    total, n_valid = int(pending.total), int(ep[2].sum())
+    ms = timer(lambda i: hj.emit_window(*args), 200)
+    plain_ms = timer(lambda i: hj.emit_window_plain(*args), 5)
+    # per output row: 116 B of columns read and written, pool_pos 4 B, a
+    # tag read 8 B, ~13 binary-search reads of 4 B
+    b = bound(out_cap * (2 * 116 + 4 + 8 + 13 * 4), out_cap * 80)
+    print(f"[join_emit] exact (window 0 of {total} outputs, {n_valid} "
+          f"valid, person names included); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b[0]:.5f} ms", flush=True)
+    out["join_emit"] = kernel_entry(
+        "join_emit.cu", "risingwave_tpu/stream/hash_join.py:850", ms,
+        plain_ms, b, None, err)
+
+    # -- K15 join_clean: a clean and a compaction over 2^22 --------------
+    lag = join.right_clean[1]
+    wm = min(int(job.states[0][0].max_ts), int(job.states[1][0].max_ts)) \
+        - WM_DELAY_US
+    thr = torch.tensor(wm - lag + 2 * Q8_WINDOW_US, dtype=torch.int64,
+                       device=device)
+    ck, cp = clone_tree(right), clone_tree(right)
+    sk_ = hj.clean_pool(ck, thr)
+    sp_ = hj.clean_pool_plain(cp, thr)
+    pairs = [("clean tags", ck.table.tags, cp.table.tags),
+             ("clean count", ck.count, cp.count),
+             ("clean stats", sk_, sp_)]
+    comp_k = hj.compact_pool(ck)
+    comp_p = hj.compact_pool_plain(cp)
+    pairs += [(f"compact {nm}", a, b) for (nm, a), (_, b)
+              in zip(_side_planes("auction side", comp_k),
+                     _side_planes("auction side", comp_p))]
+    err = max_abs_err(torch, pairs)
+    n_stale = int(sp_[0]) - tombs
+    cl = [clone_tree(right) for _ in range(11)]
+    ms = timer(lambda i: hj.clean_pool(cl[i], thr), 10)
+    plain_ms = timer(lambda i: hj.clean_pool_plain(clone_tree(right), thr),
+                     3)
+    compact_ms = timer(lambda i: hj.compact_pool(ck), 10)
+    compact_plain_ms = timer(lambda i: hj.compact_pool_plain(cp), 3)
+    # clean: read tag and window key of every slot, write the stale ones
+    b = bound(size * 16 + n_stale * 12, size * 6)
+    cb = bound(size * (8 + 4 + 4) + size * 4, size * 10)
+    print(f"[join_clean] exact (clean of {n_stale} entries, then compaction "
+          f"to {int(comp_p.pool_len)} rows); clean kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b[0]:.5f} ms; compaction (with the "
+          f"row permutation) {compact_ms:.4f} ms, plain "
+          f"{compact_plain_ms:.4f} ms, bound of its scan {cb[0]:.5f} ms",
+          flush=True)
+    out["join_clean"] = kernel_entry(
+        "join_clean.cu", "risingwave_tpu/stream/hash_join.py:1117", ms,
+        plain_ms, b, None, err)
+    out["join_clean"].update(compact_ms=compact_ms,
+                             compact_plain_ms=compact_plain_ms,
+                             compact_bound_ms=cb[0],
+                             compact_replaces="risingwave_tpu/stream/"
+                                              "hash_join.py:1048")
+    del eng, js, st, cl, clones, pclones
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_q8_parity(torch, device) -> None:
+    """q8 through the engine on ``device`` and on the CPU (plain
+    versions) at 10,000 events/s with small pools (chunk 256, pools
+    2^14, emission windows of 64 rows): emission drains, watermark
+    cleaning, ``rebuild_pool`` and ``compact_pool`` all run.  Ring rows
+    in order and every state tensor must be equal after 12 barriers.
+    (At 2 events/s, persons are 25 s apart and no 1-second window holds
+    a pair, so q8 would emit nothing.)"""
+    from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    cfg = PlannerConfig(chunk_capacity=256, join_pool_size=1 << 14,
+                        join_out_capacity=64, mv_ring_size=1 << 16)
+    engines = []
+    for dev in (device, torch.device("cpu")):
+        eng = Engine(cfg, device=dev)
+        eng.execute(BENCH_SOURCES.replace("'1000000'", "'10000'"))
+        eng.execute(QUERY_SQL["q8"])
+        eng.tick(barriers=12, chunks_per_barrier=4)
+        engines.append(eng)
+    rows = [[tuple(v if isinstance(v, (str, bytes)) else _host_value(v)
+                   for v in r) for r in e.execute("SELECT * FROM bench_mv")]
+            for e in engines]
+    if rows[0] != rows[1] or not rows[0]:
+        fail("q8 ring rows on the card differ from the CPU plain versions")
+    bad = state_mismatches(state_to_numpy(engines[1].jobs[0].states),
+                           engines[0].jobs[0].states)
+    if bad:
+        fail(f"q8 state on the card differs from the CPU: {bad[:5]}")
+    fired = engines[0].jobs[0].rehash_fired
+    if not (fired.get("rebuild_pool") and fired.get("compact_pool")):
+        fail(f"q8 parity run did not exercise the maintenance: {fired}")
+    js = engines[0].jobs[0].states[2]
+    print(f"[parity] q8 at 10,000 events/s, 12 barriers: {len(rows[0])} ring "
+          f"rows in order and all state equal to the CPU plain versions "
+          f"({int(js.emit_windows)} emission windows, maintenance fired "
+          f"{fired})", flush=True)
+
+
+def _q8_consumed(eng, cap: int):
+    """numpy columns of every person and auction the q8 job consumed,
+    regenerated, with the watermark filter's late rows dropped."""
+    import numpy as np
+
+    job = eng.jobs[0]
+    out = {}
+    for name, cols, table in (("p", PERSON_COLS, "persons"),
+                              ("a", (7, 4, 5), "auctions")):
+        reader = job.sources[name]
+        gen = reader.inner.gen
+        parts = {i: [] for i in range(len(cols))}
+        keep = []
+        max_ts = None
+        for i in range(reader.offset // cap):
+            c = getattr(gen, f"gen_{table}")(i * cap, cap, cols)
+            ts = c.columns[-1].cpu().numpy()
+            wm = None if max_ts is None else max_ts - WM_DELAY_US
+            keep.append(np.ones(cap, bool) if wm is None else ts >= wm)
+            max_ts = int(ts.max()) if max_ts is None else max(max_ts,
+                                                              int(ts.max()))
+            for j, col in enumerate(c.columns):
+                if hasattr(col, "lens"):
+                    parts[j].append((col.data.cpu().numpy(),
+                                     col.lens.cpu().numpy()))
+                else:
+                    parts[j].append(col.cpu().numpy())
+        k = np.concatenate(keep)
+        cols_np = []
+        for j in range(len(cols)):
+            if isinstance(parts[j][0], tuple):
+                cols_np.append((np.concatenate([p[0] for p in parts[j]])[k],
+                                np.concatenate([p[1] for p in parts[j]])[k]))
+            else:
+                cols_np.append(np.concatenate(parts[j])[k])
+        out[name] = cols_np
+    return out
+
+
+def _name_key(data, lens):
+    """An int64 key per fixed-width string (bytes past lens masked)."""
+    import numpy as np
+
+    w = data.shape[1]
+    masked = np.where(np.arange(w)[None, :] < lens[:, None], data, 0)
+    words = np.zeros((data.shape[0], -(-w // 8) * 8), np.uint8)
+    words[:, :w] = masked
+    k = np.zeros(data.shape[0], np.uint64)
+    for j, word in enumerate(words.view(np.uint64).T):
+        k = (k * np.uint64(1_000_003)) ^ (word + np.uint64(j))
+    return (k ^ lens.astype(np.uint64)).view(np.int64)
+
+
+def check_q8(eng, cap: int) -> str:
+    """The ring equals a numpy inner join of the consumed persons and
+    auctions on p.id = a.seller within the same 1-second window, as a
+    multiset of (id, name, reserve)."""
+    import numpy as np
+
+    c = _q8_consumed(eng, cap)
+    (pid, (pname, plens), pts), (seller, reserve, ats) = c["p"], c["a"]
+    pws = pts - pts % Q8_WINDOW_US
+    aws = ats - ats % Q8_WINDOW_US
+    base = int(min(pws.min(), aws.min()))
+    pkey = pid * (1 << 24) + (pws - base) // Q8_WINDOW_US
+    akey = seller * (1 << 24) + (aws - base) // Q8_WINDOW_US
+    order = np.argsort(pkey, kind="stable")
+    spk = pkey[order]
+    if np.any(spk[1:] == spk[:-1]):
+        fail("q8 check: a person (id, window) appears twice")
+    at = np.searchsorted(spk, akey)
+    at_c = np.minimum(at, spk.shape[0] - 1)
+    hit = spk[at_c] == akey
+    prow = order[at_c[hit]]
+    want = np.stack([pid[prow], _name_key(pname[prow], plens[prow]),
+                     reserve[hit]], 1)
+    entry = eng.catalog.get("bench_mv")
+    state = eng.jobs[0].states[entry.mv_state_index[0]][
+        entry.mv_state_index[1]]
+    n = int(state.cursor)
+    if n != want.shape[0] or int(state.overflow) != 0 \
+            or n > entry.mv_executor.ring_size:
+        fail(f"q8 ring holds {n} rows (overflow {int(state.overflow)}) for "
+             f"{want.shape[0]} numpy join rows")
+    ids, names, res = state.values
+    got = np.stack([ids[:n].cpu().numpy(),
+                    _name_key(names.data[:n].cpu().numpy(),
+                              names.lens[:n].cpu().numpy()),
+                    res[:n].cpu().numpy()], 1)
+    got = got[np.lexsort(got.T[::-1])]
+    want = want[np.lexsort(want.T[::-1])]
+    if not np.array_equal(got, want):
+        fail("q8 ring rows differ from the numpy join (as multisets)")
+    return (f"ring rows equal the numpy join of {pid.shape[0]} persons and "
+            f"{seller.shape[0]} auctions ({n} rows, no lap)")
+
+
+def phase_q8_main_path(torch, device, scale):
+    """q8 at bench.py's sizes: 9 warm-up barriers, then 32 timed barriers
+    of 8 scheduling rounds (1 person + 3 auction chunks each), with the
+    launch counters, the host reads and the maintenance counts taken
+    over the timed window."""
+    from risingwave_tpu_torch import kernels
+
+    eng = _q8_engine(torch, device, scale, WARMUP_BARRIERS)
+    job = eng.jobs[0]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    reads0 = (job.window_reads, job.barrier_reads)
+    fired0 = dict(job.rehash_fired)
+    rows0 = eng.metrics.get("stream_rows_total", job="bench_mv")
+    t0 = time.perf_counter()
+    eng.tick(barriers=BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cap = job.sources["p"].cap
+    chunks = BARRIERS * CHUNKS_PER_BARRIER * 4
+    rows = chunks * cap
+    counted = eng.metrics.get("stream_rows_total", job="bench_mv") - rows0
+    if counted != rows:
+        fail(f"q8 counted {counted} rows, expected {rows}")
+    reads = (job.window_reads - reads0[0], job.barrier_reads - reads0[1])
+    fired = {k: v - fired0.get(k, 0) for k, v in job.rehash_fired.items()}
+    rate = rows / dt
+    print(f"[main] q8 {rows} rows (persons and auctions) in {dt:.3f} s = "
+          f"{rate:.0f} rows/s; host reads: {reads[0]} emission totals + "
+          f"{reads[1]} barrier condition reads = {sum(reads) / chunks:.3f} "
+          f"per chunk; rebuild_pool x{fired.get('rebuild_pool', 0)}, "
+          f"compact_pool x{fired.get('compact_pool', 0)} in the window; "
+          f"port kernel launches {launches}", flush=True)
+    if device.type == "cuda":
+        per_chunk = profile_window(torch, eng, "q8", barriers=1,
+                                   chunks_per_barrier=4 * CHUNKS_PER_BARRIER)
+        print(f"[main] q8 launches per chunk "
+              f"{'not measured' if per_chunk is None else f'{per_chunk:.1f}'}"
+              f" (all CUDA kernels, profiled window)", flush=True)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    eng.tick(barriers=1, chunks_per_barrier=0)
+    print(f"[check] q8 {check_q8(eng, cap)}", flush=True)
     del eng
     if device.type == "cuda":
         torch.cuda.empty_cache()

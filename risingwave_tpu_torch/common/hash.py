@@ -1,7 +1,10 @@
 """64-bit key hashing for state-table slot selection.
 
 Port of the ``hash64_columns`` part of ``risingwave_tpu/common/hash.py``
-(``hash64_columns`` :183, ``_mix64`` :160, ``normalize_null_col`` :32).
+(``hash64_columns`` :183, ``_mix64`` :160, ``normalize_null_col`` :32)
+and of its split form ``hash64_partial`` / ``hash64_extend`` /
+``hash64_finish`` (:203-232), which the join's tag table uses to fold a
+key hash once and finish it with a varying rank.
 Kernel A (``csrc/hash64.cu``) computes it on the card;
 ``hash64_columns_plain`` is its plain PyTorch version, used for CPU
 tensors and as the card-side reference.
@@ -105,19 +108,42 @@ def _fold_str(col: StrCol, state: torch.Tensor) -> torch.Tensor:
 
 def hash64_columns_plain(columns: Sequence) -> torch.Tensor:
     """Plain PyTorch version of kernel A; int64 [cap] bit patterns."""
+    return hash64_finish(hash64_partial(columns))
+
+
+def _fold_plain(col, state: torch.Tensor | None) -> torch.Tensor:
+    """Fold one normalized column into the mix state (seed 0)."""
+    ref = col.lens if isinstance(col, StrCol) else col
+    if state is None:
+        state = torch.full(ref.shape[:1], K1, dtype=torch.int64,
+                           device=ref.device)
+    if isinstance(col, StrCol):
+        return _fold_str(col, state)
+    return mix64(state ^ (_key_word(col) * K1))
+
+
+def hash64_partial(columns: Sequence) -> torch.Tensor:
+    """The unfinalized mix state after folding ``columns`` (int64 bit
+    patterns).  ``hash64_finish(hash64_extend(hash64_partial([a]), b))``
+    equals ``hash64_columns([a, b])``."""
     state = None
     for raw in columns:
         for col in normalize_null_col(raw):
-            ref = col.lens if isinstance(col, StrCol) else col
-            if state is None:
-                state = torch.full(ref.shape[:1], K1, dtype=torch.int64,
-                                   device=ref.device)
-            if isinstance(col, StrCol):
-                state = _fold_str(col, state)
-            else:
-                state = mix64(state ^ (_key_word(col) * K1))
+            state = _fold_plain(col, state)
     if state is None:
         raise ValueError("no key columns")
+    return state
+
+
+def hash64_extend(state: torch.Tensor, col) -> torch.Tensor:
+    """Fold one more column into a ``hash64_partial`` state."""
+    for c in normalize_null_col(col):
+        state = _fold_plain(c, state)
+    return state
+
+
+def hash64_finish(state: torch.Tensor) -> torch.Tensor:
+    """Finalize a partial state: the all-ones remap of hash64_columns."""
     return torch.where(state == -1, torch.full_like(state, -2), state)
 
 

@@ -2,19 +2,25 @@
 
 ``state_from_numpy(tree)`` turns a reference executor state fetched to
 the host (``jax.device_get``: its ``AggState``, ``MvState``,
-``RingState``, ``HashTable``, ``WmState``, ``NCol`` and ``StrCol``
-nodes with numpy leaves) into the port's state types with torch
-tensors on ``device``; ``state_to_numpy`` maps a port state to the
-same node types of the port with numpy leaves; ``state_mismatches``
-compares the two element for element.  Nodes are recognised
-by class name and fields, so this module imports nothing of the
-reference package.
+``RingState``, ``HashTable``, ``WmState``, ``TagTable``,
+``PoolSideState``, ``JoinState``, ``NCol`` and ``StrCol`` nodes with
+numpy leaves) into the port's state types with torch tensors on
+``device``; ``state_to_numpy`` maps a port state to the same node types
+of the port with numpy leaves; ``state_mismatches`` compares the two
+element for element.  Nodes are recognised by class name and fields,
+so this module imports nothing of the reference package.
+
+The reference's ``TagTable`` tags are uint64; the port's are the same
+bit patterns in int64, so tags convert with ``view`` (never a value
+cast) both ways and compare by bit pattern.
 
 Every state of the ported plans converts: q7's agg, q5's pane agg,
 retractable final agg and MV, q1's ring (``tests/test_torch_preagg.py``
-carries them into a running port engine).  Reference-only features
-must be empty to convert (materialized-input buckets, DISTINCT tables,
-the spill ring): the port has no counterpart for them yet.
+carries them into a running port engine) and q8's join with pool
+storage on both sides (``tests/test_torch_dag.py``).  Reference-only
+features must be empty to convert (materialized-input buckets, DISTINCT
+tables, the spill ring); a dense join side (``SideState``) is refused:
+the port has no counterpart for them yet.
 """
 
 from __future__ import annotations
@@ -24,13 +30,15 @@ import torch
 
 from risingwave_tpu_torch.common.chunk import NCol, StrCol
 from risingwave_tpu_torch.state.hash_table import HashTable
+from risingwave_tpu_torch.state.tag_table import TagTable
 from risingwave_tpu_torch.stream.hash_agg import AggState
+from risingwave_tpu_torch.stream.hash_join import JoinState, PoolSideState
 from risingwave_tpu_torch.stream.materialize import MvState, RingState
 from risingwave_tpu_torch.stream.watermark import WmState
 
 _STATE_TYPES = {cls.__name__: cls
                 for cls in (AggState, MvState, RingState, WmState, NCol,
-                            StrCol)}
+                            StrCol, PoolSideState, JoinState)}
 #: reference AggState fields the port does not carry (must be empty)
 _REF_ONLY = ("minput_vals", "minput_occ", "distinct_tables",
              "distinct_counts", "spill_rows", "spill_ops", "spill_count")
@@ -43,6 +51,11 @@ def _empty(v) -> bool:
 def state_from_numpy(tree, device="cpu"):
     """Reference state (numpy leaves) -> port state on ``device``."""
     name = type(tree).__name__
+    if name == "SideState":
+        raise NotImplementedError("dense join sides are not ported yet")
+    if name == "TagTable":
+        tags = np.asarray(tree.tags).view(np.int64)
+        return TagTable(torch.from_numpy(tags.copy()).to(device), tree.size)
     if name == "HashTable":
         return HashTable(
             tuple(state_from_numpy(c, device) for c in tree.key_cols),
@@ -66,6 +79,8 @@ def state_to_numpy(tree):
     """Port state -> the same node types with numpy leaves."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
+    if isinstance(tree, TagTable):
+        return TagTable(state_to_numpy(tree.tags), tree.size)
     if isinstance(tree, HashTable):
         return HashTable(tuple(state_to_numpy(c) for c in tree.key_cols),
                          state_to_numpy(tree.occupied),
@@ -83,6 +98,9 @@ def state_mismatches(ref, port, path: str = "state") -> list[str]:
     port's tree and reads the reference's fields of the same names."""
     if isinstance(port, torch.Tensor):
         port = state_to_numpy(port)
+    if isinstance(port, TagTable):
+        ref_tags = np.asarray(ref.tags).view(np.int64)
+        return state_mismatches(ref_tags, port.tags, f"{path}.tags")
     if isinstance(port, HashTable):
         return (state_mismatches(ref.key_cols, port.key_cols, f"{path}.key")
                 + state_mismatches(ref.occupied, port.occupied,

@@ -4,10 +4,12 @@ Port of ``risingwave_tpu/connector/nexmark.py``: every field of an
 event is a counter-based hash of (event id, field stream), so a chunk is
 a pure function of its first ordinal and generates on the device in one
 pass.  The same ``(k0, cap)`` gives the same columns as the reference.
-On the card ``gen_bids`` is one launch of kernel K9
-(``csrc/nexmark_bids.cu``); ``gen_bids_plain`` is its plain version, a
-pass of elementwise torch ops.  Auctions and persons are plain torch on
-every device (no query of the ported slice reads them).
+On the card each generator is one launch of kernel K9: ``gen_bids``
+(``csrc/nexmark_bids.cu``), ``gen_auctions`` and ``gen_persons``
+(``csrc/nexmark_events.cu``); the ``*_plain`` methods are their plain
+versions, passes of elementwise torch ops.  Auctions and persons take
+the list of columns a source keeps (``cols``, in output order), and the
+kernels generate only those.
 
 PyTorch has no uint64 ``%`` or ``>>``, so the generator computes in
 int64: logical shifts mask the sign extension, and the unsigned modulo
@@ -26,6 +28,7 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 from fractions import Fraction
+from typing import Sequence
 
 import torch
 
@@ -189,6 +192,51 @@ class _BidArgs(ctypes.Structure):
     ]
 
 
+class _AuctionArgs(ctypes.Structure):
+    """Mirror of ``struct AuctionArgs`` in ``csrc/nexmark_events.cu``."""
+
+    _fields_ = [
+        ("k0", ctypes.c_longlong), ("cap", ctypes.c_int),
+        ("inter_event_us", ctypes.c_longlong),
+        ("base_time_us", ctypes.c_longlong), ("seed", ctypes.c_longlong),
+        ("items", ctypes.c_void_p), ("item_lens", ctypes.c_void_p),
+        ("n_items", ctypes.c_int), ("item_w", ctypes.c_int),
+        ("descs", ctypes.c_void_p), ("desc_lens", ctypes.c_void_p),
+        ("n_descs", ctypes.c_int), ("desc_w", ctypes.c_int),
+        ("id", ctypes.c_void_p), ("item", ctypes.c_void_p),
+        ("item_len", ctypes.c_void_p), ("desc", ctypes.c_void_p),
+        ("desc_len", ctypes.c_void_p), ("initial_bid", ctypes.c_void_p),
+        ("reserve", ctypes.c_void_p), ("date_time", ctypes.c_void_p),
+        ("expires", ctypes.c_void_p), ("seller", ctypes.c_void_p),
+        ("category", ctypes.c_void_p), ("ops", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p),
+    ]
+
+
+class _StrField(ctypes.Structure):
+    """Mirror of ``struct StrField`` in ``csrc/nexmark_events.cu``."""
+
+    _fields_ = [
+        ("book", ctypes.c_void_p), ("lens", ctypes.c_void_p),
+        ("n", ctypes.c_int), ("w", ctypes.c_int),
+        ("out", ctypes.c_void_p), ("out_len", ctypes.c_void_p),
+    ]
+
+
+class _PersonArgs(ctypes.Structure):
+    """Mirror of ``struct PersonArgs`` in ``csrc/nexmark_events.cu``."""
+
+    _fields_ = [
+        ("k0", ctypes.c_longlong), ("cap", ctypes.c_int),
+        ("inter_event_us", ctypes.c_longlong),
+        ("base_time_us", ctypes.c_longlong), ("seed", ctypes.c_longlong),
+        ("name", _StrField), ("email", _StrField), ("card", _StrField),
+        ("city", _StrField), ("state", _StrField),
+        ("id", ctypes.c_void_p), ("date_time", ctypes.c_void_p),
+        ("ops", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+    ]
+
+
 @dataclass(frozen=True)
 class NexmarkConfig:
     """Generator knobs."""
@@ -323,7 +371,32 @@ class NexmarkGenerator:
         return self._chunk((auction, bidder, price, channel, url,
                             self._timestamp(n)), BID_SCHEMA)
 
-    def gen_auctions(self, k0: int, cap: int) -> Chunk:
+    def gen_auctions(self, k0: int, cap: int,
+                     cols: Sequence[int] | None = None) -> Chunk:
+        """The chunk of auctions ``k0 .. k0+cap``, only the columns
+        ``cols`` of ``AUCTION_SCHEMA`` (all when None), in that order; on
+        the card, kernel K9's ``nexmark_auctions``."""
+        if self.device.type == "cuda":
+            return self.gen_auctions_cuda(k0, cap, cols)
+        return self.gen_auctions_plain(k0, cap, cols)
+
+    def gen_persons(self, k0: int, cap: int,
+                    cols: Sequence[int] | None = None) -> Chunk:
+        """The chunk of persons ``k0 .. k0+cap`` (columns ``cols`` of
+        ``PERSON_SCHEMA``); on the card, kernel K9's ``nexmark_persons``."""
+        if self.device.type == "cuda":
+            return self.gen_persons_cuda(k0, cap, cols)
+        return self.gen_persons_plain(k0, cap, cols)
+
+    def _project(self, chunk: Chunk, cols) -> Chunk:
+        if cols is None:
+            return chunk
+        return Chunk([chunk.columns[i] for i in cols], chunk.ops,
+                     chunk.valid, chunk.schema.select(list(cols)))
+
+    def gen_auctions_plain(self, k0: int, cap: int,
+                           cols: Sequence[int] | None = None) -> Chunk:
+        """Plain PyTorch version of K9's ``nexmark_auctions``."""
         k = self._ordinals(k0, cap)
         n = (k // AUCTION_PROPORTION) * TOTAL_PROPORTION \
             + PERSON_PROPORTION + (k % AUCTION_PROPORTION)
@@ -343,10 +416,13 @@ class NexmarkGenerator:
             * self.config.inter_event_us * TOTAL_PROPORTION * 2
         item = self._gather_str(self._items, _rand_int(eid, 16, 64))
         desc = self._gather_str(self._descs, _rand_int(eid, 17, 32))
-        return self._chunk((auction_id, item, desc, initial_bid, reserve,
-                            ts, expires, seller, category), AUCTION_SCHEMA)
+        return self._project(self._chunk(
+            (auction_id, item, desc, initial_bid, reserve, ts, expires,
+             seller, category), AUCTION_SCHEMA), cols)
 
-    def gen_persons(self, k0: int, cap: int) -> Chunk:
+    def gen_persons_plain(self, k0: int, cap: int,
+                          cols: Sequence[int] | None = None) -> Chunk:
+        """Plain PyTorch version of K9's ``nexmark_persons``."""
         k = self._ordinals(k0, cap)
         n = k * TOTAL_PROPORTION
         eid = self._event_id(n)
@@ -359,8 +435,102 @@ class NexmarkGenerator:
                                 _rand_int(eid, 23, len(_CITIES)))
         state = self._gather_str(self._states,
                                  _rand_int(eid, 24, len(_STATES)))
-        return self._chunk((person_id, name, email, card, city, state,
-                            self._timestamp(n)), PERSON_SCHEMA)
+        return self._project(self._chunk(
+            (person_id, name, email, card, city, state, self._timestamp(n)),
+            PERSON_SCHEMA), cols)
+
+    def _out_columns(self, schema: Schema, cols, cap: int):
+        """Empty output columns for the kept ``cols`` (None elsewhere)."""
+        dev = self.device
+        keep = range(len(schema)) if cols is None else cols
+        out: list = [None] * len(schema)
+        for i in keep:
+            f = schema[i]
+            if f.data_type.is_string:
+                out[i] = StrCol(torch.empty((cap, f.str_width),
+                                            dtype=torch.uint8, device=dev),
+                                torch.empty(cap, dtype=torch.int32,
+                                            device=dev))
+            else:
+                out[i] = torch.empty(cap, dtype=torch.int64, device=dev)
+        ops = torch.empty(cap, dtype=torch.int8, device=dev)
+        valid = torch.empty(cap, dtype=torch.bool, device=dev)
+        return out, ops, valid
+
+    def _finish(self, schema, out, ops, valid, cols) -> Chunk:
+        keep = list(range(len(schema))) if cols is None else list(cols)
+        return Chunk([out[i] for i in keep], ops, valid,
+                     schema.select(keep))
+
+    def _fill_common(self, a, k0: int, cap: int) -> None:
+        cfg = self.config
+        a.k0, a.cap = k0, cap
+        a.inter_event_us, a.base_time_us = cfg.inter_event_us, \
+            cfg.base_time_us
+        a.seed = cfg.seed
+
+    def gen_auctions_cuda(self, k0: int, cap: int,
+                          cols: Sequence[int] | None = None) -> Chunk:
+        """K9 ``nexmark_auctions`` (``csrc/nexmark_events.cu``): one
+        launch writing only the kept columns."""
+        out, ops, valid = self._out_columns(AUCTION_SCHEMA, cols, cap)
+        items, descs = self._items, self._descs
+        kernels.require_cuda("nexmark_auctions", items.data, descs.data,
+                             ops, valid)
+        a = _AuctionArgs()
+        self._fill_common(a, k0, cap)
+        a.items, a.item_lens = items.data.data_ptr(), items.lens.data_ptr()
+        a.n_items, a.item_w = items.data.shape
+        a.descs, a.desc_lens = descs.data.data_ptr(), descs.lens.data_ptr()
+        a.n_descs, a.desc_w = descs.data.shape
+
+        def p(i):
+            return None if out[i] is None else out[i].data_ptr()
+
+        def ps(i):
+            return (None, None) if out[i] is None else \
+                (out[i].data.data_ptr(), out[i].lens.data_ptr())
+
+        a.id, a.initial_bid, a.reserve = p(0), p(3), p(4)
+        a.date_time, a.expires, a.seller, a.category = p(5), p(6), p(7), p(8)
+        a.item, a.item_len = ps(1)
+        a.desc, a.desc_len = ps(2)
+        a.ops, a.valid = ops.data_ptr(), valid.data_ptr()
+        fn = kernels.entry("nexmark_auctions", "rw_nexmark_auctions",
+                           [_AuctionArgs, ctypes.c_void_p])
+        kernels.count_launch("nexmark_auctions")
+        kernels.check(fn(a, kernels.stream_ptr(self.device)),
+                      "nexmark_auctions")
+        return self._finish(AUCTION_SCHEMA, out, ops, valid, cols)
+
+    def gen_persons_cuda(self, k0: int, cap: int,
+                         cols: Sequence[int] | None = None) -> Chunk:
+        """K9 ``nexmark_persons`` (``csrc/nexmark_events.cu``): one launch
+        writing only the kept columns."""
+        out, ops, valid = self._out_columns(PERSON_SCHEMA, cols, cap)
+        kernels.require_cuda("nexmark_persons", self._names.data, ops, valid)
+        a = _PersonArgs()
+        self._fill_common(a, k0, cap)
+        for fname, book, i in (("name", self._names, 1),
+                               ("email", self._emails, 2),
+                               ("card", self._cards, 3),
+                               ("city", self._cities, 4),
+                               ("state", self._states, 5)):
+            f = getattr(a, fname)
+            f.book, f.lens = book.data.data_ptr(), book.lens.data_ptr()
+            f.n, f.w = book.data.shape
+            if out[i] is not None:
+                f.out, f.out_len = out[i].data.data_ptr(), \
+                    out[i].lens.data_ptr()
+        a.id = None if out[0] is None else out[0].data_ptr()
+        a.date_time = None if out[6] is None else out[6].data_ptr()
+        a.ops, a.valid = ops.data_ptr(), valid.data_ptr()
+        fn = kernels.entry("nexmark_persons", "rw_nexmark_persons",
+                           [_PersonArgs, ctypes.c_void_p])
+        kernels.count_launch("nexmark_persons")
+        kernels.check(fn(a, kernels.stream_ptr(self.device)),
+                      "nexmark_persons")
+        return self._finish(PERSON_SCHEMA, out, ops, valid, cols)
 
 
 class NexmarkSplitReader:
@@ -394,8 +564,16 @@ class NexmarkSplitReader:
         self.offset += self.cap
         return base
 
-    def next_chunk(self) -> Chunk:
-        return self._fn(self.next_base(), self.cap)
+    def next_chunk(self, cols: Sequence[int] | None = None) -> Chunk:
+        """The next chunk; ``cols`` keeps only those columns (auctions and
+        persons generate only them; bids are projected after)."""
+        if self.table == "bid":
+            chunk = self._fn(self.next_base(), self.cap)
+            if cols is None:
+                return chunk
+            return Chunk([chunk.columns[i] for i in cols], chunk.ops,
+                         chunk.valid, chunk.schema.select(list(cols)))
+        return self._fn(self.next_base(), self.cap, cols)
 
     def state(self) -> dict:
         return {"table": self.table, "split_id": self.split_id,

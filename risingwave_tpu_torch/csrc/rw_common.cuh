@@ -123,3 +123,35 @@ __device__ __forceinline__ void rw_store_row(const RwCols& c, int64_t dst,
     if (c.st_null[k] != nullptr) c.st_null[k][dst] = c.in_null[k][src];
   }
 }
+
+// The split hash of risingwave_tpu/common/hash.py (`hash64_partial` :203,
+// `hash64_extend` :222, `hash64_finish` :230) for one int64 key-hash column
+// extended by an int32 rank (zero-extended, as the reference views int32 as
+// uint32), and the join's pair tag (state/hash_table.py `pair_tag` :387,
+// `finish_tag` :396): the finished hash moved off the EMPTY (0) and TOMB (1)
+// tag values.
+__device__ __forceinline__ uint64_t rw_hash_partial1(uint64_t h) {
+  return rw_mix64(RW_K1 ^ (h * RW_K1));
+}
+
+__device__ __forceinline__ uint64_t rw_hash_extend_u32(uint64_t st,
+                                                       uint32_t w) {
+  return rw_mix64(st ^ (static_cast<uint64_t>(w) * RW_K1));
+}
+
+__device__ __forceinline__ uint64_t rw_hash_finish(uint64_t st) {
+  return st == ~0ull ? ~1ull : st;
+}
+
+__device__ __forceinline__ uint64_t rw_tag_of(uint64_t partial, int rank) {
+  const uint64_t raw =
+      rw_hash_finish(rw_hash_extend_u32(partial, static_cast<uint32_t>(rank)));
+  return raw < 2ull ? raw + 2ull : raw;
+}
+
+__device__ __forceinline__ uint64_t rw_pair_tag(uint64_t h, int rank) {
+  return rw_tag_of(rw_hash_partial1(h), rank);
+}
+
+static constexpr uint64_t RW_EMPTY_TAG = 0ull;
+static constexpr uint64_t RW_TOMB_TAG = 1ull;

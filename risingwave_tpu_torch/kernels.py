@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The sources live in ``risingwave_tpu_torch/csrc``: one ``.cu`` file per
-kernel plus the shared header ``rw_common.cuh``.  Each source compiles
+kernel plus the shared headers ``rw_common.cuh``, ``rw_join.cuh`` and
+``nexmark_common.cuh``.  Each source compiles
 with ``nvcc`` into its own shared library with a plain C interface,
-named by a hash of its source, the header and the flags, under
+named by a hash of its source, the headers and the flags, under
 ``build/kernels`` at the root of the checkout.  All missing libraries
 build at once (one ``nvcc`` process per source), at first use.  The
 wrappers call the C entry points through ``ctypes``: tensors pass as
@@ -12,7 +13,8 @@ every entry returns ``cudaGetLastError()``, which ``check`` turns into
 an exception.
 
 ``KERNELS`` names each kernel entry point with the source it is built
-from (``compact.cu`` holds two), and ``LAUNCHES`` counts, per kernel, the
+from (``compact.cu``, ``nexmark_events.cu`` and ``tag_probe.cu`` hold
+two each), and ``LAUNCHES`` counts, per kernel, the
 wrapper calls that launched it on the card.  Nothing here runs at import time: a CPU-only process imports
 the package without ``nvcc``.
 """
@@ -32,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-HEADERS = ("rw_common.cuh",)
+HEADERS = ("rw_common.cuh", "rw_join.cuh", "nexmark_common.cuh")
 #: library name -> source file
 SOURCES = {
     "hash64": "hash64.cu",
@@ -43,6 +45,11 @@ SOURCES = {
     "compact": "compact.cu",
     "nexmark_bids": "nexmark_bids.cu",
     "hop_window": "hop_window.cu",
+    "nexmark_events": "nexmark_events.cu",
+    "tag_probe": "tag_probe.cu",
+    "join_update": "join_update.cu",
+    "join_emit": "join_emit.cu",
+    "join_clean": "join_clean.cu",
 }
 #: kernel (one wrapper, one launch counter) -> library it lives in
 KERNELS = {
@@ -55,6 +62,13 @@ KERNELS = {
     "ring_append": "compact",
     "nexmark_bids": "nexmark_bids",
     "hop_window": "hop_window",
+    "nexmark_auctions": "nexmark_events",
+    "nexmark_persons": "nexmark_events",
+    "tag_insert_ranked": "tag_probe",
+    "tag_probe": "tag_probe",
+    "join_update": "join_update",
+    "join_emit": "join_emit",
+    "join_clean": "join_clean",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

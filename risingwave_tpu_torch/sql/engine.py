@@ -1,7 +1,9 @@
 """The SQL engine: DDL, streaming jobs, serving reads.
 
 Port of the single-process subset of ``risingwave_tpu/sql/engine.py``
-that runs a Nexmark aggregation end to end::
+that runs Nexmark aggregations and the q8 join end to end (a join
+plans as a ``DagPlan`` and runs as a ``DagJob``, ``_build_dag_job``
+:1184, the branch without MV taps)::
 
     eng = Engine()                      # device="cuda" unless told "cpu"
     eng.execute("CREATE SOURCE bid (...) WITH (connector='nexmark', ...)")
@@ -39,23 +41,30 @@ from risingwave_tpu_torch.meta.catalog import Catalog, CatalogEntry
 from risingwave_tpu_torch.sql import ast
 from risingwave_tpu_torch.sql.binder import Scope
 from risingwave_tpu_torch.sql.parser import parse
-from risingwave_tpu_torch.sql.planner import PlanError, Planner, PlannerConfig
+from risingwave_tpu_torch.sql.planner import (
+    DagPlan,
+    PlanError,
+    Planner,
+    PlannerConfig,
+)
+from risingwave_tpu_torch.stream.dag import DagJob
 from risingwave_tpu_torch.stream.runtime import StreamingJob
 
 
 class _ProjectingReader:
-    """Selects/reorders a reader's columns (declared source columns)."""
+    """Selects/reorders a reader's columns (declared source columns);
+    the generator produces only those columns."""
 
     def __init__(self, inner, idxs: Sequence[int], schema: Schema):
         self.inner = inner
         self.idxs = list(idxs)
         self.schema = schema
         self.cap = inner.cap
+        self.events_per_row = inner.events_per_row
 
     def next_chunk(self) -> Chunk:
-        c = self.inner.next_chunk()
-        return Chunk([c.columns[i] for i in self.idxs], c.ops, c.valid,
-                     self.schema)
+        c = self.inner.next_chunk(self.idxs)
+        return Chunk(c.columns, c.ops, c.valid, self.schema)
 
     @property
     def offset(self):
@@ -75,7 +84,7 @@ class Engine:
         self.catalog = Catalog()
         self.config = config or PlannerConfig()
         self.planner = Planner(self.catalog, self.config)
-        self.jobs: list[StreamingJob] = []
+        self.jobs: list[StreamingJob | DagJob] = []
         self.system_params = SystemParams()
         self.session_config = SessionConfig()
         self.metrics = MetricsRegistry()
@@ -161,20 +170,32 @@ class Engine:
                 return None
             raise ValueError(f"{stmt.name!r} already exists")
         plan = self.planner.plan(stmt.query, eowc=stmt.emit_on_window_close)
-        job = StreamingJob(
-            plan.reader, plan.fragment, stmt.name,
-            checkpoint_frequency=int(
-                self.system_params.get("checkpoint_frequency")),
-            device=self.device)
-        mv_exec = plan.fragment.executors[plan.mv_index]
+        ckpt_freq = int(self.system_params.get("checkpoint_frequency"))
+        if isinstance(plan, DagPlan):
+            job, mv_exec, state_index = self._build_dag_job(
+                plan, stmt.name, ckpt_freq)
+        else:
+            job = StreamingJob(plan.reader, plan.fragment, stmt.name,
+                               checkpoint_frequency=ckpt_freq,
+                               device=self.device)
+            mv_exec = plan.fragment.executors[plan.mv_index]
+            state_index = (plan.mv_index,)
         self.catalog.create(CatalogEntry(
             stmt.name, "mview", mv_exec.in_schema, job=job,
-            mv_executor=mv_exec, mv_state_index=(plan.mv_index,),
+            mv_executor=mv_exec, mv_state_index=state_index,
             append_only=not hasattr(mv_exec, "pk_indices"),
             stream_key=list(getattr(mv_exec, "pk_indices", [])) or None,
             definition=str(stmt)))
         self.jobs.append(job)
         return None
+
+    def _build_dag_job(self, plan: DagPlan, name: str, ckpt_freq: int):
+        """A ``DagJob`` over the plan's sources and nodes (the reference's
+        no-tap branch; one device, not staged)."""
+        job = DagJob(plan.sources, plan.nodes, name,
+                     checkpoint_frequency=ckpt_freq, device=self.device)
+        terminal = plan.nodes[plan.mv_node].fragment.executors[plan.mv_index]
+        return job, terminal, (plan.mv_node, plan.mv_index)
 
     # -- the barrier loop -----------------------------------------------
     def tick(self, barriers: int = 1,

@@ -4,12 +4,18 @@ Port of the ``UnaryPlan`` part of ``risingwave_tpu/sql/planner.py``:
 ``_resolve_input`` for a source (with its watermark filter) and
 TUMBLE/HOP windows, ``_plan_unary``, ``_plan_agg`` and
 ``_try_pane_agg`` (the pane rewrite of HOP aggregations, Nexmark q5)
-and ``_append_terminal`` (materialize by pk, or the append-only ring).
-The plan shapes built here are the reference's, executor for executor.
+and ``_append_terminal`` (materialize by pk, or the append-only ring);
+and of ``DagPlan`` (:88) with the subset of ``_plan_join`` (:1641) that
+plans an inner equi-join of two append-only, possibly windowed and
+watermarked sources with pool storage on both sides, its windows'
+cleaning specs (:2069-2083) and the terminal project + ring (Nexmark
+q8).  The plan shapes built here are the reference's, executor for
+executor.
 
-Not ported yet (``PlanError``/``NotImplementedError``): joins,
-subqueries, window functions, TopN, sinks, EMIT ON WINDOW CLOSE and
-MV-on-MV.
+Not ported yet (``PlanError``/``NotImplementedError``): outer, semi and
+anti joins, dense (bucket) join storage, non-equality ON conditions,
+WHERE or aggregation over a join, nested (multi-way) joins, subqueries,
+window functions, TopN, sinks, EMIT ON WINDOW CLOSE and MV-on-MV.
 """
 
 from __future__ import annotations
@@ -21,7 +27,13 @@ from risingwave_tpu_torch.common.types import Schema
 from risingwave_tpu_torch.expr.node import Expr, FuncCall as EFuncCall, InputRef
 from risingwave_tpu_torch.meta.catalog import Catalog
 from risingwave_tpu_torch.sql import ast
-from risingwave_tpu_torch.sql.binder import AGG_NAMES, AggRef, Binder, Scope
+from risingwave_tpu_torch.sql.binder import (
+    AGG_NAMES,
+    AggRef,
+    BindError,
+    Binder,
+    Scope,
+)
 from risingwave_tpu_torch.stream.executor import (
     Executor,
     FilterExecutor,
@@ -30,6 +42,7 @@ from risingwave_tpu_torch.stream.executor import (
 )
 from risingwave_tpu_torch.stream.fragment import Fragment
 from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+from risingwave_tpu_torch.stream.hash_join import HashJoinExecutor
 from risingwave_tpu_torch.stream.materialize import (
     AppendOnlyMaterialize,
     MaterializeExecutor,
@@ -68,10 +81,28 @@ class UnaryPlan:
 
 
 @dataclass
+class DagPlan:
+    """A dataflow graph plan: ``nodes`` are the runtime's FragNode /
+    JoinNode with plan-local refs: ("source", name) keys into
+    ``sources``, ("node", i) indexes ``nodes``."""
+
+    sources: dict[str, Any]
+    nodes: list
+    mv_node: int                 # node holding the terminal executor
+    mv_index: int                # executor index within that node
+
+
+#: SQL join kinds -> the executor's join types
+KIND_MAP = {"inner": "inner", "left": "left_outer", "right": "right_outer",
+            "full": "full_outer", "cross": "inner", "semi": "left_semi",
+            "anti": "left_anti"}
+
+
+@dataclass
 class PlannerConfig:
-    """The reference's planner knobs, same names and defaults (the join,
-    TopN, spill and distinct sizes are accepted for DDL compatibility;
-    their operators are not ported yet)."""
+    """The reference's planner knobs, same names and defaults (the
+    TopN, spill, distinct and join bucket sizes are accepted for DDL
+    compatibility; their operators are not ported yet)."""
 
     agg_table_size: int = 1 << 16
     agg_emit_capacity: int = 4096
@@ -100,12 +131,144 @@ class Planner:
         self.catalog = catalog
         self.config = config or PlannerConfig()
 
-    def plan(self, select: ast.Select, eowc: bool = False) -> UnaryPlan:
+    def plan(self, select: ast.Select,
+             eowc: bool = False) -> "UnaryPlan | DagPlan":
         if eowc:
             raise PlanError("EMIT ON WINDOW CLOSE is not ported yet")
-        if isinstance(select.from_, (ast.Join, ast.SubqueryRef)):
-            raise PlanError("joins and subqueries are not ported yet")
+        if isinstance(select.from_, ast.SubqueryRef):
+            raise PlanError("subqueries are not ported yet")
+        if isinstance(select.from_, ast.Join):
+            return self._plan_join(select)
         return self._plan_unary(select)
+
+    # -- joins ------------------------------------------------------------
+    def _plan_join(self, select: ast.Select) -> DagPlan:
+        """An inner equi-join of two inputs as a DagPlan: each input is a
+        source plus its prep fragment (watermark filter, window), then
+        the JoinNode, then the project + ring fragment."""
+        from risingwave_tpu_torch.stream.dag import FragNode, JoinNode
+
+        cfg = self.config
+        sources: dict[str, Any] = {}
+        nodes: list = []
+        jn = select.from_
+        join_type = KIND_MAP.get(jn.kind)
+        if join_type is None:
+            raise PlanError(f"unsupported join kind {jn.kind!r}")
+        if join_type != "inner":
+            raise PlanError(f"{join_type} joins are not ported yet")
+        if jn.on is None:
+            raise PlanError("joins without ON (comma joins) are not ported "
+                            "yet")
+        if select.where is not None:
+            raise PlanError("WHERE over a join is not ported yet")
+        if select.group_by or self._has_agg(select):
+            raise PlanError("aggregation over a join is not ported yet")
+
+        def resolve(from_):
+            if isinstance(from_, (ast.Join, ast.SubqueryRef)):
+                raise PlanError("nested joins and subqueries as join "
+                                "inputs are not ported yet")
+            pin = self._resolve_input(from_)
+            if isinstance(from_, ast.TableRef):
+                base = from_.alias or from_.name
+            else:
+                base = from_.alias or from_.table.name
+            name, i = base, 1
+            while name in sources:
+                name = f"{base}_{i}"
+                i += 1
+            sources[name] = pin.reader
+            ref = ("source", name)
+            if pin.executors:
+                nodes.append(FragNode(Fragment(pin.executors), ref))
+                ref = ("node", len(nodes) - 1)
+            return ref, pin
+
+        lref, left = resolve(jn.left)
+        rref, right = resolve(jn.right)
+        n_left = len(left.schema)
+        left_keys: list[Expr] = []
+        right_keys: list[Expr] = []
+        for conj in self._conjuncts(jn.on):
+            keypair = self._equi_pair(conj, left.scope, right.scope, n_left)
+            if keypair is None:
+                raise PlanError("non-equality ON conditions are not ported "
+                                "yet")
+            left_keys.append(keypair[0])
+            right_keys.append(keypair[1])
+        if not (left.append_only and right.append_only) \
+                or cfg.join_force_dense:
+            raise PlanError("dense (bucket) join storage is not ported yet "
+                            "(append-only inputs take the pool)")
+        join = HashJoinExecutor(
+            left.schema, right.schema, left_keys, right_keys,
+            table_size=cfg.join_table_size,
+            bucket_cap=cfg.join_bucket_cap,
+            out_capacity=cfg.join_out_capacity,
+            left_table_size=cfg.join_left_table_size,
+            right_table_size=cfg.join_right_table_size,
+            left_bucket_cap=cfg.join_left_bucket_cap,
+            right_bucket_cap=cfg.join_right_bucket_cap,
+            join_type=join_type,
+            left_storage="pool", right_storage="pool",
+            left_pool_size=cfg.join_pool_size,
+            right_pool_size=cfg.join_pool_size,
+        )
+        both = Scope(join.out_schema, tuple(left.scope.qualifiers)
+                     + tuple(right.scope.qualifiers))
+        # window-keyed joins over watermarked inputs clean closed windows
+        # at barriers
+        for side_name, pin, keys in (("left", left, left_keys),
+                                     ("right", right, right_keys)):
+            if pin.window_size is None or pin.watermark_col is None:
+                continue
+            window_idxs = [i for i, f in enumerate(pin.schema)
+                           if f.name in ("window_start", "window_end")]
+            for ki, ke in enumerate(keys):
+                if isinstance(ke, InputRef) and ke.index in window_idxs:
+                    setattr(join, f"{side_name}_clean",
+                            (ki, pin.window_size, pin.watermark_col))
+                    break
+        nodes.append(JoinNode(join, lref, rref))
+        root_ref = ("node", len(nodes) - 1)
+        b = Binder(both)
+        proj = [(name, b.bind(e))
+                for name, e in self._expand_items(select.items, both)]
+        post_execs: list[Executor] = [ProjectExecutor(both.schema, proj)]
+        self._append_terminal(post_execs, post_execs[-1].out_schema, select,
+                              input_append_only=True, has_agg=False,
+                              pk_positions=[])
+        nodes.append(FragNode(Fragment(post_execs), root_ref))
+        return DagPlan(sources, nodes, len(nodes) - 1, len(post_execs) - 1)
+
+    @staticmethod
+    def _conjuncts(e) -> list:
+        if isinstance(e, ast.BinaryOp) and e.op == "and":
+            return Planner._conjuncts(e.left) + Planner._conjuncts(e.right)
+        return [e]
+
+    @staticmethod
+    def _equi_pair(e, lscope: Scope, rscope: Scope, n_left: int):
+        """(left key, right key) of an ``l = r`` conjunct whose operands
+        bind on opposite sides, else None."""
+        if not (isinstance(e, ast.BinaryOp) and e.op == "equal"):
+            return None
+        sides = []
+        for operand in (e.left, e.right):
+            try:
+                sides.append(("l", Binder(lscope).bind(operand)))
+                continue
+            except BindError:
+                pass
+            try:
+                sides.append(("r", Binder(rscope).bind(operand)))
+            except BindError:
+                return None
+        if {t for t, _ in sides} != {"l", "r"}:
+            return None
+        return (next(x for t, x in sides if t == "l"),
+                next(x for t, x in sides if t == "r"))
 
     # -- inputs ---------------------------------------------------------
     def _resolve_input(self, from_) -> PlannedInput:

@@ -28,6 +28,7 @@ from risingwave_tpu_torch.common.chunk import NCol, StrCol
 from risingwave_tpu_torch.common.device import resolve_device
 from risingwave_tpu_torch.common.epoch import EpochPair
 from risingwave_tpu_torch.state.hash_table import HashTable
+from risingwave_tpu_torch.state.tag_table import TagTable
 from risingwave_tpu_torch.stream.fragment import Fragment
 from risingwave_tpu_torch.stream.message import Barrier, BarrierKind
 
@@ -36,7 +37,7 @@ def clone_tree(x):
     """Deep device copy of a state tree (tuples, NamedTuples, tables)."""
     if isinstance(x, torch.Tensor):
         return x.clone()
-    if isinstance(x, HashTable):
+    if isinstance(x, (HashTable, TagTable)):
         return x.clone()
     if isinstance(x, (NCol, StrCol)) or (isinstance(x, tuple)
                                          and hasattr(x, "_fields")):

@@ -44,8 +44,13 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[mv_upsert] exact", "[agg_preagg] exact",
                 "[mask_indices] exact", "[ring_append] exact",
                 "[nexmark_bids] exact", "[hop_window] exact",
-                "[parity] q7", "[parity] q5", "[parity] q1",
+                "[nexmark_auctions] exact", "[nexmark_persons] exact",
+                "[tag_insert_ranked] exact", "[tag_probe] exact",
+                "[join_update] exact", "[join_emit] exact",
+                "[join_clean] exact",
+                "[parity] q7", "[parity] q5", "[parity] q1", "[parity] q8",
                 "[check] q7 MV equals numpy", "[check] q5 MV equals numpy",
-                "[check] q1 ring rows equal numpy"):
+                "[check] q1 ring rows equal numpy",
+                "[check] q8 ring rows equal the numpy join"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout

@@ -31,7 +31,11 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
         "'risingwave_tpu.'))]\n"
         "print(len(mods), bad)\n"
         "assert not bad, bad\n"
-        "assert len(mods) > 20\n")
+        "assert len(mods) > 20\n"
+        "new = {'risingwave_tpu_torch.state.tag_table', "
+        "'risingwave_tpu_torch.stream.hash_join', "
+        "'risingwave_tpu_torch.stream.dag'}\n"
+        "assert new <= set(mods), new - set(mods)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -69,3 +69,31 @@ def test_split_reader_sequence_and_offsets(split_id, num_splits):
         _assert_chunks_equal(jr.next_chunk(), tr.next_chunk())
         assert jr.state() == tr.state()
     assert tr.events_per_row == jr.events_per_row
+
+
+@pytest.mark.parametrize("table,cols", [
+    ("auctions", (0, 7, 4, 6, 5)),   # q8's declared auction columns
+    ("persons", (0, 1, 6)),          # q8's declared person columns
+    ("auctions", (8, 1, 2, 3)),
+    ("persons", (5, 4, 3, 2)),
+])
+def test_projected_columns_equal_the_reference(table, cols):
+    """The generators make only a source's declared columns, in its
+    order: equal to the reference's full chunk projected."""
+    jg = JGen(JConfig(inter_event_us=1, seed=2))
+    tg = NexmarkGenerator(NexmarkConfig(inter_event_us=1, seed=2),
+                          device="cpu")
+    _assert_chunks_equal(
+        getattr(jg, f"gen_{table}")(40_961, 256).project(list(cols)),
+        getattr(tg, f"gen_{table}")(40_961, 256, cols))
+
+
+def test_split_reader_projects_auctions_and_persons():
+    for table, cols in (("auction", [0, 7, 4, 6, 5]), ("person", [0, 1, 6])):
+        jr = JReader(table, JGen(), chunk_capacity=128)
+        tr = NexmarkSplitReader(table, NexmarkGenerator(device="cpu"),
+                                chunk_capacity=128)
+        for _ in range(2):
+            _assert_chunks_equal(jr.next_chunk().project(cols),
+                                 tr.next_chunk(cols))
+        assert jr.state() == tr.state()
