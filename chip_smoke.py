@@ -9,7 +9,8 @@
    the shapes the Nexmark q1/q5/q7/q8 main paths give it (8192-row
    chunks, 2^18-slot tables, 2^23-row ring, 5x hop expansion of the pane
    deltas; for q8 the join state of a bench-size q8 engine after 10
-   barriers, two 2^22-slot tag tables, and its next auction chunk),
+   barriers, two 2^22-slot tag tables, and its next auction chunk; for
+   K11 and K4 the whole state tree of a bench-size q8 engine, ~1 GB),
    requiring exact equality (tags bit for bit), and times kernel, plain
    version, one PyTorch library call where one exists, and the card's
    bound for the same bytes;
@@ -28,7 +29,15 @@
    q5's bid count per (auction, hop window), q1's ring rows, q8's ring
    as the inner join of persons and auctions on id = seller within a
    1-second window;
-6. prints the ``kernels`` JSON line, the card's name and power limit,
+6. runs q7 and q8 durably (``Engine(config, data_dir=<temporary
+   directory>)``, the same sizes and barriers, a snapshot every 8
+   checkpoints through K11 and the background uploader), prints rows/s,
+   each checkpoint's kind, bytes and dirty share, K11's device time per
+   snapshot and the uploader stall, then cold-starts a new engine from
+   the directory, runs 8 more barriers and requires every state tensor
+   to equal an engine that ran the same barriers without stopping; the
+   directory is deleted;
+7. prints the ``kernels`` JSON line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ok line.  Without a GPU, or
@@ -71,7 +80,14 @@ PATH_KERNELS = {
            "agg_scatter", "mask_indices", "mv_upsert"),
     "q8": ("nexmark_auctions", "nexmark_persons", "hop_window", "hash64",
            "tag_insert_ranked", "tag_probe", "join_update", "join_emit",
-           "join_clean", "mask_indices", "ring_append"),
+           "join_clean", "mask_indices", "ring_append", "permute_rows"),
+}
+#: the durable main paths (``Engine(config, data_dir=...)``) add K11: the
+#: shadow update, and the gather of every delta checkpoint (q7's hot
+#: window leaves most blocks clean, so its epochs are deltas)
+DURABLE_KERNELS = {
+    "q7": PATH_KERNELS["q7"] + ("shadow_digest", "dirty_gather"),
+    "q8": PATH_KERNELS["q8"] + ("shadow_digest",),
 }
 
 
@@ -122,10 +138,10 @@ class Timer:
                       "time, reported below, includes host time", flush=True)
             torch.cuda.synchronize()
             return e0.elapsed_time(e1) / iters
+        # a rehearsal's timings are worth nothing: one call
         t0 = time.perf_counter()
-        for i in range(iters):
-            fn(i)
-        return (time.perf_counter() - t0) * 1e3 / iters
+        fn(0)
+        return (time.perf_counter() - t0) * 1e3
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -162,6 +178,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if args.rehearse:
         device = torch.device("cpu")
+        # the rehearsal's shapes are small: more threads only spin
+        torch.set_num_threads(2)
     else:
         if not torch.cuda.is_available():
             fail("no CUDA device", 2)
@@ -190,6 +208,7 @@ def main() -> int:
     results["hop_window"] = phase_hop(torch, device, timer, scale)
     results.update(phase_nexmark_events(torch, device, timer, scale))
     results.update(phase_q8_kernels(torch, device, timer, scale))
+    results.update(phase_state_kernels(torch, device, timer, scale))
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -219,6 +238,22 @@ def main() -> int:
             fail(f"{query}: kernels {missing} were not launched on the "
                  "main path")
 
+    # -- 6. the durable main paths and their cold starts ------------------
+    durable = {}
+    for query in ("q7", "q8"):
+        launches, rate, info = phase_durable(torch, device, scale, query,
+                                             rates[query])
+        durable[query] = (rate, info)
+        tag = f"{query} durable"
+        for name, n in launches.items():
+            if name in results:
+                results[name]["launches"] += n
+                results[name]["launches_by_query"][tag] = n
+        missing = [k for k in DURABLE_KERNELS[query] if launches[k] <= 0]
+        if device.type == "cuda" and missing:
+            fail(f"{tag}: kernels {missing} were not launched on the "
+                 "main path")
+
     line = {"kernels": [dict(name=name, **r) for name, r in results.items()]}
     print(json.dumps(line))
     if device.type != "cuda":
@@ -229,6 +264,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True)
     for query in QUERIES:
         print(f"[main] {query} rows/s {rates[query]:.0f}")
+    for query, (rate, info) in durable.items():
+        print(f"[main] {query} durable rows/s {rate:.0f}, cold start "
+              f"{info['recover_s']:.3f} s")
     print(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -878,10 +916,10 @@ def profile_window(torch, eng, query: str, barriers: int = 2,
         return n_kern / chunks
     # launches by layer for one chunk (the step runs on a clone: the
     # job's own state must stay as the timed run left it)
-    from risingwave_tpu_torch.stream.runtime import clone_tree
+    from risingwave_tpu_torch.common.tree import tree_map
 
     gen, cap = job.source.gen, job.source.cap
-    states = clone_tree(job.states)
+    states = tree_map(torch.clone, job.states)
     chunk = gen.gen_bids(0, cap)
     for name, fn in (("generator", lambda: gen.gen_bids(0, cap)),
                      ("fragment step", lambda: job.fragment.step(states,
@@ -1136,8 +1174,11 @@ def phase_q8_kernels(torch, device, timer, scale):
     versions on copies of that state."""
     from risingwave_tpu_torch.common.hash import hash64_columns
     from risingwave_tpu_torch.state.tag_table import TagTable, pair_tag
+    from risingwave_tpu_torch.common.tree import tree_map
     from risingwave_tpu_torch.stream import hash_join as hj
-    from risingwave_tpu_torch.stream.runtime import clone_tree
+
+    def clone_tree(t):
+        return tree_map(torch.clone, t)
 
     eng = _q8_engine(torch, device, scale, 10)
     job = eng.jobs[0]
@@ -1554,6 +1595,351 @@ def phase_q8_main_path(torch, device, scale):
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return launches, rate
+
+
+# ---------------------------------------------------------------------------
+# K11 and K4 at q8's bench-size state
+
+
+def phase_state_kernels(torch, device, timer, scale):
+    """K11 (the shadow update and the delta's dirty gather) and K4 (the
+    row permutation) on the state tree of a bench-size q8 engine after
+    its warm-up: the init, two more barriers of traffic, the update at
+    the dirty share they leave, the gather of those blocks, and K4 at
+    ``rebuild_pool``'s and ``compact_pool``'s shapes, each against its
+    plain version."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.tree import flatten
+    from risingwave_tpu_torch.state.hash_table import (
+        _col_leaves,
+        permute_dense_many,
+        permute_rows,
+        permute_rows_plain,
+    )
+    from risingwave_tpu_torch.storage import digest as dg
+
+    eng = _q8_engine(torch, device, scale, WARMUP_BARRIERS)
+    job = eng.jobs[0]
+    block = dg.DEFAULT_BLOCK_ELEMS
+
+    def flat_leaves():
+        return [x.reshape(-1) for x in flatten(job.states)[0]]
+
+    leaves = flat_leaves()
+    nblocks = [dg.leaf_block_count(x.shape, block) for x in leaves]
+    total = sum(nblocks)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    words = sum(nb * block * x.element_size() // 8
+                for x, nb in zip(leaves, nblocks))
+
+    def buffers():
+        return ([torch.empty_like(x) for x in leaves],
+                torch.zeros(total, dtype=torch.int64, device=device),
+                torch.zeros((), dtype=torch.int64, device=device))
+
+    shk, dgk, dck = buffers()
+    shp, dgp, dcp = buffers()
+    dg.shadow_digest(leaves, shk, dgk, dck, nblocks, block, update=False)
+    dg.shadow_digest_plain(leaves, shp, dgp, dcp, nblocks, block,
+                           update=False)
+    pairs = [("init digests", dgk, dgp)]
+    pairs += [(f"init shadow leaf {i}", a, b)
+              for i, (a, b) in enumerate(zip(shk, shp))]
+    max_abs_err(torch, pairs)
+    init_ms = timer(lambda i: dg.shadow_digest(
+        leaves, shk, dgk, dck, nblocks, block, update=False), 5)
+    init_plain_ms = timer(lambda i: dg.shadow_digest_plain(
+        leaves, shp, dgp, dcp, nblocks, block, update=False), 1)
+    copy_ms = timer(lambda i: [a.copy_(b) for a, b in zip(shp, leaves)], 5)
+
+    # two barriers of traffic, then the update
+    eng.tick(barriers=2, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    leaves = flat_leaves()
+    old = dgk.clone()
+    dg.shadow_digest(leaves, shk, dgk, dck, nblocks, block, update=True)
+    dg.shadow_digest_plain(leaves, shp, dgp, dcp, nblocks, block,
+                           update=True)
+    pairs = [("update digests", dgk, dgp), ("update dirty", dck, dcp)]
+    pairs += [(f"update shadow leaf {i}", a, b)
+              for i, (a, b) in enumerate(zip(shk, shp))]
+    pairs += [(f"shadow equals live leaf {i}", a, b)
+              for i, (a, b) in enumerate(zip(shk, leaves))]
+    err = max_abs_err(torch, pairs)
+    dirty = (dgk != old).cpu().numpy()
+    n_dirty, ladder_dirty = int(dirty.sum()), int(dck)
+    dirty_bytes = sum(
+        int(dirty[o:o + nb].sum()) * block * x.element_size()
+        for x, nb, o in zip(leaves, nblocks,
+                            np.cumsum([0] + nblocks[:-1])))
+
+    def update(i):
+        dgk.copy_(old)  # every call diffs against the same old digests
+        dg.shadow_digest(leaves, shk, dgk, dck, nblocks, block, update=True)
+
+    ms = timer(update, 10)
+
+    def update_plain(i):
+        dgp.copy_(old)
+        dg.shadow_digest_plain(leaves, shp, dgp, dcp, nblocks, block,
+                               update=True)
+
+    plain_ms = timer(update_plain, 1)
+    # read every live byte once, write the dirty blocks and the digests;
+    # per 8-byte word ~3 64-bit multiplies (~4 32-bit ops each) and ~9
+    # other ops
+    b = bound(nbytes + dirty_bytes + 16 * total, words * 21)
+    print(f"[shadow_digest] exact (q8 state: {len(leaves)} leaves, "
+          f"{nbytes / 1e6:.1f} MB, {total} blocks; after 2 barriers "
+          f"{n_dirty} blocks dirty ({100 * n_dirty / total:.1f}%), "
+          f"{ladder_dirty} counted); update kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b[0]:.5f} ms ({b[1]}); init kernel "
+          f"{init_ms:.4f} ms, plain {init_plain_ms:.4f} ms; store-less "
+          f"copy_ of the tree {copy_ms:.4f} ms", flush=True)
+    out = {"shadow_digest": kernel_entry(
+        "shadow_digest.cu", "risingwave_tpu/stream/shadow.py:214", ms,
+        plain_ms, b, None, err)}
+    out["shadow_digest"].update(
+        init_ms=init_ms, init_plain_ms=init_plain_ms,
+        storeless_copy_ms=copy_ms, state_bytes=nbytes, blocks=total,
+        dirty_blocks=n_dirty)
+
+    # -- the delta's dirty gather ----------------------------------------
+    sizes = [x.numel() for x in leaves]
+    esizes = [x.element_size() for x in leaves]
+    entries, runs, gtotal = dg.gather_plan(dirty, nblocks, sizes, esizes,
+                                           block)
+    ent = torch.from_numpy(entries).to(device)
+    stk = torch.zeros(gtotal, dtype=torch.uint8, device=device)
+    stp = torch.zeros(gtotal, dtype=torch.uint8, device=device)
+    dg.dirty_gather(shk, ent, stk, nblocks, block)
+    dg.dirty_gather_plain(shk, ent, stp, block)
+    pairs = [("gather staging", stk, stp)]
+    # the runs cut from it are the shadow's flat slices
+    host = stk.cpu().numpy()
+    for li, s0, e0, o in runs[:64] + runs[-64:]:
+        x = shk[li]
+        want = x[s0:e0].cpu().numpy().view(np.uint8)
+        if not np.array_equal(host[o:o + want.size], want):
+            fail(f"gather run r_{li}_{s0} differs from the shadow slice")
+    err = max_abs_err(torch, pairs)
+    gms = timer(lambda i: dg.dirty_gather(shk, ent, stk, nblocks, block), 20)
+    gplain_ms = timer(lambda i: dg.dirty_gather_plain(shk, ent, stp, block),
+                      2)
+    gb = bound(2 * gtotal + entries.nbytes, len(entries) * 8)
+    print(f"[dirty_gather] exact ({len(entries)} blocks in {len(runs)} "
+          f"runs, {gtotal / 1e6:.1f} MB); kernel {gms:.4f} ms, plain "
+          f"{gplain_ms:.4f} ms, bound {gb[0]:.5f} ms", flush=True)
+    out["dirty_gather"] = kernel_entry(
+        "shadow_digest.cu", "risingwave_tpu/storage/checkpoint_store.py:249",
+        gms, gplain_ms, gb, None, err)
+    del shk, shp, stk, stp
+
+    # -- K4: rebuild_pool's and compact_pool's row permutations ----------
+    right, left = job.states[2].right, job.states[2].left
+    _, moved = right.table.rehashed()
+    cols = [right.count, right.pool_pos, right.slot_clean]
+    inits = [None, 5, -(1 << 40)]
+    pk = permute_rows(cols, moved, inits)
+    pp = [permute_rows_plain(c, moved, i) for c, i in zip(cols, inits)]
+    pairs = [(f"rebuild column {i}", a, b)
+             for i, (a, b) in enumerate(zip(pk, pp))]
+
+    def compaction_map(side):
+        occ = side.table.occupied
+        pos = side.pool_pos[occ].to(torch.int64)
+        pool = side.rows[0].shape[0]
+        m = torch.full((pool,), pool, dtype=torch.int32, device=device)
+        m[pos] = torch.arange(pos.numel(), dtype=torch.int32,
+                              device=device)
+        return m, pos.numel()
+
+    moved_r, live_r = compaction_map(right)
+    moved_l, live_l = compaction_map(left)
+    for tag, side, m in (("auction", right, moved_r),
+                         ("person", left, moved_l)):
+        got = permute_dense_many(side.rows, m)
+        flat_in = [t for r in side.rows for t, _ in _col_leaves(r, None)]
+        flat_got = [t for r in got for t, _ in _col_leaves(r, None)]
+        pairs += [(f"compact {tag} column {i}", a,
+                   permute_rows_plain(c, m))
+                  for i, (a, c) in enumerate(zip(flat_got, flat_in))]
+    err = max_abs_err(torch, pairs)
+    rows_r = [t for r in right.rows for t, _ in _col_leaves(r, None)]
+    row_bytes = sum(t[0].numel() * t.element_size() for t in rows_r)
+    pool = rows_r[0].shape[0]
+    ms = timer(lambda i: permute_dense_many(right.rows, moved_r), 20)
+    plain_ms = timer(lambda i: [permute_rows_plain(c, moved_r)
+                                for c in rows_r], 3)
+    tgt = moved_r.to(torch.int64)
+    dumps = [torch.zeros((pool + 1,) + c.shape[1:], dtype=c.dtype,
+                         device=device) for c in rows_r]
+    lib_ms = timer(lambda i: [o.index_put_((tgt,), c)
+                              for o, c in zip(dumps, rows_r)], 20)
+    rebuild_ms = timer(lambda i: permute_rows(cols, moved, inits), 20)
+    rebuild_plain_ms = timer(lambda i: [permute_rows_plain(c, moved, i_)
+                                        for c, i_ in zip(cols, inits)], 3)
+    size = moved.shape[0]
+    live_slots = int((moved < size).sum())
+    # the live rows read, every output row written, and `moved` read
+    b = bound((live_r + pool) * row_bytes + 4 * pool, pool * len(rows_r))
+    rb = bound((live_slots + size) * (4 + 4 + 8) + 4 * size, size * 3)
+    print(f"[permute_rows] exact (compaction of the auction pool, "
+          f"{live_r} of {pool} rows live, {len(rows_r)} columns, "
+          f"{row_bytes} B a row; the person pool's, {live_l} live, name "
+          f"strings included; rebuild_pool's 3 columns over {size} slots, "
+          f"init set and unset); compaction kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, index_put_ per column {lib_ms:.4f} ms, "
+          f"bound {b[0]:.5f} ms; rebuild kernel {rebuild_ms:.4f} ms, "
+          f"plain {rebuild_plain_ms:.4f} ms, bound {rb[0]:.5f} ms",
+          flush=True)
+    out["permute_rows"] = kernel_entry(
+        "permute.cu", "risingwave_tpu/state/hash_table.py:115", ms,
+        plain_ms, b, lib_ms, err)
+    out["permute_rows"].update(rebuild_ms=rebuild_ms,
+                               rebuild_plain_ms=rebuild_plain_ms,
+                               rebuild_bound_ms=rb[0])
+    del eng, dumps
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the durable main path and the cold start
+
+
+def _durable_config(query: str, scale: int) -> dict:
+    if query == "q8":
+        cfg = {k: max(v // scale, 64) for k, v in Q8_CONFIG.items()}
+        if scale > 1:  # the rehearsal's pools hold every row of its run
+            cfg.update(join_pool_size=1 << 17, mv_ring_size=1 << 19)
+        return cfg
+    cfg = {k: v // scale for k, v in BENCH_CONFIG.items()}
+    cfg["mv_ring_size"] = (1 << 21) // scale
+    return cfg
+
+
+def _durable_engine(torch, device, cfg, data_dir):
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    return Engine(PlannerConfig(**cfg), data_dir=data_dir, device=device)
+
+
+def phase_durable(torch, device, scale, query: str, storeless_rate):
+    """``Engine(config, data_dir=...)`` at bench.py's sizes: 9 warm-up and
+    32 timed barriers with a snapshot every 8 checkpoints (K11 and the
+    background uploader), then a cold start from the directory, 8 more
+    barriers, and every state tensor (q7's MV, q8's ring in order)
+    against one store-less engine that ran the same barriers without
+    stopping."""
+    import gc
+    import shutil
+    import tempfile
+
+    from risingwave_tpu_torch import kernels
+    from risingwave_tpu_torch.common.tree import flatten
+    from risingwave_tpu_torch.stream.shadow import ShadowSnapshot
+
+    cfg = _durable_config(query, scale)
+    # the CPU rehearsal times a quarter of the barriers (one snapshot)
+    # of a quarter of the chunks
+    timed = BARRIERS if device.type == "cuda" else BARRIERS // 4
+    per = CHUNKS_PER_BARRIER if device.type == "cuda" \
+        else CHUNKS_PER_BARRIER // 4
+    data_dir = tempfile.mkdtemp(prefix=f"rw_durable_{query}_")
+    ddl = [BENCH_SOURCES, QUERY_SQL[query],
+           "ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000",
+           "ALTER SYSTEM SET snapshot_interval_checkpoints = 8"]
+    try:
+        eng = _durable_engine(torch, device, cfg, data_dir)
+        for sql in ddl:
+            eng.execute(sql)
+        eng.tick(barriers=WARMUP_BARRIERS,
+                 chunks_per_barrier=per)
+        job, store = eng.jobs[0], eng.checkpoint_store
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        ShadowSnapshot.timing = []
+        n_commits = len(store.commits)
+        stall0, up0 = job.stall_seconds, job._uploader.upload_seconds_total
+        t0 = time.perf_counter()
+        eng.tick(barriers=timed, chunks_per_barrier=per)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        snaps = ShadowSnapshot.timing
+        ShadowSnapshot.timing = None
+        snap_ms = [ev[0].elapsed_time(ev[1]) for ev in snaps
+                   if ev is not None]
+        commits = list(store.commits)[n_commits:]
+        rounds = 4 if query == "q8" else 1
+        chunks = timed * per * rounds
+        rows = chunks * cfg["chunk_capacity"]
+        rate = rows / dt
+        port = sum(launches.values())
+        print(f"[durable] {query} {rows} rows in {dt:.3f} s = {rate:.0f} "
+              f"rows/s (store-less run of this process: "
+              f"{storeless_rate:.0f} rows/s); snapshots sealed "
+              f"{len(snaps)}, committed {len(commits)} (committed epoch "
+              f"{job.committed_epoch} = sealed {job.sealed_epoch}); "
+              f"uploader stall {job.stall_seconds - stall0:.3f} s, upload "
+              f"work {job._uploader.upload_seconds_total - up0:.3f} s; "
+              f"port kernel launches {port / chunks:.1f} per chunk "
+              f"{launches}", flush=True)
+        for (_, epoch, kind, nbytes, nd, nb) in commits:
+            print(f"[durable] {query} epoch {epoch}: {kind}, {nbytes} B, "
+                  f"{nd} of {nb} blocks dirty ({100 * nd / max(nb, 1):.1f}%)",
+                  flush=True)
+        if snap_ms:
+            print(f"[durable] {query} K11 device time per snapshot "
+                  f"{', '.join(f'{m:.4f}' for m in snap_ms)} ms", flush=True)
+        if job.committed_epoch != job.sealed_epoch or len(commits) != \
+                len(snaps):
+            fail(f"{query}: {len(snaps)} sealed, {len(commits)} committed")
+        sealed = (WARMUP_BARRIERS + timed) // 8 * 8
+        del eng, job
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- the cold start --------------------------------------------
+        t0 = time.perf_counter()
+        eng = _durable_engine(torch, device, cfg, data_dir)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        eng.tick(barriers=8, chunks_per_barrier=per)
+        whole = _durable_engine(torch, device, cfg, None)
+        for sql in ddl:
+            whole.execute(sql)
+        whole.tick(barriers=sealed + 8, chunks_per_barrier=per)
+        la = flatten(eng.jobs[0].states)[0]
+        lb = flatten(whole.jobs[0].states)[0]
+        max_abs_err(torch, [(f"cold start leaf {i}", a, b)
+                            for i, (a, b) in enumerate(zip(la, lb))])
+        what = "ring rows in order" if query == "q8" else "MV rows"
+        if query != "q8":
+            ra = sorted(eng.execute("SELECT * FROM bench_mv"))
+            if ra != sorted(whole.execute("SELECT * FROM bench_mv")):
+                fail(f"{query}: MV rows differ after the cold start")
+        print(f"[cold start] {query} recovered the epoch of barrier "
+              f"{sealed} in {rec_s:.3f} s (DDL replay, load, upload to the "
+              f"device); after 8 more barriers every state tensor ({what} "
+              f"included) equals an engine that ran {sealed + 8} barriers "
+              f"without stopping", flush=True)
+        del eng, whole
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return launches, rate, {"sealed": len(snaps),
+                                "snapshot_ms": snap_ms,
+                                "recover_s": rec_s}
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
 
 
 if __name__ == "__main__":

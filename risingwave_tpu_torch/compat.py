@@ -14,6 +14,11 @@ The reference's ``TagTable`` tags are uint64; the port's are the same
 bit patterns in int64, so tags convert with ``view`` (never a value
 cast) both ways and compare by bit pattern.
 
+``leaf_paths(tree)`` names every leaf of a reference host tree or a
+port tree by its path (``[2].left.table.tags``), in flatten order, so
+checkpoint payloads and digests of the two are matched leaf by leaf by
+path rather than by index.
+
 Every state of the ported plans converts: q7's agg, q5's pane agg,
 retractable final agg and MV, q1's ring (``tests/test_torch_preagg.py``
 carries them into a running port engine) and q8's join with pool
@@ -90,6 +95,33 @@ def state_to_numpy(tree):
     if isinstance(tree, tuple):
         return tuple(state_to_numpy(v) for v in tree)
     return tree
+
+
+def leaf_paths(tree, path: str = "") -> list[tuple[str, object]]:
+    """``[(path, leaf)]`` of a reference host tree (numpy leaves) or a
+    port tree, in the order both packages flatten them."""
+    name = type(tree).__name__
+    if isinstance(tree, (torch.Tensor, np.ndarray, np.generic)):
+        return [(path, tree)]
+    if name == "TagTable":
+        return leaf_paths(tree.tags, f"{path}.tags")
+    if name == "HashTable":
+        return (leaf_paths(tuple(tree.key_cols), f"{path}.key_cols")
+                + leaf_paths(tree.occupied, f"{path}.occupied")
+                + leaf_paths(tree.tombstone, f"{path}.tombstone"))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        out = []
+        for f in tree._fields:
+            out += leaf_paths(getattr(tree, f), f"{path}.{f}")
+        return out
+    if isinstance(tree, tuple):
+        out = []
+        for i, v in enumerate(tree):
+            out += leaf_paths(v, f"{path}[{i}]")
+        return out
+    if tree is None:
+        return []
+    return [(path, np.asarray(tree))]
 
 
 def state_mismatches(ref, port, path: str = "state") -> list[str]:

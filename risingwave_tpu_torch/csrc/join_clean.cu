@@ -17,8 +17,8 @@
 //                    scanning the tile counts (which also writes pool_len),
 //                    then per tile a block scan giving each live slot its
 //                    new position, written to moved[old pool_pos] and to
-//                    pool_pos.  The rows themselves then move with the
-//                    port's plain `permute_dense` (K4, not ported yet).
+//                    pool_pos.  The rows themselves then move through K4
+//                    (permute.cu).
 //
 // Bound: bytes.  The clean reads the 8 B tag and 8 B window key of every
 // slot and writes the changed ones (2^22 slots: ~67 MB, ~20 us at HBM

@@ -2,7 +2,8 @@
 
 The sources live in ``risingwave_tpu_torch/csrc``: one ``.cu`` file per
 kernel plus the shared headers ``rw_common.cuh``, ``rw_join.cuh`` and
-``nexmark_common.cuh``.  Each source compiles
+``nexmark_common.cuh``, and one host routine, ``crc32c.cpp`` (the
+checkpoint store's checksum, ``crc32c``).  Each source compiles
 with ``nvcc`` into its own shared library with a plain C interface,
 named by a hash of its source, the headers and the flags, under
 ``build/kernels`` at the root of the checkout.  All missing libraries
@@ -13,10 +14,11 @@ every entry returns ``cudaGetLastError()``, which ``check`` turns into
 an exception.
 
 ``KERNELS`` names each kernel entry point with the source it is built
-from (``compact.cu``, ``nexmark_events.cu`` and ``tag_probe.cu`` hold
-two each), and ``LAUNCHES`` counts, per kernel, the
-wrapper calls that launched it on the card.  Nothing here runs at import time: a CPU-only process imports
-the package without ``nvcc``.
+from (``compact.cu``, ``nexmark_events.cu``, ``tag_probe.cu`` and
+``shadow_digest.cu`` hold two each), and ``LAUNCHES`` counts, per
+kernel, the wrapper calls that launched it on the card.  Nothing here
+runs at import time: a CPU-only process imports the package without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ SOURCES = {
     "join_update": "join_update.cu",
     "join_emit": "join_emit.cu",
     "join_clean": "join_clean.cu",
+    "shadow_digest": "shadow_digest.cu",
+    "permute": "permute.cu",
+    # a host routine (the checkpoint store's crc32c), no kernel
+    "crc32c": "crc32c.cpp",
 }
 #: kernel (one wrapper, one launch counter) -> library it lives in
 KERNELS = {
@@ -69,6 +75,9 @@ KERNELS = {
     "join_update": "join_update",
     "join_emit": "join_emit",
     "join_clean": "join_clean",
+    "shadow_digest": "shadow_digest",
+    "dirty_gather": "shadow_digest",
+    "permute_rows": "permute",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -178,6 +187,17 @@ def entry(name: str, symbol: str, argtypes: list):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def crc32c(data) -> int:
+    """crc32c of a bytes-like object through ``csrc/crc32c.cpp``."""
+    lib = library("crc32c")
+    fn = lib.rw_crc32c
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
+        fn.restype = ctypes.c_uint32
+    buf = bytes(data) if not isinstance(data, bytes) else data
+    return int(fn(buf, len(buf)))
 
 
 def stream_ptr(device: torch.device) -> int:

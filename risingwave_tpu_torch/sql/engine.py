@@ -19,6 +19,21 @@ other statement raises ``NotImplementedError``.
 The engine runs on the card: ``Engine(config)`` means
 ``device="cuda"`` and raises when no GPU is present; the CPU is used
 only when the caller passes ``device="cpu"``.
+
+Durability (``Engine(config, data_dir=d)``, the reference's
+``engine.py:154,253-278``): the engine keeps a ``CheckpointStore`` and a
+``MetaStore`` under ``d``.  Every snapshot barrier seals its epoch into
+the job's shadow snapshot (K11) and a background uploader persists it
+as a full snapshot or a dirty-block delta; the end of ``tick`` drains
+the uploads (the durability point).  Every executed CREATE SOURCE,
+CREATE MATERIALIZED VIEW and SET is logged, and a new
+``Engine(config, data_dir=d)`` over a logged catalog cold-starts
+(``_bootstrap``): it replays the log, loads each job's last committed
+epoch onto the device and rewinds the source cursors, so the MVs
+continue as if the process never stopped.  Only these two stores are
+built: the reference's Hummock MV export to SSTs, its compactor and
+scrubber, DML tables and their journal, sinks and spill tiers are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +42,11 @@ import time
 from typing import Sequence
 
 from risingwave_tpu_torch.common.chunk import Chunk
-from risingwave_tpu_torch.common.config import SessionConfig, SystemParams
+from risingwave_tpu_torch.common.config import (
+    SessionConfig,
+    StorageConfig,
+    SystemParams,
+)
 from risingwave_tpu_torch.common.device import resolve_device
 from risingwave_tpu_torch.common.metrics import MetricsRegistry
 from risingwave_tpu_torch.common.types import Schema
@@ -40,7 +59,7 @@ from risingwave_tpu_torch.connector.nexmark import (
 from risingwave_tpu_torch.meta.catalog import Catalog, CatalogEntry
 from risingwave_tpu_torch.sql import ast
 from risingwave_tpu_torch.sql.binder import Scope
-from risingwave_tpu_torch.sql.parser import parse
+from risingwave_tpu_torch.sql.parser import parse_with_text
 from risingwave_tpu_torch.sql.planner import (
     DagPlan,
     PlanError,
@@ -79,7 +98,13 @@ class _ProjectingReader:
 
 
 class Engine:
-    def __init__(self, config: PlannerConfig | None = None, device=None):
+    #: statements recorded in the durable DDL log: the ported subset of
+    #: the reference's ``_LOGGED_DDL`` (engine.py:299-303)
+    _LOGGED_DDL = (ast.CreateSource, ast.CreateMaterializedView,
+                   ast.SetStatement)
+
+    def __init__(self, config: PlannerConfig | None = None,
+                 data_dir: str | None = None, device=None):
         self.device = resolve_device(device)
         self.catalog = Catalog()
         self.config = config or PlannerConfig()
@@ -89,13 +114,45 @@ class Engine:
         self.session_config = SessionConfig()
         self.metrics = MetricsRegistry()
         self._last_columns: list[str] | None = None
+        self.checkpoint_store = None
+        self.meta_store = None
+        #: True while replaying the DDL log (suppresses re-logging)
+        self._replaying = False
+        if data_dir is not None:
+            from risingwave_tpu_torch.meta.store import MetaStore
+            from risingwave_tpu_torch.storage.checkpoint_store import (
+                CheckpointStore,
+            )
+            self.checkpoint_store = CheckpointStore(
+                data_dir, keep_epochs=StorageConfig().checkpoint_keep_epochs,
+                metrics=self.metrics,
+                native_crc=self.device.type == "cuda")
+            self.meta_store = MetaStore(data_dir)
+            if self.meta_store.has_catalog():
+                self._bootstrap()
+
+    def _bootstrap(self) -> None:
+        """Cold start: replay the DDL log to rebuild the catalog and the
+        jobs, then restore every job's state and source cursors from its
+        last committed checkpoint."""
+        self._replaying = True
+        try:
+            for sql in self.meta_store.ddl_log():
+                self.execute(sql)
+            self.recover()
+        finally:
+            self._replaying = False
 
     # ------------------------------------------------------------------
     def execute(self, sql: str):
-        """Run one or more statements; returns the last result."""
+        """Run one or more statements; returns the last result.  With a
+        ``data_dir``, DDL is logged after it succeeds."""
         result = None
-        for stmt in parse(sql):
+        for text, stmt in parse_with_text(sql):
             result = self._execute_one(stmt)
+            if isinstance(stmt, self._LOGGED_DDL) \
+                    and self.meta_store is not None and not self._replaying:
+                self.meta_store.append_ddl(text)
         return result
 
     def query(self, sql: str):
@@ -177,7 +234,8 @@ class Engine:
         else:
             job = StreamingJob(plan.reader, plan.fragment, stmt.name,
                                checkpoint_frequency=ckpt_freq,
-                               device=self.device)
+                               device=self.device,
+                               checkpoint_store=self.checkpoint_store)
             mv_exec = plan.fragment.executors[plan.mv_index]
             state_index = (plan.mv_index,)
         self.catalog.create(CatalogEntry(
@@ -193,7 +251,8 @@ class Engine:
         """A ``DagJob`` over the plan's sources and nodes (the reference's
         no-tap branch; one device, not staged)."""
         job = DagJob(plan.sources, plan.nodes, name,
-                     checkpoint_frequency=ckpt_freq, device=self.device)
+                     checkpoint_frequency=ckpt_freq, device=self.device,
+                     checkpoint_store=self.checkpoint_store)
         terminal = plan.nodes[plan.mv_node].fragment.executors[plan.mv_index]
         return job, terminal, (plan.mv_node, plan.mv_index)
 
@@ -209,11 +268,16 @@ class Engine:
             "maintenance_interval_checkpoints"))
         snap_iv = int(self.system_params.get(
             "snapshot_interval_checkpoints"))
+        upload_window = int(self.system_params.get(
+            "checkpoint_upload_window"))
         for _ in range(barriers):
             for job in self.jobs:
                 job.checkpoint_frequency = ckpt_freq
                 job.maintenance_interval = maint
                 job.snapshot_interval = snap_iv
+                job.upload_window = upload_window
+                if job.metrics is None:
+                    job.metrics = self.metrics
                 t0 = time.perf_counter()
                 rows = job.run_chunks(chunks_per_barrier)
                 t1 = time.perf_counter()
@@ -226,6 +290,31 @@ class Engine:
                                      job=job.name, phase="dispatch")
                 self.metrics.observe("barrier_phase_seconds", t2 - t1,
                                      job=job.name, phase="seal")
+        # the batch boundary is the durability point: uploads sealed in
+        # the window pipelined against the barrier loop and land here
+        for job in self.jobs:
+            job.drain_uploads()
+            self._export_checkpoint_gauges(job)
+
+    def _export_checkpoint_gauges(self, job) -> None:
+        """Checkpoint-pipeline gauges (no device read)."""
+        self.metrics.set_gauge("committed_epoch", job.committed_epoch,
+                               job=job.name)
+        self.metrics.set_gauge("sealed_epoch", job.sealed_epoch,
+                               job=job.name)
+        self.metrics.set_gauge(
+            "checkpoint_seal_lag_epochs",
+            max(0, job.sealed_epoch - job.committed_epoch), job=job.name)
+        self.metrics.set_gauge("checkpoint_upload_queue_depth",
+                               job.upload_queue_depth(), job=job.name)
+        up = job._uploader
+        if up is not None:
+            self.metrics.set_gauge("checkpoint_uploads_total",
+                                   up.uploads_total, job=job.name)
+            self.metrics.set_gauge("checkpoint_upload_seconds_total",
+                                   up.upload_seconds_total, job=job.name)
+            self.metrics.set_gauge("checkpoint_upload_stall_seconds_total",
+                                   up.stall_seconds_total, job=job.name)
 
     def recover(self) -> None:
         """Restore every job from its last committed checkpoint."""

@@ -1,8 +1,10 @@
 """Open-addressing hash table on the device.
 
 Port of ``HashTable`` from ``risingwave_tpu/state/hash_table.py``
-(:152-385) and ``permute_dense`` (:115).  State is a dense table of
-``size`` slots (a power of two):
+(:152-385) and ``permute_dense`` (:115), which on the card is K4
+(``csrc/permute.cu``, ``permute_rows``: every column of a table moves in
+one entry; ``permute_rows_plain`` is its plain version).  State is a
+dense table of ``size`` slots (a power of two):
 
 - ``key_cols``: one ``[size]`` tensor per key column (``NCol`` for
   nullable keys, ``StrCol`` for strings);
@@ -84,23 +86,113 @@ def _dense_op(arr, fn):
     return fn(arr)
 
 
+def _col_leaves(arr, init) -> list[tuple[torch.Tensor, object]]:
+    """(tensor, init) of a column's leaves: as in the reference, the
+    parts of an ``NCol`` / ``StrCol`` move with zero fill."""
+    if isinstance(arr, (NCol, StrCol)):
+        return [t for v in arr for t in _col_leaves(v, None)]
+    return [(arr, init)]
+
+
+def _rebuild_col(proto, it):
+    if isinstance(proto, NCol):
+        return NCol(_rebuild_col(proto.data, it), _rebuild_col(proto.null, it))
+    if isinstance(proto, StrCol):
+        return StrCol(_rebuild_col(proto.data, it),
+                      _rebuild_col(proto.lens, it))
+    return next(it)
+
+
+def permute_dense_many(arrs, moved: torch.Tensor, init=None) -> list:
+    """``permute_dense`` of several columns of one table (plain arrays,
+    ``NCol``s, ``StrCol``s) by the same ``moved``; on the card one K4
+    entry moves them all."""
+    pairs = [p for a in arrs for p in _col_leaves(a, init)]
+    out = iter(permute_rows([t for t, _ in pairs], moved,
+                            [i for _, i in pairs]))
+    return [_rebuild_col(a, out) for a in arrs]
+
+
 def permute_dense(arr, moved: torch.Tensor, init=None):
     """``out[moved[old]] = arr[old]``; ``moved`` comes from
     ``HashTable.rehashed`` (dead slots carry the ``size`` sentinel);
     ``init`` fills untouched slots (zero when None)."""
+    return permute_dense_many([arr], moved, init)[0]
+
+
+def permute_rows(cols: list, moved: torch.Tensor, inits=None) -> list:
+    """K4 (``csrc/permute.cu``): the row permutation of plain tensors
+    sharing their leading dimension with ``moved``; ``inits`` gives each
+    column's fill (None: zero).  The plain version serves CPU tensors
+    only."""
+    if not isinstance(inits, (list, tuple)):
+        inits = [inits] * len(cols)
+    if moved.device.type != "cuda":
+        return [permute_rows_plain(c, moved, i)
+                for c, i in zip(cols, inits)]
+    moved = moved.to(torch.int32)
+    size = moved.shape[0]
+    outs = [torch.empty_like(c) for c in cols]
+    kernels.require_cuda("permute_rows", moved, *cols, *outs)
+    fn = kernels.entry("permute_rows", "rw_permute_rows", [
+        ctypes.POINTER(_PermDesc), ctypes.c_void_p, ctypes.c_void_p])
+    for lo in range(0, len(cols), kernels.MAX_COLS):
+        d = _PermDesc()
+        d.n_cols = min(kernels.MAX_COLS, len(cols) - lo)
+        d.size = size
+        hi = lo + kernels.MAX_COLS
+        for k, (c, o, init) in enumerate(zip(cols[lo:hi], outs[lo:hi],
+                                             inits[lo:hi])):
+            if c.shape[0] != size:
+                raise ValueError("permute_rows: columns must have "
+                                 f"{size} rows, got {c.shape[0]}")
+            col = d.col[k]
+            col.in_, col.out = c.data_ptr(), o.data_ptr()
+            col.row_bytes = c[0].numel() * c.element_size() if size else 0
+            col.esize = c.element_size()
+            col.init = _init_bits(c.dtype, init)
+        kernels.count_launch("permute_rows")
+        kernels.check(fn(ctypes.byref(d), moved.data_ptr(),
+                         kernels.stream_ptr(moved.device)), "permute_rows")
+    return outs
+
+
+def _init_bits(dtype, init) -> int:
+    """One element of ``init`` (zero when None) as an unsigned bit
+    pattern of ``dtype``'s width."""
+    if init is None:
+        return 0
+    t = torch.tensor(init, dtype=dtype).reshape(1)
+    raw = t.view(torch.uint8).tolist()
+    return int.from_bytes(bytes(raw), "little")
+
+
+def permute_rows_plain(a: torch.Tensor, moved: torch.Tensor, init=None):
+    """Plain version of one column of ``permute_rows``."""
     size = moved.shape[0]
     tgt = moved.to(torch.int64)
+    out = torch.zeros((size + 1,) + a.shape[1:], dtype=a.dtype,
+                      device=a.device)
+    if init is not None:
+        out.fill_(init)
+    # live targets are unique; dead slots all land on the dump row
+    out.index_put_((tgt,), a)
+    return out[:size].contiguous()
 
-    def move(a):
-        out = torch.zeros((size + 1,) + a.shape[1:], dtype=a.dtype,
-                          device=a.device)
-        if init is not None:
-            out.fill_(init)
-        # live targets are unique; dead slots all land on the dump row
-        out.index_put_((tgt,), a)
-        return out[:size].contiguous()
 
-    return _dense_op(arr, move)
+class _PermCol(ctypes.Structure):
+    """Mirror of ``struct PermCol`` in ``csrc/permute.cu``."""
+
+    _fields_ = [("in_", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("row_bytes", ctypes.c_int), ("esize", ctypes.c_int),
+                ("init", ctypes.c_ulonglong)]
+
+
+class _PermDesc(ctypes.Structure):
+    """Mirror of ``struct PermDesc`` (passed to the kernels by value)."""
+
+    _fields_ = [("n_cols", ctypes.c_int), ("size", ctypes.c_int),
+                ("col", _PermCol * kernels.MAX_COLS)]
 
 
 def _empty_key_col(proto, size: int, device):

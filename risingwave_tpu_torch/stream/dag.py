@@ -24,8 +24,11 @@ stays asynchronous except for these host reads:
 - the flush drain of a fragment with pending output (none on q8's path)
   and the counters at maintenance, as in ``StreamingJob``.
 
-Checkpoints are in-memory device clones of the state tree with the
-readers' offsets, as in the port's ``StreamingJob``.
+Checkpoints go through ``CheckpointPipelineMixin`` as in the port's
+``StreamingJob`` (the reference's ``_snapshot_and_save`` :302 and
+``recover`` :1367): every snapshot barrier seals the state tree into
+the job's shadow with the readers' cursors (keyed by source name) and,
+with a checkpoint store, uploads it in the background.
 """
 
 from __future__ import annotations
@@ -47,9 +50,9 @@ from risingwave_tpu_torch.stream.fragment import (
 )
 from risingwave_tpu_torch.stream.message import Watermark
 from risingwave_tpu_torch.stream.runtime import (
+    CheckpointPipelineMixin,
     CheckpointSnapshot,
     check_counter_values,
-    clone_tree,
     restore_source,
 )
 from risingwave_tpu_torch.stream.watermark import WatermarkFilterExecutor
@@ -82,18 +85,19 @@ class JoinNode:
         return self.join.init_state(device)
 
 
-class DagJob:
+class DagJob(CheckpointPipelineMixin):
     """A streaming job over a DAG of fragments and joins.  ``nodes`` is a
     topological list: a node's inputs are sources or earlier nodes."""
 
     def __init__(self, sources: dict[str, Any], nodes: list,
                  name: str = "dag_job", checkpoint_frequency: int = 1,
-                 device=None):
+                 device=None, checkpoint_store=None):
         self.sources = dict(sources)
         self.nodes: list = list(nodes)
         self.name = name
         self.device = resolve_device(device)
         self.checkpoint_frequency = checkpoint_frequency
+        self.checkpoint_store = checkpoint_store
         self.maintenance_interval = 1
         self._ckpts_since_maintain = 0
         self.snapshot_interval = 1
@@ -103,6 +107,7 @@ class DagJob:
         self.barriers_seen = 0
         self.checkpoints: list[CheckpointSnapshot] = []
         self.committed_epoch = 0
+        self._init_pipeline()
         self.paused = False
         self._counters = None
         self.counter_labels: list[str] = []
@@ -434,6 +439,7 @@ class DagJob:
             if self._ckpts_since_snapshot >= self.snapshot_interval:
                 self._ckpts_since_snapshot = 0
                 self._commit_checkpoint(sealed)
+        self._process_upload_acks()
         self.epoch = self.epoch.bump()
 
     # -- maintenance ----------------------------------------------------
@@ -467,16 +473,18 @@ class DagJob:
                 for name, src in self.sources.items()}
 
     def _commit_checkpoint(self, sealed) -> None:
-        """Clone the state tree on the device with the readers' offsets
-        and commit the epoch (the K11 stand-in)."""
-        self.checkpoints = [CheckpointSnapshot(
-            epoch=sealed, states=clone_tree(self.states),
-            source_state=self._source_states())]
-        self.committed_epoch = sealed
+        """Seal the epoch with the readers' cursors."""
+        self._snapshot_commit(sealed, self._source_states())
 
-    def recover(self) -> None:
-        """Reset to the last committed checkpoint (states and readers)."""
-        self._counters = None
+    def recover(self, epoch: int | None = None) -> None:
+        """Reset to the last committed checkpoint (states and readers):
+        the durable store's, else the shadow, else the initial state."""
+        loaded = self._recover_pipeline(epoch)
+        if loaded is not None:
+            _, self.states, src_state = loaded
+            for name, src in self.sources.items():
+                restore_source(src, src_state.get(name, {}))
+            return
         if not self.checkpoints:
             self.states = self._init_states()
             for src in self.sources.values():
@@ -484,7 +492,7 @@ class DagJob:
                     src.offset = 0
             return
         snap = self.checkpoints[-1]
-        self.states = clone_tree(snap.states)
+        self.states = self._shadow.restore()
         for name, src in self.sources.items():
             restore_source(src, snap.source_state.get(name, {}))
 

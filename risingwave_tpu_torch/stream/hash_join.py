@@ -36,8 +36,9 @@ On the card the path runs these kernels, each beside its plain version:
 - K15 ``join_clean`` (``csrc/join_clean.cu``): the watermark clean of a
   side (with the table's tombstone and live counts for the rehash
   conditions) and the pool compaction (occupancy scan, ``moved`` map,
-  new ``pool_pos`` / ``pool_len``; the row permutation is the port's
-  plain ``permute_dense``, K4).
+  new ``pool_pos`` / ``pool_len``); the rows then move through K4
+  ``permute_rows`` (``csrc/permute.cu``), as do ``rebuild_pool``'s
+  per-slot columns, every column of a table in one entry.
 
 State tensors are updated in place where the reference returns a new
 tree; ``rebuild_pool`` and ``compact_pool`` build new tensors and return
@@ -66,7 +67,10 @@ from risingwave_tpu_torch.common.compact import mask_indices
 from risingwave_tpu_torch.common.hash import hash64_columns
 from risingwave_tpu_torch.common.types import Schema
 from risingwave_tpu_torch.expr.node import Expr
-from risingwave_tpu_torch.state.hash_table import gather_key, permute_dense
+from risingwave_tpu_torch.state.hash_table import (
+    gather_key,
+    permute_dense_many,
+)
 from risingwave_tpu_torch.state.tag_table import TagTable, pair_tag
 from risingwave_tpu_torch.stream.materialize import (
     empty_value_col,
@@ -639,7 +643,7 @@ def compact_pool_plain(s: PoolSideState) -> PoolSideState:
                                              torch.full_like(new_pos, pool))
     moved = moved[:pool]
     return s._replace(
-        rows=tuple(permute_dense(r, moved) for r in s.rows),
+        rows=tuple(permute_dense_many(s.rows, moved)),
         pool_pos=torch.where(occ, new_pos, s.pool_pos),
         pool_len=occ.sum(dtype=torch.int32),
     )
@@ -652,7 +656,7 @@ _CP_TILE = 1024
 def compact_pool_cuda(s: PoolSideState) -> PoolSideState:
     """K15 compaction (``csrc/join_clean.cu``): tile counts, one-block
     scan of the tiles, per-tile scan writing ``moved``, ``pool_pos`` and
-    ``pool_len``; the rows then move with the plain ``permute_dense``."""
+    ``pool_len``; the rows then move in one K4 entry (``permute.cu``)."""
     pool = _pool_capacity(s.rows)
     size = s.table.size
     dev = s.count.device
@@ -670,7 +674,7 @@ def compact_pool_cuda(s: PoolSideState) -> PoolSideState:
                      moved.data_ptr(), pool_len.data_ptr(),
                      tiles.data_ptr(), size, pool,
                      kernels.stream_ptr(dev)), "join_clean")
-    return s._replace(rows=tuple(permute_dense(r, moved) for r in s.rows),
+    return s._replace(rows=tuple(permute_dense_many(s.rows, moved)),
                       pool_pos=pool_pos, pool_len=pool_len)
 
 
@@ -685,12 +689,10 @@ def rebuild_pool(s: PoolSideState) -> PoolSideState:
     per-slot companions move (pool rows are addressed through
     ``pool_pos``)."""
     fresh, moved = s.table.rehashed()
-    return s._replace(
-        table=fresh,
-        count=permute_dense(s.count, moved),
-        pool_pos=permute_dense(s.pool_pos, moved),
-        slot_clean=permute_dense(s.slot_clean, moved),
-    )
+    count, pool_pos, slot_clean = permute_dense_many(
+        [s.count, s.pool_pos, s.slot_clean], moved)
+    return s._replace(table=fresh, count=count, pool_pos=pool_pos,
+                      slot_clean=slot_clean)
 
 
 def rehash_conditions(s: PoolSideState, stats: torch.Tensor):

@@ -10,10 +10,15 @@ launches.  A barrier reads one pending-row count back (the flush drain,
 see ``Fragment.barrier``); error counters and tombstone counts are read
 once per maintenance interval.
 
-Checkpoints in this port are in-memory device clones of the state tree
-taken every ``snapshot_interval`` checkpoints and restored by
-``recover()``.  The reference's dirty-block shadow snapshot with block
-digests and its durable checkpoint store are not ported yet.
+Every ``snapshot_interval`` checkpoints the barrier seals the epoch
+through ``CheckpointPipelineMixin`` (the reference's, :77-230, shared
+with ``DagJob``): the state tree goes into the job's ``ShadowSnapshot``
+(K11's digest diff and dirty copy with a checkpoint store, a plain copy
+into persistent buffers without one) and, with a store, a background
+uploader persists the epoch; ``committed_epoch`` advances when the
+upload acks.  ``recover()`` prefers the durable store and else restores
+the shadow.  Spill tiers and sinks are not ported: their hooks in the
+commit are absent.
 """
 
 from __future__ import annotations
@@ -22,38 +27,155 @@ from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
-import torch
 
-from risingwave_tpu_torch.common.chunk import NCol, StrCol
 from risingwave_tpu_torch.common.device import resolve_device
 from risingwave_tpu_torch.common.epoch import EpochPair
-from risingwave_tpu_torch.state.hash_table import HashTable
-from risingwave_tpu_torch.state.tag_table import TagTable
+from risingwave_tpu_torch.common.trace import GLOBAL_TRACE
+from risingwave_tpu_torch.common.tree import tree_map
 from risingwave_tpu_torch.stream.fragment import Fragment
 from risingwave_tpu_torch.stream.message import Barrier, BarrierKind
 
 
-def clone_tree(x):
-    """Deep device copy of a state tree (tuples, NamedTuples, tables)."""
-    if isinstance(x, torch.Tensor):
-        return x.clone()
-    if isinstance(x, (HashTable, TagTable)):
-        return x.clone()
-    if isinstance(x, (NCol, StrCol)) or (isinstance(x, tuple)
-                                         and hasattr(x, "_fields")):
-        return type(x)(*(clone_tree(v) for v in x))
-    if isinstance(x, tuple):
-        return tuple(clone_tree(v) for v in x)
-    return x
-
-
 @dataclass
 class CheckpointSnapshot:
-    """A committed epoch: device clone of all state + source offsets."""
+    """A sealed epoch: the source cursors; the states live in the job's
+    shadow (``states is None``, as the reference's shadow-backed
+    snapshots)."""
 
     epoch: int
     states: Any
     source_state: dict
+
+
+class CheckpointPipelineMixin:
+    """Incremental shadow snapshots + pipelined durable uploads, shared
+    by ``StreamingJob`` and ``DagJob``.
+
+    A snapshot barrier SEALS the epoch (``sealed_epoch``): one shadow
+    update on the device and, with a store, an upload task;
+    ``committed_epoch`` advances when the upload acks.  Without a store
+    seal and commit coincide.  The barrier loop stalls only when the
+    uploader is more than ``upload_window`` epochs behind."""
+
+    #: max sealed-but-unacked epochs before the barrier loop stalls
+    upload_window: int = 4
+    #: optional MetricsRegistry (the engine attaches its own)
+    metrics = None
+    checkpoint_store = None
+    _shadow = None
+    _uploader = None
+
+    def _init_pipeline(self) -> None:
+        self.sealed_epoch = 0
+        #: seconds this job's barrier loop stalled on the upload window
+        self.stall_seconds = 0.0
+        self._shadow = None
+        self._uploader = None
+
+    @property
+    def ckpt_key(self) -> str:
+        """Durable-store key of this job's checkpoint lineage."""
+        return self.name
+
+    def _ensure_uploader(self):
+        if self._uploader is None and self.checkpoint_store is not None:
+            from risingwave_tpu_torch.stream.checkpoint import (
+                CheckpointUploader,
+            )
+            self._uploader = CheckpointUploader(
+                self.checkpoint_store, self.ckpt_key, metrics=self.metrics)
+        return self._uploader
+
+    def _process_upload_acks(self) -> None:
+        """Cheap ack poll (no device work): advances committed_epoch."""
+        up = self._uploader
+        if up is None:
+            return
+        acked = up.take_acked()
+        if acked:
+            self.committed_epoch = max(self.committed_epoch, acked[-1])
+
+    def upload_queue_depth(self) -> int:
+        return 0 if self._uploader is None else self._uploader.pending()
+
+    def drain_uploads(self, raise_error: bool = True) -> None:
+        """Block until every sealed epoch is durable."""
+        if self._uploader is not None:
+            self._uploader.drain(raise_error=raise_error)
+            self._process_upload_acks()
+
+    def _snapshot_commit(self, epoch_val: int, src_state: dict) -> None:
+        """Seal one epoch: shadow update + uploader enqueue (or, with no
+        store, the in-memory commit)."""
+        from risingwave_tpu_torch.storage.digest import DEFAULT_BLOCK_ELEMS
+        from risingwave_tpu_torch.stream.shadow import ShadowSnapshot
+
+        store = self.checkpoint_store
+        up = self._ensure_uploader()
+        if up is not None:
+            self.stall_seconds += up.wait_window(self.upload_window)
+            self._process_upload_acks()
+        if self._shadow is not None and (
+                not self._shadow.matches(self.states)
+                or self._shadow.digest_mode != (store is not None)):
+            # the tree changed shape (or the job gained/lost a store):
+            # drain, then rebuild the shadow from scratch (full re-base)
+            if up is not None:
+                up.drain()
+                self._process_upload_acks()
+            if store is not None:
+                store.invalidate(self.ckpt_key)
+            self._shadow = None
+        with GLOBAL_TRACE.span("snapshot", job=self.name, epoch=epoch_val):
+            if self._shadow is None:
+                self._shadow = ShadowSnapshot(
+                    self.states,
+                    block_elems=store.block_elems if store is not None
+                    else DEFAULT_BLOCK_ELEMS,
+                    digest=store is not None)
+                digests = self._shadow.digests
+            else:
+                if up is not None:
+                    # the update overwrites what in-flight fetches read
+                    up.wait_fetched()
+                digests = self._shadow.update(self.states, epoch_val)
+        self.sealed_epoch = epoch_val
+        self.checkpoints = [CheckpointSnapshot(
+            epoch=epoch_val, states=None, source_state=src_state)]
+        if store is not None:
+            from risingwave_tpu_torch.stream.checkpoint import UploadTask
+            up.enqueue(UploadTask(
+                epoch=epoch_val, leaves=self._shadow.leaves,
+                digests=digests, shapes=self._shadow.shapes,
+                treedef=self._shadow.treedef, source_state=src_state,
+                ready=self._shadow.ready,
+                trace_ctx=GLOBAL_TRACE.current()))
+            self._process_upload_acks()
+        else:
+            self.committed_epoch = epoch_val
+
+    def _recover_pipeline(self, epoch: int | None):
+        """The shared head of ``recover``: drain the uploads (a failed
+        upload is swallowed: the rewind resolves it), then load the
+        durable epoch.  Returns ``(epoch, states on the job's device,
+        source_state)``, or None without a durable checkpoint."""
+        self._counters = None
+        if self._uploader is not None:
+            self._uploader.drain(raise_error=False)
+            self._process_upload_acks()
+            self._uploader.clear_error()
+        if self.checkpoint_store is None:
+            return None
+        # any rewind invalidates the digest cache: the next save re-bases
+        self.checkpoint_store.invalidate(self.ckpt_key)
+        loaded = self.checkpoint_store.load(self.ckpt_key, epoch)
+        if loaded is None:
+            return None
+        epoch_v, states, src_state = loaded
+        self.committed_epoch = epoch_v
+        self.sealed_epoch = epoch_v
+        return epoch_v, tree_map(lambda x: x.to(self.device), states), \
+            src_state
 
 
 def check_counter_values(name: str, labels: list[str],
@@ -88,16 +210,19 @@ def restore_source(source, state: dict) -> None:
         source.offset = state["offset"]
 
 
-class StreamingJob:
+class StreamingJob(CheckpointPipelineMixin):
     """A linear source -> fragment pipeline driven by the barrier loop."""
 
     def __init__(self, source, fragment: Fragment, name: str = "job",
-                 checkpoint_frequency: int = 1, device=None):
+                 checkpoint_frequency: int = 1, device=None,
+                 checkpoint_store=None):
         self.source = source
         self.fragment = fragment
         self.name = name
         self.device = resolve_device(device)
         self.checkpoint_frequency = checkpoint_frequency
+        #: optional durable store (storage.CheckpointStore)
+        self.checkpoint_store = checkpoint_store
         #: checkpoints between maintenance passes (rehash + the counters
         #: readback)
         self.maintenance_interval = 1
@@ -110,6 +235,7 @@ class StreamingJob:
         self.barriers_seen = 0
         self.checkpoints: list[CheckpointSnapshot] = []
         self.committed_epoch = 0
+        self._init_pipeline()
         #: counters vector of the last barrier (device tensor)
         self._counters = None
 
@@ -146,6 +272,7 @@ class StreamingJob:
                 self._maintain(epoch_val)
                 self._ckpts_since_maintain = 0
             self._commit_checkpoint(barrier)
+        self._process_upload_acks()
         self.epoch = barrier.epoch
         return outs
 
@@ -167,8 +294,7 @@ class StreamingJob:
                 self._counters.cpu().numpy())
 
     def _commit_checkpoint(self, barrier: Barrier) -> None:
-        """Every ``snapshot_interval`` checkpoints: clone the state tree
-        on the device and commit the epoch."""
+        """Every ``snapshot_interval`` checkpoints: seal the epoch."""
         epoch_val = barrier.epoch.prev.value
         self._ckpts_since_snapshot += 1
         if self._ckpts_since_snapshot < self.snapshot_interval:
@@ -176,20 +302,23 @@ class StreamingJob:
         self._ckpts_since_snapshot = 0
         src_state = self.source.state() if hasattr(self.source, "state") \
             else {}
-        self.checkpoints = [CheckpointSnapshot(
-            epoch=epoch_val, states=clone_tree(self.states),
-            source_state=src_state)]
-        self.committed_epoch = epoch_val
+        self._snapshot_commit(epoch_val, src_state)
 
-    def recover(self) -> None:
-        """Reset to the last committed checkpoint (states and source)."""
-        self._counters = None
+    def recover(self, epoch: int | None = None) -> None:
+        """Reset to the last committed checkpoint: the durable store's
+        (``epoch`` pins a retained one), else the shadow, else the
+        initial state."""
+        loaded = self._recover_pipeline(epoch)
+        if loaded is not None:
+            _, self.states, src_state = loaded
+            restore_source(self.source, src_state)
+            return
         if not self.checkpoints:
             self.states = self.fragment.init_states(self.device)
             if hasattr(self.source, "offset"):
                 self.source.offset = 0
             return
         snap = self.checkpoints[-1]
-        # clone: the running job updates state in place
-        self.states = clone_tree(snap.states)
+        # a copy: the running job updates state in place
+        self.states = self._shadow.restore()
         restore_source(self.source, snap.source_state)

@@ -47,10 +47,13 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[nexmark_auctions] exact", "[nexmark_persons] exact",
                 "[tag_insert_ranked] exact", "[tag_probe] exact",
                 "[join_update] exact", "[join_emit] exact",
-                "[join_clean] exact",
+                "[join_clean] exact", "[shadow_digest] exact",
+                "[dirty_gather] exact", "[permute_rows] exact",
                 "[parity] q7", "[parity] q5", "[parity] q1", "[parity] q8",
                 "[check] q7 MV equals numpy", "[check] q5 MV equals numpy",
                 "[check] q1 ring rows equal numpy",
-                "[check] q8 ring rows equal the numpy join"):
+                "[check] q8 ring rows equal the numpy join",
+                "[durable] q7", "[durable] q8",
+                "[cold start] q7", "[cold start] q8"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout
