@@ -13,23 +13,32 @@
    K11 and K4 the whole state tree of a bench-size q8 engine, ~1 GB),
    requiring exact equality (tags bit for bit), and times kernel, plain
    version, one PyTorch library call where one exists, and the card's
-   bound for the same bytes;
-3. runs q7, q5 and q1 at 2 events/s and q8 at 10,000 events/s through
-   the port's ``Engine`` on the card and on the CPU (plain versions, the
-   agg forced onto the card's pre-aggregation branch) and requires equal
-   MV or ring rows and equal state, slot for slot;
-4. runs q1, q5, q7 and q8, each in a fresh ``Engine`` at ``bench.py``'s
-   sizes (9 warm-up barriers, then 32 timed barriers of 8 chunks, or of
-   8 scheduling rounds of 1 person and 3 auction chunks for q8) with the
-   launch counters set to 0 just before and read just after each timed
-   window, and requires every kernel of that query's path to have
-   launched;
+   bound for the same bytes; for the top-N kernels K16-K18 the TopN
+   state of a q19 engine (pool 2^18, emitted band 2^16) and its next
+   8192-row chunks, K16's delete branches on a retractable chunk at a
+   2^14 pool, K1 on bid rows with random bytes past the strings'
+   lengths and K3 on the MV's whole-row key (strings included);
+3. runs q7, q5 and q1 at 2 events/s, q8 at 10,000 events/s and q19 and
+   q18 at 2 events/s through the port's ``Engine`` on the card and on
+   the CPU (plain versions, the agg forced onto the card's
+   pre-aggregation branch) and requires equal MV or ring rows and equal
+   state, slot for slot;
+4. runs q1, q5, q7, q8, q19 and q18, each in a fresh ``Engine`` at
+   ``bench.py``'s sizes (q19/q18 with a top-N pool of 2^18, an emitted
+   band of 2^16 and an MV table of 2^18; 9 warm-up barriers, then 32
+   timed barriers of 8 chunks, or of 8 scheduling rounds of 1 person and
+   3 auction chunks for q8) with the launch counters set to 0 just
+   before and read just after each timed window, and requires every
+   kernel of that query's path to have launched;
 5. checks each MV against a numpy recomputation over the events the
    port generated: q7's max(price) and count(*) per 10-second window,
    q5's bid count per (auction, hop window), q1's ring rows, q8's ring
    as the inner join of persons and auctions on id = seller within a
-   1-second window;
-6. runs q7 and q8 durably (``Engine(config, data_dir=<temporary
+   1-second window, q19's top-10 prices per auction with ranks 1..k and
+   q18's latest bid per (bidder, auction), every row a consumed bid;
+   for q19/q18 also the TopN's overflow and inconsistency counters (0)
+   and the band at every flush (within the emitted capacity: lossless);
+6. runs q7, q8 and q19 durably (``Engine(config, data_dir=<temporary
    directory>)``, the same sizes and barriers, a snapshot every 8
    checkpoints through K11 and the background uploader), prints rows/s,
    each checkpoint's kind, bytes and dirty share, K11's device time per
@@ -70,7 +79,7 @@ BARRIERS = 32
 CHUNKS_PER_BARRIER = 8
 WINDOW_US = 10_000_000
 HOP_SLIDE_US = 2_000_000
-QUERIES = ("q1", "q5", "q7", "q8")
+QUERIES = ("q1", "q5", "q7", "q8", "q19", "q18")
 #: the kernels each query's main path must launch
 PATH_KERNELS = {
     "q1": ("nexmark_bids", "ring_append"),
@@ -81,6 +90,10 @@ PATH_KERNELS = {
     "q8": ("nexmark_auctions", "nexmark_persons", "hop_window", "hash64",
            "tag_insert_ranked", "tag_probe", "join_update", "join_emit",
            "join_clean", "mask_indices", "ring_append", "permute_rows"),
+    "q19": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
+            "mask_indices", "topn_flush", "probe", "mv_upsert"),
+    "q18": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
+            "mask_indices", "topn_flush", "probe", "mv_upsert"),
 }
 #: the durable main paths (``Engine(config, data_dir=...)``) add K11: the
 #: shadow update, and the gather of every delta checkpoint (q7's hot
@@ -88,6 +101,7 @@ PATH_KERNELS = {
 DURABLE_KERNELS = {
     "q7": PATH_KERNELS["q7"] + ("shadow_digest", "dirty_gather"),
     "q8": PATH_KERNELS["q8"] + ("shadow_digest",),
+    "q19": PATH_KERNELS["q19"] + ("shadow_digest",),
 }
 
 
@@ -117,14 +131,15 @@ class Timer:
         self.torch = torch
         self.cuda = device.type == "cuda"
 
-    def __call__(self, fn, iters: int) -> float:
+    def __call__(self, fn, iters: int,
+                 prefill_ms: float = PREFILL_MS_PER_CALL) -> float:
         torch = self.torch
         fn(iters)  # warm up (and build on first use) on its own input
         if self.cuda:
             torch.cuda.synchronize()
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
-            sleep_ms = min(iters * PREFILL_MS_PER_CALL, 200.0)
+            sleep_ms = min(iters * prefill_ms, 200.0)
             torch.cuda._sleep(int(sleep_ms * CYCLES_PER_MS))
             t0 = time.perf_counter()
             e0.record()
@@ -209,6 +224,10 @@ def main() -> int:
     results.update(phase_nexmark_events(torch, device, timer, scale))
     results.update(phase_q8_kernels(torch, device, timer, scale))
     results.update(phase_state_kernels(torch, device, timer, scale))
+    topn, strings = phase_topn_kernels(torch, device, timer, scale)
+    results.update(topn)
+    for name, r in strings.items():
+        results[name]["strings"] = r
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -217,6 +236,8 @@ def main() -> int:
     for query in ("q7", "q5", "q1"):
         phase_engine_parity(torch, device, query)
     phase_q8_parity(torch, device)
+    for query in TOPN_QUERIES:
+        phase_topn_parity(torch, device, query)
 
     # -- 4-5. main paths --------------------------------------------------
     rates = {}
@@ -226,6 +247,9 @@ def main() -> int:
     for query in QUERIES:
         if query == "q8":
             launches, rates[query] = phase_q8_main_path(torch, device, scale)
+        elif query in TOPN_QUERIES:
+            launches, rates[query] = phase_topn_main_path(torch, device,
+                                                          scale, query)
         else:
             launches, rates[query] = phase_main_path(torch, device, scale,
                                                      query)
@@ -240,7 +264,7 @@ def main() -> int:
 
     # -- 6. the durable main paths and their cold starts ------------------
     durable = {}
-    for query in ("q7", "q8"):
+    for query in ("q7", "q8", "q19"):
         launches, rate, info = phase_durable(torch, device, scale, query,
                                              rates[query])
         durable[query] = (rate, info)
@@ -799,6 +823,19 @@ SELECT p.id AS id, p.name AS name, a.reserve AS reserve
 FROM TUMBLE(person, date_time, INTERVAL '1' SECOND) p
 JOIN TUMBLE(auction, date_time, INTERVAL '1' SECOND) a
 ON p.id = a.seller AND p.window_start = a.window_start;
+""",
+    # Nexmark q19 as published; q18 as published less `extra`, which the
+    # bid source lacks
+    "q19": """
+CREATE MATERIALIZED VIEW bench_mv AS
+SELECT * FROM (SELECT *, ROW_NUMBER() OVER (PARTITION BY auction ORDER BY
+               price DESC) AS rank_number FROM bid) WHERE rank_number <= 10;
+""",
+    "q18": """
+CREATE MATERIALIZED VIEW bench_mv AS
+SELECT auction, bidder, price, channel, url, date_time
+FROM (SELECT *, ROW_NUMBER() OVER (PARTITION BY bidder, auction ORDER BY
+      date_time DESC) AS rank_number FROM bid) WHERE rank_number <= 1;
 """,
 }
 
@@ -1810,6 +1847,8 @@ def phase_state_kernels(torch, device, timer, scale):
 
 
 def _durable_config(query: str, scale: int) -> dict:
+    if query in TOPN_QUERIES:
+        return _topn_config(scale)
     if query == "q8":
         cfg = {k: max(v // scale, 64) for k, v in Q8_CONFIG.items()}
         if scale > 1:  # the rehearsal's pools hold every row of its run
@@ -1940,6 +1979,558 @@ def phase_durable(torch, device, scale, query: str, storeless_rate):
                                 "recover_s": rec_s}
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# q19 and q18: group top-N through the ROW_NUMBER rewrite
+
+
+#: bench.py's PlannerConfig with the slice's top-N sizes: a pool of 2^18
+#: rows (the band plus a barrier of inserts), an emitted band of 2^16 and
+#: an MV table of 2^18 (the band of 41 barriers of q18 is ~53,000 rows)
+TOPN_CONFIG = dict(BENCH_CONFIG, topn_pool_size=1 << 18,
+                   topn_emit_capacity=1 << 16, mv_table_size=1 << 18)
+#: the CPU rehearsal's sizes (its band is a larger share of its bids)
+TOPN_REHEARSAL = dict(chunk_capacity=128, topn_pool_size=1 << 15,
+                      topn_emit_capacity=1 << 13, mv_table_size=1 << 15)
+TOPN_QUERIES = ("q19", "q18")
+#: queue pre-fill per call for the top-N wrappers and plain versions,
+#: which enqueue tens of PyTorch launches a call
+TOPN_PREFILL_MS = 4.0
+#: a bid's payload bytes (4 int64, 16 + 40 string bytes and 2 lengths)
+BID_ROW_BYTES = 4 * 8 + 16 + 40 + 2 * 4
+
+
+def _topn_config(scale: int) -> dict:
+    return dict(TOPN_CONFIG) if scale == 1 else dict(TOPN_REHEARSAL)
+
+
+def _topn_engine(torch, device, scale, query: str, barriers: int):
+    """A q19 or q18 engine at the slice's sizes after ``barriers``
+    barriers (maintenance off, a snapshot every 8 checkpoints)."""
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    eng = Engine(PlannerConfig(**_topn_config(scale)), device=device)
+    eng.execute(BENCH_SOURCES)
+    eng.execute(QUERY_SQL[query])
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
+    eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    return eng
+
+
+def _topn_index(eng) -> int:
+    return next(i for i, ex in enumerate(eng.jobs[0].fragment.executors)
+                if type(ex).__name__ == "GroupTopNExecutor")
+
+
+def _topn_planes(tag, st):
+    """Every tensor of a TopNState, flattened with names."""
+    from risingwave_tpu_torch.common.tree import flatten
+
+    leaves = flatten(st)[0]
+    return [(f"{tag} leaf {i}", x) for i, x in enumerate(leaves)]
+
+
+def _topn_inputs(torch, eng, n: int):
+    """The TopN's next ``n`` input chunks: source chunks through the
+    executors before it, on a copy of their state."""
+    from risingwave_tpu_torch.common.tree import tree_map
+
+    job = eng.jobs[0]
+    ti = _topn_index(eng)
+    states = list(tree_map(torch.clone, job.states))
+    out = []
+    for _ in range(n):
+        cur = job.source.next_chunk()
+        for i in range(ti):
+            states[i], cur = job.fragment.executors[i].apply(states[i], cur)
+        out.append(cur)
+    return out
+
+
+def _retractable_chunk(torch, st, cap, g, schema):
+    """``cap`` rows against a pool: deletes of valid pool rows (some
+    twice), in-chunk +/- pairs, duplicate inserts, deletes of rows the
+    pool lacks and fresh inserts, as a changelog chunk."""
+    from risingwave_tpu_torch.common.chunk import Chunk
+    from risingwave_tpu_torch.stream.top_n import _gather
+
+    dev = st.valid.device
+    live = torch.nonzero(st.valid).flatten().cpu()
+    pick = live[torch.randint(0, live.numel(), (cap,), generator=g)]
+    pick[1::16] = pick[0::16]                          # duplicate deletes
+    idx = pick.to(dev)
+    cols = [_gather(c, idx) for c in st.rows]
+    ops = torch.ones(cap, dtype=torch.int8)            # Delete
+    kind = torch.randint(0, 8, (cap,), generator=g)
+    ops[kind == 1] = 2                                 # UpdateDelete
+    ops[kind >= 3] = 0                                 # re-inserts / dups
+    ops[kind == 7] = 3                                 # UpdateInsert
+    ops[2::32] = 0                                     # +/- pairs with the
+    ops[3::32] = 1                                     # row before
+    rows = torch.arange(cap)
+    src = torch.where(torch.arange(cap) % 32 == 3, rows - 1, rows).to(dev)
+    cols = [_gather(c, src) for c in cols]
+    # a few rows the pool never held: deletes that find nothing
+    miss = torch.arange(cap, device=dev) % 97 == 5
+    cols[0] = torch.where(miss, cols[0] + (1 << 40), cols[0])
+    valid = torch.rand(cap, generator=g) < 0.97
+    return Chunk(tuple(cols), ops.to(dev), valid.to(dev), schema)
+
+
+def phase_topn_kernels(torch, device, timer, scale):
+    """K16-K18 at the q19 path's shapes (pool 2^18, emitted band 2^16,
+    8192-row chunks of whole bids) on the TopN state of a q19 engine
+    after 9 barriers; K16's delete and annihilation branches on a
+    retractable chunk against a pool of 2^14 (where the plain version's
+    match matrix fits); K1 on the bid rows with random bytes past the
+    strings' lengths and K3 on the MV's whole-row key (strings included)
+    with the flush's 2^17-row chunk.  Every result exactly equal to the
+    plain version."""
+    from risingwave_tpu_torch.common.chunk import Chunk, StrCol
+    from risingwave_tpu_torch.common.compact import mask_indices
+    from risingwave_tpu_torch.common.hash import (
+        hash64_columns_cuda, hash64_columns_plain)
+    from risingwave_tpu_torch.common.tree import flatten, tree_map
+    from risingwave_tpu_torch.stream import top_n
+    from risingwave_tpu_torch.stream.materialize import (
+        mv_upsert_cuda, mv_upsert_plain)
+
+    cuda = device.type == "cuda"
+    eng = _topn_engine(torch, device, scale, "q19", WARMUP_BARRIERS)
+    job = eng.jobs[0]
+    ti = _topn_index(eng)
+    tex = job.fragment.executors[ti]
+    S, E = tex.pool_size, tex.emit_capacity
+    base = job.states[ti]
+    chunks = _topn_inputs(torch, eng, CHUNKS_PER_BARRIER)
+    cap = chunks[0].capacity
+    pool_apply_k = top_n.pool_apply_cuda if cuda else \
+        (lambda *a: top_n.pool_apply(*a))
+    out = {}
+
+    # -- K16 on the insert-only path ----------------------------------
+    a = tree_map(torch.clone, base)
+    b = tree_map(torch.clone, base)
+    n_pool0 = int(a.valid.sum())
+    pairs = []
+    for k, c in enumerate(chunks):
+        pool_apply_k(a.rows, a.valid, a.row_hash, c, S, a.overflow,
+                     a.inconsistency)
+        _, _, _, n_over, n_miss = top_n.pool_apply_plain(
+            b.rows, b.valid, b.row_hash, c, S)
+        b.overflow.add_(n_over)
+        b.inconsistency.add_(n_miss)
+        pairs += [(f"topn_pool chunk {k} {n}", x, y) for (n, x), (_, y)
+                  in zip(_topn_planes("pool", a), _topn_planes("pool", b))]
+    err = max_abs_err(torch, pairs)
+    n_pool1 = int(a.valid.sum())
+    last = int(torch.nonzero(a.valid).max()) + 1 if n_pool1 else 0
+
+    # -- K16's delete and annihilation branches, pool 2^14 ---------------
+    g = torch.Generator(device="cpu").manual_seed(16)
+    small_s = 1 << 14
+    small = base._replace(
+        rows=tuple(top_n._empty_like_col(r, small_s) for r in base.rows),
+        valid=torch.zeros(small_s, dtype=torch.bool, device=device),
+        row_hash=torch.zeros(small_s, dtype=torch.int64, device=device))
+    for c in chunks[:2]:
+        top_n.pool_apply_plain(small.rows, small.valid, small.row_hash, c,
+                               small_s)
+    rc = _retractable_chunk(torch, small, cap, g, chunks[0].schema)
+    sa, sb = tree_map(torch.clone, small), tree_map(torch.clone, small)
+    pool_apply_k(sa.rows, sa.valid, sa.row_hash, rc, small_s, sa.overflow,
+                 sa.inconsistency)
+    _, _, _, n_over, n_miss = top_n.pool_apply_plain(
+        sb.rows, sb.valid, sb.row_hash, rc, small_s)
+    sb.overflow.add_(n_over)
+    sb.inconsistency.add_(n_miss)
+    err = max(err, max_abs_err(torch, [
+        (f"topn_pool retractable {n}", x, y) for (n, x), (_, y)
+        in zip(_topn_planes("small", sa), _topn_planes("small", sb))]))
+    full = int(small.valid.sum()) == small_s
+    held = (int(small.valid.sum()), int(sa.valid.sum()))
+    if int(sa.inconsistency) == 0 or (full and int(sa.overflow) == 0):
+        fail("topn_pool: the retractable chunk missed a branch (missing "
+             f"{int(sa.inconsistency)}, over {int(sa.overflow)})")
+
+    t = tree_map(torch.clone, base)
+    ms = timer(lambda i: pool_apply_k(t.rows, t.valid, t.row_hash,
+                                      chunks[i % len(chunks)], S,
+                                      t.overflow, t.inconsistency), 8)
+    t = tree_map(torch.clone, base)
+    plain_ms = timer(lambda i: top_n.pool_apply_plain(
+        t.rows, t.valid, t.row_hash, chunks[i % len(chunks)], S), 3,
+        TOPN_PREFILL_MS)
+    # the chunk read (payload, hash, op, valid), the claimed rows and
+    # hashes written, and the validity scanned up to the last claimed slot
+    b16 = bound(cap * (BID_ROW_BYTES + 10) + cap * (BID_ROW_BYTES + 9)
+                + last, cap * 40)
+    print(f"[topn_pool] exact (8 insert chunks into a pool of {n_pool0} -> "
+          f"{n_pool1} of {S} rows; retractable chunk at pool {small_s}: "
+          f"{held[0]} -> {held[1]} rows, {int(sa.inconsistency)} deletes "
+          f"missing, {int(sa.overflow)} inserts over); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b16[0]:.5f} ms", flush=True)
+    out["topn_pool"] = kernel_entry(
+        "topn_pool.cu", "risingwave_tpu/stream/top_n.py:134", ms, plain_ms,
+        b16, None, err)
+
+    # -- K17 over the filled pool --------------------------------------
+    order_cols, desc, group_cols = tex.band_inputs(a)
+    args = (order_cols, desc, group_cols, a.valid, tex.offset, tex.limit)
+    band_k = top_n.band_mask_cuda if cuda else top_n.band_mask_plain
+    band, ranks = band_k(*args)
+    pband, pranks = top_n.band_mask_plain(*args)
+    err = max_abs_err(torch, [("topn_band band", band, pband),
+                              ("topn_band ranks", ranks, pranks)])
+    n_band = int(band.sum())
+    ms = timer(lambda i: band_k(*args), 20, TOPN_PREFILL_MS)
+    plain_ms = timer(lambda i: top_n.band_mask_plain(*args), 5,
+                     TOPN_PREFILL_MS)
+    # read: the order and group columns and validity; written: band, rank
+    b17 = bound(S * (8 + 8 + 1) + S * (1 + 8), S * 30)
+    print(f"[topn_band] exact ({n_band} band rows of {n_pool1} in a pool of "
+          f"{S}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b17[0]:.5f} ms", flush=True)
+    out["topn_band"] = kernel_entry(
+        "topn_band.cu", "risingwave_tpu/stream/top_n.py:295", ms, plain_ms,
+        b17, None, err)
+
+    # -- K18: the band diff against the emitted band ----------------------
+    cur_idx = mask_indices(band, E, S)
+    dargs = (a.rows, a.row_hash, ranks, cur_idx, base.prev_rows,
+             base.prev_valid, base.prev_hash)
+    diff_k = top_n.band_diff_cuda if cuda else top_n.band_diff_plain
+    kres = diff_k(*dargs)
+    pres = top_n.band_diff_plain(*dargs)
+
+    def planes(res):
+        cols, valid, _, live, h = res
+        out_p = [("valid", valid), ("cur_live", live), ("cur_hash", h)]
+        for j, c in enumerate(cols):
+            if isinstance(c, StrCol):
+                out_p += [(f"col {j} bytes", c.data), (f"col {j} lens",
+                                                       c.lens)]
+            else:
+                out_p.append((f"col {j}", c))
+        return out_p
+
+    err = max_abs_err(torch, [(f"topn_flush {n}", x, y) for (n, x), (_, y)
+                              in zip(planes(kres), planes(pres))])
+    n_out = int(kres[1].sum())
+    ms = timer(lambda i: diff_k(*dargs), 20, TOPN_PREFILL_MS)
+    plain_ms = timer(lambda i: top_n.band_diff_plain(*dargs), 5,
+                     TOPN_PREFILL_MS)
+    row = BID_ROW_BYTES + 8                    # with the rank column
+    # read: the old band and its hashes and flags, the band indices and
+    # the band's pool rows, hashes and ranks; written: the [2E] chunk and
+    # its flags, the new hashes and flags
+    b18 = bound(E * (row + 9) + E * 4 + E * (BID_ROW_BYTES + 16)
+                + 2 * E * (row + 1) + E * 9, E * 200)
+    print(f"[topn_flush] exact ({n_band} band rows against "
+          f"{int(base.prev_valid.sum())} emitted: {n_out} changelog rows of "
+          f"{2 * E}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b18[0]:.5f} ms", flush=True)
+    out["topn_flush"] = kernel_entry(
+        "topn_flush.cu", "risingwave_tpu/stream/top_n.py:337", ms, plain_ms,
+        b18, None, err)
+
+    # -- K1 and K3 with strings --------------------------------------------
+    cols = []
+    for c in chunks[0].columns:
+        if isinstance(c, StrCol):
+            # random bytes past every length: the hash must mask them
+            w = c.data.shape[1]
+            junk = torch.randint(0, 256, tuple(c.data.shape), generator=g,
+                                 dtype=torch.uint8).to(device)
+            past = torch.arange(w, device=device)[None, :] >= \
+                c.lens[:, None]
+            c = StrCol(torch.where(past, junk, c.data), c.lens)
+        cols.append(c)
+    hk = hash64_columns_cuda(cols)[0] if cuda else \
+        hash64_columns_plain(cols)
+    clean = hash64_columns_plain(list(chunks[0].columns))
+    err = max_abs_err(torch, [("hash64 strings", hk,
+                               hash64_columns_plain(cols)),
+                              ("hash64 strings masked", hk, clean)])
+    hfn = (lambda i: hash64_columns_cuda(cols)) if cuda else \
+        (lambda i: hash64_columns_plain(cols))
+    h_ms = timer(hfn, 200)
+    h_plain = timer(lambda i: hash64_columns_plain(cols), 20,
+                    TOPN_PREFILL_MS)
+    # 13 words folded per row (4 ints, 2 + 1 and 5 + 1 string words)
+    bh = bound(cap * (BID_ROW_BYTES + 8), cap * 13 * 12)
+    print(f"[hash64] exact on {cap} bid rows with strings (random bytes "
+          f"past the lengths, masked); kernel {h_ms:.4f} ms, plain "
+          f"{h_plain:.4f} ms, bound {bh[0]:.5f} ms", flush=True)
+    strings = {"hash64": dict(shape=f"{cap} bid rows, 6 columns",
+                              ms=h_ms, plain_ms=h_plain, bound_ms=bh[0],
+                              bound_by=bh[1], max_abs_err=err)}
+
+    mi = len(job.fragment.executors) - 1
+    mex = job.fragment.executors[mi]
+    mv = job.states[mi]
+    outc = Chunk(kres[0], tex._ops_for(device), kres[1], tex.out_schema)
+    for i in range(ti + 1, mi):
+        _, outc = job.fragment.executors[i].apply((), outc)
+    keys = [outc.column(i) for i in mex.pk_indices]
+    ta, tb = mv.table.clone(), mv.table.clone()
+    if cuda:
+        ra = ta._probe_cuda(keys, outc.valid, True)
+    else:
+        ra = ta._probe_plain(keys, outc.valid, True)
+    rb = tb._probe_plain(keys, outc.valid, True)
+    pairs = [(f"probe strings {n}", x, y) for n, x, y in zip(
+        ("slots", "inserted", "overflow", "n_over"), ra[1:], rb[1:])]
+    pairs += [(f"probe strings table {n}", x, y) for n, x, y in (
+        ("occupied", ta.occupied, tb.occupied),
+        ("tombstone", ta.tombstone, tb.tombstone))]
+    for j, (x, y) in enumerate(zip(ta.key_cols, tb.key_cols)):
+        if isinstance(x, StrCol):
+            pairs += [(f"key {j} bytes", x.data, y.data),
+                      (f"key {j} lens", x.lens, y.lens)]
+        else:
+            pairs.append((f"key {j}", x, y))
+    # K8's upsert of the same 2^17-row chunk (wider than chunk_capacity)
+    va = tree_map(torch.clone, mv.values)
+    vb = tree_map(torch.clone, mv.values)
+    if cuda:
+        mv_upsert_cuda(ta, va, outc, ra[1], mex._scratch_for(device))
+    else:
+        mv_upsert_plain(ta, va, outc, ra[1])
+    mv_upsert_plain(tb, vb, outc, rb[1])
+    pairs += [(f"mv_upsert 2E value leaf {j}", x, y) for j, (x, y)
+              in enumerate(zip(flatten(va)[0], flatten(vb)[0]))]
+    pairs += [("mv_upsert 2E occupied", ta.occupied, tb.occupied),
+              ("mv_upsert 2E tombstone", ta.tombstone, tb.tombstone)]
+    err = max_abs_err(torch, pairs)
+    n_rows = int(outc.valid.sum())
+    tl = mv.table.clone()
+    pfn = (lambda i: tl._probe_cuda(keys, outc.valid, False)) if cuda \
+        else (lambda i: tl._probe_plain(keys, outc.valid, False))
+    p_ms = timer(pfn, 20)
+    p_plain = timer(lambda i: tl._probe_plain(keys, outc.valid, False), 3,
+                    4 * TOPN_PREFILL_MS)
+    n = outc.capacity
+    # per chunk row: its key bytes, valid and start read, slot and flags
+    # written; per visible row one table slot of key bytes and flags
+    bp = bound(n * (row + 1 + 4) + n * 6 + n_rows * (row + 2), n * 4)
+    print(f"[probe] exact on the MV's whole-row key (7 columns, strings "
+          f"included), and K8's upsert after it: {n_rows} visible of {n} "
+          f"rows into {mv.table.size}; "
+          f"kernel {p_ms:.4f} ms, plain {p_plain:.4f} ms, bound "
+          f"{bp[0]:.5f} ms", flush=True)
+    strings["probe"] = dict(shape=f"{n} rows ({n_rows} visible), 7 key "
+                            f"columns, into {mv.table.size}", ms=p_ms,
+                            plain_ms=p_plain, bound_ms=bp[0],
+                            bound_by=bp[1], max_abs_err=err)
+    del eng, a, b, t, tl, ta, tb
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, strings
+
+
+def phase_topn_parity(torch, device, query: str) -> None:
+    """``query`` at 2 events/s through the engine on ``device`` and on
+    the CPU (plain versions), chunk 256, pool 4096, emitted band 1024, MV
+    table 2^12, 10 barriers: MV rows and every state tensor (the pool,
+    the emitted band with its row-S-1 copies, the MV) must be equal."""
+    from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    cfg = PlannerConfig(chunk_capacity=256, topn_pool_size=4096,
+                        topn_emit_capacity=1024, mv_table_size=1 << 12)
+    engines = []
+    for dev in (device, torch.device("cpu")):
+        eng = Engine(cfg, device=dev)
+        eng.execute(BENCH_SOURCES.replace("'1000000'", "'2'"))
+        eng.execute(QUERY_SQL[query])
+        eng.tick(barriers=10, chunks_per_barrier=4)
+        engines.append(eng)
+    rows = [sorted(tuple(v if isinstance(v, str) else _host_value(v)
+                         for v in r) for r in e.execute(
+                             "SELECT * FROM bench_mv"))
+            for e in engines]
+    if rows[0] != rows[1] or not rows[0]:
+        fail(f"{query} MV on the card differs from the CPU plain versions")
+    bad = state_mismatches(state_to_numpy(engines[1].jobs[0].states),
+                           engines[0].jobs[0].states)
+    if bad:
+        fail(f"{query} state on the card differs from the CPU: {bad[:5]}")
+    st = engines[0].jobs[0].states[_topn_index(engines[0])]
+    print(f"[parity] {query} at 2 events/s, 10 barriers: {len(rows[0])} MV "
+          f"rows and all state equal to the CPU plain versions (pool "
+          f"{int(st.valid.sum())} rows, band {int(st.prev_valid.sum())})",
+          flush=True)
+
+
+def _consumed_bids_full(eng, cap: int):
+    """Every column of every bid the job consumed, regenerated on the
+    card: numpy int64 columns and the strings' bytes and lengths."""
+    import numpy as np
+
+    reader = eng.jobs[0].source
+    cols = {k: [] for k in ("auction", "bidder", "price", "ts", "ch", "chl",
+                            "url", "urll")}
+    for i in range(reader.offset // cap):
+        c = reader.gen.gen_bids(i * cap, cap)
+        for name, j in (("auction", 0), ("bidder", 1), ("price", 2),
+                        ("ts", 5)):
+            cols[name].append(c.columns[j].cpu().numpy())
+        for name, j in (("ch", 3), ("url", 4)):
+            cols[name].append(c.columns[j].data.cpu().numpy())
+            cols[name + "l"].append(c.columns[j].lens.cpu().numpy())
+    return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def _mv_bids(eng, bids, rank: bool):
+    """The MV's rows as numpy (auction, bidder, price, ts[, rank]), each
+    required to be a consumed bid, strings included (a bid's date_time
+    is unique at 1M events/s)."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import decode_strings
+
+    rows = eng.execute("SELECT * FROM bench_mv")
+    mv = np.asarray([(r[0], r[1], r[2], r[5]) + ((r[6],) if rank else ())
+                     for r in rows], np.int64).reshape(len(rows), -1)
+    ts = bids["ts"]
+    order = np.argsort(ts, kind="stable")
+    if np.unique(ts).shape[0] != ts.shape[0]:
+        fail("consumed bids share a date_time: the MV check needs them "
+             "unique")
+    pos = order[np.searchsorted(ts[order], mv[:, 3])]
+    if not (np.array_equal(ts[pos], mv[:, 3])
+            and np.array_equal(bids["auction"][pos], mv[:, 0])
+            and np.array_equal(bids["bidder"][pos], mv[:, 1])
+            and np.array_equal(bids["price"][pos], mv[:, 2])):
+        fail("an MV row is not a consumed bid")
+    ch = decode_strings(bids["ch"][pos], bids["chl"][pos])
+    url = decode_strings(bids["url"][pos], bids["urll"][pos])
+    if [r[3] for r in rows] != list(ch) or [r[4] for r in rows] != list(url):
+        fail("an MV row's channel or url differs from its bid's")
+    return mv
+
+
+def check_q19(eng, bids) -> str:
+    """Per auction, the MV's prices sorted descending are the top
+    min(10, n) consumed prices, with ranks 1..k."""
+    import numpy as np
+
+    mv = _mv_bids(eng, bids, rank=True)
+    auc, price = bids["auction"], bids["price"]
+    order = np.lexsort((-price, auc))
+    a_s, p_s = auc[order], price[order]
+    first = np.r_[True, a_s[1:] != a_s[:-1]]
+    start = np.maximum.accumulate(np.where(first, np.arange(a_s.size), 0))
+    top = (np.arange(a_s.size) - start) < 10
+    want = np.stack([a_s[top], p_s[top]], 1)
+    got = mv[np.lexsort((-mv[:, 2], mv[:, 0]))][:, [0, 2]]
+    if not np.array_equal(got, want):
+        fail(f"q19 MV ({got.shape[0]} rows) differs from the numpy top-10 "
+             f"prices per auction ({want.shape[0]} rows)")
+    by_rank = mv[np.lexsort((mv[:, 4], mv[:, 0]))]
+    f2 = np.r_[True, by_rank[1:, 0] != by_rank[:-1, 0]]
+    s2 = np.maximum.accumulate(np.where(f2, np.arange(len(by_rank)), 0))
+    if not np.array_equal(by_rank[:, 4], np.arange(len(by_rank)) - s2 + 1):
+        fail("q19 MV ranks are not 1..k per auction")
+    return (f"MV equals numpy top-10 prices per auction with ranks 1..k "
+            f"over {auc.size} bids ({np.unique(auc).size} auctions, "
+            f"{mv.shape[0]} rows), every row a consumed bid")
+
+
+def check_q18(eng, bids) -> str:
+    """One MV row per (bidder, auction): the bid with the latest
+    date_time."""
+    import numpy as np
+
+    mv = _mv_bids(eng, bids, rank=False)
+    auc, bidder, ts = bids["auction"], bids["bidder"], bids["ts"]
+    order = np.lexsort((ts, auc, bidder))
+    b_s, a_s = bidder[order], auc[order]
+    last = np.r_[(b_s[1:] != b_s[:-1]) | (a_s[1:] != a_s[:-1]), True]
+    pick = order[last]
+    want = np.stack([auc[pick], bidder[pick], bids["price"][pick],
+                     ts[pick]], 1)
+    want = want[np.lexsort((want[:, 0], want[:, 1]))]
+    got = mv[np.lexsort((mv[:, 0], mv[:, 1]))]
+    if not np.array_equal(got, want):
+        fail(f"q18 MV ({got.shape[0]} rows) differs from numpy's latest bid "
+             f"per (bidder, auction) ({want.shape[0]} rows)")
+    return (f"MV equals numpy's latest bid per (bidder, auction) over "
+            f"{auc.size} bids ({want.shape[0]} rows), every row a consumed "
+            f"bid")
+
+
+def phase_topn_main_path(torch, device, scale, query: str):
+    """q19 or q18 at the slice's sizes: 9 warm-up barriers, then 32 timed
+    barriers of 8 chunks with the launch counters; every flush's band
+    size recorded (it must stay within the emitted capacity, so the run
+    is lossless), the TopN's counters audited, the MV checked with
+    numpy."""
+    from risingwave_tpu_torch import kernels
+
+    eng = _topn_engine(torch, device, scale, query, 0)
+    ti = _topn_index(eng)
+    tex = eng.jobs[0].fragment.executors[ti]
+    peaks = []
+    band_mask = tex._band_mask
+
+    def recorded(state):
+        band, ranks = band_mask(state)
+        peaks.append(band.sum())
+        return band, ranks
+
+    tex._band_mask = recorded
+    eng.tick(barriers=WARMUP_BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.tick(barriers=BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cap = eng.jobs[0].source.cap
+    chunks = BARRIERS * CHUNKS_PER_BARRIER
+    rows = chunks * cap
+    rate = rows / dt
+    port = sum(launches.values())
+    print(f"[main] {query} {rows} rows in {dt:.3f} s = {rate:.0f} rows/s; "
+          f"port kernel launches {port / chunks:.2f} per chunk {launches}",
+          flush=True)
+    if device.type == "cuda":
+        per_chunk = profile_window(torch, eng, query)
+        print(f"[main] {query} launches per chunk "
+              f"{'not measured' if per_chunk is None else f'{per_chunk:.1f}'}"
+              f" (all CUDA kernels, profiled window)", flush=True)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    try:
+        eng.tick(barriers=1, chunks_per_barrier=0)
+    except RuntimeError as e:
+        fail(f"{query}: the counter audit raised: {e}")
+    st = eng.jobs[0].states[ti]
+    over, inc = int(st.overflow), int(st.inconsistency)
+    band = torch.stack(peaks).cpu().numpy()
+    E = tex.emit_capacity
+    late = int(eng.jobs[0].states[0].late_rows)
+    if over or inc or late or int(band.max()) > E:
+        fail(f"{query}: TopN overflow {over}, inconsistency {inc}, late rows "
+             f"{late}, largest band {int(band.max())} of capacity {E}")
+    print(f"[check] {query} TopN overflow 0, inconsistency 0, no late rows; "
+          f"band at each of {band.size} flushes <= {E} (largest "
+          f"{int(band.max())}, last {int(band[-1])}): lossless", flush=True)
+    bids = _consumed_bids_full(eng, cap)
+    msg = {"q19": check_q19, "q18": check_q18}[query](eng, bids)
+    print(f"[check] {query} {msg}", flush=True)
+    del eng
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, rate
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ Port of the ``hash64_columns`` part of ``risingwave_tpu/common/hash.py``
 and of its split form ``hash64_partial`` / ``hash64_extend`` /
 ``hash64_finish`` (:203-232), which the join's tag table uses to fold a
 key hash once and finish it with a varying rank.
-Kernel A (``csrc/hash64.cu``) computes it on the card;
+Kernel A (``csrc/hash64.cu``) computes it on the card, string keys
+included;
 ``hash64_columns_plain`` is its plain PyTorch version, used for CPU
 tensors and as the card-side reference.
 
@@ -147,22 +148,30 @@ def hash64_finish(state: torch.Tensor) -> torch.Tensor:
     return torch.where(state == -1, torch.full_like(state, -2), state)
 
 
-def key_leaves(columns: Sequence) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
-    """Flatten key columns into fixed-width (data, null-or-None) leaves
-    for the kernels' column descriptors; StrCol keys are refused."""
+def key_leaves(columns: Sequence) -> list[tuple]:
+    """Flatten key columns into fixed-width ``(data, null-or-None, kind)``
+    leaves for the kernels' column descriptors: a ``StrCol`` becomes its
+    ``[cap, w]`` bytes (``KIND_STR``) and its lens (``KIND_LENS``), both
+    with the column's null plane."""
     leaves = []
     for col in columns:
         data, null = (col.data, col.null) if isinstance(col, NCol) \
             else (col, None)
         if isinstance(data, StrCol):
-            raise NotImplementedError(
-                "string keys on CUDA are not ported yet (queued)")
-        leaves.append((data, null))
+            leaves += [(data.data, null, kernels.KIND_STR),
+                       (data.lens, null, kernels.KIND_LENS)]
+        else:
+            leaves.append((data, null, kernels.KIND_WORD))
     if not leaves:
         raise ValueError("no key columns")
     if len(leaves) > kernels.MAX_COLS:
-        raise ValueError(f"more than {kernels.MAX_COLS} key columns")
+        raise ValueError(f"more than {kernels.MAX_COLS} key leaves")
     return leaves
+
+
+def leaf_width(t: torch.Tensor) -> int:
+    """Bytes per row of a leaf (a ``[cap, w]`` byte matrix: ``w``)."""
+    return t.element_size() * (t[0].numel() if t.dim() > 1 else 1)
 
 
 def _null_u8(null: torch.Tensor | None) -> torch.Tensor | None:
@@ -175,16 +184,17 @@ def hash64_columns_cuda(columns: Sequence, size: int | None = None):
     cols = kernels.RwCols()
     cols.n = len(leaves)
     tensors = []
-    for k, (data, null) in enumerate(leaves):
+    for k, (data, null, kind) in enumerate(leaves):
         data = data.contiguous()
         if data.dtype.is_floating_point:
             raise NotImplementedError(
                 "hash of float keys is not ported yet (queued)")
         nu8 = _null_u8(null)
         tensors += [data] + ([nu8] if nu8 is not None else [])
-        cols.width[k] = data.element_size()
+        cols.width[k] = leaf_width(data)
         cols.in_data[k] = data.data_ptr()
         cols.in_null[k] = kernels.ptr(nu8)
+        cols.kind[k] = kind
     kernels.require_cuda("hash64", *tensors)
     n = leaves[0][0].shape[0]
     dev = leaves[0][0].device

@@ -10,9 +10,10 @@ of the port with numpy leaves; ``state_mismatches`` compares the two
 element for element.  Nodes are recognised by class name and fields,
 so this module imports nothing of the reference package.
 
-The reference's ``TagTable`` tags are uint64; the port's are the same
-bit patterns in int64, so tags convert with ``view`` (never a value
-cast) both ways and compare by bit pattern.
+The reference's ``TagTable`` tags and ``TopNState`` row hashes are
+uint64; the port's are the same bit patterns in int64, so every uint64
+leaf converts with ``view`` (never a value cast) both ways and compares
+by bit pattern.
 
 ``leaf_paths(tree)`` names every leaf of a reference host tree or a
 port tree by its path (``[2].left.table.tags``), in flatten order, so
@@ -21,8 +22,9 @@ path rather than by index.
 
 Every state of the ported plans converts: q7's agg, q5's pane agg,
 retractable final agg and MV, q1's ring (``tests/test_torch_preagg.py``
-carries them into a running port engine) and q8's join with pool
-storage on both sides (``tests/test_torch_dag.py``).  Reference-only
+carries them into a running port engine), q8's join with pool
+storage on both sides (``tests/test_torch_dag.py``) and the group top-N
+of q19 and q18 (``tests/test_torch_top_n.py``).  Reference-only
 features must be empty to convert (materialized-input buckets, DISTINCT
 tables, the spill ring); a dense join side (``SideState``) is refused:
 the port has no counterpart for them yet.
@@ -39,11 +41,12 @@ from risingwave_tpu_torch.state.tag_table import TagTable
 from risingwave_tpu_torch.stream.hash_agg import AggState
 from risingwave_tpu_torch.stream.hash_join import JoinState, PoolSideState
 from risingwave_tpu_torch.stream.materialize import MvState, RingState
+from risingwave_tpu_torch.stream.top_n import TopNState
 from risingwave_tpu_torch.stream.watermark import WmState
 
 _STATE_TYPES = {cls.__name__: cls
                 for cls in (AggState, MvState, RingState, WmState, NCol,
-                            StrCol, PoolSideState, JoinState)}
+                            StrCol, PoolSideState, JoinState, TopNState)}
 #: reference AggState fields the port does not carry (must be empty)
 _REF_ONLY = ("minput_vals", "minput_occ", "distinct_tables",
              "distinct_counts", "spill_rows", "spill_ops", "spill_count")
@@ -77,6 +80,8 @@ def state_from_numpy(tree, device="cpu"):
     if isinstance(tree, tuple):
         return tuple(state_from_numpy(v, device) for v in tree)
     arr = np.asarray(tree)
+    if arr.dtype == np.uint64:
+        arr = arr.view(np.int64)
     return torch.from_numpy(arr.copy()).to(device)
 
 
@@ -153,6 +158,8 @@ def state_mismatches(ref, port, path: str = "state") -> list[str]:
             out += state_mismatches(r, p, f"{path}[{i}]")
         return out
     r = np.asarray(ref)
+    if r.dtype == np.uint64 and port.dtype == np.int64:
+        r = r.view(np.int64)
     if r.shape != port.shape or r.dtype != port.dtype \
             or not np.array_equal(r, port):
         return [path]

@@ -2,7 +2,11 @@
 //
 // Replaces risingwave_tpu/state/hash_table.py `HashTable._probe`
 // (hash_table.py:236), the XLA while_loop behind `lookup`,
-// `lookup_counted` and `lookup_or_insert`.
+// `lookup_counted` and `lookup_or_insert`.  Keys compare as `_keys_equal`
+// (:104) does: a string key passes as its [size, w] bytes and its lens, and
+// equality is every one of the w bytes, the padding past lens included,
+// and equal lens (the hash masks that padding; a key's bytes are copied
+// whole when it claims a slot).
 //
 // The slot layout must equal the reference's, so the kernel replays its
 // rounds exactly.  Within a round every pending row reads `occupied`, the

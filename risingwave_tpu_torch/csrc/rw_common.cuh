@@ -8,17 +8,28 @@
 // with the null plane beside it.  The struct is passed by value, so a kernel
 // reads the descriptor from its parameter space.
 //
+// `kind[k]` marks a StrCol key for the hash: RW_KIND_STR on its bytes
+// column k (then column k+1 holds its lens, RW_KIND_LENS); RW_KIND_WORD (0,
+// the zero fill of an unset descriptor) on every fixed-width column.
+// Equality and row copies need no kind: they compare and copy every byte of
+// both columns, the padding past `lens` included.
+//
 // rw_mix64 / rw_hash_row are the device copy of the reference's 64-bit key
-// hash (risingwave_tpu/common/hash.py `_mix64`, `hash64_columns`): a
-// splitmix64 fold of each key word, words zero-extended to 64 bits, a
-// nullable column folded as [payload-with-nulls-zeroed, null flag], and the
-// all-ones result remapped to ~1.
+// hash (risingwave_tpu/common/hash.py `_mix64`, `hash64_columns`,
+// `_hash64_one`): a splitmix64 fold of each key word, words zero-extended to
+// 64 bits, a string folded as 8-byte little-endian words with the bytes at
+// and past its length masked to 0 and then its length, a nullable column
+// folded as [payload-with-nulls-zeroed, null flag], and the all-ones result
+// remapped to ~1.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define RW_MAX_COLS 16
+#define RW_KIND_WORD 0
+#define RW_KIND_STR 1
+#define RW_KIND_LENS 2
 
 struct RwCols {
   int n;
@@ -27,6 +38,7 @@ struct RwCols {
   const uint8_t* in_null[RW_MAX_COLS];
   void* st_data[RW_MAX_COLS];
   uint8_t* st_null[RW_MAX_COLS];
+  int kind[RW_MAX_COLS];
 };
 
 static constexpr uint64_t RW_K1 = 0x9E3779B97F4A7C15ull;
@@ -51,12 +63,37 @@ __device__ __forceinline__ uint64_t rw_load_word(const void* base, int width,
   }
 }
 
+// Fold a string of `w` bytes at `p` with length `len` (bytes at and past
+// `len` read as 0) into the mix state, then its length.
+__device__ __forceinline__ uint64_t rw_fold_str(uint64_t st,
+                                                const uint8_t* p, int w,
+                                                int32_t len) {
+  for (int j = 0; j < w; j += 8) {
+    uint64_t word = 0;
+    for (int b = 0; b < 8 && j + b < w; ++b) {
+      if (j + b < len) word |= static_cast<uint64_t>(p[j + b]) << (8 * b);
+    }
+    st = rw_mix64(st ^ (word * RW_K1));
+  }
+  return rw_mix64(st ^ static_cast<uint64_t>(static_cast<int64_t>(len)));
+}
+
 __device__ __forceinline__ uint64_t rw_hash_row(const RwCols& c, int64_t i) {
   uint64_t st = RW_K1;  // seed 0 ^ K1
   for (int k = 0; k < c.n; ++k) {
     const bool is_null = c.in_null[k] != nullptr && c.in_null[k][i] != 0;
-    const uint64_t w = is_null ? 0ull : rw_load_word(c.in_data[k], c.width[k], i);
-    st = rw_mix64(st ^ (w * RW_K1));
+    if (c.kind[k] == RW_KIND_STR) {
+      const int w = c.width[k];
+      const int32_t len =
+          is_null ? 0 : static_cast<const int32_t*>(c.in_data[k + 1])[i];
+      st = rw_fold_str(st, static_cast<const uint8_t*>(c.in_data[k]) + i * w,
+                       w, len);
+      ++k;  // the lens column is folded
+    } else {
+      const uint64_t w =
+          is_null ? 0ull : rw_load_word(c.in_data[k], c.width[k], i);
+      st = rw_mix64(st ^ (w * RW_K1));
+    }
     if (c.in_null[k] != nullptr) {
       st = rw_mix64(st ^ (static_cast<uint64_t>(is_null) * RW_K1));
     }

@@ -15,7 +15,9 @@ an exception.
 
 ``KERNELS`` names each kernel entry point with the source it is built
 from (``compact.cu``, ``nexmark_events.cu``, ``tag_probe.cu`` and
-``shadow_digest.cu`` hold two each), and ``LAUNCHES`` counts, per
+``shadow_digest.cu`` hold two each; ``topn_band.cu`` and
+``topn_flush.cu`` one wrapper with two C entries each, both counted),
+and ``LAUNCHES`` counts, per
 kernel, the wrapper calls that launched it on the card.  Nothing here
 runs at import time: a CPU-only process imports the package without
 ``nvcc``.
@@ -54,6 +56,9 @@ SOURCES = {
     "join_clean": "join_clean.cu",
     "shadow_digest": "shadow_digest.cu",
     "permute": "permute.cu",
+    "topn_pool": "topn_pool.cu",
+    "topn_band": "topn_band.cu",
+    "topn_flush": "topn_flush.cu",
     # a host routine (the checkpoint store's crc32c), no kernel
     "crc32c": "crc32c.cpp",
 }
@@ -78,6 +83,9 @@ KERNELS = {
     "shadow_digest": "shadow_digest",
     "dirty_gather": "shadow_digest",
     "permute_rows": "permute",
+    "topn_pool": "topn_pool",
+    "topn_band": "topn_band",
+    "topn_flush": "topn_flush",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -87,6 +95,8 @@ LAUNCHES = {name: 0 for name in KERNELS}
 
 #: max columns in one column descriptor (``RW_MAX_COLS`` in the header)
 MAX_COLS = 16
+#: column kinds of a descriptor (``RW_KIND_*`` in the header)
+KIND_WORD, KIND_STR, KIND_LENS = 0, 1, 2
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -95,7 +105,8 @@ _lock = threading.Lock()
 class RwCols(ctypes.Structure):
     """Mirror of ``struct RwCols`` in ``rw_common.cuh``: up to
     ``MAX_COLS`` fixed-width columns, each with an input side, a store
-    side and optional null planes (uint8)."""
+    side, optional null planes (uint8) and a kind for the hash
+    (``KIND_STR`` on a string's bytes, ``KIND_LENS`` on its lengths)."""
 
     _fields_ = [
         ("n", ctypes.c_int),
@@ -104,6 +115,7 @@ class RwCols(ctypes.Structure):
         ("in_null", ctypes.c_void_p * MAX_COLS),
         ("st_data", ctypes.c_void_p * MAX_COLS),
         ("st_null", ctypes.c_void_p * MAX_COLS),
+        ("kind", ctypes.c_int * MAX_COLS),
     ]
 
 

@@ -12,14 +12,24 @@ cleaning specs (:2069-2083) and the terminal project + ring (Nexmark
 q8).  The plan shapes built here are the reference's, executor for
 executor.
 
+The group top-N rewrite (:725-832) plans ``SELECT .. FROM (SELECT *,
+ROW_NUMBER() OVER (PARTITION BY p ORDER BY o) rn FROM t) WHERE rn <= k``
+(Nexmark q19, q18) as the reference does: the inner query without its
+window item, a ``GroupTopNExecutor`` after its projection, the outer
+WHERE residue and projection, and an MV keyed by the whole row
+(``_append_terminal``, :1135-1210, with the plain ``ORDER BY .. LIMIT``
+TopN of the same executor).
+
 Not ported yet (``PlanError``/``NotImplementedError``): outer, semi and
 anti joins, dense (bucket) join storage, non-equality ON conditions,
-WHERE or aggregation over a join, nested (multi-way) joins, subqueries,
-window functions, TopN, sinks, EMIT ON WINDOW CLOSE and MV-on-MV.
+WHERE or aggregation over a join, nested (multi-way) joins, other
+subqueries, other window functions (over-window), sinks, EMIT ON WINDOW
+CLOSE and MV-on-MV.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
@@ -51,6 +61,7 @@ from risingwave_tpu_torch.stream.partial_agg import (
     TWO_PHASE_KINDS,
     translated_global_calls,
 )
+from risingwave_tpu_torch.stream.top_n import GroupTopNExecutor
 from risingwave_tpu_torch.stream.watermark import WatermarkFilterExecutor
 
 
@@ -99,9 +110,24 @@ KIND_MAP = {"inner": "inner", "left": "left_outer", "right": "right_outer",
 
 
 @dataclass
+class GroupTopNSpec:
+    """A row_number-in-subquery TopN rewrite in flight: the pieces the
+    inner plan's construction carries (the reference's, :104)."""
+
+    partition: tuple        # ast exprs, inner FROM scope
+    order: tuple            # ast OrderItems, inner FROM scope
+    limit: int
+    offset: int
+    outer_items: tuple      # outer SELECT items (inner-output scope)
+    outer_where: tuple      # residual outer conjuncts
+    alias: "str | None"     # subquery alias
+    rank_alias: "str | None" = None  # emit the row_number as this
+
+
+@dataclass
 class PlannerConfig:
     """The reference's planner knobs, same names and defaults (the
-    TopN, spill, distinct and join bucket sizes are accepted for DDL
+    spill, distinct and join bucket sizes are accepted for DDL
     compatibility; their operators are not ported yet)."""
 
     agg_table_size: int = 1 << 16
@@ -135,11 +161,140 @@ class Planner:
              eowc: bool = False) -> "UnaryPlan | DagPlan":
         if eowc:
             raise PlanError("EMIT ON WINDOW CLOSE is not ported yet")
+        rewritten = self._match_group_topn(select)
+        if rewritten is not None:
+            inner, spec = rewritten
+            if isinstance(inner.from_, (ast.SubqueryRef, ast.Join)):
+                raise PlanError("a row_number subquery over a join or a "
+                                "subquery is not ported yet")
+            return self._plan_unary(inner, group_topn=spec)
         if isinstance(select.from_, ast.SubqueryRef):
             raise PlanError("subqueries are not ported yet")
         if isinstance(select.from_, ast.Join):
             return self._plan_join(select)
         return self._plan_unary(select)
+
+    # -- GroupTopN (row_number-in-subquery) rewrite ---------------------
+    def _match_group_topn(self, select: ast.Select):
+        """Detect SELECT .. FROM (SELECT *, ROW_NUMBER() OVER (..) rn
+        FROM ..) WHERE rn <= k and return (inner-sans-window, spec)."""
+        f = select.from_
+        if not isinstance(f, ast.SubqueryRef):
+            return None
+        inner = f.select
+        if (inner.order_by or inner.limit is not None or inner.offset
+                or inner.group_by or inner.having is not None):
+            return None
+        wins = [(i, it) for i, it in enumerate(inner.items)
+                if isinstance(it.expr, ast.WindowCall)]
+        if len(wins) != 1:
+            return None
+        wi, witem = wins[0]
+        w = witem.expr
+        if w.name != "row_number" or w.frame is not None or not w.order_by:
+            return None
+        rank_name = witem.alias or "row_number"
+        if select.where is None:
+            return None
+        limit = offset = None
+        rest: list = []
+        for c in self._conjuncts(select.where):
+            lo = self._rank_bound(c, rank_name, f.alias)
+            if lo is not None and limit is None:
+                limit, offset = lo
+            else:
+                rest.append(c)
+        if limit is None:
+            return None
+        if select.order_by or select.limit is not None or select.offset:
+            return None  # outer ORDER/LIMIT over group topn
+
+        # does the outer query use the rank column (by name or via *)?
+        # Then the TopN emits its row_number.
+        def refs_rank(e) -> bool:
+            if isinstance(e, ast.ColumnRef):
+                return e.name == rank_name
+            if isinstance(e, ast.Case):
+                return any(refs_rank(c) or refs_rank(r)
+                           for c, r in e.conditions) or (
+                    e.else_result is not None
+                    and refs_rank(e.else_result))
+            return any(
+                refs_rank(x) for x in getattr(e, "args", ())
+                if not isinstance(x, ast.Star)
+            ) or any(
+                refs_rank(getattr(e, a)) for a in ("left", "right",
+                                                   "operand")
+                if getattr(e, a, None) is not None)
+
+        has_star = any(isinstance(it.expr, ast.Star) for it in select.items)
+        with_rank = has_star or any(
+            not isinstance(it.expr, ast.Star) and refs_rank(it.expr)
+            for it in select.items
+        ) or any(refs_rank(c) for c in rest)
+        if has_star and wi != len(inner.items) - 1:
+            # the rank column is appended LAST by the rewrite; a * over
+            # a mid-list window item would reorder columns
+            return None
+        inner2 = dataclasses.replace(
+            inner, items=tuple(it for i, it in enumerate(inner.items)
+                               if i != wi))
+        spec = GroupTopNSpec(
+            partition=tuple(w.partition_by), order=tuple(w.order_by),
+            limit=limit, offset=offset,
+            outer_items=tuple(select.items), outer_where=tuple(rest),
+            alias=f.alias,
+            rank_alias=rank_name if with_rank else None)
+        return inner2, spec
+
+    @staticmethod
+    def _rank_bound(c, rank_name: str, alias: "str | None" = None):
+        """rn <= k / rn < k / rn = k / k >= rn -> (limit, offset)."""
+        def is_rank(e) -> bool:
+            return (isinstance(e, ast.ColumnRef) and e.name == rank_name
+                    and e.table in (None, alias))
+
+        if not isinstance(c, ast.BinaryOp):
+            return None
+        op, left, right = c.op, c.left, c.right
+        if is_rank(right):
+            flip = {"greater_than_or_equal": "less_than_or_equal",
+                    "greater_than": "less_than",
+                    "equal": "equal"}.get(op)
+            if flip is None:
+                return None
+            op, left, right = flip, right, left
+        if not (is_rank(left)
+                and isinstance(right, ast.Literal)
+                and right.type_name == "int"):
+            return None
+        k = right.value
+        if op == "less_than_or_equal" and k >= 1:
+            return (k, 0)
+        if op == "less_than" and k >= 2:
+            return (k - 1, 0)
+        if op == "equal" and k >= 1:
+            return (1, k - 1)
+        return None
+
+    def _resolve_group_topn(self, spec: GroupTopNSpec, scope: Scope,
+                            proj: list):
+        """Bind the partition/order keys in the INNER scope and locate
+        them in the projection (appending hidden columns as needed);
+        returns (group_positions, [(position, desc)], spec)."""
+        b = Binder(scope)
+
+        def locate(bexpr) -> int:
+            for pi, (_, pe) in enumerate(proj):
+                if self._expr_eq(pe, bexpr):
+                    return pi
+            proj.append((f"_hidden_gtn{len(proj)}", bexpr))
+            return len(proj) - 1
+
+        group_pos = [locate(b.bind(e)) for e in spec.partition]
+        order_pos = [(locate(b.bind(oi.expr)), oi.descending)
+                     for oi in spec.order]
+        return (group_pos, order_pos, spec)
 
     # -- joins ------------------------------------------------------------
     def _plan_join(self, select: ast.Select) -> DagPlan:
@@ -307,7 +462,8 @@ class Planner:
         raise PlanError(f"unsupported FROM clause {from_!r}")
 
     # -- unary pipelines -------------------------------------------------
-    def _plan_unary(self, select: ast.Select) -> UnaryPlan:
+    def _plan_unary(self, select: ast.Select,
+                    group_topn: GroupTopNSpec | None = None) -> UnaryPlan:
         if select.from_ is None:
             raise PlanError("SELECT without FROM is not a streaming job")
         if any(isinstance(i.expr, ast.WindowCall) for i in select.items):
@@ -319,7 +475,11 @@ class Planner:
             execs.append(FilterExecutor(scope.schema,
                                         Binder(scope).bind(select.where)))
         has_agg = bool(select.group_by) or self._has_agg(select)
+        if has_agg and group_topn is not None:
+            raise PlanError("row_number subquery over an aggregation is "
+                            "not ported yet")
         pk_positions: list[int] = []
+        gtn = None
         if has_agg:
             pane = self._try_pane_agg(select, scope, pin, execs)
             if pane is None:
@@ -333,11 +493,14 @@ class Planner:
             b = Binder(scope)
             proj = [(name, b.bind(e))
                     for name, e in self._expand_items(select.items, scope)]
+            if group_topn is not None:
+                gtn = self._resolve_group_topn(group_topn, scope, proj)
             execs.append(ProjectExecutor(scope.schema, proj))
             out_schema = execs[-1].out_schema
         self._append_terminal(execs, out_schema, select,
                               input_append_only=pin.append_only,
-                              has_agg=has_agg, pk_positions=pk_positions)
+                              has_agg=has_agg, pk_positions=pk_positions,
+                              group_topn=gtn)
         return UnaryPlan(pin.reader, Fragment(execs), len(execs) - 1,
                          append_only=pin.append_only)
 
@@ -473,12 +636,62 @@ class Planner:
 
     def _append_terminal(self, execs, out_schema, select, *,
                          input_append_only: bool, has_agg: bool,
-                         pk_positions) -> None:
-        """Plan tail: materialize by pk (retractable) or into a ring."""
-        if select.order_by and select.limit is not None:
-            raise PlanError("ORDER BY ... LIMIT (TopN) is not ported yet")
-        if has_agg or not input_append_only:
-            pk = pk_positions or list(range(len(out_schema)))
+                         pk_positions, group_topn=None) -> None:
+        """Plan tail: the optional (group) TopN, then materialize by pk
+        (retractable) or into a ring."""
+        has_topn = bool(select.order_by and select.limit is not None)
+        pool = max(self.config.topn_pool_size,
+                   2 * self.config.chunk_capacity)
+        if group_topn is not None:
+            group_pos, order_pos, spec = group_topn
+            for pos, _ in order_pos:
+                if out_schema[pos].nullable:
+                    raise PlanError("row_number ORDER BY on a nullable "
+                                    "column is not ported yet")
+            execs.append(GroupTopNExecutor(
+                out_schema,
+                group_by=[InputRef(i) for i in group_pos],
+                order_by=[(InputRef(i), d) for i, d in order_pos],
+                limit=spec.limit, offset=spec.offset, pool_size=pool,
+                emit_capacity=self.config.topn_emit_capacity,
+                append_only=input_append_only,
+                rank_alias=spec.rank_alias))
+            out_schema = execs[-1].out_schema
+            scope2 = Scope.of(out_schema, spec.alias)
+            for c in spec.outer_where:
+                execs.append(FilterExecutor(out_schema,
+                                            Binder(scope2).bind(c)))
+            if any(isinstance(it.expr, ast.WindowCall)
+                   for it in spec.outer_items):
+                raise PlanError("window functions over a row_number "
+                                "subquery are not ported yet")
+            proj2 = [(nm, Binder(scope2).bind(e))
+                     for nm, e in self._expand_items(spec.outer_items,
+                                                     scope2)]
+            execs.append(ProjectExecutor(out_schema, proj2))
+            out_schema = execs[-1].out_schema
+            # group-topn output is retractable, keyed by the whole row
+            input_append_only = False
+            pk_positions = list(range(len(out_schema)))
+        if has_topn:
+            ob = []
+            b = Binder(Scope.of(out_schema))
+            for oi in select.order_by:
+                ke = self._bind_order_key(oi.expr, b, out_schema)
+                if ke.return_field(out_schema).nullable:
+                    raise PlanError("ORDER BY on a nullable column in TopN "
+                                    "is not ported yet")
+                ob.append((ke, oi.descending))
+            # append-only up to here: the TopN can evict non-band rows
+            execs.append(GroupTopNExecutor(
+                out_schema, group_by=[], order_by=ob, limit=select.limit,
+                offset=select.offset or 0, pool_size=pool,
+                emit_capacity=self.config.topn_emit_capacity,
+                append_only=input_append_only and not has_agg))
+        if has_agg or has_topn or not input_append_only:
+            # pk: group keys for aggs; the whole row for TopN output
+            pk = list(range(len(out_schema))) if has_topn \
+                else pk_positions or list(range(len(out_schema)))
             execs.append(MaterializeExecutor(
                 out_schema, pk_indices=pk,
                 table_size=self.config.mv_table_size))
@@ -622,6 +835,15 @@ class Planner:
             out.append((item.alias or self._default_name(item.expr, idx),
                         item.expr))
         return out
+
+    @staticmethod
+    def _bind_order_key(e, binder: Binder, schema: Schema) -> Expr:
+        """ORDER BY <n> is positional (postgres); otherwise bind."""
+        if isinstance(e, ast.Literal) and e.type_name == "int":
+            if not 1 <= e.value <= len(schema):
+                raise PlanError(f"ORDER BY position {e.value} out of range")
+            return InputRef(e.value - 1)
+        return binder.bind(e)
 
     @staticmethod
     def _default_name(e, idx: int) -> str:

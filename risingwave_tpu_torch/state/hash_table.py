@@ -13,7 +13,9 @@ dense table of ``size`` slots (a power of two):
 ``lookup_or_insert`` resolves a whole chunk of keys at once with the
 reference's round-based linear probe (``_probe``): the lowest row index
 wins a contended empty slot, tombstones are skipped and never claimed,
-and rows left after ``min(size + 2, 1024)`` rounds overflow.  The slot
+and rows left after ``min(size + 2, 1024)`` rounds overflow.  String
+keys compare as the reference's ``_keys_equal`` does: every byte of the
+``[size, w]`` store, the padding past ``lens`` included, and ``lens``.  The slot
 layout is identical to the reference's, so state tensors compare
 element for element.  On the card the probe is kernel B
 (``csrc/probe.cu``); ``_probe_plain`` is its plain PyTorch version.
@@ -38,6 +40,7 @@ from risingwave_tpu_torch.common.hash import (
     hash64_columns_cuda,
     hash64_columns_plain,
     key_leaves,
+    leaf_width,
 )
 
 
@@ -365,7 +368,8 @@ class HashTable:
         keys = args.keys
         keys.n = len(in_leaves)
         keep = []
-        for k, ((d, nl), (sd, snl)) in enumerate(zip(in_leaves, st_leaves)):
+        for k, ((d, nl, kind), (sd, snl, _)) in enumerate(
+                zip(in_leaves, st_leaves)):
             d = d.contiguous()
             if d.dtype != sd.dtype or d.shape[1:] != sd.shape[1:]:
                 raise ValueError(f"key column {k}: {d.dtype} chunk column "
@@ -375,7 +379,8 @@ class HashTable:
             nu8 = None if nl is None else nl.contiguous().view(torch.uint8)
             snu8 = None if snl is None else snl.view(torch.uint8)
             keep += [t for t in (d, sd, nu8, snu8) if t is not None]
-            keys.width[k] = d.element_size()
+            keys.width[k] = leaf_width(d)
+            keys.kind[k] = kind
             keys.in_data[k] = d.data_ptr()
             keys.st_data[k] = sd.data_ptr()
             keys.in_null[k] = kernels.ptr(nu8)

@@ -280,7 +280,11 @@ def agg_preagg_cuda(sort_key, perm, key_cols, valid, signs, modes, inits,
     keys = args.keys
     keys.n = len(leaves)
     keep, s_keys = [], []
-    for k, (d, nl) in enumerate(leaves):
+    for k, (d, nl, kind) in enumerate(leaves):
+        if kind != kernels.KIND_WORD:
+            raise NotImplementedError(
+                "string group keys in the agg's pre-aggregation are not "
+                "ported to CUDA yet")
         d = d.contiguous()
         od = torch.empty_like(d)
         nu8 = None if nl is None else nl.contiguous().view(torch.uint8)

@@ -2,8 +2,9 @@
 
 Port of the pool half of ``risingwave_tpu/stream/hash_join.py``:
 ``PoolSideState`` / ``JoinState`` / ``JoinEmit`` (:204-330),
-``_null_stripped_keys``, ``_pool_capacity``, ``_rank_by_sorted`` and
-``_totals_from_sort`` (:146,167), and of ``HashJoinExecutor`` the pool
+``_null_stripped_keys``, ``_pool_capacity``, ``_rank_by``,
+``_rank_by_sorted``, ``_totals_from_sort`` and ``_group_totals``
+(:140-190; the top-N pool uses the unsorted forms), and of ``HashJoinExecutor`` the pool
 branches of ``init_state``, ``_update_side_pool`` (:597),
 ``apply_begin`` (:705), ``emit_window`` (:850), ``build_rows_of``,
 ``max_windows``, ``maybe_rehash`` (``rebuild_pool``, ``compact_pool``)
@@ -133,6 +134,24 @@ def _rank_by_sorted(group: torch.Tensor, active: torch.Tensor):
     rank = torch.zeros(cap, dtype=torch.int32, device=dev)
     rank[order] = idx - start
     return rank, order, seg_id
+
+
+def _rank_by(group: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Stable rank of each active row among active rows of equal
+    ``group`` (int32, row order)."""
+    return _rank_by_sorted(group, active)[0]
+
+
+def _group_totals(group: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Per-row sum of ``values`` over the rows sharing ``group`` (every
+    row, active or not; int32)."""
+    cap = group.shape[0]
+    dev = group.device
+    sorted_g, order = torch.sort(group ^ INT64_MIN, stable=True)
+    is_new = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                        sorted_g[1:] != sorted_g[:-1]])
+    seg_id = torch.cumsum(is_new.to(torch.int32), 0) - 1
+    return _totals_from_sort(order, seg_id, values)
 
 
 def _totals_from_sort(order, seg_id, values) -> torch.Tensor:

@@ -49,11 +49,17 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[join_update] exact", "[join_emit] exact",
                 "[join_clean] exact", "[shadow_digest] exact",
                 "[dirty_gather] exact", "[permute_rows] exact",
+                "[topn_pool] exact", "[topn_band] exact",
+                "[topn_flush] exact", "[hash64] exact on",
+                "[probe] exact on the MV's whole-row key",
                 "[parity] q7", "[parity] q5", "[parity] q1", "[parity] q8",
+                "[parity] q19", "[parity] q18",
                 "[check] q7 MV equals numpy", "[check] q5 MV equals numpy",
                 "[check] q1 ring rows equal numpy",
                 "[check] q8 ring rows equal the numpy join",
-                "[durable] q7", "[durable] q8",
-                "[cold start] q7", "[cold start] q8"):
+                "[check] q19 MV equals numpy", "[check] q18 MV equals numpy",
+                "[check] q19 TopN overflow 0", "[check] q18 TopN overflow 0",
+                "[durable] q7", "[durable] q8", "[durable] q19",
+                "[cold start] q7", "[cold start] q8", "[cold start] q19"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout

@@ -1,9 +1,11 @@
 """Port parity: durable checkpoints and cold start through
 ``Engine(config, data_dir=...)``.
 
-q7 (1M events/s) and q8 (10,000 events/s, pools of 2^14 rows, emission
+q7 (1M events/s), q8 (10,000 events/s, pools of 2^14 rows, emission
 windows of 64: pairs drain over several windows, both sides clean and
-``rebuild_pool`` fires) run ``bench.py``'s SQL with a snapshot every 2
+``rebuild_pool`` fires) and q19 (1M events/s, a top-N pool of 4096 rows,
+an emitted band of 1024 and a whole-row MV keyed by strings too) run
+``bench.py``'s SQL (q19: the published text) with a snapshot every 2
 checkpoints on the reference engine and the port's engine
 (``device="cpu"``), each with its own ``data_dir``.  Each engine is
 dropped after its last tick (``tick`` drains the uploads) and a new
@@ -12,15 +14,21 @@ replays the DDL log, loads the last committed epoch and rewinds the
 source cursors.  After more barriers the MV rows (q8: the ring rows in
 order) and every state tensor must equal the reference's cold-started
 engine, and equal a port engine that ran all the barriers without
-stopping.  An empty directory bootstraps nothing; a directory with DDL
+stopping.  For q19 the two stores must also hold the same manifests
+(epochs, full/delta kinds) and the same payload arrays, byte for byte.
+An empty directory bootstraps nothing; a directory with DDL
 and no committed epoch cold-starts the jobs from their initial state.
 Tolerance: none.
 """
 
+import json
+import os
+
 import jax
+import numpy as np
 import pytest
 
-from bench import QUERIES, SOURCES
+from bench import QUERIES as BENCH_QUERIES, SOURCES
 from risingwave_tpu.sql import Engine as JEngine
 from risingwave_tpu.sql.planner import PlannerConfig as JConfig
 from risingwave_tpu_torch.common.tree import flatten
@@ -28,11 +36,20 @@ from risingwave_tpu_torch.compat import state_mismatches
 from risingwave_tpu_torch.sql import Engine
 from risingwave_tpu_torch.sql.planner import PlannerConfig
 
+#: bench.py's queries and Nexmark q19 (group top-N by the ROW_NUMBER
+#: rewrite: a pool, an emitted band and a whole-row MV with strings)
+QUERIES = dict(BENCH_QUERIES, q19="""
+CREATE MATERIALIZED VIEW bench_mv AS
+SELECT * FROM (SELECT *, ROW_NUMBER() OVER (PARTITION BY auction ORDER BY
+               price DESC) AS rank_number FROM bid) WHERE rank_number <= 10;
+""")
 CASES = {
     "q7": ("1000000", dict(chunk_capacity=256, agg_table_size=1 << 10,
                            agg_emit_capacity=128, mv_table_size=1 << 10)),
     "q8": ("10000", dict(chunk_capacity=256, join_pool_size=1 << 14,
                          join_out_capacity=64, mv_ring_size=1 << 16)),
+    "q19": ("1000000", dict(chunk_capacity=256, topn_pool_size=4096,
+                            topn_emit_capacity=1024, mv_table_size=1 << 12)),
 }
 BEFORE, AFTER = 6, 4
 
@@ -54,7 +71,7 @@ def _same_tensors(a, b) -> bool:
         x.dtype == y.dtype and bool((x == y).all()) for x, y in zip(la, lb))
 
 
-@pytest.mark.parametrize("query", ["q7", "q8"])
+@pytest.mark.parametrize("query", ["q7", "q8", "q19"])
 def test_cold_start_equals_reference_and_uninterrupted(query, tmp_path):
     rate, sizes = CASES[query]
     jdir, tdir = str(tmp_path / "ref"), str(tmp_path / "port")
@@ -115,3 +132,53 @@ def test_empty_dir_and_uncommitted_catalog_bootstrap(tmp_path):
     assert _same_tensors(eng, fresh)
     assert eng.checkpoint_store.committed_epoch("bench_mv") == \
         eng.jobs[0].committed_epoch > 0
+
+
+def _store_files(d):
+    """The job's manifest (retained epochs as their kinds, in order, and
+    the committed epoch's position: epoch numbers come from the wall
+    clock, and the crc records differ with the npz dtype headers) and
+    each retained epoch's payload arrays as raw bytes, in epoch order."""
+    with open(os.path.join(d, "MANIFEST.json")) as f:
+        m = json.load(f)["jobs"]["bench_mv"]
+    epochs = sorted(int(e) for e in m["epochs"])
+    man = {"kinds": [m["kind"][str(e)] for e in epochs],
+           "committed": epochs.index(int(m["committed"]))}
+    payloads = []
+    for e in epochs:
+        path = os.path.join(d, "bench_mv", f"epoch_{e}.npz")
+        with np.load(path) as z:
+            payloads.append({k: (z[k].shape, z[k].tobytes())
+                             for k in z.files})
+    return man, payloads
+
+
+def test_q19_store_equals_reference_store(tmp_path):
+    """q19's durable store, epoch by epoch: the same manifests and the
+    same payload arrays as the reference's, and a cold start from it
+    equal to an engine that never stopped."""
+    rate, sizes = CASES["q19"]
+    jdir, tdir = str(tmp_path / "ref"), str(tmp_path / "port")
+    jeng = _ddl(JEngine(JConfig(**sizes), data_dir=jdir), "q19", rate)
+    teng = _ddl(Engine(PlannerConfig(**sizes), data_dir=tdir,
+                       device="cpu"), "q19", rate)
+    for step in range(3):
+        for e in (jeng, teng):
+            e.tick(barriers=2, chunks_per_barrier=4)
+        jman, jpay = _store_files(jdir)
+        tman, tpay = _store_files(tdir)
+        assert tman == jman
+        assert len(tpay) == len(jpay) > 0
+        for i, (t, j) in enumerate(zip(tpay, jpay)):
+            assert sorted(t) == sorted(j)
+            for k in j:
+                assert t[k] == j[k], (step, i, k)
+    assert set(tman["kinds"]) == {"full", "delta"}
+    whole = _ddl(Engine(PlannerConfig(**sizes), device="cpu"), "q19", rate)
+    whole.tick(barriers=6, chunks_per_barrier=4)
+    del teng
+    cold = Engine(PlannerConfig(**sizes), data_dir=tdir, device="cpu")
+    for e in (cold, whole):
+        e.tick(barriers=2, chunks_per_barrier=4)
+    assert _rows(cold) == _rows(whole)
+    assert _same_tensors(cold, whole)

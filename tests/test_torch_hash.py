@@ -42,11 +42,27 @@ def _cols(kind: str, seed: int):
     if kind == "multi":
         return ([j(i64), JNCol(j(i32), j(null)), j(b)],
                 [t(i64), NCol(t(i32), t(null)), t(b)])
+    if kind.startswith("strings"):
+        # q19/q18's row shape: ints around two strings (16 and 40 bytes,
+        # and an odd width), random bytes past each length
+        cols_j, cols_t = [j(i64)], [t(i64)]
+        for w in (16, 40, 3):
+            data = rng.integers(0, 256, (N, w)).astype(np.uint8)
+            lens = rng.integers(0, w + 1, N).astype(np.int32)
+            data[: N // 4] = data[0]             # equal up to lens, not past
+            lens[: N // 4] = lens[0] // 2
+            sj, st = JStrCol(j(data), j(lens)), StrCol(t(data), t(lens))
+            if kind == "strings nullable" and w == 40:
+                sj, st = JNCol(sj, j(null)), NCol(st, t(null))
+            cols_j += [sj, j(i32)]
+            cols_t += [st, t(i32)]
+        return cols_j, cols_t
     raise AssertionError(kind)
 
 
 @pytest.mark.parametrize("kind", ["int64", "int32", "int16", "bool",
-                                  "int64 nullable", "multi"])
+                                  "int64 nullable", "multi", "strings",
+                                  "strings nullable"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_hash64_columns_bit_identical(kind, seed):
     jcols, tcols = _cols(kind, seed)
@@ -112,6 +128,19 @@ def test_hash64_all_ones_remapped():
 
 
 def test_string_keys_refused_on_cuda_descriptor():
+    """String keys reach the kernels' descriptor as two leaves, the bytes
+    (marked as a string for the hash) and the lengths, both with the
+    column's null plane; float keys are still refused on CUDA."""
+    from risingwave_tpu_torch import kernels
+
+    s = StrCol(torch.zeros((2, 40), dtype=torch.uint8),
+               torch.zeros(2, dtype=torch.int32))
+    null = torch.tensor([True, False])
+    leaves = thash.key_leaves([torch.zeros(2, dtype=torch.int64),
+                               NCol(s, null)])
+    assert [k for _, _, k in leaves] == [
+        kernels.KIND_WORD, kernels.KIND_STR, kernels.KIND_LENS]
+    assert [thash.leaf_width(d) for d, _, _ in leaves] == [8, 40, 4]
+    assert leaves[1][1] is null and leaves[2][1] is null
     with pytest.raises(NotImplementedError):
-        thash.key_leaves([StrCol(torch.zeros((2, 4), dtype=torch.uint8),
-                                 torch.zeros(2, dtype=torch.int32))])
+        thash.hash64_columns_cuda([torch.zeros(2, dtype=torch.float64)])

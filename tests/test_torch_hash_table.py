@@ -14,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from risingwave_tpu.common.chunk import NCol as JNCol
+from risingwave_tpu.common.chunk import NCol as JNCol, StrCol as JStrCol
+from risingwave_tpu.common.hash import hash64_columns as jhash64
 from risingwave_tpu.state.hash_table import (
     HashTable as JTable,
     permute_dense as jpermute,
 )
-from risingwave_tpu_torch.common.chunk import NCol
+from risingwave_tpu_torch.common.chunk import NCol, StrCol
+from risingwave_tpu_torch.common.hash import hash64_columns_plain
 from risingwave_tpu_torch.compat import state_from_numpy, state_mismatches
 from risingwave_tpu_torch.state.hash_table import HashTable, permute_dense
 
@@ -138,6 +140,52 @@ def test_clear_slots_and_gather_keys():
     _assert_tables_equal(jt, tt)
     np.testing.assert_array_equal(np.asarray(jt.gather_keys(js)[0]),
                                   tt.gather_keys(ts)[0].numpy())
+
+
+def test_string_keys_compare_padding_hash_masks_it():
+    """A (BIGINT, VARCHAR) pk as an MV's whole-row key: equal strings with
+    different bytes past their length hash alike (the hash masks them)
+    but are different keys (``_keys_equal`` compares all ``w`` bytes),
+    so they claim neighbouring slots of one probe chain, as in the
+    reference; tombstones from ``clear_where`` in between."""
+    w = 8
+    rng = np.random.default_rng(21)
+    protos = [jnp.zeros((1,), jnp.int64),
+              JStrCol(jnp.zeros((1, w), jnp.uint8),
+                      jnp.zeros((1,), jnp.int32))]
+    jt = JTable.create(protos, 1 << 8)
+    tt = state_from_numpy(jax.device_get(jt))
+    for step in range(4):
+        k = rng.integers(0, 4, CAP).astype(np.int64)
+        data = rng.integers(0, 256, (CAP, w)).astype(np.uint8)
+        lens = rng.integers(0, 4, CAP).astype(np.int32)
+        data[:, :4] = data[0, :4]               # few distinct prefixes
+        valid = rng.random(CAP) < 0.9
+        jk = [jnp.asarray(k), JStrCol(jnp.asarray(data), jnp.asarray(lens))]
+        tk = [torch.from_numpy(k), StrCol(torch.from_numpy(data),
+                                          torch.from_numpy(lens))]
+        jt, js, ji, jo = _j_insert(jt, jk, jnp.asarray(valid))
+        tt, ts, ti, to = tt.lookup_or_insert(tk, torch.from_numpy(valid))
+        _assert_rows_equal((js, ji, jo), (ts, ti, to))
+        _assert_tables_equal(jt, tt)
+        if step == 1:
+            pred = rng.random(1 << 8) < 0.3
+            jt = jt.clear_where(jnp.asarray(pred))
+            tt = tt.clear_where(torch.from_numpy(pred))
+    # equal (key, string up to lens) rows with other padding: equal
+    # hashes, and a lookup finds only the byte-identical key
+    jh = np.asarray(jhash64(jk))
+    th = hash64_columns_plain(tk).numpy().view(np.uint64)
+    np.testing.assert_array_equal(jh, th)
+    js, jf, _ = _j_lookup(jt, jk, jnp.asarray(valid))
+    ts, tf, _ = tt.lookup_counted(tk, torch.from_numpy(valid))
+    _assert_rows_equal((js, jf), (ts, tf))
+    flipped = data.copy()
+    flipped[:, w - 1] ^= 0xFF                   # past every length
+    tk2 = [tk[0], StrCol(torch.from_numpy(flipped), tk[1].lens)]
+    np.testing.assert_array_equal(hash64_columns_plain(tk2).numpy(),
+                                  hash64_columns_plain(tk).numpy())
+    assert not tt.lookup(tk2, torch.from_numpy(valid))[1].any()
 
 
 def test_create_requires_power_of_two():
