@@ -2207,14 +2207,15 @@ def phase_topn_kernels(torch, device, timer, scale):
     pres = top_n.band_diff_plain(*dargs)
 
     def planes(res):
-        cols, valid, _, live, h = res
+        cols, valid, cur, live, h = res
         out_p = [("valid", valid), ("cur_live", live), ("cur_hash", h)]
-        for j, c in enumerate(cols):
-            if isinstance(c, StrCol):
-                out_p += [(f"col {j} bytes", c.data), (f"col {j} lens",
-                                                       c.lens)]
-            else:
-                out_p.append((f"col {j}", c))
+        for tag, group in (("out", cols), ("band", cur)):
+            for j, c in enumerate(group):
+                if isinstance(c, StrCol):
+                    out_p += [(f"{tag} col {j} bytes", c.data),
+                              (f"{tag} col {j} lens", c.lens)]
+                else:
+                    out_p.append((f"{tag} col {j}", c))
         return out_p
 
     err = max_abs_err(torch, [(f"topn_flush {n}", x, y) for (n, x), (_, y)
@@ -2226,9 +2227,9 @@ def phase_topn_kernels(torch, device, timer, scale):
     row = BID_ROW_BYTES + 8                    # with the rank column
     # read: the old band and its hashes and flags, the band indices and
     # the band's pool rows, hashes and ranks; written: the [2E] chunk and
-    # its flags, the new hashes and flags
+    # its flags, the new band's rows, hashes and flags
     b18 = bound(E * (row + 9) + E * 4 + E * (BID_ROW_BYTES + 16)
-                + 2 * E * (row + 1) + E * 9, E * 200)
+                + 2 * E * (row + 1) + E * (row + 9), E * 200)
     print(f"[topn_flush] exact ({n_band} band rows against "
           f"{int(base.prev_valid.sum())} emitted: {n_out} changelog rows of "
           f"{2 * E}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "

@@ -10,10 +10,12 @@
 //   - rw_topn_flush_gather, one thread per out row: rows j < E copy the old
 //     band (`prev_rows`), rows E + c gather pool slot min(cur_idx[c], S-1),
 //     the reference's clamp, so a dead entry carries a copy of row S-1 (the
-//     shadow digests and the CPU parity see those bytes).  With a rank
-//     column the rank is gathered too (0 for dead entries) and folded into
-//     the hash, h ^ rank * 0x9E3779B97F4A7C15 (wrapping); dead entries hash
-//     to 0.
+//     shadow digests and the CPU parity see those bytes), into the out
+//     chunk and into the new band's own buffers (state leaves, which the
+//     shadow snapshot needs 8-byte aligned: views into the out chunk are
+//     not for every E).  With a rank column the rank is gathered too (0 for
+//     dead entries) and folded into the hash, h ^ rank * 0x9E3779B97F4A7C15
+//     (wrapping); dead entries hash to 0.
 //   - rw_topn_flush_diff: the reference's `member` is rank-aware: the k-th
 //     live entry of a hash (index order) is a member iff the other side
 //     holds more than k live entries of that hash.  It compares an [E, E]
@@ -26,15 +28,17 @@
 //     a delete for the old band, an insert for the new.
 //
 // Bound: bytes.  The gather reads the old band and the band's pool rows
-// and writes the [2E] chunk (E = 2^16 rows of ~104 B: ~27 MB moved); the
-// diff reads 2 x E sorted keys and permutations and writes 2E flags, with
-// ~3 x 16 cached probes per entry.  The one-block scans are ~64 tiles each.
+// and writes the [2E] chunk and the new band (E = 2^16 rows of ~104 B:
+// ~34 MB moved); the diff reads 2 x E sorted keys and permutations and
+// writes 2E flags, with ~3 x 16 cached probes per entry.  The one-block
+// scans are ~64 tiles each.
 #include "rw_common.cuh"
 
 struct FlushLeaf {
   const void* pool;   // [S] rows
   const void* prev;   // [E] rows
   void* out;          // [2E] rows
+  void* cur;          // [E] rows: the new band
   int width;          // bytes per row
 };
 
@@ -46,6 +50,7 @@ struct FlushGatherArgs {
   const int64_t* ranks;       // [S] 1-based ranks, or null (no rank column)
   const int64_t* prev_rank;   // [E] the old band's rank column
   int64_t* out_rank;          // [2E] the out chunk's rank column
+  int64_t* cur_rank;          // [E] the new band's rank column
   uint64_t* cur_hash;         // [E] out
   uint8_t* cur_live;          // [E] out
   int E;
@@ -96,13 +101,16 @@ __global__ void topn_flush_gather_kernel(FlushGatherArgs a) {
   const int64_t safe = live ? idx : a.S - 1;
   for (int k = 0; k < a.n_leaves; ++k) {
     const int w = a.leaf[k].width;
-    copy_row(static_cast<uint8_t*>(a.leaf[k].out) + j * w,
-             static_cast<const uint8_t*>(a.leaf[k].pool) + safe * w, w);
+    const uint8_t* src =
+        static_cast<const uint8_t*>(a.leaf[k].pool) + safe * w;
+    copy_row(static_cast<uint8_t*>(a.leaf[k].out) + j * w, src, w);
+    copy_row(static_cast<uint8_t*>(a.leaf[k].cur) + c * w, src, w);
   }
   uint64_t h = live ? a.phash[safe] : 0ull;
   if (a.ranks != nullptr) {
     const int64_t rk = live ? a.ranks[safe] : 0;
     a.out_rank[j] = rk;
+    a.cur_rank[c] = rk;
     if (live) h ^= static_cast<uint64_t>(rk) * GOLDEN;
   }
   a.cur_hash[c] = h;

@@ -529,7 +529,8 @@ class _FlushLeaf(ctypes.Structure):
     """Mirror of ``struct FlushLeaf`` in ``csrc/topn_flush.cu``."""
 
     _fields_ = [("pool", ctypes.c_void_p), ("prev", ctypes.c_void_p),
-                ("out", ctypes.c_void_p), ("width", ctypes.c_int)]
+                ("out", ctypes.c_void_p), ("cur", ctypes.c_void_p),
+                ("width", ctypes.c_int)]
 
 
 class _GatherArgs(ctypes.Structure):
@@ -539,7 +540,8 @@ class _GatherArgs(ctypes.Structure):
         ("leaf", _FlushLeaf * kernels.MAX_COLS), ("n_leaves", ctypes.c_int),
         ("cur_idx", ctypes.c_void_p), ("phash", ctypes.c_void_p),
         ("ranks", ctypes.c_void_p), ("prev_rank", ctypes.c_void_p),
-        ("out_rank", ctypes.c_void_p), ("cur_hash", ctypes.c_void_p),
+        ("out_rank", ctypes.c_void_p), ("cur_rank", ctypes.c_void_p),
+        ("cur_hash", ctypes.c_void_p),
         ("cur_live", ctypes.c_void_p), ("E", ctypes.c_int),
         ("S", ctypes.c_int),
     ]
@@ -558,26 +560,28 @@ class _DiffArgs(ctypes.Structure):
 def band_diff_cuda(rows: tuple, row_hash: torch.Tensor, ranks, band_idx,
                    prev_rows: tuple, prev_valid, prev_hash):
     """K18 (``csrc/topn_flush.cu``): the gather of the band and the old
-    band into the out chunk, the stable sort of each side's hashes
-    (``torch.sort``), then the rank-aware membership of both sides.
-    ``cur_rows`` are views of the out chunk's second half."""
+    band into the out chunk (the band also into ``cur_rows``, buffers of
+    its own), the stable sort of each side's hashes (``torch.sort``),
+    then the rank-aware membership of both sides."""
     S = row_hash.shape[0]
     E = band_idx.shape[0]
     dev = row_hash.device
     pool_cols = list(rows)
     prev_cols = list(prev_rows[:len(rows)])
     out_cols = [_empty_like_col(c, 2 * E) for c in pool_cols]
+    cur_cols = [_empty_like_col(c, E) for c in pool_cols]
     g = _GatherArgs()
     keep = []
     n = 0
-    for pc, vc, oc in zip(pool_cols, prev_cols, out_cols):
-        for p, v, o in zip(_leaves(pc), _leaves(vc), _leaves(oc)):
+    for pc, vc, oc, cc in zip(pool_cols, prev_cols, out_cols, cur_cols):
+        for p, v, o, c in zip(_leaves(pc), _leaves(vc), _leaves(oc),
+                              _leaves(cc)):
             if n >= kernels.MAX_COLS:
                 raise ValueError(f"more than {kernels.MAX_COLS} band leaves")
-            keep += [p, v, o]
+            keep += [p, v, o, c]
             leaf = g.leaf[n]
-            leaf.pool, leaf.prev, leaf.out = (p.data_ptr(), v.data_ptr(),
-                                              o.data_ptr())
+            leaf.pool, leaf.prev = p.data_ptr(), v.data_ptr()
+            leaf.out, leaf.cur = o.data_ptr(), c.data_ptr()
             leaf.width = leaf_width(p)
             n += 1
     g.n_leaves = n
@@ -586,10 +590,10 @@ def band_diff_cuda(rows: tuple, row_hash: torch.Tensor, ranks, band_idx,
     out_rank = None
     if ranks is not None:
         out_rank = torch.empty(2 * E, dtype=torch.int64, device=dev)
-        keep += [ranks, prev_rows[-1], out_rank]
-        g.ranks, g.prev_rank, g.out_rank = (ranks.data_ptr(),
-                                            prev_rows[-1].data_ptr(),
-                                            out_rank.data_ptr())
+        cur_rank = torch.empty(E, dtype=torch.int64, device=dev)
+        keep += [ranks, prev_rows[-1], out_rank, cur_rank]
+        g.ranks, g.prev_rank = ranks.data_ptr(), prev_rows[-1].data_ptr()
+        g.out_rank, g.cur_rank = out_rank.data_ptr(), cur_rank.data_ptr()
     band_idx = band_idx.contiguous()
     kernels.require_cuda("topn_flush", band_idx, row_hash, cur_hash, cur_live,
                          prev_valid, prev_hash, *keep)
@@ -621,8 +625,8 @@ def band_diff_cuda(rows: tuple, row_hash: torch.Tensor, ranks, band_idx,
 
     if out_rank is not None:
         out_cols.append(out_rank)
-    cur_rows = tuple(_gather(c, slice(E, 2 * E)) for c in out_cols)
-    return tuple(out_cols), out_valid, cur_rows, cur_live, cur_hash
+        cur_cols.append(cur_rank)
+    return tuple(out_cols), out_valid, tuple(cur_cols), cur_live, cur_hash
 
 
 def band_diff(rows, row_hash, ranks, band_idx, prev_rows, prev_valid,
