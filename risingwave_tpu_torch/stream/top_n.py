@@ -136,6 +136,17 @@ def _empty_like_col(col_proto, n: int):
     return torch.zeros(n, dtype=col_proto.dtype, device=col_proto.device)
 
 
+def _uninit_like_col(col_proto, n: int):
+    """``_empty_like_col`` without the zero fill."""
+    if isinstance(col_proto, StrCol):
+        dev = col_proto.data.device
+        return StrCol(
+            torch.empty((n, col_proto.data.shape[1]), dtype=torch.uint8,
+                        device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+    return torch.empty(n, dtype=col_proto.dtype, device=col_proto.device)
+
+
 def _gather(col, idx: torch.Tensor):
     if isinstance(col, StrCol):
         return StrCol(col.data[idx], col.lens[idx])
@@ -568,8 +579,9 @@ def band_diff_cuda(rows: tuple, row_hash: torch.Tensor, ranks, band_idx,
     dev = row_hash.device
     pool_cols = list(rows)
     prev_cols = list(prev_rows[:len(rows)])
-    out_cols = [_empty_like_col(c, 2 * E) for c in pool_cols]
-    cur_cols = [_empty_like_col(c, E) for c in pool_cols]
+    # every row of both is written by the gather: no fill
+    out_cols = [_uninit_like_col(c, 2 * E) for c in pool_cols]
+    cur_cols = [_uninit_like_col(c, E) for c in pool_cols]
     g = _GatherArgs()
     keep = []
     n = 0
