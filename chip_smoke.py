@@ -17,27 +17,40 @@
    state of a q19 engine (pool 2^18, emitted band 2^16) and its next
    8192-row chunks, K16's delete branches on a retractable chunk at a
    2^14 pool, K1 on bid rows with random bytes past the strings'
-   lengths and K3 on the MV's whole-row key (strings included);
-3. runs q7, q5 and q1 at 2 events/s, q8 at 10,000 events/s and q19 and
-   q18 at 2 events/s through the port's ``Engine`` on the card and on
-   the CPU (plain versions, the agg forced onto the card's
-   pre-aggregation branch) and requires equal MV or ring rows and equal
-   state, slot for slot;
-4. runs q1, q5, q7, q8, q19 and q18, each in a fresh ``Engine`` at
-   ``bench.py``'s sizes (q19/q18 with a top-N pool of 2^18, an emitted
-   band of 2^16 and an MV table of 2^18; 9 warm-up barriers, then 32
-   timed barriers of 8 chunks, or of 8 scheduling rounds of 1 person and
-   3 auction chunks for q8) with the launch counters set to 0 just
-   before and read just after each timed window, and requires every
-   kernel of that query's path to have launched;
+   lengths and K3 on the MV's whole-row key (strings included); for
+   the over-window K20 on synthetic pools of every window call kind at
+   both window queries' pool shapes (2^18 / emit 2^16 and 2^22 / 2^22:
+   90% of the rows in one partition, tie-heavy negative keys, ROWS
+   frames) against the plain version on a CPU copy, K20 and K19a on the
+   over-window state of a q6_bid engine, K16 timed on the over-window's
+   input (the top-N's [2E] flush chunk), and K1/K3 on float keys (-0.0,
+   NaNs, infinities, subnormals; the MV key with q6_bid's float64 avg);
+3. runs q7, q5 and q1 at 2 events/s, q8 at 10,000 events/s and q19,
+   q18, q6_bid and ow_bid at 2 events/s through the port's ``Engine``
+   on the card and on the CPU (plain versions, the agg forced onto the
+   card's pre-aggregation branch) and requires equal MV or ring rows
+   and equal state, slot for slot;
+4. runs q1, q5, q7, q8, q19, q18, q6_bid and ow_bid, each in a fresh
+   ``Engine`` at ``bench.py``'s sizes (q19/q18/q6_bid with a top-N pool
+   of 2^18, an emitted band of 2^16 and an MV table of 2^18; ow_bid
+   with an over-window pool and emit capacity of 2^22 and an MV table
+   of 2^23; 9 warm-up barriers, then 32 timed barriers of 8 chunks, or
+   of 8 scheduling rounds of 1 person and 3 auction chunks for q8) with
+   the launch counters set to 0 just before and read just after each
+   timed window, and requires every kernel of that query's path to have
+   launched; then q6_bid with the over-window's watermark cleaning set
+   on the executor (8 timed barriers: K19a on the path);
 5. checks each MV against a numpy recomputation over the events the
    port generated: q7's max(price) and count(*) per 10-second window,
    q5's bid count per (auction, hop window), q1's ring rows, q8's ring
    as the inner join of persons and auctions on id = seller within a
-   1-second window, q19's top-10 prices per auction with ranks 1..k and
-   q18's latest bid per (bidder, auction), every row a consumed bid;
-   for q19/q18 also the TopN's overflow and inconsistency counters (0)
-   and the band at every flush (within the emitted capacity: lossless);
+   1-second window, q19's top-10 prices per auction with ranks 1..k,
+   q18's latest bid per (bidder, auction), q6_bid's top-1 bid per
+   auction with each bidder's 11-row moving average, and ow_bid's
+   per-auction window values, every row a consumed bid; for the top-N
+   and over-window paths also the overflow and inconsistency counters
+   (0) and the band or pool at every flush (within the emitted
+   capacity: lossless);
 6. runs q7, q8 and q19 durably (``Engine(config, data_dir=<temporary
    directory>)``, the same sizes and barriers, a snapshot every 8
    checkpoints through K11 and the background uploader), prints rows/s,
@@ -79,7 +92,7 @@ BARRIERS = 32
 CHUNKS_PER_BARRIER = 8
 WINDOW_US = 10_000_000
 HOP_SLIDE_US = 2_000_000
-QUERIES = ("q1", "q5", "q7", "q8", "q19", "q18")
+QUERIES = ("q1", "q5", "q7", "q8", "q19", "q18", "q6_bid", "ow_bid")
 #: the kernels each query's main path must launch
 PATH_KERNELS = {
     "q1": ("nexmark_bids", "ring_append"),
@@ -94,6 +107,16 @@ PATH_KERNELS = {
             "mask_indices", "topn_flush", "probe", "mv_upsert"),
     "q18": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
             "mask_indices", "topn_flush", "probe", "mv_upsert"),
+    "q6_bid": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
+               "mask_indices", "topn_flush", "over_window", "probe",
+               "mv_upsert"),
+    "ow_bid": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
+               "topn_flush", "over_window", "probe", "mv_upsert"),
+    # q6_bid with the over-window's watermark cleaning set on the
+    # executor (no plan sets it): K19a on the path
+    "q6_bid clean": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
+                     "mask_indices", "topn_flush", "over_window",
+                     "topn_clean", "probe", "mv_upsert"),
 }
 #: the durable main paths (``Engine(config, data_dir=...)``) add K11: the
 #: shadow update, and the gather of every delta checkpoint (q7's hot
@@ -228,6 +251,10 @@ def main() -> int:
     results.update(topn)
     for name, r in strings.items():
         results[name]["strings"] = r
+    window, extras = phase_window_kernels(torch, device, timer, scale)
+    results.update(window)
+    for name, r in extras.items():
+        results[name].update(r)
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -238,6 +265,8 @@ def main() -> int:
     phase_q8_parity(torch, device)
     for query in TOPN_QUERIES:
         phase_topn_parity(torch, device, query)
+    for query in WINDOW_QUERIES:
+        phase_window_parity(torch, device, query)
 
     # -- 4-5. main paths --------------------------------------------------
     rates = {}
@@ -250,6 +279,10 @@ def main() -> int:
         elif query in TOPN_QUERIES:
             launches, rates[query] = phase_topn_main_path(torch, device,
                                                           scale, query)
+        elif query in WINDOW_QUERIES:
+            launches, rates[query], info = phase_window_main_path(
+                torch, device, scale, query)
+            results["over_window"].setdefault("at_pool", {})[query] = info
         else:
             launches, rates[query] = phase_main_path(torch, device, scale,
                                                      query)
@@ -261,6 +294,15 @@ def main() -> int:
         if device.type == "cuda" and missing:
             fail(f"{query}: kernels {missing} were not launched on the "
                  "main path")
+    tag = "q6_bid clean"
+    launches, rates[tag] = phase_window_clean_path(torch, device, scale)
+    for name, n in launches.items():
+        if name in results:
+            results[name]["launches"] += n
+            results[name]["launches_by_query"][tag] = n
+    missing = [k for k in PATH_KERNELS[tag] if launches[k] <= 0]
+    if device.type == "cuda" and missing:
+        fail(f"{tag}: kernels {missing} were not launched on the path")
 
     # -- 6. the durable main paths and their cold starts ------------------
     durable = {}
@@ -286,7 +328,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
-    for query in QUERIES:
+    for query in QUERIES + ("q6_bid clean",):
         print(f"[main] {query} rows/s {rates[query]:.0f}")
     for query, (rate, info) in durable.items():
         print(f"[main] {query} durable rows/s {rate:.0f}, cold start "
@@ -837,6 +879,32 @@ SELECT auction, bidder, price, channel, url, date_time
 FROM (SELECT *, ROW_NUMBER() OVER (PARTITION BY bidder, auction ORDER BY
       date_time DESC) AS rank_number FROM bid) WHERE rank_number <= 1;
 """,
+    # Nexmark q6's window (the average of a bidder's last 11 prices) over
+    # a top-1 bid per auction: the auction x bid join cannot plan yet, so
+    # the top-1 is taken over bids, and the window partitions by bidder
+    # (bids carry no seller)
+    "q6_bid": """
+CREATE MATERIALIZED VIEW bench_mv AS
+SELECT bidder, price, date_time,
+       AVG(price) OVER (PARTITION BY bidder ORDER BY date_time
+                        ROWS BETWEEN 10 PRECEDING AND CURRENT ROW) AS avg
+FROM (SELECT *, ROW_NUMBER() OVER (PARTITION BY auction ORDER BY price DESC)
+      AS rn FROM bid) WHERE rn <= 1;
+""",
+    # per-auction window functions over the bid stream
+    "ow_bid": """
+CREATE MATERIALIZED VIEW bench_mv AS
+SELECT auction, bidder, price, date_time,
+  row_number() OVER (PARTITION BY auction ORDER BY date_time) AS rn,
+  rank() OVER (PARTITION BY auction ORDER BY date_time) AS rk,
+  dense_rank() OVER (PARTITION BY auction ORDER BY date_time) AS drk,
+  lag(price) OVER (PARTITION BY auction ORDER BY date_time) AS prev_price,
+  lead(price) OVER (PARTITION BY auction ORDER BY date_time) AS next_price,
+  max(price) OVER (PARTITION BY auction ORDER BY date_time) AS max_so_far,
+  sum(price) OVER (PARTITION BY auction ORDER BY date_time) AS sum_so_far,
+  count(*) OVER (PARTITION BY auction ORDER BY date_time) AS n_so_far
+FROM bid;
+""",
 }
 
 
@@ -899,7 +967,8 @@ PORT_KERNEL_NAMES = ("hash64_kernel", "probe_kernel", "reset_kernel",
                      "join_rank_kernel", "join_update_kernel",
                      "join_emit_kernel", "join_clean_kernel",
                      "compact_count_kernel", "compact_tiles_kernel",
-                     "compact_write_kernel")
+                     "compact_write_kernel", "topn_", "ow_scan_local",
+                     "ow_scan_carry", "ow_finish")
 
 
 def profile_window(torch, eng, query: str, barriers: int = 2,
@@ -2532,6 +2601,717 @@ def phase_topn_main_path(torch, device, scale, query: str):
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return launches, rate
+
+
+# ---------------------------------------------------------------------------
+# q6_bid and ow_bid: the over-window (K20, K19a, float keys in K1/K3)
+
+
+WINDOW_QUERIES = ("q6_bid", "ow_bid")
+#: q6_bid at the top-N's sizes; ow_bid's pool and emitted rows hold every
+#: bid of the run (41 barriers of 8 x 8192 = 2,686,976 <= 2^22) and its MV
+#: table every row at under half load
+WINDOW_CONFIG = {
+    "q6_bid": TOPN_CONFIG,
+    "ow_bid": dict(BENCH_CONFIG, topn_pool_size=1 << 22,
+                   topn_emit_capacity=1 << 22, mv_table_size=1 << 23),
+}
+#: the CPU rehearsal's sizes (ow_bid at chunk 64: its 43 barriers hold
+#: 22,016 bids)
+WINDOW_REHEARSAL = {
+    "q6_bid": TOPN_REHEARSAL,
+    "ow_bid": dict(chunk_capacity=64, topn_pool_size=1 << 15,
+                   topn_emit_capacity=1 << 15, mv_table_size=1 << 16),
+}
+#: the over-window's watermark lag on the executor-level cleaning path
+CLEAN_LAG_US = 2_000_000
+
+
+def _window_engine(torch, device, scale, query: str, barriers: int):
+    """A q6_bid or ow_bid engine at the slice's sizes after ``barriers``
+    barriers (maintenance off, a snapshot every 8 checkpoints)."""
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    cfg = WINDOW_CONFIG[query] if scale == 1 else WINDOW_REHEARSAL[query]
+    eng = Engine(PlannerConfig(**cfg), device=device)
+    eng.execute(BENCH_SOURCES)
+    eng.execute(QUERY_SQL[query])
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
+    eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
+    if barriers:
+        eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    return eng
+
+
+def _executor_index(eng, cls_name: str) -> int:
+    return next(i for i, ex in enumerate(eng.jobs[0].fragment.executors)
+                if type(ex).__name__ == cls_name)
+
+
+def _flush_planes(torch, res):
+    """Named tensors of a flush result (out columns, out valid, the new
+    emitted rows, their liveness and hashes), on the CPU; floats as bit
+    patterns."""
+    from risingwave_tpu_torch.common.chunk import StrCol
+
+    out_cols, out_valid, cur, live, h = res
+    planes = [("out valid", out_valid), ("cur live", live),
+              ("cur hash", h)]
+    for tag, group in (("out", out_cols), ("cur", cur)):
+        for j, c in enumerate(group):
+            if isinstance(c, StrCol):
+                planes += [(f"{tag} col {j} bytes", c.data),
+                           (f"{tag} col {j} lens", c.lens)]
+            elif c.dtype.is_floating_point:
+                bits = torch.int64 if c.element_size() == 8 else torch.int32
+                planes.append((f"{tag} col {j} bits", c.view(bits)))
+            else:
+                planes.append((f"{tag} col {j}", c))
+    return [(n, t.cpu()) for n, t in planes]
+
+
+def _stress_executor(torch, device, S: int, E: int, g):
+    """An over-window of every call kind on a synthetic pool of S rows:
+    90% of the rows in one partition, tie-heavy negative keys, strings,
+    dyadic float64/float32 values, int32 values and ROWS frames; a
+    partition hash and two order keys.  Returns (executor, state)."""
+    from risingwave_tpu_torch.common.chunk import StrCol
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+    from risingwave_tpu_torch.expr.node import InputRef as R
+    from risingwave_tpu_torch.stream.over_window import (
+        OverWindowExecutor, WindowFuncCall as C)
+
+    names = (("p", "INT64", 16), ("v", "INT64", 16), ("s", "VARCHAR", 6),
+             ("f", "FLOAT64", 16), ("q", "FLOAT32", 16), ("i", "INT32", 16),
+             ("t", "TIMESTAMP", 16))
+    schema = Schema(tuple(Field(n, getattr(DataType, t), str_width=w)
+                          for n, t, w in names))
+    calls = [C("row_number", None, 1, "rn"), C("rank", None, 1, "rk"),
+             C("dense_rank", None, 1, "dr"), C("lag", R(1), 1, "lg"),
+             C("lead", R(2), 2, "ld"), C("lag", R(3), 5, "lgf"),
+             C("sum", R(1), 1, "sv"), C("count", None, 1, "c"),
+             C("avg", R(1), 1, "av"), C("min", R(3), 1, "mnf"),
+             C("max", R(1), 1, "mxv"), C("min", R(4), 1, "mnq"),
+             C("max", R(5), 1, "mxi"), C("sum", R(3), 1, "s0", (0, 0)),
+             C("sum", R(4), 1, "s1", (1, 0)), C("avg", R(5), 1, "a10",
+                                                (10, 0))]
+    ex = OverWindowExecutor(schema, [R(0)], [(R(5), True), (R(1), False)],
+                            calls, pool_size=S, emit_capacity=E)
+    st = ex.init_state(device)
+
+    def ints(lo, hi, dtype=torch.int64):
+        return torch.randint(lo, hi, (S,), generator=g).to(dtype)
+
+    p = torch.where(torch.rand(S, generator=g) < 0.9, 7, ints(0, 64))
+    cols = (p, ints(-20, 20),
+            StrCol(torch.randint(0, 256, (S, 6), generator=g,
+                                 dtype=torch.uint8),
+                   ints(0, 7, torch.int32)),
+            ints(-400, 400).to(torch.float64) / 8,
+            (ints(-400, 400).to(torch.float32) / 4),
+            ints(-9, 9, torch.int32), ints(0, 1 << 40))
+    for store, c in zip(st.rows, cols):
+        if isinstance(store, StrCol):
+            store.data.copy_(c.data)
+            store.lens.copy_(c.lens)
+        else:
+            store.copy_(c)
+    st.valid.copy_(torch.rand(S, generator=g) < 0.85)
+    return ex, st
+
+
+def phase_window_kernels(torch, device, timer, scale):
+    """K20 and K19a at q6_bid's shapes (the over-window state of a q6_bid
+    engine after 9 barriers: pool 2^18, emitted rows 2^16), K20 exactly
+    against its plain version on synthetic pools of every call kind at
+    both queries' pool shapes (2^18 / 2^16 and 2^22 / 2^22), K16 timed on
+    the over-window's input (the top-N's [2E] flush chunk), and K1/K3 on
+    float columns (edge values, and the MV's whole-row key with q6's
+    float64 average).  Returns (the kernel entries, extra fields of the
+    hash64, probe and topn_pool entries)."""
+    from risingwave_tpu_torch.common.chunk import Chunk, NCol
+    from risingwave_tpu_torch.common.hash import (
+        hash64_columns_cuda, hash64_columns_plain)
+    from risingwave_tpu_torch.common.tree import tree_map
+    from risingwave_tpu_torch.state.hash_table import HashTable
+    from risingwave_tpu_torch.stream import top_n
+
+    cuda = device.type == "cuda"
+    g = torch.Generator(device="cpu").manual_seed(20)
+    out, extras = {}, {}
+
+    def flush_pair(ex, st):
+        """(kernel flush, plain flush on a CPU copy) of the state, with
+        their overflow gauges: (named pairs, kernel result, its state)."""
+        a = tree_map(torch.clone, st)
+        b = tree_map(lambda t: t.cpu().clone(), st)
+        if cuda:
+            k = ex.flush_cuda(a)
+        else:
+            k = ex.flush_plain(a)
+            torch.maximum(a.overflow, k[5], out=a.overflow)
+            k = k[:5]
+        p = ex.flush_plain(b)
+        torch.maximum(b.overflow, p[5], out=b.overflow)
+        pairs = [(f"over_window {n}", x, y) for (n, x), (_, y)
+                 in zip(_flush_planes(torch, k),
+                        _flush_planes(torch, p[:5]))]
+        pairs.append(("over_window overflow", a.overflow.cpu(), b.overflow))
+        return pairs, k, a
+
+    # -- K20 exact on every call kind at both pool shapes ----------------
+    shapes = ((1 << 18, 1 << 16), (1 << 22, 1 << 22)) if cuda else \
+        ((1 << 12, 1 << 10), (1 << 13, 1 << 13))
+    pairs = []
+    for S, E in shapes:
+        ex, st = _stress_executor(torch, device, S, E, g)
+        for step in range(2):
+            got, res, a = flush_pair(ex, st)
+            pairs += [(f"{n} (pool {S}, flush {step})", x, y)
+                      for n, x, y in got]
+            # the next flush diffs against these rows; change the pool
+            st = st._replace(prev_rows=res[2], prev_valid=res[3],
+                             prev_hash=res[4], overflow=a.overflow)
+            flip = (torch.rand(S, generator=g) < 0.05).to(device)
+            st.valid.logical_xor_(flip)
+        print(f"[over_window] exact on {len(ex.calls)} calls of every kind "
+              f"at pool {S}, emit {E} ({int(st.valid.sum())} live, "
+              f"{int((st.rows[0] == 7).sum())} rows in the hot partition, "
+              f"overflow {int(a.overflow)})", flush=True)
+        del ex, st, res, a
+    err = max_abs_err(torch, pairs)
+    del pairs
+
+    # -- q6_bid's state: the next barrier through the top-N, then K16 on
+    # the over-window's input (the top-N's [2E] flush chunk) ----------------
+    eng = _window_engine(torch, device, scale, "q6_bid", WARMUP_BARRIERS)
+    job = eng.jobs[0]
+    oi = _executor_index(eng, "OverWindowExecutor")
+    tix = _executor_index(eng, "GroupTopNExecutor")
+    ow, tex = job.fragment.executors[oi], job.fragment.executors[tix]
+    S, E = ow.pool_size, ow.emit_capacity
+    tst = tree_map(torch.clone, job.states[tix])
+    for c in _topn_inputs(torch, eng, CHUNKS_PER_BARRIER):
+        tex.apply(tst, c)
+    _, chunk = tex.flush(tst, 0)
+    for i in range(tix + 1, oi):
+        _, chunk = job.fragment.executors[i].apply((), chunk)
+    base = job.states[oi]
+    n_del = int((chunk.valid & (chunk.signs() < 0)).sum())
+    n_ins = int((chunk.valid & (chunk.signs() > 0)).sum())
+    pool_k = top_n.pool_apply_cuda if cuda else \
+        (lambda *a: top_n.pool_apply(*a))
+    clones = [tree_map(torch.clone, base) for _ in range(6)]
+    ms16 = timer(lambda i: pool_k(clones[i].rows, clones[i].valid,
+                                  clones[i].row_hash, chunk, S,
+                                  clones[i].overflow,
+                                  clones[i].inconsistency), 5)
+    del clones
+    note = "not compared (the plain version's match matrix is too large)"
+    if n_del * S <= 1 << 30:
+        a, b = tree_map(torch.clone, base), tree_map(torch.clone, base)
+        pool_k(a.rows, a.valid, a.row_hash, chunk, S, a.overflow,
+               a.inconsistency)
+        _, _, _, n_over, n_miss = top_n.pool_apply_plain(
+            b.rows, b.valid, b.row_hash, chunk, S)
+        b.overflow.add_(n_over)
+        b.inconsistency.add_(n_miss)
+        max_abs_err(torch, [(f"topn_pool 2E {n}", x, y) for (n, x), (_, y)
+                            in zip(_topn_planes("a", a),
+                                   _topn_planes("b", b))])
+        note = "exact against the plain version"
+        del a, b
+    print(f"[topn_pool] on the over-window's input, the top-N's flush "
+          f"chunk of {chunk.capacity} rows ({n_del} deletes, {n_ins} "
+          f"inserts) into a pool of {S} ({int(base.valid.sum())} live): "
+          f"kernel {ms16:.4f} ms; {note}", flush=True)
+    extras["topn_pool"] = {"over_window_input": dict(
+        rows=chunk.capacity, deletes=n_del, inserts=n_ins, ms=ms16)}
+
+    # -- K20 on the over-window's state after that chunk ------------------
+    st, _ = ow.apply(tree_map(torch.clone, base), chunk)
+    got, res, _ = flush_pair(ow, st)
+    err = max(err, max_abs_err(torch, got))
+    n_live = int(st.valid.sum())
+    n_changed = int(res[1].sum())
+    if cuda:
+        sorted_args = ow.sorted_order_cuda(st)
+        ms = timer(lambda i: ow.window_rows_cuda(st, *sorted_args), 20,
+                   TOPN_PREFILL_MS)
+        flush_ms = timer(lambda i: ow.flush_cuda(st), 10, TOPN_PREFILL_MS)
+    else:
+        ms = flush_ms = timer(lambda i: ow.flush_plain(st), 1)
+    plain_ms = timer(lambda i: ow.flush_plain(st), 3, 4 * TOPN_PREFILL_MS)
+    row_in = BID_ROW_BYTES
+    row_out = BID_ROW_BYTES + 8
+    # scanned positions (P = E): order, valid, partition hash, order key,
+    # argument; emitted positions: the pool row and the old row read, the
+    # out chunk's two halves and the new row written, hash and liveness
+    b20 = bound(E * (8 + 1 + 8 + 8 + 8) + E * row_in + E * row_out
+                + 2 * E * row_out + E * row_out + E * 9, E * 60)
+    print(f"[over_window] exact on q6_bid's state ({n_live} live rows in "
+          f"a pool of {S}, emit {E}, {n_changed} changelog rows); K20 "
+          f"{ms:.4f} ms, the whole flush (keys, sorts, K20, membership) "
+          f"{flush_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b20[0]:.5f} ms", flush=True)
+    out["over_window"] = kernel_entry(
+        "over_window.cu", "risingwave_tpu/stream/over_window.py:169", ms,
+        plain_ms, b20, None, err)
+    out["over_window"].update(flush_ms=flush_ms, shape=(
+        f"pool {S}, emit {E}, {n_live} live, 1 call"))
+
+    # -- K19a: the over-window's clean_below at a third of its date_times
+    ts_col = ow.in_schema.index_of("date_time")
+    col, pcol = st.rows[ts_col], st.prev_rows[ts_col]
+    live_ts = col[st.valid]
+    thr = live_ts.kthvalue(max(1, live_ts.numel() // 3)).values
+    va, pa = st.valid.clone(), st.prev_valid.clone()
+    vb, pb = st.valid.clone(), st.prev_valid.clone()
+    clean_k = top_n.clean_below_cuda if cuda else top_n.clean_below_plain
+    clean_k(col, va, pcol, pa, thr)
+    top_n.clean_below_plain(col, vb, pcol, pb, thr)
+    err19 = max_abs_err(torch, [("topn_clean pool", va, vb),
+                                ("topn_clean band", pa, pb)])
+    n_clean = (int((st.valid != va).sum()), int((st.prev_valid != pa).sum()))
+    ms19 = timer(lambda i: clean_k(col, va, pcol, pa, thr), 50)
+    plain19 = timer(lambda i: top_n.clean_below_plain(col, vb, pcol, pb,
+                                                      thr), 50)
+    # read the column (8 B) and flag (1 B) of every pool and band row;
+    # write the flags that change
+    b19 = bound((S + E) * 9 + sum(n_clean), (S + E) * 2)
+    print(f"[topn_clean] exact ({n_live} -> {int(va.sum())} pool rows, "
+          f"{int(st.prev_valid.sum())} -> {int(pa.sum())} emitted rows of "
+          f"{S} + {E}); kernel {ms19:.4f} ms, plain (the two-op mask "
+          f"expression) {plain19:.4f} ms, bound {b19[0]:.5f} ms", flush=True)
+    out["topn_clean"] = kernel_entry(
+        "topn_clean.cu", "risingwave_tpu/stream/top_n.py:418", ms19,
+        plain19, b19, plain19, err19)
+
+    # -- K1 and K3 on float columns ----------------------------------------
+    n = 8192 // scale
+    fmin = float(torch.finfo(torch.float32).tiny)
+    edges = torch.tensor([0.0, -0.0, float("nan"), -float("nan"),
+                          float("inf"), -float("inf"), 1e-40, -1e-40,
+                          1e-310, -1e-310, 1.5e-38 + 1e-45, 1.0 + 2 ** -60,
+                          3.4e38 * 1.0000001, 1e300, fmin * (1 - 2 ** -30),
+                          -fmin * (1 - 2 ** -30), fmin * (1 - 2 ** -20),
+                          2.5], dtype=torch.float64)
+    x = torch.randn(n, generator=g, dtype=torch.float64) * 10.0 ** \
+        torch.randint(-45, 45, (n,), generator=g).to(torch.float64)
+    x[: 4 * edges.numel()] = edges.repeat(4)
+    null = torch.rand(n, generator=g) < 0.2
+    fcols = [x.to(device), x.to(torch.float32).to(device),
+             NCol(x.to(device), null.to(device))]
+    hk = hash64_columns_cuda(fcols)[0] if cuda else \
+        hash64_columns_plain(fcols)
+    errf = max_abs_err(torch, [("hash64 floats", hk,
+                                hash64_columns_plain(fcols))])
+    hfn = (lambda i: hash64_columns_cuda(fcols)) if cuda else \
+        (lambda i: hash64_columns_plain(fcols))
+    hf_ms = timer(hfn, 200)
+    hf_plain = timer(lambda i: hash64_columns_plain(fcols), 20,
+                     TOPN_PREFILL_MS)
+    # per row: 8 + 4 + 8 + 1 B read, 8 B written; 5 words folded
+    bh = bound(n * 29, n * 5 * 12)
+    print(f"[hash64] exact on {n} float rows (float64, float32, nullable "
+          f"float64; -0.0, NaNs, infinities, subnormals); kernel "
+          f"{hf_ms:.4f} ms, plain {hf_plain:.4f} ms, bound {bh[0]:.5f} ms",
+          flush=True)
+    extras["hash64"] = {"floats": dict(
+        shape=f"{n} rows: float64, float32, nullable float64", ms=hf_ms,
+        plain_ms=hf_plain, bound_ms=bh[0], bound_by=bh[1],
+        max_abs_err=errf)}
+
+    # K3: float64 edge keys into a small table (insert, then a lookup of
+    # -0.0 for +0.0 and subnormals for zero), then the MV's whole-row key
+    def probe_pairs(tag, ta, tb, keys, valid, insert):
+        ra = ta._probe_cuda(keys, valid, insert) if cuda else \
+            ta._probe_plain(keys, valid, insert)
+        rb = tb._probe_plain(keys, valid, insert)
+        pairs = [(f"{tag} {nm}", x, y) for nm, x, y in zip(
+            ("slots", "found", "overflow", "n_over"), ra[1:], rb[1:])]
+        pairs += [(f"{tag} occupied", ta.occupied, tb.occupied)]
+        for j, (x, y) in enumerate(zip(ta.key_cols, tb.key_cols)):
+            if not isinstance(x, torch.Tensor):
+                continue
+            if x.dtype.is_floating_point:
+                x, y = x.view(torch.int64 if x.element_size() == 8
+                              else torch.int32), \
+                    y.view(torch.int64 if y.element_size() == 8
+                           else torch.int32)
+            pairs.append((f"{tag} key {j}", x, y))
+        return pairs, ra
+
+    keys = [torch.cat([edges, edges, x[:1000]]).to(device)]
+    valid = torch.ones(keys[0].shape[0], dtype=torch.bool, device=device)
+    ta = HashTable.create([torch.zeros(1, dtype=torch.float64)], 1 << 12,
+                          device)
+    tb = ta.clone()
+    pairs, _ = probe_pairs("probe float64 insert", ta, tb, keys, valid,
+                           True)
+    # -0.0 for +0.0, +0.0 for -0.0, and a float64 subnormal for 1e-310
+    look = edges.clone()
+    look[0], look[1], look[8] = -0.0, 0.0, -2e-310
+    p2, _ = probe_pairs("probe float64 lookup", ta, tb,
+                        [look.to(device)],
+                        torch.ones(look.numel(), dtype=torch.bool,
+                                   device=device), False)
+    pairs += p2
+    mi = len(job.fragment.executors) - 1
+    mex, mv = job.fragment.executors[mi], job.states[mi]
+    outc = Chunk(res[0], ow._ops_for(device), res[1], ow.out_schema)
+    for i in range(oi + 1, mi):
+        _, outc = job.fragment.executors[i].apply((), outc)
+    mkeys = [outc.column(i) for i in mex.pk_indices]
+    pm, _ = probe_pairs("probe q6 MV key", mv.table.clone(),
+                        mv.table.clone(), mkeys, outc.valid, True)
+    errp = max_abs_err(torch, pairs + pm)
+    tl = mv.table.clone()
+    pfn = (lambda i: tl._probe_cuda(mkeys, outc.valid, False)) if cuda \
+        else (lambda i: tl._probe_plain(mkeys, outc.valid, False))
+    p_ms = timer(pfn, 20)
+    p_plain = timer(lambda i: tl._probe_plain(mkeys, outc.valid, False), 3,
+                    4 * TOPN_PREFILL_MS)
+    nrow = outc.capacity
+    vis = int(outc.valid.sum())
+    # per chunk row: its 32-byte key, valid and start read, slot and flags
+    # written; per visible row one table slot of key bytes and flags
+    bp = bound(nrow * (32 + 1 + 4) + nrow * 6 + vis * 34, nrow * 4)
+    print(f"[probe] exact on float64 edge keys (NaN finds nothing, -0.0 "
+          f"finds +0.0, subnormals find zero) and on q6_bid's MV key "
+          f"(bidder, price, date_time, float64 avg): {vis} visible of "
+          f"{nrow} rows into {mv.table.size}; kernel {p_ms:.4f} ms, plain "
+          f"{p_plain:.4f} ms, bound {bp[0]:.5f} ms", flush=True)
+    extras["probe"] = {"floats": dict(
+        shape=f"{nrow} rows ({vis} visible), 4 key columns with a float64 "
+        f"into {mv.table.size}", ms=p_ms, plain_ms=p_plain,
+        bound_ms=bp[0], bound_by=bp[1], max_abs_err=errp)}
+    del eng, st, base, res, tl, outc, chunk
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, extras
+
+
+def phase_window_parity(torch, device, query: str) -> None:
+    """``query`` at 2 events/s through the engine on ``device`` and on
+    the CPU (plain versions), chunk 256, 10 barriers of 4 chunks: MV rows
+    and every state tensor (both pools, the emitted rows with their
+    float64 averages, the MV) must be equal."""
+    from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    size = 4096 if query == "q6_bid" else 16384
+    cfg = PlannerConfig(chunk_capacity=256, topn_pool_size=size,
+                        topn_emit_capacity=size // 4 if query == "q6_bid"
+                        else size, mv_table_size=1 << 15)
+    engines = []
+    for dev in (device, torch.device("cpu")):
+        eng = Engine(cfg, device=dev)
+        eng.execute(BENCH_SOURCES.replace("'1000000'", "'2'"))
+        eng.execute(QUERY_SQL[query])
+        eng.tick(barriers=10, chunks_per_barrier=4)
+        engines.append(eng)
+    rows = [sorted(tuple(_host_value(v) for v in r) for r in e.execute(
+        "SELECT * FROM bench_mv")) for e in engines]
+    if rows[0] != rows[1] or not rows[0]:
+        fail(f"{query} MV on the card differs from the CPU plain versions")
+    bad = state_mismatches(state_to_numpy(engines[1].jobs[0].states),
+                           engines[0].jobs[0].states)
+    if bad:
+        fail(f"{query} state on the card differs from the CPU: {bad[:5]}")
+    st = engines[0].jobs[0].states[_executor_index(engines[0],
+                                                   "OverWindowExecutor")]
+    print(f"[parity] {query} at 2 events/s, 10 barriers: {len(rows[0])} MV "
+          f"rows and all state equal to the CPU plain versions "
+          f"(over-window pool {int(st.valid.sum())} rows, emitted "
+          f"{int(st.prev_valid.sum())}, overflow {int(st.overflow)})",
+          flush=True)
+
+
+def _mv_columns(eng):
+    """The MV's rows as numpy columns by name, read from its table (one
+    row per occupied slot)."""
+    job = eng.jobs[0]
+    mi = len(job.fragment.executors) - 1
+    mex, mv = job.fragment.executors[mi], job.states[mi]
+    occ = mv.table.occupied
+    return {f.name: v[occ].cpu().numpy()
+            for f, v in zip(mex.out_schema, mv.values)}
+
+
+def _rows_as_bids(bids, mv):
+    """Positions of the MV's rows among the consumed bids (by date_time,
+    unique at 1M events/s), each required to be that bid."""
+    import numpy as np
+
+    ts = bids["ts"]
+    if np.unique(ts).shape[0] != ts.shape[0]:
+        fail("consumed bids share a date_time: the MV check needs them "
+             "unique")
+    order = np.argsort(ts, kind="stable")
+    pos = order[np.clip(np.searchsorted(ts[order], mv["date_time"]), 0,
+                        ts.size - 1)]
+    if not (np.array_equal(ts[pos], mv["date_time"])
+            and np.array_equal(bids["bidder"][pos], mv["bidder"])
+            and np.array_equal(bids["price"][pos], mv["price"])):
+        fail("an MV row is not a consumed bid")
+    return pos
+
+
+def _segment_starts_np(keys):
+    import numpy as np
+
+    first = np.r_[True, keys[1:] != keys[:-1]]
+    return np.maximum.accumulate(np.where(first, np.arange(keys.size), 0))
+
+
+def check_q6_bid(eng, bids) -> str:
+    """One MV row per auction, the bid with the auction's highest price;
+    per bidder, in date_time order, avg is the mean price of the row and
+    the 10 rows before it."""
+    import numpy as np
+
+    mv = _mv_columns(eng)
+    pos = _rows_as_bids(bids, mv)
+    auc, price = bids["auction"], bids["price"]
+    got_auc = auc[pos]
+    all_auc = np.unique(auc)
+    if not np.array_equal(np.sort(got_auc), all_auc):
+        fail(f"q6_bid MV holds {got_auc.size} rows for {all_auc.size} "
+             "auctions, not one per auction")
+    o = np.argsort(auc, kind="stable")
+    seg = np.r_[True, auc[o][1:] != auc[o][:-1]]
+    top = np.maximum.reduceat(price[o], np.flatnonzero(seg))
+    if not np.array_equal(mv["price"], top[np.searchsorted(all_auc,
+                                                           got_auc)]):
+        fail("a q6_bid MV row is not its auction's highest bid")
+    o = np.lexsort((mv["date_time"], mv["bidder"]))
+    p_s = mv["price"][o]
+    start = _segment_starts_np(mv["bidder"][o])
+    idx = np.arange(o.size)
+    lo = np.maximum(idx - 10, start)
+    cs = np.cumsum(p_s)
+    want = (cs - cs[lo] + p_s[lo]).astype(np.float64) / (idx - lo + 1)
+    if not np.array_equal(mv["avg"][o], want):
+        bad = int((mv["avg"][o] != want).sum())
+        fail(f"q6_bid avg differs from numpy's 11-row moving average on "
+             f"{bad} rows")
+    return (f"MV equals numpy's top-1 bid of each of {all_auc.size} "
+            f"auctions over {auc.size} bids, with each bidder's 11-row "
+            f"moving average (exact in float64) over "
+            f"{np.unique(mv['bidder']).size} bidders")
+
+
+def check_ow_bid(eng, bids) -> str:
+    """One MV row per consumed bid; per auction in date_time order:
+    row_number = rank = dense_rank = position + 1 (date_times are
+    unique), lag/lead the neighbouring prices (0 at the ends), running
+    max, sum and count."""
+    import numpy as np
+
+    mv = _mv_columns(eng)
+    n = bids["ts"].size
+    if mv["date_time"].size != n:
+        fail(f"ow_bid MV holds {mv['date_time'].size} rows for {n} bids")
+    pos = _rows_as_bids(bids, mv)
+    if np.unique(pos).size != n:
+        fail("ow_bid MV rows repeat a bid")
+    auc, price, ts = bids["auction"], bids["price"], bids["ts"]
+    o = np.lexsort((ts, auc))
+    a_s, p_s = auc[o], price[o]
+    start = _segment_starts_np(a_s)
+    idx = np.arange(n)
+    rn = idx - start + 1
+    first = rn == 1
+    last = np.r_[a_s[1:] != a_s[:-1], True]
+    prev = np.where(first, 0, np.r_[0, p_s[:-1]])
+    nxt = np.where(last, 0, np.r_[p_s[1:], 0])
+    seg_id = np.cumsum(first)
+    big = seg_id.astype(np.int64) << 40
+    mx = np.maximum.accumulate(p_s + big) - big
+    cs = np.cumsum(p_s)
+    sm = cs - cs[start] + p_s[start]
+    inv = np.empty(n, np.int64)
+    inv[o] = idx                      # bid -> its sorted position
+    at = inv[pos]                     # MV row -> sorted position
+    want = {"rn": rn, "rk": rn, "drk": rn, "prev_price": prev,
+            "next_price": nxt, "max_so_far": mx, "sum_so_far": sm,
+            "n_so_far": rn}
+    for name, w in want.items():
+        if not np.array_equal(mv[name], w[at]):
+            bad = int((mv[name] != w[at]).sum())
+            fail(f"ow_bid {name} differs from numpy on {bad} rows")
+    if not np.array_equal(mv["auction"], auc[pos]):
+        fail("an ow_bid MV row's auction is not its bid's")
+    return (f"MV equals numpy's per-auction row_number, rank, dense_rank, "
+            f"lag, lead, running max, sum and count over {n} bids "
+            f"({np.unique(auc).size} auctions, the largest holding "
+            f"{int(np.bincount(seg_id).max())} bids)")
+
+
+def phase_window_main_path(torch, device, scale, query: str):
+    """q6_bid or ow_bid at the slice's sizes: 9 warm-up barriers, then 32
+    timed barriers of 8 chunks with the launch counters; the live rows of
+    the over-window (and q6_bid's top-N band) recorded at every flush
+    (within the emitted capacity: lossless), the counters audited, the
+    MV checked with numpy.  ow_bid's K20 and whole flush are timed on its
+    final state (pool 2^22)."""
+    from risingwave_tpu_torch import kernels
+
+    eng = _window_engine(torch, device, scale, query, 0)
+    job = eng.jobs[0]
+    oi = _executor_index(eng, "OverWindowExecutor")
+    ow = job.fragment.executors[oi]
+    live = []
+    ow_flush = ow.flush
+
+    def recorded(state, epoch):
+        live.append(state.valid.sum())
+        return ow_flush(state, epoch)
+
+    ow.flush = recorded
+    bands = []
+    if query == "q6_bid":
+        tex = job.fragment.executors[_executor_index(eng,
+                                                     "GroupTopNExecutor")]
+        band_mask = tex._band_mask
+
+        def banded(state):
+            band, ranks = band_mask(state)
+            bands.append(band.sum())
+            return band, ranks
+
+        tex._band_mask = banded
+    eng.tick(barriers=WARMUP_BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.tick(barriers=BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cap = job.source.cap
+    chunks = BARRIERS * CHUNKS_PER_BARRIER
+    rows = chunks * cap
+    rate = rows / dt
+    port = sum(launches.values())
+    print(f"[main] {query} {rows} rows in {dt:.3f} s = {rate:.0f} rows/s; "
+          f"port kernel launches {port / chunks:.2f} per chunk {launches}",
+          flush=True)
+    if device.type == "cuda":
+        per_chunk = profile_window(torch, eng, query)
+        print(f"[main] {query} launches per chunk "
+              f"{'not measured' if per_chunk is None else f'{per_chunk:.1f}'}"
+              f" (all CUDA kernels, profiled window)", flush=True)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    try:
+        eng.tick(barriers=1, chunks_per_barrier=0)
+    except RuntimeError as e:
+        fail(f"{query}: the counter audit raised: {e}")
+    st = job.states[oi]
+    E = ow.emit_capacity
+    peak = int(torch.stack(live).max())
+    counters = [int(s.overflow) for s in job.states if hasattr(s, "overflow")]
+    counters += [int(s.inconsistency) for s in job.states
+                 if hasattr(s, "inconsistency")]
+    late = int(job.states[0].late_rows)
+    if any(counters) or late or peak > E:
+        fail(f"{query}: overflow/inconsistency counters {counters}, late "
+             f"rows {late}, largest over-window pool {peak} of emitted "
+             f"capacity {E}")
+    msg = (f"over-window pool at each of {len(live)} flushes <= {E} "
+           f"(largest {peak})")
+    if bands:
+        top = int(torch.stack(bands).max())
+        if top > tex.emit_capacity:
+            fail(f"{query}: the top-N band reached {top} of "
+                 f"{tex.emit_capacity}")
+        msg += f", top-N band <= {tex.emit_capacity} (largest {top})"
+    print(f"[check] {query} overflow and inconsistency counters 0, no late "
+          f"rows; {msg}: lossless", flush=True)
+    bids = _consumed_bids_full(eng, cap)
+    check = {"q6_bid": check_q6_bid, "ow_bid": check_ow_bid}[query]
+    print(f"[check] {query} {check(eng, bids)}", flush=True)
+    info = dict(pool=ow.pool_size, emit=E, live=int(st.valid.sum()))
+    if query == "ow_bid":
+        S = ow.pool_size
+        if device.type == "cuda":
+            timer = Timer(torch, device)
+            sorted_args = ow.sorted_order_cuda(st)
+            info["ms"] = timer(lambda i: ow.window_rows_cuda(
+                st, *sorted_args), 5, 20.0)
+            info["sort_ms"] = timer(lambda i: ow.sorted_order_cuda(st), 5,
+                                    20.0)
+            info["flush_ms"] = timer(lambda i: ow.flush_cuda(st), 3, 40.0)
+            info["plain_ms"] = timer(lambda i: ow.flush_plain(st), 1, 200.0)
+        # per position: order, valid, hash, order key, the sum/max
+        # arguments, 5 lanes; per row the pool row and old row read, the
+        # out chunk's halves and the new row written
+        row_out = BID_ROW_BYTES + 8 * 8
+        b = bound(S * (8 + 1 + 8 + 8 + 16) + S * BID_ROW_BYTES
+                  + S * row_out + 3 * S * row_out + 9 * S, S * 200)
+        info.update(bound_ms=b[0], bound_by=b[1])
+        times = "not timed in a rehearsal" if "ms" not in info else (
+            f"K20 {info['ms']:.4f} ms, the key launch and sorts "
+            f"{info['sort_ms']:.4f} ms, the whole flush "
+            f"{info['flush_ms']:.4f} ms, plain {info['plain_ms']:.4f} ms")
+        print(f"[over_window] ow_bid's flush at pool {S} ({info['live']} "
+              f"live rows): {times}, bound {b[0]:.5f} ms", flush=True)
+    del eng, st
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, rate, info
+
+
+def phase_window_clean_path(torch, device, scale):
+    """q6_bid with the over-window's watermark cleaning set on the
+    executor (its input's date_time, lag 2 s): no reference plan sets it,
+    so this path is built at the executor level.  9 warm-up barriers,
+    then 8 barriers with the launch counters; afterwards no live pool or
+    emitted row lies below the last threshold."""
+    from risingwave_tpu_torch import kernels
+    from risingwave_tpu_torch.stream.fragment import WM_NONE
+
+    eng = _window_engine(torch, device, scale, "q6_bid", 0)
+    job = eng.jobs[0]
+    oi = _executor_index(eng, "OverWindowExecutor")
+    ow = job.fragment.executors[oi]
+    ts_col = ow.in_schema.index_of("date_time")
+    ow.watermark_col_idx, ow.watermark_lag = ts_col, CLEAN_LAG_US
+    eng.tick(barriers=WARMUP_BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    barriers = 8
+    t0 = time.perf_counter()
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rows = barriers * CHUNKS_PER_BARRIER * job.source.cap
+    wm = job.states[0].max_ts
+    if int(wm) == WM_NONE:
+        fail("q6_bid clean: no watermark was generated")
+    thr = int(wm) - job.fragment.executors[0].delay_us - CLEAN_LAG_US
+    st = job.states[oi]
+    low = int((st.valid & (st.rows[ts_col] < thr)).sum()) + int(
+        (st.prev_valid & (st.prev_rows[ts_col] < thr)).sum())
+    if low or int(st.overflow) or int(st.inconsistency):
+        fail(f"q6_bid clean: {low} live rows below the threshold, overflow "
+             f"{int(st.overflow)}, inconsistency {int(st.inconsistency)}")
+    print(f"[main] q6_bid clean {rows} rows in {dt:.3f} s = {rows / dt:.0f} "
+          f"rows/s; the over-window keeps {int(st.valid.sum())} pool rows "
+          f"and {int(st.prev_valid.sum())} emitted rows, none below the "
+          f"threshold; port kernel launches {launches}", flush=True)
+    del eng, st
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, rows / dt
 
 
 if __name__ == "__main__":

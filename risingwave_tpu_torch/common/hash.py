@@ -5,10 +5,18 @@ Port of the ``hash64_columns`` part of ``risingwave_tpu/common/hash.py``
 and of its split form ``hash64_partial`` / ``hash64_extend`` /
 ``hash64_finish`` (:203-232), which the join's tag table uses to fold a
 key hash once and finish it with a varying rank.
-Kernel A (``csrc/hash64.cu``) computes it on the card, string keys
-included;
+Kernel A (``csrc/hash64.cu``) computes it on the card, string and
+float keys included;
 ``hash64_columns_plain`` is its plain PyTorch version, used for CPU
 tensors and as the card-side reference.
+
+Float keys follow the reference's ``_key_words`` (:72) as XLA's CPU
+runtime computes it, with denormals-are-zero and flush-to-zero set:
+-0.0, +0.0 and every subnormal fold as +0.0 and every NaN as one NaN;
+a float32 folds its bits; a float64 folds two float32 words,
+``hi = f32(x)`` and ``lo = f32(x - f64(hi))``, each rounded to nearest
+with a subnormal result flushed to a zero of its sign (an infinite x
+has the narrowed default NaN of ``inf - inf`` as ``lo``).
 
 Hashes are returned as ``int64`` tensors holding the uint64 bit
 pattern (``.view(np.uint64)`` on the host gives the reference's
@@ -77,17 +85,56 @@ _UNSIGNED_MASK = {torch.int16: 0xFFFF, torch.int32: 0xFFFFFFFF,
                   torch.uint8: 0xFF}
 
 
-def _key_word(col: torch.Tensor) -> torch.Tensor:
+F32_NAN_BITS = 0x7FC00000
+#: the narrowed x86 default NaN (``inf - inf``): an infinity's lo word
+F32_DEFAULT_NAN_BITS = 0xFFC00000
+
+
+def _f32_bits(x32: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits as int64 in [0, 2^32)."""
+    return x32.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _ftz_bits(bits: torch.Tensor) -> torch.Tensor:
+    """float32 bits with a subnormal flushed to a zero of its sign."""
+    return torch.where((bits & 0x7F800000) == 0, bits & 0x80000000, bits)
+
+
+def daz(col: torch.Tensor) -> torch.Tensor:
+    """A float column with subnormals read as +0.0 (the reference's
+    compares run with denormals-are-zero)."""
+    tiny = torch.finfo(col.dtype).tiny
+    return torch.where(col.abs() < tiny, torch.zeros_like(col), col)
+
+
+def float_key_words(col: torch.Tensor) -> list[torch.Tensor]:
+    """A float32 or float64 key column as its int64 words (see the
+    module docstring)."""
+    if col.dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"hash of {col.dtype} keys")
+    nan = torch.isnan(col)
+    col = daz(col)
+    if col.dtype == torch.float32:
+        return [torch.where(nan, F32_NAN_BITS, _f32_bits(col))]
+    hi = _ftz_bits(_f32_bits(col.to(torch.float32)))
+    hi_f = hi.to(torch.int32).view(torch.float32).to(torch.float64)
+    lo = _ftz_bits(_f32_bits((col - hi_f).to(torch.float32)))
+    lo = torch.where(torch.isinf(col), F32_DEFAULT_NAN_BITS, lo)
+    return [torch.where(nan, F32_NAN_BITS, hi),
+            torch.where(nan, F32_NAN_BITS, lo)]
+
+
+def _key_words(col: torch.Tensor) -> list[torch.Tensor]:
     """One fixed-width key column as int64 words: bool -> 0/1, narrower
-    ints zero-extended (the reference views them unsigned first)."""
+    ints zero-extended (the reference views them unsigned first), floats
+    through ``float_key_words``."""
     if col.dtype == torch.bool:
-        return col.to(torch.int64)
+        return [col.to(torch.int64)]
     if col.dtype == torch.int64:
-        return col
+        return [col]
     if col.dtype in _UNSIGNED_MASK:
-        return col.to(torch.int64) & _UNSIGNED_MASK[col.dtype]
-    raise NotImplementedError(
-        f"hash of {col.dtype} keys is not ported yet (floats are queued)")
+        return [col.to(torch.int64) & _UNSIGNED_MASK[col.dtype]]
+    return float_key_words(col)
 
 
 def _fold_str(col: StrCol, state: torch.Tensor) -> torch.Tensor:
@@ -120,7 +167,9 @@ def _fold_plain(col, state: torch.Tensor | None) -> torch.Tensor:
                            device=ref.device)
     if isinstance(col, StrCol):
         return _fold_str(col, state)
-    return mix64(state ^ (_key_word(col) * K1))
+    for w in _key_words(col):
+        state = mix64(state ^ (w * K1))
+    return state
 
 
 def hash64_partial(columns: Sequence) -> torch.Tensor:
@@ -148,11 +197,16 @@ def hash64_finish(state: torch.Tensor) -> torch.Tensor:
     return torch.where(state == -1, torch.full_like(state, -2), state)
 
 
+_FLOAT_KINDS = {torch.float32: kernels.KIND_F32,
+                torch.float64: kernels.KIND_F64}
+
+
 def key_leaves(columns: Sequence) -> list[tuple]:
     """Flatten key columns into fixed-width ``(data, null-or-None, kind)``
     leaves for the kernels' column descriptors: a ``StrCol`` becomes its
     ``[cap, w]`` bytes (``KIND_STR``) and its lens (``KIND_LENS``), both
-    with the column's null plane."""
+    with the column's null plane; float32 and float64 columns are
+    ``KIND_F32`` and ``KIND_F64``."""
     leaves = []
     for col in columns:
         data, null = (col.data, col.null) if isinstance(col, NCol) \
@@ -160,6 +214,10 @@ def key_leaves(columns: Sequence) -> list[tuple]:
         if isinstance(data, StrCol):
             leaves += [(data.data, null, kernels.KIND_STR),
                        (data.lens, null, kernels.KIND_LENS)]
+        elif data.dtype.is_floating_point:
+            if data.dtype not in _FLOAT_KINDS:
+                raise NotImplementedError(f"hash of {data.dtype} keys")
+            leaves.append((data, null, _FLOAT_KINDS[data.dtype]))
         else:
             leaves.append((data, null, kernels.KIND_WORD))
     if not leaves:
@@ -186,9 +244,6 @@ def hash64_columns_cuda(columns: Sequence, size: int | None = None):
     tensors = []
     for k, (data, null, kind) in enumerate(leaves):
         data = data.contiguous()
-        if data.dtype.is_floating_point:
-            raise NotImplementedError(
-                "hash of float keys is not ported yet (queued)")
         nu8 = _null_u8(null)
         tensors += [data] + ([nu8] if nu8 is not None else [])
         cols.width[k] = leaf_width(data)

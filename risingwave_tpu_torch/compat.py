@@ -23,8 +23,10 @@ path rather than by index.
 Every state of the ported plans converts: q7's agg, q5's pane agg,
 retractable final agg and MV, q1's ring (``tests/test_torch_preagg.py``
 carries them into a running port engine), q8's join with pool
-storage on both sides (``tests/test_torch_dag.py``) and the group top-N
-of q19 and q18 (``tests/test_torch_top_n.py``).  Reference-only
+storage on both sides (``tests/test_torch_dag.py``), the group top-N
+of q19 and q18 (``tests/test_torch_top_n.py``) and the over-window, a
+``TopNState`` whose emitted rows carry float64 window outputs
+(``tests/test_torch_over_window_sql.py``).  Reference-only
 features must be empty to convert (materialized-input buckets, DISTINCT
 tables, the spill ring); a dense join side (``SideState``) is refused:
 the port has no counterpart for them yet.

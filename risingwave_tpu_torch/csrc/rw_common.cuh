@@ -9,10 +9,22 @@
 // reads the descriptor from its parameter space.
 //
 // `kind[k]` marks a StrCol key for the hash: RW_KIND_STR on its bytes
-// column k (then column k+1 holds its lens, RW_KIND_LENS); RW_KIND_WORD (0,
-// the zero fill of an unset descriptor) on every fixed-width column.
-// Equality and row copies need no kind: they compare and copy every byte of
-// both columns, the padding past `lens` included.
+// column k (then column k+1 holds its lens, RW_KIND_LENS); RW_KIND_F32 and
+// RW_KIND_F64 on float columns; RW_KIND_WORD (0, the zero fill of an unset
+// descriptor) on every other fixed-width column.  Row copies need no kind,
+// and equality only the float kinds: every other column compares every
+// byte, a string's padding past `lens` included.
+//
+// Float keys hash and compare as the reference does under XLA's CPU
+// runtime, which runs with denormals-are-zero and flush-to-zero set:
+//   - a subnormal input counts as zero, so -0.0, +0.0 and every subnormal
+//     hash as +0.0 and compare equal; NaN hashes as 0x7FC00000 and equals
+//     nothing (IEEE ==);
+//   - float32 folds the bits of the value;
+//   - float64 folds two float32 words, double-double style: hi = f32(x),
+//     lo = f32(x - f64(hi)), each rounded to nearest and a subnormal result
+//     flushed to a zero of its sign; for an infinite x, lo is the x86
+//     default NaN of inf - inf narrowed (0xFFC00000).
 //
 // rw_mix64 / rw_hash_row are the device copy of the reference's 64-bit key
 // hash (risingwave_tpu/common/hash.py `_mix64`, `hash64_columns`,
@@ -23,6 +35,7 @@
 // remapped to ~1.
 #pragma once
 
+#include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -30,6 +43,8 @@
 #define RW_KIND_WORD 0
 #define RW_KIND_STR 1
 #define RW_KIND_LENS 2
+#define RW_KIND_F32 3
+#define RW_KIND_F64 4
 
 struct RwCols {
   int n;
@@ -78,6 +93,37 @@ __device__ __forceinline__ uint64_t rw_fold_str(uint64_t st,
   return rw_mix64(st ^ static_cast<uint64_t>(static_cast<int64_t>(len)));
 }
 
+// A float32 key's word: subnormals and -0.0 as +0.0, NaN as one NaN.
+__device__ __forceinline__ uint32_t rw_f32_word(float x) {
+  if (isnan(x)) return 0x7FC00000u;
+  if (fabsf(x) < FLT_MIN) return 0u;
+  return __float_as_uint(x);
+}
+
+// The bits of a float32 result with a subnormal flushed to a signed zero.
+__device__ __forceinline__ uint32_t rw_ftz_bits(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x7F800000u) == 0u ? (u & 0x80000000u) : u;
+}
+
+// A float64 key's two words (hi, lo).
+__device__ __forceinline__ void rw_f64_words(double x, uint32_t* hi,
+                                             uint32_t* lo) {
+  if (isnan(x)) {
+    *hi = *lo = 0x7FC00000u;
+    return;
+  }
+  if (isinf(x)) {
+    *hi = x > 0.0 ? 0x7F800000u : 0xFF800000u;
+    *lo = 0xFFC00000u;
+    return;
+  }
+  if (fabs(x) < DBL_MIN) x = 0.0;
+  *hi = rw_ftz_bits(__double2float_rn(x));
+  const double r = x - static_cast<double>(__uint_as_float(*hi));
+  *lo = rw_ftz_bits(__double2float_rn(r));
+}
+
 __device__ __forceinline__ uint64_t rw_hash_row(const RwCols& c, int64_t i) {
   uint64_t st = RW_K1;  // seed 0 ^ K1
   for (int k = 0; k < c.n; ++k) {
@@ -89,6 +135,18 @@ __device__ __forceinline__ uint64_t rw_hash_row(const RwCols& c, int64_t i) {
       st = rw_fold_str(st, static_cast<const uint8_t*>(c.in_data[k]) + i * w,
                        w, len);
       ++k;  // the lens column is folded
+    } else if (c.kind[k] == RW_KIND_F32) {
+      const uint32_t w =
+          is_null ? 0u
+                  : rw_f32_word(static_cast<const float*>(c.in_data[k])[i]);
+      st = rw_mix64(st ^ (static_cast<uint64_t>(w) * RW_K1));
+    } else if (c.kind[k] == RW_KIND_F64) {
+      uint32_t hi = 0u, lo = 0u;
+      if (!is_null) {
+        rw_f64_words(static_cast<const double*>(c.in_data[k])[i], &hi, &lo);
+      }
+      st = rw_mix64(st ^ (static_cast<uint64_t>(hi) * RW_K1));
+      st = rw_mix64(st ^ (static_cast<uint64_t>(lo) * RW_K1));
     } else {
       const uint64_t w =
           is_null ? 0ull : rw_load_word(c.in_data[k], c.width[k], i);
@@ -101,9 +159,27 @@ __device__ __forceinline__ uint64_t rw_hash_row(const RwCols& c, int64_t i) {
   return st == ~0ull ? ~1ull : st;
 }
 
-// Byte-equality of row `a` of column k's store and row `b` of its input.
+// A float with a subnormal read as zero (the reference's compares run
+// with denormals-are-zero).
+__device__ __forceinline__ float rw_daz(float x) {
+  return fabsf(x) < FLT_MIN ? 0.0f : x;
+}
+__device__ __forceinline__ double rw_daz(double x) {
+  return fabs(x) < DBL_MIN ? 0.0 : x;
+}
+
+// Equality of row `a` of column k's store and row `b` of its input: IEEE
+// == on float kinds (subnormals as zero), every byte on the others.
 __device__ __forceinline__ bool rw_value_equal(const RwCols& c, int k,
                                                int64_t a, int64_t b) {
+  if (c.kind[k] == RW_KIND_F32) {
+    return rw_daz(static_cast<const float*>(c.st_data[k])[a]) ==
+           rw_daz(static_cast<const float*>(c.in_data[k])[b]);
+  }
+  if (c.kind[k] == RW_KIND_F64) {
+    return rw_daz(static_cast<const double*>(c.st_data[k])[a]) ==
+           rw_daz(static_cast<const double*>(c.in_data[k])[b]);
+  }
   const int w = c.width[k];
   const uint8_t* pa = static_cast<const uint8_t*>(c.st_data[k]) + a * w;
   const uint8_t* pb = static_cast<const uint8_t*>(c.in_data[k]) + b * w;

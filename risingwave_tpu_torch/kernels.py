@@ -59,6 +59,8 @@ SOURCES = {
     "topn_pool": "topn_pool.cu",
     "topn_band": "topn_band.cu",
     "topn_flush": "topn_flush.cu",
+    "topn_clean": "topn_clean.cu",
+    "over_window": "over_window.cu",
     # a host routine (the checkpoint store's crc32c), no kernel
     "crc32c": "crc32c.cpp",
 }
@@ -86,6 +88,8 @@ KERNELS = {
     "topn_pool": "topn_pool",
     "topn_band": "topn_band",
     "topn_flush": "topn_flush",
+    "topn_clean": "topn_clean",
+    "over_window": "over_window",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -96,7 +100,7 @@ LAUNCHES = {name: 0 for name in KERNELS}
 #: max columns in one column descriptor (``RW_MAX_COLS`` in the header)
 MAX_COLS = 16
 #: column kinds of a descriptor (``RW_KIND_*`` in the header)
-KIND_WORD, KIND_STR, KIND_LENS = 0, 1, 2
+KIND_WORD, KIND_STR, KIND_LENS, KIND_F32, KIND_F64 = 0, 1, 2, 3, 4
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -105,8 +109,9 @@ _lock = threading.Lock()
 class RwCols(ctypes.Structure):
     """Mirror of ``struct RwCols`` in ``rw_common.cuh``: up to
     ``MAX_COLS`` fixed-width columns, each with an input side, a store
-    side, optional null planes (uint8) and a kind for the hash
-    (``KIND_STR`` on a string's bytes, ``KIND_LENS`` on its lengths)."""
+    side, optional null planes (uint8) and a kind for the hash and the
+    key compare (``KIND_STR`` on a string's bytes, ``KIND_LENS`` on its
+    lengths, ``KIND_F32`` / ``KIND_F64`` on floats)."""
 
     _fields_ = [
         ("n", ctypes.c_int),

@@ -11,7 +11,7 @@ plans as a ``DagPlan`` and runs as a ``DagJob``, ``_build_dag_job``
     eng.tick(barriers=5, chunks_per_barrier=8)
     eng.execute("SELECT * FROM v ORDER BY window_start LIMIT 10")
 
-Ported statements: CREATE SOURCE (nexmark connector), CREATE
+Ported statements: CREATE SOURCE (nexmark and datagen connectors), CREATE
 MATERIALIZED VIEW, SET, ALTER SYSTEM SET and ``SELECT <columns> FROM
 <mv> [ORDER BY ...] [LIMIT n] [OFFSET n]`` (read on the host).  Every
 other statement raises ``NotImplementedError``.
@@ -50,6 +50,10 @@ from risingwave_tpu_torch.common.config import (
 from risingwave_tpu_torch.common.device import resolve_device
 from risingwave_tpu_torch.common.metrics import MetricsRegistry
 from risingwave_tpu_torch.common.types import Schema
+from risingwave_tpu_torch.connector.datagen import (
+    DatagenReader,
+    declared_schema,
+)
 from risingwave_tpu_torch.connector.nexmark import (
     SCHEMAS,
     NexmarkConfig,
@@ -108,7 +112,7 @@ class Engine:
         self.device = resolve_device(device)
         self.catalog = Catalog()
         self.config = config or PlannerConfig()
-        self.planner = Planner(self.catalog, self.config)
+        self.planner = Planner(self.catalog, self.config, self.device)
         self.jobs: list[StreamingJob | DagJob] = []
         self.system_params = SystemParams()
         self.session_config = SessionConfig()
@@ -183,9 +187,12 @@ class Engine:
     # -- sources ----------------------------------------------------------
     def _create_source(self, stmt: ast.CreateSource):
         connector = stmt.with_options.get("connector")
+        if connector == "datagen" and not stmt.is_table:
+            return self._datagen_source(stmt)
         if connector != "nexmark" or stmt.is_table:
             raise NotImplementedError(
-                f"connector {connector!r} is not ported yet (nexmark is)")
+                f"connector {connector!r} is not ported yet (nexmark and "
+                "datagen are)")
         opts = stmt.with_options
         table = opts.get("nexmark.table", stmt.name)
         base = SCHEMAS[table]
@@ -214,6 +221,20 @@ class Engine:
         if stmt.watermark is not None:
             wm = (schema.index_of(stmt.watermark.column),
                   stmt.watermark.delay.micros)
+        self.catalog.create(
+            CatalogEntry(stmt.name, "source", schema, reader_factory=factory,
+                         watermark=wm, append_only=True, definition=str(stmt)),
+            stmt.if_not_exists)
+        return None
+
+    def _datagen_source(self, stmt: ast.CreateSource):
+        schema, wm = declared_schema(stmt)
+        cap = self.config.chunk_capacity
+        device = self.device
+
+        def factory(split_id: int = 0, num_splits: int = 1):
+            return DatagenReader(schema, cap, split_id, num_splits, device)
+
         self.catalog.create(
             CatalogEntry(stmt.name, "source", schema, reader_factory=factory,
                          watermark=wm, append_only=True, definition=str(stmt)),

@@ -12,6 +12,18 @@ cleaning specs (:2069-2083) and the terminal project + ring (Nexmark
 q8).  The plan shapes built here are the reference's, executor for
 executor.
 
+Window functions (``_build_over_window``, ``_plan_over_window``,
+:1007-1131) plan one ``OverWindowExecutor`` per SELECT (one shared OVER
+clause), with the post-projection and an MV keyed by the whole row; over
+a row_number subquery (the reference's "q6 shape", :1161-1166) the
+over-window follows the group top-N.
+
+The planner knows the device its plans run on.  For CUDA it refuses, as
+``PlanError`` when the MV is created, what the card's kernels cannot run
+although the plain versions can: each executor's ``cuda_refusal`` names
+it (K17's non-integer order keys, K5's string and float group keys and
+value dtypes, K6's min/max over float64, the kernels' column limits).
+
 The group top-N rewrite (:725-832) plans ``SELECT .. FROM (SELECT *,
 ROW_NUMBER() OVER (PARTITION BY p ORDER BY o) rn FROM t) WHERE rn <= k``
 (Nexmark q19, q18) as the reference does: the inner query without its
@@ -23,8 +35,7 @@ TopN of the same executor).
 Not ported yet (``PlanError``/``NotImplementedError``): outer, semi and
 anti joins, dense (bucket) join storage, non-equality ON conditions,
 WHERE or aggregation over a join, nested (multi-way) joins, other
-subqueries, other window functions (over-window), sinks, EMIT ON WINDOW
-CLOSE and MV-on-MV.
+subqueries, sinks, EMIT ON WINDOW CLOSE and MV-on-MV.
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Any
+
+import torch
 
 from risingwave_tpu_torch.common.types import Schema
 from risingwave_tpu_torch.expr.node import Expr, FuncCall as EFuncCall, InputRef
@@ -56,6 +69,10 @@ from risingwave_tpu_torch.stream.hash_join import HashJoinExecutor
 from risingwave_tpu_torch.stream.materialize import (
     AppendOnlyMaterialize,
     MaterializeExecutor,
+)
+from risingwave_tpu_torch.stream.over_window import (
+    OverWindowExecutor,
+    WindowFuncCall,
 )
 from risingwave_tpu_torch.stream.partial_agg import (
     TWO_PHASE_KINDS,
@@ -153,12 +170,33 @@ class PlannerConfig:
 
 
 class Planner:
-    def __init__(self, catalog: Catalog, config: PlannerConfig | None = None):
+    def __init__(self, catalog: Catalog, config: PlannerConfig | None = None,
+                 device="cpu"):
         self.catalog = catalog
         self.config = config or PlannerConfig()
+        #: the device the plans run on: CUDA refuses what its kernels lack
+        self.device = torch.device(device)
 
     def plan(self, select: ast.Select,
              eowc: bool = False) -> "UnaryPlan | DagPlan":
+        plan = self._plan(select, eowc)
+        if self.device.type == "cuda":
+            for ex in self._executors(plan):
+                why = ex.cuda_refusal() if hasattr(ex, "cuda_refusal") \
+                    else None
+                if why is not None:
+                    raise PlanError(f"{why} (on CUDA; the CPU runs it)")
+        return plan
+
+    @staticmethod
+    def _executors(plan) -> list:
+        if isinstance(plan, UnaryPlan):
+            return list(plan.fragment.executors)
+        return [ex for node in plan.nodes
+                for ex in getattr(getattr(node, "fragment", None),
+                                  "executors", ())]
+
+    def _plan(self, select: ast.Select, eowc: bool) -> "UnaryPlan | DagPlan":
         if eowc:
             raise PlanError("EMIT ON WINDOW CLOSE is not ported yet")
         rewritten = self._match_group_topn(select)
@@ -466,14 +504,14 @@ class Planner:
                     group_topn: GroupTopNSpec | None = None) -> UnaryPlan:
         if select.from_ is None:
             raise PlanError("SELECT without FROM is not a streaming job")
-        if any(isinstance(i.expr, ast.WindowCall) for i in select.items):
-            raise PlanError("window functions are not ported yet")
         pin = self._resolve_input(select.from_)
         execs = list(pin.executors)
         scope = pin.scope
         if select.where is not None:
             execs.append(FilterExecutor(scope.schema,
                                         Binder(scope).bind(select.where)))
+        if any(isinstance(i.expr, ast.WindowCall) for i in select.items):
+            return self._plan_over_window(select, pin, execs, scope)
         has_agg = bool(select.group_by) or self._has_agg(select)
         if has_agg and group_topn is not None:
             raise PlanError("row_number subquery over an aggregation is "
@@ -663,13 +701,15 @@ class Planner:
                                             Binder(scope2).bind(c)))
             if any(isinstance(it.expr, ast.WindowCall)
                    for it in spec.outer_items):
-                raise PlanError("window functions over a row_number "
-                                "subquery are not ported yet")
-            proj2 = [(nm, Binder(scope2).bind(e))
-                     for nm, e in self._expand_items(spec.outer_items,
-                                                     scope2)]
-            execs.append(ProjectExecutor(out_schema, proj2))
-            out_schema = execs[-1].out_schema
+                # q6 shape: fn() OVER (...) over the group top-N's output
+                out_schema = self._build_over_window(spec.outer_items,
+                                                     scope2, execs)
+            else:
+                proj2 = [(nm, Binder(scope2).bind(e))
+                         for nm, e in self._expand_items(spec.outer_items,
+                                                         scope2)]
+                execs.append(ProjectExecutor(out_schema, proj2))
+                out_schema = execs[-1].out_schema
             # group-topn output is retractable, keyed by the whole row
             input_append_only = False
             pk_positions = list(range(len(out_schema)))
@@ -698,6 +738,102 @@ class Planner:
         else:
             execs.append(AppendOnlyMaterialize(
                 out_schema, ring_size=self.config.mv_ring_size))
+
+    # -- window functions ---------------------------------------------------
+    def _build_over_window(self, items, scope: Scope, execs: list) -> Schema:
+        """Append an OverWindowExecutor and its post-projection for SELECT
+        items with fn() OVER (...) calls (one shared OVER clause); returns
+        the projected schema."""
+        witems = [(item, item.expr) for item in items
+                  if isinstance(item.expr, ast.WindowCall)]
+        spec = (witems[0][1].partition_by, witems[0][1].order_by,
+                witems[0][1].frame)
+        for _, w in witems[1:]:
+            if (w.partition_by, w.order_by, w.frame) != spec:
+                raise PlanError("all window calls must share one OVER clause")
+        b = Binder(scope)
+        partition = [b.bind(e) for e in spec[0]]
+        order = [(b.bind(oi.expr), oi.descending) for oi in spec[1]]
+        for e in partition + [oe for oe, _ in order]:
+            if e.return_field(scope.schema).nullable:
+                raise PlanError("OVER (...) on nullable partition or order "
+                                "columns is not ported yet")
+        calls = []
+        supported = {"row_number", "rank", "dense_rank", "lag", "lead",
+                     "sum", "count", "avg", "min", "max"}
+        needs_arg = {"lag", "lead", "sum", "avg", "min", "max"}
+        framable = {"sum", "count", "avg"}
+        for idx, (item, w) in enumerate(witems):
+            if w.name not in supported:
+                raise PlanError(f"window function {w.name} not supported")
+            if w.frame is not None:
+                if w.name not in framable:
+                    raise PlanError(f"ROWS frames on {w.name}() OVER are not "
+                                    "supported")
+                if w.frame[1] != 0 or w.frame[0] < 0:
+                    raise PlanError(
+                        "only ROWS BETWEEN n PRECEDING AND CURRENT ROW "
+                        "frames are supported")
+            if w.name in needs_arg and (
+                    not w.args or isinstance(w.args[0], ast.Star)):
+                raise PlanError(f"{w.name}() OVER needs an argument")
+            if w.name in ("lag", "lead") and len(w.args) > 2:
+                raise PlanError("lag/lead default values are not supported")
+            arg = b.bind(w.args[0]) if w.args and not isinstance(
+                w.args[0], ast.Star) else None
+            offset = 1
+            if w.name in ("lag", "lead") and len(w.args) > 1:
+                off_ast = w.args[1]
+                if not (isinstance(off_ast, ast.Literal)
+                        and off_ast.type_name == "int"):
+                    raise PlanError("lag/lead offset must be an integer")
+                offset = off_ast.value
+            calls.append(WindowFuncCall(w.name, arg, offset,
+                                        item.alias or f"{w.name}{idx}",
+                                        frame=w.frame))
+        ow = OverWindowExecutor(
+            scope.schema, partition, order, calls,
+            pool_size=max(self.config.topn_pool_size,
+                          2 * self.config.chunk_capacity),
+            emit_capacity=self.config.topn_emit_capacity)
+        execs.append(ow)
+        # post-projection: inputs by name, window outputs by position
+        out_schema = ow.out_schema
+        n_in = len(scope.schema)
+        proj = []
+        wi = 0
+        post_b = Binder(Scope(out_schema, tuple(scope.qualifiers)
+                              + tuple(None for _ in calls)))
+        for idx, item in enumerate(items):
+            if isinstance(item.expr, ast.WindowCall):
+                proj.append((item.alias or calls[wi].alias,
+                             InputRef(n_in + wi)))
+                wi += 1
+            elif isinstance(item.expr, ast.Star):
+                for ci, f in enumerate(scope.schema):
+                    if not f.name.startswith("_hidden_"):
+                        proj.append((f.name, InputRef(ci)))
+            else:
+                proj.append((item.alias or self._default_name(item.expr, idx),
+                             post_b.bind(item.expr)))
+        execs.append(ProjectExecutor(out_schema, proj))
+        return execs[-1].out_schema
+
+    def _plan_over_window(self, select: ast.Select, pin, execs,
+                          scope) -> UnaryPlan:
+        """SELECT items with fn() OVER (...): one OverWindowExecutor and
+        an MV keyed by the whole row."""
+        if (select.group_by or select.having is not None
+                or select.order_by or select.limit is not None
+                or select.offset):
+            raise PlanError("window functions with GROUP BY/HAVING/ORDER "
+                            "BY/LIMIT in one SELECT are not supported")
+        out_schema = self._build_over_window(select.items, scope, execs)
+        execs.append(MaterializeExecutor(
+            out_schema, pk_indices=list(range(len(out_schema))),
+            table_size=self.config.mv_table_size))
+        return UnaryPlan(pin.reader, Fragment(execs), len(execs) - 1,
+                         append_only=False)
 
     # -- aggregation ------------------------------------------------------
     def _has_agg(self, select: ast.Select) -> bool:

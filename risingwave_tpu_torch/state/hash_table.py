@@ -15,7 +15,9 @@ reference's round-based linear probe (``_probe``): the lowest row index
 wins a contended empty slot, tombstones are skipped and never claimed,
 and rows left after ``min(size + 2, 1024)`` rounds overflow.  String
 keys compare as the reference's ``_keys_equal`` does: every byte of the
-``[size, w]`` store, the padding past ``lens`` included, and ``lens``.  The slot
+``[size, w]`` store, the padding past ``lens`` included, and ``lens``;
+float keys compare with IEEE ``==``, subnormals as zero (the
+reference's compares run with denormals-are-zero).  The slot
 layout is identical to the reference's, so state tensors compare
 element for element.  On the card the probe is kernel B
 (``csrc/probe.cu``); ``_probe_plain`` is its plain PyTorch version.
@@ -37,6 +39,7 @@ import torch
 from risingwave_tpu_torch import kernels
 from risingwave_tpu_torch.common.chunk import NCol, StrCol
 from risingwave_tpu_torch.common.hash import (
+    daz,
     hash64_columns_cuda,
     hash64_columns_plain,
     key_leaves,
@@ -78,6 +81,10 @@ def keys_equal(a, b) -> torch.Tensor:
         return (an & bn) | (~an & ~bn & data_eq)
     if isinstance(a, StrCol):
         return (a.data == b.data).all(dim=-1) & (a.lens == b.lens)
+    if a.dtype.is_floating_point:
+        # IEEE ==, subnormals as zero (the reference's compares run with
+        # denormals-are-zero): -0.0 equals +0.0, NaN equals nothing
+        return daz(a) == daz(b)
     return a == b
 
 

@@ -61,7 +61,7 @@ from risingwave_tpu_torch.common.compact import (
     segmented_sum,
 )
 from risingwave_tpu_torch.common.hash import hash64_columns, key_leaves
-from risingwave_tpu_torch.common.types import Field, Schema
+from risingwave_tpu_torch.common.types import DataType, Field, Schema
 from risingwave_tpu_torch.expr.agg import _ADD_COUNT, AggCall
 from risingwave_tpu_torch.expr.node import Expr
 from risingwave_tpu_torch.state.hash_table import (
@@ -449,6 +449,24 @@ class HashAggExecutor(Executor):
                 p = NCol(p, torch.zeros(1, dtype=torch.bool, device=device))
             protos.append(p)
         return protos
+
+    def cuda_refusal(self) -> str | None:
+        """Why the card's pre-aggregation (K5) and scatter (K6) cannot run
+        this aggregation, or None."""
+        for name, e in self.group_by:
+            t = e.return_field(self.in_schema).data_type
+            if t.is_string or t in (DataType.FLOAT32, DataType.FLOAT64):
+                return (f"GROUP BY on a {t.value} column is not ported to "
+                        "the pre-aggregation kernel (K5)")
+        for agg_idx, ps in self._prim_specs:
+            dt = ps.dtype(self._input_dtype(agg_idx))
+            if dt not in _DTYPES:
+                return (f"{self.aggs[agg_idx].kind} over {dt} values is not "
+                        "ported to the aggregation kernels (K5, K6)")
+            if dt == torch.float64 and ps.mode != "add":
+                return (f"{ps.mode} over float64 is not ported to the "
+                        "aggregation scatter (K6)")
+        return None
 
     def _input_dtype(self, agg_idx: int) -> torch.dtype:
         a = self.aggs[agg_idx]

@@ -4,7 +4,8 @@ Port of ``risingwave_tpu/stream/top_n.py``: ``_order_key`` (:49),
 ``TopNState`` (:85), ``_empty_like_col`` / ``_gather`` / ``_scatter`` /
 ``schema_protos`` (:96-131), ``pool_apply`` (:134) and of
 ``GroupTopNExecutor`` (:194) ``init_state``, ``apply``, ``_band_mask``
-(:295) and ``flush`` (:337).
+(:295), ``flush`` (:337), ``on_watermark`` (:406) and ``clean_below``
+(:418).
 
 State is a pool of ``pool_size`` rows (one store per input column) with
 validity and a row hash, plus the band emitted at the last barrier:
@@ -45,11 +46,14 @@ On the card:
   the out chunk and folds the rank into the hash; after a stable sort
   of each side's hashes, one launch decides the rank-aware multiset
   membership of both sides by binary search (no ``[E, E]`` matrix).
+- K19a ``topn_clean`` (``csrc/topn_clean.cu``) is ``clean_below``: one
+  launch drops the pool rows and the emitted-band rows whose watermark
+  column is below the threshold, a device scalar.
 
 Their plain versions (``pool_apply_plain``, ``band_mask_plain``,
-``band_diff_plain``) serve CPU tensors.  Float, bool and string order
-keys, nullable pool columns and watermark cleaning (``clean_below``)
-are not ported yet.
+``band_diff_plain``, ``clean_below_plain``) serve CPU tensors.  Float,
+bool and string order keys on the card and nullable pool columns are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -432,9 +436,6 @@ def band_keys_cuda(order_cols: Sequence, descending: Sequence[bool],
     if group_cols:
         for k, (d, null, kind) in enumerate(key_leaves(group_cols)):
             d = d.contiguous()
-            if d.dtype.is_floating_point:
-                raise NotImplementedError(
-                    "hash of float keys is not ported yet (queued)")
             nu8 = None if null is None else null.contiguous().view(torch.uint8)
             keep += [t for t in (d, nu8) if t is not None]
             g.width[k] = leaf_width(d)
@@ -527,13 +528,21 @@ def band_diff_plain(rows: tuple, row_hash: torch.Tensor, ranks, band_idx,
         cur_rows = cur_rows + (cur_rank,)
         cur_hash = torch.where(cur_live, cur_hash ^ (cur_rank * K1),
                                torch.zeros_like(cur_hash))
+    out_cols = tuple(_cat(p, c) for p, c in zip(prev_rows, cur_rows))
+    return (out_cols, band_membership_plain(prev_hash, prev_valid, cur_hash,
+                                            cur_live),
+            cur_rows, cur_live, cur_hash)
+
+
+def band_membership_plain(prev_hash, prev_valid, cur_hash, cur_live):
+    """The ``[2E]`` validity of a band diff: the old entries the new band
+    lacks (deletes), then the new entries the old band lacks (inserts),
+    by rank-aware multiset membership of the hashes."""
     ins_side = cur_live & ~_member_plain(cur_hash, cur_live, prev_hash,
                                          prev_valid)
     del_side = prev_valid & ~_member_plain(prev_hash, prev_valid, cur_hash,
                                            cur_live)
-    out_cols = tuple(_cat(p, c) for p, c in zip(prev_rows, cur_rows))
-    return (out_cols, torch.cat([del_side, ins_side]), cur_rows, cur_live,
-            cur_hash)
+    return torch.cat([del_side, ins_side])
 
 
 class _FlushLeaf(ctypes.Structure):
@@ -617,6 +626,20 @@ def band_diff_cuda(rows: tuple, row_hash: torch.Tensor, ranks, band_idx,
     kernels.count_launch("topn_flush")
     kernels.check(fn(g, kernels.stream_ptr(dev)), "topn_flush")
 
+    out_valid = band_membership_cuda(prev_hash, prev_valid, cur_hash,
+                                     cur_live)
+    if out_rank is not None:
+        out_cols.append(out_rank)
+        cur_cols.append(cur_rank)
+    return tuple(out_cols), out_valid, tuple(cur_cols), cur_live, cur_hash
+
+
+def band_membership_cuda(prev_hash, prev_valid, cur_hash, cur_live):
+    """K18's second launch (``rw_topn_flush_diff``) after a stable sort of
+    each side's hashes (``torch.sort``): ``band_membership_plain`` on the
+    card, for any pair of (hash, live) sides of E entries."""
+    E = cur_hash.shape[0]
+    dev = cur_hash.device
     d = _DiffArgs()
     out_valid = torch.empty(2 * E, dtype=torch.bool, device=dev)
     pref = torch.empty((2, E + 1), dtype=torch.int32, device=dev)
@@ -634,11 +657,7 @@ def band_diff_cuda(rows: tuple, row_hash: torch.Tensor, ranks, band_idx,
                        [_DiffArgs, ctypes.c_void_p])
     kernels.count_launch("topn_flush")
     kernels.check(fn(d, kernels.stream_ptr(dev)), "topn_flush")
-
-    if out_rank is not None:
-        out_cols.append(out_rank)
-        cur_cols.append(cur_rank)
-    return tuple(out_cols), out_valid, tuple(cur_cols), cur_live, cur_hash
+    return out_valid
 
 
 def band_diff(rows, row_hash, ranks, band_idx, prev_rows, prev_valid,
@@ -650,6 +669,77 @@ def band_diff(rows, row_hash, ranks, band_idx, prev_rows, prev_valid,
                 prev_hash)
 
 
+def order_keys_cuda_refusal(order_by, schema: Schema) -> str | None:
+    """Why K17's key launch cannot encode these ORDER BY keys (it takes
+    integer columns: no float, bool or string keys), or None."""
+    for e, _ in order_by:
+        t = e.return_field(schema).data_type
+        if not t.is_integral:
+            return (f"ORDER BY on a {t.value} column is not ported to the "
+                    "top-N's key kernel (K17)")
+    return None
+
+
+def schema_leaf_count(schema: Schema) -> int:
+    """Row-major tensors of a row of ``schema`` (a string has two)."""
+    return sum(2 if f.data_type.is_string else 1 for f in schema)
+
+
+# ---------------------------------------------------------------------------
+# K19a: watermark cleaning
+
+
+def clean_below_plain(col, valid, prev_col, prev_valid, threshold) -> None:
+    """Plain PyTorch version of K19a, in place: ``valid &= ~(col <
+    threshold)`` on the pool and on the emitted band."""
+    valid &= ~(col < threshold)
+    prev_valid &= ~(prev_col < threshold)
+
+
+class _CleanArgs(ctypes.Structure):
+    """Mirror of ``struct TopnCleanArgs`` in ``csrc/topn_clean.cu``."""
+
+    _fields_ = [
+        ("col", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+        ("prev_col", ctypes.c_void_p), ("prev_valid", ctypes.c_void_p),
+        ("thr", ctypes.c_void_p), ("width", ctypes.c_int),
+        ("S", ctypes.c_int), ("E", ctypes.c_int),
+    ]
+
+
+_INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def clean_below_cuda(col, valid, prev_col, prev_valid, threshold) -> None:
+    """K19a (``csrc/topn_clean.cu``): one launch, in place; the threshold
+    stays on the card."""
+    if col.dtype not in _INT_DTYPES or prev_col.dtype != col.dtype:
+        raise NotImplementedError(
+            f"watermark cleaning on a {col.dtype} column is not ported to "
+            "CUDA (integer event times are)")
+    thr = torch.as_tensor(threshold, dtype=torch.int64,
+                          device=col.device).reshape(1)
+    valid_u8 = valid.view(torch.uint8)
+    prev_u8 = prev_valid.view(torch.uint8)
+    kernels.require_cuda("topn_clean", col, valid_u8, prev_col, prev_u8, thr)
+    args = _CleanArgs(col.data_ptr(), valid_u8.data_ptr(),
+                      prev_col.data_ptr(), prev_u8.data_ptr(),
+                      thr.data_ptr(), col.element_size(), col.shape[0],
+                      prev_col.shape[0])
+    fn = kernels.entry("topn_clean", "rw_topn_clean",
+                       [_CleanArgs, ctypes.c_void_p])
+    kernels.count_launch("topn_clean")
+    kernels.check(fn(args, kernels.stream_ptr(col.device)), "topn_clean")
+
+
+def clean_below(col, valid, prev_col, prev_valid, threshold) -> None:
+    """Drop the pool and band rows whose column is below ``threshold``
+    (a device scalar or a number), in place; CUDA tensors launch K19a."""
+    impl = clean_below_cuda if valid.device.type == "cuda" \
+        else clean_below_plain
+    impl(col, valid, prev_col, prev_valid, threshold)
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -659,8 +749,11 @@ class GroupTopNExecutor(Executor):
     ``order_by``: (expr, descending) pairs evaluated on the input schema.
     Output = input columns; with ``rank_alias`` set, the 1-based absolute
     row_number is appended (a row whose rank shifts retracts its old
-    (row, rank) pair and emits the new one).  The reference's watermark
-    cleaning (``clean_below``), which no plan sets up, is not ported."""
+    (row, rank) pair and emits the new one).  With ``watermark_col_idx``
+    set, a watermark (from source column ``watermark_src_col``, any when
+    None) drops the rows whose column is below its value minus
+    ``watermark_lag`` (no reference plan sets it; the over-window's
+    ``on_watermark`` calls ``clean_below``)."""
 
     emits_on_apply = False
     emits_on_flush = True
@@ -674,6 +767,9 @@ class GroupTopNExecutor(Executor):
         offset: int = 0,
         pool_size: int = 4096,
         emit_capacity: int = 1024,
+        watermark_col_idx: int | None = None,
+        watermark_lag: int = 0,
+        watermark_src_col: int | None = None,
         append_only: bool = False,
         rank_alias: str | None = None,
     ):
@@ -684,6 +780,9 @@ class GroupTopNExecutor(Executor):
         self.offset = offset
         self.pool_size = pool_size
         self.emit_capacity = emit_capacity
+        self.watermark_col_idx = watermark_col_idx
+        self.watermark_lag = watermark_lag
+        self.watermark_src_col = watermark_src_col
         #: append-only input: flush evicts the rows outside the band
         self.append_only = append_only
         self.rank_alias = rank_alias
@@ -721,6 +820,14 @@ class GroupTopNExecutor(Executor):
         pool_apply(state.rows, state.valid, state.row_hash, chunk,
                    self.pool_size, state.overflow, state.inconsistency)
         return state, None
+
+    def cuda_refusal(self) -> str | None:
+        """Why the card's kernels cannot run this top-N, or None."""
+        n = schema_leaf_count(self.in_schema)
+        if n > kernels.MAX_COLS:
+            return (f"a top-N pool row of {n} column leaves (K16 takes "
+                    f"{kernels.MAX_COLS})")
+        return order_keys_cuda_refusal(self.order_by, self.in_schema)
 
     def band_inputs(self, state: TopNState):
         """(order-key columns, descending flags, group-key columns) of the
@@ -773,3 +880,19 @@ class GroupTopNExecutor(Executor):
             overflow=state.overflow,
             inconsistency=state.inconsistency,
         ), out
+
+    def on_watermark(self, state: TopNState, watermark):
+        if self.watermark_col_idx is None:
+            return state
+        if (self.watermark_src_col is not None
+                and watermark.col_idx != self.watermark_src_col):
+            return state
+        return self.clean_below(state, self.watermark_col_idx,
+                                watermark.value - self.watermark_lag)
+
+    def clean_below(self, state: TopNState, col_idx: int, threshold):
+        """Watermark cleaning, in place: the pool and emitted rows whose
+        column ``col_idx`` is below ``threshold`` leave (K19a)."""
+        clean_below(state.rows[col_idx], state.valid,
+                    state.prev_rows[col_idx], state.prev_valid, threshold)
+        return state

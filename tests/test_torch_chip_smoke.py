@@ -60,6 +60,17 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[check] q19 MV equals numpy", "[check] q18 MV equals numpy",
                 "[check] q19 TopN overflow 0", "[check] q18 TopN overflow 0",
                 "[durable] q7", "[durable] q8", "[durable] q19",
-                "[cold start] q7", "[cold start] q8", "[cold start] q19"):
+                "[cold start] q7", "[cold start] q8", "[cold start] q19",
+                "[over_window] exact on 16 calls of every kind",
+                "[over_window] exact on q6_bid's state",
+                "[topn_clean] exact", "[topn_pool] on the over-window's",
+                "float rows (float64, float32, nullable float64",
+                "[probe] exact on float64 edge keys",
+                "[parity] q6_bid", "[parity] ow_bid",
+                "[check] q6_bid MV equals numpy",
+                "[check] ow_bid MV equals numpy",
+                "[check] q6_bid overflow and inconsistency counters 0",
+                "[check] ow_bid overflow and inconsistency counters 0",
+                "[main] q6_bid clean"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout

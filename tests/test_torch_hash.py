@@ -2,7 +2,12 @@
 
 The same numpy inputs go through ``risingwave_tpu.common.hash`` and
 ``risingwave_tpu_torch.common.hash`` on the CPU.  Tolerance: none — the
-hash is integer arithmetic, so every comparison is bit for bit.
+hash is integer arithmetic, so every comparison is bit for bit.  Float
+keys include -0.0, NaNs of both signs and other payloads, infinities,
+float64 and float32 subnormals, values whose float32 residual (``lo``)
+is subnormal or sits at the float32 normal boundary, and magnitudes past
+float32's range: the reference folds them as XLA's CPU runtime computes
+them, with denormals-are-zero and flush-to-zero set.
 """
 
 import jax.numpy as jnp
@@ -42,6 +47,15 @@ def _cols(kind: str, seed: int):
     if kind == "multi":
         return ([j(i64), JNCol(j(i32), j(null)), j(b)],
                 [t(i64), NCol(t(i32), t(null)), t(b)])
+    if kind.startswith("float"):
+        x = _float_values(rng)
+        if kind == "float32":
+            with np.errstate(all="ignore"):
+                x = x.astype(np.float32)
+        if kind == "float64 nullable":
+            return [JNCol(j(x), j(null)), j(i32)], [NCol(t(x), t(null)),
+                                                    t(i32)]
+        return [j(x)], [t(x)]
     if kind.startswith("strings"):
         # q19/q18's row shape: ints around two strings (16 and 40 bytes,
         # and an odd width), random bytes past each length
@@ -60,9 +74,31 @@ def _cols(kind: str, seed: int):
     raise AssertionError(kind)
 
 
+FLT_MIN = float(np.finfo(np.float32).tiny)
+FLOAT_EDGES = np.array([
+    0.0, -0.0, np.inf, -np.inf, 1e-40, -1e-40, 1e-310, -1e-310, 5e-324,
+    -5e-324, 1.5e-38 + 1e-45, float(np.float32(1.2e-38)) + 3e-46,
+    1.0 + 2.0 ** -60, 1.0 + 2.0 ** -140, 3.4e38 * 1.0000001, 1e300, -1e300,
+    2.5, FLT_MIN * (1 - 2.0 ** -30), -FLT_MIN * (1 - 2.0 ** -30),
+    FLT_MIN * (1 - 2.0 ** -20), FLT_MIN, -FLT_MIN * (1 + 2.0 ** -40)])
+NANS = np.array([0x7FF8000000000000, 0xFFF8000000000000,
+                 0x7FF0000000000001, 0x7FF4000000000123],
+                np.uint64).view(np.float64)
+
+
+def _float_values(rng) -> np.ndarray:
+    """Edge values (repeated, so equal keys meet) and random magnitudes
+    from 1e-45 to 1e45, both signs."""
+    x = rng.standard_normal(N) * 10.0 ** rng.integers(-45, 45, N)
+    edges = np.concatenate([FLOAT_EDGES, NANS])
+    x[: 4 * len(edges)] = np.tile(edges, 4)
+    return x
+
+
 @pytest.mark.parametrize("kind", ["int64", "int32", "int16", "bool",
                                   "int64 nullable", "multi", "strings",
-                                  "strings nullable"])
+                                  "strings nullable", "float64", "float32",
+                                  "float64 nullable"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_hash64_columns_bit_identical(kind, seed):
     jcols, tcols = _cols(kind, seed)
@@ -130,7 +166,8 @@ def test_hash64_all_ones_remapped():
 def test_string_keys_refused_on_cuda_descriptor():
     """String keys reach the kernels' descriptor as two leaves, the bytes
     (marked as a string for the hash) and the lengths, both with the
-    column's null plane; float keys are still refused on CUDA."""
+    column's null plane; float keys as one leaf of a float kind; the CUDA
+    entry refuses tensors that are not on the card."""
     from risingwave_tpu_torch import kernels
 
     s = StrCol(torch.zeros((2, 40), dtype=torch.uint8),
@@ -142,5 +179,23 @@ def test_string_keys_refused_on_cuda_descriptor():
         kernels.KIND_WORD, kernels.KIND_STR, kernels.KIND_LENS]
     assert [thash.leaf_width(d) for d, _, _ in leaves] == [8, 40, 4]
     assert leaves[1][1] is null and leaves[2][1] is null
-    with pytest.raises(NotImplementedError):
+    floats = thash.key_leaves([torch.zeros(2, dtype=torch.float64),
+                               NCol(torch.zeros(2), null)])
+    assert [k for _, _, k in floats] == [kernels.KIND_F64, kernels.KIND_F32]
+    assert floats[1][1] is null
+    with pytest.raises(ValueError, match="CUDA"):
         thash.hash64_columns_cuda([torch.zeros(2, dtype=torch.float64)])
+    with pytest.raises(NotImplementedError):
+        thash.key_leaves([torch.zeros(2, dtype=torch.float16)])
+
+
+def test_float_key_words_canonical():
+    """SQL-equal floats fold to equal words: -0.0 and subnormals as +0.0,
+    every NaN as one NaN (0x7FC00000 in both float64 words)."""
+    x = torch.tensor([0.0, -0.0, 1e-310, -1e-310, float("nan"),
+                      -float("nan")], dtype=torch.float64)
+    hi, lo = thash.float_key_words(x)
+    assert hi.tolist() == [0, 0, 0, 0, 0x7FC00000, 0x7FC00000]
+    assert lo.tolist() == [0, 0, 0, 0, 0x7FC00000, 0x7FC00000]
+    h = thash.hash64_columns([x])
+    assert len(set(h[:4].tolist())) == 1 and h[4] == h[5]

@@ -191,3 +191,37 @@ def test_string_keys_compare_padding_hash_masks_it():
 def test_create_requires_power_of_two():
     with pytest.raises(ValueError):
         HashTable.create([torch.zeros(1, dtype=torch.int64)], 100, "cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_float_keys_compare_with_ieee_equality(dtype):
+    """Float keys compare as the reference's ``==`` under XLA's CPU
+    runtime (denormals-are-zero): -0.0 finds +0.0, a subnormal finds
+    zero, and a NaN key finds nothing, so it claims a new slot every
+    time.  The key stores are compared by bit pattern (NaN != NaN)."""
+    rng = np.random.default_rng(len(dtype))
+    tiny = float(np.finfo(dtype).tiny)
+    special = np.array([0.0, -0.0, tiny / 4, -tiny / 8, np.nan, -np.nan,
+                        np.inf, -np.inf, 1.5, -1.5], dtype)
+    jt = JTable.create([jnp.zeros((1,), dtype)], 1 << 8)
+    tt = state_from_numpy(jax.device_get(jt))
+    for step in range(3):
+        k = rng.choice(special, CAP).astype(dtype)
+        k[::5] = rng.integers(-20, 20, len(k[::5])) / 4.0
+        valid = rng.random(CAP) < 0.9
+        jk, tk = [jnp.asarray(k)], [torch.from_numpy(k)]
+        jt, js, ji, jo = _j_insert(jt, jk, jnp.asarray(valid))
+        tt, ts, ti, to = tt.lookup_or_insert(tk, torch.from_numpy(valid))
+        _assert_rows_equal((js, ji, jo), (ts, ti, to))
+        assert state_mismatches(jax.device_get(jt.occupied), tt.occupied) \
+            == []
+        np.testing.assert_array_equal(
+            np.asarray(jt.key_cols[0]).view(f"int{8 * k.itemsize}"),
+            tt.key_cols[0].numpy().view(f"int{8 * k.itemsize}"))
+    js, jf, jn = _j_lookup(jt, [jnp.asarray(special)],
+                           jnp.ones(len(special), bool))
+    ts, tf, tn = tt.lookup_counted([torch.from_numpy(special)],
+                                   torch.ones(len(special), dtype=torch.bool))
+    _assert_rows_equal((js, jf), (ts, tf))
+    assert tf.tolist()[:4] == [True] * 4 and tf.tolist()[4:6] == [False] * 2
+    assert int(jn) == int(tn)

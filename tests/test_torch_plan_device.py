@@ -1,0 +1,130 @@
+"""The planner refuses, when the MV is planned for CUDA, the DDL whose
+kernels the card lacks, and still plans it for the CPU.
+
+Each case plans one ``CREATE MATERIALIZED VIEW`` twice over the same
+catalog: for the CPU (it plans; the plain versions run it) and for
+``"cuda"`` (``PlanError`` naming the kernel).  Planning allocates
+nothing on the device, so this runs without a GPU.  The shapes the card
+runs (``bench.py``'s queries, q19/q18 and the window queries) plan for
+CUDA unchanged.
+"""
+
+import pytest
+
+from bench import QUERIES, SOURCES
+from risingwave_tpu_torch.sql import Engine
+from risingwave_tpu_torch.sql.parser import parse
+from risingwave_tpu_torch.sql.planner import PlanError, Planner, \
+    PlannerConfig
+
+GEN = """
+CREATE SOURCE t (k BIGINT, f DOUBLE, g REAL, s SMALLINT, b BOOLEAN,
+                 ts TIMESTAMP,
+                 WATERMARK FOR ts AS ts - INTERVAL '1' SECOND)
+WITH (connector = 'datagen');
+"""
+TUMBLE_T = "TUMBLE(t, ts, INTERVAL '10' SECOND)"
+TUMBLE_BID = "TUMBLE(bid, date_time, INTERVAL '10' SECOND)"
+
+
+def _topn(key: str, table: str = "t", part: str = "k") -> str:
+    return (f"SELECT * FROM (SELECT *, ROW_NUMBER() OVER (PARTITION BY "
+            f"{part} ORDER BY {key} DESC) AS rn FROM {table}) WHERE rn <= 2")
+
+
+REFUSED = {
+    # K17: the top-N's and the over-window's order keys are integers
+    "topn_order_by_double": (_topn("f"), "K17"),
+    "topn_order_by_boolean": (_topn("b"), "K17"),
+    "topn_order_by_varchar": (_topn("channel", "bid", "auction"), "K17"),
+    "order_by_limit_real": ("SELECT k, g FROM t ORDER BY g LIMIT 5", "K17"),
+    "over_window_order_by_double": (
+        "SELECT k, row_number() OVER (PARTITION BY k ORDER BY f) AS r "
+        "FROM t", "K17"),
+    "over_window_order_by_varchar": (
+        "SELECT auction, rank() OVER (PARTITION BY auction ORDER BY url) "
+        "AS r FROM bid", "K17"),
+    # K5: string and float group keys
+    "group_by_varchar": (
+        f"SELECT channel, window_start, count(*) AS n FROM {TUMBLE_BID} "
+        "GROUP BY channel, window_start", "K5"),
+    "group_by_double": (
+        f"SELECT f, window_start, count(*) AS n FROM {TUMBLE_T} "
+        "GROUP BY f, window_start", "K5"),
+    # K6: min/max over float64 states
+    "max_double": (
+        f"SELECT window_start, max(f) AS m FROM {TUMBLE_T} "
+        "GROUP BY window_start", "K6"),
+    "min_double": (
+        f"SELECT window_start, min(f) AS m FROM {TUMBLE_T} "
+        "GROUP BY window_start", "K6"),
+    # K5/K6 values of another dtype than int64, int32 and float64
+    "sum_real": (
+        f"SELECT window_start, sum(g) AS m FROM {TUMBLE_T} "
+        "GROUP BY window_start", "K5"),
+    "min_smallint": (
+        f"SELECT window_start, min(s) AS m FROM {TUMBLE_T} "
+        "GROUP BY window_start", "K5"),
+}
+
+PLANNED = {
+    "q1": QUERIES["q1"], "q5": QUERIES["q5"], "q7": QUERIES["q7"],
+    "q8": QUERIES["q8"],
+    "q19": _topn("price", "bid", "auction").replace("rn <= 2", "rn <= 10"),
+    "q6_bid": (
+        "SELECT bidder, price, date_time, AVG(price) OVER (PARTITION BY "
+        "bidder ORDER BY date_time ROWS BETWEEN 10 PRECEDING AND CURRENT "
+        "ROW) AS avg FROM (SELECT *, ROW_NUMBER() OVER (PARTITION BY "
+        "auction ORDER BY price DESC) AS rn FROM bid) WHERE rn <= 1"),
+    "ow_bid": (
+        "SELECT auction, price, lead(price) OVER (PARTITION BY auction "
+        "ORDER BY date_time) AS nxt, sum(price) OVER (PARTITION BY auction "
+        "ORDER BY date_time) AS s FROM bid"),
+    "sum_and_count_double": (
+        f"SELECT window_start, sum(f) AS s, count(*) AS n FROM {TUMBLE_T} "
+        "GROUP BY window_start"),
+}
+
+
+@pytest.fixture(scope="module")
+def engine():
+    eng = Engine(PlannerConfig(chunk_capacity=64), device="cpu")
+    eng.execute(SOURCES.format(rate="1000000"))
+    eng.execute(GEN)
+    return eng
+
+
+def _select(sql: str):
+    if "MATERIALIZED VIEW" not in sql:
+        sql = f"CREATE MATERIALIZED VIEW m AS {sql};"
+    return parse(sql)[0].query
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_cuda_plan_refuses_what_its_kernels_lack(engine, case):
+    sql, kernel = REFUSED[case]
+    select = _select(sql)
+    Planner(engine.catalog, engine.config, "cpu").plan(select)
+    with pytest.raises(PlanError, match=kernel):
+        Planner(engine.catalog, engine.config, "cuda").plan(select)
+
+
+@pytest.mark.parametrize("case", sorted(PLANNED))
+def test_cuda_plans_what_the_card_runs(engine, case):
+    select = _select(PLANNED[case])
+    Planner(engine.catalog, engine.config, "cuda").plan(select)
+    Planner(engine.catalog, engine.config, "cpu").plan(select)
+
+
+def test_engine_refuses_at_create_on_its_device(engine):
+    """The engine's planner takes the engine's device: the refusal comes
+    at CREATE MATERIALIZED VIEW, before any job exists."""
+    assert engine.planner.device.type == "cpu"
+    n = len(engine.jobs)
+    engine.planner.device = engine.planner.device.__class__("cuda")
+    try:
+        with pytest.raises(PlanError, match="K17"):
+            engine.execute(f"CREATE MATERIALIZED VIEW r AS {_topn('f')};")
+    finally:
+        engine.planner.device = engine.planner.device.__class__("cpu")
+    assert len(engine.jobs) == n and "r" not in engine.catalog

@@ -9,8 +9,10 @@ deletes of pool rows and of rows the pool lacks, and more inserts than
 free slots.  Then ``bench.py``'s sources run the published q19 and q18
 (the ROW_NUMBER-in-subquery rewrite) through both ``Engine``s at chunk
 256, pool 4096, emit 1024 and MV table 2^12, and a reference state
-carried into the port mid-run continues identically.  Tolerance: none
-(every value is an integer; hashes compare by bit pattern).
+carried into the port mid-run continues identically; a pool with float
+columns grouped by a float key (-0.0, subnormals, NaN) equals the
+reference byte for byte.  Tolerance: none (every value is an integer or
+a copied float; hashes compare by bit pattern).
 """
 
 import jax
@@ -415,8 +417,15 @@ def test_plain_order_by_limit_topn_and_plan_errors():
     _assert_same_states(jeng, teng)
     with pytest.raises(PlanError):
         teng.execute(
-            "CREATE MATERIALIZED VIEW w AS SELECT auction, ROW_NUMBER() OVER "
-            "(PARTITION BY auction ORDER BY price) AS r FROM bid;")
+            "CREATE MATERIALIZED VIEW w AS SELECT * FROM (SELECT a.id, "
+            "ROW_NUMBER() OVER (PARTITION BY a.seller ORDER BY a.reserve) "
+            "AS r FROM person p JOIN auction a ON p.id = a.seller) "
+            "WHERE r <= 1;")
+    # a window function outside a row_number subquery: an over-window
+    teng.execute(
+        "CREATE MATERIALIZED VIEW w AS SELECT auction, ROW_NUMBER() OVER "
+        "(PARTITION BY auction ORDER BY price) AS r FROM bid;")
+    assert "OverWindowExecutor" in repr(teng.jobs[-1].fragment)
 
 
 @pytest.mark.parametrize("col", [
@@ -433,3 +442,75 @@ def test_cuda_band_refuses_unported_order_keys(col):
                                          torch.ones(4, dtype=torch.bool),
                                          0, 2)
     assert int(band.sum()) == 2 and ranks.tolist() == [1, 2, 3, 4]
+
+
+def _assert_state_bytes(jst, tst):
+    """Every state leaf equal byte for byte (floats by bit pattern, so
+    NaN keys compare too)."""
+    from risingwave_tpu_torch.compat import leaf_paths
+
+    ref, port = leaf_paths(jax.device_get(jst)), leaf_paths(tst)
+    assert [p for p, _ in ref] == [p for p, _ in port]
+    for (path, a), (_, b) in zip(ref, port):
+        a, b = np.asarray(a), b.numpy()
+        assert a.shape == b.shape and a.itemsize == b.itemsize, path
+        np.testing.assert_array_equal(a.reshape(-1).view(np.uint8),
+                                      b.reshape(-1).view(np.uint8),
+                                      err_msg=path)
+
+
+def test_float_columns_and_group_keys_match_reference():
+    """A pool of (a BIGINT, x DOUBLE, y REAL) grouped by x, whose values
+    include -0.0 and +0.0, subnormals and NaN: the row hashes (K16's
+    deletes find rows by them), the group hash of the band (K17) and the
+    flush equal the reference's, byte for byte."""
+    rng = np.random.default_rng(23)
+    names = (("a", "INT64"), ("x", "FLOAT64"), ("y", "FLOAT32"))
+    jschema = JSchema(tuple(JField(n, getattr(JDT, t)) for n, t in names))
+    tschema = Schema(tuple(Field(n, getattr(DataType, t)) for n, t in names))
+    kw = dict(limit=2, pool_size=64, emit_capacity=32, rank_alias="rn")
+    jex = jtop_n.GroupTopNExecutor(jschema, [JRef(1)], [(JRef(0), True)],
+                                   **kw)
+    tex = ttop_n.GroupTopNExecutor(tschema, [InputRef(1)],
+                                   [(InputRef(0), True)], **kw)
+    jst = jex.init_state()
+    tst = state_from_numpy(jax.device_get(jst))
+    xs = np.array([0.0, -0.0, 1e-310, -1e-311, np.nan, 2.5, -2.5, 1e300])
+    held = np.zeros((0, 3))
+    for epoch in range(3):
+        n = 24
+        a = rng.integers(0, 9, n).astype(np.int64)
+        x = rng.choice(xs, n)
+        with np.errstate(over="ignore"):
+            y = rng.choice(xs, n).astype(np.float32)
+        ops = np.zeros(n, np.int8)
+        if len(held):
+            pick = rng.choice(len(held), 4)
+            a[:4], x[:4], y[:4] = held[pick, 0], held[pick, 1], held[pick, 2]
+            ops[:4] = 1
+        held = np.concatenate([held, np.stack([a, x, y], 1)[ops == 0]])
+        jc = JChunk((jnp.asarray(a), jnp.asarray(x), jnp.asarray(y)),
+                    jnp.asarray(ops), jnp.ones(n, bool), jschema)
+        tc = Chunk((torch.from_numpy(a), torch.from_numpy(x),
+                    torch.from_numpy(y)), torch.from_numpy(ops),
+                   torch.ones(n, dtype=torch.bool), tschema)
+        jst, _ = jex.apply(jst, jc)
+        tst, _ = tex.apply(tst, tc)
+        _assert_state_bytes(jst, tst)
+        jband, jranks = jex._band_mask(jst)
+        tband, tranks = tex._band_mask(tst)
+        np.testing.assert_array_equal(np.asarray(jband), tband.numpy())
+        np.testing.assert_array_equal(np.asarray(jranks), tranks.numpy())
+        jst, jout = jex.flush(jst, epoch)
+        tst, tout = tex.flush(tst, epoch)
+        np.testing.assert_array_equal(np.asarray(jout.valid),
+                                      tout.valid.numpy())
+        for ca, cb in zip(jout.columns, tout.columns):
+            ca = np.ascontiguousarray(np.asarray(ca))
+            np.testing.assert_array_equal(ca.view(np.uint8),
+                                          cb.numpy().view(np.uint8))
+        _assert_state_bytes(jst, tst)
+    # -0.0 and +0.0 are one group, the subnormals join them, NaN is one
+    # group of its own: 4 groups of x values, 2 rows each at most
+    assert 0 < int(tst.prev_valid.sum()) <= 2 * 5
+    assert int(tst.inconsistency) == int(np.asarray(jst.inconsistency))
