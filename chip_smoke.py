@@ -2090,8 +2090,7 @@ def _topn_engine(torch, device, scale, query: str, barriers: int):
 
 
 def _topn_index(eng) -> int:
-    return next(i for i, ex in enumerate(eng.jobs[0].fragment.executors)
-                if type(ex).__name__ == "GroupTopNExecutor")
+    return _executor_index(eng, "GroupTopNExecutor")
 
 
 def _topn_planes(tag, st):
@@ -2822,12 +2821,18 @@ def phase_window_kernels(torch, device, timer, scale):
                                    _topn_planes("b", b))])
         note = "exact against the plain version"
         del a, b
+    # the chunk read (payload, hash, op, valid), the claimed rows and
+    # hashes written, the validity scanned
+    b16 = bound(chunk.capacity * (BID_ROW_BYTES + 10)
+                + n_ins * (BID_ROW_BYTES + 9) + S, chunk.capacity * 40)
     print(f"[topn_pool] on the over-window's input, the top-N's flush "
           f"chunk of {chunk.capacity} rows ({n_del} deletes, {n_ins} "
           f"inserts) into a pool of {S} ({int(base.valid.sum())} live): "
-          f"kernel {ms16:.4f} ms; {note}", flush=True)
+          f"kernel {ms16:.4f} ms, bound {b16[0]:.5f} ms; {note}",
+          flush=True)
     extras["topn_pool"] = {"over_window_input": dict(
-        rows=chunk.capacity, deletes=n_del, inserts=n_ins, ms=ms16)}
+        rows=chunk.capacity, deletes=n_del, inserts=n_ins, ms=ms16,
+        bound_ms=b16[0], bound_by=b16[1])}
 
     # -- K20 on the over-window's state after that chunk ------------------
     st, _ = ow.apply(tree_map(torch.clone, base), chunk)

@@ -57,9 +57,8 @@
 #include "rw_common.cuh"
 
 #define OW_MAX_CALLS 16
-#define OW_MAX_LEAVES 24
+#define OW_MAX_LEAVES 16
 #define OW_MAX_LANES 18
-#define OW_MAX_ORDER 8
 #define OW_BLOCK 1024
 
 enum {

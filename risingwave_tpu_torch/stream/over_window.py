@@ -101,7 +101,7 @@ class WindowFuncCall:
                      decimal_scale=f.decimal_scale)
 
 
-def segment_starts(part_sorted: torch.Tensor, valid_sorted: torch.Tensor):
+def _segment_starts(part_sorted: torch.Tensor, valid_sorted: torch.Tensor):
     """New-segment flags and the running segment start of every sorted
     position (invalid rows form one segment under the all-ones key)."""
     n = part_sorted.shape[0]
@@ -135,7 +135,7 @@ def _sum_dtype(dt: torch.dtype) -> torch.dtype:
 # -- K20's entry: mirrors of the structs in csrc/over_window.cu ------------
 
 MAX_CALLS = 16
-MAX_LEAVES = 24
+MAX_LEAVES = kernels.MAX_COLS
 MAX_LANES = MAX_CALLS + 2
 _KINDS = ("row_number", "rank", "dense_rank", "lag", "lead", "sum", "count",
           "avg", "min", "max")
@@ -246,12 +246,6 @@ class OverWindowExecutor(Executor):
             return why
         if len(self.calls) > MAX_CALLS:
             return f"more than {MAX_CALLS} window calls (K20)"
-        for call in self.calls:
-            if call.arg is None or call.kind in ("lag", "lead"):
-                continue
-            t = call.arg.return_field(self.in_schema).data_type
-            if t.is_string or t == DataType.BOOLEAN:
-                return f"{call.kind}() OVER a {t.value} column (K20)"
         return None
 
     # ------------------------------------------------------------------
@@ -286,7 +280,7 @@ class OverWindowExecutor(Executor):
 
         valid_s = state.valid[order]
         part_s = torch.where(valid_s, part[order], torch.full_like(part, -1))
-        is_new, seg_start = segment_starts(part_s, valid_s)
+        is_new, seg_start = _segment_starts(part_s, valid_s)
         idx = torch.arange(S, dtype=torch.int64, device=dev)
         tie_key = torch.zeros(S, dtype=torch.int64, device=dev)
         for k in okeys:
