@@ -25,21 +25,37 @@
    over-window state of a q6_bid engine, K16 timed on the over-window's
    input (the top-N's [2E] flush chunk), and K1/K3 on float keys (-0.0,
    NaNs, infinities, subnormals; the MV key with q6_bid's float64 avg);
+   for the join matrix, on the state of a q101 engine (auctions in a
+   2^22 pool, the aggregation's output in 2^18 x 64 dense buckets) K13d
+   on the aggregation's U-/U+ flush, K14 over the dense build (an
+   auction chunk: pairs and NULL pads) and over the pool build (the
+   flush: pads retracted, pairs), the spill capture on both of the
+   agg's branches with a 4-slot table (the ring fills and overflows),
+   and a dense side's clean_below and rebuild, each against its plain
+   version on CPU copies; then every join type over dense/dense,
+   pool/dense and pool/pool sides with strings, NULLs, duplicates,
+   annihilating pairs, unmatched deletes and full buckets, window by
+   window and state by state, against the CPU;
 3. runs q7, q5 and q1 at 2 events/s, q8 at 10,000 events/s and q19,
    q18, q6_bid and ow_bid at 2 events/s through the port's ``Engine``
    on the card and on the CPU (plain versions, the agg forced onto the
    card's pre-aggregation branch) and requires equal MV or ring rows
-   and equal state, slot for slot;
+   and equal state, slot for slot; q101, q103 and q104 at 10,000
+   events/s with a 16-slot agg table (its spill ring and host tier run),
+   then ``recover()`` and 2 more barriers, with equal tiers too;
 4. runs q1, q5, q7, q8, q19, q18, q6_bid and ow_bid, each in a fresh
    ``Engine`` at ``bench.py``'s sizes (q19/q18/q6_bid with a top-N pool
    of 2^18, an emitted band of 2^16 and an MV table of 2^18; ow_bid
    with an over-window pool and emit capacity of 2^22 and an MV table
-   of 2^23; 9 warm-up barriers, then 32 timed barriers of 8 chunks, or
-   of 8 scheduling rounds of 1 person and 3 auction chunks for q8) with
-   the launch counters set to 0 just before and read just after each
-   timed window, and requires every kernel of that query's path to have
-   launched; then q6_bid with the over-window's watermark cleaning set
-   on the executor (8 timed barriers: K19a on the path);
+   of 2^23; q101, q103 and q104 with join tables of 2^22 / 2^18, bucket
+   64, a pool of 2^22 and an MV of 2^22; 9 warm-up barriers, then 32
+   timed barriers of 8 chunks, or of 8 scheduling rounds of 1 person and
+   3 auction chunks for q8, or of one auction and one bid chunk for the
+   join queries) with the launch counters set to 0 just before and read
+   just after each timed window, and requires every kernel of that
+   query's path to have launched; then q6_bid with the over-window's
+   watermark cleaning set on the executor (8 timed barriers: K19a on
+   the path);
 5. checks each MV against a numpy recomputation over the events the
    port generated: q7's max(price) and count(*) per 10-second window,
    q5's bid count per (auction, hop window), q1's ring rows, q8's ring
@@ -50,7 +66,10 @@
    per-auction window values, every row a consumed bid; for the top-N
    and over-window paths also the overflow and inconsistency counters
    (0) and the band or pool at every flush (within the emitted
-   capacity: lossless);
+   capacity: lossless); q101's MV as every auction with its bids' max
+   (NULL without bids), q103's as the auctions with at least 20 bids,
+   q104's as those with none or at least 20, with the joins' and the
+   agg's loss counters 0 and the spill ring empty;
 6. runs q7, q8 and q19 durably (``Engine(config, data_dir=<temporary
    directory>)``, the same sizes and barriers, a snapshot every 8
    checkpoints through K11 and the background uploader), prints rows/s,
@@ -92,7 +111,8 @@ BARRIERS = 32
 CHUNKS_PER_BARRIER = 8
 WINDOW_US = 10_000_000
 HOP_SLIDE_US = 2_000_000
-QUERIES = ("q1", "q5", "q7", "q8", "q19", "q18", "q6_bid", "ow_bid")
+QUERIES = ("q1", "q5", "q7", "q8", "q19", "q18", "q6_bid", "ow_bid",
+           "q101", "q103", "q104")
 #: the kernels each query's main path must launch
 PATH_KERNELS = {
     "q1": ("nexmark_bids", "ring_append"),
@@ -112,6 +132,20 @@ PATH_KERNELS = {
                "mv_upsert"),
     "ow_bid": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
                "topn_flush", "over_window", "probe", "mv_upsert"),
+    # the join matrix on retractable inputs: auctions in a pool, the
+    # aggregation's output (with its spill capture) in dense buckets
+    "q101": ("nexmark_bids", "nexmark_auctions", "hash64", "agg_preagg",
+             "probe", "agg_scatter", "agg_spill", "mask_indices",
+             "tag_insert_ranked", "tag_probe", "join_update", "join_dense",
+             "join_emit", "mv_upsert"),
+    "q103": ("nexmark_bids", "nexmark_auctions", "hash64", "agg_preagg",
+             "probe", "agg_scatter", "agg_spill", "mask_indices",
+             "tag_insert_ranked", "tag_probe", "join_update", "join_dense",
+             "join_emit", "mv_upsert"),
+    "q104": ("nexmark_bids", "nexmark_auctions", "hash64", "agg_preagg",
+             "probe", "agg_scatter", "agg_spill", "mask_indices",
+             "tag_insert_ranked", "tag_probe", "join_update", "join_dense",
+             "join_emit", "mv_upsert"),
     # q6_bid with the over-window's watermark cleaning set on the
     # executor (no plan sets it): K19a on the path
     "q6_bid clean": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
@@ -255,6 +289,9 @@ def main() -> int:
     results.update(window)
     for name, r in extras.items():
         results[name].update(r)
+    join, emit_extra = phase_join_kernels(torch, device, timer, scale)
+    results.update(join)
+    results["join_emit"].update(emit_extra)
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -267,6 +304,8 @@ def main() -> int:
         phase_topn_parity(torch, device, query)
     for query in WINDOW_QUERIES:
         phase_window_parity(torch, device, query)
+    for query in JOIN_QUERIES:
+        phase_join_parity(torch, device, query)
 
     # -- 4-5. main paths --------------------------------------------------
     rates = {}
@@ -283,6 +322,9 @@ def main() -> int:
             launches, rates[query], info = phase_window_main_path(
                 torch, device, scale, query)
             results["over_window"].setdefault("at_pool", {})[query] = info
+        elif query in JOIN_QUERIES:
+            launches, rates[query] = phase_join_main_path(torch, device,
+                                                          scale, query)
         else:
             launches, rates[query] = phase_main_path(torch, device, scale,
                                                      query)
@@ -1439,10 +1481,9 @@ def phase_q8_kernels(torch, device, timer, scale):
     # -- K14 join_emit: window 0 of the auction chunk probing persons ----
     st = js._replace(right=clone_tree(right))
     st, pending = join.apply_begin(st, achunk, "right")
-    rows, (btable, bpool_pos) = join.build_rows_of(st, "right")
+    rows, index = join.build_rows_of(st, "right")
     out_cap = join.out_capacity
-    args = (rows, btable, bpool_pos, pending, 0, out_cap, "right",
-            join.ops_updown)
+    args = (rows, index, pending, 0, out_cap, join._specs["right"])
     ek = hj.emit_window(*args)
     ep = hj.emit_window_plain(*args)
     from risingwave_tpu_torch.stream.materialize import value_leaves
@@ -2808,7 +2849,13 @@ def phase_window_kernels(torch, device, timer, scale):
                                   clones[i].inconsistency), 5)
     del clones
     note = "not compared (the plain version's match matrix is too large)"
+    ms16_plain = None
     if n_del * S <= 1 << 30:
+        pclones = [tree_map(torch.clone, base) for _ in range(3)]
+        ms16_plain = timer(lambda i: top_n.pool_apply_plain(
+            pclones[i].rows, pclones[i].valid, pclones[i].row_hash, chunk,
+            S), 2)
+        del pclones
         a, b = tree_map(torch.clone, base), tree_map(torch.clone, base)
         pool_k(a.rows, a.valid, a.row_hash, chunk, S, a.overflow,
                a.inconsistency)
@@ -2828,11 +2875,12 @@ def phase_window_kernels(torch, device, timer, scale):
     print(f"[topn_pool] on the over-window's input, the top-N's flush "
           f"chunk of {chunk.capacity} rows ({n_del} deletes, {n_ins} "
           f"inserts) into a pool of {S} ({int(base.valid.sum())} live): "
-          f"kernel {ms16:.4f} ms, bound {b16[0]:.5f} ms; {note}",
-          flush=True)
+          f"kernel {ms16:.4f} ms, plain "
+          f"{'not measured' if ms16_plain is None else f'{ms16_plain:.4f} ms'}"
+          f", bound {b16[0]:.5f} ms; {note}", flush=True)
     extras["topn_pool"] = {"over_window_input": dict(
         rows=chunk.capacity, deletes=n_del, inserts=n_ins, ms=ms16,
-        bound_ms=b16[0], bound_by=b16[1])}
+        plain_ms=ms16_plain, bound_ms=b16[0], bound_by=b16[1])}
 
     # -- K20 on the over-window's state after that chunk ------------------
     st, _ = ow.apply(tree_map(torch.clone, base), chunk)
@@ -3317,6 +3365,827 @@ def phase_window_clean_path(torch, device, scale):
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return launches, rows / dt
+
+
+# ---------------------------------------------------------------------------
+# q101, q103, q104: the join matrix on retractable inputs (K13d, K14 over
+# dense builds with pads and semi/anti rows, the agg's spill capture)
+
+
+#: bench.py's bid source and its auction source with item_name and category
+JOIN_SOURCES = """
+CREATE SOURCE bid (
+    auction BIGINT, bidder BIGINT, price BIGINT,
+    channel VARCHAR, url VARCHAR, date_time TIMESTAMP,
+    WATERMARK FOR date_time AS date_time - INTERVAL '4' SECOND
+) WITH (connector = 'nexmark', nexmark.table = 'bid',
+        nexmark.event.rate = '1000000');
+CREATE SOURCE auction (
+    id BIGINT, item_name VARCHAR, seller BIGINT, reserve BIGINT,
+    expires TIMESTAMP, date_time TIMESTAMP, category BIGINT,
+    WATERMARK FOR date_time AS date_time - INTERVAL '4' SECOND
+) WITH (connector = 'nexmark', nexmark.table = 'auction',
+        nexmark.event.rate = '1000000');
+"""
+#: RisingWave's Nexmark q101, q103 and q104, as published
+JOIN_QUERY_SQL = {
+    "q101": """
+CREATE MATERIALIZED VIEW nexmark_q101 AS
+SELECT
+    a.id AS auction_id,
+    a.item_name AS auction_item_name,
+    b.max_price AS current_highest_bid
+FROM auction a
+LEFT OUTER JOIN (
+    SELECT
+        b1.auction,
+        MAX(b1.price) max_price
+    FROM bid b1
+    GROUP BY b1.auction
+) b ON a.id = b.auction;
+""",
+    "q103": """
+CREATE MATERIALIZED VIEW nexmark_q103 AS
+SELECT
+    a.id AS auction_id,
+    a.item_name AS auction_item_name
+FROM auction a
+WHERE a.id IN (
+    SELECT b.auction FROM bid b
+    GROUP BY b.auction
+    HAVING COUNT(*) >= 20
+);
+""",
+    "q104": """
+CREATE MATERIALIZED VIEW nexmark_q104 AS
+SELECT
+    a.id AS auction_id,
+    a.item_name AS auction_item_name
+FROM auction a
+WHERE a.id NOT IN (
+    SELECT b.auction FROM bid b
+    GROUP BY b.auction
+    HAVING COUNT(*) < 20
+);
+""",
+}
+JOIN_QUERIES = ("q101", "q103", "q104")
+#: bench.py's PlannerConfig (join tables 2^22 left and 2^18 right, bucket
+#: 64, pool 2^22, out capacity 4096), the MV at 2^22: q101 and q104 hold
+#: every auction of the run (41 barriers x 8 x 8192 = 2,686,976)
+JOIN_CONFIG = dict(BENCH_CONFIG, join_left_table_size=1 << 22,
+                   join_right_table_size=1 << 18, join_pool_size=1 << 22,
+                   join_out_capacity=1 << 12, mv_table_size=1 << 22)
+#: the sources' SQL names in each query's DagJob (auction, bid)
+JOIN_SOURCE_NAMES = {"q101": ("a", "b1"), "q103": ("a", "b"),
+                     "q104": ("a", "b")}
+#: auction columns regenerated for the checks: id, item_name, date_time
+JOIN_AUCTION_COLS = (0, 1, 5)
+
+
+def _join_config(scale: int, over=None) -> dict:
+    cfg = {k: max(v // scale, 64) for k, v in JOIN_CONFIG.items()}
+    cfg.update(over or {})
+    return cfg
+
+
+def _join_engine(torch, device, scale, query: str, barriers: int,
+                 over=None):
+    """A ``query`` engine at the slice's sizes (divided by ``scale``)
+    after ``barriers`` barriers of 8 rounds (an auction and a bid chunk
+    each)."""
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    eng = Engine(PlannerConfig(**_join_config(scale, over)), device=device)
+    eng.execute(JOIN_SOURCES)
+    eng.execute(JOIN_QUERY_SQL[query])
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
+    eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    return eng
+
+
+def _col_planes(tag, col):
+    """(name, tensor) of a column's planes: payload, lengths, nulls."""
+    from risingwave_tpu_torch.common.chunk import NCol, StrCol
+
+    if isinstance(col, NCol):
+        return _col_planes(tag, col.data) + [(f"{tag} null", col.null)]
+    if isinstance(col, StrCol):
+        return [(f"{tag} bytes", col.data), (f"{tag} lens", col.lens)]
+    return [(tag, col)]
+
+
+def _window_pairs(tag, a, b):
+    """Plane pairs of two emission windows (kernel, plain), on the card."""
+    dev = a[1].device
+    pairs = [(f"{tag} ops", a[1], b[1].to(dev)),
+             (f"{tag} valid", a[2], b[2].to(dev)),
+             (f"{tag} probe_bound", a[3], b[3].to(dev))]
+    for ci, (ca, cb) in enumerate(zip(a[0], b[0])):
+        pa, pb = _col_planes(f"{tag} column {ci}", ca), \
+            _col_planes(f"{tag} column {ci}", cb)
+        if len(pa) != len(pb):
+            fail(f"{tag} column {ci}: planes differ")
+        pairs += [(n, x, y.to(dev)) for (n, x), (_, y) in zip(pa, pb)]
+    return pairs
+
+
+def _state_equal(tag, card, cpu) -> None:
+    from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
+
+    bad = state_mismatches(state_to_numpy(cpu), card)
+    if bad:
+        fail(f"{tag}: the card's state differs from the CPU plain "
+             f"version: {bad[:5]}")
+
+
+#: the edge-case schemas: strings on both sides, a nullable right column
+EDGE_LEFT = (("k", "INT64", False, 0), ("a", "INT64", False, 0),
+             ("s", "VARCHAR", False, 8))
+EDGE_RIGHT = (("k", "INT64", False, 0), ("b", "INT64", True, 0),
+              ("t", "VARCHAR", False, 8))
+
+
+def _edge_schema(cols):
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+
+    return Schema(tuple(Field(n, getattr(DataType, t), nullable=nl,
+                              **({"str_width": w} if w else {}))
+                        for n, t, nl, w in cols))
+
+
+def _edge_script(rng, left_dense: bool, right_dense: bool):
+    """Chunks of (side, rows, ops) over keys 0..5: duplicates of one
+    value, a delete and an insert of one value in one chunk, deletes
+    with no stored match and full 4-deep buckets on the dense sides; a
+    pool side only appends."""
+    live = {"left": [], "right": []}
+    script = []
+    for step in range(10):
+        side = "left" if step % 2 == 0 else "right"
+        dense = left_dense if side == "left" else right_dense
+        rows, ops = [], []
+        for _ in range(int(rng.integers(3, 10))):
+            k = int(rng.integers(0, 6))
+            v = int(rng.integers(0, 3))
+            row = (k, v, f"x{v}") if side == "left" else (
+                k, None if v == 2 else v, f"y{k}")
+            rows.append(row)
+            ops.append(0)
+        if dense:
+            if live[side]:
+                for i in rng.choice(len(live[side]),
+                                    min(3, len(live[side])), replace=False):
+                    rows.append(live[side][int(i)])
+                    ops.append(1)
+            rows.append(rows[0])       # the first insert annihilates
+            ops.append(1)
+            if step % 3 == 1:          # a delete with no stored match
+                rows.append((9, 9, "zz") if side == "left"
+                            else (9, None, "zz"))
+                ops.append(1)
+        for r, o in zip(rows, ops):
+            if o == 0:
+                live[side].append(r)
+            elif r in live[side]:
+                live[side].remove(r)
+        script.append((side, rows, ops))
+    return script
+
+
+def phase_join_edge_cases(torch, device) -> str:
+    """Every join type over dense/dense, pool/dense and pool/pool sides
+    on the card against the CPU plain versions, chunk by chunk: K13d on
+    the dense sides, K12/K13 on the pool sides and every K14 window
+    (pads, semi/anti columns, transitions), strings and NULLs included,
+    buckets of 4 (full), windows of 8 rows; every window plane and every
+    state tensor must be equal."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import Chunk
+    from risingwave_tpu_torch.expr.node import InputRef
+    from risingwave_tpu_torch.stream import hash_join as hj
+
+    ls, rs = _edge_schema(EDGE_LEFT), _edge_schema(EDGE_RIGHT)
+    cpu = torch.device("cpu")
+    n_windows = n_chunks = 0
+    over = inc = 0
+    for storage in ("dense_dense", "pool_dense", "pool_pool"):
+        lst, rst = storage.split("_")
+        script = _edge_script(np.random.default_rng(len(storage)),
+                              lst == "dense", rst == "dense")
+        for jt in hj.JOIN_TYPES:
+            ex = hj.HashJoinExecutor(
+                ls, rs, [InputRef(0)], [InputRef(0)], table_size=16,
+                bucket_cap=4, out_capacity=8, join_type=jt,
+                left_storage=lst, right_storage=rst, left_pool_size=256,
+                right_pool_size=256)
+            sk, sp = ex.init_state(device), ex.init_state(cpu)
+            for side, rows, ops in script:
+                schema = ls if side == "left" else rs
+                arrays = [np.array([r[i] for r in rows], object)
+                          for i in range(3)]
+                opa = np.asarray(ops, np.int8)
+                ck = Chunk.from_numpy(schema, arrays, ops=opa, capacity=16,
+                                      device=device)
+                cp = Chunk.from_numpy(schema, arrays, ops=opa, capacity=16)
+                sk, pk = ex.apply_begin(sk, ck, side)
+                sp, pp = ex.apply_begin(sp, cp, side)
+                total = int(pp.total)
+                if int(pk.total) != total:
+                    fail(f"join edge cases {jt} {storage}: emission "
+                         f"totals differ")
+                bk, bp = ex.build_rows_of(sk, side), ex.build_rows_of(sp,
+                                                                      side)
+                pairs = []
+                for w in range(max(1, -(-total // 8))):
+                    ok_, bound_k = ex.emit_window(bk, pk, w, side)
+                    op_, bound_p = ex.emit_window(bp, pp, w, side)
+                    pairs += _window_pairs(
+                        f"{jt} {storage} window {w}",
+                        (ok_.columns, ok_.ops, ok_.valid, bound_k),
+                        (op_.columns, op_.ops, op_.valid, bound_p))
+                    n_windows += 1
+                max_abs_err(torch, pairs)
+                _state_equal(f"join edge cases {jt} {storage}", sk,
+                             sp)
+                n_chunks += 1
+            for s_ in (sp.left, sp.right):
+                over += int(s_.overflow)
+                inc += int(s_.inconsistency)
+    msg = (f"{n_chunks} chunks, {n_windows} windows over 8 join types x "
+           f"(dense/dense, pool/dense, pool/pool): every window plane and "
+           f"state tensor equal (overflow {over}, inconsistency {inc} on "
+           f"both)")
+    if not (over and inc):
+        fail(f"join edge cases reached no full bucket or no unmatched "
+             f"delete: {msg}")
+    print(f"[join_dense] exact on the edge cases: {msg}", flush=True)
+    return msg
+
+
+def _inverse(torch, chunk):
+    """The chunk with every op inverted (Insert <-> Delete, U- <-> U+)."""
+    from risingwave_tpu_torch.common.chunk import Chunk
+
+    flip = torch.tensor([1, 0, 3, 2], dtype=torch.int8, device=chunk.device)
+    return Chunk(chunk.columns, flip[chunk.ops.to(torch.int64)],
+                 chunk.valid, chunk.schema)
+
+
+def phase_join_kernels(torch, device, timer, scale):
+    """K13d, K14 over a dense build and over a pool build with
+    transitions, the spill capture and a dense side's clean and rebuild,
+    at q101's main-path shapes: the state of a q101 engine at the slice's
+    sizes after 6 barriers, its next auction chunk, the next bid chunk
+    through the aggregation and the aggregation's flush (U-/U+ pairs)
+    into the dense side, each kernel against its plain version on CPU
+    copies (plain times on the card).  Then the edge cases."""
+    from risingwave_tpu_torch.common.hash import hash64_columns
+    from risingwave_tpu_torch.common.tree import tree_map
+    from risingwave_tpu_torch.stream import hash_agg as ha
+    from risingwave_tpu_torch.stream import hash_join as hj
+    from risingwave_tpu_torch.stream.spill import chunk_to
+
+    cpu = torch.device("cpu")
+
+    def clone(t):
+        return tree_map(torch.clone, t)
+
+    def to_cpu(t):
+        return tree_map(lambda x: x.to(cpu, copy=True), t)
+
+    eng = _join_engine(torch, device, scale, "q101", 6)
+    job = eng.jobs[0]
+    join = job.nodes[3].join
+    src_a, src_b = JOIN_SOURCE_NAMES["q101"]
+    # the next barrier: its auction chunks go to the pool, its bid chunks
+    # through the aggregation, whose flush is the dense side's input
+    states = list(clone(job.states))
+    for _ in range(CHUNKS_PER_BARRIER):
+        _, achunk = job.nodes[0].fragment.step(
+            states[0], job.sources[src_a].next_chunk())
+        _, bchunk = job.nodes[1].fragment.step(
+            states[1], job.sources[src_b].next_chunk())
+        states[2], _ = job.nodes[2].fragment.step(states[2], bchunk)
+    _, outs = job.nodes[2].fragment.flush(states[2], job.epoch.curr.value)
+    rchunk = outs[0]
+    cap = rchunk.capacity
+    right = job.states[3].right
+    B = right.occupied.shape[1]
+    out = {}
+
+    # -- K13d join_dense: the agg's flush into the dense side -------------
+    key_cols, null_keys = hj._null_stripped_keys(
+        [e.eval(rchunk) for e in join.right_keys])
+    h = hash64_columns(key_cols)
+    rc_cpu = chunk_to(rchunk, cpu)
+    kc_cpu, nk_cpu = hj._null_stripped_keys(
+        [e.eval(rc_cpu) for e in join.right_keys])
+    sk, sp = clone(right), to_cpu(right)
+    hj.update_side_dense(sk, rchunk, key_cols, null_keys, h)
+    hj.update_side_dense_plain(sp, rc_cpu, kc_cpu, nk_cpu,
+                               hash64_columns(kc_cpu))
+    _state_equal("join_dense on q101's flush", sk, sp)
+    signs = rchunk.signs()
+    n_del = int((rchunk.valid & (signs < 0)).sum())
+    n_ins = int((rchunk.valid & (signs > 0)).sum())
+    live = int(sp.count.sum())
+    keys = int(sp.key_table.occupied.sum())
+    inv = _inverse(torch, rchunk)
+    work = clone(right)
+    fwd = hj.dense_update_args_cuda(work, rchunk, key_cols, null_keys, h) \
+        if device.type == "cuda" else None
+    n_it = 21
+    if device.type == "cuda":
+        hj.join_dense_cuda(work, rchunk, *fwd)
+        back = hj.dense_update_args_cuda(work, inv, key_cols, null_keys, h)
+        upd_ms = timer(lambda i: hj.join_dense_cuda(
+            work, *((inv, *back) if (i - n_it) % 2 == 0
+                    else (rchunk, *fwd))), n_it)
+        ins, dels = rchunk.valid & (signs > 0), rchunk.valid & (signs < 0)
+        cancel_ms = timer(lambda i: hj.dense_cancel_cuda(fwd[0], ins, dels),
+                          200)
+        sort_ms = timer(lambda i: torch.sort(hj._sort_key(
+            fwd[0], ins | dels), stable=True), 200)
+        cancel_ms -= sort_ms
+        ms = upd_ms + cancel_ms
+    else:
+        upd_ms = cancel_ms = sort_ms = 0.0
+        ms = timer(lambda i: None, 1)
+    whole = clone(right)
+    whole_ms = timer(lambda i: hj.update_side_dense(
+        whole, rchunk if (i - n_it) % 2 == 0 else inv, key_cols, null_keys,
+        h), n_it)
+    pwork = clone(right)
+    plain_ms = timer(lambda i: hj.update_side_dense_plain(
+        pwork, rchunk if (i - 5) % 2 == 0 else inv, key_cols, null_keys, h),
+        5)
+    row_bytes = 16
+    # per row: 4 flags, slots and ranks 16 B, the row hash 8 B; a delete
+    # reads its bucket's B occupancy bytes and hashes the live rows there
+    # (one per key here), an insert reads B bytes and writes its row
+    nbytes = cap * 28 + n_del * (B + live / max(keys, 1) * row_bytes + 5) \
+        + n_ins * (B + row_bytes + 5)
+    b = bound(nbytes, n_del * (live / max(keys, 1)) * 2 * 12)
+    print(f"[join_dense] exact (q101's flush: {n_del} deletes, {n_ins} "
+          f"inserts into {keys} keys x {B}); kernel {ms:.4f} ms "
+          f"(annihilation {cancel_ms:.4f} + update {upd_ms:.4f}; the sort "
+          f"before the annihilation {sort_ms:.4f} ms apart), whole "
+          f"update with K1/K3/ranks {whole_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b[0]:.5f} ms", flush=True)
+    out["join_dense"] = kernel_entry(
+        "join_dense.cu", "risingwave_tpu/stream/hash_join.py:492", ms,
+        plain_ms, b, None, 0.0)
+    out["join_dense"].update(whole_update_ms=whole_ms, sort_ms=sort_ms,
+                             annihilation_ms=cancel_ms, update_ms=upd_ms)
+    del work, whole, pwork
+
+    # -- K14 over the dense build: the auction chunk probes the bids' max -
+    st = clone(job.states[3])
+    st, pend = join.apply_begin(st, achunk, "left")
+    rows, index = join.build_rows_of(st, "left")
+    occ = index[1]
+    pend = pend._replace(rank_to_idx=hj.rank_to_idx_of(
+        occ[pend.slots.to(torch.int64)] & (pend.m > 0)[:, None]))
+    spec = join._specs["left"]
+    out_cap = join.out_capacity
+    rows_c, index_c, pend_c = to_cpu(rows), ("dense", occ.cpu()), \
+        to_cpu(pend)
+    total = int(pend.total)
+    pairs = []
+    for w in range(-(-total // out_cap)):
+        ek = hj.emit_window(rows, index, pend, w, out_cap, spec)
+        ep = hj.emit_window_plain(rows_c, index_c, pend_c, w, out_cap, spec)
+        pairs += _window_pairs(f"dense build window {w}", ek, ep)
+    err = max_abs_err(torch, pairs)
+    n_pairs, n_pads = int(pend.P), int(pend.S)
+    dms = timer(lambda i: hj.emit_window(rows, index, pend, 0, out_cap,
+                                         spec), 200)
+    dplain_ms = timer(lambda i: hj.emit_window_plain(
+        rows, index, pend, 0, out_cap, spec), 5)
+    # per output row: 45 B of columns written and read (id, item_name,
+    # the max and its null flag), the bucket's B occupancy bytes, ~3 x 13
+    # binary-search reads of 4 B
+    db = bound(out_cap * (2 * 45 + B + 3 * 13 * 4), out_cap * 120)
+    print(f"[join_emit] exact over a dense build ({total} outputs of an "
+          f"auction chunk: {n_pairs} pairs, {n_pads} NULL-padded rows); "
+          f"kernel {dms:.4f} ms a window, plain {dplain_ms:.4f} ms, bound "
+          f"{db[0]:.5f} ms", flush=True)
+
+    # -- K14 over the pool build: the flush probes the auctions ----------
+    st2 = clone(job.states[3])
+    st2, pend2 = join.apply_begin(st2, rchunk, "right")
+    rows2, index2 = join.build_rows_of(st2, "right")
+    spec2 = join._specs["right"]
+    rows2_c = to_cpu(rows2)
+    index2_c = ("pool", to_cpu(index2[1]), index2[2].cpu())
+    pend2_c = to_cpu(pend2)
+    total2 = int(pend2.total)
+    pairs = []
+    for w in range(max(1, -(-total2 // out_cap))):
+        ek = hj.emit_window(rows2, index2, pend2, w, out_cap, spec2)
+        ep = hj.emit_window_plain(rows2_c, index2_c, pend2_c, w, out_cap,
+                                  spec2)
+        pairs += _window_pairs(f"pool build window {w}", ek, ep)
+    err = max(err, max_abs_err(torch, pairs))
+    n_up, n_down = int(pend2.U), int(pend2.down_end[-1])
+    pms = timer(lambda i: hj.emit_window(rows2, index2, pend2, 0, out_cap,
+                                         spec2), 200)
+    pplain_ms = timer(lambda i: hj.emit_window_plain(
+        rows2, index2, pend2, 0, out_cap, spec2), 5)
+    pb = bound(out_cap * (2 * 45 + 8 + 4 + 3 * 13 * 4), out_cap * 120)
+    print(f"[join_emit] exact over a pool build with transitions ({total2} "
+          f"outputs of the flush: {n_up} pads retracted, {int(pend2.P)} "
+          f"pairs, {n_down} returned); kernel {pms:.4f} ms a window, plain "
+          f"{pplain_ms:.4f} ms, bound {pb[0]:.5f} ms", flush=True)
+    emit_extra = dict(dense_ms=dms, dense_plain_ms=dplain_ms,
+                      dense_bound_ms=db[0], dense_bound_by=db[1],
+                      dense_shape=f"q101 auction chunk over 2^18 x {B} "
+                                  f"buckets: {n_pairs} pairs, {n_pads} pads",
+                      pads_ms=pms, pads_plain_ms=pplain_ms,
+                      pads_bound_ms=pb[0], pads_bound_by=pb[1],
+                      pads_shape=f"q101 flush over the auction pool: "
+                                 f"{n_up} up, {int(pend2.P)} pairs",
+                      matrix_max_abs_err=err)
+    del st, st2, rows, rows2, rows_c, rows2_c, pend, pend2, pend_c, pend2_c
+
+    # -- the spill capture ------------------------------------------------
+    ex = job.nodes[2].fragment.executors[0]
+    main_ring = ex.spill_ring
+    captured = {}
+    orig = ha.spill_capture
+
+    def record(state, chunk, valid, overflow, pa, r):
+        captured["args"] = (chunk, valid, overflow, pa)
+        return orig(state, chunk, valid, overflow, pa, r)
+
+    ha.spill_capture = record
+    try:
+        ex.apply(clone(job.states[2][0]), bchunk)
+    finally:
+        ha.spill_capture = orig
+    clean_args = captured["args"]
+    # the main path's shape: no row overflows the 2^18 table
+    clean_st = clone(job.states[2][0])
+    capture = ha.spill_capture_cuda if device.type == "cuda" \
+        else ha.spill_capture_plain
+    ms_clean = timer(lambda i: capture(clean_st, *clean_args, main_ring),
+                     200)
+    plain_clean = timer(lambda i: ha.spill_capture_plain(
+        clean_st, *clean_args, main_ring), 20)
+    if int(clean_st.spill_count) or int(clean_st.overflow):
+        fail("spill capture wrote rows on a chunk with no overflow")
+    # forced: a 4-slot table of the same aggregation, both branches, with
+    # a ring of half the rows that overflow it: the ring fills and the
+    # rows past it are lost
+    bids = [bchunk]
+    for _ in range(7):
+        _, c = job.nodes[1].fragment.step(clone(job.states[1]),
+                                          job.sources[src_b].next_chunk())
+        bids.append(c)
+    table = 4
+    probe = ha.HashAggExecutor(table_size=table, **ex._ctor_kwargs)
+    pst = probe.init_state(cpu)
+    for c in bids:
+        pst, _ = probe.apply(pst, chunk_to(c, cpu))
+    ring = int(pst.overflow) // 2
+    if ring < 1:
+        fail("spill capture: the bids overflow no 4-slot table")
+    small = ha.HashAggExecutor(table_size=table, spill_ring=ring,
+                               **ex._ctor_kwargs)
+    card_branch = ha.accel_tuned
+    n_spilled = 0
+    try:
+        for preagg in (True, False):
+            ha.accel_tuned = lambda d, p=preagg: p
+            stk, stp = small.init_state(device), small.init_state(cpu)
+            for c in bids:
+                stk, _ = small.apply(stk, c)
+                stp, _ = small.apply(stp, chunk_to(c, cpu))
+                _state_equal(f"spill capture (pre-aggregation "
+                             f"{preagg})", stk, stp)
+            if int(stp.spill_count) != ring or not int(stp.overflow):
+                fail(f"spill capture: the ring holds {int(stp.spill_count)}"
+                     f" of {ring} rows, {int(stp.overflow)} lost")
+            n_lost = int(stp.overflow)
+    finally:
+        ha.accel_tuned = card_branch
+    # time the chunk that diverts the most rows (the card's branch)
+    st0 = small.init_state(device)
+    calls = []
+    ha.spill_capture = lambda st, *a: (calls.append(a[:-1]), orig(st, *a))
+    try:
+        stw = clone(st0)
+        for c in bids:
+            stw, _ = small.apply(stw, c)
+    finally:
+        ha.spill_capture = orig
+    full_args = max(calls, key=lambda a: int(ha.spill_mask_plain(*a[1:])
+                                             .sum()))
+    full_st = clone(st0)
+    ms_full = timer(lambda i: (full_st.spill_count.zero_(),
+                               capture(full_st, *full_args, ring)), 50)
+    plain_full = timer(lambda i: (full_st.spill_count.zero_(),
+                                  ha.spill_capture_plain(full_st, *full_args,
+                                                         ring)), 10)
+    n_spilled = int(full_st.spill_count)
+    bid_bytes = BID_ROW_BYTES
+    # flags 4 B and perm 8 B a row; a spilled row read and written once
+    cb = bound(cap * 12, cap * 20)
+    fb = bound(cap * 12 + n_spilled * 2 * bid_bytes, cap * 20)
+    print(f"[agg_spill] exact on both branches ({len(bids)} chunks into a "
+          f"{table}-slot table: the {ring}-row ring filled, {n_lost} rows "
+          f"lost and counted); kernel {ms_clean:.4f} ms on the main path's "
+          f"chunk (a {main_ring}-row ring, nothing to divert), plain "
+          f"{plain_clean:.4f} ms, bound "
+          f"{cb[0]:.5f} ms; {ms_full:.4f} ms diverting {n_spilled} rows, "
+          f"plain {plain_full:.4f} ms, bound {fb[0]:.5f} ms", flush=True)
+    out["agg_spill"] = kernel_entry(
+        "agg_spill.cu", "risingwave_tpu/stream/hash_agg.py:427", ms_clean,
+        plain_clean, cb, None, 0.0)
+    out["agg_spill"].update(forced_ms=ms_full, forced_plain_ms=plain_full,
+                            forced_bound_ms=fb[0], forced_rows=n_spilled)
+    del small, stk, stp, full_st, clean_st
+
+    # -- a dense side's clean and rebuild (executor level) ---------------
+    ck, cp = clone(right), to_cpu(right)
+    kv = right.key_table.key_cols[0][right.key_table.occupied]
+    thr = int(kv.median()) if kv.numel() else 0
+    t_k = torch.tensor(thr, dtype=torch.int64, device=device)
+    sk_ = hj.clean_dense(ck, 0, t_k)
+    sp_ = hj.clean_dense(cp, 0, t_k.cpu())
+    _state_equal("dense clean_below", ck, cp)
+    if not torch.equal(sk_.cpu(), sp_):
+        fail("dense clean_below: the tables' counts differ")
+    rk, rp = hj.rebuild_dense(ck), hj.rebuild_dense(cp)
+    _state_equal("dense rebuild", rk, rp)
+    clean_ms = timer(lambda i: hj.clean_dense(clone(right), 0, t_k), 5)
+    rebuild_ms = timer(lambda i: hj.rebuild_dense(ck), 5)
+    print(f"[join_dense] clean_below and rebuild exact on q101's dense side "
+          f"({int(sp_[0])} keys tombstoned of {keys}, rebuilt through K3 and "
+          f"K4); clean {clean_ms:.4f} ms (with its clone), rebuild "
+          f"{rebuild_ms:.4f} ms", flush=True)
+    out["join_dense"].update(clean_ms=clean_ms, rebuild_ms=rebuild_ms)
+    del eng, job, states, ck, cp, rk, rp, right
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    edge = phase_join_edge_cases(torch, device)
+    out["join_dense"]["edge_cases"] = edge
+    return out, emit_extra
+
+
+def _tier_groups(tier):
+    """A tier's groups as a sorted list of (keys, row count, prims):
+    its contents, whatever the slot layout."""
+    import numpy as np
+
+    st = tier.state
+    occ = st.table.occupied.cpu().numpy()
+    cols = [c.cpu().numpy()[occ] for c in st.table.key_cols]
+    cols += [st.row_count.cpu().numpy()[occ]]
+    cols += [p.cpu().numpy()[occ] for p in st.prims]
+    return sorted(zip(*[c.tolist() for c in cols])) if cols else []
+
+
+def phase_join_parity(torch, device, query: str) -> None:
+    """``query`` at 10,000 events/s through the engine on ``device`` and
+    on the CPU (plain versions, the agg forced onto the card's
+    pre-aggregation branch), chunk 256, the agg table at 16 slots so that
+    its spill ring and host tier run, a snapshot every 2 checkpoints: MV
+    rows and every state tensor equal, the tiers' groups equal, then the
+    same after ``recover()`` and 2 more barriers."""
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+    from risingwave_tpu_torch.stream import hash_agg
+
+    cfg = PlannerConfig(chunk_capacity=256, agg_table_size=16,
+                        agg_emit_capacity=128, agg_spill_table_size=1 << 11,
+                        join_table_size=1 << 11, join_bucket_cap=8,
+                        join_pool_size=1 << 14, join_out_capacity=256,
+                        mv_table_size=1 << 14)
+    name = f"nexmark_{query}"
+    engines = []
+    card_branch = hash_agg.accel_tuned
+
+    def run(fn):
+        for eng in engines:
+            if eng.device.type == "cpu":
+                hash_agg.accel_tuned = lambda d: True
+            try:
+                fn(eng)
+            finally:
+                hash_agg.accel_tuned = card_branch
+
+    def per_row(apply):
+        """The host tier's apply on the per-row branch, as on the card's
+        engine (its tier's rows lie on the CPU)."""
+        def run_tier(state, chunk):
+            forced = hash_agg.accel_tuned
+            hash_agg.accel_tuned = card_branch
+            try:
+                return apply(state, chunk)
+            finally:
+                hash_agg.accel_tuned = forced
+        return run_tier
+
+    for dev in (device, torch.device("cpu")):
+        eng = Engine(cfg, device=dev)
+        eng.execute(JOIN_SOURCES.replace("'1000000'", "'10000'"))
+        eng.execute(JOIN_QUERY_SQL[query])
+        eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 2")
+        for _, tier in eng.jobs[0]._spill_tiers.values():
+            tier.agg.apply = per_row(tier.agg.apply)
+        engines.append(eng)
+
+    def compare(stage):
+        rows = [sorted(e.execute(f"SELECT * FROM {name}"), key=repr)
+                for e in engines]
+        if rows[0] != rows[1] or not rows[0]:
+            fail(f"{query} MV on the card differs from the CPU ({stage})")
+        _state_equal(f"{query} {stage}", engines[0].jobs[0].states,
+                     engines[1].jobs[0].states)
+        tiers = [[_tier_groups(t) for _, t in e.jobs[0]._spill_tiers.values()]
+                 for e in engines]
+        if tiers[0] != tiers[1]:
+            fail(f"{query} spill tiers differ ({stage})")
+        return len(rows[0]), sum(len(t) for t in tiers[0])
+
+    run(lambda e: e.tick(barriers=6, chunks_per_barrier=2))
+    n_rows, n_tier = compare("6 barriers")
+    run(lambda e: e.recover())
+    compare("recover")
+    run(lambda e: e.tick(barriers=2, chunks_per_barrier=2))
+    compare("recover + 2 barriers")
+    if not n_tier:
+        fail(f"{query} parity: no group reached the spill tier")
+    print(f"[parity] {query} at 10,000 events/s, 6 barriers, recover, 2 "
+          f"more: {n_rows} MV rows, all state and the spill tier's "
+          f"{n_tier} groups equal to the CPU plain versions", flush=True)
+
+
+def _consumed_wm(chunk_cols, n: int):
+    """numpy columns of the first ``n`` chunks a source produced
+    (``chunk_cols(i)`` regenerates chunk ``i``'s columns, the event time
+    last), with the watermark filter's late rows dropped."""
+    import numpy as np
+
+    parts = None
+    keep = []
+    max_ts = None
+    for i in range(n):
+        cols = chunk_cols(i)
+        ts = cols[-1].cpu().numpy()
+        wm = None if max_ts is None else max_ts - WM_DELAY_US
+        keep.append(np.ones(ts.shape[0], bool) if wm is None else ts >= wm)
+        max_ts = int(ts.max()) if max_ts is None else max(max_ts,
+                                                          int(ts.max()))
+        parts = parts or [[] for _ in cols]
+        for j, col in enumerate(cols):
+            parts[j].append((col.data.cpu().numpy(), col.lens.cpu().numpy())
+                            if hasattr(col, "lens") else col.cpu().numpy())
+    k = np.concatenate(keep)
+    out = []
+    for p in parts:
+        if isinstance(p[0], tuple):
+            out.append((np.concatenate([x[0] for x in p])[k],
+                        np.concatenate([x[1] for x in p])[k]))
+        else:
+            out.append(np.concatenate(p)[k])
+    return out
+
+
+def check_join(eng, query: str, cap: int) -> str:
+    """The MV equals numpy over the consumed events: q101 every auction
+    with its bids' max (NULL without bids), q103 the auctions with at
+    least 20 bids, q104 those with none or at least 20."""
+    import numpy as np
+
+    job = eng.jobs[0]
+    src_a, src_b = JOIN_SOURCE_NAMES[query]
+    ra, rb = job.sources[src_a], job.sources[src_b]
+    aid, (aname, alens), _ = _consumed_wm(
+        lambda i: ra.inner.gen.gen_auctions(i * cap, cap,
+                                            JOIN_AUCTION_COLS).columns,
+        ra.offset // cap)
+    bauc, bprice, _ = _consumed_wm(
+        lambda i: [rb.gen.gen_bids(i * cap, cap).columns[j]
+                   for j in (0, 2, 5)], rb.offset // cap)
+    if np.unique(aid).shape[0] != aid.shape[0]:
+        fail(f"{query} check: an auction id appears twice")
+    order = np.argsort(bauc, kind="stable")
+    sa, sp = bauc[order], bprice[order]
+    first = np.searchsorted(sa, aid, "left")
+    last = np.searchsorted(sa, aid, "right")
+    counts = last - first
+    maxes = np.full(aid.shape[0], -1, np.int64)
+    has = counts > 0
+    if sa.size:
+        seg = np.maximum.reduceat(sp, np.r_[0, np.flatnonzero(
+            sa[1:] != sa[:-1]) + 1])
+        uniq = sa[np.r_[0, np.flatnonzero(sa[1:] != sa[:-1]) + 1]]
+        maxes[has] = seg[np.searchsorted(uniq, aid[has])]
+    keep = {"q101": np.ones(aid.shape[0], bool), "q103": counts >= 20,
+            "q104": (counts == 0) | (counts >= 20)}[query]
+    want_id = aid[keep]
+    want_name = _name_key(aname[keep], alens[keep])
+    entry = eng.catalog.get(f"nexmark_{query}")
+    mv = job.states[entry.mv_state_index[0]][entry.mv_state_index[1]]
+    occ = mv.table.occupied
+    got_id = mv.values[0][occ].cpu().numpy()
+    got_name = _name_key(mv.values[1].data[occ].cpu().numpy(),
+                         mv.values[1].lens[occ].cpu().numpy())
+    o, w = np.argsort(got_id), np.argsort(want_id)
+    if got_id.shape != want_id.shape or not (
+            np.array_equal(got_id[o], want_id[w])
+            and np.array_equal(got_name[o], want_name[w])):
+        fail(f"{query} MV ({got_id.shape[0]} rows) differs from numpy "
+             f"({want_id.shape[0]} auctions)")
+    msg = (f"MV equals numpy over {aid.shape[0]} auctions and "
+           f"{bauc.shape[0]} bids: {want_id.shape[0]} rows")
+    if query == "q101":
+        mx = mv.values[2]
+        got_max = np.where(mx.null[occ].cpu().numpy(), -1,
+                           mx.data[occ].cpu().numpy())
+        if not np.array_equal(got_max[o], maxes[w]):
+            fail("q101 MV's highest bids differ from numpy")
+        msg += f", {int(has.sum())} with a highest bid, the rest NULL"
+    return msg
+
+
+def phase_join_main_path(torch, device, scale, query: str):
+    """``query`` at the slice's sizes: 9 warm-up barriers, then 32 timed
+    barriers of 8 rounds (an auction and a bid chunk each) with the
+    launch counters and the host reads taken over the timed window; the
+    loss counters audited (0), the spill ring empty, the MV checked with
+    numpy."""
+    from risingwave_tpu_torch import kernels
+
+    barriers = BARRIERS if device.type == "cuda" else 2
+    eng = _join_engine(torch, device, scale, query,
+                       WARMUP_BARRIERS if device.type == "cuda" else 1)
+    job = eng.jobs[0]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    reads0 = (job.window_reads, job.barrier_reads, job.spill_reads)
+    t0 = time.perf_counter()
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cap = job.sources[JOIN_SOURCE_NAMES[query][0]].cap
+    chunks = barriers * CHUNKS_PER_BARRIER * 2
+    rows = chunks * cap
+    reads = (job.window_reads - reads0[0], job.barrier_reads - reads0[1],
+             job.spill_reads - reads0[2])
+    rate = rows / dt
+    print(f"[main] {query} {rows} rows (auctions and bids) in {dt:.3f} s = "
+          f"{rate:.0f} rows/s; host reads: {reads[0]} emission totals, "
+          f"{reads[2]} spill counts = {sum(reads) / chunks:.3f} per chunk; "
+          f"port kernel launches {sum(launches.values()) / chunks:.2f} per "
+          f"chunk {launches}", flush=True)
+    if device.type == "cuda":
+        per_chunk = profile_window(torch, eng, query, barriers=1,
+                                   chunks_per_barrier=2 * CHUNKS_PER_BARRIER)
+        print(f"[main] {query} launches per chunk "
+              f"{'not measured' if per_chunk is None else f'{per_chunk:.1f}'}"
+              f" (all CUDA kernels, profiled window)", flush=True)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    try:
+        eng.tick(barriers=1, chunks_per_barrier=0)
+    except RuntimeError as e:
+        fail(f"{query}: the counter audit raised: {e}")
+    st = job.states
+    js = st[3]
+    agg = st[2][0]
+    counters = {"left overflow": js.left.overflow,
+                "right overflow": js.right.overflow,
+                "left inconsistency": js.left.inconsistency,
+                "right inconsistency": js.right.inconsistency,
+                "emit_overflow": js.emit_overflow,
+                "agg overflow": agg.overflow,
+                "spill ring": agg.spill_count,
+                "late auctions": st[0][0].late_rows,
+                "late bids": st[1][0].late_rows}
+    vals = {k: int(v) for k, v in counters.items()}
+    tier = next(iter(job._spill_tiers.values()))[1]
+    if any(vals.values()) or tier.rows_absorbed:
+        fail(f"{query}: loss counters {vals}, tier rows "
+             f"{tier.rows_absorbed}")
+    print(f"[check] {query} overflow, inconsistency and emit_overflow 0, "
+          f"spill ring empty, no late rows; dense side "
+          f"{int(js.right.count.sum())} rows in "
+          f"{int(js.right.key_table.occupied.sum())} keys, auction "
+          f"pool {int(js.left.pool_len)} rows", flush=True)
+    print(f"[check] {query} {check_join(eng, query, cap)}", flush=True)
+    del eng, job, st, js, agg
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, rate
 
 
 if __name__ == "__main__":

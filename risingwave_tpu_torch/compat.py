@@ -3,9 +3,9 @@
 ``state_from_numpy(tree)`` turns a reference executor state fetched to
 the host (``jax.device_get``: its ``AggState``, ``MvState``,
 ``RingState``, ``HashTable``, ``WmState``, ``TagTable``,
-``PoolSideState``, ``JoinState``, ``NCol`` and ``StrCol`` nodes with
-numpy leaves) into the port's state types with torch tensors on
-``device``; ``state_to_numpy`` maps a port state to the same node types
+``PoolSideState``, ``SideState``, ``JoinState``, ``NCol`` and ``StrCol``
+nodes with numpy leaves) into the port's state types with torch tensors
+on ``device``; ``state_to_numpy`` maps a port state to the same node types
 of the port with numpy leaves; ``state_mismatches`` compares the two
 element for element.  Nodes are recognised by class name and fields,
 so this module imports nothing of the reference package.
@@ -26,10 +26,11 @@ carries them into a running port engine), q8's join with pool
 storage on both sides (``tests/test_torch_dag.py``), the group top-N
 of q19 and q18 (``tests/test_torch_top_n.py``) and the over-window, a
 ``TopNState`` whose emitted rows carry float64 window outputs
-(``tests/test_torch_over_window_sql.py``).  Reference-only
-features must be empty to convert (materialized-input buckets, DISTINCT
-tables, the spill ring); a dense join side (``SideState``) is refused:
-the port has no counterpart for them yet.
+(``tests/test_torch_over_window_sql.py``), and q101's aggregation with
+its spill ring, pool and dense join sides and MV
+(``tests/test_torch_join_sql.py``).  Reference-only features must be
+empty to convert (materialized-input buckets, DISTINCT tables): the port
+has no counterpart for them yet.
 """
 
 from __future__ import annotations
@@ -41,17 +42,22 @@ from risingwave_tpu_torch.common.chunk import NCol, StrCol
 from risingwave_tpu_torch.state.hash_table import HashTable
 from risingwave_tpu_torch.state.tag_table import TagTable
 from risingwave_tpu_torch.stream.hash_agg import AggState
-from risingwave_tpu_torch.stream.hash_join import JoinState, PoolSideState
+from risingwave_tpu_torch.stream.hash_join import (
+    JoinState,
+    PoolSideState,
+    SideState,
+)
 from risingwave_tpu_torch.stream.materialize import MvState, RingState
 from risingwave_tpu_torch.stream.top_n import TopNState
 from risingwave_tpu_torch.stream.watermark import WmState
 
 _STATE_TYPES = {cls.__name__: cls
                 for cls in (AggState, MvState, RingState, WmState, NCol,
-                            StrCol, PoolSideState, JoinState, TopNState)}
+                            StrCol, PoolSideState, SideState, JoinState,
+                            TopNState)}
 #: reference AggState fields the port does not carry (must be empty)
 _REF_ONLY = ("minput_vals", "minput_occ", "distinct_tables",
-             "distinct_counts", "spill_rows", "spill_ops", "spill_count")
+             "distinct_counts")
 
 
 def _empty(v) -> bool:
@@ -61,8 +67,6 @@ def _empty(v) -> bool:
 def state_from_numpy(tree, device="cpu"):
     """Reference state (numpy leaves) -> port state on ``device``."""
     name = type(tree).__name__
-    if name == "SideState":
-        raise NotImplementedError("dense join sides are not ported yet")
     if name == "TagTable":
         tags = np.asarray(tree.tags).view(np.int64)
         return TagTable(torch.from_numpy(tags.copy()).to(device), tree.size)

@@ -1,30 +1,41 @@
 // Kernel K14: one emission window of the hash join (sm_90a).
 //
 // Replaces risingwave_tpu/stream/hash_join.py `emit_window` (:850) for a
-// pool build side.  The logical emission array of a probe chunk is
-// [up-transitions | pairs | self rows | down-transitions]; window w holds
-// its positions w * out_cap ... w * out_cap + out_cap - 1.  One thread per
-// output row:
+// pool or a dense build side and every join type.  The logical emission
+// array of a probe chunk is [up-transitions | pairs | self rows |
+// down-transitions]; window w holds its positions w * out_cap ...
+// w * out_cap + out_cap - 1.  One thread per output row:
 //   - decodes its section, and in it the probe row r and the offset j,
 //     by a binary search over the inclusive prefix sums (searchsorted
 //     side="right", clamped to cap - 1, as the reference);
 //   - self rows read the compacted self-row index;
-//   - pairs and transitions look up the build row's entry
-//     pair_tag(probe_hash[r], j) in the build side's tag table, walking
-//     the chain up to min(size + 2, 1024) slots (a lookup never writes the
-//     table, so each row's own walk is the reference's vectorized loop);
-//     a missing entry drops the row, an exhausted walk adds to
-//     probe_bound;
-//   - gathers pool_pos at the entry's slot (clipped into the pool), then
-//     the probe and build columns, strings as bytes plus lengths;
-//   - writes the op (Insert/Delete by the probe row's sign, the up/down
-//     codes for transitions) and the valid flag.
+//   - over a POOL build, pairs and transitions look up the build row's
+//     entry pair_tag(probe_hash[r], j) in the build side's tag table,
+//     walking the chain up to min(size + 2, 1024) slots (a lookup never
+//     writes the table, so each row's own walk is the reference's
+//     vectorized loop); a missing entry drops the row, an exhausted walk
+//     adds to probe_bound; pool_pos at the entry's slot (clipped into the
+//     pool) is the build row;
+//   - over a DENSE build, the build row is entry bidx of bucket slots[r]:
+//     the reference's `rank_to_idx[r, clip(j, 0, B - 1)]`, the stable
+//     argsort of the bucket's free flags, found in-thread as the j-th
+//     occupied position, or past the `live[r]` occupied ones the
+//     (j - live)-th free one (a probe row with no live rows reads its
+//     bucket as all free: position j);
+//   - gathers the probe and build columns, strings as bytes plus lengths;
+//     an output null plane ORs the pad flag in: probe-side columns are
+//     NULL on transition rows, build-side columns on self rows (each only
+//     where the other side is preserved; the wrapper lists those planes);
+//     semi and anti joins list the preserved side's columns only;
+//   - writes the op (Insert/Delete by the probe row's sign, the join
+//     type's up/down codes for transitions) and the valid flag.
 // Rows past the end compute the same clamped indices as the reference, so
 // every output plane equals the plain version's, valid or not.
 //
 // Bound: bytes.  Per output row it writes its columns (q8: 13 leaves,
 // ~110 B) and reads about as much plus a few random 4-8 B reads of the
-// prefix sums, the tag chain and pool_pos.
+// prefix sums, the tag chain and pool_pos, or of the bucket's occupancy
+// bytes (at most B) over a dense build.
 #include "rw_common.cuh"
 #include "rw_join.cuh"
 
@@ -33,7 +44,7 @@ struct JoinEmitArgs {
   const int* up_end;        // [cap] inclusive cumsum of up_cnt
   const int* up_cnt;
   const int* pair_end;      // [cap] inclusive cumsum of m
-  const int* m;
+  const int* m;             // [cap] pairs per probe row (0: semi/anti)
   const int* self_sel;      // [cap]
   const int* down_end;
   const int* down_cnt;
@@ -43,8 +54,11 @@ struct JoinEmitArgs {
   const int* total;
   const long long* probe_hash;  // [cap]
   const int* signs;             // [cap]
-  const long long* tags;        // [size] build side tag table
-  const int* pool_pos;          // [size]
+  const long long* tags;        // [size] pool build: tag table
+  const int* pool_pos;          // [size] pool build
+  const uint8_t* occupied;      // [size * B] dense build
+  const int* slots;             // [cap] dense build: clamped key slots
+  const int* live;              // [cap] dense build: live rows of the key
   int8_t* ops;                  // [out_cap] out
   uint8_t* valid;               // [out_cap] out
   long long* probe_bound;       // [1] out, zeroed by the caller
@@ -56,6 +70,8 @@ struct JoinEmitArgs {
   int max_iters;
   int up_op;
   int down_op;
+  int dense;
+  int B;
 };
 
 // searchsorted(end, pos, side="right"): elements <= pos in the sorted end
@@ -106,44 +122,76 @@ __global__ void join_emit_kernel(JoinEmitArgs a) {
   const int r = in_up ? ur : (in_pairs ? pr : (in_self ? sr : dr));
   const long long j = in_up ? uj : (in_pairs ? pj : (in_down ? dj : 0));
 
-  const bool need = in_pairs || in_up || in_down;
-  int bslot = a.size;
-  bool bfound = false;
-  if (need) {
-    const uint64_t tag = rw_pair_tag(static_cast<uint64_t>(a.probe_hash[r]),
-                                     static_cast<int>(j));
-    const int mask = a.size - 1;
-    const int home = static_cast<int>(tag & static_cast<uint64_t>(mask));
-    bool done = false;
-    for (int it = 0; it < a.max_iters; ++it) {
-      const int c = (home + it) & mask;
-      const uint64_t tv = static_cast<uint64_t>(a.tags[c]);
-      if (tv == tag) {
-        bslot = c;
-        bfound = true;
-        done = true;
-        break;
-      }
-      if (tv == RW_EMPTY_TAG) {
-        done = true;
-        break;
+  const bool in_trans = in_up || in_down;
+  const bool need = !a.dense && (in_pairs || in_trans);
+  long long brow;
+  if (a.dense) {
+    const int jc = j < 0 ? 0 : (j > a.B - 1 ? a.B - 1 : static_cast<int>(j));
+    const int live = a.live[r];
+    const long long base = static_cast<long long>(a.slots[r]) * a.B;
+    int bidx = jc;
+    if (live > 0) {
+      const bool occ_want = jc < live;
+      const int k = occ_want ? jc : jc - live;
+      int seen = 0;
+      for (int b = 0; b < a.B; ++b) {
+        if ((a.occupied[base + b] != 0) != occ_want) continue;
+        if (seen == k) {
+          bidx = b;
+          break;
+        }
+        ++seen;
       }
     }
-    if (!done) {
-      atomicAdd(reinterpret_cast<unsigned long long*>(a.probe_bound), 1ull);
+    brow = base + bidx;
+  } else {
+    int bslot = a.size;
+    bool bfound = false;
+    if (need) {
+      const uint64_t tag = rw_pair_tag(
+          static_cast<uint64_t>(a.probe_hash[r]), static_cast<int>(j));
+      const int mask = a.size - 1;
+      const int home = static_cast<int>(tag & static_cast<uint64_t>(mask));
+      bool done = false;
+      for (int it = 0; it < a.max_iters; ++it) {
+        const int c = (home + it) & mask;
+        const uint64_t tv = static_cast<uint64_t>(a.tags[c]);
+        if (tv == tag) {
+          bslot = c;
+          bfound = true;
+          done = true;
+          break;
+        }
+        if (tv == RW_EMPTY_TAG) {
+          done = true;
+          break;
+        }
+      }
+      if (!done) {
+        atomicAdd(reinterpret_cast<unsigned long long*>(a.probe_bound),
+                  1ull);
+      }
     }
+    int bpos = a.pool_pos[bslot < a.size - 1 ? bslot : a.size - 1];
+    bpos = bpos < 0 ? 0 : (bpos > a.pool - 1 ? a.pool - 1 : bpos);
+    brow = bpos;
+    valid_out = valid_out && (!need || bfound);
   }
-  int bpos = a.pool_pos[bslot < a.size - 1 ? bslot : a.size - 1];
-  bpos = bpos < 0 ? 0 : (bpos > a.pool - 1 ? a.pool - 1 : bpos);
-  valid_out = valid_out && (!need || bfound);
 
   for (int k = 0; k < a.cols.n; ++k) {
-    rw_copy_row(a.cols.dst[k], o, a.cols.src[k],
-                a.cols.from_probe[k] ? r : bpos, a.cols.width[k]);
+    const long long src_row = a.cols.from_probe[k] ? r : brow;
+    if (a.cols.pad[k] == 0) {
+      rw_copy_row(a.cols.dst[k], o, a.cols.src[k], src_row, a.cols.width[k]);
+      continue;
+    }
+    const uint8_t* src = static_cast<const uint8_t*>(a.cols.src[k]);
+    const bool flag = a.cols.pad[k] == 1 ? in_trans : in_self;
+    static_cast<uint8_t*>(a.cols.dst[k])[o] =
+        (src != nullptr && src[src_row] != 0) || flag;
   }
-  const int base = a.signs[r] > 0 ? 0 : 1;  // OP_INSERT : OP_DELETE
+  const int base_op = a.signs[r] > 0 ? 0 : 1;  // OP_INSERT : OP_DELETE
   a.ops[o] = static_cast<int8_t>(in_up ? a.up_op
-                                       : (in_down ? a.down_op : base));
+                                       : (in_down ? a.down_op : base_op));
   a.valid[o] = valid_out;
 }
 

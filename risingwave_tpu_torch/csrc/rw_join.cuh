@@ -5,7 +5,11 @@
 // int32 payload, a string's [n, w] bytes, its int32 lengths, or a null
 // plane (one byte a row).  Leaf k moves `width[k]` bytes a row from `src[k]`
 // to `dst[k]`; `from_probe[k]` tells the emission kernel whether its source
-// row is the probe row or the build side's pool row.
+// row is the probe row or the build side's row.  `pad[k]` marks an output
+// null plane of the emission (1 byte a row): 1 ORs the row's "transition"
+// flag into it (a probe-side column padded on up/down rows), 2 its "self"
+// flag (a build-side column padded on self rows); its `src` may be null
+// (a column that is not nullable on its input).
 #pragma once
 
 #include <cstdint>
@@ -16,6 +20,7 @@ struct JoinCols {
   int n;
   int width[RW_JOIN_LEAVES];
   int from_probe[RW_JOIN_LEAVES];
+  int pad[RW_JOIN_LEAVES];
   const void* src[RW_JOIN_LEAVES];
   void* dst[RW_JOIN_LEAVES];
 };

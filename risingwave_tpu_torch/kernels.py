@@ -15,8 +15,9 @@ an exception.
 
 ``KERNELS`` names each kernel entry point with the source it is built
 from (``compact.cu``, ``nexmark_events.cu``, ``tag_probe.cu`` and
-``shadow_digest.cu`` hold two each; ``topn_band.cu`` and
-``topn_flush.cu`` one wrapper with two C entries each, both counted),
+``shadow_digest.cu`` hold two each; ``topn_band.cu``,
+``topn_flush.cu`` and ``join_dense.cu`` two C entries each, both
+counted),
 and ``LAUNCHES`` counts, per
 kernel, the wrapper calls that launched it on the card.  Nothing here
 runs at import time: a CPU-only process imports the package without
@@ -61,6 +62,8 @@ SOURCES = {
     "topn_flush": "topn_flush.cu",
     "topn_clean": "topn_clean.cu",
     "over_window": "over_window.cu",
+    "join_dense": "join_dense.cu",
+    "agg_spill": "agg_spill.cu",
     # a host routine (the checkpoint store's crc32c), no kernel
     "crc32c": "crc32c.cpp",
 }
@@ -90,6 +93,8 @@ KERNELS = {
     "topn_flush": "topn_flush",
     "topn_clean": "topn_clean",
     "over_window": "over_window",
+    "join_dense": "join_dense",
+    "agg_spill": "agg_spill",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -121,6 +126,26 @@ class RwCols(ctypes.Structure):
         ("st_data", ctypes.c_void_p * MAX_COLS),
         ("st_null", ctypes.c_void_p * MAX_COLS),
         ("kind", ctypes.c_int * MAX_COLS),
+    ]
+
+
+#: most leaves one join descriptor holds (``RW_JOIN_LEAVES``)
+MAX_JOIN_LEAVES = 32
+
+
+class JoinCols(ctypes.Structure):
+    """Mirror of ``struct JoinCols`` in ``rw_join.cuh``: up to
+    ``MAX_JOIN_LEAVES`` fixed-width leaves (payloads, a string's bytes
+    and lengths, null planes), each moved from ``src`` to ``dst``;
+    ``from_probe`` and ``pad`` are read by the join's emission only."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("width", ctypes.c_int * MAX_JOIN_LEAVES),
+        ("from_probe", ctypes.c_int * MAX_JOIN_LEAVES),
+        ("pad", ctypes.c_int * MAX_JOIN_LEAVES),
+        ("src", ctypes.c_void_p * MAX_JOIN_LEAVES),
+        ("dst", ctypes.c_void_p * MAX_JOIN_LEAVES),
     ]
 
 

@@ -5,12 +5,21 @@ Port of the ``UnaryPlan`` part of ``risingwave_tpu/sql/planner.py``:
 TUMBLE/HOP windows, ``_plan_unary``, ``_plan_agg`` and
 ``_try_pane_agg`` (the pane rewrite of HOP aggregations, Nexmark q5)
 and ``_append_terminal`` (materialize by pk, or the append-only ring);
-and of ``DagPlan`` (:88) with the subset of ``_plan_join`` (:1641) that
-plans an inner equi-join of two append-only, possibly windowed and
-watermarked sources with pool storage on both sides, its windows'
-cleaning specs (:2069-2083) and the terminal project + ring (Nexmark
-q8).  The plan shapes built here are the reference's, executor for
-executor.
+an aggregation without watermark cleaning gets the reference's spill
+ring (:1370-1381); and of ``DagPlan`` (:88) with the subset of
+``_plan_join`` (:1641) that plans one equi-join of two inputs, each a
+(possibly windowed and watermarked) source or a derived table
+(``resolve_subquery``, :1741: an aggregation or a projection): every
+join type of ``KIND_MAP`` (:1852), ``x [NOT] IN (SELECT ...)`` rewritten
+to a semi/anti join (``_rewrite_in_subqueries``, :220), the one-sided ON
+push-down of a left/right outer join (:1971-2034), pool storage for an
+append-only input and dense buckets for a retractable one (or with
+``join_force_dense``, :2050), the semi/anti output scope (:2059), the
+windows' cleaning specs, and the output's stream key and
+append-only-ness (:2096-2112) for the terminal: a ring after an inner
+join of append-only inputs (Nexmark q8), else an MV keyed by the stream
+key or the whole row (Nexmark q101, q103, q104).  The plan shapes built
+here are the reference's, executor for executor.
 
 Window functions (``_build_over_window``, ``_plan_over_window``,
 :1007-1131) plan one ``OverWindowExecutor`` per SELECT (one shared OVER
@@ -32,10 +41,11 @@ WHERE residue and projection, and an MV keyed by the whole row
 (``_append_terminal``, :1135-1210, with the plain ``ORDER BY .. LIMIT``
 TopN of the same executor).
 
-Not ported yet (``PlanError``/``NotImplementedError``): outer, semi and
-anti joins, dense (bucket) join storage, non-equality ON conditions,
-WHERE or aggregation over a join, nested (multi-way) joins, other
-subqueries, sinks, EMIT ON WINDOW CLOSE and MV-on-MV.
+Not ported yet (``PlanError``/``NotImplementedError``): non-equality ON
+conditions other than an outer join's one-sided push-down, WHERE or
+aggregation over a join, nested (multi-way) and comma joins, EXISTS and
+scalar subqueries, a derived table outside a join, sinks, EMIT ON
+WINDOW CLOSE and MV-on-MV.
 """
 
 from __future__ import annotations
@@ -98,6 +108,8 @@ class PlannedInput:
     window_size: int | None
     append_only: bool
     window_slide: int | None = None
+    #: output positions that key a retractable input's rows, or None
+    stream_key: "list[int] | None" = None
 
 
 @dataclass
@@ -144,8 +156,8 @@ class GroupTopNSpec:
 @dataclass
 class PlannerConfig:
     """The reference's planner knobs, same names and defaults (the
-    spill, distinct and join bucket sizes are accepted for DDL
-    compatibility; their operators are not ported yet)."""
+    distinct and minput sizes are accepted for DDL compatibility; their
+    operators are not ported yet)."""
 
     agg_table_size: int = 1 << 16
     agg_emit_capacity: int = 4096
@@ -190,11 +202,12 @@ class Planner:
 
     @staticmethod
     def _executors(plan) -> list:
+        """Every executor of a plan, its joins included."""
         if isinstance(plan, UnaryPlan):
             return list(plan.fragment.executors)
         return [ex for node in plan.nodes
-                for ex in getattr(getattr(node, "fragment", None),
-                                  "executors", ())]
+                for ex in (node.fragment.executors
+                           if hasattr(node, "fragment") else [node.join])]
 
     def _plan(self, select: ast.Select, eowc: bool) -> "UnaryPlan | DagPlan":
         if eowc:
@@ -206,11 +219,46 @@ class Planner:
                 raise PlanError("a row_number subquery over a join or a "
                                 "subquery is not ported yet")
             return self._plan_unary(inner, group_topn=spec)
+        select = self._rewrite_in_subqueries(select)
         if isinstance(select.from_, ast.SubqueryRef):
-            raise PlanError("subqueries are not ported yet")
+            raise PlanError("a derived table outside a join is not ported "
+                            "yet")
         if isinstance(select.from_, ast.Join):
             return self._plan_join(select)
         return self._plan_unary(select)
+
+    # -- IN (SELECT ...) rewrite ----------------------------------------
+    def _rewrite_in_subqueries(self, select: ast.Select) -> ast.Select:
+        """``x [NOT] IN (SELECT c FROM ...)`` conjuncts of WHERE become
+        semi/anti joins against the subquery (the reference's, :220).
+        As there, the anti join treats a NULL key as non-matching (SQL's
+        ``NOT IN`` over NULLs is never true); Nexmark's columns are NOT
+        NULL."""
+        if select.where is None:
+            return select
+        conjs = self._conjuncts(select.where)
+        ins = [c for c in conjs if isinstance(c, ast.InSubquery)]
+        if not ins:
+            return select
+        rest = [c for c in conjs if not isinstance(c, ast.InSubquery)]
+        from_ = select.from_
+        for k, c in enumerate(ins):
+            sub = c.select
+            if len(sub.items) != 1 or isinstance(sub.items[0].expr,
+                                                 ast.Star):
+                raise PlanError("IN subquery must select exactly one column")
+            alias = f"_in_sq{k}"
+            col_name = sub.items[0].alias or self._default_name(
+                sub.items[0].expr, 0)
+            from_ = ast.Join(
+                left=from_, right=ast.SubqueryRef(sub, alias),
+                on=ast.BinaryOp("equal", c.expr,
+                                ast.ColumnRef(col_name, alias)),
+                kind="anti" if c.negated else "semi")
+        where = None
+        for r in rest:
+            where = r if where is None else ast.BinaryOp("and", where, r)
+        return dataclasses.replace(select, from_=from_, where=where)
 
     # -- GroupTopN (row_number-in-subquery) rewrite ---------------------
     def _match_group_topn(self, select: ast.Select):
@@ -336,9 +384,10 @@ class Planner:
 
     # -- joins ------------------------------------------------------------
     def _plan_join(self, select: ast.Select) -> DagPlan:
-        """An inner equi-join of two inputs as a DagPlan: each input is a
-        source plus its prep fragment (watermark filter, window), then
-        the JoinNode, then the project + ring fragment."""
+        """One equi-join of two inputs as a DagPlan: each input is a
+        source plus its prep fragment (watermark filter, window) or a
+        derived table's fragment, then the JoinNode, then the project
+        and its terminal (a ring or an MV)."""
         from risingwave_tpu_torch.stream.dag import FragNode, JoinNode
 
         cfg = self.config
@@ -348,8 +397,6 @@ class Planner:
         join_type = KIND_MAP.get(jn.kind)
         if join_type is None:
             raise PlanError(f"unsupported join kind {jn.kind!r}")
-        if join_type != "inner":
-            raise PlanError(f"{join_type} joins are not ported yet")
         if jn.on is None:
             raise PlanError("joins without ON (comma joins) are not ported "
                             "yet")
@@ -359,9 +406,10 @@ class Planner:
             raise PlanError("aggregation over a join is not ported yet")
 
         def resolve(from_):
-            if isinstance(from_, (ast.Join, ast.SubqueryRef)):
-                raise PlanError("nested joins and subqueries as join "
-                                "inputs are not ported yet")
+            if isinstance(from_, ast.Join):
+                raise PlanError("nested joins are not ported yet")
+            if isinstance(from_, ast.SubqueryRef):
+                return resolve_subquery(from_)
             pin = self._resolve_input(from_)
             if isinstance(from_, ast.TableRef):
                 base = from_.alias or from_.name
@@ -378,22 +426,96 @@ class Planner:
                 ref = ("node", len(nodes) - 1)
             return ref, pin
 
+        def resolve_subquery(sq: ast.SubqueryRef):
+            """A derived table becomes its own fragment node: its WHERE
+            filters, then its aggregation or projection."""
+            inner = self._rewrite_in_subqueries(sq.select)
+            if inner.order_by or inner.limit is not None or inner.offset:
+                raise PlanError("ORDER BY/LIMIT in a FROM subquery is not "
+                                "ported yet")
+            if any(isinstance(i.expr, ast.WindowCall) for i in inner.items):
+                raise PlanError("window functions in a FROM subquery are "
+                                "not ported yet")
+            if isinstance(inner.from_, (ast.Join, ast.SubqueryRef)):
+                raise PlanError("nested joins and subqueries as join "
+                                "inputs are not ported yet")
+            ref, iinfo = resolve(inner.from_)
+            scope = iinfo.scope
+            execs: list[Executor] = []
+            if inner.where is not None:
+                execs += [FilterExecutor(scope.schema,
+                                         Binder(scope).bind(c))
+                          for c in self._conjuncts(inner.where)]
+            if bool(inner.group_by) or self._has_agg(inner):
+                execs2, out_schema, pk_positions = self._plan_agg(
+                    inner, scope, iinfo)
+                execs += execs2
+                append_only = False
+            else:
+                b = Binder(scope)
+                proj = [(nm, b.bind(e))
+                        for nm, e in self._expand_items(inner.items, scope)]
+                pk_positions = []
+                if not iinfo.append_only:
+                    if iinfo.stream_key is None:
+                        raise PlanError("retractable subquery input without "
+                                        "a stream key")
+                    pk_positions = self._stream_key_projection(
+                        proj, scope.schema, iinfo.stream_key)
+                execs.append(ProjectExecutor(scope.schema, proj))
+                out_schema = execs[-1].out_schema
+                append_only = iinfo.append_only
+            if execs:
+                nodes.append(FragNode(Fragment(execs), ref))
+                ref = ("node", len(nodes) - 1)
+            return ref, PlannedInput(
+                None, [], Scope.of(out_schema, sq.alias), out_schema, None,
+                None, append_only, stream_key=pk_positions or None)
+
         lref, left = resolve(jn.left)
         rref, right = resolve(jn.right)
         n_left = len(left.schema)
         left_keys: list[Expr] = []
         right_keys: list[Expr] = []
+        residual: list = []
         for conj in self._conjuncts(jn.on):
             keypair = self._equi_pair(conj, left.scope, right.scope, n_left)
             if keypair is None:
-                raise PlanError("non-equality ON conditions are not ported "
-                                "yet")
+                residual.append(conj)
+                continue
             left_keys.append(keypair[0])
             right_keys.append(keypair[1])
-        if not (left.append_only and right.append_only) \
-                or cfg.join_force_dense:
-            raise PlanError("dense (bucket) join storage is not ported yet "
-                            "(append-only inputs take the pool)")
+        if not left_keys:
+            raise PlanError("JOIN requires at least one equality condition")
+        if residual and join_type in ("left_outer", "right_outer"):
+            # an ON predicate over the null-padded side alone filters that
+            # input below the join (rows failing it do not match, and the
+            # preserved side still pads)
+            padded = "right" if join_type == "left_outer" else "left"
+            pin = right if padded == "right" else left
+            other = left if padded == "right" else right
+            kept, pushed = [], []
+            for conj in residual:
+                try:
+                    if not self._refs_only(conj, pin.scope, other.scope):
+                        raise BindError("not one-sided")
+                    pushed.append(FilterExecutor(
+                        pin.scope.schema, Binder(pin.scope).bind(conj)))
+                except BindError:
+                    kept.append(conj)
+            if pushed:
+                src = rref if padded == "right" else lref
+                nodes.append(FragNode(Fragment(pushed), src))
+                if padded == "right":
+                    rref = ("node", len(nodes) - 1)
+                else:
+                    lref = ("node", len(nodes) - 1)
+            residual = kept
+        if residual:
+            raise PlanError("non-equality ON conditions are not ported yet "
+                            "(an outer join's condition on its padded side "
+                            "alone is)")
+        dense = cfg.join_force_dense
         join = HashJoinExecutor(
             left.schema, right.schema, left_keys, right_keys,
             table_size=cfg.join_table_size,
@@ -404,12 +526,21 @@ class Planner:
             left_bucket_cap=cfg.join_left_bucket_cap,
             right_bucket_cap=cfg.join_right_bucket_cap,
             join_type=join_type,
-            left_storage="pool", right_storage="pool",
+            # append-only sides take the degree-adaptive pool; retractable
+            # sides need deletes by value in dense buckets
+            left_storage="pool" if left.append_only and not dense
+            else "dense",
+            right_storage="pool" if right.append_only and not dense
+            else "dense",
             left_pool_size=cfg.join_pool_size,
             right_pool_size=cfg.join_pool_size,
         )
-        both = Scope(join.out_schema, tuple(left.scope.qualifiers)
-                     + tuple(right.scope.qualifiers))
+        if join.is_semi or join.is_anti:
+            pres = left if join.preserve_left else right
+            both = Scope(join.out_schema, tuple(pres.scope.qualifiers))
+        else:
+            both = Scope(join.out_schema, tuple(left.scope.qualifiers)
+                         + tuple(right.scope.qualifiers))
         # window-keyed joins over watermarked inputs clean closed windows
         # at barriers
         for side_name, pin, keys in (("left", left, left_keys),
@@ -425,15 +556,85 @@ class Planner:
                     break
         nodes.append(JoinNode(join, lref, rref))
         root_ref = ("node", len(nodes) - 1)
+        # only an inner join of append-only inputs stays append-only
+        # (outer pads retract); its stream key is both inputs' keys, a
+        # semi/anti join's the preserved side's
+        if join.emit_pairs:
+            skey = None
+            if left.stream_key is not None and right.stream_key is not None:
+                skey = list(left.stream_key) + [n_left + k
+                                                for k in right.stream_key]
+        else:
+            skey = (left if join.preserve_left else right).stream_key
+        append_only = left.append_only and right.append_only \
+            and join_type == "inner"
         b = Binder(both)
         proj = [(name, b.bind(e))
                 for name, e in self._expand_items(select.items, both)]
+        pk_positions: list[int] = []
+        if not append_only and skey is not None:
+            pk_positions = self._stream_key_projection(proj, both.schema,
+                                                       skey)
         post_execs: list[Executor] = [ProjectExecutor(both.schema, proj)]
         self._append_terminal(post_execs, post_execs[-1].out_schema, select,
-                              input_append_only=True, has_agg=False,
-                              pk_positions=[])
+                              input_append_only=append_only, has_agg=False,
+                              pk_positions=pk_positions)
         nodes.append(FragNode(Fragment(post_execs), root_ref))
         return DagPlan(sources, nodes, len(nodes) - 1, len(post_execs) - 1)
+
+    @staticmethod
+    def _refs_only(conj, scope: Scope, other: Scope) -> bool:
+        """Whether ``conj`` has columns, all resolving in ``scope`` and
+        no unqualified one also in ``other`` (ambiguous: kept, so that
+        the full-scope bind raises)."""
+        refs = Planner._column_refs(conj)
+        for r in refs:
+            scope.resolve(r.name, r.table)
+            if r.table is None:
+                try:
+                    other.resolve(r.name, None)
+                    return False
+                except BindError:
+                    pass
+        return bool(refs)
+
+    @staticmethod
+    def _column_refs(e) -> list:
+        """All ColumnRefs of an AST expression."""
+        out: list = []
+        stack = [e]
+        while stack:
+            x = stack.pop()
+            if isinstance(x, ast.ColumnRef):
+                out.append(x)
+            elif isinstance(x, ast.Case):
+                for c, r in x.conditions:
+                    stack += [c, r]
+                if x.else_result is not None:
+                    stack.append(x.else_result)
+            else:
+                for a in ("left", "right", "operand", "expr"):
+                    v = getattr(x, a, None)
+                    if v is not None and not isinstance(v, str):
+                        stack.append(v)
+                stack.extend(a for a in getattr(x, "args", ())
+                             if not isinstance(a, ast.Star))
+        return out
+
+    @staticmethod
+    def _stream_key_projection(proj: list, schema: Schema,
+                               stream_key) -> list[int]:
+        """Keep the stream-key columns through a projection (hidden when
+        unselected); returns their output positions (the MV's pk)."""
+        pk_positions: list[int] = []
+        for ki in stream_key:
+            pos = next((pi for pi, (_, e) in enumerate(proj)
+                        if isinstance(e, InputRef) and e.index == ki), None)
+            if pos is None:
+                proj.append((f"_hidden_{schema[ki].name}", InputRef(ki)))
+                pos = len(proj) - 1
+            pk_positions.append(pos)
+        return pk_positions
 
     @staticmethod
     def _conjuncts(e) -> list:
@@ -888,18 +1089,23 @@ class Planner:
                     wm_idx, lag = ki, pin.window_size
                 elif isinstance(ga, ast.ColumnRef) and ga.name == "window_end":
                     wm_idx, lag = ki, 0
-        if wm_idx is None:
-            # the reference diverts unbounded key spaces to a spill ring
-            raise NotImplementedError(
-                "aggregation without watermark cleaning (spill ring) is "
-                "not ported yet")
         agg = HashAggExecutor(
             scope.schema, group_by, agg_calls,
             table_size=cfg.agg_table_size,
             emit_capacity=cfg.agg_emit_capacity,
             watermark_group_idx=wm_idx, watermark_lag=lag,
             watermark_src_col=pin.watermark_col,
-            retractable_input=not pin.append_only)
+            retractable_input=not pin.append_only,
+            # an unbounded key space (no watermark cleaning) diverts the
+            # rows its table cannot hold to the host tier; a windowed agg
+            # keeps overflow an error (cleaning bounds its state, and
+            # freed slots would split a group across the tiers)
+            spill_ring=((cfg.agg_spill_ring
+                         if cfg.agg_spill_ring is not None
+                         else 4 * cfg.chunk_capacity)
+                        if wm_idx is None else 0))
+        agg.spill_table_size = (cfg.agg_spill_table_size
+                                or cfg.agg_table_size * 8)
         execs: list[Executor] = [agg]
 
         rewritten = [(name, self._rewrite_post_agg(e, group_by,

@@ -26,7 +26,8 @@ A failed store write retries through ``RetryPolicy``; once the budget
 is spent the partial objects are vacuumed and the error is re-raised
 on the barrier loop at the next ``enqueue`` / ``wait_window`` /
 ``drain`` (a job cannot keep sealing epochs that never become
-durable).  Spill tiers are not ported, so a task carries none.
+durable).  A task's spill-tier trees (``UploadTask.spill``) are saved
+first, each under its own store key.
 """
 
 from __future__ import annotations
@@ -58,6 +59,8 @@ class UploadTask:
     source_state: dict
     #: CUDA event recorded after the shadow update (None on the CPU)
     ready: Any = None
+    #: [(store key, tree)] spill-tier saves, persisted before the epoch
+    spill: list = field(default_factory=list)
     fetched: threading.Event = field(default_factory=threading.Event)
     error: Exception | None = None
     #: (trace_id, span_id) captured at seal time
@@ -210,6 +213,14 @@ class CheckpointUploader:
             idle_since = time.monotonic()
             t0 = time.perf_counter()
             try:
+                # the tiers first: a crash between them and the job's
+                # commit leaves a tier one epoch ahead, which the rewind
+                # resolves (``rewind_spill_tier``)
+                for key, tree in task.spill:
+                    self.retry.run(
+                        lambda k=key, t=tree: self.store.save(
+                            k, task.epoch, t, {}),
+                        retry_on=(OSError,), label="spill_save")
                 with GLOBAL_TRACE.span("ckpt_prepare", ctx=task.trace_ctx,
                                        job=self.job_name, epoch=task.epoch):
                     with self._fetch_context(task):

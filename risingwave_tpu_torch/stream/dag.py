@@ -7,8 +7,15 @@ and ``_apply_join_windowed`` (:406), ``run_chunk``, ``_compute_pulls``,
 ``_flush_all``, ``_node_watermarks``, ``_wm_all``, ``_upstream_wm``,
 ``_clean_joins``, ``_collect_counters``, ``_barrier_impl``,
 ``inject_barrier``), ``_maintain``, ``_commit_checkpoint``, ``recover``
-and ``mv_rows``.  Spill tiers, backfill, topology changes, MV taps,
-staged plans, the mesh and sinks are not ported.
+and ``mv_rows``, and the aggregations' spill tiers
+(``_drain_spill_tiers`` and ``_restore_spill_tiers``, :1214-1350; the
+tiers are built with the job, their bookkeeping is shared with
+``StreamingJob`` in ``CheckpointPipelineMixin``): at every snapshot
+barrier one host read of the fill counts decides which rings
+drain into their host tier (``stream/spill.py``), whose changelog then
+runs through the rest of the aggregation's node and downstream.
+Backfill, topology changes, MV taps, staged plans, the mesh and sinks
+are not ported.
 
 The reference traces a whole scheduling window into one program; here
 the same steps run eagerly, in the same order, and the device work
@@ -22,7 +29,9 @@ stays asynchronous except for these host reads:
   more on a barrier where a rebuild ran, to re-read that side's
   compaction condition;
 - the flush drain of a fragment with pending output (none on q8's path)
-  and the counters at maintenance, as in ``StreamingJob``.
+  and the counters at maintenance, as in ``StreamingJob``;
+- one per snapshot barrier of a job with spill-enabled aggregations:
+  the rings' fill counts (``spill_reads``).
 
 Checkpoints go through ``CheckpointPipelineMixin`` as in the port's
 ``StreamingJob`` (the reference's ``_snapshot_and_save`` :302 and
@@ -55,6 +64,7 @@ from risingwave_tpu_torch.stream.runtime import (
     check_counter_values,
     restore_source,
 )
+from risingwave_tpu_torch.stream.spill import chunk_to
 from risingwave_tpu_torch.stream.watermark import WatermarkFilterExecutor
 
 #: a dataflow edge endpoint: ("source", name) or ("node", node_id)
@@ -116,9 +126,18 @@ class DagJob(CheckpointPipelineMixin):
         #: host reads of the barrier's rehash/compaction conditions (one
         #: per barrier, plus one per rebuild)
         self.barrier_reads = 0
-        #: maintenance passes that fired, by kind (rebuild_pool,
+        #: maintenance passes that fired, by kind (rebuild, rebuild_pool,
         #: compact_pool)
         self.rehash_fired: dict[str, int] = {}
+        #: host reads of the spill rings' fill counts
+        self.spill_reads = 0
+        # one host tier per spill-enabled aggregation, keyed (node, exec)
+        self._init_spill_tiers([
+            ((idx, j), f"{idx}_{j}", ex)
+            for idx, node in enumerate(self.nodes)
+            if isinstance(node, FragNode)
+            for j, ex in enumerate(node.fragment.executors)
+            if getattr(ex, "spill_ring", 0)])
         self._consumers: dict[Ref, list[int]] = {}
         for idx, node in enumerate(self.nodes):
             refs = [node.input] if isinstance(node, FragNode) \
@@ -473,28 +492,62 @@ class DagJob(CheckpointPipelineMixin):
                 for name, src in self.sources.items()}
 
     def _commit_checkpoint(self, sealed) -> None:
-        """Seal the epoch with the readers' cursors."""
-        self._snapshot_commit(sealed, self._source_states())
+        """Drain the spill rings into their tiers, then seal the epoch
+        with the readers' cursors and the tiers' states."""
+        self._drain_spill_tiers(sealed)
+        self._snapshot_commit(sealed, self._source_states(),
+                              *self._spill_snapshot())
+
+    def _drain_spill_tiers(self, sealed) -> None:
+        """Snapshot-barrier hook: one host read of every ring's fill
+        count; each non-empty ring drains into its host tier, and the
+        tier's changelog runs through the rest of the aggregation's node
+        and downstream."""
+        keys = list(self._spill_tiers)
+        counts = self._read_spill_counts(
+            [self.states[idx][j].spill_count for idx, j in keys])
+        for (idx, j), n in zip(keys, counts):
+            if n == 0:
+                continue
+            new_states = list(self.states)
+            frag = self.nodes[idx].fragment
+            node_states = list(new_states[idx])
+            node_states[j], chunk = frag.executors[j].drain_spill(
+                node_states[j])
+            out = self._spill_tiers[(idx, j)][1].process(chunk, sealed)
+            out = chunk_to(out, self.device)
+            for k in range(j + 1, len(frag.executors)):
+                if out is None:
+                    break
+                node_states[k], out = frag.executors[k].apply(
+                    node_states[k], out)
+            new_states[idx] = tuple(node_states)
+            if out is not None:
+                self._propagate(new_states, [(("node", idx), out)])
+            self.states = tuple(new_states)
 
     def recover(self, epoch: int | None = None) -> None:
         """Reset to the last committed checkpoint (states and readers):
         the durable store's, else the shadow, else the initial state."""
         loaded = self._recover_pipeline(epoch)
         if loaded is not None:
-            _, self.states, src_state = loaded
+            epoch_v, self.states, src_state = loaded
             for name, src in self.sources.items():
                 restore_source(src, src_state.get(name, {}))
+            self._rewind_spill_tiers(epoch_v)
             return
         if not self.checkpoints:
             self.states = self._init_states()
             for src in self.sources.values():
                 if hasattr(src, "offset"):
                     src.offset = 0
+            self._restore_spill_tiers(None)
             return
         snap = self.checkpoints[-1]
         self.states = self._shadow.restore()
         for name, src in self.sources.items():
             restore_source(src, snap.source_state.get(name, {}))
+        self._restore_spill_tiers(snap)
 
     def mv_rows(self, mv_executor, state_index) -> list[tuple]:
         st = self.states

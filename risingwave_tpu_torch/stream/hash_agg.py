@@ -29,8 +29,19 @@ as the reference does.
 State tensors are updated IN PLACE (the table, prims, row_count, dirty,
 prev_*, emitted): one chunk or barrier never copies a ``[size]`` tensor.
 
-Not ported yet (raise): retractable min/max (``minput``), DISTINCT, the
-spill ring, EMIT ON WINDOW CLOSE.
+An aggregation without watermark cleaning (an unbounded key space)
+gets a SPILL RING (``spill_ring`` rows, :181, :357-364, :427-481): input
+rows whose group cannot claim a slot divert into the ring, in chunk
+order, at ``spill_count``; rows the ring cannot hold stay counted in
+``overflow``.  The capture never reads the host: on the card it is one
+launch of kernel ``agg_spill`` (``csrc/agg_spill.cu``) every chunk, which
+writes nothing while no row overflows (the reference's ``lax.cond``).
+``drain_spill`` empties the ring into a chunk at snapshot barriers and
+``make_spill_tier`` builds the same aggregation for the host tier
+(``stream/spill.py``).
+
+Not ported yet (raise): retractable min/max (``minput``), DISTINCT, EMIT
+ON WINDOW CLOSE.
 """
 
 from __future__ import annotations
@@ -60,7 +71,11 @@ from risingwave_tpu_torch.common.compact import (
     segmented_minmax_at_ends,
     segmented_sum,
 )
-from risingwave_tpu_torch.common.hash import hash64_columns, key_leaves
+from risingwave_tpu_torch.common.hash import (
+    hash64_columns,
+    key_leaves,
+    leaf_width,
+)
 from risingwave_tpu_torch.common.types import DataType, Field, Schema
 from risingwave_tpu_torch.expr.agg import _ADD_COUNT, AggCall
 from risingwave_tpu_torch.expr.node import Expr
@@ -71,6 +86,10 @@ from risingwave_tpu_torch.state.hash_table import (
     permute_dense,
 )
 from risingwave_tpu_torch.stream.executor import Executor
+from risingwave_tpu_torch.stream.materialize import (
+    empty_value_col,
+    value_leaves,
+)
 
 INT64_MIN = -(1 << 63)
 INT64_MAX = (1 << 63) - 1
@@ -87,6 +106,11 @@ class AggState(NamedTuple):
     overflow: torch.Tensor        # int64 scalar — rows lost to a full table
     inconsistency: torch.Tensor   # int64 scalar — deletes hitting min/max
     wm: torch.Tensor              # int64 scalar — latest watermark
+    #: the spill ring (``()`` without one): input rows whose group found
+    #: no slot, drained at snapshot barriers into the host tier
+    spill_rows: tuple = ()        # [R] stores, one per input column
+    spill_ops: "torch.Tensor | tuple" = ()    # int8 [R]
+    spill_count: "torch.Tensor | tuple" = ()  # int32 scalar
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +216,8 @@ class Preagg(NamedTuple):
 
     s_hash: torch.Tensor      # int64 [cap] sorted key hashes
     s_keys: list              # key columns in sorted order
+    starts: torch.Tensor      # bool [cap] segment START rows
+    perm: torch.Tensor        # int64 [cap] sorted position -> row
     rep: torch.Tensor         # bool [cap] segment END rows that are valid
     seg_rows: torch.Tensor    # int64 [cap] valid rows of the segment
     seg_signs: torch.Tensor   # int64 [cap] sign sum of the segment
@@ -241,7 +267,7 @@ def agg_preagg_plain(sort_key, perm, key_cols, valid, signs, modes, inits,
             seg_values.append(at_ends(segmented_minmax_at_ends(
                 seg_id, contrib, start_pos, mode), init))
     return Preagg(
-        s_hash, s_keys, ends & s_valid,
+        s_hash, s_keys, starts, perm, ends & s_valid,
         at_ends(segmented_sum(s_valid.to(torch.int64), start_pos)),
         at_ends(segmented_sum(signs[perm].to(torch.int64), start_pos)),
         seg_values)
@@ -334,8 +360,8 @@ def agg_preagg_cuda(sort_key, perm, key_cols, valid, signs, modes, inits,
                        [_PreaggArgs, ctypes.c_void_p])
     kernels.count_launch("agg_preagg")
     kernels.check(fn(args, kernels.stream_ptr(dev)), "agg_preagg")
-    return Preagg(s_hash, s_keys, rep.view(torch.bool), seg_rows, seg_signs,
-                  seg_values)
+    return Preagg(s_hash, s_keys, starts.view(torch.bool), perm,
+                  rep.view(torch.bool), seg_rows, seg_signs, seg_values)
 
 
 def agg_preagg(key_cols, h, valid, signs, modes, inits, values) -> Preagg:
@@ -346,6 +372,141 @@ def agg_preagg(key_cols, h, valid, signs, modes, inits, values) -> Preagg:
     sort_key, perm = sort_by_hash(h, valid)
     impl = agg_preagg_cuda if h.device.type == "cuda" else agg_preagg_plain
     return impl(sort_key, perm, key_cols, valid, signs, modes, inits, values)
+
+
+# ---------------------------------------------------------------------------
+# the spill capture: agg_spill
+
+
+def spill_mask_plain(valid, overflow, pa: "Preagg | None"):
+    """Row-order bool mask of the rows that divert to the ring: on the
+    per-row branch the valid rows that overflowed, on the pre-aggregation
+    branch every valid row of a segment whose representative did
+    (``seg_over`` through ``perm``)."""
+    if pa is None:
+        return valid & overflow
+    cap = valid.shape[0]
+    seg_id = torch.cumsum(pa.starts.to(torch.int64), 0)
+    seg_over = torch.zeros(cap + 1, dtype=torch.bool, device=valid.device)
+    seg_over[seg_id[pa.rep]] = overflow[pa.rep]
+    mask = torch.zeros(cap, dtype=torch.bool, device=valid.device)
+    mask[pa.perm] = valid[pa.perm] & seg_over[seg_id]
+    return mask
+
+
+def _scatter_ring_col_(store, pos: torch.Tensor, col, rows) -> None:
+    """In place ``store[pos] = col[rows]`` (a NULL-less column into a
+    nullable store writes NULL flags of 0)."""
+    if isinstance(store, NCol):
+        if isinstance(col, NCol):
+            _scatter_ring_col_(store.data, pos, col.data, rows)
+            store.null[pos] = col.null[rows]
+        else:
+            _scatter_ring_col_(store.data, pos, col, rows)
+            store.null[pos] = False
+    elif isinstance(store, StrCol):
+        store.data[pos] = col.data[rows]
+        store.lens[pos] = col.lens[rows]
+    else:
+        store[pos] = col[rows]
+
+
+def spill_capture_plain(state: "AggState", chunk: Chunk, valid, overflow,
+                        pa: "Preagg | None", ring: int) -> None:
+    """Plain PyTorch version of kernel ``agg_spill``, in place: the
+    masked rows, in chunk order, go to ring positions ``spill_count +
+    rank``; the count advances, clamped at the ring's size, and the rows
+    past it add to ``overflow``."""
+    mask = spill_mask_plain(valid, overflow, pa)
+    m32 = mask.to(torch.int32)
+    pos = state.spill_count + torch.cumsum(m32, 0, dtype=torch.int32) - m32
+    ok = mask & (pos < ring)
+    tgt = pos[ok].to(torch.int64)
+    for store, col in zip(state.spill_rows, chunk.columns):
+        _scatter_ring_col_(store, tgt, col, ok)
+    state.spill_ops[tgt] = chunk.ops[ok]
+    state.overflow.add_((mask & ~ok).sum(dtype=torch.int64))
+    state.spill_count.copy_(torch.clamp(
+        state.spill_count + mask.sum(dtype=torch.int32), max=ring))
+
+
+class _SpillArgs(ctypes.Structure):
+    """Mirror of ``struct AggSpillArgs`` in ``csrc/agg_spill.cu``."""
+
+    _fields_ = [
+        ("cols", kernels.JoinCols),
+        ("ops", ctypes.c_void_p), ("ring_ops", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p), ("overflow", ctypes.c_void_p),
+        ("rep", ctypes.c_void_p), ("starts", ctypes.c_void_p),
+        ("perm", ctypes.c_void_p), ("seg_over", ctypes.c_void_p),
+        ("mask", ctypes.c_void_p), ("count", ctypes.c_void_p),
+        ("lost", ctypes.c_void_p), ("cap", ctypes.c_int),
+        ("ring", ctypes.c_int),
+    ]
+
+
+def spill_capture_cuda(state: "AggState", chunk: Chunk, valid, overflow,
+                       pa: "Preagg | None", ring: int) -> None:
+    """Kernel ``agg_spill`` (``csrc/agg_spill.cu``): one launch of one
+    block every chunk, in place; no host read."""
+    cap = chunk.capacity
+    dev = chunk.device
+    a = _SpillArgs()
+    keep = []
+    k = 0
+    for store, col in zip(state.spill_rows, chunk.columns):
+        sd, sn = split_col(store)
+        cd, cn = split_col(col)
+        pairs = [(x, y) for (x, _), (y, _) in zip(value_leaves(sd),
+                                                  value_leaves(cd))]
+        if sn is not None:
+            if cn is None:
+                cn = torch.zeros(cap, dtype=torch.bool, device=dev)
+            pairs.append((sn.view(torch.uint8),
+                          cn.contiguous().view(torch.uint8)))
+        for dst, src in pairs:
+            if k >= kernels.MAX_JOIN_LEAVES:
+                raise ValueError(f"more than {kernels.MAX_JOIN_LEAVES} leaves")
+            src = src.contiguous()
+            keep += [dst, src]
+            a.cols.width[k] = leaf_width(src)
+            a.cols.src[k] = src.data_ptr()
+            a.cols.dst[k] = dst.data_ptr()
+            k += 1
+    a.cols.n = k
+    u8 = lambda t: t.contiguous().view(torch.uint8)  # noqa: E731
+    flags = [u8(valid), u8(overflow)]
+    if pa is not None:
+        flags += [u8(pa.rep), u8(pa.starts)]
+        perm = pa.perm.contiguous()
+        keep.append(perm)
+    ops = chunk.ops.contiguous()
+    scratch = torch.empty(2 * cap + 1, dtype=torch.uint8, device=dev)
+    kernels.require_cuda("agg_spill", ops, state.spill_ops,
+                         state.spill_count, state.overflow, scratch,
+                         *flags, *keep)
+    a.ops, a.ring_ops = ops.data_ptr(), state.spill_ops.data_ptr()
+    a.valid, a.overflow = flags[0].data_ptr(), flags[1].data_ptr()
+    if pa is not None:
+        a.rep, a.starts = flags[2].data_ptr(), flags[3].data_ptr()
+        a.perm = perm.data_ptr()
+    a.seg_over, a.mask = scratch.data_ptr(), scratch[cap + 1:].data_ptr()
+    a.count, a.lost = state.spill_count.data_ptr(), \
+        state.overflow.data_ptr()
+    a.cap, a.ring = cap, ring
+    fn = kernels.entry("agg_spill", "rw_agg_spill",
+                       [_SpillArgs, ctypes.c_void_p])
+    kernels.count_launch("agg_spill")
+    kernels.check(fn(a, kernels.stream_ptr(dev)), "agg_spill")
+
+
+def spill_capture(state: "AggState", chunk: Chunk, valid, overflow,
+                  pa: "Preagg | None", ring: int) -> None:
+    """Divert the overflowed rows into the spill ring, in place; CUDA
+    tensors launch kernel ``agg_spill``."""
+    impl = spill_capture_cuda if chunk.device.type == "cuda" \
+        else spill_capture_plain
+    impl(state, chunk, valid, overflow, pa, ring)
 
 
 # ---------------------------------------------------------------------------
@@ -389,10 +550,22 @@ class HashAggExecutor(Executor):
         watermark_src_col: int | None = None,
         emit_on_window_close: bool = False,
         retractable_input: bool = False,
+        spill_ring: int = 0,
     ):
         super().__init__(in_schema)
         self.group_by = tuple(group_by)
         self.aggs = tuple(aggs)
+        #: overflow-row ring capacity (0: overflow is an error); the
+        #: planner sets it for aggregations without watermark cleaning
+        self.spill_ring = spill_ring
+        self._ctor_kwargs = dict(
+            in_schema=in_schema, group_by=self.group_by, aggs=self.aggs,
+            emit_capacity=emit_capacity,
+            watermark_group_idx=watermark_group_idx,
+            watermark_lag=watermark_lag,
+            watermark_src_col=watermark_src_col,
+            emit_on_window_close=emit_on_window_close,
+            retractable_input=retractable_input)
         if emit_on_window_close:
             raise NotImplementedError(
                 "EMIT ON WINDOW CLOSE aggregation is not ported yet")
@@ -496,6 +669,13 @@ class HashAggExecutor(Executor):
             overflow=torch.zeros((), **i64),
             inconsistency=torch.zeros((), **i64),
             wm=torch.full((), INT64_MIN, **i64),
+            spill_rows=tuple(empty_value_col(f, self.spill_ring, device)
+                             for f in self.in_schema)
+            if self.spill_ring else (),
+            spill_ops=torch.zeros(self.spill_ring, dtype=torch.int8,
+                                  device=device) if self.spill_ring else (),
+            spill_count=torch.zeros((), dtype=torch.int32, device=device)
+            if self.spill_ring else (),
         )
 
     # ------------------------------------------------------------------
@@ -537,6 +717,7 @@ class HashAggExecutor(Executor):
             modes.append(ps.mode)
             inits.append(ps.init(state.prims[pi].dtype))
             values.append(ps.lift(col, prim_signs).to(state.prims[pi].dtype))
+        pa = None
         if accel_tuned(chunk.device):
             # only each run's representative probes and scatters the
             # run's partials; an overflowed representative loses its run
@@ -551,6 +732,12 @@ class HashAggExecutor(Executor):
                 key_cols, valid, hashes=h)
             n_over = (overflow & valid).sum(dtype=torch.int64)
             row_signs = signs.to(torch.int64)
+        if self.spill_ring:
+            # overflowed rows divert into the ring; only the rows the ring
+            # cannot hold count into overflow (added by the capture)
+            spill_capture(state, chunk, valid, overflow, pa,
+                          self.spill_ring)
+            n_over = torch.zeros((), dtype=torch.int64, device=chunk.device)
         agg_scatter(list(state.prims), modes, inits, values, slots, inserted,
                     row_signs, state.row_count, state.dirty)
 
@@ -619,6 +806,23 @@ class HashAggExecutor(Executor):
                     out=state.emitted)
         state.dirty.logical_and_(~sel)
         return state, out
+
+    def drain_spill(self, state: AggState):
+        """``(state with an empty ring, Chunk of the diverted rows)``: the
+        runtime drains the ring at snapshot barriers into the host tier.
+        The chunk's columns are the ring's stores: copy them before the
+        next chunk."""
+        R = self.spill_ring
+        valid = torch.arange(R, dtype=torch.int32,
+                             device=state.spill_ops.device) < state.spill_count
+        chunk = Chunk(state.spill_rows, state.spill_ops, valid,
+                      self.in_schema)
+        state.spill_count.zero_()
+        return state, chunk
+
+    def make_spill_tier(self, table_size: int) -> "HashAggExecutor":
+        """A same-shaped aggregation for the host (CPU) overflow tier."""
+        return HashAggExecutor(table_size=table_size, **self._ctor_kwargs)
 
     def pending_flush(self, state: AggState) -> torch.Tensor:
         return state.dirty.sum(dtype=torch.int64)

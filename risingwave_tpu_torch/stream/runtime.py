@@ -17,8 +17,13 @@ with ``DagJob``): the state tree goes into the job's ``ShadowSnapshot``
 into persistent buffers without one) and, with a store, a background
 uploader persists the epoch; ``committed_epoch`` advances when the
 upload acks.  ``recover()`` prefers the durable store and else restores
-the shadow.  Spill tiers and sinks are not ported: their hooks in the
-commit are absent.
+the shadow.  The aggregations' spill tiers (``stream/spill.py``) ride
+the same commit: every snapshot barrier first drains the non-empty
+rings into their host tiers (one host read of the fill counts, in
+``StreamingJob`` and ``DagJob``); each snapshot carries host copies of
+the tiers (``CheckpointSnapshot.spill``), the uploader saves them first
+under their own store keys, and ``rewind_spill_tier`` rewinds a tier
+on a durable recover.  Sinks are not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
+import torch
 
 from risingwave_tpu_torch.common.device import resolve_device
 from risingwave_tpu_torch.common.epoch import EpochPair
@@ -34,6 +40,7 @@ from risingwave_tpu_torch.common.trace import GLOBAL_TRACE
 from risingwave_tpu_torch.common.tree import tree_map
 from risingwave_tpu_torch.stream.fragment import Fragment
 from risingwave_tpu_torch.stream.message import Barrier, BarrierKind
+from risingwave_tpu_torch.stream.spill import chunk_to
 
 
 @dataclass
@@ -45,6 +52,9 @@ class CheckpointSnapshot:
     epoch: int
     states: Any
     source_state: dict
+    #: host copies of spill-tier states at this epoch (key -> tree); a
+    #: missing key: the tier had absorbed nothing yet
+    spill: dict | None = None
 
 
 class CheckpointPipelineMixin:
@@ -104,9 +114,13 @@ class CheckpointPipelineMixin:
             self._uploader.drain(raise_error=raise_error)
             self._process_upload_acks()
 
-    def _snapshot_commit(self, epoch_val: int, src_state: dict) -> None:
+    def _snapshot_commit(self, epoch_val: int, src_state: dict,
+                         spill_host: dict | None = None,
+                         spill_items: list | None = None) -> None:
         """Seal one epoch: shadow update + uploader enqueue (or, with no
-        store, the in-memory commit)."""
+        store, the in-memory commit).  ``spill_host`` are the spill
+        tiers' copies for the in-memory snapshot, ``spill_items`` their
+        ``(store key, tree)`` saves."""
         from risingwave_tpu_torch.storage.digest import DEFAULT_BLOCK_ELEMS
         from risingwave_tpu_torch.stream.shadow import ShadowSnapshot
 
@@ -141,18 +155,68 @@ class CheckpointPipelineMixin:
                 digests = self._shadow.update(self.states, epoch_val)
         self.sealed_epoch = epoch_val
         self.checkpoints = [CheckpointSnapshot(
-            epoch=epoch_val, states=None, source_state=src_state)]
+            epoch=epoch_val, states=None, source_state=src_state,
+            spill=spill_host)]
         if store is not None:
             from risingwave_tpu_torch.stream.checkpoint import UploadTask
             up.enqueue(UploadTask(
                 epoch=epoch_val, leaves=self._shadow.leaves,
                 digests=digests, shapes=self._shadow.shapes,
                 treedef=self._shadow.treedef, source_state=src_state,
-                ready=self._shadow.ready,
+                ready=self._shadow.ready, spill=list(spill_items or ()),
                 trace_ctx=GLOBAL_TRACE.current()))
             self._process_upload_acks()
         else:
             self.committed_epoch = epoch_val
+
+    # -- spill tiers (stream/spill.py) -----------------------------------
+    def _init_spill_tiers(self, sites) -> None:
+        """One host tier per spill-enabled aggregation; ``sites`` are
+        ``(key, store-key suffix, executor)``."""
+        from risingwave_tpu_torch.stream.spill import AggSpillTier
+
+        self._spill_tiers = {
+            key: (suffix, AggSpillTier(
+                ex, getattr(ex, "spill_table_size", ex.table_size * 8)))
+            for key, suffix, ex in sites}
+
+    def _spill_key(self, suffix) -> str:
+        return f"{self.ckpt_key}@spill{suffix}"
+
+    def _read_spill_counts(self, rings) -> list[int]:
+        """One host read of the given rings' fill counts."""
+        if not rings:
+            return []
+        self.spill_reads += 1
+        return torch.stack(rings).tolist()
+
+    def _spill_snapshot(self):
+        """``(spill_host, spill_items)`` of ``_snapshot_commit``: a copy
+        of every tier that absorbed rows, and its store saves."""
+        host = {key: tier.snapshot()
+                for key, (_, tier) in self._spill_tiers.items()
+                if tier.rows_absorbed}
+        items = [(self._spill_key(self._spill_tiers[key][0]), tree)
+                 for key, tree in host.items()]
+        return host, items
+
+    def _rewind_spill_tiers(self, epoch: int) -> None:
+        """A durable recover: rewind every tier to the job's epoch."""
+        for suffix, tier in self._spill_tiers.values():
+            key = self._spill_key(suffix)
+            self.checkpoint_store.invalidate(key)
+            rewind_spill_tier(self.checkpoint_store, key, epoch, tier)
+
+    def _restore_spill_tiers(self, snap) -> None:
+        """An in-memory recover: each tier from the snapshot's copy (or
+        empty: it had absorbed nothing by then, or there is no
+        snapshot)."""
+        for key, (_, tier) in self._spill_tiers.items():
+            spill = None if snap is None else snap.spill
+            if spill and key in spill:
+                tier.restore(spill[key])
+            else:
+                tier.reset()
 
     def _recover_pipeline(self, epoch: int | None):
         """The shared head of ``recover``: drain the uploads (a failed
@@ -203,6 +267,20 @@ def check_counter_values(name: str, labels: list[str],
     return residual
 
 
+def rewind_spill_tier(store, key: str, epoch: int, tier) -> None:
+    """Rewind a host spill tier after a durable recover: restore its
+    nearest epoch at or before the job's (a crash between the tier's
+    save and the job's leaves the tier one epoch ahead), else reset it —
+    its live state would count the replayed rows twice."""
+    cands = [e for e in store.epochs(key) if e <= epoch] \
+        if store is not None else []
+    loaded = store.load(key, cands[-1]) if cands else None
+    if loaded is not None:
+        tier.restore(loaded[1])
+    else:
+        tier.reset()
+
+
 def restore_source(source, state: dict) -> None:
     if hasattr(source, "restore"):
         source.restore(state)
@@ -238,6 +316,11 @@ class StreamingJob(CheckpointPipelineMixin):
         self._init_pipeline()
         #: counters vector of the last barrier (device tensor)
         self._counters = None
+        #: host reads of the spill rings' fill counts
+        self.spill_reads = 0
+        self._init_spill_tiers([(i, i, ex)
+                                for i, ex in enumerate(fragment.executors)
+                                if getattr(ex, "spill_ring", 0)])
 
     # ------------------------------------------------------------------
     def run_chunk(self) -> int:
@@ -293,16 +376,40 @@ class StreamingJob(CheckpointPipelineMixin):
                 self.name, self.fragment.counter_labels,
                 self._counters.cpu().numpy())
 
+    def _drain_spill_tiers(self, epoch_val) -> None:
+        """Snapshot-barrier hook: one host read of the rings' fill
+        counts; a non-empty ring drains into its host tier, whose
+        changelog runs through the executors after the aggregation."""
+        keys = list(self._spill_tiers)
+        counts = self._read_spill_counts(
+            [self.states[i].spill_count for i in keys])
+        for i, n in zip(keys, counts):
+            if n == 0:
+                continue
+            states = list(self.states)
+            ex = self.fragment.executors[i]
+            states[i], chunk = ex.drain_spill(states[i])
+            out = self._spill_tiers[i][1].process(chunk, epoch_val)
+            out = chunk_to(out, self.device)
+            for k in range(i + 1, len(self.fragment.executors)):
+                if out is None:
+                    break
+                states[k], out = self.fragment.executors[k].apply(
+                    states[k], out)
+            self.states = tuple(states)
+
     def _commit_checkpoint(self, barrier: Barrier) -> None:
-        """Every ``snapshot_interval`` checkpoints: seal the epoch."""
+        """Every ``snapshot_interval`` checkpoints: drain the spill rings,
+        then seal the epoch."""
         epoch_val = barrier.epoch.prev.value
         self._ckpts_since_snapshot += 1
         if self._ckpts_since_snapshot < self.snapshot_interval:
             return
         self._ckpts_since_snapshot = 0
+        self._drain_spill_tiers(epoch_val)
         src_state = self.source.state() if hasattr(self.source, "state") \
             else {}
-        self._snapshot_commit(epoch_val, src_state)
+        self._snapshot_commit(epoch_val, src_state, *self._spill_snapshot())
 
     def recover(self, epoch: int | None = None) -> None:
         """Reset to the last committed checkpoint: the durable store's
@@ -310,15 +417,18 @@ class StreamingJob(CheckpointPipelineMixin):
         initial state."""
         loaded = self._recover_pipeline(epoch)
         if loaded is not None:
-            _, self.states, src_state = loaded
+            epoch_v, self.states, src_state = loaded
             restore_source(self.source, src_state)
+            self._rewind_spill_tiers(epoch_v)
             return
         if not self.checkpoints:
             self.states = self.fragment.init_states(self.device)
             if hasattr(self.source, "offset"):
                 self.source.offset = 0
+            self._restore_spill_tiers(None)
             return
         snap = self.checkpoints[-1]
         # a copy: the running job updates state in place
         self.states = self._shadow.restore()
         restore_source(self.source, snap.source_state)
+        self._restore_spill_tiers(snap)

@@ -71,6 +71,16 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[check] ow_bid MV equals numpy",
                 "[check] q6_bid overflow and inconsistency counters 0",
                 "[check] ow_bid overflow and inconsistency counters 0",
-                "[main] q6_bid clean"):
+                "[main] q6_bid clean",
+                "[join_dense] exact (q101's flush",
+                "[join_emit] exact over a dense build",
+                "[join_emit] exact over a pool build with transitions",
+                "[agg_spill] exact on both branches",
+                "[join_dense] clean_below and rebuild exact",
+                "[join_dense] exact on the edge cases",
+                "[parity] q101", "[parity] q103", "[parity] q104",
+                "[check] q101 MV equals numpy", "[check] q103 MV equals numpy",
+                "[check] q104 MV equals numpy",
+                "[check] q101 overflow, inconsistency and emit_overflow 0"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout

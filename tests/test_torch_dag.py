@@ -98,16 +98,30 @@ def test_q8_engine_rows_state_recover_and_carried_state():
 
 
 @pytest.mark.parametrize("query,config", [
-    # outer joins are queued with the dense storage
-    (QUERIES["q8"].replace("JOIN TUMBLE", "LEFT JOIN TUMBLE"), {}),
-    # dense (bucket) storage
-    (QUERIES["q8"], dict(join_force_dense=True)),
+    # a full outer join cannot push a one-sided ON condition down
+    (QUERIES["q8"].replace("JOIN TUMBLE", "FULL JOIN TUMBLE").replace(
+        "p.window_start = a.window_start",
+        "p.window_start = a.window_start AND a.reserve > 10"), {}),
+    # aggregation over the join
+    (QUERIES["q8"].replace("p.name AS name, a.reserve AS reserve",
+                           "count(*) AS n").replace(
+        ";", " GROUP BY p.id;"), {}),
     # a non-equality ON condition
     (QUERIES["q8"].replace("p.id = a.seller", "p.id > a.seller"), {}),
     # WHERE over the join
     (QUERIES["q8"].replace(";", " WHERE a.reserve > 10;"), {}),
+    # a residual ON condition on an inner join
+    (QUERIES["q8"].replace("p.id = a.seller", "p.id = a.seller AND "
+                           "p.id < a.reserve"), {}),
+    # a nested (three-way) join
+    (QUERIES["q8"].replace(
+        "ON p.id = a.seller AND p.window_start = a.window_start",
+        "ON p.id = a.seller AND p.window_start = a.window_start "
+        "JOIN bid b ON b.auction = a.id"), {}),
 ])
 def test_unported_join_plans_raise(query, config):
+    """What the port still refuses (the LEFT JOIN and dense-storage cases
+    that stood here plan now: ``tests/test_torch_join_sql.py``)."""
     eng = Engine(PlannerConfig(**SIZES, **config), device="cpu")
     eng.execute(SOURCES.format(rate=RATE))
     with pytest.raises(PlanError):

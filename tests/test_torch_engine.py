@@ -135,9 +135,12 @@ def test_pane_plan_needing_retractable_min_max_raises():
 
 
 @pytest.mark.parametrize("sql,error", [
-    # q8 itself runs since the join slice (tests/test_torch_dag.py); its
-    # outer-join form is still queued
-    pytest.param(QUERIES["q8"].replace("JOIN TUMBLE", "FULL JOIN TUMBLE"),
+    # q8 and its outer-join forms run (tests/test_torch_dag.py,
+    # tests/test_torch_join_sql.py); a full outer join cannot push an ON
+    # condition on one side below the join
+    pytest.param(QUERIES["q8"].replace("JOIN TUMBLE", "FULL JOIN TUMBLE")
+                 .replace("a.window_start;",
+                          "a.window_start AND a.reserve > 10;"),
                  PlanError, id="q8_full_outer"),
 ])
 def test_unported_plans_raise(sql, error):

@@ -47,7 +47,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
         "'risingwave_tpu_torch.meta.store', "
         "'risingwave_tpu_torch.stream.top_n', "
         "'risingwave_tpu_torch.stream.over_window', "
-        "'risingwave_tpu_torch.connector.datagen'}\n"
+        "'risingwave_tpu_torch.connector.datagen', "
+        "'risingwave_tpu_torch.stream.spill'}\n"
         "assert new <= set(mods), new - set(mods)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -221,22 +221,34 @@ def test_clean_rebuild_and_compaction_equal_the_reference():
 
 
 @pytest.mark.parametrize("kw,error", [
-    (dict(join_type="left_outer"), NotImplementedError),
-    (dict(left_storage="dense"), NotImplementedError),
+    (dict(join_type="semi_outer"), ValueError),
+    (dict(left_storage="bucket"), ValueError),
 ])
 def test_unported_join_variants_raise(kw, error):
+    """Every join type of ``JOIN_TYPES`` over pool and dense storage
+    constructs (``tests/test_torch_join_dense.py`` holds them against
+    the reference); an unknown type or storage raises."""
     args = dict(out_capacity=OUT_CAP, join_type="inner", left_storage="pool",
                 right_storage="pool")
+    for jt in hj.JOIN_TYPES:
+        for ls in ("pool", "dense"):
+            hj.HashJoinExecutor(TL, TR, [InputRef(0)], [InputRef(0)],
+                                **dict(args, join_type=jt, left_storage=ls))
     args.update(kw)
     with pytest.raises(error):
         hj.HashJoinExecutor(TL, TR, [InputRef(0)], [InputRef(0)], **args)
 
 
 def test_dense_side_state_is_refused_by_compat():
+    """A dense side's state (``SideState``) is no longer refused: it
+    converts to the port's and compares equal, element for element."""
     j = jhj.HashJoinExecutor(JL, JR, [JRef(0)], [JRef(0)], table_size=16,
                              bucket_cap=4, out_capacity=OUT_CAP)
-    with pytest.raises(NotImplementedError):
-        state_from_numpy(jax.device_get(j.init_state()))
+    ref = jax.device_get(j.init_state())
+    port = state_from_numpy(ref)
+    assert isinstance(port.left, hj.SideState)
+    assert port.left.occupied.shape == (16, 4)
+    assert state_mismatches(ref, port) == []
 
 
 def test_string_columns_survive_the_pool_round_trip():

@@ -22,6 +22,10 @@ CREATE SOURCE t (k BIGINT, f DOUBLE, g REAL, s SMALLINT, b BOOLEAN,
                  ts TIMESTAMP,
                  WATERMARK FOR ts AS ts - INTERVAL '1' SECOND)
 WITH (connector = 'datagen');
+CREATE SOURCE w (k BIGINT, c0 VARCHAR, c1 VARCHAR, c2 VARCHAR, c3 VARCHAR,
+                 c4 VARCHAR, c5 VARCHAR, c6 VARCHAR, c7 VARCHAR,
+                 c8 VARCHAR)
+WITH (connector = 'datagen');
 """
 TUMBLE_T = "TUMBLE(t, ts, INTERVAL '10' SECOND)"
 TUMBLE_BID = "TUMBLE(bid, date_time, INTERVAL '10' SECOND)"
@@ -67,6 +71,17 @@ REFUSED = {
         "GROUP BY window_start", "K5"),
 }
 
+#: the join kernels' leaf limits: (sql, extra config, kernel)
+JOIN_REFUSED = {
+    # 19 leaves a side; a full outer join's output pads both: 58 > 32
+    "full_join_wide": (
+        "SELECT * FROM w a FULL JOIN w b ON a.k = b.k", {}, "K14"),
+    # a dense side hashes its 19 leaves per row (K13d takes 16)
+    "dense_side_wide": (
+        "SELECT * FROM w a JOIN w b ON a.k = b.k",
+        dict(join_force_dense=True), "K13d"),
+}
+
 PLANNED = {
     "q1": QUERIES["q1"], "q5": QUERIES["q5"], "q7": QUERIES["q7"],
     "q8": QUERIES["q8"],
@@ -80,6 +95,18 @@ PLANNED = {
         "SELECT auction, price, lead(price) OVER (PARTITION BY auction "
         "ORDER BY date_time) AS nxt, sum(price) OVER (PARTITION BY auction "
         "ORDER BY date_time) AS s FROM bid"),
+    # the join matrix over a pool and a dense side (q101, q103, q104's
+    # shapes on bench.py's auction source, which lacks item_name)
+    "q101_shape": (
+        "SELECT a.id, a.reserve, b.max_price FROM auction a LEFT OUTER "
+        "JOIN (SELECT auction, MAX(price) max_price FROM bid GROUP BY "
+        "auction) b ON a.id = b.auction"),
+    "q103_shape": (
+        "SELECT a.id, a.reserve FROM auction a WHERE a.id IN (SELECT "
+        "b.auction FROM bid b GROUP BY b.auction HAVING COUNT(*) >= 20)"),
+    "q104_shape": (
+        "SELECT a.id, a.reserve FROM auction a WHERE a.id NOT IN (SELECT "
+        "b.auction FROM bid b GROUP BY b.auction HAVING COUNT(*) < 20)"),
     "sum_and_count_double": (
         f"SELECT window_start, sum(f) AS s, count(*) AS n FROM {TUMBLE_T} "
         "GROUP BY window_start"),
@@ -107,6 +134,16 @@ def test_cuda_plan_refuses_what_its_kernels_lack(engine, case):
     Planner(engine.catalog, engine.config, "cpu").plan(select)
     with pytest.raises(PlanError, match=kernel):
         Planner(engine.catalog, engine.config, "cuda").plan(select)
+
+
+@pytest.mark.parametrize("case", sorted(JOIN_REFUSED))
+def test_cuda_plan_refuses_join_leaf_limits(engine, case):
+    sql, extra, kernel = JOIN_REFUSED[case]
+    select = _select(sql)
+    config = PlannerConfig(chunk_capacity=64, **extra)
+    Planner(engine.catalog, config, "cpu").plan(select)
+    with pytest.raises(PlanError, match=kernel):
+        Planner(engine.catalog, config, "cuda").plan(select)
 
 
 @pytest.mark.parametrize("case", sorted(PLANNED))
