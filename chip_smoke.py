@@ -222,6 +222,38 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def row_bytes(col, lead: int = 1) -> float:
+    """Bytes one row of a column holds (every leaf: data, string lengths,
+    null plane); the first ``lead`` dims index the rows."""
+    import math
+
+    from risingwave_tpu_torch.common.tree import flatten
+
+    leaves, _ = flatten(col)
+    return sum(x.element_size() * x.numel()
+               / max(math.prod(x.shape[:lead]), 1) for x in leaves)
+
+
+def emit_bound(p, w: int, out_cap: int, cols, spec,
+               addressing: int) -> tuple[float, str]:
+    """The bound of K14's window ``w`` from the bytes its rows need: every
+    output plane written (columns, op, valid); each valid row's probe-side
+    columns read; and for each row that reads a build row (pairs and
+    transitions) the build-side columns plus ``addressing`` bytes (a pool's
+    tag and pool_pos, a dense bucket's occupancy)."""
+    U, P, S, T = (int(x) for x in (p.U, p.P, p.S, p.total))
+    lo, hi = w * out_cap, min((w + 1) * out_cap, T)
+    n = max(0, hi - lo)
+    n_build = n - max(0, min(hi, U + P + S) - max(lo, U + P))
+    probe_b = sum(row_bytes(c) for c, (fp, _, _) in zip(cols, spec.layout)
+                  if fp)
+    build_b = sum(row_bytes(c) for c, (fp, _, _) in zip(cols, spec.layout)
+                  if not fp)
+    nbytes = out_cap * (probe_b + build_b + 2) + n * probe_b \
+        + n_build * (build_b + addressing)
+    return bound(nbytes, n * 10)
+
+
 def max_abs_err(torch, pairs) -> float:
     """Max |a - b| over pairs of tensors; any difference fails the run
     (every comparison here is exact: the paths are integer, and the
@@ -1498,9 +1530,8 @@ def phase_q8_kernels(torch, device, timer, scale):
     total, n_valid = int(pending.total), int(ep[2].sum())
     ms = timer(lambda i: hj.emit_window(*args), 200)
     plain_ms = timer(lambda i: hj.emit_window_plain(*args), 5)
-    # per output row: 116 B of columns read and written, pool_pos 4 B, a
-    # tag read 8 B, ~13 binary-search reads of 4 B
-    b = bound(out_cap * (2 * 116 + 4 + 8 + 13 * 4), out_cap * 80)
+    # a pair reads its build row's tag (8 B) and pool_pos (4 B)
+    b = emit_bound(pending, 0, out_cap, ek[0], join._specs["right"], 12)
     print(f"[join_emit] exact (window 0 of {total} outputs, {n_valid} "
           f"valid, person names included); kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {b[0]:.5f} ms", flush=True)
@@ -3643,6 +3674,7 @@ def phase_join_kernels(torch, device, timer, scale):
     through the aggregation and the aggregation's flush (U-/U+ pairs)
     into the dense side, each kernel against its plain version on CPU
     copies (plain times on the card).  Then the edge cases."""
+    from risingwave_tpu_torch.common.chunk import Chunk
     from risingwave_tpu_torch.common.hash import hash64_columns
     from risingwave_tpu_torch.common.tree import tree_map
     from risingwave_tpu_torch.stream import hash_agg as ha
@@ -3694,7 +3726,14 @@ def phase_join_kernels(torch, device, timer, scale):
     n_ins = int((rchunk.valid & (signs > 0)).sum())
     live = int(sp.count.sum())
     keys = int(sp.key_table.occupied.sum())
+    # the flush's inverse: its inserts come back as deletes by value
     inv = _inverse(torch, rchunk)
+    hj.update_side_dense(sk, inv, key_cols, null_keys, h)
+    hj.update_side_dense_plain(sp, _inverse(torch, rc_cpu), kc_cpu, nk_cpu,
+                               hash64_columns(kc_cpu))
+    _state_equal("join_dense on the flush's inverse", sk, sp)
+    inv_inc = int(sp.inconsistency) - int(right.inconsistency)
+    del sk, sp
     work = clone(right)
     fwd = hj.dense_update_args_cuda(work, rchunk, key_cols, null_keys, h) \
         if device.type == "cuda" else None
@@ -3723,15 +3762,23 @@ def phase_join_kernels(torch, device, timer, scale):
     plain_ms = timer(lambda i: hj.update_side_dense_plain(
         pwork, rchunk if (i - 5) % 2 == 0 else inv, key_cols, null_keys, h),
         5)
-    row_bytes = 16
-    # per row: 4 flags, slots and ranks 16 B, the row hash 8 B; a delete
-    # reads its bucket's B occupancy bytes and hashes the live rows there
-    # (one per key here), an insert reads B bytes and writes its row
-    nbytes = cap * 28 + n_del * (B + live / max(keys, 1) * row_bytes + 5) \
-        + n_ins * (B + row_bytes + 5)
-    b = bound(nbytes, n_del * (live / max(keys, 1)) * 2 * 12)
+    side_row = sum(row_bytes(c, 2) for c in right.rows)
+    per_key = live / max(keys, 1)
+
+    def dense_bytes(nd, ni):
+        # the insert and delete flags of every row; per active row its
+        # slot, rank and row hash (16 B), its bucket's B occupancy bytes,
+        # one occupancy byte and its key's count written; a delete hashes
+        # its key's live rows, an insert writes its row
+        return cap * 2 + (nd + ni) * (16 + B + 1 + 4) \
+            + nd * per_key * side_row + ni * side_row
+
+    # the timing alternates the flush and its inverse
+    nbytes = (dense_bytes(n_del, n_ins) + dense_bytes(n_ins, n_del)) / 2
+    b = bound(nbytes, (n_del + n_ins) / 2 * per_key * 2 * 12)
     print(f"[join_dense] exact (q101's flush: {n_del} deletes, {n_ins} "
-          f"inserts into {keys} keys x {B}); kernel {ms:.4f} ms "
+          f"inserts into {keys} keys x {B}; its inverse: {n_ins} deletes "
+          f"by value, {inv_inc} unmatched); kernel {ms:.4f} ms "
           f"(annihilation {cancel_ms:.4f} + update {upd_ms:.4f}; the sort "
           f"before the annihilation {sort_ms:.4f} ms apart), whole "
           f"update with K1/K3/ranks {whole_ms:.4f} ms, plain "
@@ -3740,7 +3787,8 @@ def phase_join_kernels(torch, device, timer, scale):
         "join_dense.cu", "risingwave_tpu/stream/hash_join.py:492", ms,
         plain_ms, b, None, 0.0)
     out["join_dense"].update(whole_update_ms=whole_ms, sort_ms=sort_ms,
-                             annihilation_ms=cancel_ms, update_ms=upd_ms)
+                             annihilation_ms=cancel_ms, update_ms=upd_ms,
+                             inverse_unmatched=inv_inc)
     del work, whole, pwork
 
     # -- K14 over the dense build: the auction chunk probes the bids' max -
@@ -3748,8 +3796,6 @@ def phase_join_kernels(torch, device, timer, scale):
     st, pend = join.apply_begin(st, achunk, "left")
     rows, index = join.build_rows_of(st, "left")
     occ = index[1]
-    pend = pend._replace(rank_to_idx=hj.rank_to_idx_of(
-        occ[pend.slots.to(torch.int64)] & (pend.m > 0)[:, None]))
     spec = join._specs["left"]
     out_cap = join.out_capacity
     rows_c, index_c, pend_c = to_cpu(rows), ("dense", occ.cpu()), \
@@ -3766,14 +3812,49 @@ def phase_join_kernels(torch, device, timer, scale):
                                          spec), 200)
     dplain_ms = timer(lambda i: hj.emit_window_plain(
         rows, index, pend, 0, out_cap, spec), 5)
-    # per output row: 45 B of columns written and read (id, item_name,
-    # the max and its null flag), the bucket's B occupancy bytes, ~3 x 13
-    # binary-search reads of 4 B
-    db = bound(out_cap * (2 * 45 + B + 3 * 13 * 4), out_cap * 120)
+    # a pair reads its bucket's B occupancy bytes
+    db = emit_bound(pend, 0, out_cap, ek[0], spec, B)
     print(f"[join_emit] exact over a dense build ({total} outputs of an "
           f"auction chunk: {n_pairs} pairs, {n_pads} NULL-padded rows); "
           f"kernel {dms:.4f} ms a window, plain {dplain_ms:.4f} ms, bound "
           f"{db[0]:.5f} ms", flush=True)
+    # the same chunk with the ids of keys that hold bids in its first
+    # rows: pairs through the kernel at full width
+    ki = join.left_keys[0].index
+    kt = job.states[3].right.key_table
+    bid_keys = kt.key_cols[0][kt.occupied & (job.states[3].right.count > 0)]
+    n_hit = min(bid_keys.numel(), achunk.capacity // 2)
+    ids = achunk.columns[ki].clone()
+    ids[:n_hit] = bid_keys[:n_hit]
+    hit = Chunk(tuple(ids if c == ki else col
+                      for c, col in enumerate(achunk.columns)),
+                achunk.ops, achunk.valid, achunk.schema)
+    st_h = clone(job.states[3])
+    st_h, pend_h = join.apply_begin(st_h, hit, "left")
+    rows_h, index_h = join.build_rows_of(st_h, "left")
+    rows_hc, index_hc, pend_hc = to_cpu(rows_h), \
+        ("dense", index_h[1].cpu()), to_cpu(pend_h)
+    total_h, n_pairs_h = int(pend_h.total), int(pend_h.P)
+    if not n_pairs_h:
+        fail("K14 over the dense build: the keyed chunk found no pairs")
+    pairs = []
+    for w in range(-(-total_h // out_cap)):
+        ek_h = hj.emit_window(rows_h, index_h, pend_h, w, out_cap, spec)
+        ep_h = hj.emit_window_plain(rows_hc, index_hc, pend_hc, w, out_cap,
+                                    spec)
+        pairs += _window_pairs(f"dense build pairs window {w}", ek_h, ep_h)
+    err = max(err, max_abs_err(torch, pairs))
+    hms = timer(lambda i: hj.emit_window(rows_h, index_h, pend_h, 0,
+                                         out_cap, spec), 200)
+    hplain_ms = timer(lambda i: hj.emit_window_plain(
+        rows_h, index_h, pend_h, 0, out_cap, spec), 5)
+    hb = emit_bound(pend_h, 0, out_cap, ek[0], spec, B)
+    print(f"[join_emit] exact over a dense build with pairs ({total_h} "
+          f"outputs: {n_pairs_h} pairs over {B}-deep buckets, "
+          f"{int(pend_h.S)} NULL-padded rows); kernel {hms:.4f} ms on "
+          f"window 0, plain {hplain_ms:.4f} ms, bound {hb[0]:.5f} ms",
+          flush=True)
+    del st_h, rows_h, rows_hc, pend_h, pend_hc
 
     # -- K14 over the pool build: the flush probes the auctions ----------
     st2 = clone(job.states[3])
@@ -3796,7 +3877,8 @@ def phase_join_kernels(torch, device, timer, scale):
                                          spec2), 200)
     pplain_ms = timer(lambda i: hj.emit_window_plain(
         rows2, index2, pend2, 0, out_cap, spec2), 5)
-    pb = bound(out_cap * (2 * 45 + 8 + 4 + 3 * 13 * 4), out_cap * 120)
+    # a pair or transition reads its build row's tag and pool_pos
+    pb = emit_bound(pend2, 0, out_cap, ek[0], spec2, 12)
     print(f"[join_emit] exact over a pool build with transitions ({total2} "
           f"outputs of the flush: {n_up} pads retracted, {int(pend2.P)} "
           f"pairs, {n_down} returned); kernel {pms:.4f} ms a window, plain "
@@ -3805,6 +3887,10 @@ def phase_join_kernels(torch, device, timer, scale):
                       dense_bound_ms=db[0], dense_bound_by=db[1],
                       dense_shape=f"q101 auction chunk over 2^18 x {B} "
                                   f"buckets: {n_pairs} pairs, {n_pads} pads",
+                      dense_pairs_ms=hms, dense_pairs_plain_ms=hplain_ms,
+                      dense_pairs_bound_ms=hb[0], dense_pairs_bound_by=hb[1],
+                      dense_pairs_shape=f"the same chunk keyed to bids: "
+                                        f"{n_pairs_h} pairs",
                       pads_ms=pms, pads_plain_ms=pplain_ms,
                       pads_bound_ms=pb[0], pads_bound_by=pb[1],
                       pads_shape=f"q101 flush over the auction pool: "
@@ -3892,10 +3978,13 @@ def phase_join_kernels(torch, device, timer, scale):
                                   ha.spill_capture_plain(full_st, *full_args,
                                                          ring)), 10)
     n_spilled = int(full_st.spill_count)
-    bid_bytes = BID_ROW_BYTES
-    # flags 4 B and perm 8 B a row; a spilled row read and written once
-    cb = bound(cap * 12, cap * 20)
-    fb = bound(cap * 12 + n_spilled * 2 * bid_bytes, cap * 20)
+    bid_bytes = sum(row_bytes(c) for c in bchunk.columns) + 1
+    # a clean chunk reads valid, overflow and rep (1 B each a row) to see
+    # that nothing diverts; diverting also reads the segment starts, and
+    # a spilled row its perm entry (8 B) and its columns and op, once
+    # read and once written
+    cb = bound(cap * 3, cap * 3)
+    fb = bound(cap * 4 + n_spilled * (8 + 2 * bid_bytes), cap * 20)
     print(f"[agg_spill] exact on both branches ({len(bids)} chunks into a "
           f"{table}-slot table: the {ring}-row ring filled, {n_lost} rows "
           f"lost and counted); kernel {ms_clean:.4f} ms on the main path's "

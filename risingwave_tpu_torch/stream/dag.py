@@ -9,8 +9,9 @@ and ``_apply_join_windowed`` (:406), ``run_chunk``, ``_compute_pulls``,
 ``inject_barrier``), ``_maintain``, ``_commit_checkpoint``, ``recover``
 and ``mv_rows``, and the aggregations' spill tiers
 (``_drain_spill_tiers`` and ``_restore_spill_tiers``, :1214-1350; the
-tiers are built with the job, their bookkeeping is shared with
-``StreamingJob`` in ``CheckpointPipelineMixin``): at every snapshot
+tiers are built with the job; the drain and the bookkeeping are
+shared with ``StreamingJob`` in ``CheckpointPipelineMixin``, and a node
+sends the drained changelog on through ``_propagate``): at every snapshot
 barrier one host read of the fill counts decides which rings
 drain into their host tier (``stream/spill.py``), whose changelog then
 runs through the rest of the aggregation's node and downstream.
@@ -64,7 +65,6 @@ from risingwave_tpu_torch.stream.runtime import (
     check_counter_values,
     restore_source,
 )
-from risingwave_tpu_torch.stream.spill import chunk_to
 from risingwave_tpu_torch.stream.watermark import WatermarkFilterExecutor
 
 #: a dataflow edge endpoint: ("source", name) or ("node", node_id)
@@ -498,33 +498,20 @@ class DagJob(CheckpointPipelineMixin):
         self._snapshot_commit(sealed, self._source_states(),
                               *self._spill_snapshot())
 
-    def _drain_spill_tiers(self, sealed) -> None:
-        """Snapshot-barrier hook: one host read of every ring's fill
-        count; each non-empty ring drains into its host tier, and the
-        tier's changelog runs through the rest of the aggregation's node
-        and downstream."""
-        keys = list(self._spill_tiers)
-        counts = self._read_spill_counts(
-            [self.states[idx][j].spill_count for idx, j in keys])
-        for (idx, j), n in zip(keys, counts):
-            if n == 0:
-                continue
-            new_states = list(self.states)
-            frag = self.nodes[idx].fragment
-            node_states = list(new_states[idx])
-            node_states[j], chunk = frag.executors[j].drain_spill(
-                node_states[j])
-            out = self._spill_tiers[(idx, j)][1].process(chunk, sealed)
-            out = chunk_to(out, self.device)
-            for k in range(j + 1, len(frag.executors)):
-                if out is None:
-                    break
-                node_states[k], out = frag.executors[k].apply(
-                    node_states[k], out)
-            new_states[idx] = tuple(node_states)
-            if out is not None:
-                self._propagate(new_states, [(("node", idx), out)])
-            self.states = tuple(new_states)
+    # the spill drain's view of a node: its states and executors, and
+    # the drained changelog's way downstream
+    def _node_states(self, idx):
+        return self.states[idx]
+
+    def _node_executors(self, idx):
+        return self.nodes[idx].fragment.executors
+
+    def _spill_downstream(self, idx, node_states, out) -> None:
+        new_states = list(self.states)
+        new_states[idx] = node_states
+        if out is not None:
+            self._propagate(new_states, [(("node", idx), out)])
+        self.states = tuple(new_states)
 
     def recover(self, epoch: int | None = None) -> None:
         """Reset to the last committed checkpoint (states and readers):

@@ -29,7 +29,7 @@ Emission is output-centric and windowed: the logical array ``[up |
 pairs | self | down]`` is cut into ``out_capacity`` windows, and every
 output row finds its probe row by a binary search over prefix sums and
 its build row by a tag lookup (pool) or as the j-th occupied position of
-its key's bucket (dense; ``rank_to_idx``).  Outer pads, semi rows and
+its key's bucket (dense).  Outer pads, semi rows and
 anti rows are the preserved side's self rows; a key whose own-side count
 crosses 0 flips the other side's stored rows (up/down transitions, the
 first row of the key in the chunk emits them).
@@ -284,14 +284,11 @@ class JoinState(NamedTuple):
 
 class JoinEmit(NamedTuple):
     """One chunk's staged emission space ``[up | pairs | self | down]``
-    (device tensors; the scalars are 0-d int32).  ``rank_to_idx`` (the
-    bucket index of the k-th live row of a dense build) is computed by
-    the plain path only: K14 finds the position in-thread."""
+    (device tensors; the scalars are 0-d int32)."""
 
     probe_cols: tuple
     signs: torch.Tensor       # int32 [cap]
     slots: torch.Tensor       # int32 [cap] clamped build-side key slots
-    rank_to_idx: "torch.Tensor | None"  # int32 [cap, B] (plain, dense)
     probe_hash: torch.Tensor  # int64 [cap] probe rows' join-key hashes
     m: torch.Tensor           # int32 [cap] live build rows per probe row
     up_cnt: torch.Tensor      # int32 [cap]
@@ -772,11 +769,11 @@ class EmitSpec(NamedTuple):
 
 
 def rank_to_idx_of(occ: torch.Tensor) -> torch.Tensor:
-    """The bucket index of each probe row's k-th live build row, live
-    rows first (the stable argsort of the free flags, int32 [cap, B]):
-    the plain emission's addressing of a dense build (K14 finds it
-    in-thread).  ``occ`` is the build buckets' occupancy at the probe
-    rows' slots, all False where the key was not found."""
+    """The bucket index of each row's k-th live build row, live rows
+    first (the stable argsort of the free flags, int32 [n, B]): the
+    reference's ``rank_to_idx``.  ``occ`` is the build buckets'
+    occupancy at the rows' key slots, all False where the key has no
+    live rows."""
     return torch.argsort((~occ).to(torch.int8), dim=1,
                          stable=True).to(torch.int32)
 
@@ -833,9 +830,14 @@ def emit_window_plain(build_rows, index, p: JoinEmit, w: int, out_cap: int,
         def build_val(store):
             return gather_key(store, bpos)
     else:
+        # the reference's rank_to_idx[r, clip(j, 0, B - 1)], for the
+        # window's rows only (a key with no live rows reads all free)
+        occupied = index[1]
         slot = p.slots[r].to(torch.int64)
-        B = p.rank_to_idx.shape[1]
-        bidx = p.rank_to_idx[r, torch.clamp(j, 0, B - 1).to(torch.int64)] \
+        B = occupied.shape[1]
+        occ = occupied[slot] & (p.m[r] > 0)[:, None]
+        bidx = rank_to_idx_of(occ).gather(
+            1, torch.clamp(j, 0, B - 1).to(torch.int64)[:, None])[:, 0] \
             .to(torch.int64)
 
         def build_val(store):
@@ -1358,7 +1360,6 @@ class HashJoinExecutor:
         joinable = active if null_keys is None else active & ~null_keys
 
         # probe the build side: per-row key slot and live rows
-        rank_to_idx = None
         if self.storage_of(other_side) == "pool":
             # ONE lookup of each key's head (hash, 0)
             bsize = other.table.size
@@ -1374,8 +1375,6 @@ class HashJoinExecutor:
             safe = torch.clamp(slots, max=bsize - 1)
             occ = other.occupied[safe.to(torch.int64)] & found[:, None]
             m = occ.sum(dim=1, dtype=torch.int32)
-            if dev.type != "cuda":
-                rank_to_idx = rank_to_idx_of(occ)
         pair_cnt = m if self.emit_pairs else torch.zeros_like(m)
         pair_end = torch.cumsum(pair_cnt, 0, dtype=torch.int32)
         P = pair_end[-1]
@@ -1419,7 +1418,7 @@ class HashJoinExecutor:
         total = U + P + S + down_end[-1]
         pending = JoinEmit(
             probe_cols=chunk.columns, signs=signs, slots=safe,
-            rank_to_idx=rank_to_idx, probe_hash=probe_hash, m=m,
+            probe_hash=probe_hash, m=m,
             up_cnt=up_cnt, up_end=up_end, U=U, pair_end=pair_end, P=P,
             self_sel=self_sel, S=S, down_cnt=down_cnt, down_end=down_end,
             total=total)

@@ -172,7 +172,7 @@ class CheckpointPipelineMixin:
     # -- spill tiers (stream/spill.py) -----------------------------------
     def _init_spill_tiers(self, sites) -> None:
         """One host tier per spill-enabled aggregation; ``sites`` are
-        ``(key, store-key suffix, executor)``."""
+        ``((node, executor index), store-key suffix, executor)``."""
         from risingwave_tpu_torch.stream.spill import AggSpillTier
 
         self._spill_tiers = {
@@ -189,6 +189,28 @@ class CheckpointPipelineMixin:
             return []
         self.spill_reads += 1
         return torch.stack(rings).tolist()
+
+    def _drain_spill_tiers(self, epoch_val) -> None:
+        """Snapshot-barrier hook: one host read of every ring's fill
+        count; each non-empty ring drains into its host tier, and the
+        tier's changelog runs through the rest of the aggregation's
+        fragment and then ``_spill_downstream``."""
+        keys = list(self._spill_tiers)
+        counts = self._read_spill_counts(
+            [self._node_states(node)[j].spill_count for node, j in keys])
+        for (node, j), n in zip(keys, counts):
+            if n == 0:
+                continue
+            executors = self._node_executors(node)
+            states = list(self._node_states(node))
+            states[j], chunk = executors[j].drain_spill(states[j])
+            out = self._spill_tiers[(node, j)][1].process(chunk, epoch_val)
+            out = chunk_to(out, self.device)
+            for k in range(j + 1, len(executors)):
+                if out is None:
+                    break
+                states[k], out = executors[k].apply(states[k], out)
+            self._spill_downstream(node, tuple(states), out)
 
     def _spill_snapshot(self):
         """``(spill_host, spill_items)`` of ``_snapshot_commit``: a copy
@@ -318,7 +340,7 @@ class StreamingJob(CheckpointPipelineMixin):
         self._counters = None
         #: host reads of the spill rings' fill counts
         self.spill_reads = 0
-        self._init_spill_tiers([(i, i, ex)
+        self._init_spill_tiers([((0, i), i, ex)
                                 for i, ex in enumerate(fragment.executors)
                                 if getattr(ex, "spill_ring", 0)])
 
@@ -376,27 +398,15 @@ class StreamingJob(CheckpointPipelineMixin):
                 self.name, self.fragment.counter_labels,
                 self._counters.cpu().numpy())
 
-    def _drain_spill_tiers(self, epoch_val) -> None:
-        """Snapshot-barrier hook: one host read of the rings' fill
-        counts; a non-empty ring drains into its host tier, whose
-        changelog runs through the executors after the aggregation."""
-        keys = list(self._spill_tiers)
-        counts = self._read_spill_counts(
-            [self.states[i].spill_count for i in keys])
-        for i, n in zip(keys, counts):
-            if n == 0:
-                continue
-            states = list(self.states)
-            ex = self.fragment.executors[i]
-            states[i], chunk = ex.drain_spill(states[i])
-            out = self._spill_tiers[i][1].process(chunk, epoch_val)
-            out = chunk_to(out, self.device)
-            for k in range(i + 1, len(self.fragment.executors)):
-                if out is None:
-                    break
-                states[k], out = self.fragment.executors[k].apply(
-                    states[k], out)
-            self.states = tuple(states)
+    # the spill drain's view of the one fragment (node 0)
+    def _node_states(self, node):
+        return self.states
+
+    def _node_executors(self, node):
+        return self.fragment.executors
+
+    def _spill_downstream(self, node, states, out) -> None:
+        self.states = states
 
     def _commit_checkpoint(self, barrier: Barrier) -> None:
         """Every ``snapshot_interval`` checkpoints: drain the spill rings,

@@ -225,9 +225,12 @@ def test_clean_rebuild_and_compaction_equal_the_reference():
     (dict(left_storage="bucket"), ValueError),
 ])
 def test_unported_join_variants_raise(kw, error):
-    """Every join type of ``JOIN_TYPES`` over pool and dense storage
-    constructs (``tests/test_torch_join_dense.py`` holds them against
-    the reference); an unknown type or storage raises."""
+    """An unknown join type or storage raises, and every join type of
+    ``JOIN_TYPES`` over pool and dense storage constructs
+    (``tests/test_torch_join_dense.py`` holds them against the
+    reference).  The name dates from when the port refused the outer,
+    semi and anti joins and dense storage; it is kept so that the test
+    keeps its identity."""
     args = dict(out_capacity=OUT_CAP, join_type="inner", left_storage="pool",
                 right_storage="pool")
     for jt in hj.JOIN_TYPES:
@@ -240,8 +243,10 @@ def test_unported_join_variants_raise(kw, error):
 
 
 def test_dense_side_state_is_refused_by_compat():
-    """A dense side's state (``SideState``) is no longer refused: it
-    converts to the port's and compares equal, element for element."""
+    """A dense side's state (``SideState``) round-trips through compat:
+    it converts to the port's and compares equal, element for element.
+    The name dates from when compat refused dense state; it is kept so
+    that the test keeps its identity."""
     j = jhj.HashJoinExecutor(JL, JR, [JRef(0)], [JRef(0)], table_size=16,
                              bucket_cap=4, out_capacity=OUT_CAP)
     ref = jax.device_get(j.init_state())
