@@ -35,23 +35,34 @@
    version on CPU copies; then every join type over dense/dense,
    pool/dense and pool/pool sides with strings, NULLs, duplicates,
    annihilating pairs, unmatched deletes and full buckets, window by
-   window and state by state, against the CPU;
+   window and state by state, against the CPU; for q102, on the state
+   of a q102 engine (the filter's pool and the dedup table at 2^18),
+   K6d on a bid chunk and on its inverse (keys retracted to 0), the K4
+   sweep by slot list and by predicate over the dedup table and the
+   join's tag table, K5 on a join window keyed (int64, VARCHAR) and with
+   hashes forced equal, K16 and K21's left pass on the aggregation's
+   flush into the filter's pool, and K21's right pass with the
+   threshold up, down, emptied and set again;
 3. runs q7, q5 and q1 at 2 events/s, q8 at 10,000 events/s and q19,
    q18, q6_bid and ow_bid at 2 events/s through the port's ``Engine``
    on the card and on the CPU (plain versions, the agg forced onto the
    card's pre-aggregation branch) and requires equal MV or ring rows
    and equal state, slot for slot; q101, q103 and q104 at 10,000
    events/s with a 16-slot agg table (its spill ring and host tier run),
-   then ``recover()`` and 2 more barriers, with equal tiers too;
+   then ``recover()`` and 2 more barriers, with equal tiers too, and
+   q102 the same way;
 4. runs q1, q5, q7, q8, q19, q18, q6_bid and ow_bid, each in a fresh
    ``Engine`` at ``bench.py``'s sizes (q19/q18/q6_bid with a top-N pool
    of 2^18, an emitted band of 2^16 and an MV table of 2^18; ow_bid
    with an over-window pool and emit capacity of 2^22 and an MV table
    of 2^23; q101, q103 and q104 with join tables of 2^22 / 2^18, bucket
-   64, a pool of 2^22 and an MV of 2^22; 9 warm-up barriers, then 32
+   64, a pool of 2^22 and an MV of 2^22; q102 the same with a filter
+   pool and an MV of 2^18; 9 warm-up barriers, then 32
    timed barriers of 8 chunks, or of 8 scheduling rounds of 1 person and
    3 auction chunks for q8, or of one auction and one bid chunk for the
-   join queries) with the launch counters set to 0 just before and read
+   join queries, and of an auction chunk and a chunk from each bid
+   reader for q102) with the launch counters set to 0 just before and
+   read
    just after each timed window, and requires every kernel of that
    query's path to have launched; then q6_bid with the over-window's
    watermark cleaning set on the executor (8 timed barriers: K19a on
@@ -69,7 +80,11 @@
    capacity: lossless); q101's MV as every auction with its bids' max
    (NULL without bids), q103's as the auctions with at least 20 bids,
    q104's as those with none or at least 20, with the joins' and the
-   agg's loss counters 0 and the spill ring empty;
+   agg's loss counters 0 and the spill ring empty; q102's as each
+   auction's joined bid count where it reaches the floor division of all
+   bids by their distinct auctions (the card's threshold equal to
+   numpy's), with the join's, both aggregations' (their dedup included)
+   and the filter's loss counters 0;
 6. runs q7, q8 and q19 durably (``Engine(config, data_dir=<temporary
    directory>)``, the same sizes and barriers, a snapshot every 8
    checkpoints through K11 and the background uploader), prints rows/s,
@@ -112,7 +127,7 @@ CHUNKS_PER_BARRIER = 8
 WINDOW_US = 10_000_000
 HOP_SLIDE_US = 2_000_000
 QUERIES = ("q1", "q5", "q7", "q8", "q19", "q18", "q6_bid", "ow_bid",
-           "q101", "q103", "q104")
+           "q101", "q103", "q104", "q102")
 #: the kernels each query's main path must launch
 PATH_KERNELS = {
     "q1": ("nexmark_bids", "ring_append"),
@@ -146,6 +161,13 @@ PATH_KERNELS = {
              "probe", "agg_scatter", "agg_spill", "mask_indices",
              "tag_insert_ranked", "tag_probe", "join_update", "join_dense",
              "join_emit", "mv_upsert"),
+    # an aggregation over a pool/pool join, COUNT(DISTINCT) in the
+    # scalar's global aggregation, the dynamic filter over a row pool
+    "q102": ("nexmark_bids", "nexmark_auctions", "hash64", "agg_preagg",
+             "probe", "agg_scatter", "agg_spill", "mask_indices",
+             "tag_insert_ranked", "tag_probe", "join_update", "join_emit",
+             "agg_distinct", "table_sweep", "topn_pool", "dyn_filter",
+             "mv_upsert"),
     # q6_bid with the over-window's watermark cleaning set on the
     # executor (no plan sets it): K19a on the path
     "q6_bid clean": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
@@ -324,6 +346,11 @@ def main() -> int:
     join, emit_extra = phase_join_kernels(torch, device, timer, scale)
     results.update(join)
     results["join_emit"].update(emit_extra)
+    q102, preagg_extra, pool_extra = phase_q102_kernels(torch, device, timer,
+                                                        scale)
+    results.update(q102)
+    results["agg_preagg"].update(preagg_extra)
+    results["topn_pool"].update(pool_extra)
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -336,7 +363,7 @@ def main() -> int:
         phase_topn_parity(torch, device, query)
     for query in WINDOW_QUERIES:
         phase_window_parity(torch, device, query)
-    for query in JOIN_QUERIES:
+    for query in JOIN_QUERIES + ("q102",):
         phase_join_parity(torch, device, query)
 
     # -- 4-5. main paths --------------------------------------------------
@@ -357,6 +384,9 @@ def main() -> int:
         elif query in JOIN_QUERIES:
             launches, rates[query] = phase_join_main_path(torch, device,
                                                           scale, query)
+        elif query == "q102":
+            launches, rates[query] = phase_q102_main_path(torch, device,
+                                                          scale)
         else:
             launches, rates[query] = phase_main_path(torch, device, scale,
                                                      query)
@@ -1042,7 +1072,8 @@ PORT_KERNEL_NAMES = ("hash64_kernel", "probe_kernel", "reset_kernel",
                      "join_emit_kernel", "join_clean_kernel",
                      "compact_count_kernel", "compact_tiles_kernel",
                      "compact_write_kernel", "topn_", "ow_scan_local",
-                     "ow_scan_carry", "ow_finish")
+                     "ow_scan_carry", "ow_finish", "table_sweep_kernel",
+                     "distinct_", "dyn_")
 
 
 def profile_window(torch, eng, query: str, barriers: int = 2,
@@ -3418,7 +3449,7 @@ CREATE SOURCE auction (
 ) WITH (connector = 'nexmark', nexmark.table = 'auction',
         nexmark.event.rate = '1000000');
 """
-#: RisingWave's Nexmark q101, q103 and q104, as published
+#: RisingWave's Nexmark q101, q103, q104 and q102, as published
 JOIN_QUERY_SQL = {
     "q101": """
 CREATE MATERIALIZED VIEW nexmark_q101 AS
@@ -3457,6 +3488,19 @@ WHERE a.id NOT IN (
     SELECT b.auction FROM bid b
     GROUP BY b.auction
     HAVING COUNT(*) < 20
+);
+""",
+    "q102": """
+CREATE MATERIALIZED VIEW nexmark_q102 AS
+SELECT
+    a.id AS auction_id,
+    a.item_name AS auction_item_name,
+    COUNT(b.auction) AS bid_count
+FROM auction a
+JOIN bid b ON a.id = b.auction
+GROUP BY a.id, a.item_name
+HAVING COUNT(b.auction) >= (
+    SELECT COUNT(*) / COUNT(DISTINCT auction) FROM bid
 );
 """,
 }
@@ -4033,7 +4077,8 @@ def _tier_groups(tier):
 
     st = tier.state
     occ = st.table.occupied.cpu().numpy()
-    cols = [c.cpu().numpy()[occ] for c in st.table.key_cols]
+    cols = [x.cpu().numpy()[occ] for c in st.table.key_cols
+            for x in _leaves_of(c)]
     cols += [st.row_count.cpu().numpy()[occ]]
     cols += [p.cpu().numpy()[occ] for p in st.prims]
     return sorted(zip(*[c.tolist() for c in cols])) if cols else []
@@ -4054,7 +4099,7 @@ def phase_join_parity(torch, device, query: str) -> None:
                         agg_emit_capacity=128, agg_spill_table_size=1 << 11,
                         join_table_size=1 << 11, join_bucket_cap=8,
                         join_pool_size=1 << 14, join_out_capacity=256,
-                        mv_table_size=1 << 14)
+                        mv_table_size=1 << 14, distinct_table_size=1 << 11)
     name = f"nexmark_{query}"
     engines = []
     card_branch = hash_agg.accel_tuned
@@ -4273,6 +4318,538 @@ def phase_join_main_path(torch, device, scale, query: str):
     print(f"[check] {query} {check_join(eng, query, cap)}", flush=True)
     del eng, job, st, js, agg
     if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, rate
+
+
+# ---------------------------------------------------------------------------
+# q102: an aggregation over a join filtered by a moving scalar (K21, the
+# dynamic filter), COUNT(DISTINCT) in the scalar (K6d and the K4 sweep) and
+# a VARCHAR group key (K5 with strings)
+
+
+def _q102_over(scale: int) -> dict:
+    """q102's sizes over JOIN_CONFIG: the filter's pool and the MV at
+    2^18 (the pool holds one row per auction with bids: 26,990 in the
+    join slice's runs; the default max(4096, 2 x 8192) would overflow)."""
+    return {k: max(v // scale, 64) for k, v in
+            dict(topn_pool_size=1 << 18, mv_table_size=1 << 18).items()}
+
+
+def _rhs_chunk(torch, schema, cap, values, ops):
+    """A chunk of the scalar's changelog (the global aggregation's
+    projection: the value, then the hidden group key)."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import Chunk
+
+    vals = np.array(values, np.int64)
+    return Chunk.from_numpy(schema, [vals, np.zeros(len(vals), np.int32)],
+                            ops=np.array(ops, np.int8), capacity=cap)
+
+
+def phase_q102_kernels(torch, device, timer, scale):
+    """K6d, the K4 sweep, K21 and K5 with string keys at q102's main-path
+    shapes, on the state of a q102 engine at the slice's sizes after 6
+    barriers, each against its plain version on CPU copies (plain times
+    on the card): K6d on the next bid chunk into the global aggregation's
+    2^18-slot dedup table and on its inverse (deletes that retract keys
+    to 0); the K4 sweep by slot list (the dead keys) and by predicate
+    over that table and over the join's 2^22-entry tag table; K5 on a
+    join output window keyed (int64, VARCHAR), and with hashes forced
+    equal in runs of 4; K16 and K21's left pass on the aggregation's
+    U-/U+ flush into the filter's 2^18-row pool; K21's right pass with
+    the threshold up, down, emptied and set again."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.tree import tree_map
+    from risingwave_tpu_torch.stream import dynamic_filter as df
+    from risingwave_tpu_torch.stream import hash_agg as ha
+    from risingwave_tpu_torch.stream import top_n
+    from risingwave_tpu_torch.stream.spill import chunk_to
+
+    cpu = torch.device("cpu")
+    cuda = device.type == "cuda"
+
+    def clone(t):
+        return tree_map(torch.clone, t)
+
+    def to_cpu(t):
+        return tree_map(lambda x: x.to(cpu, copy=True), t)
+
+    eng = _join_engine(torch, device, scale, "q102", 6, over=_q102_over(scale))
+    job = eng.jobs[0]
+    states = list(clone(job.states))
+    out = {}
+    card_branch = ha.accel_tuned
+
+    def on_cpu(fn):
+        """Run ``fn`` with the CPU forced onto the card's branch."""
+        ha.accel_tuned = lambda d: True
+        try:
+            return fn()
+        finally:
+            ha.accel_tuned = card_branch
+
+    # -- K6d: the next bid chunk into the global aggregation's dedup -------
+    bchunk = None
+    for _ in range(2):
+        _, bchunk = job.nodes[4].fragment.step(
+            states[4], job.sources["bid"].next_chunk())
+    gex = job.nodes[5].fragment.executors[0]
+    gk, gp = clone(job.states[5][0]), to_cpu(job.states[5][0])
+    calls = []
+    orig = ha.distinct_dedup
+    ha.distinct_dedup = lambda *a: (calls.append([x.clone() for x in a]),
+                                    orig(*a))[1]
+    try:
+        cap = bchunk.capacity
+        steps = (("inserts", bchunk), ("the inverse", _inverse(torch,
+                                                               bchunk)))
+        tomb0 = int(gp.distinct_tables[0].tombstone_count())
+        for tag, c in steps:
+            gk, _ = gex.apply(gk, c)
+            gp, _ = on_cpu(lambda: gex.apply(gp, chunk_to(c, cpu)))
+            _state_equal(f"agg_distinct on {tag}", gk, gp)
+    finally:
+        ha.distinct_dedup = orig
+    n_dead = int(gp.distinct_tables[0].tombstone_count()) - tomb0
+    if n_dead <= 0:
+        fail("agg_distinct: the inverse chunk retracted no key to 0")
+    # the card's calls (the CPU's apply records the odd ones)
+    ins_args, inv_args = calls[0], calls[2]
+    pairs = []
+    for tag, a in (("inserts", ins_args), ("inverse", inv_args)):
+        ak = [x.clone() for x in a]
+        ap = [x.to(cpu, copy=True) for x in a]
+        rk = ha.distinct_dedup(*ak)
+        rp = ha.distinct_dedup_plain(*ap)
+        pairs += [(f"agg_distinct {tag} sign", rk[0], rp[0]),
+                  (f"agg_distinct {tag} dead", rk[1], rp[1]),
+                  (f"agg_distinct {tag} counts", ak[0], ap[0]),
+                  (f"agg_distinct {tag} overflow", ak[7], ap[7]),
+                  (f"agg_distinct {tag} inconsistency", ak[8], ap[8])]
+    err = max_abs_err(torch, [(n, x, y.to(device)) for n, x, y in pairs])
+    size_d = ins_args[0].shape[0]
+    live_d = int(gk.distinct_tables[0].occupied.sum())
+    n_keys = int(torch.unique(ins_args[1][ins_args[3] & ~ins_args[4]])
+                 .numel())
+    work = [x.clone() for x in ins_args]
+    kernel = ha.distinct_dedup_cuda if cuda else ha.distinct_dedup_plain
+    ms = timer(lambda i: kernel(*work), 200)
+    plain_ms = timer(lambda i: ha.distinct_dedup_plain(*work), 20)
+    # per row: slot 4, three flags 3, rank 4, sign 4 read; sign 8 and the
+    # dead flag 1 written; each key's count read and written once
+    b = bound(cap * 24 + n_keys * 16, cap * 12)
+    print(f"[agg_distinct] exact (the next {cap}-bid chunk into the 2^"
+          f"{size_d.bit_length() - 1} dedup table: {n_keys} keys of "
+          f"{live_d} live; its inverse: {n_dead} keys retracted to 0 and "
+          f"tombstoned); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b[0]:.6f} ms", flush=True)
+    out["agg_distinct"] = kernel_entry(
+        "agg_distinct.cu", "risingwave_tpu/stream/hash_agg.py:501", ms,
+        plain_ms, b, None, err)
+    out["agg_distinct"].update(keys=n_keys, dead_keys=n_dead)
+
+    # -- the K4 sweep -------------------------------------------------------
+    dtab = job.states[5][0].distinct_tables[0]
+    dslots, dead_rows = inv_args[1], ha.distinct_dedup_plain(
+        *[x.to(cpu, copy=True) for x in inv_args])[1].to(device)
+    n_rows_dead = int(dead_rows.sum())
+    tk, tp = dtab.clone(), to_cpu(dtab)
+    tk.clear_slots(dslots, dead_rows)
+    tp.clear_slots(dslots.cpu(), dead_rows.cpu())
+    _state_equal("table_sweep slot list (dedup table)", tk, tp)
+    keys0 = dtab.key_cols[1]
+    thr = keys0[dtab.occupied].median() if int(dtab.occupied.sum()) else 0
+    pred = dtab.occupied & (keys0 < thr)
+    tk, tp = dtab.clone(), to_cpu(dtab)
+    tk.clear_where(pred)
+    tp.clear_where(pred.cpu())
+    _state_equal("table_sweep predicate (dedup table)", tk, tp)
+    n_pred = int((pred & dtab.occupied).sum())
+    tags = job.states[2].left.table
+    g = torch.Generator(device="cpu").manual_seed(21)
+    tpred = (torch.rand(tags.size, generator=g) < 0.1).to(device)
+    tslots = torch.randint(0, tags.size + 1, (cap,), generator=g,
+                           dtype=torch.int32).to(device)
+    tmask = (torch.rand(cap, generator=g) < 0.5).to(device)
+    for tag, fn in (("predicate", lambda t, d: t.clear_where(
+            tpred.to(d))), ("slot list", lambda t, d: t.clear_slots(
+                tslots.to(d), tmask.to(d)))):
+        kk, pp = tags.clone(), to_cpu(tags)
+        fn(kk, device)
+        fn(pp, cpu)
+        _state_equal(f"table_sweep {tag} (tag table)", kk, pp)
+    sw = dtab.clone()
+    ms = timer(lambda i: sw.clear_slots(dslots, dead_rows), 200)
+    plain_ms = timer(lambda i: sw.clear_slots_plain(dslots, dead_rows), 20)
+    b = bound(cap * 5 + n_rows_dead * 2, cap * 2)
+    pms = timer(lambda i: sw.clear_where(pred), 200)
+    pplain = timer(lambda i: sw.clear_where_plain(pred), 20)
+    pb = bound(size_d * 2 + n_pred * 2, size_d * 2)
+    tt = tags.clone()
+    tms = timer(lambda i: tt.clear_where(tpred), 50)
+    tb = bound(tags.size * 9 + int((tpred & tags.occupied).sum()) * 8,
+               tags.size * 3)
+    print(f"[table_sweep] exact (the dedup table's {n_rows_dead} dead keys "
+          f"by slot list, {n_pred} slots by predicate over 2^"
+          f"{size_d.bit_length() - 1}; the join's 2^"
+          f"{tags.size.bit_length() - 1}-entry tag table both ways); "
+          f"kernel {ms:.4f} ms by slot list, plain {plain_ms:.4f} ms, bound "
+          f"{b[0]:.6f} ms; by predicate {pms:.4f} ms, plain {pplain:.4f} "
+          f"ms, bound {pb[0]:.6f} ms; tag table by predicate {tms:.4f} ms, "
+          f"bound {tb[0]:.5f} ms", flush=True)
+    out["table_sweep"] = kernel_entry(
+        "table_sweep.cu", "risingwave_tpu/state/hash_table.py:344", ms,
+        plain_ms, b, None, 0.0)
+    out["table_sweep"].update(
+        predicate_ms=pms, predicate_plain_ms=pplain, predicate_bound_ms=pb[0],
+        predicate_bound_by=pb[1], tags_predicate_ms=tms,
+        tags_predicate_bound_ms=tb[0], tags_predicate_bound_by=tb[1])
+    del tk, tp, sw, tt
+
+    # -- K5 with string keys: a join output window into the aggregation ---
+    join = job.nodes[2].join
+    jst = clone(job.states[2])
+    for _ in range(4):
+        _, c = job.nodes[1].fragment.step(states[1],
+                                          job.sources["b"].next_chunk())
+        jst, pend = join.apply_begin(jst, c, "right")
+        if int(pend.total):
+            break
+    win, _ = join.emit_window(join.build_rows_of(jst, "right"), pend, 0,
+                              "right")
+    aex = job.nodes[3].fragment.executors[0]
+    got = []
+    orig_pa = ha.agg_preagg
+    ha.agg_preagg = lambda *a: (got.append(a), orig_pa(*a))[1]
+    try:
+        on_cpu(lambda: aex.apply(clone(job.states[3][0]), win))
+    finally:
+        ha.agg_preagg = orig_pa
+    key_cols, h, valid, signs, modes, inits, values = got[0]
+    if not any(hasattr(c, "lens") for c in key_cols):
+        fail("agg_preagg: the aggregation's keys hold no string")
+    pk = ha.agg_preagg_cuda if cuda else ha.agg_preagg_plain
+    n = h.shape[0]
+    forced = h[torch.arange(n, device=device) & ~3]
+    pairs = []
+    runs = {}
+    for tag, hh in (("q102", h), ("equal hashes", forced)):
+        sk, perm = ha.sort_by_hash(hh, valid)
+        a = pk(sk, perm, key_cols, valid, signs, modes, inits, values)
+        c_sk, c_perm, c_keys, c_valid, c_signs = to_cpu(
+            (sk, perm, tuple(key_cols), valid, signs))
+        bp = ha.agg_preagg_plain(c_sk, c_perm, list(c_keys), c_valid,
+                                 c_signs, modes, inits,
+                                 list(to_cpu(tuple(values))))
+        for name in ("s_hash", "starts", "rep", "seg_rows", "seg_signs"):
+            pairs.append((f"agg_preagg {tag} {name}", getattr(a, name),
+                          getattr(bp, name).to(device)))
+        pairs += [(f"agg_preagg {tag} key {i} {j}", x, y.to(device))
+                  for i, (ca, cb) in enumerate(zip(a.s_keys, bp.s_keys))
+                  for j, (x, y) in enumerate(zip(_leaves_of(ca),
+                                                 _leaves_of(cb)))]
+        pairs += [(f"agg_preagg {tag} prim {i}", x, y.to(device))
+                  for i, (x, y) in enumerate(zip(a.seg_values,
+                                                 bp.seg_values))]
+        runs[tag] = (int(bp.rep.sum()), int(torch.unique(
+            hh[valid]).numel()), sk, perm)
+    err = max_abs_err(torch, pairs)
+    n_rep, n_hash = runs["equal hashes"][:2]
+    if n_rep <= n_hash:
+        fail("agg_preagg: forced equal hashes split no run by its keys")
+    sk, perm = runs["q102"][2:]
+    args = (sk, perm, key_cols, valid, signs, modes, inits, values)
+    sms = timer(lambda i: pk(*args), 200)
+    splain = timer(lambda i: ha.agg_preagg_plain(*args), 20)
+    key_b = sum(row_bytes(c) for c in key_cols)
+    # per row read: sorted key 8, perm 8, the keys, valid 1, sign 4, a
+    # prim 8 each; written: the sorted keys, hash 8, rep 1, starts 1,
+    # rows 8, signs 8, a prim 8 each
+    sb = bound(n * (2 * key_b + 47 + 16 * len(values)), n * 40)
+    print(f"[agg_preagg] exact with string keys ({n} join output rows "
+          f"keyed (int64, VARCHAR): {runs['q102'][0]} runs; hashes forced "
+          f"equal in runs of 4: {n_rep} runs split by bytes from {n_hash} "
+          f"hashes); kernel {sms:.4f} ms, plain {splain:.4f} ms, bound "
+          f"{sb[0]:.5f} ms", flush=True)
+    preagg_extra = dict(strings_ms=sms, strings_plain_ms=splain,
+                        strings_bound_ms=sb[0], strings_bound_by=sb[1],
+                        strings_rows=n, strings_max_abs_err=err)
+
+    # -- K16 and K21's left pass: the aggregation's flush into the pool ----
+    # two flushes of the join's output for the next bid chunks: the first
+    # goes into the pool, the second updates groups it emitted (U-/U+)
+    ast_ = clone(job.states[3])
+    dex = job.nodes[6].join
+    base = clone(job.states[6])
+    for rnd in range(2):
+        for _ in range(2):
+            _, c = job.nodes[1].fragment.step(
+                states[1], job.sources["b"].next_chunk())
+            jst, pend = join.apply_begin(jst, c, "right")
+            rows = join.build_rows_of(jst, "right")
+            for w in range(max(1, -(-int(pend.total) // join.out_capacity))):
+                win, _ = join.emit_window(rows, pend, w, "right")
+                ast_, _ = job.nodes[3].fragment.step(ast_, win)
+        _, outs = job.nodes[3].fragment.flush(ast_, job.epoch.curr.value)
+        if rnd == 0:
+            for o in outs:
+                base, _ = dex.apply(base, o, "left")
+    left = outs[0]
+    S = dex.pool_size
+    n_del = int((left.valid & (left.signs() < 0)).sum())
+    n_ins = int((left.valid & (left.signs() > 0)).sum())
+    if not n_del:
+        fail("dyn_filter: the aggregation's flush holds no delete")
+    pool_k = top_n.pool_apply_cuda if cuda else \
+        (lambda *a: top_n.pool_apply(*a))
+    clones = [clone(base) for _ in range(6)]
+    ms16 = timer(lambda i: pool_k(clones[i].rows, clones[i].valid,
+                                  clones[i].row_hash, left, S,
+                                  clones[i].overflow,
+                                  clones[i].inconsistency), 5)
+    del clones
+    pclones = [clone(base) for _ in range(3)]
+    ms16_plain = timer(lambda i: top_n.pool_apply_plain(
+        pclones[i].rows, pclones[i].valid, pclones[i].row_hash, left, S), 2)
+    del pclones
+    a, bb = clone(base), to_cpu(base)
+    pool_k(a.rows, a.valid, a.row_hash, left, S, a.overflow, a.inconsistency)
+    _, _, _, n_over, n_miss = top_n.pool_apply_plain(
+        bb.rows, bb.valid, bb.row_hash, chunk_to(left, cpu), S)
+    bb.overflow.add_(n_over)
+    bb.inconsistency.add_(n_miss)
+    _state_equal("topn_pool on the dynamic filter's left input", a, bb)
+    lrow = sum(row_bytes(c) for c in left.columns)
+    b16 = bound(left.capacity * (lrow + 10) + n_ins * (lrow + 9) + S,
+                left.capacity * 40)
+    print(f"[topn_pool] on the dynamic filter's left input, the "
+          f"aggregation's flush of {left.capacity} rows ({n_del} deletes, "
+          f"{n_ins} inserts) into a pool of {S} ({int(base.valid.sum())} "
+          f"live): exact; kernel {ms16:.4f} ms, plain {ms16_plain:.4f} ms, "
+          f"bound {b16[0]:.5f} ms", flush=True)
+    pool_extra = {"dyn_filter_input": dict(
+        rows=left.capacity, deletes=n_del, inserts=n_ins, ms=ms16,
+        plain_ms=ms16_plain, bound_ms=b16[0], bound_by=b16[1])}
+    fc = dex.filter_col
+    v = left.column(fc)
+    mk = df.pass_mask_cuda if cuda else df.pass_mask_plain
+    pm_k = mk(v, left.valid, base.threshold, base.has_threshold, dex.cmp)
+    pm_p = df.pass_mask_plain(v.cpu(), left.valid.cpu(), base.threshold.cpu(),
+                              base.has_threshold.cpu(), dex.cmp)
+    err = max_abs_err(torch, [("dyn_filter left", pm_k, pm_p.to(device))])
+    lms = timer(lambda i: mk(v, left.valid, base.threshold,
+                             base.has_threshold, dex.cmp), 200)
+    lplain = timer(lambda i: df.pass_mask_plain(
+        v, left.valid, base.threshold, base.has_threshold, dex.cmp), 50)
+    lb = bound(left.capacity * 10, left.capacity * 3)
+
+    # -- K21's right pass: the threshold up, down, emptied, set again -----
+    thr0 = int(base.threshold)
+    rschema = job.nodes[5].fragment.executors[-1].out_schema
+    rcap = 2 * gex.emit_capacity
+    # up past the median passing value (the rows below it retract), down
+    # to the largest failing value (those rows come in)
+    vals = base.rows[fc][base.valid].cpu().numpy()
+    above, below = vals[vals >= thr0], vals[vals < thr0]
+    up = int(np.median(above)) + 1 if above.size else thr0 + 1
+    down = int(below.max()) if below.size else max(thr0 - 1, 0)
+    script = [("up", [thr0, up], [2, 3]), ("down", [up, down], [2, 3]),
+              ("emptied", [down], [1]), ("set", [thr0], [0])]
+    sk_, sp_ = clone(base), to_cpu(base)
+    band_k = df.band_cuda if cuda else df.band_plain
+    bands = {}
+    pairs = []
+    for tag, vals, ops in script:
+        rc = chunk_to(_rhs_chunk(torch, rschema, rcap, vals, ops), device)
+        rp = chunk_to(rc, cpu)
+        ok_, ek_ = band_k(sk_.rows[fc], sk_.valid, rc.column(0), rc.ops,
+                          rc.valid, sk_.threshold, sk_.has_threshold,
+                          dex.cmp)
+        op_, ep_ = df.band_plain(sp_.rows[fc], sp_.valid, rp.column(0),
+                                 rp.ops, rp.valid, sp_.threshold,
+                                 sp_.has_threshold, dex.cmp)
+        pairs += [(f"dyn_filter {tag} valid", ek_, ep_.to(device)),
+                  (f"dyn_filter {tag} ops", torch.where(ek_, ok_, 0),
+                   torch.where(ep_, op_, 0).to(device)),
+                  (f"dyn_filter {tag} threshold", sk_.threshold.clone(),
+                   sp_.threshold.to(device, copy=True)),
+                  (f"dyn_filter {tag} has", sk_.has_threshold.clone(),
+                   sp_.has_threshold.to(device, copy=True))]
+        bands[tag] = int(ep_.sum())
+    err = max(err, max_abs_err(torch, pairs))
+    if not (bands["up"] and bands["down"] and bands["emptied"]):
+        fail(f"dyn_filter: a threshold move emitted no band {bands}")
+    rcs = [chunk_to(_rhs_chunk(torch, rschema, rcap, vals, ops), device)
+           for vals, ops in (([down, up], [2, 3]), ([up, down], [2, 3]))]
+    tk_ = clone(base)
+    tk_.threshold.fill_(down)
+    rms = timer(lambda i: band_k(tk_.rows[fc], tk_.valid,
+                                 rcs[i % 2].column(0), rcs[i % 2].ops,
+                                 rcs[i % 2].valid, tk_.threshold,
+                                 tk_.has_threshold, dex.cmp), 200)
+    rplain = timer(lambda i: df.band_plain(
+        tk_.rows[fc], tk_.valid, rcs[i % 2].column(0), rcs[i % 2].ops,
+        rcs[i % 2].valid, tk_.threshold, tk_.has_threshold, dex.cmp), 20)
+    # the pool's filter column and validity read, the band's ops and
+    # validity written; the right chunk's ops and validity read
+    rb = bound(S * (8 + 1 + 2) + rcap * 2, S * 6)
+    live = int(base.valid.sum())
+    print(f"[dyn_filter] exact (right: threshold {thr0} -> {up} -> {down} "
+          f"-> emptied -> {thr0} over a pool of {S} ({live} live): bands "
+          f"{bands}; left: the aggregation's flush of {left.capacity} rows); "
+          f"kernel {rms:.4f} ms on the right (threshold moves), plain "
+          f"{rplain:.4f} ms, bound {rb[0]:.5f} ms; left {lms:.4f} ms, plain "
+          f"{lplain:.4f} ms, bound {lb[0]:.6f} ms", flush=True)
+    out["dyn_filter"] = kernel_entry(
+        "dyn_filter.cu", "risingwave_tpu/stream/dynamic_filter.py:106", rms,
+        rplain, rb, None, err)
+    out["dyn_filter"].update(left_ms=lms, left_plain_ms=lplain,
+                             left_bound_ms=lb[0], left_bound_by=lb[1],
+                             bands=bands, pool_live=live)
+    del eng, job, states, base, sk_, sp_, tk_, a, bb, gk, gp
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, preagg_extra, pool_extra
+
+
+def _leaves_of(col) -> list:
+    from risingwave_tpu_torch.common.tree import flatten
+
+    return flatten(col)[0]
+
+
+def check_q102(eng, cap: int) -> str:
+    """The MV equals numpy over the consumed events: each auction's
+    joined bid count, kept where it is at least the floor division of
+    all bids (the second reader's) by their distinct auctions."""
+    import numpy as np
+
+    job = eng.jobs[0]
+    ra, rb, rbid = (job.sources[n] for n in ("a", "b", "bid"))
+
+    def gen(r):
+        return getattr(r, "inner", r).gen
+
+    aid, (aname, alens), _ = _consumed_wm(
+        lambda i: gen(ra).gen_auctions(i * cap, cap,
+                                       JOIN_AUCTION_COLS).columns,
+        ra.offset // cap)
+    bauc, _ = _consumed_wm(
+        lambda i: [gen(rb).gen_bids(i * cap, cap).columns[j]
+                   for j in (0, 5)], rb.offset // cap)
+    sauc, _ = _consumed_wm(
+        lambda i: [gen(rbid).gen_bids(i * cap, cap).columns[j]
+                   for j in (0, 5)], rbid.offset // cap)
+    if np.unique(aid).shape[0] != aid.shape[0]:
+        fail("q102 check: an auction id appears twice")
+    thr = sauc.shape[0] // max(np.unique(sauc).shape[0], 1)
+    sa = np.sort(bauc, kind="stable")
+    counts = np.searchsorted(sa, aid, "right") - np.searchsorted(sa, aid,
+                                                                 "left")
+    keep = (counts > 0) & (counts >= thr)
+    want_id, want_n = aid[keep], counts[keep]
+    want_name = _name_key(aname[keep], alens[keep])
+    entry = eng.catalog.get("nexmark_q102")
+    mv = job.states[entry.mv_state_index[0]][entry.mv_state_index[1]]
+    occ = mv.table.occupied
+    got_id = mv.values[0][occ].cpu().numpy()
+    got_name = _name_key(mv.values[1].data[occ].cpu().numpy(),
+                         mv.values[1].lens[occ].cpu().numpy())
+    got_n = mv.values[2][occ].cpu().numpy()
+    o, w = np.argsort(got_id), np.argsort(want_id)
+    if got_id.shape != want_id.shape or not (
+            np.array_equal(got_id[o], want_id[w])
+            and np.array_equal(got_name[o], want_name[w])
+            and np.array_equal(got_n[o], want_n[w])):
+        fail(f"q102 MV ({got_id.shape[0]} rows) differs from numpy "
+             f"({want_id.shape[0]} auctions at threshold {thr})")
+    thr_dev = int(job.states[6].threshold)
+    if thr_dev != thr:
+        fail(f"q102 threshold {thr_dev} differs from numpy's {thr}")
+    return (f"MV equals numpy over {aid.shape[0]} auctions, "
+            f"{bauc.shape[0]} joined-side and {sauc.shape[0]} scalar-side "
+            f"bids: threshold {thr} = {sauc.shape[0]} bids // "
+            f"{np.unique(sauc).shape[0]} auctions, {int((counts > 0).sum())} "
+            f"auctions with bids, {want_id.shape[0]} rows kept")
+
+
+def phase_q102_main_path(torch, device, scale):
+    """q102 at the slice's sizes: 9 warm-up barriers, then 32 timed
+    barriers of 8 rounds (an auction chunk and a chunk from each of the
+    two bid readers) with the launch counters and host reads taken over
+    the timed window; the loss counters audited (0), the spill rings
+    empty, the MV and the threshold checked with numpy."""
+    from risingwave_tpu_torch import kernels
+
+    cuda = device.type == "cuda"
+    barriers = BARRIERS if cuda else 2
+    eng = _join_engine(torch, device, scale, "q102",
+                       WARMUP_BARRIERS if cuda else 1, over=_q102_over(scale))
+    job = eng.jobs[0]
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    reads0 = (job.window_reads, job.barrier_reads, job.spill_reads)
+    t0 = time.perf_counter()
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cap = job.sources["a"].cap
+    chunks = barriers * CHUNKS_PER_BARRIER * 3
+    rows = chunks * cap
+    reads = (job.window_reads - reads0[0], job.barrier_reads - reads0[1],
+             job.spill_reads - reads0[2])
+    rate = rows / dt
+    print(f"[main] q102 {rows} rows (auctions and both bid readers' rows) "
+          f"in {dt:.3f} s = {rate:.0f} rows/s; host reads: {reads[0]} "
+          f"emission totals, {reads[2]} spill counts = "
+          f"{sum(reads) / chunks:.3f} per chunk; port kernel launches "
+          f"{sum(launches.values()) / chunks:.2f} per chunk {launches}",
+          flush=True)
+    if cuda:
+        per_chunk = profile_window(torch, eng, "q102", barriers=1,
+                                   chunks_per_barrier=3 * CHUNKS_PER_BARRIER)
+        print(f"[main] q102 launches per chunk "
+              f"{'not measured' if per_chunk is None else f'{per_chunk:.1f}'}"
+              f" (all CUDA kernels, profiled window)", flush=True)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    try:
+        eng.tick(barriers=1, chunks_per_barrier=0)
+    except RuntimeError as e:
+        fail(f"q102: the counter audit raised: {e}")
+    st = job.states
+    js, agg, glob, dyn = st[2], st[3][0], st[5][0], st[6]
+    counters = {"join left overflow": js.left.overflow,
+                "join right overflow": js.right.overflow,
+                "join left inconsistency": js.left.inconsistency,
+                "join right inconsistency": js.right.inconsistency,
+                "emit_overflow": js.emit_overflow,
+                "agg overflow": agg.overflow, "agg spill ring":
+                agg.spill_count, "global agg overflow (dedup included)":
+                glob.overflow, "global agg inconsistency (dedup included)":
+                glob.inconsistency, "global agg spill ring":
+                glob.spill_count, "filter overflow": dyn.overflow,
+                "filter inconsistency": dyn.inconsistency,
+                "late auctions": st[0][0].late_rows,
+                "late bids": st[1][0].late_rows,
+                "late scalar-side bids": st[4][0].late_rows}
+    vals = {k: int(v) for k, v in counters.items()}
+    absorbed = [t.rows_absorbed for _, t in job._spill_tiers.values()]
+    if any(vals.values()) or any(absorbed):
+        fail(f"q102: loss counters {vals}, tier rows {absorbed}")
+    print(f"[check] q102 overflow and inconsistency 0 (join, both aggs and "
+          f"their dedup, the filter), spill rings empty, no late rows; "
+          f"dedup table {int(glob.distinct_tables[0].occupied.sum())} keys, "
+          f"filter pool {int(dyn.valid.sum())} rows, threshold "
+          f"{int(dyn.threshold)}", flush=True)
+    print(f"[check] q102 {check_q102(eng, cap)}", flush=True)
+    del eng, job, st, js, agg, glob, dyn
+    if cuda:
         torch.cuda.empty_cache()
     return launches, rate
 

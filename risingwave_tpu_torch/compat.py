@@ -3,8 +3,8 @@
 ``state_from_numpy(tree)`` turns a reference executor state fetched to
 the host (``jax.device_get``: its ``AggState``, ``MvState``,
 ``RingState``, ``HashTable``, ``WmState``, ``TagTable``,
-``PoolSideState``, ``SideState``, ``JoinState``, ``NCol`` and ``StrCol``
-nodes with numpy leaves) into the port's state types with torch tensors
+``PoolSideState``, ``SideState``, ``JoinState``, ``TopNState``,
+``DynFilterState``, ``NCol`` and ``StrCol`` nodes with numpy leaves) into the port's state types with torch tensors
 on ``device``; ``state_to_numpy`` maps a port state to the same node types
 of the port with numpy leaves; ``state_mismatches`` compares the two
 element for element.  Nodes are recognised by class name and fields,
@@ -28,9 +28,11 @@ of q19 and q18 (``tests/test_torch_top_n.py``) and the over-window, a
 ``TopNState`` whose emitted rows carry float64 window outputs
 (``tests/test_torch_over_window_sql.py``), and q101's aggregation with
 its spill ring, pool and dense join sides and MV
-(``tests/test_torch_join_sql.py``).  Reference-only features must be
-empty to convert (materialized-input buckets, DISTINCT tables): the port
-has no counterpart for them yet.
+(``tests/test_torch_join_sql.py``), and q102's aggregation over the
+join with its DISTINCT dedup tables and counts and its dynamic filter
+(``tests/test_torch_q102_sql.py``).  Reference-only features must be
+empty to convert (materialized-input buckets): the port has no
+counterpart for them yet.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 from risingwave_tpu_torch.common.chunk import NCol, StrCol
 from risingwave_tpu_torch.state.hash_table import HashTable
 from risingwave_tpu_torch.state.tag_table import TagTable
+from risingwave_tpu_torch.stream.dynamic_filter import DynFilterState
 from risingwave_tpu_torch.stream.hash_agg import AggState
 from risingwave_tpu_torch.stream.hash_join import (
     JoinState,
@@ -54,10 +57,9 @@ from risingwave_tpu_torch.stream.watermark import WmState
 _STATE_TYPES = {cls.__name__: cls
                 for cls in (AggState, MvState, RingState, WmState, NCol,
                             StrCol, PoolSideState, SideState, JoinState,
-                            TopNState)}
+                            TopNState, DynFilterState)}
 #: reference AggState fields the port does not carry (must be empty)
-_REF_ONLY = ("minput_vals", "minput_occ", "distinct_tables",
-             "distinct_counts")
+_REF_ONLY = ("minput_vals", "minput_occ")
 
 
 def _empty(v) -> bool:

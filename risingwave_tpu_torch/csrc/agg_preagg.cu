@@ -10,7 +10,10 @@
 //   1. gathers the key columns into sorted order, restores the sorted
 //      hashes and marks segment starts: the hash differs OR any key column
 //      differs (NULL == NULL, payload ignored under a null), so colliding
-//      distinct keys stay apart;
+//      distinct keys stay apart.  A string key arrives as two leaves under
+//      its null plane, its [n, w] bytes and its int32 lengths, and both
+//      compare byte for byte, the padding past the length included, as
+//      the reference's `_keys_equal` compares a StrCol;
 //   2. reduces, per segment, the valid-row count, the changelog signs and
 //      every primitive's lifted contribution (add / min / max, read
 //      through the permutation in chunk order), and writes the segment's

@@ -16,8 +16,8 @@ an exception.
 ``KERNELS`` names each kernel entry point with the source it is built
 from (``compact.cu``, ``nexmark_events.cu``, ``tag_probe.cu`` and
 ``shadow_digest.cu`` hold two each; ``topn_band.cu``,
-``topn_flush.cu`` and ``join_dense.cu`` two C entries each, both
-counted),
+``topn_flush.cu``, ``join_dense.cu`` and ``dyn_filter.cu`` two C
+entries each, all counted),
 and ``LAUNCHES`` counts, per
 kernel, the wrapper calls that launched it on the card.  Nothing here
 runs at import time: a CPU-only process imports the package without
@@ -64,6 +64,9 @@ SOURCES = {
     "over_window": "over_window.cu",
     "join_dense": "join_dense.cu",
     "agg_spill": "agg_spill.cu",
+    "table_sweep": "table_sweep.cu",
+    "agg_distinct": "agg_distinct.cu",
+    "dyn_filter": "dyn_filter.cu",
     # a host routine (the checkpoint store's crc32c), no kernel
     "crc32c": "crc32c.cpp",
 }
@@ -95,6 +98,9 @@ KERNELS = {
     "over_window": "over_window",
     "join_dense": "join_dense",
     "agg_spill": "agg_spill",
+    "table_sweep": "table_sweep",
+    "agg_distinct": "agg_distinct",
+    "dyn_filter": "dyn_filter",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -156,8 +156,8 @@ class GroupTopNSpec:
 @dataclass
 class PlannerConfig:
     """The reference's planner knobs, same names and defaults (the
-    distinct and minput sizes are accepted for DDL compatibility; their
-    operators are not ported yet)."""
+    minput bucket size is accepted for DDL compatibility; its operator is
+    not ported yet)."""
 
     agg_table_size: int = 1 << 16
     agg_emit_capacity: int = 4096
@@ -402,8 +402,6 @@ class Planner:
                             "yet")
         if select.where is not None:
             raise PlanError("WHERE over a join is not ported yet")
-        if select.group_by or self._has_agg(select):
-            raise PlanError("aggregation over a join is not ported yet")
 
         def resolve(from_):
             if isinstance(from_, ast.Join):
@@ -568,6 +566,11 @@ class Planner:
             skey = (left if join.preserve_left else right).stream_key
         append_only = left.append_only and right.append_only \
             and join_type == "inner"
+        if bool(select.group_by) or self._has_agg(select):
+            root = PlannedInput(None, [], both, both.schema, None, None,
+                                append_only, stream_key=skey)
+            return self._plan_join_agg(select, sources, nodes, root_ref,
+                                       root, resolve_subquery)
         b = Binder(both)
         proj = [(name, b.bind(e))
                 for name, e in self._expand_items(select.items, both)]
@@ -581,6 +584,140 @@ class Planner:
                               pk_positions=pk_positions)
         nodes.append(FragNode(Fragment(post_execs), root_ref))
         return DagPlan(sources, nodes, len(nodes) - 1, len(post_execs) - 1)
+
+    def _plan_join_agg(self, select: ast.Select, sources: dict, nodes: list,
+                       root_ref, root: PlannedInput,
+                       resolve_subquery) -> DagPlan:
+        """An aggregation over the join (the reference's :2163-2230): the
+        join's retractions flow into the aggregation.  HAVING conjuncts
+        that compare against an uncorrelated scalar subquery peel off
+        into dynamic filters (Nexmark q102): the aggregation emits each
+        compared value as a hidden column, and each filter's right input
+        is the subquery's own plan (a global aggregation)."""
+        from risingwave_tpu_torch.stream.dag import FragNode, JoinNode
+        from risingwave_tpu_torch.stream.dynamic_filter import (
+            DynamicFilterExecutor,
+        )
+
+        having_subs: list = []
+        if select.having is not None:
+            plain_hv = []
+            for c in self._conjuncts(select.having):
+                m = self._match_scalar_sub_cmp(c)
+                if m is None:
+                    plain_hv.append(c)
+                elif not self._is_uncorrelated(m[2]):
+                    raise PlanError("correlated scalar subqueries are not "
+                                    "ported yet")
+                else:
+                    having_subs.append(m)
+            if having_subs:
+                new_hv = None
+                for r in plain_hv:
+                    new_hv = r if new_hv is None \
+                        else ast.BinaryOp("and", new_hv, r)
+                select = dataclasses.replace(select, having=new_hv)
+        cfg = self.config
+        execs, out_schema, pk_pos, extra_pos = self._plan_agg(
+            select, root.scope, root,
+            extra_out=[lhs for lhs, _, _ in having_subs])
+        ref = root_ref
+        if having_subs:
+            nodes.append(FragNode(Fragment(execs), ref))
+            ref = ("node", len(nodes) - 1)
+            execs = []
+        for (lhs, cmp, sub), pos in zip(having_subs, extra_pos):
+            if len(sub.items) != 1 or isinstance(sub.items[0].expr,
+                                                 ast.Star):
+                raise PlanError("scalar subquery must select exactly one "
+                                "column")
+            sref, _ = resolve_subquery(ast.SubqueryRef(
+                sub, f"_sc_sq{len(nodes)}"))
+            nodes.append(JoinNode(DynamicFilterExecutor(
+                out_schema, filter_col=pos, cmp=cmp,
+                pool_size=max(cfg.topn_pool_size, 2 * cfg.chunk_capacity)),
+                ref, sref))
+            ref = ("node", len(nodes) - 1)
+        # the terminal joins the aggregation's fragment, or follows the
+        # last filter in a fragment of its own
+        self._append_terminal(execs, out_schema, select,
+                              input_append_only=False, has_agg=True,
+                              pk_positions=pk_pos)
+        nodes.append(FragNode(Fragment(execs), ref))
+        return DagPlan(sources, nodes, len(nodes) - 1, len(execs) - 1)
+
+    _SUB_CMPS = {"greater_than": "gt", "greater_than_or_equal": "ge",
+                 "less_than": "lt", "less_than_or_equal": "le",
+                 "equal": "eq"}
+    _SUB_FLIP = {"gt": "lt", "ge": "le", "lt": "gt", "le": "ge",
+                 "eq": "eq"}
+
+    def _match_scalar_sub_cmp(self, c):
+        """``lhs CMP (SELECT ...)`` -> (lhs ast, cmp, subquery select)."""
+        if not (isinstance(c, ast.BinaryOp) and c.op in self._SUB_CMPS):
+            return None
+        cmp = self._SUB_CMPS[c.op]
+        if isinstance(c.right, ast.ScalarSubquery) \
+                and not isinstance(c.left, ast.ScalarSubquery):
+            return (c.left, cmp, c.right.select)
+        if isinstance(c.left, ast.ScalarSubquery) \
+                and not isinstance(c.right, ast.ScalarSubquery):
+            return (c.right, self._SUB_FLIP[cmp], c.left.select)
+        return None
+
+    def _from_name_sets(self, from_):
+        """(names, (qualifier, name) pairs) visible from a FROM tree."""
+        names: set = set()
+        quals: set = set()
+        if isinstance(from_, ast.Join):
+            for side in (from_.left, from_.right):
+                n, q = self._from_name_sets(side)
+                names |= n
+                quals |= q
+            return names, quals
+        if isinstance(from_, ast.SubqueryRef):
+            for i, it in enumerate(from_.select.items):
+                if isinstance(it.expr, ast.Star):
+                    n, _ = self._from_name_sets(from_.select.from_)
+                    names |= n
+                    continue
+                nm = it.alias or self._default_name(it.expr, i)
+                names.add(nm)
+                if from_.alias:
+                    quals.add((from_.alias, nm))
+            return names, quals
+        if isinstance(from_, (ast.Tumble, ast.Hop)):
+            n, _ = self._from_name_sets(from_.table)
+            names |= n | {"window_start", "window_end"}
+            return names, quals
+        try:
+            entry = self.catalog.get(from_.name)
+        except Exception:
+            return names, quals
+        qual = from_.alias or from_.name
+        for f in entry.schema:
+            names.add(f.name)
+            quals.add((qual, f.name))
+        return names, quals
+
+    def _is_uncorrelated(self, sub: ast.Select) -> bool:
+        """Every column the subquery references resolves in its own FROM:
+        it plans as an independent 1-row changelog."""
+        names, quals = self._from_name_sets(sub.from_)
+
+        def local(r) -> bool:
+            if r.table is not None:
+                return (r.table, r.name) in quals
+            return r.name in names
+
+        exprs = [it.expr for it in sub.items
+                 if not isinstance(it.expr, ast.Star)]
+        if sub.where is not None:
+            exprs.append(sub.where)
+        exprs.extend(sub.group_by)
+        if sub.having is not None:
+            exprs.append(sub.having)
+        return all(local(r) for e in exprs for r in self._column_refs(e))
 
     @staticmethod
     def _refs_only(conj, scope: Scope, other: Scope) -> bool:
@@ -1057,7 +1194,12 @@ class Planner:
                    if not isinstance(i.expr, ast.Star))
 
     def _plan_agg(self, select: ast.Select, scope: Scope,
-                  pin: PlannedInput):
+                  pin: PlannedInput, extra_out: "list | None" = None):
+        """The aggregation, its HAVING filter and post-projection; with
+        ``extra_out`` (AST expressions in the input scope, aggregates
+        allowed) their values are appended to the output as hidden
+        columns, and their positions are returned as a fourth element
+        (the dynamic filters' left columns)."""
         cfg = self.config
         group_asts = list(select.group_by)
         in_binder = Binder(scope)
@@ -1079,7 +1221,11 @@ class Planner:
         having_expr = None
         if select.having is not None:
             having_expr = item_binder.bind(select.having)
-        agg_calls = item_binder.agg_calls
+        extra_bound = [item_binder.bind(e) for e in (extra_out or [])]
+        # min/max are distinct-insensitive: DISTINCT on them is dropped
+        agg_calls = [dataclasses.replace(a, distinct=False)
+                     if a.distinct and a.kind in ("min", "max") else a
+                     for a in item_binder.agg_calls]
 
         # watermark-driven cleaning when a group key is the window start
         wm_idx, lag = None, 0
@@ -1096,6 +1242,7 @@ class Planner:
             watermark_group_idx=wm_idx, watermark_lag=lag,
             watermark_src_col=pin.watermark_col,
             retractable_input=not pin.append_only,
+            distinct_table_size=cfg.distinct_table_size,
             # an unbounded key space (no watermark cleaning) diverts the
             # rows its table cannot hold to the host tier; a windowed agg
             # keeps overflow an error (cleaning bounds its state, and
@@ -1116,6 +1263,11 @@ class Planner:
         hidden = [(f"_hidden_{agg.out_schema[ki].name}", InputRef(ki))
                   for ki in range(len(group_by)) if ki not in selected_keys]
         proj_items = rewritten + hidden
+        extra_pos: list[int] = []
+        for xi, xb in enumerate(extra_bound):
+            proj_items.append((f"_hidden_dynf{xi}", self._rewrite_post_agg(
+                xb, group_by, len(group_by))))
+            extra_pos.append(len(proj_items) - 1)
         if having_expr is not None:
             execs.append(FilterExecutor(agg.out_schema, self._rewrite_post_agg(
                 having_expr, group_by, len(group_by))))
@@ -1127,6 +1279,8 @@ class Planner:
                 if isinstance(e, InputRef) and e.index == ki:
                     pk_pos.append(pi)
                     break
+        if extra_out is not None:
+            return execs, post.out_schema, pk_pos, extra_pos
         return execs, post.out_schema, pk_pos
 
     def _rewrite_post_agg(self, e: Expr, group_by, n_keys: int) -> Expr:

@@ -22,6 +22,11 @@ layout is identical to the reference's, so state tensors compare
 element for element.  On the card the probe is kernel B
 (``csrc/probe.cu``); ``_probe_plain`` is its plain PyTorch version.
 
+``clear_where`` and ``clear_slots`` tombstone slots by a ``[size]``
+predicate or a slot list; on the card both are the K4 sweep
+(``csrc/table_sweep.cu``, ``table_sweep``, which ``TagTable`` shares);
+``clear_where_plain`` and ``clear_slots_plain`` are the plain versions.
+
 Unlike the reference's pure functions, the table is updated IN PLACE:
 ``lookup_or_insert``, ``clear_where`` and ``clear_slots`` write
 ``occupied``, ``tombstone`` and the key store of this table and return
@@ -203,6 +208,48 @@ class _PermDesc(ctypes.Structure):
 
     _fields_ = [("n_cols", ctypes.c_int), ("size", ctypes.c_int),
                 ("col", _PermCol * kernels.MAX_COLS)]
+
+
+class _SweepArgs(ctypes.Structure):
+    """Mirror of ``struct TableSweepArgs`` in ``csrc/table_sweep.cu``."""
+
+    _fields_ = [("occupied", ctypes.c_void_p),
+                ("tombstone", ctypes.c_void_p), ("tags", ctypes.c_void_p),
+                ("pred", ctypes.c_void_p), ("slots", ctypes.c_void_p),
+                ("mask", ctypes.c_void_p), ("n", ctypes.c_int),
+                ("size", ctypes.c_int)]
+
+
+def table_sweep(size: int, *, occupied=None, tombstone=None, tags=None,
+                pred=None, slots=None, mask=None) -> None:
+    """The K4 sweep (``csrc/table_sweep.cu``), in place, on CUDA tensors:
+    tombstone a HashTable's (``occupied``, ``tombstone``) planes or a
+    TagTable's ``tags`` where ``pred [size]`` holds on an occupied slot,
+    or at ``slots[mask]`` (sentinel slots dropped)."""
+    planes = [tags] if tags is not None else [occupied.view(torch.uint8),
+                                              tombstone.view(torch.uint8)]
+    a = _SweepArgs()
+    if tags is None:
+        a.occupied, a.tombstone = planes[0].data_ptr(), planes[1].data_ptr()
+    else:
+        a.tags = tags.data_ptr()
+    if pred is not None:
+        flags = [pred.contiguous().view(torch.uint8)]
+        if flags[0].shape[0] != size:
+            raise ValueError(f"table_sweep: pred has {flags[0].shape[0]} "
+                             f"entries, the table {size}")
+        a.pred, a.n = flags[0].data_ptr(), size
+    else:
+        flags = [slots.to(torch.int32).contiguous(),
+                 mask.contiguous().view(torch.uint8)]
+        a.slots, a.mask = flags[0].data_ptr(), flags[1].data_ptr()
+        a.n = flags[0].shape[0]
+    a.size = size
+    kernels.require_cuda("table_sweep", *planes, *flags)
+    fn = kernels.entry("table_sweep", "rw_table_sweep",
+                       [_SweepArgs, ctypes.c_void_p])
+    kernels.count_launch("table_sweep")
+    kernels.check(fn(a, kernels.stream_ptr(planes[0].device)), "table_sweep")
 
 
 def _empty_key_col(proto, size: int, device):
@@ -428,14 +475,33 @@ class HashTable:
 
     # ------------------------------------------------------------------
     def clear_where(self, pred: torch.Tensor) -> "HashTable":
-        """In place: tombstone the occupied slots where ``pred`` holds."""
+        """In place: tombstone the occupied slots where ``pred`` holds;
+        CUDA tensors launch the K4 sweep."""
+        if pred.device.type != "cuda":
+            return self.clear_where_plain(pred)
+        table_sweep(self.size, occupied=self.occupied,
+                    tombstone=self.tombstone, pred=pred)
+        return self
+
+    def clear_where_plain(self, pred: torch.Tensor) -> "HashTable":
+        """Plain PyTorch version of ``clear_where``."""
         dead = pred & self.occupied
         self.occupied &= ~dead
         self.tombstone |= dead
         return self
 
     def clear_slots(self, slots: torch.Tensor, mask: torch.Tensor) -> "HashTable":
-        """In place: tombstone ``slots[mask]`` (sentinel slots dropped)."""
+        """In place: tombstone ``slots[mask]`` (sentinel slots dropped);
+        CUDA tensors launch the K4 sweep."""
+        if mask.device.type != "cuda":
+            return self.clear_slots_plain(slots, mask)
+        table_sweep(self.size, occupied=self.occupied,
+                    tombstone=self.tombstone, slots=slots, mask=mask)
+        return self
+
+    def clear_slots_plain(self, slots: torch.Tensor,
+                          mask: torch.Tensor) -> "HashTable":
+        """Plain PyTorch version of ``clear_slots``."""
         pos = torch.where(mask, slots, torch.full_like(slots, self.size))
         occ = torch.cat([self.occupied, self.occupied.new_zeros(1)])
         tomb = torch.cat([self.tombstone, self.tombstone.new_zeros(1)])

@@ -23,7 +23,9 @@ Kernel K12 (``csrc/tag_probe.cu``) runs the probes on the card:
   cooperative grid that keeps the reference's rounds with grid-wide
   barriers.
 
-The ``*_plain`` methods are their plain PyTorch versions.  As in the
+``clear_where`` and ``clear_slots`` launch the K4 sweep
+(``table_sweep``, ``csrc/table_sweep.cu``) on the card.  The ``*_plain``
+methods are the plain PyTorch versions.  As in the
 port's ``HashTable``, the table is updated IN PLACE by the inserts and
 the clears; ``clone`` gives a snapshot.
 """
@@ -40,6 +42,7 @@ from risingwave_tpu_torch.common.hash import (
     hash64_finish,
     hash64_partial,
 )
+from risingwave_tpu_torch.state.hash_table import table_sweep
 
 #: reserved tag values (the tag hash remaps into [2, 2^64))
 EMPTY_TAG = 0
@@ -443,14 +446,31 @@ class TagTable:
     # -- maintenance ----------------------------------------------------
     def clear_where(self, pred: torch.Tensor) -> "TagTable":
         """In place: occupied slots where ``pred [size]`` holds become
-        tombstones (probe chains stay intact)."""
+        tombstones (probe chains stay intact); CUDA tensors launch the K4
+        sweep."""
+        if pred.device.type != "cuda":
+            return self.clear_where_plain(pred)
+        table_sweep(self.size, tags=self.tags, pred=pred)
+        return self
+
+    def clear_where_plain(self, pred: torch.Tensor) -> "TagTable":
+        """Plain PyTorch version of ``clear_where``."""
         dead = pred & self.occupied
         self.tags.masked_fill_(dead, TOMB_TAG)
         return self
 
     def clear_slots(self, slots: torch.Tensor,
                     mask: torch.Tensor) -> "TagTable":
-        """In place: tombstone ``slots[mask]`` (sentinel slots dropped)."""
+        """In place: tombstone ``slots[mask]`` (sentinel slots dropped);
+        CUDA tensors launch the K4 sweep."""
+        if mask.device.type != "cuda":
+            return self.clear_slots_plain(slots, mask)
+        table_sweep(self.size, tags=self.tags, slots=slots, mask=mask)
+        return self
+
+    def clear_slots_plain(self, slots: torch.Tensor,
+                          mask: torch.Tensor) -> "TagTable":
+        """Plain PyTorch version of ``clear_slots``."""
         pos = torch.where(mask, slots, torch.full_like(slots, self.size))
         ext = torch.cat([self.tags, self.tags.new_zeros(1)])
         ext[pos.to(torch.int64)] = TOMB_TAG

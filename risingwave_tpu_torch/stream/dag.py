@@ -2,7 +2,9 @@
 
 Port of ``DagJob`` from ``risingwave_tpu/stream/dag.py`` for one device,
 without staging or a mesh: ``FragNode`` / ``JoinNode``, ``_propagate``
-and ``_apply_join_windowed`` (:406), ``run_chunk``, ``_compute_pulls``,
+and ``_apply_join_windowed`` (:406; a two-input node without windows, the
+dynamic filter, through its ``apply(state, chunk, side)``, :416-420, its
+counters flat on its state, :1055-1065), ``run_chunk``, ``_compute_pulls``,
 ``chunk_round`` and ``run_chunks``, the barrier (``_flush_node``,
 ``_flush_all``, ``_node_watermarks``, ``_wm_all``, ``_upstream_wm``,
 ``_clean_joins``, ``_collect_counters``, ``_barrier_impl``,
@@ -85,7 +87,8 @@ class FragNode:
 
 @dataclass
 class JoinNode:
-    """A two-input hash join."""
+    """A two-input node: a hash join, or an executor driven by
+    ``apply(state, chunk, side)`` (the dynamic filter)."""
 
     join: Any
     left: Ref
@@ -217,8 +220,15 @@ class DagJob(CheckpointPipelineMixin):
                              side: str) -> None:
         """Drive a join with windowed emission: window 0 propagates
         first, then (after one host read of the emission total) the
-        further windows, in order, each through the downstream nodes."""
+        further windows, in order, each through the downstream nodes.  A
+        two-input node without windows (the dynamic filter) applies the
+        chunk and sends its output on."""
         join = self.nodes[idx].join
+        if not hasattr(join, "apply_begin"):
+            new_states[idx], out = join.apply(new_states[idx], chunk, side)
+            if out is not None:
+                self._propagate(new_states, [(("node", idx), out)])
+            return
         new_states[idx], pending = join.apply_begin(new_states[idx], chunk,
                                                     side)
         if not self._consumers.get(("node", idx)):
@@ -422,6 +432,15 @@ class DagJob(CheckpointPipelineMixin):
                     vals.append(sub)
                 continue
             jstate = new_states[idx]
+            if not hasattr(jstate, "left"):
+                # a two-input node that is not a join (the dynamic
+                # filter): its counters are flat on its state
+                for attr in COUNTER_ATTRS:
+                    if hasattr(jstate, attr):
+                        labels.append(f"n{idx}.dynfilter.{attr}")
+                        vals.append(getattr(jstate, attr).to(
+                            torch.int64)[None])
+                continue
             for side_name in ("left", "right"):
                 s = getattr(jstate, side_name)
                 for attr in COUNTER_ATTRS:
@@ -467,7 +486,7 @@ class DagJob(CheckpointPipelineMixin):
         for idx, node in enumerate(self.nodes):
             if isinstance(node, FragNode):
                 new_states[idx] = node.fragment.maintain(new_states[idx])
-            else:
+            elif hasattr(node.join, "maybe_rehash"):
                 new_states[idx] = node.join.maybe_rehash(new_states[idx])
         return tuple(new_states)
 

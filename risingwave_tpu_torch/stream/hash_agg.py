@@ -3,7 +3,9 @@
 Port of the count/sum/min/max path of
 ``risingwave_tpu/stream/hash_agg.py``: ``apply`` (:368), ``flush``
 (:909), ``_outputs``, ``_interleave``, ``on_watermark``, ``clean_below``
-and ``maybe_rehash``.
+and ``maybe_rehash``, with DISTINCT calls (``_distinct_aggs`` :247,
+``_distinct_protos`` :300, the dedup of ``apply`` :501-580, ``rehash_d``
+:1068-1093 and ``clean_below``'s dedup eviction :1106-1119).
 
 Groups live in a ``HashTable`` plus one ``[size]`` tensor per primitive
 state.  ``apply`` takes one of the reference's two branches, chosen by
@@ -11,9 +13,9 @@ the device of the chunk (``common.compact.accel_tuned``):
 
 - on the card, the ACCELERATOR branch (hash_agg.py:394-436, :613-641):
   the chunk is hashed (kernel A), sorted by hash, pre-aggregated per
-  run of equal keys (kernel K5, ``agg_preagg``), and only each run's
-  representative probes the table (kernel B) and scatters the run's
-  partials (kernel C, ``agg_scatter``);
+  run of equal keys (kernel K5, ``agg_preagg``; integer and string
+  keys), and only each run's representative probes the table (kernel
+  B) and scatters the run's partials (kernel C, ``agg_scatter``);
 - on the CPU, the PER-ROW branch (hash_agg.py:437-444, :633-644): every
   row probes and scatters its own contribution.
 
@@ -40,8 +42,22 @@ writes nothing while no row overflows (the reference's ``lax.cond``).
 ``make_spill_tier`` builds the same aggregation for the host tier
 (``stream/spill.py``).
 
-Not ported yet (raise): retractable min/max (``minput``), DISTINCT, EMIT
-ON WINDOW CLOSE.
+A DISTINCT call (min/max are distinct-insensitive and run as plain
+calls) keeps a dedup table keyed (group keys..., argument) with an
+int64 count per key (``distinct_tables``, ``distinct_counts``).  Per
+chunk its eligible rows (valid, not diverted to the spill ring, a
+non-NULL argument, passing the FILTER) find or claim their dedup slots
+(K1, K3), K13's rank launch picks each key's first row, and kernel K6d
+(``csrc/agg_distinct.cu``, ``distinct_dedup``) resets reclaimed slots,
+reads each key's count before and after the chunk, and writes the
++1/-1 transition sign at the first row, the overflow and
+negative-count counts and the dead keys, which the K4 sweep tombstones.
+The transition signs replace the call's changelog signs; on the
+pre-aggregation branch a second K5 launch reduces the call's values
+over the chunk's runs after the dedup.
+
+Not ported yet (raise): retractable min/max (``minput``), EMIT ON WINDOW
+CLOSE.
 """
 
 from __future__ import annotations
@@ -71,11 +87,7 @@ from risingwave_tpu_torch.common.compact import (
     segmented_minmax_at_ends,
     segmented_sum,
 )
-from risingwave_tpu_torch.common.hash import (
-    hash64_columns,
-    key_leaves,
-    leaf_width,
-)
+from risingwave_tpu_torch.common.hash import hash64_columns, leaf_width
 from risingwave_tpu_torch.common.types import DataType, Field, Schema
 from risingwave_tpu_torch.expr.agg import _ADD_COUNT, AggCall
 from risingwave_tpu_torch.expr.node import Expr
@@ -86,6 +98,7 @@ from risingwave_tpu_torch.state.hash_table import (
     permute_dense,
 )
 from risingwave_tpu_torch.stream.executor import Executor
+from risingwave_tpu_torch.stream.hash_join import rank_by
 from risingwave_tpu_torch.stream.materialize import (
     empty_value_col,
     value_leaves,
@@ -106,6 +119,10 @@ class AggState(NamedTuple):
     overflow: torch.Tensor        # int64 scalar — rows lost to a full table
     inconsistency: torch.Tensor   # int64 scalar — deletes hitting min/max
     wm: torch.Tensor              # int64 scalar — latest watermark
+    #: per DISTINCT call: a dedup table keyed (group keys..., argument)
+    #: and an int64 [distinct_table_size] row count per key
+    distinct_tables: tuple = ()
+    distinct_counts: tuple = ()
     #: the spill ring (``()`` without one): input rows whose group found
     #: no slot, drained at snapshot barriers into the host tier
     spill_rows: tuple = ()        # [R] stores, one per input column
@@ -302,25 +319,39 @@ def agg_preagg_cuda(sort_key, perm, key_cols, valid, signs, modes, inits,
     n = sort_key.shape[0]
     dev = sort_key.device
     args = _PreaggArgs()
-    leaves = key_leaves(key_cols)
     keys = args.keys
-    keys.n = len(leaves)
     keep, s_keys = [], []
-    for k, (d, nl, kind) in enumerate(leaves):
-        if kind != kernels.KIND_WORD:
+    k = 0
+    for col in key_cols:
+        # a StrCol passes as two leaves (its bytes and its lengths), both
+        # under the column's null plane; the runs compare every byte
+        data, null = split_col(col)
+        nu8 = None if null is None else null.contiguous().view(torch.uint8)
+        onu8 = None if null is None else torch.empty_like(nu8)
+        if isinstance(data, StrCol):
+            od = StrCol(torch.empty_like(data.data),
+                        torch.empty_like(data.lens))
+            pairs = [(data.data, od.data), (data.lens, od.lens)]
+        elif data.dtype.is_floating_point:
             raise NotImplementedError(
-                "string group keys in the agg's pre-aggregation are not "
+                "float group keys in the agg's pre-aggregation are not "
                 "ported to CUDA yet")
-        d = d.contiguous()
-        od = torch.empty_like(d)
-        nu8 = None if nl is None else nl.contiguous().view(torch.uint8)
-        onu8 = None if nl is None else torch.empty_like(nu8)
-        keep += [t for t in (d, od, nu8, onu8) if t is not None]
-        keys.width[k] = d.element_size() * (d[0].numel() if d.dim() > 1
-                                            else 1)
-        keys.in_data[k], keys.st_data[k] = d.data_ptr(), od.data_ptr()
-        keys.in_null[k], keys.st_null[k] = kernels.ptr(nu8), kernels.ptr(onu8)
-        s_keys.append(od if nl is None else NCol(od, onu8.view(torch.bool)))
+        else:
+            od = torch.empty_like(data)
+            pairs = [(data, od)]
+        for d, o in pairs:
+            if k >= kernels.MAX_COLS:
+                raise ValueError(f"more than {kernels.MAX_COLS} key leaves")
+            d = d.contiguous()
+            keep += [t for t in (d, o, nu8, onu8) if t is not None]
+            keys.width[k] = leaf_width(d)
+            keys.in_data[k], keys.st_data[k] = d.data_ptr(), o.data_ptr()
+            keys.in_null[k] = kernels.ptr(nu8)
+            keys.st_null[k] = kernels.ptr(onu8)
+            k += 1
+        s_keys.append(od if null is None
+                      else NCol(od, onu8.view(torch.bool)))
+    keys.n = k
     sort_key = sort_key.contiguous()
     perm = perm.contiguous()
     valid_u8 = valid.contiguous().view(torch.uint8)
@@ -374,6 +405,16 @@ def agg_preagg(key_cols, h, valid, signs, modes, inits, values) -> Preagg:
     return impl(sort_key, perm, key_cols, valid, signs, modes, inits, values)
 
 
+def preagg_more(pa: Preagg, key_cols, valid, signs, modes, inits,
+                values) -> list:
+    """The runs' partials of further primitives over the sort of ``pa``
+    (the same runs); CUDA tensors launch kernel K5 again."""
+    impl = agg_preagg_cuda if valid.device.type == "cuda" \
+        else agg_preagg_plain
+    return impl(pa.s_hash ^ INT64_MIN, pa.perm, key_cols, valid, signs,
+                modes, inits, values).seg_values
+
+
 # ---------------------------------------------------------------------------
 # the spill capture: agg_spill
 
@@ -412,11 +453,11 @@ def _scatter_ring_col_(store, pos: torch.Tensor, col, rows) -> None:
 
 
 def spill_capture_plain(state: "AggState", chunk: Chunk, valid, overflow,
-                        pa: "Preagg | None", ring: int) -> None:
+                        pa: "Preagg | None", ring: int) -> torch.Tensor:
     """Plain PyTorch version of kernel ``agg_spill``, in place: the
     masked rows, in chunk order, go to ring positions ``spill_count +
     rank``; the count advances, clamped at the ring's size, and the rows
-    past it add to ``overflow``."""
+    past it add to ``overflow``.  Returns the row-order mask."""
     mask = spill_mask_plain(valid, overflow, pa)
     m32 = mask.to(torch.int32)
     pos = state.spill_count + torch.cumsum(m32, 0, dtype=torch.int32) - m32
@@ -428,6 +469,7 @@ def spill_capture_plain(state: "AggState", chunk: Chunk, valid, overflow,
     state.overflow.add_((mask & ~ok).sum(dtype=torch.int64))
     state.spill_count.copy_(torch.clamp(
         state.spill_count + mask.sum(dtype=torch.int32), max=ring))
+    return mask
 
 
 class _SpillArgs(ctypes.Structure):
@@ -446,9 +488,10 @@ class _SpillArgs(ctypes.Structure):
 
 
 def spill_capture_cuda(state: "AggState", chunk: Chunk, valid, overflow,
-                       pa: "Preagg | None", ring: int) -> None:
+                       pa: "Preagg | None", ring: int) -> torch.Tensor:
     """Kernel ``agg_spill`` (``csrc/agg_spill.cu``): one launch of one
-    block every chunk, in place; no host read."""
+    block every chunk, in place; no host read.  Returns the row-order
+    mask the kernel wrote."""
     cap = chunk.capacity
     dev = chunk.device
     a = _SpillArgs()
@@ -498,15 +541,105 @@ def spill_capture_cuda(state: "AggState", chunk: Chunk, valid, overflow,
                        [_SpillArgs, ctypes.c_void_p])
     kernels.count_launch("agg_spill")
     kernels.check(fn(a, kernels.stream_ptr(dev)), "agg_spill")
+    return scratch[cap + 1:].view(torch.bool)
 
 
 def spill_capture(state: "AggState", chunk: Chunk, valid, overflow,
-                  pa: "Preagg | None", ring: int) -> None:
-    """Divert the overflowed rows into the spill ring, in place; CUDA
-    tensors launch kernel ``agg_spill``."""
+                  pa: "Preagg | None", ring: int) -> torch.Tensor:
+    """Divert the overflowed rows into the spill ring, in place, and
+    return the row-order mask of the diverted rows; CUDA tensors launch
+    kernel ``agg_spill``."""
     impl = spill_capture_cuda if chunk.device.type == "cuda" \
         else spill_capture_plain
-    impl(state, chunk, valid, overflow, pa, ring)
+    return impl(state, chunk, valid, overflow, pa, ring)
+
+
+# ---------------------------------------------------------------------------
+# kernel K6d: the DISTINCT dedup
+
+
+def distinct_dedup_plain(cnt, slots, inserted, eligible, over, rank, signs,
+                         overflow, inconsistency):
+    """Plain PyTorch version of kernel K6d, in place on the per-key
+    counts ``cnt`` and the two counters: the reference's dedup pass of
+    one DISTINCT call after K3 (``slots``, ``inserted``, ``over``) and
+    the rank of each surviving eligible row among rows of its slot.
+    Returns (int64 [cap] transition signs at the keys' first rows, bool
+    [cap] the first rows whose key retracted to 0)."""
+    size = cnt.shape[0]
+    dev = cnt.device
+    overflow.add_((over & eligible).sum(dtype=torch.int64))
+    live = eligible & ~over
+    cnt[slots[inserted & (slots < size)].to(torch.int64)] = 0
+    safe = torch.clamp(slots, max=size - 1).to(torch.int64)
+    contrib = torch.where(live, signs.to(torch.int64),
+                          torch.zeros((), dtype=torch.int64, device=dev))
+    delta = torch.zeros(size, dtype=torch.int64, device=dev)
+    delta.index_add_(0, safe, contrib)
+    n0 = cnt[safe]
+    n1 = n0 + delta[safe]
+    inconsistency.add_((live & (n1 < 0)).sum(dtype=torch.int64))
+    rep = live & (rank == 0)
+    d_sign = torch.where(rep, (n1 > 0).to(torch.int64)
+                         - (n0 > 0).to(torch.int64),
+                         torch.zeros_like(n0))
+    cnt.index_add_(0, safe, contrib)
+    return d_sign, rep & (n1 <= 0) & (n0 > 0)
+
+
+class _DistinctArgs(ctypes.Structure):
+    """Mirror of ``struct AggDistinctArgs`` in ``csrc/agg_distinct.cu``."""
+
+    _fields_ = [
+        ("slots", ctypes.c_void_p), ("inserted", ctypes.c_void_p),
+        ("eligible", ctypes.c_void_p), ("over", ctypes.c_void_p),
+        ("rank", ctypes.c_void_p), ("signs", ctypes.c_void_p),
+        ("cnt", ctypes.c_void_p), ("n0", ctypes.c_void_p),
+        ("d_sign", ctypes.c_void_p), ("dead", ctypes.c_void_p),
+        ("overflow", ctypes.c_void_p), ("inconsistency", ctypes.c_void_p),
+        ("cap", ctypes.c_int), ("size", ctypes.c_int),
+    ]
+
+
+def distinct_dedup_cuda(cnt, slots, inserted, eligible, over, rank, signs,
+                        overflow, inconsistency):
+    """Kernel K6d (``csrc/agg_distinct.cu``): four grid launches, in
+    place; no host read."""
+    cap = slots.shape[0]
+    dev = slots.device
+    u8 = lambda t: t.contiguous().view(torch.uint8)  # noqa: E731
+    flags = [u8(inserted), u8(eligible), u8(over)]
+    slots = slots.to(torch.int32).contiguous()
+    rank = rank.to(torch.int32).contiguous()
+    signs = signs.to(torch.int32).contiguous()
+    n0 = torch.empty(cap, dtype=torch.int64, device=dev)
+    d_sign = torch.empty(cap, dtype=torch.int64, device=dev)
+    dead = torch.empty(cap, dtype=torch.uint8, device=dev)
+    kernels.require_cuda("agg_distinct", cnt, slots, rank, signs, n0, d_sign,
+                         dead, overflow, inconsistency, *flags)
+    a = _DistinctArgs()
+    a.slots, a.inserted = slots.data_ptr(), flags[0].data_ptr()
+    a.eligible, a.over = flags[1].data_ptr(), flags[2].data_ptr()
+    a.rank, a.signs, a.cnt = rank.data_ptr(), signs.data_ptr(), cnt.data_ptr()
+    a.n0, a.d_sign, a.dead = n0.data_ptr(), d_sign.data_ptr(), dead.data_ptr()
+    a.overflow = overflow.data_ptr()
+    a.inconsistency = inconsistency.data_ptr()
+    a.cap, a.size = cap, cnt.shape[0]
+    fn = kernels.entry("agg_distinct", "rw_agg_distinct",
+                       [_DistinctArgs, ctypes.c_void_p])
+    kernels.count_launch("agg_distinct")
+    kernels.check(fn(a, kernels.stream_ptr(dev)), "agg_distinct")
+    return d_sign, dead.view(torch.bool)
+
+
+def distinct_dedup(cnt, slots, inserted, eligible, over, rank, signs,
+                   overflow, inconsistency):
+    """One DISTINCT call's dedup after its K3 probe and rank; CUDA
+    tensors launch kernel K6d.  See ``distinct_dedup_plain``."""
+    impl = distinct_dedup_cuda if slots.device.type == "cuda" \
+        else distinct_dedup_plain
+    return impl(cnt, slots, inserted, eligible, over, rank, signs, overflow,
+                inconsistency)
 
 
 # ---------------------------------------------------------------------------
@@ -550,6 +683,7 @@ class HashAggExecutor(Executor):
         watermark_src_col: int | None = None,
         emit_on_window_close: bool = False,
         retractable_input: bool = False,
+        distinct_table_size: int | None = None,
         spill_ring: int = 0,
     ):
         super().__init__(in_schema)
@@ -570,9 +704,6 @@ class HashAggExecutor(Executor):
             raise NotImplementedError(
                 "EMIT ON WINDOW CLOSE aggregation is not ported yet")
         for a in self.aggs:
-            if a.distinct and a.kind not in ("min", "max"):
-                raise NotImplementedError("DISTINCT aggregates are not "
-                                          "ported yet")
             if retractable_input and a.kind in ("min", "max"):
                 raise NotImplementedError(
                     "min/max over a retractable input (materialized-input "
@@ -592,6 +723,12 @@ class HashAggExecutor(Executor):
         self._out_schema = Schema(tuple(key_fields) + agg_fields)
         self._prim_specs = [(ai, ps) for ai, a in enumerate(self.aggs)
                             for ps in a.spec().states]
+        #: DISTINCT calls with their own counted dedup tables; min/max
+        #: are distinct-insensitive and run as plain calls
+        self.distinct_table_size = distinct_table_size or table_size
+        self._distinct_aggs: list[int] = [
+            ai for ai, a in enumerate(self.aggs)
+            if a.distinct and a.kind not in ("min", "max")]
         # hidden non-null-count prims: an aggregate whose argument rows
         # are all NULL (or all filtered out) outputs NULL
         self._nn_prim: dict[int, int] = {}
@@ -608,29 +745,50 @@ class HashAggExecutor(Executor):
 
     # ------------------------------------------------------------------
     def _key_protos(self, device):
-        protos = []
-        for _, e in self.group_by:
-            f = e.return_field(self.in_schema)
-            if f.data_type.is_string:
-                p = StrCol(torch.zeros((1, f.str_width), dtype=torch.uint8,
-                                       device=device),
-                           torch.zeros(1, dtype=torch.int32, device=device))
-            else:
-                p = torch.zeros(1, dtype=f.data_type.physical_dtype,
-                                device=device)
-            if f.nullable:
-                p = NCol(p, torch.zeros(1, dtype=torch.bool, device=device))
-            protos.append(p)
-        return protos
+        return [self._col_proto(e.return_field(self.in_schema), device)
+                for _, e in self.group_by]
+
+    @staticmethod
+    def _col_proto(f: Field, device):
+        """A one-row key prototype of field ``f`` (an NCol if nullable)."""
+        if f.data_type.is_string:
+            p = StrCol(torch.zeros((1, f.str_width), dtype=torch.uint8,
+                                   device=device),
+                       torch.zeros(1, dtype=torch.int32, device=device))
+        else:
+            p = torch.zeros(1, dtype=f.data_type.physical_dtype,
+                            device=device)
+        if f.nullable:
+            p = NCol(p, torch.zeros(1, dtype=torch.bool, device=device))
+        return p
+
+    def _distinct_protos(self, agg_idx: int, device) -> list:
+        """Key prototypes of a DISTINCT call's dedup table: (group
+        keys..., argument)."""
+        f = self.aggs[agg_idx].arg.return_field(self.in_schema)
+        return self._key_protos(device) + [self._col_proto(f, device)]
 
     def cuda_refusal(self) -> str | None:
         """Why the card's pre-aggregation (K5) and scatter (K6) cannot run
         this aggregation, or None."""
         for name, e in self.group_by:
             t = e.return_field(self.in_schema).data_type
-            if t.is_string or t in (DataType.FLOAT32, DataType.FLOAT64):
+            if t in (DataType.FLOAT32, DataType.FLOAT64):
                 return (f"GROUP BY on a {t.value} column is not ported to "
                         "the pre-aggregation kernel (K5)")
+        # a string key is two leaves: its bytes and its lengths
+        def leaves(f):
+            return 2 if f.data_type.is_string else 1
+
+        n = sum(leaves(e.return_field(self.in_schema))
+                for _, e in self.group_by)
+        if n > kernels.MAX_COLS:
+            return (f"{n} group-key leaves (K5 takes {kernels.MAX_COLS})")
+        for agg_idx in self._distinct_aggs:
+            f = self.aggs[agg_idx].arg.return_field(self.in_schema)
+            if n + leaves(f) > kernels.MAX_COLS:
+                return (f"a DISTINCT dedup key of {n + leaves(f)} leaves "
+                        f"(K1 and K3 take {kernels.MAX_COLS})")
         for agg_idx, ps in self._prim_specs:
             dt = ps.dtype(self._input_dtype(agg_idx))
             if dt not in _DTYPES:
@@ -669,6 +827,13 @@ class HashAggExecutor(Executor):
             overflow=torch.zeros((), **i64),
             inconsistency=torch.zeros((), **i64),
             wm=torch.full((), INT64_MIN, **i64),
+            distinct_tables=tuple(
+                HashTable.create(self._distinct_protos(ai, device),
+                                 self.distinct_table_size, device)
+                for ai in self._distinct_aggs),
+            distinct_counts=tuple(
+                torch.zeros(self.distinct_table_size, **i64)
+                for _ in self._distinct_aggs),
             spill_rows=tuple(empty_value_col(f, self.spill_ring, device)
                              for f in self.in_schema)
             if self.spill_ring else (),
@@ -685,20 +850,39 @@ class HashAggExecutor(Executor):
         signs = chunk.signs()
         valid = chunk.valid
         cap = chunk.capacity
+        dev = chunk.device
         key_cols = [conform_col(e.eval(chunk),
                                 e.return_field(self.in_schema).nullable, cap)
                     for _, e in self.group_by]
         h = hash64_columns(key_cols)
-        modes, inits, values = [], [], []
         arg_cache: dict[int, object] = {}
+        filt_cache: dict[int, torch.Tensor] = {}
+
+        def arg_of(agg_idx):
+            if agg_idx not in arg_cache:
+                arg_cache[agg_idx] = self.aggs[agg_idx].arg.eval(chunk)
+            return arg_cache[agg_idx]
+
+        def filter_mask(agg_idx):
+            """bool [cap] FILTER (WHERE ...) mask (NULL excludes), or None."""
+            a = self.aggs[agg_idx]
+            if a.filter is None:
+                return None
+            if agg_idx not in filt_cache:
+                fcol, fnull = split_col(a.filter.eval(chunk))
+                filt_cache[agg_idx] = fcol if fnull is None else fcol & ~fnull
+            return filt_cache[agg_idx]
+
+        # per primitive its column (NULL payloads zeroed) and signs; a
+        # DISTINCT call's signs come from its dedup, after the probe
+        modes, inits, values, later = [], [], [], []
+        cols: list = []
         for pi, (agg_idx, ps) in enumerate(self._prim_specs):
             a = self.aggs[agg_idx]
             if a.arg is None:
-                col = torch.ones(cap, dtype=torch.int64, device=chunk.device)
+                col = torch.ones(cap, dtype=torch.int64, device=dev)
             else:
-                if agg_idx not in arg_cache:
-                    arg_cache[agg_idx] = a.arg.eval(chunk)
-                col = arg_cache[agg_idx]
+                col = arg_of(agg_idx)
             col, col_null = split_col(col)
             if isinstance(col, StrCol):
                 raise NotImplementedError(
@@ -709,39 +893,63 @@ class HashAggExecutor(Executor):
                 col = torch.where(col_null, torch.zeros_like(col), col)
                 prim_signs = torch.where(col_null, torch.zeros_like(signs),
                                          signs)
-            if a.filter is not None:
-                fcol, fnull = split_col(a.filter.eval(chunk))
-                fm = fcol if fnull is None else fcol & ~fnull
+            fm = filter_mask(agg_idx)
+            if fm is not None:
                 prim_signs = torch.where(fm, prim_signs,
                                          torch.zeros_like(prim_signs))
             modes.append(ps.mode)
             inits.append(ps.init(state.prims[pi].dtype))
-            values.append(ps.lift(col, prim_signs).to(state.prims[pi].dtype))
+            cols.append(col)
+            if agg_idx in self._distinct_aggs:
+                later.append(pi)
+                values.append(None)
+            else:
+                values.append(
+                    ps.lift(col, prim_signs).to(state.prims[pi].dtype))
+        now = [pi for pi in range(len(values)) if values[pi] is not None]
         pa = None
         if accel_tuned(chunk.device):
             # only each run's representative probes and scatters the
             # run's partials; an overflowed representative loses its run
-            pa = agg_preagg(key_cols, h, valid, signs, modes, inits, values)
+            pa = agg_preagg(key_cols, h, valid, signs,
+                            [modes[pi] for pi in now],
+                            [inits[pi] for pi in now],
+                            [values[pi] for pi in now])
             table, slots, inserted, overflow = state.table.lookup_or_insert(
                 pa.s_keys, pa.rep, hashes=pa.s_hash)
             n_over = torch.where(pa.rep & overflow, pa.seg_rows,
                                  torch.zeros_like(pa.seg_rows)).sum()
-            values, row_signs = pa.seg_values, pa.seg_signs
+            for pi, v in zip(now, pa.seg_values):
+                values[pi] = v
+            row_signs = pa.seg_signs
         else:
             table, slots, inserted, overflow = state.table.lookup_or_insert(
                 key_cols, valid, hashes=h)
             n_over = (overflow & valid).sum(dtype=torch.int64)
             row_signs = signs.to(torch.int64)
+        spill_mask = None
         if self.spill_ring:
             # overflowed rows divert into the ring; only the rows the ring
             # cannot hold count into overflow (added by the capture)
-            spill_capture(state, chunk, valid, overflow, pa,
-                          self.spill_ring)
-            n_over = torch.zeros((), dtype=torch.int64, device=chunk.device)
+            spill_mask = spill_capture(state, chunk, valid, overflow, pa,
+                                       self.spill_ring)
+            n_over = torch.zeros((), dtype=torch.int64, device=dev)
+        if later:
+            d_signs = self._dedup(state, chunk, key_cols, signs, spill_mask,
+                                  arg_of, filter_mask)
+            lifted = [self._prim_specs[pi][1].lift(
+                cols[pi], d_signs[self._prim_specs[pi][0]]).to(
+                    state.prims[pi].dtype) for pi in later]
+            if pa is not None:
+                lifted = preagg_more(pa, key_cols, valid, signs,
+                                     [modes[pi] for pi in later],
+                                     [inits[pi] for pi in later], lifted)
+            for pi, v in zip(later, lifted):
+                values[pi] = v
         agg_scatter(list(state.prims), modes, inits, values, slots, inserted,
                     row_signs, state.row_count, state.dirty)
 
-        n_bad = torch.zeros((), dtype=torch.int64, device=chunk.device)
+        n_bad = torch.zeros((), dtype=torch.int64, device=dev)
         if any(not a.spec().retractable for a in self.aggs):
             n_bad = (valid & (signs < 0)).sum(dtype=torch.int64)
         return state._replace(
@@ -749,6 +957,42 @@ class HashAggExecutor(Executor):
             overflow=state.overflow + n_over,
             inconsistency=state.inconsistency + n_bad,
         ), None
+
+    def _dedup(self, state: AggState, chunk: Chunk, key_cols, signs,
+               spill_mask, arg_of, filter_mask) -> dict:
+        """The DISTINCT dedup (reference :501-580), in place: per call,
+        the rows that count (valid, not diverted, a non-NULL argument,
+        passing the FILTER) update their (group, value) key's count;
+        returns each call's int64 [cap] transition signs, +1/-1 at a
+        key's first row when its count leaves or reaches 0.  Dead keys
+        become tombstones (the K4 sweep on the card); the dedup's
+        overflow and negative counts add to the agg's counters."""
+        cap = chunk.capacity
+        d_signs = {}
+        for di, agg_idx in enumerate(self._distinct_aggs):
+            f = self.aggs[agg_idx].arg.return_field(self.in_schema)
+            acol = conform_col(arg_of(agg_idx), f.nullable, cap)
+            _, anull = split_col(acol)
+            eligible = chunk.valid & (signs != 0)
+            if spill_mask is not None:
+                # diverted rows replay in the tier's own dedup state
+                eligible = eligible & ~spill_mask
+            if anull is not None:
+                eligible = eligible & ~anull
+            fm = filter_mask(agg_idx)
+            if fm is not None:
+                eligible = eligible & fm
+            dt = state.distinct_tables[di]
+            _, dslots, dins, dover = dt.lookup_or_insert(key_cols + [acol],
+                                                         eligible)
+            rank = rank_by(dslots.to(torch.int64), eligible & ~dover)
+            d_sign, dead = distinct_dedup(
+                state.distinct_counts[di], dslots, dins, eligible, dover,
+                rank, signs, state.overflow, state.inconsistency)
+            # a (group, value) whose count retracted to 0 frees its slot
+            dt.clear_slots(dslots, dead)
+            d_signs[agg_idx] = d_sign
+        return d_signs
 
     # ------------------------------------------------------------------
     def _outputs(self, prims: tuple, row_count, slots):
@@ -822,7 +1066,10 @@ class HashAggExecutor(Executor):
 
     def make_spill_tier(self, table_size: int) -> "HashAggExecutor":
         """A same-shaped aggregation for the host (CPU) overflow tier."""
-        return HashAggExecutor(table_size=table_size, **self._ctor_kwargs)
+        return HashAggExecutor(
+            table_size=table_size,
+            distinct_table_size=max(table_size, self.distinct_table_size),
+            **self._ctor_kwargs)
 
     def pending_flush(self, state: AggState) -> torch.Tensor:
         return state.dirty.sum(dtype=torch.int64)
@@ -849,12 +1096,31 @@ class HashAggExecutor(Executor):
         state.dirty.logical_and_(~stale)
         state.prev_row_count.masked_fill_(stale, 0)
         state.emitted.logical_and_(~stale)
+        # the dedup keys carry the same group-key prefix: their (group,
+        # value) rows leave with the window
+        for dt, cnt in zip(state.distinct_tables, state.distinct_counts):
+            k, kn = split_col(dt.key_cols[key_col_idx])
+            stale_d = dt.occupied & (k < threshold)
+            if kn is not None:
+                stale_d &= ~kn
+            dt.clear_where(stale_d)
+            cnt.masked_fill_(stale_d, 0)
         return state
 
     def maybe_rehash(self, state: AggState) -> AggState:
-        """Rebuild the group table once tombstones exceed a quarter of it
-        (maintenance-time; reads the tombstone count back)."""
-        if int(state.table.tombstone_count()) <= self.table_size // 4:
+        """Rebuild the group table once tombstones exceed a quarter of it,
+        and the DISTINCT calls' dedup tables (each with its counts) once
+        the most tombstoned one passes a quarter of its size
+        (maintenance-time; ONE readback of the tombstone counts)."""
+        counts = [state.table.tombstone_count()]
+        if self._distinct_aggs:
+            counts.append(torch.stack([dt.tombstone_count()
+                                       for dt in state.distinct_tables]
+                                      ).max())
+        tombs = torch.stack(counts).tolist()
+        if len(tombs) > 1 and tombs[1] > self.distinct_table_size // 4:
+            state = self._rehash_distinct(state)
+        if tombs[0] <= self.table_size // 4:
             return state
         fresh, moved = state.table.rehashed()
         prims, prev_prims = [], []
@@ -871,3 +1137,15 @@ class HashAggExecutor(Executor):
             prev_row_count=permute_dense(state.prev_row_count, moved),
             emitted=permute_dense(state.emitted, moved),
         )
+
+    @staticmethod
+    def _rehash_distinct(state: AggState) -> AggState:
+        """``rehash_d``: every dedup table rebuilt without tombstones
+        (K3), its counts moved with their keys (K4)."""
+        tables, counts = [], []
+        for dt, cnt in zip(state.distinct_tables, state.distinct_counts):
+            fresh, moved = dt.rehashed()
+            tables.append(fresh)
+            counts.append(permute_dense(cnt, moved))
+        return state._replace(distinct_tables=tuple(tables),
+                              distinct_counts=tuple(counts))

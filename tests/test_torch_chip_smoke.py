@@ -81,6 +81,12 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[parity] q101", "[parity] q103", "[parity] q104",
                 "[check] q101 MV equals numpy", "[check] q103 MV equals numpy",
                 "[check] q104 MV equals numpy",
-                "[check] q101 overflow, inconsistency and emit_overflow 0"):
+                "[check] q101 overflow, inconsistency and emit_overflow 0",
+                "[agg_distinct] exact", "[table_sweep] exact",
+                "[agg_preagg] exact with string keys",
+                "[topn_pool] on the dynamic filter's left input",
+                "[dyn_filter] exact", "[parity] q102",
+                "[check] q102 overflow and inconsistency 0",
+                "[check] q102 MV equals numpy"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout

@@ -102,10 +102,13 @@ def test_q8_engine_rows_state_recover_and_carried_state():
     (QUERIES["q8"].replace("JOIN TUMBLE", "FULL JOIN TUMBLE").replace(
         "p.window_start = a.window_start",
         "p.window_start = a.window_start AND a.reserve > 10"), {}),
-    # aggregation over the join
+    # aggregation over the join, HAVING against a correlated scalar
+    # subquery (an uncorrelated one peels into a dynamic filter:
+    # ``tests/test_torch_q102_sql.py``)
     (QUERIES["q8"].replace("p.name AS name, a.reserve AS reserve",
                            "count(*) AS n").replace(
-        ";", " GROUP BY p.id;"), {}),
+        ";", " GROUP BY p.id HAVING count(*) > (SELECT count(*) FROM bid b "
+        "WHERE b.auction = p.id);"), {}),
     # a non-equality ON condition
     (QUERIES["q8"].replace("p.id = a.seller", "p.id > a.seller"), {}),
     # WHERE over the join
@@ -121,7 +124,8 @@ def test_q8_engine_rows_state_recover_and_carried_state():
 ])
 def test_unported_join_plans_raise(query, config):
     """What the port still refuses (the LEFT JOIN and dense-storage cases
-    that stood here plan now: ``tests/test_torch_join_sql.py``)."""
+    that stood here plan now: ``tests/test_torch_join_sql.py``; so does an
+    aggregation over a join)."""
     eng = Engine(PlannerConfig(**SIZES, **config), device="cpu")
     eng.execute(SOURCES.format(rate=RATE))
     with pytest.raises(PlanError):
