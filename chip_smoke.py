@@ -4682,6 +4682,36 @@ def phase_q102_kernels(torch, device, timer, scale):
     err = max(err, max_abs_err(torch, pairs))
     if not (bands["up"] and bands["down"] and bands["emptied"]):
         fail(f"dyn_filter: a threshold move emitted no band {bands}")
+    # every comparison on int64, and ge on int32 and float64 (NUMERIC and
+    # TIMESTAMP are int64), over a synthetic pool of the same size: the
+    # threshold set, raised, dropped and emptied
+    g = torch.Generator(device="cpu").manual_seed(102)
+    pairs = []
+    kinds = [(c, torch.int64) for c in ("gt", "ge", "lt", "le", "eq")] \
+        + [("ge", torch.int32), ("ge", torch.float64)]
+    for cmp_, dt in kinds:
+        vals = torch.randint(0, 64, (S,), generator=g).to(dt)
+        pvalid = torch.rand(S, generator=g) < 0.5
+        sp = [vals, pvalid, torch.zeros((), dtype=dt),
+              torch.zeros((), dtype=torch.bool)]
+        sk = [x.to(device, copy=True) for x in sp]
+        for step, (rv, rops) in enumerate((([20], [0]), ([20, 40], [2, 3]),
+                                           ([40, 8], [2, 3]), ([8], [1]))):
+            rhs = torch.tensor(rv, dtype=dt)
+            rop = torch.tensor(rops, dtype=torch.int8)
+            rval = torch.ones(len(rv), dtype=torch.bool)
+            ok_, ek_ = band_k(*sk[:2], rhs.to(device), rop.to(device),
+                              rval.to(device), *sk[2:], cmp_)
+            op_, ep_ = df.band_plain(*sp[:2], rhs, rop, rval, *sp[2:], cmp_)
+            tag = f"dyn_filter {cmp_} {dt} step {step}"
+            pairs += [(f"{tag} valid", ek_, ep_.to(device)),
+                      (f"{tag} ops", torch.where(ek_, ok_, 0),
+                       torch.where(ep_, op_, 0).to(device)),
+                      (f"{tag} threshold", sk[2].clone(),
+                       sp[2].to(device, copy=True))]
+            pairs.append((f"{tag} left", mk(*sk, cmp_),
+                          df.pass_mask_plain(*sp, cmp_).to(device)))
+    err = max(err, max_abs_err(torch, pairs))
     rcs = [chunk_to(_rhs_chunk(torch, rschema, rcap, vals, ops), device)
            for vals, ops in (([down, up], [2, 3]), ([up, down], [2, 3]))]
     tk_ = clone(base)
@@ -4699,7 +4729,9 @@ def phase_q102_kernels(torch, device, timer, scale):
     live = int(base.valid.sum())
     print(f"[dyn_filter] exact (right: threshold {thr0} -> {up} -> {down} "
           f"-> emptied -> {thr0} over a pool of {S} ({live} live): bands "
-          f"{bands}; left: the aggregation's flush of {left.capacity} rows); "
+          f"{bands}; left: the aggregation's flush of {left.capacity} rows; "
+          f"gt/ge/lt/le/eq on int64, ge on int32 and float64 over a "
+          f"synthetic pool of {S}); "
           f"kernel {rms:.4f} ms on the right (threshold moves), plain "
           f"{rplain:.4f} ms, bound {rb[0]:.5f} ms; left {lms:.4f} ms, plain "
           f"{lplain:.4f} ms, bound {lb[0]:.6f} ms", flush=True)
