@@ -244,6 +244,18 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def pool_apply_bound(cap: int, row: float, n_del: int, n_ins: int,
+                     S: int) -> tuple[float, str]:
+    """K16's bound from the rows its work needs: every chunk row's flag
+    read (1 B); a valid row's op and payload (``row`` B); a delete's
+    matched slot (its hash read, its flag read and written); an insert's
+    claimed slot written (payload, hash, flag); the pool's validity
+    scanned for free slots (1 B a slot)."""
+    n_act = n_del + n_ins
+    return bound(cap + n_act * (row + 1) + n_del * 10 + n_ins * (row + 9)
+                 + S, cap + n_act * 40)
+
+
 def row_bytes(col, lead: int = 1) -> float:
     """Bytes one row of a column holds (every leaf: data, string lengths,
     null plane); the first ``lead`` dims index the rows."""
@@ -2930,10 +2942,7 @@ def phase_window_kernels(torch, device, timer, scale):
                                    _topn_planes("b", b))])
         note = "exact against the plain version"
         del a, b
-    # the chunk read (payload, hash, op, valid), the claimed rows and
-    # hashes written, the validity scanned
-    b16 = bound(chunk.capacity * (BID_ROW_BYTES + 10)
-                + n_ins * (BID_ROW_BYTES + 9) + S, chunk.capacity * 40)
+    b16 = pool_apply_bound(chunk.capacity, BID_ROW_BYTES, n_del, n_ins, S)
     print(f"[topn_pool] on the over-window's input, the top-N's flush "
           f"chunk of {chunk.capacity} rows ({n_del} deletes, {n_ins} "
           f"inserts) into a pool of {S} ({int(base.valid.sum())} live): "
@@ -4416,6 +4425,20 @@ def phase_q102_kernels(torch, device, timer, scale):
     n_dead = int(gp.distinct_tables[0].tombstone_count()) - tomb0
     if n_dead <= 0:
         fail("agg_distinct: the inverse chunk retracted no key to 0")
+    # rehash_d (K3 over the dedup table, K4 with its counts) at the next
+    # maintenance: the table forced past a quarter tombstones by marking
+    # free slots, spread over the table, on both copies
+    dt_k = gk.distinct_tables[0]
+    n_tomb = gex.distinct_table_size // 4 + 1
+    free = (~dt_k.occupied & ~dt_k.tombstone).nonzero().flatten()
+    need = n_tomb - int(dt_k.tombstone_count())
+    mark = free[::max(free.numel() // need, 1)][:need]
+    dt_k.tombstone[mark] = True
+    gp.distinct_tables[0].tombstone[mark.cpu()] = True
+    gk, gp = gex.maybe_rehash(gk), gex.maybe_rehash(gp)
+    _state_equal("agg_distinct rehash_d", gk, gp)
+    if int(gk.distinct_tables[0].tombstone_count()):
+        fail("agg_distinct: rehash_d left tombstones in the dedup table")
     # the card's calls (the CPU's apply records the odd ones)
     ins_args, inv_args = calls[0], calls[2]
     pairs = []
@@ -4444,12 +4467,14 @@ def phase_q102_kernels(torch, device, timer, scale):
     print(f"[agg_distinct] exact (the next {cap}-bid chunk into the 2^"
           f"{size_d.bit_length() - 1} dedup table: {n_keys} keys of "
           f"{live_d} live; its inverse: {n_dead} keys retracted to 0 and "
-          f"tombstoned); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"tombstoned; rehash_d past {n_tomb} tombstones: exact); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {b[0]:.6f} ms", flush=True)
     out["agg_distinct"] = kernel_entry(
         "agg_distinct.cu", "risingwave_tpu/stream/hash_agg.py:501", ms,
         plain_ms, b, None, err)
-    out["agg_distinct"].update(keys=n_keys, dead_keys=n_dead)
+    out["agg_distinct"].update(keys=n_keys, dead_keys=n_dead,
+                               rehash_tombstones=n_tomb)
 
     # -- the K4 sweep -------------------------------------------------------
     dtab = job.states[5][0].distinct_tables[0]
@@ -4484,14 +4509,19 @@ def phase_q102_kernels(torch, device, timer, scale):
     sw = dtab.clone()
     ms = timer(lambda i: sw.clear_slots(dslots, dead_rows), 200)
     plain_ms = timer(lambda i: sw.clear_slots_plain(dslots, dead_rows), 20)
-    b = bound(cap * 5 + n_rows_dead * 2, cap * 2)
+    # only the elements the work needs: the mask (a row) or pred (a slot)
+    # read; the masked rows' slots, the predicated slots' occupancy or tag
+    # read; the cleared slots' planes written
+    b = bound(cap + n_rows_dead * (4 + 2), cap + n_rows_dead * 2)
     pms = timer(lambda i: sw.clear_where(pred), 200)
     pplain = timer(lambda i: sw.clear_where_plain(pred), 20)
-    pb = bound(size_d * 2 + n_pred * 2, size_d * 2)
+    pb = bound(size_d + n_pred * 3, size_d + n_pred * 2)
+    n_tpred = int(tpred.sum())
+    n_thit = int((tpred & tags.occupied).sum())
     tt = tags.clone()
     tms = timer(lambda i: tt.clear_where(tpred), 50)
-    tb = bound(tags.size * 9 + int((tpred & tags.occupied).sum()) * 8,
-               tags.size * 3)
+    tb = bound(tags.size + n_tpred * 8 + n_thit * 8,
+               tags.size + n_tpred * 3)
     print(f"[table_sweep] exact (the dedup table's {n_rows_dead} dead keys "
           f"by slot list, {n_pred} slots by predicate over 2^"
           f"{size_d.bit_length() - 1}; the join's 2^"
@@ -4623,8 +4653,7 @@ def phase_q102_kernels(torch, device, timer, scale):
     bb.inconsistency.add_(n_miss)
     _state_equal("topn_pool on the dynamic filter's left input", a, bb)
     lrow = sum(row_bytes(c) for c in left.columns)
-    b16 = bound(left.capacity * (lrow + 10) + n_ins * (lrow + 9) + S,
-                left.capacity * 40)
+    b16 = pool_apply_bound(left.capacity, lrow, n_del, n_ins, S)
     print(f"[topn_pool] on the dynamic filter's left input, the "
           f"aggregation's flush of {left.capacity} rows ({n_del} deletes, "
           f"{n_ins} inserts) into a pool of {S} ({int(base.valid.sum())} "
@@ -4644,7 +4673,10 @@ def phase_q102_kernels(torch, device, timer, scale):
                              base.has_threshold, dex.cmp), 200)
     lplain = timer(lambda i: df.pass_mask_plain(
         v, left.valid, base.threshold, base.has_threshold, dex.cmp), 50)
-    lb = bound(left.capacity * 10, left.capacity * 3)
+    # each row's flag read and mask written, the valid rows' values read
+    n_left = int(left.valid.sum())
+    lb = bound(left.capacity * 2 + n_left * v.element_size(),
+               left.capacity + n_left * 2)
 
     # -- K21's right pass: the threshold up, down, emptied, set again -----
     thr0 = int(base.threshold)
@@ -4723,22 +4755,35 @@ def phase_q102_kernels(torch, device, timer, scale):
     rplain = timer(lambda i: df.band_plain(
         tk_.rows[fc], tk_.valid, rcs[i % 2].column(0), rcs[i % 2].ops,
         rcs[i % 2].valid, tk_.threshold, tk_.has_threshold, dex.cmp), 20)
-    # the pool's filter column and validity read, the band's ops and
-    # validity written; the right chunk's ops and validity read
-    rb = bound(S * (8 + 1 + 2) + rcap * 2, S * 6)
+    # from the elements the work needs: each slot's flag read and band
+    # flag written, the live slots' values read, the band rows' ops
+    # written; the right chunk's flags read, its visible rows' ops and
+    # values.  The timed moves go down -> up -> down: one band size.
     live = int(base.valid.sum())
+    tp_ = to_cpu(base)
+    tp_.threshold.fill_(down)
+    rp0 = chunk_to(rcs[0], cpu)
+    _, ep0 = df.band_plain(tp_.rows[fc], tp_.valid, rp0.column(0), rp0.ops,
+                           rp0.valid, tp_.threshold, tp_.has_threshold,
+                           dex.cmp)
+    n_band, n_rhs = int(ep0.sum()), int(rp0.valid.sum())
+    vsz = tk_.rows[fc].element_size()
+    rb = bound(S * 2 + live * vsz + n_band + rcap + n_rhs * (1 + vsz),
+               S + live * 4 + rcap)
     print(f"[dyn_filter] exact (right: threshold {thr0} -> {up} -> {down} "
           f"-> emptied -> {thr0} over a pool of {S} ({live} live): bands "
           f"{bands}; left: the aggregation's flush of {left.capacity} rows; "
           f"gt/ge/lt/le/eq on int64, ge on int32 and float64 over a "
           f"synthetic pool of {S}); "
-          f"kernel {rms:.4f} ms on the right (threshold moves), plain "
+          f"kernel {rms:.4f} ms on the right (threshold moves, bands of "
+          f"{n_band}), plain "
           f"{rplain:.4f} ms, bound {rb[0]:.5f} ms; left {lms:.4f} ms, plain "
           f"{lplain:.4f} ms, bound {lb[0]:.6f} ms", flush=True)
     out["dyn_filter"] = kernel_entry(
         "dyn_filter.cu", "risingwave_tpu/stream/dynamic_filter.py:106", rms,
         rplain, rb, None, err)
-    out["dyn_filter"].update(left_ms=lms, left_plain_ms=lplain,
+    out["dyn_filter"].update(band_rows=n_band, left_valid=n_left,
+                             left_ms=lms, left_plain_ms=lplain,
                              left_bound_ms=lb[0], left_bound_by=lb[1],
                              bands=bands, pool_live=live)
     del eng, job, states, base, sk_, sp_, tk_, a, bb, gk, gp

@@ -28,10 +28,14 @@
 // NUMERIC and TIMESTAMP), int32 or float64 (compared with subnormals as
 // zero, as the reference's compares run with denormals-are-zero).
 //
-// Bound: bytes.  The band pass reads each pool slot's value (8 B) and flag
-// (1 B) and writes 2 B: 11 B a slot, 2.9 MB for a 2^18-slot pool; the left
-// pass reads 9 B and writes 1 B a chunk row; the scalar pass reads the
-// right chunk's ops and flags (2 B a row).
+// Bound: bytes, counted from the rows the work needs.  The band pass reads
+// each slot's flag and writes its band flag (2 B a slot), reads the value
+// of the live slots alone (8 B each) and writes the ops of the band rows
+// (the ops of the other slots are never read); the left pass reads each
+// row's flag and writes its mask (2 B a row) and reads the value of the
+// valid rows alone; the scalar pass reads the right chunk's flags and the
+// visible rows' ops and values.  Both passes load a value only behind its
+// flag.
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -97,11 +101,12 @@ __global__ void dyn_left_kernel(DynFilterArgs a) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (i >= a.n) return;
-  const T thr = *static_cast<const T*>(a.thr);
-  a.out_valid[i] = (a.valid[i] && *a.has &&
-                    df_cmp<T>(a.cmp, df_load<T>(a.value, i), thr))
-                       ? 1
-                       : 0;
+  bool pass = false;
+  if (a.valid[i] && *a.has) {
+    pass = df_cmp<T>(a.cmp, df_load<T>(a.value, i),
+                     *static_cast<const T*>(a.thr));
+  }
+  a.out_valid[i] = pass ? 1 : 0;
 }
 
 template <typename T>
@@ -147,14 +152,17 @@ __global__ void dyn_band_kernel(DynFilterArgs a) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (i >= a.n) return;
-  const T v = df_load<T>(a.value, i);
-  const bool was = *a.old_has &&
-                   df_cmp<T>(a.cmp, v, *reinterpret_cast<const T*>(a.old_thr));
-  const bool now = *a.has &&
-                   df_cmp<T>(a.cmp, v, *static_cast<const T*>(a.thr));
-  const bool live = a.valid[i] != 0;
-  const bool ins = live && now && !was;
-  const bool del = live && was && !now;
+  bool ins = false, del = false;
+  if (a.valid[i]) {
+    const T v = df_load<T>(a.value, i);
+    const bool was = *a.old_has &&
+                     df_cmp<T>(a.cmp, v,
+                               *reinterpret_cast<const T*>(a.old_thr));
+    const bool now = *a.has &&
+                     df_cmp<T>(a.cmp, v, *static_cast<const T*>(a.thr));
+    ins = now && !was;
+    del = was && !now;
+  }
   a.out_ops[i] = ins ? DF_OP_INSERT : DF_OP_DELETE;
   a.out_valid[i] = (ins || del) ? 1 : 0;
 }

@@ -21,9 +21,11 @@
 // with constant values (slot list: duplicates write the same bytes), so
 // the result is the reference's whatever the order.
 //
-// Bound: bytes.  The predicate form reads pred and the occupancy (2 B a
-// slot, 9 B for tags) and writes the cleared slots; the slot list reads
-// 5 B a row and writes its slots' planes.
+// Bound: bytes, counted from the elements the work needs.  The predicate
+// form reads pred (1 B a slot), the occupancy (1 B, or the 8 B tag) of the
+// predicated slots alone and writes the cleared ones; the slot list reads
+// the mask (1 B a row), the slot of the masked rows alone (4 B) and writes
+// their slots' planes.
 #include <cstdint>
 #include <cuda_runtime.h>
 

@@ -594,7 +594,7 @@ class Planner:
         into dynamic filters (Nexmark q102): the aggregation emits each
         compared value as a hidden column, and each filter's right input
         is the subquery's own plan (a global aggregation)."""
-        from risingwave_tpu_torch.stream.dag import FragNode, JoinNode
+        from risingwave_tpu_torch.stream.dag import FilterNode, FragNode
         from risingwave_tpu_torch.stream.dynamic_filter import (
             DynamicFilterExecutor,
         )
@@ -633,7 +633,7 @@ class Planner:
                                 "column")
             sref, _ = resolve_subquery(ast.SubqueryRef(
                 sub, f"_sc_sq{len(nodes)}"))
-            nodes.append(JoinNode(DynamicFilterExecutor(
+            nodes.append(FilterNode(DynamicFilterExecutor(
                 out_schema, filter_col=pos, cmp=cmp,
                 pool_size=max(cfg.topn_pool_size, 2 * cfg.chunk_capacity)),
                 ref, sref))

@@ -1,10 +1,11 @@
 """DAG streaming runtime: fragments and joins under one barrier loop.
 
 Port of ``DagJob`` from ``risingwave_tpu/stream/dag.py`` for one device,
-without staging or a mesh: ``FragNode`` / ``JoinNode``, ``_propagate``
-and ``_apply_join_windowed`` (:406; a two-input node without windows, the
-dynamic filter, through its ``apply(state, chunk, side)``, :416-420, its
-counters flat on its state, :1055-1065), ``run_chunk``, ``_compute_pulls``,
+without staging or a mesh: ``FragNode`` / ``JoinNode`` / ``FilterNode``
+(a two-input node without windows, the dynamic filter, driven by its
+``apply(state, chunk, side)``, :416-420, its counters flat on its state,
+:1055-1065), ``_propagate`` and ``_apply_join_windowed`` (:406),
+``run_chunk``, ``_compute_pulls``,
 ``chunk_round`` and ``run_chunks``, the barrier (``_flush_node``,
 ``_flush_all``, ``_node_watermarks``, ``_wm_all``, ``_upstream_wm``,
 ``_clean_joins``, ``_collect_counters``, ``_barrier_impl``,
@@ -87,8 +88,7 @@ class FragNode:
 
 @dataclass
 class JoinNode:
-    """A two-input node: a hash join, or an executor driven by
-    ``apply(state, chunk, side)`` (the dynamic filter)."""
+    """A two-input node: a hash join with windowed emission."""
 
     join: Any
     left: Ref
@@ -96,6 +96,12 @@ class JoinNode:
 
     def init_state(self, device):
         return self.join.init_state(device)
+
+
+class FilterNode(JoinNode):
+    """A two-input node that is not a hash join (the dynamic filter):
+    driven by ``apply(state, chunk, side)``, its counters flat on its
+    state, nothing to clean or rehash."""
 
 
 class DagJob(CheckpointPipelineMixin):
@@ -221,10 +227,9 @@ class DagJob(CheckpointPipelineMixin):
         """Drive a join with windowed emission: window 0 propagates
         first, then (after one host read of the emission total) the
         further windows, in order, each through the downstream nodes.  A
-        two-input node without windows (the dynamic filter) applies the
-        chunk and sends its output on."""
+        FilterNode applies the chunk and sends its output on."""
         join = self.nodes[idx].join
-        if not hasattr(join, "apply_begin"):
+        if isinstance(self.nodes[idx], FilterNode):
             new_states[idx], out = join.apply(new_states[idx], chunk, side)
             if out is not None:
                 self._propagate(new_states, [(("node", idx), out)])
@@ -374,7 +379,7 @@ class DagJob(CheckpointPipelineMixin):
         (false without one) are read in one readback for all joins."""
         plans = []
         for idx, node in enumerate(self.nodes):
-            if not isinstance(node, JoinNode):
+            if not isinstance(node, JoinNode) or isinstance(node, FilterNode):
                 continue
             join = node.join
             wms = []
@@ -432,9 +437,7 @@ class DagJob(CheckpointPipelineMixin):
                     vals.append(sub)
                 continue
             jstate = new_states[idx]
-            if not hasattr(jstate, "left"):
-                # a two-input node that is not a join (the dynamic
-                # filter): its counters are flat on its state
+            if isinstance(node, FilterNode):
                 for attr in COUNTER_ATTRS:
                     if hasattr(jstate, attr):
                         labels.append(f"n{idx}.dynfilter.{attr}")
@@ -486,7 +489,7 @@ class DagJob(CheckpointPipelineMixin):
         for idx, node in enumerate(self.nodes):
             if isinstance(node, FragNode):
                 new_states[idx] = node.fragment.maintain(new_states[idx])
-            elif hasattr(node.join, "maybe_rehash"):
+            elif not isinstance(node, FilterNode):
                 new_states[idx] = node.join.maybe_rehash(new_states[idx])
         return tuple(new_states)
 

@@ -151,6 +151,7 @@ def test_q102_plan_shape_and_cuda_plan():
                      "DynamicFilterExecutor", ["MaterializeExecutor"]]
     assert [n.left for n in job.nodes if hasattr(n, "join")] == \
         [("node", 0), ("node", 3)]
+    assert type(job.nodes[6]).__name__ == "FilterNode"
     dyn = job.nodes[6].join
     assert (dyn.cmp, dyn.filter_col, dyn.pool_size) == ("ge", 3, 1 << 10)
     assert job.nodes[6].right == ("node", 5)
