@@ -50,7 +50,8 @@
    and equal state, slot for slot; q101, q103 and q104 at 10,000
    events/s with a 16-slot agg table (its spill ring and host tier run),
    then ``recover()`` and 2 more barriers, with equal tiers too, and
-   q102 the same way;
+   q102 the same way; q22, q10 and q21 at 2 events/s (equal ring rows
+   and state);
 4. runs q1, q5, q7, q8, q19, q18, q6_bid and ow_bid, each in a fresh
    ``Engine`` at ``bench.py``'s sizes (q19/q18/q6_bid with a top-N pool
    of 2^18, an emitted band of 2^16 and an MV table of 2^18; ow_bid
@@ -61,8 +62,9 @@
    timed barriers of 8 chunks, or of 8 scheduling rounds of 1 person and
    3 auction chunks for q8, or of one auction and one bid chunk for the
    join queries, and of an auction chunk and a chunk from each bid
-   reader for q102) with the launch counters set to 0 just before and
-   read
+   reader for q102; q22, q10 and q21 with a ring of 2^23, which their
+   2.69M bids do not lap) with the launch counters set to 0 just before
+   and read
    just after each timed window, and requires every kernel of that
    query's path to have launched; then q6_bid with the over-window's
    watermark cleaning set on the executor (8 timed barriers: K19a on
@@ -84,7 +86,10 @@
    auction's joined bid count where it reaches the floor division of all
    bids by their distinct auctions (the card's threshold equal to
    numpy's), with the join's, both aggregations' (their dedup included)
-   and the filter's loss counters 0;
+   and the filter's loss counters 0; q22's ring as url.split('/') parts
+   4-6, q10's as strftime('%Y-%m-%d') and '%I:%M', q21's as the four-way
+   channel map with every bid kept, leaf for leaf (zero tails, lengths,
+   the null plane);
 6. runs q7, q8 and q19 durably (``Engine(config, data_dir=<temporary
    directory>)``, the same sizes and barriers, a snapshot every 8
    checkpoints through K11 and the background uploader), prints rows/s,
@@ -127,7 +132,7 @@ CHUNKS_PER_BARRIER = 8
 WINDOW_US = 10_000_000
 HOP_SLIDE_US = 2_000_000
 QUERIES = ("q1", "q5", "q7", "q8", "q19", "q18", "q6_bid", "ow_bid",
-           "q101", "q103", "q104", "q102")
+           "q101", "q103", "q104", "q102", "q22", "q10", "q21")
 #: the kernels each query's main path must launch
 PATH_KERNELS = {
     "q1": ("nexmark_bids", "ring_append"),
@@ -168,6 +173,11 @@ PATH_KERNELS = {
              "tag_insert_ranked", "tag_probe", "join_update", "join_emit",
              "agg_distinct", "table_sweep", "topn_pool", "dyn_filter",
              "mv_upsert"),
+    # string and calendar expressions into the append-only ring
+    "q22": ("nexmark_bids", "str_split_part", "ring_append"),
+    "q10": ("nexmark_bids", "to_char", "ring_append"),
+    "q21": ("nexmark_bids", "str_case_map", "str_cmp", "regexp_group",
+            "ring_append"),
     # q6_bid with the over-window's watermark cleaning set on the
     # executor (no plan sets it): K19a on the path
     "q6_bid clean": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
@@ -363,6 +373,7 @@ def main() -> int:
     results.update(q102)
     results["agg_preagg"].update(preagg_extra)
     results["topn_pool"].update(pool_extra)
+    results.update(phase_string_kernels(torch, device, timer, scale))
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -377,6 +388,8 @@ def main() -> int:
         phase_window_parity(torch, device, query)
     for query in JOIN_QUERIES + ("q102",):
         phase_join_parity(torch, device, query)
+    for query in STRING_QUERIES:
+        phase_string_parity(torch, device, query)
 
     # -- 4-5. main paths --------------------------------------------------
     rates = {}
@@ -399,6 +412,9 @@ def main() -> int:
         elif query == "q102":
             launches, rates[query] = phase_q102_main_path(torch, device,
                                                           scale)
+        elif query in STRING_QUERIES:
+            launches, rates[query] = phase_string_main_path(torch, device,
+                                                            scale, query)
         else:
             launches, rates[query] = phase_main_path(torch, device, scale,
                                                      query)
@@ -1085,7 +1101,9 @@ PORT_KERNEL_NAMES = ("hash64_kernel", "probe_kernel", "reset_kernel",
                      "compact_count_kernel", "compact_tiles_kernel",
                      "compact_write_kernel", "topn_", "ow_scan_local",
                      "ow_scan_carry", "ow_finish", "table_sweep_kernel",
-                     "distinct_", "dyn_")
+                     "distinct_", "dyn_", "str_cmp_kernel", "str_case_kernel",
+                     "split_part_kernel", "to_char_kernel",
+                     "regexp_group_kernel")
 
 
 def profile_window(torch, eng, query: str, barriers: int = 2,
@@ -4926,6 +4944,544 @@ def phase_q102_main_path(torch, device, scale):
           f"{int(dyn.threshold)}", flush=True)
     print(f"[check] q102 {check_q102(eng, cap)}", flush=True)
     del eng, job, st, js, agg, glob, dyn
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches, rate
+
+
+# ---------------------------------------------------------------------------
+# q22, q10, q21: string and calendar expressions (K23a-d)
+
+
+#: RisingWave's Nexmark q22 and q21 views, and q10's projection, as
+#: published (q10 without Flink's filesystem sink)
+STRING_QUERY_SQL = {
+    "q22": """
+CREATE MATERIALIZED VIEW nexmark_q22 AS
+SELECT auction, bidder, price, channel,
+    SPLIT_PART(url, '/', 4) as dir1,
+    SPLIT_PART(url, '/', 5) as dir2,
+    SPLIT_PART(url, '/', 6) as dir3 FROM bid;
+""",
+    "q10": """
+CREATE MATERIALIZED VIEW nexmark_q10 AS
+SELECT auction, bidder, price, date_time,
+    TO_CHAR(date_time, 'YYYY-MM-DD') as date,
+    TO_CHAR(date_time, 'HH:MI') as time FROM bid;
+""",
+    "q21": """
+CREATE MATERIALIZED VIEW nexmark_q21 AS
+SELECT
+    auction, bidder, price, channel,
+    CASE
+        WHEN lower(channel) = 'apple' THEN '0'
+        WHEN lower(channel) = 'google' THEN '1'
+        WHEN lower(channel) = 'facebook' THEN '2'
+        WHEN lower(channel) = 'baidu' THEN '3'
+        ELSE (regexp_match(url, '(&|^)channel_id=([^&]*)'))[2]
+        END
+    AS channel_id FROM bid
+    where (regexp_match(url, '(&|^)channel_id=([^&]*)'))[2] is not null or
+          lower(channel) in ('apple', 'google', 'facebook', 'baidu');
+""",
+}
+STRING_QUERIES = tuple(STRING_QUERY_SQL)
+#: the K23 kernels' names in ``kernels.KERNELS``
+K23_KERNELS = ("str_split_part", "to_char", "regexp_group", "str_cmp",
+               "str_case_map")
+#: hand-picked strings of the K23 edge cases (40 B wide, as bid.url):
+#: split_part's greedy overlaps ('aa' in 'aaaa' is 2 matches), empty and
+#: delimiter-only strings, the regexp's guard at offset 0, after '&',
+#: after another byte (fails), with and without a stop byte, an empty
+#: capture, two candidates; bytes >= 128 for the unsigned compare
+K23_STRINGS = (b"", b"/", b"//", b"aaaa", b"aaa", b"a/b/c", b"/a/b/",
+               b"https://nexmark.io/page1/item", b"channel_id=abc",
+               b"x&channel_id=abc&y=1", b"xchannel_id=abc", b"channel_id=",
+               b"&channel_id=", b"a&channel_id=xyz", b"channel_id=&q",
+               b"channel_id=1&channel_id=2", b"&&channel_id=&",
+               b"q=1&xchannel_id=9&channel_id=7", b"channel_id",
+               b"APPLE", b"Google", b"\x80\xffAZaz[@`{", b"x" * 40,
+               b"aa/aa//aaa" * 4)
+#: tokens of the random strings
+K23_TOKENS = (b"channel_id=", b"&", b"x", b"aa", b"/", b"=", b"A", b"z",
+              b"\xff", b"ab/")
+#: delimiters of split_part's per-row delimiter column (8 B wide)
+K23_DELIMS = (b"/", b"aa", b"", b"&", b"ab/", b"=", b"/a", b"xxxxxxxx")
+DAY_US = 86_400_000_000
+#: hand-picked timestamps: day and noon boundaries on both sides of the
+#: epoch, years 0, -1, 9999 and 10000 and past, the int64 extremes
+K23_TIMESTAMPS = (0, -1, 1, DAY_US - 1, DAY_US, -DAY_US, -DAY_US - 1,
+                  -DAY_US + 1, 43_200_000_000, 43_199_999_999,
+                  -43_200_000_000, 1_436_918_400_000_000,
+                  253_402_300_799_999_999, 253_402_300_800_000_000,
+                  -62_167_219_200_000_000, -62_167_219_200_000_001,
+                  -62_198_755_200_000_000, 10**17, -10**17,
+                  2**63 - 1, -2**63)
+
+
+def k23_cases(n: int, seed: int = 23) -> dict:
+    """``n`` rows of K23 edge cases as numpy arrays: ``strs`` (40 B
+    wide, the hand-picked ones first, then random token strings; a
+    quarter of the rows carry non-zero bytes past their length, which no
+    function may read), ``other`` (the comparisons' right side: copies,
+    prefixes, extensions and random strings), ``delims`` (8 B wide) and
+    ``nth`` (split_part's per-row delimiter and part number, extremes
+    included), and ``ts`` (int64 microseconds: the hand-picked ones,
+    then uniform over +-400 years)."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import encode_strings
+
+    rng = np.random.default_rng(seed)
+
+    def random_string():
+        s = b"".join(K23_TOKENS[k] for k in
+                     rng.integers(0, len(K23_TOKENS), rng.integers(0, 12)))
+        return s[:int(rng.integers(0, 41))]
+
+    strs = [K23_STRINGS[i] if i < len(K23_STRINGS) else random_string()
+            for i in range(n)]
+    other = []
+    for s in strs:
+        kind = rng.integers(0, 4)
+        if kind == 0:
+            other.append(s)
+        elif kind == 1:
+            other.append(s[:int(rng.integers(0, len(s) + 1))])
+        elif kind == 2:
+            other.append(s + random_string()[:4])
+        else:
+            other.append(random_string())
+    data, lens = encode_strings(strs, 40)
+    garbage = rng.integers(1, 256, data.shape).astype(np.uint8)
+    past = np.arange(40)[None, :] >= lens[:, None]
+    dirty = (rng.random(n) < 0.25)[:, None] & past
+    data = np.where(dirty, garbage, data)
+    o_data, o_lens = encode_strings(other, 40)
+    delims = [K23_DELIMS[k] for k in rng.integers(0, len(K23_DELIMS), n)]
+    delims[:4] = [b"aa", b"aa", b"/", b"/"]
+    d_data, d_lens = encode_strings(delims, 8)
+    nth = rng.integers(-7, 8, n).astype(np.int32)
+    nth[:8] = (2, -1, 0, 7, -7, 2**31 - 1, -2**31, 1)
+    span = 400 * 365 * DAY_US
+    ts = rng.integers(-span, span, n, dtype=np.int64)
+    k = min(n, len(K23_TIMESTAMPS))
+    ts[:k] = np.array(K23_TIMESTAMPS[:k], np.int64)
+    return {"strs": (data, lens), "other": (o_data, o_lens),
+            "delims": (d_data, d_lens), "nth": nth, "ts": ts}
+
+
+def k23_python_split(s: bytes, d: bytes, n: int) -> bytes:
+    """split_part by Python's ``bytes.split`` (leftmost non-overlapping,
+    as PostgreSQL's; an empty delimiter leaves the string whole; n = 0,
+    which SQL refuses, and parts out of range are empty)."""
+    parts = s.split(d) if d else [s]
+    k = n - 1 if n > 0 else len(parts) + n
+    return parts[k] if 0 <= k < len(parts) else b""
+
+
+def _strcol(torch, device, pair):
+    from risingwave_tpu_torch.common.chunk import StrCol
+
+    return StrCol(torch.from_numpy(pair[0]).to(device),
+                  torch.from_numpy(pair[1]).to(device))
+
+
+def _literal_col(torch, device, value: bytes, cap: int, width: int = 64):
+    """A literal as ``Literal.eval`` returns it: one row, stride 0."""
+    from risingwave_tpu_torch.common.chunk import StrCol, encode_strings
+
+    data, lens = encode_strings([value], width)
+    return StrCol(torch.from_numpy(data).to(device).expand(cap, -1),
+                  torch.from_numpy(lens).to(device).expand(cap))
+
+
+def _compared_bytes(a, b) -> int:
+    """The bytes K23d's comparison reads over its rows: each row's
+    positions up to and including the first difference (all of the
+    longer length when equal)."""
+    import numpy as np
+
+    ad, bd = a.data.cpu().numpy(), b.data.cpu().numpy()
+    la, lb = a.lens.cpu().numpy(), b.lens.cpu().numpy()
+    w = max(ad.shape[1], bd.shape[1])
+    idx = np.arange(w)[None, :]
+    av = np.where(idx < la[:, None], np.pad(ad, ((0, 0), (0, w - ad.shape[1])))
+                  .astype(np.int16), -1)
+    bv = np.where(idx < lb[:, None], np.pad(bd, ((0, 0), (0, w - bd.shape[1])))
+                  .astype(np.int16), -1)
+    neq = av != bv
+    m = np.maximum(la, lb)
+    k = np.where(neq.any(axis=1), neq.argmax(axis=1) + 1, m)
+    return int(np.minimum(k, m).sum())
+
+
+def _str_pairs(tag, a, b, found=None):
+    pairs = [(f"{tag} bytes", a[0].data, b[0].data),
+             (f"{tag} lens", a[0].lens, b[0].lens)]
+    if found is not None:
+        pairs.append((f"{tag} found", a[1], b[1]))
+    return pairs
+
+
+def phase_string_kernels(torch, device, timer, scale):
+    """K23a-d against their plain versions on the card, exactly: on 8192
+    edge-case rows (``k23_cases``: bytes, lengths and the regexp's found
+    flags) and on a bid chunk at the main paths' shapes (url 40 B,
+    channel 16 B, a 64 B literal of stride 0), which also times each
+    kernel, its plain version and the bound of the bytes its rows need."""
+    from risingwave_tpu_torch.connector.nexmark import NexmarkGenerator
+    from risingwave_tpu_torch.expr import scalar
+    from risingwave_tpu_torch.expr import strings as S
+
+    cap = 8192 // scale
+    cases = k23_cases(cap)
+    strs = _strcol(torch, device, cases["strs"])
+    other = _strcol(torch, device, cases["other"])
+    delims = _strcol(torch, device, cases["delims"])
+    nth = torch.from_numpy(cases["nth"]).to(device)
+    ts = torch.from_numpy(cases["ts"]).to(device)
+    bids = NexmarkGenerator(device=device).gen_bids(0, cap)
+    channel, url, date_time = bids.columns[3], bids.columns[4], \
+        bids.columns[5]
+    lit = {v: _literal_col(torch, device, v, cap)
+           for v in (b"/", b"apple", b"channel_id=abc")}
+    n_lit = {v: torch.full((cap,), v, dtype=torch.int32, device=device)
+             for v in (4, 5, 6, -1, 0)}
+    out = {}
+
+    # -- K23d str_cmp: the six comparisons, columns and literal sides ----
+    pairs = []
+    for op in S.CMP_OPS:
+        for tag, a, b in (("columns", strs, other),
+                          ("literal right", strs, lit[b"channel_id=abc"]),
+                          ("literal left", lit[b"apple"], strs),
+                          ("q21", S.str_case_map(channel, False),
+                           lit[b"apple"])):
+            pairs.append((f"str_cmp {op} {tag}", S.str_cmp(a, b, op),
+                          S.str_cmp_plain(a, b, op)))
+    err = max_abs_err(torch, pairs)
+    low = S.str_case_map(channel, False)
+    ms = timer(lambda i: S.str_cmp(low, lit[b"apple"], "eq"), 200)
+    plain_ms = timer(lambda i: S.str_cmp_plain(low, lit[b"apple"], "eq"), 20)
+    # per row: the bytes compared up to the first difference, both
+    # lengths, the result; the literal's row once
+    n_cmp = _compared_bytes(low, lit[b"apple"])
+    b_ = bound(n_cmp + cap * 5 + 64 + 4, n_cmp * 4)
+    print(f"[str_cmp] exact on {cap} edge-case rows (6 ops, columns and "
+          f"stride-0 literals, bytes >= 128) and q21's lower(channel) = "
+          f"'apple'; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b_[0]:.5f} ms", flush=True)
+    out["str_cmp"] = kernel_entry("str_cmp.cu",
+                                  "risingwave_tpu/expr/scalar.py:241", ms,
+                                  plain_ms, b_, None, err)
+
+    # -- K23d str_case_map ------------------------------------------------
+    pairs = []
+    for upper in (False, True):
+        for tag, a in (("edge cases", strs), ("channel", channel),
+                       ("literal", lit[b"channel_id=abc"])):
+            x, y = S.str_case_map(a, upper), S.str_case_map_plain(a, upper)
+            pairs += _str_pairs(f"str_case_map {'upper' if upper else 'lower'}"
+                                f" {tag}", (x,), (y,))
+    err = max_abs_err(torch, pairs)
+    ms = timer(lambda i: S.str_case_map(channel, False), 200)
+    plain_ms = timer(lambda i: S.str_case_map_plain(channel, False), 20)
+    w = channel.data.shape[1]
+    b_ = bound(2 * cap * w, cap * w * 3)
+    print(f"[str_case_map] exact (lower and upper over edge cases with "
+          f"bytes past the lengths, the channel column, a literal); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_[0]:.5f} ms",
+          flush=True)
+    out["str_case_map"] = kernel_entry("str_cmp.cu",
+                                       "risingwave_tpu/expr/scalar.py:438",
+                                       ms, plain_ms, b_, None, err)
+
+    # -- K23a str_split_part ----------------------------------------------
+    pairs = []
+    cases_run = [("per-row delimiters and n", strs, delims, nth)]
+    cases_run += [(f"'/' n={k}", strs, lit[b"/"], n_lit[k])
+                  for k in (4, 5, 6, -1, 0)]
+    cases_run += [(f"url n={k}", url, lit[b"/"], n_lit[k]) for k in (4, 5, 6)]
+    for tag, a, d, k in cases_run:
+        pairs += _str_pairs(f"split_part {tag}", (S.str_split_part(a, d, k),),
+                            (S.str_split_part_plain(a, d, k),))
+    err = max_abs_err(torch, pairs)
+    got = S.str_split_part(strs, delims, nth)
+    gd, gl = got.data.cpu().numpy(), got.lens.cpu().numpy()
+    sd, sl = cases["strs"]
+    dd, dl = cases["delims"]
+    for i in range(cap):
+        want = k23_python_split(bytes(sd[i, :sl[i]]), bytes(dd[i, :dl[i]]),
+                                int(cases["nth"][i]))
+        if bytes(gd[i, :gl[i]]) != want or gd[i, gl[i]:].any():
+            fail(f"split_part row {i}: {bytes(gd[i, :gl[i]])!r} vs Python "
+                 f"{want!r}")
+    ms = timer(lambda i: S.str_split_part(url, lit[b"/"], n_lit[4]), 200)
+    plain_ms = timer(lambda i: S.str_split_part_plain(url, lit[b"/"],
+                                                      n_lit[4]), 10,
+                     prefill_ms=10.0)
+    ul = int(url.lens.sum())
+    b_ = bound(ul + cap * 4 + 64 + 8 + cap * (url.data.shape[1] + 4),
+               2 * ul * 4)
+    print(f"[str_split_part] exact on {cap} edge-case rows (per-row "
+          f"delimiters and n, greedy overlaps, empty delimiters, n out of "
+          f"range both ways) and q22's split_part(url, '/', 4|5|6), equal "
+          f"to Python's bytes.split; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_[0]:.5f} ms", flush=True)
+    out["str_split_part"] = kernel_entry(
+        "str_split.cu", "risingwave_tpu/expr/scalar.py:748", ms, plain_ms,
+        b_, None, err)
+
+    # -- K23b to_char -----------------------------------------------------
+    fmts = ("YYYY-MM-DD", "HH:MI", "HH24:MI:SS.MS", "yy/mm/dd US",
+            "hh12 am PM", "yyyy-mm-dd hh24:mi:ss.us pm", "abc")
+    pairs = []
+    for f in fmts:
+        segs = scalar.compile_to_char_pattern(f)
+        for tag, t in (("edge cases", ts), ("date_time", date_time)):
+            pairs += _str_pairs(f"to_char {f!r} {tag}",
+                                (S.to_char(t, segs),),
+                                (S.to_char_plain(t, segs),))
+    err = max_abs_err(torch, pairs)
+    segs = scalar.compile_to_char_pattern("YYYY-MM-DD")
+    ms = timer(lambda i: S.to_char(date_time, segs), 200)
+    plain_ms = timer(lambda i: S.to_char_plain(date_time, segs), 20,
+                     prefill_ms=3.0)
+    b_ = bound(cap * (8 + 10), cap * 60)
+    print(f"[to_char] exact on {cap} timestamps (+-400 years, day and noon "
+          f"boundaries, years 0 and 10000, the int64 extremes) in "
+          f"{len(fmts)} formats and on q10's date_time; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_[0]:.5f} ms", flush=True)
+    out["to_char"] = kernel_entry("to_char.cu",
+                                  "risingwave_tpu/expr/scalar.py:857", ms,
+                                  plain_ms, b_, None, err)
+
+    # -- K23c regexp_group --------------------------------------------------
+    pairs = []
+    n_found = {}
+    for pat in ("(&|^)channel_id=([^&]*)", "(^|&)channel_id=([^&]*)",
+                "channel_id=([^&]*)", "(&|^)a([^/]*)"):
+        node = scalar.RegexpGroup(None, pat, 2)
+        litb = torch.tensor(list(node.lit.encode()), dtype=torch.uint8,
+                            device=device)
+        guard = -1 if node.guard is None else ord(node.guard)
+        for tag, s in (("edge cases", strs), ("url", url)):
+            x = S.regexp_group(s, litb, guard, ord(node.stop))
+            y = S.regexp_group_plain(s, litb, guard, ord(node.stop))
+            pairs += _str_pairs(f"regexp_group {pat!r} {tag}", x, y, True)
+            n_found[(pat, tag)] = int(x[1].sum())
+    err = max_abs_err(torch, pairs)
+    node = scalar.RegexpGroup(None, "(&|^)channel_id=([^&]*)", 2)
+    litb = torch.tensor(list(node.lit.encode()), dtype=torch.uint8,
+                        device=device)
+    ms = timer(lambda i: S.regexp_group(url, litb, ord("&"), ord("&")), 200)
+    plain_ms = timer(lambda i: S.regexp_group_plain(url, litb, ord("&"),
+                                                    ord("&")), 20,
+                     prefill_ms=3.0)
+    # unmatched url rows (all of the main path's) read their whole string
+    b_ = bound(ul + cap * 4 + len(node.lit) + cap * (url.data.shape[1] + 5),
+               ul * len(node.lit))
+    print(f"[regexp_group] exact on {cap} edge-case rows (guard at 0, after "
+          f"'&', failing after another byte, unguarded, empty captures, "
+          f"no stop byte; matches {n_found}) and on q21's url; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_[0]:.5f} ms",
+          flush=True)
+    out["regexp_group"] = kernel_entry(
+        "str_regexp.cu", "risingwave_tpu/expr/scalar.py:1057", ms, plain_ms,
+        b_, None, err)
+    return out
+
+
+def _string_engine(torch, device, scale, query: str, barriers: int):
+    """``query`` in an engine at bench.py's sizes (chunk 8192, ring 2^23)
+    after ``barriers`` barriers (maintenance off, a snapshot every 8
+    checkpoints)."""
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    cfg = {k: v // scale for k, v in BENCH_CONFIG.items()}
+    cfg["mv_ring_size"] = (1 << 23) // scale
+    eng = Engine(PlannerConfig(**cfg), device=device)
+    eng.execute(BENCH_SOURCES)
+    eng.execute(STRING_QUERY_SQL[query])
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
+    eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    return eng
+
+
+def _consumed_bid_rows(eng, cap: int) -> dict:
+    """Every bid the job consumed, regenerated: numpy auction, bidder,
+    price, ts, and the channel and url strings as (bytes, lens)."""
+    import numpy as np
+
+    reader = eng.jobs[0].source
+    cols = {k: [] for k in ("auction", "bidder", "price", "ts", "ch", "chl",
+                            "url", "urll")}
+    for i in range(reader.offset // cap):
+        c = reader.gen.gen_bids(i * cap, cap).columns
+        for k, x in (("auction", c[0]), ("bidder", c[1]), ("price", c[2]),
+                     ("ts", c[5]), ("ch", c[3].data), ("chl", c[3].lens),
+                     ("url", c[4].data), ("urll", c[4].lens)):
+            cols[k].append(x.cpu().numpy())
+    return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def _ring_planes(eng, query: str):
+    """(row count, overflow, [leaf arrays]) of the query's ring, in
+    append order (no lap: the first ``cursor`` rows)."""
+    from risingwave_tpu_torch.common.tree import flatten
+
+    entry = eng.catalog.get(f"nexmark_{query}")
+    state = eng.jobs[0].states[entry.mv_state_index[0]]
+    n = int(state.cursor)
+    leaves = [x[:n].cpu().numpy() for x in flatten(state.values)[0]]
+    return n, int(state.overflow), leaves
+
+
+def _expected_strings(keys, fn, width: int):
+    """(bytes [n, width], lens [n]) of ``fn(key)`` per row, computed once
+    per distinct key (rows of ``keys`` are [n, k] uint8 or int64 [n])."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import encode_strings
+
+    keys = np.ascontiguousarray(keys)
+    flat = keys.view(np.dtype((np.void, keys.dtype.itemsize
+                               * (keys.shape[1] if keys.ndim > 1 else 1))))
+    _, first, inv = np.unique(flat.reshape(-1), return_index=True,
+                              return_inverse=True)
+    data, lens = encode_strings([fn(keys[i]) for i in first], width)
+    return data[inv.reshape(-1)], lens[inv.reshape(-1)]
+
+
+def check_string_query(eng, query: str, cap: int) -> str:
+    """The ring against numpy and Python over the consumed bids: the bid
+    columns as consumed, and q22's url.split('/') parts 4-6 ('' past the
+    end), q10's strftime('%Y-%m-%d') and '%I:%M', q21's four-way channel
+    map with every row kept (no NULL): bytes with their zero tails,
+    lengths and null planes exact."""
+    import datetime as dt
+
+    import numpy as np
+
+    b = _consumed_bid_rows(eng, cap)
+    n, overflow, leaves = _ring_planes(eng, query)
+    total = b["price"].shape[0]
+    if n != total or overflow:
+        fail(f"{query} ring holds {n} rows (overflow {overflow}) for "
+             f"{total} bids")
+    want = [b["auction"], b["bidder"], b["price"]]
+    if query == "q22":
+        want += [b["ch"], b["chl"]]
+        keys = np.concatenate([b["url"], b["urll"][:, None].view(np.uint8)
+                               .reshape(-1, 4)], axis=1)
+        for part in (4, 5, 6):
+            def fn(k, part=part):
+                ln = int(k[40:].view(np.int32)[0])
+                return k23_python_split(bytes(k[:ln]), b"/", part)
+            want += list(_expected_strings(keys, fn, 40))
+        what = "url.split('/') parts 4, 5 and 6"
+    elif query == "q10":
+        want.append(b["ts"])
+        minute = b["ts"] // 60_000_000
+
+        def fmt(pattern):
+            def fn(m):
+                t = dt.datetime(1970, 1, 1) + dt.timedelta(
+                    microseconds=int(m) * 60_000_000)
+                return t.strftime(pattern).encode()
+            return fn
+        want += list(_expected_strings(minute, fmt("%Y-%m-%d"), 10))
+        want += list(_expected_strings(minute, fmt("%I:%M"), 5))
+        what = "strftime('%Y-%m-%d') and strftime('%I:%M')"
+    else:
+        want += [b["ch"], b["chl"]]
+        ids = {b"apple": b"0", b"google": b"1", b"facebook": b"2",
+               b"baidu": b"3"}
+        keys = np.concatenate([b["ch"], b["chl"][:, None].view(np.uint8)
+                               .reshape(-1, 4)], axis=1)
+
+        def fn(k):
+            ln = int(k[16:].view(np.int32)[0])
+            return ids[bytes(k[:ln]).lower()]
+        d, ln = _expected_strings(keys, fn, 64)
+        want += [d, ln, np.zeros(total, bool)]
+        what = "the four-way channel map, every bid kept, no NULL"
+    if len(want) != len(leaves):
+        fail(f"{query} ring has {len(leaves)} leaves, expected {len(want)}")
+    for i, (got, exp) in enumerate(zip(leaves, want)):
+        if got.shape != exp.shape or not np.array_equal(got, exp):
+            fail(f"{query} ring leaf {i} differs from numpy/Python")
+    return (f"ring rows equal numpy/Python ({what}) over {n} bids, "
+            f"{len(leaves)} leaves, no lap")
+
+
+def phase_string_parity(torch, device, query: str) -> None:
+    """``query`` at 2 events/s on the card and on the CPU (plain
+    versions), small ring: the ring's rows and every state tensor must
+    be equal."""
+    from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    engines = []
+    for dev in (device, torch.device("cpu")):
+        eng = Engine(PlannerConfig(chunk_capacity=256, mv_ring_size=1 << 14),
+                     device=dev)
+        eng.execute(BENCH_SOURCES.replace("'1000000'", "'2'"))
+        eng.execute(STRING_QUERY_SQL[query])
+        eng.tick(barriers=6, chunks_per_barrier=4)
+        engines.append(eng)
+    rows = [e.execute(f"SELECT * FROM nexmark_{query}") for e in engines]
+    if rows[0] != rows[1] or not rows[0]:
+        fail(f"{query} ring on the card differs from the CPU plain versions")
+    bad = state_mismatches(state_to_numpy(engines[1].jobs[0].states),
+                           engines[0].jobs[0].states)
+    if bad:
+        fail(f"{query} state on the card differs from the CPU: {bad[:5]}")
+    print(f"[parity] {query} at 2 events/s, 6 barriers: {len(rows[0])} ring "
+          f"rows and all state equal to the CPU plain versions", flush=True)
+
+
+def phase_string_main_path(torch, device, scale, query: str):
+    """``query`` at bench.py's sizes: 9 warm-up barriers, then 32 timed
+    barriers of 8 chunks with the launch counters taken over the timed
+    window, one profiled window, the counter audit, and the ring checked
+    with numpy and Python."""
+    from risingwave_tpu_torch import kernels
+
+    cuda = device.type == "cuda"
+    barriers = BARRIERS if cuda else 2
+    eng = _string_engine(torch, device, scale, query,
+                         WARMUP_BARRIERS if cuda else 1)
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cap = eng.jobs[0].source.cap
+    chunks = barriers * CHUNKS_PER_BARRIER
+    rate = chunks * cap / dt
+    k23 = {k: launches[k] / chunks for k in K23_KERNELS if launches[k]}
+    print(f"[main] {query} {chunks * cap} rows in {dt:.3f} s = {rate:.0f} "
+          f"rows/s; K23 launches per chunk {k23}; port kernel launches "
+          f"{sum(launches.values()) / chunks:.2f} per chunk", flush=True)
+    if cuda:
+        per_chunk = profile_window(torch, eng, query)
+        print(f"[main] {query} launches per chunk "
+              f"{'not measured' if per_chunk is None else f'{per_chunk:.1f}'}"
+              f" (all CUDA kernels, profiled window)", flush=True)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    eng.tick(barriers=1, chunks_per_barrier=0)
+    print(f"[check] {query} {check_string_query(eng, query, cap)}",
+          flush=True)
+    del eng
     if cuda:
         torch.cuda.empty_cache()
     return launches, rate

@@ -8,7 +8,7 @@ function registry (``expr/registry.py``) to the implementations in
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -107,10 +107,16 @@ class InputRef(Expr):
 
 @dataclass(frozen=True, eq=False)
 class Literal(Expr):
-    """Constant, broadcast to the chunk capacity."""
+    """Constant, broadcast to the chunk capacity.
+
+    A VARCHAR literal is encoded and uploaded once per device and
+    returned as a stride-0 view of that one row (``expand``): no
+    per-chunk host copy, and the string kernels read it as one row."""
 
     value: Any
     data_type: DataType
+    #: the encoded string row per device (bytes [1, w], lens [1])
+    _rows: dict = field(default_factory=dict, init=False, repr=False)
 
     def return_field(self, schema: Schema) -> Field:
         return Field("?const", self.data_type, nullable=self.value is None)
@@ -128,11 +134,13 @@ class Literal(Expr):
                 data = torch.zeros(cap, dtype=t.physical_dtype, device=dev)
             return NCol(data, torch.ones(cap, dtype=torch.bool, device=dev))
         if t.is_string:
-            data, lens = encode_strings([self.value], DEFAULT_STR_WIDTH)
-            return StrCol(
-                torch.from_numpy(data[0]).to(dev).expand(cap, -1),
-                torch.full((cap,), int(lens[0]), dtype=torch.int32,
-                           device=dev))
+            row = self._rows.get(dev)
+            if row is None:
+                data, lens = encode_strings([self.value], DEFAULT_STR_WIDTH)
+                row = (torch.from_numpy(data).to(dev),
+                       torch.from_numpy(lens).to(dev))
+                self._rows[dev] = row
+            return StrCol(row[0].expand(cap, -1), row[1].expand(cap))
         if t == DataType.DECIMAL:
             v = int(round(float(self.value) * 10**DEFAULT_DECIMAL_SCALE))
             return torch.full((cap,), v, dtype=torch.int64, device=dev)

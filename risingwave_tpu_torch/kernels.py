@@ -1,27 +1,25 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The sources live in ``risingwave_tpu_torch/csrc``: one ``.cu`` file per
-kernel plus the shared headers ``rw_common.cuh``, ``rw_join.cuh`` and
-``nexmark_common.cuh``, and one host routine, ``crc32c.cpp`` (the
-checkpoint store's checksum, ``crc32c``).  Each source compiles
-with ``nvcc`` into its own shared library with a plain C interface,
-named by a hash of its source, the headers and the flags, under
-``build/kernels`` at the root of the checkout.  All missing libraries
-build at once (one ``nvcc`` process per source), at first use.  The
-wrappers call the C entry points through ``ctypes``: tensors pass as
-``data_ptr()`` integers, the stream is PyTorch's current stream, and
-every entry returns ``cudaGetLastError()``, which ``check`` turns into
-an exception.
+kernel plus the shared headers ``rw_common.cuh``, ``rw_join.cuh``,
+``nexmark_common.cuh`` and ``rw_str.cuh``, and one host routine,
+``crc32c.cpp`` (the checkpoint store's checksum, ``crc32c``).  Each
+source compiles with ``nvcc`` into its own shared library with a plain
+C interface, named by a hash of its source, the headers and the flags,
+under ``build/kernels`` at the root of the checkout.  All missing
+libraries build at once (one ``nvcc`` process per source), at first
+use.  The wrappers call the C entry points through ``ctypes``: tensors
+pass as ``data_ptr()`` integers, the stream is PyTorch's current
+stream, and every entry returns ``cudaGetLastError()``, which
+``check`` turns into an exception.
 
 ``KERNELS`` names each kernel entry point with the source it is built
-from (``compact.cu``, ``nexmark_events.cu``, ``tag_probe.cu`` and
-``shadow_digest.cu`` hold two each; ``topn_band.cu``,
+from (``compact.cu``, ``nexmark_events.cu``, ``tag_probe.cu``,
+``shadow_digest.cu`` and ``str_cmp.cu`` hold two each; ``topn_band.cu``,
 ``topn_flush.cu``, ``join_dense.cu`` and ``dyn_filter.cu`` two C
-entries each, all counted),
-and ``LAUNCHES`` counts, per
-kernel, the wrapper calls that launched it on the card.  Nothing here
-runs at import time: a CPU-only process imports the package without
-``nvcc``.
+entries each, all counted), and ``LAUNCHES`` counts, per kernel, the
+wrapper calls that launched it on the card.  Nothing here runs at
+import time: a CPU-only process imports the package without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -39,7 +37,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-HEADERS = ("rw_common.cuh", "rw_join.cuh", "nexmark_common.cuh")
+HEADERS = ("rw_common.cuh", "rw_join.cuh", "nexmark_common.cuh",
+           "rw_str.cuh")
 #: library name -> source file
 SOURCES = {
     "hash64": "hash64.cu",
@@ -67,6 +66,10 @@ SOURCES = {
     "table_sweep": "table_sweep.cu",
     "agg_distinct": "agg_distinct.cu",
     "dyn_filter": "dyn_filter.cu",
+    "str_split": "str_split.cu",
+    "to_char": "to_char.cu",
+    "str_regexp": "str_regexp.cu",
+    "str_cmp": "str_cmp.cu",
     # a host routine (the checkpoint store's crc32c), no kernel
     "crc32c": "crc32c.cpp",
 }
@@ -101,6 +104,11 @@ KERNELS = {
     "table_sweep": "table_sweep",
     "agg_distinct": "agg_distinct",
     "dyn_filter": "dyn_filter",
+    "str_split_part": "str_split",
+    "to_char": "to_char",
+    "regexp_group": "str_regexp",
+    "str_cmp": "str_cmp",
+    "str_case_map": "str_cmp",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

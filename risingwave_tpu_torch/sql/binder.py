@@ -2,8 +2,10 @@
 
 Port of ``risingwave_tpu/sql/binder.py``: name resolution against the
 in-scope schema, literal typing, DATE/TIMESTAMP literal +- INTERVAL
-folding, aggregate-call extraction.  LIKE, to_char, regexp and array
-subscripts are not ported yet and raise ``BindError``.
+folding, CASE, ``to_char`` with a literal format, the
+``(regexp_match(s, 'pat'))[2]`` capture, aggregate-call extraction.
+LIKE and every function the port's registry lacks (``replace``,
+``substr``, ``trim``, ``concat``, ``extract``, ...) raise ``BindError``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from risingwave_tpu_torch.expr.node import (
     Literal as ELiteral,
     as_expr,
 )
+from risingwave_tpu_torch.expr.registry import FUNCTION_REGISTRY
+from risingwave_tpu_torch.expr.scalar import RegexpGroup, ToChar
 from risingwave_tpu_torch.sql import ast
 
 AGG_NAMES = {"count", "sum", "avg", "min", "max"}
@@ -79,13 +83,38 @@ class Binder:
         if isinstance(e, ast.Cast):
             t = DataType.from_sql(e.type_name)
             return EFuncCall(f"cast_{t.name.lower()}", (self.bind(e.operand),))
+        if isinstance(e, ast.Case):
+            if e.else_result is None:
+                # CASE without ELSE yields NULL, typed as the first THEN
+                then0 = self.bind(e.conditions[0][1])
+                t = then0.return_field(self.scope.schema).data_type
+                out: Expr = ELiteral(None, t)
+            else:
+                out = self.bind(e.else_result)
+            for c, r in reversed(e.conditions):
+                out = EFuncCall("case", (self.bind(c), self.bind(r), out))
+            return out
         if isinstance(e, ast.FuncCall):
             if e.name in AGG_NAMES:
                 return self._bind_agg(e)
             if e.filter_where is not None:
                 raise BindError(f"FILTER specified, but {e.name} is not an "
                                 "aggregate function")
-            if e.name in ("like", "to_char", "array_index", "regexp_match"):
+            if e.name == "to_char":
+                return self._bind_to_char(e)
+            if e.name == "array_index":
+                return self._bind_array_index(e)
+            if e.name == "regexp_match":
+                raise BindError("regexp_match is supported only as "
+                                "(regexp_match(s, 'pat'))[n]")
+            if e.name == "split_part" and len(e.args) == 3 \
+                    and isinstance(e.args[2], ast.Literal) \
+                    and e.args[2].type_name == "int" \
+                    and e.args[2].value == 0:
+                # ref split_part.rs: position 0 is an error, and the
+                # kernel cannot raise per row
+                raise BindError("field position must not be zero")
+            if e.name not in FUNCTION_REGISTRY.names():
                 raise BindError(f"{e.name} is not ported yet")
             args = tuple(self.bind(a) for a in e.args)
             # untyped NULL literals adopt the type of a typed sibling
@@ -151,6 +180,42 @@ class Binder:
                             DataType.DATE)
         return ELiteral((base - epoch) // _dt.timedelta(microseconds=1),
                         DataType.TIMESTAMP)
+
+    def _bind_to_char(self, e: ast.FuncCall) -> Expr:
+        """to_char(ts, 'fmt'): the format compiles at bind time (K23b
+        takes the compiled program)."""
+        if len(e.args) != 2:
+            raise BindError("to_char takes (timestamp, format)")
+        fmt = e.args[1]
+        if not (isinstance(fmt, ast.Literal) and fmt.type_name == "string"):
+            raise BindError("to_char requires a literal format string")
+        arg = self.bind(e.args[0])
+        t = arg.return_field(self.scope.schema).data_type
+        if t == DataType.DATE:
+            raise BindError("to_char over DATE is not ported yet (the "
+                            "DATE -> TIMESTAMP cast is not)")
+        if t not in (DataType.TIMESTAMP, DataType.TIMESTAMPTZ):
+            raise BindError(f"to_char over {t.name} not supported")
+        return ToChar(arg, fmt.value)
+
+    def _bind_array_index(self, e: ast.FuncCall) -> Expr:
+        """Array subscripts exist only for regexp_match captures:
+        ``(regexp_match(s, 'pat'))[n]`` (K23c)."""
+        target, idx = e.args
+        if not (isinstance(target, ast.FuncCall)
+                and target.name == "regexp_match"):
+            raise BindError("array subscripts are supported on "
+                            "regexp_match only")
+        if len(target.args) != 2:
+            raise BindError("regexp_match takes (string, pattern)")
+        pat = target.args[1]
+        if not (isinstance(pat, ast.Literal) and pat.type_name == "string"):
+            raise BindError("regexp_match requires a literal pattern")
+        arg = self.bind(target.args[0])
+        try:
+            return RegexpGroup(arg, pat.value, idx.value)
+        except ValueError as err:
+            raise BindError(str(err))
 
     def _bind_agg(self, e: ast.FuncCall) -> Expr:
         if not self.allow_aggs:

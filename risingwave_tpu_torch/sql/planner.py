@@ -58,6 +58,7 @@ import torch
 
 from risingwave_tpu_torch.common.types import Schema
 from risingwave_tpu_torch.expr.node import Expr, FuncCall as EFuncCall, InputRef
+from risingwave_tpu_torch.expr.scalar import RegexpGroup, ToChar
 from risingwave_tpu_torch.meta.catalog import Catalog
 from risingwave_tpu_torch.sql import ast
 from risingwave_tpu_torch.sql.binder import (
@@ -1296,6 +1297,12 @@ class Planner:
         if isinstance(e, EFuncCall):
             return EFuncCall(e.name, tuple(
                 self._rewrite_post_agg(a, group_by, n_keys) for a in e.args))
+        if isinstance(e, ToChar):
+            return ToChar(self._rewrite_post_agg(e.arg, group_by, n_keys),
+                          e.fmt)
+        if isinstance(e, RegexpGroup):
+            return RegexpGroup(
+                self._rewrite_post_agg(e.arg, group_by, n_keys), e.pattern, 2)
         return e  # literals
 
     @staticmethod
@@ -1311,6 +1318,10 @@ class Planner:
                 Planner._expr_eq(x, y) for x, y in zip(a.args, b.args))
         if isinstance(a, ELit):
             return a.value == b.value and a.data_type == b.data_type
+        if isinstance(a, ToChar):
+            return a.fmt == b.fmt and Planner._expr_eq(a.arg, b.arg)
+        if isinstance(a, RegexpGroup):
+            return a.pattern == b.pattern and Planner._expr_eq(a.arg, b.arg)
         return False
 
     def _expand_items(self, items, scope: Scope):

@@ -353,6 +353,15 @@ class AppendOnlyMaterialize(Executor):
             raise ValueError("ring_size must be a power of two")
         self.ring_size = ring_size
 
+    def cuda_refusal(self) -> str | None:
+        """Why K8-ring cannot append this MV's rows on the card, or None
+        (a string is two value leaves: its bytes and its lengths)."""
+        n = sum(2 if f.data_type.is_string else 1 for f in self.in_schema)
+        if n > kernels.MAX_COLS:
+            return (f"an append-only MV row of {n} value leaves (K8-ring "
+                    f"takes {kernels.MAX_COLS})")
+        return None
+
     def init_state(self, device) -> RingState:
         return RingState(
             tuple(empty_value_col(f, self.ring_size, device)

@@ -87,6 +87,12 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[topn_pool] on the dynamic filter's left input",
                 "[dyn_filter] exact", "[parity] q102",
                 "[check] q102 overflow and inconsistency 0",
-                "[check] q102 MV equals numpy"):
+                "[check] q102 MV equals numpy",
+                "[str_cmp] exact", "[str_case_map] exact",
+                "[str_split_part] exact", "[to_char] exact",
+                "[regexp_group] exact", "[parity] q22", "[parity] q10",
+                "[parity] q21", "[check] q22 ring rows equal numpy",
+                "[check] q10 ring rows equal numpy",
+                "[check] q21 ring rows equal numpy"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout
