@@ -42,7 +42,12 @@
    join's tag table, K5 on a join window keyed (int64, VARCHAR) and with
    hashes forced equal, K16 and K21's left pass on the aggregation's
    flush into the filter's pool, and K21's right pass with the
-   threshold up, down, emptied and set again;
+   threshold up, down, emptied and set again; for q13, K22a on 8192 bids
+   probing ``auction % 10000`` in a 2^14-slot build table of 10,000 keys
+   and on ``k22_cases``' edge cases (NULL keys, misses, tombstones,
+   VARCHAR(8) keys with bytes past their lengths, a two-column key, inner
+   and left outer pads, a full table whose probes overflow), every output
+   leaf, the valid plane and the overflow count exact;
 3. runs q7, q5 and q1 at 2 events/s, q8 at 10,000 events/s and q19,
    q18, q6_bid and ow_bid at 2 events/s through the port's ``Engine``
    on the card and on the CPU (plain versions, the agg forced onto the
@@ -51,7 +56,8 @@
    events/s with a 16-slot agg table (its spill ring and host tier run),
    then ``recover()`` and 2 more barriers, with equal tiers too, and
    q102 the same way; q22, q10 and q21 at 2 events/s (equal ring rows
-   and state);
+   and state); q13 and its LEFT JOIN with churn (500 keys, chunk 256:
+   equal ring rows, build table and counters);
 4. runs q1, q5, q7, q8, q19, q18, q6_bid and ow_bid, each in a fresh
    ``Engine`` at ``bench.py``'s sizes (q19/q18/q6_bid with a top-N pool
    of 2^18, an emitted band of 2^16 and an MV table of 2^18; ow_bid
@@ -63,8 +69,10 @@
    3 auction chunks for q8, or of one auction and one bid chunk for the
    join queries, and of an auction chunk and a chunk from each bid
    reader for q102; q22, q10 and q21 with a ring of 2^23, which their
-   2.69M bids do not lap) with the launch counters set to 0 just before
-   and read
+   2.69M bids do not lap; q13 with 10,000 INSERTed keys and the ring at
+   2^23, and q13 churn, its LEFT JOIN over a retractable table with 128
+   UPDATEs and 16 DELETEs before each timed barrier, rows/s counting bid
+   rows only) with the launch counters set to 0 just before and read
    just after each timed window, and requires every kernel of that
    query's path to have launched; then q6_bid with the over-window's
    watermark cleaning set on the executor (8 timed barriers: K19a on
@@ -89,10 +97,15 @@
    and the filter's loss counters 0; q22's ring as url.split('/') parts
    4-6, q10's as strftime('%Y-%m-%d') and '%I:%M', q21's as the four-way
    channel map with every bid kept, leaf for leaf (zero tails, lengths,
-   the null plane);
-6. runs q7, q8 and q19 durably (``Engine(config, data_dir=<temporary
-   directory>)``, the same sizes and barriers, a snapshot every 8
-   checkpoints through K11 and the background uploader), prints rows/s,
+   the null plane); q13's as every bid with the text of ``auction %
+   10000``, q13 churn's as every bid with the value a host model of the
+   table held when the DAG probed it (a deleted key a NULL pad), and the
+   churn run against the same run on the CPU, tensor for tensor;
+6. runs q7, q8, q19 and q13 churn durably (``Engine(config,
+   data_dir=<temporary directory>)``, the same sizes and barriers, a
+   snapshot every 8 checkpoints through K11 and the background uploader;
+   q13's cold start reloads the DML journal and replays the lost
+   barrier's DML), prints rows/s,
    each checkpoint's kind, bytes and dirty share, K11's device time per
    snapshot and the uploader stall, then cold-starts a new engine from
    the directory, runs 8 more barriers and requires every state tensor
@@ -132,7 +145,8 @@ CHUNKS_PER_BARRIER = 8
 WINDOW_US = 10_000_000
 HOP_SLIDE_US = 2_000_000
 QUERIES = ("q1", "q5", "q7", "q8", "q19", "q18", "q6_bid", "ow_bid",
-           "q101", "q103", "q104", "q102", "q22", "q10", "q21")
+           "q101", "q103", "q104", "q102", "q22", "q10", "q21", "q13",
+           "q13 churn")
 #: the kernels each query's main path must launch
 PATH_KERNELS = {
     "q1": ("nexmark_bids", "ring_append"),
@@ -178,6 +192,11 @@ PATH_KERNELS = {
     "q10": ("nexmark_bids", "to_char", "ring_append"),
     "q21": ("nexmark_bids", "str_case_map", "str_cmp", "regexp_group",
             "ring_append"),
+    # the temporal join into the ring (K1 hashes the probe keys); with
+    # churn the build table takes UPDATEs and DELETEs (K3, K8)
+    "q13": ("nexmark_bids", "hash64", "temporal_probe", "ring_append"),
+    "q13 churn": ("nexmark_bids", "hash64", "temporal_probe", "probe",
+                  "mv_upsert", "ring_append"),
     # q6_bid with the over-window's watermark cleaning set on the
     # executor (no plan sets it): K19a on the path
     "q6_bid clean": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
@@ -191,6 +210,7 @@ DURABLE_KERNELS = {
     "q7": PATH_KERNELS["q7"] + ("shadow_digest", "dirty_gather"),
     "q8": PATH_KERNELS["q8"] + ("shadow_digest",),
     "q19": PATH_KERNELS["q19"] + ("shadow_digest",),
+    "q13": PATH_KERNELS["q13 churn"] + ("shadow_digest",),
 }
 
 
@@ -374,6 +394,7 @@ def main() -> int:
     results["agg_preagg"].update(preagg_extra)
     results["topn_pool"].update(pool_extra)
     results.update(phase_string_kernels(torch, device, timer, scale))
+    results.update(phase_temporal_kernels(torch, device, timer, scale))
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -390,6 +411,8 @@ def main() -> int:
         phase_join_parity(torch, device, query)
     for query in STRING_QUERIES:
         phase_string_parity(torch, device, query)
+    for left in (False, True):
+        phase_q13_parity(torch, device, left)
 
     # -- 4-5. main paths --------------------------------------------------
     rates = {}
@@ -415,6 +438,9 @@ def main() -> int:
         elif query in STRING_QUERIES:
             launches, rates[query] = phase_string_main_path(torch, device,
                                                             scale, query)
+        elif query in ("q13", "q13 churn"):
+            launches, rates[query] = phase_q13_main_path(
+                torch, device, scale, churn_path=query == "q13 churn")
         else:
             launches, rates[query] = phase_main_path(torch, device, scale,
                                                      query)
@@ -438,9 +464,13 @@ def main() -> int:
 
     # -- 6. the durable main paths and their cold starts ------------------
     durable = {}
-    for query in ("q7", "q8", "q19"):
-        launches, rate, info = phase_durable(torch, device, scale, query,
-                                             rates[query])
+    for query in ("q7", "q8", "q19", "q13"):
+        if query == "q13":
+            launches, rate, info = phase_q13_durable(torch, device, scale,
+                                                     rates["q13 churn"])
+        else:
+            launches, rate, info = phase_durable(torch, device, scale, query,
+                                                 rates[query])
         durable[query] = (rate, info)
         tag = f"{query} durable"
         for name, n in launches.items():
@@ -5485,6 +5515,677 @@ def phase_string_main_path(torch, device, scale, query: str):
     if cuda:
         torch.cuda.empty_cache()
     return launches, rate
+
+
+# ---------------------------------------------------------------------------
+# q13: tables, DML and the temporal join (K22a)
+
+
+#: RisingWave's Nexmark q13 (``%`` for ``mod``: the reference's registry
+#: has no ``mod``; the two agree on Nexmark's non-negative ids)
+Q13_SQL = """
+CREATE MATERIALIZED VIEW nexmark_q13 AS
+SELECT B.auction, B.bidder, B.price, B.date_time, S.value
+FROM bid B
+{join} side_input FOR SYSTEM_TIME AS OF PROCTIME() S
+ON B.auction % {keys} = S.key;
+"""
+Q13_KEYS = 10_000
+#: UPDATEs and full-row DELETEs before each timed barrier of q13 churn
+CHURN_UPDATES, CHURN_DELETES = 128, 16
+STR_WIDTH = 64
+
+
+def _q13_keys(scale: int) -> int:
+    return Q13_KEYS // scale
+
+
+def _q13_config(scale: int) -> dict:
+    """bench.py's sizes, the ring at 2^23 (no lap) and the build table at
+    ``join_table_size`` (2^14: 10,000 keys fill 61%)."""
+    cfg = {k: v // scale for k, v in BENCH_CONFIG.items()}
+    cfg.update(mv_ring_size=(1 << 23) // scale,
+               join_table_size=(1 << 14) // scale)
+    return cfg
+
+
+def _side_input_sql(keys: int, retract: bool) -> list[str]:
+    with_ = " WITH (retract = 'true')" if retract else ""
+    out = [f"CREATE TABLE side_input (key BIGINT PRIMARY KEY, value VARCHAR)"
+           f"{with_}"]
+    for lo in range(0, keys, 1000):
+        vals = ", ".join(f"({k}, '{k}')" for k in range(lo, min(lo + 1000,
+                                                                 keys)))
+        out.append(f"INSERT INTO side_input VALUES {vals}")
+    return out
+
+
+def _q13_ddl(scale: int, left: bool, sources: str = BENCH_SOURCES) -> list:
+    keys = _q13_keys(scale)
+    return [sources] + _side_input_sql(keys, retract=left) + [
+        Q13_SQL.format(join="LEFT JOIN" if left else "JOIN", keys=keys),
+        "ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000",
+        "ALTER SYSTEM SET snapshot_interval_checkpoints = 8"]
+
+
+class Q13Churn:
+    """The DML of q13 churn and its host model of ``side_input``.
+
+    Before timed barrier ``t`` (its first bid at ordinal ``off``) it
+    issues ``CHURN_UPDATES`` UPDATEs (fewer at a rehearsal's scale, so
+    that a barrier's DML rows fit one chunk) of the live keys just after the
+    newest auction id at the end of the barrier's first chunk (the bids
+    of the chunks after it probe them: the first chunk is probed before
+    the table reader's turn in the round), then ``CHURN_DELETES``
+    full-row DELETEs of live keys 8 apart after the newest auction id at
+    the end of the second chunk (later probes pad).  ``log`` keeps
+    ``(bid ordinal from which the rows apply, {key: value or None})``."""
+
+    def __init__(self, keys: int, cap: int, scale: int = 1):
+        self.keys, self.cap = keys, cap
+        # a barrier's DML rows (an UPDATE is two) fit the reader's chunk
+        self.n_upd = max(CHURN_UPDATES // scale, 8)
+        self.n_del = max(CHURN_DELETES // scale, 4)
+        self.table = {k: str(k) for k in range(keys)}
+        self.log: list = []
+
+    @staticmethod
+    def newest_auction(k: int) -> int:
+        """The newest auction id when bid ordinal ``k`` is generated."""
+        import torch
+
+        from risingwave_tpu_torch.connector import nexmark as nx
+
+        n = (k // nx.BID_PROPORTION) * nx.TOTAL_PROPORTION \
+            + (nx.TOTAL_PROPORTION - nx.BID_PROPORTION) \
+            + k % nx.BID_PROPORTION
+        return int(nx._last_base0_auction_id(torch.tensor([n]))[0]) \
+            + nx.FIRST_AUCTION_ID
+
+    def sql(self, t: int, off: int) -> list[str]:
+        out, change = [], {}
+        a0 = self.newest_auction(off + self.cap - 1)
+        k, n = a0 + 1, 0
+        while n < self.n_upd and k < a0 + 1 + self.keys:
+            key = k % self.keys
+            k += 1
+            if key in self.table and key not in change:
+                change[key] = self.table[key] = f"u{t}_{key}"
+                out.append(f"UPDATE side_input SET value = "
+                           f"'{self.table[key]}' WHERE key = {key}")
+                n += 1
+        a1 = self.newest_auction(off + 2 * self.cap - 1)
+        k, n = a1 + 1, 0
+        while n < self.n_del and k < a1 + 1 + 8 * self.keys:
+            key = k % self.keys
+            k += 8
+            if key in self.table and key not in change:
+                out.append(f"DELETE FROM side_input VALUES ({key}, "
+                           f"'{self.table.pop(key)}')")
+                change[key] = None
+                n += 1
+        self.log.append((off + self.cap, change))
+        return out
+
+
+def _bid_reader(eng):
+    return eng.jobs[0].sources["b"]
+
+
+def k22_cases(torch, device, scale: int):
+    """K22a's inputs: ``(name, executor, state, keys, key nulls, valid)``
+    on ``device``, the build tables filled through the executor's right
+    side (K3 and K8 on the card).
+
+    - ``q13``: 8192 bids, key ``auction % 10000``, into the 2^14 table
+      holding 10,000 keys and their texts;
+    - ``int64``: 600 keys (100 deleted: tombstones) in 2^10 slots, with
+      an int64, a nullable VARCHAR(8), an int32 and a float64 value;
+      probes live, deleted, absent and NULL keys, a tenth of the rows
+      invalid;
+    - ``varchar8``: VARCHAR(8) keys as in ``tests/slt/temporal_join.slt``,
+      some probe rows with nonzero bytes past their length;
+    - ``two_col``: an (int64, VARCHAR(8)) primary key;
+    - ``overflow``: 2^10 slots holding 1000 keys and 24 tombstones, no
+      empty slot: every probe of an absent key walks the bound.
+    Each as an inner and a left outer join."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import Chunk, split_col
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+    from risingwave_tpu_torch.connector.nexmark import (
+        NexmarkConfig,
+        NexmarkGenerator,
+    )
+    from risingwave_tpu_torch.expr.node import InputRef
+    from risingwave_tpu_torch.stream.temporal_join import (
+        TemporalJoinExecutor,
+    )
+
+    rng = np.random.default_rng(22)
+    cap = 8192 // scale
+
+    def field(name, t, nullable=False, width=8):
+        kw = {"str_width": width} if t == "VARCHAR" else {}
+        return Field(name, getattr(DataType, t), nullable=nullable, **kw)
+
+    def build(key_fields, value_fields, rows, deletes, size, join):
+        right = Schema(tuple(key_fields + value_fields))
+        left = Schema((field("id", "INT64"),) + tuple(
+            f.with_nullable() for f in key_fields))
+        ex = TemporalJoinExecutor(
+            left, right, [InputRef(1 + i) for i in range(len(key_fields))],
+            list(range(len(key_fields))), table_size=size, join_type=join)
+        st = ex.init_state(device)
+        for ops, batch in ((0, rows), (1, deletes)):
+            for lo in range(0, len(batch), cap):
+                part = batch[lo:lo + cap]
+                arrays = [np.array([r[i] for r in part], object)
+                          for i in range(len(right))]
+                c = Chunk.from_numpy(right, arrays,
+                                     ops=np.full(len(part), ops, np.int8),
+                                     capacity=cap, device=device)
+                st, _ = ex.apply(st, c, "right")
+        return ex, left, st
+
+    def probe(ex, left, st, rows, invalid=0.0, garbage=False):
+        arrays = [np.array([r[i] for r in rows], object)
+                  for i in range(len(left))]
+        c = Chunk.from_numpy(left, arrays, capacity=cap, device=device)
+        keys, nulls = [], []
+        for k in ex.left_keys:
+            d, n = split_col(k.eval(c))
+            keys.append(d)
+            nulls.append(n)
+        if garbage:
+            for d in keys:
+                if hasattr(d, "lens"):
+                    tail = torch.arange(d.data.shape[1], device=device) \
+                        >= d.lens[:, None]
+                    noisy = torch.from_numpy(rng.random(cap) < 0.2).to(device)
+                    d.data.masked_fill_(tail & noisy[:, None], 0x5A)
+        valid = c.valid & torch.from_numpy(
+            rng.random(cap) >= invalid).to(device)
+        return st, keys, nulls, valid
+
+    cases = []
+    for join in ("inner", "left_outer"):
+        # q13's main-path shape
+        n_keys = _q13_keys(scale)
+        ex, left, st = build(
+            [field("key", "INT64")], [field("value", "VARCHAR",
+                                            width=STR_WIDTH)],
+            [(k, str(k)) for k in range(n_keys)], [], (1 << 14) // scale,
+            join)
+        bids = NexmarkGenerator(NexmarkConfig(inter_event_us=1),
+                                device).gen_bids(0, cap)
+        cases.append((f"q13 {join}", ex, st, [bids.columns[0] % n_keys],
+                      [None], bids.valid))
+
+        values = [field("v", "INT64"), field("s", "VARCHAR", True),
+                  field("w", "INT32"), field("f", "FLOAT64")]
+
+        def vals():
+            return (int(rng.integers(-10**9, 10**9)),
+                    None if rng.random() < 0.3 else
+                    "s" * int(rng.integers(0, 9)),
+                    int(rng.integers(-99, 99)), float(rng.normal()))
+
+        for name, key_fields, keyf, n, dead, size in (
+                ("int64", [field("k", "INT64")],
+                 lambda i: (i * 7 - 50,), 600, 100, 1 << 10),
+                ("varchar8", [field("k", "VARCHAR")],
+                 lambda i: (f"C{i:04d}"[: 5 + i % 4],), 600, 100, 1 << 10),
+                ("two_col", [field("k", "INT64"), field("k2", "VARCHAR")],
+                 lambda i: (i % 37, f"n{i // 37}"), 600, 100, 1 << 10),
+                ("overflow", [field("k", "INT64")],
+                 lambda i: (i,), 1024, 24, 1 << 10)):
+            rows = [keyf(i) + vals() for i in range(n)]
+            gone = [rows[int(i)] for i in rng.choice(n, dead, replace=False)]
+            ex, left, st = build(key_fields, values, rows, gone, size, join)
+            dead_keys = [r[:len(key_fields)] for r in gone]
+            probes = []
+            for _ in range(cap):
+                u = rng.random()
+                if name == "overflow":
+                    key = keyf(n + int(rng.integers(0, 5000))) if u < 0.7 \
+                        else rows[int(rng.integers(0, n))][:1]
+                elif u < 0.45:
+                    key = rows[int(rng.integers(0, n))][:len(key_fields)]
+                elif u < 0.6:
+                    key = dead_keys[int(rng.integers(0, dead))]
+                elif u < 0.85:
+                    key = keyf(n + int(rng.integers(0, 5000)))
+                else:
+                    key = tuple(None for _ in key_fields)
+                probes.append((int(rng.integers(0, 1 << 40)),) + key)
+            cases.append((f"{name} {join}", ex) + probe(
+                ex, left, st, probes, invalid=0.1,
+                garbage=name == "varchar8"))
+    return cases
+
+
+def _walk_steps(torch, table, keys, live) -> int:
+    """Slots the lookups of ``keys`` visit (the active elements of K22a's
+    walk), counted with the plain probe's rounds."""
+    from risingwave_tpu_torch.common.hash import hash64_columns_plain
+    from risingwave_tpu_torch.state.hash_table import gather_key, keys_equal
+
+    size = table.size
+    start = (hash64_columns_plain(keys) & (size - 1)).to(torch.int64)
+    done = ~live
+    steps = 0
+    for off in range(min(size + 2, 1024)):
+        pending = ~done
+        n = int(pending.sum())
+        if n == 0:
+            break
+        steps += n
+        cand = (start + off) & (size - 1)
+        occ = table.occupied[cand]
+        match = occ.clone()
+        for s, k in zip(table.key_cols, keys):
+            match &= keys_equal(gather_key(s, cand), k)
+        done = done | (pending & (match | (~occ & ~table.tombstone[cand])))
+    return steps
+
+
+def phase_temporal_kernels(torch, device, timer, scale):
+    """K22a against its plain version on the card, exactly (every output
+    leaf, the valid plane and the overflow count) on ``k22_cases``; timed
+    on q13's main-path shape with the bound of the bytes its rows need."""
+    from risingwave_tpu_torch.common.chunk import StrCol, split_col
+    from risingwave_tpu_torch.common.hash import hash64_columns
+    from risingwave_tpu_torch.common.tree import flatten
+    from risingwave_tpu_torch.stream.temporal_join import (
+        temporal_probe,
+        temporal_probe_plain,
+    )
+
+    pairs = []
+    overflows = {}
+    q13 = None
+    for name, ex, st, keys, nulls, valid in k22_cases(torch, device, scale):
+        left = ex.join_type == "left_outer"
+        outs = []
+        for fn in (temporal_probe, temporal_probe_plain):
+            over = torch.zeros((), dtype=torch.int64, device=device)
+            cols, v = fn(st.right.table, st.right.values, keys, nulls, valid,
+                         over, left)
+            outs.append((flatten(tuple(cols))[0], v, over))
+        (ka, va, oa), (kb, vb, ob) = outs
+        pairs += [(f"{name} leaf {i}", a, b)
+                  for i, (a, b) in enumerate(zip(ka, kb))]
+        pairs += [(f"{name} valid", va, vb), (f"{name} overflow", oa, ob)]
+        overflows[name] = int(oa)
+        if name == "q13 inner":
+            q13 = (st, keys, nulls, valid)
+    err = max_abs_err(torch, pairs)
+    if not (overflows["overflow inner"] > 0
+            and overflows["overflow left_outer"] > 0):
+        fail(f"K22a: the full table drove no probe-bound overflow "
+             f"({overflows})")
+    if any(v for k, v in overflows.items() if not k.startswith("overflow")):
+        fail(f"K22a: overflow where the table has empty slots ({overflows})")
+    st, keys, nulls, valid = q13
+    table, values = st.right.table, st.right.values
+    start = (hash64_columns(keys) & (table.size - 1)).to(torch.int32)
+    over = torch.zeros((), dtype=torch.int64, device=device)
+    if device.type == "cuda":
+        from risingwave_tpu_torch.stream.temporal_join import (
+            temporal_probe_cuda,
+        )
+        ms = timer(lambda i: temporal_probe_cuda(
+            table, values, keys, nulls, valid, over, False, start), 200)
+    else:
+        ms = timer(lambda i: temporal_probe_plain(
+            table, values, keys, nulls, valid, over, False), 2)
+    plain_ms = timer(lambda i: temporal_probe_plain(
+        table, values, keys, nulls, valid, over, False), 20)
+    cap = valid.shape[0]
+    steps = _walk_steps(torch, table, keys, valid)
+    row = sum(x.element_size() * x[0].numel()
+              for x in flatten(tuple(values))[0])
+    key = sum(x.element_size() * x[0].numel()
+              for x in flatten(tuple(keys))[0])
+    # the build row's active elements at a found slot: its fixed-width
+    # leaves and null planes, and a string's bytes up to its length
+    cols, hit = temporal_probe_plain(
+        table, values, keys, nulls, valid,
+        torch.zeros((), dtype=torch.int64, device=device), False)
+    found = int(hit.sum())
+    fixed, str_bytes = 0, 0
+    for store, col in zip(values, cols):
+        data, null = split_col(store)
+        fixed += 0 if null is None else 1
+        if isinstance(data, StrCol):
+            fixed += data.lens.element_size()
+            str_bytes += int(split_col(col)[0].lens[hit].sum())
+        else:
+            fixed += data.element_size()
+    # per row: valid read, the output row written whole (zeros past a
+    # string's length included) and its valid; per valid row: the key
+    # and first slot; per found row: the build row's active elements;
+    # per visited slot: occupied, tombstone and the stored key
+    nbytes = (cap * (1 + row + 1) + int(valid.sum()) * (key + 4)
+              + found * fixed + str_bytes + steps * (2 + key))
+    b_ = bound(nbytes, steps * 10 + cap * 8)
+    print(f"[temporal_probe] exact on {len(pairs)} leaves over q13's shape "
+          f"(8192 bids, auction % 10000, 10,000 keys in 2^14 slots; "
+          f"{steps} slots visited, {found} found, {str_bytes} string "
+          f"bytes read), int64/VARCHAR(8)/two-column keys with "
+          f"NULL keys, misses, tombstones and bytes past lengths, inner and "
+          f"left outer pads, and a full table (overflow "
+          f"{overflows['overflow inner']} = plain); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_[0]:.6f} ms", flush=True)
+    return {"temporal_probe": kernel_entry(
+        "temporal_probe.cu", "risingwave_tpu/stream/temporal_join.py:80",
+        ms, plain_ms, b_, None, err)}
+
+
+def _q13_engine(torch, device, scale, left: bool, data_dir=None,
+                sources: str = BENCH_SOURCES, cfg=None):
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    eng = Engine(PlannerConfig(**(cfg or _q13_config(scale))),
+                 data_dir=data_dir, device=device)
+    for sql in _q13_ddl(scale, left, sources):
+        eng.execute(sql)
+    return eng
+
+
+def _q13_tick(eng, churn, t: int, per: int) -> None:
+    """One barrier of ``per`` rounds, after barrier ``t``'s DML."""
+    if churn is not None:
+        for sql in churn.sql(t, _bid_reader(eng).offset):
+            eng.execute(sql)
+    eng.tick(barriers=1, chunks_per_barrier=per)
+
+
+def phase_q13_parity(torch, device, left: bool) -> None:
+    """q13 (inner) and its LEFT JOIN variant with churn at 1M events/s,
+    chunk 256, 500 keys, on the card and on the CPU: the ring, the build
+    table's ``MvState`` and every counter must be equal."""
+    from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
+
+    scale = 20
+    cfg = dict(chunk_capacity=256, mv_ring_size=1 << 14,
+               join_table_size=1 << 10)
+    engines, churns = [], []
+    for dev in (device, torch.device("cpu")):
+        engines.append(_q13_engine(torch, dev, scale, left, cfg=cfg))
+        churns.append(Q13Churn(_q13_keys(scale), 256, scale) if left
+                      else None)
+    for t in range(6):
+        for eng, churn in zip(engines, churns):
+            _q13_tick(eng, churn, t, 4)
+    rows = [e.execute("SELECT * FROM nexmark_q13") for e in engines]
+    if rows[0] != rows[1] or not rows[0]:
+        fail(f"q13 {'LEFT ' if left else ''}ring on the card differs from "
+             "the CPU plain versions")
+    bad = state_mismatches(state_to_numpy(engines[1].jobs[0].states),
+                           engines[0].jobs[0].states)
+    if bad:
+        fail(f"q13 state on the card differs from the CPU: {bad[:5]}")
+    pads = sum(r[4] is None for r in rows[0])
+    print(f"[parity] q13{' LEFT JOIN with churn' if left else ''}, 6 "
+          f"barriers: {len(rows[0])} ring rows ({pads} pads) and all state "
+          f"(the build MvState, TjState's counters) equal to the CPU plain "
+          f"versions", flush=True)
+
+
+def check_q13(eng, cap: int, keys: int, churn) -> str:
+    """The ring against numpy over the consumed bids: auction, bidder,
+    price and date_time as consumed, and the value the build table held
+    when the bid was probed: the text of ``auction % keys`` (q13), or the
+    host model of the churn, DML rows applying from the bid ordinal where
+    the DAG consumed them (a deleted key's row a NULL pad)."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import encode_strings
+    from risingwave_tpu_torch.common.tree import flatten
+
+    reader = _bid_reader(eng)
+    cols = {k: [] for k in ("auction", "bidder", "price", "ts")}
+    for i in range(reader.offset // cap):
+        c = reader.gen.gen_bids(i * cap, cap).columns
+        for k, x in zip(cols, (c[0], c[1], c[2], c[5])):
+            cols[k].append(x.cpu().numpy())
+    b = {k: np.concatenate(v) for k, v in cols.items()}
+    entry = eng.catalog.get("nexmark_q13")
+    node, idx = entry.mv_state_index
+    ring = eng.jobs[0].states[node][idx]
+    n = int(ring.cursor)
+    leaves = [x[:n].cpu().numpy() for x in flatten(ring.values)[0]]
+    total = b["price"].shape[0]
+    if n != total or int(ring.overflow):
+        fail(f"q13 ring holds {n} rows (overflow {int(ring.overflow)}) for "
+             f"{total} bids")
+    data, lens = encode_strings([str(k) for k in range(keys)], STR_WIDTH)
+    null = np.zeros(keys, bool)
+    want_d = np.zeros((total, STR_WIDTH), np.uint8)
+    want_l = np.zeros(total, np.int32)
+    want_n = np.zeros(total, bool)
+    key = b["auction"] % keys
+    log = churn.log if churn is not None else []
+    bounds = [0] + [min(o, total) for o, _ in log] + [total]
+    for seg, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        want_d[lo:hi] = data[key[lo:hi]]
+        want_l[lo:hi] = lens[key[lo:hi]]
+        want_n[lo:hi] = null[key[lo:hi]]
+        if seg < len(log):
+            for k, v in log[seg][1].items():
+                null[k] = v is None
+                d, ln = encode_strings([v or ""], STR_WIDTH)
+                data[k], lens[k] = (0, 0) if v is None else (d[0], ln[0])
+    want = [b["auction"], b["bidder"], b["price"], b["ts"]]
+    if churn is None:
+        want += [want_d, want_l]
+    else:
+        live = ~want_n
+        leaves[4], leaves[5] = leaves[4][live], leaves[5][live]
+        want += [want_d[live], want_l[live], want_n]
+    if len(want) != len(leaves):
+        fail(f"q13 ring has {len(leaves)} leaves, expected {len(want)}")
+    for i, (got, exp) in enumerate(zip(leaves, want)):
+        if got.shape != exp.shape or not np.array_equal(got, exp):
+            fail(f"q13 ring leaf {i} differs from numpy")
+    pads = int(want_n.sum())
+    seen = int(sum((want_d[:, 0] == ord("u")) & ~want_n))
+    return (f"ring rows equal numpy over {n} bids, {len(leaves)} leaves, no "
+            f"lap" + (f"; {seen} rows carry an UPDATEd value and {pads} are "
+                      f"NULL pads of DELETEd keys" if churn else ""))
+
+
+def phase_q13_main_path(torch, device, scale, churn_path: bool):
+    """q13 at bench.py's sizes (``churn_path``: the LEFT JOIN over a
+    retractable table with ``Q13Churn``'s DML before each timed barrier,
+    and the same run on the CPU compared tensor for tensor): 9 warm-up
+    and 32 timed barriers of 8 rounds, the launch counters over the timed
+    window, rows/s of bid rows, one profiled window, the counter audit
+    and the ring against numpy."""
+    import gc
+
+    from risingwave_tpu_torch import kernels
+
+    cuda = device.type == "cuda"
+    tag = "q13 churn" if churn_path else "q13"
+    barriers = BARRIERS if cuda else 2
+    warm = WARMUP_BARRIERS if cuda else 1
+    cap = _q13_config(scale)["chunk_capacity"]
+    eng = _q13_engine(torch, device, scale, left=churn_path)
+    churn = Q13Churn(_q13_keys(scale), cap, scale) if churn_path else None
+    eng.tick(barriers=warm, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    off0 = _bid_reader(eng).offset
+    t0 = time.perf_counter()
+    for t in range(barriers):
+        _q13_tick(eng, churn, t, CHUNKS_PER_BARRIER)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    chunks = barriers * CHUNKS_PER_BARRIER
+    bid_rows = _bid_reader(eng).offset - off0
+    rate = bid_rows / dt
+    print(f"[main] {tag} {bid_rows} bid rows in {dt:.3f} s = {rate:.0f} "
+          f"rows/s (the table reader's idle rounds skipped and not counted"
+          f"{', DML statements included' if churn else ''}); K22a launches "
+          f"per chunk {launches['temporal_probe'] / chunks:.2f}; port kernel "
+          f"launches {sum(launches.values()) / chunks:.2f} per chunk "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if cuda:
+        per_chunk = profile_window(torch, eng, tag)
+        print(f"[main] {tag} launches per chunk "
+              f"{'not measured' if per_chunk is None else f'{per_chunk:.1f}'}"
+              f" (all CUDA kernels, profiled window)", flush=True)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    eng.tick(barriers=1, chunks_per_barrier=0)
+    st = eng.jobs[0].states[1]
+    if int(st.overflow) or int(st.right.overflow) or int(st.inconsistency):
+        fail(f"{tag}: the temporal join's loss counters are not 0")
+    print(f"[check] {tag} {check_q13(eng, cap, _q13_keys(scale), churn)}; "
+          f"every loss counter 0", flush=True)
+    if churn_path:
+        _q13_against_cpu(torch, eng, scale, barriers, warm)
+    del eng
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches, rate
+
+
+def _q13_against_cpu(torch, eng, scale, barriers: int, warm: int) -> None:
+    """The churn path once more on the CPU (plain versions), with the
+    same DML at the same barriers (the card's profiled barriers
+    included): the ring and every state tensor must be equal."""
+    from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
+
+    cap = _q13_config(scale)["chunk_capacity"]
+    cpu = _q13_engine(torch, torch.device("cpu"), scale, left=True)
+    churn = Q13Churn(_q13_keys(scale), cap, scale)
+    cpu.tick(barriers=warm, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    for t in range(barriers):
+        _q13_tick(cpu, churn, t, CHUNKS_PER_BARRIER)
+    extra = (_bid_reader(eng).offset - _bid_reader(cpu).offset) \
+        // (cap * CHUNKS_PER_BARRIER)
+    cpu.tick(barriers=extra, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    cpu.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    cpu.tick(barriers=1, chunks_per_barrier=0)
+    bad = state_mismatches(state_to_numpy(cpu.jobs[0].states),
+                           eng.jobs[0].states)
+    if bad or _bid_reader(cpu).offset != _bid_reader(eng).offset:
+        fail(f"q13 churn on the card differs from the CPU: {bad[:5]}")
+    print(f"[check] q13 churn: the ring, the build table and every counter "
+          f"equal the port on the CPU over the same {barriers + warm + extra}"
+          f" barriers and DML", flush=True)
+
+
+def phase_q13_durable(torch, device, scale, storeless_rate):
+    """q13 churn durably (``Engine(config, data_dir=...)``): 9 warm-up
+    and 32 timed barriers with churn and a snapshot every 8 checkpoints,
+    then a cold start from the directory (the DDL log and the DML
+    journal: 10,000 rows plus the churn, the last barrier's unconsumed),
+    8 more barriers with churn, and every state tensor against an engine
+    that ran the same barriers and DML without stopping."""
+    import gc
+    import shutil
+    import tempfile
+
+    from risingwave_tpu_torch import kernels
+    from risingwave_tpu_torch.common.tree import flatten
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    cuda = device.type == "cuda"
+    timed = BARRIERS if cuda else BARRIERS // 4
+    per = CHUNKS_PER_BARRIER if cuda else CHUNKS_PER_BARRIER // 4
+    cap = _q13_config(scale)["chunk_capacity"]
+    data_dir = tempfile.mkdtemp(prefix="rw_durable_q13_")
+    try:
+        eng = _q13_engine(torch, device, scale, True, data_dir)
+        churn = Q13Churn(_q13_keys(scale), cap, scale)
+        eng.tick(barriers=WARMUP_BARRIERS, chunks_per_barrier=per)
+        job = eng.jobs[0]
+        if cuda:
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        off0 = _bid_reader(eng).offset
+        t0 = time.perf_counter()
+        for t in range(timed):
+            _q13_tick(eng, churn, t, per)
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        rate = (_bid_reader(eng).offset - off0) / dt
+        sealed = (WARMUP_BARRIERS + timed) // 8 * 8
+        if job.committed_epoch != job.sealed_epoch:
+            fail("q13 durable: the uploads did not drain")
+        journal = len(eng.meta_store.dml_rows("side_input"))
+        print(f"[durable] q13 churn {rate:.0f} rows/s (store-less run of "
+              f"this process: {storeless_rate:.0f} rows/s); DML journal "
+              f"{journal} rows", flush=True)
+        del eng, job
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # -- the cold start --------------------------------------------
+        t0 = time.perf_counter()
+        cold = Engine(PlannerConfig(**_q13_config(scale)), data_dir=data_dir,
+                      device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        history = cold.catalog.get("side_input").dml
+        if len(history.history_slice(0)) != journal:
+            fail("q13 cold start: the table's history was not reloaded")
+        # the stopped engine's last barrier is replayed: its DML is in
+        # the journal and its rows unconsumed at the committed epoch
+        tail = WARMUP_BARRIERS + timed - sealed
+        for t in range(timed, timed + 8):
+            _q13_tick(cold, churn, t, per)
+        whole = _q13_engine(torch, device, scale, True)
+        model = Q13Churn(_q13_keys(scale), cap, scale)
+        whole.tick(barriers=WARMUP_BARRIERS, chunks_per_barrier=per)
+        t = 0
+        while t < timed + 8:
+            if t == timed - tail:
+                # the lost barriers' DML and the first replayed one's
+                # land before one barrier, as in the cold engine
+                for u in range(t, timed + 1):
+                    for sql in model.sql(u, _bid_reader(whole).offset):
+                        whole.execute(sql)
+                whole.tick(barriers=1, chunks_per_barrier=per)
+                t = timed + 1
+                continue
+            _q13_tick(whole, model, t, per)
+            t += 1
+        la = flatten(cold.jobs[0].states)[0]
+        lb = flatten(whole.jobs[0].states)[0]
+        max_abs_err(torch, [(f"q13 cold start leaf {i}", a, b)
+                            for i, (a, b) in enumerate(zip(la, lb))])
+        if sorted(cold.execute("SELECT * FROM nexmark_q13"), key=repr) != \
+                sorted(whole.execute("SELECT * FROM nexmark_q13"), key=repr):
+            fail("q13: MV rows differ after the cold start")
+        print(f"[cold start] q13 churn recovered the epoch of barrier "
+              f"{sealed} in {rec_s:.3f} s (DDL replay, the DML journal's "
+              f"{journal} rows reloaded, load, upload to the device); after "
+              f"8 more barriers with churn every state tensor (the ring in "
+              f"order, the build table) equals an engine that ran "
+              f"{sealed + 8} barriers and the same DML without stopping",
+              flush=True)
+        del cold, whole
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return launches, rate, {"recover_s": rec_s}
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
 
 
 if __name__ == "__main__":

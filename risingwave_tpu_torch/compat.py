@@ -4,7 +4,7 @@
 the host (``jax.device_get``: its ``AggState``, ``MvState``,
 ``RingState``, ``HashTable``, ``WmState``, ``TagTable``,
 ``PoolSideState``, ``SideState``, ``JoinState``, ``TopNState``,
-``DynFilterState``, ``NCol`` and ``StrCol`` nodes with numpy leaves) into the port's state types with torch tensors
+``DynFilterState``, ``TjState``, ``NCol`` and ``StrCol`` nodes with numpy leaves) into the port's state types with torch tensors
 on ``device``; ``state_to_numpy`` maps a port state to the same node types
 of the port with numpy leaves; ``state_mismatches`` compares the two
 element for element.  Nodes are recognised by class name and fields,
@@ -30,7 +30,9 @@ of q19 and q18 (``tests/test_torch_top_n.py``) and the over-window, a
 its spill ring, pool and dense join sides and MV
 (``tests/test_torch_join_sql.py``), and q102's aggregation over the
 join with its DISTINCT dedup tables and counts and its dynamic filter
-(``tests/test_torch_q102_sql.py``).  Reference-only features must be
+(``tests/test_torch_q102_sql.py``), and q13's temporal join with its
+build table (``tests/test_torch_table_sql.py``).  Reference-only
+features must be
 empty to convert (materialized-input buckets): the port has no
 counterpart for them yet.
 """
@@ -51,13 +53,14 @@ from risingwave_tpu_torch.stream.hash_join import (
     SideState,
 )
 from risingwave_tpu_torch.stream.materialize import MvState, RingState
+from risingwave_tpu_torch.stream.temporal_join import TjState
 from risingwave_tpu_torch.stream.top_n import TopNState
 from risingwave_tpu_torch.stream.watermark import WmState
 
 _STATE_TYPES = {cls.__name__: cls
                 for cls in (AggState, MvState, RingState, WmState, NCol,
                             StrCol, PoolSideState, SideState, JoinState,
-                            TopNState, DynFilterState)}
+                            TopNState, DynFilterState, TjState)}
 #: reference AggState fields the port does not carry (must be empty)
 _REF_ONLY = ("minput_vals", "minput_occ")
 

@@ -23,15 +23,20 @@ from risingwave_tpu_torch.common.types import (
 )
 
 
-def declared_schema(stmt) -> tuple[Schema, "tuple[int, int] | None"]:
-    """(schema, watermark (column, delay us) or None) of a CREATE SOURCE
-    with declared columns."""
+def declared_schema(stmt):
+    """(schema, watermark (column, delay us) or None, auto-width columns)
+    of a CREATE SOURCE or CREATE TABLE with declared columns: a VARCHAR
+    declared without a width starts at the default width, and a table
+    re-derives it from its data before each plan."""
     fields = []
-    for c in stmt.columns:
+    auto = []
+    for i, c in enumerate(stmt.columns):
         t, width, scale = parse_sql_type(c.type_name)
         kw = {}
         if width is not None:
             kw["str_width"] = width
+        elif t.is_string:
+            auto.append(i)
         if scale is not None:
             kw["decimal_scale"] = scale
         fields.append(Field(c.name, t, nullable=c.nullable, **kw))
@@ -40,7 +45,7 @@ def declared_schema(stmt) -> tuple[Schema, "tuple[int, int] | None"]:
     if stmt.watermark is not None:
         wm = (schema.index_of(stmt.watermark.column),
               stmt.watermark.delay.micros)
-    return schema, wm
+    return schema, wm, auto
 
 
 class DatagenReader:

@@ -37,7 +37,7 @@
 // round costs three block barriers and a dependent random read, so the
 // kernel runs at the latency of a few rounds on one SM; a grid-wide version
 // is later work.
-#include "rw_common.cuh"
+#include "rw_probe.cuh"
 
 struct ProbeArgs {
   RwCols keys;                 // in = chunk key cols, st = table key store
@@ -83,12 +83,11 @@ __global__ void __launch_bounds__(1024) probe_kernel(ProbeArgs a) {
     for (int r = t; r < a.cap; r += T) {
       if (!a.pending[r]) continue;
       const int c = (a.start[r] + a.off[r]) & mask;
-      const bool occ = a.occupied[c] != 0;
-      const bool tomb = a.tombstone[c] != 0 && !occ;
-      if (occ && rw_keys_equal(a.keys, c, r)) {
+      const int s = rw_probe_step(a.keys, a.occupied, a.tombstone, c, r);
+      if (s == RW_PROBE_HIT) {
         a.slots[r] = c;
         a.pending[r] = 0;
-      } else if (!occ && !tomb) {
+      } else if (s == RW_PROBE_EMPTY) {
         if (a.insert) {
           a.want[r] = 1;
           a.cand[r] = c;

@@ -2,7 +2,8 @@
 
 The sources live in ``risingwave_tpu_torch/csrc``: one ``.cu`` file per
 kernel plus the shared headers ``rw_common.cuh``, ``rw_join.cuh``,
-``nexmark_common.cuh`` and ``rw_str.cuh``, and one host routine,
+``nexmark_common.cuh``, ``rw_str.cuh`` and ``rw_probe.cuh`` (the probe
+walk of ``probe.cu`` and ``temporal_probe.cu``), and one host routine,
 ``crc32c.cpp`` (the checkpoint store's checksum, ``crc32c``).  Each
 source compiles with ``nvcc`` into its own shared library with a plain
 C interface, named by a hash of its source, the headers and the flags,
@@ -38,7 +39,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 HEADERS = ("rw_common.cuh", "rw_join.cuh", "nexmark_common.cuh",
-           "rw_str.cuh")
+           "rw_str.cuh", "rw_probe.cuh")
 #: library name -> source file
 SOURCES = {
     "hash64": "hash64.cu",
@@ -70,6 +71,7 @@ SOURCES = {
     "to_char": "to_char.cu",
     "str_regexp": "str_regexp.cu",
     "str_cmp": "str_cmp.cu",
+    "temporal_probe": "temporal_probe.cu",
     # a host routine (the checkpoint store's crc32c), no kernel
     "crc32c": "crc32c.cpp",
 }
@@ -109,6 +111,7 @@ KERNELS = {
     "regexp_group": "str_regexp",
     "str_cmp": "str_cmp",
     "str_case_map": "str_cmp",
+    "temporal_probe": "temporal_probe",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

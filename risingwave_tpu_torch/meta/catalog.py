@@ -27,9 +27,11 @@ class CatalogEntry:
     job: Any = None
     mv_executor: Any = None
     mv_state_index: Any = None  # index path to the MV state in job.states
-    #: mview: pk column positions in ``schema``
+    #: mview: pk column positions in ``schema``; a table: its PRIMARY KEY
     stream_key: Any = None
     definition: str = ""
+    #: a table: its ``connector.dml.TableDmlManager`` (INSERT-fed)
+    dml: Any = None
 
 
 class Catalog:

@@ -12,9 +12,20 @@ plans as a ``DagPlan`` and runs as a ``DagJob``, ``_build_dag_job``
     eng.execute("SELECT * FROM v ORDER BY window_start LIMIT 10")
 
 Ported statements: CREATE SOURCE (nexmark and datagen connectors), CREATE
-MATERIALIZED VIEW, SET, ALTER SYSTEM SET and ``SELECT <columns> FROM
-<mv> [ORDER BY ...] [LIMIT n] [OFFSET n]`` (read on the host).  Every
-other statement raises ``NotImplementedError``.
+TABLE (INSERT-fed; ``WITH (retract = 'true')`` takes DELETE and UPDATE
+too), INSERT, ``DELETE FROM t VALUES (...)`` (full rows, as in the
+reference), ``UPDATE t SET col = literal, ... WHERE <full-pk
+equality>``, FLUSH, CREATE MATERIALIZED VIEW, SET, ALTER SYSTEM SET and
+``SELECT <columns> FROM <mv> [ORDER BY ...] [LIMIT n] [OFFSET n]`` or
+``SELECT <global aggregates of columns> FROM <mv>`` (read on the host).
+Every other statement raises ``NotImplementedError``.
+
+Tables (the reference's ``_dml_table`` :832, ``_insert`` :567,
+``_delete`` :577, ``_update`` :600, FLUSH :448): a table keeps its rows
+in a ``connector.dml.TableDmlManager``; each job reads them through its
+own cursor.  A temporal join's build side is drained when the MV is
+created (``_prime_temporal_builds``, :1651), before any probe chunk
+flows, and FLUSH drains every table reader and then commits a barrier.
 
 The engine runs on the card: ``Engine(config)`` means
 ``device="cuda"`` and raises when no GPU is present; the CPU is used
@@ -26,14 +37,15 @@ Durability (``Engine(config, data_dir=d)``, the reference's
 the job's shadow snapshot (K11) and a background uploader persists it
 as a full snapshot or a dirty-block delta; the end of ``tick`` drains
 the uploads (the durability point).  Every executed CREATE SOURCE,
-CREATE MATERIALIZED VIEW and SET is logged, and a new
+CREATE MATERIALIZED VIEW and SET is logged, every DML statement's rows
+go to the table's journal (``MetaStore.append_dml``), and a new
 ``Engine(config, data_dir=d)`` over a logged catalog cold-starts
-(``_bootstrap``): it replays the log, loads each job's last committed
-epoch onto the device and rewinds the source cursors, so the MVs
-continue as if the process never stopped.  Only these two stores are
-built: the reference's Hummock MV export to SSTs, its compactor and
-scrubber, DML tables and their journal, sinks and spill tiers are not
-ported yet.
+(``_bootstrap``): it replays the log, reloads each table's history
+before any MV plans against it, loads each job's last committed epoch
+onto the device and rewinds the source cursors (the table readers'
+included), so the MVs continue as if the process never stopped.  Only
+these two stores are built: the reference's Hummock MV export to SSTs,
+its compactor and scrubber, and sinks are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,10 +61,15 @@ from risingwave_tpu_torch.common.config import (
 )
 from risingwave_tpu_torch.common.device import resolve_device
 from risingwave_tpu_torch.common.metrics import MetricsRegistry
-from risingwave_tpu_torch.common.types import Schema
+from risingwave_tpu_torch.common.types import DataType, Field, Schema
 from risingwave_tpu_torch.connector.datagen import (
     DatagenReader,
     declared_schema,
+)
+from risingwave_tpu_torch.connector.dml import (
+    TableDmlManager,
+    TableSourceReader,
+    mark_deletes,
 )
 from risingwave_tpu_torch.connector.nexmark import (
     SCHEMAS,
@@ -70,7 +87,7 @@ from risingwave_tpu_torch.sql.planner import (
     Planner,
     PlannerConfig,
 )
-from risingwave_tpu_torch.stream.dag import DagJob
+from risingwave_tpu_torch.stream.dag import DagJob, FragNode, TemporalJoinNode
 from risingwave_tpu_torch.stream.runtime import StreamingJob
 
 
@@ -137,8 +154,9 @@ class Engine:
 
     def _bootstrap(self) -> None:
         """Cold start: replay the DDL log to rebuild the catalog and the
-        jobs, then restore every job's state and source cursors from its
-        last committed checkpoint."""
+        jobs (each table reloads its history first), then restore every
+        job's state and source cursors from its last committed
+        checkpoint."""
         self._replaying = True
         try:
             for sql in self.meta_store.ddl_log():
@@ -179,14 +197,156 @@ class Engine:
             else:
                 self.session_config.set(stmt.name, stmt.value)
             return None
+        if isinstance(stmt, ast.Insert):
+            return self._insert(stmt)
+        if isinstance(stmt, ast.Delete):
+            return self._delete(stmt)
+        if isinstance(stmt, ast.Update):
+            return self._update(stmt)
+        if isinstance(stmt, ast.FlushStatement):
+            return self._flush()
         if isinstance(stmt, ast.Select):
             return self._serve(stmt)
         raise NotImplementedError(
             f"{type(stmt).__name__} is not ported yet")
 
+    def _flush(self) -> None:
+        """Drain every bounded source's pending rows, then commit one
+        barrier (the reference's FLUSH, engine.py:448).  Only table
+        readers are bounded: the unbounded sources (nexmark, datagen)
+        never drain."""
+        cpb = max(1, int(self.system_params.get("chunks_per_barrier")))
+        for _ in range(4096):
+            pending = 0
+            for job in self.jobs:
+                srcs = list(job.sources.values()) \
+                    if isinstance(job, DagJob) else [job.source]
+                pending += sum(s.pending() for s in srcs
+                               if isinstance(s, TableSourceReader))
+            if pending == 0:
+                break
+            self.tick(barriers=1, chunks_per_barrier=cpb)
+        else:
+            raise RuntimeError("FLUSH did not drain in 4096 barriers "
+                               f"({pending} rows still pending)")
+        self.tick(barriers=1, chunks_per_barrier=0)
+
+    # -- DML --------------------------------------------------------------
+    def _dml_entry(self, table: str, verb: str) -> CatalogEntry:
+        entry = self.catalog.get(table)
+        if entry.dml is None:
+            raise ValueError(f"{table} is not a DML table")
+        if verb != "INSERT" and entry.append_only:
+            raise ValueError(f"{table} is append-only; CREATE TABLE ... WITH "
+                             f"(retract = 'true') to enable {verb}")
+        return entry
+
+    def _journal(self, table: str, rows: list) -> None:
+        if self.meta_store is not None and not self._replaying:
+            self.meta_store.append_dml(table, rows)
+
+    @staticmethod
+    def _dml_rows(stmt, entry: CatalogEntry, verb: str) -> list[tuple]:
+        """The statement's literal rows coerced to the table schema."""
+        schema = entry.schema
+        if stmt.columns:
+            order = [schema.index_of(c) for c in stmt.columns]
+            if len(set(order)) != len(order):
+                raise ValueError(f"{verb} lists a column twice")
+            for i in set(range(len(schema))) - set(order):
+                if not schema[i].nullable:
+                    raise ValueError(
+                        f"{verb} omits NOT NULL column {schema[i].name}")
+        else:
+            order = list(range(len(schema)))
+        rows = []
+        for r in stmt.rows:
+            if len(r) != len(order):
+                raise ValueError(f"{verb} arity mismatch")
+            vals = [None] * len(schema)
+            for pos, e in zip(order, r):
+                vals[pos] = _coerce_const(_const_value(e), schema[pos])
+            rows.append(tuple(vals))
+        return rows
+
+    def _insert(self, stmt: ast.Insert) -> None:
+        entry = self.catalog.get(stmt.table)
+        if entry.dml is None:
+            raise ValueError(f"{stmt.table} is not an INSERT-able table")
+        rows = self._dml_rows(stmt, entry, "INSERT")
+        entry.dml.insert(rows)
+        self._journal(stmt.table, rows)
+
+    def _delete(self, stmt: ast.Delete) -> None:
+        """Exact full-row retraction: the marked rows join the history
+        (and the journal) like any other batch."""
+        entry = self._dml_entry(stmt.table, "DELETE")
+        marked = mark_deletes(self._dml_rows(stmt, entry, "DELETE"),
+                              len(entry.schema))
+        entry.dml.insert(marked)
+        self._journal(stmt.table, marked)
+
+    def _update(self, stmt: ast.Update) -> None:
+        """``UPDATE t SET col = literal, ... WHERE <full-pk equality>``:
+        the live old row under the pk, found in the table's history, is
+        retracted and the new row inserted (one marked delete and one
+        insert, journaled as rows)."""
+        entry = self._dml_entry(stmt.table, "UPDATE")
+        if not entry.stream_key:
+            raise ValueError(f"{stmt.table} has no PRIMARY KEY; UPDATE "
+                             "needs a full-pk WHERE")
+        schema = entry.schema
+        width = len(schema)
+        pk = list(entry.stream_key)
+        eq: dict[int, object] = {}
+        for c in Planner._conjuncts(stmt.where):
+            if not (isinstance(c, ast.BinaryOp) and c.op == "equal"):
+                raise ValueError("UPDATE WHERE must be a conjunction of "
+                                 "full-pk equalities")
+            left, right = c.left, c.right
+            if isinstance(left, ast.Literal) \
+                    and isinstance(right, ast.ColumnRef):
+                left, right = right, left
+            if not isinstance(left, ast.ColumnRef):
+                raise ValueError("UPDATE WHERE must compare columns to "
+                                 "literals")
+            i = self._column_index(schema, left.name, stmt.table)
+            eq[i] = _coerce_const(_const_value(right), schema[i])
+        if set(eq) != set(pk):
+            raise ValueError("UPDATE WHERE must pin exactly the full "
+                             "primary key")
+        sets: dict[int, object] = {}
+        for col, expr in stmt.assignments:
+            i = self._column_index(schema, col, stmt.table)
+            if i in pk:
+                raise ValueError("UPDATE cannot assign a primary-key column "
+                                 "(retract + insert instead)")
+            if i in sets:
+                raise ValueError(f"UPDATE assigns {col!r} twice")
+            sets[i] = _coerce_const(_const_value(expr), schema[i])
+        live = entry.dml.live_rows(pk, tuple(eq[i] for i in pk))
+        if not live:
+            raise ValueError(f"UPDATE matched no live row in {stmt.table!r}")
+        if len(live) > 1:
+            raise ValueError(f"UPDATE pk matched {len(live)} live rows in "
+                             f"{stmt.table!r} (history is inconsistent)")
+        old = live[0]
+        rows = mark_deletes([old], width) + [
+            tuple(sets.get(i, old[i]) for i in range(width))]
+        entry.dml.insert(rows)
+        self._journal(stmt.table, rows)
+
+    @staticmethod
+    def _column_index(schema: Schema, name: str, table: str) -> int:
+        if name not in schema.names():
+            raise ValueError(f"column {name!r} does not exist in {table!r}")
+        return schema.index_of(name)
+
     # -- sources ----------------------------------------------------------
     def _create_source(self, stmt: ast.CreateSource):
         connector = stmt.with_options.get("connector")
+        if connector is None and stmt.is_table:
+            return self._dml_table(stmt)
         if connector == "datagen" and not stmt.is_table:
             return self._datagen_source(stmt)
         if connector != "nexmark" or stmt.is_table:
@@ -227,8 +387,44 @@ class Engine:
             stmt.if_not_exists)
         return None
 
+    def _dml_table(self, stmt: ast.CreateSource):
+        """CREATE TABLE without a connector: an INSERT-fed table whose
+        PRIMARY KEY is its stream key; ``WITH (retract = 'true')`` makes
+        it retractable (DELETE and UPDATE, and plans that retract)."""
+        schema, wm, auto = declared_schema(stmt)
+        dml = TableDmlManager(schema, auto_width_cols=auto)
+        if self._replaying and self.meta_store is not None:
+            # cold start: the history is back before any MV plans (auto
+            # widths) or rewinds its cursor into it
+            hist = self.meta_store.dml_rows(stmt.name)
+            if hist:
+                dml.insert(hist)
+        cap = self.config.chunk_capacity
+        device = self.device
+
+        def factory(split_id: int = 0, num_splits: int = 1):
+            return dml.new_reader(cap, device)
+
+        pk = [schema.index_of(c) for c in stmt.primary_key] \
+            if stmt.primary_key else None
+        retract = str(stmt.with_options.get("retract", "false")).lower() \
+            in ("true", "1", "yes")
+        self.catalog.create(
+            CatalogEntry(stmt.name, "source", schema, reader_factory=factory,
+                         watermark=wm, append_only=not retract,
+                         definition=str(stmt), dml=dml, stream_key=pk),
+            stmt.if_not_exists)
+        return None
+
+    def _refresh_dml_widths(self) -> None:
+        """Re-derive the tables' auto VARCHAR widths before a plan (the
+        observed maximum; running jobs keep theirs)."""
+        for entry in self.catalog.list("source"):
+            if entry.dml is not None and entry.dml.auto_width_cols:
+                entry.schema = entry.dml.refresh_schema()
+
     def _datagen_source(self, stmt: ast.CreateSource):
-        schema, wm = declared_schema(stmt)
+        schema, wm, _ = declared_schema(stmt)
         cap = self.config.chunk_capacity
         device = self.device
 
@@ -247,6 +443,7 @@ class Engine:
             if stmt.if_not_exists:
                 return None
             raise ValueError(f"{stmt.name!r} already exists")
+        self._refresh_dml_widths()
         plan = self.planner.plan(stmt.query, eowc=stmt.emit_on_window_close)
         ckpt_freq = int(self.system_params.get("checkpoint_frequency"))
         if isinstance(plan, DagPlan):
@@ -274,8 +471,33 @@ class Engine:
         job = DagJob(plan.sources, plan.nodes, name,
                      checkpoint_frequency=ckpt_freq, device=self.device,
                      checkpoint_store=self.checkpoint_store)
+        self._prime_temporal_builds(job)
         terminal = plan.nodes[plan.mv_node].fragment.executors[plan.mv_index]
         return job, terminal, (plan.mv_node, plan.mv_index)
+
+    @staticmethod
+    def _prime_temporal_builds(job: DagJob) -> None:
+        """Drain each temporal join's build-side table before any probe
+        chunk flows: the build table holds the table's whole current
+        state when the MV is created."""
+        for node in job.nodes:
+            if not isinstance(node, TemporalJoinNode):
+                continue
+            ref = node.right
+            while ref[0] == "node":
+                up = job.nodes[ref[1]]
+                if not isinstance(up, FragNode):
+                    break  # a join feeding the build: left as it is
+                ref = up.input
+            if ref[0] != "source":
+                continue
+            reader = job.sources.get(ref[1])
+            if not isinstance(reader, TableSourceReader):
+                continue
+            for _ in range(1 << 16):
+                if reader.pending() == 0:
+                    break
+                job.run_chunk(ref[1])
 
     # -- the barrier loop -----------------------------------------------
     def tick(self, barriers: int = 1,
@@ -349,18 +571,43 @@ class Engine:
             state = state[i]
         return entry.mv_executor.to_host(state)
 
+    def _needs_batch_exec(self, select: ast.Select) -> bool:
+        """The reference's split (engine.py:3876): a plain projection of
+        one MV takes the fast path; aggregates, GROUP BY, joins, derived
+        tables, subqueries in WHERE and base-table scans go to
+        ``_serve_batch``."""
+        if not isinstance(select.from_, ast.TableRef):
+            return True
+        if select.from_.name not in self.catalog:
+            return False  # the fast path raises the proper error
+        if self.catalog.get(select.from_.name).kind != "mview":
+            return True
+        if select.group_by or select.having is not None \
+                or self.planner._has_agg(select):
+            return True
+
+        def has_sub(e) -> bool:
+            if isinstance(e, (ast.ScalarSubquery, ast.InSubquery,
+                              ast.ExistsSubquery)):
+                return True
+            for a in ("left", "right", "operand"):
+                v = getattr(e, a, None)
+                if v is not None and has_sub(v):
+                    return True
+            return any(has_sub(x) for x in getattr(e, "args", ())
+                       if not isinstance(x, ast.Star))
+
+        return select.where is not None and has_sub(select.where)
+
     def _serve(self, select: ast.Select):
         """``SELECT <columns> FROM <mv> [ORDER BY] [LIMIT] [OFFSET]``,
-        evaluated on the host over the MV's rows."""
-        if not isinstance(select.from_, ast.TableRef):
-            raise PlanError("serving reads support SELECT ... FROM <mv>")
-        if select.where is not None or select.group_by or \
-                select.having is not None:
-            raise NotImplementedError(
-                "serving WHERE / GROUP BY is not ported yet")
+        evaluated on the host over the MV's rows; what is not a plain
+        projection of one MV goes to ``_serve_batch``."""
+        if self._needs_batch_exec(select):
+            return self._serve_batch(select)
+        if select.where is not None:
+            raise NotImplementedError("serving WHERE is not ported yet")
         entry = self.catalog.get(select.from_.name)
-        if entry.kind != "mview":
-            raise PlanError("serving reads are over materialized views")
         schema = entry.schema
         scope = Scope.of(schema, select.from_.alias or select.from_.name)
         idxs, names = [], []
@@ -383,6 +630,61 @@ class Engine:
             rows = rows[:select.limit]
         return rows
 
+    #: the global aggregates ``_serve_batch`` evaluates on the host
+    _SERVE_AGGS = {
+        "count": len,
+        "min": lambda v: min(v) if v else None,
+        "max": lambda v: max(v) if v else None,
+        "sum": lambda v: sum(v) if v else None,
+    }
+
+    def _serve_batch(self, select: ast.Select):
+        """The reads ``_needs_batch_exec`` sends here.  The reference
+        (engine.py:1017) runs the planner's dataflow over bounded
+        snapshot readers; of that, one piece is ported: ``SELECT
+        agg(col | *), ... FROM <mv>`` with COUNT, MIN, MAX and SUM of
+        columns, NULLs skipped, over the MV's rows on the host.  The
+        rest (GROUP BY, WHERE, ORDER BY / LIMIT / OFFSET on an
+        aggregate, joins, subqueries, base tables) is ROADMAP Queue 1
+        item 10 and raises."""
+        from_ = select.from_
+        if not (isinstance(from_, ast.TableRef) and from_.name in self.catalog
+                and self.catalog.get(from_.name).kind == "mview"
+                and self.planner._has_agg(select)) \
+                or select.group_by or select.having is not None \
+                or select.where is not None:
+            raise NotImplementedError(
+                "serving reads other than global aggregates over one "
+                "materialized view are not ported yet")
+        if select.order_by or select.limit is not None or select.offset:
+            raise NotImplementedError(
+                "serving ORDER BY / LIMIT / OFFSET over an aggregate is "
+                "not ported yet")
+        entry = self.catalog.get(from_.name)
+        scope = Scope.of(entry.schema, from_.alias or from_.name)
+        rows = self._mv_rows(entry)
+        out, names = [], []
+        for name, e in self.planner._expand_items(select.items, scope):
+            if not (isinstance(e, ast.FuncCall) and e.name in
+                    self._SERVE_AGGS and len(e.args) == 1
+                    and not e.distinct and e.filter_where is None):
+                raise NotImplementedError(
+                    "serving reads aggregate columns with COUNT, MIN, MAX "
+                    "or SUM only")
+            arg = e.args[0]
+            if isinstance(arg, ast.Star) and e.name == "count":
+                vals = rows
+            elif isinstance(arg, ast.ColumnRef):
+                i = scope.resolve(arg.name, arg.table)
+                vals = [r[i] for r in rows if r[i] is not None]
+            else:
+                raise NotImplementedError(
+                    "serving aggregates take a column or COUNT(*)")
+            out.append(self._SERVE_AGGS[e.name](vals))
+            names.append(name)
+        self._last_columns = names
+        return [tuple(out)]
+
     @staticmethod
     def _order_key(e, names: list[str]) -> int:
         if isinstance(e, ast.Literal) and e.type_name == "int":
@@ -394,3 +696,55 @@ class Engine:
         raise NotImplementedError(
             "serving ORDER BY supports output columns only")
 
+
+
+def _const_value(e):
+    """A constant VALUES expression evaluated on the host (the
+    reference's, engine.py:4023)."""
+    if isinstance(e, ast.Literal):
+        return e.value
+    if isinstance(e, ast.IntervalLit):
+        return e.micros
+    if isinstance(e, ast.UnaryOp) and e.op == "neg":
+        return -_const_value(e.operand)
+    if isinstance(e, ast.Cast):
+        v = _const_value(e.operand)
+        return _coerce_const(v, Field("?", DataType.from_sql(e.type_name)))
+    raise ValueError(f"INSERT VALUES must be constants, got {e!r}")
+
+
+def _coerce_const(v, field: Field):
+    """One DML value checked and converted to its column's type when the
+    statement runs (the reference's, engine.py:4038): a bad constant
+    fails the statement and never reaches a job."""
+    t = field.data_type
+    if v is None:
+        if not field.nullable:
+            raise ValueError(f"NULL value for NOT NULL column {field.name} "
+                             "(declare the column `NULL` to allow NULLs)")
+        return None
+    try:
+        if t.is_string:
+            return str(v)
+        if t in (DataType.FLOAT32, DataType.FLOAT64, DataType.DECIMAL):
+            return float(v)
+        if t == DataType.BOOLEAN:
+            if isinstance(v, str):
+                raise ValueError(v)
+            return bool(v)
+        if isinstance(v, str) and t in (DataType.TIMESTAMP,
+                                        DataType.TIMESTAMPTZ, DataType.DATE):
+            from datetime import date, datetime, timedelta, timezone
+
+            if t == DataType.DATE:
+                return (date.fromisoformat(v) - date(1970, 1, 1)).days
+            dt = datetime.fromisoformat(v.replace("Z", "+00:00"))
+            if dt.tzinfo is not None:
+                dt = dt.astimezone(timezone.utc).replace(tzinfo=None)
+            return (dt - datetime(1970, 1, 1)) // timedelta(microseconds=1)
+        if isinstance(v, float):
+            return int(round(v))  # SQL casts round
+        return int(v)
+    except (TypeError, ValueError) as e:
+        raise ValueError(f"invalid value {v!r} for column {field.name} "
+                         f"({t.value})") from e

@@ -395,8 +395,9 @@ class Planner:
         sources: dict[str, Any] = {}
         nodes: list = []
         jn = select.from_
+        temporal = jn.kind in ("temporal", "temporal_left")
         join_type = KIND_MAP.get(jn.kind)
-        if join_type is None:
+        if join_type is None and not temporal:
             raise PlanError(f"unsupported join kind {jn.kind!r}")
         if jn.on is None:
             raise PlanError("joins without ON (comma joins) are not ported "
@@ -471,6 +472,12 @@ class Planner:
                 None, [], Scope.of(out_schema, sq.alias), out_schema, None,
                 None, append_only, stream_key=pk_positions or None)
 
+        if temporal:
+            root_ref, both, skey, append_only = self._plan_temporal(
+                jn, resolve, nodes)
+            return self._plan_join_tail(select, sources, nodes, root_ref,
+                                        both, skey, append_only,
+                                        resolve_subquery)
         lref, left = resolve(jn.left)
         rref, right = resolve(jn.right)
         n_left = len(left.schema)
@@ -567,6 +574,71 @@ class Planner:
             skey = (left if join.preserve_left else right).stream_key
         append_only = left.append_only and right.append_only \
             and join_type == "inner"
+        return self._plan_join_tail(select, sources, nodes, root_ref, both,
+                                    skey, append_only, resolve_subquery)
+
+    def _plan_temporal(self, jn: ast.Join, resolve, nodes: list):
+        """``stream JOIN t FOR SYSTEM_TIME AS OF PROCTIME() ON ...`` (the
+        reference's ``resolve_temporal``, planner.py:1864): equality keys
+        covering the build side's PRIMARY KEY exactly, taken in pk order
+        (probe keys may be expressions), the other ON conjuncts a filter
+        after the join.  Build-side changes never retract outputs, so
+        the output is append-only when the probe side is.  Returns
+        (root ref, output scope, stream key, append-only)."""
+        from risingwave_tpu_torch.stream.dag import FragNode, TemporalJoinNode
+        from risingwave_tpu_torch.stream.temporal_join import (
+            TemporalJoinExecutor,
+        )
+
+        join_type = "inner" if jn.kind == "temporal" else "left_outer"
+        lref, left = resolve(jn.left)
+        rref, right = resolve(jn.right)
+        n_left = len(left.schema)
+        if not right.stream_key:
+            raise PlanError("temporal join build side needs a PRIMARY KEY")
+        lkeys: list = []
+        ridx: list[int] = []
+        residual: list = []
+        for conj in self._conjuncts(jn.on):
+            kp = self._equi_pair(conj, left.scope, right.scope, n_left)
+            if kp is None:
+                residual.append(conj)
+                continue
+            lk, rk = kp
+            if not isinstance(rk, InputRef):
+                raise PlanError(
+                    "temporal join keys must be build-side columns")
+            lkeys.append(lk)
+            ridx.append(rk.index)
+        if set(ridx) != set(right.stream_key):
+            raise PlanError(
+                "temporal join requires equality keys covering the build "
+                f"side's PRIMARY KEY exactly (got cols {sorted(ridx)}, pk "
+                f"{sorted(right.stream_key)})")
+        order = [ridx.index(pk) for pk in right.stream_key]
+        join = TemporalJoinExecutor(
+            left.schema, right.schema, [lkeys[i] for i in order],
+            list(right.stream_key), table_size=self.config.join_table_size,
+            join_type=join_type)
+        nodes.append(TemporalJoinNode(join, lref, rref))
+        ref = ("node", len(nodes) - 1)
+        both = Scope(join.out_schema, tuple(left.scope.qualifiers)
+                     + tuple(right.scope.qualifiers))
+        if residual:
+            b = Binder(both)
+            nodes.append(FragNode(Fragment([
+                FilterExecutor(both.schema, b.bind(c)) for c in residual
+            ]), ref))
+            ref = ("node", len(nodes) - 1)
+        return ref, both, left.stream_key, left.append_only
+
+    def _plan_join_tail(self, select: ast.Select, sources: dict, nodes: list,
+                        root_ref, both: Scope, skey, append_only: bool,
+                        resolve_subquery) -> DagPlan:
+        """The join's consumer: an aggregation over it, or the projection
+        and its terminal (a ring or an MV)."""
+        from risingwave_tpu_torch.stream.dag import FragNode
+
         if bool(select.group_by) or self._has_agg(select):
             root = PlannedInput(None, [], both, both.schema, None, None,
                                 append_only, stream_key=skey)
@@ -815,10 +887,13 @@ class Planner:
                 col, delay = entry.watermark
                 execs.append(WatermarkFilterExecutor(entry.schema, col, delay))
                 wm_col = col
+            # a table's stream key is its PRIMARY KEY
             return PlannedInput(
                 entry.reader_factory(), execs,
                 Scope.of(entry.schema, from_.alias or from_.name),
-                entry.schema, wm_col, None, entry.append_only)
+                entry.schema, wm_col, None, entry.append_only,
+                stream_key=list(entry.stream_key) if entry.stream_key
+                else None)
         if isinstance(from_, (ast.Tumble, ast.Hop)):
             inner = self._resolve_input(from_.table)
             ts_idx = inner.scope.resolve(from_.time_col, None)
@@ -864,12 +939,18 @@ class Planner:
             execs2, out_schema, pk_positions = pane
             execs.extend(execs2)
         else:
-            if not pin.append_only:
-                raise PlanError("retractable input without aggregation is "
-                                "not ported yet")
             b = Binder(scope)
             proj = [(name, b.bind(e))
                     for name, e in self._expand_items(select.items, scope)]
+            if not pin.append_only:
+                # a retractable input (a table WITH (retract = 'true'))
+                # stays keyed by its stream key so that deletes reach
+                # the right MV row
+                if pin.stream_key is None:
+                    raise PlanError("retractable input without a stream key "
+                                    "cannot be materialized")
+                pk_positions = self._stream_key_projection(
+                    proj, scope.schema, pin.stream_key)
             if group_topn is not None:
                 gtn = self._resolve_group_topn(group_topn, scope, proj)
             execs.append(ProjectExecutor(scope.schema, proj))

@@ -1,11 +1,13 @@
 """DAG streaming runtime: fragments and joins under one barrier loop.
 
 Port of ``DagJob`` from ``risingwave_tpu/stream/dag.py`` for one device,
-without staging or a mesh: ``FragNode`` / ``JoinNode`` / ``FilterNode``
-(a two-input node without windows, the dynamic filter, driven by its
-``apply(state, chunk, side)``, :416-420, its counters flat on its state,
-:1055-1065), ``_propagate`` and ``_apply_join_windowed`` (:406),
-``run_chunk``, ``_compute_pulls``,
+without staging or a mesh: ``FragNode`` / ``JoinNode`` / ``SideNode``
+(a two-input node without windows, driven by its ``apply(state, chunk,
+side)``, :416-420, its counters flat on its state, :1055-1065: the
+dynamic filter's ``FilterNode`` and the temporal join's
+``TemporalJoinNode``, whose build table rehashes at maintenance,
+:1141), ``_propagate`` and
+``_apply_join_windowed`` (:406), ``run_chunk``, ``_compute_pulls``,
 ``chunk_round`` and ``run_chunks``, the barrier (``_flush_node``,
 ``_flush_all``, ``_node_watermarks``, ``_wm_all``, ``_upstream_wm``,
 ``_clean_joins``, ``_collect_counters``, ``_barrier_impl``,
@@ -19,7 +21,10 @@ barrier one host read of the fill counts decides which rings
 drain into their host tier (``stream/spill.py``), whose changelog then
 runs through the rest of the aggregation's node and downstream.
 Backfill, topology changes, MV taps, staged plans, the mesh and sinks
-are not ported.
+are not ported.  One scheduling difference keeps the reference's states:
+a table reader read only by temporal joins' build sides, with nothing
+pending, is not pulled; the empty chunk it would return changes nothing
+but the join's overflow copy, which ``apply_idle_right`` makes.
 
 The reference traces a whole scheduling window into one program; here
 the same steps run eagerly, in the same order, and the device work
@@ -54,6 +59,7 @@ import torch
 
 from risingwave_tpu_torch.common.device import resolve_device
 from risingwave_tpu_torch.common.epoch import EpochPair
+from risingwave_tpu_torch.connector.dml import TableSourceReader
 from risingwave_tpu_torch.stream.fragment import (
     COUNTER_ATTRS,
     WM_NONE,
@@ -98,10 +104,21 @@ class JoinNode:
         return self.join.init_state(device)
 
 
-class FilterNode(JoinNode):
-    """A two-input node that is not a hash join (the dynamic filter):
-    driven by ``apply(state, chunk, side)``, its counters flat on its
-    state, nothing to clean or rehash."""
+class SideNode(JoinNode):
+    """A two-input node that is not a hash join: driven by
+    ``apply(state, chunk, side)``, its counters flat on its state, no
+    windows and nothing to clean."""
+
+
+class FilterNode(SideNode):
+    """The dynamic filter (``stream/dynamic_filter.py``): nothing to
+    rehash."""
+
+
+class TemporalJoinNode(SideNode):
+    """The temporal join (``stream/temporal_join.py``): ``"right"``
+    upserts its build table and emits nothing, ``"left"`` probes it and
+    sends its chunk on; the build table rehashes at maintenance."""
 
 
 class DagJob(CheckpointPipelineMixin):
@@ -157,6 +174,18 @@ class DagJob(CheckpointPipelineMixin):
                 if idx not in lst:
                     lst.append(idx)
         self._pulls = self._compute_pulls()
+        #: sources read only by temporal joins' build sides: while such a
+        #: reader has nothing pending its empty chunk is skipped (its only
+        #: effect, the join's copied overflow, is applied instead)
+        self._idle_builds = {}
+        for name, src in self.sources.items():
+            ref = ("source", name)
+            users = self._consumers.get(ref, [])
+            if isinstance(src, TableSourceReader) and users and all(
+                    isinstance(self.nodes[i], TemporalJoinNode)
+                    and self.nodes[i].right == ref != self.nodes[i].left
+                    for i in users):
+                self._idle_builds[name] = users
 
     def _init_states(self):
         return tuple(n.init_state(self.device) for n in self.nodes)
@@ -227,9 +256,9 @@ class DagJob(CheckpointPipelineMixin):
         """Drive a join with windowed emission: window 0 propagates
         first, then (after one host read of the emission total) the
         further windows, in order, each through the downstream nodes.  A
-        FilterNode applies the chunk and sends its output on."""
+        SideNode applies the chunk and sends its output on."""
         join = self.nodes[idx].join
-        if isinstance(self.nodes[idx], FilterNode):
+        if isinstance(self.nodes[idx], SideNode):
             new_states[idx], out = join.apply(new_states[idx], chunk, side)
             if out is not None:
                 self._propagate(new_states, [(("node", idx), out)])
@@ -259,8 +288,15 @@ class DagJob(CheckpointPipelineMixin):
         if self.paused:
             return 0
         reader = self.sources[src_name]
-        chunk = reader.next_chunk()
         new_states = list(self.states)
+        idle = self._idle_builds.get(src_name)
+        if idle and reader.pending() == 0:
+            for idx in idle:
+                new_states[idx] = self.nodes[idx].join.apply_idle_right(
+                    new_states[idx])
+            self.states = tuple(new_states)
+            return reader.cap
+        chunk = reader.next_chunk()
         self._propagate(new_states, [(("source", src_name), chunk)])
         self.states = tuple(new_states)
         return chunk.capacity
@@ -379,7 +415,7 @@ class DagJob(CheckpointPipelineMixin):
         (false without one) are read in one readback for all joins."""
         plans = []
         for idx, node in enumerate(self.nodes):
-            if not isinstance(node, JoinNode) or isinstance(node, FilterNode):
+            if not isinstance(node, JoinNode) or isinstance(node, SideNode):
                 continue
             join = node.join
             wms = []
@@ -437,7 +473,7 @@ class DagJob(CheckpointPipelineMixin):
                     vals.append(sub)
                 continue
             jstate = new_states[idx]
-            if isinstance(node, FilterNode):
+            if isinstance(node, SideNode):
                 for attr in COUNTER_ATTRS:
                     if hasattr(jstate, attr):
                         labels.append(f"n{idx}.dynfilter.{attr}")

@@ -93,6 +93,12 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[regexp_group] exact", "[parity] q22", "[parity] q10",
                 "[parity] q21", "[check] q22 ring rows equal numpy",
                 "[check] q10 ring rows equal numpy",
-                "[check] q21 ring rows equal numpy"):
+                "[check] q21 ring rows equal numpy",
+                "[temporal_probe] exact", "[parity] q13, 6 barriers",
+                "[parity] q13 LEFT JOIN with churn",
+                "[check] q13 ring rows equal numpy",
+                "[check] q13 churn ring rows equal numpy",
+                "[check] q13 churn: the ring, the build table",
+                "[durable] q13 churn", "[cold start] q13 churn"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout

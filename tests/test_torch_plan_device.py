@@ -27,6 +27,20 @@ CREATE SOURCE w (k BIGINT, c0 VARCHAR, c1 VARCHAR, c2 VARCHAR, c3 VARCHAR,
                  c8 VARCHAR)
 WITH (connector = 'datagen');
 """
+#: tables for the temporal join: q13's side input, a two-column pk, a
+#: table without a pk and a build row of 17 value leaves (K22a takes 16)
+TABLES = """
+CREATE TABLE side_input (key BIGINT PRIMARY KEY, value VARCHAR);
+CREATE TABLE pk2 (a BIGINT, b VARCHAR(40), v INT, PRIMARY KEY (a, b));
+CREATE TABLE nopk (key BIGINT, value VARCHAR);
+CREATE TABLE wide (k BIGINT PRIMARY KEY, c0 VARCHAR, c1 VARCHAR, c2 VARCHAR,
+                   c3 VARCHAR, c4 VARCHAR, c5 VARCHAR, c6 VARCHAR,
+                   c7 VARCHAR);
+CREATE TABLE rates (cur VARCHAR(8), rate BIGINT, PRIMARY KEY (cur));
+"""
+Q13 = ("SELECT B.auction, B.bidder, B.price, B.date_time, S.value FROM bid B "
+       "{join} side_input FOR SYSTEM_TIME AS OF PROCTIME() S "
+       "ON B.auction % 10000 = S.key")
 TUMBLE_T = "TUMBLE(t, ts, INTERVAL '10' SECOND)"
 TUMBLE_BID = "TUMBLE(bid, date_time, INTERVAL '10' SECOND)"
 
@@ -70,6 +84,28 @@ REFUSED = {
     "min_smallint": (
         f"SELECT window_start, min(s) AS m FROM {TUMBLE_T} "
         "GROUP BY window_start", "K5"),
+    # K22a: a build row past its 16 value leaves; keys of other widths
+    "temporal_wide_build": (
+        "SELECT b.auction, w.c0 FROM bid b JOIN wide FOR SYSTEM_TIME AS OF "
+        "PROCTIME() w ON b.auction = w.k", "K22a"),
+    "temporal_key_width": (
+        "SELECT b.auction, r.rate FROM bid b JOIN rates FOR SYSTEM_TIME AS "
+        "OF PROCTIME() r ON b.channel = r.cur", "K22a"),
+}
+
+#: the temporal join's plan errors, on every device (the reference's words)
+TEMPORAL_ERRORS = {
+    "no_primary_key": (
+        "SELECT b.auction, n.value FROM bid b JOIN nopk FOR SYSTEM_TIME AS "
+        "OF PROCTIME() n ON b.auction = n.key", "needs a PRIMARY KEY"),
+    "keys_not_covering_pk": (
+        "SELECT b.auction, p.v FROM bid b JOIN pk2 FOR SYSTEM_TIME AS OF "
+        "PROCTIME() p ON b.auction = p.a", "covering the build side's "
+        "PRIMARY KEY exactly"),
+    "build_key_expression": (
+        "SELECT b.auction, s.value FROM bid b JOIN side_input FOR "
+        "SYSTEM_TIME AS OF PROCTIME() s ON b.auction = s.key + 1",
+        "keys must be build-side columns"),
 }
 
 #: the join kernels' leaf limits: (sql, extra config, kernel)
@@ -122,6 +158,17 @@ PLANNED = {
     "sum_and_count_double": (
         f"SELECT window_start, sum(f) AS s, count(*) AS n FROM {TUMBLE_T} "
         "GROUP BY window_start"),
+    # the temporal join (K22a): q13, its LEFT JOIN, a two-column pk in pk
+    # order from ON conjuncts in another order, a residual ON filter
+    "q13": Q13.format(join="JOIN"),
+    "q13_left": Q13.format(join="LEFT JOIN"),
+    "temporal_two_col_pk": (
+        "SELECT b.auction, p.v FROM bid b JOIN pk2 FOR SYSTEM_TIME AS OF "
+        "PROCTIME() p ON b.url = p.b AND b.auction = p.a"),
+    "temporal_residual": (
+        "SELECT b.auction, s.value FROM bid b LEFT JOIN side_input FOR "
+        "SYSTEM_TIME AS OF PROCTIME() s ON b.auction % 10000 = s.key AND "
+        "b.price > 100"),
 }
 
 
@@ -130,6 +177,7 @@ def engine():
     eng = Engine(PlannerConfig(chunk_capacity=64), device="cpu")
     eng.execute(SOURCES.format(rate="1000000"))
     eng.execute(GEN)
+    eng.execute(TABLES)
     return eng
 
 
@@ -163,6 +211,43 @@ def test_cuda_plans_what_the_card_runs(engine, case):
     select = _select(PLANNED[case])
     Planner(engine.catalog, engine.config, "cuda").plan(select)
     Planner(engine.catalog, engine.config, "cpu").plan(select)
+
+
+@pytest.mark.parametrize("case", sorted(TEMPORAL_ERRORS))
+def test_temporal_join_plan_errors(engine, case):
+    sql, words = TEMPORAL_ERRORS[case]
+    for device in ("cpu", "cuda"):
+        with pytest.raises(PlanError, match=words):
+            Planner(engine.catalog, engine.config, device).plan(_select(sql))
+
+
+def test_temporal_join_plan_shape(engine):
+    """q13 plans the reference's DAG: the bid source and the table as
+    sources (probe first), bid's watermark filter, the temporal join on
+    ``auction % 10000`` over the pk, then the projection into a ring (the
+    probe side is append-only); the two-column pk takes its keys in pk
+    order; a residual ON conjunct filters after the join."""
+    from risingwave_tpu_torch.stream.dag import TemporalJoinNode
+
+    def plan_of(case):
+        return Planner(engine.catalog, engine.config, "cuda").plan(
+            _select(PLANNED[case]))
+
+    plan = plan_of("q13")
+    assert list(plan.sources) == ["b", "s"]
+    node = plan.nodes[1]
+    assert isinstance(node, TemporalJoinNode)
+    assert (node.left, node.right) == (("node", 0), ("source", "s"))
+    assert node.join.join_type == "inner"
+    assert [type(x).__name__ for x in plan.nodes[2].fragment.executors] == \
+        ["ProjectExecutor", "AppendOnlyMaterialize"]
+    join = plan_of("temporal_two_col_pk").nodes[1].join
+    assert [repr(k) for k in join.left_keys] == ["$0", "$4"]
+    assert join.right_mat.pk_indices == (0, 1)
+    plan = plan_of("temporal_residual")
+    assert plan.nodes[1].join.join_type == "left_outer"
+    assert [type(x).__name__ for x in plan.nodes[2].fragment.executors] == \
+        ["FilterExecutor"]
 
 
 def test_engine_refuses_at_create_on_its_device(engine):
