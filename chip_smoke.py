@@ -47,7 +47,13 @@
    and on ``k22_cases``' edge cases (NULL keys, misses, tombstones,
    VARCHAR(8) keys with bytes past their lengths, a two-column key, inner
    and left outer pads, a full table whose probes overflow), every output
-   leaf, the valid plane and the overflow count exact;
+   leaf, the valid plane and the overflow count exact; K23e-h (replace,
+   starts_with / ends_with / contains and LIKE, substr / trims / concat,
+   extract) on 8192 rows of ``k23_rest_cases`` (greedy overlaps, replace's
+   clamp, every LIKE of ``K23F_LIKE``, PostgreSQL's substr windows,
+   strings around spaces, timestamps from 1600 to 2400 and dates) and on
+   a bid chunk, exact against the plain versions and equal to Python's
+   bytes methods, ``re`` and ``datetime``;
 3. runs q7, q5 and q1 at 2 events/s, q8 at 10,000 events/s and q19,
    q18, q6_bid and ow_bid at 2 events/s through the port's ``Engine``
    on the card and on the CPU (plain versions, the agg forced onto the
@@ -57,7 +63,8 @@
    then ``recover()`` and 2 more barriers, with equal tiers too, and
    q102 the same way; q22, q10 and q21 at 2 events/s (equal ring rows
    and state); q13 and its LEFT JOIN with churn (500 keys, chunk 256:
-   equal ring rows, build table and counters);
+   equal ring rows, build table and counters); q14, bid_strings and
+   avg_bid at 2 events/s (equal MV rows and state);
 4. runs q1, q5, q7, q8, q19, q18, q6_bid and ow_bid, each in a fresh
    ``Engine`` at ``bench.py``'s sizes (q19/q18/q6_bid with a top-N pool
    of 2^18, an emitted band of 2^16 and an MV table of 2^18; ow_bid
@@ -72,7 +79,8 @@
    2.69M bids do not lap; q13 with 10,000 INSERTed keys and the ring at
    2^23, and q13 churn, its LEFT JOIN over a retractable table with 128
    UPDATEs and 16 DELETEs before each timed barrier, rows/s counting bid
-   rows only) with the launch counters set to 0 just before and read
+   rows only; q14 and bid_strings with a ring of 2^23, avg_bid with an
+   agg table and an MV of 2^18) with the launch counters set to 0 just before and read
    just after each timed window, and requires every kernel of that
    query's path to have launched; then q6_bid with the over-window's
    watermark cleaning set on the executor (8 timed barriers: K19a on
@@ -100,7 +108,12 @@
    the null plane); q13's as every bid with the text of ``auction %
    10000``, q13 churn's as every bid with the value a host model of the
    table held when the DAG probed it (a deleted key a NULL pad), and the
-   churn run against the same run on the CPU, tensor for tensor;
+   churn run against the same run on the CPU, tensor for tensor; q14's
+   ring as the bids kept by 0.908 * price (NUMERIC) with the CASE of the
+   hour and url.count('e'), bid_strings' as the bids LIKE and the ORs
+   keep with Python's slices, concats and strips, datetime's year and
+   day of year and the two divides, and avg_bid's MV as each auction's
+   float64 avg (within 1e-12 relative), truncated NUMERIC avg and count;
 6. runs q7, q8, q19 and q13 churn durably (``Engine(config,
    data_dir=<temporary directory>)``, the same sizes and barriers, a
    snapshot every 8 checkpoints through K11 and the background uploader;
@@ -146,7 +159,7 @@ WINDOW_US = 10_000_000
 HOP_SLIDE_US = 2_000_000
 QUERIES = ("q1", "q5", "q7", "q8", "q19", "q18", "q6_bid", "ow_bid",
            "q101", "q103", "q104", "q102", "q22", "q10", "q21", "q13",
-           "q13 churn")
+           "q13 churn", "q14", "bid_strings", "avg_bid")
 #: the kernels each query's main path must launch
 PATH_KERNELS = {
     "q1": ("nexmark_bids", "ring_append"),
@@ -197,6 +210,15 @@ PATH_KERNELS = {
     "q13": ("nexmark_bids", "hash64", "temporal_probe", "ring_append"),
     "q13 churn": ("nexmark_bids", "hash64", "temporal_probe", "probe",
                   "mv_upsert", "ring_append"),
+    # scalar functions: q14's calendar (extract hour, four times) and
+    # replace (the count_char UDF); bid_strings' LIKE family, substr,
+    # trims, concats and date parts; avg_bid's avg over the q7 agg path
+    # (no window: the spill capture runs)
+    "q14": ("nexmark_bids", "calendar", "str_replace", "ring_append"),
+    "bid_strings": ("nexmark_bids", "str_match", "str_window", "calendar",
+                    "ring_append"),
+    "avg_bid": ("nexmark_bids", "hash64", "agg_preagg", "probe",
+                "agg_scatter", "agg_spill", "mask_indices", "mv_upsert"),
     # q6_bid with the over-window's watermark cleaning set on the
     # executor (no plan sets it): K19a on the path
     "q6_bid clean": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
@@ -395,6 +417,7 @@ def main() -> int:
     results["topn_pool"].update(pool_extra)
     results.update(phase_string_kernels(torch, device, timer, scale))
     results.update(phase_temporal_kernels(torch, device, timer, scale))
+    results.update(phase_scalar_kernels(torch, device, timer, scale))
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -413,6 +436,8 @@ def main() -> int:
         phase_string_parity(torch, device, query)
     for left in (False, True):
         phase_q13_parity(torch, device, left)
+    for query in SCALAR_QUERIES:
+        phase_scalar_parity(torch, device, query)
 
     # -- 4-5. main paths --------------------------------------------------
     rates = {}
@@ -441,6 +466,9 @@ def main() -> int:
         elif query in ("q13", "q13 churn"):
             launches, rates[query] = phase_q13_main_path(
                 torch, device, scale, churn_path=query == "q13 churn")
+        elif query in SCALAR_QUERIES:
+            launches, rates[query] = phase_scalar_main_path(torch, device,
+                                                            scale, query)
         else:
             launches, rates[query] = phase_main_path(torch, device, scale,
                                                      query)
@@ -1133,7 +1161,9 @@ PORT_KERNEL_NAMES = ("hash64_kernel", "probe_kernel", "reset_kernel",
                      "ow_scan_carry", "ow_finish", "table_sweep_kernel",
                      "distinct_", "dyn_", "str_cmp_kernel", "str_case_kernel",
                      "split_part_kernel", "to_char_kernel",
-                     "regexp_group_kernel")
+                     "regexp_group_kernel", "replace_kernel",
+                     "str_match_kernel", "like_kernel", "str_window_kernel",
+                     "calendar_kernel")
 
 
 def profile_window(torch, eng, query: str, barriers: int = 2,
@@ -5101,6 +5131,109 @@ def k23_cases(n: int, seed: int = 23) -> dict:
             "delims": (d_data, d_lens), "nth": nth, "ts": ts}
 
 
+#: K23e's patterns: greedy overlaps ('aa' in 'aaa' is one match), an
+#: empty ``from`` (the row is copied), a ``to`` longer than ``from`` (rows
+#: near their full width truncate at it), ``from`` longer than the string
+K23E_FROM = (b"e", b"aa", b"", b"/", b"x", b"ab/", b"channel=", b"&")
+K23E_TO = (b"", b"yy", b"Z", b"12345678", b"-", b"aa")
+#: K23f's LIKE patterns (no '_'): anchored and unanchored ends, a lone and
+#: a doubled '%', the last anchored segment overlapping the first ('aa%aa'
+#: on 'aaa'), interior segments in order, q14's bid_strings pattern
+K23F_LIKE = ("https://%page1%item", "%", "%%", "a%", "%a", "a%b", "aa%aa",
+             "%a%b%", "x%x%x", "chan%=%&%", "a%%b", "%/%/%", "%aa%aa%",
+             "/%", "%&%=", "ab/%ab/", "aaaa", "%z", "x%")
+#: K23g's strings around spaces: leading, trailing, inner and only spaces
+K23G_STRINGS = (b"", b" ", b"   ", b" a", b"a ", b" a b ", b"  ab  cd  ",
+                b"hello", b" " * 40, b"x" * 40, b" " + b"y" * 38 + b" ")
+#: K23g's substr windows (start, count; None: no count): PostgreSQL's
+#: non-positive starts (substr('hello', -1, 3) = 'h'), negative counts,
+#: windows past the end, int32's extremes
+K23G_WINDOWS = ((-1, 3), (0, 2), (1, 0), (1, 5), (3, None), (41, 5),
+                (2, -3), (-5, 10), (-2**31, 2**31 - 1), (2**31 - 1, 5),
+                (1, None), (0, None), (-3, None), (40, 1))
+#: K23h's timestamps: year boundaries from 1600 to 2400 on both sides of
+#: midnight, leap days (2000-02-29, 2100-02-28 / 03-01), 1969-12-31's last
+#: microsecond, and K23b's hand-picked ones
+K23H_TIMESTAMPS = (-11_676_096_000_000_000, -11_676_096_000_000_001,
+                   -2_208_988_800_000_000, -2_208_988_800_000_001, -1,
+                   951_782_400_000_000, 951_868_799_999_999,
+                   4_107_456_000_000_000, 4_107_542_399_999_999,
+                   13_569_465_600_000_000, 13_569_465_599_999_999,
+                   1_436_918_400_000_000, 1_436_947_200_000_000,
+                   1_436_961_600_000_000)
+
+
+def k23_rest_cases(n: int, seed: int = 231) -> dict:
+    """``n`` rows of K23e-h edge cases as numpy arrays: ``strs`` and
+    ``other`` (``k23_cases``': 40 B wide, bytes past a quarter of the
+    lengths), ``frm`` and ``to`` (replace's per-row patterns, 8 B wide),
+    ``pats`` (the match functions' per-row patterns, 8 B wide: copies,
+    prefixes and suffixes of the row, and longer ones), ``spaced`` (40 B
+    strings around spaces for trim), ``start`` / ``count`` (substr's
+    per-row windows, int64, the hand-picked ones first), ``ts`` (int64
+    microseconds from 1600 to 2400 with the hand-picked ones first) and
+    ``days`` (int32 dates over +-2^26 days)."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import encode_strings
+
+    rng = np.random.default_rng(seed)
+    base = k23_cases(n, seed)
+    sd, sl = base["strs"]
+    frm = [K23E_FROM[k] for k in rng.integers(0, len(K23E_FROM), n)]
+    to = [K23E_TO[k] for k in rng.integers(0, len(K23E_TO), n)]
+    frm[:4], to[:4] = [b"x", b"x", b"aa", b""], [b"yy", b"12345678", b"b",
+                                                   b""]
+    pats = []
+    for i in range(n):
+        s = bytes(sd[i, :sl[i]])
+        kind = rng.integers(0, 5)
+        k = int(rng.integers(0, min(len(s), 8) + 1))
+        if kind == 0:
+            pats.append(s[:k])
+        elif kind == 1:
+            pats.append(s[len(s) - k:])
+        elif kind == 2:
+            j = int(rng.integers(0, max(len(s) - k, 0) + 1))
+            pats.append(s[j:j + k])
+        elif kind == 3:
+            pats.append(K23E_FROM[int(rng.integers(0, len(K23E_FROM)))])
+        else:
+            pats.append(b"z" * int(rng.integers(0, 9)))
+    tokens = (b" ", b"  ", b"a", b"bc", b"\xff", b"x y")
+    spaced = [K23G_STRINGS[i] if i < len(K23G_STRINGS) else
+              b"".join(tokens[t] for t in
+                       rng.integers(0, len(tokens), rng.integers(0, 14)))[:40]
+              for i in range(n)]
+    start = rng.integers(-6, 46, n).astype(np.int64)
+    count = rng.integers(-4, 46, n).astype(np.int64)
+    k = min(n, len(K23G_WINDOWS))
+    start[:k] = [w[0] for w in K23G_WINDOWS[:k]]
+    count[:k] = [w[1] if w[1] is not None else 2**40
+                 for w in K23G_WINDOWS[:k]]
+    lo, hi = -11_676_096_000_000_000, 13_569_465_600_000_000
+    ts = rng.integers(lo, hi, n, dtype=np.int64)
+    hand = K23H_TIMESTAMPS + K23_TIMESTAMPS
+    k = min(n, len(hand))
+    ts[:k] = np.array(hand[:k], np.int64)
+    days = rng.integers(-2**26, 2**26, n).astype(np.int32)
+    days[:6] = (0, -1, 1, -719_528, 2**26, -2**26)
+    enc = lambda xs, w: encode_strings(xs, w)  # noqa: E731
+    return {"strs": base["strs"], "other": base["other"],
+            "frm": enc(frm, 8), "to": enc(to, 8), "pats": enc(pats, 8),
+            "spaced": enc(spaced, 40), "start": start, "count": count,
+            "ts": ts, "days": days}
+
+
+def k23_python_like(s: bytes, pattern: str) -> bool:
+    """LIKE by Python's ``re`` (``%`` is ``.*``, everything else
+    literal): the oracle of K23f's LIKE."""
+    import re
+
+    rx = b".*".join(re.escape(x) for x in pattern.encode().split(b"%"))
+    return re.fullmatch(rx, s, re.S) is not None
+
+
 def k23_python_split(s: bytes, d: bytes, n: int) -> bytes:
     """split_part by Python's ``bytes.split`` (leftmost non-overlapping,
     as PostgreSQL's; an empty delimiter leaves the string whole; n = 0,
@@ -5358,12 +5491,12 @@ def _consumed_bid_rows(eng, cap: int) -> dict:
     return {k: np.concatenate(v) for k, v in cols.items()}
 
 
-def _ring_planes(eng, query: str):
-    """(row count, overflow, [leaf arrays]) of the query's ring, in
-    append order (no lap: the first ``cursor`` rows)."""
+def _ring_planes(eng, mv: str):
+    """(row count, overflow, [leaf arrays]) of the MV's ring, in append
+    order (no lap: the first ``cursor`` rows)."""
     from risingwave_tpu_torch.common.tree import flatten
 
-    entry = eng.catalog.get(f"nexmark_{query}")
+    entry = eng.catalog.get(mv)
     state = eng.jobs[0].states[entry.mv_state_index[0]]
     n = int(state.cursor)
     leaves = [x[:n].cpu().numpy() for x in flatten(state.values)[0]]
@@ -5397,7 +5530,7 @@ def check_string_query(eng, query: str, cap: int) -> str:
     import numpy as np
 
     b = _consumed_bid_rows(eng, cap)
-    n, overflow, leaves = _ring_planes(eng, query)
+    n, overflow, leaves = _ring_planes(eng, f"nexmark_{query}")
     total = b["price"].shape[0]
     if n != total or overflow:
         fail(f"{query} ring holds {n} rows (overflow {overflow}) for "
@@ -6186,6 +6319,558 @@ def phase_q13_durable(torch, device, scale, storeless_rate):
         return launches, rate, {"recover_s": rec_s}
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# slice 10: scalar functions, casts, avg and SQL UDFs (K23e-h)
+
+
+#: Nexmark q14 (nexmark-flink's q14.sql: the projection, CASE and filter
+#: as published) over this repo's bid schema, which has no ``extra``
+#: column: the UDF counts the ``'e'``s of ``url`` (no generated url has a
+#: ``'c'``; every one has three ``'e'``s)
+Q14_SQL = """
+CREATE FUNCTION count_char(s varchar, c varchar) RETURNS int
+LANGUAGE SQL AS $$SELECT LENGTH(s) - LENGTH(REPLACE(s, c, ''))$$;
+
+CREATE MATERIALIZED VIEW nexmark_q14 AS
+SELECT
+    auction,
+    bidder,
+    0.908 * price as price,
+    CASE
+        WHEN
+            extract(hour from date_time) >= 8 AND
+            extract(hour from date_time) <= 18
+        THEN 'dayTime'
+        WHEN
+            extract(hour from date_time) <= 6 OR
+            extract(hour from date_time) >= 20
+        THEN 'nightTime'
+        ELSE 'otherTime'
+    END AS bidTimeType,
+    date_time,
+    url,
+    count_char(url, 'e') AS c_counts
+FROM bid
+WHERE 0.908 * price > 1000000 AND 0.908 * price < 50000000;
+"""
+SCALAR_QUERY_SQL = {
+    "q14": Q14_SQL,
+    # the LIKE family, substr, trim, ||, the calendar's date parts, CAST
+    # and the NUMERIC and float divides
+    "bid_strings": """
+CREATE MATERIALIZED VIEW bid_strings AS
+SELECT auction, substr(channel, 1, 3) AS pre, channel || url AS cu,
+       trim(' ' || channel || ' ') AS ch, ltrim(url) AS lu,
+       extract(year from date_time) AS y, extract(doy from date_time) AS d,
+       CAST(price AS DOUBLE PRECISION) / 3 AS p3, price / 7.0 AS p7
+FROM bid
+WHERE url LIKE 'https://%page1%item'
+  AND (starts_with(channel, 'G') OR contains(url, 'page2') OR channel LIKE '%u');
+""",
+    # avg over BIGINT (float64 out) and over NUMERIC (truncating)
+    "avg_bid": """
+CREATE MATERIALIZED VIEW avg_bid AS
+SELECT auction, avg(price) AS avg_price, avg(0.908 * price) AS avg_price_eur,
+       count(*) AS bids
+FROM bid GROUP BY auction;
+""",
+}
+SCALAR_QUERIES = tuple(SCALAR_QUERY_SQL)
+SCALAR_MV = {"q14": "nexmark_q14", "bid_strings": "bid_strings",
+             "avg_bid": "avg_bid"}
+#: the K23e-h kernels' names in ``kernels.KERNELS``
+K23_REST_KERNELS = ("str_replace", "str_match", "str_window", "calendar")
+
+
+def phase_scalar_kernels(torch, device, timer, scale):
+    """K23e-h against their plain versions on the card, exactly, and
+    against Python: on 8192 rows of ``k23_rest_cases`` (replace's greedy
+    overlaps and its clamp, the match functions and every LIKE of
+    ``K23F_LIKE``, substr's PostgreSQL windows, the trims around spaces,
+    concat, every extract part over 1600-2400 and over dates) and at the
+    main paths' shapes (a bid chunk: url 40 B, channel 16 B, 64 B
+    stride-0 literals, date_time), which also time each kernel, its plain
+    version and the bound of the bytes its rows need."""
+    import datetime as dt
+
+    import numpy as np
+
+    from risingwave_tpu_torch.connector.nexmark import NexmarkGenerator
+    from risingwave_tpu_torch.expr import strings as S
+    from risingwave_tpu_torch.expr.scalar import LikePattern
+
+    cap = 8192 // scale
+    cs = k23_rest_cases(cap)
+    col = {k: _strcol(torch, device, cs[k])
+           for k in ("strs", "other", "frm", "to", "pats", "spaced")}
+    start = torch.from_numpy(cs["start"]).to(device)
+    count = torch.from_numpy(cs["count"]).to(device)
+    ts = torch.from_numpy(cs["ts"]).to(device)
+    days = torch.from_numpy(cs["days"]).to(device)
+    bids = NexmarkGenerator(device=device).gen_bids(0, cap)
+    channel, url, date_time = bids.columns[3], bids.columns[4], \
+        bids.columns[5]
+    lit = {v: _literal_col(torch, device, v, cap)
+           for v in (b"e", b"", b"x", b"yy", b"aa", b"b", b"Q", b"G",
+                     b"page2", b" ", b"channel=ab")}
+    ul = int(url.lens.sum())
+    out = {}
+
+    def texts(c):
+        d = c.data.contiguous().cpu().numpy()
+        ln = c.lens.contiguous().cpu().numpy()
+        return [bytes(d[i, :ln[i]]) for i in range(d.shape[0])]
+
+    def oracle(tag, got, want):
+        got = texts(got) if not isinstance(got, list) else got
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                fail(f"{tag} row {i}: {g!r} vs Python {w!r}")
+
+    rows = {k: texts(col[k]) for k in ("strs", "other", "frm", "to",
+                                       "pats", "spaced")}
+
+    # -- K23e str_replace -------------------------------------------------
+    runs = [("columns", col["strs"], col["frm"], col["to"]),
+            ("'e' to ''", col["strs"], lit[b"e"], lit[b""]),
+            ("'x' to 'yy' (clamped)", col["strs"], lit[b"x"], lit[b"yy"]),
+            ("'aa' to 'b'", col["strs"], lit[b"aa"], lit[b"b"]),
+            ("empty from", col["strs"], lit[b""], lit[b"Q"]),
+            ("q14 url 'e' to ''", url, lit[b"e"], lit[b""])]
+    pairs = []
+    for tag, a, f, t in runs:
+        pairs += _str_pairs(f"replace {tag}", (S.str_replace(a, f, t),),
+                            (S.str_replace_plain(a, f, t),))
+    err = max_abs_err(torch, pairs)
+    oracle("replace", S.str_replace(col["strs"], col["frm"], col["to"]),
+           [(s.replace(f, t) if f else s)[:40] for s, f, t in
+            zip(rows["strs"], rows["frm"], rows["to"])])
+    ms = timer(lambda i: S.str_replace(url, lit[b"e"], lit[b""]), 200)
+    plain_ms = timer(lambda i: S.str_replace_plain(url, lit[b"e"],
+                                                   lit[b""]), 10,
+                     prefill_ms=20.0)
+    # per row: its active url bytes, length and the two literals' rows
+    # read; the output row and its length written; ~4 operations a byte
+    b_ = bound(ul + cap * 4 + 2 * 68 + cap * (url.data.shape[1] + 4),
+               ul * 4)
+    print(f"[str_replace] exact on {cap} edge-case rows (per-row and "
+          f"literal patterns, greedy overlaps, empty from, a to longer than "
+          f"from clamped at the width) and q14's replace(url, 'e', ''), "
+          f"equal to Python's bytes.replace; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_[0]:.5f} ms", flush=True)
+    out["str_replace"] = kernel_entry(
+        "str_replace.cu", "risingwave_tpu/expr/scalar.py:771", ms, plain_ms,
+        b_, None, err)
+
+    # -- K23f str_match and LIKE -------------------------------------------
+    pairs = []
+    for mode in S.MATCH_MODES:
+        for tag, a, p in (("columns", col["strs"], col["pats"]),
+                          ("literal", col["strs"], lit[b"aa"]),
+                          ("literal left", lit[b"channel=ab"], col["pats"]),
+                          ("empty", col["strs"], lit[b""]),
+                          ("channel 'G'", channel, lit[b"G"]),
+                          ("url 'page2'", url, lit[b"page2"])):
+            pairs.append((f"{mode} {tag}", S.str_match(a, p, mode),
+                          S.str_match_plain(a, p, mode)))
+        got = S.str_match(col["strs"], col["pats"], mode).cpu().numpy()
+        py = {"starts_with": bytes.startswith, "ends_with": bytes.endswith,
+              "contains": lambda s, p: p in s}[mode]
+        oracle(mode, [bool(x) for x in got],
+               [py(s, p) for s, p in zip(rows["strs"], rows["pats"])])
+    for pat in K23F_LIKE:
+        node = LikePattern(None, pat)
+        args = (node.segs, node.anchor_start, node.anchor_end)
+        for tag, a in (("edge cases", col["strs"]),
+                       ("spaced", col["spaced"]), ("url", url),
+                       ("channel", channel)):
+            pairs.append((f"like {pat!r} {tag}", S.like_match(a, *args),
+                          S.like_match_plain(a, *args)))
+        got = S.like_match(col["strs"], *args).cpu().numpy()
+        oracle(f"like {pat!r}", [bool(x) for x in got],
+               [k23_python_like(s, pat) for s in rows["strs"]])
+    err = max_abs_err(torch, pairs)
+    node = LikePattern(None, "https://%page1%item")
+    args = (node.segs, node.anchor_start, node.anchor_end)
+    ms = timer(lambda i: S.like_match(url, *args), 200)
+    plain_ms = timer(lambda i: S.like_match_plain(url, *args), 10,
+                     prefill_ms=20.0)
+    n_true = int(S.like_match(url, *args).sum())
+    # per row: its active url bytes (the walk reads up to the decision,
+    # at most the string) and length read, 1 B written
+    b_ = bound(ul + cap * 5 + 64, ul * 4)
+    print(f"[str_match] exact on {cap} edge-case rows (starts_with, "
+          f"ends_with, contains over per-row and literal patterns, longer "
+          f"and empty ones; {len(K23F_LIKE)} LIKE patterns over edge cases, "
+          f"spaced strings, url and channel), equal to Python and "
+          f"re.fullmatch; bid_strings' url LIKE 'https://%page1%item' "
+          f"({n_true} of {cap}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {b_[0]:.5f} ms", flush=True)
+    out["str_match"] = kernel_entry(
+        "str_match.cu", "risingwave_tpu/expr/scalar.py:943", ms, plain_ms,
+        b_, None, err)
+
+    # -- K23g str_window: substr, trims, concat ----------------------------
+    one = torch.ones(cap, dtype=torch.int32, device=device)
+    three = torch.full((cap,), 3, dtype=torch.int32, device=device)
+    pairs = []
+    for tag, a in (("edge cases", col["strs"]), ("spaced", col["spaced"]),
+                   ("channel", channel)):
+        pairs += _str_pairs(f"substr3 {tag}",
+                            (S.str_substr(a, start, count),),
+                            (S.str_substr_plain(a, start, count),))
+        pairs += _str_pairs(f"substr2 {tag}", (S.str_substr(a, start),),
+                            (S.str_substr_plain(a, start),))
+        pairs += _str_pairs(f"substr(1, 3) {tag}",
+                            (S.str_substr(a, one, three),),
+                            (S.str_substr_plain(a, one, three),))
+        for m in ("trim", "ltrim", "rtrim"):
+            pairs += _str_pairs(f"{m} {tag}", (S.str_trim(a, m),),
+                                (S.str_trim_plain(a, m),))
+        pairs += _str_pairs(f"concat {tag}", (S.str_concat(a, url),),
+                            (S.str_concat_plain(a, url),))
+        pairs += _str_pairs(f"concat literal {tag}",
+                            (S.str_concat(lit[b" "], a),),
+                            (S.str_concat_plain(lit[b" "], a),))
+    err = max_abs_err(torch, pairs)
+    got = S.str_substr(col["strs"], start, count)
+    want = []
+    for s, st, c in zip(rows["strs"], cs["start"], cs["count"]):
+        lo, hi = max(int(st) - 1, 0), min(int(st) - 1 + max(int(c), 0),
+                                          len(s))
+        want.append(s[lo:hi] if hi > lo else b"")
+    oracle("substr", got, want)
+    for m, py in (("trim", bytes.strip), ("ltrim", bytes.lstrip),
+                  ("rtrim", bytes.rstrip)):
+        oracle(m, S.str_trim(col["spaced"], m),
+               [py(s, b" ") for s in rows["spaced"]])
+    oracle("concat", S.str_concat(col["strs"], col["other"]),
+           [a + b for a, b in zip(rows["strs"], rows["other"])])
+    ms = timer(lambda i: S.str_concat(channel, url), 200)
+    plain_ms = timer(lambda i: S.str_concat_plain(channel, url), 20,
+                     prefill_ms=3.0)
+    sub_ms = timer(lambda i: S.str_substr(channel, one, three), 200)
+    trim_ms = timer(lambda i: S.str_trim(url, "ltrim"), 200)
+    cl = int(channel.lens.sum())
+    wo = channel.data.shape[1] + url.data.shape[1]
+    # channel || url: both rows' active bytes and lengths read, the
+    # output row and length written; a few operations a byte
+    b_ = bound(cl + ul + cap * 8 + cap * (wo + 4), (cl + ul) * 2)
+    print(f"[str_window] exact on {cap} edge-case rows (substr with "
+          f"per-row, non-positive starts and negative counts, with and "
+          f"without a count, trim/ltrim/rtrim around spaces, concat with "
+          f"columns and a literal), equal to Python's slicing, strip and "
+          f"+; bid_strings' channel || url: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_[0]:.5f} ms (substr(channel, 1, 3) "
+          f"{sub_ms:.4f} ms, ltrim(url) {trim_ms:.4f} ms)", flush=True)
+    out["str_window"] = kernel_entry(
+        "str_window.cu", "risingwave_tpu/expr/scalar.py:509", ms, plain_ms,
+        b_, None, err)
+    out["str_window"]["at_shapes"] = {"substr_ms": sub_ms,
+                                      "ltrim_ms": trim_ms}
+
+    # -- K23h calendar -------------------------------------------------------
+    pairs = []
+    for part in S.EXTRACT_PARTS:
+        for tag, x, date in (("timestamps", ts, False), ("dates", days, True),
+                             ("date_time", date_time, False)):
+            pairs.append((f"extract {part} {tag}", S.extract(x, part, date),
+                          S.extract_plain(x, part, date)))
+    err = max_abs_err(torch, pairs)
+    epoch = dt.datetime(1970, 1, 1)
+    got = {p: S.extract(ts, p).cpu().numpy() for p in S.EXTRACT_PARTS}
+    for i, us in enumerate(cs["ts"].tolist()):
+        if not -62_135_596_800_000_000 <= us < 253_402_300_800_000_000:
+            continue
+        t = epoch + dt.timedelta(microseconds=us)
+        want = {"year": t.year, "month": t.month, "day": t.day,
+                "hour": t.hour, "minute": t.minute, "second": t.second,
+                "dow": t.isoweekday() % 7, "doy": t.timetuple().tm_yday,
+                "epoch": us // 10**6}
+        for p, w in want.items():
+            if int(got[p][i]) != w:
+                fail(f"extract {p} of {us}: {int(got[p][i])} vs datetime {w}")
+    ms = timer(lambda i: S.extract(date_time, "hour"), 200)
+    plain_ms = timer(lambda i: S.extract_plain(date_time, "hour", False), 20)
+    b_ = bound(cap * 16, cap * 40)
+    hours = np.unique(S.extract(date_time, "hour").cpu().numpy())
+    print(f"[calendar] exact on {cap} timestamps from 1600 to 2400 (year "
+          f"boundaries, leap days, the int64 extremes) and dates over "
+          f"+-2^26 days, every part, equal to datetime; q14's "
+          f"extract(hour from date_time) (hours {hours.tolist()}): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_[0]:.5f} ms",
+          flush=True)
+    out["calendar"] = kernel_entry(
+        "calendar.cu", "risingwave_tpu/expr/scalar.py:659", ms, plain_ms,
+        b_, None, err)
+    return out
+
+
+#: the card-against-CPU runs' sizes
+SCALAR_PARITY_CONFIG = dict(chunk_capacity=256, agg_table_size=1 << 10,
+                            agg_emit_capacity=64, mv_table_size=1 << 12,
+                            mv_ring_size=1 << 14)
+
+
+def _scalar_config(scale: int) -> dict:
+    """bench.py's sizes with a ring of 2^23 (no lap)."""
+    cfg = {k: v // scale for k, v in BENCH_CONFIG.items()}
+    cfg["mv_ring_size"] = (1 << 23) // scale
+    return cfg
+
+
+def _scalar_engine(torch, device, cfg: dict, query: str, rate: str):
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    eng = Engine(PlannerConfig(**cfg), device=device)
+    eng.execute(BENCH_SOURCES.replace("'1000000'", f"'{rate}'"))
+    eng.execute(SCALAR_QUERY_SQL[query])
+    return eng
+
+
+def phase_scalar_parity(torch, device, query: str) -> None:
+    """``query`` at 2 events/s on the card and on the CPU (plain
+    versions; the aggregation forced onto the card's pre-aggregation
+    branch), small sizes: the MV's rows and every state tensor must be
+    equal."""
+    from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
+    from risingwave_tpu_torch.stream import hash_agg
+
+    engines = []
+    card_branch = hash_agg.accel_tuned
+    for dev in (device, torch.device("cpu")):
+        if dev.type == "cpu":
+            hash_agg.accel_tuned = lambda d: True
+        try:
+            eng = _scalar_engine(torch, dev, SCALAR_PARITY_CONFIG,
+                                 query, "2")
+            eng.tick(barriers=6, chunks_per_barrier=4)
+        finally:
+            hash_agg.accel_tuned = card_branch
+        engines.append(eng)
+    rows = [sorted((tuple(v if isinstance(v, str) else _host_value(v)
+                          for v in r)
+                    for r in e.execute(f"SELECT * FROM {SCALAR_MV[query]}")),
+                   key=repr) for e in engines]
+    if rows[0] != rows[1] or not rows[0]:
+        fail(f"{query} MV on the card differs from the CPU plain versions")
+    bad = state_mismatches(state_to_numpy(engines[1].jobs[0].states),
+                           engines[0].jobs[0].states)
+    if bad:
+        fail(f"{query} state on the card differs from the CPU: {bad[:5]}")
+    print(f"[parity] {query} at 2 events/s, 6 barriers: {len(rows[0])} MV "
+          f"rows and all state equal to the CPU plain versions", flush=True)
+
+
+def _price_eur(price):
+    """0.908 * price at the engine scale, as the port's NUMERIC multiply
+    computes it: round(908000 * (price * 10^6) / 10^6), half to even."""
+    import numpy as np
+
+    return np.round(np.float64(908_000) * (price * 10**6).astype(np.float64)
+                    / 1e6).astype(np.int64)
+
+
+def _ring_check(query: str, n: int, overflow: int, leaves, want, what: str):
+    import numpy as np
+
+    total = want[0].shape[0]
+    if n != total or overflow:
+        fail(f"{query} ring holds {n} rows (overflow {overflow}) for {total} "
+             "expected")
+    if len(want) != len(leaves):
+        fail(f"{query} ring has {len(leaves)} leaves, expected {len(want)}")
+    for i, (got, exp) in enumerate(zip(leaves, want)):
+        if got.shape != exp.shape or got.dtype != exp.dtype \
+                or not np.array_equal(got, exp):
+            fail(f"{query} ring leaf {i} differs from numpy/Python")
+    return f"ring rows equal numpy/Python ({what}) over {n} rows, no lap"
+
+
+def check_q14(eng, cap: int) -> str:
+    """The ring against numpy and Python over the consumed bids: the
+    filter on 0.908 * price (NUMERIC), the CASE over the hour (datetime),
+    the url and count_char = url.count(b'e'), leaf for leaf."""
+    import datetime as dt
+
+    import numpy as np
+
+    b = _consumed_bid_rows(eng, cap)
+    n, overflow, leaves = _ring_planes(eng, "nexmark_q14")
+    eur = _price_eur(b["price"])
+    keep = (eur > 10**12) & (eur < 5 * 10**13)
+    hour_keys = b["ts"][keep] // 3_600_000_000
+
+    def kind(h):
+        t = dt.datetime(1970, 1, 1) + dt.timedelta(hours=int(h))
+        hr = t.hour
+        if 8 <= hr <= 18:
+            return b"dayTime"
+        return b"nightTime" if hr <= 6 or hr >= 20 else b"otherTime"
+
+    kd, kl = _expected_strings(hour_keys, kind, 64)
+    urls = np.concatenate([b["url"], b["urll"][:, None].view(np.uint8)
+                           .reshape(-1, 4)], axis=1)[keep]
+    # url.count(b'e') per row, carried as the length of a string of that
+    # many bytes (computed once per distinct url)
+    _, counts = _expected_strings(
+        urls, lambda k: b"e" * bytes(k[:int(k[40:].view(np.int32)[0])])
+        .count(b"e"), 40)
+    want = [b["auction"][keep], b["bidder"][keep], eur[keep], kd, kl,
+            b["ts"][keep], b["url"][keep], b["urll"][keep],
+            counts.astype(np.int32)]
+    kinds = sorted({bytes(r[:ln]).decode() for r, ln in zip(kd, kl)})
+    return _ring_check("q14", n, overflow, leaves, want,
+                       f"{int(keep.sum())} of {keep.size} bids kept by "
+                       f"0.908 * price, bidTimeType {kinds} by the hour, "
+                       "count_char(url, 'e') = url.count('e')")
+
+
+def check_bid_strings(eng, cap: int) -> str:
+    """The ring against numpy and Python over the consumed bids: the LIKE
+    and OR filter by ``re`` and bytes methods, substr, the two concats,
+    trim and ltrim by Python, year and doy by datetime, the float64
+    divide (IEEE) and the NUMERIC one (float64, rounded half to even at
+    the engine scale), leaf for leaf."""
+    import datetime as dt
+
+    import numpy as np
+
+    b = _consumed_bid_rows(eng, cap)
+    n, overflow, leaves = _ring_planes(eng, "bid_strings")
+    cw, uw = b["ch"].shape[1], b["url"].shape[1]
+    keys = np.concatenate([b["ch"], b["chl"][:, None].view(np.uint8)
+                           .reshape(-1, 4), b["url"],
+                           b["urll"][:, None].view(np.uint8).reshape(-1, 4)],
+                          axis=1)
+    rx = k23_python_like
+
+    def split(k):
+        ch = bytes(k[:int(k[cw:cw + 4].view(np.int32)[0])])
+        u0 = cw + 4
+        u = bytes(k[u0:u0 + int(k[u0 + uw:u0 + uw + 4].view(np.int32)[0])])
+        return ch, u
+
+    def passes(k):
+        ch, u = split(k)
+        ok = rx(u, "https://%page1%item") and (
+            ch.startswith(b"G") or b"page2" in u or ch.endswith(b"u"))
+        return b"1" if ok else b""
+
+    _, ok = _expected_strings(keys, passes, 1)
+    keep = ok.astype(bool)
+    k = keys[keep]
+    pre = _expected_strings(k, lambda x: split(x)[0][:3], cw)
+    cu = _expected_strings(k, lambda x: split(x)[0] + split(x)[1], cw + uw)
+    ch = _expected_strings(k, lambda x: split(x)[0].strip(b" "), 64 + cw + 64)
+    lu = _expected_strings(k, lambda x: split(x)[1].lstrip(b" "), uw)
+    days = b["ts"][keep] // DAY_US
+
+    def part(fn):
+        u, inv = np.unique(days, return_inverse=True)
+        vals = np.array([fn(dt.date(1970, 1, 1) + dt.timedelta(days=int(d)))
+                         for d in u], np.int64)
+        return vals[inv.reshape(-1)]
+
+    price = b["price"][keep]
+    p7 = np.round((price * 10**6).astype(np.float64) / 7e6 * 1e6) \
+        .astype(np.int64)
+    want = [b["auction"][keep], pre[0], pre[1], cu[0], cu[1], ch[0], ch[1],
+            lu[0], lu[1], part(lambda d: d.year),
+            part(lambda d: d.timetuple().tm_yday),
+            price.astype(np.float64) / 3.0, p7]
+    return _ring_check("bid_strings", n, overflow, leaves, want,
+                       f"{int(keep.sum())} of {keep.size} bids kept by LIKE "
+                       "and the ORs; substr, ||, trim, ltrim, year, doy and "
+                       "the two divides")
+
+
+def check_avg_bid(eng, cap: int) -> str:
+    """The MV against numpy over the consumed bids, per auction: avg_price
+    as the exact int64 sum over the count in float64 (within 1e-12
+    relative), avg_price_eur as the NUMERIC sum of 0.908 * price divided
+    with truncation toward zero (exact), count(*) exact."""
+    import numpy as np
+
+    b = _consumed_bid_rows(eng, cap)
+    entry = eng.catalog.get("avg_bid")
+    st = eng.jobs[0].states[entry.mv_state_index[0]]
+    occ = st.table.occupied.cpu().numpy()
+    got = [v.cpu().numpy()[occ] for v in st.values]
+    keys, inv = np.unique(b["auction"], return_inverse=True)
+    inv = inv.reshape(-1)
+    cnt = np.bincount(inv).astype(np.int64)
+    s = np.zeros(keys.size, np.int64)
+    np.add.at(s, inv, b["price"])
+    se = np.zeros(keys.size, np.int64)
+    np.add.at(se, inv, _price_eur(b["price"]))
+    order = np.argsort(got[0])
+    got = [g[order] for g in got]
+    if not np.array_equal(got[0], keys):
+        fail(f"avg_bid holds {got[0].size} auctions, numpy {keys.size}")
+    avg = s.astype(np.float64) / cnt.astype(np.float64)
+    rel = float(np.max(np.abs(got[1] - avg) / np.abs(avg)))
+    if got[1].dtype != np.float64 or rel > 1e-12:
+        fail(f"avg_bid avg_price differs from numpy (max rel err {rel})")
+    eur = np.sign(se) * (np.abs(se) // cnt)
+    if not np.array_equal(got[2], eur) or not np.array_equal(got[3], cnt):
+        fail("avg_bid avg_price_eur or bids differs from numpy")
+    return (f"MV equals numpy over {b['price'].size} bids: {keys.size} "
+            f"auctions, avg_price within {rel:.2e} relative (1e-12 allowed), "
+            "avg_price_eur and bids exact")
+
+
+SCALAR_CHECKS = {"q14": check_q14, "bid_strings": check_bid_strings,
+                 "avg_bid": check_avg_bid}
+
+
+def phase_scalar_main_path(torch, device, scale, query: str):
+    """``query`` at bench.py's sizes (chunk 8192; q14 and bid_strings a
+    ring of 2^23, avg_bid an agg table and an MV of 2^18): 9 warm-up
+    barriers, then 32 timed barriers of 8 chunks with the launch counters
+    taken over the timed window, one profiled window, the counter audit,
+    and the MV checked against its host model."""
+    from risingwave_tpu_torch import kernels
+
+    cuda = device.type == "cuda"
+    barriers = BARRIERS if cuda else 2
+    eng = _scalar_engine(torch, device, _scalar_config(scale), query,
+                         "1000000")
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
+    eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
+    eng.tick(barriers=WARMUP_BARRIERS if cuda else 1,
+             chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cap = eng.jobs[0].source.cap
+    chunks = barriers * CHUNKS_PER_BARRIER
+    rate = chunks * cap / dt
+    k23 = {k: launches[k] / chunks for k in K23_REST_KERNELS if launches[k]}
+    print(f"[main] {query} {chunks * cap} rows in {dt:.3f} s = {rate:.0f} "
+          f"rows/s; K23e-h launches per chunk {k23}; port kernel launches "
+          f"{sum(launches.values()) / chunks:.2f} per chunk", flush=True)
+    if cuda:
+        per_chunk = profile_window(torch, eng, query)
+        print(f"[main] {query} launches per chunk "
+              f"{'not measured' if per_chunk is None else f'{per_chunk:.1f}'}"
+              f" (all CUDA kernels, profiled window)", flush=True)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    eng.tick(barriers=1, chunks_per_barrier=0)
+    print(f"[check] {query} {SCALAR_CHECKS[query](eng, cap)}", flush=True)
+    del eng
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches, rate
 
 
 if __name__ == "__main__":

@@ -17,21 +17,15 @@
 // delimiter and n are per-row inputs with their own row strides (0 for a
 // literal), as the reference takes columns.
 //
+// The greedy walk is rw_str.cuh's `rw_next_match`, shared with K23e
+// (replace); rows are read through 16-byte words (`RwReader`) and the
+// output row is written whole (`RwWriter`).
+//
 // Bound: bytes.  Each row's string bytes are read (at most twice, from the
 // same cache lines) and width + 4 bytes written; the match test is a few
 // byte compares per offset.  At q22's 8192 x 40 B strings that is ~0.7 MB
 // a launch, so the plain one-thread-per-row walk is the design.
 #include "rw_str.cuh"
-
-// The offset of the next match at or after `from`, or -1.
-__device__ __forceinline__ int next_match(const uint8_t* s, int ls,
-                                          const uint8_t* d, int ld,
-                                          int from) {
-  for (int b = from; b + ld <= ls; ++b) {
-    if (rw_bytes_eq(s + b, d, ld)) return b;
-  }
-  return -1;
-}
 
 __global__ void split_part_kernel(RwStr a, RwStr d,
                                   const int32_t* __restrict__ nth,
@@ -41,14 +35,14 @@ __global__ void split_part_kernel(RwStr a, RwStr d,
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (i >= n) return;
-  const uint8_t* s = rw_str_row(a, i);
-  const uint8_t* dp = rw_str_row(d, i);
+  RwReader s(rw_str_row(a, i));
+  RwReader dp(rw_str_row(d, i));
   const int ls = rw_str_len(a, i), ld = rw_str_len(d, i);
   const long long k = nth[i * nth_stride];
   int count = 0;
   if (ld > 0) {
-    for (int b = next_match(s, ls, dp, ld, 0); b >= 0;
-         b = next_match(s, ls, dp, ld, b + ld)) {
+    for (int b = rw_next_match(s, ls, dp, ld, 0); b >= 0;
+         b = rw_next_match(s, ls, dp, ld, b + ld)) {
       ++count;
     }
   }
@@ -58,8 +52,8 @@ __global__ void split_part_kernel(RwStr a, RwStr d,
     end = ls;
     long long part = 0;
     if (ld > 0) {
-      for (int b = next_match(s, ls, dp, ld, 0); b >= 0;
-           b = next_match(s, ls, dp, ld, b + ld)) {
+      for (int b = rw_next_match(s, ls, dp, ld, 0); b >= 0;
+           b = rw_next_match(s, ls, dp, ld, b + ld)) {
         if (part == target) {
           end = b;
           break;
@@ -70,8 +64,9 @@ __global__ void split_part_kernel(RwStr a, RwStr d,
     }
   }
   const int len = end - start;
-  uint8_t* o = out + i * a.width;
-  for (int j = 0; j < a.width; ++j) o[j] = j < len ? s[start + j] : 0;
+  RwWriter o(out + i * a.width, a.width);
+  for (int j = 0; j < len; ++j) o.put(s[start + j]);
+  o.finish();
   out_len[i] = len;
 }
 

@@ -2,7 +2,8 @@
 //
 // Replaces risingwave_tpu/expr/scalar.py:857 `eval_to_char` with the
 // calendar it runs, `_civil_from_ts` (:641, Howard Hinnant's
-// civil_from_days), for a format compiled at bind time by
+// civil_from_days, shared with K23h in rw_cal.cuh), for a format compiled
+// at bind time by
 // `compile_to_char_pattern` (:835).
 //
 // The compiled format arrives by value as a segment program: a literal run
@@ -20,7 +21,7 @@
 //
 // Bound: bytes (8 B read and `width` B written a row); the calendar is
 // ~40 integer operations, below the memory time at any realistic width.
-#include "rw_str.cuh"
+#include "rw_cal.cuh"
 
 #define RW_TOCHAR_SEGS 32
 #define RW_TOCHAR_LIT 128
@@ -47,19 +48,9 @@ __global__ void to_char_kernel(const long long* __restrict__ ts, long long n,
                       threadIdx.x;
   if (i >= n) return;
   const long long us = ts[i];
-  // civil_from_days over floor-divided days
-  const long long days = rw_floor_div(us, 86400000000LL);
-  const long long z = days + 719468;
-  const long long era = rw_floor_div(z, 146097);
-  const long long doe = z - era * 146097;
-  const long long yoe = (doe - doe / 1460 + doe / 36524 - doe / 146096) / 365;
-  long long y = yoe + era * 400;
-  const long long doy = doe - (365 * yoe + yoe / 4 - yoe / 100);
-  const long long mp = (5 * doy + 2) / 153;
-  const long long d = doy - (153 * mp + 2) / 5 + 1;
-  const long long m = mp < 10 ? mp + 3 : mp - 9;
-  if (m <= 2) y += 1;
-  const long long in_day = rw_floor_mod(us, 86400000000LL);
+  const RwCivil c = rw_civil_from_us(us);
+  const long long y = c.y, m = c.m, d = c.d;
+  const long long in_day = rw_floor_mod(us, RW_DAY_US);
   const long long h24 = in_day / 3600000000LL;
 
   uint8_t* o = out + i * prog.width;

@@ -1,14 +1,15 @@
 """Aggregate functions as primitive scatter states.
 
-Port of ``risingwave_tpu/expr/agg.py`` (:79-200): an aggregate is one or
+Port of ``risingwave_tpu/expr/agg.py`` (:79-219): an aggregate is one or
 more primitive states, each updated by one scatter over the chunk's
 slot vector — ``add`` states (count, sum) are retractable through the
 changelog sign, ``min``/``max`` states are monotone monoids exact for
 append-only input.  ``lift`` maps (value column, signs) to each row's
 contribution; ``output`` turns the states into the SQL result at flush.
 
-Ported: count, count(*), sum, sum0, min, max.  avg and the packed
-string min/max are not ported yet (``AggCall.spec`` raises).
+Ported: count, count(*), sum, sum0, avg (a sum and a count state,
+``_out_avg``), min, max.  The packed string min/max are not ported yet
+(``AggCall.spec`` raises).
 """
 
 from __future__ import annotations
@@ -93,6 +94,23 @@ def _out_first(states, count, out_field):
     return states[0]
 
 
+def _out_avg(states, count, out_field):
+    """sum / count: float64 for integer and float input; a DECIMAL sum
+    divided with truncation toward zero (floor division would bias a
+    negative sum); 0 for an empty group."""
+    s, c = states
+    safe = torch.where(c == 0, torch.ones_like(c), c)
+    if out_field.data_type == DataType.DECIMAL:
+        q = torch.sign(s) * (torch.abs(s) // safe)
+        return torch.where(c != 0, q, torch.zeros_like(q))
+    q = s / safe.to(torch.float64)
+    return torch.where(c != 0, q, torch.zeros_like(q))
+
+
+def _avg_type(t):
+    return DataType.DECIMAL if t == DataType.DECIMAL else DataType.FLOAT64
+
+
 def _sum_type(t):
     return DataType.INT64 if t in (DataType.INT16, DataType.INT32) else t
 
@@ -104,6 +122,7 @@ AGG_REGISTRY: dict[str, AggSpec] = {
                           lambda t: DataType.INT64),
     "sum": AggSpec("sum", (_ADD_SUM,), _out_first, True, _sum_type),
     "sum0": AggSpec("sum0", (_ADD_SUM,), _out_first, True, _sum_type),
+    "avg": AggSpec("avg", (_ADD_SUM, _ADD_COUNT), _out_avg, True, _avg_type),
     "min": AggSpec("min", (_MIN,), _out_first, False, lambda t: t),
     "max": AggSpec("max", (_MAX,), _out_first, False, lambda t: t),
 }

@@ -178,6 +178,23 @@ class FuncCall(Expr):
         return f"{self.name}({', '.join(map(repr, self.args))})"
 
 
+def cuda_refusal(e: Expr) -> str | None:
+    """Why the card's kernels cannot evaluate ``e`` or one of its
+    sub-expressions, or None (a node with a compiled program names its
+    own limits: ``LikePattern``, ``ToChar``)."""
+    why = e.cuda_refusal() if hasattr(e, "cuda_refusal") else None
+    if why is not None:
+        return why
+    subs = getattr(e, "args", ()) if isinstance(e, FuncCall) \
+        else (getattr(e, "arg", None),)
+    for sub in subs:
+        if isinstance(sub, Expr):
+            why = cuda_refusal(sub)
+            if why is not None:
+                return why
+    return None
+
+
 def as_expr(v: Any) -> Expr:
     """Coerce python values to Literal exprs."""
     if isinstance(v, Expr):

@@ -1,17 +1,23 @@
-"""Scalar functions: the part of the reference's ``expr/scalar.py`` that
-the ported plans reach.
+"""Scalar functions: the port of the reference's ``expr/scalar.py``.
 
-Port of ``risingwave_tpu/expr/scalar.py``: integer/timestamp
-arithmetic, comparisons (strings too), boolean logic, IS [NOT] NULL,
-COALESCE and CASE, ``tumble_start`` (:423), NUMERIC multiply (:137),
-integer/decimal coercion, and the string and calendar functions of
-Nexmark q10, q21 and q22: ``lower``/``upper``, ``split_part``,
-``to_char`` (``ToChar``) and the ``regexp_match`` capture
-(``RegexpGroup``).  Every implementation takes and returns whole torch
-columns; the string and calendar arithmetic runs in the K23 kernels
-(``expr/strings.py``).  NUMERIC divide and the other string functions
-(``replace``, LIKE, ``substr``, ``trim``, ``concat``, ``extract``) are
-not ported yet: they are not registered, and the binder refuses them.
+Port of ``risingwave_tpu/expr/scalar.py``, its whole registry: the
+casts (``coerce`` :35, ``cast_*`` :77-96), arithmetic with the NUMERIC
+and float divide (``_div`` :150), comparisons (strings too), boolean
+logic, IS [NOT] NULL, COALESCE and CASE, the math functions (:173-215,
+:452-502), ``tumble_start``, ``extract_*`` and ``date_trunc_*``, and the
+string functions: ``lower``/``upper``, ``split_part``, ``replace``,
+``substr``, ``trim``/``ltrim``/``rtrim``, ``concat`` (also ``||``),
+``starts_with``/``ends_with``/``contains``, the byte lengths, the LIKE
+of ``%`` patterns (``LikePattern``), ``to_char`` (``ToChar``) and the
+``regexp_match`` capture (``RegexpGroup``).  Every implementation takes
+and returns whole torch columns.
+
+The string walks and the calendar run in the K23 kernels
+(``expr/strings.py``); the casts and the elementwise math stay plain
+PyTorch: in the JAX package each is one ``jnp`` op that XLA fuses into
+its neighbours, not a loop of its own.  XLA converts float to int
+saturating (NaN to 0), which ``_to_int`` repeats; its ``sqrt``, ``exp``,
+``log`` and ``pow`` may differ from torch's in the last bits.
 
 torch's ``%`` and ``//`` on integer tensors floor like ``jnp``'s, so
 ``ts - ts % size`` gives the same window start for negative times.
@@ -33,42 +39,96 @@ from risingwave_tpu_torch.common.types import (
 from risingwave_tpu_torch.expr.node import Expr
 from risingwave_tpu_torch.expr.registry import function, promote_numeric
 from risingwave_tpu_torch.expr.strings import (
+    extract,
+    like_match,
+    like_refusal,
     pad_bytes,
     regexp_group,
     str_case_map,
     str_cmp,
+    str_concat,
+    str_match,
+    str_replace,
     str_split_part,
+    str_substr,
+    str_trim,
     to_char,
+    to_char_refusal,
 )
 
 _SCALE = 10**DEFAULT_DECIMAL_SCALE
+_US_PER_DAY = 86_400_000_000
+
+
+def _to_int(col: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``col`` converted to an integer dtype as XLA converts: a float
+    saturates at the type's range and NaN becomes 0 (torch's own
+    conversion is undefined there)."""
+    if not col.dtype.is_floating_point:
+        return col.to(dtype)
+    info = torch.iinfo(dtype)
+    hi = col >= float(info.max)
+    lo = col <= float(info.min)
+    safe = torch.where(hi | lo | torch.isnan(col), 0, col).to(dtype)
+    return torch.where(hi, info.max, torch.where(lo, info.min, safe))
 
 
 def coerce(col, field: Field, target: DataType):
-    """Cast a column from its logical type to ``target`` (integral
-    widening, integer -> DECIMAL and the DECIMAL rescale to the engine
-    scale; other casts are not ported yet)."""
+    """Cast a column from its logical type to ``target`` (the
+    reference's ``coerce``; a string column raises ``TypeError``)."""
     t = field.data_type
     if t == target and not (
         t == DataType.DECIMAL and field.decimal_scale != DEFAULT_DECIMAL_SCALE
     ):
         return col
-    if t == DataType.DECIMAL and target == DataType.DECIMAL:
-        # a non-default-scale column rescales to the engine scale, which
-        # the arithmetic below assumes (floor division when narrowing)
-        diff = DEFAULT_DECIMAL_SCALE - field.decimal_scale
-        if diff > 0:
-            return col * (10**diff)
-        return col // (10 ** (-diff))
-    if t.is_integral and t != DataType.DECIMAL:
+    if isinstance(col, StrCol):
+        raise TypeError(f"cannot cast string column to {target}")
+    pdt = target.physical_dtype
+    if t == DataType.DECIMAL:
         if target == DataType.DECIMAL:
-            return col.to(torch.int64) * _SCALE
-        if target.is_integral:
-            return col.to(target.physical_dtype)
+            # a non-default-scale column rescales to the engine scale,
+            # which the arithmetic assumes (floor division when narrowing)
+            diff = DEFAULT_DECIMAL_SCALE - field.decimal_scale
+            if diff > 0:
+                return col * (10**diff)
+            return col // (10 ** (-diff))
         if target in (DataType.FLOAT32, DataType.FLOAT64):
-            return col.to(target.physical_dtype)
-    raise NotImplementedError(f"cast {t.name} -> {target.name} is not "
-                              "ported yet")
+            return col.to(pdt) / torch.tensor(float(10**field.decimal_scale),
+                                              dtype=pdt)
+        if target.is_integral:
+            return (col // (10**field.decimal_scale)).to(pdt)
+        raise TypeError(f"decimal -> {target}?")
+    if target == DataType.DECIMAL:
+        if t.is_integral:
+            return col.to(torch.int64) * _SCALE
+        # float -> decimal: round half to even at the engine scale
+        return _to_int(torch.round(col.to(torch.float64) * _SCALE),
+                       torch.int64)
+    if target == DataType.BOOLEAN:
+        return col != 0
+    if t == DataType.DATE and target in (DataType.TIMESTAMP,
+                                         DataType.TIMESTAMPTZ):
+        # DATE is int32 days since the epoch; timestamps int64 us
+        return col.to(torch.int64) * _US_PER_DAY
+    if t in (DataType.TIMESTAMP, DataType.TIMESTAMPTZ) \
+            and target == DataType.DATE:
+        return (col // _US_PER_DAY).to(torch.int32)
+    if pdt.is_floating_point:
+        return col.to(pdt)
+    return _to_int(col, pdt)
+
+
+def _mk_cast(target: DataType):
+    def _cast(a, fields: Sequence[Field]):
+        return coerce(a, fields[0], target)
+
+    return _cast
+
+
+for _t in (DataType.INT16, DataType.INT32, DataType.INT64, DataType.FLOAT32,
+           DataType.FLOAT64, DataType.DECIMAL, DataType.BOOLEAN,
+           DataType.TIMESTAMP, DataType.TIMESTAMPTZ, DataType.DATE):
+    function(f"cast_{_t.name.lower()}(any) -> {_t.value}")(_mk_cast(_t))
 
 
 def _promote_args(cols, fields: Sequence[Field]):
@@ -118,9 +178,17 @@ def _mul(a, b, fields: Sequence[Field]):
 
 @function("divide(numeric, numeric) -> auto")
 def _div(a, b, fields: Sequence[Field]):
+    """DECIMAL through float64, rounded half to even at the engine scale
+    (0 where the divisor is 0); float IEEE; integer floor (0 for 0)."""
     (a, b), t = _promote_args((a, b), fields)
-    if t == DataType.DECIMAL or a.dtype.is_floating_point:
-        raise NotImplementedError("NUMERIC/float divide is not ported yet")
+    if t == DataType.DECIMAL:
+        safe = torch.where(b == 0, torch.ones_like(b), b)
+        q = a.to(torch.float64) / safe.to(torch.float64)
+        return torch.where(b != 0, _to_int(torch.round(q * _SCALE),
+                                           torch.int64),
+                           torch.zeros_like(a))
+    if a.dtype.is_floating_point:
+        return a / b
     safe = torch.where(b == 0, torch.ones_like(b), b)
     return torch.where(b != 0, a // safe, torch.zeros_like(a))
 
@@ -135,6 +203,41 @@ def _mod(a, b, fields: Sequence[Field]):
 @function("neg(numeric) -> same")
 def _neg(a):
     return -a
+
+
+@function("abs(numeric) -> same")
+def _abs(a):
+    return torch.abs(a)
+
+
+@function("round(floatlike) -> same")
+def _round(a):
+    return torch.round(a)
+
+
+@function("round(numeric) -> same")
+def _round_dec(a, fields: Sequence[Field]):
+    if fields[0].data_type == DataType.DECIMAL:
+        s = 10**fields[0].decimal_scale
+        # half away from zero (floor division alone biases negatives)
+        return torch.sign(a) * ((torch.abs(a) + s // 2) // s * s)
+    return torch.round(a)
+
+
+@function("round(numeric, int) -> same")
+@function("round(numeric, bigint) -> same")
+def _round_dec_n(a, n, fields: Sequence[Field]):
+    """round(x, n): n decimal places.  DECIMAL keeps its storage scale
+    with the value rounded to n places; floats round through a scale."""
+    if fields[0].data_type == DataType.DECIMAL:
+        shift = torch.clamp(fields[0].decimal_scale - n.to(torch.int64),
+                            min=0)
+        p = torch.pow(10, shift)
+        return torch.sign(a) * ((torch.abs(a) + p // 2) // p * p)
+    if not a.dtype.is_floating_point:
+        return a  # rounding an integer to >= 0 places is the identity
+    p = torch.pow(10.0, n.to(torch.float64))
+    return torch.round(a * p) / p
 
 
 def _make_cmp(name: str, op, str_op: str):
@@ -265,14 +368,194 @@ def _case(c, t, e, fields: Sequence[Field]):
                                   en if en is not None else zeros))
 
 
+# ---------------------------------------------------------------------------
+# temporal: microsecond functions are registered for the microsecond types
+# only (DATE is int32 days and must not match them)
+
+_US = {"second": 1_000_000, "minute": 60_000_000, "hour": 3_600_000_000,
+       "day": _US_PER_DAY}
+
+
+@function("extract_epoch(timestamp) -> bigint")
+@function("extract_epoch(timestamptz) -> bigint")
+def _extract_epoch(a):
+    return extract(a, "epoch")
+
+
+@function("extract_epoch(date) -> bigint")
+def _extract_epoch_date(a):
+    return extract(a, "epoch", date=True)
+
+
+def _us_trunc(unit: str):
+    def impl(a):
+        return a - a % _US[unit]
+
+    return impl
+
+
+for _unit in ("second", "minute", "hour", "day"):
+    _impl = _us_trunc(_unit)
+    function(f"date_trunc_{_unit}(timestamp) -> same")(_impl)
+    function(f"date_trunc_{_unit}(timestamptz) -> same")(_impl)
+
+
 @function("tumble_start(timestamp, interval) -> same")
 @function("tumble_start(timestamptz, interval) -> same")
 def _tumble_start(ts, size):
     return ts - ts % size
 
 
+def _mk_extract(part: str, date: bool):
+    def impl(a):
+        return extract(a, part, date=date)
+
+    return impl
+
+
+# extract(part FROM x): kernel K23h (the calendar of _civil_from_ts)
+for _part in ("year", "month", "day", "hour", "minute", "second", "dow",
+              "doy"):
+    function(f"extract_{_part}(timestamp) -> bigint")(
+        _mk_extract(_part, False))
+    function(f"extract_{_part}(timestamptz) -> bigint")(
+        _mk_extract(_part, False))
+    function(f"extract_{_part}(date) -> bigint")(_mk_extract(_part, True))
+
+
 # ---------------------------------------------------------------------------
-# strings (kernels K23a and K23d, ``expr/strings.py``)
+# math (elementwise, plain PyTorch)
+
+
+def _f64(a, field: Field):
+    return coerce(a, field, DataType.FLOAT64)
+
+
+@function("sqrt(numeric) -> double precision")
+def _sqrt(a, fields: Sequence[Field]):
+    return torch.sqrt(_f64(a, fields[0]))
+
+
+@function("power(numeric, numeric) -> double precision")
+def _power(a, b, fields: Sequence[Field]):
+    return torch.pow(_f64(a, fields[0]), _f64(b, fields[1]))
+
+
+@function("exp(numeric) -> double precision")
+def _exp(a, fields: Sequence[Field]):
+    return torch.exp(_f64(a, fields[0]))
+
+
+@function("ln(numeric) -> double precision")
+def _ln(a, fields: Sequence[Field]):
+    return torch.log(_f64(a, fields[0]))
+
+
+@function("log10(numeric) -> double precision")
+def _log10(a, fields: Sequence[Field]):
+    return torch.log10(_f64(a, fields[0]))
+
+
+@function("floor(floatlike) -> same")
+def _floor(a):
+    return torch.floor(a)
+
+
+@function("ceil(floatlike) -> same")
+def _ceil(a):
+    return torch.ceil(a)
+
+
+@function("sign(numeric) -> int")
+def _sign(a):
+    return _to_int(torch.sign(a), torch.int32)
+
+
+@function("greatest(numeric, numeric) -> auto")
+def _greatest(a, b, fields: Sequence[Field]):
+    (a, b), _ = _promote_args((a, b), fields)
+    return torch.maximum(a, b)
+
+
+@function("least(numeric, numeric) -> auto")
+def _least(a, b, fields: Sequence[Field]):
+    (a, b), _ = _promote_args((a, b), fields)
+    return torch.minimum(a, b)
+
+
+# ---------------------------------------------------------------------------
+# strings (kernels K23a, K23d-g, ``expr/strings.py``)
+
+
+@function("char_length(stringlike) -> int")
+def _char_length(a: StrCol):
+    # byte length, as the reference's (full UTF-8 counting is not there)
+    return a.lens
+
+
+@function("octet_length(stringlike) -> int")
+def _octet_length(a: StrCol):
+    return a.lens
+
+
+@function("length(stringlike) -> int")
+def _length(a: StrCol):
+    return a.lens
+
+
+@function("concat(stringlike, stringlike) -> character varying")
+def _concat(a: StrCol, b: StrCol):
+    return str_concat(a, b)
+
+
+@function("substr(stringlike, int) -> same")
+@function("substr(stringlike, bigint) -> same")
+def _substr2(a: StrCol, start):
+    return str_substr(a, start)
+
+
+@function("substr(stringlike, int, int) -> same")
+@function("substr(stringlike, bigint, bigint) -> same")
+def _substr3(a: StrCol, start, count):
+    return str_substr(a, start, count)
+
+
+@function("trim(stringlike) -> same")
+def _trim(a: StrCol):
+    return str_trim(a, "trim")
+
+
+@function("ltrim(stringlike) -> same")
+def _ltrim(a: StrCol):
+    return str_trim(a, "ltrim")
+
+
+@function("rtrim(stringlike) -> same")
+def _rtrim(a: StrCol):
+    return str_trim(a, "rtrim")
+
+
+@function("starts_with(stringlike, stringlike) -> boolean")
+def _starts_with(a: StrCol, p: StrCol):
+    return str_match(a, p, "starts_with")
+
+
+@function("ends_with(stringlike, stringlike) -> boolean")
+def _ends_with(a: StrCol, p: StrCol):
+    return str_match(a, p, "ends_with")
+
+
+@function("contains(stringlike, stringlike) -> boolean")
+def _contains(a: StrCol, p: StrCol):
+    return str_match(a, p, "contains")
+
+
+@function("replace(stringlike, stringlike, stringlike) -> same")
+def _replace(a: StrCol, frm: StrCol, to: StrCol):
+    """Greedy leftmost matches of ``frm`` rewritten to ``to``; the output
+    is clamped at the input's width, as the reference's (ref
+    replace.rs)."""
+    return str_replace(a, frm, to)
 
 
 @function("lower(stringlike) -> same")
@@ -357,6 +640,9 @@ class ToChar(Expr):
     def return_type(self, schema):
         return DataType.VARCHAR
 
+    def cuda_refusal(self) -> str | None:
+        return to_char_refusal(tuple(self.segs))
+
     def eval(self, chunk):
         col, null = split_col(self.arg.eval(chunk))
         return make_col(to_char(col, self.segs), null)
@@ -424,3 +710,43 @@ class RegexpGroup(Expr):
 
     def __repr__(self):
         return f"regexp_match({self.arg!r}, {self.pattern!r})[2]"
+
+
+# ---------------------------------------------------------------------------
+# LIKE over '%' patterns (kernel K23f), compiled at bind time
+
+
+class LikePattern(Expr):
+    """General ``%``-wildcard LIKE, compiled at bind time into its
+    non-empty segments and two anchors; K23f runs the reference's
+    leftmost-first sequential segment search (ref like.rs walks a byte
+    DP; for ``%``-only patterns the two agree).  ``_`` wildcards are
+    refused, as in the reference."""
+
+    def __init__(self, arg: Expr, pattern: str):
+        if "_" in pattern:
+            raise ValueError("LIKE '_' wildcards not supported")
+        self.arg = arg
+        self.pattern = pattern
+        self.segs = tuple(x.encode("utf-8") for x in pattern.split("%")
+                          if x != "")
+        self.anchor_start = not pattern.startswith("%")
+        self.anchor_end = not pattern.endswith("%")
+
+    def return_field(self, schema) -> Field:
+        f = self.arg.return_field(schema)
+        return Field("like", DataType.BOOLEAN, nullable=f.nullable)
+
+    def return_type(self, schema):
+        return DataType.BOOLEAN
+
+    def cuda_refusal(self) -> str | None:
+        return like_refusal(self.segs)
+
+    def eval(self, chunk):
+        a, null = split_col(self.arg.eval(chunk))
+        return make_col(like_match(a, self.segs, self.anchor_start,
+                                   self.anchor_end), null)
+
+    def __repr__(self):
+        return f"like({self.arg!r}, {self.pattern!r})"

@@ -2,7 +2,9 @@
 
 The sources live in ``risingwave_tpu_torch/csrc``: one ``.cu`` file per
 kernel plus the shared headers ``rw_common.cuh``, ``rw_join.cuh``,
-``nexmark_common.cuh``, ``rw_str.cuh`` and ``rw_probe.cuh`` (the probe
+``nexmark_common.cuh``, ``rw_str.cuh`` (the string kernels' row readers
+and writers and their greedy match walk), ``rw_cal.cuh`` (the calendar
+of ``to_char.cu`` and ``calendar.cu``) and ``rw_probe.cuh`` (the probe
 walk of ``probe.cu`` and ``temporal_probe.cu``), and one host routine,
 ``crc32c.cpp`` (the checkpoint store's checksum, ``crc32c``).  Each
 source compiles with ``nvcc`` into its own shared library with a plain
@@ -17,8 +19,9 @@ stream, and every entry returns ``cudaGetLastError()``, which
 ``KERNELS`` names each kernel entry point with the source it is built
 from (``compact.cu``, ``nexmark_events.cu``, ``tag_probe.cu``,
 ``shadow_digest.cu`` and ``str_cmp.cu`` hold two each; ``topn_band.cu``,
-``topn_flush.cu``, ``join_dense.cu`` and ``dyn_filter.cu`` two C
-entries each, all counted), and ``LAUNCHES`` counts, per kernel, the
+``topn_flush.cu``, ``join_dense.cu``, ``dyn_filter.cu`` and
+``str_match.cu`` two C entries each, all counted), and ``LAUNCHES``
+counts, per kernel, the
 wrapper calls that launched it on the card.  Nothing here runs at
 import time: a CPU-only process imports the package without ``nvcc``.
 """
@@ -39,7 +42,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 HEADERS = ("rw_common.cuh", "rw_join.cuh", "nexmark_common.cuh",
-           "rw_str.cuh", "rw_probe.cuh")
+           "rw_str.cuh", "rw_cal.cuh", "rw_probe.cuh")
 #: library name -> source file
 SOURCES = {
     "hash64": "hash64.cu",
@@ -72,6 +75,10 @@ SOURCES = {
     "str_regexp": "str_regexp.cu",
     "str_cmp": "str_cmp.cu",
     "temporal_probe": "temporal_probe.cu",
+    "str_replace": "str_replace.cu",
+    "str_match": "str_match.cu",
+    "str_window": "str_window.cu",
+    "calendar": "calendar.cu",
     # a host routine (the checkpoint store's crc32c), no kernel
     "crc32c": "crc32c.cpp",
 }
@@ -112,6 +119,10 @@ KERNELS = {
     "str_cmp": "str_cmp",
     "str_case_map": "str_cmp",
     "temporal_probe": "temporal_probe",
+    "str_replace": "str_replace",
+    "str_match": "str_match",
+    "str_window": "str_window",
+    "calendar": "calendar",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -2,10 +2,14 @@
 
 Port of ``risingwave_tpu/sql/binder.py``: name resolution against the
 in-scope schema, literal typing, DATE/TIMESTAMP literal +- INTERVAL
-folding, CASE, ``to_char`` with a literal format, the
-``(regexp_match(s, 'pat'))[2]`` capture, aggregate-call extraction.
-LIKE and every function the port's registry lacks (``replace``,
-``substr``, ``trim``, ``concat``, ``extract``, ...) raise ``BindError``.
+folding, CASE, LIKE over ``%`` patterns (``_bind_like``), ``to_char``
+with a literal format, the ``(regexp_match(s, 'pat'))[2]`` capture,
+aggregate-call extraction.
+
+Every function call the binder builds (operators, CAST, ``||``, CASE,
+LIKE's rewrites) is resolved against the registry as it is bound, by
+name and argument types: a call with no overload raises ``BindError``
+at CREATE, where the reference's would fail only when it first runs.
 """
 
 from __future__ import annotations
@@ -22,8 +26,7 @@ from risingwave_tpu_torch.expr.node import (
     Literal as ELiteral,
     as_expr,
 )
-from risingwave_tpu_torch.expr.registry import FUNCTION_REGISTRY
-from risingwave_tpu_torch.expr.scalar import RegexpGroup, ToChar
+from risingwave_tpu_torch.expr.scalar import LikePattern, RegexpGroup, ToChar
 from risingwave_tpu_torch.sql import ast
 
 AGG_NAMES = {"count", "sum", "avg", "min", "max"}
@@ -74,15 +77,16 @@ class Binder:
                                 "date/timestamp literal arithmetic")
             return ELiteral(e.micros, DataType.INTERVAL)
         if isinstance(e, ast.UnaryOp):
-            return EFuncCall(e.op, (self.bind(e.operand),))
+            return self._call(e.op, (self.bind(e.operand),))
         if isinstance(e, ast.BinaryOp):
             folded = self._fold_datetime_arith(e)
             if folded is not None:
                 return folded
-            return EFuncCall(e.op, (self.bind(e.left), self.bind(e.right)))
+            return self._call(e.op, (self.bind(e.left), self.bind(e.right)))
         if isinstance(e, ast.Cast):
             t = DataType.from_sql(e.type_name)
-            return EFuncCall(f"cast_{t.name.lower()}", (self.bind(e.operand),))
+            return self._call(f"cast_{t.name.lower()}",
+                              (self.bind(e.operand),))
         if isinstance(e, ast.Case):
             if e.else_result is None:
                 # CASE without ELSE yields NULL, typed as the first THEN
@@ -92,7 +96,7 @@ class Binder:
             else:
                 out = self.bind(e.else_result)
             for c, r in reversed(e.conditions):
-                out = EFuncCall("case", (self.bind(c), self.bind(r), out))
+                out = self._call("case", (self.bind(c), self.bind(r), out))
             return out
         if isinstance(e, ast.FuncCall):
             if e.name in AGG_NAMES:
@@ -100,6 +104,8 @@ class Binder:
             if e.filter_where is not None:
                 raise BindError(f"FILTER specified, but {e.name} is not an "
                                 "aggregate function")
+            if e.name == "like":
+                return self._bind_like(e)
             if e.name == "to_char":
                 return self._bind_to_char(e)
             if e.name == "array_index":
@@ -114,8 +120,6 @@ class Binder:
                 # ref split_part.rs: position 0 is an error, and the
                 # kernel cannot raise per row
                 raise BindError("field position must not be zero")
-            if e.name not in FUNCTION_REGISTRY.names():
-                raise BindError(f"{e.name} is not ported yet")
             args = tuple(self.bind(a) for a in e.args)
             # untyped NULL literals adopt the type of a typed sibling
             typed = [a for a in args
@@ -124,8 +128,18 @@ class Binder:
                 t = typed[0].return_field(self.scope.schema).data_type
                 args = tuple(ELiteral(None, t) if isinstance(a, ELiteral)
                              and a.value is None else a for a in args)
-            return EFuncCall(e.name, args)
+            return self._call(e.name, args)
         raise BindError(f"cannot bind {e!r} (not ported yet)")
+
+    def _call(self, name: str, args: tuple) -> Expr:
+        """A function call resolved against the registry now, by name and
+        argument types: no such function or overload raises BindError."""
+        call = EFuncCall(name, args)
+        try:
+            call.return_field(self.scope.schema)
+        except KeyError as err:
+            raise BindError(err.args[0]) from None
+        return call
 
     @staticmethod
     def _bind_literal(e: ast.Literal) -> Expr:
@@ -181,6 +195,30 @@ class Binder:
         return ELiteral((base - epoch) // _dt.timedelta(microseconds=1),
                         DataType.TIMESTAMP)
 
+    def _bind_like(self, e: ast.FuncCall) -> Expr:
+        """LIKE with a literal ``%``-only pattern: one segment binds to
+        ``starts_with`` ('x%'), ``ends_with`` ('%x'), ``contains``
+        ('%x%') or ``equal`` ('x'); an interior ``%`` to ``LikePattern``
+        (K23f runs both).  ``_`` wildcards are refused."""
+        target, pat = e.args
+        if not (isinstance(pat, ast.Literal) and pat.type_name == "string"):
+            raise BindError("LIKE requires a string literal pattern")
+        p = pat.value
+        if "_" in p:
+            raise BindError("LIKE '_' wildcards not yet supported")
+        lhs = self.bind(target)
+        body = p.strip("%")
+        if "%" in body:
+            return LikePattern(lhs, p)
+        lit_body = ELiteral(body, DataType.VARCHAR)
+        if p.startswith("%") and p.endswith("%"):
+            return self._call("contains", (lhs, lit_body))
+        if p.endswith("%"):
+            return self._call("starts_with", (lhs, lit_body))
+        if p.startswith("%"):
+            return self._call("ends_with", (lhs, lit_body))
+        return self._call("equal", (lhs, lit_body))
+
     def _bind_to_char(self, e: ast.FuncCall) -> Expr:
         """to_char(ts, 'fmt'): the format compiles at bind time (K23b
         takes the compiled program)."""
@@ -192,9 +230,9 @@ class Binder:
         arg = self.bind(e.args[0])
         t = arg.return_field(self.scope.schema).data_type
         if t == DataType.DATE:
-            raise BindError("to_char over DATE is not ported yet (the "
-                            "DATE -> TIMESTAMP cast is not)")
-        if t not in (DataType.TIMESTAMP, DataType.TIMESTAMPTZ):
+            # DATE is int32 days; the formatter takes int64 microseconds
+            arg = self._call("cast_timestamp", (arg,))
+        elif t not in (DataType.TIMESTAMP, DataType.TIMESTAMPTZ):
             raise BindError(f"to_char over {t.name} not supported")
         return ToChar(arg, fmt.value)
 

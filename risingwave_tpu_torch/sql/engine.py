@@ -15,10 +15,14 @@ Ported statements: CREATE SOURCE (nexmark and datagen connectors), CREATE
 TABLE (INSERT-fed; ``WITH (retract = 'true')`` takes DELETE and UPDATE
 too), INSERT, ``DELETE FROM t VALUES (...)`` (full rows, as in the
 reference), ``UPDATE t SET col = literal, ... WHERE <full-pk
-equality>``, FLUSH, CREATE MATERIALIZED VIEW, SET, ALTER SYSTEM SET and
-``SELECT <columns> FROM <mv> [ORDER BY ...] [LIMIT n] [OFFSET n]`` or
-``SELECT <global aggregates of columns> FROM <mv>`` (read on the host).
-Every other statement raises ``NotImplementedError``.
+equality>``, FLUSH, CREATE FUNCTION (SQL UDFs, inlined into every later
+statement: ``inline_udfs``, the reference's :78), CREATE MATERIALIZED
+VIEW, SET, ALTER SYSTEM SET and ``SELECT <columns> FROM <mv> [ORDER BY
+...] [LIMIT n] [OFFSET n]`` or ``SELECT <global aggregates of columns>
+FROM <mv>`` (read on the host).  ``SET query_epoch = e`` makes those
+reads come from the retained checkpoint of epoch ``e`` (time travel,
+the reference's :3783; it needs a ``data_dir``).  Every other statement
+raises ``NotImplementedError``.
 
 Tables (the reference's ``_dml_table`` :832, ``_insert`` :567,
 ``_delete`` :577, ``_update`` :600, FLUSH :448): a table keeps its rows
@@ -37,7 +41,8 @@ Durability (``Engine(config, data_dir=d)``, the reference's
 the job's shadow snapshot (K11) and a background uploader persists it
 as a full snapshot or a dirty-block delta; the end of ``tick`` drains
 the uploads (the durability point).  Every executed CREATE SOURCE,
-CREATE MATERIALIZED VIEW and SET is logged, every DML statement's rows
+CREATE FUNCTION, CREATE MATERIALIZED VIEW and SET is logged (so a cold
+start defines a UDF before the MVs that inline it), every DML statement's rows
 go to the table's journal (``MetaStore.append_dml``), and a new
 ``Engine(config, data_dir=d)`` over a logged catalog cold-starts
 (``_bootstrap``): it replays the log, reloads each table's history
@@ -50,6 +55,7 @@ its compactor and scrubber, and sinks are not ported yet.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Sequence
 
@@ -80,7 +86,7 @@ from risingwave_tpu_torch.connector.nexmark import (
 from risingwave_tpu_torch.meta.catalog import Catalog, CatalogEntry
 from risingwave_tpu_torch.sql import ast
 from risingwave_tpu_torch.sql.binder import Scope
-from risingwave_tpu_torch.sql.parser import parse_with_text
+from risingwave_tpu_torch.sql.parser import parse, parse_with_text
 from risingwave_tpu_torch.sql.planner import (
     DagPlan,
     PlanError,
@@ -89,6 +95,57 @@ from risingwave_tpu_torch.sql.planner import (
 )
 from risingwave_tpu_torch.stream.dag import DagJob, FragNode, TemporalJoinNode
 from risingwave_tpu_torch.stream.runtime import StreamingJob
+
+
+def _ast_map(node, fn):
+    """Bottom-up structural map over the (frozen-dataclass) SQL AST (a
+    copy of the reference's ``_ast_map``)."""
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        changed = {}
+        for f in dataclasses.fields(node):
+            v = getattr(node, f.name)
+            nv = _ast_map(v, fn)
+            if nv is not v:
+                changed[f.name] = nv
+        if changed:
+            node = dataclasses.replace(node, **changed)
+        return fn(node)
+    if isinstance(node, (tuple, list)):
+        mapped = [_ast_map(x, fn) for x in node]
+        if not any(m is not x for m, x in zip(mapped, node)):
+            return node
+        return tuple(mapped) if isinstance(node, tuple) else mapped
+    return node
+
+
+def inline_udfs(stmt, udfs: dict, depth: int = 0):
+    """Expand SQL-UDF calls by AST substitution (a port of the
+    reference's ``inline_udfs``; the reference frontend inlines SQL UDFs
+    in its binder the same way)."""
+    if not udfs:
+        return stmt
+    if depth > 8:
+        raise ValueError("SQL UDF recursion exceeds depth 8")
+
+    def expand(node):
+        if not isinstance(node, ast.FuncCall) or node.name not in udfs:
+            return node
+        params, body = udfs[node.name]
+        if len(node.args) != len(params):
+            raise ValueError(f"{node.name} takes {len(params)} arguments, "
+                             f"got {len(node.args)}")
+        sub = dict(zip(params, node.args))
+
+        def substitute(n):
+            if isinstance(n, ast.ColumnRef) and n.table is None \
+                    and n.name in sub:
+                return sub[n.name]
+            return n
+
+        # the body may itself call UDFs
+        return inline_udfs(_ast_map(body, substitute), udfs, depth + 1)
+
+    return _ast_map(stmt, expand)
 
 
 class _ProjectingReader:
@@ -122,7 +179,7 @@ class Engine:
     #: statements recorded in the durable DDL log: the ported subset of
     #: the reference's ``_LOGGED_DDL`` (engine.py:299-303)
     _LOGGED_DDL = (ast.CreateSource, ast.CreateMaterializedView,
-                   ast.SetStatement)
+                   ast.CreateFunction, ast.SetStatement)
 
     def __init__(self, config: PlannerConfig | None = None,
                  data_dir: str | None = None, device=None):
@@ -134,6 +191,8 @@ class Engine:
         self.system_params = SystemParams()
         self.session_config = SessionConfig()
         self.metrics = MetricsRegistry()
+        #: SQL UDFs: name -> (parameter names, body expression AST)
+        self.functions: dict[str, tuple] = {}
         self._last_columns: list[str] | None = None
         self.checkpoint_store = None
         self.meta_store = None
@@ -171,11 +230,28 @@ class Engine:
         ``data_dir``, DDL is logged after it succeeds."""
         result = None
         for text, stmt in parse_with_text(sql):
-            result = self._execute_one(stmt)
+            if isinstance(stmt, ast.CreateFunction):
+                result = self._create_function(stmt)
+            else:
+                result = self._execute_one(inline_udfs(stmt, self.functions))
             if isinstance(stmt, self._LOGGED_DDL) \
                     and self.meta_store is not None and not self._replaying:
                 self.meta_store.append_ddl(text)
         return result
+
+    def _create_function(self, stmt: ast.CreateFunction) -> None:
+        """Register a SQL UDF (the reference's ``_create_function``)."""
+        if stmt.name in self.functions:
+            if stmt.if_not_exists:
+                return None
+            raise ValueError(f"function {stmt.name!r} already exists")
+        body = parse(stmt.body_sql)
+        if len(body) != 1 or not isinstance(body[0], ast.Select) \
+                or body[0].from_ is not None or len(body[0].items) != 1:
+            raise ValueError("SQL UDF body must be a single SELECT <expr>")
+        self.functions[stmt.name] = (tuple(stmt.params),
+                                     body[0].items[0].expr)
+        return None
 
     def query(self, sql: str):
         """Run statements; returns (column_names, rows)."""
@@ -566,7 +642,22 @@ class Engine:
 
     # -- serving ----------------------------------------------------------
     def _mv_rows(self, entry: CatalogEntry) -> list[tuple]:
-        state = entry.job.states
+        """The MV's rows: live, or with ``SET query_epoch = e`` those of
+        the job's retained checkpoint of epoch ``e`` (the reference's
+        time travel, ``engine.py:3783``; its mesh and vnode branches have
+        no counterpart in the port yet)."""
+        qe = int(self.session_config.get("query_epoch"))
+        if qe:
+            if self.checkpoint_store is None:
+                raise PlanError("query_epoch needs a durable data_dir")
+            ckpt = entry.job.ckpt_key
+            epochs = self.checkpoint_store.epochs(ckpt)
+            if qe not in epochs:
+                raise PlanError(f"epoch {qe} is not retained for "
+                                f"{entry.name} (retained: {epochs})")
+            _, state, _ = self.checkpoint_store.load(ckpt, qe)
+        else:
+            state = entry.job.states
         for i in entry.mv_state_index:
             state = state[i]
         return entry.mv_executor.to_host(state)

@@ -31,7 +31,7 @@ from risingwave_tpu_torch.common.chunk import (
     split_col,
 )
 from risingwave_tpu_torch.common.types import DataType, Field, Schema
-from risingwave_tpu_torch.expr.node import Expr
+from risingwave_tpu_torch.expr.node import Expr, cuda_refusal
 
 
 class Executor:
@@ -82,6 +82,13 @@ class ProjectExecutor(Executor):
     @property
     def out_schema(self) -> Schema:
         return self._out_schema
+
+    def cuda_refusal(self) -> str | None:
+        for _, e in self.exprs:
+            why = cuda_refusal(e)
+            if why is not None:
+                return why
+        return None
 
     def apply(self, state, chunk: Chunk):
         cols = [conform_col(e.eval(chunk), f.nullable, chunk.capacity)
@@ -211,6 +218,12 @@ class FilterExecutor(Executor):
     def __init__(self, in_schema: Schema, predicate: Expr):
         super().__init__(in_schema)
         self.predicate = predicate
+        # resolve the predicate's calls now: a bad one fails CREATE, not
+        # every tick of every job
+        predicate.return_field(in_schema)
+
+    def cuda_refusal(self) -> str | None:
+        return cuda_refusal(self.predicate)
 
     def apply(self, state, chunk: Chunk):
         keep, null = split_col(self.predicate.eval(chunk))

@@ -99,6 +99,12 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[check] q13 ring rows equal numpy",
                 "[check] q13 churn ring rows equal numpy",
                 "[check] q13 churn: the ring, the build table",
-                "[durable] q13 churn", "[cold start] q13 churn"):
+                "[durable] q13 churn", "[cold start] q13 churn",
+                "[str_replace] exact", "[str_match] exact",
+                "[str_window] exact", "[calendar] exact",
+                "[parity] q14", "[parity] bid_strings", "[parity] avg_bid",
+                "[check] q14 ring rows equal numpy",
+                "[check] bid_strings ring rows equal numpy",
+                "[check] avg_bid MV equals numpy"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout

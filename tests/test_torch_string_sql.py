@@ -12,8 +12,9 @@ null plane, its cursor and lap counter) must be equal, and the MV's
 field widths must be the reference's.  Aggregations grouped by
 ``to_char`` and by captures (a NULL group included), filtered by string
 comparisons over ``upper`` and ``split_part`` and by ``coalesce``, check
-the planner's walks under ``ToChar`` and ``RegexpGroup``.  The functions
-the port lacks, ``split_part(.., 0)``, a bare ``regexp_match`` and
+the planner's walks under ``ToChar`` and ``RegexpGroup``.  Calls with no
+overload (``replace``, ``substr`` and ``concat`` over the wrong types),
+LIKE's ``_`` wildcard, ``split_part(.., 0)``, a bare ``regexp_match`` and
 patterns outside the family raise ``BindError``; the queries plan for
 CUDA.
 Tolerance: none — the path is byte and integer arithmetic.
@@ -122,10 +123,10 @@ REFUSED = {
     "subscript_not_regexp": "SELECT (lower(url))[1] AS m FROM bid",
     "to_char_non_literal_format": "SELECT to_char(date_time, channel) AS t "
                                   "FROM bid",
-    "replace": "SELECT replace(url, '/', '-') AS u FROM bid",
-    "substr": "SELECT substr(url, 2, 3) AS u FROM bid",
-    "concat": "SELECT concat(url, channel) AS u FROM bid",
-    "like": "SELECT url FROM bid WHERE url LIKE '%item'",
+    "replace": "SELECT replace(url, 1, 2) AS u FROM bid",
+    "substr": "SELECT substr(url) AS u FROM bid",
+    "concat": "SELECT concat(url, price) AS u FROM bid",
+    "like": "SELECT url FROM bid WHERE url LIKE 'a_b%'",
 }
 
 
