@@ -159,7 +159,8 @@ WINDOW_US = 10_000_000
 HOP_SLIDE_US = 2_000_000
 QUERIES = ("q1", "q5", "q7", "q8", "q19", "q18", "q6_bid", "ow_bid",
            "q101", "q103", "q104", "q102", "q22", "q10", "q21", "q13",
-           "q13 churn", "q14", "bid_strings", "avg_bid")
+           "q13 churn", "q14", "bid_strings", "avg_bid", "q5_max", "q7_eowc",
+           "person_states")
 #: the kernels each query's main path must launch
 PATH_KERNELS = {
     "q1": ("nexmark_bids", "ring_append"),
@@ -219,6 +220,22 @@ PATH_KERNELS = {
                     "ring_append"),
     "avg_bid": ("nexmark_bids", "hash64", "agg_preagg", "probe",
                 "agg_scatter", "agg_spill", "mask_indices", "mv_upsert"),
+    # q5's pane plan with max(price): the global agg's materialized input
+    # (K6m's update with K1 on the (slot, value) pairs and K13's ranks,
+    # and its refresh at flush)
+    "q5_max": ("nexmark_bids", "hop_window", "hash64", "agg_preagg", "probe",
+               "agg_scatter", "agg_minput", "join_update", "mask_indices",
+               "minput_refresh", "mv_upsert"),
+    # EMIT ON WINDOW CLOSE: K7e picks the closed groups, the K4 sweep
+    # evicts them, the ring takes the final rows
+    "q7_eowc": ("nexmark_bids", "hop_window", "hash64", "agg_preagg",
+                "probe", "agg_scatter", "agg_eowc", "table_sweep",
+                "ring_append"),
+    # packed string min/max over person rows, grouped by a string key (no
+    # window: the spill capture runs)
+    "person_states": ("nexmark_persons", "hash64", "agg_preagg", "probe",
+                      "agg_scatter", "agg_spill", "mask_indices",
+                      "mv_upsert"),
     # q6_bid with the over-window's watermark cleaning set on the
     # executor (no plan sets it): K19a on the path
     "q6_bid clean": ("nexmark_bids", "hash64", "topn_pool", "topn_band",
@@ -418,6 +435,7 @@ def main() -> int:
     results.update(phase_string_kernels(torch, device, timer, scale))
     results.update(phase_temporal_kernels(torch, device, timer, scale))
     results.update(phase_scalar_kernels(torch, device, timer, scale))
+    results.update(phase_slice11_kernels(torch, device, timer, scale))
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -437,10 +455,16 @@ def main() -> int:
     for left in (False, True):
         phase_q13_parity(torch, device, left)
     for query in SCALAR_QUERIES:
-        phase_scalar_parity(torch, device, query)
+        phase_sql_parity(torch, device, query, _scalar_ddl(query, "2"),
+                         SCALAR_PARITY_CONFIG, SCALAR_MV[query], "2")
+    for query in SLICE11_QUERIES:
+        rate = SLICE11_PARITY_RATE[query]
+        phase_sql_parity(torch, device, query, _slice11_ddl(query, rate),
+                         SLICE11_PARITY_CONFIG, "bench_mv", rate)
 
     # -- 4-5. main paths --------------------------------------------------
     rates = {}
+    eowc_info = {}
     for r in results.values():
         r["launches"] = 0
         r["launches_by_query"] = {}
@@ -467,8 +491,21 @@ def main() -> int:
             launches, rates[query] = phase_q13_main_path(
                 torch, device, scale, churn_path=query == "q13 churn")
         elif query in SCALAR_QUERIES:
-            launches, rates[query] = phase_scalar_main_path(torch, device,
-                                                            scale, query)
+            launches, rates[query], _ = phase_sql_main_path(
+                torch, device, query, _scalar_ddl(query, "1000000"),
+                _scalar_config(scale), K23_REST_KERNELS,
+                SCALAR_CHECKS[query])
+        elif query in SLICE11_QUERIES:
+            launches, rates[query], info = phase_sql_main_path(
+                torch, device, query,
+                _slice11_ddl(query, SLICE11_RATE[query]),
+                _slice11_config(scale), SLICE11_KERNELS,
+                SLICE11_CHECKS[query],
+                "person" if query == "person_states" else "bid")
+            eowc_info.update(info)
+            if device.type == "cuda" and info.get("windows", 20) < 20:
+                fail(f"{query} closed {info['windows']} windows, fewer "
+                     "than 20")
         else:
             launches, rates[query] = phase_main_path(torch, device, scale,
                                                      query)
@@ -523,6 +560,8 @@ def main() -> int:
     for query, (rate, info) in durable.items():
         print(f"[main] {query} durable rows/s {rate:.0f}, cold start "
               f"{info['recover_s']:.3f} s")
+    print(f"[main] q7_eowc closed {eowc_info['windows']} windows, "
+          f"{eowc_info['rows']} rows emitted")
     print(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1163,7 +1202,8 @@ PORT_KERNEL_NAMES = ("hash64_kernel", "probe_kernel", "reset_kernel",
                      "split_part_kernel", "to_char_kernel",
                      "regexp_group_kernel", "replace_kernel",
                      "str_match_kernel", "like_kernel", "str_window_kernel",
-                     "calendar_kernel")
+                     "calendar_kernel", "minput_",
+                     "eowc_")
 
 
 def profile_window(torch, eng, query: str, barriers: int = 2,
@@ -1213,7 +1253,7 @@ def profile_window(torch, eng, query: str, barriers: int = 2,
               f"{e.key[:100]}", flush=True)
 
     job = eng.jobs[0]
-    if not hasattr(job, "source"):
+    if not hasattr(job, "source") or not hasattr(job.source, "gen"):
         return n_kern / chunks
     # launches by layer for one chunk (the step runs on a clone: the
     # job's own state must stay as the timed run left it)
@@ -2026,12 +2066,39 @@ def phase_state_kernels(torch, device, timer, scale):
     gplain_ms = timer(lambda i: dg.dirty_gather_plain(shk, ent, stp, block),
                       2)
     gb = bound(2 * gtotal + entries.nbytes, len(entries) * 8)
+    # the library yardstick: no single PyTorch call computes the gather
+    # (it spans every leaf, pads each block to 16 bytes and cuts the tail
+    # blocks); one torch.index_select over the block view of the leaf
+    # with the most dirty full blocks computes that leaf's share
+    e_leaf = entries[:, 0] >> 32
+    e_blk = entries[:, 0] & 0xFFFFFFFF
+    full = np.array([(int(b) + 1) * block <= sizes[int(li)]
+                     for li, b in zip(e_leaf, e_blk)], bool)
+    li = int(np.bincount(e_leaf[full], minlength=len(leaves)).argmax())
+    sel = full & (e_leaf == li)
+    x = shk[li].reshape(-1)
+    nbf = x.numel() // block
+    view = x[:nbf * block].view(nbf, block)
+    idx = torch.from_numpy(e_blk[sel].astype(np.int64)).to(device)
+    if not sel.any():
+        fail("no leaf has a dirty full block to time index_select on")
+    if not torch.equal(torch.index_select(view, 0, idx).reshape(-1).view(
+            torch.uint8), stk[int(entries[sel][0, 1]):int(entries[sel][0, 1])
+                              + int(sel.sum()) * block * x.element_size()]):
+        fail("index_select over the leaf's block view differs from the "
+             "gather's section of it")
+    lib_ms = timer(lambda i: torch.index_select(view, 0, idx), 20)
     print(f"[dirty_gather] exact ({len(entries)} blocks in {len(runs)} "
           f"runs, {gtotal / 1e6:.1f} MB); kernel {gms:.4f} ms, plain "
-          f"{gplain_ms:.4f} ms, bound {gb[0]:.5f} ms", flush=True)
+          f"{gplain_ms:.4f} ms, bound {gb[0]:.5f} ms; one index_select "
+          f"over leaf {li}'s block view ({int(sel.sum())} of the "
+          f"{len(entries)} blocks, equal to the gather's section) "
+          f"{lib_ms:.4f} ms", flush=True)
     out["dirty_gather"] = kernel_entry(
         "shadow_digest.cu", "risingwave_tpu/storage/checkpoint_store.py:249",
         gms, gplain_ms, gb, None, err)
+    out["dirty_gather"]["index_select_one_leaf"] = {
+        "ms": lib_ms, "blocks": int(sel.sum()), "of": len(entries)}
     del shk, shp, stk, stp
 
     # -- K4: rebuild_pool's and compact_pool's row permutations ----------
@@ -3876,10 +3943,12 @@ def phase_join_kernels(torch, device, timer, scale):
             work, *((inv, *back) if (i - n_it) % 2 == 0
                     else (rchunk, *fwd))), n_it)
         ins, dels = rchunk.valid & (signs > 0), rchunk.valid & (signs < 0)
-        cancel_ms = timer(lambda i: hj.dense_cancel_cuda(fwd[0], ins, dels),
-                          200)
+        # 100 calls behind 200 ms of pre-fill: each call's host work (a
+        # sort and a few allocations) stays hidden behind the sleep
+        cancel_ms = timer(lambda i: hj.bucket_cancel_cuda(
+            "join_dense", fwd[0], ins, dels), 100, prefill_ms=2.0)
         sort_ms = timer(lambda i: torch.sort(hj._sort_key(
-            fwd[0], ins | dels), stable=True), 200)
+            fwd[0], ins | dels), stable=True), 100, prefill_ms=2.0)
         cancel_ms -= sort_ms
         ms = upd_ms + cancel_ms
     else:
@@ -6621,22 +6690,21 @@ def _scalar_config(scale: int) -> dict:
     return cfg
 
 
-def _scalar_engine(torch, device, cfg: dict, query: str, rate: str):
+def _scalar_ddl(query: str, rate: str) -> list[str]:
+    return [BENCH_SOURCES.replace("'1000000'", f"'{rate}'"),
+            SCALAR_QUERY_SQL[query]]
+
+
+def phase_sql_parity(torch, device, query: str, ddl: list[str], cfg: dict,
+                     mv: str, rate: str) -> None:
+    """``ddl`` (sources at ``rate`` events/s and the view ``mv``) on the
+    card and on the CPU (plain versions; the aggregation forced onto the
+    card's pre-aggregation branch) at the small sizes ``cfg``, 6
+    barriers: the MV's rows and every state tensor (the minput buckets
+    and the EOWC table included) must be equal."""
+    from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
     from risingwave_tpu_torch.sql import Engine
     from risingwave_tpu_torch.sql.planner import PlannerConfig
-
-    eng = Engine(PlannerConfig(**cfg), device=device)
-    eng.execute(BENCH_SOURCES.replace("'1000000'", f"'{rate}'"))
-    eng.execute(SCALAR_QUERY_SQL[query])
-    return eng
-
-
-def phase_scalar_parity(torch, device, query: str) -> None:
-    """``query`` at 2 events/s on the card and on the CPU (plain
-    versions; the aggregation forced onto the card's pre-aggregation
-    branch), small sizes: the MV's rows and every state tensor must be
-    equal."""
-    from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
     from risingwave_tpu_torch.stream import hash_agg
 
     engines = []
@@ -6645,24 +6713,26 @@ def phase_scalar_parity(torch, device, query: str) -> None:
         if dev.type == "cpu":
             hash_agg.accel_tuned = lambda d: True
         try:
-            eng = _scalar_engine(torch, dev, SCALAR_PARITY_CONFIG,
-                                 query, "2")
+            eng = Engine(PlannerConfig(**cfg), device=dev)
+            for stmt in ddl:
+                eng.execute(stmt)
             eng.tick(barriers=6, chunks_per_barrier=4)
         finally:
             hash_agg.accel_tuned = card_branch
         engines.append(eng)
     rows = [sorted((tuple(v if isinstance(v, str) else _host_value(v)
                           for v in r)
-                    for r in e.execute(f"SELECT * FROM {SCALAR_MV[query]}")),
-                   key=repr) for e in engines]
+                    for r in e.execute(f"SELECT * FROM {mv}")), key=repr)
+            for e in engines]
     if rows[0] != rows[1] or not rows[0]:
         fail(f"{query} MV on the card differs from the CPU plain versions")
     bad = state_mismatches(state_to_numpy(engines[1].jobs[0].states),
                            engines[0].jobs[0].states)
     if bad:
         fail(f"{query} state on the card differs from the CPU: {bad[:5]}")
-    print(f"[parity] {query} at 2 events/s, 6 barriers: {len(rows[0])} MV "
-          f"rows and all state equal to the CPU plain versions", flush=True)
+    print(f"[parity] {query} at {rate} events/s, 6 barriers: {len(rows[0])} "
+          f"MV rows and all state equal to the CPU plain versions",
+          flush=True)
 
 
 def _price_eur(price):
@@ -6827,18 +6897,23 @@ SCALAR_CHECKS = {"q14": check_q14, "bid_strings": check_bid_strings,
                  "avg_bid": check_avg_bid}
 
 
-def phase_scalar_main_path(torch, device, scale, query: str):
-    """``query`` at bench.py's sizes (chunk 8192; q14 and bid_strings a
-    ring of 2^23, avg_bid an agg table and an MV of 2^18): 9 warm-up
-    barriers, then 32 timed barriers of 8 chunks with the launch counters
-    taken over the timed window, one profiled window, the counter audit,
-    and the MV checked against its host model."""
+def phase_sql_main_path(torch, device, query: str, ddl: list[str],
+                        cfg: dict, watch: tuple, check, unit: str = "bid"):
+    """``ddl`` at bench.py's sizes ``cfg``: 9 warm-up barriers, then 32
+    timed barriers of 8 chunks with the launch counters taken over the
+    timed window (``watch``: the slice's kernels, printed per chunk), one
+    profiled window, the counter audit, and the MV checked by
+    ``check(eng, cap)``: a message, or a message and a dict of what it
+    found, returned as the third value."""
     from risingwave_tpu_torch import kernels
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
 
     cuda = device.type == "cuda"
     barriers = BARRIERS if cuda else 2
-    eng = _scalar_engine(torch, device, _scalar_config(scale), query,
-                         "1000000")
+    eng = Engine(PlannerConfig(**cfg), device=device)
+    for stmt in ddl:
+        eng.execute(stmt)
     eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
     eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
     eng.tick(barriers=WARMUP_BARRIERS if cuda else 1,
@@ -6852,13 +6927,14 @@ def phase_scalar_main_path(torch, device, scale, query: str):
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    cap = eng.jobs[0].source.cap
+    cap = cfg["chunk_capacity"]
     chunks = barriers * CHUNKS_PER_BARRIER
     rate = chunks * cap / dt
-    k23 = {k: launches[k] / chunks for k in K23_REST_KERNELS if launches[k]}
-    print(f"[main] {query} {chunks * cap} rows in {dt:.3f} s = {rate:.0f} "
-          f"rows/s; K23e-h launches per chunk {k23}; port kernel launches "
-          f"{sum(launches.values()) / chunks:.2f} per chunk", flush=True)
+    mine = {k: launches[k] / chunks for k in watch if launches[k]}
+    print(f"[main] {query} {chunks * cap} {unit} rows in {dt:.3f} s = "
+          f"{rate:.0f} rows/s; the slice's kernel launches per chunk {mine}; "
+          f"port kernel launches {sum(launches.values()) / chunks:.2f} per "
+          f"chunk", flush=True)
     if cuda:
         per_chunk = profile_window(torch, eng, query)
         print(f"[main] {query} launches per chunk "
@@ -6866,11 +6942,472 @@ def phase_scalar_main_path(torch, device, scale, query: str):
               f" (all CUDA kernels, profiled window)", flush=True)
     eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
     eng.tick(barriers=1, chunks_per_barrier=0)
-    print(f"[check] {query} {SCALAR_CHECKS[query](eng, cap)}", flush=True)
+    got = check(eng, cap)
+    msg, info = got if isinstance(got, tuple) else (got, {})
+    print(f"[check] {query} {msg}", flush=True)
     del eng
     if cuda:
         torch.cuda.empty_cache()
-    return launches, rate
+    return launches, rate, info
+
+
+
+# ---------------------------------------------------------------------------
+# retractable min/max (K6m), EMIT ON WINDOW CLOSE (K7e), string min/max
+
+SLICE11_BID = """
+CREATE SOURCE bid (
+    auction BIGINT, bidder BIGINT, price BIGINT,
+    channel VARCHAR, url VARCHAR, date_time TIMESTAMP,
+    WATERMARK FOR date_time AS date_time - INTERVAL '4' SECOND
+) WITH (connector = 'nexmark', nexmark.table = 'bid',
+        nexmark.event.rate = '{rate}');
+"""
+#: the person source with the two columns person_states reads
+SLICE11_PERSON = """
+CREATE SOURCE person (
+    id BIGINT, name VARCHAR, city VARCHAR, state VARCHAR,
+    date_time TIMESTAMP,
+    WATERMARK FOR date_time AS date_time - INTERVAL '4' SECOND
+) WITH (connector = 'nexmark', nexmark.table = 'person',
+        nexmark.event.rate = '{rate}');
+"""
+SLICE11_SQL = {
+    # Nexmark q5's HOP windows (bench.py's q5) with q7's max(price): the
+    # pane plan's global agg keeps max(price) as materialized input (K6m)
+    "q5_max": """
+CREATE MATERIALIZED VIEW bench_mv AS
+SELECT auction, window_start, max(price) AS max_price, count(*) AS bids
+FROM HOP(bid, date_time, INTERVAL '2' SECOND, INTERVAL '10' SECOND)
+GROUP BY auction, window_start;
+""",
+    # a closing 1 s TUMBLE keyed by auction: final rows reach the ring only
+    # when their window closes (K7e)
+    "q7_eowc": """
+CREATE MATERIALIZED VIEW bench_mv AS
+SELECT auction, window_start, max(price) AS max_price, count(*) AS bids
+FROM TUMBLE(bid, date_time, INTERVAL '1' SECOND)
+GROUP BY auction, window_start
+EMIT ON WINDOW CLOSE;
+""",
+    # min/max over the 4-byte state (the packed int64 state) grouped by
+    # the string city (K5's string keys)
+    "person_states": """
+CREATE MATERIALIZED VIEW bench_mv AS
+SELECT city, min(state) AS lo, max(state) AS hi, count(*) AS persons
+FROM person GROUP BY city;
+""",
+}
+SLICE11_QUERIES = tuple(SLICE11_SQL)
+#: events/s at bench sizes: q7_eowc's 100,000 lets about 25 one-second
+#: windows close over the run (at 1,000,000 the run covers ~3 s)
+SLICE11_RATE = {"q5_max": "1000000", "q7_eowc": "100000",
+                "person_states": "1000000"}
+#: events/s of the card-against-CPU runs (chunk 256: q7_eowc's windows
+#: must close within 6 barriers)
+SLICE11_PARITY_RATE = {"q5_max": "10000", "q7_eowc": "500",
+                       "person_states": "10000"}
+SLICE11_PARITY_CONFIG = dict(chunk_capacity=256, agg_table_size=1 << 10,
+                             agg_emit_capacity=16, mv_table_size=1 << 12,
+                             mv_ring_size=1 << 14)
+
+
+def _slice11_ddl(query: str, rate: str) -> list[str]:
+    src = SLICE11_PERSON if query == "person_states" else SLICE11_BID
+    return [src.format(rate=rate), SLICE11_SQL[query]]
+
+
+def _minput_case(torch, size: int, B: int, cap: int, g):
+    """A K6m input at q5_max's shapes: buckets filled at random (a 64th
+    of the slots full), and a chunk of ``cap`` rows: inserts (70% on 512
+    hot slots), deletes of stored (slot, value) pairs, deletes of absent
+    values (misses), +v/-v pairs inside the chunk, inactive rows (NULL or
+    filtered values) and 2% of the rows on slots reclaimed this chunk."""
+    fill = torch.rand(size, generator=g)
+    fill[torch.randint(0, size, (max(size // 64, 1),), generator=g)] = 1.0
+    occ = torch.rand((size, B), generator=g) < fill[:, None]
+    vals = torch.randint(0, 50, (size, B), generator=g)
+    hot = torch.randint(0, size, (512,), generator=g)
+    n_ins = cap // 2
+    n_del = cap // 4
+    n_miss = cap // 16
+    n_pair = (cap - n_ins - n_del - n_miss) // 2
+    ins_slots = torch.where(torch.rand(n_ins, generator=g) < 0.7,
+                            hot[torch.randint(0, 512, (n_ins,),
+                                              generator=g)],
+                            torch.randint(0, size, (n_ins,), generator=g))
+    ins_v = torch.randint(0, 50, (n_ins,), generator=g)
+    stored = occ.nonzero()
+    pick = stored[torch.randint(0, stored.shape[0], (n_del,), generator=g)]
+    del_slots, del_v = pick[:, 0], vals[pick[:, 0], pick[:, 1]]
+    miss_slots = torch.randint(0, size, (n_miss,), generator=g)
+    miss_v = torch.full((n_miss,), 10**6, dtype=torch.int64)
+    pair_slots = hot[torch.randint(0, 512, (n_pair,), generator=g)]
+    pair_v = torch.randint(0, 50, (n_pair,), generator=g)
+    slots = torch.cat([ins_slots, del_slots, miss_slots, pair_slots,
+                       pair_slots])
+    v = torch.cat([ins_v, del_v, miss_v, pair_v, pair_v])
+    signs = torch.cat([torch.ones(n_ins, dtype=torch.int64),
+                       -torch.ones(n_del + n_miss, dtype=torch.int64),
+                       torch.ones(n_pair, dtype=torch.int64),
+                       -torch.ones(n_pair, dtype=torch.int64)])
+    n = slots.shape[0]
+    pad = cap - n
+    slots = torch.cat([slots, torch.zeros(pad, dtype=torch.int64)])
+    v = torch.cat([v, torch.zeros(pad, dtype=torch.int64)])
+    signs = torch.cat([signs, torch.zeros(pad, dtype=torch.int64)])
+    order = torch.randperm(cap, generator=g)
+    slots, v, signs = slots[order], v[order], signs[order]
+    active = (torch.rand(cap, generator=g) < 0.95) & (signs != 0)
+    ins_pos = torch.where(torch.rand(cap, generator=g) < 0.02, slots,
+                          torch.full_like(slots, size))
+    return (vals, occ, slots.to(torch.int32), v, signs.to(torch.int8),
+            active, ins_pos.to(torch.int32))
+
+
+def phase_slice11_kernels(torch, device, timer, scale):
+    """K6m and K7e against their plain versions on CPU copies, exactly,
+    and the EowcSortExecutor on the card against a CPU copy: K6m's update
+    at q5_max's shapes (buckets of 64 values over 2^18 slots, a chunk of
+    5 x 2 x 4096 rows: the pane agg's U-/U+ flush through the hop's five
+    copies) with every case of the CPU tests (hits, misses, +v/-v pairs,
+    full buckets, inactive rows, reclaimed slots), K6m's refresh over
+    4096 emitted slots, K7e over 2^18 slots with more than 4096 closed,
+    before any watermark and as the drain's count (k = 0); each timed
+    with its plain version on the card and its bound."""
+    from risingwave_tpu_torch.common.compact import mask_indices_plain
+    from risingwave_tpu_torch.stream import hash_agg as H
+    from risingwave_tpu_torch.stream.watermark import EowcSortExecutor
+
+    g = torch.Generator().manual_seed(61)
+    size, B = (1 << 18) // scale, 64
+    cap = 5 * 2 * 4096 // scale
+    E = 4096 // scale
+    case = _minput_case(torch, size, B, cap, g)
+    vals, occ, slots, v, signs, active, ins_pos = case
+    cpu = [t.clone() for t in (vals, occ)]
+    cnt_cpu = [torch.zeros((), dtype=torch.int64) for _ in range(2)]
+    H.minput_update_plain(*cpu, slots, v, signs, active, ins_pos, *cnt_cpu)
+    dev = [t.to(device) for t in case]
+    cnt = [torch.zeros((), dtype=torch.int64, device=device)
+           for _ in range(2)]
+    H.minput_update(*dev[:2], *dev[2:], *cnt)
+    pairs = [("minput vals", dev[0].cpu(), cpu[0]),
+             ("minput occ", dev[1].cpu(), cpu[1]),
+             ("minput overflow", cnt[0].cpu(), cnt_cpu[0]),
+             ("minput inconsistency", cnt[1].cpu(), cnt_cpu[1])]
+    err = max_abs_err(torch, pairs)
+    n_over, n_miss = int(cnt_cpu[0]), int(cnt_cpu[1])
+    if n_over == 0 or n_miss == 0:
+        fail(f"K6m case lacks overflow ({n_over}) or misses ({n_miss})")
+    # every timed call starts from the case's buckets (a copy of its own,
+    # made before the timing), so each meets the mix counted above
+    n_it = 20
+    base = [t.to(device) for t in case[:2]]
+    pool = [[t.clone() for t in base] for _ in range(n_it + 1)]
+    args = dev[2:]
+
+    def restore():
+        for w in pool:
+            for t, b in zip(w, base):
+                t.copy_(b)
+
+    def kernel(i):
+        H.minput_update_cuda(*pool[i], *args, *cnt) \
+            if device.type == "cuda" \
+            else H.minput_update_plain(*pool[i], *args, *cnt)
+
+    ms = timer(kernel, n_it)
+    restore()
+    plain_ms = timer(lambda i: H.minput_update_plain(*pool[i], *args, *cnt),
+                     5, prefill_ms=20.0)
+    del pool
+    n_act = int(active.sum())
+    n_reset = int((ins_pos < size).sum())
+    _, s_ins, s_del = H.minput_survivors(slots, v, signs, active)
+    n_ins, n_del = int(s_ins.sum()), int(s_del.sum())
+    # every row's slot, value, sign, flag and reclaimed slot read (18 B);
+    # a reclaimed slot's B occupancy bytes cleared; a surviving insert
+    # reads its bucket's B occupancy bytes and, where it finds a free
+    # entry, writes it (9 B); a surviving delete reads the B occupancy
+    # bytes and B values and, where it matches, clears one byte; a
+    # cancelled pair reads no bucket
+    b_upd = bound(cap * 18 + n_reset * B + n_ins * B + (n_ins - n_over) * 9
+                  + n_del * B * 9 + (n_del - n_miss), (n_ins + n_del) * B * 2)
+    print(f"[agg_minput] exact on a chunk of {cap} rows ({n_act} active: "
+          f"{n_ins} inserts and {n_del} deletes survive the +v/-v pairs; "
+          f"{n_miss} misses, {n_over} inserts into full buckets, {n_reset} "
+          f"rows on reclaimed slots) over {size} x {B} buckets; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (each call on a copy of "
+          f"the case's buckets), bound {b_upd[0]:.5f} ms", flush=True)
+    out = {"agg_minput": kernel_entry(
+        "agg_minput.cu", "risingwave_tpu/stream/hash_agg.py:790", ms,
+        plain_ms, b_upd, None, err)}
+    out["agg_minput"]["at_shapes"] = {
+        "cap": cap, "size": size, "B": B, "active": n_act, "inserts": n_ins,
+        "deletes": n_del, "misses": n_miss, "overflow": n_over,
+        "reclaimed": n_reset}
+
+    # -- K6m refresh ------------------------------------------------------
+    emit = torch.sort(torch.randperm(size, generator=g)[:E]).values
+    emit[-max(E // 16, 1):] = size                  # sentinel tail
+    emit = emit.to(torch.int32)
+    pairs = []
+    for mode in ("min", "max"):
+        prim_cpu = torch.full((size,), 7, dtype=torch.int64)
+        H.minput_refresh_plain(prim_cpu, cpu[0], cpu[1], emit, mode)
+        prim = torch.full((size,), 7, dtype=torch.int64, device=device)
+        H.minput_refresh(prim, dev[0], dev[1], emit.to(device), mode)
+        pairs.append((f"refresh {mode}", prim.cpu(), prim_cpu))
+    for dt in (torch.int32, torch.float64):
+        v2 = cpu[0].to(dt)
+        prim_cpu = torch.zeros(size, dtype=dt)
+        H.minput_refresh_plain(prim_cpu, v2, cpu[1], emit, "max")
+        prim = torch.zeros(size, dtype=dt, device=device)
+        H.minput_refresh(prim, v2.to(device), dev[1], emit.to(device), "max")
+        pairs.append((f"refresh max {dt}", prim.cpu(), prim_cpu))
+    err = max_abs_err(torch, pairs)
+    emit_d = emit.to(device)
+    prim = torch.zeros(size, dtype=torch.int64, device=device)
+    ms = timer(lambda i: H.minput_refresh(prim, dev[0], dev[1], emit_d,
+                                          "max"), 200)
+    plain_ms = timer(lambda i: H.minput_refresh_plain(prim, dev[0], dev[1],
+                                                      emit_d, "max"), 20)
+    # the slot list read; a live slot's bucket read and its cache written
+    n_live = int((emit < size).sum())
+    b_ref = bound(E * 4 + n_live * (B * 9 + 8), n_live * B)
+    print(f"[minput_refresh] exact on {E} emitted slots ({n_live} live, "
+          f"a sentinel tail; min and max over int64, max over int32 and "
+          f"float64); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ref[0]:.5f} ms",
+          flush=True)
+    out["minput_refresh"] = kernel_entry(
+        "agg_minput.cu", "risingwave_tpu/stream/hash_agg.py:879", ms,
+        plain_ms, b_ref, None, err)
+
+    # -- K7e --------------------------------------------------------------
+    occ_t = torch.rand(size, generator=g) < 0.6
+    base = 1_436_918_400_000_000
+    key = base + torch.randint(0, 30, (size,), generator=g) * 1_000_000
+    key_null = torch.rand(size, generator=g) < 0.01
+    lag = 1_000_000
+    wm = torch.tensor(base + 10 * 1_000_000)
+    none = torch.tensor(-(1 << 63))
+    pairs = []
+    for tag, w, k, nul in (("closed", wm, E, key_null),
+                           ("no NULL plane", wm, E, None),
+                           ("no watermark", none, E, key_null),
+                           ("pending count", wm, 0, key_null)):
+        want = H.eowc_slots_plain(occ_t, key, nul, lag, w, k)
+        got = H.eowc_slots(occ_t.to(device), key.to(device),
+                           None if nul is None else nul.to(device), lag,
+                           w.to(device), k)
+        pairs += [(f"eowc slots {tag}", got[0].cpu(), want[0]),
+                  (f"eowc count {tag}", got[1].cpu(), want[1])]
+    err = max_abs_err(torch, pairs)
+    n_closed = int(H.eowc_slots_plain(occ_t, key, key_null, lag, wm, 0)[1])
+    if n_closed <= E:
+        fail(f"K7e case closes {n_closed} slots, not more than {E}")
+    d = [occ_t.to(device), key.to(device), key_null.to(device)]
+    wm_d = wm.to(device)
+    ms = timer(lambda i: H.eowc_slots(d[0], d[1], d[2], lag, wm_d, E), 200)
+
+    def plain(i):
+        closed = H.closed_mask(d[0], d[1], d[2], lag, wm_d)
+        return mask_indices_plain(closed, E, size), closed.sum()
+
+    plain_ms = timer(plain, 50)
+    # each slot's occupancy, key and NULL flag read once; E slots written
+    b_e = bound(size * 10 + E * 4, size * 6)
+    print(f"[agg_eowc] exact over {size} slots ({n_closed} closed, the "
+          f"first {E} taken; without a NULL plane, before any watermark, and "
+          f"the drain's count alone); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_e[0]:.5f} ms", flush=True)
+    out["agg_eowc"] = kernel_entry(
+        "agg_eowc.cu", "risingwave_tpu/stream/hash_agg.py:961", ms, plain_ms,
+        b_e, None, err)
+
+    # -- the EOWC sort: K7 + torch.sort + gather, no kernel of its own -----
+    from risingwave_tpu_torch.common.chunk import Chunk
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+    from risingwave_tpu_torch.compat import state_mismatches, state_to_numpy
+    from risingwave_tpu_torch.stream.message import Watermark
+
+    schema = Schema((Field("ts", DataType.INT64), Field("v", DataType.INT64)))
+    S, C = (1 << 16) // scale, 8192 // scale
+    exs = [EowcSortExecutor(schema, 0, S, E) for _ in range(2)]
+    sts = [exs[0].init_state(device), exs[1].init_state("cpu")]
+    emitted = [[], []]
+    chunks = []
+    for c in range(8):
+        ts = c * 1000 + torch.randint(0, 4000, (C,), generator=g)
+        vv = torch.arange(c * C, (c + 1) * C)
+        valid = torch.rand(C, generator=g) < 0.9
+        chunks.append((ts, vv, valid))
+    for c, (ts, vv, valid) in enumerate(chunks):
+        for i, dv in enumerate((device, torch.device("cpu"))):
+            ch = Chunk((ts.to(dv), vv.to(dv)),
+                       torch.zeros(C, dtype=torch.int8, device=dv),
+                       valid.to(dv), schema)
+            sts[i], _ = exs[i].apply(sts[i], ch)
+            sts[i] = exs[i].on_watermark(sts[i], Watermark(
+                0, torch.tensor(c * 1000, device=dv)))
+            while int(exs[i].pending_flush(sts[i])):
+                sts[i], o = exs[i].flush(sts[i], c)
+                emitted[i].append(o.columns[1][o.valid].cpu())
+    bad = state_mismatches(state_to_numpy(sts[1]), sts[0])
+    got = torch.cat(emitted[0]) if emitted[0] else torch.zeros(0)
+    want = torch.cat(emitted[1]) if emitted[1] else torch.zeros(0)
+    if bad or not torch.equal(got, want) or got.numel() == 0:
+        fail(f"EowcSortExecutor on the card differs from the CPU: {bad[:4]}")
+    ch = Chunk((chunks[0][0].to(device), chunks[0][1].to(device)),
+               torch.zeros(C, dtype=torch.int8, device=device),
+               chunks[0][2].to(device), schema)
+    st = exs[0].init_state(device)
+    apply_ms = timer(lambda i: exs[0].apply(st, ch), 50)
+    st = exs[0].on_watermark(st, Watermark(0, torch.tensor(10**9,
+                                                           device=device)))
+    flush_ms = timer(lambda i: exs[0].flush(st, 0), 50)
+    print(f"[eowc_sort] EowcSortExecutor (pool {S}, emit {E}, chunks of "
+          f"{C}) equal to a CPU copy over 8 chunks, {got.numel()} rows "
+          f"emitted in timestamp order and the pool; apply {apply_ms:.4f} "
+          f"ms (K7 over the free mask + the row scatter), flush "
+          f"{flush_ms:.4f} ms (torch.sort + gather)", flush=True)
+    out["agg_eowc"]["eowc_sort"] = {"pool": S, "emit": E, "chunk": C,
+                                    "apply_ms": apply_ms,
+                                    "flush_ms": flush_ms,
+                                    "rows": got.numel()}
+    return out
+
+
+def _consumed_persons(eng, cap: int) -> dict:
+    """City and state (bytes, lens) of every person the job consumed."""
+    import numpy as np
+
+    reader = eng.jobs[0].source
+    inner = getattr(reader, "inner", reader)
+    out = {"city": [], "cityl": [], "state": [], "statel": []}
+    for i in range(reader.offset // cap):
+        c = inner.gen.gen_persons(i * cap, cap).columns
+        for k, x in (("city", c[4].data), ("cityl", c[4].lens),
+                     ("state", c[5].data), ("statel", c[5].lens)):
+            out[k].append(x.cpu().numpy())
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+def check_q5_max(eng, bids) -> str:
+    """The MV against numpy per (auction, hop window): max(price) and the
+    bid count."""
+    import numpy as np
+
+    k = WINDOW_US // HOP_SLIDE_US
+    ws0 = bids["ts"] - bids["ts"] % HOP_SLIDE_US
+    base = int(ws0.min()) - (k - 1) * HOP_SLIDE_US
+    n_win = (int(ws0.max()) - base) // HOP_SLIDE_US + 1
+    win = np.concatenate([(ws0 - i * HOP_SLIDE_US - base) // HOP_SLIDE_US
+                          for i in range(k)])
+    key = np.tile(bids["auction"], k) * n_win + win
+    price = np.tile(bids["price"], k)
+    uniq, inv, counts = np.unique(key, return_inverse=True,
+                                  return_counts=True)
+    hi = np.full(uniq.shape[0], np.iinfo(np.int64).min)
+    np.maximum.at(hi, inv.reshape(-1), price)
+    rows = eng.execute("SELECT auction, window_start, max_price, bids "
+                       "FROM bench_mv")
+    got = np.asarray([(int(a) * n_win + (int(w) - base) // HOP_SLIDE_US,
+                       int(m), int(c)) for a, w, m, c in rows], np.int64)
+    got = got[np.argsort(got[:, 0])] if len(got) else got.reshape(0, 3)
+    if got.shape[0] != uniq.shape[0] or not (
+            np.array_equal(got[:, 0], uniq) and np.array_equal(got[:, 1], hi)
+            and np.array_equal(got[:, 2], counts)):
+        fail(f"q5_max MV ({got.shape[0]} rows) differs from the numpy hop "
+             f"max/counts ({uniq.shape[0]} (auction, window) pairs)")
+    return (f"MV equals numpy max(price) and count per (auction, "
+            f"window_start) over {bids['auction'].shape[0]} bids "
+            f"({uniq.shape[0]} rows)")
+
+
+def check_q7_eowc(eng, bids) -> tuple[str, dict]:
+    """The ring against numpy: every (auction, window) of a CLOSED window
+    (window_start + 1 s <= the watermark) exactly once, with its final
+    max(price) and count, and no row of an open window.  Returns the
+    message and ``{"windows": closed, "rows": emitted}``."""
+    import numpy as np
+
+    from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+
+    job = eng.jobs[0]
+    agg = next(i for i, x in enumerate(job.fragment.executors)
+               if isinstance(x, HashAggExecutor))
+    wm = int(job.states[agg].wm)
+    n, overflow, leaves = _ring_planes(eng, "bench_mv")
+    if overflow:
+        fail(f"q7_eowc ring overflowed ({overflow} rows)")
+    ws = bids["ts"] - bids["ts"] % 1_000_000
+    closed = ws + 1_000_000 <= wm
+    key = bids["auction"][closed] * (1 << 20) + (ws[closed] // 1_000_000
+                                                 - ws.min() // 1_000_000)
+    uniq, inv, counts = np.unique(key, return_inverse=True,
+                                  return_counts=True)
+    hi = np.full(uniq.shape[0], np.iinfo(np.int64).min)
+    np.maximum.at(hi, inv.reshape(-1), bids["price"][closed])
+    got_key = leaves[0] * (1 << 20) + (leaves[1] // 1_000_000
+                                       - ws.min() // 1_000_000)
+    order = np.argsort(got_key, kind="stable")
+    got_key = got_key[order]
+    if got_key.shape[0] != uniq.shape[0] or not (
+            np.array_equal(got_key, uniq)
+            and np.array_equal(leaves[2][order], hi)
+            and np.array_equal(leaves[3][order], counts)):
+        fail(f"q7_eowc ring ({n} rows) differs from numpy over the closed "
+             f"windows ({uniq.shape[0]} (auction, window) pairs)")
+    n_windows = int(np.unique(ws[closed]).shape[0])
+    return (f"ring equals numpy max/count per (auction, window) of the "
+            f"{n_windows} closed windows over {bids['ts'].shape[0]} bids: "
+            f"{n} rows, each once, none of an open window",
+            {"windows": n_windows, "rows": n})
+
+
+def check_person_states(eng, cap: int) -> str:
+    """The MV against numpy per city: the least and greatest state string
+    (byte order) and the person count."""
+    import numpy as np
+
+    p = _consumed_persons(eng, cap)
+
+    def text(data, lens, i):
+        return bytes(data[i, :lens[i]]).decode()
+
+    want: dict = {}
+    for i in range(p["cityl"].shape[0]):
+        c = text(p["city"], p["cityl"], i)
+        st = text(p["state"], p["statel"], i)
+        lo, hi, n = want.get(c, (st, st, 0))
+        want[c] = (min(lo, st), max(hi, st), n + 1)
+    got = {r[0]: (r[1], r[2], int(r[3]))
+           for r in eng.execute("SELECT * FROM bench_mv")}
+    if got != want:
+        fail(f"person_states MV differs from numpy: {sorted(got.items())[:3]}"
+             f" vs {sorted(want.items())[:3]}")
+    return (f"MV equals numpy min/max(state) and count per city over "
+            f"{p['cityl'].shape[0]} persons ({len(want)} cities)")
+
+
+def _slice11_config(scale: int) -> dict:
+    """bench.py's sizes (chunk 8192, agg table and MV 2^18, emit 4096)
+    with a ring of 2^21."""
+    cfg = {k: v // scale for k, v in BENCH_CONFIG.items()}
+    cfg["mv_ring_size"] = (1 << 21) // scale
+    return cfg
+
+
+SLICE11_KERNELS = ("agg_minput", "minput_refresh", "agg_eowc")
+SLICE11_CHECKS = {
+    "q5_max": lambda eng, cap: check_q5_max(eng, _consumed_bids(eng, cap)),
+    "q7_eowc": lambda eng, cap: check_q7_eowc(eng,
+                                              _consumed_bids(eng, cap)),
+    "person_states": check_person_states,
+}
 
 
 if __name__ == "__main__":

@@ -31,10 +31,10 @@ its spill ring, pool and dense join sides and MV
 (``tests/test_torch_join_sql.py``), and q102's aggregation over the
 join with its DISTINCT dedup tables and counts and its dynamic filter
 (``tests/test_torch_q102_sql.py``), and q13's temporal join with its
-build table (``tests/test_torch_table_sql.py``).  Reference-only
-features must be
-empty to convert (materialized-input buckets): the port has no
-counterpart for them yet.
+build table (``tests/test_torch_table_sql.py``), and q5_max's
+retractable final aggregation with its materialized-input buckets
+(``minput_vals``, ``minput_occ``) and the EOWC sort's pool
+(``tests/test_torch_minput.py``, ``tests/test_torch_eowc.py``).
 """
 
 from __future__ import annotations
@@ -55,18 +55,13 @@ from risingwave_tpu_torch.stream.hash_join import (
 from risingwave_tpu_torch.stream.materialize import MvState, RingState
 from risingwave_tpu_torch.stream.temporal_join import TjState
 from risingwave_tpu_torch.stream.top_n import TopNState
-from risingwave_tpu_torch.stream.watermark import WmState
+from risingwave_tpu_torch.stream.watermark import EowcSortState, WmState
 
 _STATE_TYPES = {cls.__name__: cls
                 for cls in (AggState, MvState, RingState, WmState, NCol,
                             StrCol, PoolSideState, SideState, JoinState,
-                            TopNState, DynFilterState, TjState)}
-#: reference AggState fields the port does not carry (must be empty)
-_REF_ONLY = ("minput_vals", "minput_occ")
-
-
-def _empty(v) -> bool:
-    return len(v) == 0 if isinstance(v, tuple) else np.size(v) == 0
+                            TopNState, DynFilterState, TjState,
+                            EowcSortState)}
 
 
 def state_from_numpy(tree, device="cpu"):
@@ -82,10 +77,6 @@ def state_from_numpy(tree, device="cpu"):
             state_from_numpy(tree.tombstone, device), tree.size)
     if name in _STATE_TYPES and hasattr(tree, "_fields"):
         cls = _STATE_TYPES[name]
-        for f in _REF_ONLY:
-            if not _empty(getattr(tree, f, ())):
-                raise NotImplementedError(
-                    f"{name}.{f} is not ported yet (state must be empty)")
         return cls(*(state_from_numpy(getattr(tree, f), device)
                      for f in cls._fields))
     if isinstance(tree, tuple):

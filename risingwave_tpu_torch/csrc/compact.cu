@@ -9,7 +9,8 @@
 //      scans its own tile (warp shuffles + one shared array) and writes
 //      the indices whose rank is below k; every block also fills its
 //      share of the positions [total, k) with `fill`.
-// Nothing is read back to the host and the output size is fixed.
+// Nothing is read back to the host and the output size is fixed.  The
+// two passes live in rw_compact.cuh, shared with K7e (agg_eowc.cu).
 // Bound: bytes (n mask bytes read twice, 4k bytes written); at n = 2^18
 // that is ~0.3 us of HBM time, so launch latency dominates.
 //
@@ -22,88 +23,26 @@
 // written once, by the same block, with no host sync.  Bound: bytes (the
 // visible rows' column bytes read and written once).
 #include "rw_common.cuh"
+#include "rw_compact.cuh"
 
-static constexpr int MI_THREADS = 256;
-static constexpr int MI_ITEMS = 4;
-static constexpr int MI_TILE = MI_THREADS * MI_ITEMS;
-
-// Exclusive prefix sum of one int per thread over the block; `total`
-// receives the block's sum.  Every thread of the block must call it.
-__device__ __forceinline__ int block_exclusive_scan(int v, int& total) {
-  __shared__ int warp_tot[32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = (blockDim.x + 31) >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+// a uint8 mask read from memory
+struct MaskBits {
+  const uint8_t* mask;
+  __device__ __forceinline__ bool operator()(int i) const {
+    return mask[i] != 0;
   }
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < n_warps ? warp_tot[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < n_warps) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  const int excl = x - v + (warp > 0 ? warp_tot[warp - 1] : 0);
-  total = warp_tot[n_warps - 1];
-  __syncthreads();  // warp_tot is reused by the next call
-  return excl;
-}
+};
 
 __global__ void __launch_bounds__(MI_THREADS)
 count_kernel(const uint8_t* __restrict__ mask, int n, int* __restrict__ counts) {
-  const int base = blockIdx.x * MI_TILE + threadIdx.x * MI_ITEMS;
-  int c = 0;
-  for (int j = 0; j < MI_ITEMS; ++j) {
-    const int i = base + j;
-    c += (i < n && mask[i] != 0) ? 1 : 0;
-  }
-  int total;
-  block_exclusive_scan(c, total);
-  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+  rw_mi_count(MaskBits{mask}, n, counts);
 }
 
 __global__ void __launch_bounds__(MI_THREADS)
 write_kernel(const uint8_t* __restrict__ mask, int n, int n_tiles,
              const int* __restrict__ counts, int k, int fill,
              int* __restrict__ out) {
-  // rank of this tile's first set bit, and the mask's total count
-  int before = 0, all = 0;
-  for (int b = threadIdx.x; b < n_tiles; b += blockDim.x) {
-    const int c = counts[b];
-    all += c;
-    if (b < static_cast<int>(blockIdx.x)) before += c;
-  }
-  int tile_base, total;  // block sums of `before` and `all`
-  block_exclusive_scan(before, tile_base);
-  block_exclusive_scan(all, total);
-
-  const int base = blockIdx.x * MI_TILE + threadIdx.x * MI_ITEMS;
-  uint8_t bits[MI_ITEMS];
-  int c = 0;
-  for (int j = 0; j < MI_ITEMS; ++j) {
-    const int i = base + j;
-    bits[j] = (i < n && mask[i] != 0) ? 1 : 0;
-    c += bits[j];
-  }
-  int tile_total;
-  int pos = tile_base + block_exclusive_scan(c, tile_total);
-  for (int j = 0; j < MI_ITEMS; ++j) {
-    if (bits[j]) {
-      if (pos < k) out[pos] = base + j;
-      ++pos;
-    }
-  }
-  for (int j = total + blockIdx.x * blockDim.x + threadIdx.x; j < k;
-       j += gridDim.x * blockDim.x) {
-    out[j] = fill;
-  }
+  rw_mi_write(MaskBits{mask}, n, n_tiles, counts, k, fill, out, nullptr);
 }
 
 extern "C" int rw_mask_indices(const void* mask, int n, int k, int fill,

@@ -8,7 +8,7 @@
 // K13's rank launch (after a stable sort) ranks the surviving deletes
 // among rows of equal row hash and the inserts among rows of equal slot.
 //
-//   rw_dense_cancel  in-chunk annihilation, before K3: over the rows
+//   rw_bucket_cancel in-chunk annihilation, before K3: over the rows
 //                    stably sorted by row hash (inserts and deletes; the
 //                    rest last under the all-ones sentinel) one 1024-thread
 //                    block finds each segment's start (a running max),
@@ -38,79 +38,16 @@
 //                    (strings as bytes plus lengths, null planes) and
 //                    increments the counts.
 //   Splitting each phase into a read-only pick and a write launch keeps
-//   the picks exact without atomics on the bitmap.
+//   the picks exact without atomics on the bitmap.  The annihilation and
+//   the bucket walk live in rw_bucket.cuh, shared with K6m (agg_minput.cu).
 //
 // Bound: bytes.  A delete reads its bucket's B occupancy bytes and hashes
 // the occupied rows' columns (q101: 64 x 16 B at most), an insert reads B
 // bytes and writes its row once; the counts are 4-byte atomics.  The
 // cancel pass is one block over the chunk (a few scans), latency-bound.
+#include "rw_bucket.cuh"
 #include "rw_common.cuh"
 #include "rw_join.cuh"
-
-__global__ void __launch_bounds__(1024)
-    dense_cancel_kernel(const long long* sorted_key, const long long* order,
-                        const uint8_t* is_ins, const uint8_t* is_del,
-                        uint8_t* out_ins, uint8_t* out_del, int* seg_start,
-                        int* pre_ins, int* pre_del, int* tot_ins,
-                        int* tot_del, int cap) {
-  const int T = blockDim.x;
-  const int t = threadIdx.x;
-  const int per = (cap + T - 1) / T;
-  const int lo = t * per < cap ? t * per : cap;
-  const int hi = lo + per < cap ? lo + per : cap;
-  // segment starts: a running max of the positions where the key changes
-  int last = -1, n_ins = 0, n_del = 0;
-  for (int i = lo; i < hi; ++i) {
-    if (i == 0 || sorted_key[i] != sorted_key[i - 1]) last = i;
-    n_ins += is_ins[order[i]];
-    n_del += is_del[order[i]];
-  }
-  int total;
-  int run = rw_block_exclusive_scan<RwMax>(last, &total);
-  int ci = rw_block_exclusive_scan<RwSum>(n_ins, &total);
-  int cd = rw_block_exclusive_scan<RwSum>(n_del, &total);
-  for (int i = lo; i < hi; ++i) {
-    if (i == 0 || sorted_key[i] != sorted_key[i - 1]) run = i;
-    seg_start[i] = run;
-    pre_ins[i] = ci;
-    pre_del[i] = cd;
-    ci += is_ins[order[i]];
-    cd += is_del[order[i]];
-  }
-  __syncthreads();
-  // each segment's last position writes the segment's totals at its start
-  for (int i = lo; i < hi; ++i) {
-    const int s = seg_start[i];
-    const bool end = i + 1 >= cap || sorted_key[i + 1] != sorted_key[i];
-    if (!end) continue;
-    const long long row = order[i];
-    tot_ins[s] = pre_ins[i] + is_ins[row] - pre_ins[s];
-    tot_del[s] = pre_del[i] + is_del[row] - pre_del[s];
-  }
-  __syncthreads();
-  for (int i = lo; i < hi; ++i) {
-    const int s = seg_start[i];
-    const long long row = order[i];
-    const int ins_rank = pre_ins[i] - pre_ins[s];
-    const int del_rank = pre_del[i] - pre_del[s];
-    out_ins[row] = is_ins[row] && !(ins_rank < tot_del[s]);
-    out_del[row] = is_del[row] && !(del_rank < tot_ins[s]);
-  }
-}
-
-extern "C" int rw_dense_cancel(const long long* sorted_key,
-                               const long long* order, const uint8_t* is_ins,
-                               const uint8_t* is_del, uint8_t* out_ins,
-                               uint8_t* out_del, int* scratch, int cap,
-                               void* stream) {
-  if (cap > 0) {
-    dense_cancel_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
-        sorted_key, order, is_ins, is_del, out_ins, out_del, scratch,
-        scratch + cap, scratch + 2 * cap, scratch + 3 * cap,
-        scratch + 4 * cap, cap);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 struct JoinDenseArgs {
   JoinCols cols;               // src = chunk leaves [cap], dst = [size*B]
@@ -140,6 +77,15 @@ __device__ __forceinline__ int clamp_slot(int s, int size) {
   return s < size - 1 ? s : size - 1;
 }
 
+// a stored row whose K1 hash equals the delete row's
+struct HashEq {
+  RwCols hash;
+  uint64_t h;
+  __device__ __forceinline__ bool operator()(long long e) const {
+    return rw_hash_row(hash, e) == h;
+  }
+};
+
 __global__ void find_clears_kernel(JoinDenseArgs a) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= a.cap) return;
@@ -150,17 +96,9 @@ __global__ void find_clears_kernel(JoinDenseArgs a) {
     if (a.found_del[r]) {
       const long long base =
           static_cast<long long>(clamp_slot(a.slots_del[r], a.size)) * a.B;
-      const uint64_t h = static_cast<uint64_t>(a.row_hash[r]);
-      int seen = 0;
-      for (int b = 0; b < a.B; ++b) {
-        if (!a.occupied[base + b]) continue;
-        if (rw_hash_row(a.hash, base + b) != h) continue;
-        if (seen == a.del_rank[r]) {
-          pos = static_cast<int>(base + b);
-          break;
-        }
-        ++seen;
-      }
+      pos = rw_bucket_pick(a.occupied, base, a.B, true, a.del_rank[r],
+                           HashEq{a.hash,
+                                  static_cast<uint64_t>(a.row_hash[r])});
     }
     if (pos < 0) {
       atomicAdd(reinterpret_cast<unsigned long long*>(a.inconsistency), 1ull);
@@ -186,15 +124,8 @@ __global__ void find_takes_kernel(JoinDenseArgs a) {
     if (!a.ins_over[r]) {
       const long long base =
           static_cast<long long>(clamp_slot(a.slots_ins[r], a.size)) * a.B;
-      int seen = 0;
-      for (int b = 0; b < a.B; ++b) {
-        if (a.occupied[base + b]) continue;
-        if (seen == a.ins_rank[r]) {
-          pos = static_cast<int>(base + b);
-          break;
-        }
-        ++seen;
-      }
+      pos = rw_bucket_pick(a.occupied, base, a.B, false, a.ins_rank[r],
+                           RwAny{});
     }
     if (pos < 0) {
       atomicAdd(reinterpret_cast<unsigned long long*>(a.overflow), 1ull);

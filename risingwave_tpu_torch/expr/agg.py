@@ -8,8 +8,14 @@ append-only input.  ``lift`` maps (value column, signs) to each row's
 contribution; ``output`` turns the states into the SQL result at flush.
 
 Ported: count, count(*), sum, sum0, avg (a sum and a count state,
-``_out_avg``), min, max.  The packed string min/max are not ported yet
-(``AggCall.spec`` raises).
+``_out_avg``), min, max, and min/max over strings of at most 8 bytes
+(``min_str``/``max_str`` :115-160, :223-226; the planner rewrites
+``min``/``max`` over a short VARCHAR to them): each string packs
+big-endian into one int64 whose signed order is the byte order
+(``pack_str8``), so the aggregation kernels see an int64 min/max state;
+the output unpacks it with the length at the last nonzero byte.  The
+pack and unpack are plain PyTorch ops, as the reference's are one fused
+expression each.
 """
 
 from __future__ import annotations
@@ -78,6 +84,54 @@ _MIN = PrimState("min", lambda d: d, _minmax_init("min"), _minmax_lift("min"))
 _MAX = PrimState("max", lambda d: d, _minmax_init("max"), _minmax_lift("max"))
 
 
+# -- min/max over short strings: an order-preserving int64 packing ----------
+
+_INT64_MIN = -(1 << 63)
+
+
+def pack_str8(col) -> torch.Tensor:
+    """A copy of the reference's ``_pack_str8`` (expr/agg.py:131): a
+    ``StrCol`` of width <= 8 packed big-endian (bytes at and past the
+    length as 0) into int64 [cap], the sign bit flipped so that signed
+    order is byte order.  Built as eight little-endian bytes viewed as
+    one int64 (no shift overflows)."""
+    data, lens = col.data, col.lens
+    cap, w = data.shape
+    j = torch.arange(w, device=data.device)
+    be = torch.zeros((cap, 8), dtype=torch.uint8, device=data.device)
+    be[:, :w] = torch.where(j[None, :] < lens[:, None], data,
+                            torch.zeros_like(data))
+    return be.flip(1).contiguous().view(torch.int64).reshape(cap) ^ _INT64_MIN
+
+
+def _minmax_str_lift(mode: str):
+    def lift(col, signs):
+        packed = pack_str8(col)
+        neutral = torch.full_like(packed, _minmax_init(mode)(torch.int64))
+        return torch.where(signs > 0, packed, neutral)
+
+    return lift
+
+
+def _out_minmax_str(states, count, out_field):
+    """A copy of the reference's ``_out_minmax_str`` (:145): the packed
+    state back to an 8-byte ``StrCol``, the length at its last nonzero
+    byte (an all-zero state is the empty string)."""
+    from risingwave_tpu_torch.common.chunk import StrCol
+
+    v = (states[0] ^ _INT64_MIN).contiguous()
+    bytes_ = v.view(torch.uint8).reshape(-1, 8).flip(1).contiguous()
+    pos = torch.arange(1, 9, dtype=torch.int32, device=v.device)
+    lens = torch.where(bytes_ != 0, pos, torch.zeros_like(pos)).amax(1)
+    return StrCol(bytes_, lens.to(torch.int32))
+
+
+_MIN_STR = PrimState("min", lambda d: torch.int64, _minmax_init("min"),
+                     _minmax_str_lift("min"))
+_MAX_STR = PrimState("max", lambda d: torch.int64, _minmax_init("max"),
+                     _minmax_str_lift("max"))
+
+
 @dataclass(frozen=True)
 class AggSpec:
     """A SQL aggregate = primitive states + an output combiner."""
@@ -125,6 +179,11 @@ AGG_REGISTRY: dict[str, AggSpec] = {
     "avg": AggSpec("avg", (_ADD_SUM, _ADD_COUNT), _out_avg, True, _avg_type),
     "min": AggSpec("min", (_MIN,), _out_first, False, lambda t: t),
     "max": AggSpec("max", (_MAX,), _out_first, False, lambda t: t),
+    # min/max over strings of <= 8 device bytes (a planner rewrite)
+    "min_str": AggSpec("min_str", (_MIN_STR,), _out_minmax_str, False,
+                       lambda t: DataType.VARCHAR),
+    "max_str": AggSpec("max_str", (_MAX_STR,), _out_minmax_str, False,
+                       lambda t: DataType.VARCHAR),
 }
 
 
@@ -153,6 +212,9 @@ class AggCall:
             in_t, scale = f.data_type, f.decimal_scale
             nullable = (f.nullable or self.filter is not None) \
                 and self.kind not in ("count", "count_star")
-        return Field(self.alias or self.kind, spec.return_type(in_t),
-                     decimal_scale=scale, nullable=nullable)
+        t = spec.return_type(in_t)
+        # the packed string min/max emits a fixed 8-byte column
+        kw = {"str_width": 8} if t.is_string else {}
+        return Field(self.alias or self.kind, t, decimal_scale=scale,
+                     nullable=nullable, **kw)
 

@@ -4,8 +4,11 @@ The sources live in ``risingwave_tpu_torch/csrc``: one ``.cu`` file per
 kernel plus the shared headers ``rw_common.cuh``, ``rw_join.cuh``,
 ``nexmark_common.cuh``, ``rw_str.cuh`` (the string kernels' row readers
 and writers and their greedy match walk), ``rw_cal.cuh`` (the calendar
-of ``to_char.cu`` and ``calendar.cu``) and ``rw_probe.cuh`` (the probe
-walk of ``probe.cu`` and ``temporal_probe.cu``), and one host routine,
+of ``to_char.cu`` and ``calendar.cu``), ``rw_probe.cuh`` (the probe
+walk of ``probe.cu`` and ``temporal_probe.cu``), ``rw_bucket.cuh`` (the
+bucket multi-map's annihilation and walk, of ``join_dense.cu`` and
+``agg_minput.cu``) and ``rw_compact.cuh`` (the mask compaction of
+``compact.cu`` and ``agg_eowc.cu``), and one host routine,
 ``crc32c.cpp`` (the checkpoint store's checksum, ``crc32c``).  Each
 source compiles with ``nvcc`` into its own shared library with a plain
 C interface, named by a hash of its source, the headers and the flags,
@@ -18,7 +21,8 @@ stream, and every entry returns ``cudaGetLastError()``, which
 
 ``KERNELS`` names each kernel entry point with the source it is built
 from (``compact.cu``, ``nexmark_events.cu``, ``tag_probe.cu``,
-``shadow_digest.cu`` and ``str_cmp.cu`` hold two each; ``topn_band.cu``,
+``shadow_digest.cu``, ``str_cmp.cu`` and ``agg_minput.cu`` hold two
+each; ``topn_band.cu``,
 ``topn_flush.cu``, ``join_dense.cu``, ``dyn_filter.cu`` and
 ``str_match.cu`` two C entries each, all counted), and ``LAUNCHES``
 counts, per kernel, the
@@ -42,7 +46,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 HEADERS = ("rw_common.cuh", "rw_join.cuh", "nexmark_common.cuh",
-           "rw_str.cuh", "rw_cal.cuh", "rw_probe.cuh")
+           "rw_str.cuh", "rw_cal.cuh", "rw_probe.cuh", "rw_bucket.cuh",
+           "rw_compact.cuh")
 #: library name -> source file
 SOURCES = {
     "hash64": "hash64.cu",
@@ -79,6 +84,8 @@ SOURCES = {
     "str_match": "str_match.cu",
     "str_window": "str_window.cu",
     "calendar": "calendar.cu",
+    "agg_minput": "agg_minput.cu",
+    "agg_eowc": "agg_eowc.cu",
     # a host routine (the checkpoint store's crc32c), no kernel
     "crc32c": "crc32c.cpp",
 }
@@ -123,6 +130,9 @@ KERNELS = {
     "str_match": "str_match",
     "str_window": "str_window",
     "calendar": "calendar",
+    "agg_minput": "agg_minput",
+    "minput_refresh": "agg_minput",
+    "agg_eowc": "agg_eowc",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

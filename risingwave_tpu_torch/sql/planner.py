@@ -44,8 +44,12 @@ TopN of the same executor).
 Not ported yet (``PlanError``/``NotImplementedError``): non-equality ON
 conditions other than an outer join's one-sided push-down, WHERE or
 aggregation over a join, nested (multi-way) and comma joins, EXISTS and
-scalar subqueries, a derived table outside a join, sinks, EMIT ON
-WINDOW CLOSE and MV-on-MV.
+scalar subqueries, a derived table outside a join, sinks and MV-on-MV.
+EMIT ON WINDOW CLOSE plans as the reference plans it (an aggregation
+grouped by a watermarked window key, no pane rewrite, final rows into the
+append-only ring) and refuses, with the reference's words, joins and
+subqueries, window functions, a query without aggregation, ORDER BY ..
+LIMIT and a group key that is not the window.
 """
 
 from __future__ import annotations
@@ -156,9 +160,9 @@ class GroupTopNSpec:
 
 @dataclass
 class PlannerConfig:
-    """The reference's planner knobs, same names and defaults (the
-    minput bucket size is accepted for DDL compatibility; its operator is
-    not ported yet)."""
+    """The reference's planner knobs, same names and defaults
+    (``minput_bucket_cap``: the values each group keeps for a min/max
+    over a retractable input, K6m's bucket width)."""
 
     agg_table_size: int = 1 << 16
     agg_emit_capacity: int = 4096
@@ -211,22 +215,36 @@ class Planner:
                            if hasattr(node, "fragment") else [node.join])]
 
     def _plan(self, select: ast.Select, eowc: bool) -> "UnaryPlan | DagPlan":
-        if eowc:
-            raise PlanError("EMIT ON WINDOW CLOSE is not ported yet")
+        """``eowc``: EMIT ON WINDOW CLOSE (final append-only rows when
+        windows close; the reference's :174-203)."""
+        def has_subquery(f) -> bool:
+            if isinstance(f, ast.SubqueryRef):
+                return True
+            if isinstance(f, ast.Join):
+                return has_subquery(f.left) or has_subquery(f.right)
+            return False
+
         rewritten = self._match_group_topn(select)
         if rewritten is not None:
             inner, spec = rewritten
             if isinstance(inner.from_, (ast.SubqueryRef, ast.Join)):
+                if eowc:
+                    raise PlanError("EMIT ON WINDOW CLOSE on "
+                                    "joins/subqueries: next round")
                 raise PlanError("a row_number subquery over a join or a "
                                 "subquery is not ported yet")
-            return self._plan_unary(inner, group_topn=spec)
+            return self._plan_unary(inner, group_topn=spec, eowc=eowc)
         select = self._rewrite_in_subqueries(select)
+        if eowc and (isinstance(select.from_, ast.Join)
+                     or has_subquery(select.from_)):
+            raise PlanError(
+                "EMIT ON WINDOW CLOSE on joins/subqueries: next round")
         if isinstance(select.from_, ast.SubqueryRef):
             raise PlanError("a derived table outside a join is not ported "
                             "yet")
         if isinstance(select.from_, ast.Join):
             return self._plan_join(select)
-        return self._plan_unary(select)
+        return self._plan_unary(select, eowc=eowc)
 
     # -- IN (SELECT ...) rewrite ----------------------------------------
     def _rewrite_in_subqueries(self, select: ast.Select) -> ast.Select:
@@ -915,7 +933,8 @@ class Planner:
 
     # -- unary pipelines -------------------------------------------------
     def _plan_unary(self, select: ast.Select,
-                    group_topn: GroupTopNSpec | None = None) -> UnaryPlan:
+                    group_topn: GroupTopNSpec | None = None,
+                    eowc: bool = False) -> UnaryPlan:
         if select.from_ is None:
             raise PlanError("SELECT without FROM is not a streaming job")
         pin = self._resolve_input(select.from_)
@@ -925,17 +944,25 @@ class Planner:
             execs.append(FilterExecutor(scope.schema,
                                         Binder(scope).bind(select.where)))
         if any(isinstance(i.expr, ast.WindowCall) for i in select.items):
+            if eowc:
+                raise PlanError(
+                    "window functions with sinks/EOWC: next round")
             return self._plan_over_window(select, pin, execs, scope)
         has_agg = bool(select.group_by) or self._has_agg(select)
         if has_agg and group_topn is not None:
             raise PlanError("row_number subquery over an aggregation is "
                             "not ported yet")
+        if eowc and not has_agg:
+            raise PlanError(
+                "EMIT ON WINDOW CLOSE needs GROUP BY window_start over a "
+                "watermarked windowed source")
         pk_positions: list[int] = []
         gtn = None
         if has_agg:
-            pane = self._try_pane_agg(select, scope, pin, execs)
+            pane = None if eowc else self._try_pane_agg(select, scope, pin,
+                                                         execs)
             if pane is None:
-                pane = self._plan_agg(select, scope, pin)
+                pane = self._plan_agg(select, scope, pin, eowc=eowc)
             execs2, out_schema, pk_positions = pane
             execs.extend(execs2)
         else:
@@ -958,7 +985,7 @@ class Planner:
         self._append_terminal(execs, out_schema, select,
                               input_append_only=pin.append_only,
                               has_agg=has_agg, pk_positions=pk_positions,
-                              group_topn=gtn)
+                              group_topn=gtn, eowc=eowc)
         return UnaryPlan(pin.reader, Fragment(execs), len(execs) - 1,
                          append_only=pin.append_only)
 
@@ -1054,8 +1081,9 @@ class Planner:
                                    size)
         n_pane_out = len(pane_agg.out_schema)
         # 4. combine partials per (keys..., window_start); pane updates
-        # retract, so the global phase runs retractable (min/max there
-        # needs materialized input, which raises: not ported yet)
+        # retract, so the global phase runs retractable: min/max there
+        # keep materialized input (K6m), up to k live pane partials per
+        # window and their U-/U+ turnover
         final_group = [(nm, InputRef(n_pane_out) if gi == ws_key_pos
                         else InputRef(gi))
                        for gi, (nm, _) in enumerate(group_by)]
@@ -1066,7 +1094,8 @@ class Planner:
             emit_capacity=cfg.agg_emit_capacity,
             watermark_group_idx=ws_key_pos, watermark_lag=size,
             watermark_src_col=pin.watermark_col,
-            retractable_input=True)
+            retractable_input=True,
+            minput_bucket_cap=max(cfg.minput_bucket_cap, 2 * (size // slide)))
         execs2: list[Executor] = [pane_agg, expand, final_agg]
 
         # post projection / having / pk: _plan_agg's tail over the final
@@ -1094,9 +1123,11 @@ class Planner:
 
     def _append_terminal(self, execs, out_schema, select, *,
                          input_append_only: bool, has_agg: bool,
-                         pk_positions, group_topn=None) -> None:
+                         pk_positions, group_topn=None,
+                         eowc: bool = False) -> None:
         """Plan tail: the optional (group) TopN, then materialize by pk
-        (retractable) or into a ring."""
+        (retractable) or into a ring (EOWC output is final append-only
+        rows)."""
         has_topn = bool(select.order_by and select.limit is not None)
         pool = max(self.config.topn_pool_size,
                    2 * self.config.chunk_capacity)
@@ -1134,6 +1165,9 @@ class Planner:
             input_append_only = False
             pk_positions = list(range(len(out_schema)))
         if has_topn:
+            if eowc:
+                raise PlanError("ORDER BY ... LIMIT with EMIT ON WINDOW "
+                                "CLOSE: next round")
             ob = []
             b = Binder(Scope.of(out_schema))
             for oi in select.order_by:
@@ -1148,7 +1182,7 @@ class Planner:
                 offset=select.offset or 0, pool_size=pool,
                 emit_capacity=self.config.topn_emit_capacity,
                 append_only=input_append_only and not has_agg))
-        if has_agg or has_topn or not input_append_only:
+        if (has_agg or has_topn or not input_append_only) and not eowc:
             # pk: group keys for aggs; the whole row for TopN output
             pk = list(range(len(out_schema))) if has_topn \
                 else pk_positions or list(range(len(out_schema)))
@@ -1276,7 +1310,8 @@ class Planner:
                    if not isinstance(i.expr, ast.Star))
 
     def _plan_agg(self, select: ast.Select, scope: Scope,
-                  pin: PlannedInput, extra_out: "list | None" = None):
+                  pin: PlannedInput, extra_out: "list | None" = None,
+                  eowc: bool = False):
         """The aggregation, its HAVING filter and post-projection; with
         ``extra_out`` (AST expressions in the input scope, aggregates
         allowed) their values are appended to the output as hidden
@@ -1317,13 +1352,39 @@ class Planner:
                     wm_idx, lag = ki, pin.window_size
                 elif isinstance(ga, ast.ColumnRef) and ga.name == "window_end":
                     wm_idx, lag = ki, 0
+        if eowc and wm_idx is None:
+            raise PlanError(
+                "EMIT ON WINDOW CLOSE needs GROUP BY window_start over a "
+                "watermarked windowed source")
+        # min/max over short strings: the packed int64 monoid (min_str,
+        # max_str); wider strings, or a retractable input, would need a
+        # materialized-input string state, which the reference lacks too
+        for ci, a in enumerate(agg_calls):
+            if a.kind in ("min", "max") and a.arg is not None:
+                f = a.arg.return_field(scope.schema)
+                if f.data_type.is_string:
+                    if f.str_width > 8:
+                        raise PlanError(
+                            f"{a.kind} over strings wider than 8 device "
+                            "bytes: next round")
+                    if not pin.append_only:
+                        raise PlanError(
+                            f"{a.kind} over strings on a retractable "
+                            "input: next round")
+                    agg_calls[ci] = dataclasses.replace(a,
+                                                        kind=f"{a.kind}_str")
         agg = HashAggExecutor(
             scope.schema, group_by, agg_calls,
             table_size=cfg.agg_table_size,
             emit_capacity=cfg.agg_emit_capacity,
             watermark_group_idx=wm_idx, watermark_lag=lag,
             watermark_src_col=pin.watermark_col,
+            emit_on_window_close=eowc,
+            # a retractable input (a join's output, a retract table, the
+            # pane plan's global phase) keeps min/max as materialized
+            # input (K6m) instead of refusing its deletes
             retractable_input=not pin.append_only,
+            minput_bucket_cap=cfg.minput_bucket_cap,
             distinct_table_size=cfg.distinct_table_size,
             # an unbounded key space (no watermark cleaning) diverts the
             # rows its table cannot hold to the host tier; a windowed agg
@@ -1332,7 +1393,7 @@ class Planner:
             spill_ring=((cfg.agg_spill_ring
                          if cfg.agg_spill_ring is not None
                          else 4 * cfg.chunk_capacity)
-                        if wm_idx is None else 0))
+                        if wm_idx is None and not eowc else 0))
         agg.spill_table_size = (cfg.agg_spill_table_size
                                 or cfg.agg_table_size * 8)
         execs: list[Executor] = [agg]

@@ -64,6 +64,9 @@ class Fragment:
         self.name = name
         #: counter labels aligned with the barrier counters vector
         self.counter_labels: list[str] = []
+        #: an executor emits on window close (drain after the watermarks)
+        self.has_eowc = any(getattr(ex, "emit_on_window_close", False)
+                            for ex in self.executors)
 
     @property
     def out_schema(self) -> Schema:
@@ -146,15 +149,16 @@ class Fragment:
     def barrier(self, states, epoch):
         """Cross a barrier: flush, drain, watermarks, counters.
 
-        Returns (states, first-pass emissions, counters vector).  The
-        reference drains again after the watermarks for EMIT ON WINDOW
-        CLOSE rows; without EOWC (not ported) a watermark only clears
+        Returns (states, first-pass emissions, counters vector).  As in
+        the reference, the watermarks are followed by a second drain, so
+        that EMIT ON WINDOW CLOSE rows closed by this barrier's watermark
+        are emitted at this barrier.  Without EOWC a watermark only clears
         dirty groups, so that drain is needed only when the first one
         stopped at its round bound."""
         states, outs = self.flush(states, epoch)
         states, pending = self._drain(states, epoch)
         states = self._propagate_watermarks(states)
-        if pending:
+        if pending or self.has_eowc:
             states, _ = self._drain(states, epoch)
         labels, counters = collect_counters(self.executors, states)
         self.counter_labels = labels

@@ -56,8 +56,26 @@ The transition signs replace the call's changelog signs; on the
 pre-aggregation branch a second K5 launch reduces the call's values
 over the chunk's runs after the dedup.
 
-Not ported yet (raise): retractable min/max (``minput``), EMIT ON WINDOW
-CLOSE.
+min/max over a RETRACTABLE input (``retractable_input=True``) keep a
+materialized-input state (reference :231-242, the ``minput.rs``
+analog): per such call a ``[size, B]`` value bucket aligned with the
+group table's slots and a ``[size, B]`` occupancy plane
+(``minput_vals``, ``minput_occ``; ``B = minput_bucket_cap``).  Every row
+that counts (a non-NULL value passing the FILTER, in a group that got a
+slot) lands in its group's bucket through kernel K6m
+(``csrc/agg_minput.cu``, ``minput_update``): in-chunk +v/-v pairs
+cancel, deletes clear a value-equal entry by rank, inserts claim free
+entries by rank; a full bucket counts into ``overflow`` and a delete of
+an absent value into ``inconsistency``.  The call's ``[size]`` state is
+then a cache that ``flush`` recomputes for the emitted slots (K6m's
+refresh launch), so the U-/U+ machinery is unchanged.
+
+EMIT ON WINDOW CLOSE (``emit_on_window_close``, reference :961-1026):
+``flush`` emits final append-only rows for the groups whose window
+closed (``key + lag <= wm``), up to ``emit_capacity`` of them in slot
+order (kernel K7e, ``csrc/agg_eowc.cu``), and evicts them through the K4
+sweep; ``pending_flush`` is the count of closed groups, so the runtime
+drains a window larger than the capacity over several rounds.
 """
 
 from __future__ import annotations
@@ -80,6 +98,7 @@ from risingwave_tpu_torch.common.chunk import (
     split_col,
 )
 from risingwave_tpu_torch.common.compact import (
+    _MI_TILE as MI_TILE,
     accel_tuned,
     mask_indices,
     segment_start_positions,
@@ -89,8 +108,8 @@ from risingwave_tpu_torch.common.compact import (
 )
 from risingwave_tpu_torch.common.hash import hash64_columns, leaf_width
 from risingwave_tpu_torch.common.types import DataType, Field, Schema
-from risingwave_tpu_torch.expr.agg import _ADD_COUNT, AggCall
-from risingwave_tpu_torch.expr.node import Expr
+from risingwave_tpu_torch.expr.agg import _ADD_COUNT, AggCall, _minmax_init
+from risingwave_tpu_torch.expr.node import Expr, InputRef
 from risingwave_tpu_torch.state.hash_table import (
     HashTable,
     gather_key,
@@ -98,7 +117,13 @@ from risingwave_tpu_torch.state.hash_table import (
     permute_dense,
 )
 from risingwave_tpu_torch.stream.executor import Executor
-from risingwave_tpu_torch.stream.hash_join import rank_by
+from risingwave_tpu_torch.stream.hash_join import (
+    _first_true,
+    _group_totals,
+    _rank_by,
+    bucket_cancel_cuda,
+    rank_by,
+)
 from risingwave_tpu_torch.stream.materialize import (
     empty_value_col,
     value_leaves,
@@ -119,6 +144,10 @@ class AggState(NamedTuple):
     overflow: torch.Tensor        # int64 scalar — rows lost to a full table
     inconsistency: torch.Tensor   # int64 scalar — deletes hitting min/max
     wm: torch.Tensor              # int64 scalar — latest watermark
+    #: per retractable min/max call (reference ``minput.rs``): its
+    #: [size, B] values and [size, B] occupancy, slot-aligned with table
+    minput_vals: tuple = ()
+    minput_occ: tuple = ()
     #: per DISTINCT call: a dedup table keyed (group keys..., argument)
     #: and an int64 [distinct_table_size] row count per key
     distinct_tables: tuple = ()
@@ -643,6 +672,253 @@ def distinct_dedup(cnt, slots, inserted, eligible, over, rank, signs,
 
 
 # ---------------------------------------------------------------------------
+# kernel K6m: the materialized input of retractable min/max
+
+
+def minput_survivors(row_slots, v, signs, active):
+    """``(pair_h, is_ins, is_del)``: K1 over each row's (slot, value) pair
+    and the inserts and deletes that survive the in-chunk annihilation
+    (the k-th insert of a pair cancels its k-th delete), in row order."""
+    is_ins = active & (signs > 0)
+    is_del = active & (signs < 0)
+    pair_h = hash64_columns([row_slots.to(torch.int64), v])
+    n_ins_h = _group_totals(pair_h, is_ins)
+    n_del_h = _group_totals(pair_h, is_del)
+    keep_ins = ~(_rank_by(pair_h, is_ins) < n_del_h)
+    is_del = is_del & ~(_rank_by(pair_h, is_del) < n_ins_h)
+    return pair_h, is_ins & keep_ins, is_del
+
+
+def minput_update_plain(vals, occ, row_slots, v, signs, active, ins_pos,
+                        overflow, inconsistency) -> None:
+    """Plain PyTorch version of kernel K6m's update, in place: the
+    reference's ``_minput_update`` (:790) over rows in the agg's row
+    order (sorted on the pre-aggregation branch).  Reclaimed slots
+    (``ins_pos``) start empty; +v/-v pairs on (slot, value) cancel; each
+    delete clears the rank-th value-equal occupied entry of its slot's
+    bucket (a miss counts into ``inconsistency``), then each insert
+    claims the rank-th free entry (none: ``overflow``)."""
+    size, B = occ.shape
+    occ[ins_pos[ins_pos < size].to(torch.int64)] = False
+    pair_h, is_ins, is_del = minput_survivors(row_slots, v, signs, active)
+    safe = torch.clamp(row_slots, max=size - 1).to(torch.int64)
+    occ_flat, vals_flat = occ.view(-1), vals.view(-1)
+    del_rank = _rank_by(pair_h, is_del)
+    match = occ[safe] & (vals[safe] == v[:, None])
+    match_rank = torch.cumsum(match.to(torch.int32), 1) - 1
+    clear = match & (match_rank == del_rank[:, None]) & is_del[:, None]
+    any_clear = clear.any(dim=1)
+    inconsistency.add_((is_del & ~any_clear).sum(dtype=torch.int64))
+    occ_flat[(safe * B + _first_true(clear))[any_clear]] = False
+    ins_rank = _rank_by(row_slots.to(torch.int64), is_ins)
+    free = ~occ[safe]
+    free_rank = torch.cumsum(free.to(torch.int32), 1) - 1
+    take = free & (free_rank == ins_rank[:, None]) & is_ins[:, None]
+    got = take.any(dim=1)
+    flat = (safe * B + _first_true(take))[got]
+    occ_flat[flat] = True
+    vals_flat[flat] = v[got]
+    overflow.add_((is_ins & ~got).sum(dtype=torch.int64))
+
+
+class _MinputArgs(ctypes.Structure):
+    """Mirror of ``struct MinputArgs`` in ``csrc/agg_minput.cu``."""
+
+    _fields_ = [
+        ("vals", ctypes.c_void_p), ("occupied", ctypes.c_void_p),
+        ("row_slots", ctypes.c_void_p), ("v", ctypes.c_void_p),
+        ("is_ins", ctypes.c_void_p), ("is_del", ctypes.c_void_p),
+        ("ins_rank", ctypes.c_void_p), ("del_rank", ctypes.c_void_p),
+        ("ins_pos", ctypes.c_void_p), ("overflow", ctypes.c_void_p),
+        ("inconsistency", ctypes.c_void_p), ("clear_pos", ctypes.c_void_p),
+        ("take_pos", ctypes.c_void_p), ("cap", ctypes.c_int),
+        ("size", ctypes.c_int), ("B", ctypes.c_int), ("dtype", ctypes.c_int),
+    ]
+
+
+def minput_update_cuda(vals, occ, row_slots, v, signs, active, ins_pos,
+                       overflow, inconsistency) -> None:
+    """Kernel K6m's update (``csrc/agg_minput.cu``), in place: K1 on the
+    (slot, value) pairs, the annihilation launch (which also ranks the
+    surviving deletes), K13's rank launch for the inserts, then the five
+    update launches; no host read."""
+    if vals.dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"min/max over {vals.dtype} values is not ported to K6m")
+    cap = row_slots.shape[0]
+    dev = row_slots.device
+    size, B = occ.shape
+    v = v.to(vals.dtype).contiguous()
+    pair_h = hash64_columns([row_slots.to(torch.int64), v])
+    is_ins, is_del, del_rank = bucket_cancel_cuda(
+        "agg_minput", pair_h, active & (signs > 0), active & (signs < 0))
+    ins_rank = rank_by(row_slots.to(torch.int64), is_ins)
+    slots32 = row_slots.to(torch.int32).contiguous()
+    ins32 = ins_pos.to(torch.int32).contiguous()
+    scratch = torch.empty(2 * cap, dtype=torch.int32, device=dev)
+    occ_u8 = occ.view(torch.uint8)
+    flags = [is_ins.contiguous().view(torch.uint8),
+             is_del.contiguous().view(torch.uint8)]
+    ranks = [ins_rank.contiguous(), del_rank.contiguous()]
+    kernels.require_cuda("agg_minput", vals, occ_u8, slots32, v, ins32,
+                         overflow, inconsistency, scratch, *flags, *ranks)
+    a = _MinputArgs()
+    a.vals, a.occupied = vals.data_ptr(), occ_u8.data_ptr()
+    a.row_slots, a.v = slots32.data_ptr(), v.data_ptr()
+    a.is_ins, a.is_del = flags[0].data_ptr(), flags[1].data_ptr()
+    a.ins_rank, a.del_rank = ranks[0].data_ptr(), ranks[1].data_ptr()
+    a.ins_pos = ins32.data_ptr()
+    a.overflow, a.inconsistency = overflow.data_ptr(), \
+        inconsistency.data_ptr()
+    a.clear_pos, a.take_pos = scratch.data_ptr(), scratch[cap:].data_ptr()
+    a.cap, a.size, a.B, a.dtype = cap, size, B, _DTYPES[vals.dtype]
+    fn = kernels.entry("agg_minput", "rw_minput_update",
+                       [_MinputArgs, ctypes.c_void_p])
+    kernels.count_launch("agg_minput")
+    kernels.check(fn(a, kernels.stream_ptr(dev)), "agg_minput")
+
+
+def minput_update(vals, occ, row_slots, v, signs, active, ins_pos, overflow,
+                  inconsistency) -> None:
+    """Apply one chunk's rows to a min/max call's value buckets, in
+    place; CUDA tensors launch kernel K6m.  See ``minput_update_plain``."""
+    impl = minput_update_cuda if occ.device.type == "cuda" \
+        else minput_update_plain
+    impl(vals, occ, row_slots, v, signs, active, ins_pos, overflow,
+         inconsistency)
+
+
+def minput_refresh_plain(prim, vals, occ, slots, mode: str) -> None:
+    """Plain PyTorch version of K6m's refresh, in place: the reference's
+    ``_refresh_minput_caches`` (:879) for one call: each live emitted
+    slot's cache becomes the min or max of its bucket's occupied values
+    (the type's identity for an empty bucket)."""
+    size = prim.shape[0]
+    live = slots < size
+    safe = torch.clamp(slots, max=size - 1).to(torch.int64)
+    masked = torch.where(occ[safe], vals[safe],
+                         torch.full_like(vals[safe],
+                                         _minmax_init(mode)(vals.dtype)))
+    red = masked.amin(1) if mode == "min" else masked.amax(1)
+    prim[safe[live]] = red[live]
+
+
+class _RefreshArgs(ctypes.Structure):
+    """Mirror of ``struct RefreshArgs`` in ``csrc/agg_minput.cu``."""
+
+    _fields_ = [
+        ("vals", ctypes.c_void_p), ("occupied", ctypes.c_void_p),
+        ("slots", ctypes.c_void_p), ("prim", ctypes.c_void_p),
+        ("n", ctypes.c_int), ("size", ctypes.c_int), ("B", ctypes.c_int),
+        ("dtype", ctypes.c_int), ("mode", ctypes.c_int),
+    ]
+
+
+def minput_refresh_cuda(prim, vals, occ, slots, mode: str) -> None:
+    """K6m's refresh launch (``csrc/agg_minput.cu``): one warp per
+    emitted slot, in place."""
+    if vals.dtype not in _DTYPES or prim.dtype != vals.dtype:
+        raise NotImplementedError(
+            f"min/max over {vals.dtype} values is not ported to K6m")
+    size, B = occ.shape
+    slots32 = slots.to(torch.int32).contiguous()
+    occ_u8 = occ.view(torch.uint8)
+    kernels.require_cuda("minput_refresh", prim, vals, occ_u8, slots32)
+    a = _RefreshArgs()
+    a.vals, a.occupied = vals.data_ptr(), occ_u8.data_ptr()
+    a.slots, a.prim = slots32.data_ptr(), prim.data_ptr()
+    a.n, a.size, a.B = slots32.shape[0], size, B
+    a.dtype, a.mode = _DTYPES[vals.dtype], _MODES[mode]
+    fn = kernels.entry("minput_refresh", "rw_minput_refresh",
+                       [_RefreshArgs, ctypes.c_void_p])
+    kernels.count_launch("minput_refresh")
+    kernels.check(fn(a, kernels.stream_ptr(prim.device)), "minput_refresh")
+
+
+def minput_refresh(prim, vals, occ, slots, mode: str) -> None:
+    """Recompute one min/max call's cache at the emitted ``slots`` from
+    its buckets, in place; CUDA tensors launch K6m's refresh."""
+    impl = minput_refresh_cuda if occ.device.type == "cuda" \
+        else minput_refresh_plain
+    impl(prim, vals, occ, slots, mode)
+
+
+# ---------------------------------------------------------------------------
+# kernel K7e: the closed windows of EMIT ON WINDOW CLOSE
+
+
+def closed_mask(occupied, key, key_null, lag: int, wm) -> torch.Tensor:
+    """bool [size]: the reference's ``_closed_mask`` (:961): occupied
+    slots whose window key plus ``lag`` is at most the watermark, never
+    a NULL window, nothing before the first watermark."""
+    closed = occupied & (key + lag <= wm) & (wm != INT64_MIN)
+    return closed if key_null is None else closed & ~key_null
+
+
+def eowc_slots_plain(occupied, key, key_null, lag: int, wm, k: int):
+    """Plain PyTorch version of kernel K7e: ``(int32 [k] the first k
+    closed slots ascending, the ``size`` sentinel past the last; int64
+    scalar count of closed slots)``."""
+    closed = closed_mask(occupied, key, key_null, lag, wm)
+    return (mask_indices(closed, k, occupied.shape[0]),
+            closed.sum(dtype=torch.int64))
+
+
+class _EowcArgs(ctypes.Structure):
+    """Mirror of ``struct EowcArgs`` in ``csrc/agg_eowc.cu``."""
+
+    _fields_ = [
+        ("occupied", ctypes.c_void_p), ("key", ctypes.c_void_p),
+        ("key_null", ctypes.c_void_p), ("wm", ctypes.c_void_p),
+        ("lag", ctypes.c_longlong), ("counts", ctypes.c_void_p),
+        ("out", ctypes.c_void_p), ("total", ctypes.c_void_p),
+        ("size", ctypes.c_int), ("k", ctypes.c_int),
+    ]
+
+
+def eowc_slots_cuda(occupied, key, key_null, lag: int, wm, k: int):
+    """Kernel K7e (``csrc/agg_eowc.cu``): two launches, the watermark
+    read on the card; no host read."""
+    if key.dtype != torch.int64:
+        raise NotImplementedError(
+            f"EMIT ON WINDOW CLOSE over a {key.dtype} window key is not "
+            "ported to K7e")
+    size = occupied.shape[0]
+    dev = occupied.device
+    occ_u8 = occupied.contiguous().view(torch.uint8)
+    key = key.contiguous()
+    nul = None if key_null is None else key_null.contiguous().view(
+        torch.uint8)
+    wm = wm.reshape(1).contiguous()
+    out = torch.empty(max(k, 1), dtype=torch.int32, device=dev)
+    counts = torch.empty(max(1, -(-size // MI_TILE)), dtype=torch.int32,
+                         device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    kernels.require_cuda("agg_eowc", occ_u8, key, wm, out, counts, total,
+                         *([nul] if nul is not None else []))
+    a = _EowcArgs()
+    a.occupied, a.key = occ_u8.data_ptr(), key.data_ptr()
+    a.key_null, a.wm = kernels.ptr(nul), wm.data_ptr()
+    a.lag = lag
+    a.counts, a.out, a.total = counts.data_ptr(), out.data_ptr(), \
+        total.data_ptr()
+    a.size, a.k = size, k
+    fn = kernels.entry("agg_eowc", "rw_agg_eowc",
+                       [_EowcArgs, ctypes.c_void_p])
+    kernels.count_launch("agg_eowc")
+    kernels.check(fn(a, kernels.stream_ptr(dev)), "agg_eowc")
+    return out[:k], total
+
+
+def eowc_slots(occupied, key, key_null, lag: int, wm, k: int):
+    """The first ``k`` closed group slots and the closed count; CUDA
+    tensors launch kernel K7e.  See ``eowc_slots_plain``."""
+    impl = eowc_slots_cuda if occupied.device.type == "cuda" \
+        else eowc_slots_plain
+    return impl(occupied, key, key_null, lag, wm, k)
+
+
+# ---------------------------------------------------------------------------
 
 
 def interleave(old, new):
@@ -683,6 +959,7 @@ class HashAggExecutor(Executor):
         watermark_src_col: int | None = None,
         emit_on_window_close: bool = False,
         retractable_input: bool = False,
+        minput_bucket_cap: int = 64,
         distinct_table_size: int | None = None,
         spill_ring: int = 0,
     ):
@@ -699,15 +976,14 @@ class HashAggExecutor(Executor):
             watermark_lag=watermark_lag,
             watermark_src_col=watermark_src_col,
             emit_on_window_close=emit_on_window_close,
-            retractable_input=retractable_input)
-        if emit_on_window_close:
-            raise NotImplementedError(
-                "EMIT ON WINDOW CLOSE aggregation is not ported yet")
-        for a in self.aggs:
-            if retractable_input and a.kind in ("min", "max"):
-                raise NotImplementedError(
-                    "min/max over a retractable input (materialized-input "
-                    "state) is not ported yet")
+            retractable_input=retractable_input,
+            minput_bucket_cap=minput_bucket_cap)
+        #: EOWC: flush emits only CLOSED windows, as final append-only
+        #: rows, and evicts them
+        self.emit_on_window_close = emit_on_window_close
+        if emit_on_window_close and watermark_group_idx is None:
+            raise ValueError(
+                "EMIT ON WINDOW CLOSE needs a watermarked window group key")
         self.watermark_group_idx = watermark_group_idx
         self.watermark_lag = watermark_lag
         self.watermark_src_col = watermark_src_col
@@ -723,6 +999,14 @@ class HashAggExecutor(Executor):
         self._out_schema = Schema(tuple(key_fields) + agg_fields)
         self._prim_specs = [(ai, ps) for ai, a in enumerate(self.aggs)
                             for ps in a.spec().states]
+        #: retractable min/max through materialized-input buckets; their
+        #: prims are flush-time caches (no apply scatter)
+        self.minput_bucket_cap = minput_bucket_cap
+        self._minput_aggs: list[int] = [
+            ai for ai, a in enumerate(self.aggs)
+            if retractable_input and a.kind in ("min", "max")]
+        self._cache_prims = {pi for pi, (ai, _) in enumerate(self._prim_specs)
+                             if ai in self._minput_aggs}
         #: DISTINCT calls with their own counted dedup tables; min/max
         #: are distinct-insensitive and run as plain calls
         self.distinct_table_size = distinct_table_size or table_size
@@ -789,7 +1073,21 @@ class HashAggExecutor(Executor):
             if n + leaves(f) > kernels.MAX_COLS:
                 return (f"a DISTINCT dedup key of {n + leaves(f)} leaves "
                         f"(K1 and K3 take {kernels.MAX_COLS})")
-        for agg_idx, ps in self._prim_specs:
+        for agg_idx in self._minput_aggs:
+            dt = self._input_dtype(agg_idx)
+            if dt not in _DTYPES:
+                return (f"{self.aggs[agg_idx].kind} over {dt} values on a "
+                        "retractable input is not ported to the "
+                        "materialized-input kernel (K6m)")
+        if self.emit_on_window_close:
+            f = self.group_by[self.watermark_group_idx][1].return_field(
+                self.in_schema)
+            if f.data_type.physical_dtype != torch.int64:
+                return (f"EMIT ON WINDOW CLOSE over a {f.data_type.value} "
+                        "window key is not ported to K7e")
+        for pi, (agg_idx, ps) in enumerate(self._prim_specs):
+            if pi in self._cache_prims:
+                continue  # a K6m cache: no K5 or K6 work
             dt = ps.dtype(self._input_dtype(agg_idx))
             if dt not in _DTYPES:
                 return (f"{self.aggs[agg_idx].kind} over {dt} values is not "
@@ -827,6 +1125,14 @@ class HashAggExecutor(Executor):
             overflow=torch.zeros((), **i64),
             inconsistency=torch.zeros((), **i64),
             wm=torch.full((), INT64_MIN, **i64),
+            minput_vals=tuple(
+                torch.zeros((size, self.minput_bucket_cap),
+                            dtype=self._input_dtype(ai), device=device)
+                for ai in self._minput_aggs),
+            minput_occ=tuple(
+                torch.zeros((size, self.minput_bucket_cap), dtype=torch.bool,
+                            device=device)
+                for _ in self._minput_aggs),
             distinct_tables=tuple(
                 HashTable.create(self._distinct_protos(ai, device),
                                  self.distinct_table_size, device)
@@ -879,18 +1185,22 @@ class HashAggExecutor(Executor):
         cols: list = []
         for pi, (agg_idx, ps) in enumerate(self._prim_specs):
             a = self.aggs[agg_idx]
+            if pi in self._cache_prims:
+                # a K6m cache, recomputed at flush: no K5/K6 work
+                for lst in (modes, inits, values, cols):
+                    lst.append(None)
+                continue
             if a.arg is None:
                 col = torch.ones(cap, dtype=torch.int64, device=dev)
             else:
                 col = arg_of(agg_idx)
             col, col_null = split_col(col)
-            if isinstance(col, StrCol):
-                raise NotImplementedError(
-                    "aggregates over strings are not ported yet")
             prim_signs = signs
             if col_null is not None:
                 # NULL arguments contribute nothing: zero sign and payload
-                col = torch.where(col_null, torch.zeros_like(col), col)
+                # (a string's payload is packed under a zero sign)
+                if not isinstance(col, StrCol):
+                    col = torch.where(col_null, torch.zeros_like(col), col)
                 prim_signs = torch.where(col_null, torch.zeros_like(signs),
                                          signs)
             fm = filter_mask(agg_idx)
@@ -907,6 +1217,7 @@ class HashAggExecutor(Executor):
                 values.append(
                     ps.lift(col, prim_signs).to(state.prims[pi].dtype))
         now = [pi for pi in range(len(values)) if values[pi] is not None]
+        scat = [pi for pi in range(len(values)) if pi not in self._cache_prims]
         pa = None
         if accel_tuned(chunk.device):
             # only each run's representative probes and scatters the
@@ -946,17 +1257,64 @@ class HashAggExecutor(Executor):
                                      [inits[pi] for pi in later], lifted)
             for pi, v in zip(later, lifted):
                 values[pi] = v
-        agg_scatter(list(state.prims), modes, inits, values, slots, inserted,
-                    row_signs, state.row_count, state.dirty)
+        agg_scatter([state.prims[pi] for pi in scat],
+                    [modes[pi] for pi in scat], [inits[pi] for pi in scat],
+                    [values[pi] for pi in scat], slots, inserted, row_signs,
+                    state.row_count, state.dirty)
+        if self._minput_aggs:
+            self._minput_apply(state, chunk, signs, slots, inserted, pa,
+                               arg_of, filter_mask)
 
         n_bad = torch.zeros((), dtype=torch.int64, device=dev)
-        if any(not a.spec().retractable for a in self.aggs):
+        if any(not a.spec().retractable and ai not in self._minput_aggs
+               for ai, a in enumerate(self.aggs)):
             n_bad = (valid & (signs < 0)).sum(dtype=torch.int64)
         return state._replace(
             table=table,
             overflow=state.overflow + n_over,
             inconsistency=state.inconsistency + n_bad,
         ), None
+
+    def _minput_apply(self, state: AggState, chunk: Chunk, signs, slots,
+                      inserted, pa: "Preagg | None", arg_of,
+                      filter_mask) -> None:
+        """The materialized-input block of the reference's ``apply``
+        (:646-691), in place: every row that counts lands in its group's
+        value bucket (K6m).  On the pre-aggregation branch the rows are in
+        hash-sorted order and each takes its segment representative's
+        slot (a segment whose representative overflowed keeps the
+        ``size`` sentinel and is skipped: its rows already count into
+        ``overflow``)."""
+        size = self.table_size
+        cap = chunk.capacity
+        dev = chunk.device
+        valid = chunk.valid
+        ins_pos = torch.where(inserted, slots, torch.full_like(slots, size))
+        if pa is None:
+            perm = None
+            row_slots, s_signs, s_valid = slots, signs, valid
+        else:
+            perm = pa.perm
+            seg_id = torch.cumsum(pa.starts.to(torch.int64), 0)
+            seg_slot = torch.full((cap + 1,), size, dtype=slots.dtype,
+                                  device=dev)
+            seg_slot[seg_id[pa.rep]] = slots[pa.rep]
+            row_slots = seg_slot[seg_id]
+            s_signs, s_valid = signs[perm], valid[perm]
+        row_ok = s_valid & (row_slots < size) & (s_signs != 0)
+        for mi, agg_idx in enumerate(self._minput_aggs):
+            vcol, vnull = split_col(arg_of(agg_idx))
+            active = row_ok
+            if vnull is not None:
+                active = active & ~(vnull if perm is None else vnull[perm])
+            fm = filter_mask(agg_idx)
+            if fm is not None:
+                active = active & (fm if perm is None else fm[perm])
+            vals = state.minput_vals[mi]
+            v = (vcol if perm is None else vcol[perm]).to(vals.dtype)
+            minput_update(vals, state.minput_occ[mi], row_slots, v, s_signs,
+                          active, ins_pos, state.overflow,
+                          state.inconsistency)
 
     def _dedup(self, state: AggState, chunk: Chunk, key_cols, signs,
                spill_mask, arg_of, filter_mask) -> dict:
@@ -1012,13 +1370,27 @@ class HashAggExecutor(Executor):
             cols.append(out)
         return cols
 
+    def _refresh_minput_caches(self, state: AggState, slots) -> None:
+        """Recompute the retractable min/max outputs of the emitted
+        ``slots`` from their buckets (reference :879), in place."""
+        for mi, agg_idx in enumerate(self._minput_aggs):
+            pi = next(p for p, (ai, _) in enumerate(self._prim_specs)
+                      if ai == agg_idx)
+            minput_refresh(state.prims[pi], state.minput_vals[mi],
+                           state.minput_occ[mi], slots,
+                           self.aggs[agg_idx].kind)
+
     def flush(self, state: AggState, epoch):
         """Emit up to ``emit_capacity`` dirty groups as a changelog chunk
         of interleaved (old, new) rows; un-emitted dirty groups stay dirty
-        for the runtime's next drain round."""
+        for the runtime's next drain round.  Under EMIT ON WINDOW CLOSE,
+        the closed windows' final rows instead (``_flush_eowc``)."""
+        if self.emit_on_window_close:
+            return self._flush_eowc(state)
         cap = self.emit_capacity
         size = self.table_size
         slots = mask_indices(state.dirty, cap, size)
+        self._refresh_minput_caches(state, slots)
         slot_live = slots < size
         safe = torch.clamp(slots, max=size - 1).to(torch.int64)
         old_nonempty = state.prev_row_count[safe] > 0
@@ -1051,6 +1423,34 @@ class HashAggExecutor(Executor):
         state.dirty.logical_and_(~sel)
         return state, out
 
+    def _window_key(self, state: AggState):
+        return split_col(state.table.key_cols[self.watermark_group_idx])
+
+    def _flush_eowc(self, state: AggState):
+        """Final rows of up to ``emit_capacity`` closed windows' groups,
+        in slot order (K7e), as an append-only chunk; the emitted groups
+        are evicted (the K4 sweep by slot list), their row counts zeroed
+        and their dirt cleared (reference :973-1001)."""
+        cap = self.emit_capacity
+        size = self.table_size
+        key, key_null = self._window_key(state)
+        slots, _ = eowc_slots(state.table.occupied, key, key_null,
+                              self.watermark_lag, state.wm, cap)
+        self._refresh_minput_caches(state, slots)
+        slot_live = slots < size
+        safe = torch.clamp(slots, max=size - 1).to(torch.int64)
+        live = slot_live & (state.row_count[safe] > 0)
+        out_cols = list(state.table.gather_keys(slots)) + self._outputs(
+            state.prims, state.row_count, slots)
+        out = Chunk(out_cols, torch.full((cap,), OP_INSERT, dtype=torch.int8,
+                                         device=slots.device),
+                    live, self._out_schema)
+        state.table.clear_slots(slots, slot_live)
+        sel = slot_mask(slots, size)
+        state.row_count.masked_fill_(sel, 0)
+        state.dirty.logical_and_(~sel)
+        return state, out
+
     def drain_spill(self, state: AggState):
         """``(state with an empty ring, Chunk of the diverted rows)``: the
         runtime drains the ring at snapshot barriers into the host tier.
@@ -1064,6 +1464,28 @@ class HashAggExecutor(Executor):
         state.spill_count.zero_()
         return state, chunk
 
+    def reconstructible_from_rows(self) -> bool:
+        """True when the agg's whole state round-trips through its own
+        input rows (reference :717): plain InputRef keys in order and one
+        sum/sum0/min/max call per trailing input column, no materialized
+        input, no DISTINCT, no packed string state."""
+        n_keys = len(self.group_by)
+        for ki, (_, e) in enumerate(self.group_by):
+            if not (isinstance(e, InputRef) and e.index == ki):
+                return False
+        if self._minput_aggs or self._distinct_aggs:
+            return False
+        for ai, a in enumerate(self.aggs):
+            if a.kind not in ("sum", "sum0", "min", "max") \
+                    or a.distinct or a.filter is not None:
+                return False
+            if not (isinstance(a.arg, InputRef)
+                    and a.arg.index == n_keys + ai):
+                return False
+            if self.in_schema[n_keys + ai].data_type.is_string:
+                return False
+        return len(self.in_schema) == n_keys + len(self.aggs)
+
     def make_spill_tier(self, table_size: int) -> "HashAggExecutor":
         """A same-shaped aggregation for the host (CPU) overflow tier."""
         return HashAggExecutor(
@@ -1072,6 +1494,12 @@ class HashAggExecutor(Executor):
             **self._ctor_kwargs)
 
     def pending_flush(self, state: AggState) -> torch.Tensor:
+        """Groups awaiting a flush round: the dirty ones, or under EOWC
+        the closed ones (K7e's count)."""
+        if self.emit_on_window_close:
+            key, key_null = self._window_key(state)
+            return eowc_slots(state.table.occupied, key, key_null,
+                              self.watermark_lag, state.wm, 0)[1]
         return state.dirty.sum(dtype=torch.int64)
 
     def on_watermark(self, state: AggState, watermark):
@@ -1081,6 +1509,8 @@ class HashAggExecutor(Executor):
                 and watermark.col_idx != self.watermark_src_col):
             return state
         state = state._replace(wm=torch.maximum(state.wm, watermark.value))
+        if self.emit_on_window_close:
+            return state  # emission evicts; nothing is cleaned before
         return self.clean_below(state, self.watermark_group_idx,
                                 watermark.value - self.watermark_lag)
 
@@ -1096,6 +1526,8 @@ class HashAggExecutor(Executor):
         state.dirty.logical_and_(~stale)
         state.prev_row_count.masked_fill_(stale, 0)
         state.emitted.logical_and_(~stale)
+        for occ in state.minput_occ:
+            occ.logical_and_(~stale[:, None])
         # the dedup keys carry the same group-key prefix: their (group,
         # value) rows leave with the window
         for dt, cnt in zip(state.distinct_tables, state.distinct_counts):
@@ -1136,6 +1568,10 @@ class HashAggExecutor(Executor):
             prev_prims=tuple(prev_prims),
             prev_row_count=permute_dense(state.prev_row_count, moved),
             emitted=permute_dense(state.emitted, moved),
+            minput_vals=tuple(permute_dense(v, moved)
+                              for v in state.minput_vals),
+            minput_occ=tuple(permute_dense(o, moved)
+                             for o in state.minput_occ),
         )
 
     @staticmethod

@@ -599,11 +599,14 @@ def update_side_dense_plain(side: SideState, chunk: Chunk, key_cols,
     return side
 
 
-def dense_cancel_cuda(row_hash: torch.Tensor, is_ins: torch.Tensor,
-                      is_del: torch.Tensor):
-    """K13d's annihilation launch after one stable sort of the rows'
-    hashes (``torch.sort``): ``(is_ins, is_del)`` with the cancelled
-    pairs removed."""
+def bucket_cancel_cuda(lib: str, row_hash: torch.Tensor,
+                       is_ins: torch.Tensor, is_del: torch.Tensor):
+    """The bucket annihilation launch of library ``lib`` (K13d's
+    ``join_dense`` or K6m's ``agg_minput``, both from ``rw_bucket.cuh``)
+    after one stable sort of the rows' hashes (``torch.sort``):
+    ``(is_ins, is_del, del_rank)`` with the cancelled pairs removed and
+    each surviving delete's int32 rank among the surviving deletes of
+    equal hash (0 elsewhere)."""
     cap = row_hash.shape[0]
     dev = row_hash.device
     sorted_key, order = torch.sort(_sort_key(row_hash, is_ins | is_del),
@@ -612,20 +615,21 @@ def dense_cancel_cuda(row_hash: torch.Tensor, is_ins: torch.Tensor,
     del_u8 = is_del.contiguous().view(torch.uint8)
     out_ins = torch.empty(cap, dtype=torch.uint8, device=dev)
     out_del = torch.empty(cap, dtype=torch.uint8, device=dev)
+    del_rank = torch.empty(cap, dtype=torch.int32, device=dev)
     scratch = torch.empty(5 * cap, dtype=torch.int32, device=dev)
-    kernels.require_cuda("join_dense", sorted_key, order, ins_u8, del_u8,
-                         out_ins, out_del, scratch)
-    fn = kernels.entry("join_dense", "rw_dense_cancel", [
+    kernels.require_cuda(lib, sorted_key, order, ins_u8, del_u8, out_ins,
+                         out_del, del_rank, scratch)
+    fn = kernels.entry(lib, "rw_bucket_cancel", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p])
-    kernels.count_launch("join_dense")
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p])
+    kernels.count_launch(lib)
     kernels.check(fn(sorted_key.data_ptr(), order.data_ptr(),
                      ins_u8.data_ptr(), del_u8.data_ptr(),
                      out_ins.data_ptr(), out_del.data_ptr(),
-                     scratch.data_ptr(), cap, kernels.stream_ptr(dev)),
-                  "join_dense")
-    return out_ins.view(torch.bool), out_del.view(torch.bool)
+                     del_rank.data_ptr(), scratch.data_ptr(), cap,
+                     kernels.stream_ptr(dev)), lib)
+    return out_ins.view(torch.bool), out_del.view(torch.bool), del_rank
 
 
 class _DenseArgs(ctypes.Structure):
@@ -717,8 +721,11 @@ def dense_update_args_cuda(side: SideState, chunk: Chunk, key_cols,
     joinable = chunk.valid if null_keys is None \
         else chunk.valid & ~null_keys
     row_hash = hash64_columns(list(chunk.columns))
-    is_ins, is_del = dense_cancel_cuda(row_hash, joinable & (signs > 0),
-                                       joinable & (signs < 0))
+    # the deletes rank among those K3 found, so the annihilation's rank
+    # is not theirs
+    is_ins, is_del, _ = bucket_cancel_cuda(
+        "join_dense", row_hash, joinable & (signs > 0),
+        joinable & (signs < 0))
     table, slots_ins, _, ins_over = side.key_table.lookup_or_insert(
         key_cols, is_ins, hashes=h)
     slots_del, found_del, probe_over = table.lookup_counted(

@@ -105,6 +105,14 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[parity] q14", "[parity] bid_strings", "[parity] avg_bid",
                 "[check] q14 ring rows equal numpy",
                 "[check] bid_strings ring rows equal numpy",
-                "[check] avg_bid MV equals numpy"):
+                "[check] avg_bid MV equals numpy",
+                "[agg_minput] exact", "[minput_refresh] exact",
+                "[agg_eowc] exact", "[eowc_sort] EowcSortExecutor",
+                "[parity] q5_max", "[parity] q7_eowc",
+                "[parity] person_states",
+                "[check] q5_max MV equals numpy",
+                "[check] q7_eowc ring equals numpy",
+                "[check] person_states MV equals numpy",
+                "one index_select over leaf"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout

@@ -125,13 +125,23 @@ def test_q5_q1_engine_rows_state_and_recover(query, ordered, rate):
 
 
 def test_pane_plan_needing_retractable_min_max_raises():
-    """A HOP max() plans through panes, whose final agg would need
-    min/max over a retractable input: not ported, so it raises."""
+    """A HOP max() plans through panes, whose final agg needs min/max
+    over a retractable input: that materialized-input state is ported
+    now, so the plan no longer raises; the final agg keeps the max in
+    buckets of max(64, 2k) values and the MV has rows
+    (tests/test_torch_minput.py holds it against the reference)."""
+    from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+
     eng = Engine(PlannerConfig(**SIZES), device="cpu")
     eng.execute(SOURCES.format(rate="1000000"))
-    with pytest.raises(NotImplementedError, match="retractable"):
-        eng.execute(QUERIES["q5"].replace("count(*) AS bids",
-                                          "max(price) AS top"))
+    eng.execute(QUERIES["q5"].replace("count(*) AS bids",
+                                      "max(price) AS top"))
+    aggs = [ex for ex in eng.jobs[0].fragment.executors
+            if isinstance(ex, HashAggExecutor)]
+    assert [a._minput_aggs for a in aggs] == [[], [0]]
+    assert aggs[-1].minput_bucket_cap == 64
+    eng.tick(barriers=2, chunks_per_barrier=2)
+    assert len(eng.execute("SELECT * FROM bench_mv")) > 0
 
 
 @pytest.mark.parametrize("sql,error", [

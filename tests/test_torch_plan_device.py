@@ -37,6 +37,8 @@ CREATE TABLE wide (k BIGINT PRIMARY KEY, c0 VARCHAR, c1 VARCHAR, c2 VARCHAR,
                    c3 VARCHAR, c4 VARCHAR, c5 VARCHAR, c6 VARCHAR,
                    c7 VARCHAR);
 CREATE TABLE rates (cur VARCHAR(8), rate BIGINT, PRIMARY KEY (cur));
+CREATE TABLE rt (k BIGINT PRIMARY KEY, g REAL, s SMALLINT, f DOUBLE,
+                 v BIGINT) WITH (retract = 'true');
 """
 Q13 = ("SELECT B.auction, B.bidder, B.price, B.date_time, S.value FROM bid B "
        "{join} side_input FOR SYSTEM_TIME AS OF PROCTIME() S "
@@ -84,6 +86,9 @@ REFUSED = {
     "min_smallint": (
         f"SELECT window_start, min(s) AS m FROM {TUMBLE_T} "
         "GROUP BY window_start", "K5"),
+    # K6m: min/max over a retractable input take int64, int32, float64
+    "minput_real": ("SELECT k, min(g) AS m FROM rt GROUP BY k", "K6m"),
+    "minput_smallint": ("SELECT k, max(s) AS m FROM rt GROUP BY k", "K6m"),
     # K22a: a build row past its 16 value leaves; keys of other widths
     "temporal_wide_build": (
         "SELECT b.auction, w.c0 FROM bid b JOIN wide FOR SYSTEM_TIME AS OF "
@@ -165,6 +170,13 @@ PLANNED = {
     "temporal_two_col_pk": (
         "SELECT b.auction, p.v FROM bid b JOIN pk2 FOR SYSTEM_TIME AS OF "
         "PROCTIME() p ON b.url = p.b AND b.auction = p.a"),
+    # min/max over a retractable input (K6m): float64 and int64 values,
+    # and the pane plan's global phase of a HOP max (q5_max)
+    "minput_double": "SELECT k, max(f) AS m, min(v) AS n FROM rt GROUP BY k",
+    "q5_max": (
+        "SELECT auction, window_start, max(price) AS max_price, count(*) "
+        "AS bids FROM HOP(bid, date_time, INTERVAL '2' SECOND, INTERVAL "
+        "'10' SECOND) GROUP BY auction, window_start"),
     "temporal_residual": (
         "SELECT b.auction, s.value FROM bid b LEFT JOIN side_input FOR "
         "SYSTEM_TIME AS OF PROCTIME() s ON b.auction % 10000 = s.key AND "
@@ -211,6 +223,25 @@ def test_cuda_plans_what_the_card_runs(engine, case):
     select = _select(PLANNED[case])
     Planner(engine.catalog, engine.config, "cuda").plan(select)
     Planner(engine.catalog, engine.config, "cpu").plan(select)
+
+
+def test_cuda_plans_emit_on_window_close(engine):
+    """q7_eowc plans for CUDA (K7e over the TIMESTAMP window key) as the
+    reference plans it: the aggregation emits on window close into the
+    append-only ring."""
+    stmt = parse(
+        "CREATE MATERIALIZED VIEW m AS SELECT auction, window_start, "
+        "max(price) AS max_price, count(*) AS bids FROM TUMBLE(bid, "
+        "date_time, INTERVAL '1' SECOND) GROUP BY auction, window_start "
+        "EMIT ON WINDOW CLOSE;")[0]
+    assert stmt.emit_on_window_close
+    for device in ("cuda", "cpu"):
+        plan = Planner(engine.catalog, engine.config, device).plan(
+            stmt.query, eowc=True)
+        names = [type(x).__name__ for x in plan.fragment.executors]
+        assert names[-3:] == ["HashAggExecutor", "ProjectExecutor",
+                              "AppendOnlyMaterialize"]
+        assert plan.fragment.executors[-3].emit_on_window_close
 
 
 @pytest.mark.parametrize("case", sorted(TEMPORAL_ERRORS))
