@@ -124,7 +124,26 @@
    the directory, runs 8 more barriers and requires every state tensor
    to equal an engine that ran the same barriers without stopping; the
    directory is deleted;
-7. prints the ``kernels`` JSON line, the card's name and power limit,
+7. holds K22b (the sink ring) against its plain version on every leaf
+   kind across a ring wrap and on a 2^18-row backfill chunk, and K19b
+   (the append-only dedup: K1, K3, the K4 sweep) against a CPU copy
+   through a watermark eviction and a rehash; then runs ``q1_sink`` (q1
+   into a blackhole sink, ring 2^23: the ring read back equals numpy's
+   q1, the blackhole counts every row in one commit a snapshot barrier),
+   ``q5_cascade`` (q5, 4 barriers, then ``q5_hot`` = q5's rows with
+   ``bids >= T``, T the least count keeping at most half of q5's rows,
+   backfilled from q5's 2^18-slot table, and a file sink over it; q5 and
+   q5_hot against numpy, the file's fold against q5_hot with one data
+   line per ring row; then DROP MATERIALIZED VIEW q5 refused, DROP SINK
+   and DROP MATERIALIZED VIEW q5_hot, SHOW at each step, and q5 still
+   equal to numpy a barrier later), the same durable (the engine dropped
+   without a stop, a cold start, 4 more barriers, exactly once) and
+   ``dedup_sink`` (bids at 100,000 events/s, a 10 s TUMBLE, the dedup on
+   (window_start, auction) in 2^16 slots, a blackhole sink: the ring
+   equals numpy's first bid per pair; the watermark's sweep and the
+   rehash must run), each with rows/s, launches, busy share, K22b's
+   profiled ms and bound, ``deliver``'s host ms and the backfills' ms;
+8. prints the ``kernels`` JSON line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ok line.  Without a GPU, or
@@ -436,9 +455,13 @@ def main() -> int:
     results.update(phase_temporal_kernels(torch, device, timer, scale))
     results.update(phase_scalar_kernels(torch, device, timer, scale))
     results.update(phase_slice11_kernels(torch, device, timer, scale))
+    sink_kernels = phase_sink_kernels(torch, device, timer, scale)
+    results["sink_ring"] = sink_kernels["sink_ring"]
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
+    # K19b: an executor composed of K1, K3 and the K4 sweep
+    results["append_only_dedup"] = sink_kernels["append_only_dedup"]
 
     # -- 3. card against CPU --------------------------------------------
     for query in ("q7", "q5", "q1"):
@@ -547,6 +570,9 @@ def main() -> int:
             fail(f"{tag}: kernels {missing} were not launched on the "
                  "main path")
 
+    # -- 7. sinks, cascades, SHOW/DROP and the dedup ----------------------
+    sink_runs = run_sink_paths(torch, device, scale, results)
+
     line = {"kernels": [dict(name=name, **r) for name, r in results.items()]}
     print(json.dumps(line))
     if device.type != "cuda":
@@ -562,6 +588,15 @@ def main() -> int:
               f"{info['recover_s']:.3f} s")
     print(f"[main] q7_eowc closed {eowc_info['windows']} windows, "
           f"{eowc_info['rows']} rows emitted")
+    for path, (rate, info) in sink_runs.items():
+        extra = ""
+        if "T" in info:
+            extra = (f", T = {info['T']} keeps {100 * info['share']:.2f}% of "
+                     f"q5's {info['q5_rows']} rows, backfills "
+                     f"{[round(x, 3) for x in info['backfill_ms']]} ms")
+        if "recover_s" in info:
+            extra += f", cold start {info['recover_s']:.3f} s"
+        print(f"[main] {path} rows/s {rate:.0f}{extra}")
     print(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1203,7 +1238,12 @@ PORT_KERNEL_NAMES = ("hash64_kernel", "probe_kernel", "reset_kernel",
                      "regexp_group_kernel", "replace_kernel",
                      "str_match_kernel", "like_kernel", "str_window_kernel",
                      "calendar_kernel", "minput_",
-                     "eowc_")
+                     "eowc_", "sink_")
+
+
+#: device microseconds and launches by kernel name of the last profiled
+#: window (``profile_window``)
+LAST_PROFILE: dict = {}
 
 
 def profile_window(torch, eng, query: str, barriers: int = 2,
@@ -1233,6 +1273,9 @@ def profile_window(torch, eng, query: str, barriers: int = 2,
     kern = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA
             and dev_us(e) > 0]
+    LAST_PROFILE.clear()
+    LAST_PROFILE.update({e.key.split("(")[0]: (dev_us(e), e.count)
+                         for e in kern})
     busy_ms = sum(dev_us(e) for e in kern) / 1e3
     if busy_ms == 0:
         print(f"[profile] {query}: device time not measured (no CUDA "
@@ -1276,11 +1319,12 @@ def profile_window(torch, eng, query: str, barriers: int = 2,
     return n_kern / chunks
 
 
-def _consumed_bids(eng, cap: int):
-    """numpy columns of every bid the job consumed, regenerated."""
+def _consumed_bids(eng, cap: int, reader=None):
+    """numpy columns of every bid the job consumed (its source, or
+    ``reader``), regenerated."""
     import numpy as np
 
-    reader = eng.jobs[0].source
+    reader = reader or eng.jobs[0].source
     cols = {"auction": [], "bidder": [], "price": [], "ts": []}
     for i in range(reader.offset // cap):
         c = reader.gen.gen_bids(i * cap, cap)
@@ -1307,7 +1351,7 @@ def check_q7(eng, bids) -> str:
             f"{bids['price'].shape[0]} bids ({len(want)} windows)")
 
 
-def check_q5(eng, bids) -> str:
+def check_q5(eng, bids, mv: str = "bench_mv") -> str:
     import numpy as np
 
     k = WINDOW_US // HOP_SLIDE_US
@@ -1319,7 +1363,7 @@ def check_q5(eng, bids) -> str:
                           for i in range(k)])
     key = np.tile(bids["auction"], k) * n_win + win
     uniq, counts = np.unique(key, return_counts=True)
-    rows = eng.execute("SELECT auction, window_start, bids FROM bench_mv")
+    rows = eng.execute(f"SELECT auction, window_start, bids FROM {mv}")
     got = np.asarray([(int(a) * n_win + (int(w) - base) // HOP_SLIDE_US,
                        int(c)) for a, w, c in rows], np.int64)
     got = got[np.argsort(got[:, 0])] if len(got) else got.reshape(0, 2)
@@ -7408,6 +7452,756 @@ SLICE11_CHECKS = {
                                               _consumed_bids(eng, cap)),
     "person_states": check_person_states,
 }
+
+
+# ---------------------------------------------------------------------------
+# sinks (K22b), MV-on-MV cascades, SHOW/DROP and the append-only dedup (K19b)
+
+#: the slice's paths, run after the durable ones
+SINK_PATHS = ("q1_sink", "q5_cascade", "q5_cascade durable", "dedup_sink")
+#: bench's q1 into a blackhole sink (the parser, a copy of the reference's,
+#: reads a bare ``FROM bid WITH`` as the table alias ``with``: the alias
+#: is explicit)
+Q1_SINK_SQL = ("CREATE SINK q1_sink AS SELECT auction, bidder, 0.908 * price "
+               "AS price, date_time FROM bid AS bid WITH (connector = "
+               "'blackhole');")
+Q5_SQL = QUERY_SQL["q5"].replace("bench_mv", "q5")
+#: barriers of q5 before the cascade is created over it
+Q5_BEFORE_CASCADE = 4
+#: dedup_sink's bid rate: q7_eowc's 100,000 events/s, so that the run
+#: covers ~29 s of event time and two 10 s windows close
+DEDUP_RATE = "100000"
+#: dedup_sink's table: the run sees ~26,000 (window, auction) keys, so at
+#: 2^18 slots its rehash threshold (a quarter of the slots tombstoned)
+#: could not be reached; at 2^16 the two closed windows pass it
+DEDUP_TABLE = 1 << 16
+SINK_PATH_KERNELS = {
+    "q1_sink": ("nexmark_bids", "sink_ring"),
+    "q5_cascade": PATH_KERNELS["q5"] + ("sink_ring",),
+    "q5_cascade durable": PATH_KERNELS["q5"] + ("sink_ring",
+                                                "shadow_digest"),
+    "dedup_sink": ("nexmark_bids", "hop_window", "hash64", "probe",
+                   "table_sweep", "sink_ring"),
+}
+
+
+def _sink_chunk(torch, device, cap: int, p_valid: float, g):
+    """A changelog chunk of every leaf kind K22b moves: int64, NUMERIC (a
+    scaled int64), a nullable int64, a nullable VARCHAR(8) and a
+    VARCHAR(64) with random bytes past their lengths (8- and 16-byte
+    words), a nullable BOOLEAN and a VARCHAR(5) (1-byte words); random
+    ops and ``p_valid`` of the rows valid."""
+    from risingwave_tpu_torch.common.chunk import Chunk, NCol, StrCol
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+    from risingwave_tpu_torch.stream.spill import chunk_to
+
+    def f(name, t, nullable=False, w=None):
+        kw = {"str_width": w} if w else {}
+        return Field(name, t, nullable=nullable, **kw)
+
+    schema = Schema((f("k", DataType.INT64), f("p", DataType.DECIMAL),
+                     f("n", DataType.INT64, True),
+                     f("s", DataType.VARCHAR, True, 8),
+                     f("t", DataType.VARCHAR, False, 64),
+                     f("b", DataType.BOOLEAN, True),
+                     f("u", DataType.VARCHAR, False, 5)))
+
+    def i64():
+        return torch.randint(-2**62, 2**62, (cap,), generator=g)
+
+    def nulls(p=0.3):
+        return torch.rand(cap, generator=g) < p
+
+    def strs(w):
+        return StrCol(torch.randint(0, 256, (cap, w), generator=g,
+                                    dtype=torch.uint8),
+                      torch.randint(0, w + 1, (cap,), generator=g,
+                                    dtype=torch.int32))
+
+    cols = [i64(), i64(), NCol(i64(), nulls()), NCol(strs(8), nulls()),
+            strs(64), NCol(nulls(0.5), nulls(0.2)), strs(5)]
+    ops = torch.randint(0, 4, (cap,), generator=g, dtype=torch.int8)
+    chunk = Chunk(cols, ops, torch.rand(cap, generator=g) < p_valid, schema)
+    return schema, chunk_to(chunk, device)
+
+
+def _dedup_rows(torch, device, cap: int, g, window: int, n_auctions: int):
+    """A (window_start, auction, v) chunk: three 10 s windows and
+    ``n_auctions`` auctions (duplicates within and across chunks)."""
+    from risingwave_tpu_torch.common.chunk import Chunk
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+
+    schema = Schema((Field("window_start", DataType.TIMESTAMP),
+                     Field("auction", DataType.INT64),
+                     Field("v", DataType.INT64)))
+    ws = torch.randint(0, 3, (cap,), generator=g) * window
+    auction = torch.randint(0, n_auctions, (cap,), generator=g)
+    v = torch.arange(cap, dtype=torch.int64)
+    valid = torch.rand(cap, generator=g) < 0.95
+    return schema, Chunk([ws.to(device), auction.to(device), v.to(device)],
+                         torch.zeros(cap, dtype=torch.int8, device=device),
+                         valid.to(device), schema)
+
+
+def phase_sink_kernels(torch, device, timer, scale):
+    """K22b against ``sink_append_plain`` on the same card tensors,
+    exactly: 8192-row chunks of every leaf kind (``_sink_chunk``) into a
+    2^14 ring that they wrap, and a backfill chunk of 2^18 rows (2% valid)
+    into a 2^21 ring; then timed at q1_sink's shape (8192 rows of 4 int64
+    leaves and the op into the 2^23 ring).  K19b (no kernel of its own:
+    K1, K3, the K4 sweep) on the card against a CPU copy: 8 chunks of
+    (window_start, auction) keys with duplicates, a watermark that evicts
+    two windows and the rehash past a quarter of tombstones, outputs and
+    state exact; timed per chunk with K3's plain probe beside it."""
+    from risingwave_tpu_torch.common.chunk import Chunk
+    from risingwave_tpu_torch.common.tree import flatten
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+    from risingwave_tpu_torch.expr.node import InputRef
+    from risingwave_tpu_torch.state.hash_table import HashTable
+    from risingwave_tpu_torch.stream.message import Watermark
+    from risingwave_tpu_torch.stream.sink import (
+        SinkExecutor, sink_append, sink_append_plain)
+    from risingwave_tpu_torch.stream.spill import chunk_to
+    from risingwave_tpu_torch.stream.top_n import AppendOnlyDedupExecutor
+
+    def _leaves(st):
+        return flatten(st)[0]
+
+    g = torch.Generator().manual_seed(22)
+    pairs = []
+    cases = (("wrap", 8192 // scale, 0.7, (1 << 14) // scale, 4),
+             ("backfill", (1 << 18) // scale, 0.02, (1 << 21) // scale, 1))
+    for tag, cap, p, ring, steps in cases:
+        schema, _ = _sink_chunk(torch, "cpu", 1, 1.0, g)
+        ex = SinkExecutor(schema, None, ring_size=ring)
+        a, b = ex.init_state(device), ex.init_state(device)
+        for step in range(steps):
+            _, chunk = _sink_chunk(torch, device, cap, p, g)
+            sink_append(a.values, a.ops, a.cursor, chunk, ring)
+            sink_append_plain(b.values, b.ops, b.cursor, chunk, ring)
+        pairs += [(f"sink {tag} leaf {i}", x, y) for i, (x, y) in enumerate(
+            zip(_leaves(a), _leaves(b)))]
+        if tag == "wrap" and int(a.cursor) <= ring:
+            fail("K22b's wrap case did not wrap the ring")
+    err = max_abs_err(torch, pairs)
+    # q1_sink's shape: 4 int64 columns and the op, every row valid
+    ring, cap = (1 << 23) // scale, 8192 // scale
+    schema = Schema(tuple(Field(n, DataType.INT64)
+                          for n in ("auction", "bidder", "price", "ts")))
+    cols = [torch.randint(0, 10**12, (cap,), generator=g).to(device)
+            for _ in range(4)]
+    chunk = Chunk(cols, torch.zeros(cap, dtype=torch.int8, device=device),
+                  torch.ones(cap, dtype=torch.bool, device=device), schema)
+    ex = SinkExecutor(schema, None, ring_size=ring)
+    a, b = ex.init_state(device), ex.init_state(device)
+    ms = timer(lambda i: sink_append(a.values, a.ops, a.cursor, chunk,
+                                     ring), 200)
+    plain_ms = timer(lambda i: sink_append_plain(b.values, b.ops, b.cursor,
+                                                 chunk, ring), 20)
+    b_ = sink_bound(cap, 4 * 8 + 1)
+    print(f"[sink_ring] exact (every leaf kind across a ring wrap, and a "
+          f"{(1 << 18) // scale}-row backfill chunk into a "
+          f"{(1 << 21) // scale}-row ring); at q1_sink's shape ({cap} rows "
+          f"x 4 int64 + op into {ring}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_[0]:.6f} ms ({b_[1]})", flush=True)
+    out = {"sink_ring": kernel_entry(
+        "sink_ring.cu", "risingwave_tpu/stream/sink.py:63", ms, plain_ms, b_,
+        None, err)}
+
+    # K19b on the card against a CPU copy
+    size, cap = DEDUP_TABLE // scale, 8192 // scale
+    n_auctions = 10_000 // scale
+    schema, _ = _dedup_rows(torch, "cpu", 1, g, WINDOW_US, n_auctions)
+    execs = [AppendOnlyDedupExecutor(
+        schema, [InputRef(0), InputRef(1)], table_size=size,
+        watermark_key_idx=0, watermark_lag=WINDOW_US) for _ in range(2)]
+    sts = [execs[0].init_state(device), execs[1].init_state("cpu")]
+    pairs = []
+
+    def state_pairs(tag):
+        # copies: both tables change in place after this
+        return [(f"dedup {tag} {i}", x.to("cpu", copy=True), y.clone())
+                for i, (x, y) in enumerate(zip(_leaves(sts[0]),
+                                               _leaves(sts[1])))]
+
+    chunks = []
+    for step in range(8):
+        _, chunk = _dedup_rows(torch, device, cap, g, WINDOW_US, n_auctions)
+        chunks.append(chunk)
+        outs = []
+        for k, dev in enumerate((device, "cpu")):
+            sts[k], o = execs[k].apply(sts[k], chunk_to(chunk, dev))
+            outs.append(o.valid)
+        pairs.append((f"dedup step {step} kept rows", outs[0].cpu(),
+                      outs[1]))
+    pairs += state_pairs("after the chunks")
+    for k, dev in enumerate((device, "cpu")):
+        wm = Watermark(0, torch.tensor(3 * WINDOW_US, device=dev))
+        sts[k] = execs[k].on_watermark(sts[k], wm)
+    pairs += state_pairs("after the watermark")
+    tomb = int(sts[1].table.tombstone_count())
+    if tomb <= size // 4:
+        fail(f"K19b's case left {tomb} tombstones, not past {size // 4}")
+    for k in range(2):
+        sts[k] = execs[k].maybe_rehash(sts[k])
+    pairs += state_pairs("after the rehash")
+    err_d = max_abs_err(torch, pairs)
+    if int(sts[1].table.tombstone_count()) != 0:
+        fail("K19b's rehash left tombstones")
+    # timed: one chunk into a fresh copy of the filled table each call
+    ex = execs[0]
+    fresh = sts[0]
+    copies = [fresh._replace(table=fresh.table.clone()) for _ in range(40)]
+    d_ms = timer(lambda i: ex.apply(copies[i % 40], chunks[i % 8]), 20)
+    probe = HashTable._probe
+    HashTable._probe = HashTable._probe_plain
+    try:
+        copies = [fresh._replace(table=fresh.table.clone())
+                  for _ in range(40)]
+        d_plain = timer(lambda i: ex.apply(copies[i % 40], chunks[i % 8]), 20)
+    finally:
+        HashTable._probe = probe
+    n = int(chunks[0].valid.sum())
+    # each valid row reads its 16 B key, reads or claims a slot (16 B of
+    # keys, 2 B of flags) and writes its kept flag
+    d_b = bound(cap + n * (16 + 18 + 1), n * 20)
+    print(f"[append_only_dedup] K19b on the card equals a CPU copy (kept "
+          f"rows, table, overflow) over 8 chunks, a watermark evicting two "
+          f"windows ({tomb} tombstones) and the rehash; one chunk: "
+          f"{d_ms:.4f} ms, with K3's plain probe {d_plain:.4f} ms, bound "
+          f"{d_b[0]:.6f} ms", flush=True)
+    out["append_only_dedup"] = {
+        "route": "cuda", "source": "risingwave_tpu_torch/stream/top_n.py",
+        "replaces": "risingwave_tpu/stream/top_n.py:441", "launches": 0,
+        "max_abs_err": err_d, "ms": d_ms, "plain_ms": d_plain,
+        "bound_ms": d_b[0], "bound_by": d_b[1], "library_ms": None,
+        "composed_of": ["hash64", "probe", "table_sweep"]}
+    return out
+
+
+def _time_deliver(ex, log: list) -> None:
+    """Record the host seconds of each ``deliver`` of a sink executor."""
+    inner = ex.deliver
+
+    def deliver(state, epoch, commit=True):
+        t0 = time.perf_counter()
+        out = inner(state, epoch, commit)
+        log.append(time.perf_counter() - t0)
+        return out
+
+    ex.deliver = deliver
+
+
+def _count_snapshots(job, log: list) -> None:
+    inner = job._snapshot_commit
+
+    def snapshot(*a, **k):
+        log.append(a[0])
+        return inner(*a, **k)
+
+    job._snapshot_commit = snapshot
+
+
+def sink_bound(rows: int, row_bytes: float) -> tuple[float, str]:
+    """K22b's bound: each appended row's leaves and op read once and
+    written once."""
+    return bound(2 * rows * row_bytes, 0)
+
+
+def _sink_row_bytes(st) -> float:
+    """Bytes one ring row of a sink state holds (every leaf and the
+    op)."""
+    return sum(row_bytes(v) for v in st.values) + 1
+
+
+def _timed_window(torch, eng, device, query: str, unit_rows: int,
+                  barriers: int, sink_state):
+    """The launch counters over ``barriers`` timed barriers of 8 chunks,
+    then one profiled window: K22b's device ms per launch there against
+    its bound from the rows it appended.  ``sink_state()`` is the sink's
+    current state.  Returns (launches, rows/s)."""
+    from risingwave_tpu_torch import kernels
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    chunks = barriers * CHUNKS_PER_BARRIER
+    rate = chunks * unit_rows / dt
+    print(f"[main] {query} {chunks * unit_rows} bid rows in {dt:.3f} s = "
+          f"{rate:.0f} rows/s; K22b launches per chunk "
+          f"{launches['sink_ring'] / chunks:.2f}; port kernel launches "
+          f"{sum(launches.values()) / chunks:.2f} per chunk", flush=True)
+    if cuda:
+        c0 = int(sink_state().cursor)
+        n0 = kernels.LAUNCHES["sink_ring"]
+        per_chunk = profile_window(torch, eng, query)
+        print(f"[main] {query} launches per chunk "
+              f"{'not measured' if per_chunk is None else f'{per_chunk:.1f}'}"
+              f" (all CUDA kernels, profiled window)", flush=True)
+        st = sink_state()
+        k = kernels.LAUNCHES["sink_ring"] - n0
+        us = sum(LAST_PROFILE.get(name, (0, 0))[0] for name in
+                 ("sink_count_kernel", "sink_rank_kernel",
+                  "sink_copy_kernel"))
+        if k and us:
+            rows = (int(st.cursor) - c0) / k
+            b_ = sink_bound(rows, _sink_row_bytes(st))
+            print(f"[main] {query} K22b {us / 1e3 / k:.4f} ms per launch "
+                  f"(profiled, {rows:.0f} rows appended per launch), bound "
+                  f"{b_[0]:.6f} ms; the plain version's time at q1_sink's "
+                  "shape is the kernel phase's", flush=True)
+    return launches, rate
+
+
+def _deliver_line(query: str, log: list) -> None:
+    ms = 1e3 * sum(log) / max(len(log), 1)
+    print(f"[main] {query} deliver: {len(log)} snapshot barriers, host "
+          f"{ms:.3f} ms per snapshot barrier (max "
+          f"{1e3 * max(log, default=0):.3f} ms)", flush=True)
+
+
+def _audit(eng) -> None:
+    """Maintenance (counters read, loss raises) and a snapshot that
+    delivers every sink's remaining rows."""
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 1")
+    eng.tick(barriers=1, chunks_per_barrier=0)
+
+
+def phase_q1_sink(torch, device, scale):
+    """q1 into a blackhole sink at bench sizes (ring 2^23): K22b takes
+    every bid; the ring read back once equals numpy's q1, all inserts."""
+    import numpy as np
+
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    cuda = device.type == "cuda"
+    cfg = {k: v // scale for k, v in BENCH_CONFIG.items()}
+    cfg["mv_ring_size"] = (1 << 23) // scale
+    eng = Engine(PlannerConfig(**cfg), device=device)
+    eng.execute(BENCH_SOURCES)
+    eng.execute(Q1_SINK_SQL)
+    entry = eng.catalog.get("q1_sink")
+    ex, job = entry.mv_executor, entry.job
+    delivers, snaps = [], []
+    _time_deliver(ex, delivers)
+    _count_snapshots(job, snaps)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
+    eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
+    eng.tick(barriers=WARMUP_BARRIERS if cuda else 1,
+             chunks_per_barrier=CHUNKS_PER_BARRIER)
+    cap = cfg["chunk_capacity"]
+    launches, rate = _timed_window(
+        torch, eng, device, "q1_sink", cap, BARRIERS if cuda else 2,
+        lambda: job.states[-1])
+    _audit(eng)
+    _deliver_line("q1_sink", delivers)
+    print("[main] q1_sink backfill: none (the sink reads the source)",
+          flush=True)
+    bids = _consumed_bids(eng, cap)
+    st = job.states[-1]  # the sink is the fragment's last executor
+    n = int(st.cursor)
+    sink = ex.sink
+    if n != bids["price"].shape[0] or sink.rows_written != n \
+            or int(st.read_cursor) != n or int(st.overflow) != 0:
+        fail(f"q1_sink: ring {n} rows (read {int(st.read_cursor)}, overflow "
+             f"{int(st.overflow)}), blackhole {sink.rows_written} rows, "
+             f"{bids['price'].shape[0]} bids consumed")
+    if sink.commits != len(snaps):
+        fail(f"q1_sink: {sink.commits} commits for {len(snaps)} snapshot "
+             "barriers")
+    price = np.round(np.float64(908_000) * (bids["price"] * 10**6).astype(
+        np.float64) / 1e6).astype(np.int64)
+    for name, col, want in (("auction", 0, bids["auction"]),
+                            ("bidder", 1, bids["bidder"]),
+                            ("price", 2, price), ("date_time", 3, bids["ts"])):
+        if not np.array_equal(st.values[col][:n].cpu().numpy(), want):
+            fail(f"q1_sink ring column {name} differs from numpy")
+    if bool((st.ops[:n] != 0).any()):
+        fail("q1_sink ring holds ops other than inserts")
+    print(f"[check] q1_sink ring rows and ops equal numpy q1 over {n} bids "
+          f"(all inserts); the blackhole counted {sink.rows_written} rows "
+          f"in {sink.commits} commits = snapshot barriers; overflow 0",
+          flush=True)
+    del eng, job, st
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches, rate
+
+
+def _threshold(counts) -> tuple[int, float]:
+    """The least T with 0 < share(bids >= T) <= 1/2, and that share."""
+    import numpy as np
+
+    c = np.asarray(counts)
+    for t in np.unique(c):
+        share = float((c >= t).mean())
+        if 0 < share <= 0.5:
+            return int(t), share
+    fail(f"q5 has no threshold keeping at most half of {len(c)} rows")
+
+
+def _fold(lines) -> list[tuple]:
+    seen = {}
+    for rec in lines:
+        key = (rec["auction"], rec["window_start"])
+        if rec["op"] in ("insert", "update_insert"):
+            seen[key] = rec["bids"]
+        elif rec["op"] != "commit":
+            seen.pop(key, None)
+    return sorted((a, w, b) for (a, w), b in seen.items())
+
+
+def _file_lines(path) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(x) for x in f]
+
+
+def _cascade_checks(eng, t: int, path: str, tag: str, cap: int):
+    """q5 against numpy, q5_hot against q5's rows with bids >= T, the
+    file's fold against q5_hot, one data line per ring row (none written
+    twice, none lost); returns (file lines, q5 rows, q5_hot rows)."""
+    job = eng.jobs[0]
+    bids = _consumed_bids(eng, cap, job.sources["_src_q5"])
+    msg = check_q5(eng, bids, "q5")
+    q5 = sorted(tuple(int(x) for x in r) for r in eng.execute(
+        "SELECT auction, window_start, bids FROM q5"))
+    hot = sorted(tuple(int(x) for x in r) for r in eng.execute(
+        "SELECT auction, window_start, bids FROM q5_hot"))
+    if hot != [r for r in q5 if r[2] >= t]:
+        fail(f"{tag}: q5_hot ({len(hot)} rows) is not q5's rows with bids "
+             f">= {t}")
+    lines = _file_lines(path)
+    data = [x for x in lines if x["op"] != "commit"]
+    entry = eng.catalog.get("q5_hot_sink")
+    st = job.states[entry.dag_nodes[0]][-1]
+    if len(data) != int(st.cursor) or int(st.read_cursor) != int(st.cursor) \
+            or int(st.overflow) != 0:
+        fail(f"{tag}: {len(data)} data lines for a sink cursor of "
+             f"{int(st.cursor)} (read {int(st.read_cursor)}, overflow "
+             f"{int(st.overflow)})")
+    if _fold(data) != hot:
+        fail(f"{tag}: the sink file's fold differs from q5_hot")
+    print(f"[check] {tag} {msg}; q5_hot equals q5's {len(hot)} rows with "
+          f"bids >= {t}; the file's {len(data)} data lines (one per ring "
+          f"row: none twice, none lost) fold to q5_hot", flush=True)
+    return lines, q5, hot
+
+
+def phase_q5_cascade(torch, device, scale, durable: bool):
+    """bench's q5, 4 barriers, then the cascade over its non-empty table
+    (``q5_hot``, backfilled from q5's 2^18-slot snapshot) and a file sink
+    over it; the rest of the warm-up, the timed barriers, the checks; the
+    drops (store-less run) or a process death and a cold start (durable
+    run)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from risingwave_tpu_torch import kernels
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+    from risingwave_tpu_torch.stream.dag import DagJob
+
+    cuda = device.type == "cuda"
+    tag = "q5_cascade durable" if durable else "q5_cascade"
+    cfg = {k: v // scale for k, v in BENCH_CONFIG.items()}
+    cfg["mv_ring_size"] = (1 << 21) // scale
+    cap = cfg["chunk_capacity"]
+    work = tempfile.mkdtemp(prefix="rw_cascade_")
+    data_dir = os.path.join(work, "data") if durable else None
+    path = os.path.join(work, "q5_hot.jsonl")
+    info = {}
+    try:
+        eng = Engine(PlannerConfig(**cfg), data_dir=data_dir, device=device)
+        eng.execute(BENCH_SOURCES)
+        eng.execute(Q5_SQL)
+        eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = "
+                    "1000000")
+        eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
+        eng.tick(barriers=Q5_BEFORE_CASCADE if cuda else 1,
+                 chunks_per_barrier=CHUNKS_PER_BARRIER)
+        t, share = _threshold([int(r[2]) for r in eng.execute(
+            "SELECT auction, window_start, bids FROM q5")])
+        n_q5 = len(eng.execute("SELECT auction FROM q5"))
+        if cuda and share < 0.01:
+            fail(f"{tag}: q5_hot would keep {100 * share:.2f}% of q5")
+        backfills = []
+        inner = DagJob.backfill_node
+
+        def backfill(job, node_id, chunks, side=None):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner(job, node_id, chunks, side)
+            if cuda:
+                torch.cuda.synchronize()
+            backfills.append((chunks[0].capacity, time.perf_counter() - t0))
+
+        DagJob.backfill_node = backfill
+        kernels.reset_launches()
+        try:
+            eng.execute(
+                "CREATE MATERIALIZED VIEW q5_hot AS SELECT auction, "
+                f"window_start, bids FROM q5 WHERE bids >= {t};")
+            eng.execute(f"CREATE SINK q5_hot_sink FROM q5_hot WITH "
+                        f"(connector = 'file', path = '{path}');")
+        finally:
+            DagJob.backfill_node = inner
+        bf_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        shown = (eng.execute("SHOW MATERIALIZED VIEWS"),
+                 eng.execute("SHOW SINKS"))
+        if shown != ([("q5",), ("q5_hot",)], [("q5_hot_sink",)]):
+            fail(f"{tag}: SHOW after the cascade gave {shown}")
+        print(f"[main] {tag} T = {t}: q5_hot keeps {100 * share:.2f}% of "
+              f"q5's {n_q5} rows; backfills (chunk capacity, ms): "
+              f"{[(c, round(1e3 * s, 3)) for c, s in backfills]}; their "
+              f"launches {bf_launches}", flush=True)
+        info.update(T=t, share=share, q5_rows=n_q5,
+                    backfill_ms=[1e3 * s for _, s in backfills])
+        if cuda and (bf_launches.get("sink_ring", 0) < 1
+                     or bf_launches.get("mv_upsert", 0) < 1):
+            fail(f"{tag}: the backfill did not launch K8 and K22b")
+        job = eng.jobs[0]
+        ex = eng.catalog.get("q5_hot_sink").mv_executor
+        delivers, snaps = [], []
+        _time_deliver(ex, delivers)
+        _count_snapshots(job, snaps)
+        eng.tick(barriers=(WARMUP_BARRIERS - Q5_BEFORE_CASCADE) if cuda
+                 else 1, chunks_per_barrier=CHUNKS_PER_BARRIER)
+        node = eng.catalog.get("q5_hot_sink").dag_nodes[0]
+        launches, rate = _timed_window(
+            torch, eng, device, tag, cap, BARRIERS if cuda else 2,
+            lambda: job.states[node][-1])
+        _audit(eng)
+        _deliver_line(tag, delivers)
+        lines, q5, hot = _cascade_checks(eng, t, path, tag, cap)
+        commits = sum(x["op"] == "commit" for x in lines)
+        if commits != len(delivers):
+            fail(f"{tag}: {commits} commit records for {len(delivers)} "
+                 "deliveries")
+        if not durable:
+            try:
+                eng.execute("DROP MATERIALIZED VIEW q5")
+                fail(f"{tag}: DROP MATERIALIZED VIEW q5 did not raise")
+            except ValueError as e:
+                refused = str(e)
+            if eng.execute("SHOW MATERIALIZED VIEWS") != [("q5",),
+                                                          ("q5_hot",)]:
+                fail(f"{tag}: the refused DROP changed the catalog")
+            eng.execute("DROP SINK q5_hot_sink")
+            after_sink = eng.execute("SHOW SINKS")
+            eng.execute("DROP MATERIALIZED VIEW q5_hot")
+            shown = (after_sink, eng.execute("SHOW MATERIALIZED VIEWS"))
+            if shown != ([], [("q5",)]) or job.nodes[1:] != [None, None]:
+                fail(f"{tag}: after the drops SHOW gave {shown}")
+            eng.tick(barriers=1, chunks_per_barrier=CHUNKS_PER_BARRIER)
+            bids = _consumed_bids(eng, cap, job.sources["_src_q5"])
+            msg = check_q5(eng, bids, "q5")
+            print(f"[check] {tag} drops: DROP MATERIALIZED VIEW q5 refused "
+                  f"({refused}); DROP SINK and DROP MATERIALIZED VIEW q5_hot "
+                  f"left q5's node running; one more barrier: {msg}",
+                  flush=True)
+        else:
+            names = sorted(e.name for e in eng.catalog.list())
+            del eng, job, ex
+            gc.collect()
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng = Engine(PlannerConfig(**cfg), data_dir=data_dir,
+                         device=device)
+            if cuda:
+                torch.cuda.synchronize()
+            info["recover_s"] = time.perf_counter() - t0
+            got = sorted(e.name for e in eng.catalog.list())
+            rows = [sorted(tuple(int(x) for x in r) for r in eng.execute(
+                f"SELECT auction, window_start, bids FROM {m}"))
+                for m in ("q5", "q5_hot")]
+            if got != names or rows != [q5, hot]:
+                fail(f"{tag}: the cold start gave catalog {got} (before "
+                     f"{names}) and MVs equal to the pre-crash rows "
+                     f"{[a == b for a, b in zip(rows, (q5, hot))]}")
+            eng.tick(barriers=4 if cuda else 1,
+                     chunks_per_barrier=CHUNKS_PER_BARRIER)
+            _audit(eng)
+            lines2, _, _ = _cascade_checks(eng, t, path, f"{tag} restarted",
+                                           cap)
+            if lines2[:len(lines)] != lines:
+                fail(f"{tag}: the restarted sink rewrote the file's head")
+            print(f"[cold start] {tag} {info['recover_s']:.3f} s: catalog "
+                  f"{got}, q5 and q5_hot equal their pre-crash rows; 4 more "
+                  f"barriers appended {len(lines2) - len(lines)} lines, "
+                  "exactly once", flush=True)
+        del eng
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches, rate, info
+
+
+def phase_dedup_sink(torch, device, scale):
+    """K19b's path, built by hand as ``tests/test_top_n.py`` builds the
+    executor (no planner builds it): bids (100,000 events/s) -> q7's
+    10 s TUMBLE -> ``AppendOnlyDedupExecutor`` on (window_start,
+    auction), the closed windows evicted by the watermark (lag 10 s) ->
+    a blackhole ``SinkExecutor`` (ring 2^21), at bench sizes with a
+    maintenance pass every 8 checkpoints.  The ring must hold exactly
+    the first bid of each (window, auction) pair."""
+    import numpy as np
+
+    from risingwave_tpu_torch.connector.sinks import BlackholeSink
+    from risingwave_tpu_torch.expr.node import InputRef
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+    from risingwave_tpu_torch.stream.executor import HopWindowExecutor
+    from risingwave_tpu_torch.stream.fragment import Fragment
+    from risingwave_tpu_torch.stream.runtime import StreamingJob
+    from risingwave_tpu_torch.stream.sink import SinkExecutor
+    from risingwave_tpu_torch.stream.top_n import AppendOnlyDedupExecutor
+    from risingwave_tpu_torch.stream.watermark import WatermarkFilterExecutor
+
+    cuda = device.type == "cuda"
+    cfg = {k: v // scale for k, v in BENCH_CONFIG.items()}
+    cap = cfg["chunk_capacity"]
+    eng = Engine(PlannerConfig(**cfg), device=device)
+    eng.execute(SLICE11_BID.format(rate=DEDUP_RATE))
+    entry = eng.catalog.get("bid")
+    schema = entry.schema
+    ts = schema.index_of("date_time")
+    hop = HopWindowExecutor(schema, ts, WINDOW_US, WINDOW_US)
+    out = hop.out_schema
+    dedup = AppendOnlyDedupExecutor(
+        out, [InputRef(out.index_of("window_start")), InputRef(0)],
+        table_size=DEDUP_TABLE // scale, watermark_key_idx=0,
+        watermark_lag=WINDOW_US, watermark_src_col=ts)
+    sink = SinkExecutor(out, BlackholeSink(), ring_size=(1 << 21) // scale)
+    job = StreamingJob(entry.reader_factory(), Fragment(
+        [WatermarkFilterExecutor(schema, *entry.watermark), hop, dedup,
+         sink]), "dedup_sink", device=device)
+    eng.jobs.append(job)
+    # the sweeps are counted without a host read; the evicted keys are
+    # the tombstones each rehash clears (read at maintenance) plus those
+    # left at the end
+    stats = {"sweeps": 0, "evicted": 0, "rehash": 0}
+    on_wm, rehash = dedup.on_watermark, dedup.maybe_rehash
+
+    def counted_wm(st, wm):
+        stats["sweeps"] += wm.col_idx == ts
+        return on_wm(st, wm)
+
+    def counted_rehash(st):
+        tomb = int(st.table.tombstone_count())
+        new = rehash(st)
+        if new is not st:
+            stats["rehash"] += 1
+            stats["evicted"] += tomb
+        return new
+
+    dedup.on_watermark, dedup.maybe_rehash = counted_wm, counted_rehash
+    delivers = []
+    _time_deliver(sink, delivers)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 8")
+    eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
+    eng.tick(barriers=WARMUP_BARRIERS if cuda else 1,
+             chunks_per_barrier=CHUNKS_PER_BARRIER)
+    launches, rate = _timed_window(
+        torch, eng, device, "dedup_sink", cap, BARRIERS if cuda else 2,
+        lambda: job.states[3])
+    _audit(eng)
+    _deliver_line("dedup_sink", delivers)
+    print("[main] dedup_sink backfill: none (built on a fresh source)",
+          flush=True)
+    # numpy: the first bid of each (window, auction) pair, in stream order
+    reader = job.source
+    cols = {j: [] for j in (0, 1, 2, 5)}
+    strs = {j: ([], []) for j in (3, 4)}
+    for i in range(reader.offset // cap):
+        c = reader.gen.gen_bids(i * cap, cap)
+        for j in cols:
+            cols[j].append(c.columns[j].cpu().numpy())
+        for j in strs:
+            strs[j][0].append(c.columns[j].data.cpu().numpy())
+            strs[j][1].append(c.columns[j].lens.cpu().numpy())
+    cols = {j: np.concatenate(v) for j, v in cols.items()}
+    ws = cols[5] - cols[5] % WINDOW_US
+    _, first = np.unique(np.stack([ws, cols[0]], 1), axis=0,
+                         return_index=True)
+    first = np.sort(first)
+    stats["evicted"] += int(job.states[2].table.tombstone_count())
+    st = job.states[3]
+    n = int(st.cursor)
+    if n != first.shape[0] or int(st.overflow) != 0 \
+            or int(job.states[2].overflow) != 0:
+        fail(f"dedup_sink: ring {n} rows for {first.shape[0]} first bids "
+             f"(sink overflow {int(st.overflow)}, dedup overflow "
+             f"{int(job.states[2].overflow)})")
+    want = {0: cols[0][first], 1: cols[1][first], 2: cols[2][first],
+            5: cols[5][first], 6: ws[first], 7: ws[first] + WINDOW_US}
+    for j, w in want.items():
+        if not np.array_equal(st.values[j][:n].cpu().numpy(), w):
+            fail(f"dedup_sink ring column {out[j].name} differs from numpy")
+    for j, (data, lens) in strs.items():
+        if not (np.array_equal(st.values[j].data[:n].cpu().numpy(),
+                               np.concatenate(data)[first])
+                and np.array_equal(st.values[j].lens[:n].cpu().numpy(),
+                                   np.concatenate(lens)[first])):
+            fail(f"dedup_sink ring column {out[j].name} differs from numpy")
+    if bool((st.ops[:n] != 0).any()) or sink.sink.rows_written != n:
+        fail("dedup_sink: ops other than inserts, or the blackhole missed "
+             "rows")
+    if cuda and (stats["sweeps"] < 1 or stats["evicted"] < 1
+                 or stats["rehash"] < 1):
+        fail(f"dedup_sink: sweeps/evictions/rehashes {stats}")
+    print(f"[check] dedup_sink ring holds exactly the first bid of each of "
+          f"{n} (window, auction) pairs over {cols[0].shape[0]} bids, every "
+          f"leaf equal to numpy; overflow 0", flush=True)
+    print(f"[check] dedup_sink: the watermark's K4 sweep ran "
+          f"{stats['sweeps']} times and evicted {stats['evicted']} keys; the "
+          f"tombstone rehash fired {stats['rehash']} times", flush=True)
+    del eng, job, st
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches, rate, stats
+
+
+def run_sink_paths(torch, device, scale, results) -> dict:
+    """The slice's four paths; their launches join the kernels line.
+    Returns {path: (rows/s, info)}."""
+    out = {}
+    for path in SINK_PATHS:
+        if path == "q1_sink":
+            launches, rate = phase_q1_sink(torch, device, scale)
+            info = {}
+        elif path == "dedup_sink":
+            launches, rate, info = phase_dedup_sink(torch, device, scale)
+        else:
+            launches, rate, info = phase_q5_cascade(
+                torch, device, scale, durable=path.endswith("durable"))
+        out[path] = (rate, info)
+        for name, n in launches.items():
+            if name in results:
+                results[name]["launches"] += n
+                results[name]["launches_by_query"][path] = n
+        if path == "dedup_sink":
+            d = results["append_only_dedup"]
+            d["launches"] = launches["probe"]
+            d["launches_by_query"][path] = {
+                k: launches[k] for k in d["composed_of"]}
+        missing = [k for k in SINK_PATH_KERNELS[path] if launches[k] <= 0]
+        if device.type == "cuda" and missing:
+            fail(f"{path}: kernels {missing} were not launched on the path")
+    return out
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ of ``to_char.cu`` and ``calendar.cu``), ``rw_probe.cuh`` (the probe
 walk of ``probe.cu`` and ``temporal_probe.cu``), ``rw_bucket.cuh`` (the
 bucket multi-map's annihilation and walk, of ``join_dense.cu`` and
 ``agg_minput.cu``) and ``rw_compact.cuh`` (the mask compaction of
-``compact.cu`` and ``agg_eowc.cu``), and one host routine,
+``compact.cu``, ``agg_eowc.cu`` and ``sink_ring.cu``), and one host routine,
 ``crc32c.cpp`` (the checkpoint store's checksum, ``crc32c``).  Each
 source compiles with ``nvcc`` into its own shared library with a plain
 C interface, named by a hash of its source, the headers and the flags,
@@ -86,6 +86,7 @@ SOURCES = {
     "calendar": "calendar.cu",
     "agg_minput": "agg_minput.cu",
     "agg_eowc": "agg_eowc.cu",
+    "sink_ring": "sink_ring.cu",
     # a host routine (the checkpoint store's crc32c), no kernel
     "crc32c": "crc32c.cpp",
 }
@@ -133,6 +134,7 @@ KERNELS = {
     "agg_minput": "agg_minput",
     "minput_refresh": "agg_minput",
     "agg_eowc": "agg_eowc",
+    "sink_ring": "sink_ring",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -1,7 +1,8 @@
 """In-memory catalog of sources and materialized views.
 
 Port of ``risingwave_tpu/meta/catalog.py`` (the fields the ported
-source/MV path uses).
+source, MV and sink paths use; the index, export and TTL fields are not
+ported).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from risingwave_tpu_torch.common.types import Schema
 @dataclass
 class CatalogEntry:
     name: str
-    kind: str                  # "source" | "mview"
+    kind: str                  # "source" | "mview" | "sink"
     schema: Schema
     #: source: factory (split_id, num_splits) -> reader
     reader_factory: Callable | None = None
@@ -23,7 +24,8 @@ class CatalogEntry:
     watermark: tuple[int, int] | None = None
     #: source: True when the stream never retracts
     append_only: bool = True
-    #: mview: the running job + its materialize executor handle
+    #: mview: the running job + its materialize executor handle (a sink:
+    #: its SinkExecutor)
     job: Any = None
     mv_executor: Any = None
     mv_state_index: Any = None  # index path to the MV state in job.states
@@ -32,6 +34,12 @@ class CatalogEntry:
     definition: str = ""
     #: a table: its ``connector.dml.TableDmlManager`` (INSERT-fed)
     dml: Any = None
+    #: mview/sink on a DagJob: the node ids this entry contributed
+    #: (removed together on DROP)
+    dag_nodes: Any = None
+    #: source names this entry attached to a shared DagJob (detached on
+    #: DROP, so that a dropped MV's private readers stop being pulled)
+    dag_sources: Any = None
 
 
 class Catalog:

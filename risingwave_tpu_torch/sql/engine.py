@@ -1,9 +1,9 @@
 """The SQL engine: DDL, streaming jobs, serving reads.
 
 Port of the single-process subset of ``risingwave_tpu/sql/engine.py``
-that runs Nexmark aggregations and the q8 join end to end (a join
-plans as a ``DagPlan`` and runs as a ``DagJob``, ``_build_dag_job``
-:1184, the branch without MV taps)::
+that runs Nexmark aggregations, the joins, cascaded MVs and sinks end
+to end (a join or a cascade plans as a ``DagPlan`` and runs as a
+``DagJob``, ``_build_dag_job`` :1184)::
 
     eng = Engine()                      # device="cuda" unless told "cpu"
     eng.execute("CREATE SOURCE bid (...) WITH (connector='nexmark', ...)")
@@ -17,12 +17,26 @@ too), INSERT, ``DELETE FROM t VALUES (...)`` (full rows, as in the
 reference), ``UPDATE t SET col = literal, ... WHERE <full-pk
 equality>``, FLUSH, CREATE FUNCTION (SQL UDFs, inlined into every later
 statement: ``inline_udfs``, the reference's :78), CREATE MATERIALIZED
-VIEW, SET, ALTER SYSTEM SET and ``SELECT <columns> FROM <mv> [ORDER BY
+VIEW (over sources, tables and other MVs), CREATE SINK (``AS SELECT``
+or ``FROM rel``, blackhole and file connectors), ``DROP SOURCE | TABLE |
+MATERIALIZED VIEW | SINK``, ``SHOW SOURCES | TABLES | MATERIALIZED VIEWS
+| SINKS``, SET, ALTER SYSTEM SET and ``SELECT <columns> FROM <mv> [ORDER BY
 ...] [LIMIT n] [OFFSET n]`` or ``SELECT <global aggregates of columns>
 FROM <mv>`` (read on the host).  ``SET query_epoch = e`` makes those
 reads come from the retained checkpoint of epoch ``e`` (time travel,
 the reference's :3783; it needs a ``data_dir``).  Every other statement
 raises ``NotImplementedError``.
+
+MV-on-MV (the reference's :952-1330): a plan over an MV taps it
+(``MvTap``).  The tapped MV's ``StreamingJob`` is upgraded in place to a
+``DagJob`` (``_ensure_dag``, states kept), jobs of several tapped MVs
+merge (``_merge_dag_jobs``), the new nodes attach to that job, and each
+node that consumes a tap is backfilled once from the MV's current rows
+(``_mv_snapshot_chunk``: one device-resident insert chunk of the table's
+or the ring's size).  A sink is the same plan ending in a
+``SinkExecutor``; its rows reach the connector at snapshot barriers.
+DROP of an entry that shares its job removes only its nodes and readers
+(refused while a cascade consumes them) and re-seeds the checkpoint.
 
 Tables (the reference's ``_dml_table`` :832, ``_insert`` :567,
 ``_delete`` :577, ``_update`` :600, FLUSH :448): a table keeps its rows
@@ -41,16 +55,19 @@ Durability (``Engine(config, data_dir=d)``, the reference's
 the job's shadow snapshot (K11) and a background uploader persists it
 as a full snapshot or a dirty-block delta; the end of ``tick`` drains
 the uploads (the durability point).  Every executed CREATE SOURCE,
-CREATE FUNCTION, CREATE MATERIALIZED VIEW and SET is logged (so a cold
-start defines a UDF before the MVs that inline it), every DML statement's rows
-go to the table's journal (``MetaStore.append_dml``), and a new
+CREATE FUNCTION, CREATE MATERIALIZED VIEW, CREATE SINK, DROP and SET is
+logged (so a cold start defines a UDF before the MVs that inline it),
+every DML statement's rows go to the table's journal (``MetaStore.append_dml``), and a new
 ``Engine(config, data_dir=d)`` over a logged catalog cold-starts
 (``_bootstrap``): it replays the log, reloads each table's history
 before any MV plans against it, loads each job's last committed epoch
 onto the device and rewinds the source cursors (the table readers'
-included), so the MVs continue as if the process never stopped.  Only
-these two stores are built: the reference's Hummock MV export to SSTs,
-its compactor and scrubber, and sinks are not ported yet.
+included), so the MVs continue as if the process never stopped.  CREATE
+SINK and DROP are logged too, so the replay rebuilds the same merged
+jobs in the same node order, and each sink's ``read_cursor`` comes back
+with its job's checkpoint (a file sink appends to its file).  Only these
+two stores are built: the reference's Hummock MV export to SSTs, its
+compactor and scrubber are not ported yet.
 """
 
 from __future__ import annotations
@@ -58,6 +75,8 @@ from __future__ import annotations
 import dataclasses
 import time
 from typing import Sequence
+
+import torch
 
 from risingwave_tpu_torch.common.chunk import Chunk
 from risingwave_tpu_torch.common.config import (
@@ -83,17 +102,23 @@ from risingwave_tpu_torch.connector.nexmark import (
     NexmarkGenerator,
     NexmarkSplitReader,
 )
+from risingwave_tpu_torch.connector.sinks import create_sink
 from risingwave_tpu_torch.meta.catalog import Catalog, CatalogEntry
 from risingwave_tpu_torch.sql import ast
 from risingwave_tpu_torch.sql.binder import Scope
 from risingwave_tpu_torch.sql.parser import parse, parse_with_text
 from risingwave_tpu_torch.sql.planner import (
     DagPlan,
+    MvTap,
     PlanError,
     Planner,
     PlannerConfig,
 )
 from risingwave_tpu_torch.stream.dag import DagJob, FragNode, TemporalJoinNode
+from risingwave_tpu_torch.stream.materialize import (
+    AppendOnlyMaterialize,
+    MaterializeExecutor,
+)
 from risingwave_tpu_torch.stream.runtime import StreamingJob
 
 
@@ -176,10 +201,12 @@ class _ProjectingReader:
 
 
 class Engine:
-    #: statements recorded in the durable DDL log: the ported subset of
-    #: the reference's ``_LOGGED_DDL`` (engine.py:299-303)
+    #: statements recorded in the durable DDL log: the reference's
+    #: ``_LOGGED_DDL`` (engine.py:299-303) less CREATE INDEX and ALTER
+    #: PARALLELISM, which are not ported
     _LOGGED_DDL = (ast.CreateSource, ast.CreateMaterializedView,
-                   ast.CreateFunction, ast.SetStatement)
+                   ast.CreateSink, ast.CreateFunction, ast.DropStatement,
+                   ast.SetStatement)
 
     def __init__(self, config: PlannerConfig | None = None,
                  data_dir: str | None = None, device=None):
@@ -267,6 +294,15 @@ class Engine:
             return self._create_source(stmt)
         if isinstance(stmt, ast.CreateMaterializedView):
             return self._create_mview(stmt)
+        if isinstance(stmt, ast.CreateSink):
+            return self._create_sink(stmt)
+        if isinstance(stmt, ast.DropStatement):
+            return self._drop(stmt)
+        if isinstance(stmt, ast.ShowStatement):
+            kind = {"sources": "source", "tables": "source",
+                    "materialized views": "mview",
+                    "sinks": "sink"}.get(stmt.kind)
+            return [(e.name,) for e in self.catalog.list(kind)]
         if isinstance(stmt, ast.SetStatement):
             if stmt.system:
                 self.system_params.set(stmt.name, stmt.value)
@@ -285,6 +321,49 @@ class Engine:
             return self._serve(stmt)
         raise NotImplementedError(
             f"{type(stmt).__name__} is not ported yet")
+
+    def _drop(self, stmt: ast.DropStatement) -> None:
+        """``DROP SOURCE | TABLE | MATERIALIZED VIEW | SINK`` (the
+        reference's :378-434, without its index, Hummock-export and
+        metrics-series branches, which are not ported).  An entry that
+        shares a ``DagJob`` with others removes only its own nodes and
+        readers (refused while a cascade still consumes them) and
+        re-seeds the job's checkpoint; an entry that owns its job stops
+        it."""
+        entry = self.catalog.get(stmt.name) \
+            if stmt.name in self.catalog else None
+        if entry is not None:
+            want = {"source": "source", "table": "source",
+                    "materialized view": "mview", "sink": "sink",
+                    "index": "mview"}[stmt.kind]
+            if entry.kind != want:
+                raise ValueError(f"{stmt.name} is a {entry.kind}, not a "
+                                 f"{want}")
+            if stmt.kind == "index":
+                raise ValueError(f"{stmt.name} is not an index")
+            if entry.job is not None:
+                job = entry.job
+                shared = isinstance(job, DagJob) and any(
+                    e is not entry and e.job is job
+                    for e in self.catalog.list())
+                if shared:
+                    # only this entry's nodes; raises while dependent
+                    # (cascaded) MVs or sinks still consume them
+                    job.remove_nodes(entry.dag_nodes)
+                    job.remove_sources(entry.dag_sources or [])
+                    if not self._replaying:
+                        job.reseed_checkpoint()
+                else:
+                    self.jobs.remove(job)
+            if entry.kind == "sink" and entry.mv_executor is not None:
+                entry.mv_executor.sink.close()
+            if entry.dml is not None and self.meta_store is not None \
+                    and not self._replaying:
+                # the durable history dies with the table (at replay the
+                # log already holds only the last generation's rows)
+                self.meta_store.truncate_dml(stmt.name)
+        self.catalog.drop(stmt.name, stmt.if_exists)
+        return None
 
     def _flush(self) -> None:
         """Drain every bounded source's pending rows, then commit one
@@ -521,42 +600,274 @@ class Engine:
             raise ValueError(f"{stmt.name!r} already exists")
         self._refresh_dml_widths()
         plan = self.planner.plan(stmt.query, eowc=stmt.emit_on_window_close)
-        ckpt_freq = int(self.system_params.get("checkpoint_frequency"))
-        if isinstance(plan, DagPlan):
-            job, mv_exec, state_index = self._build_dag_job(
-                plan, stmt.name, ckpt_freq)
-        else:
-            job = StreamingJob(plan.reader, plan.fragment, stmt.name,
-                               checkpoint_frequency=ckpt_freq,
-                               device=self.device,
-                               checkpoint_store=self.checkpoint_store)
-            mv_exec = plan.fragment.executors[plan.mv_index]
-            state_index = (plan.mv_index,)
+        job, mv_exec, state_index, dag_meta, is_new = self._build_job(
+            plan, stmt.name)
         self.catalog.create(CatalogEntry(
             stmt.name, "mview", mv_exec.in_schema, job=job,
             mv_executor=mv_exec, mv_state_index=state_index,
             append_only=not hasattr(mv_exec, "pk_indices"),
             stream_key=list(getattr(mv_exec, "pk_indices", [])) or None,
-            definition=str(stmt)))
-        self.jobs.append(job)
+            definition=str(stmt),
+            dag_nodes=dag_meta[0] if dag_meta else None,
+            dag_sources=dag_meta[1] if dag_meta else None))
+        if is_new:
+            self.jobs.append(job)
         return None
 
+    def _create_sink(self, stmt: ast.CreateSink):
+        """``CREATE SINK s AS SELECT ...`` or ``CREATE SINK s FROM rel``
+        (the reference's :2147): the plan ends in a ``SinkExecutor`` over
+        the connector the WITH options name."""
+        if stmt.name in self.catalog:
+            if stmt.if_not_exists:
+                return None
+            raise ValueError(f"{stmt.name!r} already exists")
+        query = stmt.query if stmt.query is not None else ast.Select(
+            (ast.SelectItem(ast.Star(), None),), ast.TableRef(stmt.from_rel))
+        sink = create_sink(stmt.with_options)
+        self._refresh_dml_widths()
+        plan = self.planner.plan(query, sink=sink)
+        job, sink_exec, _, dag_meta, is_new = self._build_job(plan,
+                                                              stmt.name)
+        self.catalog.create(CatalogEntry(
+            stmt.name, "sink", sink_exec.in_schema, job=job,
+            mv_executor=sink_exec,
+            dag_nodes=dag_meta[0] if dag_meta else None,
+            dag_sources=dag_meta[1] if dag_meta else None,
+            definition=str(stmt)))
+        if is_new:
+            self.jobs.append(job)
+        return None
+
+    def _build_job(self, plan, name: str):
+        """The runtime job of a plan, shared by MVs and sinks (the
+        reference's :917, one device).  Returns ``(job, terminal
+        executor, state index, (dag node ids, dag source names) or None,
+        is_new_job)``."""
+        ckpt_freq = int(self.system_params.get("checkpoint_frequency"))
+        if isinstance(plan, DagPlan):
+            return self._build_dag_job(plan, name, ckpt_freq)
+        job = StreamingJob(plan.reader, plan.fragment, name,
+                           checkpoint_frequency=ckpt_freq,
+                           device=self.device,
+                           checkpoint_store=self.checkpoint_store)
+        terminal = plan.fragment.executors[plan.mv_index]
+        return job, terminal, (plan.mv_index,), None, True
+
+    # -- DAG jobs: joins, cascades, shared upstreams -----------------------
+    def _ensure_dag(self, entry: CatalogEntry) -> tuple[DagJob, int]:
+        """Upgrade an MV's job to a ``DagJob`` in place, its states kept,
+        so that downstream MVs and sinks can attach (the reference's
+        :952); returns (job, materialize node id)."""
+        job = entry.job
+        if isinstance(job, DagJob):
+            return job, entry.mv_state_index[0]
+        src_name = f"_src_{entry.name}"
+        dag = DagJob({src_name: job.source},
+                     [FragNode(job.fragment, ("source", src_name))],
+                     name=job.name,
+                     checkpoint_frequency=job.checkpoint_frequency,
+                     device=self.device,
+                     checkpoint_store=job.checkpoint_store,
+                     states=(job.states,))
+        dag.epoch = job.epoch
+        dag.barriers_seen = job.barriers_seen
+        dag.committed_epoch = job.committed_epoch
+        dag.maintenance_interval = job.maintenance_interval
+        dag.snapshot_interval = job.snapshot_interval
+        # the checkpoint pipeline migrates with the job: the uploader's
+        # queue keeps in-flight epochs ahead of the reseed below; the
+        # shadow is dropped (the tree changed shape: the reseed re-bases)
+        dag.sealed_epoch = job.sealed_epoch
+        dag._uploader = job._uploader
+        dag.upload_window = job.upload_window
+        dag.metrics = job.metrics
+        dag.stall_seconds = job.stall_seconds
+        dag.spill_reads = job.spill_reads
+        # the spill tiers keep what they absorbed, under the DAG's keys
+        dag._spill_tiers = {(0, j): (f"0_{j}", tier) for (_, j), (_, tier)
+                            in job._spill_tiers.items()}
+        self.jobs[self.jobs.index(job)] = dag
+        entry.job = dag
+        entry.mv_state_index = (0,) + tuple(entry.mv_state_index)
+        entry.dag_nodes = [0]
+        entry.dag_sources = [src_name]
+        # the retained checkpoints hold the StreamingJob-shaped tree (not
+        # while replaying: the states are fresh, and the durable
+        # checkpoint already holds the final topology's)
+        if not self._replaying:
+            dag.reseed_checkpoint()
+        return dag, 0
+
+    def _merge_dag_jobs(self, a: DagJob, b: DagJob) -> DagJob:
+        """Fuse job ``b`` into ``a`` (a plan tapping MVs of two jobs):
+        its sources and nodes move over with remapped ids, and its
+        catalog entries follow (the reference's :1681, one device)."""
+        offset = len(a.nodes)
+        rename: dict[str, str] = {}
+        for sname, reader in b.sources.items():
+            new_name = sname
+            i = 1
+            while new_name in a.sources:
+                new_name = f"{sname}_{i}"
+                i += 1
+            rename[sname] = new_name
+            a.sources[new_name] = reader
+
+        def remap(ref):
+            kind, key = ref
+            if kind == "node":
+                return ("node", offset + key)
+            return ("source", rename[key])
+
+        for n in b.nodes:
+            if n is None:
+                a.nodes.append(None)
+            elif isinstance(n, FragNode):
+                a.nodes.append(dataclasses.replace(n, input=remap(n.input)))
+            else:
+                a.nodes.append(dataclasses.replace(
+                    n, left=remap(n.left), right=remap(n.right)))
+        a.states = tuple(a.states) + tuple(b.states)
+        for (idx, j), (_, tier) in b._spill_tiers.items():
+            a._spill_tiers[(offset + idx, j)] = (f"{offset + idx}_{j}",
+                                                 tier)
+        a._rebuild()
+        for entry in self.catalog.list():
+            if entry.job is b:
+                entry.job = a
+                entry.mv_state_index = (
+                    (offset + entry.mv_state_index[0],)
+                    + tuple(entry.mv_state_index[1:])
+                    if entry.mv_state_index is not None else None)
+                if entry.dag_nodes is not None:
+                    entry.dag_nodes = [offset + i for i in entry.dag_nodes]
+                if entry.dag_sources is not None:
+                    entry.dag_sources = [rename[x] for x in entry.dag_sources]
+        if b in self.jobs:
+            self.jobs.remove(b)
+        return a
+
+    def _mv_snapshot_chunk(self, entry: CatalogEntry) -> Chunk:
+        """The upstream MV's live rows as ONE insert chunk on the device
+        (the reference's :1122, one device): the occupied slots of a
+        ``MaterializeExecutor`` table, or the filled span of an
+        ``AppendOnlyMaterialize`` ring.  Its columns are the MV's own
+        stores, and its capacity the table's or the ring's size."""
+        st = entry.job.states
+        for i in entry.mv_state_index:
+            st = st[i]
+        ex = entry.mv_executor
+        if isinstance(ex, MaterializeExecutor):
+            valid = st.table.occupied
+            cap = ex.table_size
+        elif isinstance(ex, AppendOnlyMaterialize):
+            valid = torch.arange(ex.ring_size, dtype=torch.int64,
+                                 device=self.device) < st.cursor
+            cap = ex.ring_size
+        else:
+            raise PlanError("cannot backfill from a sink")
+        return Chunk(tuple(st.values),
+                     torch.zeros(cap, dtype=torch.int8, device=self.device),
+                     valid, ex.in_schema)
+
     def _build_dag_job(self, plan: DagPlan, name: str, ckpt_freq: int):
-        """A ``DagJob`` over the plan's sources and nodes (the reference's
-        no-tap branch; one device, not staged)."""
-        job = DagJob(plan.sources, plan.nodes, name,
-                     checkpoint_frequency=ckpt_freq, device=self.device,
-                     checkpoint_store=self.checkpoint_store)
-        self._prime_temporal_builds(job)
-        terminal = plan.nodes[plan.mv_node].fragment.executors[plan.mv_index]
-        return job, terminal, (plan.mv_node, plan.mv_index)
+        """A plan without MV taps is a new ``DagJob`` (one device, not
+        staged).  A plan that taps MVs attaches to their job (the
+        reference's :1207-1330): every tap is validated before any job
+        changes, the upstream jobs are upgraded and merged, the plan's
+        readers are added under fresh names, its nodes are added with
+        their refs remapped, each new input slot that consumes a tap is
+        backfilled exactly once from the MV's snapshot, the temporal
+        joins' builds are primed and the checkpoint is re-seeded (not
+        while replaying the DDL log)."""
+        taps = {n: r for n, r in plan.sources.items()
+                if isinstance(r, MvTap)}
+        if not taps:
+            job = DagJob(plan.sources, plan.nodes, name,
+                         checkpoint_frequency=ckpt_freq, device=self.device,
+                         checkpoint_store=self.checkpoint_store)
+            self._prime_temporal_builds(job, range(len(job.nodes)))
+            terminal = plan.nodes[plan.mv_node].fragment.executors[
+                plan.mv_index]
+            return job, terminal, (plan.mv_node, plan.mv_index), \
+                (list(range(len(plan.nodes))), list(plan.sources)), True
+        for tap in taps.values():
+            entry = self.catalog.get(tap.name)
+            if not isinstance(entry.job, (DagJob, StreamingJob)):
+                raise PlanError(
+                    f"MV-on-MV over {type(entry.job).__name__} (sharded "
+                    "upstream): next round")
+        tap_entries: dict[str, CatalogEntry] = {}
+        target: DagJob | None = None
+        for sname, tap in taps.items():
+            entry = self.catalog.get(tap.name)
+            ujob, _ = self._ensure_dag(entry)
+            if target is None:
+                target = ujob
+            elif ujob is not target:
+                target = self._merge_dag_jobs(target, ujob)
+            tap_entries[sname] = entry
+        # the tapped node ids are read after every merge (merges remap)
+        tap_refs = {sname: self.catalog.get(tap.name).mv_state_index[0]
+                    for sname, tap in taps.items()}
+        base = len(target.nodes)
+        src_rename: dict[str, str] = {}
+        for sname, reader in plan.sources.items():
+            if sname in taps:
+                continue
+            new_name = sname
+            i = 1
+            while new_name in target.sources:
+                new_name = f"{sname}_{i}"
+                i += 1
+            src_rename[sname] = new_name
+            target.add_source(new_name, reader)
+
+        def remap(ref):
+            kind, key = ref
+            if kind == "node":
+                return ("node", base + key)
+            if key in tap_refs:
+                return ("node", tap_refs[key])
+            return ("source", src_rename[key])
+
+        rewritten = []
+        for n in plan.nodes:
+            if isinstance(n, FragNode):
+                rewritten.append(dataclasses.replace(n, input=remap(n.input)))
+            else:
+                rewritten.append(dataclasses.replace(
+                    n, left=remap(n.left), right=remap(n.right)))
+        ids = target.add_nodes(rewritten)
+        # backfill each NEW input slot that consumes a tapped MV, once per
+        # slot (a self-join backfills both sides, left first)
+        tap_by_node = {tap_refs[s]: e for s, e in tap_entries.items()}
+        snapshots: dict[int, Chunk] = {}
+        for nid in ids:
+            node = target.nodes[nid]
+            slots = [(node.input, None)] if isinstance(node, FragNode) \
+                else [(node.left, "left"), (node.right, "right")]
+            for ref, side in slots:
+                if ref[0] == "node" and ref[1] in tap_by_node:
+                    if ref[1] not in snapshots:
+                        snapshots[ref[1]] = self._mv_snapshot_chunk(
+                            tap_by_node[ref[1]])
+                    target.backfill_node(nid, [snapshots[ref[1]]], side=side)
+        self._prime_temporal_builds(target, ids)
+        if not self._replaying:
+            target.reseed_checkpoint()
+        terminal = rewritten[plan.mv_node].fragment.executors[plan.mv_index]
+        return target, terminal, (ids[plan.mv_node], plan.mv_index), \
+            (ids, list(src_rename.values())), False
 
     @staticmethod
-    def _prime_temporal_builds(job: DagJob) -> None:
+    def _prime_temporal_builds(job: DagJob, node_ids) -> None:
         """Drain each temporal join's build-side table before any probe
         chunk flows: the build table holds the table's whole current
         state when the MV is created."""
-        for node in job.nodes:
+        for nid in node_ids:
+            node = job.nodes[nid]
             if not isinstance(node, TemporalJoinNode):
                 continue
             ref = node.right

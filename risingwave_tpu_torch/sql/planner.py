@@ -41,10 +41,19 @@ WHERE residue and projection, and an MV keyed by the whole row
 (``_append_terminal``, :1135-1210, with the plain ``ORDER BY .. LIMIT``
 TopN of the same executor).
 
+An MV as a FROM item is an ``MvTap`` (:78, ``_resolve_input``'s MV
+branch, :856-865): it carries the upstream's append-only-ness and stream
+key, so a retractable upstream plans as retractable, and a unary plan
+over it becomes a one-node ``DagPlan`` (a cascade, :204-212) that the
+engine attaches to the upstream's job.  ``plan(..., sink=...)`` ends the
+plan in a ``SinkExecutor`` instead of an MV (:1203-1216): the
+``_hidden_`` columns are projected away first, and the ring takes
+``mv_ring_size`` rows.
+
 Not ported yet (``PlanError``/``NotImplementedError``): non-equality ON
 conditions other than an outer join's one-sided push-down, WHERE or
 aggregation over a join, nested (multi-way) and comma joins, EXISTS and
-scalar subqueries, a derived table outside a join, sinks and MV-on-MV.
+scalar subqueries and a derived table outside a join.
 EMIT ON WINDOW CLOSE plans as the reference plans it (an aggregation
 grouped by a watermarked window key, no pane rewrite, final rows into the
 append-only ring) and refuses, with the reference's words, joins and
@@ -137,6 +146,15 @@ class DagPlan:
     mv_index: int                # executor index within that node
 
 
+@dataclass
+class MvTap:
+    """A FROM item that is an existing MV: the plan consumes that MV's
+    output changelog (the reference's :78).  The engine resolves the tap
+    to the running job's materialize node at CREATE time."""
+
+    name: str
+
+
 #: SQL join kinds -> the executor's join types
 KIND_MAP = {"inner": "inner", "left": "left_outer", "right": "right_outer",
             "full": "full_outer", "cross": "inner", "semi": "left_semi",
@@ -194,9 +212,11 @@ class Planner:
         #: the device the plans run on: CUDA refuses what its kernels lack
         self.device = torch.device(device)
 
-    def plan(self, select: ast.Select,
+    def plan(self, select: ast.Select, sink=None,
              eowc: bool = False) -> "UnaryPlan | DagPlan":
-        plan = self._plan(select, eowc)
+        """``sink`` replaces the MV terminal with a ``SinkExecutor``;
+        ``eowc`` is EMIT ON WINDOW CLOSE."""
+        plan = self._plan(select, sink, eowc)
         if self.device.type == "cuda":
             for ex in self._executors(plan):
                 why = ex.cuda_refusal() if hasattr(ex, "cuda_refusal") \
@@ -214,9 +234,25 @@ class Planner:
                 for ex in (node.fragment.executors
                            if hasattr(node, "fragment") else [node.join])]
 
-    def _plan(self, select: ast.Select, eowc: bool) -> "UnaryPlan | DagPlan":
+    def _plan(self, select: ast.Select, sink,
+              eowc: bool) -> "UnaryPlan | DagPlan":
         """``eowc``: EMIT ON WINDOW CLOSE (final append-only rows when
-        windows close; the reference's :174-203)."""
+        windows close; the reference's :174-203).  A unary plan over an
+        MV is a cascade: one fragment node tapping the upstream MV
+        (:204-212)."""
+        plan = self._plan_select(select, sink, eowc)
+        if isinstance(plan, UnaryPlan) and isinstance(plan.reader, MvTap):
+            from risingwave_tpu_torch.stream.dag import FragNode
+
+            return DagPlan(
+                sources={plan.reader.name: plan.reader},
+                nodes=[FragNode(plan.fragment,
+                                ("source", plan.reader.name))],
+                mv_node=0, mv_index=plan.mv_index)
+        return plan
+
+    def _plan_select(self, select: ast.Select, sink,
+                     eowc: bool) -> "UnaryPlan | DagPlan":
         def has_subquery(f) -> bool:
             if isinstance(f, ast.SubqueryRef):
                 return True
@@ -233,7 +269,8 @@ class Planner:
                                     "joins/subqueries: next round")
                 raise PlanError("a row_number subquery over a join or a "
                                 "subquery is not ported yet")
-            return self._plan_unary(inner, group_topn=spec, eowc=eowc)
+            return self._plan_unary(inner, sink, group_topn=spec,
+                                    eowc=eowc)
         select = self._rewrite_in_subqueries(select)
         if eowc and (isinstance(select.from_, ast.Join)
                      or has_subquery(select.from_)):
@@ -243,8 +280,8 @@ class Planner:
             raise PlanError("a derived table outside a join is not ported "
                             "yet")
         if isinstance(select.from_, ast.Join):
-            return self._plan_join(select)
-        return self._plan_unary(select, eowc=eowc)
+            return self._plan_join(select, sink)
+        return self._plan_unary(select, sink, eowc=eowc)
 
     # -- IN (SELECT ...) rewrite ----------------------------------------
     def _rewrite_in_subqueries(self, select: ast.Select) -> ast.Select:
@@ -402,7 +439,7 @@ class Planner:
         return (group_pos, order_pos, spec)
 
     # -- joins ------------------------------------------------------------
-    def _plan_join(self, select: ast.Select) -> DagPlan:
+    def _plan_join(self, select: ast.Select, sink=None) -> DagPlan:
         """One equi-join of two inputs as a DagPlan: each input is a
         source plus its prep fragment (watermark filter, window) or a
         derived table's fragment, then the JoinNode, then the project
@@ -495,7 +532,7 @@ class Planner:
                 jn, resolve, nodes)
             return self._plan_join_tail(select, sources, nodes, root_ref,
                                         both, skey, append_only,
-                                        resolve_subquery)
+                                        resolve_subquery, sink)
         lref, left = resolve(jn.left)
         rref, right = resolve(jn.right)
         n_left = len(left.schema)
@@ -593,7 +630,8 @@ class Planner:
         append_only = left.append_only and right.append_only \
             and join_type == "inner"
         return self._plan_join_tail(select, sources, nodes, root_ref, both,
-                                    skey, append_only, resolve_subquery)
+                                    skey, append_only, resolve_subquery,
+                                    sink)
 
     def _plan_temporal(self, jn: ast.Join, resolve, nodes: list):
         """``stream JOIN t FOR SYSTEM_TIME AS OF PROCTIME() ON ...`` (the
@@ -652,33 +690,33 @@ class Planner:
 
     def _plan_join_tail(self, select: ast.Select, sources: dict, nodes: list,
                         root_ref, both: Scope, skey, append_only: bool,
-                        resolve_subquery) -> DagPlan:
+                        resolve_subquery, sink=None) -> DagPlan:
         """The join's consumer: an aggregation over it, or the projection
-        and its terminal (a ring or an MV)."""
+        and its terminal (a ring, an MV or the sink)."""
         from risingwave_tpu_torch.stream.dag import FragNode
 
         if bool(select.group_by) or self._has_agg(select):
             root = PlannedInput(None, [], both, both.schema, None, None,
                                 append_only, stream_key=skey)
             return self._plan_join_agg(select, sources, nodes, root_ref,
-                                       root, resolve_subquery)
+                                       root, resolve_subquery, sink)
         b = Binder(both)
         proj = [(name, b.bind(e))
                 for name, e in self._expand_items(select.items, both)]
         pk_positions: list[int] = []
-        if not append_only and skey is not None:
+        if sink is None and not append_only and skey is not None:
             pk_positions = self._stream_key_projection(proj, both.schema,
                                                        skey)
         post_execs: list[Executor] = [ProjectExecutor(both.schema, proj)]
         self._append_terminal(post_execs, post_execs[-1].out_schema, select,
                               input_append_only=append_only, has_agg=False,
-                              pk_positions=pk_positions)
+                              pk_positions=pk_positions, sink=sink)
         nodes.append(FragNode(Fragment(post_execs), root_ref))
         return DagPlan(sources, nodes, len(nodes) - 1, len(post_execs) - 1)
 
     def _plan_join_agg(self, select: ast.Select, sources: dict, nodes: list,
                        root_ref, root: PlannedInput,
-                       resolve_subquery) -> DagPlan:
+                       resolve_subquery, sink=None) -> DagPlan:
         """An aggregation over the join (the reference's :2163-2230): the
         join's retractions flow into the aggregation.  HAVING conjuncts
         that compare against an uncorrelated scalar subquery peel off
@@ -733,7 +771,7 @@ class Planner:
         # last filter in a fragment of its own
         self._append_terminal(execs, out_schema, select,
                               input_append_only=False, has_agg=True,
-                              pk_positions=pk_pos)
+                              pk_positions=pk_pos, sink=sink)
         nodes.append(FragNode(Fragment(execs), ref))
         return DagPlan(sources, nodes, len(nodes) - 1, len(execs) - 1)
 
@@ -896,9 +934,16 @@ class Planner:
     def _resolve_input(self, from_) -> PlannedInput:
         if isinstance(from_, ast.TableRef):
             entry = self.catalog.get(from_.name)
+            if entry.kind == "mview":
+                # MV-on-MV: consume the upstream MV's output changelog
+                return PlannedInput(
+                    MvTap(from_.name), [],
+                    Scope.of(entry.schema, from_.alias or from_.name),
+                    entry.schema, None, None, entry.append_only,
+                    stream_key=entry.stream_key)
             if entry.kind != "source":
-                raise PlanError(f"{from_.name}: only streaming sources are "
-                                "ported as plan inputs (MV-on-MV is not)")
+                raise PlanError(f"{from_.name} is not a streaming source or "
+                                "materialized view")
             execs: list[Executor] = []
             wm_col = None
             if entry.watermark is not None:
@@ -932,7 +977,7 @@ class Planner:
         raise PlanError(f"unsupported FROM clause {from_!r}")
 
     # -- unary pipelines -------------------------------------------------
-    def _plan_unary(self, select: ast.Select,
+    def _plan_unary(self, select: ast.Select, sink=None,
                     group_topn: GroupTopNSpec | None = None,
                     eowc: bool = False) -> UnaryPlan:
         if select.from_ is None:
@@ -944,7 +989,7 @@ class Planner:
             execs.append(FilterExecutor(scope.schema,
                                         Binder(scope).bind(select.where)))
         if any(isinstance(i.expr, ast.WindowCall) for i in select.items):
-            if eowc:
+            if sink is not None or eowc:
                 raise PlanError(
                     "window functions with sinks/EOWC: next round")
             return self._plan_over_window(select, pin, execs, scope)
@@ -985,7 +1030,7 @@ class Planner:
         self._append_terminal(execs, out_schema, select,
                               input_append_only=pin.append_only,
                               has_agg=has_agg, pk_positions=pk_positions,
-                              group_topn=gtn, eowc=eowc)
+                              sink=sink, group_topn=gtn, eowc=eowc)
         return UnaryPlan(pin.reader, Fragment(execs), len(execs) - 1,
                          append_only=pin.append_only)
 
@@ -1123,11 +1168,11 @@ class Planner:
 
     def _append_terminal(self, execs, out_schema, select, *,
                          input_append_only: bool, has_agg: bool,
-                         pk_positions, group_topn=None,
+                         pk_positions, sink=None, group_topn=None,
                          eowc: bool = False) -> None:
-        """Plan tail: the optional (group) TopN, then materialize by pk
-        (retractable) or into a ring (EOWC output is final append-only
-        rows)."""
+        """Plan tail: the optional (group) TopN, then the sink, or
+        materialize by pk (retractable) or into a ring (EOWC output is
+        final append-only rows)."""
         has_topn = bool(select.order_by and select.limit is not None)
         pool = max(self.config.topn_pool_size,
                    2 * self.config.chunk_capacity)
@@ -1182,6 +1227,20 @@ class Planner:
                 offset=select.offset or 0, pool_size=pool,
                 emit_capacity=self.config.topn_emit_capacity,
                 append_only=input_append_only and not has_agg))
+        if sink is not None:
+            from risingwave_tpu_torch.stream.sink import SinkExecutor
+
+            # the MV-pk bookkeeping columns must not leak to the sink
+            visible = [i for i, f in enumerate(out_schema)
+                       if not f.name.startswith("_hidden_")]
+            if len(visible) != len(out_schema):
+                execs.append(ProjectExecutor(
+                    out_schema,
+                    [(out_schema[i].name, InputRef(i)) for i in visible]))
+                out_schema = execs[-1].out_schema
+            execs.append(SinkExecutor(out_schema, sink,
+                                      ring_size=self.config.mv_ring_size))
+            return
         if (has_agg or has_topn or not input_append_only) and not eowc:
             # pk: group keys for aggs; the whole row for TopN output
             pk = list(range(len(out_schema))) if has_topn \

@@ -267,7 +267,9 @@ def gather_plan(dirty: np.ndarray, nblocks, sizes, esizes, block: int):
     elems = np.clip(sizes[leaf] - start, 0, block)
     nbytes = elems * esizes[leaf]
     padded = (nbytes + 15) // 16 * 16
-    dst = np.concatenate([[0], np.cumsum(padded)[:-1]]).astype(np.int64)
+    # (a delta with no dirty block has no entries: a barrier that
+    # changed no state)
+    dst = np.concatenate([[0], np.cumsum(padded)])[:len(g)].astype(np.int64)
     entries = np.stack([(leaf << 32) | b, dst], axis=1).astype(np.int64)
     runs = []
     if len(g):

@@ -20,8 +20,16 @@ sends the drained changelog on through ``_propagate``): at every snapshot
 barrier one host read of the fill counts decides which rings
 drain into their host tier (``stream/spill.py``), whose changelog then
 runs through the rest of the aggregation's node and downstream.
-Backfill, topology changes, MV taps, staged plans, the mesh and sinks
-are not ported.  One scheduling difference keeps the reference's states:
+Topology changes (``add_source`` :227, ``remove_sources`` :233,
+``add_nodes`` :242, ``remove_nodes`` :269, which leaves ``None`` in the
+node list and the state tree, and ``reseed_checkpoint`` :294 with
+``_snapshot_and_save`` :302) let the engine attach cascaded MVs and sinks
+to a running job and drop them again; ``backfill_node`` (:1449, run
+eagerly) replays the upstream MV's current rows through a new node; and
+``_commit_checkpoint`` delivers the sinks (``_deliver_all_sinks`` :1192)
+before the snapshot, or on the uploads' ack when the uploader is behind.
+Staged plans and the mesh are not ported.  One scheduling difference
+keeps the reference's states:
 a table reader read only by temporal joins' build sides, with nothing
 pending, is not pulled; the empty chunk it would return changes nothing
 but the join's overflow copy, which ``apply_idle_right`` makes.
@@ -72,6 +80,7 @@ from risingwave_tpu_torch.stream.runtime import (
     CheckpointPipelineMixin,
     CheckpointSnapshot,
     check_counter_values,
+    deliver_sinks,
     restore_source,
 )
 from risingwave_tpu_torch.stream.watermark import WatermarkFilterExecutor
@@ -127,7 +136,7 @@ class DagJob(CheckpointPipelineMixin):
 
     def __init__(self, sources: dict[str, Any], nodes: list,
                  name: str = "dag_job", checkpoint_frequency: int = 1,
-                 device=None, checkpoint_store=None):
+                 device=None, checkpoint_store=None, states=None):
         self.sources = dict(sources)
         self.nodes: list = list(nodes)
         self.name = name
@@ -138,7 +147,8 @@ class DagJob(CheckpointPipelineMixin):
         self._ckpts_since_maintain = 0
         self.snapshot_interval = 1
         self._ckpts_since_snapshot = 0
-        self.states = self._init_states()
+        #: ``states`` adopts an existing state tree (a job upgraded in place)
+        self.states = self._init_states() if states is None else states
         self.epoch = EpochPair.first()
         self.barriers_seen = 0
         self.checkpoints: list[CheckpointSnapshot] = []
@@ -158,14 +168,23 @@ class DagJob(CheckpointPipelineMixin):
         #: host reads of the spill rings' fill counts
         self.spill_reads = 0
         # one host tier per spill-enabled aggregation, keyed (node, exec)
-        self._init_spill_tiers([
-            ((idx, j), f"{idx}_{j}", ex)
-            for idx, node in enumerate(self.nodes)
-            if isinstance(node, FragNode)
-            for j, ex in enumerate(node.fragment.executors)
-            if getattr(ex, "spill_ring", 0)])
+        self._init_spill_tiers(self._spill_sites())
+        self._rebuild()
+
+    def _spill_sites(self) -> list:
+        return [((idx, j), f"{idx}_{j}", ex)
+                for idx, node in enumerate(self.nodes)
+                if isinstance(node, FragNode)
+                for j, ex in enumerate(node.fragment.executors)
+                if getattr(ex, "spill_ring", 0)]
+
+    def _rebuild(self) -> None:
+        """Recompute the consumer map, the pulls and the idle build
+        readers (after any topology change; a removed node is None)."""
         self._consumers: dict[Ref, list[int]] = {}
         for idx, node in enumerate(self.nodes):
+            if node is None:
+                continue
             refs = [node.input] if isinstance(node, FragNode) \
                 else [node.left, node.right]
             for ref in refs:
@@ -188,7 +207,8 @@ class DagJob(CheckpointPipelineMixin):
                 self._idle_builds[name] = users
 
     def _init_states(self):
-        return tuple(n.init_state(self.device) for n in self.nodes)
+        return tuple(None if n is None else n.init_state(self.device)
+                     for n in self.nodes)
 
     def _validate_ref(self, ref: Ref, at: int) -> None:
         kind, key = ref
@@ -197,9 +217,9 @@ class DagJob(CheckpointPipelineMixin):
                 raise ValueError(f"node {at} references unknown source "
                                  f"{key!r}")
         elif kind == "node":
-            if not 0 <= key < at:
+            if not 0 <= key < at or self.nodes[key] is None:
                 raise ValueError(f"node {at} must reference an earlier "
-                                 f"node, got {key}")
+                                 f"live node, got {key}")
         else:
             raise ValueError(f"bad ref {ref!r}")
 
@@ -472,6 +492,8 @@ class DagJob(CheckpointPipelineMixin):
                 if sub is not None:
                     vals.append(sub)
                 continue
+            if node is None:
+                continue
             jstate = new_states[idx]
             if isinstance(node, SideNode):
                 for attr in COUNTER_ATTRS:
@@ -525,7 +547,7 @@ class DagJob(CheckpointPipelineMixin):
         for idx, node in enumerate(self.nodes):
             if isinstance(node, FragNode):
                 new_states[idx] = node.fragment.maintain(new_states[idx])
-            elif not isinstance(node, FilterNode):
+            elif node is not None and not isinstance(node, FilterNode):
                 new_states[idx] = node.join.maybe_rehash(new_states[idx])
         return tuple(new_states)
 
@@ -549,12 +571,119 @@ class DagJob(CheckpointPipelineMixin):
         return {name: (src.state() if hasattr(src, "state") else {})
                 for name, src in self.sources.items()}
 
+    def _deliver_all_sinks(self, epoch_val) -> None:
+        new_states = list(self.states)
+        for idx, node in enumerate(self.nodes):
+            if isinstance(node, FragNode):
+                new_states[idx] = deliver_sinks(node.fragment,
+                                                new_states[idx], epoch_val)
+        self.states = tuple(new_states)
+
     def _commit_checkpoint(self, sealed) -> None:
-        """Drain the spill rings into their tiers, then seal the epoch
-        with the readers' cursors and the tiers' states."""
+        """Drain the spill rings into their tiers, deliver the sinks (or
+        defer them to the uploads' ack), then seal the epoch with the
+        readers' cursors and the tiers' states."""
         self._drain_spill_tiers(sealed)
-        self._snapshot_commit(sealed, self._source_states(),
+        self._deliver_or_defer(sealed)
+        self._snapshot_and_save(sealed)
+
+    def _snapshot_and_save(self, epoch: int) -> None:
+        """The checkpoint tail shared by the barrier commit and the
+        topology reseed: the shadow update and the durable upload."""
+        self._snapshot_commit(epoch, self._source_states(),
                               *self._spill_snapshot())
+
+    # -- topology changes -------------------------------------------------
+    def add_source(self, name: str, reader) -> None:
+        if name in self.sources:
+            raise ValueError(f"source {name!r} already attached")
+        self.sources[name] = reader
+        self._rebuild()
+
+    def remove_sources(self, names: list[str]) -> None:
+        """Detach sources (a dropped MV's private readers).  Refuses
+        while any live node still consumes one."""
+        for name in names:
+            if self._consumers.get(("source", name)):
+                raise ValueError(f"source {name!r} still has consumers")
+            self.sources.pop(name, None)
+        self._rebuild()
+
+    def add_nodes(self, nodes: list) -> list[int]:
+        """Attach new nodes (a cascaded MV's or a sink's fragment);
+        returns their ids.  Existing states are kept; the new nodes start
+        empty, and callers backfill them (``backfill_node``)."""
+        ids = []
+        states = list(self.states)
+        for n in nodes:
+            self.nodes.append(n)
+            states.append(n.init_state(self.device))
+            ids.append(len(self.nodes) - 1)
+        self.states = tuple(states)
+        self._sync_spill_tiers()
+        self._rebuild()
+        return ids
+
+    def remove_nodes(self, ids: list[int]) -> None:
+        """Tombstone nodes (a dropped MV or sink).  Refuses while live
+        consumers remain, as the reference rejects dropping an MV with
+        dependents."""
+        drop = set(ids)
+        for idx, node in enumerate(self.nodes):
+            if node is None or idx in drop:
+                continue
+            refs = [node.input] if isinstance(node, FragNode) \
+                else [node.left, node.right]
+            for kind, key in refs:
+                if kind == "node" and key in drop:
+                    raise ValueError(f"node {key} still feeds node {idx} "
+                                     "(drop dependents first)")
+        states = list(self.states)
+        for i in drop:
+            self.nodes[i] = None
+            states[i] = None
+        self.states = tuple(states)
+        self._sync_spill_tiers()
+        self._rebuild()
+
+    def _sync_spill_tiers(self) -> None:
+        """A tier for every spill-enabled aggregation of a new node; the
+        tiers of removed nodes go."""
+        sites = {key: (suffix, ex) for key, suffix, ex in self._spill_sites()}
+        for key in [k for k in self._spill_tiers if k not in sites]:
+            del self._spill_tiers[key]
+        for key, (suffix, ex) in sites.items():
+            if key not in self._spill_tiers:
+                self._spill_tiers[key] = (suffix, self._spill_tier(ex))
+
+    def reseed_checkpoint(self) -> None:
+        """Re-snapshot after a topology change: the retained checkpoints
+        hold the old state tree (and the old source names), so a recover
+        before the next commit would restore a tree that no longer fits.
+        The shadow re-bases (the tree changed shape) and, with a store,
+        the epoch is saved again in full."""
+        self._snapshot_and_save(self.committed_epoch)
+
+    # -- backfill -----------------------------------------------------------
+    def backfill_node(self, node_id: int, chunks,
+                      side: str | None = None) -> None:
+        """Feed snapshot chunks through ONE node and everything
+        downstream of it (a freshly attached cascade consuming the
+        upstream MV's current rows, the reference's :1449 with
+        arrangement backfill collapsed to a snapshot replay); ``side``
+        names a join node's side.  The chunk's columns are the upstream
+        MV's own stores: nothing here writes them."""
+        for chunk in chunks:
+            new_states = list(self.states)
+            node = self.nodes[node_id]
+            if isinstance(node, FragNode):
+                new_states[node_id], out = node.fragment.step(
+                    new_states[node_id], chunk)
+                if out is not None:
+                    self._propagate(new_states, [(("node", node_id), out)])
+            else:
+                self._apply_join_windowed(new_states, node_id, chunk, side)
+            self.states = tuple(new_states)
 
     # the spill drain's view of a node: its states and executors, and
     # the drained changelog's way downstream

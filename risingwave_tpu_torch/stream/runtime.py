@@ -23,7 +23,13 @@ rings into their host tiers (one host read of the fill counts, in
 ``StreamingJob`` and ``DagJob``); each snapshot carries host copies of
 the tiers (``CheckpointSnapshot.spill``), the uploader saves them first
 under their own store keys, and ``rewind_spill_tier`` rewinds a tier
-on a durable recover.  Sinks are not ported.
+on a durable recover.  Sinks deliver at the same commit
+(``deliver_sinks``, the reference's :303): a snapshot barrier drains
+every ``SinkExecutor``'s new rows to its connector before the shadow
+update, so the advanced ``read_cursor`` rides that epoch's snapshot; with
+a checkpoint store this happens only when the uploader is idle, else the
+delivery waits for the uploads' ack (``_sinks_due``, the reference's
+:129-141 and :559-583).
 """
 
 from __future__ import annotations
@@ -81,6 +87,8 @@ class CheckpointPipelineMixin:
         self.stall_seconds = 0.0
         self._shadow = None
         self._uploader = None
+        #: sink delivery deferred to the upload ack (uploader was busy)
+        self._sinks_due = False
 
     @property
     def ckpt_key(self) -> str:
@@ -97,13 +105,27 @@ class CheckpointPipelineMixin:
         return self._uploader
 
     def _process_upload_acks(self) -> None:
-        """Cheap ack poll (no device work): advances committed_epoch."""
+        """Cheap ack poll (no device work): advances committed_epoch
+        and runs a deferred sink delivery once the queue is empty."""
         up = self._uploader
         if up is None:
             return
         acked = up.take_acked()
         if acked:
             self.committed_epoch = max(self.committed_epoch, acked[-1])
+        if self._sinks_due and up.pending() == 0 \
+                and self.committed_epoch > 0:
+            self._sinks_due = False
+            self._deliver_all_sinks(self.committed_epoch)
+
+    def _deliver_or_defer(self, epoch_val) -> None:
+        """A snapshot barrier's sink delivery: now when the uploader is
+        idle (or there is no store), else on the uploads' ack."""
+        up = self._ensure_uploader()
+        if up is None or up.pending() == 0:
+            self._deliver_all_sinks(epoch_val)
+        else:
+            self._sinks_due = True
 
     def upload_queue_depth(self) -> int:
         return 0 if self._uploader is None else self._uploader.pending()
@@ -173,12 +195,16 @@ class CheckpointPipelineMixin:
     def _init_spill_tiers(self, sites) -> None:
         """One host tier per spill-enabled aggregation; ``sites`` are
         ``((node, executor index), store-key suffix, executor)``."""
+        self._spill_tiers = {key: (suffix, self._spill_tier(ex))
+                             for key, suffix, ex in sites}
+
+    @staticmethod
+    def _spill_tier(ex):
+        """A host tier for the spill-enabled aggregation ``ex``."""
         from risingwave_tpu_torch.stream.spill import AggSpillTier
 
-        self._spill_tiers = {
-            key: (suffix, AggSpillTier(
-                ex, getattr(ex, "spill_table_size", ex.table_size * 8)))
-            for key, suffix, ex in sites}
+        return AggSpillTier(ex, getattr(ex, "spill_table_size",
+                                        ex.table_size * 8))
 
     def _spill_key(self, suffix) -> str:
         return f"{self.ckpt_key}@spill{suffix}"
@@ -250,6 +276,7 @@ class CheckpointPipelineMixin:
             self._uploader.drain(raise_error=False)
             self._process_upload_acks()
             self._uploader.clear_error()
+            self._sinks_due = False
         if self.checkpoint_store is None:
             return None
         # any rewind invalidates the digest cache: the next save re-bases
@@ -301,6 +328,16 @@ def rewind_spill_tier(store, key: str, epoch: int, tier) -> None:
         tier.restore(loaded[1])
     else:
         tier.reset()
+
+
+def deliver_sinks(fragment: Fragment, states, epoch_val):
+    """Drain the fragment's sink rings to their connectors (the host
+    barrier hook; a device-to-host read, on the snapshot cadence only)."""
+    states = list(states)
+    for i, ex in enumerate(fragment.executors):
+        if hasattr(ex, "deliver"):
+            states[i] = ex.deliver(states[i], epoch_val)
+    return tuple(states)
 
 
 def restore_source(source, state: dict) -> None:
@@ -408,15 +445,20 @@ class StreamingJob(CheckpointPipelineMixin):
     def _spill_downstream(self, node, states, out) -> None:
         self.states = states
 
+    def _deliver_all_sinks(self, epoch_val) -> None:
+        self.states = deliver_sinks(self.fragment, self.states, epoch_val)
+
     def _commit_checkpoint(self, barrier: Barrier) -> None:
         """Every ``snapshot_interval`` checkpoints: drain the spill rings,
-        then seal the epoch."""
+        deliver the sinks (or defer them to the ack), then seal the
+        epoch."""
         epoch_val = barrier.epoch.prev.value
         self._ckpts_since_snapshot += 1
         if self._ckpts_since_snapshot < self.snapshot_interval:
             return
         self._ckpts_since_snapshot = 0
         self._drain_spill_tiers(epoch_val)
+        self._deliver_or_defer(epoch_val)
         src_state = self.source.state() if hasattr(self.source, "state") \
             else {}
         self._snapshot_commit(epoch_val, src_state, *self._spill_snapshot())

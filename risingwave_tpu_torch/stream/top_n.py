@@ -5,7 +5,8 @@ Port of ``risingwave_tpu/stream/top_n.py``: ``_order_key`` (:49),
 ``schema_protos`` (:96-131), ``pool_apply`` (:134) and of
 ``GroupTopNExecutor`` (:194) ``init_state``, ``apply``, ``_band_mask``
 (:295), ``flush`` (:337), ``on_watermark`` (:406) and ``clean_below``
-(:418).
+(:418); and ``AppendOnlyDedupExecutor`` (:441, K19b: composed of K1, K3
+and the K4 sweep, no kernel of its own).
 
 State is a pool of ``pool_size`` rows (one store per input column) with
 validity and a row hash, plus the band emitted at the last barrier:
@@ -81,6 +82,7 @@ from risingwave_tpu_torch.common.hash import (
 )
 from risingwave_tpu_torch.common.types import DataType, Field, Schema
 from risingwave_tpu_torch.expr.node import Expr
+from risingwave_tpu_torch.state.hash_table import HashTable
 from risingwave_tpu_torch.stream.executor import Executor
 from risingwave_tpu_torch.stream.hash_join import _group_totals, _rank_by
 
@@ -896,3 +898,87 @@ class GroupTopNExecutor(Executor):
         clean_below(state.rows[col_idx], state.valid,
                     state.prev_rows[col_idx], state.prev_valid, threshold)
         return state
+
+
+# ---------------------------------------------------------------------------
+# K19b: the append-only dedup
+
+
+class DedupState(NamedTuple):
+    table: HashTable
+    overflow: torch.Tensor  # int64: rows wrongly dropped (the table filled)
+
+
+class AppendOnlyDedupExecutor(Executor):
+    """Drop rows whose key was already seen (the reference's, :441; ref
+    dedup/append_only_dedup.rs).
+
+    A ``HashTable`` of seen keys: the chunk keeps only the rows that
+    freshly inserted their key (K1 and K3's ``lookup_or_insert``, which
+    also drops a key's later rows within the chunk).  Overflowed rows are
+    counted, and maintenance raises on them.  With ``watermark_key_idx``
+    set, a watermark evicts the keys of closed windows through
+    ``clear_where`` (the K4 sweep).  The reference's ``maybe_rehash`` is a
+    ``lax.cond`` on the device tombstone count; here it is a threshold and
+    one host read at maintenance (the port's rule for a ``lax.cond``), and
+    the rebuild is ``HashTable.rehashed`` (K1 and K3 over the live keys:
+    no value column moves, so K4's permute has nothing to do).  No planner
+    builds it."""
+
+    emits_on_apply = True
+    emits_on_flush = False
+
+    def __init__(self, in_schema: Schema, key_exprs: Sequence[Expr],
+                 table_size: int = 1 << 16,
+                 watermark_key_idx: int | None = None,
+                 watermark_lag: int = 0,
+                 watermark_src_col: int | None = None):
+        super().__init__(in_schema)
+        self.key_exprs = tuple(key_exprs)
+        self.table_size = table_size
+        self.watermark_key_idx = watermark_key_idx
+        self.watermark_lag = watermark_lag
+        self.watermark_src_col = watermark_src_col
+
+    def init_state(self, device) -> DedupState:
+        protos = []
+        for e in self.key_exprs:
+            f = e.return_field(self.in_schema)
+            if f.data_type.is_string:
+                protos.append(StrCol(
+                    torch.zeros((1, f.str_width), dtype=torch.uint8,
+                                device=device),
+                    torch.zeros(1, dtype=torch.int32, device=device)))
+            else:
+                protos.append(torch.zeros(1, dtype=f.data_type.physical_dtype,
+                                          device=device))
+        return DedupState(HashTable.create(protos, self.table_size, device),
+                          torch.zeros((), dtype=torch.int64, device=device))
+
+    def apply(self, state: DedupState, chunk: Chunk):
+        key_cols = [e.eval(chunk) for e in self.key_exprs]
+        table, _, inserted, overflow = state.table.lookup_or_insert(
+            key_cols, chunk.valid)
+        n_over = (overflow & chunk.valid).sum(dtype=torch.int64)
+        # only the rows that inserted a fresh key survive
+        return DedupState(table, state.overflow + n_over), \
+            chunk.mask(inserted)
+
+    def on_watermark(self, state: DedupState, watermark):
+        if self.watermark_key_idx is None:
+            return state
+        if (self.watermark_src_col is not None
+                and watermark.col_idx != self.watermark_src_col):
+            return state
+        key = state.table.key_cols[self.watermark_key_idx]
+        stale = state.table.occupied & (
+            key < watermark.value - self.watermark_lag)
+        return DedupState(state.table.clear_where(stale), state.overflow)
+
+    def maybe_rehash(self, state: DedupState) -> DedupState:
+        """Rebuild the table once tombstones exceed a quarter of it (one
+        host read of the tombstone count)."""
+        if int(state.table.tombstone_count()) <= self.table_size // 4:
+            return state
+        fresh, _ = state.table.rehashed()
+        return DedupState(fresh, state.overflow)

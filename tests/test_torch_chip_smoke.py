@@ -5,6 +5,7 @@ without a card or outside a checkout, and its ``--rehearse`` mode must
 run every phase through the plain versions on the CPU.
 """
 
+import json
 import shutil
 import subprocess
 import sys
@@ -113,6 +114,39 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[check] q5_max MV equals numpy",
                 "[check] q7_eowc ring equals numpy",
                 "[check] person_states MV equals numpy",
-                "one index_select over leaf"):
+                "one index_select over leaf",
+                "[sink_ring] exact (every leaf kind across a ring wrap",
+                "[append_only_dedup] K19b on the card equals a CPU copy",
+                "[check] q1_sink ring rows and ops equal numpy q1",
+                "[check] q5_cascade MV equals numpy",
+                "[check] q5_cascade drops: DROP MATERIALIZED VIEW q5 "
+                "refused",
+                "[check] q5_cascade durable restarted MV equals numpy",
+                "[cold start] q5_cascade durable",
+                "[check] dedup_sink ring holds exactly the first bid",
+                "[check] dedup_sink: the watermark's K4 sweep ran",
+                "[main] q5_cascade T = ", "[main] dedup_sink deliver: "):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout
+    line = next(x for x in out.stdout.splitlines()
+                if x.startswith('{"kernels"'))
+    names = {k["name"] for k in json.loads(line)["kernels"]}
+    assert {"sink_ring", "append_only_dedup"} <= names
+
+
+def test_sink_paths_are_wired():
+    """The slice's four paths and their kernels (K22b, and K19b's K1, K3
+    and K4 sweep) are in the script's tables; nothing runs."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from risingwave_tpu_torch import kernels
+
+    assert chip_smoke.SINK_PATHS == ("q1_sink", "q5_cascade",
+                                     "q5_cascade durable", "dedup_sink")
+    for path in chip_smoke.SINK_PATHS:
+        assert "sink_ring" in chip_smoke.SINK_PATH_KERNELS[path]
+        assert set(chip_smoke.SINK_PATH_KERNELS[path]) <= set(kernels.KERNELS)
+    assert {"hash64", "probe", "table_sweep"} <= set(
+        chip_smoke.SINK_PATH_KERNELS["dedup_sink"])
+    assert kernels.KERNELS["sink_ring"] == "sink_ring"
+    assert kernels.SOURCES["sink_ring"] == "sink_ring.cu"

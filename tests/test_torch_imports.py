@@ -51,7 +51,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
         "'risingwave_tpu_torch.stream.spill', "
         "'risingwave_tpu_torch.connector.dml', "
         "'risingwave_tpu_torch.stream.temporal_join', "
-        "'risingwave_tpu_torch.slt'}\n"
+        "'risingwave_tpu_torch.slt', "
+        "'risingwave_tpu_torch.stream.sink', "
+        "'risingwave_tpu_torch.connector.sinks'}\n"
         "assert new <= set(mods), new - set(mods)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

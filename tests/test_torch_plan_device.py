@@ -293,3 +293,81 @@ def test_engine_refuses_at_create_on_its_device(engine):
     finally:
         engine.planner.device = engine.planner.device.__class__("cpu")
     assert len(engine.jobs) == n and "r" not in engine.catalog
+
+
+#: the reference's sink and cascade PlanErrors, word for word
+#: (planner.py:949-951, :866-869), for the CPU and for CUDA
+SINK_ERRORS = {
+    "window_function_sink": (
+        "SELECT auction, row_number() OVER (PARTITION BY auction ORDER BY "
+        "date_time) AS rn FROM bid", True,
+        "window functions with sinks/EOWC: next round"),
+    "from_a_sink": ("SELECT k FROM s_blackhole", False,
+                    "s_blackhole is not a streaming source or materialized "
+                    "view"),
+}
+
+
+@pytest.fixture(scope="module")
+def sink_engine():
+    eng = Engine(PlannerConfig(chunk_capacity=64), device="cpu")
+    eng.execute(SOURCES.format(rate="1000000"))
+    eng.execute(GEN)
+    eng.execute("CREATE SINK s_blackhole AS SELECT k FROM t WHERE k > 0 "
+                "WITH (connector = 'blackhole');")
+    eng.execute("CREATE MATERIALIZED VIEW q5 AS SELECT auction, "
+                "window_start, count(*) AS bids FROM HOP(bid, date_time, "
+                "INTERVAL '2' SECOND, INTERVAL '10' SECOND) GROUP BY "
+                "auction, window_start;")
+    return eng
+
+
+@pytest.mark.parametrize("case", sorted(SINK_ERRORS))
+def test_sink_and_cascade_plan_errors(sink_engine, case):
+    from risingwave_tpu_torch.connector.sinks import BlackholeSink
+
+    sql, to_sink, words = SINK_ERRORS[case]
+    for device in ("cpu", "cuda"):
+        planner = Planner(sink_engine.catalog, sink_engine.config, device)
+        with pytest.raises(PlanError, match=words):
+            planner.plan(_select(sql),
+                         sink=BlackholeSink() if to_sink else None)
+
+
+def test_cuda_sink_refusal(sink_engine):
+    """K22b takes 16 value leaves: a sink of w's 19 (a string is two)
+    plans for the CPU and is refused for CUDA; the sink tail projects the
+    hidden stream-key columns away."""
+    from risingwave_tpu_torch.connector.sinks import BlackholeSink
+
+    select = _select("SELECT * FROM w")
+    Planner(sink_engine.catalog, sink_engine.config, "cpu").plan(
+        select, sink=BlackholeSink())
+    with pytest.raises(PlanError, match="a sink row of 19 value leaves "
+                       r"\(K22b takes 16\) \(on CUDA; the CPU runs it\)"):
+        Planner(sink_engine.catalog, sink_engine.config, "cuda").plan(
+            select, sink=BlackholeSink())
+    plan = Planner(sink_engine.catalog, sink_engine.config, "cuda").plan(
+        _select("SELECT auction, bids FROM q5 WHERE bids > 3"),
+        sink=BlackholeSink())
+    names = [type(x).__name__ for x in plan.nodes[0].fragment.executors]
+    assert names == ["FilterExecutor", "ProjectExecutor", "ProjectExecutor",
+                     "SinkExecutor"]
+    assert plan.nodes[0].fragment.executors[-1].in_schema.names() == \
+        ["auction", "bids"]
+
+
+def test_cuda_plans_a_cascade(sink_engine):
+    """An MV over an MV plans for CUDA as the reference's cascade: one
+    fragment node on an ``MvTap``, retractable because q5 is (keyed by
+    q5's stream key), into an MV."""
+    from risingwave_tpu_torch.sql.planner import DagPlan, MvTap
+
+    plan = Planner(sink_engine.catalog, sink_engine.config, "cuda").plan(
+        _select("SELECT auction, window_start, bids FROM q5 WHERE bids >= 3"))
+    assert isinstance(plan, DagPlan)
+    assert plan.sources == {"q5": MvTap("q5")}
+    assert plan.nodes[0].input == ("source", "q5")
+    mv = plan.nodes[0].fragment.executors[plan.mv_index]
+    assert type(mv).__name__ == "MaterializeExecutor"
+    assert mv.pk_indices == (0, 1)
