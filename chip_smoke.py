@@ -143,7 +143,17 @@
    equals numpy's first bid per pair; the watermark's sweep and the
    rehash must run), each with rows/s, launches, busy share, K22b's
    profiled ms and bound, ``deliver``'s host ms and the backfills' ms;
-8. prints the ``kernels`` JSON line, the card's name and power limit,
+8. holds K22c (the partial aggregation), K2 (the vnode hash, its CRC
+   also against ``zlib.crc32``) and K24 (the hash exchange) against their
+   plain versions on edge-case chunks (every key and argument kind,
+   retractions, NULLs, invalid rows) and on one chunk round of bench's q5
+   and q7 over 4 lanes (every plane of every lane, exact); then runs q5
+   and q7 sharded over 4 lanes through SQL (``Engine(..., lanes=4)``,
+   ``SET streaming_parallelism = 4``) at bench.py's sizes with launch
+   counters, each MV against numpy and against the port's linear run over
+   the same bids, and both durably with a cold start checked tensor for
+   tensor against the engine that never stopped;
+9. prints the ``kernels`` JSON line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ok line.  Without a GPU, or
@@ -457,6 +467,7 @@ def main() -> int:
     results.update(phase_slice11_kernels(torch, device, timer, scale))
     sink_kernels = phase_sink_kernels(torch, device, timer, scale)
     results["sink_ring"] = sink_kernels["sink_ring"]
+    results.update(phase_shard_kernels(torch, device, timer, scale))
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -573,6 +584,9 @@ def main() -> int:
     # -- 7. sinks, cascades, SHOW/DROP and the dedup ----------------------
     sink_runs = run_sink_paths(torch, device, scale, results)
 
+    # -- 8. vnode-sharded q5 and q7 over 4 lanes --------------------------
+    shard_runs = run_sharded_paths(torch, device, scale, results)
+
     line = {"kernels": [dict(name=name, **r) for name, r in results.items()]}
     print(json.dumps(line))
     if device.type != "cuda":
@@ -597,6 +611,11 @@ def main() -> int:
         if "recover_s" in info:
             extra += f", cold start {info['recover_s']:.3f} s"
         print(f"[main] {path} rows/s {rate:.0f}{extra}")
+    for path, (rate, info) in shard_runs.items():
+        extra = f", cold start {info['recover_s']:.3f} s" \
+            if "recover_s" in info else ""
+        print(f"[main] {path} rows/s {rate:.0f} on {SHARD_LANES} lanes"
+              f"{extra}")
     print(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1296,7 +1315,7 @@ def profile_window(torch, eng, query: str, barriers: int = 2,
               f"{e.key[:100]}", flush=True)
 
     job = eng.jobs[0]
-    if not hasattr(job, "source") or not hasattr(job.source, "gen"):
+    if not hasattr(job, "fragment") or not hasattr(job.source, "gen"):
         return n_kern / chunks
     # launches by layer for one chunk (the step runs on a clone: the
     # job's own state must stay as the timed run left it)
@@ -1410,18 +1429,20 @@ def phase_main_path(torch, device, scale, query: str):
     eng.execute(QUERY_SQL[query])
     eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
     eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
-    eng.tick(barriers=WARMUP_BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    eng.tick(barriers=WARMUP_BARRIERS if device.type == "cuda" else 1,
+             chunks_per_barrier=CHUNKS_PER_BARRIER)
     if device.type == "cuda":
         torch.cuda.synchronize()
     kernels.reset_launches()
+    barriers = BARRIERS if device.type == "cuda" else 2
     t0 = time.perf_counter()
-    eng.tick(barriers=BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     cap = cfg["chunk_capacity"]
-    chunks = BARRIERS * CHUNKS_PER_BARRIER
+    chunks = barriers * CHUNKS_PER_BARRIER
     rows = chunks * cap
     rate = rows / dt
     print(f"[main] {query} {rows} rows in {dt:.3f} s = {rate:.0f} rows/s; "
@@ -1936,7 +1957,8 @@ def phase_q8_main_path(torch, device, scale):
     over the timed window."""
     from risingwave_tpu_torch import kernels
 
-    eng = _q8_engine(torch, device, scale, WARMUP_BARRIERS)
+    eng = _q8_engine(torch, device, scale,
+                     WARMUP_BARRIERS if device.type == "cuda" else 1)
     job = eng.jobs[0]
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -1944,14 +1966,15 @@ def phase_q8_main_path(torch, device, scale):
     reads0 = (job.window_reads, job.barrier_reads)
     fired0 = dict(job.rehash_fired)
     rows0 = eng.metrics.get("stream_rows_total", job="bench_mv")
+    barriers = BARRIERS if device.type == "cuda" else 2
     t0 = time.perf_counter()
-    eng.tick(barriers=BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     cap = job.sources["p"].cap
-    chunks = BARRIERS * CHUNKS_PER_BARRIER * 4
+    chunks = barriers * CHUNKS_PER_BARRIER * 4
     rows = chunks * cap
     counted = eng.metrics.get("stream_rows_total", job="bench_mv") - rows0
     if counted != rows:
@@ -2002,7 +2025,8 @@ def phase_state_kernels(torch, device, timer, scale):
     )
     from risingwave_tpu_torch.storage import digest as dg
 
-    eng = _q8_engine(torch, device, scale, WARMUP_BARRIERS)
+    eng = _q8_engine(torch, device, scale,
+                     WARMUP_BARRIERS if device.type == "cuda" else 1)
     job = eng.jobs[0]
     block = dg.DEFAULT_BLOCK_ELEMS
 
@@ -2471,7 +2495,8 @@ def phase_topn_kernels(torch, device, timer, scale):
         mv_upsert_cuda, mv_upsert_plain)
 
     cuda = device.type == "cuda"
-    eng = _topn_engine(torch, device, scale, "q19", WARMUP_BARRIERS)
+    eng = _topn_engine(torch, device, scale, "q19",
+                       WARMUP_BARRIERS if device.type == "cuda" else 1)
     job = eng.jobs[0]
     ti = _topn_index(eng)
     tex = job.fragment.executors[ti]
@@ -2858,18 +2883,20 @@ def phase_topn_main_path(torch, device, scale, query: str):
         return band, ranks
 
     tex._band_mask = recorded
-    eng.tick(barriers=WARMUP_BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    eng.tick(barriers=WARMUP_BARRIERS if device.type == "cuda" else 1,
+             chunks_per_barrier=CHUNKS_PER_BARRIER)
     if device.type == "cuda":
         torch.cuda.synchronize()
     kernels.reset_launches()
+    barriers = BARRIERS if device.type == "cuda" else 2
     t0 = time.perf_counter()
-    eng.tick(barriers=BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     cap = eng.jobs[0].source.cap
-    chunks = BARRIERS * CHUNKS_PER_BARRIER
+    chunks = barriers * CHUNKS_PER_BARRIER
     rows = chunks * cap
     rate = rows / dt
     port = sum(launches.values())
@@ -3088,7 +3115,8 @@ def phase_window_kernels(torch, device, timer, scale):
 
     # -- q6_bid's state: the next barrier through the top-N, then K16 on
     # the over-window's input (the top-N's [2E] flush chunk) ----------------
-    eng = _window_engine(torch, device, scale, "q6_bid", WARMUP_BARRIERS)
+    eng = _window_engine(torch, device, scale, "q6_bid",
+                         WARMUP_BARRIERS if device.type == "cuda" else 1)
     job = eng.jobs[0]
     oi = _executor_index(eng, "OverWindowExecutor")
     tix = _executor_index(eng, "GroupTopNExecutor")
@@ -3497,18 +3525,20 @@ def phase_window_main_path(torch, device, scale, query: str):
             return band, ranks
 
         tex._band_mask = banded
-    eng.tick(barriers=WARMUP_BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    eng.tick(barriers=WARMUP_BARRIERS if device.type == "cuda" else 1,
+             chunks_per_barrier=CHUNKS_PER_BARRIER)
     if device.type == "cuda":
         torch.cuda.synchronize()
     kernels.reset_launches()
+    barriers = BARRIERS if device.type == "cuda" else 2
     t0 = time.perf_counter()
-    eng.tick(barriers=BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     cap = job.source.cap
-    chunks = BARRIERS * CHUNKS_PER_BARRIER
+    chunks = barriers * CHUNKS_PER_BARRIER
     rows = chunks * cap
     rate = rows / dt
     port = sum(launches.values())
@@ -3595,7 +3625,8 @@ def phase_window_clean_path(torch, device, scale):
     ow = job.fragment.executors[oi]
     ts_col = ow.in_schema.index_of("date_time")
     ow.watermark_col_idx, ow.watermark_lag = ts_col, CLEAN_LAG_US
-    eng.tick(barriers=WARMUP_BARRIERS, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    eng.tick(barriers=WARMUP_BARRIERS if device.type == "cuda" else 1,
+             chunks_per_barrier=CHUNKS_PER_BARRIER)
     if device.type == "cuda":
         torch.cuda.synchronize()
     kernels.reset_launches()
@@ -8199,6 +8230,564 @@ def run_sink_paths(torch, device, scale, results) -> dict:
             d["launches_by_query"][path] = {
                 k: launches[k] for k in d["composed_of"]}
         missing = [k for k in SINK_PATH_KERNELS[path] if launches[k] <= 0]
+        if device.type == "cuda" and missing:
+            fail(f"{path}: kernels {missing} were not launched on the path")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# vnode-sharded aggregation: K2 (the vnode hash), K24 (the exchange), K22c
+# (the partial aggregation) over a mesh of lanes on the card
+
+#: lanes of the sharded engines (the parallelism that bench's q5 and q7 are
+#: sharded over)
+SHARD_LANES = 4
+SHARD_QUERIES = ("q5", "q7")
+SHARD_PATHS = ("q5 sharded", "q7 sharded", "q5 sharded durable",
+               "q7 sharded durable")
+#: the chain both queries plan as (the reference's, under parallelism 4)
+SHARD_CHAIN = ["WatermarkFilterExecutor", "HopWindowExecutor",
+               "PartialAggExecutor", "HashAggExecutor", "ProjectExecutor",
+               "MaterializeExecutor"]
+_SHARD_KERNELS = ("nexmark_bids", "hop_window", "hash64", "partial_agg",
+                  "crc32", "exchange", "agg_preagg", "probe", "agg_scatter",
+                  "mask_indices", "mv_upsert")
+SHARD_PATH_KERNELS = {
+    "q5 sharded": _SHARD_KERNELS,
+    "q7 sharded": _SHARD_KERNELS,
+    "q5 sharded durable": _SHARD_KERNELS + ("shadow_digest",),
+    "q7 sharded durable": _SHARD_KERNELS + ("shadow_digest",),
+}
+
+
+def _shard_config(scale: int) -> dict:
+    cfg = {k: v // scale for k, v in BENCH_CONFIG.items()}
+    cfg["mv_ring_size"] = (1 << 21) // scale
+    return cfg
+
+
+def _sharded_engine(torch, device, cfg, query: str, data_dir=None):
+    """bench's ``query`` under ``SET streaming_parallelism = 4`` on an
+    engine of ``SHARD_LANES`` lanes (a cold start when ``data_dir`` holds
+    a logged catalog)."""
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+    from risingwave_tpu_torch.stream.sharded import ShardedStreamingJob
+
+    eng = Engine(PlannerConfig(**cfg), data_dir=data_dir, device=device,
+                 lanes=SHARD_LANES)
+    if not eng.jobs:
+        eng.execute(BENCH_SOURCES)
+        eng.execute(f"SET streaming_parallelism = {SHARD_LANES}")
+        eng.execute(QUERY_SQL[query])
+        eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = "
+                    "1000000")
+        eng.execute("ALTER SYSTEM SET snapshot_interval_checkpoints = 8")
+    job = eng.jobs[0]
+    names = [type(e).__name__ for e in job.sharded.executors] \
+        if isinstance(job, ShardedStreamingJob) else None
+    if names != SHARD_CHAIN or job.sharded.n_shards != SHARD_LANES:
+        fail(f"{query} sharded: planned {type(job).__name__} {names}")
+    return eng
+
+
+def _shard_planes(c):
+    """Every plane of a chunk, in order (payloads, string bytes and
+    lengths, NULL planes, ops, valid)."""
+    from risingwave_tpu_torch.parallel.exchange import _chunk_leaves
+
+    return [t for t, _ in _chunk_leaves(c)]
+
+
+def _lane_partials(torch, eng):
+    """One chunk round of the engine's sharded job through its local half
+    on the card: every lane's partial aggregation input (the window's
+    output) and its K22c arguments."""
+    from risingwave_tpu_torch.common.chunk import conform_col
+    from risingwave_tpu_torch.stream.partial_agg import sort_order
+
+    job = eng.jobs[0]
+    sj, lanes = job.sharded, job.lanes
+    pa = sj.executors[sj.n_local - 1]
+    out = []
+    for s in range(sj.n_shards):
+        chunk = sj.source_fn(job.reader.next_base(), sj.cap)
+        for i, ex in enumerate(sj.executors[:sj.n_local - 1]):
+            st, chunk = ex.apply(lanes.views[s][i], chunk)
+        keys = [conform_col(e.eval(chunk), e.return_field(pa.in_schema)
+                            .nullable, chunk.capacity)
+                for _, e in pa.group_by]
+        args = [None if a.arg is None else a.arg.eval(chunk)
+                for a in pa.aggs]
+        nk = len(pa.group_by)
+        nullable = [pa.out_schema[nk + i].nullable
+                    for i in range(len(pa.aggs))]
+        out.append((pa, chunk, keys, args, [a.kind for a in pa.aggs],
+                    nullable, sort_order(keys, chunk.valid)))
+    return out
+
+
+def _bits(torch, t):
+    """A float tensor's bit pattern (NaN equals itself, -0.0 not +0.0)."""
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def _shard_edge_case(torch, device, cap: int, g):
+    """A chunk of every key and argument kind K2 and K22c take, on the card
+    and a CPU copy: int64 keys with duplicates, a nullable VARCHAR(8) with
+    random bytes past the lengths, int32, int16, bool and float64 keys
+    (NaN, -0.0, infinities, subnormals), nullable int64 / int32 / float64
+    arguments, ops of all four kinds, 10% invalid rows."""
+    from risingwave_tpu_torch.common.chunk import Chunk, NCol, StrCol
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+    from risingwave_tpu_torch.stream.spill import chunk_to
+
+    def f(name, t, nullable=False, w=None):
+        kw = {"str_width": w} if w else {}
+        return Field(name, t, nullable=nullable, **kw)
+
+    schema = Schema((f("g", DataType.INT64), f("s", DataType.VARCHAR, True, 8),
+                     f("h", DataType.INT32), f("t", DataType.INT16),
+                     f("b", DataType.BOOLEAN), f("k", DataType.FLOAT64),
+                     f("v", DataType.INT64, True), f("i", DataType.INT32, True),
+                     f("x", DataType.FLOAT64, True)))
+    grp = torch.randint(0, 50, (cap,), generator=g)
+    sb = torch.randint(0, 256, (cap, 8), generator=g, dtype=torch.uint8)
+    sb[:, :2] = (grp[:, None] % 5 + 65).to(torch.uint8)
+    sl = torch.randint(0, 3, (cap,), generator=g, dtype=torch.int32)
+    edge = torch.tensor([0.5, -0.0, 0.0, float("nan"), float("inf"),
+                         float("-inf"), 5e-324, 2.0], dtype=torch.float64)
+
+    def nulls(p):
+        return torch.rand(cap, generator=g) < p
+
+    cols = [grp.to(torch.int64), NCol(StrCol(sb, sl), nulls(0.2)),
+            (grp * 7 - 3).to(torch.int32), (grp - 20).to(torch.int16),
+            grp % 2 == 0, edge[grp % 8],
+            NCol(torch.randint(-2**40, 2**40, (cap,), generator=g), nulls(0.3)),
+            NCol(torch.randint(-2**31, 2**31 - 1, (cap,), generator=g,
+                               dtype=torch.int32), nulls(0.5)),
+            NCol(torch.randn(cap, generator=g, dtype=torch.float64) * 100,
+                 nulls(0.3))]
+    ops = torch.randint(0, 4, (cap,), generator=g, dtype=torch.int8)
+    chunk = Chunk(cols, ops, torch.rand(cap, generator=g) < 0.9, schema)
+    return schema, chunk_to(chunk, device), chunk
+
+
+def _phase_shard_edges(torch, device, cap: int) -> None:
+    """K22c, K2 and K24 on ``_shard_edge_case`` chunks, the card against
+    the plain versions on a CPU copy: every plane exact except the float64
+    sums (within 1e-12 relative: the plain version's ``index_add_``)."""
+    import zlib
+
+    from risingwave_tpu_torch.common.hash import compute_vnodes, crc32_columns
+    from risingwave_tpu_torch.expr.agg import AggCall
+    from risingwave_tpu_torch.expr.node import InputRef
+    from risingwave_tpu_torch.parallel.exchange import shuffle_chunk
+    from risingwave_tpu_torch.stream.partial_agg import PartialAggExecutor
+    from risingwave_tpu_torch.stream.spill import chunk_to
+
+    g = torch.Generator(device="cpu").manual_seed(14)
+    cases = {"int64": (0,), "string": (1,), "int32+int16+bool": (2, 3, 4),
+             "float64": (5,)}
+    aggs = [("count_star", None), ("count", 6), ("sum", 6), ("sum", 7),
+            ("min", 6), ("max", 7), ("sum0", 8), ("sum", 8), ("min", 8),
+            ("max", 8), ("count", 8)]
+    cpu = torch.device("cpu")
+    for name, keys in cases.items():
+        lanes_card, lanes_cpu = [], []
+        for lane in range(SHARD_LANES):
+            schema, card, host = _shard_edge_case(torch, device, cap, g)
+            ex = PartialAggExecutor(
+                schema, [(schema[i].name, InputRef(i)) for i in keys],
+                [AggCall(k, None if a is None else InputRef(a), f"a{n}")
+                 for n, (k, a) in enumerate(aggs)])
+            _, out = ex.apply((), card)
+            _, want = ex.apply((), host)
+            pairs = []
+            for ci, (ca, cb) in enumerate(zip(out.columns, want.columns)):
+                float_sum = ci >= len(keys) and aggs[ci - len(keys)] in (
+                    ("sum0", 8), ("sum", 8))
+                for k, (a, b) in enumerate(zip(_col_planes("", ca),
+                                               _col_planes("", cb))):
+                    a, b = a[1].cpu(), b[1]
+                    if float_sum and k == 0:
+                        if not bool(torch.isclose(a, b, rtol=1e-12,
+                                                  atol=1e-9).all()):
+                            fail(f"K22c {name} edge float sum {ci} differs")
+                        continue
+                    pairs.append((f"K22c {name} edge column {ci} plane {k}",
+                                  _bits(torch, a), _bits(torch, b)))
+            pairs += [(f"K22c {name} edge ops", out.ops.cpu(), want.ops),
+                      (f"K22c {name} edge valid", out.valid.cpu(),
+                       want.valid)]
+            max_abs_err(torch, pairs)
+            vn = compute_vnodes([out.column(i) for i in range(len(keys))])
+            want_vn = compute_vnodes([want.column(i)
+                                      for i in range(len(keys))])
+            max_abs_err(torch, [(f"K2 {name} edge", vn.cpu(), want_vn)])
+            if name == "int64" and lane == 0:
+                # K2's CRC is zlib's over the key's little-endian bytes
+                crc = crc32_columns([out.column(0)]).cpu().tolist()
+                keys64 = out.column(0).cpu().tolist()
+                if crc != [zlib.crc32(k.to_bytes(8, "little", signed=True))
+                           for k in keys64]:
+                    fail("K2's CRC differs from zlib.crc32")
+            lanes_card.append(out)
+            lanes_cpu.append(chunk_to(out, cpu))
+        got = shuffle_chunk(lanes_card, [[c.column(i) for i in
+                                          range(len(keys))]
+                                         for c in lanes_card])
+        want = shuffle_chunk(lanes_cpu, [[c.column(i) for i in
+                                          range(len(keys))]
+                                         for c in lanes_cpu])
+        max_abs_err(torch, [
+            (f"K24 {name} edge lane {d} plane {k}", _bits(torch, a.cpu()),
+             _bits(torch, b))
+            for d, (cg, cw) in enumerate(zip(got, want))
+            for k, (a, b) in enumerate(zip(_shard_planes(cg),
+                                           _shard_planes(cw)))])
+    print(f"[partial_agg] [crc32] [exchange] exact on edge cases ({cap}-row "
+          "chunks, 4 lanes; int64, nullable VARCHAR with bytes past the "
+          "lengths, int32+int16+bool and float64 keys with NaN, -0.0, "
+          "infinities and a subnormal; every two-phase kind over nullable "
+          "int64, int32 and float64 with retractions and invalid rows; "
+          "float64 sums within 1e-12 relative) against the plain versions "
+          "on a CPU copy; K2's CRC equals zlib.crc32 of the int64 keys",
+          flush=True)
+
+
+def phase_shard_kernels(torch, device, timer, scale):
+    """K22c, K2 and K24 against their plain versions on the same card
+    tensors, exactly, at the main paths' shapes: one chunk round (8192
+    bids a lane, 4 lanes) of bench's q5 (HOP: 40,960 rows a lane keyed
+    (auction, window_start)) and q7 (TUMBLE: 8192 rows a lane keyed
+    window_start, one window) through the local half of a sharded engine;
+    K22c on every lane's window output (every output plane of every row),
+    K2 on every lane's partial rows (vnodes, and the CRC against
+    ``crc32_columns_plain``), K24 over the 4 lanes (every plane of every
+    lane's received chunk, the fills included).  Timed at q5's shape
+    (K24 also at q7's, its skew: every row for one lane)."""
+    from risingwave_tpu_torch.common.chunk import Chunk
+    from risingwave_tpu_torch.common.hash import (
+        compute_vnodes_cuda,
+        compute_vnodes_plain,
+        crc32_columns_plain,
+        normalize_null_col,
+    )
+    from risingwave_tpu_torch.parallel.exchange import (
+        shuffle_chunk_cuda,
+        shuffle_chunk_plain,
+    )
+    from risingwave_tpu_torch.stream.partial_agg import (
+        partial_agg,
+        partial_agg_plain,
+    )
+
+    cuda = device.type == "cuda"
+    cfg = _shard_config(scale)
+    res = {}
+    timing = {}
+    _phase_shard_edges(torch, device, 8192 // scale)
+    for query in SHARD_QUERIES:
+        eng = _sharded_engine(torch, device, cfg, query)
+        lanes = _lane_partials(torch, eng)
+        sj = eng.jobs[0].sharded
+        pa_out, vnodes = [], []
+        pairs, n_rows, n_valid = [], 0, 0
+        for s, (pa, chunk, keys, args, kinds, nullable, order) in \
+                enumerate(lanes):
+            got = partial_agg(keys, args, kinds, nullable, chunk.valid,
+                              chunk.signs(), order)
+            want = partial_agg_plain(keys, args, kinds, nullable,
+                                     chunk.valid, chunk.signs(), order)
+            ops = torch.zeros(chunk.capacity, dtype=torch.int8,
+                              device=device)
+            c_got = Chunk(tuple(got[0]) + tuple(got[1]), ops, got[2],
+                          pa.out_schema)
+            c_want = Chunk(tuple(want[0]) + tuple(want[1]), ops, want[2],
+                           pa.out_schema)
+            pairs += [(f"K22c {query} lane {s} plane {k}", a, b)
+                      for k, (a, b) in enumerate(zip(_shard_planes(c_got),
+                                                     _shard_planes(c_want)))]
+            pa_out.append(c_got)
+            n_rows += chunk.capacity
+            n_valid += int(c_got.valid.sum())
+        max_abs_err(torch, pairs)
+        print(f"[partial_agg] exact on {query}'s {SHARD_LANES} lanes "
+              f"({n_rows} window rows into {n_valid} partial rows: every "
+              "plane of every row)", flush=True)
+        pairs = []
+        for s, c in enumerate(pa_out):
+            keys = sj.exchange_key_fn(c)
+            if cuda:
+                vn, crc = compute_vnodes_cuda(keys, with_crc=True)
+            else:
+                vn = compute_vnodes_plain(keys)
+                crc = crc32_columns_plain(
+                    [x for k in keys for x in normalize_null_col(k)])
+            flat = [x for k in keys for x in normalize_null_col(k)]
+            pairs += [(f"K2 {query} lane {s} vnodes", vn,
+                       compute_vnodes_plain(keys)),
+                      (f"K2 {query} lane {s} crc", crc,
+                       crc32_columns_plain(flat))]
+            vnodes.append(vn)
+        max_abs_err(torch, pairs)
+        got = shuffle_chunk_cuda(pa_out, vnodes) if cuda else \
+            shuffle_chunk_plain(pa_out, vnodes)
+        want = shuffle_chunk_plain(pa_out, vnodes)
+        max_abs_err(torch, [
+            (f"K24 {query} lane {d} plane {k}", a, b)
+            for d, (cg, cw) in enumerate(zip(got, want))
+            for k, (a, b) in enumerate(zip(_shard_planes(cg),
+                                           _shard_planes(cw)))])
+        per_lane = [int(c.valid.sum()) for c in got]
+        print(f"[crc32] exact on {query}'s partial rows ({SHARD_LANES} "
+              f"lanes); [exchange] exact on every plane of every lane, rows "
+              f"received per lane {per_lane}", flush=True)
+        timing[query] = (lanes, pa_out, vnodes, per_lane)
+        del eng
+    # -- times at q5's shape (lane 0), K24 at both ----------------------
+    lanes, pa_out, vnodes, _ = timing["q5"]
+    pa, chunk, keys, args, kinds, nullable, order = lanes[0]
+    signs = chunk.signs()
+    ms = timer(lambda i: partial_agg(keys, args, kinds, nullable,
+                                     chunk.valid, signs, order), 100)
+    plain_ms = timer(lambda i: partial_agg_plain(keys, args, kinds, nullable,
+                                                 chunk.valid, signs, order),
+                     20)
+    cap = chunk.capacity
+    key_b = sum(row_bytes(k) for k in keys)
+    arg_b = sum(row_bytes(a) for a in args if a is not None)
+    part_b = sum(row_bytes(p) for p in pa_out[0].columns[len(keys):])
+    # every row: keys, arguments, its perm entry, sign and valid read; its
+    # sorted key, partials and valid written
+    b = bound(cap * (key_b + arg_b + 8 + 4 + 1) + cap * (key_b + part_b + 1),
+              cap * 8 * len(kinds))
+    print(f"[partial_agg] q5 lane chunk of {cap} rows: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b[0]:.6f} ms ({b[1]}); the sort "
+          "and kernel A before it are not in these times", flush=True)
+    res["partial_agg"] = kernel_entry(
+        "partial_agg.cu", "risingwave_tpu/stream/partial_agg.py:103", ms,
+        plain_ms, b, None, 0.0)
+    c0 = pa_out[0]
+    kc = [c0.column(i) for i in range(len(keys))]
+    ms = timer(lambda i: (compute_vnodes_cuda(kc) if cuda else
+                          compute_vnodes_plain(kc)), 200)
+    plain_ms = timer(lambda i: compute_vnodes_plain(kc), 20)
+    act = int(c0.valid.sum())
+    kb = sum(row_bytes(k) for k in kc)
+    # the valid rows' key bytes read and vnodes written; ~5 integer ops a
+    # key byte (shift, xor, mask, table read, xor)
+    b = bound(act * (kb + 4), act * kb * 5)
+    print(f"[crc32] q5 lane chunk ({cap} rows, {act} valid): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.6f} ms "
+          f"({b[1]}, valid rows)", flush=True)
+    res["crc32"] = kernel_entry(
+        "crc32.cu", "risingwave_tpu/common/hash.py:94", ms, plain_ms, b,
+        None, 0.0)
+    out = {}
+    for query in SHARD_QUERIES:
+        _, pa_out, vnodes, per_lane = timing[query]
+        ms = timer(lambda i: (shuffle_chunk_cuda(pa_out, vnodes) if cuda
+                              else shuffle_chunk_plain(pa_out, vnodes)), 100)
+        plain_ms = timer(lambda i: shuffle_chunk_plain(pa_out, vnodes), 20)
+        n, cap = len(pa_out), pa_out[0].capacity
+        row_b = sum(row_bytes(t) for t in _shard_planes(pa_out[0]))
+        sent = sum(per_lane)
+        # the sent rows' planes, and every row's vnode and valid byte read;
+        # every slot of every lane's received chunk written once
+        b = bound(sent * row_b + n * cap * 5 + n * n * cap * row_b, 0)
+        print(f"[exchange] {query}: {n} lanes x {cap} rows, {sent} sent: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b[0]:.6f} ms ({b[1]})", flush=True)
+        out[query] = (ms, plain_ms, b)
+    ms, plain_ms, b = out["q5"]
+    res["exchange"] = kernel_entry(
+        "exchange.cu", "risingwave_tpu/parallel/exchange.py:124", ms,
+        plain_ms, b, None, 0.0)
+    res["exchange"]["q7"] = {"ms": out["q7"][0], "plain_ms": out["q7"][1],
+                             "bound_ms": out["q7"][2][0]}
+    del timing, lanes, pa_out
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def _equal_states(torch, tag: str, a, b) -> None:
+    from risingwave_tpu_torch.common.tree import flatten
+
+    la, lb = flatten(a)[0], flatten(b)[0]
+    if len(la) != len(lb):
+        fail(f"{tag}: {len(la)} state leaves against {len(lb)}")
+    max_abs_err(torch, [(f"{tag} leaf {i}", x, y)
+                        for i, (x, y) in enumerate(zip(la, lb))])
+
+
+def phase_sharded_main_path(torch, device, scale, query: str):
+    """bench's ``query`` sharded over 4 lanes through SQL at bench.py's
+    sizes: 9 warm-up and 32 timed barriers of 8 chunk rounds (4 x 8192
+    bids a round) with the launch counters, a profiled window, the audit;
+    the MV against numpy over the consumed bids and against the port's
+    linear run over the same bids."""
+    from risingwave_tpu_torch import kernels
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    cuda = device.type == "cuda"
+    cfg = _shard_config(scale)
+    cap = cfg["chunk_capacity"]
+    eng = _sharded_engine(torch, device, cfg, query)
+    eng.tick(barriers=WARMUP_BARRIERS if cuda else 1,
+             chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    barriers = BARRIERS if cuda else 2
+    t0 = time.perf_counter()
+    eng.tick(barriers=barriers, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rounds = barriers * CHUNKS_PER_BARRIER
+    rows = rounds * SHARD_LANES * cap
+    rate = rows / dt
+    per = {k: launches[k] / rounds for k in ("crc32", "exchange",
+                                             "partial_agg")}
+    print(f"[main] {query} sharded {rows} rows in {dt:.3f} s = {rate:.0f} "
+          f"rows/s on {SHARD_LANES} lanes; launches per chunk round "
+          f"{per}; port kernel launches "
+          f"{sum(launches.values()) / rounds:.1f} per round", flush=True)
+    if cuda:
+        per_round = profile_window(torch, eng, f"{query} sharded")
+        print(f"[main] {query} sharded launches per chunk round "
+              f"{'not measured' if per_round is None else f'{per_round:.1f}'}"
+              " (all CUDA kernels, profiled window)", flush=True)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    eng.tick(barriers=1, chunks_per_barrier=0)
+    bids = _consumed_bids(eng, cap)
+    msg = {"q5": check_q5, "q7": check_q7}[query](eng, bids)
+    print(f"[check] {query} sharded {msg}", flush=True)
+    # the port's linear run over the same bids, its tables as large as
+    # the lanes' together; its audit raises on any loss
+    total = eng.jobs[0].reader.offset // cap
+    lin_cfg = dict(cfg, agg_table_size=cfg["agg_table_size"] * SHARD_LANES,
+                   mv_table_size=cfg["mv_table_size"] * SHARD_LANES)
+    lin = Engine(PlannerConfig(**lin_cfg), device=device)
+    lin.execute(BENCH_SOURCES)
+    lin.execute(QUERY_SQL[query])
+    lin.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
+    per_b = CHUNKS_PER_BARRIER * SHARD_LANES
+    lin.tick(barriers=total // per_b, chunks_per_barrier=per_b)
+    lin.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    lin.tick(barriers=1, chunks_per_barrier=total % per_b)
+    if lin.jobs[0].source.offset != eng.jobs[0].reader.offset:
+        fail(f"{query}: the linear run consumed {lin.jobs[0].source.offset} "
+             f"bids, the sharded {eng.jobs[0].reader.offset}")
+    a = sorted(eng.execute("SELECT * FROM bench_mv"))
+    b = sorted(lin.execute("SELECT * FROM bench_mv"))
+    if a != b:
+        fail(f"{query} sharded MV ({len(a)} rows) differs from the linear "
+             f"run's ({len(b)} rows)")
+    print(f"[check] {query} sharded MV equals the port's linear run over "
+          f"the same {eng.jobs[0].reader.offset} bids ({len(a)} rows)",
+          flush=True)
+    del eng, lin
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches, rate
+
+
+def phase_sharded_durable(torch, device, scale, query: str):
+    """The sharded ``query`` durably (``data_dir``): 8 timed barriers, a
+    snapshot at the 8th (K11 over the stacked lanes, the uploader), then a
+    cold start from the directory whose every state tensor equals the
+    engine's that never stopped, and 2 more barriers on both, equal again
+    with equal MV rows."""
+    import gc
+    import shutil
+    import tempfile
+
+    from risingwave_tpu_torch import kernels
+
+    cuda = device.type == "cuda"
+    cfg = _shard_config(scale)
+    cap = cfg["chunk_capacity"]
+    per = CHUNKS_PER_BARRIER if cuda else 2
+    data_dir = tempfile.mkdtemp(prefix=f"rw_sharded_{query}_")
+    try:
+        eng = _sharded_engine(torch, device, cfg, query, data_dir)
+        if cuda:
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        eng.tick(barriers=8, chunks_per_barrier=per)
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        job, store = eng.jobs[0], eng.checkpoint_store
+        rate = 8 * per * SHARD_LANES * cap / dt
+        commits = list(store.commits)
+        print(f"[durable] {query} sharded {8 * per * SHARD_LANES * cap} rows "
+              f"in {dt:.3f} s = {rate:.0f} rows/s (the first 8 barriers, "
+              f"one snapshot); committed epoch {job.committed_epoch} = "
+              f"sealed {job.sealed_epoch}; commits "
+              f"{[(c[2], c[3]) for c in commits]}", flush=True)
+        if job.committed_epoch != job.sealed_epoch or not commits:
+            fail(f"{query} sharded: nothing committed")
+        t0 = time.perf_counter()
+        eng2 = _sharded_engine(torch, device, cfg, query, data_dir)
+        if cuda:
+            torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        _equal_states(torch, f"{query} sharded cold start", eng2.jobs[0].states,
+                      job.states)
+        if eng2.jobs[0].reader.offset != job.reader.offset:
+            fail(f"{query} sharded cold start: reader offset differs")
+        for e in (eng, eng2):
+            e.tick(barriers=2, chunks_per_barrier=per)
+        _equal_states(torch, f"{query} sharded after the cold start",
+                      eng2.jobs[0].states, eng.jobs[0].states)
+        if sorted(eng.execute("SELECT * FROM bench_mv")) != \
+                sorted(eng2.execute("SELECT * FROM bench_mv")):
+            fail(f"{query} sharded: MV rows differ after the cold start")
+        print(f"[cold start] {query} sharded recovered the 4 lanes' epoch in "
+              f"{rec_s:.3f} s; every state tensor equals the engine that "
+              "never stopped, before and after 2 more barriers", flush=True)
+        del eng, eng2, job
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return launches, rate, {"recover_s": rec_s}
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def run_sharded_paths(torch, device, scale, results) -> dict:
+    """The slice's four paths; their launches join the kernels line.
+    Returns {path: (rows/s, info)}."""
+    out = {}
+    for path in SHARD_PATHS:
+        query = path.split()[0]
+        if path.endswith("durable"):
+            launches, rate, info = phase_sharded_durable(torch, device, scale,
+                                                         query)
+        else:
+            launches, rate = phase_sharded_main_path(torch, device, scale,
+                                                     query)
+            info = {}
+        out[path] = (rate, info)
+        for name, n in launches.items():
+            if name in results:
+                results[name]["launches"] += n
+                results[name]["launches_by_query"][path] = n
+        missing = [k for k in SHARD_PATH_KERNELS[path] if launches[k] <= 0]
         if device.type == "cuda" and missing:
             fail(f"{path}: kernels {missing} were not launched on the path")
     return out

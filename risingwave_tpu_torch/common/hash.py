@@ -18,6 +18,15 @@ a float32 folds its bits; a float64 folds two float32 words,
 with a subnormal result flushed to a zero of its sign (an infinite x
 has the narrowed default NaN of ``inf - inf`` as ``lo``).
 
+K2 (``csrc/crc32.cu``) is the vnode hash of the reference's
+``crc32_columns`` (:94) and ``compute_vnodes`` (:137): a zlib-equal CRC32
+over each row's little-endian key words (the same canonical words as the
+64-bit hash: a bool and the null flag widen to 8 bytes, int32 gives 4,
+int16 2, a float32 its 4-byte word, a float64 its two; a string its bytes
+up to ``lens``), and vnode = crc % ``VNODE_COUNT``.  ``compute_vnodes_plain``
+is its plain version; the CRC state is carried in int64 masked to 32 bits
+(torch has no unsigned ``>>``).
+
 Hashes are returned as ``int64`` tensors holding the uint64 bit
 pattern (``.view(np.uint64)`` on the host gives the reference's
 values).  PyTorch's uint64 tensors lack ``>>``, ``%`` and ``<``, so the
@@ -280,3 +289,153 @@ def hash64_columns(columns: Sequence) -> torch.Tensor:
         return hash64_columns_cuda(columns)[0]
     return hash64_columns_plain(columns)
 
+
+
+#: Default number of virtual nodes (the reference's ``VNODE_COUNT`` :52)
+VNODE_COUNT = 256
+
+_CRC_POLY = 0xEDB88320
+_crc_tables: dict = {}
+
+
+def _crc32_table(device) -> torch.Tensor:
+    """The reflected CRC32 table as int64 [256] on ``device``."""
+    t = _crc_tables.get(device)
+    if t is None:
+        vals = []
+        for i in range(256):
+            c = i
+            for _ in range(8):
+                c = (_CRC_POLY ^ (c >> 1)) if c & 1 else (c >> 1)
+            vals.append(c)
+        t = torch.tensor(vals, dtype=torch.int64, device=device)
+        _crc_tables[device] = t
+    return t
+
+
+def _crc_step(state: torch.Tensor, byte: torch.Tensor,
+              table: torch.Tensor) -> torch.Tensor:
+    """One byte into the CRC state (int64 in [0, 2^32))."""
+    return (state >> 8) ^ table[(state ^ byte) & 0xFF]
+
+
+#: bytes a row of an integer key feeds the CRC: the reference views the
+#: column unsigned (a bool widened to int64 first)
+_CRC_BYTES = {torch.bool: 8, torch.int64: 8, torch.int32: 4, torch.int16: 2,
+              torch.uint8: 1}
+
+
+def _crc_words(col: torch.Tensor) -> list[tuple[torch.Tensor, int]]:
+    """(int64 word, bytes it feeds) per word of one fixed-width key."""
+    if col.dtype.is_floating_point:
+        return [(w, 4) for w in float_key_words(col)]
+    if col.dtype not in _CRC_BYTES:
+        raise NotImplementedError(f"vnode hash of {col.dtype} keys")
+    return [(_key_words(col)[0], _CRC_BYTES[col.dtype])]
+
+
+def crc32_columns_plain(columns: Sequence,
+                        init: int = 0xFFFFFFFF) -> torch.Tensor:
+    """CRC32 over the little-endian bytes of each row's (normalized) key
+    columns, the reference's ``crc32_columns``; int64 [cap] in
+    [0, 2^32).  A ``StrCol`` feeds its bytes below ``lens`` only."""
+    state = None
+    table = None
+    for col in columns:
+        ref = col.lens if isinstance(col, StrCol) else col
+        if state is None:
+            table = _crc32_table(ref.device)
+            state = torch.full(ref.shape[:1], init, dtype=torch.int64,
+                               device=ref.device)
+        if isinstance(col, StrCol):
+            lens = col.lens.to(torch.int64)
+            data = col.data.to(torch.int64)
+            for k in range(col.data.shape[1]):
+                stepped = _crc_step(state, data[:, k], table)
+                state = torch.where(k < lens, stepped, state)
+            continue
+        for w, nbytes in _crc_words(col):
+            for k in range(nbytes):
+                state = _crc_step(state, (w >> (8 * k)) & 0xFF, table)
+    if state is None:
+        raise ValueError("no key columns")
+    return state ^ 0xFFFFFFFF
+
+
+def compute_vnodes_plain(key_columns: Sequence,
+                         vnode_count: int = VNODE_COUNT) -> torch.Tensor:
+    """Plain PyTorch version of K2: ``crc32 % vnode_count``, int32 [cap];
+    a nullable key hashes as [payload-with-nulls-zeroed, null flag]."""
+    flat: list = []
+    for c in key_columns:
+        flat.extend(normalize_null_col(c))
+    return (crc32_columns_plain(flat) % vnode_count).to(torch.int32)
+
+
+class _CrcCols(ctypes.Structure):
+    """Mirror of ``struct RwCrcCols`` in ``csrc/crc32.cu``."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("width", ctypes.c_int * kernels.MAX_COLS),
+        ("nbytes", ctypes.c_int * kernels.MAX_COLS),
+        ("kind", ctypes.c_int * kernels.MAX_COLS),
+        ("data", ctypes.c_void_p * kernels.MAX_COLS),
+        ("null", ctypes.c_void_p * kernels.MAX_COLS),
+    ]
+
+
+def compute_vnodes_cuda(key_columns: Sequence,
+                        vnode_count: int = VNODE_COUNT,
+                        with_crc: bool = False):
+    """K2: one launch; (vnodes int32 [cap], crc int64 [cap] or None)."""
+    leaves = key_leaves(key_columns)
+    cols = _CrcCols()
+    cols.n = len(leaves)
+    tensors = []
+    for k, (data, null, kind) in enumerate(leaves):
+        if kind == kernels.KIND_WORD and data.dtype not in _CRC_BYTES:
+            raise NotImplementedError(f"vnode hash of {data.dtype} keys")
+        data = data.contiguous()
+        nu8 = _null_u8(null)
+        tensors += [data] + ([nu8] if nu8 is not None else [])
+        cols.width[k] = leaf_width(data)
+        cols.nbytes[k] = _CRC_BYTES.get(data.dtype, 0)
+        cols.kind[k] = kind
+        cols.data[k] = data.data_ptr()
+        cols.null[k] = kernels.ptr(nu8)
+    kernels.require_cuda("crc32", *tensors)
+    n = leaves[0][0].shape[0]
+    dev = leaves[0][0].device
+    vnodes = torch.empty(n, dtype=torch.int32, device=dev)
+    crc = torch.empty(n, dtype=torch.int64, device=dev) if with_crc else None
+    fn = kernels.entry("crc32", "rw_crc32_vnodes", [
+        _CrcCols, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p])
+    kernels.count_launch("crc32")
+    kernels.check(fn(cols, n, vnode_count, kernels.ptr(crc),
+                     vnodes.data_ptr(), kernels.stream_ptr(dev)), "crc32")
+    return vnodes, crc
+
+
+def crc32_columns(columns: Sequence) -> torch.Tensor:
+    """CRC32 of each row's (normalized) key columns, int64 [cap] in
+    [0, 2^32): K2 on CUDA tensors (a bool column, the null flag of a
+    normalized key, feeds 8 bytes there too), the plain version on CPU
+    tensors."""
+    first = columns[0].lens if isinstance(columns[0], StrCol) else columns[0]
+    if first.device.type == "cuda":
+        return compute_vnodes_cuda(columns, with_crc=True)[1]
+    return crc32_columns_plain(columns)
+
+
+def compute_vnodes(key_columns: Sequence,
+                   vnode_count: int = VNODE_COUNT) -> torch.Tensor:
+    """vnode = crc32(distribution key) % ``vnode_count``, int32 [cap]:
+    K2 on CUDA tensors, the plain version on CPU tensors."""
+    first = key_columns[0].data if isinstance(key_columns[0], NCol) \
+        else key_columns[0]
+    first = first.lens if isinstance(first, StrCol) else first
+    if first.device.type == "cuda":
+        return compute_vnodes_cuda(key_columns, vnode_count)[0]
+    return compute_vnodes_plain(key_columns, vnode_count)

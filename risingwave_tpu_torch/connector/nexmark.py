@@ -567,13 +567,20 @@ class NexmarkSplitReader:
     def next_chunk(self, cols: Sequence[int] | None = None) -> Chunk:
         """The next chunk; ``cols`` keeps only those columns (auctions and
         persons generate only them; bids are projected after)."""
+        return self.impl(self.next_base(), self.cap, cols)
+
+    def impl(self, k0: int, cap: int,
+             cols: Sequence[int] | None = None) -> Chunk:
+        """The block of ``cap`` events from global ordinal ``k0`` (the
+        reference's ``impl``: a sharded job generates each lane's block
+        from its own ``next_base``)."""
         if self.table == "bid":
-            chunk = self._fn(self.next_base(), self.cap)
+            chunk = self._fn(k0, cap)
             if cols is None:
                 return chunk
             return Chunk([chunk.columns[i] for i in cols], chunk.ops,
                          chunk.valid, chunk.schema.select(list(cols)))
-        return self._fn(self.next_base(), self.cap, cols)
+        return self._fn(k0, cap, cols)
 
     def state(self) -> dict:
         return {"table": self.table, "split_id": self.split_id,

@@ -87,6 +87,9 @@ SOURCES = {
     "agg_minput": "agg_minput.cu",
     "agg_eowc": "agg_eowc.cu",
     "sink_ring": "sink_ring.cu",
+    "crc32": "crc32.cu",
+    "exchange": "exchange.cu",
+    "partial_agg": "partial_agg.cu",
     # a host routine (the checkpoint store's crc32c), no kernel
     "crc32c": "crc32c.cpp",
 }
@@ -135,6 +138,9 @@ KERNELS = {
     "minput_refresh": "agg_minput",
     "agg_eowc": "agg_eowc",
     "sink_ring": "sink_ring",
+    "crc32": "crc32",
+    "exchange": "exchange",
+    "partial_agg": "partial_agg",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -45,6 +45,17 @@ own cursor.  A temporal join's build side is drained when the MV is
 created (``_prime_temporal_builds``, :1651), before any probe chunk
 flows, and FLUSH drains every table reader and then commits a barrier.
 
+Sharded jobs (the reference's :917, :1742-1899, :3819, :3857): ``SET
+streaming_parallelism = P`` (0: every lane) shards a unary plan with one
+hash aggregation over min(P, ``lanes``) lanes of the engine's device
+(``Engine(..., lanes=N)``, the reference's device count; default 1, so a
+parallelism above 1 plans linearly, and without the pane rewrite, as the
+reference does on one device) as a ``ShardedStreamingJob``
+(``stream/sharded.py``): the two-phase rewrite for append-only two-phase
+calls, the hash exchange, a global top-N merged at the serving read
+(``serving_topn``).  A DAG plan stays on one lane (the sharded ``DagJob``
+is the next slice); ALTER PARALLELISM raises.
+
 The engine runs on the card: ``Engine(config)`` means
 ``device="cuda"`` and raises when no GPU is present; the CPU is used
 only when the caller passes ``device="cpu"``.
@@ -86,6 +97,7 @@ from risingwave_tpu_torch.common.config import (
 )
 from risingwave_tpu_torch.common.device import resolve_device
 from risingwave_tpu_torch.common.metrics import MetricsRegistry
+from risingwave_tpu_torch.common.tree import flatten, unflatten
 from risingwave_tpu_torch.common.types import DataType, Field, Schema
 from risingwave_tpu_torch.connector.datagen import (
     DatagenReader,
@@ -103,6 +115,7 @@ from risingwave_tpu_torch.connector.nexmark import (
     NexmarkSplitReader,
 )
 from risingwave_tpu_torch.connector.sinks import create_sink
+from risingwave_tpu_torch.expr.node import InputRef
 from risingwave_tpu_torch.meta.catalog import Catalog, CatalogEntry
 from risingwave_tpu_torch.sql import ast
 from risingwave_tpu_torch.sql.binder import Scope
@@ -183,9 +196,15 @@ class _ProjectingReader:
         self.schema = schema
         self.cap = inner.cap
         self.events_per_row = inner.events_per_row
+        self.next_base = inner.next_base
 
     def next_chunk(self) -> Chunk:
         c = self.inner.next_chunk(self.idxs)
+        return Chunk(c.columns, c.ops, c.valid, self.schema)
+
+    def impl(self, k0: int, cap: int) -> Chunk:
+        """The block from ordinal ``k0`` (a sharded job's lane source)."""
+        c = self.inner.impl(k0, cap, self.idxs)
         return Chunk(c.columns, c.ops, c.valid, self.schema)
 
     @property
@@ -209,8 +228,12 @@ class Engine:
                    ast.SetStatement)
 
     def __init__(self, config: PlannerConfig | None = None,
-                 data_dir: str | None = None, device=None):
+                 data_dir: str | None = None, device=None, lanes: int = 1):
         self.device = resolve_device(device)
+        #: lanes of the device's shard mesh (the reference's
+        #: ``len(jax.devices())``): ``SET streaming_parallelism`` shards an
+        #: eligible plan over min(parallelism, lanes) of them
+        self.lanes = lanes
         self.catalog = Catalog()
         self.config = config or PlannerConfig()
         self.planner = Planner(self.catalog, self.config, self.device)
@@ -599,6 +622,8 @@ class Engine:
                 return None
             raise ValueError(f"{stmt.name!r} already exists")
         self._refresh_dml_widths()
+        self.planner.parallel_hint = int(
+            self.session_config.get("streaming_parallelism"))
         plan = self.planner.plan(stmt.query, eowc=stmt.emit_on_window_close)
         job, mv_exec, state_index, dag_meta, is_new = self._build_job(
             plan, stmt.name)
@@ -626,6 +651,8 @@ class Engine:
             (ast.SelectItem(ast.Star(), None),), ast.TableRef(stmt.from_rel))
         sink = create_sink(stmt.with_options)
         self._refresh_dml_widths()
+        self.planner.parallel_hint = int(
+            self.session_config.get("streaming_parallelism"))
         plan = self.planner.plan(query, sink=sink)
         job, sink_exec, _, dag_meta, is_new = self._build_job(plan,
                                                               stmt.name)
@@ -641,10 +668,20 @@ class Engine:
 
     def _build_job(self, plan, name: str):
         """The runtime job of a plan, shared by MVs and sinks (the
-        reference's :917, one device).  Returns ``(job, terminal
-        executor, state index, (dag node ids, dag source names) or None,
+        reference's :917).  With ``streaming_parallelism`` above 1 (0: every
+        lane) an eligible unary plan runs vnode-sharded over the engine's
+        lanes (``_try_sharded_job``).  Returns ``(job, terminal executor,
+        state index, (dag node ids, dag source names) or None,
         is_new_job)``."""
         ckpt_freq = int(self.system_params.get("checkpoint_frequency"))
+        par = int(self.session_config.get("streaming_parallelism"))
+        if par == 0:
+            par = self.lanes
+        if par > 1:
+            sharded = (self._try_sharded_dag_plan if isinstance(plan, DagPlan)
+                       else self._try_sharded_job)(plan, name, par, ckpt_freq)
+            if sharded is not None:
+                return sharded
         if isinstance(plan, DagPlan):
             return self._build_dag_job(plan, name, ckpt_freq)
         job = StreamingJob(plan.reader, plan.fragment, name,
@@ -653,6 +690,149 @@ class Engine:
                            checkpoint_store=self.checkpoint_store)
         terminal = plan.fragment.executors[plan.mv_index]
         return job, terminal, (plan.mv_index,), None, True
+
+    # -- sharded jobs ------------------------------------------------------
+    def _try_sharded_job(self, plan, name: str, par: int, ckpt_freq: int):
+        """Shard a unary plan with one hash aggregation over
+        min(``par``, lanes) lanes (the reference's :1742-1899), or None
+        when it is not eligible: a source that generates per lane
+        (``impl``, ``next_base``), a prefix of filters, windows,
+        projections and watermark filters, and after the aggregation
+        filters, projections, materializations, sinks or one global
+        top-N (not with a sink).  An append-only plan whose calls are all
+        two-phase (no FILTER, no DISTINCT) becomes the partial aggregation
+        before the exchange and the translated global aggregation after
+        it; the keyed half runs without a spill ring.  A global top-N
+        keeps ``limit + offset`` rows a lane, and the serving read applies
+        the order and limit over the merged lanes (``serving_topn``).
+        Returns ``_build_job``'s tuple."""
+        from risingwave_tpu_torch.stream.executor import (
+            FilterExecutor,
+            HopWindowExecutor,
+            ProjectExecutor,
+        )
+        from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+        from risingwave_tpu_torch.stream.partial_agg import (
+            TWO_PHASE_KINDS,
+            PartialAggExecutor,
+            translated_global_calls,
+        )
+        from risingwave_tpu_torch.stream.sharded import (
+            ShardedJob,
+            ShardedStreamingJob,
+        )
+        from risingwave_tpu_torch.stream.sink import SinkExecutor
+        from risingwave_tpu_torch.stream.top_n import GroupTopNExecutor
+        from risingwave_tpu_torch.stream.watermark import (
+            WatermarkFilterExecutor,
+        )
+
+        reader = plan.reader
+        if not (hasattr(reader, "impl") and hasattr(reader, "next_base")):
+            return None
+        execs = plan.fragment.executors
+        agg_idx = None
+        for i, ex in enumerate(execs):
+            if isinstance(ex, HashAggExecutor):
+                if agg_idx is not None:
+                    return None
+                agg_idx = i
+        if agg_idx is None:
+            return None
+        prefix = execs[:agg_idx]
+        if any(not isinstance(ex, (FilterExecutor, HopWindowExecutor,
+                                   ProjectExecutor, WatermarkFilterExecutor))
+               for ex in prefix):
+            return None
+        topn_spec = None
+        has_sink = False
+        for ex in execs[agg_idx + 1:]:
+            if isinstance(ex, GroupTopNExecutor) and not ex.group_by \
+                    and ex.rank_alias is None:
+                topn_spec = (ex.order_by, ex.limit, ex.offset)
+                continue
+            if isinstance(ex, SinkExecutor):
+                has_sink = True
+                continue
+            if not isinstance(ex, (FilterExecutor, ProjectExecutor,
+                                   MaterializeExecutor,
+                                   AppendOnlyMaterialize)):
+                return None
+        if topn_spec is not None and has_sink:
+            return None  # a sink must see the global band
+        agg = execs[agg_idx]
+        n = min(par, self.lanes)
+        if n < 2:
+            return None
+        local_execs = list(prefix)
+        keyed_execs = list(execs[agg_idx:])
+        n_keys = len(agg.group_by)
+        # two-phase is retraction-unsafe (the partial min/max ignore signs,
+        # the global row count counts partial rows): append-only only
+        two_phase = plan.append_only and all(
+            a.kind in TWO_PHASE_KINDS and a.filter is None
+            and not a.distinct for a in agg.aggs)
+
+        def exchange_key_fn(c):
+            if two_phase:  # the partial rows lead with the group keys
+                return [c.column(i) for i in range(n_keys)]
+            return [e.eval(c) for _, e in agg.group_by]
+
+        if two_phase:
+            partial = PartialAggExecutor(agg.in_schema, agg.group_by,
+                                         agg.aggs)
+            global_agg = HashAggExecutor(
+                partial.out_schema,
+                [(nm, InputRef(i)) for i, (nm, _) in enumerate(agg.group_by)],
+                translated_global_calls(agg.aggs, n_keys),
+                table_size=agg.table_size,
+                emit_capacity=agg.emit_capacity,
+                # the group keys keep their positions in the partial
+                # output: window cleaning and EOWC carry over
+                watermark_group_idx=agg.watermark_group_idx,
+                watermark_lag=agg.watermark_lag,
+                watermark_src_col=agg.watermark_src_col,
+                emit_on_window_close=agg.emit_on_window_close)
+            local_execs.append(partial)
+            keyed_execs = [global_agg] + list(execs[agg_idx + 1:])
+        for ex in keyed_execs:
+            if getattr(ex, "spill_ring", 0):
+                ex.spill_ring = 0
+        if topn_spec is not None:
+            # a lane's band must cover the global rank offset + limit
+            order_by, limit, offset = topn_spec
+            keyed_execs = [
+                GroupTopNExecutor(ex.in_schema, group_by=[],
+                                  order_by=ex.order_by, limit=limit + offset,
+                                  offset=0, pool_size=ex.pool_size,
+                                  emit_capacity=ex.emit_capacity,
+                                  append_only=ex.append_only)
+                if isinstance(ex, GroupTopNExecutor) and not ex.group_by
+                else ex for ex in keyed_execs]
+        if self.device.type == "cuda":
+            for ex in local_execs + keyed_execs:
+                why = ex.cuda_refusal() if hasattr(ex, "cuda_refusal") \
+                    else None
+                if why is not None:
+                    raise PlanError(f"{why} (on CUDA; the CPU runs it)")
+        sharded = ShardedJob(n, reader.impl, reader.cap, local_execs,
+                             exchange_key_fn, keyed_execs, self.device)
+        job = ShardedStreamingJob(sharded, reader, name,
+                                  checkpoint_frequency=ckpt_freq,
+                                  checkpoint_store=self.checkpoint_store,
+                                  max_lanes=self.lanes)
+        terminal = keyed_execs[-1]
+        if topn_spec is not None:
+            terminal.serving_topn = topn_spec
+        return job, terminal, (len(local_execs) + len(keyed_execs) - 1,), \
+            None, True
+
+    def _try_sharded_dag_plan(self, plan: DagPlan, name: str, par: int,
+                              ckpt_freq: int):
+        """The reference's :1901 shards a join-shaped DAG over the mesh;
+        the port's sharded ``DagJob`` (with K11's lanes) is the next slice,
+        so every DAG plan runs on one lane."""
+        return None
 
     # -- DAG jobs: joins, cascades, shared upstreams -----------------------
     def _ensure_dag(self, entry: CatalogEntry) -> tuple[DagJob, int]:
@@ -955,8 +1135,11 @@ class Engine:
     def _mv_rows(self, entry: CatalogEntry) -> list[tuple]:
         """The MV's rows: live, or with ``SET query_epoch = e`` those of
         the job's retained checkpoint of epoch ``e`` (the reference's
-        time travel, ``engine.py:3783``; its mesh and vnode branches have
-        no counterpart in the port yet)."""
+        time travel, ``engine.py:3783``; its vnode branch has no
+        counterpart in the port yet).  A sharded job's lanes are merged on
+        the host."""
+        from risingwave_tpu_torch.stream.sharded import ShardedStreamingJob
+
         qe = int(self.session_config.get("query_epoch"))
         if qe:
             if self.checkpoint_store is None:
@@ -967,11 +1150,45 @@ class Engine:
                 raise PlanError(f"epoch {qe} is not retained for "
                                 f"{entry.name} (retained: {epochs})")
             _, state, _ = self.checkpoint_store.load(ckpt, qe)
-        else:
-            state = entry.job.states
+            for i in entry.mv_state_index:
+                state = state[i]
+            if isinstance(entry.job, ShardedStreamingJob):
+                # the checkpoint's stacked lanes, merged on the host
+                leaves, spec = flatten(state)
+                rows = []
+                for s in range(leaves[0].shape[0]):
+                    rows.extend(entry.mv_executor.to_host(
+                        unflatten(spec, [x[s] for x in leaves])))
+                return rows
+            return entry.mv_executor.to_host(state)
+        if isinstance(entry.job, ShardedStreamingJob):
+            return entry.job.mv_rows(entry.mv_executor,
+                                     entry.mv_state_index[0])
+        state = entry.job.states
         for i in entry.mv_state_index:
             state = state[i]
         return entry.mv_executor.to_host(state)
+
+    def _apply_serving_topn(self, entry: CatalogEntry, rows: list) -> list:
+        """The global order and limit over a sharded top-N MV's merged
+        lane bands (the reference's :3857): each lane's band is a
+        superset slice of the global top-k."""
+        spec = getattr(entry.mv_executor, "serving_topn", None)
+        if spec is None or not rows:
+            return rows
+        order_by, limit, offset = spec
+        schema = entry.mv_executor.in_schema
+        for e, desc in reversed(list(order_by)):
+            if not isinstance(e, InputRef):
+                raise NotImplementedError(
+                    "serving a sharded top-N ordered by expressions")
+            k = e.index
+            nullable = schema[k].nullable
+            # NULLs last ascending, first descending (PostgreSQL's order)
+            rows.sort(key=lambda r: ((r[k] is None, r[k]) if nullable
+                                     else r[k]), reverse=desc)
+        end = None if limit is None else offset + limit
+        return rows[offset:end]
 
     def _needs_batch_exec(self, select: ast.Select) -> bool:
         """The reference's split (engine.py:3876): a plain projection of
@@ -1020,7 +1237,8 @@ class Engine:
                     "ported yet")
             idxs.append(scope.resolve(e.name, e.table))
             names.append(name)
-        rows = [tuple(r[i] for i in idxs) for r in self._mv_rows(entry)]
+        rows = self._apply_serving_topn(entry, self._mv_rows(entry))
+        rows = [tuple(r[i] for i in idxs) for r in rows]
         self._last_columns = names
         for oi in reversed(select.order_by):
             k = self._order_key(oi.expr, names)

@@ -211,6 +211,10 @@ class Planner:
         self.config = config or PlannerConfig()
         #: the device the plans run on: CUDA refuses what its kernels lack
         self.device = torch.device(device)
+        #: the session's streaming_parallelism at plan time (the engine
+        #: sets it): above 1 the plans keep shapes the sharded job takes
+        #: (the pane rewrite's two aggregations it cannot)
+        self.parallel_hint = 1
 
     def plan(self, select: ast.Select, sink=None,
              eowc: bool = False) -> "UnaryPlan | DagPlan":
@@ -1004,8 +1008,8 @@ class Planner:
         pk_positions: list[int] = []
         gtn = None
         if has_agg:
-            pane = None if eowc else self._try_pane_agg(select, scope, pin,
-                                                         execs)
+            pane = None if eowc or self.parallel_hint > 1 \
+                else self._try_pane_agg(select, scope, pin, execs)
             if pane is None:
                 pane = self._plan_agg(select, scope, pin, eowc=eowc)
             execs2, out_schema, pk_positions = pane
@@ -1044,8 +1048,8 @@ class Planner:
         the pane tumble).
 
         Eligible: append-only, watermarked hop input, GROUP BY
-        window_start + keys, two-phase calls without DISTINCT/FILTER.
-        Returns None when ineligible (the plain hop plan follows)."""
+        window_start + keys, two-phase calls without DISTINCT/FILTER,
+        linear (unsharded) plans.  Returns None when ineligible (the plain hop plan follows)."""
         size, slide = pin.window_size, pin.window_slide
         if not pin.append_only or size is None or slide is None \
                 or slide >= size or size % slide != 0 \

@@ -125,13 +125,23 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[cold start] q5_cascade durable",
                 "[check] dedup_sink ring holds exactly the first bid",
                 "[check] dedup_sink: the watermark's K4 sweep ran",
-                "[main] q5_cascade T = ", "[main] dedup_sink deliver: "):
+                "[main] q5_cascade T = ", "[main] dedup_sink deliver: ",
+                "[partial_agg] [crc32] [exchange] exact on edge cases",
+                "[partial_agg] exact on q5's 4 lanes",
+                "[partial_agg] exact on q7's 4 lanes",
+                "[crc32] exact on q5's partial rows",
+                "[check] q5 sharded MV equals numpy",
+                "[check] q7 sharded MV equals numpy",
+                "[check] q5 sharded MV equals the port's linear run",
+                "[check] q7 sharded MV equals the port's linear run",
+                "[cold start] q5 sharded", "[cold start] q7 sharded"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout
     line = next(x for x in out.stdout.splitlines()
                 if x.startswith('{"kernels"'))
     names = {k["name"] for k in json.loads(line)["kernels"]}
-    assert {"sink_ring", "append_only_dedup"} <= names
+    assert {"sink_ring", "append_only_dedup", "crc32", "exchange",
+            "partial_agg"} <= names
 
 
 def test_sink_paths_are_wired():
@@ -150,3 +160,23 @@ def test_sink_paths_are_wired():
         chip_smoke.SINK_PATH_KERNELS["dedup_sink"])
     assert kernels.KERNELS["sink_ring"] == "sink_ring"
     assert kernels.SOURCES["sink_ring"] == "sink_ring.cu"
+
+
+def test_sharded_paths_are_wired():
+    """The slice's four sharded paths run the exchange's kernels (K2, K24)
+    and the partial aggregation (K22c); the durable ones K11 too."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from risingwave_tpu_torch import kernels
+
+    assert chip_smoke.SHARD_PATHS == ("q5 sharded", "q7 sharded",
+                                      "q5 sharded durable",
+                                      "q7 sharded durable")
+    for path in chip_smoke.SHARD_PATHS:
+        kern = set(chip_smoke.SHARD_PATH_KERNELS[path])
+        assert {"crc32", "exchange", "partial_agg"} <= kern
+        assert kern <= set(kernels.KERNELS)
+        assert ("shadow_digest" in kern) == path.endswith("durable")
+    for name in ("crc32", "exchange", "partial_agg"):
+        assert kernels.KERNELS[name] == name
+        assert kernels.SOURCES[name] == f"{name}.cu"
