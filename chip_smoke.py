@@ -153,7 +153,16 @@
    counters, each MV against numpy and against the port's linear run over
    the same bids, and both durably with a cold start checked tensor for
    tensor against the engine that never stopped;
-9. prints the ``kernels`` JSON line, the card's name and power limit,
+9. holds K11 lanes (the shadow update and the delta's gather over the
+   lane grid) against its plain version on the stacked state tree of a
+   bench-size q8 engine sharded over 4 lanes (~4.2 GB), exactly; then runs
+   bench's q8 sharded over 4 lanes through SQL (``SET
+   streaming_parallelism = 4``) with launch counters, the lanes' rings
+   against numpy (each lane's watermark filter on its own blocks) and
+   against the port's linear q8 over the same chunks, every loss counter
+   0, and durably (a full snapshot, a lane delta, a cold start checked
+   tensor for tensor against the engine that never stopped);
+10. prints the ``kernels`` JSON line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ok line.  Without a GPU, or
@@ -468,6 +477,7 @@ def main() -> int:
     sink_kernels = phase_sink_kernels(torch, device, timer, scale)
     results["sink_ring"] = sink_kernels["sink_ring"]
     results.update(phase_shard_kernels(torch, device, timer, scale))
+    results.update(phase_k11_lanes(torch, device, timer, scale))
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -586,6 +596,9 @@ def main() -> int:
 
     # -- 8. vnode-sharded q5 and q7 over 4 lanes --------------------------
     shard_runs = run_sharded_paths(torch, device, scale, results)
+
+    # -- 9. the vnode-sharded join DAG: q8 over 4 lanes ------------------
+    shard_runs.update(run_q8_sharded_paths(torch, device, scale, results))
 
     line = {"kernels": [dict(name=name, **r) for name, r in results.items()]}
     print(json.dumps(line))
@@ -1853,9 +1866,11 @@ def phase_q8_parity(torch, device) -> None:
           f"{fired})", flush=True)
 
 
-def _q8_consumed(eng, cap: int):
+def _q8_consumed(eng, cap: int, lanes: int = 1):
     """numpy columns of every person and auction the q8 job consumed,
-    regenerated, with the watermark filter's late rows dropped."""
+    regenerated, with the watermark filter's late rows dropped (each
+    lane's filter sees its own blocks: block i of a source went to lane
+    i % lanes)."""
     import numpy as np
 
     job = eng.jobs[0]
@@ -1866,14 +1881,15 @@ def _q8_consumed(eng, cap: int):
         gen = reader.inner.gen
         parts = {i: [] for i in range(len(cols))}
         keep = []
-        max_ts = None
+        lane_max = [None] * lanes
         for i in range(reader.offset // cap):
             c = getattr(gen, f"gen_{table}")(i * cap, cap, cols)
             ts = c.columns[-1].cpu().numpy()
+            max_ts = lane_max[i % lanes]
             wm = None if max_ts is None else max_ts - WM_DELAY_US
             keep.append(np.ones(cap, bool) if wm is None else ts >= wm)
-            max_ts = int(ts.max()) if max_ts is None else max(max_ts,
-                                                              int(ts.max()))
+            lane_max[i % lanes] = int(ts.max()) if max_ts is None \
+                else max(max_ts, int(ts.max()))
             for j, col in enumerate(c.columns):
                 if hasattr(col, "lens"):
                     parts[j].append((col.data.cpu().numpy(),
@@ -1906,13 +1922,13 @@ def _name_key(data, lens):
     return (k ^ lens.astype(np.uint64)).view(np.int64)
 
 
-def check_q8(eng, cap: int) -> str:
-    """The ring equals a numpy inner join of the consumed persons and
-    auctions on p.id = a.seller within the same 1-second window, as a
-    multiset of (id, name, reserve)."""
+def check_q8(eng, cap: int, lanes: int = 1) -> str:
+    """The ring (every lane's, for a sharded job) equals a numpy inner
+    join of the consumed persons and auctions on p.id = a.seller within
+    the same 1-second window, as a multiset of (id, name, reserve)."""
     import numpy as np
 
-    c = _q8_consumed(eng, cap)
+    c = _q8_consumed(eng, cap, lanes)
     (pid, (pname, plens), pts), (seller, reserve, ats) = c["p"], c["a"]
     pws = pts - pts % Q8_WINDOW_US
     aws = ats - ats % Q8_WINDOW_US
@@ -1929,25 +1945,41 @@ def check_q8(eng, cap: int) -> str:
     prow = order[at_c[hit]]
     want = np.stack([pid[prow], _name_key(pname[prow], plens[prow]),
                      reserve[hit]], 1)
-    entry = eng.catalog.get("bench_mv")
-    state = eng.jobs[0].states[entry.mv_state_index[0]][
-        entry.mv_state_index[1]]
-    n = int(state.cursor)
-    if n != want.shape[0] or int(state.overflow) != 0 \
-            or n > entry.mv_executor.ring_size:
-        fail(f"q8 ring holds {n} rows (overflow {int(state.overflow)}) for "
-             f"{want.shape[0]} numpy join rows")
-    ids, names, res = state.values
-    got = np.stack([ids[:n].cpu().numpy(),
-                    _name_key(names.data[:n].cpu().numpy(),
-                              names.lens[:n].cpu().numpy()),
-                    res[:n].cpu().numpy()], 1)
-    got = got[np.lexsort(got.T[::-1])]
+    got = q8_ring_rows(eng, lanes)
+    n = got.shape[0]
+    if n != want.shape[0]:
+        fail(f"q8 ring holds {n} rows for {want.shape[0]} numpy join rows")
     want = want[np.lexsort(want.T[::-1])]
     if not np.array_equal(got, want):
         fail("q8 ring rows differ from the numpy join (as multisets)")
     return (f"ring rows equal the numpy join of {pid.shape[0]} persons and "
-            f"{seller.shape[0]} auctions ({n} rows, no lap)")
+            f"{seller.shape[0]} auctions ({n} rows over {lanes} lane(s), no "
+            "lap)")
+
+
+def q8_ring_rows(eng, lanes: int = 1):
+    """The q8 ring's rows of every lane as a sorted numpy ``[n, 3]``
+    array of (id, name key, reserve); fails on an overflow or a lap."""
+    import numpy as np
+
+    entry = eng.catalog.get("bench_mv")
+    state = eng.jobs[0].states[entry.mv_state_index[0]][
+        entry.mv_state_index[1]]
+    cursors = state.cursor.reshape(-1).tolist()
+    overflow = int(state.overflow.sum())
+    if overflow != 0 or max(cursors) > entry.mv_executor.ring_size:
+        fail(f"q8 ring holds {cursors} rows, overflow {overflow}")
+    ids, names, res = state.values
+    if lanes == 1:
+        ids, data, lens, res = (x[None] for x in (ids, names.data,
+                                                  names.lens, res))
+    else:
+        data, lens = names.data, names.lens
+    got = np.concatenate([np.stack([
+        ids[s, :k].cpu().numpy(),
+        _name_key(data[s, :k].cpu().numpy(), lens[s, :k].cpu().numpy()),
+        res[s, :k].cpu().numpy()], 1) for s, k in enumerate(cursors)])
+    return got[np.lexsort(got.T[::-1])]
 
 
 def phase_q8_main_path(torch, device, scale):
@@ -8788,6 +8820,428 @@ def run_sharded_paths(torch, device, scale, results) -> dict:
                 results[name]["launches"] += n
                 results[name]["launches_by_query"][path] = n
         missing = [k for k in SHARD_PATH_KERNELS[path] if launches[k] <= 0]
+        if device.type == "cuda" and missing:
+            fail(f"{path}: kernels {missing} were not launched on the path")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 9. the vnode-sharded join DAG: bench's q8 over 4 lanes
+
+
+Q8_SHARD_PATHS = ("q8 sharded", "q8 sharded durable")
+#: the reference's node chain for q8 under parallelism 4
+Q8_SHARD_NODES = [
+    ("FragNode", ["WatermarkFilterExecutor", "HopWindowExecutor"]),
+    ("FragNode", ["WatermarkFilterExecutor", "HopWindowExecutor"]),
+    ("JoinNode", None),
+    ("FragNode", ["ProjectExecutor", "AppendOnlyMaterialize"])]
+#: q8's kernels (the rehash passes' K4 aside: they fire by the state's
+#: tombstones, not in every window) and the exchange on both join inputs
+_Q8_SHARD_KERNELS = tuple(k for k in PATH_KERNELS["q8"]
+                          if k != "permute_rows") + ("crc32", "exchange")
+Q8_SHARD_PATH_KERNELS = {
+    "q8 sharded": _Q8_SHARD_KERNELS,
+    "q8 sharded durable": _Q8_SHARD_KERNELS + ("shadow_digest_lanes",),
+}
+#: timed barriers of the q8 sharded paths (each 8 rounds x 4 lanes)
+Q8_SHARD_BARRIERS = 8
+
+
+def _q8_shard_config(scale: int) -> dict:
+    """bench.py's q8 sizes for each lane (``_q8_engine``'s)."""
+    cfg = {k: max(v // scale, 64) for k, v in Q8_CONFIG.items()}
+    if scale > 1:
+        # the rehearsal's pools and rings hold every row of its run
+        cfg.update(join_pool_size=1 << 14, mv_ring_size=1 << 15)
+    return cfg
+
+
+def _q8_sharded_engine(torch, device, cfg, data_dir=None,
+                       snapshot: int = 8):
+    """bench's q8 under ``SET streaming_parallelism = 4`` on an engine of
+    ``SHARD_LANES`` lanes (a cold start when ``data_dir`` holds a logged
+    catalog); fails unless it plans as the reference's lane ``DagJob``."""
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+    from risingwave_tpu_torch.stream.dag import DagJob
+
+    eng = Engine(PlannerConfig(**cfg), data_dir=data_dir, device=device,
+                 lanes=SHARD_LANES)
+    if not eng.jobs:
+        eng.execute(BENCH_SOURCES)
+        eng.execute(f"SET streaming_parallelism = {SHARD_LANES}")
+        eng.execute(QUERY_SQL["q8"])
+        eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = "
+                    "1000000")
+        eng.execute(f"ALTER SYSTEM SET snapshot_interval_checkpoints = "
+                    f"{snapshot}")
+    job = eng.jobs[0]
+    nodes = [(type(n).__name__,
+              [type(e).__name__ for e in n.fragment.executors]
+              if hasattr(n, "fragment") else None) for n in job.nodes] \
+        if isinstance(job, DagJob) else None
+    if nodes != Q8_SHARD_NODES or job.n_shards != SHARD_LANES or \
+            sorted(job.exchanges) != [(2, "left"), (2, "right")]:
+        fail(f"q8 sharded: planned {type(job).__name__} {nodes}")
+    return eng
+
+
+def _loss_counters(eng) -> dict:
+    """The job's counters (summed over the lanes), read once."""
+    job = eng.jobs[0]
+    vals = job._counters.cpu().tolist()
+    return {k: v for k, v in zip(job.counter_labels, vals)
+            if not k.endswith(".pending")}
+
+
+def phase_k11_lanes(torch, device, timer, scale):
+    """K11 lanes (the shadow update and the delta's dirty gather over the
+    lane grid) on the stacked state tree of a bench-size q8 engine sharded
+    over 4 lanes, after 10 barriers: the init, two more barriers of
+    traffic, the update at the dirty share they leave and the gather of
+    those blocks, each against its plain version on the same card
+    tensors, exactly (digests, dirty count, every shadow leaf, the
+    staging bytes and the runs cut from them)."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.tree import flatten
+    from risingwave_tpu_torch.storage import digest as dg
+    from risingwave_tpu_torch.stream.shadow import leaf_lanes
+
+    cuda = device.type == "cuda"
+    eng = _q8_sharded_engine(torch, device, _q8_shard_config(scale))
+    eng.tick(barriers=10 if cuda else 1,
+             chunks_per_barrier=CHUNKS_PER_BARRIER if cuda else 1)
+    job = eng.jobs[0]
+    block = dg.DEFAULT_BLOCK_ELEMS
+    tree = flatten(job.states)[0]
+    shapes = [tuple(x.shape) for x in tree]
+    grid = [leaf_lanes(sh, SHARD_LANES) for sh in shapes]
+    rows = [g[0] if g else 1 for g in grid]
+    nblocks = dg.block_counts(shapes, grid, block)
+    total = sum(nblocks)
+
+    def flat_leaves():
+        return [x.reshape(-1) for x in flatten(job.states)[0]]
+
+    leaves = flat_leaves()
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    words = sum(nb * block * x.element_size() // 8
+                for x, nb in zip(leaves, nblocks))
+
+    def buffers():
+        return ([torch.empty_like(x) for x in leaves],
+                torch.zeros(total, dtype=torch.int64, device=device),
+                torch.zeros((), dtype=torch.int64, device=device))
+
+    shk, dgk, dck = buffers()
+    shp, dgp, dcp = buffers()
+    dg.shadow_digest(leaves, shk, dgk, dck, nblocks, block, update=False,
+                     rows=rows)
+    dg.shadow_digest_plain(leaves, shp, dgp, dcp, nblocks, block,
+                           update=False, rows=rows)
+    pairs = [("lanes init digests", dgk, dgp)]
+    pairs += [(f"lanes init shadow leaf {i}", a, b)
+              for i, (a, b) in enumerate(zip(shk, shp))]
+    max_abs_err(torch, pairs)
+    eng.tick(barriers=2, chunks_per_barrier=CHUNKS_PER_BARRIER if cuda
+             else 1)
+    leaves = flat_leaves()
+    old = dgk.clone()
+    dg.shadow_digest(leaves, shk, dgk, dck, nblocks, block, update=True,
+                     rows=rows)
+    dg.shadow_digest_plain(leaves, shp, dgp, dcp, nblocks, block,
+                           update=True, rows=rows)
+    pairs = [("lanes update digests", dgk, dgp),
+             ("lanes update dirty", dck, dcp)]
+    pairs += [(f"lanes update shadow leaf {i}", a, b)
+              for i, (a, b) in enumerate(zip(shk, shp))]
+    pairs += [(f"lanes shadow equals live leaf {i}", a, b)
+              for i, (a, b) in enumerate(zip(shk, leaves))]
+    err = max_abs_err(torch, pairs)
+    dirty = (dgk != old).cpu().numpy()
+    n_dirty, ladder_dirty = int(dirty.sum()), int(dck)
+    dirty_bytes = sum(
+        int(dirty[o:o + nb].sum()) * block * x.element_size()
+        for x, nb, o in zip(leaves, nblocks,
+                            np.cumsum([0] + nblocks[:-1])))
+
+    def update(i):
+        dgk.copy_(old)  # every call diffs against the same old digests
+        dg.shadow_digest(leaves, shk, dgk, dck, nblocks, block, update=True,
+                         rows=rows)
+
+    ms = timer(update, 10)
+
+    def update_plain(i):
+        dgp.copy_(old)
+        dg.shadow_digest_plain(leaves, shp, dgp, dcp, nblocks, block,
+                               update=True, rows=rows)
+
+    plain_ms = timer(update_plain, 1)
+    # as K11: every live byte read once, the dirty blocks and the digests
+    # written; ~21 integer ops per 8-byte word
+    b = bound(nbytes + dirty_bytes + 16 * total, words * 21)
+    lane_leaves = sum(g is not None for g in grid)
+    print(f"[shadow_digest_lanes] exact (q8 sharded state: {len(leaves)} "
+          f"leaves, {lane_leaves} on the {SHARD_LANES}-lane grid, "
+          f"{nbytes / 1e6:.1f} MB, {total} blocks; after 2 barriers "
+          f"{n_dirty} blocks dirty ({100 * n_dirty / total:.1f}%), "
+          f"{ladder_dirty} counted); update kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b[0]:.5f} ms ({b[1]})", flush=True)
+    out = {"shadow_digest_lanes": kernel_entry(
+        "shadow_digest.cu", "risingwave_tpu/stream/shadow.py:122", ms,
+        plain_ms, b, None, err)}
+    out["shadow_digest_lanes"].update(state_bytes=nbytes, blocks=total,
+                                      dirty_blocks=n_dirty)
+
+    # -- the lane delta's dirty gather -----------------------------------
+    sizes = [x.numel() for x in leaves]
+    esizes = [x.element_size() for x in leaves]
+    entries, runs, gtotal = dg.gather_plan(dirty, nblocks, sizes, esizes,
+                                           block, rows)
+    ent = torch.from_numpy(entries).to(device)
+    stk = torch.zeros(max(gtotal, 1), dtype=torch.uint8, device=device)
+    stp = torch.zeros(max(gtotal, 1), dtype=torch.uint8, device=device)
+    dg.dirty_gather(shk, ent, stk, nblocks, block, rows)
+    dg.dirty_gather_plain(shk, ent, stp, block, rows)
+    host = stk.cpu().numpy()
+    for li, s0, e0, o in runs[:64] + runs[-64:]:
+        want = shk[li][s0:e0].cpu().numpy().view(np.uint8)
+        if not np.array_equal(host[o:o + want.size], want):
+            fail(f"lane gather run r_{li}_{s0} differs from the shadow")
+    crossing = sum((s0 // (sizes[li] // rows[li]))
+                   != ((e0 - 1) // (sizes[li] // rows[li]))
+                   for li, s0, e0, _ in runs if e0 > s0)
+    if crossing:
+        fail(f"{crossing} lane runs cross a lane row")
+    err = max_abs_err(torch, [("lanes gather staging", stk, stp)])
+    gms = timer(lambda i: dg.dirty_gather(shk, ent, stk, nblocks, block,
+                                          rows), 20)
+    gplain_ms = timer(lambda i: dg.dirty_gather_plain(shk, ent, stp, block,
+                                                      rows), 2)
+    gb = bound(2 * gtotal + entries.nbytes, len(entries) * 8)
+    # one index_select over the block view of the exact-grid lane leaf
+    # with the most dirty blocks computes that leaf's share
+    e_leaf = entries[:, 0] >> 32
+    exact = np.array([grid[int(li)] is not None
+                      and (sizes[int(li)] // rows[int(li)]) % block == 0
+                      for li in e_leaf], bool)
+    lib = None
+    if exact.any():
+        li = int(np.bincount(e_leaf[exact], minlength=len(leaves)).argmax())
+        sel = exact & (e_leaf == li)
+        x = shk[li]
+        view = x.view(-1, block)
+        idx = torch.from_numpy((entries[sel, 0] & 0xFFFFFFFF)
+                               .astype(np.int64)).to(device)
+        o = int(entries[sel][0, 1])
+        if not torch.equal(torch.index_select(view, 0, idx).reshape(-1)
+                           .view(torch.uint8),
+                           stk[o:o + int(sel.sum()) * block
+                               * x.element_size()]):
+            fail("index_select over the lane leaf's blocks differs from "
+                 "the gather's section of it")
+        lib = {"ms": timer(lambda i: torch.index_select(view, 0, idx), 20),
+               "blocks": int(sel.sum()), "of": len(entries)}
+    print(f"[dirty_gather_lanes] exact ({len(entries)} blocks in "
+          f"{len(runs)} runs, none across a lane row, {gtotal / 1e6:.1f} "
+          f"MB); kernel {gms:.4f} ms, plain {gplain_ms:.4f} ms, bound "
+          f"{gb[0]:.5f} ms; one index_select over one lane leaf "
+          f"{'not measured' if lib is None else lib}", flush=True)
+    out["dirty_gather_lanes"] = kernel_entry(
+        "shadow_digest.cu", "risingwave_tpu/storage/checkpoint_store.py:246",
+        gms, gplain_ms, gb, None, err)
+    out["dirty_gather_lanes"]["index_select_one_leaf"] = lib
+    del eng, job, leaves, shk, shp, stk, stp, tree
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_q8_sharded_main_path(torch, device, scale):
+    """bench's q8 sharded over 4 lanes through SQL at bench.py's sizes a
+    lane: 9 warm-up and 8 timed barriers of 8 scheduling rounds (1 person
+    and 3 auction chunks a lane each) with the launch counters and the
+    host reads; then the audit (every loss counter 0), the lanes' rings
+    against numpy over the consumed events and against the port's linear
+    q8 over the same chunks (4 rounds a sharded round, its pools, tables
+    and ring 4x as large)."""
+    import numpy as np
+
+    from risingwave_tpu_torch import kernels
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    cuda = device.type == "cuda"
+    cfg = _q8_shard_config(scale)
+    cap = cfg["chunk_capacity"]
+    cpb = CHUNKS_PER_BARRIER if cuda else 2
+    warm = WARMUP_BARRIERS if cuda else 1
+    eng = _q8_sharded_engine(torch, device, cfg)
+    job = eng.jobs[0]
+    eng.tick(barriers=warm, chunks_per_barrier=cpb)
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    reads0 = (job.window_reads, job.barrier_reads)
+    rows0 = eng.metrics.get("stream_rows_total", job="bench_mv")
+    barriers = Q8_SHARD_BARRIERS if cuda else 1
+    t0 = time.perf_counter()
+    eng.tick(barriers=barriers, chunks_per_barrier=cpb)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rows = barriers * cpb * 4 * SHARD_LANES * cap
+    if eng.metrics.get("stream_rows_total", job="bench_mv") - rows0 != rows:
+        fail("q8 sharded counted the wrong number of rows")
+    reads = (job.window_reads - reads0[0], job.barrier_reads - reads0[1])
+    rate = rows / dt
+    rounds = barriers * cpb
+    per = {k: launches[k] / rounds for k in ("crc32", "exchange",
+                                             "join_emit", "join_update")}
+    print(f"[main] q8 sharded {rows} rows (persons and auctions) in "
+          f"{dt:.3f} s = {rate:.0f} rows/s on {SHARD_LANES} lanes; host "
+          f"reads {reads[0]} emission totals + {reads[1]} barrier reads; "
+          f"launches per round {per}; port kernel launches "
+          f"{sum(launches.values()) / rounds:.1f} per round", flush=True)
+    eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    eng.tick(barriers=1, chunks_per_barrier=0)
+    losses = {k: v for k, v in _loss_counters(eng).items() if v}
+    if losses:
+        fail(f"q8 sharded loss counters {losses}")
+    print(f"[check] q8 sharded {check_q8(eng, cap, SHARD_LANES)}; every "
+          "loss counter 0", flush=True)
+    got = q8_ring_rows(eng, SHARD_LANES)
+    p_off = job.sources["p"].offset
+    del eng, job
+    if cuda:
+        torch.cuda.empty_cache()
+    lin_cfg = dict(cfg)
+    for k in ("join_left_table_size", "join_right_table_size",
+              "join_pool_size", "mv_ring_size"):
+        lin_cfg[k] = cfg[k] * SHARD_LANES
+    lin = Engine(PlannerConfig(**lin_cfg), device=device)
+    lin.execute(BENCH_SOURCES)
+    lin.execute(QUERY_SQL["q8"])
+    lin.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1000000")
+    for _ in range(warm + barriers):
+        lin.tick(barriers=1, chunks_per_barrier=cpb * SHARD_LANES)
+    if lin.jobs[0].sources["p"].offset != p_off:
+        fail(f"q8: the linear run consumed {lin.jobs[0].sources['p'].offset}"
+             f" persons, the sharded {p_off}")
+    lin.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+    lin.tick(barriers=1, chunks_per_barrier=0)
+    want = q8_ring_rows(lin)
+    if not np.array_equal(got, want):
+        fail(f"q8 sharded ring ({len(got)} rows) differs from the linear "
+             f"run's ({len(want)} rows) as a multiset")
+    print(f"[check] q8 sharded ring equals the port's linear run over the "
+          f"same {p_off} persons ({len(got)} rows)", flush=True)
+    del lin
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches, rate
+
+
+def phase_q8_sharded_durable(torch, device, scale):
+    """q8 sharded durably (``data_dir``): 8 barriers with a snapshot every
+    4 (K11 lanes over the stacked tree, then a lane delta through the
+    uploader), then a cold start from the directory whose every state
+    tensor equals the engine's that never stopped, before and after 2
+    more barriers, with equal rings."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from risingwave_tpu_torch import kernels
+
+    cuda = device.type == "cuda"
+    cfg = _q8_shard_config(scale)
+    cap = cfg["chunk_capacity"]
+    per = CHUNKS_PER_BARRIER if cuda else 1
+    n_b = 8 if cuda else 4
+    data_dir = tempfile.mkdtemp(prefix="rw_sharded_q8_")
+    try:
+        eng = _q8_sharded_engine(torch, device, cfg, data_dir,
+                                 snapshot=n_b // 2)
+        if cuda:
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        eng.tick(barriers=n_b, chunks_per_barrier=per)
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        job, store = eng.jobs[0], eng.checkpoint_store
+        rows = n_b * per * 4 * SHARD_LANES * cap
+        rate = rows / dt
+        commits = list(store.commits)
+        print(f"[durable] q8 sharded {rows} rows in {dt:.3f} s = {rate:.0f} "
+              f"rows/s ({n_b} barriers, {len(commits)} snapshots of "
+              f"{job._shadow.total_blocks} lane blocks); committed epoch "
+              f"{job.committed_epoch} = sealed {job.sealed_epoch}; commits "
+              f"(kind, bytes, dirty blocks) "
+              f"{[(c[2], c[3], c[4]) for c in commits]}", flush=True)
+        if job.committed_epoch != job.sealed_epoch or not commits \
+                or job._shadow.shard_rows != SHARD_LANES:
+            fail("q8 sharded: nothing committed through the lane shadow")
+        if cuda and any(c[2] == "delta" for c in commits) and \
+                launches["dirty_gather_lanes"] <= 0:
+            fail("q8 sharded: a lane delta without K11 lanes' gather")
+        t0 = time.perf_counter()
+        eng2 = _q8_sharded_engine(torch, device, cfg, data_dir,
+                                  snapshot=n_b // 2)
+        if cuda:
+            torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        _equal_states(torch, "q8 sharded cold start", eng2.jobs[0].states,
+                      job.states)
+        for name in ("p", "a"):
+            if eng2.jobs[0].sources[name].offset != job.sources[name].offset:
+                fail(f"q8 sharded cold start: reader {name} differs")
+        for e in (eng, eng2):
+            e.tick(barriers=2, chunks_per_barrier=per)
+        _equal_states(torch, "q8 sharded after the cold start",
+                      eng2.jobs[0].states, eng.jobs[0].states)
+        if not np.array_equal(q8_ring_rows(eng, SHARD_LANES),
+                              q8_ring_rows(eng2, SHARD_LANES)):
+            fail("q8 sharded: ring rows differ after the cold start")
+        print(f"[cold start] q8 sharded recovered the 4 lanes' epoch in "
+              f"{rec_s:.3f} s; every state tensor equals the engine that "
+              "never stopped, before and after 2 more barriers", flush=True)
+        del eng, eng2, job
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return launches, rate, {"recover_s": rec_s, "commits": [
+            (c[2], c[3], c[4], c[5]) for c in commits]}
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def run_q8_sharded_paths(torch, device, scale, results) -> dict:
+    """The slice's two paths; their launches join the kernels line.
+    Returns {path: (rows/s, info)}."""
+    out = {}
+    for path in Q8_SHARD_PATHS:
+        if path.endswith("durable"):
+            launches, rate, info = phase_q8_sharded_durable(torch, device,
+                                                            scale)
+        else:
+            launches, rate = phase_q8_sharded_main_path(torch, device, scale)
+            info = {}
+        out[path] = (rate, info)
+        for name, n in launches.items():
+            if name in results:
+                results[name]["launches"] += n
+                results[name]["launches_by_query"][path] = n
+        missing = [k for k in Q8_SHARD_PATH_KERNELS[path] if launches[k] <= 0]
         if device.type == "cuda" and missing:
             fail(f"{path}: kernels {missing} were not launched on the path")
     return out

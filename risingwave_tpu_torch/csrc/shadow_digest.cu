@@ -7,6 +7,18 @@
 // and `normalize_u64` (:36); and the delta branch of
 // risingwave_tpu/storage/checkpoint_store.py `prepare` (:249-280).
 //
+// K11 lanes (`rw_shadow_digest_lanes`, `rw_dirty_gather_lanes`): the same
+// kernels over a lane grid, replacing shadow.py `_copy_leaf_rows` (:122)
+// over digest.py `leaf_digest_lanes` (:130) and the lane walk of
+// checkpoint_store.py `prepare` (:246-270).  A leaf of `rows` lanes (a
+// lane-stacked state [rows, ...], m = n / rows elements a row) has
+// nb / rows blocks a row: block b is (r = b / nb_row, c = b % nb_row) and
+// covers elements [r*m + c*block, min(r*m + (c+1)*block, (r+1)*m)).  Its
+// words pack per row, are zero past the ROW's end and mix with the
+// row-local word index; each row's ragged tail copies always, and the
+// whole-leaf rule reads rows * nb_row <= 8 or rows * (m / block) < 2.  A
+// flat leaf is one row.
+//
 //   rw_shadow_digest  ONE launch for a whole state tree (up to
 //                     SD_MAX_LEAVES leaves, described by value in the
 //                     kernel's parameters).  Each digest block (`block`
@@ -72,9 +84,10 @@ struct SdLeaf {
   uint8_t* shadow;      // copy target (null: digest only)
   long long n;          // elements
   long long blk0;       // first block in the digest vector
-  int nb;               // blocks
+  int nb;               // blocks (of every row)
   int esize;            // element bytes: 1, 2, 4 or 8
   int flags;
+  int rows;             // lanes (1: a flat leaf)
 };
 
 struct SdDesc {
@@ -118,26 +131,48 @@ __device__ __forceinline__ uint64_t sd_f64_word(uint64_t bits) {
   return static_cast<uint64_t>(m2) ^ (static_cast<uint64_t>(e) << 53);
 }
 
-// Word `w` of block `b` of a leaf (zero past the end).
-__device__ __forceinline__ uint64_t sd_word(const SdLeaf& L, int block,
-                                            long long b, long long w) {
+// Word `w` of block `c` of a row of `m` elements at `row` (zero past the
+// row's end).
+__device__ __forceinline__ uint64_t sd_word(const SdLeaf& L, const uint8_t* row,
+                                            long long m, int block,
+                                            long long c, long long w) {
   if (L.esize == 8) {
-    const long long e = b * block + w;
-    if (e >= L.n) return 0;
-    const uint64_t v = reinterpret_cast<const uint64_t*>(L.live)[e];
+    const long long e = c * block + w;
+    if (e >= m) return 0;
+    const uint64_t v = reinterpret_cast<const uint64_t*>(row)[e];
     return (L.flags & SD_F64) ? sd_f64_word(v) : v;
   }
   const int k = 8 / L.esize;
-  const long long e0 = b * block + w * k;
-  if (e0 + k <= L.n) {
+  const long long e0 = c * block + w * k;
+  const uint8_t* p = row + e0 * L.esize;
+  if (e0 + k <= m && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
     // element j of the word at bit j*bits: a little-endian 8-byte load
-    return *reinterpret_cast<const uint64_t*>(L.live + e0 * L.esize);
+    return *reinterpret_cast<const uint64_t*>(p);
   }
   uint64_t v = 0;
-  for (int j = 0; j < k && e0 + j < L.n; ++j) {
-    v |= rw_load_word(L.live, L.esize, e0 + j) << (j * 8 * L.esize);
+  for (int j = 0; j < k && e0 + j < m; ++j) {
+    v |= rw_load_word(row, L.esize, e0 + j) << (j * 8 * L.esize);
   }
   return v;
+}
+
+// Block `b` of a leaf as (first element of its row, its block in the row,
+// the row's elements).
+template <bool LANES>
+__device__ __forceinline__ void sd_locate(const SdLeaf& L, long long b,
+                                          long long* row0, long long* c,
+                                          long long* m) {
+  if (!LANES) {
+    *row0 = 0;
+    *c = b;
+    *m = L.n;
+    return;
+  }
+  const long long nb_row = L.nb / L.rows;
+  const long long r = b / nb_row;
+  *m = L.n / L.rows;
+  *c = b - r * nb_row;
+  *row0 = r * *m;
 }
 
 // Copy `bytes` bytes src -> dst across the warp (16-byte units where both
@@ -157,6 +192,7 @@ __device__ __forceinline__ void sd_warp_copy(uint8_t* dst, const uint8_t* src,
   for (long long i = done + lane; i < bytes; i += 32) dst[i] = src[i];
 }
 
+template <bool LANES>
 __global__ void __launch_bounds__(SD_THREADS)
     shadow_digest_kernel(const __grid_constant__ SdDesc d,
                          unsigned long long* digests,
@@ -176,12 +212,15 @@ __global__ void __launch_bounds__(SD_THREADS)
   const uint64_t gold = RW_K1;
   for (long long g = warp0; g < d.total; g += n_warps) {
     const SdLeaf& L = leaves[sd_find_leaf(leaves, d.n_leaves, g)];
-    const long long b = g - L.blk0;
+    long long row0, c, m;
+    sd_locate<LANES>(L, g - L.blk0, &row0, &c, &m);
+    const uint8_t* row = L.live + row0 * L.esize;
     const long long wpb = static_cast<long long>(d.block) * L.esize / 8;
     uint64_t acc = 0;
     for (long long w = lane; w < wpb; w += 32) {
-      const uint64_t idx = static_cast<uint64_t>(b * wpb + w);
-      acc += rw_mix64(sd_word(L, d.block, b, w) ^ (idx * gold) ^ gold);
+      const uint64_t idx = static_cast<uint64_t>(c * wpb + w);
+      acc += rw_mix64(sd_word(L, row, m, d.block, c, w) ^ (idx * gold) ^
+                      gold);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -192,8 +231,8 @@ __global__ void __launch_bounds__(SD_THREADS)
     if (update && lane == 0) old = digests[g];
     old = __shfl_sync(0xffffffffu, old, 0);
     const bool dirty = !update || acc != old;
-    const long long e0 = b * d.block;
-    const long long e1 = min(e0 + d.block, L.n);
+    const long long e0 = row0 + c * d.block;
+    const long long e1 = row0 + min((c + 1) * d.block, m);
     const bool tail = e1 - e0 < d.block;
     if (dirty && lane == 0) {
       digests[g] = acc;
@@ -218,24 +257,40 @@ static int sd_grid(long long units) {
   return blocks < 1 ? 1 : static_cast<int>(blocks);
 }
 
-// update = 0: init (digest + copy everything; shadow null = digest only);
-// update = 1: diff against `digests`, copy the dirty blocks, count them.
-extern "C" int rw_shadow_digest(const SdDesc* desc, unsigned long long* digests,
-                                unsigned long long* dirty_count, int update,
-                                void* stream) {
+template <bool LANES>
+static int sd_launch(const SdDesc* desc, unsigned long long* digests,
+                     unsigned long long* dirty_count, int update,
+                     void* stream) {
   if (desc->n_leaves < 1 || desc->n_leaves > SD_MAX_LEAVES) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (desc->total > 0) {
-    shadow_digest_kernel<<<sd_grid(desc->total), SD_THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+    shadow_digest_kernel<LANES><<<sd_grid(desc->total), SD_THREADS, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
         *desc, digests, dirty_count, update);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// update = 0: init (digest + copy everything; shadow null = digest only);
+// update = 1: diff against `digests`, copy the dirty blocks, count them.
+extern "C" int rw_shadow_digest(const SdDesc* desc, unsigned long long* digests,
+                                unsigned long long* dirty_count, int update,
+                                void* stream) {
+  return sd_launch<false>(desc, digests, dirty_count, update, stream);
+}
+
+// The same over the lane grid (`SdLeaf.rows` lanes a leaf).
+extern "C" int rw_shadow_digest_lanes(const SdDesc* desc,
+                                      unsigned long long* digests,
+                                      unsigned long long* dirty_count,
+                                      int update, void* stream) {
+  return sd_launch<true>(desc, digests, dirty_count, update, stream);
+}
+
 // entries[2*i] = leaf << 32 | block, entries[2*i + 1] = byte offset of the
 // block in `staging`.
+template <bool LANES>
 __global__ void __launch_bounds__(SD_THREADS)
     dirty_gather_kernel(const __grid_constant__ SdDesc d,
                         const long long* entries, long long m,
@@ -252,9 +307,10 @@ __global__ void __launch_bounds__(SD_THREADS)
   for (long long i = warp0; i < m; i += n_warps) {
     const long long key = entries[2 * i];
     const SdLeaf& L = leaves[static_cast<int>(key >> 32)];
-    const long long b = key & 0xFFFFFFFFll;
-    const long long e0 = b * d.block;
-    const long long e1 = min(e0 + d.block, L.n);
+    long long row0, c, m;
+    sd_locate<LANES>(L, key & 0xFFFFFFFFll, &row0, &c, &m);
+    const long long e0 = row0 + c * d.block;
+    const long long e1 = row0 + min((c + 1) * d.block, m);
     if (e1 > e0) {
       sd_warp_copy(staging + entries[2 * i + 1], L.live + e0 * L.esize,
                    (e1 - e0) * L.esize, lane);
@@ -262,15 +318,27 @@ __global__ void __launch_bounds__(SD_THREADS)
   }
 }
 
-extern "C" int rw_dirty_gather(const SdDesc* desc, const long long* entries,
-                               long long m, uint8_t* staging, void* stream) {
+template <bool LANES>
+static int dg_launch(const SdDesc* desc, const long long* entries,
+                     long long m, uint8_t* staging, void* stream) {
   if (desc->n_leaves < 1 || desc->n_leaves > SD_MAX_LEAVES) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (m > 0) {
-    dirty_gather_kernel<<<sd_grid(m), SD_THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    dirty_gather_kernel<LANES><<<sd_grid(m), SD_THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
         *desc, entries, m, staging);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rw_dirty_gather(const SdDesc* desc, const long long* entries,
+                               long long m, uint8_t* staging, void* stream) {
+  return dg_launch<false>(desc, entries, m, staging, stream);
+}
+
+extern "C" int rw_dirty_gather_lanes(const SdDesc* desc,
+                                     const long long* entries, long long m,
+                                     uint8_t* staging, void* stream) {
+  return dg_launch<true>(desc, entries, m, staging, stream);
 }

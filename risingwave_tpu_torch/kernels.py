@@ -21,8 +21,8 @@ stream, and every entry returns ``cudaGetLastError()``, which
 
 ``KERNELS`` names each kernel entry point with the source it is built
 from (``compact.cu``, ``nexmark_events.cu``, ``tag_probe.cu``,
-``shadow_digest.cu``, ``str_cmp.cu`` and ``agg_minput.cu`` hold two
-each; ``topn_band.cu``,
+``str_cmp.cu`` and ``agg_minput.cu`` hold two each, ``shadow_digest.cu``
+four: K11 and its lane grid; ``topn_band.cu``,
 ``topn_flush.cu``, ``join_dense.cu``, ``dyn_filter.cu`` and
 ``str_match.cu`` two C entries each, all counted), and ``LAUNCHES``
 counts, per kernel, the
@@ -113,6 +113,9 @@ KERNELS = {
     "join_clean": "join_clean",
     "shadow_digest": "shadow_digest",
     "dirty_gather": "shadow_digest",
+    # K11 lanes: the same kernels over a lane-stacked tree's row grid
+    "shadow_digest_lanes": "shadow_digest",
+    "dirty_gather_lanes": "shadow_digest",
     "permute_rows": "permute",
     "topn_pool": "topn_pool",
     "topn_band": "topn_band",

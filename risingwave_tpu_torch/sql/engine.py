@@ -53,8 +53,16 @@ parallelism above 1 plans linearly, and without the pane rewrite, as the
 reference does on one device) as a ``ShardedStreamingJob``
 (``stream/sharded.py``): the two-phase rewrite for append-only two-phase
 calls, the hash exchange, a global top-N merged at the serving read
-(``serving_topn``).  A DAG plan stays on one lane (the sharded ``DagJob``
-is the next slice); ALTER PARALLELISM raises.
+(``serving_topn``).  A join-shaped DAG plan (the reference's :1901; q8
+among them) runs as a sharded ``DagJob`` over the same lanes: stateless
+and watermark-filter prefixes, hash exchanges (K2 + K24) on every join
+input keyed by its equi keys, and a per-key-safe chain after the join
+(project, filter, materialize, or an inner join's aggregation whose group
+keys cover the equi keys); its stacked tree checkpoints through K11 lanes.
+An MV over a sharded join MV attaches per lane when its chain is
+per-key-safe; a shape that needs an exchange on the attach edge (a
+reduced-key or global aggregation, a top-N, a join of two sharded MVs) is
+refused as the next slice.  ALTER PARALLELISM raises.
 
 The engine runs on the card: ``Engine(config)`` means
 ``device="cuda"`` and raises when no GPU is present; the CPU is used
@@ -96,6 +104,7 @@ from risingwave_tpu_torch.common.config import (
     SystemParams,
 )
 from risingwave_tpu_torch.common.device import resolve_device
+from risingwave_tpu_torch.common.hash import normalize_null_col
 from risingwave_tpu_torch.common.metrics import MetricsRegistry
 from risingwave_tpu_torch.common.tree import flatten, unflatten
 from risingwave_tpu_torch.common.types import DataType, Field, Schema
@@ -127,7 +136,13 @@ from risingwave_tpu_torch.sql.planner import (
     Planner,
     PlannerConfig,
 )
-from risingwave_tpu_torch.stream.dag import DagJob, FragNode, TemporalJoinNode
+from risingwave_tpu_torch.stream.dag import (
+    DagJob,
+    FragNode,
+    JoinNode,
+    SideNode,
+    TemporalJoinNode,
+)
 from risingwave_tpu_torch.stream.materialize import (
     AppendOnlyMaterialize,
     MaterializeExecutor,
@@ -217,6 +232,14 @@ class _ProjectingReader:
 
     def state(self):
         return self.inner.state()
+
+
+def _join_exchange_keys(key_exprs, chunk) -> list:
+    """A join input's routing keys (the reference's :134): each equi key
+    with a NULL's payload zeroed and no null plane, so a key nullable on
+    one side and not on the other routes equal values to one lane (a NULL
+    key matches nothing wherever it lands)."""
+    return [normalize_null_col(e.eval(chunk))[0] for e in key_exprs]
 
 
 class Engine:
@@ -669,8 +692,8 @@ class Engine:
     def _build_job(self, plan, name: str):
         """The runtime job of a plan, shared by MVs and sinks (the
         reference's :917).  With ``streaming_parallelism`` above 1 (0: every
-        lane) an eligible unary plan runs vnode-sharded over the engine's
-        lanes (``_try_sharded_job``).  Returns ``(job, terminal executor,
+        lane) an eligible plan runs vnode-sharded over the engine's lanes
+        (``_try_sharded_job``, ``_try_sharded_dag_plan``).  Returns ``(job, terminal executor,
         state index, (dag node ids, dag source names) or None,
         is_new_job)``."""
         ckpt_freq = int(self.system_params.get("checkpoint_frequency"))
@@ -829,10 +852,140 @@ class Engine:
 
     def _try_sharded_dag_plan(self, plan: DagPlan, name: str, par: int,
                               ckpt_freq: int):
-        """The reference's :1901 shards a join-shaped DAG over the mesh;
-        the port's sharded ``DagJob`` (with K11's lanes) is the next slice,
-        so every DAG plan runs on one lane."""
-        return None
+        """Shard a join-shaped DAG plan over min(``par``, lanes) lanes
+        (the reference's :1901-1967), or None when it is not eligible:
+        no MV taps, at least one hash join and no temporal join or
+        dynamic filter, prefixes of filters, windows, projections and
+        watermark filters, and after the joins filters, projections,
+        materializations or an inner join's aggregation whose group keys
+        cover the equi keys (``_agg_shard_safe``).  Every join input
+        exchanges by its side's equi keys; join output stays on its lane
+        (a joined row's stream key holds its join key).  Returns
+        ``_build_job``'s tuple."""
+        from risingwave_tpu_torch.stream.executor import (
+            FilterExecutor,
+            HopWindowExecutor,
+            ProjectExecutor,
+        )
+        from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+        from risingwave_tpu_torch.stream.watermark import (
+            WatermarkFilterExecutor,
+        )
+
+        if any(isinstance(r, MvTap) for r in plan.sources.values()):
+            return None
+        joins = [i for i, n in enumerate(plan.nodes)
+                 if isinstance(n, JoinNode)]
+        if not joins or any(isinstance(plan.nodes[i], SideNode)
+                            for i in joins):
+            return None
+        join_inputs = set()
+        for i in joins:
+            join_inputs.update((plan.nodes[i].left, plan.nodes[i].right))
+        for i, n in enumerate(plan.nodes):
+            if isinstance(n, JoinNode):
+                continue
+            if ("node", i) in join_inputs or n.input[0] == "source":
+                if any(not isinstance(ex, (FilterExecutor, HopWindowExecutor,
+                                           ProjectExecutor,
+                                           WatermarkFilterExecutor))
+                       for ex in n.fragment.executors):
+                    return None
+                continue
+            for ex in n.fragment.executors:
+                if isinstance(ex, (FilterExecutor, ProjectExecutor,
+                                   MaterializeExecutor,
+                                   AppendOnlyMaterialize)):
+                    continue
+                if isinstance(ex, HashAggExecutor) and \
+                        self._agg_shard_safe(ex, n, plan):
+                    continue
+                return None
+        n = min(par, self.lanes)
+        if n < 2:
+            return None
+        exchanges = {}
+        for i in joins:
+            join = plan.nodes[i].join
+            exchanges[(i, "left")] = (
+                lambda c, ks=join.left_keys: _join_exchange_keys(ks, c))
+            exchanges[(i, "right")] = (
+                lambda c, ks=join.right_keys: _join_exchange_keys(ks, c))
+        job = DagJob(plan.sources, plan.nodes, name,
+                     checkpoint_frequency=ckpt_freq, device=self.device,
+                     checkpoint_store=self.checkpoint_store, lanes=n,
+                     exchanges=exchanges, max_lanes=self.lanes)
+        terminal = plan.nodes[plan.mv_node].fragment.executors[plan.mv_index]
+        return job, terminal, (plan.mv_node, plan.mv_index), \
+            (list(range(len(plan.nodes))), list(plan.sources)), True
+
+    @staticmethod
+    def _agg_shard_safe(agg, node, plan: DagPlan) -> bool:
+        """Every group of ``agg`` lives on one lane (the reference's
+        :1608): its fragment consumes an INNER join directly (an outer
+        join's NULL-padded rows live on the unmatched side's lane), only
+        filters precede it, its group keys cover the join's equi-key
+        columns (rows route by join key), and it is the chain's only
+        aggregation."""
+        from risingwave_tpu_torch.stream.executor import FilterExecutor
+        from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+
+        kind, key = node.input
+        if kind != "node" or not isinstance(plan.nodes[key], JoinNode):
+            return False
+        join = plan.nodes[key].join
+        if getattr(join, "join_type", None) != "inner":
+            return False
+        for ex in node.fragment.executors:
+            if ex is agg:
+                break
+            if not isinstance(ex, FilterExecutor):
+                return False
+        if not all(isinstance(k, InputRef) for k in join.left_keys):
+            return False
+        group_idx = {g.index for _, g in agg.group_by
+                     if isinstance(g, InputRef)}
+        if not {k.index for k in join.left_keys} <= group_idx:
+            return False
+        return all(not isinstance(ex, HashAggExecutor) or ex is agg
+                   for ex in node.fragment.executors)
+
+    def _plan_mesh_attach(self, plan: DagPlan, taps: dict,
+                          mesh_jobs: set) -> None:
+        """MV-on-MV over a sharded join job (the reference's :1330, its
+        per-key-safe case): a chain of projections, filters and
+        materializations attaches per lane (a joined row's changelog
+        lives on its join key's lane).  Everything that needs an exchange
+        on the attach edge raises a ``PlanError``, as do the shapes the
+        reference refuses there."""
+        from risingwave_tpu_torch.stream.executor import (
+            FilterExecutor,
+            ProjectExecutor,
+        )
+
+        nxt = "the cross-shard attach (an exchange on the attach edge) " \
+            "is the next slice of the port"
+        if any(not isinstance(self.catalog.get(t.name).job, DagJob)
+               or self.catalog.get(t.name).job.n_shards == 1
+               for t in taps.values()):
+            raise PlanError("MV-on-MV joining a sharded job with an "
+                            f"un-sharded job: {nxt}")
+        if len(mesh_jobs) > 1:
+            raise PlanError(f"MV-on-MV joining two sharded MVs: {nxt}")
+        if len(taps) != len(plan.sources):
+            raise PlanError("MV-on-MV over a sharded join job cannot add "
+                            f"new sources: {nxt}")
+        for n in plan.nodes:
+            if isinstance(n, JoinNode):
+                raise PlanError(f"a join over a sharded job: {nxt}")
+            for ex in n.fragment.executors:
+                if not isinstance(ex, (FilterExecutor, ProjectExecutor,
+                                       MaterializeExecutor,
+                                       AppendOnlyMaterialize)):
+                    raise PlanError(
+                        "MV-on-MV over a sharded job supports project/"
+                        "filter/materialize chains (got "
+                        f"{type(ex).__name__}): {nxt}")
 
     # -- DAG jobs: joins, cascades, shared upstreams -----------------------
     def _ensure_dag(self, entry: CatalogEntry) -> tuple[DagJob, int]:
@@ -882,7 +1035,11 @@ class Engine:
     def _merge_dag_jobs(self, a: DagJob, b: DagJob) -> DagJob:
         """Fuse job ``b`` into ``a`` (a plan tapping MVs of two jobs):
         its sources and nodes move over with remapped ids, and its
-        catalog entries follow (the reference's :1681, one device)."""
+        catalog entries follow (the reference's :1681, one device; the
+        merge of sharded jobs is the next slice)."""
+        if a.n_shards > 1 or b.n_shards > 1:
+            raise PlanError("MV-on-MV joining sharded jobs: the cross-shard "
+                            "attach is the next slice of the port")
         offset = len(a.nodes)
         rename: dict[str, str] = {}
         for sname, reader in b.sources.items():
@@ -933,22 +1090,28 @@ class Engine:
         (the reference's :1122, one device): the occupied slots of a
         ``MaterializeExecutor`` table, or the filled span of an
         ``AppendOnlyMaterialize`` ring.  Its columns are the MV's own
-        stores, and its capacity the table's or the ring's size."""
+        stores, and its capacity the table's or the ring's size.  A
+        sharded job's chunk is lane-stacked (``[lanes, cap, ...]``, the
+        reference's :1138): each lane replays its own partition."""
         st = entry.job.states
         for i in entry.mv_state_index:
             st = st[i]
         ex = entry.mv_executor
+        lead = (entry.job.n_shards,) if getattr(entry.job, "n_shards",
+                                                1) > 1 else ()
         if isinstance(ex, MaterializeExecutor):
             valid = st.table.occupied
             cap = ex.table_size
         elif isinstance(ex, AppendOnlyMaterialize):
+            cursor = st.cursor[..., None] if lead else st.cursor
             valid = torch.arange(ex.ring_size, dtype=torch.int64,
-                                 device=self.device) < st.cursor
+                                 device=self.device) < cursor
             cap = ex.ring_size
         else:
             raise PlanError("cannot backfill from a sink")
         return Chunk(tuple(st.values),
-                     torch.zeros(cap, dtype=torch.int8, device=self.device),
+                     torch.zeros(lead + (cap,), dtype=torch.int8,
+                                 device=self.device),
                      valid, ex.in_schema)
 
     def _build_dag_job(self, plan: DagPlan, name: str, ckpt_freq: int):
@@ -978,6 +1141,11 @@ class Engine:
                 raise PlanError(
                     f"MV-on-MV over {type(entry.job).__name__} (sharded "
                     "upstream): next round")
+        mesh_jobs = {self.catalog.get(t.name).job for t in taps.values()
+                     if getattr(self.catalog.get(t.name).job, "n_shards",
+                                1) > 1}
+        if mesh_jobs:
+            self._plan_mesh_attach(plan, taps, mesh_jobs)
         tap_entries: dict[str, CatalogEntry] = {}
         target: DagJob | None = None
         for sname, tap in taps.items():
@@ -1152,7 +1320,8 @@ class Engine:
             _, state, _ = self.checkpoint_store.load(ckpt, qe)
             for i in entry.mv_state_index:
                 state = state[i]
-            if isinstance(entry.job, ShardedStreamingJob):
+            if isinstance(entry.job, ShardedStreamingJob) or \
+                    getattr(entry.job, "n_shards", 1) > 1:
                 # the checkpoint's stacked lanes, merged on the host
                 leaves, spec = flatten(state)
                 rows = []
@@ -1164,6 +1333,8 @@ class Engine:
         if isinstance(entry.job, ShardedStreamingJob):
             return entry.job.mv_rows(entry.mv_executor,
                                      entry.mv_state_index[0])
+        if isinstance(entry.job, DagJob):
+            return entry.job.mv_rows(entry.mv_executor, entry.mv_state_index)
         state = entry.job.states
         for i in entry.mv_state_index:
             state = state[i]

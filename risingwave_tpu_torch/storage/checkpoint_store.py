@@ -58,10 +58,10 @@ import torch
 from risingwave_tpu_torch.common.tree import flatten, unflatten
 from risingwave_tpu_torch.storage.digest import (
     DEFAULT_BLOCK_ELEMS,
+    block_counts,
     digest_leaves,
     dirty_gather,
     gather_plan,
-    leaf_block_count,
     shadow_digest,
 )
 from risingwave_tpu_torch.storage.integrity import (
@@ -225,12 +225,12 @@ class CheckpointStore:
                 .reshape(s)
         return payload
 
-    def _fetch_delta(self, job_name, flat, nblocks, dirty) -> dict:
+    def _fetch_delta(self, job_name, flat, nblocks, dirty, rows) -> dict:
         block = self.block_elems
         sizes = [x.numel() for x in flat]
         esizes = [x.element_size() for x in flat]
         entries, runs, total = gather_plan(dirty, nblocks, sizes, esizes,
-                                           block)
+                                           block, rows)
         payload = {}
         if not runs:
             return payload
@@ -246,7 +246,8 @@ class CheckpointStore:
         ed = st.get("entries_dev", 2 * m, torch.int64, False)
         ed[:2 * m].copy_(eh[:2 * m], non_blocking=True)
         staging = st.get("staging", total, torch.uint8, False)
-        dirty_gather(flat, ed[:2 * m].view(m, 2), staging, nblocks, block)
+        dirty_gather(flat, ed[:2 * m].view(m, 2), staging, nblocks, block,
+                     rows)
         host = st.get("host", total, torch.uint8, True)
         host[:total].copy_(staging[:total], non_blocking=True)
         torch.cuda.current_stream(dev).synchronize()
@@ -264,13 +265,16 @@ class CheckpointStore:
         """Stage one epoch's payload on the host.  ``leaves`` are
         tensors of any shape (read as flat element streams);
         ``digests`` (the shadow's int64 digest vector) skips the digest
-        pass.  After this returns the caller may mutate the leaves."""
-        if lanes is not None and any(ln is not None for ln in lanes):
-            raise NotImplementedError(
-                "per-shard digest lanes are not ported yet")
+        pass; ``lanes`` (per leaf ``(rows, row_elems)`` or None, a
+        per-shard shadow's) is that vector's block grid: a lane leaf's
+        dirty runs are cut row by row and never cross a row (the
+        reference's :246-270).  The store's own digest pass is flat.
+        After this returns the caller may mutate the leaves."""
         block = self.block_elems
         flat = [x.reshape(-1) for x in leaves]
-        nblocks = [leaf_block_count(s, block) for s in shapes]
+        if digests is None or lanes is None:
+            lanes = [None] * len(shapes)
+        nblocks = block_counts(shapes, lanes, block)
         digests = self._digests(job_name, flat, nblocks, digests)
         with self._lock:
             prev = self._last_digests.get(job_name)
@@ -288,7 +292,8 @@ class CheckpointStore:
         if kind == "full":
             payload = self._fetch_full(job_name, flat, shapes)
         else:
-            payload = self._fetch_delta(job_name, flat, nblocks, dirty)
+            payload = self._fetch_delta(job_name, flat, nblocks, dirty,
+                                        [ln[0] if ln else 1 for ln in lanes])
         n_dirty = digests.shape[0] if dirty is None else int(dirty.sum())
         return {"job": job_name, "epoch": epoch, "kind": kind,
                 "payload": payload, "treedef": treedef,

@@ -65,6 +65,8 @@ class UploadTask:
     error: Exception | None = None
     #: (trace_id, span_id) captured at seal time
     trace_ctx: tuple | None = None
+    #: the shadow's per-leaf (rows, row_elems) lane grid (None = flat)
+    lanes: Any = None
 
 
 class CheckpointUploader:
@@ -227,7 +229,7 @@ class CheckpointUploader:
                         prep = self.store.prepare(
                             self.job_name, task.epoch, task.leaves,
                             task.shapes, task.treedef, task.source_state,
-                            digests=task.digests)
+                            digests=task.digests, lanes=task.lanes)
                 task.fetched.set()
                 with GLOBAL_TRACE.span("ckpt_commit", ctx=task.trace_ctx,
                                        job=self.job_name, epoch=task.epoch):

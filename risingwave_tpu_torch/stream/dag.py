@@ -1,7 +1,7 @@
 """DAG streaming runtime: fragments and joins under one barrier loop.
 
 Port of ``DagJob`` from ``risingwave_tpu/stream/dag.py`` for one device,
-without staging or a mesh: ``FragNode`` / ``JoinNode`` / ``SideNode``
+without staging: ``FragNode`` / ``JoinNode`` / ``SideNode``
 (a two-input node without windows, driven by its ``apply(state, chunk,
 side)``, :416-420, its counters flat on its state, :1055-1065: the
 dynamic filter's ``FilterNode`` and the temporal join's
@@ -14,9 +14,9 @@ dynamic filter's ``FilterNode`` and the temporal join's
 ``inject_barrier``), ``_maintain``, ``_commit_checkpoint``, ``recover``
 and ``mv_rows``, and the aggregations' spill tiers
 (``_drain_spill_tiers`` and ``_restore_spill_tiers``, :1214-1350; the
-tiers are built with the job; the drain and the bookkeeping are
-shared with ``StreamingJob`` in ``CheckpointPipelineMixin``, and a node
-sends the drained changelog on through ``_propagate``): at every snapshot
+tiers are built with the job; the bookkeeping is shared with
+``StreamingJob`` in ``CheckpointPipelineMixin``, and a node sends the
+drained changelog on through ``_propagate``): at every snapshot
 barrier one host read of the fill counts decides which rings
 drain into their host tier (``stream/spill.py``), whose changelog then
 runs through the rest of the aggregation's node and downstream.
@@ -28,11 +28,33 @@ to a running job and drop them again; ``backfill_node`` (:1449, run
 eagerly) replays the upstream MV's current rows through a new node; and
 ``_commit_checkpoint`` delivers the sinks (``_deliver_all_sinks`` :1192)
 before the snapshot, or on the uploads' ack when the uploader is behind.
-Staged plans and the mesh are not ported.  One scheduling difference
-keeps the reference's states:
-a table reader read only by temporal joins' build sides, with nothing
-pending, is not pulled; the empty chunk it would return changes nothing
-but the join's overflow copy, which ``apply_idle_right`` makes.
+Staged plans are not ported.  One scheduling difference keeps the
+reference's states: a table reader read only by temporal joins' build
+sides, with nothing pending, is not pulled; the empty chunk it would
+return changes nothing but the join's overflow copy, which
+``apply_idle_right`` makes.
+
+The mesh (``DagJob(..., lanes=N, exchanges=...)``, the reference's
+``mesh`` branches): the states are the stacked tree (every leaf ``[N,
+...]``, ``stream/sharded.py``'s layout) and every traversal runs on its
+lane views (``_Lanes``), all lanes node by node in topological order.
+The reference runs the whole subgraph per shard inside ``shard_map``, its
+exchanges (:397) collectives; here a marked edge collects the N lanes'
+chunks as they are enqueued, runs one ``shuffle_chunk`` (K2 + K24) and
+delivers each lane its received chunk, so every lane's inbox order is
+the reference's per-shard order.  The trip counts are the reference's
+``pmax``: a join chunk drains the max over the lanes of its windows
+(:444) and a flush drain keeps every lane in while any lane has rows
+pending (:897); idle lanes emit and flush empty.  Watermarks are the min
+over the lanes (``pmin``, :939).  A generated source reads one
+``next_base()`` block a lane; a host-chunk source (a table) enters on
+lane 0 and the other lanes get an all-zero chunk of its shape.  Counters
+are summed over the lanes; spill tiers are per lane (``_s{s}`` keys);
+the shadow digests in lanes (K11 lanes, ``_shadow_shard_rows``);
+``recover`` takes the checkpoint's lane count up to the engine's;
+``mv_rows`` merges the lanes and ``backfill_node`` replays each lane's
+partition of a stacked snapshot chunk.  A linear job is one lane
+(``_OneLane``) through the same code.
 
 The reference traces a whole scheduling window into one program; here
 the same steps run eagerly, in the same order, and the device work
@@ -65,9 +87,12 @@ from typing import Any
 
 import torch
 
+from risingwave_tpu_torch.common.chunk import Chunk
 from risingwave_tpu_torch.common.device import resolve_device
 from risingwave_tpu_torch.common.epoch import EpochPair
+from risingwave_tpu_torch.common.tree import flatten, tree_map
 from risingwave_tpu_torch.connector.dml import TableSourceReader
+from risingwave_tpu_torch.parallel.exchange import shuffle_chunk
 from risingwave_tpu_torch.stream.fragment import (
     COUNTER_ATTRS,
     WM_NONE,
@@ -83,6 +108,8 @@ from risingwave_tpu_torch.stream.runtime import (
     deliver_sinks,
     restore_source,
 )
+from risingwave_tpu_torch.stream.sharded import _Lanes, stack_trees
+from risingwave_tpu_torch.stream.spill import chunk_to
 from risingwave_tpu_torch.stream.watermark import WatermarkFilterExecutor
 
 #: a dataflow edge endpoint: ("source", name) or ("node", node_id)
@@ -130,23 +157,61 @@ class TemporalJoinNode(SideNode):
     sends its chunk on; the build table rehashes at maintenance."""
 
 
+class _OneLane:
+    """A linear job's node states as one lane: ``views[0]`` is the node
+    list the traversal updates (``put`` assigns)."""
+
+    def __init__(self, states):
+        self.views = [list(states)]
+
+    def put(self, s: int, states, first: int = 0) -> None:
+        for e, st in enumerate(states, start=first):
+            self.views[0][e] = st
+
+
+def _lane_chunk(chunk: Chunk, s: int) -> Chunk:
+    """Lane ``s`` of a lane-stacked chunk (leaves ``[lanes, cap, ...]``)."""
+    return Chunk(tree_map(lambda x: x[s], chunk.columns), chunk.ops[s],
+                 chunk.valid[s], chunk.schema)
+
+
+def _zero_chunk(chunk: Chunk) -> Chunk:
+    """An all-zero chunk of ``chunk``'s shape: every payload 0, op 0, not
+    valid (the reference's ``np.zeros_like`` of a host chunk)."""
+    return Chunk(tree_map(torch.zeros_like, chunk.columns),
+                 torch.zeros_like(chunk.ops), torch.zeros_like(chunk.valid),
+                 chunk.schema)
+
+
 class DagJob(CheckpointPipelineMixin):
     """A streaming job over a DAG of fragments and joins.  ``nodes`` is a
-    topological list: a node's inputs are sources or earlier nodes."""
+    topological list: a node's inputs are sources or earlier nodes.
+
+    ``lanes=N`` (N > 1) runs the DAG vnode-sharded over N lanes of the
+    device: ``states`` are the stacked tree (every leaf ``[N, ...]``) and
+    ``exchanges[(node id, side)] -> key_fn`` marks the edges whose chunks
+    re-route to their key's lane (side None for a fragment's input)."""
 
     def __init__(self, sources: dict[str, Any], nodes: list,
                  name: str = "dag_job", checkpoint_frequency: int = 1,
-                 device=None, checkpoint_store=None, states=None):
+                 device=None, checkpoint_store=None, states=None,
+                 lanes: int = 1, exchanges: dict | None = None,
+                 max_lanes: int | None = None):
         self.sources = dict(sources)
         self.nodes: list = list(nodes)
         self.name = name
         self.device = resolve_device(device)
+        self.n_shards = lanes
+        #: the lanes the engine has (a checkpoint of more cannot load)
+        self.max_lanes = max_lanes or lanes
+        self.exchanges = dict(exchanges or {})
         self.checkpoint_frequency = checkpoint_frequency
         self.checkpoint_store = checkpoint_store
         self.maintenance_interval = 1
         self._ckpts_since_maintain = 0
         self.snapshot_interval = 1
         self._ckpts_since_snapshot = 0
+        self._lanes = None
         #: ``states`` adopts an existing state tree (a job upgraded in place)
         self.states = self._init_states() if states is None else states
         self.epoch = EpochPair.first()
@@ -157,26 +222,67 @@ class DagJob(CheckpointPipelineMixin):
         self.paused = False
         self._counters = None
         self.counter_labels: list[str] = []
-        #: host reads of a join chunk's emission total
+        #: host reads of a join chunk's emission total (all lanes at once)
         self.window_reads = 0
         #: host reads of the barrier's rehash/compaction conditions (one
         #: per barrier, plus one per rebuild)
         self.barrier_reads = 0
         #: maintenance passes that fired, by kind (rebuild, rebuild_pool,
-        #: compact_pool)
+        #: compact_pool), over every lane
         self.rehash_fired: dict[str, int] = {}
         #: host reads of the spill rings' fill counts
         self.spill_reads = 0
-        # one host tier per spill-enabled aggregation, keyed (node, exec)
+        # one host tier per spill-enabled aggregation (and lane)
         self._init_spill_tiers(self._spill_sites())
         self._rebuild()
 
+    # -- the state tree and its lanes -----------------------------------
+    @property
+    def states(self):
+        return self._states
+
+    @states.setter
+    def states(self, value) -> None:
+        self._states = value
+        self._lanes = None
+
+    @property
+    def lanes(self) -> _Lanes:
+        """Lane views of the stacked tree (a sharded job's)."""
+        if self._lanes is None:
+            self._lanes = _Lanes(self._states, self.n_shards)
+        return self._lanes
+
+    def _open(self):
+        """The states as lanes for one traversal: the stacked tree's views
+        (updated in place) or a linear job's node list."""
+        return self.lanes if self.n_shards > 1 else _OneLane(self.states)
+
+    def _close(self, lanes) -> None:
+        if self.n_shards == 1:
+            self.states = tuple(lanes.views[0])
+
+    def _lane_max(self, values) -> int:
+        """The max of per-lane device scalars (one host read)."""
+        if len(values) == 1:
+            return int(values[0])
+        return int(torch.stack(values).max())
+
+    @staticmethod
+    def _lane_min(values):
+        """The min over the lanes of a device scalar (the reference's
+        ``lax.pmin``)."""
+        return values[0] if len(values) == 1 else torch.stack(values).min()
+
     def _spill_sites(self) -> list:
-        return [((idx, j), f"{idx}_{j}", ex)
+        lanes = range(self.n_shards) if self.n_shards > 1 else (None,)
+        return [((idx, j) if s is None else (idx, j, s),
+                 f"{idx}_{j}" if s is None else f"{idx}_{j}_s{s}", ex)
                 for idx, node in enumerate(self.nodes)
                 if isinstance(node, FragNode)
                 for j, ex in enumerate(node.fragment.executors)
-                if getattr(ex, "spill_ring", 0)]
+                if getattr(ex, "spill_ring", 0)
+                for s in lanes]
 
     def _rebuild(self) -> None:
         """Recompute the consumer map, the pulls and the idle build
@@ -206,8 +312,15 @@ class DagJob(CheckpointPipelineMixin):
                     for i in users):
                 self._idle_builds[name] = users
 
+    def _node_state(self, node):
+        """A new node's state: per lane, stacked on the lane axis."""
+        if self.n_shards == 1:
+            return node.init_state(self.device)
+        return stack_trees([node.init_state(self.device)
+                            for _ in range(self.n_shards)])
+
     def _init_states(self):
-        return tuple(None if n is None else n.init_state(self.device)
+        return tuple(None if n is None else self._node_state(n)
                      for n in self.nodes)
 
     def _validate_ref(self, ref: Ref, at: int) -> None:
@@ -241,84 +354,133 @@ class DagJob(CheckpointPipelineMixin):
         return sorted(seen)
 
     # -- chunk path -----------------------------------------------------
-    def _propagate(self, new_states: list, injections) -> None:
-        """Push chunks through the DAG in topological order (a source
-        feeding both sides of a join delivers left first)."""
+    def _exchange(self, idx: int, side, chunks: list) -> list:
+        """Every lane's chunk across the hash exchange of a marked edge
+        (K2 + K24), else as it is."""
+        fn = self.exchanges.get((idx, side))
+        if fn is None or self.n_shards == 1:
+            return chunks
+        return shuffle_chunk(chunks, [fn(c) for c in chunks])
+
+    def _step_node(self, lanes, idx: int, chunks: list) -> list:
+        """A fragment node's step on every lane; returns the outputs."""
+        frag = self.nodes[idx].fragment
+        outs = []
+        for s, chunk in enumerate(chunks):
+            st, out = frag.step(lanes.views[s][idx], chunk)
+            lanes.put(s, (st,), idx)
+            outs.append(out)
+        return outs
+
+    def _propagate(self, lanes, injections) -> None:
+        """Push every lane's chunks through the DAG in topological order,
+        all lanes node by node (a source feeding both sides of a join
+        delivers left first); a marked edge exchanges the lanes' chunks
+        as they are enqueued, as the reference's ``_exchange`` (:397)."""
         inbox: dict[int, list] = {}
 
-        def enqueue(ref, chunk):
+        def enqueue(ref, chunks):
             for idx in self._consumers.get(ref, ()):
                 node = self.nodes[idx]
                 if isinstance(node, FragNode):
-                    inbox.setdefault(idx, []).append((chunk, None))
+                    inbox.setdefault(idx, []).append(
+                        (self._exchange(idx, None, chunks), None))
                 else:
-                    if node.left == ref:
-                        inbox.setdefault(idx, []).append((chunk, "left"))
-                    if node.right == ref:
-                        inbox.setdefault(idx, []).append((chunk, "right"))
+                    for side in ("left", "right"):
+                        if getattr(node, side) == ref:
+                            inbox.setdefault(idx, []).append(
+                                (self._exchange(idx, side, chunks), side))
 
-        for ref, chunk in injections:
-            enqueue(ref, chunk)
+        for ref, chunks in injections:
+            enqueue(ref, chunks)
         for idx, node in enumerate(self.nodes):
             if idx not in inbox:
                 continue
-            for chunk, side in inbox[idx]:
+            for chunks, side in inbox[idx]:
                 if isinstance(node, FragNode):
-                    new_states[idx], out = node.fragment.step(
-                        new_states[idx], chunk)
-                    if out is not None:
-                        enqueue(("node", idx), out)
+                    outs = self._step_node(lanes, idx, chunks)
+                    if outs[0] is not None:
+                        enqueue(("node", idx), outs)
                 else:
-                    self._apply_join_windowed(new_states, idx, chunk, side)
+                    self._apply_join_windowed(lanes, idx, chunks, side)
 
-    def _apply_join_windowed(self, new_states: list, idx: int, chunk,
+    def _apply_join_windowed(self, lanes, idx: int, chunks: list,
                              side: str) -> None:
         """Drive a join with windowed emission: window 0 propagates
-        first, then (after one host read of the emission total) the
-        further windows, in order, each through the downstream nodes.  A
-        SideNode applies the chunk and sends its output on."""
+        first, then (after one host read of the emission total, the max
+        over the lanes: every lane runs the same windows, an idle lane's
+        empty) the further windows, in order, each through the downstream
+        nodes.  A SideNode applies the chunk and sends its output on."""
         join = self.nodes[idx].join
+        n = len(chunks)
         if isinstance(self.nodes[idx], SideNode):
-            new_states[idx], out = join.apply(new_states[idx], chunk, side)
-            if out is not None:
-                self._propagate(new_states, [(("node", idx), out)])
+            outs = []
+            for s, chunk in enumerate(chunks):
+                st, out = join.apply(lanes.views[s][idx], chunk, side)
+                lanes.put(s, (st,), idx)
+                outs.append(out)
+            if outs[0] is not None:
+                self._propagate(lanes, [(("node", idx), outs)])
             return
-        new_states[idx], pending = join.apply_begin(new_states[idx], chunk,
-                                                    side)
+        pending = []
+        for s, chunk in enumerate(chunks):
+            st, p = join.apply_begin(lanes.views[s][idx], chunk, side)
+            lanes.put(s, (st,), idx)
+            pending.append(p)
         if not self._consumers.get(("node", idx)):
             return  # terminal join: emissions have no consumers
-        build_rows = join.build_rows_of(new_states[idx], side)
-        first, probe_bound = join.emit_window(build_rows, pending, 0, side)
-        new_states[idx].emit_overflow.add_(probe_bound)
-        self._propagate(new_states, [(("node", idx), first)])
-        max_w = join.max_windows(chunk.capacity)
+        build = [join.build_rows_of(lanes.views[s][idx], side)
+                 for s in range(n)]
+
+        def window(w: int) -> None:
+            outs = []
+            for s in range(n):
+                out, probe_bound = join.emit_window(build[s], pending[s], w,
+                                                    side)
+                lanes.views[s][idx].emit_overflow.add_(probe_bound)
+                outs.append(out)
+            self._propagate(lanes, [(("node", idx), outs)])
+
+        window(0)
+        max_w = join.max_windows(chunks[0].capacity)
         if max_w <= 1:
             return
-        total = int(pending.total)  # the one host read per join chunk
+        # the one host read per join chunk
+        total = self._lane_max([p.total for p in pending])
         self.window_reads += 1
-        n_w = min(-(-total // join.out_capacity), max_w)
-        for w in range(1, n_w):
-            window, probe_bound = join.emit_window(build_rows, pending, w,
-                                                   side)
-            new_states[idx].emit_overflow.add_(probe_bound)
-            self._propagate(new_states, [(("node", idx), window)])
+        for w in range(1, min(-(-total // join.out_capacity), max_w)):
+            window(w)
 
     def run_chunk(self, src_name: str) -> int:
-        """Pull one chunk from one source through its reachable nodes."""
+        """Pull one chunk from one source (one a lane) through its
+        reachable nodes.  A sharded job's generated source reads one
+        ``next_base()`` block a lane; a host-chunk source (a table) enters
+        on lane 0, the other lanes an all-zero chunk."""
         if self.paused:
             return 0
         reader = self.sources[src_name]
-        new_states = list(self.states)
+        lanes = self._open()
+        if self.n_shards > 1:
+            if hasattr(reader, "impl") and hasattr(reader, "next_base"):
+                bases = [reader.next_base() for _ in range(self.n_shards)]
+                chunks = [reader.impl(k0, reader.cap) for k0 in bases]
+                rows = reader.cap * self.n_shards
+            else:
+                chunk = reader.next_chunk()
+                chunks = [chunk] + [_zero_chunk(chunk)] * (self.n_shards - 1)
+                rows = chunk.capacity
+            self._propagate(lanes, [(("source", src_name), chunks)])
+            return rows
         idle = self._idle_builds.get(src_name)
         if idle and reader.pending() == 0:
             for idx in idle:
-                new_states[idx] = self.nodes[idx].join.apply_idle_right(
-                    new_states[idx])
-            self.states = tuple(new_states)
+                lanes.put(0, (self.nodes[idx].join.apply_idle_right(
+                    lanes.views[0][idx]),), idx)
+            self._close(lanes)
             return reader.cap
         chunk = reader.next_chunk()
-        self._propagate(new_states, [(("source", src_name), chunk)])
-        self.states = tuple(new_states)
+        self._propagate(lanes, [(("source", src_name), [chunk])])
+        self._close(lanes)
         return chunk.capacity
 
     def _compute_pulls(self) -> list[tuple[str, int]]:
@@ -357,57 +519,73 @@ class DagJob(CheckpointPipelineMixin):
         return sum(self.chunk_round() for _ in range(n))
 
     # -- barrier --------------------------------------------------------
-    def _flush_node(self, new_states: list, idx: int, epoch) -> None:
-        """Flush one fragment node; emissions cross downstream nodes,
-        re-flushing while the node reports pending output."""
+    def _pending_max(self, frag, lanes, idx: int) -> int | None:
+        tots = [frag.pending_total(v[idx]) for v in lanes.views]
+        return None if tots[0] is None else self._lane_max(tots)
+
+    def _flush_node(self, lanes, idx: int, epoch) -> None:
+        """Flush one fragment node on every lane; emissions cross
+        downstream nodes, re-flushing every lane while any lane reports
+        pending output (the reference's ``pmax``)."""
         frag = self.nodes[idx].fragment
         for rounds in range(frag.MAX_DRAIN_ROUNDS + 1):
             if rounds:
-                tot = frag.pending_total(new_states[idx])
-                if tot is None or int(tot) == 0:
+                tot = self._pending_max(frag, lanes, idx)
+                if not tot:
                     break
-            st, outs = frag.flush(new_states[idx], epoch)
-            new_states[idx] = st
-            for out in outs:
-                self._propagate(new_states, [(("node", idx), out)])
-            if frag.pending_total(st) is None:
+            outs = []
+            for s, v in enumerate(lanes.views):
+                st, o = frag.flush(v[idx], epoch)
+                lanes.put(s, (st,), idx)
+                outs.append(o)
+            for k in range(len(outs[0])):
+                self._propagate(lanes, [(("node", idx), [o[k] for o in outs])])
+            if frag.pending_total(lanes.views[0][idx]) is None:
                 break
 
-    def _flush_all(self, new_states: list, epoch) -> None:
+    def _flush_all(self, lanes, epoch) -> None:
         for idx, node in enumerate(self.nodes):
             if isinstance(node, FragNode):
-                self._flush_node(new_states, idx, epoch)
+                self._flush_node(lanes, idx, epoch)
 
-    def _node_watermarks(self, new_states: list, idx: int):
-        """(Watermark, has) device pairs of a fragment node's filters."""
-        out = []
-        for i, ex in enumerate(self.nodes[idx].fragment.executors):
-            if not isinstance(ex, WatermarkFilterExecutor):
-                continue
-            raw = new_states[idx][i].max_ts
-            has = raw != WM_NONE
-            val = torch.where(has, raw - ex.delay_us,
-                              torch.full_like(raw, WM_SAFE_FLOOR))
-            out.append((Watermark(ex.ts_col, val), has))
-        return out
+    def _wm_value(self, lanes, idx: int, i: int, ex):
+        """(value, has) of watermark filter ``i`` of node ``idx``: its
+        max_ts, the min over the lanes, less the delay."""
+        raw = self._lane_min([v[idx][i].max_ts for v in lanes.views])
+        has = raw != WM_NONE
+        val = torch.where(has, raw - ex.delay_us,
+                          torch.full_like(raw, WM_SAFE_FLOOR))
+        return val, has
 
-    def _wm_all(self, new_states: list) -> None:
-        """Watermarks within each fragment, then across node boundaries
-        to downstream fragment nodes; joins block propagation."""
+    def _node_watermarks(self, lanes, idx: int) -> list:
+        """The watermarks of a fragment node's filters (device values)."""
+        return [Watermark(ex.ts_col, self._wm_value(lanes, idx, i, ex)[0])
+                for i, ex in enumerate(self.nodes[idx].fragment.executors)
+                if isinstance(ex, WatermarkFilterExecutor)]
+
+    def _on_watermark(self, lanes, idx: int, wm) -> None:
+        frag = self.nodes[idx].fragment
+        for s, v in enumerate(lanes.views):
+            lanes.put(s, (frag.on_watermark(v[idx], wm),), idx)
+
+    def _wm_all(self, lanes) -> None:
+        """Watermarks within each fragment (the fragment's own pass, with
+        the min over the lanes), then across node boundaries to
+        downstream fragment nodes; joins block propagation."""
         for idx, node in enumerate(self.nodes):
             if not isinstance(node, FragNode):
                 continue
-            new_states[idx] = node.fragment._propagate_watermarks(
-                new_states[idx])
-            for wm, _ in self._node_watermarks(new_states, idx):
+            for i, ex in enumerate(node.fragment.executors):
+                if isinstance(ex, WatermarkFilterExecutor):
+                    val, _ = self._wm_value(lanes, idx, i, ex)
+                    self._on_watermark(lanes, idx, Watermark(ex.ts_col, val))
+            for wm in self._node_watermarks(lanes, idx):
                 for j in self.downstream_closure(("node", idx),
                                                  through_joins=False):
-                    dn = self.nodes[j]
-                    if isinstance(dn, FragNode):
-                        new_states[j] = dn.fragment.on_watermark(
-                            new_states[j], wm)
+                    if isinstance(self.nodes[j], FragNode):
+                        self._on_watermark(lanes, j, wm)
 
-    def _upstream_wm(self, new_states: list, ref: Ref, src_col: int):
+    def _upstream_wm(self, lanes, ref: Ref, src_col: int):
         """Walk a join input upstream to its watermark filter on
         ``src_col``: (value, has) device scalars, or None."""
         while True:
@@ -420,19 +598,16 @@ class DagJob(CheckpointPipelineMixin):
             for i, ex in enumerate(node.fragment.executors):
                 if isinstance(ex, WatermarkFilterExecutor) \
                         and ex.ts_col == src_col:
-                    raw = new_states[key][i].max_ts
-                    has = raw != WM_NONE
-                    val = torch.where(has, raw - ex.delay_us,
-                                      torch.full_like(raw, WM_SAFE_FLOOR))
-                    return val, has
+                    return self._wm_value(lanes, key, i, ex)
             ref = node.input
 
-    def _clean_joins(self, new_states: list) -> None:
+    def _clean_joins(self, lanes) -> None:
         """Watermark cleaning of windowed joins by the MIN watermark of
-        both inputs, then ``maybe_rehash``.  The reference's
-        ``lax.cond(has_all, ...)`` becomes a threshold that cleans
-        nothing while a watermark is missing, and the rehash conditions
-        (false without one) are read in one readback for all joins."""
+        both inputs (over the lanes), then ``maybe_rehash`` on every lane.
+        The reference's ``lax.cond(has_all, ...)`` becomes a threshold
+        that cleans nothing while a watermark is missing, and the rehash
+        conditions (false without one) of every join and lane are read in
+        one readback."""
         plans = []
         for idx, node in enumerate(self.nodes):
             if not isinstance(node, JoinNode) or isinstance(node, SideNode):
@@ -444,7 +619,7 @@ class DagJob(CheckpointPipelineMixin):
                 clean = getattr(join, f"{side}_clean", None)
                 if clean is None:
                     continue
-                wm = self._upstream_wm(new_states, ref, clean[2])
+                wm = self._upstream_wm(lanes, ref, clean[2])
                 if wm is None:
                     ok = False
                     break
@@ -456,45 +631,48 @@ class DagJob(CheckpointPipelineMixin):
             for val, has in wms[1:]:
                 has_all = has_all & has
                 min_wm = torch.minimum(min_wm, val)
-            stats = {}
-            for side in ("left", "right"):
-                clean = getattr(join, f"{side}_clean", None)
-                if clean is None:
-                    continue
-                _, lag, _ = clean
-                thr = torch.where(has_all, min_wm - lag,
-                                  torch.full_like(min_wm, INT64_MIN))
-                stats[side] = join.clean_side(new_states[idx], side, thr)
-            conds = join.rehash_decisions(new_states[idx], stats) & has_all
-            plans.append((idx, conds))
+            for s, v in enumerate(lanes.views):
+                stats = {}
+                for side in ("left", "right"):
+                    clean = getattr(join, f"{side}_clean", None)
+                    if clean is None:
+                        continue
+                    _, lag, _ = clean
+                    thr = torch.where(has_all, min_wm - lag,
+                                      torch.full_like(min_wm, INT64_MIN))
+                    stats[side] = join.clean_side(v[idx], side, thr)
+                conds = join.rehash_decisions(v[idx], stats) & has_all
+                plans.append((idx, s, conds))
         if not plans:
             return
-        flat = torch.cat([c for _, c in plans]).tolist()  # one readback
+        flat = torch.cat([c for _, _, c in plans]).tolist()  # one readback
         self.barrier_reads += 1
-        for k, (idx, _) in enumerate(plans):
+        for k, (idx, s, _) in enumerate(plans):
             decisions = [bool(v) for v in flat[4 * k: 4 * k + 4]]
             if any(decisions):
                 rebuilds = self.rehash_fired.get("rebuild_pool", 0)
-                new_states[idx] = self.nodes[idx].join.apply_rehash(
-                    new_states[idx], decisions, self.rehash_fired)
+                lanes.put(s, (self.nodes[idx].join.apply_rehash(
+                    lanes.views[s][idx], decisions, self.rehash_fired),),
+                    idx)
                 # each rebuild re-reads its side's compaction condition
                 self.barrier_reads += \
                     self.rehash_fired.get("rebuild_pool", 0) - rebuilds
 
-    def _collect_counters(self, new_states: list):
+    def _lane_counters(self, states) -> tuple[list[str], list]:
+        """(labels, int64 device vectors) of one lane's node states."""
         labels: list[str] = []
         vals: list[torch.Tensor] = []
         for idx, node in enumerate(self.nodes):
             if isinstance(node, FragNode):
                 sub_labels, sub = collect_counters(node.fragment.executors,
-                                                   new_states[idx])
+                                                   states[idx])
                 labels.extend(f"n{idx}.{x}" for x in sub_labels)
                 if sub is not None:
                     vals.append(sub)
                 continue
             if node is None:
                 continue
-            jstate = new_states[idx]
+            jstate = states[idx]
             if isinstance(node, SideNode):
                 for attr in COUNTER_ATTRS:
                     if hasattr(jstate, attr):
@@ -510,25 +688,35 @@ class DagJob(CheckpointPipelineMixin):
                         vals.append(getattr(s, attr).to(torch.int64)[None])
             labels.append(f"n{idx}.join.emit_overflow")
             vals.append(jstate.emit_overflow.to(torch.int64)[None])
-        counters = torch.cat(vals) if vals else \
-            torch.zeros(0, dtype=torch.int64, device=self.device)
+        return labels, vals
+
+    def _collect_counters(self, lanes):
+        """Every counter, summed over the lanes (one device vector)."""
+        per_lane = []
+        labels: list[str] = []
+        for v in lanes.views:
+            labels, vals = self._lane_counters(v)
+            per_lane.append(torch.cat(vals) if vals else
+                            torch.zeros(0, dtype=torch.int64,
+                                        device=self.device))
+        counters = per_lane[0] if len(per_lane) == 1 \
+            else torch.stack(per_lane).sum(0)
         return labels, counters
 
-    def _barrier_impl(self, states, epoch):
-        new_states = list(states)
-        self._flush_all(new_states, epoch)
+    def _barrier(self, epoch) -> None:
+        lanes = self._open()
+        self._flush_all(lanes, epoch)
         # watermarks advance, then a second flush pass
-        self._wm_all(new_states)
-        self._flush_all(new_states, epoch)
-        self._clean_joins(new_states)
-        labels, counters = self._collect_counters(new_states)
-        self.counter_labels = labels
-        return tuple(new_states), counters
+        self._wm_all(lanes)
+        self._flush_all(lanes, epoch)
+        self._clean_joins(lanes)
+        self.counter_labels, self._counters = self._collect_counters(lanes)
+        self._close(lanes)
 
     def inject_barrier(self) -> None:
         self.barriers_seen += 1
         sealed = self.epoch.curr.value
-        self.states, self._counters = self._barrier_impl(self.states, sealed)
+        self._barrier(sealed)
         if self.barriers_seen % self.checkpoint_frequency == 0:
             self._ckpts_since_maintain += 1
             if self._ckpts_since_maintain >= self.maintenance_interval:
@@ -542,18 +730,19 @@ class DagJob(CheckpointPipelineMixin):
         self.epoch = self.epoch.bump()
 
     # -- maintenance ----------------------------------------------------
-    def _maintain_impl(self, states):
-        new_states = list(states)
+    def _maintain_impl(self) -> None:
+        lanes = self._open()
         for idx, node in enumerate(self.nodes):
-            if isinstance(node, FragNode):
-                new_states[idx] = node.fragment.maintain(new_states[idx])
-            elif node is not None and not isinstance(node, FilterNode):
-                new_states[idx] = node.join.maybe_rehash(new_states[idx])
-        return tuple(new_states)
+            for s, v in enumerate(lanes.views):
+                if isinstance(node, FragNode):
+                    lanes.put(s, (node.fragment.maintain(v[idx]),), idx)
+                elif node is not None and not isinstance(node, FilterNode):
+                    lanes.put(s, (node.join.maybe_rehash(v[idx]),), idx)
+        self._close(lanes)
 
     def _maintain(self, sealed) -> None:
         """Rehash + the counters readback (the maintenance sync)."""
-        self.states = self._maintain_impl(self.states)
+        self._maintain_impl()
         if self._counters is None:
             return
         residual = check_counter_values(self.name, self.counter_labels,
@@ -561,8 +750,7 @@ class DagJob(CheckpointPipelineMixin):
         for _ in range(64):
             if not residual:
                 break
-            self.states, self._counters = self._barrier_impl(self.states,
-                                                             sealed)
+            self._barrier(sealed)
             residual = check_counter_values(self.name, self.counter_labels,
                                             self._counters.cpu().numpy())
 
@@ -581,10 +769,11 @@ class DagJob(CheckpointPipelineMixin):
 
     def _commit_checkpoint(self, sealed) -> None:
         """Drain the spill rings into their tiers, deliver the sinks (or
-        defer them to the uploads' ack), then seal the epoch with the
-        readers' cursors and the tiers' states."""
+        defer them to the uploads' ack; a sharded job has none), then
+        seal the epoch with the readers' cursors and the tiers' states."""
         self._drain_spill_tiers(sealed)
-        self._deliver_or_defer(sealed)
+        if self.n_shards == 1:
+            self._deliver_or_defer(sealed)
         self._snapshot_and_save(sealed)
 
     def _snapshot_and_save(self, epoch: int) -> None:
@@ -592,6 +781,46 @@ class DagJob(CheckpointPipelineMixin):
         topology reseed: the shadow update and the durable upload."""
         self._snapshot_commit(epoch, self._source_states(),
                               *self._spill_snapshot())
+
+    def _shadow_shard_rows(self) -> int | None:
+        """A sharded job's stacked tree digests in lanes (K11 lanes)."""
+        return self.n_shards if self.n_shards > 1 else None
+
+    def _tier(self, idx: int, j: int, s: int):
+        """Lane ``s``'s host tier of aggregation ``j`` of node ``idx``."""
+        return self._spill_tiers[(idx, j) if self.n_shards == 1
+                                 else (idx, j, s)][1]
+
+    def _drain_spill_tiers(self, epoch_val) -> None:
+        """Snapshot-barrier hook: one host read of every ring's fill count
+        (over the lanes); a site with rows drains every lane's ring into
+        that lane's host tier, and the tiers' changelogs run through the
+        rest of the aggregation's node on their lanes and then downstream
+        together."""
+        sites = sorted({key[:2] for key in self._spill_tiers})
+        counts = self._read_spill_counts(
+            [self.states[idx][j].spill_count.sum() for idx, j in sites])
+        for (idx, j), n in zip(sites, counts):
+            if n == 0:
+                continue
+            executors = self.nodes[idx].fragment.executors
+            lanes = self._open()
+            outs = []
+            for s, v in enumerate(lanes.views):
+                states = list(v[idx])
+                states[j], chunk = executors[j].drain_spill(states[j])
+                out = chunk_to(self._tier(idx, j, s).process(chunk,
+                                                             epoch_val),
+                               self.device)
+                for k in range(j + 1, len(executors)):
+                    if out is None:
+                        break
+                    states[k], out = executors[k].apply(states[k], out)
+                lanes.put(s, (tuple(states),), idx)
+                outs.append(out)
+            if outs[0] is not None:
+                self._propagate(lanes, [(("node", idx), outs)])
+            self._close(lanes)
 
     # -- topology changes -------------------------------------------------
     def add_source(self, name: str, reader) -> None:
@@ -612,12 +841,13 @@ class DagJob(CheckpointPipelineMixin):
     def add_nodes(self, nodes: list) -> list[int]:
         """Attach new nodes (a cascaded MV's or a sink's fragment);
         returns their ids.  Existing states are kept; the new nodes start
-        empty, and callers backfill them (``backfill_node``)."""
+        empty (stacked on the lanes of a sharded job), and callers
+        backfill them (``backfill_node``)."""
         ids = []
         states = list(self.states)
         for n in nodes:
             self.nodes.append(n)
-            states.append(n.init_state(self.device))
+            states.append(self._node_state(n))
             ids.append(len(self.nodes) - 1)
         self.states = tuple(states)
         self._sync_spill_tiers()
@@ -643,12 +873,14 @@ class DagJob(CheckpointPipelineMixin):
             self.nodes[i] = None
             states[i] = None
         self.states = tuple(states)
+        for key in [k for k in self.exchanges if k[0] in drop]:
+            del self.exchanges[key]
         self._sync_spill_tiers()
         self._rebuild()
 
     def _sync_spill_tiers(self) -> None:
-        """A tier for every spill-enabled aggregation of a new node; the
-        tiers of removed nodes go."""
+        """A tier for every spill-enabled aggregation (and lane) of a new
+        node; the tiers of removed nodes go."""
         sites = {key: (suffix, ex) for key, suffix, ex in self._spill_sites()}
         for key in [k for k in self._spill_tiers if k not in sites]:
             del self._spill_tiers[key]
@@ -671,41 +903,43 @@ class DagJob(CheckpointPipelineMixin):
         downstream of it (a freshly attached cascade consuming the
         upstream MV's current rows, the reference's :1449 with
         arrangement backfill collapsed to a snapshot replay); ``side``
-        names a join node's side.  The chunk's columns are the upstream
-        MV's own stores: nothing here writes them."""
+        names a join node's side.  A sharded job's chunk is lane-stacked
+        and each lane replays its own partition (:1467).  The chunk's
+        columns are the upstream MV's own stores: nothing here writes
+        them."""
+        node = self.nodes[node_id]
         for chunk in chunks:
-            new_states = list(self.states)
-            node = self.nodes[node_id]
+            lanes = self._open()
+            per = [chunk] if self.n_shards == 1 else \
+                [_lane_chunk(chunk, s) for s in range(self.n_shards)]
             if isinstance(node, FragNode):
-                new_states[node_id], out = node.fragment.step(
-                    new_states[node_id], chunk)
-                if out is not None:
-                    self._propagate(new_states, [(("node", node_id), out)])
+                outs = self._step_node(lanes, node_id,
+                                       self._exchange(node_id, None, per))
+                if outs[0] is not None:
+                    self._propagate(lanes, [(("node", node_id), outs)])
             else:
-                self._apply_join_windowed(new_states, node_id, chunk, side)
-            self.states = tuple(new_states)
-
-    # the spill drain's view of a node: its states and executors, and
-    # the drained changelog's way downstream
-    def _node_states(self, idx):
-        return self.states[idx]
-
-    def _node_executors(self, idx):
-        return self.nodes[idx].fragment.executors
-
-    def _spill_downstream(self, idx, node_states, out) -> None:
-        new_states = list(self.states)
-        new_states[idx] = node_states
-        if out is not None:
-            self._propagate(new_states, [(("node", idx), out)])
-        self.states = tuple(new_states)
+                self._apply_join_windowed(
+                    lanes, node_id, self._exchange(node_id, side, per), side)
+            self._close(lanes)
 
     def recover(self, epoch: int | None = None) -> None:
         """Reset to the last committed checkpoint (states and readers):
-        the durable store's, else the shadow, else the initial state."""
+        the durable store's, else the shadow, else the initial state.  A
+        sharded job takes the checkpoint's lane count, up to the engine's
+        lanes."""
         loaded = self._recover_pipeline(epoch)
         if loaded is not None:
-            epoch_v, self.states, src_state = loaded
+            epoch_v, states, src_state = loaded
+            if self.n_shards > 1:
+                n_ckpt = flatten(states)[0][0].shape[0]
+                if n_ckpt > self.max_lanes:
+                    raise RuntimeError(
+                        f"checkpoint has {n_ckpt} shards but the engine "
+                        f"has {self.max_lanes} lanes")
+                if n_ckpt != self.n_shards:
+                    self.n_shards = n_ckpt
+                    self._sync_spill_tiers()
+            self.states = states
             for name, src in self.sources.items():
                 restore_source(src, src_state.get(name, {}))
             self._rewind_spill_tiers(epoch_v)
@@ -724,8 +958,11 @@ class DagJob(CheckpointPipelineMixin):
         self._restore_spill_tiers(snap)
 
     def mv_rows(self, mv_executor, state_index) -> list[tuple]:
-        st = self.states
-        for i in state_index:
-            st = st[i]
-        return mv_executor.to_host(st)
-
+        """The MV's rows: a sharded job's lanes merged, lane by lane."""
+        rows = []
+        for v in self._open().views:
+            st = v
+            for i in state_index:
+                st = st[i]
+            rows.extend(mv_executor.to_host(st))
+        return rows

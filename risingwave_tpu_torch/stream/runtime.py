@@ -20,10 +20,10 @@ upload acks.  ``recover()`` prefers the durable store and else restores
 the shadow.  The aggregations' spill tiers (``stream/spill.py``) ride
 the same commit: every snapshot barrier first drains the non-empty
 rings into their host tiers (one host read of the fill counts, in
-``StreamingJob`` and ``DagJob``); each snapshot carries host copies of
-the tiers (``CheckpointSnapshot.spill``), the uploader saves them first
-under their own store keys, and ``rewind_spill_tier`` rewinds a tier
-on a durable recover.  Sinks deliver at the same commit
+``StreamingJob._drain_spill_tiers`` and ``DagJob``'s); each snapshot
+carries host copies of the tiers (``CheckpointSnapshot.spill``), the
+uploader saves them first under their own store keys, and
+``rewind_spill_tier`` rewinds a tier on a durable recover.  Sinks deliver at the same commit
 (``deliver_sinks``, the reference's :303): a snapshot barrier drains
 every ``SinkExecutor``'s new rows to its connector before the shadow
 update, so the advanced ``read_cursor`` rides that epoch's snapshot; with
@@ -136,6 +136,11 @@ class CheckpointPipelineMixin:
             self._uploader.drain(raise_error=raise_error)
             self._process_upload_acks()
 
+    def _shadow_shard_rows(self) -> int | None:
+        """The lane axis of a lane-stacked state tree (its shadow digests
+        per lane), None for a linear tree."""
+        return None
+
     def _snapshot_commit(self, epoch_val: int, src_state: dict,
                          spill_host: dict | None = None,
                          spill_items: list | None = None) -> None:
@@ -168,7 +173,8 @@ class CheckpointPipelineMixin:
                     self.states,
                     block_elems=store.block_elems if store is not None
                     else DEFAULT_BLOCK_ELEMS,
-                    digest=store is not None)
+                    digest=store is not None,
+                    shard_rows=self._shadow_shard_rows())
                 digests = self._shadow.digests
             else:
                 if up is not None:
@@ -186,7 +192,7 @@ class CheckpointPipelineMixin:
                 digests=digests, shapes=self._shadow.shapes,
                 treedef=self._shadow.treedef, source_state=src_state,
                 ready=self._shadow.ready, spill=list(spill_items or ()),
-                trace_ctx=GLOBAL_TRACE.current()))
+                trace_ctx=GLOBAL_TRACE.current(), lanes=self._shadow.lanes))
             self._process_upload_acks()
         else:
             self.committed_epoch = epoch_val
@@ -215,28 +221,6 @@ class CheckpointPipelineMixin:
             return []
         self.spill_reads += 1
         return torch.stack(rings).tolist()
-
-    def _drain_spill_tiers(self, epoch_val) -> None:
-        """Snapshot-barrier hook: one host read of every ring's fill
-        count; each non-empty ring drains into its host tier, and the
-        tier's changelog runs through the rest of the aggregation's
-        fragment and then ``_spill_downstream``."""
-        keys = list(self._spill_tiers)
-        counts = self._read_spill_counts(
-            [self._node_states(node)[j].spill_count for node, j in keys])
-        for (node, j), n in zip(keys, counts):
-            if n == 0:
-                continue
-            executors = self._node_executors(node)
-            states = list(self._node_states(node))
-            states[j], chunk = executors[j].drain_spill(states[j])
-            out = self._spill_tiers[(node, j)][1].process(chunk, epoch_val)
-            out = chunk_to(out, self.device)
-            for k in range(j + 1, len(executors)):
-                if out is None:
-                    break
-                states[k], out = executors[k].apply(states[k], out)
-            self._spill_downstream(node, tuple(states), out)
 
     def _spill_snapshot(self):
         """``(spill_host, spill_items)`` of ``_snapshot_commit``: a copy
@@ -435,15 +419,26 @@ class StreamingJob(CheckpointPipelineMixin):
                 self.name, self.fragment.counter_labels,
                 self._counters.cpu().numpy())
 
-    # the spill drain's view of the one fragment (node 0)
-    def _node_states(self, node):
-        return self.states
-
-    def _node_executors(self, node):
-        return self.fragment.executors
-
-    def _spill_downstream(self, node, states, out) -> None:
-        self.states = states
+    def _drain_spill_tiers(self, epoch_val) -> None:
+        """Snapshot-barrier hook: one host read of every ring's fill
+        count; each non-empty ring drains into its host tier, and the
+        tier's changelog runs through the rest of the fragment."""
+        keys = list(self._spill_tiers)
+        counts = self._read_spill_counts(
+            [self.states[j].spill_count for _, j in keys])
+        executors = self.fragment.executors
+        for (_, j), n in zip(keys, counts):
+            if n == 0:
+                continue
+            states = list(self.states)
+            states[j], chunk = executors[j].drain_spill(states[j])
+            out = chunk_to(self._spill_tiers[(0, j)][1].process(
+                chunk, epoch_val), self.device)
+            for k in range(j + 1, len(executors)):
+                if out is None:
+                    break
+                states[k], out = executors[k].apply(states[k], out)
+            self.states = tuple(states)
 
     def _deliver_all_sinks(self, epoch_val) -> None:
         self.states = deliver_sinks(self.fragment, self.states, epoch_val)

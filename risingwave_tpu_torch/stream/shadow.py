@@ -1,7 +1,8 @@
 """ShadowSnapshot: incremental device-side snapshots of a state tree.
 
 Port of ``ShadowSnapshot`` from ``risingwave_tpu/stream/shadow.py``
-(:273) with ``matches``, ``update``, ``restore`` and ``dirty_ratio``.
+(:273) with ``matches``, ``update``, ``restore`` and ``dirty_ratio``, and
+of ``leaf_lanes`` (:180).
 The snapshot is a persistent flat copy of every state leaf (the shadow)
 plus, in the durable mode, the block-digest vector of its contents:
 
@@ -26,8 +27,16 @@ shadow contents.
 Everything is asynchronous on the device: ``update`` records the CUDA
 event ``ready`` after its launch, which the checkpoint uploader's own
 stream waits on before it reads the shadow; ``dirty_blocks`` stays a
-device scalar until ``dirty_ratio`` reads it.  Per-shard lanes
-(``shard_rows``, mesh-stacked trees) wait for the multi-GPU port.
+device scalar until ``dirty_ratio`` reads it.
+
+``shard_rows=N`` (a lane-stacked tree, the sharded ``DagJob``'s): every
+leaf whose leading axis is the lane axis digests in N lanes (K11 lanes,
+``storage/digest.py``): the block grid restarts at every row, so no block
+and no dirty copy spans two lanes, each row's ragged tail copies always,
+and ``dirty_blocks`` counts as the reference's ``_copy_leaf_rows`` (:122):
+a leaf with ``rows * nb_row <= 8`` or ``rows * nbf < 2`` copies whole and
+counts 0.  ``lanes`` (per leaf ``(rows, row_elems)`` or None) rides every
+upload, so the store cuts its delta runs on the same grid.
 """
 
 from __future__ import annotations
@@ -37,9 +46,20 @@ import torch
 from risingwave_tpu_torch.common.tree import flatten, unflatten
 from risingwave_tpu_torch.storage.digest import (
     DEFAULT_BLOCK_ELEMS,
-    leaf_block_count,
+    block_counts,
     shadow_digest,
 )
+
+
+def leaf_lanes(shape, shard_rows) -> tuple | None:
+    """``(rows, row_elems)`` of a leaf whose leading axis is the lane axis
+    under per-shard digesting, else None (flat)."""
+    if not shard_rows or not shape or shape[0] != shard_rows:
+        return None
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return (shard_rows, n // shard_rows)
 
 
 class ShadowSnapshot:
@@ -52,17 +72,16 @@ class ShadowSnapshot:
 
     def __init__(self, states, block_elems: int = DEFAULT_BLOCK_ELEMS,
                  digest: bool = True, shard_rows: int | None = None):
-        if shard_rows:
-            raise NotImplementedError(
-                "per-shard digest lanes (shard_rows) are not ported yet")
         leaves, self.treedef = flatten(states)
         self.block = block_elems
         self.digest_mode = digest
-        self.shard_rows = None
+        self.shard_rows = shard_rows
         self.shapes = [tuple(x.shape) for x in leaves]
         self.sig = tuple((str(x.dtype), tuple(x.shape)) for x in leaves)
-        self.nblocks = [leaf_block_count(s, block_elems)
-                        for s in self.shapes]
+        #: per-leaf (rows, row_elems), None = flat
+        self.lanes = [leaf_lanes(s, shard_rows) for s in self.shapes]
+        self._rows = [ln[0] if ln else 1 for ln in self.lanes]
+        self.nblocks = block_counts(self.shapes, self.lanes, block_elems)
         self.total_blocks = int(sum(self.nblocks))
         dev = leaves[0].device if leaves else torch.device("cpu")
         self.device = dev
@@ -78,7 +97,7 @@ class ShadowSnapshot:
         if digest:
             shadow_digest(flat, self.leaves, self.digests,
                           self.dirty_blocks, self.nblocks, self.block,
-                          update=False)
+                          update=False, rows=self._rows)
         else:
             for sh, x in zip(self.leaves, flat):
                 sh.copy_(x)
@@ -107,7 +126,7 @@ class ShadowSnapshot:
             self.dirty_blocks.zero_()
             shadow_digest(flat, self.leaves, self.digests,
                           self.dirty_blocks, self.nblocks, self.block,
-                          update=True, events=events)
+                          update=True, events=events, rows=self._rows)
         else:
             if events is not None:
                 events[0].record()

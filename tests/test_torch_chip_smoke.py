@@ -134,14 +134,18 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[check] q7 sharded MV equals numpy",
                 "[check] q5 sharded MV equals the port's linear run",
                 "[check] q7 sharded MV equals the port's linear run",
-                "[cold start] q5 sharded", "[cold start] q7 sharded"):
+                "[cold start] q5 sharded", "[cold start] q7 sharded",
+                "[shadow_digest_lanes] exact", "[dirty_gather_lanes] exact",
+                "[check] q8 sharded ring rows equal the numpy join",
+                "[check] q8 sharded ring equals the port's linear run",
+                "[durable] q8 sharded", "[cold start] q8 sharded"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout
     line = next(x for x in out.stdout.splitlines()
                 if x.startswith('{"kernels"'))
     names = {k["name"] for k in json.loads(line)["kernels"]}
     assert {"sink_ring", "append_only_dedup", "crc32", "exchange",
-            "partial_agg"} <= names
+            "partial_agg", "shadow_digest_lanes", "dirty_gather_lanes"} <= names
 
 
 def test_sink_paths_are_wired():
@@ -180,3 +184,21 @@ def test_sharded_paths_are_wired():
     for name in ("crc32", "exchange", "partial_agg"):
         assert kernels.KERNELS[name] == name
         assert kernels.SOURCES[name] == f"{name}.cu"
+
+
+def test_q8_sharded_paths_are_wired():
+    """The slice's two q8 paths run the exchange's kernels (K2, K24) on
+    q8's join path; the durable one K11 lanes, built from
+    ``shadow_digest.cu``."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from risingwave_tpu_torch import kernels
+
+    assert chip_smoke.Q8_SHARD_PATHS == ("q8 sharded", "q8 sharded durable")
+    for path in chip_smoke.Q8_SHARD_PATHS:
+        kern = set(chip_smoke.Q8_SHARD_PATH_KERNELS[path])
+        assert {"crc32", "exchange", "join_update", "join_emit"} <= kern
+        assert kern <= set(kernels.KERNELS)
+        assert ("shadow_digest_lanes" in kern) == path.endswith("durable")
+    for name in ("shadow_digest_lanes", "dirty_gather_lanes"):
+        assert kernels.KERNELS[name] == "shadow_digest"

@@ -140,5 +140,17 @@ def test_storeless_mode_is_a_plain_copy():
 
 
 def test_shard_rows_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ShadowSnapshot(_t(_tree(4)), shard_rows=2)
+    """``shard_rows`` is ported (K11 lanes): a tree whose leaves lead with
+    the lane axis digests per lane, as the reference's does."""
+    leaves = [x.reshape((2, -1)) if x.size % 2 == 0 and x.ndim else x
+              for x in _tree(4)]
+    js = JShadow(_j(leaves), block_elems=BLOCK, shard_rows=2)
+    ts = ShadowSnapshot(_t(leaves), block_elems=BLOCK, shard_rows=2)
+    assert ts.lanes == js.lanes and ts.shard_rows == 2
+    _assert_equal(js, ts)
+    leaves[0][1, :5] += 1
+    leaves[2][0, 100:1300] ^= 1
+    js.update(_j(leaves))
+    ts.update(_t(leaves))
+    _assert_equal(js, ts)
+    assert int(ts.dirty_blocks) > 0
