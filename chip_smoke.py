@@ -162,7 +162,22 @@
    against the port's linear q8 over the same chunks, every loss counter
    0, and durably (a full snapshot, a lane delta, a cold start checked
    tensor for tensor against the engine that never stopped);
-10. prints the ``kernels`` JSON line, the card's name and power limit,
+10. holds K25 (the vnode gate, on 8192-row chunks with U-/U+ pairs at
+   both edges), K26 (the vnode sweep) and K27 (the transplant scatter) on
+   a 2^18-slot aggregation table, an MV table and a dense join side, and
+   K28 (the troublemaker) against their plain versions, exactly; runs
+   both scale scenarios of the CPU tests at their small sizes on the card
+   against the CPU; then the vnode scale plane at bench.py's sizes:
+   ``scale_agg`` (the per-auction count, sum and max over bids without a
+   watermark, 64 vnodes, partitions 2 -> 4 -> 2, 24 barriers) and
+   ``scale_join`` (``ja LEFT JOIN jb`` at q13's DML scale, 2 -> 4 -> 2),
+   each partition a ``role="compute"`` engine over one shared store, with
+   launch counters: the union of the partitions against numpy and the
+   port's linear engine, gate_dropped and every handover's cleared and
+   moved entries against a numpy model, every loss counter 0, rows/s and
+   the handover's milliseconds; and the troublemaker feeding a join side
+   on the card against the CPU;
+11. prints the ``kernels`` JSON line, the card's name and power limit,
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the ok line.  Without a GPU, or
@@ -415,6 +430,7 @@ def main() -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a small size")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -478,6 +494,9 @@ def main() -> int:
     results["sink_ring"] = sink_kernels["sink_ring"]
     results.update(phase_shard_kernels(torch, device, timer, scale))
     results.update(phase_k11_lanes(torch, device, timer, scale))
+    t0 = time.perf_counter()
+    results.update(phase_scale_kernels(torch, device, timer, scale))
+    scale_secs = {"kernels": time.perf_counter() - t0}
     if set(results) != set(kernels.KERNELS):
         fail(f"kernel phases {sorted(results)} do not cover "
              f"{sorted(kernels.KERNELS)}")
@@ -600,6 +619,9 @@ def main() -> int:
     # -- 9. the vnode-sharded join DAG: q8 over 4 lanes ------------------
     shard_runs.update(run_q8_sharded_paths(torch, device, scale, results))
 
+    # -- 10. the vnode scale plane: partitions 2 -> 4 -> 2 -----------------
+    scale_runs = run_scale_paths(torch, device, scale, results, scale_secs)
+
     line = {"kernels": [dict(name=name, **r) for name, r in results.items()]}
     print(json.dumps(line))
     if device.type != "cuda":
@@ -629,6 +651,17 @@ def main() -> int:
             if "recover_s" in info else ""
         print(f"[main] {path} rows/s {rate:.0f} on {SHARD_LANES} lanes"
               f"{extra}")
+    for path, (rate, info) in scale_runs.items():
+        if path == "troublemaker":
+            continue
+        print(f"[main] {path} rows/s {rate:.0f} over {info['rows']} rows; "
+              f"handover ms (clear, load, slice, transplant, reseal) "
+              f"{info['handover_ms']}; moved entries {info['entries']}; npz "
+              f"members the loads read {info['chain_members']}")
+    print(f"[time] the scale plane's phases took "
+          f"{sum(scale_secs.values()):.1f} s of the run's "
+          f"{time.perf_counter() - t_start:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in scale_secs.items()))
     print(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7375,14 +7408,27 @@ def phase_slice11_kernels(torch, device, timer, scale):
     st = exs[0].on_watermark(st, Watermark(0, torch.tensor(10**9,
                                                            device=device)))
     flush_ms = timer(lambda i: exs[0].flush(st, 0), 50)
+    # bounds from this chunk: apply reads the pool's free mask (1 B a
+    # slot), the chunk's valid and op (2 B a row) and each valid row's two
+    # int64 columns, and writes them and their valid byte into the pool;
+    # the flush reads the live rows' timestamps (the sort key) and moves
+    # the first min(E, live) of them (16 B read, 16 B + op and valid
+    # written, their pool byte freed)
+    live = int(chunks[0][2].sum())
+    b_apply = bound(S + 2 * C + live * 33, C * 10)
+    b_flush = bound(live * 8 + min(E, live) * 35, live * 20)
     print(f"[eowc_sort] EowcSortExecutor (pool {S}, emit {E}, chunks of "
           f"{C}) equal to a CPU copy over 8 chunks, {got.numel()} rows "
           f"emitted in timestamp order and the pool; apply {apply_ms:.4f} "
-          f"ms (K7 over the free mask + the row scatter), flush "
-          f"{flush_ms:.4f} ms (torch.sort + gather)", flush=True)
+          f"ms (K7 over the free mask + the row scatter), bound "
+          f"{b_apply[0]:.5f} ms; flush {flush_ms:.4f} ms (torch.sort + "
+          f"gather of {live} live rows), bound {b_flush[0]:.5f} ms",
+          flush=True)
     out["agg_eowc"]["eowc_sort"] = {"pool": S, "emit": E, "chunk": C,
                                     "apply_ms": apply_ms,
                                     "flush_ms": flush_ms,
+                                    "apply_bound_ms": b_apply[0],
+                                    "flush_bound_ms": b_flush[0],
                                     "rows": got.numel()}
     return out
 
@@ -8888,11 +8934,12 @@ def _q8_sharded_engine(torch, device, cfg, data_dir=None,
 
 
 def _loss_counters(eng) -> dict:
-    """The job's counters (summed over the lanes), read once."""
+    """The job's counters (summed over a DagJob's lanes), read once."""
     job = eng.jobs[0]
+    labels = job.counter_labels if hasattr(job, "counter_labels") \
+        else job.fragment.counter_labels
     vals = job._counters.cpu().tolist()
-    return {k: v for k, v in zip(job.counter_labels, vals)
-            if not k.endswith(".pending")}
+    return {k: v for k, v in zip(labels, vals) if not k.endswith(".pending")}
 
 
 def phase_k11_lanes(torch, device, timer, scale):
@@ -9242,6 +9289,829 @@ def run_q8_sharded_paths(torch, device, scale, results) -> dict:
                 results[name]["launches"] += n
                 results[name]["launches_by_query"][path] = n
         missing = [k for k in Q8_SHARD_PATH_KERNELS[path] if launches[k] <= 0]
+        if device.type == "cuda" and missing:
+            fail(f"{path}: kernels {missing} were not launched on the path")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 11. the vnode scale plane (slice 15): K25-K28
+
+SCALE_VNODES = 64
+
+
+def _gate_case(torch, cap: int, n_vnodes: int, g):
+    """A chunk of ``cap`` rows for K25: random int64 keys (some extremes,
+    some repeated), U-/U+ pairs every 5 rows, an unpaired U+ at row 0 and
+    U- at row cap - 1 (their partners wrap around the capacity), a pair at
+    rows cap - 3 and cap - 2, a tenth of the rows invalid; and a mask
+    owning half the vnodes."""
+    keys = torch.randint(-2**62, 2**62, (cap,), generator=g)
+    keys[: cap // 4] = keys[: cap // 4] % 97
+    keys[:4] = torch.tensor([0, -1, 2**63 - 1, -2**63])
+    ops = torch.randint(0, 2, (cap,), generator=g).to(torch.int8)
+    for i in range(1, cap - 3, 5):
+        ops[i], ops[i + 1] = 2, 3
+    ops[0], ops[cap - 1] = 3, 2
+    ops[cap - 3], ops[cap - 2] = 2, 3
+    valid = torch.rand(cap, generator=g) < 0.9
+    mask = torch.zeros(n_vnodes, dtype=torch.bool)
+    mask[torch.randperm(n_vnodes, generator=g)[: n_vnodes // 2]] = True
+    return keys, ops, valid, mask
+
+
+def _scale_tables(torch, device, size: int, g, bucket: int = 0):
+    """A table of ``size`` slots, half filled with random keys and a fifth
+    of its slots tombstoned, with slot-aligned leaves: an aggregation's
+    (row_count, prev_row_count int64, dirty, emitted bool) or, with
+    ``bucket``, a dense join side's ([size, B] occupied, int32 count)."""
+    table, _ = _prefilled_table(torch, device, size, size // 2, g)
+    if bucket:
+        leaves = [(torch.rand(size, bucket, generator=g) < 0.5).to(device),
+                  torch.randint(0, bucket, (size,), generator=g,
+                                dtype=torch.int32).to(device)]
+    else:
+        leaves = [torch.randint(0, 1 << 20, (size,), generator=g).to(device),
+                  torch.randint(0, 1 << 20, (size,), generator=g).to(device),
+                  (torch.rand(size, generator=g) < 0.5).to(device),
+                  (torch.rand(size, generator=g) < 0.5).to(device)]
+    return table, leaves
+
+
+def _clone_case(torch, table, leaves):
+    return table.clone(), [x.clone() for x in leaves]
+
+
+def phase_scale_kernels(torch, device, timer, scale):
+    """K25 (the vnode gate) on 8192-row chunks with U-/U+ pairs at the
+    edges, and its vnode form for 16, 24 and 64 vnodes; K26 (the vnode
+    sweep, clear and read forms) and K27 (the transplant scatter after the
+    probe kernel's claim) on a 2^18-slot aggregation table, an MV table
+    and a dense join side; K28 (the troublemaker) over several chunks.
+    Each against its plain version on the same inputs, exactly."""
+    from risingwave_tpu_torch.cluster.scale.gate import (
+        VnodeGateExecutor, gate_apply_plain)
+    from risingwave_tpu_torch.cluster.scale.handover import (
+        transplant_rows, transplant_rows_plain, vnode_sweep,
+        vnode_sweep_plain)
+    from risingwave_tpu_torch.cluster.scale.vnode import (
+        vnodes_of_ints, vnodes_of_ints_plain)
+    from risingwave_tpu_torch.common.chunk import Chunk
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+    from risingwave_tpu_torch.expr.node import InputRef
+    from risingwave_tpu_torch.stream.troublemaker import (
+        TroublemakerExecutor, troublemaker_plain)
+
+    g = torch.Generator(device="cpu").manual_seed(25)
+    out = {}
+    n = SCALE_VNODES
+    # -- K25 --------------------------------------------------------------
+    cap = 8192 // scale
+    keys, ops, valid, mask = _gate_case(torch, cap, n, g)
+    keys, ops, valid, mask = (x.to(device) for x in (keys, ops, valid, mask))
+    pairs = []
+    for nv in (16, 24, 64):
+        pairs.append((f"vnodes of {nv}", vnodes_of_ints(keys, nv),
+                      vnodes_of_ints_plain(keys, nv)))
+    schema = Schema((Field("k", DataType.INT64, nullable=False),))
+    gate = VnodeGateExecutor(schema, InputRef(0), n)
+    chunk = Chunk((keys,), ops, valid, schema)
+    start = torch.tensor(17, dtype=torch.int64, device=device)
+    (m, dropped), got = gate.apply((mask, start.clone()), chunk)
+    keep, want_ops, n_drop = gate_apply_plain(keys, mask, valid, ops, n)
+    pairs += [("gate keep", got.valid, keep), ("gate ops", got.ops, want_ops),
+              ("gate dropped", dropped, start + n_drop),
+              ("gate mask", m, mask)]
+    degraded = int((want_ops != ops).sum())
+    err = max_abs_err(torch, pairs)
+    ms = timer(lambda i: gate.apply((mask, start.clone()), chunk), 200)
+    plain_ms = timer(lambda i: gate_apply_plain(keys, mask, valid, ops, n),
+                     20)
+    # per row: key 8 B, valid 1 B, op 1 B read; keep 1 B, op 1 B written;
+    # the member mask (n bytes) once: it stays in cache; ~20 integer
+    # operations a row
+    b = bound(cap * 12 + n, cap * 20)
+    print(f"[vnode_gate] exact ({cap} rows, {degraded} update halves "
+          f"degraded, {int(n_drop)} rows dropped; vnodes of 16, 24 and 64 "
+          f"exact); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b[0]:.5f} ms", flush=True)
+    out["vnode_gate"] = kernel_entry(
+        "vnode_gate.cu", "risingwave_tpu/cluster/scale/gate.py:81", ms,
+        plain_ms, b, None, err)
+    # -- K26 --------------------------------------------------------------
+    size = (1 << 18) // scale
+    member = mask
+    pairs, timed = [], {}
+    cases = (("agg", 0), ("mv", -1), ("join side", 16))
+    for name, bucket in cases:
+        table, leaves = _scale_tables(torch, device, size, g, max(bucket, 0))
+        if bucket < 0:
+            leaves = []
+        tk, lk = _clone_case(torch, table, leaves)
+        tp, lp = _clone_case(torch, table, leaves)
+        ck = vnode_sweep(tk, member, n, lk)
+        cp = vnode_sweep_plain(tp, member, n, lp)
+        rk = vnode_sweep(table, member, n, read=True)
+        rp = vnode_sweep_plain(table, member, n, read=True)
+        pairs += [(f"sweep {name} count", ck, cp),
+                  (f"sweep {name} occupied", tk.occupied, tp.occupied),
+                  (f"sweep {name} tombstone", tk.tombstone, tp.tombstone),
+                  (f"sweep {name} read", rk, rp)]
+        pairs += [(f"sweep {name} leaf {i}", a, bb)
+                  for i, (a, bb) in enumerate(zip(lk, lp))]
+        n_occ = int(table.occupied.sum())
+        stale = int(cp)
+        row = sum(x[0].numel() * x.element_size() for x in leaves)
+        # occupancy read for every slot; the key (8 B) of the occupied
+        # ones; the member mask once (it stays in cache); the stale slots'
+        # planes (2 B) and leaf rows
+        b = bound(size + n_occ * 8 + n + stale * (2 + row), size * 20)
+        clones = [_clone_case(torch, table, leaves) for _ in range(11)]
+        ms = timer(lambda i: vnode_sweep(clones[i][0], member, n,
+                                         clones[i][1]), 10)
+        pclones = [_clone_case(torch, table, leaves) for _ in range(4)]
+        plain_ms = timer(lambda i: vnode_sweep_plain(
+            pclones[i][0], member, n, pclones[i][1]), 3)
+        timed[name] = (ms, plain_ms, b)
+        print(f"[vnode_sweep] exact on the {name} table ({size} slots, "
+              f"{n_occ} occupied, {stale} stale, {len(leaves)} leaves); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b[0]:.5f} ms", flush=True)
+    err = max_abs_err(torch, pairs)
+    # the entry is the aggregation table's clear, the scale paths' largest
+    ms, plain_ms, b = timed["agg"]
+    out["vnode_sweep"] = kernel_entry(
+        "vnode_sweep.cu", "risingwave_tpu/cluster/scale/handover.py:153",
+        ms, plain_ms, b, None, err)
+    # -- K27 --------------------------------------------------------------
+    n_moved = size // 8
+    pairs, tms, pms, lib = [], [], [], None
+    for name, bucket in cases:
+        table, _ = _prefilled_table(torch, device, size, size // 4, g)
+        mkeys = torch.randint(-2**62, 2**62, (n_moved,), generator=g)
+        slots = table.lookup_or_insert(
+            [mkeys.to(device)],
+            torch.ones(n_moved, dtype=torch.bool, device=device))[1]
+        slots[: 7] = size                      # dropped rows
+        if bucket > 0:
+            shapes = [((bucket,), torch.int64), ((bucket,), torch.int64),
+                      ((bucket,), torch.bool), ((), torch.int32)]
+        elif bucket == 0:
+            shapes = [((), torch.int64)] * 8 + [((), torch.bool)] * 2
+        else:
+            shapes = [((), torch.int64)] * 4
+        stores = [torch.zeros((size,) + s, dtype=dt, device=device)
+                  for s, dt in shapes]
+        srcs = [torch.randint(0, 2, (n_moved,) + s, generator=g).to(dt)
+                if dt == torch.bool else
+                torch.randint(-2**40, 2**40, (n_moved,) + s, generator=g
+                              ).to(dt) for s, dt in shapes]
+        srcs = [x.to(device) for x in srcs]
+        sk = [x.clone() for x in stores]
+        sp = [x.clone() for x in stores]
+        transplant_rows(sk, srcs, slots, size)
+        transplant_rows_plain(sp, srcs, slots, size)
+        pairs += [(f"transplant {name} leaf {i}", a, bb)
+                  for i, (a, bb) in enumerate(zip(sk, sp))]
+        row = sum(x[0].numel() * x.element_size() for x in srcs)
+        tms.append(timer(lambda i: transplant_rows(sk, srcs, slots, size),
+                         20))
+        pms.append(timer(lambda i: transplant_rows_plain(sp, srcs, slots,
+                                                         size), 3))
+        print(f"[vnode_transplant] exact on the {name} leaves ({n_moved} "
+              f"moved entries, {len(srcs)} leaves, {row} B a row); kernel "
+              f"{tms[-1]:.4f} ms, plain {pms[-1]:.4f} ms, bound "
+              f"{bound(n_moved * (4 + 2 * row), n_moved * len(srcs))[0]:.5f}"
+              " ms", flush=True)
+        if bucket == 0:
+            # one PyTorch call for the widest leaf (all 8 B leaves alike)
+            keep = slots < size
+            pos = slots[keep].to(torch.int64)
+            lib = timer(lambda i: sk[0].index_put_((pos,), srcs[0][keep]),
+                        20)
+            agg_row = row
+    err = max_abs_err(torch, pairs)
+    b = bound(n_moved * (4 + 2 * agg_row), n_moved * 10)
+    print(f"[vnode_transplant] index_put_ of the widest aggregation leaf: "
+          f"{lib:.4f} ms (one of its 10 leaves)", flush=True)
+    out["vnode_transplant"] = kernel_entry(
+        "vnode_transplant.cu",
+        "risingwave_tpu/cluster/scale/handover.py:387", tms[0], pms[0], b,
+        lib, err)
+    # -- K28 --------------------------------------------------------------
+    tm = TroublemakerExecutor(schema, seed=7, ratio=3)
+    ck = tm.init_state(device)
+    cp = ck.clone()
+    pairs, flipped = [], 0
+    for c in range(4):
+        ops = torch.randint(0, 4, (cap,), generator=g).to(torch.int8)
+        valid = torch.rand(cap, generator=g) < 0.9
+        ch = Chunk((keys,), ops.to(device), valid.to(device), schema)
+        ck, got = tm.apply(ck, ch)
+        cp, want = troublemaker_plain(cp, ch.valid, ch.ops, 7, 3)
+        pairs += [(f"troublemaker ops {c}", got.ops, want),
+                  (f"troublemaker counter {c}", ck, cp)]
+        flipped += int((want != ch.ops).sum())
+    err = max_abs_err(torch, pairs)
+    ms = timer(lambda i: tm.apply(ck, ch), 200)
+    plain_ms = timer(lambda i: troublemaker_plain(cp, ch.valid, ch.ops, 7, 3),
+                     20)
+    b = bound(cap * 3 + 16, cap * 12)
+    print(f"[troublemaker] exact over 4 chunks ({flipped} inserts flipped, "
+          f"ratio 3); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b[0]:.5f} ms", flush=True)
+    out["troublemaker"] = kernel_entry(
+        "troublemaker.cu", "risingwave_tpu/stream/troublemaker.py:46", ms,
+        plain_ms, b, None, err)
+    return out
+
+
+SCALE_BID = """CREATE SOURCE bid (
+    auction BIGINT, bidder BIGINT, price BIGINT,
+    channel VARCHAR, url VARCHAR, date_time TIMESTAMP
+) WITH (connector = 'nexmark', nexmark.table = 'bid',
+        nexmark.event.rate = '{rate}')"""
+SCALE_AGG = """CREATE MATERIALIZED VIEW scale_agg AS
+SELECT auction, count(*) AS bids, sum(price) AS volume,
+       max(price) AS max_price FROM bid GROUP BY auction"""
+SCALE_AGG_READ = "SELECT auction, bids, volume, max_price FROM scale_agg"
+#: ``tests/test_scale.py``'s JOIN_DDL
+SCALE_JOIN_DDL = [
+    "CREATE TABLE ja (k BIGINT, v BIGINT)",
+    "CREATE TABLE jb (k BIGINT, w BIGINT)",
+    """CREATE MATERIALIZED VIEW jmv AS
+       SELECT ja.k AS k, ja.v AS v, jb.w AS w
+       FROM ja LEFT JOIN jb ON ja.k = jb.k""",
+]
+SCALE_JOIN_READ = "SELECT k, v, w FROM jmv"
+SCALE_PATHS = ("scale_agg", "scale_join", "troublemaker")
+#: the kernels each scale path must launch
+SCALE_PATH_KERNELS = {
+    "scale_agg": ("nexmark_bids", "vnode_gate", "vnode_sweep",
+                  "vnode_transplant", "probe", "agg_scatter", "mv_upsert"),
+    "scale_join": ("vnode_gate", "vnode_sweep", "vnode_transplant", "probe",
+                   "join_dense", "mv_upsert"),
+    "troublemaker": ("troublemaker",),
+}
+#: the scale_agg path: barriers between its handovers (24 in all)
+SCALE_AGG_BARRIERS = 8
+
+
+def _np_vnodes(keys, n: int):
+    """numpy vnodes of int64 keys: the splitmix64 fold of one key word
+    (seed 0), ~0 remapped to ~1, then the unsigned modulo."""
+    import numpy as np
+
+    k1 = np.uint64(0x9E3779B97F4A7C15)
+    with np.errstate(over="ignore"):
+        x = k1 ^ (np.asarray(keys, np.int64).view(np.uint64) * k1)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        x = x ^ (x >> np.uint64(31))
+    x = np.where(x == ~np.uint64(0), ~np.uint64(1), x)
+    return (x % np.uint64(n)).astype(np.int64)
+
+
+class _ScaleModel:
+    """numpy model of a scale run: each partition's owned vnodes, the
+    rows its gates drop, and the keyed entries its tables hold (key ->
+    entries: an aggregation group and its MV row; or a join key's left
+    and right side entries and its MV rows), cleared and moved as
+    ``repartition_job`` does."""
+
+    def __init__(self, n_vnodes: int):
+        self.n = n_vnodes
+        self.own: dict = {}
+        self.dropped: dict = {}
+        self.tables: dict = {}
+
+    def start(self, vmap) -> None:
+        for w in sorted(set(vmap)):
+            self.own[w] = {v for v, x in enumerate(vmap) if x == w}
+            self.dropped[w] = 0
+            self.tables[w] = {}
+
+    def consume(self, sides: dict) -> None:
+        """``sides``: {side: int64 keys of the rows every partition read};
+        side "agg" adds 2 entries a key, "left"/"right" 1, "mv" 1 a row."""
+        import numpy as np
+
+        for side, keys in sides.items():
+            if keys.shape[0] == 0:
+                continue
+            vn = _np_vnodes(keys, self.n)
+            for w, own in self.own.items():
+                ok = np.isin(vn, sorted(own))
+                if side != "mv":  # the mv side's rows are ja's again
+                    self.dropped[w] += int((~ok).sum())
+                tab = self.tables[w]
+                uk, cnt = np.unique(keys[ok], return_counts=True)
+                for k, c in zip(uk.tolist(), cnt.tolist()):
+                    e = tab.setdefault(k, {})
+                    if side == "mv":
+                        e["mv"] = e.get("mv", 0) + c
+                    else:
+                        e[side] = 2 if side == "agg" else 1
+
+    def _in(self, w, vns):
+        keys = list(self.tables[w])
+        if not keys:
+            return []
+        import numpy as np
+
+        vn = _np_vnodes(np.asarray(keys, np.int64), self.n)
+        return [k for k, v in zip(keys, vn.tolist()) if v in vns]
+
+    def scale(self, old, new) -> dict:
+        """Apply one rebalance; returns {dst: (cleared, {src: entries})}."""
+        gains: dict = {}
+        for v, (a, b) in enumerate(zip(old, new)):
+            if a != b:
+                gains.setdefault(b, {}).setdefault(a, set()).add(v)
+        out = {}
+        for dst in sorted(gains):
+            if dst not in self.own:
+                self.own[dst], self.dropped[dst] = set(), 0
+                self.tables[dst] = {}
+            gained = set().union(*gains[dst].values())
+            cleared = 0
+            for k in self._in(dst, gained):
+                cleared += sum(self.tables[dst].pop(k).values())
+            moved = {}
+            for src, vns in gains[dst].items():
+                ks = self._in(src, vns)
+                moved[src] = sum(sum(self.tables[src][k].values())
+                                 for k in ks)
+                for k in ks:
+                    self.tables[dst][k] = dict(self.tables[src][k])
+            out[dst] = (cleared, moved)
+        for w in list(self.own):
+            self.own[w] = {v for v, x in enumerate(new) if x == w}
+            if not self.own[w]:
+                del self.own[w], self.dropped[w], self.tables[w]
+        return out
+
+
+def _check_handover(path: str, res: dict, want: dict, lineages: dict):
+    """``repartition_job``'s cleared counts and moved entries against the
+    numpy model's."""
+    by_lineage = {v: k for k, v in lineages.items()}
+    for r in res["recipients"]:
+        cleared, moved = want[r["worker"]]
+        got = {by_lineage[t["ckpt"]]: t["entries"] for t in r["transfers"]}
+        if r["cleared"] != cleared or got != moved:
+            fail(f"{path}: worker {r['worker']} cleared {r['cleared']} and "
+                 f"moved {got}, numpy {cleared} and {moved}")
+
+
+def _check_dropped(path: str, driver, model) -> None:
+    got = {w: s["gate_dropped"] for w, s in driver.stats().items()}
+    if got != model.dropped:
+        fail(f"{path}: gate_dropped {got}, numpy {model.dropped}")
+
+
+def _chain_members(data_dir: str, lineages: dict) -> int:
+    """npz members a handover's loads read: for each donor lineage, its
+    chain from the last full epoch to the committed one (each delta holds
+    one array per dirty run)."""
+    import json
+    import os
+
+    import numpy as np
+
+    with open(os.path.join(data_dir, "MANIFEST.json")) as f:
+        jobs = json.load(f)["jobs"]
+    total = 0
+    for lineage in lineages:
+        m = jobs[lineage]
+        epochs = sorted(e for e in m["epochs"] if e <= m["committed"])
+        base = max(e for e in epochs if m["kind"][str(e)] == "full")
+        for e in epochs:
+            if e >= base:
+                with np.load(os.path.join(data_dir, lineage,
+                                          f"epoch_{e}.npz")) as z:
+                    total += len(z.files)
+    return total
+
+
+def _handover_ms(res: dict) -> dict:
+    tot: dict = {}
+    for r in res["recipients"]:
+        for k, v in r["handover_ms"].items():
+            tot[k] = tot.get(k, 0.0) + v
+    return {k: round(v, 3) for k, v in tot.items()}
+
+
+def _scale_loss_check(path: str, driver) -> None:
+    """Every partition's loss counters after a maintenance barrier: 0."""
+    for w, eng in sorted(driver.engines.items()):
+        eng.execute("ALTER SYSTEM SET maintenance_interval_checkpoints = 1")
+        eng.tick(barriers=1, chunks_per_barrier=0)
+        losses = {k: v for k, v in _loss_counters(eng).items() if v}
+        if losses:
+            fail(f"{path}: partition {w} loss counters {losses}")
+
+
+def _scale_agg_config(scale: int) -> dict:
+    return {k: v // scale if k != "agg_emit_capacity" else v
+            for k, v in BENCH_CONFIG.items()}
+
+
+def _scale_join_config(scale: int) -> dict:
+    big = (1 << 18) // scale
+    return dict(chunk_capacity=8192 // scale, join_table_size=big,
+                join_pool_size=big, join_left_bucket_cap=16,
+                join_right_bucket_cap=2, join_out_capacity=(1 << 16) // scale,
+                mv_table_size=big, agg_table_size=1 << 10)
+
+
+def _scale_engine(cfg: dict, device, data_dir=None, role="single"):
+    from risingwave_tpu_torch.sql import Engine
+    from risingwave_tpu_torch.sql.planner import PlannerConfig
+
+    return Engine(PlannerConfig(**cfg), data_dir=data_dir, role=role,
+                  device=device)
+
+
+def _norm_rows(rows) -> list:
+    return sorted(tuple(None if x is None else int(x) for x in r)
+                  for r in rows)
+
+
+def phase_scale_parity(torch, device) -> None:
+    """Both scale scenarios at the CPU tests' small sizes on the card and
+    on the CPU (plain versions; the aggregation forced onto the card's
+    branch), step by step: the partitions' rows, ``partition_stats``,
+    ``repartition_job``'s counts and every partition's state tensor."""
+    import shutil
+    import tempfile
+
+    from risingwave_tpu_torch.cluster.scale.driver import ScaleDriver
+    from risingwave_tpu_torch.common.tree import tree_map
+    from risingwave_tpu_torch.stream import hash_agg
+
+    card_branch = hash_agg.accel_tuned
+    scenarios = {
+        "scale_agg": ([SCALE_BID.format(rate="100000"), SCALE_AGG],
+                      "scale_agg", 24, SCALE_AGG_READ,
+                      dict(chunk_capacity=512, agg_table_size=1 << 10,
+                           agg_emit_capacity=256, mv_table_size=1 << 10),
+                      [([1, 2], None), ([1, 2, 3], None), ([1, 2], None)]),
+        "scale_join": (SCALE_JOIN_DDL, "jmv", 16, SCALE_JOIN_READ,
+                       dict(chunk_capacity=128, mv_table_size=1 << 10,
+                            join_table_size=1 << 8, join_bucket_cap=16),
+                       [([1], 0), ([1, 2], 1), ([1], 2)]),
+    }
+    for path, (ddl, name, n_vn, read, cfg, steps) in scenarios.items():
+        dirs = [tempfile.mkdtemp(prefix="rw_scale_parity_")
+                for _ in range(2)]
+        try:
+            def factory(data_dir, dev):
+                return lambda w: _scale_engine(cfg, dev, data_dir, "compute")
+
+            drivers = [ScaleDriver(factory(d, dv), ddl, name, n_vn)
+                       for d, dv in zip(dirs, (device, torch.device("cpu")))]
+            for i, (workers, phase) in enumerate(steps):
+                res = []
+                for d in drivers:
+                    if i == 0:
+                        d.start(workers)
+                    else:
+                        r = d.scale(workers)
+                        for x in r["recipients"]:
+                            x.pop("handover_ms")
+                            x.pop("durable_epoch")
+                        res.append(r)
+                    if phase is not None:
+                        _scale_join_dml(d, phase, 23, 220, 128)
+                    if d.engines[workers[0]].device.type == "cpu":
+                        hash_agg.accel_tuned = lambda dv: True
+                    try:
+                        d.tick(2, 1)
+                    finally:
+                        hash_agg.accel_tuned = card_branch
+                if res and res[0] != res[1]:
+                    fail(f"{path} parity: the handover differs: {res}")
+                rows = [_norm_rows(d.rows(read)) for d in drivers]
+                if rows[0] != rows[1] or not rows[0]:
+                    fail(f"{path} parity: rows differ from the CPU's")
+                if drivers[0].stats() != drivers[1].stats():
+                    fail(f"{path} parity: partition_stats differ")
+                for w in drivers[0].engines:
+                    _equal_states(torch, f"{path} parity partition {w}",
+                                  tree_map(lambda x: x.cpu(),
+                                           drivers[0].job(w).states),
+                                  drivers[1].job(w).states)
+            print(f"[parity] {path} {' -> '.join(str(len(s[0])) for s in steps)}"
+                  f" partitions: rows ({len(rows[0])}), partition_stats, "
+                  "handover counts and every partition's state equal the "
+                  "CPU plain versions", flush=True)
+        finally:
+            for d in dirs:
+                shutil.rmtree(d, ignore_errors=True)
+
+
+def _scale_join_dml(driver, phase: int, keys: int, n_a: int,
+                    cap: int) -> tuple:
+    """The DML of one phase of the join scenario, in INSERTs of ``cap``
+    rows; ``ja`` row i (of ``n_a``) is (i % keys, i), ``jb`` key k's row
+    (k, 3k + 1000).  Phase 0: jb's even keys, then half of ja; phase 1:
+    jb's odd keys (the pads of their ja rows retract), a quarter of ja;
+    phase 2: the last quarter.  Returns the (ja, jb) keys inserted."""
+    import numpy as np
+
+    lo, hi = {0: (0, n_a // 2), 1: (n_a // 2, 3 * n_a // 4),
+              2: (3 * n_a // 4, n_a)}[phase]
+    b = {0: range(0, keys, 2), 1: range(1, keys, 2), 2: range(0)}[phase]
+    b = list(b)
+    for i in range(0, len(b), cap):
+        driver.execute_dml("INSERT INTO jb VALUES " + ",".join(
+            f"({k},{3 * k + 1000})" for k in b[i:i + cap]))
+    for i in range(lo, hi, cap):
+        driver.execute_dml("INSERT INTO ja VALUES " + ",".join(
+            f"({j % keys},{j})" for j in range(i, min(i + cap, hi))))
+    return (np.arange(lo, hi, dtype=np.int64) % keys,
+            np.asarray(b, np.int64))
+
+
+def _scale_consumed(torch, driver, agg: bool, hist: dict, seen: dict,
+                    cap: int) -> dict:
+    """The keys every partition read since the last call, by side of the
+    numpy model: the aggregation's bids, regenerated from the source's
+    cursor; the join's rows, cut from the tables' histories at the
+    readers' cursors."""
+    import numpy as np
+
+    eng = driver.engines[min(driver.engines)]
+    job = driver.job(min(driver.engines))
+    if agg:
+        src, lo = job.source, seen.get("bid", 0)
+        seen["bid"] = src.offset
+        return {"agg": torch.cat([src.gen.gen_bids(i * cap, cap).columns[0]
+                                  for i in range(lo // cap, src.offset // cap)]
+                                 ).cpu().numpy()}
+    offs = {eng._table_of_reader(r): r.offset for r in job.sources.values()}
+    side = {}
+    for t, name in (("ja", "left"), ("jb", "right")):
+        side[name] = np.concatenate(hist[t])[seen.get(t, 0):offs[t]]
+        seen[t] = offs[t]
+    side["mv"] = side["left"]          # one MV row per ja row
+    return side
+
+
+def _scale_agg_want(torch, driver, cap: int, n_bids: int) -> list:
+    """numpy's per-auction (count, sum, max) over the consumed bids."""
+    import numpy as np
+
+    src = driver.job(min(driver.engines)).source
+    cols = [src.gen.gen_bids(i * cap, cap) for i in range(n_bids // cap)]
+    auction = torch.cat([c.columns[0] for c in cols]).cpu().numpy()
+    price = torch.cat([c.columns[2] for c in cols]).cpu().numpy()
+    order = np.argsort(auction, kind="stable")
+    a, p = auction[order], price[order]
+    uniq, starts, counts = np.unique(a, return_index=True, return_counts=True)
+    return [(int(u), int(c), int(p[s:s + c].sum()), int(p[s:s + c].max()))
+            for u, s, c in zip(uniq, starts, counts)]
+
+
+def phase_scale_path(torch, device, scale, path: str):
+    """One scale path over 64 vnodes, partitions 2 -> 4 -> 2, each a
+    ``role="compute"`` engine on the one card over one shared store, the
+    handovers at the partitions' durable epochs.  The launch counters start
+    at 0 and count the path's own calls (the DML, the barriers and the
+    rescales), not the checks between them; ``scale_agg``'s bid chunks
+    must number partitions x barriers x chunks a barrier.
+
+    ``scale_agg``: bench's bid source without a watermark and the
+    per-auction count, sum and max at bench.py's sizes (chunk 8192, 8
+    chunks a barrier, agg table and MV 2^18, 1M events/s), 8 barriers a
+    step.  ``scale_join``: ``tests/test_scale.py``'s JOIN_DDL (ja LEFT JOIN
+    jb) at q13's DML scale: ``ja`` 131,072 rows over 16,384 keys, ``jb``
+    16,384 rows (the even keys before the scale-out, the odd ones during
+    it: their ja rows' pads retract), in INSERTs of 8192 rows, 4 rounds a
+    barrier.
+
+    Checks: the union of the partitions' reads against numpy and against
+    the port's linear engine over the same input; each partition's
+    gate_dropped and every handover's cleared and moved entries against
+    the numpy model; every loss counter 0."""
+    import shutil
+    import tempfile
+
+    from risingwave_tpu_torch import kernels
+    from risingwave_tpu_torch.cluster.scale.driver import ScaleDriver
+    from risingwave_tpu_torch.cluster.scale.vnode import (
+        moved_vnodes, rebalance)
+
+    cuda = device.type == "cuda"
+    agg = path == "scale_agg"
+    cfg = (_scale_agg_config if agg else _scale_join_config)(scale)
+    cap = cfg["chunk_capacity"]
+    keys = 16384 // scale
+    ddl = [SCALE_BID.format(rate="1000000"), SCALE_AGG] if agg \
+        else SCALE_JOIN_DDL
+    name, read = ("scale_agg", SCALE_AGG_READ) if agg \
+        else ("jmv", SCALE_JOIN_READ)
+    cpb = (CHUNKS_PER_BARRIER if cuda else 2) if agg else 4
+    # barriers a step: the join's INSERTs are 8, 4 and 4 chunks
+    barriers = [SCALE_AGG_BARRIERS if cuda else 2] * 3 if agg else [2, 1, 1]
+    n_vn = SCALE_VNODES
+    data_dir = tempfile.mkdtemp(prefix=f"rw_{path}_")
+    try:
+        driver = ScaleDriver(lambda w: _scale_engine(cfg, device, data_dir,
+                                                     "compute"),
+                             ddl, name, n_vn)
+        model = _ScaleModel(n_vn)
+        driver.start([1, 2])
+        model.start(driver.vmap)
+        if cuda:
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        hist, seen = {"ja": [], "jb": []}, {}
+        clock = {"run": 0.0, "dml": 0.0}
+        info = {"handover_ms": [], "entries": [], "chain_members": []}
+        launches: dict = {}
+        parts = []
+
+        def timed(what, fn):
+            """One call of the path (DML, barriers, a rescale), timed; its
+            launches are counted, and the checks' between calls are not
+            (the numpy model regenerates the bids it reads)."""
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize()
+            clock[what] += time.perf_counter() - t0
+            for k, v in kernels.LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + v - before.get(k, 0)
+            return out
+
+        def run(step):
+            if not agg:
+                a, b = timed("dml", lambda: _scale_join_dml(
+                    driver, step, keys, 8 * keys, cap))
+                hist["ja"].append(a)
+                hist["jb"].append(b)
+            parts.append(len(driver.engines))
+            timed("run", lambda: driver.tick(barriers[step], cpb))
+            model.consume(_scale_consumed(torch, driver, agg, hist, seen,
+                                          cap))
+
+        run(0)
+        for step, workers in ((1, [1, 2, 3, 4]), (2, [1, 2])):
+            old = list(driver.vmap)
+            lineages = dict(driver.lineages)
+            donors = {lineages[a] for (a, _) in moved_vnodes(
+                old, rebalance(old, workers, n_vn)) if a in lineages}
+            info["chain_members"].append(_chain_members(data_dir, donors))
+            res = timed("run", lambda: driver.scale(workers))
+            _check_handover(path, res, model.scale(old, driver.vmap),
+                            lineages)
+            info["handover_ms"].append(_handover_ms(res))
+            info["entries"].append(sum(t["entries"] for r in res["recipients"]
+                                       for t in r["transfers"]))
+            run(step)
+            _check_dropped(path, driver, model)
+        if agg:
+            # every partition generates every chunk of every barrier
+            want_bids = sum(p * b * cpb for p, b in zip(parts, barriers))
+            if cuda and launches["nexmark_bids"] != want_bids:
+                fail(f"{path}: {launches['nexmark_bids']} bid chunks "
+                     f"generated on the path, expected {want_bids}")
+            rows = sum(barriers) * cpb * cap
+            want_seen = {"bid": rows}
+            what = f"{rows} bids"
+        else:
+            rows = 9 * keys
+            want_seen = {"ja": 8 * keys, "jb": keys}
+            what = f"{rows} table rows ({8 * keys} ja, {keys} jb)"
+        if seen != want_seen:
+            fail(f"{path} consumed {seen}, expected {want_seen}")
+        rate = rows / clock["run"]
+        got = _norm_rows(driver.rows(read))
+        want = _scale_agg_want(torch, driver, cap, rows) if agg else sorted(
+            (i % keys, i, 3 * (i % keys) + 1000) for i in range(8 * keys))
+        if got != want:
+            fail(f"{path}: the partitions' union ({len(got)} rows) differs "
+                 f"from numpy's ({len(want)} rows)")
+        _scale_loss_check(path, driver)
+        dropped = {w: s["gate_dropped"] for w, s in driver.stats().items()}
+        dml_s = "" if agg else \
+            f"; the INSERTs took {clock['dml']:.3f} s more"
+        print(f"[main] {path} {what} in {clock['run']:.3f} s = {rate:.0f} "
+              f"rows/s through 2 -> 4 -> 2 partitions (barriers and "
+              f"handovers; every partition reads every row{dml_s}); "
+              f"handover ms {info['handover_ms']}, moved entries "
+              f"{info['entries']}; gate_dropped {dropped} equals numpy",
+              flush=True)
+        print(f"[check] {path} union of the partitions equals numpy over "
+              f"{what} ({len(want)} rows); every handover's cleared and moved "
+              "entries equal the numpy model; every loss counter 0",
+              flush=True)
+        dml = list(driver.dml_log)
+        for eng in list(driver.engines.values()):
+            eng.jobs.clear()
+        del driver
+        if cuda:
+            torch.cuda.empty_cache()
+        t_lin = time.perf_counter()
+        lin = _scale_engine(dict(cfg), device)
+        for sql in ddl + dml:
+            lin.execute(sql)
+        if agg:
+            lin.tick(barriers=sum(barriers), chunks_per_barrier=cpb)
+        else:
+            lin.execute("FLUSH")
+        if _norm_rows(lin.execute(read)) != got:
+            fail(f"{path}: the partitions' union differs from the port's "
+                 "linear engine over the same input")
+        info["linear_s"] = time.perf_counter() - t_lin
+        print(f"[check] {path} union equals the port's linear engine over "
+              f"the same input", flush=True)
+        del lin
+        if cuda:
+            torch.cuda.empty_cache()
+        info["rows"] = rows
+        return launches, rate, info
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def phase_troublemaker_path(torch, device, scale):
+    """``tests/test_ctl.py``'s troublemaker scenario on the card, at one
+    chunk of 8192 rows: a troublemaker fragment (seed 7, ratio 4) feeds a
+    hash join's left side.  The flipped ops equal the plain version's, and
+    the side's inconsistency is above 0 and equal to the CPU run's."""
+    from risingwave_tpu_torch import kernels
+    from risingwave_tpu_torch.common.chunk import Chunk
+    from risingwave_tpu_torch.common.types import DataType, Schema
+    from risingwave_tpu_torch.expr.node import InputRef
+    from risingwave_tpu_torch.stream.fragment import Fragment
+    from risingwave_tpu_torch.stream.hash_join import HashJoinExecutor
+    from risingwave_tpu_torch.stream.troublemaker import (
+        TroublemakerExecutor, troublemaker_plain)
+
+    cap = 8192 // scale
+    schema = Schema.of(("k", DataType.INT64), ("v", DataType.INT64))
+    out = {}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    for dev in (device, torch.device("cpu")):
+        frag = Fragment([TroublemakerExecutor(schema, seed=7, ratio=4)])
+        st = frag.init_states(dev)
+        k = torch.arange(cap, dtype=torch.int64, device=dev)
+        chunk = Chunk((k, k.clone()), torch.zeros(cap, dtype=torch.int8,
+                                                  device=dev),
+                      torch.ones(cap, dtype=torch.bool, device=dev), schema)
+        st, got = frag.step(st, chunk)
+        join = HashJoinExecutor(schema, schema, [InputRef(0)], [InputRef(0)],
+                                table_size=2 * cap, bucket_cap=4,
+                                out_capacity=2 * cap)
+        jst, _ = join.apply_begin(join.init_state(dev), got, "left")
+        out[dev.type] = (got.ops.cpu(), int(jst.left.inconsistency))
+        if dev == device:
+            launches = dict(kernels.LAUNCHES)
+            _, want = troublemaker_plain(
+                torch.zeros((), dtype=torch.int64, device=dev), chunk.valid,
+                chunk.ops, 7, 4)
+            max_abs_err(torch, [("troublemaker path ops", got.ops, want)])
+    (ops, inc), (cops, cinc) = out[device.type], out["cpu"]
+    if not torch.equal(ops, cops) or inc <= 0 or inc != cinc:
+        fail(f"troublemaker: inconsistency {inc} on the card, {cinc} on the "
+             "CPU (must be equal and above 0)")
+    print(f"[check] troublemaker path: {int((ops == 1).sum())} of {cap} "
+          f"inserts flipped, equal to the plain version's; the join side "
+          f"counted {inc} inconsistencies, as the CPU run", flush=True)
+    return launches, 0.0, {"inconsistency": inc}
+
+
+def run_scale_paths(torch, device, scale, results, secs: dict) -> dict:
+    """The slice's paths; their launches join the kernels line and their
+    wall seconds ``secs``.  Returns {path: (rows/s, info)}."""
+    t0 = time.perf_counter()
+    phase_scale_parity(torch, device)
+    secs["parity"] = time.perf_counter() - t0
+    out = {}
+    for path in SCALE_PATHS:
+        t0 = time.perf_counter()
+        if path == "troublemaker":
+            launches, rate, info = phase_troublemaker_path(torch, device,
+                                                           scale)
+        else:
+            launches, rate, info = phase_scale_path(torch, device, scale,
+                                                    path)
+        out[path] = (rate, info)
+        secs[path] = time.perf_counter() - t0
+        if "linear_s" in info:
+            secs[path] -= info["linear_s"]
+            secs[f"{path}'s linear rerun"] = info["linear_s"]
+        for name, n in launches.items():
+            if name in results:
+                results[name]["launches"] += n
+                results[name]["launches_by_query"][path] = n
+        missing = [k for k in SCALE_PATH_KERNELS[path] if launches[k] <= 0]
         if device.type == "cuda" and missing:
             fail(f"{path}: kernels {missing} were not launched on the path")
     return out

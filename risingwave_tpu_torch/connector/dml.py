@@ -14,9 +14,12 @@ recovery rewinds the cursor.  A DELETE row is the full old row with
 to ``OP_DELETE`` at this single point.  An idle reader returns a
 shape-static empty chunk.
 
-The cluster exchange's parts of the reference (the vnode log, the
-reader's ``vnode_filter`` and consumption fence) are not ported;
-``insert_at`` and ``insert_sparse`` raise ``NotImplementedError``.
+The cluster exchange's parts of the reference (exchange-lite: the vnode
+log, the reader's ``vnode_filter`` and consumption fence) are not
+ported; ``insert_at`` and ``insert_sparse`` raise
+``NotImplementedError``.  The scale plane's partitions
+(``cluster/scale``) run in replicate mode: each reads the whole table and
+its ``VnodeGateExecutor`` filters.
 
 ``live_row`` is the reference engine's ``_update`` fold (the live old
 row under a full pk, ``engine.py:600``) kept incrementally: the history
@@ -39,8 +42,12 @@ from risingwave_tpu_torch.common.types import Schema
 #: with this sentinel appended past the schema width (the reference's)
 DELETE_MARK = "__rwt_delete__"
 
-_CLUSTER = ("the cluster exchange's table replication is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+#: the reference's exchange-lite (the vnode log, ``insert_at`` /
+#: ``insert_sparse``, the reader's ``vnode_filter``) is not ported: a
+#: partition of the scale plane reads its whole table and its gate filters
+_CLUSTER = ("exchange-lite's table replication (sliced delivery and the "
+            "reader's vnode_filter) is not ported yet: every partition "
+            "reads the whole table")
 
 
 def mark_deletes(rows, width: int) -> list[tuple]:

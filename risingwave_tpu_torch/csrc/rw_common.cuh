@@ -268,3 +268,49 @@ __device__ __forceinline__ uint64_t rw_pair_tag(uint64_t h, int rank) {
 
 static constexpr uint64_t RW_EMPTY_TAG = 0ull;
 static constexpr uint64_t RW_TOMB_TAG = 1ull;
+
+// The vnode of one integer key (risingwave_tpu/cluster/scale/vnode.py
+// `vnodes_of_ints` :29): the key sign-extended to int64, hashed as
+// hash64_columns([key]) does (rw_hash_row over one 8-byte column is
+// rw_hash_finish(rw_hash_partial1(key))), then the unsigned 64-bit hash
+// mod n_vnodes.  The gate (K25) and the vnode sweep (K26) both call it.
+__device__ __forceinline__ int64_t rw_load_int(const void* base, int width,
+                                               int64_t i) {
+  switch (width) {
+    case 1: return static_cast<const int8_t*>(base)[i];
+    case 2: return static_cast<const int16_t*>(base)[i];
+    case 4: return static_cast<const int32_t*>(base)[i];
+    default: return static_cast<const int64_t*>(base)[i];
+  }
+}
+
+__device__ __forceinline__ int rw_vnode_of_int(int64_t key, int n_vnodes) {
+  const uint64_t h =
+      rw_hash_finish(rw_hash_partial1(static_cast<uint64_t>(key)));
+  return static_cast<int>(h % static_cast<uint64_t>(n_vnodes));
+}
+
+// Adds `v` summed over the block into *dst: a warp shuffle sum, then one
+// 64-bit atomicAdd per block (integer adds: exact in any order).  Every
+// thread of the block must call it (it synchronises the block).
+__device__ __forceinline__ void rw_block_sum_add(int v,
+                                                 unsigned long long* dst) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  __shared__ int warp_sums[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = (blockDim.x + 31) >> 5;
+    int s = lane < n_warps ? warp_sums[lane] : 0;
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    }
+    if (lane == 0 && s != 0) {
+      atomicAdd(dst, static_cast<unsigned long long>(s));
+    }
+  }
+}

@@ -90,6 +90,10 @@ SOURCES = {
     "crc32": "crc32.cu",
     "exchange": "exchange.cu",
     "partial_agg": "partial_agg.cu",
+    "vnode_gate": "vnode_gate.cu",
+    "vnode_sweep": "vnode_sweep.cu",
+    "vnode_transplant": "vnode_transplant.cu",
+    "troublemaker": "troublemaker.cu",
     # a host routine (the checkpoint store's crc32c), no kernel
     "crc32c": "crc32c.cpp",
 }
@@ -144,6 +148,10 @@ KERNELS = {
     "crc32": "crc32",
     "exchange": "exchange",
     "partial_agg": "partial_agg",
+    "vnode_gate": "vnode_gate",
+    "vnode_sweep": "vnode_sweep",
+    "vnode_transplant": "vnode_transplant",
+    "troublemaker": "troublemaker",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -64,6 +64,21 @@ per-key-safe; a shape that needs an exchange on the attach edge (a
 reduced-key or global aggregation, a top-N, a join of two sharded MVs) is
 refused as the next slice.  ALTER PARALLELISM raises.
 
+The vnode scale plane (the reference's :2450-3180): an engine of
+``role="compute"`` keeps a ``CheckpointStore`` on its ``data_dir`` and no
+DDL log, so several engines share one store, each partition under its own
+lineage (``job.ckpt_key``).  ``adopt_job`` replays a job's DDL;
+``partition_job`` rebuilds a ``source -> agg -> materialize`` job or a
+two-source hash join (its sides made dense) as one partition behind
+``VnodeGateExecutor``s (``cluster/scale/gate.py``); ``set_job_vnodes``
+swaps the owned-vnode mask; ``repartition_job`` clears the gained vnodes,
+transplants each donor's checkpoint slice and reseals
+(``cluster/scale/handover.py``); ``partition_stats`` reports the gates'
+drops; a partition's reads, live, time-travelled or backfilled, narrow to
+its vnodes (``_vnode_filtered_mv_state``).  Every partition reads the
+whole source (the reference's replicate mode: exchange-lite is not
+ported), and MV-on-MV over a partition is refused.
+
 The engine runs on the card: ``Engine(config)`` means
 ``device="cuda"`` and raises when no GPU is present; the CPU is used
 only when the caller passes ``device="cpu"``.
@@ -95,6 +110,7 @@ import dataclasses
 import time
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from risingwave_tpu_torch.common.chunk import Chunk
@@ -142,6 +158,11 @@ from risingwave_tpu_torch.stream.dag import (
     JoinNode,
     SideNode,
     TemporalJoinNode,
+)
+from risingwave_tpu_torch.stream.executor import (
+    FilterExecutor,
+    HopWindowExecutor,
+    ProjectExecutor,
 )
 from risingwave_tpu_torch.stream.materialize import (
     AppendOnlyMaterialize,
@@ -234,6 +255,13 @@ class _ProjectingReader:
         return self.inner.state()
 
 
+def _is_int_dtype(dt: torch.dtype) -> bool:
+    """An integer-family physical dtype (the reference's
+    ``np.issubdtype(..., np.integer)``: a string's uint8 bytes count)."""
+    return not dt.is_floating_point and not dt.is_complex \
+        and dt != torch.bool
+
+
 def _join_exchange_keys(key_exprs, chunk) -> list:
     """A join input's routing keys (the reference's :134): each equi key
     with a NULL's payload zeroed and no null plane, so a key nullable on
@@ -251,8 +279,13 @@ class Engine:
                    ast.SetStatement)
 
     def __init__(self, config: PlannerConfig | None = None,
-                 data_dir: str | None = None, device=None, lanes: int = 1):
+                 data_dir: str | None = None, device=None, lanes: int = 1,
+                 role: str = "single"):
         self.device = resolve_device(device)
+        #: "single", or "compute": a partition host of the scale plane,
+        #: which shares the checkpoint store of ``data_dir`` with other
+        #: engines and keeps no DDL log (the reference's :238-251)
+        self.role = role
         #: lanes of the device's shard mesh (the reference's
         #: ``len(jax.devices())``): ``SET streaming_parallelism`` shards an
         #: eligible plan over min(parallelism, lanes) of them
@@ -280,9 +313,10 @@ class Engine:
                 data_dir, keep_epochs=StorageConfig().checkpoint_keep_epochs,
                 metrics=self.metrics,
                 native_crc=self.device.type == "cuda")
-            self.meta_store = MetaStore(data_dir)
-            if self.meta_store.has_catalog():
-                self._bootstrap()
+            if role != "compute":
+                self.meta_store = MetaStore(data_dir)
+                if self.meta_store.has_catalog():
+                    self._bootstrap()
 
     def _bootstrap(self) -> None:
         """Cold start: replay the DDL log to rebuild the catalog and the
@@ -1102,6 +1136,12 @@ class Engine:
         if isinstance(ex, MaterializeExecutor):
             valid = st.table.occupied
             cap = ex.table_size
+            vn_set, n_vn = self._mv_vnode_set(entry)
+            if vn_set is not None:
+                # a partition replays only its owned vnodes' rows (the
+                # reference's :1164-1170)
+                valid = self._vnode_filtered_mv_state(
+                    st, vn_set, n_vn).table.occupied
         elif isinstance(ex, AppendOnlyMaterialize):
             cursor = st.cursor[..., None] if lead else st.cursor
             valid = torch.arange(ex.ring_size, dtype=torch.int64,
@@ -1141,7 +1181,12 @@ class Engine:
                 raise PlanError(
                     f"MV-on-MV over {type(entry.job).__name__} (sharded "
                     "upstream): next round")
-        mesh_jobs = {self.catalog.get(t.name).job for t in taps.values()
+            if getattr(entry.job, "n_vnodes", None) is not None:
+                # the reference's _plan_partition_attach (:1453)
+                raise PlanError(
+                    f"MV-on-MV over the vnode partition {tap.name!r}: "
+                    "the partition attach is not ported yet")
+        mesh_jobs ={self.catalog.get(t.name).job for t in taps.values()
                      if getattr(self.catalog.get(t.name).job, "n_shards",
                                 1) > 1}
         if mesh_jobs:
@@ -1299,15 +1344,604 @@ class Engine:
         for job in self.jobs:
             job.recover()
 
+    # -- the vnode scale plane (cluster/scale) ----------------------------
+    def adopt_job(self, ddl: list[str], name: str,
+                  recover: bool = True) -> int:
+        """Replay a shipped job's DDL, skipping objects this engine already
+        has, then recover the job from its last durable checkpoint (the
+        reference's :2450).  Returns the recovered committed epoch (0: a
+        fresh job)."""
+        for sql in ddl:
+            for text, stmt in parse_with_text(sql):
+                nm = getattr(stmt, "name", None)
+                if isinstance(stmt, (ast.CreateSource,
+                                     ast.CreateMaterializedView,
+                                     ast.CreateSink)) \
+                        and nm in self.catalog:
+                    continue
+                if isinstance(stmt, ast.CreateFunction) \
+                        and nm in self.functions:
+                    continue
+                if isinstance(stmt, ast.DropStatement) \
+                        and nm not in self.catalog:
+                    continue  # dropped before this engine ever saw it
+                self.execute(text)
+        entry = self.catalog.get(name)
+        if entry.job is None:
+            raise ValueError(f"{name!r} did not produce a streaming job")
+        if recover:
+            entry.job.recover()
+        return entry.job.committed_epoch
+
+    @staticmethod
+    def _job_sources(job) -> list:
+        """Every source reader of a job."""
+        if isinstance(job, DagJob):
+            return list(job.sources.values())
+        src = getattr(job, "source", None)
+        return [src] if src is not None else []
+
+    def _table_of_reader(self, reader) -> str | None:
+        rows = getattr(reader, "_rows", None)
+        if rows is None:
+            return None
+        for e in self.catalog.list("source"):
+            if e.dml is not None and rows is e.dml._history:
+                return e.name
+        return None
+
+    def _dml_tables_of(self, job) -> list[str]:
+        """Names of the DML tables this job's sources read."""
+        out: list[str] = []
+        for src in self._job_sources(job):
+            t = self._table_of_reader(src)
+            if t is not None and t not in out:
+                out.append(t)
+        return out
+
+    @staticmethod
+    def _trace_input_col(prefix_execs, col: int) -> int | None:
+        """Trace an output column of an executor chain back to an input
+        column of the chain's first executor, or None when a hop is not a
+        plain InputRef."""
+        idx = int(col)
+        for ex in reversed(list(prefix_execs)):
+            if isinstance(ex, FilterExecutor):
+                continue
+            if isinstance(ex, HopWindowExecutor):
+                # window_start is appended; input columns keep positions
+                if idx >= len(ex.in_schema):
+                    return None
+                continue
+            if isinstance(ex, ProjectExecutor):
+                if idx >= len(ex.exprs):
+                    return None
+                e = ex.exprs[idx][1]
+                if not isinstance(e, InputRef):
+                    return None
+                idx = e.index
+                continue
+            return None
+        return idx
+
+    def _trace_source_col(self, prefix_execs, dist_expr) -> int | None:
+        """Raw source-column index of a distribution-key expression
+        evaluated after ``prefix_execs``, or None when untraceable."""
+        if not isinstance(dist_expr, InputRef):
+            return None
+        return self._trace_input_col(prefix_execs, dist_expr.index)
+
+    def partition_job(self, name: str, n_vnodes: int,
+                      ckpt_key: str) -> dict:
+        """Rebuild a freshly adopted job as ONE partition of a
+        vnode-partitioned job (the reference's :2580): a
+        ``VnodeGateExecutor`` masks rows to the owned vnode set, and the
+        checkpoint lineage moves to ``ckpt_key``.  Eligible shapes, each
+        refused with a ``PlanError`` in the reference's words otherwise:
+        a linear job ``stateless prefix -> one HashAggExecutor -> project /
+        filter -> Materialize`` (the gate before the agg, routed by the
+        leading GROUP BY key), or a two-source hash-join ``DagJob``
+        (``_partition_dag_job``).  The spec's ``shuffle_cols`` name the
+        raw source column each DML table routes by; the port has no
+        exchange-lite, so every partition reads the whole source
+        (replicate mode) and the gate filters."""
+        from risingwave_tpu_torch.cluster.scale.gate import VnodeGateExecutor
+        from risingwave_tpu_torch.stream.fragment import Fragment
+        from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+
+        entry = self.catalog.get(name)
+        job = entry.job
+        if hasattr(job, "vnode_gate_idx") or hasattr(job, "vnode_gates"):
+            # already a partition on this engine: re-point the lineage
+            if job.n_vnodes != n_vnodes:
+                raise PlanError(
+                    f"{name!r}: vnode ring mismatch "
+                    f"({job.n_vnodes} vs {n_vnodes})"
+                )
+            job.ckpt_key = ckpt_key
+            return {
+                "partitioned": True,
+                "dml_tables": self._dml_tables_of(job),
+                "shuffle_cols": getattr(job, "shuffle_cols", {}),
+                "edge_kinds": getattr(job, "edge_kinds", {}),
+            }
+        if entry.kind != "mview":
+            raise PlanError(
+                f"{name!r} is not a streaming MV: not scale-eligible"
+            )
+        if isinstance(job, DagJob):
+            return self._partition_dag_job(entry, n_vnodes, ckpt_key)
+        if not isinstance(job, StreamingJob):
+            raise PlanError(
+                f"{name!r} is not a linear streaming MV: not "
+                "scale-eligible"
+            )
+        riders = [e for e in self.catalog.list() if e.job is job]
+        if riders != [entry]:
+            raise PlanError(
+                f"{name!r} shares its job with other MVs/sinks: not "
+                "scale-eligible"
+            )
+        if job.barriers_seen:
+            raise PlanError(
+                f"{name!r} already ran unpartitioned barriers: "
+                "partitioning happens at adoption"
+            )
+        execs = list(job.fragment.executors)
+        aggs = [i for i, ex in enumerate(execs)
+                if isinstance(ex, HashAggExecutor)]
+        if len(aggs) != 1 or not isinstance(execs[-1],
+                                            MaterializeExecutor):
+            raise PlanError(
+                f"{name!r}: scale-eligible jobs are "
+                "source → agg → materialize"
+            )
+        agg_idx = aggs[0]
+        agg = execs[agg_idx]
+        for ex in execs[:agg_idx]:
+            if not isinstance(ex, (FilterExecutor, ProjectExecutor,
+                                   HopWindowExecutor)):
+                raise PlanError(
+                    f"{name!r}: stateful/watermark prefix executor "
+                    f"{type(ex).__name__}: not scale-eligible"
+                )
+        for ex in execs[agg_idx + 1:-1]:
+            if not isinstance(ex, (FilterExecutor, ProjectExecutor)):
+                raise PlanError(
+                    f"{name!r}: post-agg executor {type(ex).__name__}: "
+                    "not scale-eligible"
+                )
+        if (agg.emit_on_window_close or agg._distinct_aggs
+                or agg._minput_aggs
+                or agg.watermark_group_idx is not None):
+            raise PlanError(
+                f"{name!r}: DISTINCT/minput/EOWC/watermark "
+                "aggregations are not scale-eligible"
+            )
+        dist_expr = agg.group_by[0][1]
+        f = dist_expr.return_field(agg.in_schema)
+        if f.nullable or not _is_int_dtype(f.data_type.physical_dtype):
+            raise PlanError(
+                f"{name!r}: distribution key {agg.group_by[0][0]!r} "
+                "must be a NOT NULL integer-family column"
+            )
+        # spill-to-host draining is not wired for partitioned handover:
+        # overflow stays a loud error
+        for ex in execs:
+            if getattr(ex, "spill_ring", 0):
+                ex.spill_ring = 0
+        gate = VnodeGateExecutor(agg.in_schema, dist_expr, n_vnodes)
+        frag = Fragment(execs[:agg_idx] + [gate] + execs[agg_idx:],
+                        name=f"{name}_part")
+        part = StreamingJob(
+            job.source, frag, name,
+            checkpoint_frequency=job.checkpoint_frequency,
+            device=self.device, checkpoint_store=job.checkpoint_store,
+        )
+        part.maintenance_interval = job.maintenance_interval
+        part.snapshot_interval = job.snapshot_interval
+        part.metrics = job.metrics
+        part.ckpt_key = ckpt_key
+        part.vnode_gate_idx = agg_idx
+        part.n_vnodes = n_vnodes
+        part.vnodes = frozenset(range(n_vnodes))
+        self.jobs[self.jobs.index(job)] = part
+        entry.job = part
+        entry.mv_state_index = (entry.mv_state_index[0] + 1,) \
+            + tuple(entry.mv_state_index[1:])
+        tables = self._dml_tables_of(part)
+        src_col = self._trace_source_col(execs[:agg_idx], dist_expr)
+        part.shuffle_cols = {t: src_col for t in tables} \
+            if src_col is not None else {}
+        part.edge_kinds = {t: "source" for t in tables}
+        return {
+            "partitioned": True,
+            "dist": agg.group_by[0][0],
+            "dml_tables": tables,
+            "shuffle_cols": part.shuffle_cols,
+            "edge_kinds": part.edge_kinds,
+        }
+
+    def _partition_dag_job(self, entry: CatalogEntry, n_vnodes: int,
+                           ckpt_key: str) -> dict:
+        """Partition a two-source hash-join ``DagJob`` (the reference's
+        :2741): a gate on each source edge routed by that side's FIRST
+        equi key, the join rebuilt with DENSE retractable sides (whole-key
+        bucket entries, K13d's path: the layout ``handover`` moves), and
+        the MV's leading pk column required to carry the preserved side's
+        join key, so every keyed state slices and serves in one vnode
+        hash domain."""
+        from risingwave_tpu_torch.cluster.scale.gate import VnodeGateExecutor
+        from risingwave_tpu_torch.stream.fragment import Fragment
+        from risingwave_tpu_torch.stream.hash_join import HashJoinExecutor
+
+        name = entry.name
+        job = entry.job
+        riders = [e for e in self.catalog.list() if e.job is job]
+        if riders != [entry]:
+            raise PlanError(
+                f"{name!r} shares its job with other MVs/sinks: not "
+                "scale-eligible"
+            )
+        if job.barriers_seen:
+            raise PlanError(
+                f"{name!r} already ran unpartitioned barriers: "
+                "partitioning happens at adoption"
+            )
+        if job.n_shards > 1:
+            raise PlanError(
+                f"{name!r}: sharded/staged DAGs do not partition "
+                "across workers yet (mesh×vnode composition is the "
+                "next round)"
+            )
+        live = [(i, n) for i, n in enumerate(job.nodes) if n is not None]
+        if len(live) != 2 or not isinstance(live[0][1], JoinNode) \
+                or isinstance(live[0][1], SideNode) \
+                or not isinstance(live[1][1], FragNode):
+            raise PlanError(
+                f"{name!r}: partitioned DAGs are source ⋈ source → "
+                "materialize: not scale-eligible"
+            )
+        jn = live[0][1]
+        frag_node = live[1][1]
+        join = jn.join
+        if not isinstance(join, HashJoinExecutor):
+            raise PlanError(
+                f"{name!r}: only hash equi-joins partition (got "
+                f"{type(join).__name__}): not scale-eligible"
+            )
+        if join.join_type == "full_outer":
+            raise PlanError(
+                f"{name!r}: FULL OUTER join has no always-non-NULL "
+                "routing column: not scale-eligible"
+            )
+        if join.left_clean is not None or join.right_clean is not None:
+            raise PlanError(
+                f"{name!r}: watermark-cleaned join state is not "
+                "sliceable: not scale-eligible"
+            )
+        if jn.left[0] != "source" or jn.right[0] != "source" \
+                or jn.left == jn.right:
+            raise PlanError(
+                f"{name!r}: join sides must read two distinct "
+                "sources directly: not scale-eligible"
+            )
+        if frag_node.input != ("node", live[0][0]):
+            raise PlanError(
+                f"{name!r}: materialize must consume the join: not "
+                "scale-eligible"
+            )
+        for ks, schema in ((join.left_keys, join.left_schema),
+                           (join.right_keys, join.right_schema)):
+            k0 = ks[0]
+            if not isinstance(k0, InputRef):
+                raise PlanError(
+                    f"{name!r}: first join key must be a plain "
+                    "column: not scale-eligible"
+                )
+            f = k0.return_field(schema)
+            if f.nullable or not _is_int_dtype(f.data_type.physical_dtype):
+                raise PlanError(
+                    f"{name!r}: routing key {f.name!r} must be a "
+                    "NOT NULL integer-family column"
+                )
+        execs = list(frag_node.fragment.executors)
+        mats = [i for i, ex in enumerate(execs)
+                if isinstance(ex, MaterializeExecutor)]
+        if len(mats) != 1 or mats[0] != len(execs) - 1 or any(
+                not isinstance(ex, (FilterExecutor, ProjectExecutor))
+                for ex in execs[:-1]):
+            raise PlanError(
+                f"{name!r}: post-join chain must be project/filter → "
+                "materialize: not scale-eligible"
+            )
+        mv = execs[-1]
+        left_pos = join.left_keys[0].index
+        if join.emit_pairs:
+            right_pos = len(join.left_schema) + join.right_keys[0].index
+        else:  # semi/anti: the output is the preserved side alone
+            right_pos = join.right_keys[0].index
+        if join.join_type == "inner":
+            allowed = {left_pos, right_pos}
+        elif join.preserve_left:
+            allowed = {left_pos}
+        else:
+            allowed = {right_pos}
+        traced = self._trace_input_col(execs[:-1], mv.pk_indices[0])
+        if traced is None or traced not in allowed:
+            raise PlanError(
+                f"{name!r}: the MV's leading pk column must be the "
+                "preserved side's join key: not scale-eligible"
+            )
+        dense = HashJoinExecutor(
+            join.left_schema, join.right_schema,
+            join.left_keys, join.right_keys,
+            table_size=join.table_size,
+            left_bucket_cap=join.left_bucket_cap,
+            right_bucket_cap=join.right_bucket_cap,
+            left_table_size=join.left_table_size,
+            right_table_size=join.right_table_size,
+            out_capacity=join.out_capacity,
+            join_type=join.join_type,
+            left_storage="dense", right_storage="dense",
+        )
+        gate_l = VnodeGateExecutor(join.left_schema, list(join.left_keys),
+                                   n_vnodes)
+        gate_r = VnodeGateExecutor(join.right_schema,
+                                   list(join.right_keys), n_vnodes)
+        lname, rname = jn.left[1], jn.right[1]
+        for ex in execs:
+            if getattr(ex, "spill_ring", 0):
+                ex.spill_ring = 0
+        part = DagJob(
+            dict(job.sources),
+            [
+                FragNode(Fragment([gate_l], name=f"{name}_gate_l"),
+                         ("source", lname)),
+                FragNode(Fragment([gate_r], name=f"{name}_gate_r"),
+                         ("source", rname)),
+                JoinNode(dense, ("node", 0), ("node", 1)),
+                FragNode(Fragment(execs, name=f"{name}_part"),
+                         ("node", 2)),
+            ],
+            name=job.name,
+            checkpoint_frequency=job.checkpoint_frequency,
+            device=self.device, checkpoint_store=job.checkpoint_store,
+        )
+        part.maintenance_interval = job.maintenance_interval
+        part.snapshot_interval = job.snapshot_interval
+        part.metrics = job.metrics
+        part.ckpt_key = ckpt_key
+        part.vnode_gates = [(0, 0), (1, 0)]
+        part.n_vnodes = n_vnodes
+        part.vnodes = frozenset(range(n_vnodes))
+        self.jobs[self.jobs.index(job)] = part
+        entry.job = part
+        entry.mv_state_index = (3, len(execs) - 1)
+        entry.dag_nodes = [0, 1, 2, 3]
+        part.shuffle_cols = {}
+        for src_name, keys in ((lname, join.left_keys),
+                               (rname, join.right_keys)):
+            tbl = self._table_of_reader(part.sources[src_name])
+            if tbl is not None:
+                part.shuffle_cols[tbl] = keys[0].index
+        part.edge_kinds = {t: "join" for t in part.shuffle_cols}
+        return {
+            "partitioned": True,
+            "dist": join.left_schema[left_pos].name,
+            "dml_tables": self._dml_tables_of(part),
+            "shuffle_cols": part.shuffle_cols,
+            "edge_kinds": part.edge_kinds,
+        }
+
+    def set_job_vnodes(self, name: str, vnodes) -> None:
+        """Swap the partition's owned-vnode mask (state, not code).  The
+        gates' dropped counters ride along untouched: they audit the
+        whole life of the partition (the reference's :2935)."""
+        entry = self.catalog.get(name)
+        job = entry.job
+        job.vnodes = frozenset(int(v) for v in vnodes)
+
+        def with_mask(gate, old_state):
+            dropped = old_state[1] if isinstance(old_state, tuple) \
+                else torch.zeros((), dtype=torch.int64, device=self.device)
+            return (gate.make_mask(job.vnodes, self.device), dropped)
+
+        states = list(job.states)
+        if hasattr(job, "vnode_gates"):
+            for ni, ei in job.vnode_gates:
+                gate = job.nodes[ni].fragment.executors[ei]
+                node_states = list(states[ni])
+                node_states[ei] = with_mask(gate, node_states[ei])
+                states[ni] = tuple(node_states)
+        else:
+            gi = job.vnode_gate_idx
+            states[gi] = with_mask(job.fragment.executors[gi], states[gi])
+        job.states = tuple(states)
+
+    def _gate_states(self, job) -> list:
+        if hasattr(job, "vnode_gates"):
+            return [job.states[ni][ei] for ni, ei in job.vnode_gates]
+        if hasattr(job, "vnode_gate_idx"):
+            return [job.states[job.vnode_gate_idx]]
+        return []
+
+    def partition_stats(self) -> dict:
+        """Per partitioned job: owned vnodes, the gates' dropped-row
+        counters (one host read per job) and the readers' filtered rows
+        (the port's readers filter nothing: replicate mode)."""
+        out: dict = {}
+        for job in self.jobs:
+            if getattr(job, "n_vnodes", None) is None:
+                continue
+            drops = [st[1] for st in self._gate_states(job)
+                     if isinstance(st, tuple)]
+            dropped = int(torch.stack(drops).sum()) if drops else 0
+            out[job.name] = {
+                "vnodes": sorted(job.vnodes),
+                "gate_dropped": dropped,
+                "reader_filtered": sum(
+                    getattr(s, "filtered_rows", 0)
+                    for s in self._job_sources(job)
+                ),
+                "shuffle_cols": dict(getattr(job, "shuffle_cols", {})),
+            }
+        return out
+
+    def repartition_job(self, name: str, vnodes, transfers: list,
+                        rewind_epoch: int | None = None) -> dict:
+        """One handover step on this engine's partition (the reference's
+        :3050): rewind to the handover epoch if the partition ran ahead,
+        clear the gained vnodes' stale entries (K26), transplant each
+        donor's checkpoint slice (the probe kernel's claim, then K27),
+        swap the owned mask, then reseal the post-transplant state under
+        this partition's lineage.  ``transfers``: ``[{"ckpt": donor
+        lineage, "epoch": e, "vnodes": [...]}]``, read from the shared
+        checkpoint store.  ``handover_ms`` gives the milliseconds of each
+        step (clear, load, slice, transplant, reseal)."""
+        from risingwave_tpu_torch.cluster.scale.handover import (
+            clear_job_vnodes,
+            slice_job_states,
+            transplant_job,
+        )
+        from risingwave_tpu_torch.stream.runtime import restore_source
+
+        entry = self.catalog.get(name)
+        job = entry.job
+        if not hasattr(job, "vnode_gate_idx") \
+                and not hasattr(job, "vnode_gates"):
+            raise PlanError(f"{name!r} is not a partitioned job")
+        is_dag = isinstance(job, DagJob)
+        if rewind_epoch is not None and (
+                job.committed_epoch != rewind_epoch
+                or job.sealed_epoch != rewind_epoch):
+            job.recover(rewind_epoch)
+
+        def src_state():
+            if is_dag:
+                return {n: (s.state() if hasattr(s, "state") else {})
+                        for n, s in job.sources.items()}
+            return job.source.state() if hasattr(job.source, "state") \
+                else {}
+
+        def check_cursor(ours, donor) -> None:
+            if ("offset" in ours and "offset" in donor
+                    and ours["offset"] != donor["offset"]):
+                raise RuntimeError(
+                    f"handover cursor mismatch for {name!r}: "
+                    f"local {ours['offset']} vs donor {donor['offset']}"
+                )
+
+        ms = dict.fromkeys(("clear", "load", "slice", "transplant",
+                            "reseal"), 0.0)
+
+        def lap(step: str, t0: float) -> float:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t1 = time.perf_counter()
+            ms[step] += (t1 - t0) * 1e3
+            return t1
+
+        stats = []
+        cleared = 0
+        if transfers:
+            t = time.perf_counter()
+            gained = sorted(set(int(v) for tr in transfers
+                                for v in tr["vnodes"]))
+            job.states, cleared = clear_job_vnodes(
+                job, job.states, gained, job.n_vnodes)
+            t = lap("clear", t)
+            fresh = job.barriers_seen == 0 and job.committed_epoch == 0
+            for tr in transfers:
+                loaded = self.checkpoint_store.load(tr["ckpt"],
+                                                    int(tr["epoch"]))
+                if loaded is None:
+                    raise RuntimeError(
+                        f"donor checkpoint {tr['ckpt']}@{tr['epoch']} "
+                        "not found in the shared store"
+                    )
+                _, d_states, d_src = loaded
+                t = lap("load", t)
+                sl = slice_job_states(job, d_states, tr["vnodes"],
+                                      job.n_vnodes)
+                t = lap("slice", t)
+                job.states, moved = transplant_job(job, job.states, sl)
+                t = lap("transplant", t)
+                if fresh:
+                    # every donor sealed the same round at the same
+                    # cursor: any donor's is the handover epoch's
+                    if is_dag:
+                        for sname, src in job.sources.items():
+                            restore_source(src, d_src.get(sname, {}))
+                    else:
+                        restore_source(job.source, d_src)
+                    fresh = False
+                else:
+                    ours = src_state()
+                    if is_dag:
+                        for sname in job.sources:
+                            check_cursor(ours.get(sname, {}),
+                                         d_src.get(sname, {}))
+                    else:
+                        check_cursor(ours, d_src)
+                stats.append({"ckpt": tr["ckpt"],
+                              "vnodes": len(tr["vnodes"]),
+                              "entries": moved})
+        self.set_job_vnodes(name, vnodes)
+        durable = 0
+        if transfers and self.checkpoint_store is not None:
+            # durably seal the post-transplant state under this
+            # partition's lineage at its committed epoch (0 for a fresh
+            # recipient): a restart between the transplant and the next
+            # seal must not re-adopt a lineage missing the moved state
+            t = time.perf_counter()
+            job.drain_uploads()
+            self.checkpoint_store.invalidate(job.ckpt_key)
+            self.checkpoint_store.save(job.ckpt_key, job.committed_epoch,
+                                       job.states, src_state())
+            job._shadow = None
+            lap("reseal", t)
+            durable = job.committed_epoch
+        return {"vnodes": len(job.vnodes), "cleared": cleared,
+                "transfers": stats, "durable_epoch": durable,
+                "handover_ms": ms}
+
+    def _mv_vnode_set(self, entry: CatalogEntry):
+        """``(vnode set, n_vnodes)`` a read of this MV narrows to, or
+        ``(None, None)`` (the reference's :3767)."""
+        n_vn = getattr(entry.job, "n_vnodes", None)
+        if n_vn is None:
+            return None, None
+        return entry.job.vnodes, n_vn
+
+    def _vnode_filtered_mv_state(self, st, vn_set, n_vn):
+        """A materialize state narrowed to one vnode set (the reference's
+        :3165): occupancy masked by the stored leading-pk vnode (K26's
+        read form), so stale slots a handover left behind never surface
+        in reads."""
+        from risingwave_tpu_torch.cluster.scale.handover import vnode_sweep
+        from risingwave_tpu_torch.cluster.scale.vnode import (
+            vnode_member_mask,
+        )
+        from risingwave_tpu_torch.state.hash_table import HashTable
+        from risingwave_tpu_torch.stream.materialize import MvState
+
+        member = vnode_member_mask(vn_set, n_vn, st.table.device)
+        occ = vnode_sweep(st.table, member, n_vn, read=True)
+        table = HashTable(st.table.key_cols, occ, st.table.tombstone,
+                          st.table.size)
+        return MvState(table, st.values, st.overflow)
+
     # -- serving ----------------------------------------------------------
     def _mv_rows(self, entry: CatalogEntry) -> list[tuple]:
         """The MV's rows: live, or with ``SET query_epoch = e`` those of
         the job's retained checkpoint of epoch ``e`` (the reference's
-        time travel, ``engine.py:3783``; its vnode branch has no
-        counterpart in the port yet).  A sharded job's lanes are merged on
-        the host."""
+        time travel, ``engine.py:3779-3830``).  A sharded job's lanes are
+        merged on the host; a partition's rows narrow to its owned vnodes
+        (``_vnode_filtered_mv_state``), live or travelled."""
         from risingwave_tpu_torch.stream.sharded import ShardedStreamingJob
 
+        vn_set, n_vn = self._mv_vnode_set(entry)
         qe = int(self.session_config.get("query_epoch"))
         if qe:
             if self.checkpoint_store is None:
@@ -1329,15 +1963,19 @@ class Engine:
                     rows.extend(entry.mv_executor.to_host(
                         unflatten(spec, [x[s] for x in leaves])))
                 return rows
+            if vn_set is not None:
+                state = self._vnode_filtered_mv_state(state, vn_set, n_vn)
             return entry.mv_executor.to_host(state)
         if isinstance(entry.job, ShardedStreamingJob):
             return entry.job.mv_rows(entry.mv_executor,
                                      entry.mv_state_index[0])
-        if isinstance(entry.job, DagJob):
+        if isinstance(entry.job, DagJob) and vn_set is None:
             return entry.job.mv_rows(entry.mv_executor, entry.mv_state_index)
         state = entry.job.states
         for i in entry.mv_state_index:
             state = state[i]
+        if vn_set is not None:
+            state = self._vnode_filtered_mv_state(state, vn_set, n_vn)
         return entry.mv_executor.to_host(state)
 
     def _apply_serving_topn(self, entry: CatalogEntry, rows: list) -> list:
@@ -1421,12 +2059,14 @@ class Engine:
             rows = rows[:select.limit]
         return rows
 
-    #: the global aggregates ``_serve_batch`` evaluates on the host
+    #: the global aggregates ``_serve_batch`` evaluates on the host, typed
+    #: as the reference's batch result: a count is an int64, an integer sum
+    #: widens to int64, min and max keep the column's type
     _SERVE_AGGS = {
-        "count": len,
+        "count": lambda v: np.int64(len(v)),
         "min": lambda v: min(v) if v else None,
         "max": lambda v: max(v) if v else None,
-        "sum": lambda v: sum(v) if v else None,
+        "sum": lambda v: _typed_sum(v) if v else None,
     }
 
     def _serve_batch(self, select: ast.Select):
@@ -1434,10 +2074,12 @@ class Engine:
         (engine.py:1017) runs the planner's dataflow over bounded
         snapshot readers; of that, one piece is ported: ``SELECT
         agg(col | *), ... FROM <mv>`` with COUNT, MIN, MAX and SUM of
-        columns, NULLs skipped, over the MV's rows on the host.  The
-        rest (GROUP BY, WHERE, ORDER BY / LIMIT / OFFSET on an
-        aggregate, joins, subqueries, base tables) is ROADMAP Queue 1
-        item 10 and raises."""
+        columns, NULLs skipped, over the MV's rows on the host, with the
+        reference's answers: no row over an empty MV, numpy-typed values,
+        and min/max over strings wider than 8 device bytes refused.  The
+        rest of the batch executor (GROUP BY, WHERE, ORDER BY / LIMIT /
+        OFFSET on an aggregate, joins, subqueries, base tables) is not
+        ported and raises."""
         from_ = select.from_
         if not (isinstance(from_, ast.TableRef) and from_.name in self.catalog
                 and self.catalog.get(from_.name).kind == "mview"
@@ -1453,8 +2095,7 @@ class Engine:
                 "not ported yet")
         entry = self.catalog.get(from_.name)
         scope = Scope.of(entry.schema, from_.alias or from_.name)
-        rows = self._mv_rows(entry)
-        out, names = [], []
+        calls, names = [], []
         for name, e in self.planner._expand_items(select.items, scope):
             if not (isinstance(e, ast.FuncCall) and e.name in
                     self._SERVE_AGGS and len(e.args) == 1
@@ -1464,16 +2105,32 @@ class Engine:
                     "or SUM only")
             arg = e.args[0]
             if isinstance(arg, ast.Star) and e.name == "count":
-                vals = rows
+                i = None
             elif isinstance(arg, ast.ColumnRef):
                 i = scope.resolve(arg.name, arg.table)
-                vals = [r[i] for r in rows if r[i] is not None]
+                f = entry.schema[i]
+                if e.name in ("min", "max") and f.data_type.is_string \
+                        and f.str_width > 8:
+                    # the reference's planner refuses it (planner.py:1342)
+                    raise PlanError(
+                        f"{e.name} over strings wider than 8 device "
+                        "bytes: next round")
             else:
                 raise NotImplementedError(
                     "serving aggregates take a column or COUNT(*)")
-            out.append(self._SERVE_AGGS[e.name](vals))
+            calls.append((e.name, i))
             names.append(name)
         self._last_columns = names
+        rows = self._mv_rows(entry)
+        if not rows:
+            # the reference's simple aggregation emits no row over an
+            # empty input
+            return []
+        out = []
+        for kind, i in calls:
+            vals = rows if i is None else [r[i] for r in rows
+                                           if r[i] is not None]
+            out.append(self._SERVE_AGGS[kind](vals))
         return [tuple(out)]
 
     @staticmethod
@@ -1487,6 +2144,16 @@ class Engine:
         raise NotImplementedError(
             "serving ORDER BY supports output columns only")
 
+
+
+def _typed_sum(vals):
+    """A SUM over host values typed as the reference's: an integer sum
+    (int16, int32, int64 or a Python int) is an int64, a float sum keeps
+    its numpy type."""
+    if all(isinstance(v, (int, np.integer)) and not isinstance(
+            v, (bool, np.bool_)) for v in vals):
+        return np.int64(sum(int(v) for v in vals))
+    return sum(vals)
 
 
 def _const_value(e):

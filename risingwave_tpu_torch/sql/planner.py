@@ -50,10 +50,12 @@ plan in a ``SinkExecutor`` instead of an MV (:1203-1216): the
 ``_hidden_`` columns are projected away first, and the ring takes
 ``mv_ring_size`` rows.
 
-Not ported yet (``PlanError``/``NotImplementedError``): non-equality ON
-conditions other than an outer join's one-sided push-down, WHERE or
-aggregation over a join, nested (multi-way) and comma joins, EXISTS and
-scalar subqueries and a derived table outside a join.
+An aggregation over a join plans as q102's does (the join node, then a
+fragment with the aggregation).  Not ported yet
+(``PlanError``/``NotImplementedError``): non-equality ON conditions
+other than an outer join's one-sided push-down, WHERE over a join,
+nested (multi-way) and comma joins, EXISTS and scalar subqueries and a
+derived table outside a join.
 EMIT ON WINDOW CLOSE plans as the reference plans it (an aggregation
 grouped by a watermarked window key, no pane rewrite, final rows into the
 append-only ring) and refuses, with the reference's words, joins and
@@ -108,6 +110,17 @@ from risingwave_tpu_torch.stream.watermark import WatermarkFilterExecutor
 
 class PlanError(ValueError):
     pass
+
+
+def _refuse_nullable_pool(schema: Schema, what: str) -> None:
+    """A top-N or over-window pool stores every input column, and its
+    row scatter takes no nullable column: refused at CREATE (the
+    reference's pool scatter fails on the first tick too)."""
+    nullable = [f.name for f in schema if f.nullable]
+    if nullable:
+        raise PlanError(f"{what} over the nullable column(s) "
+                        f"{', '.join(nullable)}: a pool holds no NULLs, "
+                        "not ported")
 
 
 @dataclass
@@ -1186,6 +1199,7 @@ class Planner:
                 if out_schema[pos].nullable:
                     raise PlanError("row_number ORDER BY on a nullable "
                                     "column is not ported yet")
+            _refuse_nullable_pool(out_schema, "a row_number top-N")
             execs.append(GroupTopNExecutor(
                 out_schema,
                 group_by=[InputRef(i) for i in group_pos],
@@ -1225,6 +1239,7 @@ class Planner:
                     raise PlanError("ORDER BY on a nullable column in TopN "
                                     "is not ported yet")
                 ob.append((ke, oi.descending))
+            _refuse_nullable_pool(out_schema, "a top-N")
             # append-only up to here: the TopN can evict non-band rows
             execs.append(GroupTopNExecutor(
                 out_schema, group_by=[], order_by=ob, limit=select.limit,
@@ -1275,6 +1290,7 @@ class Planner:
             if e.return_field(scope.schema).nullable:
                 raise PlanError("OVER (...) on nullable partition or order "
                                 "columns is not ported yet")
+        _refuse_nullable_pool(scope.schema, "an over-window")
         calls = []
         supported = {"row_number", "rank", "dense_rank", "lag", "lead",
                      "sum", "count", "avg", "min", "max"}

@@ -92,8 +92,16 @@ class CheckpointPipelineMixin:
 
     @property
     def ckpt_key(self) -> str:
-        """Durable-store key of this job's checkpoint lineage."""
-        return self.name
+        """Durable-store key of this job's checkpoint lineage: the job's
+        name, or a partition's own lineage (``name@pN``: the scale plane
+        runs one partition per engine over ONE shared store).  The
+        uploader, the shadow's re-base, the spill tiers' keys and
+        ``recover`` all use it."""
+        return getattr(self, "_ckpt_key", None) or self.name
+
+    @ckpt_key.setter
+    def ckpt_key(self, value: str) -> None:
+        self._ckpt_key = value
 
     def _ensure_uploader(self):
         if self._uploader is None and self.checkpoint_store is not None:

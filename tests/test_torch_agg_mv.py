@@ -9,6 +9,7 @@ the aggregates here are integer (count/sum/min/max), so results are
 exact.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,7 @@ uploader loud, and ``recover()`` must rewind to the last durable epoch.
 Tolerance: none.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import io
 import json
 

@@ -5,6 +5,7 @@ without a card or outside a checkout, and its ``--rehearse`` mode must
 run every phase through the plain versions on the CPU.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import json
 import shutil
 import subprocess
@@ -138,14 +139,27 @@ def test_rehearsal_runs_every_phase_on_cpu():
                 "[shadow_digest_lanes] exact", "[dirty_gather_lanes] exact",
                 "[check] q8 sharded ring rows equal the numpy join",
                 "[check] q8 sharded ring equals the port's linear run",
-                "[durable] q8 sharded", "[cold start] q8 sharded"):
+                "[durable] q8 sharded", "[cold start] q8 sharded",
+                "[vnode_gate] exact", "[vnode_sweep] exact on the agg",
+                "[vnode_sweep] exact on the join side",
+                "[vnode_transplant] exact on the agg",
+                "[vnode_transplant] exact on the join side",
+                "[troublemaker] exact", "[parity] scale_agg 2 -> 3 -> 2",
+                "[parity] scale_join 1 -> 2 -> 1",
+                "[check] scale_agg union of the partitions equals numpy",
+                "[check] scale_agg union equals the port's linear engine",
+                "[check] scale_join union of the partitions equals numpy",
+                "[check] scale_join union equals the port's linear engine",
+                "[check] troublemaker path"):
         assert tag in out.stdout
     assert '"ok"' not in out.stdout
     line = next(x for x in out.stdout.splitlines()
                 if x.startswith('{"kernels"'))
     names = {k["name"] for k in json.loads(line)["kernels"]}
     assert {"sink_ring", "append_only_dedup", "crc32", "exchange",
-            "partial_agg", "shadow_digest_lanes", "dirty_gather_lanes"} <= names
+            "partial_agg", "shadow_digest_lanes", "dirty_gather_lanes",
+            "vnode_gate", "vnode_sweep", "vnode_transplant",
+            "troublemaker"} <= names
 
 
 def test_sink_paths_are_wired():
@@ -202,3 +216,24 @@ def test_q8_sharded_paths_are_wired():
         assert ("shadow_digest_lanes" in kern) == path.endswith("durable")
     for name in ("shadow_digest_lanes", "dirty_gather_lanes"):
         assert kernels.KERNELS[name] == "shadow_digest"
+
+
+def test_scale_paths_are_wired():
+    """The slice's paths: both scale paths launch K25-K27 (the gate, the
+    sweep, the transplant), the troublemaker path K28, each built from
+    its own source."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from risingwave_tpu_torch import kernels
+
+    assert chip_smoke.SCALE_PATHS == ("scale_agg", "scale_join",
+                                      "troublemaker")
+    for path in ("scale_agg", "scale_join"):
+        kern = set(chip_smoke.SCALE_PATH_KERNELS[path])
+        assert {"vnode_gate", "vnode_sweep", "vnode_transplant"} <= kern
+        assert kern <= set(kernels.KERNELS)
+    assert chip_smoke.SCALE_PATH_KERNELS["troublemaker"] == ("troublemaker",)
+    for name in ("vnode_gate", "vnode_sweep", "vnode_transplant",
+                 "troublemaker"):
+        assert kernels.KERNELS[name] == name
+        assert kernels.SOURCES[name] == f"{name}.cu"

@@ -21,6 +21,7 @@ and no committed epoch cold-starts the jobs from their initial state.
 Tolerance: none.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import json
 import os
 

@@ -15,6 +15,7 @@ a fresh port engine must continue identically.  Tolerance: none — the
 path is integer end to end and tags compare by bit pattern.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import pytest
 

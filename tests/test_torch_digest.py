@@ -12,6 +12,7 @@ without ``init``, for ``NCol`` and ``StrCol`` columns and with the drop
 sentinel.  Tolerance: none.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -19,6 +19,7 @@ does.  The K4 sweep's plain versions (``clear_where``, ``clear_slots`` of
 random tables.  Tolerance: none — every value here is integer.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

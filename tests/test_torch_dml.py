@@ -14,6 +14,7 @@ running reader's width is refused by both without widening the auto
 width.  Tolerance: none.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import numpy as np
 import pytest
@@ -153,5 +154,5 @@ def test_live_rows_fold():
     tm.insert([b])
     assert tm.live_rows([0], (1,)) == [b]
     assert tm.live_rows([0], (2,)) == []
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="exchange-lite"):
         tm.insert_sparse(0, 1, [])

@@ -15,6 +15,7 @@ threshold, flag, counters) must be equal.  Tolerance: none — the float
 values are exact integers.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ same MV on both.  Tolerance: none — q5 and q7 are integer end to end,
 and q1's NUMERIC price is a scaled int64 printed by the same formula.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import numpy as np
 import pytest

@@ -20,6 +20,7 @@ the DDL log, and the reference's EOWC ``PlanError``s word for word.
 Tolerance: none — every value here is integer.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import numpy as np
 import pytest

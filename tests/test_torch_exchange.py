@@ -18,6 +18,7 @@ valid, the fill of the unfilled slots) must be equal bit for bit.
 Tolerance: none.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import zlib
 
 import jax

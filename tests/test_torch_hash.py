@@ -10,6 +10,7 @@ float32's range: the reference folds them as XLA's CPU runtime computes
 them, with denormals-are-zero and flush-to-zero set.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ inserted/found, overflow) must be equal.  Tolerance: none — the probe
 is integer and deterministic (lowest row index wins a claim).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ order included (the reference repeats each row k times, so an update's
 U-/U+ halves end up k rows apart).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import numpy as np
 import pytest
 

@@ -6,6 +6,7 @@ checks match the module name ``risingwave_tpu`` and the prefix
 ``risingwave_tpu.``, never a bare prefix.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import re
 import subprocess
 import sys
@@ -53,7 +54,12 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
         "'risingwave_tpu_torch.stream.temporal_join', "
         "'risingwave_tpu_torch.slt', "
         "'risingwave_tpu_torch.stream.sink', "
-        "'risingwave_tpu_torch.connector.sinks'}\n"
+        "'risingwave_tpu_torch.connector.sinks', "
+        "'risingwave_tpu_torch.cluster.scale.vnode', "
+        "'risingwave_tpu_torch.cluster.scale.gate', "
+        "'risingwave_tpu_torch.cluster.scale.handover', "
+        "'risingwave_tpu_torch.cluster.scale.driver', "
+        "'risingwave_tpu_torch.stream.troublemaker'}\n"
         "assert new <= set(mods), new - set(mods)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -10,6 +10,7 @@ every state tensor after each step must be equal.  Tolerance: none —
 the path is integer end to end.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ port's (plain versions on the CPU):
 Tolerance: none — the path is integer end to end.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 from collections import Counter
 
 import jax

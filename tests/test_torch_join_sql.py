@@ -15,6 +15,7 @@ q101's reference state carried into a fresh port engine must continue
 identically.  Tolerance: none — the path is integer end to end.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import pytest
 

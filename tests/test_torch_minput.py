@@ -25,6 +25,7 @@ durable ``q5_max`` equal to an uninterrupted run, with the minput leaves
 in the store's payloads under the reference's member keys and shapes.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import json
 import os
 

@@ -6,6 +6,7 @@ byte-identical (prices are float64 ``round(10**(u*6) * 100)``; the
 last bits of ``pow`` may differ, the rounded prices may not).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import numpy as np
 import pytest
 

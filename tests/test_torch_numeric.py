@@ -8,6 +8,7 @@ port's ``multiply`` and ``coerce``.  Tolerance: none — the results are
 int64 and must be identical.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

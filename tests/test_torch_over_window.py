@@ -24,6 +24,7 @@ bit), except the float64 sums and averages of non-dyadic float
 arguments, which add in another order than XLA's cumsum: relative 1e-12.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ carried into the port mid-run continues identically.  Tolerance: none
 (q6's average sums integer prices, exact in float64).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import pytest
 

@@ -14,6 +14,7 @@ and max of floats exact.  The two-phase plan through a global aggregation
 is in ``tests/test_torch_sharded_sql.py``.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

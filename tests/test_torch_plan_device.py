@@ -9,6 +9,7 @@ runs (``bench.py``'s queries, q19/q18 and the window queries) plan for
 CUDA unchanged.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import pytest
 
 from bench import QUERIES, SOURCES

@@ -11,6 +11,7 @@ the same numpy chunks and compare every state tensor and every emitted
 row.  Tolerance: none — every aggregate here is integer.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,7 @@ continue equal to the reference.  The plan for CUDA takes no refusal.
 Tolerance: none — the path is integer end to end.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import json
 import os
 

@@ -18,6 +18,7 @@ one ULP on some inputs), and torch's are libm's, so these are held to 4
 ULP (``rtol`` 1e-15).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import itertools
 import zlib
 

@@ -13,6 +13,7 @@ the digest vector (int64 bit patterns of the reference's uint64) and
 tree and be independent of the shadow.  Tolerance: none.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ deltas whose kind and every payload member (``r_{leaf}_{start}``, runs cut
 row by row) are equal, key for key and byte for byte.  Tolerance: none.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -19,6 +19,7 @@ state and rows.  With one lane a parallelism above 1 plans linearly.
 Tolerance: none (integer keys, tags by bit pattern).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import pytest
 

@@ -17,6 +17,7 @@ above 1 plans linearly, as the reference does on one device (no pane
 rewrite either).  Tolerance: none (integer keys and aggregates).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import json
 
 import jax

@@ -17,6 +17,7 @@ rehash past a quarter of tombstones, state for state.  Tolerance: none
 division on both sides).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

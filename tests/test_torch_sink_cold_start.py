@@ -15,6 +15,7 @@
 Tolerance: none (integer columns).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import json
 
 from risingwave_tpu.sql import Engine as JEngine

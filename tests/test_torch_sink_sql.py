@@ -19,6 +19,7 @@ The durable side (cold starts, exactly once) is in
 columns, and the sink's values as the reference's JSON prints them).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import json
 
 import pytest

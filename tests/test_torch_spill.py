@@ -21,6 +21,7 @@ versions on the CPU):
 Tolerance: none — every value here is integer.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import numpy as np
 import pytest

@@ -20,6 +20,7 @@ CUDA.
 Tolerance: none — the path is byte and integer arithmetic.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import pytest
 

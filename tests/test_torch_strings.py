@@ -15,6 +15,7 @@ and to_char Python's ``strftime`` where ``datetime`` reaches.
 Tolerance: none — the functions are byte and integer arithmetic.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import datetime as dt
 import re
 

@@ -23,6 +23,7 @@ Tolerance: none — byte and integer arithmetic, compared bit for bit
 (bytes past each length included: they must be zero).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import datetime as dt
 
 import jax.numpy as jnp

@@ -24,6 +24,7 @@ Sizes are ``tests/test_slt.py``'s (chunk 256, tables 2^10).  Tolerance:
 none — the paths are integer and byte for byte.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import json
 import os
 

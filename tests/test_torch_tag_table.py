@@ -8,6 +8,7 @@ output is an integer, and tags compare by their 64-bit pattern (the
 reference's uint64 viewed as the port's int64).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ and byte leaves; the float64 keys are compared by IEEE equality on both
 sides).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import functools
 
 import jax

@@ -15,6 +15,7 @@ reference byte for byte.  Tolerance: none (every value is an integer or
 a copied float; hashes compare by bit pattern).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

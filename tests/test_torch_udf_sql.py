@@ -27,6 +27,7 @@ PRECISION) / 3``), held to 1 ULP: XLA rewrites a division by a constant
 into a multiply by its reciprocal, and the port divides (IEEE).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch threads)
 import shutil
 import tempfile
 
