@@ -366,6 +366,35 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_ms_by_kernel(torch, device, fn, iters: int,
+                        names) -> dict | None:
+    """Mean device milliseconds a call of ``fn(i)`` spends in the CUDA
+    functions whose names start with each of ``names``, over ``iters``
+    calls under torch.profiler (after a warm-up call on input ``iters``);
+    None off the card or when the profiler recorded no device time."""
+    if device.type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(iters)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        for name in names:
+            if e.key.startswith(name):
+                out[name] += us / 1e3 / iters
+    return out if any(out.values()) else None
+
+
 def pool_apply_bound(cap: int, row: float, n_del: int, n_ins: int,
                      S: int) -> tuple[float, str]:
     """K16's bound from the rows its work needs: every chunk row's flag
@@ -540,6 +569,8 @@ def main() -> int:
         elif query in WINDOW_QUERIES:
             launches, rates[query], info = phase_window_main_path(
                 torch, device, scale, query)
+            if "probe" in info:
+                results["probe"]["at_ow_bid"] = info.pop("probe")
             results["over_window"].setdefault("at_pool", {})[query] = info
         elif query in JOIN_QUERIES:
             launches, rates[query] = phase_join_main_path(torch, device,
@@ -739,45 +770,331 @@ def _probe_chunk(torch, table_keys, cap, g):
     return keys[torch.randperm(cap, generator=g)]
 
 
+def _keys_at(size: int, homes) -> "np.ndarray":
+    """One int64 key for each wanted home slot of a ``size``-slot table
+    (distinct keys, the smallest positive ones)."""
+    import numpy as np
+    import torch
+
+    from risingwave_tpu_torch.common.hash import hash64_columns_plain
+
+    cand = np.arange(1, 1 + 64 * size, dtype=np.int64)
+    hs = (hash64_columns_plain([torch.from_numpy(cand)])
+          & (size - 1)).numpy()
+    out: list[int] = []
+    for want in homes:
+        out.append(int(cand[(hs == want) & ~np.isin(cand, out)][0]))
+    return np.array(out, np.int64)
+
+
+def k3_cases() -> list:
+    """K3's claim-round corner cases as scripts of numpy arrays, shared
+    with ``tests/test_torch_probe_rounds.py``: ``(name, size, key kind,
+    steps)``; a step is ``("insert" | "lookup", cols, valid)`` or
+    ``("clear", pred)``, ``cols`` a list of key columns (``"int64"``: an
+    int64 key; ``"int64+varchar8"``: it and a VARCHAR(8) as ``(data,
+    lens)``; ``"float64"``)."""
+    import numpy as np
+
+    ones = lambda n: np.ones(n, bool)  # noqa: E731
+    cases = []
+    # three rows of one new key and two of another in one chunk
+    rng = np.random.default_rng(31)
+    k = rng.integers(0, 10**9, 64)
+    k[[5, 17, 40]] = 10**12 + 1
+    k[[2, 3]] = 10**12 + 2
+    cases.append(("duplicate new keys", 1 << 8, "int64", [
+        ("insert", [rng.integers(0, 10**9, 96)], ones(96)),
+        ("insert", [k], ones(64)), ("lookup", [k], ones(64))]))
+    # two new keys homed 4 * cap apart share a scratch entry
+    size, a = 1 << 12, 1000
+    ka, kb = _keys_at(size, [a, a + 4 * 64])
+    k = np.arange(10**6, 10**6 + 64, dtype=np.int64)
+    k[9], k[3] = ka, kb
+    valid = np.zeros(64, bool)
+    valid[[3, 9]] = True
+    cases.append(("scratch collision", size, "int64",
+                  [("insert", [k], valid)]))
+    # an entry round later than the round another key claimed that slot
+    a = 2000
+    p1, p2, ka, kb = _keys_at(size, [a, a + 1, a, a + 2])
+    k = np.arange(10**6, 10**6 + 64, dtype=np.int64)
+    k[0], k[50] = ka, kb
+    valid = np.zeros(64, bool)
+    valid[[0, 50]] = True
+    cases.append(("late entry", size, "int64", [
+        ("insert", [np.array([p1, p2])], ones(2)),
+        ("insert", [k], valid), ("lookup", [k], valid)]))
+    # a run of eight keys of one home, every other one tombstoned
+    size, a = 1 << 10, 300
+    same = _keys_at(size, [a] * 14)
+    pred = np.zeros(size, bool)
+    pred[[a, a + 2, a + 4, a + 6]] = True
+    k = np.arange(10**6, 10**6 + 64, dtype=np.int64)
+    k[:6] = same[[1, 3, 7, 8, 9, 0]]
+    valid = np.zeros(64, bool)
+    valid[:6] = True
+    cases.append(("tombstones", size, "int64", [
+        ("insert", [same[:8]], ones(8)), ("clear", pred),
+        ("lookup", [k], valid), ("insert", [k], valid)]))
+    # a near-full table: inserts and then lookups reach the round bound
+    rng = np.random.default_rng(33)
+    steps = [("insert", [rng.integers(0, 10**12, 80)], ones(80))
+             for _ in range(3)]
+    steps.append(("insert", [rng.integers(0, 10**12, 64)],
+                  rng.random(64) < 0.9))
+    steps.append(("clear", rng.random(1 << 8) < 0.25))
+    steps.append(("lookup", [rng.integers(10**13, 10**14, 64)], ones(64)))
+    cases.append(("near full", 1 << 8, "int64", steps))
+    # an all-invalid chunk
+    rng = np.random.default_rng(34)
+    k = rng.integers(0, 100, 64)
+    cases.append(("all invalid", 1 << 8, "int64", [
+        ("insert", [rng.integers(0, 100, 40)], ones(40)),
+        ("insert", [k], np.zeros(64, bool)),
+        ("lookup", [k], np.zeros(64, bool))]))
+    # string keys with padding past their lengths, duplicate-heavy
+    rng = np.random.default_rng(35)
+    steps = []
+    for _ in range(3):
+        cols = [rng.integers(0, 6, 128).astype(np.int64),
+                (rng.integers(0, 3, (128, 8)).astype(np.uint8),
+                 rng.integers(0, 3, 128).astype(np.int32))]
+        valid = rng.random(128) < 0.9
+        steps += [("insert", cols, valid), ("lookup", cols, valid)]
+    cases.append(("strings", 1 << 9, "int64+varchar8", steps))
+    # float64 keys: -0.0, NaN, infinities, a subnormal
+    tiny = float(np.finfo(np.float64).tiny)
+    special = np.array([0.0, -0.0, tiny / 4, np.nan, np.inf, -np.inf, 1.5,
+                        2.5], np.float64)
+    steps = []
+    for _ in range(3):
+        k = rng.choice(special, 128)
+        k[::3] = rng.integers(-40, 40, len(k[::3])) / 4.0
+        valid = rng.random(128) < 0.9
+        steps += [("insert", [k], valid), ("lookup", [k], valid)]
+    cases.append(("floats", 1 << 9, "float64", steps))
+    # 512 rows into a half-full 2^12 table, a fifth tombstoned: a third
+    # present, a third new, a third copies of 8 new keys
+    rng = np.random.default_rng(36)
+    size, cap = 1 << 12, 512
+    base = rng.integers(-2**62, 2**62, size // 2)
+    t3 = cap // 3
+    k = np.concatenate([rng.choice(base, t3), rng.integers(-2**62, 2**62, t3),
+                        rng.integers(-2**62, 2**62, 8)[rng.integers(
+                            0, 8, cap - 2 * t3)]])[rng.permutation(cap)]
+    valid = rng.random(cap) < 0.95
+    cases.append(("heavy duplicates", size, "int64", [
+        ("insert", [base], ones(size // 2)),
+        ("clear", rng.random(size) < 0.2), ("lookup", [k], valid),
+        ("insert", [k], valid), ("lookup", [k], valid)]))
+    return cases
+
+
+def k3_torch_cols(torch, cols, device):
+    """A ``k3_cases`` step's key columns as the port's key columns."""
+    from risingwave_tpu_torch.common.chunk import StrCol
+
+    return [StrCol(torch.from_numpy(c[0]).to(device),
+                   torch.from_numpy(c[1]).to(device))
+            if isinstance(c, tuple) else torch.from_numpy(c).to(device)
+            for c in cols]
+
+
+def k3_empty_table(torch, size: int, kind: str, device):
+    from risingwave_tpu_torch.common.chunk import StrCol
+    from risingwave_tpu_torch.state.hash_table import HashTable
+
+    protos = [torch.zeros(1, dtype=torch.float64 if kind == "float64"
+                          else torch.int64)]
+    if kind == "int64+varchar8":
+        protos.append(StrCol(torch.zeros((1, 8), dtype=torch.uint8),
+                             torch.zeros(1, dtype=torch.int32)))
+    return HashTable.create(protos, size, device)
+
+
+def _probe_planes(torch, tag, res, t):
+    """The probe's outputs and the table's tensors, named; float key
+    stores by bit pattern (a NaN key is not equal to itself)."""
+    from risingwave_tpu_torch.common.hash import key_leaves
+
+    out = [(f"{tag} slots", res[1]), (f"{tag} inserted/found", res[2]),
+           (f"{tag} overflow", res[3]), (f"{tag} n_over", res[4]),
+           (f"{tag} occupied", t.occupied), (f"{tag} tombstone", t.tombstone)]
+    for i, (d, n, _) in enumerate(key_leaves(t.key_cols)):
+        if d.dtype.is_floating_point:
+            d = d.view(torch.int64 if d.element_size() == 8 else torch.int32)
+        out.append((f"{tag} key store {i}", d))
+        if n is not None:
+            out.append((f"{tag} key nulls {i}", n))
+    return out
+
+
+#: claimant lists up to this long run their claim rounds on block 0 alone
+#: (``ONE_BLOCK_MAX`` in ``csrc/probe.cu``)
+PROBE_ONE_BLOCK_MAX = 1024
+
+
+def _probe_paths(device) -> tuple:
+    """The claim rounds' branches a check runs: on the card the
+    cooperative grid forced for every round, and the default (the grid
+    while more than ``PROBE_ONE_BLOCK_MAX`` rows are listed, then block 0
+    alone; a short list is block 0's from the start); the CPU runs the
+    plain version whatever the branch."""
+    return ("grid", "default") if device.type == "cuda" else ("default",)
+
+
+def _probe_on(t, path: str, cols, valid, insert: bool, hashes=None):
+    """``t``'s probe on the claim rounds' ``path`` branch."""
+    if path == "grid":
+        return t._probe_cuda(cols, valid, insert, hashes, grid_only=True)
+    return t._probe(cols, valid, insert, hashes)
+
+
+def _check_probe_path(torch, device, ht, path, insert):
+    """On the card, the claim kernel of the last insert took ``path``'s
+    branches: returns ``(claimants, grid rounds, one-block rounds)``."""
+    if device.type != "cuda" or not insert:
+        return None
+    n, grid_rounds, block_rounds = ht.probe_claim_stats(device)
+    if n and path == "grid" and (grid_rounds == 0 or block_rounds):
+        fail(f"probe: forced grid branch ran {grid_rounds} grid and "
+             f"{block_rounds} one-block rounds")
+    if path == "default" and 0 < n <= PROBE_ONE_BLOCK_MAX and (
+            grid_rounds or block_rounds == 0):
+        fail(f"probe: {n} claimants ran {grid_rounds} grid and "
+             f"{block_rounds} one-block rounds, not block 0 alone")
+    return n, grid_rounds, block_rounds
+
+
+def probe_bound(cap: int, n_valid: int, n_ins: int,
+                kw: float) -> tuple[float, str]:
+    """K3's bound from what the chunk's data needs: every row's valid flag
+    read and its slot and flags written (7 B); a valid row's home slot
+    (4 B) and key (``kw`` B) read and one probe read of the table
+    (occupied, tombstone, key); a key and its occupied flag written a
+    claim."""
+    return bound(cap * 7 + n_valid * (2 * kw + 6) + n_ins * (kw + 1),
+                 n_valid * 30)
+
+
+def phase_probe_cases(torch, device) -> str:
+    """Every ``k3_cases`` script on the card, kernel against plain
+    version at each step, on the forced grid branch and the default one
+    (the cases' short lists: block 0 alone)."""
+    from risingwave_tpu_torch.state import hash_table as ht
+
+    n_steps = 0
+    took = {"grid": 0, "one block": 0}
+    for path in _probe_paths(device):
+        for name, size, kind, steps in k3_cases():
+            tk = k3_empty_table(torch, size, kind, device)
+            tp = k3_empty_table(torch, size, kind, device)
+            for i, step in enumerate(steps):
+                if step[0] == "clear":
+                    pred = torch.from_numpy(step[1]).to(device)
+                    tk.clear_where_plain(pred)
+                    tp.clear_where_plain(pred)
+                    continue
+                insert = step[0] == "insert"
+                cols = k3_torch_cols(torch, step[1], device)
+                valid = torch.from_numpy(step[2]).to(device)
+                rk = _probe_on(tk, path, cols, valid, insert)
+                rp = tp._probe_plain(cols, valid, insert)
+                st = _check_probe_path(torch, device, ht, path, insert)
+                if st is not None and st[0]:
+                    took["grid" if st[1] else "one block"] += 1
+                tag = f"probe case {name!r} step {i} ({path})"
+                max_abs_err(torch, [
+                    (x[0], x[1], y[1]) for x, y in
+                    zip(_probe_planes(torch, tag, rk, tk),
+                        _probe_planes(torch, tag, rp, tp))])
+                n_steps += 1
+    return (f"{len(k3_cases())} cases, {n_steps} probe steps, claims on "
+            f"the grid branch {took['grid']} times and on the one-block "
+            f"branch {took['one block']}")
+
+
+#: K3's two CUDA functions, for the profiler's device time of each
+PROBE_KERNELS = ("probe_walk", "probe_claim")
+#: K13's: the rank, then the update's three passes
+JOIN_UPDATE_KERNELS = ("join_rank_kernel", "join_count", "join_place",
+                       "join_degree")
+
+
 def phase_probe(torch, device, timer, scale):
+    from risingwave_tpu_torch.common.hash import hash64_columns
+    from risingwave_tpu_torch.state import hash_table as ht
+
     g = torch.Generator(device="cpu").manual_seed(2)
     size, cap = (1 << 18) // scale, 8192 // scale
     base, tkeys = _prefilled_table(torch, device, size, size // 2, g)
     keys = _probe_chunk(torch, tkeys, cap, g).to(device)
     valid = (torch.rand(cap, generator=g) < 0.95).to(device)
     pairs = []
-    for insert in (True, False):
-        tk, tp = base.clone(), base.clone()
-        rk = tk._probe([keys], valid, insert)
-        rp = tp._probe_plain([keys], valid, insert)
-        if insert:
-            n_inserted = int(rp[2].sum())
-        tag = "insert" if insert else "lookup"
-        for name, a, b in (("slots", rk[1], rp[1]), ("inserted/found",
-                                                     rk[2], rp[2]),
-                           ("overflow", rk[3], rp[3]),
-                           ("n_over", rk[4], rp[4]),
-                           ("occupied", tk.occupied, tp.occupied),
-                           ("tombstone", tk.tombstone, tp.tombstone),
-                           ("key store", tk.key_cols[0], tp.key_cols[0])):
-            pairs.append((f"probe {tag} {name}", a, b))
+    stats = {}
+    paths = _probe_paths(device)
+    for path in paths:
+        for insert in (True, False):
+            tk, tp = base.clone(), base.clone()
+            rk = _probe_on(tk, path, [keys], valid, insert)
+            rp = tp._probe_plain([keys], valid, insert)
+            if insert:
+                n_inserted = int(rp[2].sum())
+                stats[path] = _check_probe_path(torch, device, ht, path,
+                                                True)
+            tag = f"probe {'insert' if insert else 'lookup'} ({path})"
+            pairs += [(x[0], x[1], y[1]) for x, y in
+                      zip(_probe_planes(torch, tag, rk, tk),
+                          _probe_planes(torch, tag, rp, tp))]
     err = max_abs_err(torch, pairs)
+    cases = phase_probe_cases(torch, device)
+    # K3 alone: the hashes (K1) are computed before the timed calls
+    h = hash64_columns([keys])
     n_it = 20
     clones = [base.clone() for _ in range(n_it + 1)]
-    ms = timer(lambda i: clones[i].lookup_or_insert([keys], valid), n_it)
+    ms = timer(lambda i: clones[i]._probe([keys], valid, True, h), n_it)
+    # ~1 ms of host time a call: a 2 ms pre-fill keeps the queue ahead
+    lookup_ms = timer(lambda i: base._probe([keys], valid, False, h), 100,
+                      2.0)
+    grid_ms = ms
+    split = None
+    if device.type == "cuda":
+        fc = [base.clone() for _ in range(n_it + 1)]
+        grid_ms = timer(lambda i: fc[i]._probe_cuda(
+            [keys], valid, True, h, grid_only=True), n_it)
+        pc = [base.clone() for _ in range(n_it + 1)]
+        split = device_ms_by_kernel(
+            torch, device, lambda i: pc[i]._probe([keys], valid, True, h),
+            n_it, PROBE_KERNELS)
     pclones = [base.clone() for _ in range(4)]
     plain_ms = timer(lambda i: pclones[i]._probe_plain([keys], valid, True),
                      3)
-    # chunk: key 8 B + valid 1 B read; slot 4 B + flags 2 B written; one
-    # probe read per row (occupied, tombstone, key: 10 B) and a key +
-    # occupied write per claimed slot
-    nbytes = cap * (8 + 1 + 6 + 10) + n_inserted * 9
-    b = bound(nbytes, cap * 30)
-    print(f"[probe] exact (slot layout, insert and lookup); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.5f} ms",
+    n_valid = int(valid.sum())
+    b = probe_bound(cap, n_valid, n_inserted, 8)
+    lb = probe_bound(cap, n_valid, 0, 8)
+    st = stats.get("default")
+    rounds = "" if st is None else (
+        f"; {st[0]} claimants, {st[1]} grid and {st[2]} one-block rounds")
+    by_kernel = "" if split is None else (
+        f" (device time walk {split['probe_walk']:.4f} + rounds "
+        f"{split['probe_claim']:.4f} ms)")
+    print(f"[probe] exact (slot layout, insert and lookup, on the "
+          f"{', '.join(paths)} branches{rounds}; {cases}); K1's hashes "
+          f"apart: insert {ms:.4f} ms{by_kernel}, the grid branch forced "
+          f"{grid_ms:.4f}, lookup {lookup_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b[0]:.5f} ms (lookup {lb[0]:.5f})",
           flush=True)
-    return kernel_entry("probe.cu", "risingwave_tpu/state/hash_table.py:236",
-                        ms, plain_ms, b, None, err)
+    out = kernel_entry("probe.cu", "risingwave_tpu/state/hash_table.py:236",
+                       ms, plain_ms, b, None, err)
+    out.update(lookup_ms=lookup_ms, lookup_bound_ms=lb[0],
+               grid_branch_ms=grid_ms)
+    if split is not None:
+        out.update(walk_ms=split["probe_walk"],
+                   claim_ms=split["probe_claim"])
+    if st is not None:
+        out.update(claimants=st[0], grid_rounds=st[1], block_rounds=st[2])
+    return out
 
 
 def phase_agg(torch, device, timer, scale):
@@ -907,17 +1224,22 @@ def phase_mv(torch, device, timer, scale):
     last = torch.full((size + 1,), -1, dtype=torch.int32, device=device)
     row_idx = torch.arange(2 * half, dtype=torch.int32, device=device)
     tgt = slots.to(torch.int64)
-    library_ms = timer(lambda i: last.scatter_reduce_(
+    # no one PyTorch call resolves the last op per slot and writes the
+    # winners: the amax scatter of the row index is only the first pass
+    first_pass_ms = timer(lambda i: last.scatter_reduce_(
         0, tgt, row_idx, reduce="amax"), 200)
     n_rows = 2 * half
     # per row: slot 4 B, op 1 B, valid 1 B, 24 B of values; per winning
     # slot 24 B of values + 2 B of flags written
     b = bound(n_rows * 30 + half * 26, n_rows * 8)
     print(f"[mv_upsert] exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {library_ms:.4f} ms, bound {b[0]:.5f} ms", flush=True)
-    return kernel_entry("mv_upsert.cu",
-                        "risingwave_tpu/stream/materialize.py:108",
-                        ms, plain_ms, b, library_ms, err)
+          f"library none (scatter_reduce_ amax of the row index, its first "
+          f"pass, {first_pass_ms:.4f} ms), bound {b[0]:.5f} ms", flush=True)
+    out = kernel_entry("mv_upsert.cu",
+                       "risingwave_tpu/stream/materialize.py:108",
+                       ms, plain_ms, b, None, err)
+    out["first_pass_ms"] = first_pass_ms
+    return out
 
 
 def phase_preagg(torch, device, timer, scale):
@@ -1287,13 +1609,15 @@ def phase_engine_parity(torch, device, query: str) -> None:
 
 
 #: the port's own kernels, by CUDA function name
-PORT_KERNEL_NAMES = ("hash64_kernel", "probe_kernel", "reset_kernel",
+PORT_KERNEL_NAMES = ("hash64_kernel", "probe_walk", "probe_claim",
+                     "reset_kernel",
                      "scatter_kernel", "mark_kernel", "apply_kernel",
                      "preagg_kernel", "count_kernel", "write_kernel",
                      "ring_append_kernel", "bids_kernel", "hop_kernel",
                      "auctions_kernel", "persons_kernel", "tag_lookup_kernel",
                      "tag_insert_kernel", "tag_ranked_kernel",
-                     "join_rank_kernel", "join_update_kernel",
+                     "join_rank_kernel", "join_count", "join_place",
+                     "join_degree",
                      "join_emit_kernel", "join_clean_kernel",
                      "compact_count_kernel", "compact_tiles_kernel",
                      "compact_write_kernel", "topn_", "ow_scan_local",
@@ -1618,6 +1942,118 @@ def _side_planes(tag, s):
     return out
 
 
+def k13_cases() -> list:
+    """K13's corner cases, shared with ``tests/test_torch_probe_rounds.py``:
+    ``(name, pool, pool_len, tags, chunks)`` for the left pool side of an
+    inner pool/pool join on ``(k, w)`` of ``(k INT64, w TIMESTAMP, name
+    VARCHAR(8))`` (``k13_chunk_arrays``), starting from the side's empty
+    state with ``pool_len`` and, where given, the tag table's uint64
+    ``tags`` set; a chunk is ``(k, ops or None, valid or None,
+    capacity)``."""
+    import numpy as np
+
+    cases = []
+    # a hot key as one segment, twice (ranks go on from the degree)
+    rng = np.random.default_rng(41)
+    chunks = []
+    for _ in range(2):
+        k = rng.integers(0, 10**6, 256)
+        k[rng.permutation(256)[:200]] = 7
+        chunks.append((k, None, None, 256))
+    cases.append(("hot key", 1 << 10, 0, None, chunks))
+    # the pool overflows mid-chunk: 8 of 24 accepted rows fit
+    rng = np.random.default_rng(42)
+    cases.append(("pool overflow", 64, 56, None,
+                  [(rng.integers(0, 9, 24), None, None, 32)]))
+    # a rank-0 row over the probe bound while a later row of its key is
+    # placed: all tombstones but a few empty slots, 11 rows of other keys
+    # before four rows of key 99 (the layout's seed 2 gives the case)
+    rng = np.random.default_rng(2)
+    n_empty = int(rng.integers(2, 6))
+    tags = np.ones(32, np.uint64)
+    tags[rng.permutation(32)[:n_empty]] = 0
+    k = np.concatenate([rng.integers(0, 40, 11), [99] * 4]) + 10**6
+    cases.append(("rank-0 row over the bound", 32, 0, tags,
+                  [(k, None, None, 16)]))
+    # invalid rows and retractions in the sentinel segment; the deletes
+    # of joinable rows count as inconsistencies
+    rng = np.random.default_rng(44)
+    ops = rng.choice(np.array([0, 1, 2, 3], np.int8), 96,
+                     p=[0.6, 0.15, 0.1, 0.15])
+    cases.append(("inactive rows and deletes", 1 << 9, 0, None,
+                  [(rng.integers(0, 20, 96), ops, rng.random(96) < 0.8,
+                    128)]))
+    return cases
+
+
+def k13_chunk_arrays(k) -> list:
+    """A K13 case chunk's columns: the key, window 0 and a name."""
+    import numpy as np
+
+    return [np.asarray(k, np.int64), np.zeros(len(k), np.int64),
+            np.array([f"n{x % 97}" for x in k], object)]
+
+
+def phase_join_update_cases(torch, device) -> str:
+    """Every ``k13_cases`` case on the card: the pool side update (K12 and
+    K13) against the plain update on the whole side after each chunk, and
+    K13's rank launch against the plain rank."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import Chunk
+    from risingwave_tpu_torch.common.hash import hash64_columns
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+    from risingwave_tpu_torch.expr.node import InputRef
+    from risingwave_tpu_torch.stream import hash_join as hj
+
+    schema = Schema((Field("k", DataType.INT64),
+                     Field("w", DataType.TIMESTAMP),
+                     Field("name", DataType.VARCHAR, str_width=8)))
+    keys = [InputRef(0), InputRef(1)]
+    n_chunks = 0
+    for name, pool, pool_len, tags, chunks in k13_cases():
+        ex = hj.HashJoinExecutor(schema, schema, keys, keys, out_capacity=16,
+                                 join_type="inner", left_storage="pool",
+                                 right_storage="pool", left_pool_size=pool,
+                                 right_pool_size=pool)
+        ex.left_clean = (1, 1000, 1)
+        sides = [ex.init_state(device).left for _ in range(2)]
+        for sd in sides:
+            sd.pool_len.fill_(pool_len)
+            if tags is not None:
+                sd.table.tags.copy_(torch.from_numpy(tags.view(np.int64)))
+        for i, (k, ops, valid, cap) in enumerate(chunks):
+            chunk = Chunk.from_numpy(schema, k13_chunk_arrays(k), ops=ops,
+                                     capacity=cap, device=device)
+            if valid is not None:
+                full = np.zeros(cap, bool)
+                full[:len(k)] = valid
+                chunk = Chunk(chunk.columns, chunk.ops,
+                              torch.from_numpy(full).to(device), schema)
+            key_cols, null_keys = hj._null_stripped_keys(
+                [e.eval(chunk) for e in keys])
+            h = hash64_columns(key_cols)
+            is_ins = hj.insert_mask(chunk, null_keys)
+            tag = f"join_update case {name!r} chunk {i}"
+            pairs = []
+            if device.type == "cuda":
+                rk, rp = hj.join_rank_cuda(h, is_ins), \
+                    hj._rank_by_sorted(h, is_ins)
+                pairs += [(f"{tag} rank", rk[0], rp[0]),
+                          (f"{tag} order", rk[1], rp[1])]
+            ik = hj.update_side_pool(sides[0], chunk, ex.left_clean,
+                                     key_cols, null_keys, h)[1]
+            ip = hj._update_side_pool_plain(sides[1], chunk, ex.left_clean,
+                                            key_cols, null_keys, h)[1]
+            pairs += [(f"{tag} rounds", ik, ip)]
+            pairs += [(nm, a, b) for (nm, a), (_, b) in
+                      zip(_side_planes(tag, sides[0]),
+                          _side_planes(tag, sides[1]))]
+            max_abs_err(torch, pairs)
+            n_chunks += 1
+    return f"{len(k13_cases())} cases, {n_chunks} chunks"
+
+
 def phase_q8_kernels(torch, device, timer, scale):
     """K12-K15 at q8's main-path shapes: the join state of a q8 engine at
     bench sizes after 10 barriers (two 2^22-slot tag tables at the
@@ -1749,6 +2185,7 @@ def phase_q8_kernels(torch, device, timer, scale):
                     _side_planes("auction side", sp))]
     pairs.append(("update rounds", ik, ip))
     err = max_abs_err(torch, pairs)
+    cases = phase_join_update_cases(torch, device)
     work = clone_tree(right)
     if device.type == "cuda":
         ranked = hj.join_rank_cuda(h, is_ins)
@@ -1756,14 +2193,22 @@ def phase_q8_kernels(torch, device, timer, scale):
                                                            work.count, is_ins)
         sort_ms = timer(lambda i: torch.sort(hj._sort_key(h, is_ins),
                                              stable=True), 200)
-        rank_ms = timer(lambda i: hj.join_rank_cuda(h, is_ins), 200)
+        sk_, order_ = torch.sort(hj._sort_key(h, is_ins), stable=True)
+        rank_ms = timer(lambda i: hj.join_rank_sorted_cuda(sk_, order_), 200)
         upd_ms = timer(lambda i: hj.join_update_cuda(
             work, achunk, clean, key_cols, null_keys, is_ins, ranked,
             probe), 50)
-        ms = rank_ms - sort_ms + upd_ms
+        ms = rank_ms + upd_ms
+        jsplit = device_ms_by_kernel(
+            torch, device, lambda i: (
+                hj.join_rank_sorted_cuda(sk_, order_),
+                hj.join_update_cuda(work, achunk, clean, key_cols,
+                                    null_keys, is_ins, ranked, probe)),
+            50, JOIN_UPDATE_KERNELS)
         full_ms = timer(lambda i: hj.update_side_pool(
             clone_tree(right), achunk, clean, key_cols, null_keys, h), 10)
     else:
+        jsplit = None
         sort_ms = ms = full_ms = timer(lambda i: hj.update_side_pool(
             clone_tree(right), achunk, clean, key_cols, null_keys, h), 3)
     plain_ms = timer(lambda i: hj._update_side_pool_plain(
@@ -1772,15 +2217,25 @@ def phase_q8_kernels(torch, device, timer, scale):
     # per row: flags, slots, ranks, head, order, segment start ~30 B read;
     # the row's 56 B of columns read and written; pool_pos 4, slot_clean 8
     b = bound(cap * (30 + 2 * n_cols + 12), cap * 30)
+    rank_part = "" if device.type != "cuda" else (
+        f": rank {rank_ms:.4f}, update {upd_ms:.4f}")
+    if jsplit is not None:
+        rank_part += " (device time " + ", ".join(
+            f"{k} {v:.4f}" for k, v in jsplit.items()) + ")"
     print(f"[join_update] exact (the whole pool side after the update, "
-          f"with K12); rank + update kernels {ms:.4f} ms (the sort "
-          f"{sort_ms:.4f} ms apart), whole update {full_ms:.4f} ms, plain "
+          f"with K12; {cases}); rank + update kernels {ms:.4f} ms"
+          f"{rank_part} (the sort {sort_ms:.4f} ms apart), whole update "
+          f"{full_ms:.4f} ms, plain "
           f"update (with plain K12) {plain_ms:.4f} ms, bound {b[0]:.5f} ms",
           flush=True)
     out["join_update"] = kernel_entry(
         "join_update.cu", "risingwave_tpu/stream/hash_join.py:597", ms,
         plain_ms, b, None, err)
     out["join_update"].update(whole_update_ms=full_ms, sort_ms=sort_ms)
+    if device.type == "cuda":
+        out["join_update"].update(rank_ms=rank_ms, update_ms=upd_ms)
+    if jsplit is not None:
+        out["join_update"]["device_ms"] = jsplit
 
     # -- K14 join_emit: window 0 of the auction chunk probing persons ----
     st = js._replace(right=clone_tree(right))
@@ -2553,7 +3008,7 @@ def phase_topn_kernels(torch, device, timer, scale):
     from risingwave_tpu_torch.common.chunk import Chunk, StrCol
     from risingwave_tpu_torch.common.compact import mask_indices
     from risingwave_tpu_torch.common.hash import (
-        hash64_columns_cuda, hash64_columns_plain)
+        hash64_columns, hash64_columns_cuda, hash64_columns_plain)
     from risingwave_tpu_torch.common.tree import flatten, tree_map
     from risingwave_tpu_torch.stream import top_n
     from risingwave_tpu_torch.stream.materialize import (
@@ -2771,15 +3226,15 @@ def phase_topn_kernels(torch, device, timer, scale):
     err = max_abs_err(torch, pairs)
     n_rows = int(outc.valid.sum())
     tl = mv.table.clone()
-    pfn = (lambda i: tl._probe_cuda(keys, outc.valid, False)) if cuda \
+    # K3 alone: the hashes (K1) computed before the timed calls
+    hk = hash64_columns(keys)
+    pfn = (lambda i: tl._probe_cuda(keys, outc.valid, False, hk)) if cuda \
         else (lambda i: tl._probe_plain(keys, outc.valid, False))
     p_ms = timer(pfn, 20)
     p_plain = timer(lambda i: tl._probe_plain(keys, outc.valid, False), 3,
                     4 * TOPN_PREFILL_MS)
     n = outc.capacity
-    # per chunk row: its key bytes, valid and start read, slot and flags
-    # written; per visible row one table slot of key bytes and flags
-    bp = bound(n * (row + 1 + 4) + n * 6 + n_rows * (row + 2), n * 4)
+    bp = probe_bound(n, n_rows, 0, row)
     print(f"[probe] exact on the MV's whole-row key (7 columns, strings "
           f"included), and K8's upsert after it: {n_rows} visible of {n} "
           f"rows into {mv.table.size}; "
@@ -3127,7 +3582,7 @@ def phase_window_kernels(torch, device, timer, scale):
     hash64, probe and topn_pool entries)."""
     from risingwave_tpu_torch.common.chunk import Chunk, NCol
     from risingwave_tpu_torch.common.hash import (
-        hash64_columns_cuda, hash64_columns_plain)
+        hash64_columns, hash64_columns_cuda, hash64_columns_plain)
     from risingwave_tpu_torch.common.tree import tree_map
     from risingwave_tpu_torch.state.hash_table import HashTable
     from risingwave_tpu_torch.stream import top_n
@@ -3374,16 +3829,16 @@ def phase_window_kernels(torch, device, timer, scale):
                         mv.table.clone(), mkeys, outc.valid, True)
     errp = max_abs_err(torch, pairs + pm)
     tl = mv.table.clone()
-    pfn = (lambda i: tl._probe_cuda(mkeys, outc.valid, False)) if cuda \
+    # K3 alone: the hashes (K1) computed before the timed calls
+    hk = hash64_columns(mkeys)
+    pfn = (lambda i: tl._probe_cuda(mkeys, outc.valid, False, hk)) if cuda \
         else (lambda i: tl._probe_plain(mkeys, outc.valid, False))
     p_ms = timer(pfn, 20)
     p_plain = timer(lambda i: tl._probe_plain(mkeys, outc.valid, False), 3,
                     4 * TOPN_PREFILL_MS)
     nrow = outc.capacity
     vis = int(outc.valid.sum())
-    # per chunk row: its 32-byte key, valid and start read, slot and flags
-    # written; per visible row one table slot of key bytes and flags
-    bp = bound(nrow * (32 + 1 + 4) + nrow * 6 + vis * 34, nrow * 4)
+    bp = probe_bound(nrow, vis, 0, 32)
     print(f"[probe] exact on float64 edge keys (NaN finds nothing, -0.0 "
           f"finds +0.0, subnormals find zero) and on q6_bid's MV key "
           f"(bidder, price, date_time, float64 avg): {vis} visible of "
@@ -3557,6 +4012,96 @@ def check_ow_bid(eng, bids) -> str:
             f"{int(np.bincount(seg_id).max())} bids)")
 
 
+def _capture_mv_probe(torch, eng, job):
+    """Run one barrier and keep the inputs of the MV's largest probe in
+    it: a copy of the MV's table before the call, the key columns and the
+    valid flags."""
+    from risingwave_tpu_torch.state.hash_table import HashTable
+
+    mv = job.fragment.executors[_executor_index(eng, "MaterializeExecutor")]
+    orig = HashTable.lookup_or_insert
+    seen = {}
+
+    def capturing(self, key_cols, valid, hashes=None):
+        if self.size == mv.table_size and valid.shape[0] >= seen.get(
+                "cap", 0):
+            seen.update(cap=valid.shape[0], table=self.clone(),
+                        cols=[c.clone() for c in key_cols],
+                        valid=valid.clone())
+        return orig(self, key_cols, valid, hashes)
+
+    HashTable.lookup_or_insert = capturing
+    try:
+        eng.tick(barriers=1, chunks_per_barrier=CHUNKS_PER_BARRIER)
+    finally:
+        HashTable.lookup_or_insert = orig
+    if "table" not in seen:
+        fail("ow_bid: the MV's probe was not called in a barrier")
+    return seen
+
+
+def _time_mv_probe(torch, device, cap_in) -> dict:
+    """K3 at ow_bid's shape: the captured MV probe against its plain
+    version on copies of the table (exact), then timed with its hashes
+    (K1, timed apart) computed before the calls, and its kernels' device
+    time read by the profiler."""
+    from risingwave_tpu_torch.common.hash import hash64_columns, key_leaves
+    from risingwave_tpu_torch.state import hash_table as ht
+
+    base, cols, valid = cap_in["table"], cap_in["cols"], cap_in["valid"]
+    cap, size = valid.shape[0], base.size
+    tk, tp = base.clone(), base.clone()
+    rk = tk._probe(cols, valid, True)
+    rp = tp._probe_plain(cols, valid, True)
+    stats = _check_probe_path(torch, device, ht, "default", True)
+    max_abs_err(torch, [(x[0], x[1], y[1]) for x, y in
+                        zip(_probe_planes(torch, "probe at ow_bid", rk, tk),
+                            _probe_planes(torch, "probe at ow_bid", rp,
+                                          tp))])
+    n_valid, n_ins = int(valid.sum()), int(rp[2].sum())
+    del tk, tp, rk, rp
+    timer = Timer(torch, device)
+    n_it = 5 if device.type == "cuda" else 1
+    h = hash64_columns(cols)
+    hash_ms = timer(lambda i: hash64_columns(cols), n_it, 20.0)
+    clones = [base.clone() for _ in range(n_it + 1)]
+    ms = timer(lambda i: clones[i]._probe(cols, valid, True, h), n_it, 20.0)
+    del clones
+    clones = [base.clone() for _ in range(n_it + 1)]
+    split = device_ms_by_kernel(
+        torch, device, lambda i: clones[i]._probe(cols, valid, True, h),
+        n_it, PROBE_KERNELS)
+    del clones
+    pc = [base.clone() for _ in range(2)]
+    plain_ms = timer(lambda i: pc[i]._probe_plain(cols, valid, True), 1,
+                     200.0)
+    del pc
+    kw = sum(d.element_size() * (d.shape[1] if d.dim() > 1 else 1)
+             for d, _, _ in key_leaves(cols))
+    b = probe_bound(cap, n_valid, n_ins, kw)
+    rounds = "" if stats is None else (
+        f"; {stats[0]} claimants, {stats[1]} grid and {stats[2]} one-block "
+        "rounds")
+    by_kernel = "" if split is None else (
+        f" (device time walk {split['probe_walk']:.4f} + rounds "
+        f"{split['probe_claim']:.4f} ms)")
+    print(f"[probe] exact at ow_bid's shape (the MV's probe of a "
+          f"{cap}-row flush chunk of {kw}-byte keys, {n_valid} valid, "
+          f"{n_ins} inserted, into {size} slots{rounds}); K1's hashes "
+          f"apart ({hash_ms:.4f} ms): kernel {ms:.4f} ms{by_kernel}, plain "
+          f"{plain_ms:.4f} ms, bound {b[0]:.5f} ms", flush=True)
+    out = dict(cap=cap, valid=n_valid, inserted=n_ins, size=size,
+               key_bytes=kw, ms=ms, hash_ms=hash_ms, plain_ms=plain_ms,
+               bound_ms=b[0], bound_by=b[1])
+    if split is not None:
+        out.update(walk_ms=split["probe_walk"],
+                   claim_ms=split["probe_claim"])
+    if stats is not None:
+        out.update(claimants=stats[0], grid_rounds=stats[1],
+                   block_rounds=stats[2])
+    return out
+
+
 def phase_window_main_path(torch, device, scale, query: str):
     """q6_bid or ow_bid at the slice's sizes: 9 warm-up barriers, then 32
     timed barriers of 8 chunks with the launch counters; the live rows of
@@ -3590,8 +4135,14 @@ def phase_window_main_path(torch, device, scale, query: str):
             return band, ranks
 
         tex._band_mask = banded
-    eng.tick(barriers=WARMUP_BARRIERS if device.type == "cuda" else 1,
-             chunks_per_barrier=CHUNKS_PER_BARRIER)
+    warmup = WARMUP_BARRIERS if device.type == "cuda" else 1
+    if query == "ow_bid":
+        # the MV's probe of the last warm-up barrier's flush chunk, read
+        # from the path: K3 at ow_bid's shape, timed after the run
+        eng.tick(barriers=warmup - 1, chunks_per_barrier=CHUNKS_PER_BARRIER)
+        mv_probe = _capture_mv_probe(torch, eng, job)
+    else:
+        eng.tick(barriers=warmup, chunks_per_barrier=CHUNKS_PER_BARRIER)
     if device.type == "cuda":
         torch.cuda.synchronize()
     kernels.reset_launches()
@@ -3669,6 +4220,8 @@ def phase_window_main_path(torch, device, scale, query: str):
             f"{info['flush_ms']:.4f} ms, plain {info['plain_ms']:.4f} ms")
         print(f"[over_window] ow_bid's flush at pool {S} ({info['live']} "
               f"live rows): {times}, bound {b[0]:.5f} ms", flush=True)
+        info["probe"] = _time_mv_probe(torch, device, mv_probe)
+        del mv_probe
     del eng, st
     if device.type == "cuda":
         torch.cuda.empty_cache()

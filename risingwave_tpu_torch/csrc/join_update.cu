@@ -6,61 +6,79 @@
 // stably as unsigned 64-bit values (`torch.sort` of the sign-flipped
 // pattern, inactive rows last under the all-ones sentinel); then:
 //
-//   rw_join_rank    the segmented rank over the sorted keys: a row's rank
-//                   is its sorted position minus its segment's start (a
-//                   running max of the segment starts), scattered back to
-//                   row order; the segment starts stay for the update.
-//   rw_join_update  after K12: the bump allocator (an exclusive scan of
-//                   the accepted rows in row order, pos = pool_len + offs,
-//                   rows past the pool dropped and their fresh claims
-//                   tombstoned again), the pool-row scatter (strings as
-//                   fixed-width bytes plus lengths), pool_pos and
-//                   slot_clean at the rows' slots, the degree add of each
-//                   key's accepted-insert total at its head slot from its
-//                   rank-0 row (a segmented sum over the sorted order),
-//                   pool_len and the overflow / inconsistency counters.
+//   rw_join_rank    one grid launch, one thread a sorted position, no scan:
+//                   position i's segment start is the lower bound of
+//                   sorted_key[i] in sorted_key (a binary search that stays
+//                   in cache), and rank[order[i]] = i - seg_start[i]; the
+//                   segment starts stay for the update.  It also gives the
+//                   dense side's ranks (`rank_by`: K13d, K6m).
+//   rw_join_update  after K12, three grid launches of 256-row tiles, in row
+//                   order where the reference is, with no host read:
+//     join_count    each tile's accepted rows (is_ins and not over the
+//                   probe bound) into tile_counts; the probe-bound and
+//                   overwrite counts into `overflow` and the deletes of
+//                   joinable rows into `inconsistency`, one atomic a block.
+//     join_place    the bump allocator: a tile's offset is the sum of the
+//                   counts before it, a row's the block scan of its tile,
+//                   pos = pool_len + offset; rows past the pool are dropped
+//                   and un-claim their fresh tag (tags[slot] = 1).  The
+//                   placed rows of a tile own consecutive pool rows, so the
+//                   row copy runs over the tile's destination bytes: the
+//                   threads of a warp copy neighbouring 16/8/4-byte words
+//                   of a leaf (the widest the width and addresses allow).
+//                   pool_pos and slot_clean are written at the rows' slots.
+//     join_degree   one thread a sorted position: a placed row whose
+//                   segment's rank-0 row order[seg_start[i]] was placed with
+//                   a head slot below size adds 1 at that head, which is
+//                   the reference's segmented total added from the rank-0
+//                   row (integer atomics: exact in any order).  The lanes
+//                   of a warp that share a head add once (a hot key is one
+//                   segment of thousands of rows).  Block 0 then moves
+//                   pool_len to pool_len + n_got, n_got = clamp(pool -
+//                   pool_len, 0, accepted), and counts the dropped rows:
+//                   every block of join_place read pool_len before.
 //
-// Both are one 1024-thread block: each thread owns a contiguous run of
-// rows (or sorted positions), and block-wide scans carry the running
-// values across threads, so nothing is read back to the host.  Scatter
-// targets are unique: pool positions by construction, slots because
+// Scatter targets are unique: pool positions by construction, slots because
 // distinct (hash, rank) entries own distinct slots (a 64-bit tag collision
-// would merge two entries, as it does in the reference); the degree add is
-// an atomic sum.
+// would merge two entries, as it does in the reference).
 //
 // Bound: bytes.  Per row the update reads ~30 B of flags, slots and ranks
-// and moves its columns once (8192 auctions of 7 int64 columns: ~0.5 MB);
-// the work is a few scans, so one block at the chunk size is
-// latency-bound, not bandwidth-bound.
+// and moves its columns once (8192 auctions of 7 int64 columns: ~0.5 MB),
+// about a microsecond at HBM rate; four launches of 32 blocks at q8's chunk
+// spend mostly launch latency.
+#include <climits>
+
 #include "rw_common.cuh"
 #include "rw_join.cuh"
 
-__global__ void __launch_bounds__(1024)
+constexpr int JOIN_TILE = 256;
+
+__global__ void __launch_bounds__(JOIN_TILE)
     join_rank_kernel(const long long* sorted_key, const long long* order,
                      int* rank, int* seg_start, int cap) {
-  const int T = blockDim.x;
-  const int t = threadIdx.x;
-  const int per = (cap + T - 1) / T;
-  const int lo = t * per < cap ? t * per : cap;
-  const int hi = lo + per < cap ? lo + per : cap;
-  int last = -1;
-  for (int i = lo; i < hi; ++i) {
-    if (i == 0 || sorted_key[i] != sorted_key[i - 1]) last = i;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cap) return;
+  const long long key = sorted_key[i];
+  int lo = i;
+  if (i > 0 && sorted_key[i - 1] == key) {
+    // the first position of the key: lower bound in [0, i - 1]
+    int a = 0, b = i - 1;
+    while (a < b) {
+      const int mid = (a + b) >> 1;
+      if (sorted_key[mid] < key) a = mid + 1; else b = mid;
+    }
+    lo = a;
   }
-  int total;
-  int run = rw_block_exclusive_scan<RwMax>(last, &total);
-  for (int i = lo; i < hi; ++i) {
-    if (i == 0 || sorted_key[i] != sorted_key[i - 1]) run = i;
-    seg_start[i] = run;
-    rank[order[i]] = i - run;
-  }
+  seg_start[i] = lo;
+  rank[order[i]] = i - lo;
 }
 
 extern "C" int rw_join_rank(const long long* sorted_key,
                             const long long* order, int* rank,
                             int* seg_start, int cap, void* stream) {
   if (cap > 0) {
-    join_rank_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+    join_rank_kernel<<<(cap + JOIN_TILE - 1) / JOIN_TILE, JOIN_TILE, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
         sorted_key, order, rank, seg_start, cap);
   }
   return static_cast<int>(cudaGetLastError());
@@ -89,109 +107,163 @@ struct JoinUpdateArgs {
   long long* overflow;        // [1]
   long long* inconsistency;   // [1]
   uint8_t* got;               // [cap] scratch: accepted and placed
-  int* pos;                   // [cap] scratch: pool position
-  int* prefix;                // [cap] scratch: inclusive sums, sorted order
+  int* tile_counts;           // [ceil(cap / JOIN_TILE)] scratch
   int cap;
   int size;
   int pool;
 };
 
-__device__ __forceinline__ int block_total(int v) {
-  int total;
-  rw_block_exclusive_scan<RwSum>(v, &total);
-  return total;
+__device__ __forceinline__ bool accepted(const JoinUpdateArgs& a, int r) {
+  return a.is_ins[r] && !a.over[r];
 }
 
-__global__ void __launch_bounds__(1024) join_update_kernel(JoinUpdateArgs a) {
-  const int T = blockDim.x;
-  const int t = threadIdx.x;
-  const int per = (a.cap + T - 1) / T;
-  const int lo = t * per < a.cap ? t * per : a.cap;
-  const int hi = lo + per < a.cap ? lo + per : a.cap;
-  const int len0 = a.pool_len[0];
-
-  // -- bump allocator over the accepted rows, in row order ---------------
-  int mine = 0;
-  for (int r = lo; r < hi; ++r) mine += a.is_ins[r] && !a.over[r];
-  int n_acc;
-  int offs = rw_block_exclusive_scan<RwSum>(mine, &n_acc);
-  int n_probe_over = 0, n_dropped = 0, n_overwrite = 0, n_got = 0, n_bad = 0;
-  for (int r = lo; r < hi; ++r) {
+__global__ void __launch_bounds__(JOIN_TILE) join_count(JoinUpdateArgs a) {
+  const int r = blockIdx.x * JOIN_TILE + threadIdx.x;
+  int acc = 0, over = 0, bad = 0;
+  if (r < a.cap) {
     const bool joinable =
         a.valid[r] && (a.null_keys == nullptr || !a.null_keys[r]);
     const bool ins_like = a.ops[r] == 0 || a.ops[r] == 3;
-    n_bad += joinable && !ins_like;
-    const bool acc = a.is_ins[r] && !a.over[r];
-    n_probe_over += a.is_ins[r] && a.over[r];
-    uint8_t g = 0;
-    int p = a.pool;
+    bad = joinable && !ins_like;
+    acc = accepted(a, r);
+    // probe-bound losses and overwritten entries
+    over = (a.is_ins[r] && a.over[r]) + (acc && a.existed[r]);
+  }
+  int n_acc, n_over, n_bad;
+  rw_block_exclusive_scan<RwSum>(acc, &n_acc);
+  rw_block_exclusive_scan<RwSum>(over, &n_over);
+  rw_block_exclusive_scan<RwSum>(bad, &n_bad);
+  if (threadIdx.x == 0) {
+    a.tile_counts[blockIdx.x] = n_acc;
+    if (n_over) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.overflow),
+                static_cast<unsigned long long>(n_over));
+    }
+    if (n_bad) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.inconsistency),
+                static_cast<unsigned long long>(n_bad));
+    }
+  }
+}
+
+// Copy rows [0, n) of the tile (source rows s_rows[...]) of one leaf of
+// width w to pool rows p0 .. p0 + n - 1: neighbouring threads on
+// neighbouring words of the destination.
+template <typename W>
+__device__ __forceinline__ void copy_tile_leaf(void* dst, const void* src,
+                                               int w, long long p0,
+                                               const int* s_rows, int n) {
+  const int per = w / static_cast<int>(sizeof(W));
+  const W* ps = static_cast<const W*>(src);
+  W* pd = static_cast<W*>(dst) + p0 * per;
+  for (int j = threadIdx.x; j < n * per; j += blockDim.x) {
+    const int row = j / per;
+    const int word = j - row * per;
+    pd[j] = ps[static_cast<long long>(s_rows[row]) * per + word];
+  }
+}
+
+__global__ void __launch_bounds__(JOIN_TILE) join_place(JoinUpdateArgs a) {
+  __shared__ int s_rows[JOIN_TILE];
+  const int tile = blockIdx.x;
+  const int r = tile * JOIN_TILE + threadIdx.x;
+  const int len0 = a.pool_len[0];
+  // this tile's offset: the accepted rows of the tiles before it
+  int before = 0;
+  for (int b = threadIdx.x; b < tile; b += blockDim.x) {
+    before += a.tile_counts[b];
+  }
+  int tile_off;
+  rw_block_exclusive_scan<RwSum>(before, &tile_off);
+  const bool acc = r < a.cap && accepted(a, r);
+  int n_tile;
+  const int local = rw_block_exclusive_scan<RwSum>(acc, &n_tile);
+  const long long p0 = static_cast<long long>(len0) + tile_off;
+  long long room = static_cast<long long>(a.pool) - p0;
+  room = room < 0 ? 0 : room;
+  const int n_got = static_cast<int>(room < n_tile ? room : n_tile);
+  if (r < a.cap) {
+    const bool g = acc && local < n_got;
+    a.got[r] = g;
     if (acc) {
-      n_overwrite += a.existed[r];
-      p = len0 + offs;
-      ++offs;
-      if (p < a.pool) {
-        g = 1;
-      } else {
-        ++n_dropped;
+      if (g) {
+        s_rows[local] = r;
+        const int p = static_cast<int>(p0 + local);
+        const int slot = a.slots[r] < a.size - 1 ? a.slots[r] : a.size - 1;
+        a.pool_pos[slot] = p;
+        if (a.clean_key != nullptr) a.slot_clean[slot] = a.clean_key[r];
+      } else if (a.inserted[r] && a.slots[r] < a.size) {
         // un-claim the entry of a row that found no pool space
-        if (a.inserted[r] && a.slots[r] < a.size) a.tags[a.slots[r]] = 1;
-        p = a.pool;
+        a.tags[a.slots[r]] = 1;
       }
     }
-    a.got[r] = g;
-    a.pos[r] = p;
-    if (!g) continue;
-    ++n_got;
-    for (int k = 0; k < a.cols.n; ++k) {
-      rw_copy_row(a.cols.dst[k], p, a.cols.src[k], r, a.cols.width[k]);
-    }
-    const int slot = a.slots[r] < a.size - 1 ? a.slots[r] : a.size - 1;
-    a.pool_pos[slot] = p;
-    if (a.clean_key != nullptr) a.slot_clean[slot] = a.clean_key[r];
   }
   __syncthreads();
-
-  // -- per-key totals of the placed rows over the sorted order ----------
-  int s_mine = 0;
-  for (int i = lo; i < hi; ++i) s_mine += a.got[a.order[i]];
-  int s_tot;
-  int run = rw_block_exclusive_scan<RwSum>(s_mine, &s_tot);
-  for (int i = lo; i < hi; ++i) {
-    run += a.got[a.order[i]];
-    a.prefix[i] = run;
-  }
-  __syncthreads();
-  // each segment's last position adds the key's total at its head, from
-  // the key's rank-0 row (the segment's first position)
-  for (int i = lo; i < hi; ++i) {
-    const int s = a.seg_start[i];
-    if (i + 1 < a.cap && a.seg_start[i + 1] == s) continue;
-    const long long rep = a.order[s];
-    if (!a.got[rep] || a.rank[rep] != 0 || a.head_slot[rep] >= a.size) {
-      continue;
+  if (n_got == 0) return;
+  for (int k = 0; k < a.cols.n; ++k) {
+    const int w = a.cols.width[k];
+    const unsigned long long addr =
+        reinterpret_cast<unsigned long long>(a.cols.src[k]) |
+        reinterpret_cast<unsigned long long>(a.cols.dst[k]);
+    const int align = (w | static_cast<int>(addr & 15)) & 15;
+    if (align == 0) {
+      copy_tile_leaf<uint4>(a.cols.dst[k], a.cols.src[k], w, p0, s_rows,
+                            n_got);
+    } else if ((align & 7) == 0) {
+      copy_tile_leaf<uint64_t>(a.cols.dst[k], a.cols.src[k], w, p0, s_rows,
+                               n_got);
+    } else if ((align & 3) == 0) {
+      copy_tile_leaf<uint32_t>(a.cols.dst[k], a.cols.src[k], w, p0, s_rows,
+                               n_got);
+    } else {
+      copy_tile_leaf<uint8_t>(a.cols.dst[k], a.cols.src[k], w, p0, s_rows,
+                              n_got);
     }
-    const int tot = a.prefix[i] - (s > 0 ? a.prefix[s - 1] : 0);
-    atomicAdd(&a.count[a.head_slot[rep]], tot);
   }
+}
 
-  // -- cursor and counters ----------------------------------------------
-  n_probe_over = block_total(n_probe_over);
-  n_dropped = block_total(n_dropped);
-  n_overwrite = block_total(n_overwrite);
-  n_got = block_total(n_got);
-  n_bad = block_total(n_bad);
-  if (t == 0) {
+__global__ void __launch_bounds__(JOIN_TILE) join_degree(JoinUpdateArgs a,
+                                                         int n_tiles) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * JOIN_TILE + threadIdx.x;
+  int head = -1;
+  if (i < a.cap && a.got[a.order[i]]) {
+    const long long rep = a.order[a.seg_start[i]];
+    if (a.got[rep] && a.rank[rep] == 0 && a.head_slot[rep] < a.size) {
+      head = a.head_slot[rep];
+    }
+  }
+  // the lanes that share a head add once
+  const unsigned peers = __match_any_sync(0xffffffffu, head);
+  if (head >= 0 && lane == __ffs(peers) - 1) {
+    atomicAdd(&a.count[head], __popc(peers));
+  }
+  if (blockIdx.x != 0) return;
+  int mine = 0;
+  for (int b = threadIdx.x; b < n_tiles; b += blockDim.x) {
+    mine += a.tile_counts[b];
+  }
+  int n_acc;
+  rw_block_exclusive_scan<RwSum>(mine, &n_acc);
+  if (threadIdx.x == 0) {
+    const int len0 = a.pool_len[0];
+    long long room = static_cast<long long>(a.pool) - len0;
+    room = room < 0 ? 0 : room;
+    const int n_got = static_cast<int>(room < n_acc ? room : n_acc);
     a.pool_len[0] = len0 + n_got;
-    a.overflow[0] += static_cast<long long>(n_probe_over) + n_dropped +
-                     n_overwrite;
-    a.inconsistency[0] += n_bad;
+    if (n_acc > n_got) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.overflow),
+                static_cast<unsigned long long>(n_acc - n_got));
+    }
   }
 }
 
 extern "C" int rw_join_update(JoinUpdateArgs args, void* stream) {
-  if (args.cap > 0) {
-    join_update_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
-        args);
-  }
+  if (args.cap <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = (args.cap + JOIN_TILE - 1) / JOIN_TILE;
+  join_count<<<tiles, JOIN_TILE, 0, s>>>(args);
+  join_place<<<tiles, JOIN_TILE, 0, s>>>(args);
+  join_degree<<<tiles, JOIN_TILE, 0, s>>>(args, tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -277,12 +277,50 @@ class _ProbeArgs(ctypes.Structure):
         ("start", ctypes.c_void_p), ("valid", ctypes.c_void_p),
         ("occupied", ctypes.c_void_p), ("tombstone", ctypes.c_void_p),
         ("slots", ctypes.c_void_p), ("inserted", ctypes.c_void_p),
-        ("pending", ctypes.c_void_p), ("off", ctypes.c_void_p),
-        ("cand", ctypes.c_void_p), ("want", ctypes.c_void_p),
-        ("claim", ctypes.c_void_p), ("n_over", ctypes.c_void_p),
+        ("pending", ctypes.c_void_p), ("list", ctypes.c_void_p),
+        ("cand", ctypes.c_void_p), ("claim", ctypes.c_void_p),
+        ("ctl", ctypes.c_void_p), ("n_over", ctypes.c_void_p),
         ("cap", ctypes.c_int), ("size", ctypes.c_int),
         ("insert", ctypes.c_int), ("max_iters", ctypes.c_int),
+        ("grid_only", ctypes.c_int),
     ]
+
+
+_INT32_MAX = 2**31 - 1
+#: the control words after the claim scratch, at their rest values
+#: (``RW_CTL_*`` in ``csrc/probe.cu``): list lengths 0, next rounds and the
+#: least entry round INT_MAX, the walk's overflow sum and ticket 0; words
+#: 8-10 hold the last insert's claimants, grid rounds and one-block rounds
+_CTL_REST = (0, 0, _INT32_MAX, _INT32_MAX, _INT32_MAX, 0, 0, 0,
+             0, 0, 0, 0, 0, 0, 0, 0)
+#: (device, stream) -> int32 [4 * p + 16]: the probe's claim scratch at
+#: its rest value (above every row index) and its control words, for
+#: chunks of up to p rows (p a power of two, grown to the largest chunk
+#: probed on that stream; the kernel uses the first 4 * cap entries).
+#: Every call leaves it as it found it.  One a stream: two probes on
+#: different streams must not share the control words.
+_CLAIM_SCRATCH: dict = {}
+
+
+def _claim_scratch(dev: torch.device, cap: int) -> torch.Tensor:
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    key = (dev, kernels.stream_ptr(dev))
+    t = _CLAIM_SCRATCH.get(key)
+    if t is None or t.numel() - len(_CTL_REST) < 4 * cap:
+        p = 1 << max(cap - 1, 0).bit_length()
+        t = torch.full((4 * p + len(_CTL_REST),), _INT32_MAX,
+                       dtype=torch.int32, device=dev)
+        t[4 * p:] = torch.tensor(_CTL_REST, dtype=torch.int32)
+        _CLAIM_SCRATCH[key] = t
+    return t
+
+
+def probe_claim_stats(dev: torch.device) -> tuple[int, int, int]:
+    """(claimants, grid rounds, one-block rounds) of the last insert on
+    ``dev``'s current stream (a host read, for checks and reports)."""
+    ctl = _claim_scratch(dev, 0)[-len(_CTL_REST):][8:11].tolist()
+    return ctl[0], ctl[1], ctl[2]
 
 
 class HashTable:
@@ -405,8 +443,12 @@ class HashTable:
         found = valid & done & ~inserted & (slots < size)
         return self, slots, found, overflow, n_over
 
-    def _probe_cuda(self, key_cols, valid, insert: bool, hashes=None):
-        """Kernel B (``csrc/probe.cu``): one launch, no host sync."""
+    def _probe_cuda(self, key_cols, valid, insert: bool, hashes=None,
+                    grid_only: bool = False):
+        """Kernel B (``csrc/probe.cu``): the walk, then (inserts) the
+        claim rounds over the claimants; no host sync.  ``grid_only``
+        keeps every claim round on the cooperative grid (for checks of
+        that branch on short claimant lists)."""
         size = self.size
         cap = valid.shape[0]
         dev = valid.device
@@ -449,20 +491,21 @@ class HashTable:
         slots = torch.empty(cap, **i32)
         inserted = torch.empty(cap, **u8)
         pending = torch.empty(cap, **u8)
-        off = torch.empty(cap, **i32)
+        lists = torch.empty((2 * cap, 2), **i32)
         cand = torch.empty(cap, **i32)
-        want = torch.empty(cap, **u8)
-        claim = torch.empty(4 * cap, **i32)
+        scratch = _claim_scratch(dev, cap)
         n_over = torch.empty((), dtype=torch.int64, device=dev)
         args.start, args.valid = start.data_ptr(), valid_u8.data_ptr()
         args.occupied, args.tombstone = occ_u8.data_ptr(), tomb_u8.data_ptr()
         args.slots, args.inserted = slots.data_ptr(), inserted.data_ptr()
-        args.pending, args.off = pending.data_ptr(), off.data_ptr()
-        args.cand, args.want = cand.data_ptr(), want.data_ptr()
-        args.claim, args.n_over = claim.data_ptr(), n_over.data_ptr()
+        args.pending, args.list = pending.data_ptr(), lists.data_ptr()
+        args.cand, args.claim = cand.data_ptr(), scratch.data_ptr()
+        args.ctl = scratch[-len(_CTL_REST):].data_ptr()
+        args.n_over = n_over.data_ptr()
         args.cap, args.size = cap, size
         args.insert = int(insert)
         args.max_iters = min(size + 2, 1024)
+        args.grid_only = int(grid_only)
         kernels.count_launch("probe")
         rc = _probe_entry()(args, kernels.stream_ptr(dev))
         kernels.check(rc, "probe")

@@ -310,6 +310,8 @@ class JoinEmit(NamedTuple):
 #: most leaves (payloads, string lengths, null planes) one descriptor
 #: holds (``RW_JOIN_LEAVES`` in ``csrc/rw_join.cuh``)
 MAX_LEAVES = kernels.MAX_JOIN_LEAVES
+#: rows a block of K13's update launches takes (``JOIN_TILE``)
+JOIN_TILE = 256
 
 
 def _leaf_width(t: torch.Tensor) -> int:
@@ -346,8 +348,7 @@ class _UpdateArgs(ctypes.Structure):
         ("pool_pos", ctypes.c_void_p), ("slot_clean", ctypes.c_void_p),
         ("pool_len", ctypes.c_void_p), ("overflow", ctypes.c_void_p),
         ("inconsistency", ctypes.c_void_p),
-        ("got", ctypes.c_void_p), ("pos", ctypes.c_void_p),
-        ("prefix", ctypes.c_void_p),
+        ("got", ctypes.c_void_p), ("tile_counts", ctypes.c_void_p),
         ("cap", ctypes.c_int), ("size", ctypes.c_int), ("pool", ctypes.c_int),
     ]
 
@@ -402,9 +403,16 @@ def join_rank_cuda(h: torch.Tensor, is_ins: torch.Tensor):
     """K13's rank kernel after the stable unsigned sort (``torch.sort``):
     ``(rank int32 [cap] in row order, order int64 [cap], seg_start int32
     [cap] in sorted order)``."""
-    cap = h.shape[0]
-    dev = h.device
     sorted_key, order = torch.sort(_sort_key(h, is_ins), stable=True)
+    cr, seg_start = join_rank_sorted_cuda(sorted_key, order)
+    return cr, order, seg_start
+
+
+def join_rank_sorted_cuda(sorted_key: torch.Tensor, order: torch.Tensor):
+    """K13's rank launch over the sort's ``(sorted_key, order)``:
+    ``(rank int32 [cap] in row order, seg_start int32 [cap])``."""
+    cap = sorted_key.shape[0]
+    dev = sorted_key.device
     cr = torch.empty(cap, dtype=torch.int32, device=dev)
     seg_start = torch.empty(cap, dtype=torch.int32, device=dev)
     kernels.require_cuda("join_update", sorted_key, order)
@@ -415,7 +423,7 @@ def join_rank_cuda(h: torch.Tensor, is_ins: torch.Tensor):
     kernels.check(fn(sorted_key.data_ptr(), order.data_ptr(), cr.data_ptr(),
                      seg_start.data_ptr(), cap, kernels.stream_ptr(dev)),
                   "join_update")
-    return cr, order, seg_start
+    return cr, seg_start
 
 
 def join_update_cuda(side: PoolSideState, chunk: Chunk, clean_spec,
@@ -451,10 +459,9 @@ def join_update_cuda(side: PoolSideState, chunk: Chunk, clean_spec,
     if clean_spec is not None:
         ckey = key_cols[clean_spec[0]].to(torch.int64).contiguous()
         keep.append(ckey)
-    i32 = dict(dtype=torch.int32, device=dev)
     got = torch.empty(cap, dtype=torch.uint8, device=dev)
-    pos = torch.empty(cap, **i32)
-    prefix = torch.empty(cap, **i32)
+    tile_counts = torch.empty(-(-cap // JOIN_TILE), dtype=torch.int32,
+                              device=dev)
     kernels.require_cuda("join_update", valid_u8, ops, ins_u8, table.tags,
                          side.count, side.pool_pos, side.slot_clean,
                          side.pool_len, side.overflow, side.inconsistency,
@@ -474,8 +481,7 @@ def join_update_cuda(side: PoolSideState, chunk: Chunk, clean_spec,
     a.pool_len, a.overflow = side.pool_len.data_ptr(), \
         side.overflow.data_ptr()
     a.inconsistency = side.inconsistency.data_ptr()
-    a.got, a.pos, a.prefix = got.data_ptr(), pos.data_ptr(), \
-        prefix.data_ptr()
+    a.got, a.tile_counts = got.data_ptr(), tile_counts.data_ptr()
     a.cap, a.size, a.pool = cap, size, _pool_capacity(side.rows)
     fn = kernels.entry("join_update", "rw_join_update",
                        [_UpdateArgs, ctypes.c_void_p])
