@@ -366,6 +366,13 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_name(key: str) -> str:
+    """A profiler event's CUDA function name without the ``void`` that the
+    demangler puts before a template instance (``void
+    preagg_kernel<3>(PreaggArgs)``)."""
+    return key[5:] if key.startswith("void ") else key
+
+
 def device_ms_by_kernel(torch, device, fn, iters: int,
                         names) -> dict | None:
     """Mean device milliseconds a call of ``fn(i)`` spends in the CUDA
@@ -390,7 +397,7 @@ def device_ms_by_kernel(torch, device, fn, iters: int,
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
         for name in names:
-            if e.key.startswith(name):
+            if kernel_name(e.key).startswith(name):
                 out[name] += us / 1e3 / iters
     return out if any(out.values()) else None
 
@@ -1242,10 +1249,196 @@ def phase_mv(torch, device, timer, scale):
     return out
 
 
+def k5_cases() -> list:
+    """K5's corner cases, shared with
+    ``tests/test_torch_ranked_preagg_rounds.py``: dicts of numpy arrays in
+    chunk order, ``keys`` a list of key columns (an int64 array; ``("str",
+    bytes [n, w] uint8, lens int32)``; ``("null", payload, null mask)``),
+    ``hash`` the key hashes to sort by (None: the keys' own), ``valid``,
+    ``signs`` (int32) and ``prims`` as ``(mode, init, values)`` (int64,
+    int32 or float64 lifted contributions)."""
+    import numpy as np
+
+    i64min, i64max = -2**63, 2**63 - 1
+    i32min, i32max = -2**31, 2**31 - 1
+    cases = []
+
+    def count_sum(rng, n, valid):
+        signs = np.where(valid, np.where(rng.random(n) < 0.3, -1, 1),
+                         0).astype(np.int32)
+        s64 = signs.astype(np.int64)
+        return signs, [("add", 0, s64),
+                       ("add", 0, s64 * rng.integers(-10**15, 10**15, n))]
+
+    # one segment over every tile: 4133 rows on one key (8+ tiles of 512)
+    rng = np.random.default_rng(51)
+    n = 4133
+    valid = np.ones(n, bool)
+    valid[-7:] = False
+    signs, prims = count_sum(rng, n, valid)
+    cases.append(dict(name="one segment over every tile",
+                      keys=[np.full(n, 7, np.int64)], hash=None,
+                      valid=valid, signs=signs, prims=prims))
+    # segment edges on tile edges: runs of 512, 1024 and 512 rows
+    rng = np.random.default_rng(52)
+    k = np.repeat(np.array([11, 12, 13, 14], np.int64), [512, 1024, 512, 512])
+    n = len(k)
+    k = k[rng.permutation(n)]
+    valid = np.ones(n, bool)
+    signs, prims = count_sum(rng, n, valid)
+    cases.append(dict(name="segment edges on tile edges", keys=[k],
+                      hash=None, valid=valid, signs=signs, prims=prims))
+    # n not a multiple of the tile, a few hundred runs of every length
+    rng = np.random.default_rng(53)
+    n = 3001
+    valid = rng.random(n) < 0.9
+    signs, prims = count_sum(rng, n, valid)
+    cases.append(dict(name="ragged n", keys=[rng.integers(0, 400, n)],
+                      hash=None, valid=valid, signs=signs, prims=prims))
+    # an all-invalid chunk
+    rng = np.random.default_rng(54)
+    n = 1100
+    valid = np.zeros(n, bool)
+    signs, prims = count_sum(rng, n, valid)
+    cases.append(dict(name="all invalid", keys=[rng.integers(0, 5, n)],
+                      hash=None, valid=valid, signs=signs, prims=prims))
+    # NULL keys: one NULL group whatever the payload under the null
+    rng = np.random.default_rng(55)
+    n = 1500
+    valid = rng.random(n) < 0.95
+    null = rng.random(n) < 0.3
+    signs, prims = count_sum(rng, n, valid)
+    cases.append(dict(name="NULL keys",
+                      keys=[("null", rng.integers(0, 6, n), null),
+                            rng.integers(0, 3, n)],
+                      hash=None, valid=valid, signs=signs, prims=prims))
+    # string keys under one forced hash: runs split by bytes and lengths
+    # alone, the padding past the length included
+    rng = np.random.default_rng(56)
+    n = 1300
+    data = rng.integers(0, 3, (n, 8)).astype(np.uint8)
+    data[:, 3:] = 0
+    lens = rng.integers(1, 4, n).astype(np.int32)
+    data[rng.random(n) < 0.1, 7] = 9  # padding that differs
+    valid = rng.random(n) < 0.9
+    signs, prims = count_sum(rng, n, valid)
+    cases.append(dict(name="string keys, one hash",
+                      keys=[("str", data, lens)],
+                      hash=np.full(n, 0x5DEECE66D, np.int64), valid=valid,
+                      signs=signs, prims=prims))
+    # min and max of int64 and int32 with their inits, a float64 sum and
+    # max, over retractions (a retracted row lifts to the init)
+    rng = np.random.default_rng(57)
+    n = 2600
+    valid = rng.random(n) < 0.9
+    signs = np.where(valid, np.where(rng.random(n) < 0.3, -1, 1),
+                     0).astype(np.int32)
+    ins = signs > 0
+    v64 = rng.integers(-10**18, 10**18, n)
+    v32 = rng.integers(i32min, i32max, n).astype(np.int32)
+    f64 = rng.normal(0, 1e6, n)
+    prims = [("add", 0, signs.astype(np.int64)),
+             ("max", i64min, np.where(ins, v64, i64min)),
+             ("min", i64max, np.where(ins, v64, i64max)),
+             ("max", i32min, np.where(ins, v32, i32min).astype(np.int32)),
+             ("min", i32max, np.where(ins, v32, i32max).astype(np.int32)),
+             ("add", 0, np.where(ins, v32, 0).astype(np.int32)),
+             ("add", 0.0, np.where(ins, f64, 0.0)),
+             ("max", float("-inf"), np.where(ins, f64, float("-inf")))]
+    k = np.where(rng.random(n) < 0.5, 3, rng.integers(0, 50, n))
+    cases.append(dict(name="min and max with inits", keys=[k], hash=None,
+                      valid=valid, signs=signs, prims=prims))
+    # a sharded lane's received rows, cut down: 10,240 rows, 27 valid, on
+    # (auction, window_start), count(*)
+    cases.append(k5_lane_case(10_240, 27, seed=58))
+    return cases
+
+
+def k5_lane_case(n: int, n_valid: int, seed: int) -> dict:
+    """q5 sharded's keyed half on one lane: ``n`` received rows (the lanes
+    x chunk exchange buffer), ``n_valid`` of them valid partial rows on
+    (auction, window_start), count(*) as the sum of the partial counts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    valid = np.zeros(n, bool)
+    valid[rng.choice(n, n_valid, replace=False)] = True
+    auction = np.where(valid, rng.integers(1000, 1040, n), 0)
+    ws = np.where(valid, rng.integers(0, 3, n) * HOP_SLIDE_US
+                  + 1_436_918_400_000_000, 0)
+    signs = valid.astype(np.int32)
+    counts = np.where(valid, rng.integers(1, 40, n), 0).astype(np.int64)
+    return dict(name="sharded lane", keys=[auction.astype(np.int64),
+                                           ws.astype(np.int64)],
+                hash=None, valid=valid, signs=signs,
+                prims=[("add", 0, counts)])
+
+
+def k5_torch_args(torch, case: dict, device) -> tuple:
+    """A ``k5_cases`` case as K5's arguments on ``device``: ``(sort_key,
+    perm, key_cols, valid, signs, modes, inits, values)``, sorted by
+    ``sort_by_hash``."""
+    from risingwave_tpu_torch.common.chunk import NCol, StrCol
+    from risingwave_tpu_torch.common.hash import hash64_columns
+    from risingwave_tpu_torch.stream.hash_agg import sort_by_hash
+
+    def col(c):
+        if isinstance(c, tuple) and c[0] == "str":
+            return StrCol(torch.from_numpy(c[1]).to(device),
+                          torch.from_numpy(c[2]).to(device))
+        if isinstance(c, tuple):
+            return NCol(col(c[1]), torch.from_numpy(c[2]).to(device))
+        return torch.from_numpy(c).to(device)
+
+    keys = [col(c) for c in case["keys"]]
+    valid = torch.from_numpy(case["valid"]).to(device)
+    h = hash64_columns(keys) if case["hash"] is None \
+        else torch.from_numpy(case["hash"]).to(device)
+    sk, perm = sort_by_hash(h, valid)
+    modes = [m for m, _, _ in case["prims"]]
+    inits = [i for _, i, _ in case["prims"]]
+    values = [torch.from_numpy(v).to(device) for _, _, v in case["prims"]]
+    return (sk, perm, keys, valid, torch.from_numpy(case["signs"]).to(device),
+            modes, inits, values)
+
+
+#: K5's float64 sums may differ from the plain version's cumsum differences
+#: in their last bits (another summation order): compared within this
+#: relative and absolute tolerance; every other output exactly
+K5_F64_RTOL, K5_F64_ATOL = 1e-12, 1e-9
+
+
+def preagg_pairs(torch, tag: str, a, b, modes, values) -> list:
+    """K5's outputs ``a`` against ``b`` as ``max_abs_err`` pairs; float64
+    sums checked here within ``K5_F64_RTOL`` / ``K5_F64_ATOL``."""
+    from risingwave_tpu_torch.common.tree import flatten
+
+    pairs = [(f"{tag} {nm}", getattr(a, nm), getattr(b, nm))
+             for nm in ("s_hash", "starts", "rep", "seg_rows", "seg_signs")]
+    for i, (x, y) in enumerate(zip(a.s_keys, b.s_keys)):
+        for j, (xl, yl) in enumerate(zip(flatten(x)[0], flatten(y)[0])):
+            pairs.append((f"{tag} key {i}.{j}", xl, yl))
+    for i, (mode, x, y) in enumerate(zip(modes, a.seg_values,
+                                         b.seg_values)):
+        if x.dtype == torch.float64 and mode == "add":
+            if not bool(torch.isclose(x, y, rtol=K5_F64_RTOL,
+                                      atol=K5_F64_ATOL).all()):
+                d = (x - y).abs().max().item()
+                fail(f"{tag} prim {i}: float64 sum off by {d}")
+            continue
+        if x.dtype == torch.float64:
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        pairs.append((f"{tag} prim {i}", x, y))
+    return pairs
+
+
 def phase_preagg(torch, device, timer, scale):
-    """K5 at the pane agg's chunk shape (8192 rows on (auction, window),
-    99 in 100 on the hot auction) and at the final agg's (the 5x hop
-    expansion of a 2 x 4096-row U-/U+ flush, half of it invisible)."""
+    """K5 on every ``k5_cases`` case, at the pane agg's chunk shape (8192
+    rows on (auction, window), 99 in 100 on the hot auction), at the final
+    agg's (the 5x hop expansion of a 2 x 4096-row U-/U+ flush, half of it
+    invisible) and at q5 sharded's keyed half on one lane (163,840
+    received rows, ~420 valid), each against its plain version (float64
+    sums within ``K5_F64_RTOL``); the pane and lane shapes timed."""
     from risingwave_tpu_torch.common.hash import hash64_columns
     from risingwave_tpu_torch.stream.hash_agg import (
         INT64_MIN, agg_preagg_cuda, agg_preagg_plain, sort_by_hash)
@@ -1280,34 +1473,47 @@ def phase_preagg(torch, device, timer, scale):
 
     kernel = agg_preagg_cuda if device.type == "cuda" else agg_preagg_plain
     pairs = []
-    for tag, cap, signed in (("pane", 8192 // scale, False),
-                             ("final", 5 * 2 * 4096 // scale, True)):
-        args = case(cap, signed)
+    lane_n = 163_840 // scale
+    lane_args = k5_torch_args(torch, k5_lane_case(lane_n, 420 // scale,
+                                                  seed=59), device)
+    shaped = [("pane", case(8192 // scale, False)),
+              ("final", case(5 * 2 * 4096 // scale, True)),
+              ("lane", lane_args)]
+    cases = k5_cases()
+    shaped += [(c["name"], k5_torch_args(torch, c, device)) for c in cases]
+    for tag, args in shaped:
         a, b = kernel(*args), agg_preagg_plain(*args)
-        for name in ("s_hash", "rep", "seg_rows", "seg_signs"):
-            pairs.append((f"preagg {tag} {name}", getattr(a, name),
-                          getattr(b, name)))
-        pairs += [(f"preagg {tag} key {i}", x, y)
-                  for i, (x, y) in enumerate(zip(a.s_keys, b.s_keys))]
-        pairs += [(f"preagg {tag} prim {i}", x, y)
-                  for i, (x, y) in enumerate(zip(a.seg_values, b.seg_values))]
+        pairs += preagg_pairs(torch, f"preagg {tag}", a, b, args[5],
+                              args[7])
         if tag == "pane":
             pane_args, n_reps = args, int(b.rep.sum())
+        elif tag == "lane":
+            lane_reps = int(b.rep.sum())
     err = max_abs_err(torch, pairs)
     ms = timer(lambda i: kernel(*pane_args), 200)
     plain_ms = timer(lambda i: agg_preagg_plain(*pane_args), 20)
+    lane_ms = timer(lambda i: kernel(*lane_args), 100)
+    lane_plain_ms = timer(lambda i: agg_preagg_plain(*lane_args), 5)
     cap = pane_args[0].shape[0]
     # per row read: sorted key 8, perm 8, two keys 16, valid 1, sign 4,
     # prims 8 + 8 + 4; written: sorted keys 16, hash 8, rep 1, starts 1,
     # rows 8, signs 8, prims 8 + 8 + 4; ~40 integer ops per row
     b = bound(cap * (57 + 62), cap * 40)
-    print(f"[agg_preagg] exact (pane and final-agg shapes, {n_reps} "
-          f"representatives of {cap} rows); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {b[0]:.5f} ms", flush=True)
-    return kernel_entry("agg_preagg.cu",
-                        "risingwave_tpu/stream/hash_agg.py:394", ms,
-                        plain_ms, b, None, err)
-
+    # the lane: the same with one 8-byte primitive: 45 B read, 50 written
+    lb = bound(lane_n * (45 + 50), lane_n * 40)
+    print(f"[agg_preagg] exact (pane, final-agg and sharded-lane shapes, "
+          f"{len(cases)} edge cases; float64 sums within "
+          f"{K5_F64_RTOL} relative; {n_reps} representatives of {cap} "
+          f"rows); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b[0]:.5f} ms; lane ({lane_n} rows, {lane_reps} "
+          f"representatives) kernel {lane_ms:.4f} ms, plain "
+          f"{lane_plain_ms:.4f} ms, bound {lb[0]:.5f} ms", flush=True)
+    out = kernel_entry("agg_preagg.cu",
+                       "risingwave_tpu/stream/hash_agg.py:394", ms,
+                       plain_ms, b, None, err)
+    out.update(lane_ms=lane_ms, lane_plain_ms=lane_plain_ms,
+               lane_bound_ms=lb[0], cases=len(cases))
+    return out
 
 def phase_mask_indices(torch, device, timer, scale):
     """K7 over the agg's 2^18 dirty mask: fewer set bits than the emit
@@ -1615,7 +1821,7 @@ PORT_KERNEL_NAMES = ("hash64_kernel", "probe_walk", "probe_claim",
                      "preagg_kernel", "count_kernel", "write_kernel",
                      "ring_append_kernel", "bids_kernel", "hop_kernel",
                      "auctions_kernel", "persons_kernel", "tag_lookup_kernel",
-                     "tag_insert_kernel", "tag_ranked_kernel",
+                     "tag_insert_kernel", "ranked_insert",
                      "join_rank_kernel", "join_count", "join_place",
                      "join_degree",
                      "join_emit_kernel", "join_clean_kernel",
@@ -1663,7 +1869,8 @@ def profile_window(torch, eng, query: str, barriers: int = 2,
             if getattr(e, "device_type", None) == DeviceType.CUDA
             and dev_us(e) > 0]
     LAST_PROFILE.clear()
-    LAST_PROFILE.update({e.key.split("(")[0]: (dev_us(e), e.count)
+    LAST_PROFILE.update({kernel_name(e.key).split("(")[0]:
+                         (dev_us(e), e.count)
                          for e in kern})
     busy_ms = sum(dev_us(e) for e in kern) / 1e3
     if busy_ms == 0:
@@ -1671,7 +1878,7 @@ def profile_window(torch, eng, query: str, barriers: int = 2,
               "kernel recorded)", flush=True)
         return None
     ours_ms = sum(dev_us(e) for e in kern
-                  if e.key.startswith(PORT_KERNEL_NAMES)) / 1e3
+                  if kernel_name(e.key).startswith(PORT_KERNEL_NAMES)) / 1e3
     n_kern = sum(e.count for e in kern)
     chunks = barriers * chunks_per_barrier
     print(f"[profile] {query} {barriers} barriers x {chunks_per_barrier} "
@@ -1994,6 +2201,191 @@ def k13_chunk_arrays(k) -> list:
             np.array([f"n{x % 97}" for x in k], object)]
 
 
+def _pair_tags(hashes, ranks) -> "np.ndarray":
+    """The ``(hash, rank)`` pair tags (the port's ``pair_tag``, the
+    reference's bit for bit) as int64 bit patterns."""
+    import numpy as np
+    import torch
+
+    from risingwave_tpu_torch.state.tag_table import pair_tag
+
+    return pair_tag(torch.from_numpy(np.asarray(hashes, np.int64)),
+                    torch.from_numpy(np.asarray(ranks, np.int32))).numpy()
+
+
+def _hashes_homed(size: int, homes, rng) -> "np.ndarray":
+    """One key hash for each wanted home slot of its head ``(hash, 0)``."""
+    import numpy as np
+
+    cand = rng.integers(-2**62, 2**62, 16 * size)
+    hs = _pair_tags(cand, np.zeros(len(cand), np.int32)) & (size - 1)
+    out = []
+    for want in homes:
+        out.append(int(cand[(hs == want) & ~np.isin(cand, out)][0]))
+    return np.array(out, np.int64)
+
+
+def _place_pairs(tags, degree, hashes, degrees) -> None:
+    """In place: each key's entries ``(hash, 0 .. d - 1)`` into the first
+    empty slot of their chains (tombstones skipped), ``degree`` at its head
+    (a key of degree 0 gets a head only)."""
+    import numpy as np
+
+    size = len(tags)
+    n = [max(int(d), 1) for d in degrees]
+    hs = np.repeat(np.asarray(hashes, np.int64), n)
+    ranks = np.concatenate([np.arange(k, dtype=np.int32) for k in n])
+    ds = np.repeat(np.asarray(degrees, np.int32), n)
+    for tg, r, d in zip(_pair_tags(hs, ranks).tolist(), ranks.tolist(),
+                        ds.tolist()):
+        c = tg & (size - 1)
+        while tags[c] != 0:
+            c = (c + 1) & (size - 1)
+        tags[c] = tg
+        if r == 0:
+            degree[c] = d
+
+
+def k12_ranks(hashes, valid) -> "np.ndarray":
+    """Each valid row's rank among the valid rows of its hash, in row order
+    (the join's ``_rank_by``)."""
+    import torch
+
+    from risingwave_tpu_torch.stream.hash_join import _rank_by
+
+    return _rank_by(torch.from_numpy(hashes),
+                    torch.from_numpy(valid)).numpy()
+
+
+def k12_cases() -> list:
+    """K12 ranked's corner cases, shared with
+    ``tests/test_torch_ranked_preagg_rounds.py``: ``(name, size, tags,
+    degree, calls)``, a table of int64 tag bit patterns and its read-only
+    degree array, and calls ``(hashes, chunk_rank, valid)`` that go through
+    ``lookup_or_insert_ranked`` one after another on the table."""
+    import numpy as np
+
+    cases = []
+    # a hot key of pre-chunk degree 40 and 200 rows: its targets run to 239
+    rng = np.random.default_rng(121)
+    size = 1 << 10
+    tags, degree = np.zeros(size, np.int64), np.zeros(size, np.int32)
+    hot = rng.integers(-2**62, 2**62)
+    others = rng.integers(-2**62, 2**62, 30)
+    _place_pairs(tags, degree, [hot], [40])
+    _place_pairs(tags, degree, others[:20], rng.integers(1, 4, 20))
+    h = np.concatenate([np.full(200, hot), rng.choice(others, 56)])
+    h = h[rng.permutation(256)]
+    valid = np.ones(256, bool)
+    cases.append(("hot key past its degree", size, tags, degree,
+                  [(h, k12_ranks(h, valid), valid)]))
+    # new keys: a key's rows of rank > 0 meet its head in the round its
+    # rank-0 row claims it (they walk the head chain in lock-step); a
+    # repeated rank-0 row loses the head to the first and meets it claimed
+    # in a later round, reading the degree there (3: it moves to rank 3)
+    rng = np.random.default_rng(122)
+    size = 1 << 9
+    tags, degree = np.zeros(size, np.int64), np.zeros(size, np.int32)
+    a, b, c = _hashes_homed(size, [100, 200, 300], rng)
+    _place_pairs(tags, degree, rng.integers(-2**62, 2**62, 40),
+                 rng.integers(1, 3, 40))
+    tags[[100, 101, 200]] = [1, 1, 0]  # a's head chain: two tombstones
+    degree[200] = 3
+    h = np.array([a, b, a, c, b, a, c, a, b, c], np.int64)
+    cr = np.array([0, 0, 1, 0, 0, 2, 1, 3, 1, 2], np.int32)
+    cases.append(("head claimed in the call", size, tags, degree,
+                  [(h, cr, np.ones(len(h), bool))]))
+    # existing keys with degrees 0-5 at their heads (degree 0: the head is
+    # the rank-0 target, a stranded entry)
+    rng = np.random.default_rng(123)
+    size = 1 << 10
+    tags, degree = np.zeros(size, np.int64), np.zeros(size, np.int32)
+    keys = rng.integers(-2**62, 2**62, 60)
+    _place_pairs(tags, degree, keys, rng.integers(0, 6, 60))
+    h = rng.choice(keys, 192)
+    valid = rng.random(192) < 0.9
+    cases.append(("nonzero degree at heads", size, tags, degree,
+                  [(h, k12_ranks(h, valid), valid)]))
+    # stranded phase-2 entries: ranks past the degree already present
+    rng = np.random.default_rng(124)
+    size = 1 << 10
+    tags, degree = np.zeros(size, np.int64), np.zeros(size, np.int32)
+    keys = rng.integers(-2**62, 2**62, 24)
+    _place_pairs(tags, degree, keys, np.full(24, 6))
+    for i in range(24):  # the degree says 2 of the 6 entries
+        head = np.flatnonzero(tags == _pair_tags([keys[i]], [0])[0])[0]
+        degree[head] = 2
+    h = np.repeat(keys, 6)[rng.permutation(144)]
+    valid = np.ones(144, bool)
+    cases.append(("stranded entries", size, tags, degree,
+                  [(h, k12_ranks(h, valid), valid)]))
+    # tombstones through the chains: a run of 40 slots, every other one
+    # tombstoned, the others holding keys homed in the run
+    rng = np.random.default_rng(125)
+    size = 1 << 8
+    tags, degree = np.zeros(size, np.int64), np.zeros(size, np.int32)
+    keys = _hashes_homed(size, list(range(64, 84)), rng)
+    _place_pairs(tags, degree, keys[::2], rng.integers(1, 3, 10))
+    run = np.arange(64, 104)
+    tags[run[(tags[run] == 0) & (run % 2 == 1)]] = 1
+    h = np.concatenate([rng.choice(keys, 40), rng.choice(keys[:4], 24)])
+    valid = rng.random(64) < 0.95
+    cases.append(("tombstones in the chains", size, tags, degree,
+                  [(h, k12_ranks(h, valid), valid)]))
+    # claim-scratch collisions: a 16-row chunk (scratch 64) into 2^12 slots,
+    # new keys homed 64 and 128 apart, an existing key whose targets land
+    # there too
+    rng = np.random.default_rng(126)
+    size, cap = 1 << 12, 16
+    tags, degree = np.zeros(size, np.int64), np.zeros(size, np.int32)
+    x = _hashes_homed(size, [1000, 1064, 1128, 2000, 2064], rng)
+    h = np.array([x[1], x[0], x[2], x[3], x[4], x[0], x[1], x[3]] +
+                 list(rng.integers(-2**62, 2**62, 8)), np.int64)
+    valid = np.ones(cap, bool)
+    cases.append(("scratch collisions", size, tags, degree,
+                  [(h, k12_ranks(h, valid), valid)]))
+    # invalid rows among colliding ones, then an all-invalid chunk
+    rng = np.random.default_rng(127)
+    size = 1 << 9
+    tags, degree = np.zeros(size, np.int64), np.zeros(size, np.int32)
+    keys = rng.integers(-2**62, 2**62, 16)
+    _place_pairs(tags, degree, keys[:8], rng.integers(1, 4, 8))
+    h = rng.choice(keys, 96)
+    valid = rng.random(96) < 0.6
+    calls = [(h, k12_ranks(h, valid), valid),
+             (h, k12_ranks(h, valid), np.zeros(96, bool))]
+    cases.append(("invalid rows", size, tags, degree, calls))
+    # the round bound: 15 of 16 slots taken, 8 new keys; one claims the last
+    # empty slot, the others walk to the bound (iters = 2 * 16 + 4)
+    rng = np.random.default_rng(128)
+    size = 16
+    tags = rng.integers(2, 2**62, size)
+    tags[rng.integers(0, size)] = 0
+    degree = np.zeros(size, np.int32)
+    h = rng.integers(-2**62, 2**62, 8)
+    valid = np.ones(8, bool)
+    cases.append(("round bound", size, tags, degree,
+                  [(h, k12_ranks(h, valid), valid)]))
+    # a q8-like chunk: 2048 rows into 2^14 slots holding 3000 keys of degree
+    # 1-4, a tenth of the empty slots tombstoned; 40% of the rows on the
+    # keys, 40% on new keys with repeats, 20% invalid (over 1024 rows
+    # listed: the cooperative grid's rounds by default)
+    rng = np.random.default_rng(129)
+    size, cap = 1 << 14, 2048
+    tags, degree = np.zeros(size, np.int64), np.zeros(size, np.int32)
+    keys = rng.integers(-2**62, 2**62, 3000)
+    _place_pairs(tags, degree, keys, rng.integers(1, 5, 3000))
+    tags[(tags == 0) & (rng.random(size) < 0.1)] = 1
+    fresh = rng.integers(-2**62, 2**62, 300)
+    h = np.concatenate([rng.choice(keys, 820), rng.choice(fresh, 820),
+                        rng.integers(-2**62, 2**62, cap - 1640)])
+    h = h[rng.permutation(cap)]
+    valid = rng.random(cap) < 0.8
+    cases.append(("q8-like chunk", size, tags, degree,
+                  [(h, k12_ranks(h, valid), valid)]))
+    return cases
+
+
 def phase_join_update_cases(torch, device) -> str:
     """Every ``k13_cases`` case on the card: the pool side update (K12 and
     K13) against the plain update on the whole side after each chunk, and
@@ -2054,6 +2446,66 @@ def phase_join_update_cases(torch, device) -> str:
     return f"{len(k13_cases())} cases, {n_chunks} chunks"
 
 
+#: K12 ranked's CUDA function (the walk and the rounds in one cooperative
+#: launch), for the profiler's device time of a call
+RANKED_KERNELS = ("ranked_insert",)
+
+
+def _ranked_on(t, path: str, h, cr, degree, valid):
+    """``t``'s ranked insert on the listed rounds' ``path`` branch (the CPU
+    runs the plain version)."""
+    if path == "grid":
+        return t._ranked_cuda(h, cr, degree, valid, grid_only=True)
+    return t.lookup_or_insert_ranked(h, cr, degree, valid)
+
+
+def _ranked_pairs(tag, tk, rk, tp, rp) -> list:
+    """The ranked insert's seven outputs, ``iters`` and the tags of the
+    kernel's table ``tk`` against the plain version's ``tp``."""
+    names = ("slots", "target", "head_slot", "inserted", "existed",
+             "overflow", "iters")
+    return [(f"{tag} {nm}", a, b) for nm, a, b in zip(names, rk[1:],
+                                                      rp[1:])] + \
+        [(f"{tag} tags", tk.tags, tp.tags)]
+
+
+def phase_ranked_cases(torch, device) -> str:
+    """Every ``k12_cases`` call on the card, kernel against plain version
+    (the table after each call included), on the forced grid branch and
+    the default one."""
+    from risingwave_tpu_torch.state.tag_table import (
+        TagTable, ranked_claim_stats)
+
+    n_calls = 0
+    took = {"grid": 0, "one block": 0}
+    cases = k12_cases()
+    for path in ("grid", "default") if device.type == "cuda" \
+            else ("default",):
+        for name, size, tags, degree, calls in cases:
+            tk = TagTable(torch.from_numpy(tags).to(device), size)
+            tp = tk.clone()
+            deg = torch.from_numpy(degree).to(device)
+            for i, (h, cr, valid) in enumerate(calls):
+                args = (torch.from_numpy(h).to(device),
+                        torch.from_numpy(cr).to(device), deg,
+                        torch.from_numpy(valid).to(device))
+                rk = _ranked_on(tk, path, *args)
+                rp = tp._ranked_plain(*args)
+                if device.type == "cuda":
+                    n, grid_rounds, block_rounds = ranked_claim_stats(device)
+                    if n and path == "grid" and block_rounds:
+                        fail(f"ranked: forced grid branch ran "
+                             f"{block_rounds} one-block rounds")
+                    if n:
+                        took["grid" if grid_rounds else "one block"] += 1
+                max_abs_err(torch, _ranked_pairs(
+                    f"ranked case {name!r} call {i} ({path})", tk, rk, tp,
+                    rp))
+                n_calls += 1
+    return (f"{len(cases)} cases, {n_calls} calls, rounds on the "
+            f"grid branch {took['grid']} times and on block 0 alone "
+            f"{took['one block']}")
+
 def phase_q8_kernels(torch, device, timer, scale):
     """K12-K15 at q8's main-path shapes: the join state of a q8 engine at
     bench sizes after 10 barriers (two 2^22-slot tag tables at the
@@ -2095,22 +2547,35 @@ def phase_q8_kernels(torch, device, timer, scale):
     out = {}
 
     # -- K12 tag_insert_ranked -------------------------------------------
-    tk, tp = right.table.clone(), right.table.clone()
-    rk = tk._ranked_cuda(h, cr, right.count, is_ins) \
-        if device.type == "cuda" else tk._ranked_plain(h, cr, right.count,
-                                                       is_ins)
-    rp = tp._ranked_plain(h, cr, right.count, is_ins)
-    names = ("slots", "target", "head_slot", "inserted", "existed",
-             "overflow", "iters")
-    pairs = [(f"ranked {nm}", a, b) for nm, a, b in zip(names, rk[1:],
-                                                        rp[1:])]
-    pairs.append(("ranked tags", tk.tags, tp.tags))
+    from risingwave_tpu_torch.state.tag_table import ranked_claim_stats
+
+    paths = ("grid", "default") if device.type == "cuda" else ("default",)
+    pairs = []
+    stats = {}
+    for path in paths:
+        tk, tp = right.table.clone(), right.table.clone()
+        rk = _ranked_on(tk, path, h, cr, right.count, is_ins)
+        rp = tp._ranked_plain(h, cr, right.count, is_ins)
+        if device.type == "cuda":
+            stats[path] = ranked_claim_stats(device)
+        pairs += _ranked_pairs(f"ranked q8 ({path})", tk, rk, tp, rp)
     err = max_abs_err(torch, pairs)
+    cases = phase_ranked_cases(torch, device)
     n_ins, iters = int(rp[4].sum()), int(rp[-1])
     n_it = 20
     clones = [right.table.clone() for _ in range(n_it + 1)]
     ms = timer(lambda i: clones[i].lookup_or_insert_ranked(
         h, cr, right.count, is_ins), n_it)
+    split = None
+    grid_ms = ms
+    if device.type == "cuda":
+        gc = [right.table.clone() for _ in range(n_it + 1)]
+        grid_ms = timer(lambda i: gc[i]._ranked_cuda(
+            h, cr, right.count, is_ins, grid_only=True), n_it)
+        sc = [right.table.clone() for _ in range(n_it + 1)]
+        split = device_ms_by_kernel(
+            torch, device, lambda i: sc[i].lookup_or_insert_ranked(
+                h, cr, right.count, is_ins), n_it, RANKED_KERNELS)
     pclones = [right.table.clone() for _ in range(3)]
     plain_ms = timer(lambda i: pclones[i]._ranked_plain(h, cr, right.count,
                                                         is_ins), 2)
@@ -2118,12 +2583,27 @@ def phase_q8_kernels(torch, device, timer, scale):
     # flags written; two table reads (head, target) and one degree read;
     # 8 B per claimed entry
     b = bound(cap * (13 + 15 + 2 * 8 + 4) + n_ins * 8, cap * 2 * 60)
-    print(f"[tag_insert_ranked] exact ({n_ins} claims, {iters} rounds); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{b[0]:.5f} ms", flush=True)
+    st = stats.get("default")
+    rounds = "" if st is None else (
+        f"; {st[0]} rows listed, {st[1]} grid and {st[2]} one-block "
+        "rounds")
+    by_kernel = "" if split is None else (
+        f" (device time of its one launch {split['ranked_insert']:.4f} ms "
+        "by the profiler)")
+    print(f"[tag_insert_ranked] exact (q8's chunk on the "
+          f"{', '.join(paths)} branches, {n_ins} claims, {iters} "
+          f"rounds{rounds}; {cases}); kernel {ms:.4f} ms{by_kernel}, the "
+          f"grid branch forced {grid_ms:.4f}, plain {plain_ms:.4f} ms, "
+          f"bound {b[0]:.5f} ms", flush=True)
     out["tag_insert_ranked"] = kernel_entry(
         "tag_probe.cu", "risingwave_tpu/state/hash_table.py:525", ms,
         plain_ms, b, None, err)
+    out["tag_insert_ranked"].update(grid_branch_ms=grid_ms)
+    if split is not None:
+        out["tag_insert_ranked"].update(device_ms=split["ranked_insert"])
+    if st is not None:
+        out["tag_insert_ranked"].update(listed=st[0], grid_rounds=st[1],
+                                        block_rounds=st[2])
 
     # -- K12 tag_probe: head lookups and the rehash ----------------------
     zeros = torch.zeros(cap, dtype=torch.int32, device=device)

@@ -60,10 +60,12 @@
 //                block: no host read.
 //
 // The claim scratch stays allocated between calls (the wrapper caches one per
-// device and stream, sized for the largest chunk so far) and rests at RW_CLAIM_FREE, above every row index, with
-// the control words (list lengths, next rounds, the walk's overflow sum and
-// ticket) at their rest values: each call restores what it touched, so no
-// call fills the 4 * cap entries.  The kernels allocate nothing.
+// device and stream, sized for the largest chunk so far) and rests at
+// RW_CLAIM_FREE, above every row index, with the control words (list
+// lengths, next rounds, the walk's overflow sum and ticket) at their rest
+// values: each call restores what it touched, so no call fills the 4 * cap
+// entries.  The scratch's layout and the helpers the rounds share with K12's
+// ranked insert are in rw_claim.cuh.  The kernels allocate nothing.
 //
 // Bound: bytes, what the chunk's data needs.  Every row's valid flag read
 // and its outputs written (slot, inserted, overflow: 7 B); a valid row's
@@ -73,37 +75,21 @@
 // What the kernels spend is latency: the walk a launch and its longest
 // chain's reads, the rounds over the claimants only, each round a
 // dependent read or two and two barriers.
-#include <climits>
 #include <cooperative_groups.h>
 
+#include "rw_claim.cuh"
 #include "rw_probe.cuh"
 
 namespace cg = cooperative_groups;
-
-#define RW_CLAIM_FREE INT_MAX
-// control words after the claim scratch: their rest values between calls
-#define RW_CTL_LEN0 0     // claimant list 0 length (the walk's list), 0
-#define RW_CTL_LEN1 1     // claimant list 1 length, 0
-#define RW_CTL_NEXT0 2    // next round (rounds with j even), INT_MAX
-#define RW_CTL_NEXT1 3    // next round (rounds with j odd), INT_MAX
-#define RW_CTL_K0 4       // least entry round of the walk's list, INT_MAX
-#define RW_CTL_WOVER 5    // the walk's overflow sum, 0
-#define RW_CTL_TICKET 6   // the walk's finished blocks, 0
-#define RW_CTL_CLAIMANTS 8  // stats of the last insert: claimants
-#define RW_CTL_GRID_ROUNDS 9   // rounds run by the whole grid
-#define RW_CTL_BLOCK_ROUNDS 10  // rounds run by block 0 alone
 
 constexpr int WALK_THREADS = 256;
 constexpr int CLAIM_THREADS = 1024;
 // claimant lists up to this long run their rounds on block 0 alone, one
 // row a thread
 constexpr int ONE_BLOCK_MAX = CLAIM_THREADS;
-// block 0's last rounds: the shared claim maps (two, by round parity, of
-// TAIL_MAP entries: half full at most) and the listed rows the cooperative
-// grid gives each thread in its first round, at most
-constexpr int TAIL_MAP_BITS = 11;
-constexpr int TAIL_MAP = 1 << TAIL_MAP_BITS;
-static_assert(TAIL_MAP >= 2 * CLAIM_THREADS, "claim map size");
+static_assert(RW_TAIL_MAP >= 2 * CLAIM_THREADS, "claim map size");
+// the listed rows the cooperative grid gives each thread in its first
+// round, at most
 constexpr int GRID_ROWS_PER_THREAD = 4;
 
 struct ProbeArgs {
@@ -126,48 +112,6 @@ struct ProbeArgs {
   int max_iters;
   int grid_only;               // 1: every claim round on the grid (checks)
 };
-
-__device__ __forceinline__ int warp_min(int v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const int y = __shfl_xor_sync(0xffffffffu, v, o);
-    v = y < v ? y : v;
-  }
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Appends `e` for the lanes where `take` holds to list `dst` (length at
-// *len), one atomicAdd a warp.  Every lane of the warp must call it.
-__device__ __forceinline__ void warp_append(bool take, int2 e, int2* dst,
-                                            int* len) {
-  const int lane = threadIdx.x & 31;
-  const unsigned b = __ballot_sync(0xffffffffu, take);
-  if (b == 0) return;
-  int base = 0;
-  if (lane == 0) base = atomicAdd(len, __popc(b));
-  base = __shfl_sync(0xffffffffu, base, 0);
-  if (take) dst[base + __popc(b & ((1u << lane) - 1u))] = e;
-}
-
-// Block-wide min of one value a thread, then one atomicMin into *dst.
-__device__ __forceinline__ void block_min_into(int v, int* dst) {
-  __shared__ int s_min[32];
-  v = warp_min(v);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) s_min[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int x = lane < static_cast<int>(blockDim.x >> 5) ? s_min[lane] : INT_MAX;
-    x = warp_min(x);
-    if (lane == 0 && x != INT_MAX) atomicMin(dst, x);
-  }
-  __syncthreads();
-}
 
 #define RW_WALK_EMPTY -1  // walk outcomes besides a hit's slot
 #define RW_WALK_OVER -2
@@ -254,16 +198,16 @@ __global__ void __launch_bounds__(WALK_THREADS) probe_walk(ProbeArgs a) {
       n_over += over;
       if (claimant && entry < k0) k0 = entry;
     }
-    warp_append(claimant, make_int2(static_cast<int>(r), entry), a.list,
-                &a.ctl[RW_CTL_LEN0]);
+    rw_warp_append(claimant, make_int2(static_cast<int>(r), entry), a.list,
+                   &a.ctl[RW_CTL_LEN0]);
   }
   // the claimants' least entry round, one atomic a warp
-  k0 = warp_min(k0);
+  k0 = rw_warp_min(k0);
   if (lane == 0 && k0 != INT_MAX) atomicMin(&a.ctl[RW_CTL_K0], k0);
   // the overflow count: one atomic a block, the last block writes it
   __shared__ int s_over[WALK_THREADS / 32];
   __shared__ bool s_last;
-  n_over = warp_sum(n_over);
+  n_over = rw_warp_sum(n_over);
   if (lane == 0) s_over[warp] = n_over;
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -304,8 +248,8 @@ __device__ __forceinline__ void win_slot(const ProbeArgs& a, int c, int r,
 // (overflow) in *n_left.
 __device__ int claim_tail(const ProbeArgs& a, const int2* list, int L,
                           int k, int* n_left) {
-  __shared__ int s_keys[2][TAIL_MAP];
-  __shared__ int s_rows[2][TAIL_MAP];
+  __shared__ int s_keys[2][RW_TAIL_MAP];
+  __shared__ int s_rows[2][RW_TAIL_MAP];
   __shared__ int s_next[2];
   const int t = threadIdx.x;
   const int m = 4 * a.cap;
@@ -313,7 +257,7 @@ __device__ int claim_tail(const ProbeArgs& a, const int2* list, int L,
   const bool word8 = a.keys.n == 1 && a.keys.width[0] == 8 &&
                      a.keys.kind[0] == RW_KIND_WORD &&
                      a.keys.st_null[0] == nullptr;
-  for (int i = t; i < TAIL_MAP; i += blockDim.x) {
+  for (int i = t; i < RW_TAIL_MAP; i += blockDim.x) {
     s_keys[0][i] = s_keys[1][i] = -1;
     s_rows[0][i] = s_rows[1][i] = INT_MAX;
   }
@@ -356,16 +300,7 @@ __device__ int claim_tail(const ProbeArgs& a, const int2* list, int L,
         a.pending[r] = 0;
         live = false;
       } else if (s == RW_PROBE_EMPTY) {
-        const int e = c % m;
-        unsigned h = (static_cast<unsigned>(e) * 2654435761u) >>
-                     (32 - TAIL_MAP_BITS);
-        while (true) {
-          const int prev = atomicCAS(&s_keys[p][h], -1, e);
-          if (prev == -1 || prev == e) break;
-          h = (h + 1) & (TAIL_MAP - 1);
-        }
-        atomicMin(&s_rows[p][h], r);
-        mine = static_cast<int>(h);
+        mine = rw_map_claim(s_keys[p], s_rows[p], c % m, r);
       } else {
         ++off;
       }
@@ -384,7 +319,7 @@ __device__ int claim_tail(const ProbeArgs& a, const int2* list, int L,
       live = false;
     }
     int need = live ? (off > k ? off : k + 1) : INT_MAX;
-    need = warp_min(need);
+    need = rw_warp_min(need);
     if ((t & 31) == 0 && need != INT_MAX) atomicMin(&s_next[p], need);
     __syncthreads();
     k = s_next[p];
@@ -471,9 +406,9 @@ __global__ void __launch_bounds__(CLAIM_THREADS) probe_claim(ProbeArgs a) {
           need = nk < need ? nk : need;
         }
       }
-      warp_append(keep, e, next, &a.ctl[RW_CTL_LEN0 + (cur ^ 1)]);
+      rw_warp_append(keep, e, next, &a.ctl[RW_CTL_LEN0 + (cur ^ 1)]);
     }
-    block_min_into(need, &a.ctl[RW_CTL_NEXT0 + cur]);
+    rw_block_into<RW_RED_MIN>(need, &a.ctl[RW_CTL_NEXT0 + cur]);
     grid.sync();
     k = ctl[RW_CTL_NEXT0 + cur];
     L = ctl[RW_CTL_LEN0 + (cur ^ 1)];

@@ -7,8 +7,10 @@ and writers and their greedy match walk), ``rw_cal.cuh`` (the calendar
 of ``to_char.cu`` and ``calendar.cu``), ``rw_probe.cuh`` (the probe
 walk of ``probe.cu`` and ``temporal_probe.cu``), ``rw_bucket.cuh`` (the
 bucket multi-map's annihilation and walk, of ``join_dense.cu`` and
-``agg_minput.cu``) and ``rw_compact.cuh`` (the mask compaction of
-``compact.cu``, ``agg_eowc.cu`` and ``sink_ring.cu``), and one host routine,
+``agg_minput.cu``), ``rw_compact.cuh`` (the mask compaction of
+``compact.cu``, ``agg_eowc.cu`` and ``sink_ring.cu``) and ``rw_claim.cuh``
+(the claim rounds' scratch layout and helpers, of ``probe.cu`` and
+``tag_probe.cu``), and one host routine,
 ``crc32c.cpp`` (the checkpoint store's checksum, ``crc32c``).  Each
 source compiles with ``nvcc`` into its own shared library with a plain
 C interface, named by a hash of its source, the headers and the flags,
@@ -47,7 +49,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 HEADERS = ("rw_common.cuh", "rw_join.cuh", "nexmark_common.cuh",
            "rw_str.cuh", "rw_cal.cuh", "rw_probe.cuh", "rw_bucket.cuh",
-           "rw_compact.cuh")
+           "rw_compact.cuh", "rw_claim.cuh")
 #: library name -> source file
 SOURCES = {
     "hash64": "hash64.cu",

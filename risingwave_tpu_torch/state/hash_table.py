@@ -288,9 +288,12 @@ class _ProbeArgs(ctypes.Structure):
 
 _INT32_MAX = 2**31 - 1
 #: the control words after the claim scratch, at their rest values
-#: (``RW_CTL_*`` in ``csrc/probe.cu``): list lengths 0, next rounds and the
-#: least entry round INT_MAX, the walk's overflow sum and ticket 0; words
-#: 8-10 hold the last insert's claimants, grid rounds and one-block rounds
+#: (``RW_CTL_*`` in ``csrc/rw_claim.cuh``): list lengths 0, next rounds and
+#: the least entry round INT_MAX, the walk's overflow sum and ticket 0;
+#: words 8-10 hold the last insert's claimants, grid rounds and one-block
+#: rounds; K12's ranked insert (``tag_table``) shares the scratch: its last
+#: resolving round and overflow count (words 11, 12) rest at 0, and words
+#: 13-15 hold its last call's listed rows and rounds
 _CTL_REST = (0, 0, _INT32_MAX, _INT32_MAX, _INT32_MAX, 0, 0, 0,
              0, 0, 0, 0, 0, 0, 0, 0)
 #: (device, stream) -> int32 [4 * p + 16]: the probe's claim scratch at

@@ -14,8 +14,11 @@ than an unsigned ``>= 2``, and ``tag % size`` is ``tag & (size - 1)``
 
 Kernel K12 (``csrc/tag_probe.cu``) runs the probes on the card:
 
-- ``tag_insert_ranked``: ``lookup_or_insert_ranked`` (:525), one block
-  that replays the reference's rounds (a chunk of rows);
+- ``tag_insert_ranked``: ``lookup_or_insert_ranked`` (:525) for a chunk
+  of rows: a grid walk over the call-start table, then the reference's
+  rounds over the rows that reach a true-empty slot (a cooperative grid,
+  then one block), on the probe's claim scratch (``hash_table``'s
+  ``_claim_scratch``);
 - ``tag_probe``: ``_probe_tags`` (:450).  A lookup is one thread per
   row (a lookup never writes the table, so each row's own walk up to
   the round bound is the reference's result); an insert (``rehashed``,
@@ -42,7 +45,11 @@ from risingwave_tpu_torch.common.hash import (
     hash64_finish,
     hash64_partial,
 )
-from risingwave_tpu_torch.state.hash_table import table_sweep
+from risingwave_tpu_torch.state.hash_table import (
+    _CTL_REST,
+    _claim_scratch,
+    table_sweep,
+)
 
 #: reserved tag values (the tag hash remaps into [2, 2^64))
 EMPTY_TAG = 0
@@ -103,12 +110,19 @@ class _RankedArgs(ctypes.Structure):
         ("target", ctypes.c_void_p), ("head_slot", ctypes.c_void_p),
         ("inserted", ctypes.c_void_p), ("existed", ctypes.c_void_p),
         ("pending", ctypes.c_void_p), ("iters", ctypes.c_void_p),
-        ("off", ctypes.c_void_p), ("cand", ctypes.c_void_p),
-        ("phase2", ctypes.c_void_p), ("want", ctypes.c_void_p),
-        ("target_tag", ctypes.c_void_p), ("claim", ctypes.c_void_p),
+        ("list", ctypes.c_void_p), ("cand", ctypes.c_void_p),
+        ("claim", ctypes.c_void_p), ("ctl", ctypes.c_void_p),
         ("cap", ctypes.c_int), ("size", ctypes.c_int),
-        ("max_iters", ctypes.c_int),
+        ("max_iters", ctypes.c_int), ("grid_only", ctypes.c_int),
     ]
+
+
+def ranked_claim_stats(dev: torch.device) -> tuple[int, int, int]:
+    """(listed rows, grid rounds, one-block rounds) of the last ranked
+    insert on ``dev``'s current stream (a host read, for checks and
+    reports)."""
+    ctl = _claim_scratch(dev, 0)[-len(_CTL_REST):][13:16].tolist()
+    return ctl[0], ctl[1], ctl[2]
 
 
 def _u8(t: torch.Tensor) -> torch.Tensor:
@@ -399,8 +413,12 @@ class TagTable:
         return (self, slots, target, head_slot, inserted, existed & valid,
                 overflow, torch.tensor(iters, dtype=torch.int32, device=dev))
 
-    def _ranked_cuda(self, hashes, chunk_rank, degree, valid):
-        """K12 ``tag_insert_ranked``: one block, no host sync."""
+    def _ranked_cuda(self, hashes, chunk_rank, degree, valid,
+                     grid_only: bool = False):
+        """K12 ``tag_insert_ranked``: the walk, then the rounds over the
+        rows that reach a true-empty slot; no host sync.  ``grid_only``
+        keeps every listed round on the cooperative grid (for checks of
+        that branch on short lists)."""
         cap = valid.shape[0]
         size = self.size
         dev = valid.device
@@ -420,10 +438,9 @@ class TagTable:
         inserted, existed, pending = (torch.empty(cap, **u8)
                                       for _ in range(3))
         iters = torch.empty((), **i32)
-        off, cand = torch.empty(cap, **i32), torch.empty(cap, **i32)
-        phase2, want = torch.empty(cap, **u8), torch.empty(cap, **u8)
-        target_tag = torch.empty(cap, dtype=torch.int64, device=dev)
-        claim = torch.empty(4 * cap, **i32)
+        lists = torch.empty((2 * cap, 4), **i32)
+        cand = torch.empty(cap, **i32)
+        scratch = _claim_scratch(dev, cap)
         a = _RankedArgs()
         a.hashes, a.chunk_rank = hashes.data_ptr(), chunk_rank.data_ptr()
         a.degree, a.valid = degree.data_ptr(), valid_u8.data_ptr()
@@ -431,11 +448,12 @@ class TagTable:
         a.target, a.head_slot = target.data_ptr(), head_slot.data_ptr()
         a.inserted, a.existed = inserted.data_ptr(), existed.data_ptr()
         a.pending, a.iters = pending.data_ptr(), iters.data_ptr()
-        a.off, a.cand = off.data_ptr(), cand.data_ptr()
-        a.phase2, a.want = phase2.data_ptr(), want.data_ptr()
-        a.target_tag, a.claim = target_tag.data_ptr(), claim.data_ptr()
+        a.list, a.cand = lists.data_ptr(), cand.data_ptr()
+        a.claim = scratch.data_ptr()
+        a.ctl = scratch[-len(_CTL_REST):].data_ptr()
         a.cap, a.size = cap, size
         a.max_iters = min(2 * size + 4, 1024)
+        a.grid_only = int(grid_only)
         fn = kernels.entry("tag_insert_ranked", "rw_tag_insert_ranked",
                            [_RankedArgs, ctypes.c_void_p])
         kernels.count_launch("tag_insert_ranked")
