@@ -13,11 +13,16 @@
    K11 and K4 the whole state tree of a bench-size q8 engine, ~1 GB),
    requiring exact equality (tags bit for bit), and times kernel, plain
    version, one PyTorch library call where one exists, and the card's
-   bound for the same bytes; for the top-N kernels K16-K18 the TopN
-   state of a q19 engine (pool 2^18, emitted band 2^16) and its next
-   8192-row chunks, K16's delete branches on a retractable chunk at a
-   2^14 pool, K1 on bid rows with random bytes past the strings'
-   lengths and K3 on the MV's whole-row key (strings included); for
+   bound for the same bytes; K8-ring on every ``k8_ring_cases`` case,
+   at q1's and q22's (176 B string rows) shapes and on a 2^18-row
+   backfill chunk that wraps a 2^19 ring; for the top-N kernels K16-K18
+   the TopN state of a q19 engine (pool 2^18, emitted band 2^16) and its
+   next 8192-row chunks, K16 on every ``k16_cases`` script and on a wide
+   case (2^19-row chunks into a 2^23 pool: every block's rows and slots
+   over several tiles), its delete branches on a retractable chunk at a
+   2^14 pool and its time at ow_bid's shape (an 8192-bid chunk into a
+   2^22 pool with 2,818,048 live), K1 on bid rows with random bytes past
+   the strings' lengths and K3 on the MV's whole-row key (strings included); for
    the over-window K20 on synthetic pools of every window call kind at
    both window queries' pool shapes (2^18 / emit 2^16 and 2^22 / 2^22:
    90% of the rows in one partition, tie-heavy negative keys, ROWS
@@ -403,15 +408,29 @@ def device_ms_by_kernel(torch, device, fn, iters: int,
 
 
 def pool_apply_bound(cap: int, row: float, n_del: int, n_ins: int,
-                     S: int) -> tuple[float, str]:
+                     scanned: int) -> tuple[float, str]:
     """K16's bound from the rows its work needs: every chunk row's flag
     read (1 B); a valid row's op and payload (``row`` B); a delete's
     matched slot (its hash read, its flag read and written); an insert's
-    claimed slot written (payload, hash, flag); the pool's validity
-    scanned for free slots (1 B a slot)."""
+    claimed slot written (payload, hash, flag); the pool's validity read
+    (1 B a slot) over the ``scanned`` slots that hold the free slots the
+    inserts take (``claimed_prefix``)."""
     n_act = n_del + n_ins
     return bound(cap + n_act * (row + 1) + n_del * 10 + n_ins * (row + 9)
-                 + S, cap + n_act * 40)
+                 + scanned, cap + n_act * 40)
+
+
+def claimed_prefix(torch, before, after, S: int) -> int:
+    """The pool slots whose validity K16's inserts need read: up to the
+    last slot they claimed (valid after the call, and free before it or
+    holding another row hash), or all ``S`` where an insert found no free
+    slot.  ``before`` and ``after`` are the pool's (valid, row_hash,
+    overflow)."""
+    (v0, h0, o0), (v1, h1, o1) = before, after
+    if int(o1) > int(o0):
+        return S
+    new = v1 & (~v0 | (h1 != h0))
+    return int(torch.nonzero(new).max()) + 1 if bool(new.any()) else 0
 
 
 def row_bytes(col, lead: int = 1) -> float:
@@ -1542,49 +1561,242 @@ def phase_mask_indices(torch, device, timer, scale):
                         ms, plain_ms, b, library_ms, err)
 
 
-def phase_ring(torch, device, timer, scale):
-    """K8-ring: q1's 8192-row chunks of 4 int64 columns into the 2^23
-    ring, starting just before a lap so positions wrap."""
-    from risingwave_tpu_torch.common.chunk import Chunk
+def _k8_col(rng, kind: str, width: int, nullable: bool, n: int):
+    """``n`` random values of one K8-ring case column (numpy): an array,
+    a string as (bytes [n, width] uint8 with random bytes past the
+    lengths, lens int32), a nullable column as ("null", payload, mask)."""
+    import numpy as np
+
+    if kind == "VARCHAR":
+        col = (rng.integers(0, 256, (n, width)).astype(np.uint8),
+               rng.integers(0, width + 1, n).astype(np.int32))
+    elif kind == "INT32":
+        col = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    elif kind == "BOOLEAN":
+        col = rng.random(n) < 0.5
+    elif kind == "FLOAT64":
+        col = rng.standard_normal(n) * 1e6
+    else:
+        col = rng.integers(-2**62, 2**62, n).astype(np.int64)
+    if nullable:
+        return ("null", col, rng.random(n) < 0.3)
+    return col
+
+
+#: the ring shapes chip_smoke times: q1's 4 int64 columns, and q22's MV
+#: row (3 int64, a 16-byte channel and three 40-byte directories: 176 B
+#: with the lengths)
+Q1_RING_FIELDS = tuple((n, "INT64", 0, False)
+                       for n in ("auction", "bidder", "price", "ts"))
+Q22_RING_FIELDS = (("auction", "INT64", 0, False),
+                   ("bidder", "INT64", 0, False),
+                   ("price", "INT64", 0, False),
+                   ("channel", "VARCHAR", 16, False),
+                   ("dir1", "VARCHAR", 40, False),
+                   ("dir2", "VARCHAR", 40, False),
+                   ("dir3", "VARCHAR", 40, False))
+
+
+def k8_ring_cases() -> list:
+    """K8-ring's corner cases, shared with
+    ``tests/test_torch_ring_pool_grid.py``: dicts with ``fields`` ((name,
+    type, str_width, nullable) each), ``ring`` (a power of two), the
+    ``cursor`` and ``overflow`` to start from, ``init`` the ring's columns
+    before the first chunk, and ``chunks``, a list of (columns, valid)
+    (columns as ``_k8_col`` makes them).  The kernel's tiles are 256
+    rows: capacities of 40 to 1000 rows give one to four tiles."""
+    import numpy as np
+
+    i64 = ("INT64", 0, False)
+    specs = [
+        # a chunk that wraps the ring's end
+        ("wrap", [("a",) + i64, ("b",) + i64], 64, 50, 0,
+         [(40, 0.8), (40, 0.8)]),
+        # a cursor past the ring: lost_before > 0
+        ("lapped", [("a",) + i64, ("s", "VARCHAR", 40, False)], 128, 300,
+         172, [(100, 0.7), (100, 0.9)]),
+        ("all_invalid_all_valid", [("a",) + i64, ("b",) + i64], 256, 10, 0,
+         [(96, 0.0), (96, 1.0)]),
+        # widths that divide no word (3, 40 B: 1- and 8-byte words) and one
+        # that divides 16 (64 B)
+        ("strings", [("a",) + i64, ("s3", "VARCHAR", 3, False),
+                     ("s40", "VARCHAR", 40, False),
+                     ("s64", "VARCHAR", 64, False)], 512, 400, 0,
+         [(300, 0.6), (300, 0.95)]),
+        ("nullable", [("a", "INT64", 0, True), ("s", "VARCHAR", 40, True),
+                      ("i", "INT32", 0, True)], 256, 200, 0,
+         [(150, 0.8), (150, 0.5)]),
+        ("types", [("i", "INT32", 0, False), ("b", "BOOLEAN", 0, False),
+                   ("f", "FLOAT64", 0, False), ("g", "FLOAT64", 0, True)],
+         1024, 1000, 0, [(130, 0.9), (130, 0.9)]),
+        # a capacity that is not a multiple of the tile, over four tiles
+        ("odd_capacity", [(n,) + i64 for n in "abcd"], 4096, 3000, 0,
+         [(1000, 0.97), (1000, 0.5), (1000, 0.97)]),
+    ]
+    out = []
+    for seed, (name, fields, ring, cursor, overflow, chunks) in \
+            enumerate(specs):
+        rng = np.random.default_rng(800 + seed)
+        init = [_k8_col(rng, k, w, nl, ring) for _, k, w, nl in fields]
+        script = []
+        for cap, p in chunks:
+            cols = [_k8_col(rng, k, w, nl, cap) for _, k, w, nl in fields]
+            script.append((cols, rng.random(cap) < p))
+        out.append(dict(name=name, fields=fields, ring=ring, cursor=cursor,
+                        overflow=overflow, init=init, chunks=script))
+    return out
+
+
+def k8_schema(fields):
+    """The port's Schema of K8-ring case fields."""
     from risingwave_tpu_torch.common.types import DataType, Field, Schema
+
+    return Schema(tuple(Field(n, getattr(DataType, k), str_width=w or 16,
+                              nullable=nl) for n, k, w, nl in fields))
+
+
+def k8_torch_col(torch, col, device):
+    """A ``_k8_col`` column as the port's column on ``device``."""
+    from risingwave_tpu_torch.common.chunk import NCol, StrCol
+
+    def t(a):
+        return torch.from_numpy(a.copy()).to(device)
+
+    if isinstance(col, tuple) and isinstance(col[0], str):
+        return NCol(k8_torch_col(torch, col[1], device), t(col[2]))
+    if isinstance(col, tuple):
+        return StrCol(t(col[0]), t(col[1]))
+    return t(col)
+
+
+def k8_torch_case(torch, case: dict, device):
+    """(values, cursor, overflow, chunks) of a K8-ring case for the port:
+    the ring's columns, two int64 scalars and the Chunks."""
+    from risingwave_tpu_torch.common.chunk import Chunk
+
+    schema = k8_schema(case["fields"])
+    values = tuple(k8_torch_col(torch, c, device) for c in case["init"])
+    i64 = dict(dtype=torch.int64, device=device)
+    chunks = []
+    for cols, valid in case["chunks"]:
+        cap = valid.shape[0]
+        chunks.append(Chunk(
+            tuple(k8_torch_col(torch, c, device) for c in cols),
+            torch.zeros(cap, dtype=torch.int8, device=device),
+            torch.from_numpy(valid.copy()).to(device), schema))
+    return (values, torch.tensor(case["cursor"], **i64),
+            torch.tensor(case["overflow"], **i64), chunks)
+
+
+def _ring_pairs(torch, tag, a, b):
+    """Named (kernel, plain) tensors of two K8-ring states: every leaf
+    (floats as bit patterns), the cursor and the lap count."""
+    from risingwave_tpu_torch.common.tree import flatten
+
+    def bits(x):
+        if x.dtype.is_floating_point:
+            return x.view(torch.int64 if x.element_size() == 8
+                          else torch.int32)
+        return x
+
+    la, lb = flatten(a[0])[0], flatten(b[0])[0]
+    pairs = [(f"{tag} leaf {i}", bits(x), bits(y))
+             for i, (x, y) in enumerate(zip(la, lb))]
+    pairs += [(f"{tag} cursor", a[1], b[1]), (f"{tag} overflow", a[2], b[2])]
+    # copies: the states change after this call
+    return [(n, x.clone(), y.clone()) for n, x, y in pairs]
+
+
+def ring_shape(torch, device, fields, cap: int, ring: int, seed: int):
+    """A chunk of ``cap`` rows of ``fields`` (97% visible) and an empty
+    ring state whose cursor stands a third of a chunk before a lap."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import Chunk
+    from risingwave_tpu_torch.stream.materialize import empty_value_col
+
+    rng = np.random.default_rng(seed)
+    schema = k8_schema(fields)
+    cols = tuple(k8_torch_col(torch, _k8_col(rng, k, w, nl, cap), device)
+                 for _, k, w, nl in fields)
+    chunk = Chunk(cols, torch.zeros(cap, dtype=torch.int8, device=device),
+                  torch.from_numpy(rng.random(cap) < 0.97).to(device),
+                  schema)
+    values = tuple(empty_value_col(f, ring, device) for f in schema)
+    i64 = dict(dtype=torch.int64, device=device)
+    return (values, torch.tensor(ring - cap // 3, **i64),
+            torch.tensor(5, **i64)), chunk
+
+
+#: K8-ring's backfill chunk on the card and the ring it wraps
+RING_BACKFILL_ROWS, RING_BACKFILL_RING = 1 << 18, 1 << 19
+
+
+def phase_ring(torch, device, timer, scale):
+    """K8-ring exactly against its plain version on every
+    ``k8_ring_cases`` case, at q1's (8192 rows of 4 int64 columns) and
+    q22's (8192 rows of 176 B with strings) shapes into the 2^23 ring,
+    starting just before a lap so positions wrap (both shapes timed), and
+    on the card with a backfill chunk of 2^18 q22 rows (1024 tiles, so a
+    tile's look-back may pass more than 32 tiles without a prefix) into a
+    2^19 ring that it wraps."""
+    from risingwave_tpu_torch.common.tree import tree_map
     from risingwave_tpu_torch.stream.materialize import (
         ring_append, ring_append_plain)
 
-    g = torch.Generator(device="cpu").manual_seed(7)
+    pairs = []
+    cases = k8_ring_cases()
+    for case in cases:
+        *a, chunks = k8_torch_case(torch, case, device)
+        b = tree_map(torch.clone, tuple(a))
+        for k, c in enumerate(chunks):
+            ring_append(*a[:3], c, case["ring"])
+            ring_append_plain(*b[:3], c, case["ring"])
+            pairs += _ring_pairs(torch, f"ring {case['name']} chunk {k}",
+                                 a, b)
     ring, cap = (1 << 23) // scale, 8192 // scale
-    schema = Schema(tuple(Field(n, DataType.INT64)
-                          for n in ("auction", "bidder", "price", "ts")))
-    cols = tuple(torch.randint(0, 10**12, (cap,), generator=g).to(device)
-                 for _ in range(4))
-    valid = (torch.rand(cap, generator=g) < 0.97).to(device)
-    chunk = Chunk(cols, torch.zeros(cap, dtype=torch.int8, device=device),
-                  valid, schema)
-
-    def fresh():
-        values = tuple(torch.zeros(ring, dtype=torch.int64, device=device)
-                       for _ in range(4))
-        i64 = dict(dtype=torch.int64, device=device)
-        return (values, torch.tensor(ring - cap // 3, **i64),
-                torch.tensor(5, **i64))
-
-    a, b = fresh(), fresh()
-    for _ in range(2):
-        ring_append(*a, chunk, ring)
-        ring_append_plain(*b, chunk, ring)
-    pairs = [(f"ring column {i}", x, y) for i, (x, y) in
-             enumerate(zip(a[0], b[0]))]
-    pairs += [("ring cursor", a[1], b[1]), ("ring overflow", a[2], b[2])]
+    shapes = {}
+    for tag, fields in (("q1", Q1_RING_FIELDS), ("q22", Q22_RING_FIELDS)):
+        st, chunk = ring_shape(torch, device, fields, cap, ring, 7)
+        a, b = st, tree_map(torch.clone, st)
+        for _ in range(2):
+            ring_append(*a, chunk, ring)
+            ring_append_plain(*b, chunk, ring)
+        max_abs_err(torch, _ring_pairs(torch, f"ring {tag}", a, b))
+        ms = timer(lambda i: ring_append(*a, chunk, ring), 200)
+        plain_ms = timer(lambda i: ring_append_plain(*b, chunk, ring), 20)
+        n = int(chunk.valid.sum())
+        row = sum(row_bytes(c) for c in chunk.columns)
+        # the valid bytes read, the visible rows read and written once
+        shapes[tag] = dict(ms=ms, plain_ms=plain_ms, row_bytes=row,
+                           bound=bound(cap + 2 * n * row, cap * 10))
+    backfill = ""
+    if device.type == "cuda":
+        cap, ring = RING_BACKFILL_ROWS, RING_BACKFILL_RING
+        a, chunk = ring_shape(torch, device, Q22_RING_FIELDS, cap, ring, 8)
+        b = tree_map(torch.clone, a)
+        for k in range(3):
+            ring_append(*a, chunk, ring)
+            ring_append_plain(*b, chunk, ring)
+            pairs += _ring_pairs(torch, f"ring backfill chunk {k}", a, b)
+        backfill = f", a {cap}-row backfill chunk into a {ring} ring (x3)"
     err = max_abs_err(torch, pairs)
-    ms = timer(lambda i: ring_append(*a, chunk, ring), 200)
-    plain_ms = timer(lambda i: ring_append_plain(*b, chunk, ring), 20)
-    n = int(valid.sum())
-    b_ = bound(cap + 2 * n * 32, cap * 10)
-    print(f"[ring_append] exact (values, cursor, lap count); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_[0]:.5f} ms",
+    q1, q22 = shapes["q1"], shapes["q22"]
+    print(f"[ring_append] exact (every leaf, null plane, cursor and lap "
+          f"count) on {len(cases)} edge cases{backfill} and at q1's and "
+          f"q22's shapes; q1 ({q1['row_bytes']:.0f} B rows) kernel "
+          f"{q1['ms']:.4f} ms, plain {q1['plain_ms']:.4f} ms, bound "
+          f"{q1['bound'][0]:.5f} ms; q22 ({q22['row_bytes']:.0f} B rows) "
+          f"kernel {q22['ms']:.4f} ms, plain {q22['plain_ms']:.4f} ms, "
+          f"bound {q22['bound'][0]:.5f} ms (the one-block kernel before "
+          f"it: 0.0181 ms at q1's shape, 0.72 ms a q22 chunk, PERF.md)",
           flush=True)
-    return kernel_entry("compact.cu",
-                        "risingwave_tpu/stream/materialize.py:224", ms,
-                        plain_ms, b_, None, err)
+    out = kernel_entry("compact.cu",
+                       "risingwave_tpu/stream/materialize.py:224", q1["ms"],
+                       q1["plain_ms"], q1["bound"], None, err)
+    out.update(q22_ms=q22["ms"], q22_plain_ms=q22["plain_ms"],
+               q22_bound_ms=q22["bound"][0], cases=len(cases))
+    return out
 
 
 def phase_bids(torch, device, timer, scale):
@@ -3476,6 +3688,273 @@ def _retractable_chunk(torch, st, cap, g, schema):
     return Chunk(tuple(cols), ops.to(dev), valid.to(dev), schema)
 
 
+#: the K16 cases' pool rows: two int64 columns, a 12-byte string (4-byte
+#: words) and a timestamp
+K16_FIELDS = (("a", "INT64", 0), ("b", "INT64", 0), ("s", "VARCHAR", 12),
+              ("t", "TIMESTAMP", 0))
+K16_INS, K16_DEL = 0, 1  # Insert, Delete (the ops 3 and 2 follow them)
+
+
+def _k16_rows(rng, n: int) -> list:
+    """``n`` distinct rows of ``K16_FIELDS`` (numpy columns; random bytes
+    past the strings' lengths)."""
+    import numpy as np
+
+    w = K16_FIELDS[2][2]
+    return [rng.integers(0, 6, n).astype(np.int64),
+            rng.permutation(n).astype(np.int64) * 7919 - 10**6,
+            (rng.integers(0, 256, (n, w)).astype(np.uint8),
+             rng.integers(0, w + 1, n).astype(np.int32)),
+            rng.integers(0, 50, n).astype(np.int64)]
+
+
+def k16_cases() -> list:
+    """K16's corner cases, shared with
+    ``tests/test_torch_ring_pool_grid.py``: dicts with the pool size
+    ``S``, the chunk capacity ``cap``, ``rows`` (distinct rows as
+    ``_k16_rows`` makes them) and ``chunks``, a script applied in turn to
+    an empty pool: each (row index [cap], op int8 [cap], valid [cap]).
+    Deletes are op 1 or 2, inserts 0 or 3.  The kernel runs 512 threads a
+    block: the wide case's contested and candidate lists take two tiles."""
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+    rows = _k16_rows(rng, 4096)
+    out = []
+
+    def chunk(cap, idx, ops, valid=None):
+        """A chunk of ``cap`` rows: the listed ones first (visible unless
+        ``valid`` says otherwise), then invisible rows."""
+        idx, ops = np.asarray(idx, np.int64), np.asarray(ops, np.int8)
+        n = idx.shape[0]
+        pad = cap - n
+        v = np.ones(n, bool) if valid is None else np.asarray(valid, bool)
+        return (np.concatenate([idx, rng.integers(0, 4096, pad)]),
+                np.concatenate([ops, rng.choice([0, 1, 2, 3], pad)
+                                .astype(np.int8)]),
+                np.concatenate([v, np.zeros(pad, bool)]))
+
+    def ins(idx):
+        return list(idx), [rng.choice([0, 3]) for _ in idx]
+
+    def case(name, S, cap, chunks):
+        out.append(dict(name=name, S=S, cap=cap, rows=rows, chunks=chunks))
+
+    # an append-only chunk into a pool whose free slots are scattered
+    dels = rng.choice(128, 25, replace=False)
+    case("scattered_free", 256, 64, [
+        chunk(64, *ins(range(64))), chunk(64, *ins(range(64, 128))),
+        chunk(64, dels, rng.choice([1, 2], 25)),
+        chunk(64, *ins(range(128, 192))), chunk(64, *ins(range(192, 256)))])
+    # more inserts than free slots
+    case("overflow", 96, 64, [
+        chunk(64, *ins(range(64))), chunk(64, *ins(range(64, 128))),
+        chunk(64, *ins(range(128, 192)))])
+    # annihilation: a +/- pair (50); row 40 with 3 deletes and 1 insert
+    # against 2 pool copies; row 41 with 3 inserts and 1 delete; row 5
+    # deleted; two fresh inserts
+    idx = [50, 50, 40, 40, 40, 40, 41, 41, 41, 41, 5, 60, 61]
+    ops = [0, 1, 1, 2, 1, 0, 0, 3, 1, 0, 1, 0, 3]
+    order = rng.permutation(len(idx))
+    case("annihilation", 256, 64, [
+        chunk(64, *ins(list(range(32)) + [40, 40])),
+        chunk(64, np.asarray(idx)[order], np.asarray(ops)[order])])
+    # duplicates: five copies of row 7; a delete frees slot 1, a sixth copy
+    # takes it (newest, but first in slot order); two deletes clear the
+    # first two copies in slot order
+    first = [0, 1, 2, 7, 3, 4, 5, 6, 7, 8, 9, 7, 10, 7, 11, 7]
+    case("duplicates", 256, 64, [
+        chunk(64, *ins(first)), chunk(64, [1], [1]), chunk(64, [7], [0]),
+        chunk(64, [7, 9, 7], [2, 1, 1])])
+    # deletes that miss: rows never inserted, and row 5 twice (one copy)
+    case("missing", 256, 64, [
+        chunk(64, *ins(range(20))),
+        chunk(64, list(range(100, 111)) + [5, 5], [1] * 11 + [2, 1])])
+    # inserts that take the slots deletes freed in the same call
+    case("reuse", 64, 64, [
+        chunk(64, *ins(range(64))),
+        chunk(64, [70, 10, 71, 20, 72], [0, 1, 3, 2, 0])])
+    # an all-invalid chunk
+    a, o = ins(range(16))
+    case("all_invalid", 64, 64, [
+        chunk(64, a, o),
+        chunk(64, rng.integers(0, 64, 64), rng.choice([0, 1, 2, 3], 64),
+              np.zeros(64, bool))])
+    # wider than 1024 rows and than the pool's free space: a pool of 600
+    # equal rows (7) and 100 others; then 260 +/- pairs of fresh rows, 280
+    # deletes and 260 inserts of row 7 and 40 fresh inserts (520 contested
+    # inserts, 600 candidate slots, 20 cleared), in random order; then 1100
+    # fresh inserts (overflow)
+    fill = np.concatenate([np.full(600, 7), np.arange(1000, 1100)])
+    fill = fill[rng.permutation(700)]
+    pairs = np.arange(2000, 2260)
+    idx = np.concatenate([pairs, pairs, np.full(280, 7), np.full(260, 7),
+                          np.arange(2300, 2340)])
+    ops = np.concatenate([np.zeros(260), np.ones(260), np.full(280, 2),
+                          np.full(260, 3), np.zeros(40)]).astype(np.int8)
+    order = rng.permutation(1100)
+    case("wide", 1024, 1100, [
+        chunk(1100, fill, np.zeros(700, np.int8)),
+        chunk(1100, idx[order], ops[order]),
+        chunk(1100, *ins(range(2400, 3500)))])
+    return out
+
+
+def k16_chunk_columns(case: dict, idx) -> list:
+    """The numpy columns of a K16 case's rows ``idx``."""
+    return [(c[0][idx], c[1][idx]) if isinstance(c, tuple) else c[idx]
+            for c in case["rows"]]
+
+
+def k16_schema():
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+
+    return Schema(tuple(Field(n, getattr(DataType, t), str_width=w or 16)
+                        for n, t, w in K16_FIELDS))
+
+
+def k16_torch_case(torch, case: dict, device):
+    """(TopNState-like pool: rows, valid, row_hash, overflow,
+    inconsistency; the Chunks) of a K16 case for the port."""
+    from risingwave_tpu_torch.common.chunk import Chunk, StrCol
+
+    S = case["S"]
+    schema = k16_schema()
+
+    def t(a):
+        return torch.from_numpy(a.copy()).to(device)
+
+    chunks = []
+    for idx, ops, valid in case["chunks"]:
+        cols = [StrCol(t(c[0]), t(c[1])) if isinstance(c, tuple) else t(c)
+                for c in k16_chunk_columns(case, idx)]
+        chunks.append(Chunk(tuple(cols), t(ops), t(valid), schema))
+    rows = tuple(StrCol(torch.zeros((S, c.data.shape[1]), dtype=torch.uint8,
+                                    device=device),
+                        torch.zeros(S, dtype=torch.int32, device=device))
+                 if isinstance(c, StrCol) else
+                 torch.zeros(S, dtype=c.dtype, device=device)
+                 for c in chunks[0].columns)
+    i64 = dict(dtype=torch.int64, device=device)
+    pool = (rows, torch.zeros(S, dtype=torch.bool, device=device),
+            torch.zeros(S, **i64), torch.zeros((), **i64),
+            torch.zeros((), **i64))
+    return pool, chunks
+
+
+def _pool_pairs(tag, a, b) -> list:
+    """Named (kernel, plain) tensors of two pools as ``k16_torch_case``
+    makes them."""
+    from risingwave_tpu_torch.common.tree import flatten
+
+    la, lb = flatten(a)[0], flatten(b)[0]
+    # copies: the pools change after this call
+    return [(f"{tag} leaf {i}", x.clone(), y.clone())
+            for i, (x, y) in enumerate(zip(la, lb))]
+
+
+def k16_case_pairs(torch, device, kernel) -> list:
+    """Every ``k16_cases`` script through ``kernel`` (K16's wrapper, or
+    the CPU's ``pool_apply``) and ``pool_apply_plain``, chunk by chunk:
+    the named pairs to compare."""
+    from risingwave_tpu_torch.common.tree import tree_map
+    from risingwave_tpu_torch.stream import top_n
+
+    pairs = []
+    for case in k16_cases():
+        a, chunks = k16_torch_case(torch, case, device)
+        b = tree_map(torch.clone, a)
+        for k, c in enumerate(chunks):
+            kernel(*a[:3], c, case["S"], *a[3:])
+            *_, n_over, n_miss = top_n.pool_apply_plain(*b[:3], c,
+                                                        case["S"])
+            b[3].add_(n_over)
+            b[4].add_(n_miss)
+            pairs += _pool_pairs(f"topn_pool {case['name']} chunk {k}",
+                                 a, b)
+    return pairs
+
+
+#: K16's wide card case: a chunk and a pool past one tile a block
+#: (512 rows, 16 x 512 slots) on any grid of co-resident blocks
+K16_WIDE_ROWS, K16_WIDE_POOL = 1 << 19, 1 << 23
+
+
+def k16_wide_pairs(torch, device, kernel) -> tuple[list, dict]:
+    """K16 on the card with every block's rows and pool slots over
+    several tiles: a pool of ``K16_WIDE_POOL`` slots, 94% live, each slot
+    one of 4000 distinct rows (~1970 copies a row), and two chunks of
+    ``K16_WIDE_ROWS`` rows (90% visible) applied in turn.  The first
+    inserts rows 0-3899 only; the second inserts them too, among 24
+    deletes of rows 3900-3907 (none inserted: each clears its row's first
+    three copies in slot order), 16 deletes of rows 0-7 (contested) and 8
+    of rows 4000-4007 (in no pool slot: missing).  Together the inserts
+    outnumber the free slots.  Returns the named pairs against
+    ``pool_apply_plain`` and what the second chunk held."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import Chunk, StrCol
+    from risingwave_tpu_torch.common.hash import hash64_columns
+    from risingwave_tpu_torch.common.tree import tree_map
+    from risingwave_tpu_torch.stream import top_n
+
+    props = torch.cuda.get_device_properties(device)
+    most = props.multi_processor_count * (
+        props.max_threads_per_multi_processor // 512)
+    S, cap = K16_WIDE_POOL, K16_WIDE_ROWS
+    if cap <= most * 512 or S <= most * 16 * 512:
+        fail(f"topn_pool wide case: {cap} rows and {S} slots fit one tile "
+             f"a block on a grid of {most}")
+    rng = np.random.default_rng(1619)
+    table = _k16_rows(rng, 4096)
+    schema = k16_schema()
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    dev_table = [StrCol(t(c[0]), t(c[1])) if isinstance(c, tuple) else t(c)
+                 for c in table]
+
+    def cols(idx):
+        ix = t(idx)
+        return tuple(StrCol(c.data[ix], c.lens[ix]) if isinstance(c, StrCol)
+                     else c[ix] for c in dev_table)
+
+    def ins_ops(n):
+        return rng.choice(np.array([0, 3], np.int8), n)
+
+    rows = cols(rng.integers(0, 4000, S))
+    i64 = dict(dtype=torch.int64, device=device)
+    a = (rows, t(rng.random(S) < 0.94), hash64_columns(list(rows)),
+         torch.zeros((), **i64), torch.zeros((), **i64))
+    dels = np.concatenate([np.repeat(np.arange(3900, 3908), 3),
+                           np.repeat(np.arange(8), 2),
+                           np.arange(4000, 4008)])
+    del_ops = rng.choice(np.array([1, 2], np.int8), dels.shape[0])
+    idx2 = np.concatenate([dels, rng.integers(0, 3900, cap - dels.shape[0])])
+    ops2 = np.concatenate([del_ops, ins_ops(cap - dels.shape[0])])
+    order = rng.permutation(cap)
+    valid2 = np.ones(cap, bool)
+    valid2[dels.shape[0]:] = rng.random(cap - dels.shape[0]) < 0.9
+    script = [(rng.integers(0, 3900, cap), ins_ops(cap),
+               rng.random(cap) < 0.9),
+              (idx2[order], ops2[order], valid2[order])]
+    b = tree_map(torch.clone, a)
+    pairs = []
+    for k, (idx, ops, valid) in enumerate(script):
+        c = Chunk(cols(idx), t(ops), t(valid), schema)
+        kernel(*a[:3], c, S, *a[3:])
+        *_, n_over, n_miss = top_n.pool_apply_plain(*b[:3], c, S)
+        b[3].add_(n_over)
+        b[4].add_(n_miss)
+        pairs += _pool_pairs(f"topn_pool wide chunk {k}", a, b)
+    held = dict(grid_most=most, overflow=int(a[3]), missing=int(a[4]),
+                live=int(a[1].sum()))
+    if held["overflow"] == 0 or held["missing"] != 8:
+        fail(f"topn_pool wide case missed a branch: {held}")
+    return pairs, held
+
+
 def phase_topn_kernels(torch, device, timer, scale):
     """K16-K18 at the q19 path's shapes (pool 2^18, emitted band 2^16,
     8192-row chunks of whole bids) on the TopN state of a q19 engine
@@ -3522,6 +4001,15 @@ def phase_topn_kernels(torch, device, timer, scale):
         b.inconsistency.add_(n_miss)
         pairs += [(f"topn_pool chunk {k} {n}", x, y) for (n, x), (_, y)
                   in zip(_topn_planes("pool", a), _topn_planes("pool", b))]
+    # -- K16 on every k16_cases script, and on the card the wide case
+    # (each block's rows and slots over several tiles) -------------------
+    n_cases = len(k16_cases())
+    pairs += k16_case_pairs(torch, device, pool_apply_k)
+    wide = None
+    if cuda:
+        wide_pairs, wide = k16_wide_pairs(torch, device, pool_apply_k)
+        pairs += wide_pairs
+        del wide_pairs
     err = max_abs_err(torch, pairs)
     n_pool1 = int(a.valid.sum())
     last = int(torch.nonzero(a.valid).max()) + 1 if n_pool1 else 0
@@ -3561,12 +4049,19 @@ def phase_topn_kernels(torch, device, timer, scale):
     plain_ms = timer(lambda i: top_n.pool_apply_plain(
         t.rows, t.valid, t.row_hash, chunks[i % len(chunks)], S), 3,
         TOPN_PREFILL_MS)
+    wide_note = "" if wide is None else (
+        f"; the wide case ({K16_WIDE_ROWS} rows a chunk into "
+        f"{K16_WIDE_POOL} slots, a grid of at most {wide['grid_most']} "
+        f"blocks: {wide['missing']} deletes missing, {wide['overflow']} "
+        f"inserts over)")
     # the chunk read (payload, hash, op, valid), the claimed rows and
     # hashes written, and the validity scanned up to the last claimed slot
     b16 = bound(cap * (BID_ROW_BYTES + 10) + cap * (BID_ROW_BYTES + 9)
                 + last, cap * 40)
     print(f"[topn_pool] exact (8 insert chunks into a pool of {n_pool0} -> "
-          f"{n_pool1} of {S} rows; retractable chunk at pool {small_s}: "
+          f"{n_pool1} of {S} rows; {n_cases} edge-case scripts"
+          f"{wide_note}; "
+          f"retractable chunk at pool {small_s}: "
           f"{held[0]} -> {held[1]} rows, {int(sa.inconsistency)} deletes "
           f"missing, {int(sa.overflow)} inserts over); kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {b16[0]:.5f} ms", flush=True)
@@ -4141,15 +4636,19 @@ def phase_window_kernels(torch, device, timer, scale):
     del clones
     note = "not compared (the plain version's match matrix is too large)"
     ms16_plain = None
+    a = tree_map(torch.clone, base)
+    pool_k(a.rows, a.valid, a.row_hash, chunk, S, a.overflow,
+           a.inconsistency)
+    scanned = claimed_prefix(torch, (base.valid, base.row_hash,
+                                     base.overflow),
+                             (a.valid, a.row_hash, a.overflow), S)
     if n_del * S <= 1 << 30:
         pclones = [tree_map(torch.clone, base) for _ in range(3)]
         ms16_plain = timer(lambda i: top_n.pool_apply_plain(
             pclones[i].rows, pclones[i].valid, pclones[i].row_hash, chunk,
             S), 2)
         del pclones
-        a, b = tree_map(torch.clone, base), tree_map(torch.clone, base)
-        pool_k(a.rows, a.valid, a.row_hash, chunk, S, a.overflow,
-               a.inconsistency)
+        b = tree_map(torch.clone, base)
         _, _, _, n_over, n_miss = top_n.pool_apply_plain(
             b.rows, b.valid, b.row_hash, chunk, S)
         b.overflow.add_(n_over)
@@ -4158,8 +4657,10 @@ def phase_window_kernels(torch, device, timer, scale):
                             in zip(_topn_planes("a", a),
                                    _topn_planes("b", b))])
         note = "exact against the plain version"
-        del a, b
-    b16 = pool_apply_bound(chunk.capacity, BID_ROW_BYTES, n_del, n_ins, S)
+        del b
+    del a
+    b16 = pool_apply_bound(chunk.capacity, BID_ROW_BYTES, n_del, n_ins,
+                           scanned)
     print(f"[topn_pool] on the over-window's input, the top-N's flush "
           f"chunk of {chunk.capacity} rows ({n_del} deletes, {n_ins} "
           f"inserts) into a pool of {S} ({int(base.valid.sum())} live): "
@@ -4169,6 +4670,10 @@ def phase_window_kernels(torch, device, timer, scale):
     extras["topn_pool"] = {"over_window_input": dict(
         rows=chunk.capacity, deletes=n_del, inserts=n_ins, ms=ms16,
         plain_ms=ms16_plain, bound_ms=b16[0], bound_by=b16[1])}
+    if cuda:  # the CPU's pool_apply is the plain version itself
+        max_abs_err(torch, k16_case_pairs(torch, device, pool_k))
+    extras["topn_pool"]["ow_bid_pool"] = phase_k16_ow_bid(torch, device,
+                                                          timer, scale)
 
     # -- K20 on the over-window's state after that chunk ------------------
     st, _ = ow.apply(tree_map(torch.clone, base), chunk)
@@ -4332,6 +4837,98 @@ def phase_window_kernels(torch, device, timer, scale):
     if cuda:
         torch.cuda.empty_cache()
     return out, extras
+
+
+#: live rows of ow_bid's over-window pool at the end of its bench run
+OW_BID_LIVE = 2_818_048
+
+
+def k16_ow_bid_shape(torch, device, scale: int, seed: int = 61):
+    """ow_bid's K16 call: an 8192-bid chunk of fresh inserts into the
+    over-window's 2^22-slot pool of whole bid rows (4 int64 columns, a
+    16-byte channel, a 40-byte url) with ``OW_BID_LIVE`` live rows as a
+    prefix, as the append-only run leaves it.  Returns (pool, chunk, S,
+    live): pool as ``k16_torch_case`` makes it."""
+    import numpy as np
+
+    from risingwave_tpu_torch.common.chunk import Chunk, StrCol
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+
+    S, cap, live = (1 << 22) // scale, 8192 // scale, OW_BID_LIVE // scale
+    schema = Schema((Field("auction", DataType.INT64),
+                     Field("bidder", DataType.INT64),
+                     Field("price", DataType.INT64),
+                     Field("channel", DataType.VARCHAR, str_width=16),
+                     Field("url", DataType.VARCHAR, str_width=40),
+                     Field("date_time", DataType.TIMESTAMP)))
+    rng = np.random.default_rng(seed)
+
+    def col(f, n):
+        if f.data_type == DataType.VARCHAR:
+            w = f.str_width
+            return StrCol(torch.from_numpy(rng.integers(
+                0, 256, (n, w)).astype(np.uint8)).to(device),
+                torch.from_numpy(rng.integers(0, w + 1, n)
+                                 .astype(np.int32)).to(device))
+        return torch.from_numpy(rng.integers(0, 1 << 40, n)).to(device)
+
+    chunk = Chunk(tuple(col(f, cap) for f in schema),
+                  torch.zeros(cap, dtype=torch.int8, device=device),
+                  torch.ones(cap, dtype=torch.bool, device=device), schema)
+    rows = tuple(StrCol(torch.zeros((S, c.data.shape[1]), dtype=torch.uint8,
+                                    device=device),
+                        torch.zeros(S, dtype=torch.int32, device=device))
+                 if isinstance(c, StrCol) else
+                 torch.zeros(S, dtype=torch.int64, device=device)
+                 for c in chunk.columns)
+    valid = torch.zeros(S, dtype=torch.bool, device=device)
+    valid[:live] = True
+    i64 = dict(dtype=torch.int64, device=device)
+    pool = (rows, valid, torch.zeros(S, **i64), torch.zeros((), **i64),
+            torch.zeros((), **i64))
+    return pool, chunk, S, live
+
+
+def phase_k16_ow_bid(torch, device, timer, scale) -> dict:
+    """K16 at ow_bid's shape (``k16_ow_bid_shape``), exactly against its
+    plain version, both timed; each timed call starts from the prefix of
+    ``OW_BID_LIVE`` live rows (the validity is reset between calls)."""
+    from risingwave_tpu_torch.common.tree import tree_map
+    from risingwave_tpu_torch.stream import top_n
+
+    cuda = device.type == "cuda"
+    kernel = top_n.pool_apply_cuda if cuda else \
+        (lambda *a: top_n.pool_apply(*a))
+    pool, chunk, S, live = k16_ow_bid_shape(torch, device, scale)
+    b = tree_map(torch.clone, pool)
+    kernel(*pool[:3], chunk, S, *pool[3:])
+    # the validity the inserts need read: the live prefix and the chunk's
+    # claims after it (live + cap slots), not the whole pool
+    scanned = claimed_prefix(torch, (b[1], b[2], b[3]), pool[1:4], S)
+    *_, n_over, n_miss = top_n.pool_apply_plain(*b[:3], chunk, S)
+    b[3].add_(n_over)
+    b[4].add_(n_miss)
+    err = max_abs_err(torch, _pool_pairs("topn_pool ow_bid", pool, b))
+    del b
+
+    def call(fn):
+        def run(i):
+            pool[1][live:].zero_()
+            fn(*pool[:3], chunk, S, *pool[3:])
+        return run
+
+    ms = timer(call(kernel), 20)
+    plain_ms = timer(call(lambda *a: top_n.pool_apply_plain(*a[:5])), 3)
+    cap = chunk.capacity
+    bb = pool_apply_bound(cap, BID_ROW_BYTES, 0, cap, scanned)
+    print(f"[topn_pool] at ow_bid's shape ({cap} bids into a pool of {S} "
+          f"with {live} live): exact; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (the reset of the validity included in "
+          f"both), bound {bb[0]:.5f} ms (validity read over {scanned} "
+          f"slots)", flush=True)
+    return dict(rows=cap, pool=S, live=live, ms=ms, plain_ms=plain_ms,
+                bound_ms=bb[0], bound_by=bb[1], scanned=scanned,
+                max_abs_err=err)
 
 
 def phase_window_parity(torch, device, query: str) -> None:
@@ -5973,7 +6570,10 @@ def phase_q102_kernels(torch, device, timer, scale):
     bb.inconsistency.add_(n_miss)
     _state_equal("topn_pool on the dynamic filter's left input", a, bb)
     lrow = sum(row_bytes(c) for c in left.columns)
-    b16 = pool_apply_bound(left.capacity, lrow, n_del, n_ins, S)
+    scanned = claimed_prefix(torch, (base.valid, base.row_hash,
+                                     base.overflow),
+                             (a.valid, a.row_hash, a.overflow), S)
+    b16 = pool_apply_bound(left.capacity, lrow, n_del, n_ins, scanned)
     print(f"[topn_pool] on the dynamic filter's left input, the "
           f"aggregation's flush of {left.capacity} rows ({n_del} deletes, "
           f"{n_ins} inserts) into a pool of {S} ({int(base.valid.sum())} "

@@ -18,12 +18,27 @@
 // `AppendOnlyMaterialize.apply`: the visible rows of a chunk, in order,
 // are written to ring positions (cursor + rank) % ring_size, the cursor
 // advances by the visible count and the rows evicted by a lap are added
-// to the overflow counter.  One block walks the chunk in tiles of
-// blockDim rows with a running base, so the cursor is read once and
-// written once, by the same block, with no host sync.  Bound: bytes (the
-// visible rows' column bytes read and written once).
+// to the overflow counter.  One launch, a grid of tiles of RA_TILE rows:
+//   - a block takes the next tile by a ticket (so every tile it waits on
+//     is already running), ranks the tile's visible rows with a block scan
+//     and takes their base from the tiles before it by decoupled look-back:
+//     each tile publishes its count at once and its inclusive prefix as
+//     soon as it knows it, in one 64-bit status word tagged with the
+//     call's epoch (a counter of the wrapper's, one per device and stream,
+//     with the scratch), so no call resets the words;
+//   - it copies its rows plane by plane in the widest word that divides
+//     the plane's row and both pointers (rw_rowcopy.cuh), so a warp moves
+//     consecutive words of one plane; null planes move with their leaves;
+//   - every block reads the cursor before it counts in on a second ticket
+//     (after a fence); the last one writes cursor + n and the lap count
+//     and puts both tickets back to 0.  No block reads a cursor another
+//     block has advanced, nothing is read back to the host, and positions
+//     wrap within a chunk.
+// Bound: bytes (the valid bytes read, the visible rows' planes read and
+// written once).
 #include "rw_common.cuh"
 #include "rw_compact.cuh"
+#include "rw_rowcopy.cuh"
 
 // a uint8 mask read from memory
 struct MaskBits {
@@ -64,41 +79,120 @@ extern "C" int rw_mask_indices(const void* mask, int n, int k, int fill,
 // ---------------------------------------------------------------------------
 // ring append
 
-static constexpr int RA_THREADS = 1024;
+static constexpr int RA_THREADS = 256;
+static constexpr int RA_TILE = RA_THREADS;  // one row a thread
 
-__global__ void __launch_bounds__(RA_THREADS)
-ring_append_kernel(RwCols cols, const uint8_t* __restrict__ valid, int cap,
-                   long long* cursor, long long* overflow,
-                   long long ring_size) {
-  const long long cur = *cursor;
-  long long written = 0;
-  for (int t0 = 0; t0 < cap; t0 += blockDim.x) {
-    const int i = t0 + threadIdx.x;
-    const int v = (i < cap && valid[i] != 0) ? 1 : 0;
-    int tile_total;
-    const int rank = block_exclusive_scan(v, tile_total);
-    if (v) {
-      const long long pos = (cur + written + rank) & (ring_size - 1);
-      rw_store_row(cols, pos, i);
-    }
-    written += tile_total;
+// status word: epoch << 34 | state << 32 | count
+#define RA_AGG 1ull     // the tile's count is published
+#define RA_PREFIX 2ull  // its inclusive prefix is published
+
+struct RingArgs {
+  RwCols cols;                 // in = chunk leaves, st = ring stores
+  const uint8_t* valid;        // [cap]
+  long long* cursor;           // [1] rows written so far, in place
+  long long* overflow;         // [1] += rows a lap evicted
+  unsigned long long* status;  // [tiles] look-back words, persistent
+  int* ctl;                    // [2] tile and finish tickets, rest at 0
+  unsigned long long epoch;    // this call's tag of the status words
+  long long ring_size;
+  int cap;
+  int n_tiles;
+};
+
+__global__ void __launch_bounds__(RA_THREADS) ring_append_kernel(RingArgs a) {
+  __shared__ int s_tile;
+  __shared__ int s_base;
+  __shared__ bool s_last;
+  __shared__ int s_row[RA_TILE];
+  __shared__ RwPlanes s_planes;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  if (t == 0) {
+    s_tile = atomicAdd(&a.ctl[0], 1);
+    rw_planes_of(a.cols, s_planes);
   }
-  __syncthreads();  // every thread has read the cursor
-  if (threadIdx.x == 0) {
-    const long long lost_before = cur > ring_size ? cur - ring_size : 0;
-    const long long end = cur + written;
-    const long long lost_after = end > ring_size ? end - ring_size : 0;
-    *cursor = end;
-    *overflow += lost_after - lost_before;
+  const long long cur = *a.cursor;
+  __syncthreads();
+  const int tile = s_tile;
+  const int r = tile * RA_TILE + t;
+  const int v = (r < a.cap && a.valid[r] != 0) ? 1 : 0;
+  int tile_total;
+  const int rank = block_exclusive_scan(v, tile_total);
+  if (v) s_row[rank] = r;
+
+  // the tile's base: decoupled look-back over the tiles before it (warp 0)
+  if (t < 32) {
+    volatile unsigned long long* status = a.status;
+    const unsigned long long tag = a.epoch << 34;
+    if (lane == 0) {
+      status[tile] = tag | ((tile == 0 ? RA_PREFIX : RA_AGG) << 32) |
+                     static_cast<unsigned>(tile_total);
+    }
+    long long base = 0;
+    int pos = tile - 1;
+    while (pos >= 0) {
+      const int idx = pos - lane;  // lane 0 the nearest
+      unsigned long long w = tag | (RA_PREFIX << 32);
+      if (idx >= 0) {
+        do {
+          w = status[idx];
+        } while ((w >> 34) != a.epoch);
+      }
+      const bool prefix = ((w >> 32) & RA_PREFIX) != 0;
+      const unsigned stops = __ballot_sync(0xffffffffu, prefix);
+      const int stop = stops ? __ffs(stops) - 1 : 32;
+      long long c = (lane <= stop && idx >= 0) ? (w & 0xffffffffull) : 0;
+      for (int o = 16; o > 0; o >>= 1) {
+        c += __shfl_xor_sync(0xffffffffu, c, o);
+      }
+      base += c;
+      if (stops) break;
+      pos -= 32;
+    }
+    if (lane == 0) {
+      if (tile > 0) {
+        status[tile] = tag | (RA_PREFIX << 32) |
+                       static_cast<unsigned>(base + tile_total);
+      }
+      s_base = static_cast<int>(base);
+    }
+  }
+  __syncthreads();
+
+  // the copy, plane by plane in words
+  const long long first = cur + s_base;
+  const long long mask = a.ring_size - 1;
+  const int* rows = s_row;
+  rw_copy_rows(
+      s_planes, tile_total, [rows](int i) { return rows[i]; },
+      [first, mask](int i) { return (first + i) & mask; }, t, RA_THREADS);
+
+  // the last block to finish advances the cursor and counts the lap
+  __syncthreads();
+  if (t == 0) {
+    __threadfence();
+    s_last = atomicAdd(&a.ctl[1], 1) == a.n_tiles - 1;
+  }
+  __syncthreads();
+  if (s_last && t == 0) {
+    __threadfence();
+    const volatile unsigned long long* status = a.status;
+    const long long n =
+        static_cast<long long>(status[a.n_tiles - 1] & 0xffffffffull);
+    const long long R = a.ring_size;
+    const long long lost_before = cur > R ? cur - R : 0;
+    const long long end = cur + n;
+    const long long lost_after = end > R ? end - R : 0;
+    *a.cursor = end;
+    *a.overflow += lost_after - lost_before;
+    a.ctl[0] = 0;
+    a.ctl[1] = 0;
   }
 }
 
-extern "C" int rw_ring_append(RwCols cols, const void* valid, int cap,
-                              void* cursor, void* overflow,
-                              long long ring_size, void* stream) {
-  ring_append_kernel<<<1, RA_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      cols, static_cast<const uint8_t*>(valid), cap,
-      static_cast<long long*>(cursor), static_cast<long long*>(overflow),
-      ring_size);
+extern "C" int rw_ring_append(RingArgs args, void* stream) {
+  if (args.n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  ring_append_kernel<<<args.n_tiles, RA_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,13 +18,13 @@
 //                         of every visible row moves in 16-, 8-, 4-, 2-
 //                         or 1-byte words (the widest that divides the
 //                         plane's row and both pointers, chosen by the
-//                         wrapper), plane-major so that a warp reads and
-//                         writes consecutive rows of one plane; block 0
+//                         wrapper; the word copy is rw_rowcopy.cuh's,
+//                         shared with K8-ring and K16), plane-major so
+//                         that a warp reads and writes consecutive rows
+//                         of one plane; block 0
 //                         writes cursor = meta[1] + meta[0].  Every block
 //                         reads the base from meta[1], never the cursor,
 //                         so the write does not race the reads.
-// Unlike K8-ring (compact.cu), which walks the chunk in one block and
-// copies a string byte by byte, the copy spreads over the whole card.
 // Any chunk capacity works (a 2^18-row backfill chunk as well as 8192).
 //
 // Bound: bytes.  The visible rows' planes are read once and written
@@ -34,6 +34,7 @@
 #include <cuda_runtime.h>
 
 #include "rw_compact.cuh"
+#include "rw_rowcopy.cuh"
 
 #define SINK_MAX_PLANES 33
 
@@ -70,12 +71,6 @@ sink_rank_kernel(const uint8_t* __restrict__ valid, int cap, int n_tiles,
   if (blockIdx.x == 0 && threadIdx.x == 0) meta[1] = *cursor;
 }
 
-template <typename W>
-__device__ __forceinline__ void copy_word(const void* src, void* dst,
-                                          long long from, long long to) {
-  static_cast<W*>(dst)[to] = static_cast<const W*>(src)[from];
-}
-
 __global__ void __launch_bounds__(SC_THREADS)
 sink_copy_kernel(SinkPlanes p, const int* __restrict__ idx,
                  const long long* __restrict__ meta, long long* cursor,
@@ -97,13 +92,7 @@ sink_copy_kernel(SinkPlanes p, const int* __restrict__ idx,
   const long long pos = (base + rank) & (ring_size - 1);
   const long long from = row * words + jj;
   const long long to = pos * words + jj;
-  switch (p.word_bytes[k]) {
-    case 16: copy_word<uint4>(p.src[k], p.dst[k], from, to); break;
-    case 8: copy_word<uint64_t>(p.src[k], p.dst[k], from, to); break;
-    case 4: copy_word<uint32_t>(p.src[k], p.dst[k], from, to); break;
-    case 2: copy_word<uint16_t>(p.src[k], p.dst[k], from, to); break;
-    default: copy_word<uint8_t>(p.src[k], p.dst[k], from, to); break;
-  }
+  rw_copy_word(p.src[k], p.dst[k], from, to, p.word_bytes[k]);
 }
 
 extern "C" int rw_sink_append(SinkPlanes p, const void* valid, int cap,

@@ -12,32 +12,63 @@
 //   - the surviving insert of rank r (row order) claims the r-th free slot
 //     (ascending) and writes every column and its hash there; the inserts
 //     past the last free slot are counted (`overflow`).
+// So per hash only counts matter on the delete side: with i inserts and d
+// deletes of h in the chunk, the first min(i, d) inserts drop, and the
+// first max(d - i, 0) valid slots of h (slot order) are cleared.  Only
+// three things need an order: the rank of an insert whose hash also has
+// deletes, the rank of a matching pool slot, and the ranks of the surviving
+// inserts and of the free slots.
 //
-// Design.  The reference builds a [cap, S] match matrix; here a chunk-sized
-// open-addressing table of the active rows' hashes (T >= 2 cap slots, keys
-// claimed by atomicCAS, all-ones = empty: K1 never returns it) holds each
-// hash's insert and delete counts.  Only three things need an order:
-//   - the rank of an insert whose hash also has deletes (the others never
-//     annihilate),
-//   - the rank of a matching pool slot among the valid slots of its hash,
-//   - the rank of an insert among the surviving inserts and of a free slot.
-// ONE block of 1024 threads walks rows (and pool slots) in tiles of 1024 in
-// order: a block scan compacts a tile's candidates into shared memory in
-// order, each candidate counts the earlier candidates of its table entry in
-// the tile and adds the entry's count from earlier tiles, and the counts
-// advance after a barrier.  Surviving deletes only need their count per
-// hash, so the pool pass runs only when one exists, and the free-slot scan
-// stops at the tile where the inserts are all placed.  A second, grid-wide
-// kernel copies the claimed rows' columns.  Nothing is read back to the
-// host; the counters are added on the device.
+// One cooperative launch (every block co-resident, grid.sync() between the
+// phases).  Each block owns a contiguous range of chunk rows and one of
+// pool slots, so a range's count, a scan of the blocks' counts and a block
+// scan per tile compact in order across the grid.
+//   P1  every block: whether its rows hold a valid delete (one flag for the
+//       grid), its valid inserts and its free slots (16 validity bytes a
+//       load).
+//   Without a delete (q19's, q18's and ow_bid's every chunk) no row
+//   annihilates and no slot is cleared: straight to P7.
+//   P2  rows into a chunk-sized open-addressing table of their hashes (T >=
+//       2 cap slots, keys claimed by atomicCAS, all-ones = empty: K1 never
+//       returns it) with each hash's insert and delete counts; the row that
+//       claims an entry represents it.
+//   P3  per block: the contested rows (an insert whose hash has deletes)
+//       and the other inserts, which survive.
+//   P4  the contested rows listed in row order; per block, the candidate
+//       slots (a valid slot whose hash has surviving deletes).
+//   P5  the candidate slots listed in slot order.
+//   P6  over the lists only: one block walks a list in tiles of NT items,
+//       each item ranked among the tile's earlier items of its entry plus
+//       the entry's running count in the table.  Block 0 keeps a contested
+//       insert iff its rank among its hash's contested inserts is at least
+//       the hash's deletes; the last block clears a candidate iff its rank
+//       among its hash's candidates is below the hash's surviving deletes,
+//       and gives the slot back to its block's free count.  A pool full of
+//       equal rows makes the candidate list as long as the pool, and the
+//       walk as long.
+//   P7  every block: the surviving inserts' ranks (row order) and the free
+//       slots' (slot order, only the first n_ins written); the missing
+//       deletes, per represented hash.
+//   P8  the claims: slot of rank r gets row of rank r, its hash and every
+//       plane of its columns in words (rw_rowcopy.cuh); the representatives
+//       put their table entries back at rest; the overflow counted.
+// The scratch stays allocated between calls (the wrapper keeps one set per
+// device and stream, sized for the largest chunk and pool so far), and the
+// table and the flag rest empty: each call restores what it touched.
+// Nothing is read back to the host; the counters are added on the device.
 //
-// Bound: bytes.  The chunk (cap x ~100 B) is read and written once; the
-// pool pass reads valid + hash of every slot (9 B/slot) only when a delete
-// survives; the free scan reads the first free slots' validity.  On the
-// append-only q19/q18 path that is ~1.6 MB per 8192-row chunk, under a
-// microsecond of HBM time: the one-block walk makes the kernel latency
-// bound, tens of microseconds.
+// Bound: bytes.  Every chunk row's flag read; a valid row's op, hash and
+// payload read; the pool's validity read (1 B a slot) for the free slots;
+// a delete's matched slot; an insert's claimed slot written (payload,
+// hash, flag).  With deletes, the pool's hashes of valid slots are read
+// too (P4, P5).
+#include <cooperative_groups.h>
+
 #include "rw_common.cuh"
+#include "rw_compact.cuh"
+#include "rw_rowcopy.cuh"
+
+namespace cg = cooperative_groups;
 
 struct PoolApplyArgs {
   RwCols cols;                 // in = chunk column leaves, st = pool stores
@@ -46,66 +77,53 @@ struct PoolApplyArgs {
   const uint8_t* valid;        // [cap]
   uint8_t* pvalid;             // [S] pool validity, in place
   uint64_t* phash;             // [S] pool row hash, in place
-  unsigned long long* tkey;    // [T] scratch: hash table keys
-  int* tins;                   // [T] scratch: inserts per hash
-  int* tdel;                   // [T] scratch: deletes per hash
-  int* tcnt;                   // [T] scratch: running rank per entry
-  int* rent;                   // [cap] scratch: row -> entry (-1: inactive)
-  int* rank;                   // [cap] scratch: survival flag, then rank
-  int* sor;                    // [cap] scratch: slot of free rank
-  int* tgt;                    // [cap] out: claimed slot (S: none)
+  unsigned long long* tkey;    // [T] scratch at rest: EMPTY_KEY
+  int* tcount;                 // [4 T] scratch at rest 0: ins, del, ranked
+                               // contested inserts, ranked candidates
+  int* rent;                   // [cap] row -> entry << 1 | represents
+  uint8_t* surv;               // [cap] surviving insert
+  int* list;                   // [cap] contested rows, row order
+  int* cand;                   // [S] candidate slots, slot order
+  int* ins_row;                // [cap] row of insert rank
+  int* sor;                    // [cap] slot of free rank
+  int* bcount;                 // [4 G] per block: inserts, contested,
+                               // candidates, free slots
+  int* ctl;                    // [1] any delete, at rest 0
   long long* overflow;         // [1] += inserts without a free slot
   long long* inconsistency;    // [1] += deletes without a pool row
   int cap;
   int S;
   int T;
+  int pv_aligned;              // pvalid is 16-byte aligned
 };
 
 static constexpr unsigned long long EMPTY_KEY = ~0ull;
-static constexpr int NT = 1024;
+static constexpr int NT = 512;
+// most blocks of the grid: the room of the per-block counts (bcount holds
+// 4 MAX_BLOCKS ints, top_n._POOL_MAX_BLOCKS); the card's co-resident
+// blocks bound the grid first
+static constexpr int MAX_BLOCKS = 4096;
 
 __device__ __forceinline__ bool is_insert_op(int8_t op) {
   return op == 0 || op == 3;  // Insert, UpdateInsert
 }
 
-// Exclusive block scan of one int per thread (all NT threads call it).
-__device__ int block_excl_scan(int v, int* s_warp, int* total) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) s_warp[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    int w = s_warp[lane];
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    s_warp[lane] = w;  // inclusive prefix of the warp totals
-  }
-  __syncthreads();
-  const int excl = x - v + (wid > 0 ? s_warp[wid - 1] : 0);
-  *total = s_warp[31];
-  __syncthreads();  // s_warp is reused by the next call
-  return excl;
-}
-
-__device__ int table_insert(unsigned long long* tkey, int T,
-                            unsigned long long h) {
+// The entry of h, claimed if it is new; *rep: this call claimed it.
+__device__ __forceinline__ int table_insert(unsigned long long* tkey, int T,
+                                            unsigned long long h, bool* rep) {
   int s = static_cast<int>(h & static_cast<unsigned long long>(T - 1));
   while (true) {
     const unsigned long long prev = atomicCAS(&tkey[s], EMPTY_KEY, h);
-    if (prev == EMPTY_KEY || prev == h) return s;
+    if (prev == EMPTY_KEY || prev == h) {
+      *rep = prev == EMPTY_KEY;
+      return s;
+    }
     s = (s + 1) & (T - 1);
   }
 }
 
-__device__ int table_find(const unsigned long long* tkey, int T,
-                          unsigned long long h) {
+__device__ __forceinline__ int table_find(const unsigned long long* tkey,
+                                          int T, unsigned long long h) {
   int s = static_cast<int>(h & static_cast<unsigned long long>(T - 1));
   while (true) {
     const unsigned long long k = tkey[s];
@@ -115,163 +133,387 @@ __device__ int table_find(const unsigned long long* tkey, int T,
   }
 }
 
-// Surviving deletes of an entry: the first min(ins, del) of each side
-// annihilate.
-__device__ __forceinline__ int surviving_deletes(const PoolApplyArgs& a,
-                                                 int e) {
-  return a.tdel[e] - min(a.tins[e], a.tdel[e]);
+struct Ranges {
+  int row_lo, row_hi;    // this block's chunk rows
+  int slot_lo, slot_hi;  // this block's pool slots
+};
+
+// Rows and slots a block owns: contiguous ranges, the slot ranges in
+// whole 16-byte words of validity.
+__device__ __forceinline__ int rows_per_block(const PoolApplyArgs& a,
+                                              int G) {
+  return (a.cap + G - 1) / G;
 }
 
-// Rank of this thread's candidate among the tile's earlier candidates of
-// the same entry (candidates compacted in order into s_ent).
+__device__ __forceinline__ int slots_per_block(const PoolApplyArgs& a,
+                                               int G) {
+  return (((a.S + G - 1) / G) + 15) & ~15;
+}
+
+__device__ __forceinline__ Ranges ranges_of(const PoolApplyArgs& a, int b,
+                                            int G) {
+  const int rows = rows_per_block(a, G);
+  const int slots = slots_per_block(a, G);
+  Ranges r;
+  r.row_lo = min(b * rows, a.cap);
+  r.row_hi = min(r.row_lo + rows, a.cap);
+  r.slot_lo = static_cast<int>(
+      min(static_cast<long long>(b) * slots, static_cast<long long>(a.S)));
+  r.slot_hi = min(r.slot_lo + slots, a.S);
+  return r;
+}
+
+// Free slots among the 16 starting at s (s a multiple of 16, below hi).
+__device__ __forceinline__ int free_in_word(const PoolApplyArgs& a, int s,
+                                            int hi, unsigned* bits) {
+  unsigned m = 0;
+  if (a.pv_aligned && s + 16 <= hi) {
+    const uint4 w = __ldcg(reinterpret_cast<const uint4*>(a.pvalid + s));
+    const unsigned q[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned z = __vcmpeq4(q[k], 0u);  // 0xff per free byte
+#pragma unroll
+      for (int j = 0; j < 4; ++j) m |= ((z >> (8 * j)) & 1u) << (4 * k + j);
+    }
+  } else {
+    for (int j = 0; j < 16 && s + j < hi; ++j) {
+      m |= (a.pvalid[s + j] == 0 ? 1u : 0u) << j;
+    }
+  }
+  *bits = m;
+  return __popc(m);
+}
+
+// Sum of `v` over the block, in every thread.
+__device__ __forceinline__ int block_sum(int v) {
+  int total;
+  block_exclusive_scan(v, total);
+  return total;
+}
+
+// Sums of block counts column `col` of bcount: the blocks before b, and all.
+__device__ __forceinline__ void count_base(const PoolApplyArgs& a, int col,
+                                          int b, int G, int* before,
+                                          int* all) {
+  int x = 0, y = 0;
+  const volatile int* c = a.bcount + static_cast<long long>(col) * G;
+  for (int i = threadIdx.x; i < G; i += NT) {
+    const int v = c[i];
+    y += v;
+    if (i < b) x += v;
+  }
+  *before = block_sum(x);
+  *all = block_sum(y);
+}
+
+// Rank of this thread's list item among the tile's earlier items of the
+// same entry (the tile's entries in s_ent, in order).
 __device__ __forceinline__ int tile_rank(const int* s_ent, int k, int e) {
   int before = 0;
   for (int j = 0; j < k; ++j) before += (s_ent[j] == e);
   return before;
 }
 
-__global__ void __launch_bounds__(NT) topn_pool_kernel(PoolApplyArgs a) {
-  __shared__ int s_warp[32];
-  __shared__ int s_ent[NT];
-  __shared__ unsigned long long s_miss;
-  const int t = threadIdx.x;
-  if (t == 0) s_miss = 0;
-  for (int j = t; j < a.T; j += NT) {
-    a.tkey[j] = EMPTY_KEY;
-    a.tins[j] = 0;
-    a.tdel[j] = 0;
-    a.tcnt[j] = 0;
-  }
-  __syncthreads();
-
-  // 1. table entries and per-hash insert/delete counts
-  for (int r = t; r < a.cap; r += NT) {
-    int e = -1;
-    if (a.valid[r]) {
-      e = table_insert(a.tkey, a.T, a.hash[r]);
-      atomicAdd(is_insert_op(a.ops[r]) ? &a.tins[e] : &a.tdel[e], 1);
-    }
-    a.rent[r] = e;
-  }
-  __syncthreads();
-
-  // 2. annihilation of inserts: rank among the equal-hash inserts
-  int total;
-  for (int base = 0; base < a.cap; base += NT) {
-    const int r = base + t;
-    const int e = r < a.cap ? a.rent[r] : -1;
-    const bool ins = e >= 0 && is_insert_op(a.ops[r]);
-    const bool contested = ins && a.tdel[e] > 0;
-    const int k = block_excl_scan(contested, s_warp, &total);
-    if (contested) s_ent[k] = e;
-    __syncthreads();
-    bool keep = ins;
-    if (contested) keep = a.tcnt[e] + tile_rank(s_ent, k, e) >= a.tdel[e];
-    __syncthreads();
-    if (contested) atomicAdd(&a.tcnt[e], 1);
-    if (r < a.cap) a.rank[r] = keep;
-    __syncthreads();
-  }
-  int any_del = 0;
-  for (int r = t; r < a.cap; r += NT) {
-    const int e = a.rent[r];
-    if (e >= 0 && !is_insert_op(a.ops[r]) && surviving_deletes(a, e) > 0) {
-      any_del = 1;
-    }
-  }
-  for (int j = t; j < a.T; j += NT) a.tcnt[j] = 0;
-  any_del = __syncthreads_or(any_del);
-
-  // 3. deletes: each hash clears its first valid pool slots (slot order)
-  if (any_del) {
-    for (int base = 0; base < a.S; base += NT) {
-      const int s = base + t;
-      int e = -1;
-      if (s < a.S && a.pvalid[s]) {
-        e = table_find(a.tkey, a.T, a.phash[s]);
-        if (e >= 0 && surviving_deletes(a, e) == 0) e = -1;
-      }
-      const bool cand = e >= 0;
-      const int k = block_excl_scan(cand, s_warp, &total);
-      if (cand) s_ent[k] = e;
-      __syncthreads();
-      bool clear = false;
-      if (cand) {
-        clear = a.tcnt[e] + tile_rank(s_ent, k, e) < surviving_deletes(a, e);
-      }
-      __syncthreads();
-      if (cand) {
-        atomicAdd(&a.tcnt[e], 1);
-        if (clear) a.pvalid[s] = 0;
-      }
-      __syncthreads();
-    }
-    unsigned long long miss = 0;
-    for (int j = t; j < a.T; j += NT) {
-      if (a.tkey[j] != EMPTY_KEY) {
-        miss += static_cast<unsigned long long>(
-            max(0, surviving_deletes(a, j) - a.tcnt[j]));
-      }
-    }
-    if (miss) atomicAdd(&s_miss, miss);
-  }
-
-  // 4. rank of each surviving insert in row order
-  int n_ins = 0;
-  for (int base = 0; base < a.cap; base += NT) {
-    const int r = base + t;
-    const int keep = r < a.cap ? a.rank[r] : 0;
-    const int k = block_excl_scan(keep, s_warp, &total);
-    if (r < a.cap) a.rank[r] = keep ? n_ins + k : -1;
-    n_ins += total;
-  }
-
-  // 5. the first n_ins free slots, ascending (after the deletes)
-  int found = 0;
-  for (int base = 0; base < a.S && found < n_ins; base += NT) {
-    const int s = base + t;
-    const int fr = s < a.S && !a.pvalid[s];
-    const int k = block_excl_scan(fr, s_warp, &total);
-    if (fr && found + k < n_ins) a.sor[found + k] = s;
-    found += total;
-  }
-  __syncthreads();
-  const int placed = min(found, n_ins);
-
-  // 6. claims
-  for (int r = t; r < a.cap; r += NT) {
-    const int rk = a.rank[r];
-    int slot = a.S;
-    if (rk >= 0 && rk < placed) {
-      slot = a.sor[rk];
-      a.pvalid[slot] = 1;
-      a.phash[slot] = a.hash[r];
-    }
-    a.tgt[r] = slot;
-  }
-  __syncthreads();
-  if (t == 0) {
-    a.overflow[0] += static_cast<long long>(n_ins - placed);
-    a.inconsistency[0] += static_cast<long long>(s_miss);
-  }
+__device__ __forceinline__ int surviving_deletes(const int* tins,
+                                                 const int* tdel, int e) {
+  return tdel[e] - min(tins[e], tdel[e]);
 }
 
-// Copy every column of each claimed row into its pool slot.
-__global__ void topn_pool_write_kernel(RwCols cols, const int* tgt, int cap,
-                                       int S) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= cap) return;
-  const int slot = tgt[r];
-  if (slot < S) rw_store_row(cols, slot, r);
+__global__ void __launch_bounds__(NT) topn_pool_grid(PoolApplyArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int s_ent[NT];
+  __shared__ RwPlanes s_planes;
+  const int t = threadIdx.x;
+  const int b = blockIdx.x;
+  const int G = gridDim.x;
+  const Ranges rg = ranges_of(a, b, G);
+  int* tins = a.tcount;
+  int* tdel = a.tcount + a.T;
+  int* tcon = a.tcount + 2 * a.T;
+  int* tmat = a.tcount + 3 * a.T;
+  int* b_ins = a.bcount;
+  int* b_con = a.bcount + G;
+  int* b_cand = a.bcount + 2 * G;
+  int* b_free = a.bcount + 3 * G;
+  if (t == 0) rw_planes_of(a.cols, s_planes);
+
+  // -- P1: a delete anywhere?  the block's inserts and free slots ---------
+  int has_del = 0, n_ins = 0, n_free = 0;
+  for (int r = rg.row_lo + t; r < rg.row_hi; r += NT) {
+    if (a.valid[r]) {
+      if (is_insert_op(a.ops[r])) {
+        ++n_ins;
+      } else {
+        has_del = 1;
+      }
+    }
+  }
+  for (int s = rg.slot_lo + 16 * t; s < rg.slot_hi; s += 16 * NT) {
+    unsigned bits;
+    n_free += free_in_word(a, s, rg.slot_hi, &bits);
+  }
+  has_del = __syncthreads_or(has_del);
+  n_ins = block_sum(n_ins);
+  n_free = block_sum(n_free);
+  if (t == 0) {
+    b_ins[b] = n_ins;
+    b_free[b] = n_free;
+    if (has_del) atomicExch(&a.ctl[0], 1);
+  }
+  grid.sync();
+  const bool any_del = *reinterpret_cast<volatile int*>(a.ctl) != 0;
+
+  if (any_del) {
+    // -- P2: the rows' hashes into the table, with their counts ----------
+    for (int r = b * NT + t; r < a.cap; r += G * NT) {
+      int e = -1;
+      if (a.valid[r]) {
+        bool rep;
+        e = table_insert(a.tkey, a.T, a.hash[r], &rep);
+        atomicAdd(is_insert_op(a.ops[r]) ? &tins[e] : &tdel[e], 1);
+        e = e << 1 | (rep ? 1 : 0);
+      }
+      a.rent[r] = e;
+    }
+    grid.sync();
+    // -- P3: contested inserts; the others survive -----------------------
+    int n_con = 0, n_free_ins = 0;
+    for (int r = rg.row_lo + t; r < rg.row_hi; r += NT) {
+      const int e = a.rent[r];
+      bool keep = false;
+      if (e >= 0 && is_insert_op(a.ops[r])) {
+        if (tdel[e >> 1] > 0) {
+          ++n_con;
+        } else {
+          keep = true;
+          ++n_free_ins;
+        }
+      }
+      a.surv[r] = keep;
+    }
+    n_con = block_sum(n_con);
+    n_free_ins = block_sum(n_free_ins);
+    if (t == 0) {
+      b_con[b] = n_con;
+      b_ins[b] = n_free_ins;
+    }
+    grid.sync();
+    // -- P4: the contested list (row order); candidate slots per block ---
+    {
+      int base, total;
+      count_base(a, 1, b, G, &base, &total);
+      for (int r0 = rg.row_lo; r0 < rg.row_hi; r0 += NT) {
+        const int r = r0 + t;
+        int e = -1;
+        if (r < rg.row_hi) e = a.rent[r];
+        const int c = (e >= 0 && is_insert_op(a.ops[r]) && tdel[e >> 1] > 0)
+                          ? 1 : 0;
+        int tile_total;
+        const int k = block_exclusive_scan(c, tile_total);
+        if (c) a.list[base + k] = r;
+        base += tile_total;
+      }
+    }
+    int n_cand = 0;
+    for (int s = rg.slot_lo + t; s < rg.slot_hi; s += NT) {
+      if (a.pvalid[s]) {
+        const int e = table_find(a.tkey, a.T, a.phash[s]);
+        n_cand += e >= 0 && surviving_deletes(tins, tdel, e) > 0;
+      }
+    }
+    n_cand = block_sum(n_cand);
+    if (t == 0) b_cand[b] = n_cand;
+    grid.sync();
+    // -- P5: the candidate list (slot order) -----------------------------
+    {
+      int base, total;
+      count_base(a, 2, b, G, &base, &total);
+      for (int s0 = rg.slot_lo; s0 < rg.slot_hi && total > 0; s0 += NT) {
+        const int s = s0 + t;
+        int c = 0;
+        if (s < rg.slot_hi && a.pvalid[s]) {
+          const int e = table_find(a.tkey, a.T, a.phash[s]);
+          c = e >= 0 && surviving_deletes(tins, tdel, e) > 0;
+        }
+        int tile_total;
+        const int k = block_exclusive_scan(c, tile_total);
+        if (c) a.cand[base + k] = s;
+        base += tile_total;
+      }
+    }
+    grid.sync();
+    // -- P6: ranks over the lists only -----------------------------------
+    if (b == 0) {
+      // contested inserts: keep iff the hash's earlier contested inserts
+      // number at least its deletes
+      int base, total;
+      count_base(a, 1, b, G, &base, &total);
+      for (int i0 = 0; i0 < total; i0 += NT) {
+        const int i = i0 + t;
+        const int r = i < total ? a.list[i] : -1;
+        const int e = r >= 0 ? a.rent[r] >> 1 : -1;
+        if (r >= 0) s_ent[t] = e;
+        __syncthreads();
+        bool keep = false;
+        if (r >= 0) keep = tcon[e] + tile_rank(s_ent, t, e) >= tdel[e];
+        __syncthreads();
+        if (r >= 0) {
+          atomicAdd(&tcon[e], 1);
+          if (keep) {
+            a.surv[r] = 1;
+            atomicAdd(&b_ins[r / rows_per_block(a, G)], 1);
+          }
+        }
+        __syncthreads();
+      }
+    }
+    if (b == G - 1) {
+      // candidate slots: clear iff the hash's earlier candidates number
+      // fewer than its surviving deletes
+      int base, total;
+      count_base(a, 2, b, G, &base, &total);
+      for (int i0 = 0; i0 < total; i0 += NT) {
+        const int i = i0 + t;
+        const int s = i < total ? a.cand[i] : -1;
+        const int e = s >= 0 ? table_find(a.tkey, a.T, a.phash[s]) : -1;
+        if (s >= 0) s_ent[t] = e;
+        __syncthreads();
+        bool clear = false;
+        if (s >= 0) {
+          clear = tmat[e] + tile_rank(s_ent, t, e) <
+                  surviving_deletes(tins, tdel, e);
+        }
+        __syncthreads();
+        if (s >= 0) {
+          atomicAdd(&tmat[e], 1);
+          if (clear) {
+            a.pvalid[s] = 0;
+            atomicAdd(&b_free[s / slots_per_block(a, G)], 1);
+          }
+        }
+        __syncthreads();
+      }
+    }
+    grid.sync();
+  }
+
+  // -- P7: the surviving inserts' ranks and the first free slots ---------
+  int n_ins_all, n_free_all;
+  {
+    int base;
+    count_base(a, 0, b, G, &base, &n_ins_all);
+    for (int r0 = rg.row_lo; r0 < rg.row_hi; r0 += NT) {
+      const int r = r0 + t;
+      int c = 0;
+      if (r < rg.row_hi) {
+        c = any_del ? a.surv[r]
+                    : (a.valid[r] != 0 && is_insert_op(a.ops[r]));
+      }
+      int tile_total;
+      const int k = block_exclusive_scan(c, tile_total);
+      if (c) a.ins_row[base + k] = r;
+      base += tile_total;
+    }
+  }
+  {
+    int base;
+    count_base(a, 3, b, G, &base, &n_free_all);
+    for (int s0 = rg.slot_lo; s0 < rg.slot_hi && base < n_ins_all;
+         s0 += 16 * NT) {
+      const int s = s0 + 16 * t;
+      unsigned bits = 0;
+      const int c = s < rg.slot_hi ? free_in_word(a, s, rg.slot_hi, &bits)
+                                   : 0;
+      int tile_total;
+      int k = base + block_exclusive_scan(c, tile_total);
+      while (bits && k < n_ins_all) {
+        const int j = __ffs(bits) - 1;
+        bits &= bits - 1;
+        a.sor[k++] = s + j;
+      }
+      base += tile_total;
+    }
+  }
+  if (any_del) {
+    // deletes that found no slot, once per hash (its representative row)
+    long long miss = 0;
+    for (int r = b * NT + t; r < a.cap; r += G * NT) {
+      const int e = a.rent[r];
+      if (e >= 0 && (e & 1)) {
+        const int sd = surviving_deletes(tins, tdel, e >> 1);
+        miss += max(0, sd - tmat[e >> 1]);
+      }
+    }
+    const int m = block_sum(static_cast<int>(miss));
+    if (t == 0 && m) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.inconsistency),
+                static_cast<unsigned long long>(m));
+    }
+  }
+  grid.sync();
+
+  // -- P8: the claims and the row copy -----------------------------------
+  const int placed = min(n_ins_all, n_free_all);
+  const unsigned gt = static_cast<unsigned>(b) * NT + t;
+  const unsigned gn = static_cast<unsigned>(G) * NT;
+  for (int i = static_cast<int>(gt); i < placed; i += static_cast<int>(gn)) {
+    const int slot = a.sor[i];
+    a.pvalid[slot] = 1;
+    a.phash[slot] = a.hash[a.ins_row[i]];
+  }
+  const int* ins_row = a.ins_row;
+  const int* sor = a.sor;
+  rw_copy_rows(
+      s_planes, placed, [ins_row](int i) { return ins_row[i]; },
+      [sor](int i) { return sor[i]; }, gt, gn);
+  if (any_del) {
+    for (int r = static_cast<int>(gt); r < a.cap; r += static_cast<int>(gn)) {
+      const int e = a.rent[r];
+      if (e >= 0 && (e & 1)) {
+        const int x = e >> 1;
+        a.tkey[x] = EMPTY_KEY;
+        tins[x] = 0;
+        tdel[x] = 0;
+        tcon[x] = 0;
+        tmat[x] = 0;
+      }
+    }
+  }
+  if (gt == 0) {
+    a.overflow[0] += static_cast<long long>(n_ins_all - placed);
+    a.ctl[0] = 0;
+  }
 }
 
 extern "C" int rw_topn_pool_apply(PoolApplyArgs args, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  topn_pool_kernel<<<1, NT, 0, s>>>(args);
-  if (args.cap > 0) {
-    const int threads = 256;
-    topn_pool_write_kernel<<<(args.cap + threads - 1) / threads, threads, 0,
-                             s>>>(args.cols, args.tgt, args.cap, args.S);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the grid: every block co-resident (the most per card found once), no
+  // more blocks than the rows and the pool's validity words need, and at
+  // least two (P6 runs its two walks on the first and the last)
+  static int most_of[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& most = most_of[dev & 63];
+  if (most == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, topn_pool_grid,
+                                                  NT, 0);
+    if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    most = sms * per_sm;
   }
+  const long long by_rows = (static_cast<long long>(args.cap) + NT - 1) / NT;
+  const long long by_slots =
+      (static_cast<long long>(args.S) + 16 * NT - 1) / (16 * NT);
+  long long need = by_rows > by_slots ? by_rows : by_slots;
+  if (need > most) need = most;
+  if (need > MAX_BLOCKS) need = MAX_BLOCKS;
+  const int blocks = static_cast<int>(need < 2 ? 2 : need);
+  void* params[] = {&args};
+  cudaError_t rc = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(topn_pool_grid), dim3(blocks), dim3(NT), params,
+      0, s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,7 +49,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 HEADERS = ("rw_common.cuh", "rw_join.cuh", "nexmark_common.cuh",
            "rw_str.cuh", "rw_cal.cuh", "rw_probe.cuh", "rw_bucket.cuh",
-           "rw_compact.cuh", "rw_claim.cuh")
+           "rw_compact.cuh", "rw_claim.cuh", "rw_rowcopy.cuh")
 #: library name -> source file
 SOURCES = {
     "hash64": "hash64.cu",

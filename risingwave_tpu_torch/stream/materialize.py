@@ -8,7 +8,8 @@ Port of ``risingwave_tpu/stream/materialize.py``:
   wins per pk.
 - ``AppendOnlyMaterialize`` (:201-266): a ring of rows + a cursor for
   pk-less append-only MVs.  On the card a chunk appends in one launch of
-  kernel K8-ring (``csrc/compact.cu``, ``rw_ring_append``).
+  kernel K8-ring (``csrc/compact.cu``, ``rw_ring_append``): a grid of
+  row tiles, each taking its base by decoupled look-back.
 
 MV state is updated IN PLACE (table, value stores, ring): a chunk never
 copies a table-sized tensor.
@@ -294,20 +295,63 @@ def ring_append_plain(values: tuple, cursor: torch.Tensor,
     cursor.add_(n)
 
 
+#: rows a tile of K8-ring (``RA_TILE`` in ``csrc/compact.cu``)
+_RING_TILE = 256
+#: the status words carry the epoch in their top 30 bits
+_RING_EPOCHS = 1 << 30
+#: K8-ring's look-back scratch per (device, stream): [status words,
+#: control words, epoch]
+_RING_SCRATCH: dict = {}
+
+
+class _RingArgs(ctypes.Structure):
+    """Mirror of ``struct RingArgs`` in ``csrc/compact.cu``."""
+
+    _fields_ = [
+        ("cols", kernels.RwCols), ("valid", ctypes.c_void_p),
+        ("cursor", ctypes.c_void_p), ("overflow", ctypes.c_void_p),
+        ("status", ctypes.c_void_p), ("ctl", ctypes.c_void_p),
+        ("epoch", ctypes.c_ulonglong), ("ring_size", ctypes.c_longlong),
+        ("cap", ctypes.c_int), ("n_tiles", ctypes.c_int),
+    ]
+
+
+def _ring_scratch(dev: torch.device, tiles: int):
+    """K8-ring's status words for ``tiles`` tiles, its two tickets (at
+    rest at 0) and this call's epoch; the words are zeroed only when
+    they grow or the epoch wraps."""
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    key = (dev, kernels.stream_ptr(dev))
+    e = _RING_SCRATCH.get(key)
+    if e is None or e[0].numel() < tiles or e[2] + 1 >= _RING_EPOCHS:
+        size = 1 << max(tiles - 1, 0).bit_length()
+        if e is not None:
+            size = max(size, e[0].numel())
+        e = [torch.zeros(size, dtype=torch.int64, device=dev),
+             torch.zeros(2, dtype=torch.int32, device=dev), 0]
+        _RING_SCRATCH[key] = e
+    e[2] += 1
+    return e[0], e[1], e[2]
+
+
 def ring_append_cuda(values: tuple, cursor: torch.Tensor,
                      overflow: torch.Tensor, chunk: Chunk,
                      ring_size: int) -> None:
     """Kernel K8-ring (``csrc/compact.cu``): one launch, in place."""
-    cols = kernels.RwCols()
+    args = _RingArgs()
+    cols = args.cols
     keep = []
     k = 0
     for store, col in zip(values, chunk.columns):
-        for (sd, sn), (d, n) in zip(value_leaves(store), value_leaves(col)):
+        leaves = zip(value_leaves(store), value_leaves(col))
+        for j, ((sd, sn), (d, n)) in enumerate(leaves):
             if k >= kernels.MAX_COLS:
                 raise ValueError(f"more than {kernels.MAX_COLS} value leaves")
             d = d.contiguous()
-            nu8 = None if n is None else n.contiguous().view(torch.uint8)
-            snu8 = None if sn is None else sn.view(torch.uint8)
+            # a string's null plane moves once, with its bytes
+            nu8 = None if n is None or j else n.contiguous().view(torch.uint8)
+            snu8 = None if sn is None or j else sn.view(torch.uint8)
             keep += [t for t in (sd, d, nu8, snu8) if t is not None]
             cols.width[k] = d.element_size() * (d.shape[1] if d.dim() > 1
                                                 else 1)
@@ -318,13 +362,19 @@ def ring_append_cuda(values: tuple, cursor: torch.Tensor,
     cols.n = k
     valid_u8 = chunk.valid.contiguous().view(torch.uint8)
     kernels.require_cuda("ring_append", valid_u8, cursor, overflow, *keep)
-    fn = kernels.entry("ring_append", "rw_ring_append", [
-        kernels.RwCols, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    tiles = max(1, -(-chunk.capacity // _RING_TILE))
+    status, ctl, epoch = _ring_scratch(valid_u8.device, tiles)
+    args.valid = valid_u8.data_ptr()
+    args.cursor, args.overflow = cursor.data_ptr(), overflow.data_ptr()
+    args.status, args.ctl, args.epoch = (status.data_ptr(), ctl.data_ptr(),
+                                         epoch)
+    args.ring_size, args.cap, args.n_tiles = (ring_size, chunk.capacity,
+                                              tiles)
+    fn = kernels.entry("ring_append", "rw_ring_append",
+                       [_RingArgs, ctypes.c_void_p])
     kernels.count_launch("ring_append")
-    kernels.check(fn(cols, valid_u8.data_ptr(), chunk.capacity,
-                     cursor.data_ptr(), overflow.data_ptr(), ring_size,
-                     kernels.stream_ptr(valid_u8.device)), "ring_append")
+    kernels.check(fn(args, kernels.stream_ptr(valid_u8.device)),
+                  "ring_append")
 
 
 def ring_append(values: tuple, cursor: torch.Tensor, overflow: torch.Tensor,

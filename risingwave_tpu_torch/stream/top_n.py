@@ -32,10 +32,12 @@ the counters; ``flush`` replaces the emitted-band tensors.
 On the card:
 
 - K16 ``topn_pool`` (``csrc/topn_pool.cu``) is ``pool_apply`` after K1's
-  row hash: one block ranks the annihilations and the deletes through a
-  chunk-sized hash table of row hashes (no ``[cap, pool]`` match
-  matrix), finds the free slots and claims them; a grid-wide pass
-  writes the claimed rows.  Both counters stay on the card.
+  row hash: one cooperative launch.  A chunk without a delete ranks its
+  inserts and compacts the pool's first free slots on the grid and
+  writes the claimed rows; with deletes, a chunk-sized hash table of row
+  hashes (no ``[cap, pool]`` match matrix) counts each hash's inserts and
+  deletes, and the order-dependent ranks run over lists of the contested
+  rows and the candidate slots only.  Both counters stay on the card.
 - K17 ``topn_band`` (``csrc/topn_band.cu``) is ``_band_mask``: one
   launch encodes the order keys and the group hash (K1's device
   function), the stable sorts stay ``torch.sort``, and one launch ranks
@@ -262,13 +264,52 @@ class _PoolArgs(ctypes.Structure):
         ("hash", ctypes.c_void_p), ("ops", ctypes.c_void_p),
         ("valid", ctypes.c_void_p), ("pvalid", ctypes.c_void_p),
         ("phash", ctypes.c_void_p), ("tkey", ctypes.c_void_p),
-        ("tins", ctypes.c_void_p), ("tdel", ctypes.c_void_p),
-        ("tcnt", ctypes.c_void_p), ("rent", ctypes.c_void_p),
-        ("rank", ctypes.c_void_p), ("sor", ctypes.c_void_p),
-        ("tgt", ctypes.c_void_p), ("overflow", ctypes.c_void_p),
+        ("tcount", ctypes.c_void_p), ("rent", ctypes.c_void_p),
+        ("surv", ctypes.c_void_p), ("list", ctypes.c_void_p),
+        ("cand", ctypes.c_void_p), ("ins_row", ctypes.c_void_p),
+        ("sor", ctypes.c_void_p), ("bcount", ctypes.c_void_p),
+        ("ctl", ctypes.c_void_p), ("overflow", ctypes.c_void_p),
         ("inconsistency", ctypes.c_void_p),
         ("cap", ctypes.c_int), ("S", ctypes.c_int), ("T", ctypes.c_int),
+        ("pv_aligned", ctypes.c_int),
     ]
+
+
+#: most blocks K16's cooperative grid may hold (``MAX_BLOCKS`` in
+#: ``csrc/topn_pool.cu``: the per-block counts' room)
+_POOL_MAX_BLOCKS = 4096
+#: K16's scratch per (device, stream): {name: tensor}, sized for the
+#: largest chunk and pool so far
+_POOL_SCRATCH: dict = {}
+
+
+def _pool_scratch(dev: torch.device, cap: int, S: int) -> dict:
+    """K16's scratch for a ``cap``-row chunk into an ``S``-slot pool: the
+    hash table (``T >= 2 cap`` entries) and the flag at rest (empty, 0),
+    the row and slot lists, the per-block counts."""
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    key = (dev, kernels.stream_ptr(dev))
+    e = _POOL_SCRATCH.get(key)
+    if e is None or e["rent"].numel() < cap or e["cand"].numel() < S:
+        c = 1 << max(cap - 1, 0).bit_length()
+        if e is not None:
+            c = max(c, e["rent"].numel())
+            S = max(S, e["cand"].numel())
+        T = max(1024, 2 * c)
+        i32 = dict(dtype=torch.int32, device=dev)
+        e = {"tkey": torch.full((T,), -1, dtype=torch.int64, device=dev),
+             "tcount": torch.zeros(4 * T, **i32),
+             "rent": torch.empty(c, **i32),
+             "surv": torch.empty(c, dtype=torch.uint8, device=dev),
+             "list": torch.empty(c, **i32),
+             "cand": torch.empty(max(S, 1), **i32),
+             "ins_row": torch.empty(c, **i32),
+             "sor": torch.empty(c, **i32),
+             "bcount": torch.empty(4 * _POOL_MAX_BLOCKS, **i32),
+             "ctl": torch.zeros(1, **i32)}
+        _POOL_SCRATCH[key] = e
+    return e
 
 
 def pool_apply_cuda(rows: tuple, valid: torch.Tensor,
@@ -296,30 +337,22 @@ def pool_apply_cuda(rows: tuple, valid: torch.Tensor,
             cols.in_data[k], cols.st_data[k] = d.data_ptr(), sd.data_ptr()
             k += 1
     cols.n = k
-    T = 1 << max(10, (2 * cap - 1).bit_length())
-    i32 = dict(dtype=torch.int32, device=dev)
-    tkey = torch.empty(T, dtype=torch.int64, device=dev)
-    tcounts = torch.empty((3, T), **i32)
-    scratch = torch.empty((4, cap), **i32)
+    sc = _pool_scratch(dev, cap, S)
     valid_u8 = chunk.valid.contiguous().view(torch.uint8)
     ops = chunk.ops.contiguous()
     pvalid = valid.view(torch.uint8)
     kernels.require_cuda("topn_pool", row_hash, ops, valid_u8, pvalid,
-                         row_hash_store, tkey, tcounts, scratch, overflow,
-                         inconsistency, *keep)
+                         row_hash_store, overflow, inconsistency,
+                         *sc.values(), *keep)
     args.hash, args.ops, args.valid = (row_hash.data_ptr(), ops.data_ptr(),
                                        valid_u8.data_ptr())
     args.pvalid, args.phash = pvalid.data_ptr(), row_hash_store.data_ptr()
-    args.tkey = tkey.data_ptr()
-    args.tins, args.tdel, args.tcnt = (tcounts[0].data_ptr(),
-                                       tcounts[1].data_ptr(),
-                                       tcounts[2].data_ptr())
-    args.rent, args.rank, args.sor, args.tgt = (
-        scratch[0].data_ptr(), scratch[1].data_ptr(), scratch[2].data_ptr(),
-        scratch[3].data_ptr())
+    for name, t in sc.items():
+        setattr(args, name, t.data_ptr())
     args.overflow = overflow.data_ptr()
     args.inconsistency = inconsistency.data_ptr()
-    args.cap, args.S, args.T = cap, S, T
+    args.cap, args.S, args.T = cap, S, sc["tkey"].numel()
+    args.pv_aligned = int(pvalid.data_ptr() % 16 == 0)
     fn = kernels.entry("topn_pool", "rw_topn_pool_apply",
                        [_PoolArgs, ctypes.c_void_p])
     kernels.count_launch("topn_pool")

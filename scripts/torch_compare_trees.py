@@ -1,21 +1,39 @@
-"""Time K5 and K12 ranked, and the q5-sharded and q8 paths, of one
-checkout of the PyTorch port on the card.
+"""Time kernels and paths of one checkout of the PyTorch port on the card.
 
-    python3 scripts/torch_compare_trees.py ROOT [--paths]
+    python3 scripts/torch_compare_trees.py ROOT [--only K,...] [--paths]
+        [--main Q,...] [--launches Q,...]
 
 ROOT is the root of a checkout (its ``chip_smoke.py`` and
 ``risingwave_tpu_torch`` are imported from there, its kernels built under
 ROOT/build/kernels).  To compare two commits on one card, unpack the other
 one with ``git archive`` into a directory that ``.gitignore`` lists and run
 this in turns from both, in one call: parent, change, change, parent.
-Kernel times are device times (CUDA events over calls queued behind a
-sleep); ``--paths`` adds chip_smoke's q5-sharded and q8 main paths of
-ROOT (their rows/s and profiled windows).  Prints one ``[compare]`` JSON
-line; needs a card.
+The timed kernels (all by default, or those ``--only`` names):
+  k5    K5 at the pane agg's chunk and q5 sharded's lane;
+  k12   K12 ranked on a bench-size q8 engine's auction side;
+  k8    K8-ring at q1's (4 int64) and q22's (176 B string rows) shapes;
+  k16   K16 at q19's shape (a bench-size q19 engine's next 8 chunks) and
+        at ow_bid's (8192 bids into a 2^22 pool with 2,818,048 live).
+The K8 and K16 shapes are built by this script's own checkout's
+``chip_smoke.py`` (``ring_shape``, ``k16_ow_bid_shape``) over ROOT's
+port, so an older ROOT gets the same inputs.  Kernel times are device
+times (CUDA events over calls queued behind a sleep); ``--paths`` adds
+chip_smoke's q5-sharded and q8 main paths of ROOT (their rows/s and
+profiled windows); ``--main Q[,Q...]`` adds chip_smoke's main path of
+each query Q of ROOT (q1, q5, q7, q19, q18, q6_bid, ow_bid, q22, q10, q21:
+rows/s, launches and the profiled window); ``--launches Q[,Q...]`` adds,
+for each of the string,
+top-N and window queries Q (q22, q10, q21, q19, q18, q6_bid, ow_bid), the
+CUDA kernels launched in a profiled window of 2 barriers x 8 chunks after
+chip_smoke's warm-up, by name, on ROOT.  Prints one ``[compare]`` JSON line
+(and one ``[launches]`` line per query); needs a card.
 """
 
+import importlib.util
 import json
 import sys
+import time
+from pathlib import Path
 
 root = sys.argv[1]
 sys.path.insert(0, root)
@@ -28,17 +46,33 @@ from risingwave_tpu_torch.common.hash import hash64_columns  # noqa: E402
 from risingwave_tpu_torch.common.tree import tree_map  # noqa: E402
 from risingwave_tpu_torch.stream import hash_agg as ha  # noqa: E402
 from risingwave_tpu_torch.stream import hash_join as hj  # noqa: E402
+from risingwave_tpu_torch.stream import materialize as mat  # noqa: E402
+from risingwave_tpu_torch.stream import top_n  # noqa: E402
+
+# this checkout's chip_smoke: the K8 and K16 shapes, over ROOT's port
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke_here", Path(__file__).resolve().parent.parent /
+    "chip_smoke.py")
+here = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(here)
+
+
+#: host milliseconds a call took to enqueue, by the last ``timed`` call
+HOST_MS = [0.0]
 
 
 def timed(fn, iters: int) -> float:
-    """Device ms a call of ``fn(i)`` over ``iters`` calls."""
+    """Device ms a call of ``fn(i)`` over ``iters`` calls (the host's
+    enqueue time a call goes to ``HOST_MS[0]``)."""
     fn(iters)
     torch.cuda.synchronize()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda._sleep(int(min(iters * 1.0, 200.0) * cs.CYCLES_PER_MS))
     e0.record()
+    t0 = time.perf_counter()
     for i in range(iters):
         fn(i)
+    HOST_MS[0] = (time.perf_counter() - t0) * 1e3 / iters
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
@@ -107,23 +141,105 @@ def k12_q8(dev):
     return js.right, h, cr, is_ins
 
 
+def k8_times(dev, out):
+    """K8-ring at q1's and q22's shapes into the 2^23 ring."""
+    ring, cap = 1 << 23, 8192
+    for tag, fields in (("q1", here.Q1_RING_FIELDS),
+                        ("q22", here.Q22_RING_FIELDS)):
+        st, chunk = here.ring_shape(torch, dev, fields, cap, ring, 7)
+        out[f"k8_{tag}_ms"] = timed(
+            lambda i: mat.ring_append(*st, chunk, ring), 200)
+        out[f"k8_{tag}_host_ms"] = HOST_MS[0]
+
+
+def k16_times(dev, out):
+    """K16 at q19's shape (the TopN state of a bench-size q19 engine
+    after 9 barriers and its next 8 chunks) and at ow_bid's."""
+    eng = cs._topn_engine(torch, dev, 1, "q19", cs.WARMUP_BARRIERS)
+    ti = cs._topn_index(eng)
+    S = eng.jobs[0].fragment.executors[ti].pool_size
+    base = eng.jobs[0].states[ti]
+    chunks = cs._topn_inputs(torch, eng, cs.CHUNKS_PER_BARRIER)
+    t = tree_map(torch.clone, base)
+    out["k16_q19_ms"] = timed(lambda i: top_n.pool_apply_cuda(
+        t.rows, t.valid, t.row_hash, chunks[i % len(chunks)], S, t.overflow,
+        t.inconsistency), 8)
+    del eng, base, t
+    pool, chunk, S, live = here.k16_ow_bid_shape(torch, dev, 1)
+
+    def run(i):
+        pool[1][live:].zero_()
+        top_n.pool_apply_cuda(*pool[:3], chunk, S, *pool[3:])
+
+    out["k16_ow_bid_ms"] = timed(run, 20)
+
+
+def launches_by_kernel(dev, query: str) -> dict:
+    """{kernel name: launches} over a profiled window of ``query`` (2
+    barriers x 8 chunks after the warm-up barriers), and the total."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if query in cs.STRING_QUERIES:
+        eng = cs._string_engine(torch, dev, 1, query, cs.WARMUP_BARRIERS)
+    elif query in cs.TOPN_QUERIES:
+        eng = cs._topn_engine(torch, dev, 1, query, cs.WARMUP_BARRIERS)
+    else:
+        eng = cs._window_engine(torch, dev, 1, query, cs.WARMUP_BARRIERS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.tick(barriers=2, chunks_per_barrier=cs.CHUNKS_PER_BARRIER)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            name = cs.kernel_name(e.key).split("(")[0][:80]
+            out[name] = out.get(name, 0) + e.count
+    return {"total": sum(out.values()), "by_kernel": out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_compare_trees: no card", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    only = None
+    if "--only" in sys.argv:
+        only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     out = {"tree": root, "card": torch.cuda.get_device_name(0)}
-    pane, lane = k5_pane(dev), k5_lane(dev)
-    out["k5_pane_ms"] = timed(lambda i: ha.agg_preagg_cuda(*pane), 200)
-    out["k5_lane_ms"] = timed(lambda i: ha.agg_preagg_cuda(*lane), 20)
-    side, h, cr, is_ins = k12_q8(dev)
-    tables = [side.table.clone() for _ in range(21)]
-    out["k12_ranked_ms"] = timed(lambda i: tables[i].lookup_or_insert_ranked(
-        h, cr, side.count, is_ins), 20)
+    if only is None or "k5" in only:
+        pane, lane = k5_pane(dev), k5_lane(dev)
+        out["k5_pane_ms"] = timed(lambda i: ha.agg_preagg_cuda(*pane), 200)
+        out["k5_lane_ms"] = timed(lambda i: ha.agg_preagg_cuda(*lane), 20)
+    if only is None or "k12" in only:
+        side, h, cr, is_ins = k12_q8(dev)
+        tables = [side.table.clone() for _ in range(21)]
+        out["k12_ranked_ms"] = timed(
+            lambda i: tables[i].lookup_or_insert_ranked(
+                h, cr, side.count, is_ins), 20)
+    if only is None or "k8" in only:
+        k8_times(dev, out)
+    if only is None or "k16" in only:
+        k16_times(dev, out)
     print("[compare] " + json.dumps(out), flush=True)
+    if "--launches" in sys.argv:
+        for q in sys.argv[sys.argv.index("--launches") + 1].split(","):
+            print(f"[launches] {root} {q} "
+                  + json.dumps(launches_by_kernel(dev, q)), flush=True)
     if "--paths" in sys.argv:
         cs.phase_sharded_main_path(torch, dev, 1, "q5")
         cs.phase_q8_main_path(torch, dev, 1)
+    if "--main" in sys.argv:
+        for q in sys.argv[sys.argv.index("--main") + 1].split(","):
+            if q in cs.TOPN_QUERIES:
+                cs.phase_topn_main_path(torch, dev, 1, q)
+            elif q in cs.WINDOW_QUERIES:
+                cs.phase_window_main_path(torch, dev, 1, q)
+            elif q in cs.STRING_QUERIES:
+                cs.phase_string_main_path(torch, dev, 1, q)
+            else:
+                cs.phase_main_path(torch, dev, 1, q)
     return 0
 
 
