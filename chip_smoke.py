@@ -21,12 +21,15 @@
    case (2^19-row chunks into a 2^23 pool: every block's rows and slots
    over several tiles), its delete branches on a retractable chunk at a
    2^14 pool and its time at ow_bid's shape (an 8192-bid chunk into a
-   2^22 pool with 2,818,048 live), K1 on bid rows with random bytes past
+   2^22 pool with 2,818,048 live), K18 on every ``k18_cases`` case and
+   its membership at ow_bid's shape (2 x 2^22 entries, 2,818,048 live,
+   ~1% changed), K1 on bid rows with random bytes past
    the strings' lengths and K3 on the MV's whole-row key (strings included); for
    the over-window K20 on synthetic pools of every window call kind at
    both window queries' pool shapes (2^18 / emit 2^16 and 2^22 / 2^22:
    90% of the rows in one partition, tie-heavy negative keys, ROWS
-   frames) against the plain version on a CPU copy, K20 and K19a on the
+   frames) and on every ``k20_cases`` case (two flushes each) against
+   the plain version on a CPU copy, K20 and K19a on the
    over-window state of a q6_bid engine, K16 timed on the over-window's
    input (the top-N's [2E] flush chunk), and K1/K3 on float keys (-0.0,
    NaNs, infinities, subnormals; the MV key with q6_bid's float64 avg);
@@ -2038,8 +2041,8 @@ PORT_KERNEL_NAMES = ("hash64_kernel", "probe_walk", "probe_claim",
                      "join_degree",
                      "join_emit_kernel", "join_clean_kernel",
                      "compact_count_kernel", "compact_tiles_kernel",
-                     "compact_write_kernel", "topn_", "ow_scan_local",
-                     "ow_scan_carry", "ow_finish", "table_sweep_kernel",
+                     "compact_write_kernel", "topn_", "ow_scan",
+                     "ow_finish", "table_sweep_kernel",
                      "distinct_", "dyn_", "str_cmp_kernel", "str_case_kernel",
                      "split_part_kernel", "to_char_kernel",
                      "regexp_group_kernel", "replace_kernel",
@@ -3955,6 +3958,196 @@ def k16_wide_pairs(torch, device, kernel) -> tuple[list, dict]:
     return pairs, held
 
 
+#: the K18 cases' pool rows: an int64 order key (distinct), an int64, a
+#: 3-, a 16- and a 40-byte string (random bytes past their lengths) and a
+#: timestamp
+K18_FIELDS = (("a", "INT64", 0), ("b", "INT64", 0), ("s3", "VARCHAR", 3),
+              ("s16", "VARCHAR", 16), ("s40", "VARCHAR", 40),
+              ("t", "TIMESTAMP", 0))
+#: the reference's rank fold (h ^ rank * K, wrapping)
+K18_GOLDEN = 0x9E3779B97F4A7C15
+
+
+def _k18_rows(rng, n: int, keys=None) -> list:
+    """Columns of ``n`` rows of ``K18_FIELDS`` (numpy; strings as (bytes,
+    lengths)); ``keys`` the order key, else a random permutation."""
+    import numpy as np
+
+    cols = [rng.permutation(n).astype(np.int64) * 7 - 1000
+            if keys is None else keys,
+            rng.integers(-50, 50, n).astype(np.int64)]
+    for _, kind, w in K18_FIELDS[2:5]:
+        cols.append((rng.integers(0, 256, (n, w)).astype(np.uint8),
+                     rng.integers(0, w + 1, n).astype(np.int32)))
+    cols.append(rng.integers(0, 10**12, n).astype(np.int64))
+    return cols
+
+
+def k18_cases() -> list:
+    """K18's corner cases, shared with
+    ``tests/test_torch_flush_window_grid.py``: dicts with the pool size
+    ``S``, the band capacity ``E``, ``rank`` (a rank column or none),
+    the pool (``rows``, ``valid``, ``row_hash``) and the emitted band
+    (``prev_rows``, with the rank column last when ``rank``,
+    ``prev_valid``, ``prev_hash``).  The top-N has no group, orders by the
+    distinct key ``a`` and its limit takes every valid row, so the band's
+    entry c is the c-th valid slot (the first E of them) and its hash is
+    crafted through ``row_hash`` (the rank folded back out): equal hashes
+    on both sides with more live entries on either, live entries that
+    hash to 0, an all-dead side, an all-equal side, and E off the
+    kernel's tiles (256 entries a gather block, 512 a scan or merge
+    tile).  Hashes are int64 bit patterns."""
+    import numpy as np
+
+    rng = np.random.default_rng(1819)
+    cases = []
+
+    def alphabet(n):
+        return rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+
+    def case(name, S, E, rank, n_valid, new_h, prev_h, prev_live):
+        """``new_h``: the hash wanted for each of the band's live entries
+        (in slot order); ``prev_h`` / ``prev_live``: the emitted band's
+        [E] hashes and flags (dead entries hash 0)."""
+        rows = _k18_rows(rng, S)
+        valid = np.zeros(S, bool)
+        valid[rng.choice(S, n_valid, replace=False)] = True
+        slots = np.flatnonzero(valid)[:E]
+        # rank: 1 + the valid rows with a smaller key
+        keys = rows[0]
+        order = np.argsort(np.where(valid, keys, np.iinfo(np.int64).max),
+                           kind="stable")
+        ranks = np.zeros(S, np.int64)
+        ranks[order[:n_valid]] = np.arange(1, n_valid + 1)
+        row_hash = alphabet(S)
+        want = np.asarray(new_h, np.int64)[:len(slots)].view(np.uint64)
+        if rank:
+            fold = ranks[slots].astype(np.uint64) * np.uint64(K18_GOLDEN)
+            want = want ^ fold
+        row_hash[slots] = want.view(np.int64)
+        prev_rows = _k18_rows(rng, E)
+        if rank:
+            prev_rows.append(np.where(prev_live, rng.integers(1, 99, E), 0)
+                             .astype(np.int64))
+        cases.append(dict(
+            name=name, S=S, E=E, rank=rank, rows=rows, valid=valid,
+            row_hash=row_hash, prev_rows=prev_rows,
+            prev_valid=np.asarray(prev_live, bool),
+            prev_hash=np.where(prev_live, prev_h, 0).astype(np.int64)))
+
+    # equal hashes, more live copies on either side: H0 5 new / 2 old, H1
+    # 1 new / 4 old, H2 3 / 3; the rest shared or fresh
+    H = alphabet(3)
+    for rank in (False, True):
+        E, n_valid = 96, 80
+        new = np.concatenate([np.repeat(H, [5, 1, 3]), alphabet(71)])
+        rng.shuffle(new)
+        prev = np.concatenate([np.repeat(H, [2, 4, 3]),
+                               rng.choice(new[new != H[0]], 30),
+                               alphabet(31), np.zeros(26, np.int64)])
+        live = np.concatenate([np.ones(70, bool), np.zeros(26, bool)])
+        perm = rng.permutation(E)
+        case(f"counts_both_ways{'_rank' if rank else ''}", 160, E, rank,
+             n_valid, new, prev[perm], live[perm])
+    # live entries hashing to 0 on both sides, beside the dead ones
+    new = np.concatenate([np.zeros(3, np.int64), np.repeat(H[:1], 2),
+                          alphabet(35)])
+    prev = np.concatenate([np.zeros(1, np.int64), np.repeat(H[:1], 2),
+                           alphabet(20), np.zeros(25, np.int64)])
+    live = np.concatenate([np.ones(23, bool), np.zeros(25, bool)])
+    case("live_hash_zero", 64, 48, False, 40, new, prev, live)
+    # an all-dead old side (the first flush), an all-dead new side
+    case("prev_all_dead", 96, 64, True, 50, alphabet(50),
+         np.zeros(64, np.int64), np.zeros(64, bool))
+    case("new_all_dead", 64, 64, False, 0, [], alphabet(64),
+         rng.random(64) < 0.7)
+    # an all-equal new side (E live copies of one hash) against fewer
+    case("all_equal_rank", 80, 64, True, 72, np.full(72, H[2]),
+         np.where(np.arange(64) < 40, H[2], alphabet(64)),
+         np.arange(64) < 52)
+    # E past the tiles: 700 and 600 entries, 50 and 30 distinct hashes
+    A = alphabet(50)
+    case("wide_tiles", 900, 700, False, 650, rng.choice(A, 650),
+         rng.choice(A, 700), rng.random(700) < 0.85)
+    B = alphabet(30)
+    case("wide_tiles_rank", 1100, 600, True, 1000, rng.choice(B, 1000),
+         rng.choice(B, 600), rng.random(600) < 0.9)
+    return cases
+
+
+def k18_schema():
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+
+    return Schema(tuple(Field(n, getattr(DataType, t), str_width=w or 16)
+                        for n, t, w in K18_FIELDS))
+
+
+def k18_torch_case(torch, case: dict, device):
+    """(GroupTopNExecutor, TopNState) of a K18 case for the port."""
+    from risingwave_tpu_torch.common.chunk import StrCol
+    from risingwave_tpu_torch.expr.node import InputRef
+    from risingwave_tpu_torch.stream.top_n import (
+        GroupTopNExecutor, TopNState)
+
+    S, E = case["S"], case["E"]
+    ex = GroupTopNExecutor(k18_schema(), [], [(InputRef(0), False)], S,
+                           pool_size=S, emit_capacity=E,
+                           rank_alias="rn" if case["rank"] else None)
+
+    def t(a):
+        return torch.from_numpy(a.copy()).to(device)
+
+    def col(c):
+        return StrCol(t(c[0]), t(c[1])) if isinstance(c, tuple) else t(c)
+
+    i64 = dict(dtype=torch.int64, device=device)
+    st = TopNState(
+        rows=tuple(col(c) for c in case["rows"]), valid=t(case["valid"]),
+        row_hash=t(case["row_hash"]),
+        prev_rows=tuple(col(c) for c in case["prev_rows"]),
+        prev_valid=t(case["prev_valid"]), prev_hash=t(case["prev_hash"]),
+        overflow=torch.zeros((), **i64), inconsistency=torch.zeros((), **i64))
+    return ex, st
+
+
+def _diff_planes(res):
+    """Named tensors of a band diff (out columns [2E], out valid, the new
+    band, its liveness and hashes)."""
+    from risingwave_tpu_torch.common.chunk import StrCol
+
+    cols, valid, cur, live, h = res
+    out_p = [("valid", valid), ("cur_live", live), ("cur_hash", h)]
+    for tag, group in (("out", cols), ("band", cur)):
+        for j, c in enumerate(group):
+            if isinstance(c, StrCol):
+                out_p += [(f"{tag} col {j} bytes", c.data),
+                          (f"{tag} col {j} lens", c.lens)]
+            else:
+                out_p.append((f"{tag} col {j}", c))
+    return out_p
+
+
+def k18_case_pairs(torch, device, kernel) -> list:
+    """Every ``k18_cases`` case through ``kernel`` (K18's wrapper
+    ``band_diff_cuda``, or the plain version) and ``band_diff_plain`` on
+    the same band: the named pairs to compare."""
+    from risingwave_tpu_torch.common.compact import mask_indices
+    from risingwave_tpu_torch.stream import top_n
+
+    pairs = []
+    for case in k18_cases():
+        ex, st = k18_torch_case(torch, case, device)
+        band, ranks = ex._band_mask(st)
+        cur_idx = mask_indices(band, case["E"], case["S"])
+        args = (st.rows, st.row_hash, ranks if case["rank"] else None,
+                cur_idx, st.prev_rows, st.prev_valid, st.prev_hash)
+        got = kernel(*args)
+        want = top_n.band_diff_plain(*args)
+        pairs += [(f"topn_flush {case['name']} {n}", x, y) for (n, x), (_, y)
+                  in zip(_diff_planes(got), _diff_planes(want))]
+    return pairs
+
+
 def phase_topn_kernels(torch, device, timer, scale):
     """K16-K18 at the q19 path's shapes (pool 2^18, emitted band 2^16,
     8192-row chunks of whole bids) on the TopN state of a q19 engine
@@ -4098,22 +4291,15 @@ def phase_topn_kernels(torch, device, timer, scale):
     kres = diff_k(*dargs)
     pres = top_n.band_diff_plain(*dargs)
 
-    def planes(res):
-        cols, valid, cur, live, h = res
-        out_p = [("valid", valid), ("cur_live", live), ("cur_hash", h)]
-        for tag, group in (("out", cols), ("band", cur)):
-            for j, c in enumerate(group):
-                if isinstance(c, StrCol):
-                    out_p += [(f"{tag} col {j} bytes", c.data),
-                              (f"{tag} col {j} lens", c.lens)]
-                else:
-                    out_p.append((f"{tag} col {j}", c))
-        return out_p
-
     err = max_abs_err(torch, [(f"topn_flush {n}", x, y) for (n, x), (_, y)
-                              in zip(planes(kres), planes(pres))])
+                              in zip(_diff_planes(kres), _diff_planes(pres))])
+    # every k18_cases case (the CPU's wrapper is the plain version)
+    err = max(err, max_abs_err(torch, k18_case_pairs(torch, device,
+                                                     diff_k)))
     n_out = int(kres[1].sum())
     ms = timer(lambda i: diff_k(*dargs), 20, TOPN_PREFILL_MS)
+    split = device_ms_by_kernel(torch, device, lambda i: diff_k(*dargs), 10,
+                                K18_KERNELS + (RADIX_SORT,))
     plain_ms = timer(lambda i: top_n.band_diff_plain(*dargs), 5,
                      TOPN_PREFILL_MS)
     row = BID_ROW_BYTES + 8                    # with the rank column
@@ -4122,13 +4308,22 @@ def phase_topn_kernels(torch, device, timer, scale):
     # its flags, the new band's rows, hashes and flags
     b18 = bound(E * (row + 9) + E * 4 + E * (BID_ROW_BYTES + 16)
                 + 2 * E * (row + 1) + E * (row + 9), E * 200)
+    by_kernel = "" if split is None else (
+        " (device time: " + ", ".join(
+            f"{k.split('::')[-1]} {v:.4f}" for k, v in split.items())
+        + " ms)")
     print(f"[topn_flush] exact ({n_band} band rows against "
           f"{int(base.prev_valid.sum())} emitted: {n_out} changelog rows of "
-          f"{2 * E}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{b18[0]:.5f} ms", flush=True)
+          f"{2 * E}; {len(k18_cases())} edge cases); kernel {ms:.4f} "
+          f"ms{by_kernel}, plain {plain_ms:.4f} ms, bound {b18[0]:.5f} ms",
+          flush=True)
     out["topn_flush"] = kernel_entry(
         "topn_flush.cu", "risingwave_tpu/stream/top_n.py:337", ms, plain_ms,
         b18, None, err)
+    if split is not None:
+        out["topn_flush"]["device_ms_by_kernel"] = split
+    out["topn_flush"]["membership_at_ow_bid"] = phase_k18_ow_bid(
+        torch, device, timer, scale)
 
     # -- K1 and K3 with strings --------------------------------------------
     cols = []
@@ -4546,6 +4741,103 @@ def _stress_executor(torch, device, S: int, E: int, g):
     return ex, st
 
 
+#: the K20 cases' pool rows: the partition, an order key with ties, an
+#: int64 and a dyadic float64 value, and strings of 3, 16, 40 and 64 bytes
+K20_FIELDS = (("p", "INT64", 0), ("k", "INT64", 0), ("v", "INT64", 0),
+              ("f", "FLOAT64", 0), ("s3", "VARCHAR", 3),
+              ("s16", "VARCHAR", 16), ("s40", "VARCHAR", 40),
+              ("s64", "VARCHAR", 64))
+#: every call kind, as (kind, argument column, offset, alias, frame):
+#: lag/lead within and across the scan's 512-position tiles (offsets 1,
+#: 3, 600, 700; strings of 16, 40 and 64 bytes), sums over the whole
+#: segment and over ROWS 600 PRECEDING (its first row in an earlier
+#: tile), count over ROWS 1 PRECEDING, avg over ROWS 10 PRECEDING
+K20_CALLS = (
+    ("row_number", None, 1, "rn", None), ("rank", None, 1, "rk", None),
+    ("dense_rank", None, 1, "dr", None), ("lag", 2, 1, "lg1", None),
+    ("lead", 2, 3, "ld3", None), ("lag", 2, 700, "lg700", None),
+    ("lag", 6, 1, "lgs40", None), ("lead", 7, 2, "lds64", None),
+    ("lead", 5, 600, "lds16", None), ("sum", 2, 1, "sv", None),
+    ("sum", 2, 1, "sv600", (600, 0)), ("count", None, 1, "c1", (1, 0)),
+    ("avg", 3, 1, "af10", (10, 0)), ("min", 3, 1, "mnf", None),
+    ("max", 2, 1, "mxv", None), ("sum", 3, 1, "sf", None))
+
+
+def k20_cases() -> list:
+    """K20's corner cases, shared with
+    ``tests/test_torch_flush_window_grid.py``: dicts with the pool size
+    ``S``, the emit capacity ``E``, the pool ``rows`` and ``valid``, and
+    ``flip``, the validity flips before a second flush.  Every case runs
+    ``K20_CALLS`` partitioned by ``p`` and ordered by ``k`` (ties):
+      - ``aligned_partitions``: three partitions of 512 rows, all valid,
+        so every segment starts on a tile boundary of the scan (512
+        positions) and of the finish (256);
+      - ``spanning_partition_overflow``: a partition of 1300 rows over
+        three tiles, S > E with more valid rows than E (the overflow
+        gauge);
+      - ``clamp_e_past_s``: E > S (positions past the pool take row S-1);
+      - ``small_ties``: three order values, four partitions, 60% valid.
+    Floats are dyadic: the card's sums are exact."""
+    import numpy as np
+
+    rng = np.random.default_rng(2020)
+    cases = []
+
+    def rows(S, parts, keys):
+        cols = [parts.astype(np.int64),
+                rng.integers(0, keys, S).astype(np.int64),
+                rng.integers(-1000, 1000, S).astype(np.int64),
+                (rng.integers(-400, 400, S) / 8.0).astype(np.float64)]
+        for _, _, w in K20_FIELDS[4:]:
+            cols.append((rng.integers(0, 256, (S, w)).astype(np.uint8),
+                         rng.integers(0, w + 1, S).astype(np.int32)))
+        return cols
+
+    def case(name, S, E, parts, keys, p_valid):
+        cases.append(dict(name=name, S=S, E=E, rows=rows(S, parts, keys),
+                          valid=rng.random(S) < p_valid,
+                          flip=rng.random(S) < 0.05))
+
+    case("aligned_partitions", 1536, 1536,
+         rng.permutation(np.repeat(np.arange(3), 512)), 40, 1.1)
+    case("spanning_partition_overflow", 1800, 1500,
+         rng.permutation(np.concatenate([np.full(1300, 7),
+                                         rng.integers(0, 20, 500)])),
+         60, 0.95)
+    case("clamp_e_past_s", 700, 1100, rng.integers(0, 5, 700), 30, 0.8)
+    case("small_ties", 256, 200, rng.integers(0, 4, 256), 3, 0.6)
+    return cases
+
+
+def k20_schema():
+    from risingwave_tpu_torch.common.types import DataType, Field, Schema
+
+    return Schema(tuple(Field(n, getattr(DataType, t), str_width=w or 16)
+                        for n, t, w in K20_FIELDS))
+
+
+def k20_torch_case(torch, case: dict, device):
+    """(OverWindowExecutor, TopNState) of a K20 case for the port."""
+    from risingwave_tpu_torch.common.chunk import StrCol
+    from risingwave_tpu_torch.expr.node import InputRef as R
+    from risingwave_tpu_torch.stream.over_window import (
+        OverWindowExecutor, WindowFuncCall as C)
+
+    calls = [C(kind, None if arg is None else R(arg), off, alias,
+               frame=frame) for kind, arg, off, alias, frame in K20_CALLS]
+    ex = OverWindowExecutor(k20_schema(), [R(0)], [(R(1), False)], calls,
+                            pool_size=case["S"], emit_capacity=case["E"])
+    st = ex.init_state(device)
+    for store, c in zip(st.rows, case["rows"]):
+        if isinstance(store, StrCol):
+            store.data.copy_(torch.from_numpy(c[0]))
+            store.lens.copy_(torch.from_numpy(c[1]))
+        else:
+            store.copy_(torch.from_numpy(c))
+    st.valid.copy_(torch.from_numpy(case["valid"]))
+    return ex, st
+
+
 def phase_window_kernels(torch, device, timer, scale):
     """K20 and K19a at q6_bid's shapes (the over-window state of a q6_bid
     engine after 9 barriers: pool 2^18, emitted rows 2^16), K20 exactly
@@ -4605,6 +4897,19 @@ def phase_window_kernels(torch, device, timer, scale):
               f"{int((st.rows[0] == 7).sum())} rows in the hot partition, "
               f"overflow {int(a.overflow)})", flush=True)
         del ex, st, res, a
+    # -- K20 on every k20_cases case, two flushes each ------------------
+    for case in k20_cases():
+        ex, st = k20_torch_case(torch, case, device)
+        flip = torch.from_numpy(case["flip"]).to(device)
+        for step in range(2):
+            got, res, a = flush_pair(ex, st)
+            pairs += [(f"{n} ({case['name']}, flush {step})", x, y)
+                      for n, x, y in got]
+            st = st._replace(prev_rows=res[2], prev_valid=res[3],
+                             prev_hash=res[4], overflow=a.overflow)
+            st.valid.logical_xor_(flip)
+    print(f"[over_window] exact on {len(k20_cases())} edge cases of "
+          f"{len(K20_CALLS)} calls, two flushes each", flush=True)
     err = max_abs_err(torch, pairs)
     del pairs
 
@@ -4929,6 +5234,88 @@ def phase_k16_ow_bid(torch, device, timer, scale) -> dict:
     return dict(rows=cap, pool=S, live=live, ms=ms, plain_ms=plain_ms,
                 bound_ms=bb[0], bound_by=bb[1], scanned=scanned,
                 max_abs_err=err)
+
+
+def k18_ow_bid_shape(torch, device, scale: int, seed: int = 181):
+    """K18's membership at ow_bid's shape: two sides of 2^22 entries (the
+    emitted rows and the new rows of the over-window's flush), the old
+    side ``OW_BID_LIVE`` live rows with random hashes as a prefix (dead
+    entries hash 0), the new side the same rows with ~1% of the live
+    hashes changed and 8192 more live rows after them.  Returns
+    (prev_hash, prev_valid, cur_hash, cur_live, changed)."""
+    import numpy as np
+
+    E, live = (1 << 22) // scale, OW_BID_LIVE // scale
+    rng = np.random.default_rng(seed)
+    prev = np.zeros(E, np.int64)
+    prev[:live] = rng.integers(-2**63, 2**63 - 1, live, dtype=np.int64)
+    cur = prev.copy()
+    changed = rng.random(live) < 0.01
+    cur[:live][changed] = rng.integers(-2**63, 2**63 - 1, int(changed.sum()),
+                                       dtype=np.int64)
+    more = min(8192 // scale, E - live)
+    cur[live:live + more] = rng.integers(-2**63, 2**63 - 1, more,
+                                         dtype=np.int64)
+    pv = np.arange(E) < live
+    cv = np.arange(E) < live + more
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    return t(prev), t(pv), t(cur), t(cv), int(changed.sum()) + more
+
+
+#: K18's membership kernels (profiler names)
+K18_DIFF_KERNELS = ("topn_flush_scan_kernel", "topn_flush_member_kernel")
+#: K20's two kernels
+K20_KERNELS = ("ow_scan", "ow_finish")
+#: K18's three kernels
+K18_KERNELS = ("topn_flush_gather_kernel",) + K18_DIFF_KERNELS
+#: the prefix of torch.sort's radix-sort kernels (CUB's) by the profiler
+RADIX_SORT = "at_cuda_detail::cub::DeviceRadixSort"
+
+
+def phase_k18_ow_bid(torch, device, timer, scale) -> dict:
+    """K18's membership (``band_membership_cuda``: the two sorts, the run
+    scan and the merge) at ow_bid's shape (``k18_ow_bid_shape``), exactly
+    against ``band_membership_plain``, both timed, and its two kernels'
+    device time read by the profiler."""
+    from risingwave_tpu_torch.stream import top_n
+
+    cuda = device.type == "cuda"
+    kernel = top_n.band_membership_cuda if cuda else \
+        top_n.band_membership_plain
+    args = k18_ow_bid_shape(torch, device, scale)
+    sides, changed = args[:4], args[4]
+    got = kernel(*sides)
+    want = top_n.band_membership_plain(*sides)
+    err = max_abs_err(torch, [("topn_flush membership at ow_bid", got,
+                               want)])
+    n_out = int(got.sum())
+    ms = timer(lambda i: kernel(*sides), 10, 4.0)
+    plain_ms = timer(lambda i: top_n.band_membership_plain(*sides), 3, 20.0)
+    split = device_ms_by_kernel(torch, device, lambda i: kernel(*sides), 5,
+                                K18_DIFF_KERNELS)
+    E = sides[0].shape[0]
+    # after the sorts: each side's sorted hashes, permutation and live
+    # flags read once, the 2E flags written
+    b = bound(2 * E * (8 + 8 + 1) + 2 * E, 2 * E * 20)
+    kern = "" if split is None else (
+        f", its kernels {sum(split.values()):.4f} ms by the profiler (scan "
+        f"{split[K18_DIFF_KERNELS[0]]:.4f}, merge "
+        f"{split[K18_DIFF_KERNELS[1]]:.4f})")
+    print(f"[topn_flush] membership at ow_bid's shape (2 x {E} entries, "
+          f"{int(sides[1].sum())} -> {int(sides[3].sum())} live, {changed} "
+          f"changed or new: {n_out} out): exact; the call (two sorts "
+          f"included) {ms:.4f} ms{kern}, plain {plain_ms:.4f} ms, bound "
+          f"{b[0]:.5f} ms", flush=True)
+    out = dict(entries=E, live=int(sides[3].sum()), changed=changed,
+               out_rows=n_out, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+               bound_by=b[1], max_abs_err=err)
+    if split is not None:
+        out.update(scan_ms=split[K18_DIFF_KERNELS[0]],
+                   merge_ms=split[K18_DIFF_KERNELS[1]])
+    return out
 
 
 def phase_window_parity(torch, device, query: str) -> None:
@@ -5284,6 +5671,11 @@ def phase_window_main_path(torch, device, scale, query: str):
                                     20.0)
             info["flush_ms"] = timer(lambda i: ow.flush_cuda(st), 3, 40.0)
             info["plain_ms"] = timer(lambda i: ow.flush_plain(st), 1, 200.0)
+            split = device_ms_by_kernel(
+                torch, device, lambda i: ow.flush_cuda(st), 3,
+                K20_KERNELS + K18_DIFF_KERNELS + (RADIX_SORT,))
+            if split is not None:
+                info["flush_device_ms_by_kernel"] = split
         # per position: order, valid, hash, order key, the sum/max
         # arguments, 5 lanes; per row the pool row and old row read, the
         # out chunk's halves and the new row written
@@ -5295,6 +5687,10 @@ def phase_window_main_path(torch, device, scale, query: str):
             f"K20 {info['ms']:.4f} ms, the key launch and sorts "
             f"{info['sort_ms']:.4f} ms, the whole flush "
             f"{info['flush_ms']:.4f} ms, plain {info['plain_ms']:.4f} ms")
+        if "flush_device_ms_by_kernel" in info:
+            times += " (the flush's device time: " + ", ".join(
+                f"{k.split('::')[-1]} {v:.4f}" for k, v in
+                info["flush_device_ms_by_kernel"].items()) + " ms)"
         print(f"[over_window] ow_bid's flush at pool {S} ({info['live']} "
               f"live rows): {times}, bound {b[0]:.5f} ms", flush=True)
         info["probe"] = _time_mv_probe(torch, device, mv_probe)

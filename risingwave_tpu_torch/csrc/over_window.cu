@@ -11,55 +11,78 @@
 // Only the first P = min(E, S) sorted positions are emitted (the flush
 // takes the first E sorted rows, row S-1 for positions past the pool), and
 // every window value at a position is a function of the positions up to
-// it, so the scans stop at P.  Per position i (o = order[i]):
-//   - part(i) = valid[o] ? hash[o] : ~0; sorted, part is non-decreasing
-//     (valid rows first by hash, the invalid rows one sentinel segment), so
-//     the segment start is a binary search for the first position of
-//     part(i): no scan and no per-partition thread, whatever the skew;
+// it (lead reads the input only), so the scan stops at P.  Per position i
+// (o = order[i]):
+//   - part(i) = valid[o] ? hash[o] : ~0 (sorted: the valid rows by hash,
+//     the invalid rows one sentinel segment); is_new(i) = i == 0 ||
+//     part(i) != part(i-1);
 //   - tie(i) = fold of tie * 1000003 ^ key over the order keys (uint64,
-//     wrapping); new_val(i) = i == 0 || tie(i) != tie(i-1) || part changes;
-//   - scan lanes, each an inclusive (segment-flag, value) scan over [0, P):
-//     the rank anchor (max of new_val ? i : 0), the dense rank (sum of
-//     new_val), per sum/count/avg call the prefix sum of its argument
-//     (int64 wrapping, float64, or float32), per min/max call a running
-//     min/max restarted at every segment start.
-// The scans are three phases, all of them wide: ow_scan_local scans each
-// 1024-position block (warp shuffles, then the warp totals) and writes the
-// block's total; ow_scan_carry (one block) scans the block totals into
-// exclusive carries; ow_finish adds the carry of its block to each lane it
-// reads.  A partition that holds 90% of the pool is just many blocks.
+//     wrapping); new_val(i) = is_new(i) || tie(i) != tie(i-1);
+//   - scan lanes, each an inclusive scan over [0, P), the flagged ones
+//     restarted at every segment start: the segment start (max of is_new ?
+//     i : 0, the reference's cummax in `_segment_starts`), the rank anchor
+//     (max of new_val ? i : 0), the dense rank (count of new_val, flagged),
+//     per sum/count/avg call the running sum of its argument (int64
+//     wrapping, float64 or float32, flagged), per min/max call a running
+//     min/max (flagged).
 //
-// ow_finish, one thread per emitted position e < E (i = min(e, S - 1)):
-//   - row_number i - start + 1; rank anchor(i) - start + 1; dense_rank
-//     dense(i) - dense(start) + 1;
-//   - lag/lead: the argument at i -/+ offset when that position is in the
-//     pool and in i's partition, else zero (strings: zero bytes and length);
-//   - sum/count/avg: cum(i) - (cum(lo) - v(lo)) with lo = start or
-//     max(i - n, start) for ROWS n PRECEDING, as the reference subtracts;
-//     avg divides by i - lo + 1 (a DECIMAL truncates toward zero);
-//   - min/max: the lane;
-// and writes the row into the changelog's insert half and into the new
-// emitted rows (buffers of their own), the old emitted row into the delete
-// half, the row's liveness, and its hash over the full output row (K1's
-// device function, 0 for a dead row).  Thread 0 raises `overflow` to the
-// valid rows past E (valid rows sort first: a binary search).  Dead
-// positions get every value too, as the reference computes them.
+// Two launches:
+//   - ow_scan, a grid of OT-position tiles.  Each thread reads its
+//     position's partition hash and tie key once (its neighbour's from the
+//     tile in shared memory; the tile's first position reads the one
+//     before it), and the tile scans every lane with warp shuffles.  The
+//     carry into the tile is a decoupled look-back: each tile publishes
+//     its lane totals (tile_agg) at once and its inclusive lanes
+//     (tile_incl) as soon as it knows them, each behind a fence and a
+//     64-bit status word tagged with the call's epoch (a counter of the
+//     wrapper's, one per device and stream, with the scratch: no call
+//     resets the words) and the tile's "a segment starts here" flag; warp
+//     0 reads 32 tiles' words a round and reduces each lane over the tiles
+//     after its stop (the nearest inclusive tile; for a flagged lane also
+//     the nearest tile with a segment start) in order.  Tiles come by a
+//     ticket, so a tile waits only on running tiles; the last block to
+//     finish puts the tickets back to 0.  Every lane's inclusive value is
+//     written per position (lane_val), so a partition that holds 90% of
+//     the pool is just many tiles, and no position searches for its
+//     segment start.
+//   - ow_finish, each block a tile of FT emitted positions e < E (i =
+//     min(e, S - 1), start = the start lane at i), one thread a position:
+//       - row_number i - start + 1; rank anchor(i) - start + 1; dense_rank
+//         the dense lane at i;
+//       - lag/lead: the argument at src = i -/+ offset when src is in the
+//         pool and in i's segment (src >= start before i; the start lane
+//         at src equals start after i, or the partition hashes where src
+//         is past P), else zero; strings move in words;
+//       - sum/count/avg: the lane at i, less the lane at lo - 1 for ROWS n
+//         PRECEDING (lo = max(i - n, start) > start); avg divides by
+//         i - lo + 1 (a DECIMAL truncates toward zero);
+//       - min/max: the lane;
+//     written into the changelog's insert half and the new emitted rows,
+//     and the row's hash over the full output row (K1's fold, 0 for a dead
+//     row): the input leaves from the pool row (strings folded in 8-byte
+//     words where the row is aligned), the outputs from the values the
+//     thread holds.  Then the block moves its rows plane by plane in words
+//     (rw_rowcopy.cuh's gather form): the old emitted rows into the delete
+//     half as a contiguous copy, the pool rows at order[i], one gather
+//     written twice, into the insert half and the new emitted rows
+//     (buffers of their own).  Thread 0 raises `overflow` to the valid
+//     rows past E (valid rows sort first: one binary search a call).  Dead
+//     positions get every value too, as the reference computes them.
 //
 // Integer results are exact.  Float sums add in another order than the
 // plain version's cumsum: exact when every partial sum is (integers below
 // 2^53, dyadic values), else within rounding.
 //
-// Bound: bytes.  Per scanned position: order, valid, hash and order keys
-// read (~17 B + 8 B per key), the sorted key and 8 B per lane written and
-// read back; per emitted position the pool row and the old row read, the
-// out chunk's two rows and the new row written (~4 x the row width) and
-// the lane values at i, lo and start read.
+// Bound: bytes.  Per scanned position: order, valid, hash, order keys and
+// arguments read; per emitted position the pool row and the old row read,
+// the out chunk's two rows and the new row written, the hash and liveness
+// (the lanes are written and read once more).
 #include "rw_common.cuh"
+#include "rw_rowcopy.cuh"
 
 #define OW_MAX_CALLS 16
 #define OW_MAX_LEAVES 16
-#define OW_MAX_LANES 18
-#define OW_BLOCK 1024
+#define OW_MAX_LANES 19
 
 enum {
   OW_ROW_NUMBER = 0, OW_RANK, OW_DENSE_RANK, OW_LAG, OW_LEAD,
@@ -115,20 +138,30 @@ struct OverWindowArgs {
   int n_lanes;
   int lane_op[OW_MAX_LANES];
   int lane_flagged[OW_MAX_LANES];  // restarted at segment starts
+  int start_lane;          // max of is_new ? i : 0
   int anchor_lane;         // -1 without rank
   int dense_lane;          // -1 without dense_rank
-  uint64_t* lane_local;    // [n_lanes, P] block-local inclusive scans
-  uint64_t* lane_carry;    // [n_lanes, nb] block totals, then carries
-  uint8_t* blk_flag;       // [nb] a segment starts in the block
-  int64_t* ps;             // [P] sorted partition key ^ 2^63
+  uint64_t* lane_val;      // [n_lanes, P] inclusive lane values
+  unsigned long long* status;  // [n_tiles] look-back words, persistent
+  uint64_t* tile_agg;      // [n_tiles, OW_MAX_LANES] a tile's lane totals
+  uint64_t* tile_incl;     // [n_tiles, OW_MAX_LANES] its inclusive lanes
+  int* ctl;                // [2] tile and finish tickets, rest at 0
+  unsigned long long epoch;  // this call's tag of the status words
   uint64_t* cur_hash;      // [E]
   uint8_t* cur_live;       // [E]
   long long* overflow;     // [1] raised to the valid rows past E
   int S;
   int E;
   int P;
-  int nb;
+  int n_tiles;
 };
+
+static constexpr int OT = 512;  // ow_scan: positions a tile
+static constexpr int FT = 256;  // ow_finish: emitted positions a block
+
+// status word: epoch << 34 | state << 32 | a segment starts in the tile
+#define OW_AGG 1ull     // tile_agg is published
+#define OW_PREFIX 2ull  // tile_incl is published
 
 static constexpr uint64_t OW_SIGN = 1ull << 63;
 
@@ -199,198 +232,6 @@ __device__ __forceinline__ double load_real(const void* base, int type,
   return static_cast<double>(load_int(base, type, i));
 }
 
-__device__ __forceinline__ bool is_float(int type) {
-  return type == OW_F32 || type == OW_F64;
-}
-
-__device__ __forceinline__ uint64_t part_at(const OverWindowArgs& a,
-                                            int64_t i) {
-  const int64_t o = a.order[i];
-  return a.valid[o] ? a.part[o] : ~0ull;
-}
-
-__device__ __forceinline__ uint64_t tie_at(const OverWindowArgs& a,
-                                           int64_t i) {
-  const int64_t o = a.order[i];
-  uint64_t t = 0;
-  for (int j = 0; j < a.n_order; ++j) {
-    const uint64_t k =
-        static_cast<uint64_t>(a.okeys[j * static_cast<int64_t>(a.S) + o]) ^
-        OW_SIGN;
-    t = t * 1000003ull ^ k;
-  }
-  return t;
-}
-
-// The lane value a sum/count/avg/min/max call contributes at position i.
-__device__ __forceinline__ uint64_t call_value(const OverWindowArgs& a,
-                                               const OwCall& c, int op,
-                                               int64_t i) {
-  const int64_t o = a.order[i];
-  if (c.kind == OW_COUNT) return a.valid[o] ? 1ull : 0ull;
-  switch (op) {
-    case OW_ADD_I64:
-    case OW_MAX_I64:
-    case OW_MIN_I64:
-      return static_cast<uint64_t>(load_int(c.arg, c.arg_type, o));
-    case OW_ADD_F32:
-      return f32_bits(static_cast<const float*>(c.arg)[o]);
-    default:
-      return f64_bits(load_real(c.arg, c.arg_type, o));
-  }
-}
-
-// Inclusive (flag, value) scan of one 1024-thread block; `sf`/`sv` are
-// 32-entry shared scratch.
-__device__ __forceinline__ void block_scan(int op, bool& f, uint64_t& v,
-                                           int* sf, uint64_t* sv) {
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int fo = __shfl_up_sync(0xFFFFFFFFu, static_cast<int>(f), d);
-    const uint64_t vo = __shfl_up_sync(0xFFFFFFFFu, v, d);
-    if (lane >= d) {
-      if (!f) v = lane_combine(op, vo, v);
-      f = f || fo;
-    }
-  }
-  if (lane == 31) {
-    sf[w] = f;
-    sv[w] = v;
-  }
-  __syncthreads();
-  if (w == 0) {
-    bool g = sf[lane] != 0;
-    uint64_t u = sv[lane];
-    for (int d = 1; d < 32; d <<= 1) {
-      const int go = __shfl_up_sync(0xFFFFFFFFu, static_cast<int>(g), d);
-      const uint64_t uo = __shfl_up_sync(0xFFFFFFFFu, u, d);
-      if (lane >= d) {
-        if (!g) u = lane_combine(op, uo, u);
-        g = g || go;
-      }
-    }
-    sf[lane] = g;
-    sv[lane] = u;
-  }
-  __syncthreads();
-  if (w > 0) {
-    if (!f) v = lane_combine(op, sv[w - 1], v);
-    f = f || sf[w - 1];
-  }
-  __syncthreads();  // the scratch is reused by the next lane
-}
-
-__global__ void __launch_bounds__(OW_BLOCK) ow_scan_local(OverWindowArgs a) {
-  __shared__ int sf[32];
-  __shared__ uint64_t sv[32];
-  const int64_t i = blockIdx.x * static_cast<int64_t>(OW_BLOCK) +
-                    threadIdx.x;
-  const bool in = i < a.P;
-  bool is_new = false, new_val = false;
-  if (in) {
-    const uint64_t p = part_at(a, i);
-    a.ps[i] = static_cast<int64_t>(p ^ OW_SIGN);
-    is_new = i == 0 || p != part_at(a, i - 1);
-    new_val = is_new || (a.n_order > 0 && tie_at(a, i) != tie_at(a, i - 1));
-  }
-  const int any_new = __syncthreads_or(is_new);
-  if (threadIdx.x == 0) a.blk_flag[blockIdx.x] = any_new != 0;
-  for (int L = 0; L < a.n_lanes; ++L) {
-    const int op = a.lane_op[L];
-    bool f = in && a.lane_flagged[L] && is_new;
-    uint64_t v = lane_identity(op);
-    if (in) {
-      if (L == a.anchor_lane) {
-        v = new_val ? static_cast<uint64_t>(i) : 0ull;
-      } else if (L == a.dense_lane) {
-        v = new_val ? 1ull : 0ull;
-      } else {
-        for (int c = 0; c < a.n_calls; ++c) {
-          if (a.call[c].lane == L) v = call_value(a, a.call[c], op, i);
-        }
-      }
-    }
-    block_scan(op, f, v, sf, sv);
-    if (in) a.lane_local[L * static_cast<int64_t>(a.P) + i] = v;
-    if (threadIdx.x == OW_BLOCK - 1) {
-      a.lane_carry[L * static_cast<int64_t>(a.nb) + blockIdx.x] = v;
-    }
-  }
-}
-
-// One block: the block totals of every lane into exclusive carries.
-__global__ void __launch_bounds__(OW_BLOCK) ow_scan_carry(OverWindowArgs a) {
-  __shared__ int sf[32];
-  __shared__ uint64_t sv[32];
-  __shared__ int tf[OW_BLOCK];
-  __shared__ uint64_t tv[OW_BLOCK];
-  const int t = threadIdx.x;
-  const int per = (a.nb + OW_BLOCK - 1) / OW_BLOCK;
-  const int b0 = t * per;
-  const int b1 = min(a.nb, b0 + per);
-  for (int L = 0; L < a.n_lanes; ++L) {
-    const int op = a.lane_op[L];
-    uint64_t* tot = a.lane_carry + L * static_cast<int64_t>(a.nb);
-    const bool flagged = a.lane_flagged[L] != 0;
-    bool f = false;
-    uint64_t v = lane_identity(op);
-    for (int b = b0; b < b1; ++b) {
-      const bool fb = flagged && a.blk_flag[b];
-      v = fb ? tot[b] : lane_combine(op, v, tot[b]);
-      f = f || fb;
-    }
-    block_scan(op, f, v, sf, sv);
-    tf[t] = f;
-    tv[t] = v;
-    __syncthreads();
-    bool rf = t > 0 && tf[t - 1];
-    uint64_t rv = t > 0 ? tv[t - 1] : lane_identity(op);
-    for (int b = b0; b < b1; ++b) {
-      const uint64_t here = tot[b];
-      tot[b] = rv;
-      const bool fb = flagged && a.blk_flag[b];
-      rv = fb ? here : lane_combine(op, rv, here);
-      rf = rf || fb;
-    }
-    __syncthreads();
-  }
-}
-
-// The lane's inclusive value at position x; for a flagged lane `start` is
-// x's segment start.
-__device__ __forceinline__ uint64_t lane_at(const OverWindowArgs& a, int L,
-                                            int64_t x, int64_t start) {
-  const uint64_t local = a.lane_local[L * static_cast<int64_t>(a.P) + x];
-  const int64_t b = x / OW_BLOCK;
-  if (b == 0 || (a.lane_flagged[L] && start >= b * OW_BLOCK)) return local;
-  return lane_combine(a.lane_op[L],
-                      a.lane_carry[L * static_cast<int64_t>(a.nb) + b],
-                      local);
-}
-
-__device__ __forceinline__ void copy_row(void* dst, int64_t di,
-                                         const void* src, int64_t si,
-                                         int w) {
-  uint8_t* pd = static_cast<uint8_t*>(dst) + di * w;
-  const uint8_t* ps = static_cast<const uint8_t*>(src) + si * w;
-  switch (w) {
-    case 1: *pd = *ps; break;
-    case 2: *reinterpret_cast<uint16_t*>(pd) =
-                *reinterpret_cast<const uint16_t*>(ps); break;
-    case 4: *reinterpret_cast<uint32_t*>(pd) =
-                *reinterpret_cast<const uint32_t*>(ps); break;
-    case 8: *reinterpret_cast<uint64_t*>(pd) =
-                *reinterpret_cast<const uint64_t*>(ps); break;
-    default:
-      for (int j = 0; j < w; ++j) pd[j] = ps[j];
-  }
-}
-
-__device__ __forceinline__ void zero_row(void* dst, int64_t di, int w) {
-  uint8_t* pd = static_cast<uint8_t*>(dst) + di * w;
-  for (int j = 0; j < w; ++j) pd[j] = 0;
-}
 
 __device__ __forceinline__ void store_int(void* base, int type, int64_t i,
                                           int64_t v) {
@@ -419,55 +260,349 @@ __device__ __forceinline__ void store_value(void* base, int type, int op,
   }
 }
 
-// K1's hash (rw_common.cuh) of new emitted row e: the input leaves, then
-// the window outputs, as the reference hashes the full output row.
-__device__ __forceinline__ uint64_t row_hash(const OverWindowArgs& a,
-                                             int64_t e) {
-  uint64_t st = RW_K1;
-  for (int k = 0; k < a.n_leaves; ++k) {
-    const OwLeaf& l = a.leaf[k];
-    if (l.kind == RW_KIND_STR) {
-      const int32_t len = static_cast<const int32_t*>(a.leaf[k + 1].cur)[e];
-      st = rw_fold_str(st, static_cast<const uint8_t*>(l.cur) + e * l.width,
-                       l.width, len);
-      ++k;
-    } else if (l.kind == RW_KIND_F32) {
-      const float x = static_cast<const float*>(l.cur)[e];
-      st = rw_mix64(st ^ (static_cast<uint64_t>(rw_f32_word(x)) * RW_K1));
-    } else if (l.kind == RW_KIND_F64) {
-      uint32_t hi, lo;
-      rw_f64_words(static_cast<const double*>(l.cur)[e], &hi, &lo);
-      st = rw_mix64(st ^ (static_cast<uint64_t>(hi) * RW_K1));
-      st = rw_mix64(st ^ (static_cast<uint64_t>(lo) * RW_K1));
-    } else {
-      st = rw_mix64(st ^ (rw_load_word(l.cur, l.width, e) * RW_K1));
-    }
-  }
-  for (int c = 0; c < a.n_calls; ++c) {
-    const OwCall& cl = a.call[c];
-    if (cl.out_type == OW_STR) {
-      st = rw_fold_str(st, static_cast<const uint8_t*>(cl.cur) +
-                               e * cl.out_width,
-                       cl.out_width, cl.cur_lens[e]);
-    } else if (cl.out_type == OW_F32) {
-      const float x = static_cast<const float*>(cl.cur)[e];
-      st = rw_mix64(st ^ (static_cast<uint64_t>(rw_f32_word(x)) * RW_K1));
-    } else if (cl.out_type == OW_F64) {
-      uint32_t hi, lo;
-      rw_f64_words(static_cast<const double*>(cl.cur)[e], &hi, &lo);
-      st = rw_mix64(st ^ (static_cast<uint64_t>(hi) * RW_K1));
-      st = rw_mix64(st ^ (static_cast<uint64_t>(lo) * RW_K1));
-    } else {
-      st = rw_mix64(st ^ (rw_load_word(cl.cur, cl.out_width, e) * RW_K1));
-    }
-  }
-  return rw_hash_finish(st);
+__device__ __forceinline__ uint64_t part_of(const OverWindowArgs& a,
+                                            int64_t o) {
+  return a.valid[o] ? a.part[o] : ~0ull;
 }
 
-__global__ void ow_finish(OverWindowArgs a) {
-  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  if (e == 0 && a.S > a.E) {
+__device__ __forceinline__ uint64_t tie_of(const OverWindowArgs& a,
+                                           int64_t o) {
+  uint64_t t = 0;
+  for (int j = 0; j < a.n_order; ++j) {
+    const uint64_t k =
+        static_cast<uint64_t>(a.okeys[j * static_cast<int64_t>(a.S) + o]) ^
+        OW_SIGN;
+    t = t * 1000003ull ^ k;
+  }
+  return t;
+}
+
+// The lane value a sum/count/avg/min/max call contributes at slot o.
+__device__ __forceinline__ uint64_t call_value(const OverWindowArgs& a,
+                                               const OwCall& c, int op,
+                                               int64_t o) {
+  if (c.kind == OW_COUNT) return a.valid[o] ? 1ull : 0ull;
+  switch (op) {
+    case OW_ADD_I64:
+    case OW_MAX_I64:
+    case OW_MIN_I64:
+      return static_cast<uint64_t>(load_int(c.arg, c.arg_type, o));
+    case OW_ADD_F32:
+      return f32_bits(static_cast<const float*>(c.arg)[o]);
+    default:
+      return f64_bits(load_real(c.arg, c.arg_type, o));
+  }
+}
+
+// Inclusive (flag, value) scan of one OT-thread block; `sf`/`sv` are
+// 32-entry shared scratch.
+__device__ __forceinline__ void block_scan(int op, bool& f, uint64_t& v,
+                                           int* sf, uint64_t* sv) {
+  constexpr int NW = OT / 32;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int fo = __shfl_up_sync(0xFFFFFFFFu, static_cast<int>(f), d);
+    const uint64_t vo = __shfl_up_sync(0xFFFFFFFFu, v, d);
+    if (lane >= d) {
+      if (!f) v = lane_combine(op, vo, v);
+      f = f || fo;
+    }
+  }
+  if (lane == 31) {
+    sf[w] = f;
+    sv[w] = v;
+  }
+  __syncthreads();
+  if (w == 0) {
+    bool g = lane < NW ? sf[lane] != 0 : false;
+    uint64_t u = lane < NW ? sv[lane] : lane_identity(op);
+    for (int d = 1; d < 32; d <<= 1) {
+      const int go = __shfl_up_sync(0xFFFFFFFFu, static_cast<int>(g), d);
+      const uint64_t uo = __shfl_up_sync(0xFFFFFFFFu, u, d);
+      if (lane >= d) {
+        if (!g) u = lane_combine(op, uo, u);
+        g = g || go;
+      }
+    }
+    if (lane < NW) {
+      sf[lane] = g;
+      sv[lane] = u;
+    }
+  }
+  __syncthreads();
+  if (w > 0) {
+    if (!f) v = lane_combine(op, sv[w - 1], v);
+    f = f || sf[w - 1];
+  }
+  __syncthreads();  // the scratch is reused by the next lane
+}
+
+__global__ void __launch_bounds__(OT) ow_scan(OverWindowArgs a) {
+  __shared__ int s_ticket;
+  __shared__ bool s_last;
+  __shared__ uint64_t s_part[OT];
+  __shared__ uint64_t s_tie[OT];
+  __shared__ uint64_t s_before[2];  // part and tie before the tile
+  __shared__ unsigned s_new[OT / 32];
+  __shared__ int sf[32];
+  __shared__ uint64_t sv[32];
+  __shared__ uint64_t s_tot[OW_MAX_LANES];
+  __shared__ uint64_t s_carry[OW_MAX_LANES];
+  __shared__ bool s_have[OW_MAX_LANES];
+  __shared__ bool s_done[OW_MAX_LANES];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int w = t >> 5;
+  if (t == 0) s_ticket = atomicAdd(&a.ctl[0], 1);
+  __syncthreads();
+  const int tile = s_ticket;
+  const int64_t i = static_cast<int64_t>(tile) * OT + t;
+  const bool in = i < a.P;
+  const int64_t o = in ? a.order[i] : 0;
+  uint64_t p = 0, tie = 0;
+  if (in) {
+    p = part_of(a, o);
+    tie = tie_of(a, o);
+  }
+  s_part[t] = p;
+  s_tie[t] = tie;
+  if (t == 0 && i > 0) {
+    const int64_t ob = a.order[i - 1];
+    s_before[0] = part_of(a, ob);
+    s_before[1] = tie_of(a, ob);
+  }
+  __syncthreads();
+  const uint64_t p_prev = t > 0 ? s_part[t - 1] : s_before[0];
+  const uint64_t tie_prev = t > 0 ? s_tie[t - 1] : s_before[1];
+  const bool is_new = in && (i == 0 || p != p_prev);
+  const bool new_val = is_new || (in && a.n_order > 0 && tie != tie_prev);
+
+  // seen: a segment starts at or before this position in the tile
+  const unsigned m = __ballot_sync(0xFFFFFFFFu, is_new);
+  if (lane == 0) s_new[w] = m;
+  __syncthreads();
+  bool seen = (m & (0xFFFFFFFFu >> (31 - lane))) != 0;
+  bool any = false;
+  for (int k = 0; k < OT / 32; ++k) {
+    if (k < w) seen = seen || s_new[k] != 0;
+    any = any || s_new[k] != 0;
+  }
+
+  uint64_t val[OW_MAX_LANES];
+#pragma unroll
+  for (int L = 0; L < OW_MAX_LANES; ++L) {
+    if (L < a.n_lanes) {
+      const int op = a.lane_op[L];
+      bool f = in && a.lane_flagged[L] && is_new;
+      uint64_t v = lane_identity(op);
+      if (in) {
+        if (L == a.start_lane) {
+          v = is_new ? static_cast<uint64_t>(i) : 0ull;
+        } else if (L == a.anchor_lane) {
+          v = new_val ? static_cast<uint64_t>(i) : 0ull;
+        } else if (L == a.dense_lane) {
+          v = new_val ? 1ull : 0ull;
+        } else {
+          for (int c = 0; c < a.n_calls; ++c) {
+            if (a.call[c].lane == L) v = call_value(a, a.call[c], op, o);
+          }
+        }
+      }
+      block_scan(op, f, v, sf, sv);
+      val[L] = v;
+      if (t == OT - 1) s_tot[L] = v;
+    }
+  }
+  __syncthreads();
+
+  // the carry into the tile by decoupled look-back (warp 0): each round
+  // reads the status words of 32 tiles before it, one a thread, and
+  // combines, lane by lane, the tiles after the nearest one that stops the
+  // lane (its inclusive lanes published; for a flagged lane, or a segment
+  // start in it) by an ordered warp reduction
+  if (w == 0) {
+    const unsigned long long tag = a.epoch << 34;
+    const unsigned long long fl = any ? 1ull : 0ull;
+    volatile unsigned long long* status = a.status;
+    const int64_t row = static_cast<int64_t>(tile) * OW_MAX_LANES + lane;
+    if (lane < a.n_lanes) {
+      a.tile_agg[row] = s_tot[lane];
+      if (tile == 0) a.tile_incl[row] = s_tot[lane];
+      s_have[lane] = false;
+      s_done[lane] = false;
+    }
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) {
+      status[tile] = tag | ((tile == 0 ? OW_PREFIX : OW_AGG) << 32) | fl;
+    }
+    if (tile > 0) {
+      int pos = tile - 1;
+      while (true) {
+        const int idx = pos - lane;  // lane 0 the nearest
+        unsigned long long sw = tag | (OW_PREFIX << 32);
+        if (idx >= 0) {
+          do {
+            sw = status[idx];
+          } while ((sw >> 34) != a.epoch);
+        }
+        __threadfence();
+        const bool prefix = ((sw >> 32) & OW_PREFIX) != 0;
+        const unsigned s_all = __ballot_sync(0xFFFFFFFFu, prefix);
+        const unsigned s_fl =
+            __ballot_sync(0xFFFFFFFFu, prefix || (sw & 1ull) != 0);
+        const int stop_all = s_all ? __ffs(s_all) - 1 : 32;
+        const int stop_fl = s_fl ? __ffs(s_fl) - 1 : 32;
+        bool all_done = true;
+        for (int L = 0; L < a.n_lanes; ++L) {
+          if (s_done[L]) continue;
+          const int op = a.lane_op[L];
+          const int stop = a.lane_flagged[L] ? stop_fl : stop_all;
+          bool has = lane <= stop && idx >= 0;
+          uint64_t x = 0;
+          if (has) {
+            const int64_t at = static_cast<int64_t>(idx) * OW_MAX_LANES + L;
+            x = lane == stop && prefix
+                ? static_cast<const volatile uint64_t*>(a.tile_incl)[at]
+                : static_cast<const volatile uint64_t*>(a.tile_agg)[at];
+          }
+          for (int d = 1; d < 32; d <<= 1) {  // earlier tiles first
+            const uint64_t y = __shfl_down_sync(0xFFFFFFFFu, x, d);
+            const int hy = __shfl_down_sync(0xFFFFFFFFu,
+                                            static_cast<int>(has), d);
+            if (lane + d < 32 && hy) {
+              x = has ? lane_combine(op, y, x) : y;
+              has = true;
+            }
+          }
+          if (lane == 0) {
+            if (has) {
+              s_carry[L] = s_have[L] ? lane_combine(op, x, s_carry[L]) : x;
+              s_have[L] = true;
+            }
+            s_done[L] = stop < 32;
+          }
+          __syncwarp();
+          all_done = all_done && stop < 32;
+        }
+        if (all_done) break;
+        pos -= 32;
+      }
+      if (lane < a.n_lanes) {
+        a.tile_incl[row] = a.lane_flagged[lane] && any
+            ? s_tot[lane]
+            : lane_combine(a.lane_op[lane], s_carry[lane], s_tot[lane]);
+      }
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) status[tile] = tag | (OW_PREFIX << 32) | fl;
+    }
+  }
+  __syncthreads();
+  if (in) {
+#pragma unroll
+    for (int L = 0; L < OW_MAX_LANES; ++L) {
+      if (L < a.n_lanes) {
+        uint64_t v = val[L];
+        if (tile > 0 && !(a.lane_flagged[L] && seen)) {
+          v = lane_combine(a.lane_op[L], s_carry[L], v);
+        }
+        a.lane_val[L * static_cast<int64_t>(a.P) + i] = v;
+      }
+    }
+  }
+
+  // the last block to finish puts the tickets back
+  __syncthreads();
+  if (t == 0) {
+    __threadfence();
+    s_last = atomicAdd(&a.ctl[1], 1) == a.n_tiles - 1;
+  }
+  __syncthreads();
+  if (s_last && t == 0) {
+    a.ctl[0] = 0;
+    a.ctl[1] = 0;
+  }
+}
+
+__device__ __forceinline__ uint64_t lane_at(const OverWindowArgs& a, int L,
+                                            int64_t x) {
+  return a.lane_val[L * static_cast<int64_t>(a.P) + x];
+}
+
+// Fold one output value, stored as `bits` (zero-extended) of `type`, into
+// the row hash as K1 folds the stored column.
+__device__ __forceinline__ uint64_t fold_value(uint64_t st, int type,
+                                               uint64_t bits) {
+  if (type == OW_F32) {
+    const float x = __uint_as_float(static_cast<uint32_t>(bits));
+    return rw_mix64(st ^ (static_cast<uint64_t>(rw_f32_word(x)) * RW_K1));
+  }
+  if (type == OW_F64) {
+    uint32_t hi, lo;
+    rw_f64_words(bits_f64(bits), &hi, &lo);
+    st = rw_mix64(st ^ (static_cast<uint64_t>(hi) * RW_K1));
+    return rw_mix64(st ^ (static_cast<uint64_t>(lo) * RW_K1));
+  }
+  return rw_mix64(st ^ (bits * RW_K1));
+}
+
+// The stored bits (zero-extended) of an integer of `type`.
+__device__ __forceinline__ uint64_t int_bits(int type, int64_t v) {
+  switch (type) {
+    case OW_I8: return static_cast<uint8_t>(v);
+    case OW_I16: return static_cast<uint16_t>(v);
+    case OW_I32: return static_cast<uint32_t>(v);
+    default: return static_cast<uint64_t>(v);
+  }
+}
+
+// Write a lane-typed value as the call's output at new row e and out row
+// E + e; returns its stored bits.
+__device__ __forceinline__ uint64_t put_value(const OwCall& cl, int op,
+                                              int64_t e, int64_t E,
+                                              uint64_t v) {
+  store_value(cl.cur, cl.out_type, op, e, v);
+  store_value(cl.out, cl.out_type, op, E + e, v);
+  if (cl.out_type == OW_F64) {
+    return f64_bits(op == OW_ADD_F32 ? static_cast<double>(bits_f32(v))
+                                     : bits_f64(v));
+  }
+  if (cl.out_type == OW_F32) {
+    return f32_bits(op == OW_ADD_F32 ? bits_f32(v)
+                                     : static_cast<float>(bits_f64(v)));
+  }
+  return int_bits(cl.out_type, static_cast<int64_t>(v));
+}
+
+__device__ __forceinline__ uint64_t put_int(const OwCall& cl, int64_t e,
+                                            int64_t E, int64_t r) {
+  store_int(cl.cur, cl.out_type, e, r);
+  store_int(cl.out, cl.out_type, E + e, r);
+  return int_bits(cl.out_type, r);
+}
+
+// A fixed-width value of `w` bytes from its zero-extended bits.
+__device__ __forceinline__ void put_raw(void* base, int w, int64_t i,
+                                        uint64_t bits) {
+  switch (w) {
+    case 1: static_cast<uint8_t*>(base)[i] = static_cast<uint8_t>(bits); break;
+    case 2:
+      static_cast<uint16_t*>(base)[i] = static_cast<uint16_t>(bits); break;
+    case 4:
+      static_cast<uint32_t*>(base)[i] = static_cast<uint32_t>(bits); break;
+    default: static_cast<uint64_t*>(base)[i] = bits;
+  }
+}
+
+__global__ void __launch_bounds__(FT) ow_finish(OverWindowArgs a) {
+  __shared__ int64_t s_src[FT];
+  const int t = threadIdx.x;
+  const int64_t e0 = static_cast<int64_t>(blockIdx.x) * FT;
+  const int64_t e = e0 + t;
+  const int64_t E = a.E;
+  if (blockIdx.x == 0 && t == 0 && a.S > a.E) {
     // valid rows sort first: the valid rows past E are n_valid - E
     int64_t lo = 0, hi = a.S;
     while (lo < hi) {
@@ -477,115 +612,158 @@ __global__ void ow_finish(OverWindowArgs a) {
     const long long beyond = lo > a.E ? lo - a.E : 0;
     if (beyond > *a.overflow) *a.overflow = beyond;
   }
-  if (e >= a.E) return;
-  const int64_t i = e < a.S ? e : a.S - 1;
-  const int64_t o = a.order[i];
-  const bool live = a.valid[o] != 0;
-  const int64_t E = a.E;
-  // the segment start: the first position of ps[i]
-  const int64_t key = a.ps[i];
-  int64_t lo = 0, hi = i;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (a.ps[mid] < key) lo = mid + 1; else hi = mid;
+  if (e < E) {
+    const int64_t i = e < a.S ? e : a.S - 1;
+    const int64_t o = a.order[i];
+    s_src[t] = o;
+    const bool live = a.valid[o] != 0;
+    const int64_t start = static_cast<int64_t>(lane_at(a, a.start_lane, i));
+    uint64_t st = RW_K1;
+    if (live) {  // the input leaves, from the pool row
+      for (int k = 0; k < a.n_leaves; ++k) {
+        const OwLeaf& l = a.leaf[k];
+        if (l.kind == RW_KIND_STR) {
+          const int32_t len =
+              static_cast<const int32_t*>(a.leaf[k + 1].pool)[o];
+          st = rw_fold_str_words(
+              st, static_cast<const uint8_t*>(l.pool) + o * l.width, l.width,
+              len);
+          ++k;
+        } else if (l.kind == RW_KIND_F32) {
+          st = fold_value(st, OW_F32,
+                          f32_bits(static_cast<const float*>(l.pool)[o]));
+        } else if (l.kind == RW_KIND_F64) {
+          st = fold_value(st, OW_F64,
+                          f64_bits(static_cast<const double*>(l.pool)[o]));
+        } else {
+          st = rw_mix64(st ^ (rw_load_word(l.pool, l.width, o) * RW_K1));
+        }
+      }
+    }
+    for (int c = 0; c < a.n_calls; ++c) {
+      const OwCall& cl = a.call[c];
+      switch (cl.kind) {
+        case OW_ROW_NUMBER:
+          st = fold_value(st, cl.out_type, put_int(cl, e, E, i - start + 1));
+          break;
+        case OW_RANK:
+          st = fold_value(st, cl.out_type, put_int(
+              cl, e, E,
+              static_cast<int64_t>(lane_at(a, a.anchor_lane, i)) - start + 1));
+          break;
+        case OW_DENSE_RANK:
+          st = fold_value(st, cl.out_type, put_int(
+              cl, e, E, static_cast<int64_t>(lane_at(a, a.dense_lane, i))));
+          break;
+        case OW_LAG:
+        case OW_LEAD: {
+          const int64_t src =
+              cl.kind == OW_LAG ? i - cl.offset : i + cl.offset;
+          bool same = src >= 0 && src < a.S;
+          if (same && src < i) {
+            same = src >= start;
+          } else if (same && src > i) {
+            same = src < a.P
+                ? static_cast<int64_t>(lane_at(a, a.start_lane, src)) == start
+                : part_of(a, a.order[src]) == part_of(a, o);
+          }
+          const int64_t so = same ? a.order[src] : 0;
+          if (cl.out_type == OW_STR) {
+            const int w = cl.out_width;
+            uint8_t* cur = static_cast<uint8_t*>(cl.cur) + e * w;
+            rw_row_words(same ? static_cast<const uint8_t*>(cl.arg) + so * w
+                              : nullptr,
+                         cur, static_cast<uint8_t*>(cl.out) + (E + e) * w, w);
+            const int32_t len = same ? cl.arg_lens[so] : 0;
+            cl.cur_lens[e] = len;
+            cl.out_lens[E + e] = len;
+            st = rw_fold_str_words(st, cur, w, len);
+          } else {
+            const uint64_t bits =
+                same ? rw_load_word(cl.arg, cl.out_width, so) : 0ull;
+            put_raw(cl.cur, cl.out_width, e, bits);
+            put_raw(cl.out, cl.out_width, E + e, bits);
+            st = fold_value(st, cl.out_type, bits);
+          }
+          break;
+        }
+        case OW_SUM:
+        case OW_COUNT:
+        case OW_AVG: {
+          const int op = a.lane_op[cl.lane];
+          const int64_t lo_i =
+              cl.pre >= 0 ? (i - cl.pre > start ? i - cl.pre : start) : start;
+          const uint64_t cum = lane_at(a, cl.lane, i);
+          const bool cut = lo_i > start;
+          const uint64_t before = cut ? lane_at(a, cl.lane, lo_i - 1) : 0ull;
+          const int64_t n = i - lo_i + 1;
+          uint64_t agg;
+          if (op == OW_ADD_F64) {
+            const double s = cut ? bits_f64(cum) - bits_f64(before)
+                                 : bits_f64(cum);
+            agg = f64_bits(cl.kind == OW_AVG ? s / static_cast<double>(n) : s);
+          } else if (op == OW_ADD_F32) {
+            agg = cut ? f32_bits(bits_f32(cum) - bits_f32(before)) : cum;
+          } else {
+            agg = cum - before;
+            if (cl.kind == OW_AVG) {  // a DECIMAL: truncate toward zero
+              const int64_t s = static_cast<int64_t>(agg);
+              const int64_t m = (s < 0 ? -s : s) / n;
+              agg = static_cast<uint64_t>(s < 0 ? -m : (s > 0 ? m : 0));
+            }
+          }
+          st = fold_value(st, cl.out_type, put_value(cl, op, e, E, agg));
+          break;
+        }
+        default: {  // min / max
+          const int op = a.lane_op[cl.lane];
+          st = fold_value(st, cl.out_type,
+                          put_value(cl, op, e, E, lane_at(a, cl.lane, i)));
+        }
+      }
+    }
+    a.cur_live[e] = live;
+    a.cur_hash[e] = live ? rw_hash_finish(st) : 0ull;
   }
-  const int64_t start = lo;
+  __syncthreads();
 
+  // the rows, plane by plane in words
+  const int n = static_cast<int>(E - e0 < FT ? E - e0 : FT);
+  const int64_t* src = s_src;
   for (int k = 0; k < a.n_leaves; ++k) {
     const OwLeaf& l = a.leaf[k];
-    copy_row(l.cur, e, l.pool, o, l.width);
-    copy_row(l.out, E + e, l.pool, o, l.width);
-    copy_row(l.out, e, l.prev, e, l.width);
+    const int w = l.width;
+    uint8_t* out = static_cast<uint8_t*>(l.out);
+    rw_gather_plane(static_cast<const uint8_t*>(l.prev) + e0 * w,
+                    out + e0 * w, nullptr, w, n, [](int r) { return r; }, t,
+                    FT);
+    rw_gather_plane(l.pool, out + (E + e0) * w,
+                    static_cast<uint8_t*>(l.cur) + e0 * w, w, n,
+                    [src](int r) { return src[r]; }, t, FT);
   }
   for (int c = 0; c < a.n_calls; ++c) {
     const OwCall& cl = a.call[c];
-    copy_row(cl.out, e, cl.prev, e, cl.out_width);
-    if (cl.out_type == OW_STR) cl.out_lens[e] = cl.prev_lens[e];
-    int64_t r = 0;
-    switch (cl.kind) {
-      case OW_ROW_NUMBER: r = i - start + 1; break;
-      case OW_RANK:
-        r = static_cast<int64_t>(lane_at(a, a.anchor_lane, i, start)) -
-            start + 1;
-        break;
-      case OW_DENSE_RANK:
-        r = static_cast<int64_t>(lane_at(a, a.dense_lane, i, start) -
-                                 lane_at(a, a.dense_lane, start, start)) + 1;
-        break;
-      case OW_LAG:
-      case OW_LEAD: {
-        const int64_t src = cl.kind == OW_LAG ? i - cl.offset : i + cl.offset;
-        const bool same = src >= 0 && src < a.S &&
-                          part_at(a, src) == part_at(a, i);
-        if (same) {
-          const int64_t so = a.order[src];
-          copy_row(cl.cur, e, cl.arg, so, cl.out_width);
-          copy_row(cl.out, E + e, cl.arg, so, cl.out_width);
-        } else {
-          zero_row(cl.cur, e, cl.out_width);
-          zero_row(cl.out, E + e, cl.out_width);
-        }
-        if (cl.out_type == OW_STR) {
-          const int32_t len = same ? cl.arg_lens[a.order[src]] : 0;
-          cl.cur_lens[e] = len;
-          cl.out_lens[E + e] = len;
-        }
-        continue;
-      }
-      case OW_SUM:
-      case OW_COUNT:
-      case OW_AVG: {
-        const int op = a.lane_op[cl.lane];
-        const int64_t lo_i =
-            cl.pre >= 0 ? (i - cl.pre > start ? i - cl.pre : start) : start;
-        const uint64_t cum = lane_at(a, cl.lane, i, start);
-        const uint64_t cum_lo = lane_at(a, cl.lane, lo_i, start);
-        const uint64_t v_lo = call_value(a, cl, op, lo_i);
-        const int64_t n = i - lo_i + 1;
-        uint64_t agg;
-        if (op == OW_ADD_F64) {
-          const double before = bits_f64(cum_lo) - bits_f64(v_lo);
-          const double s = bits_f64(cum) - before;
-          agg = f64_bits(cl.kind == OW_AVG ? s / static_cast<double>(n) : s);
-        } else if (op == OW_ADD_F32) {
-          const float before = bits_f32(cum_lo) - bits_f32(v_lo);
-          agg = f32_bits(bits_f32(cum) - before);
-        } else {
-          agg = cum - (cum_lo - v_lo);
-          if (cl.kind == OW_AVG) {  // a DECIMAL: truncate toward zero
-            const int64_t s = static_cast<int64_t>(agg);
-            const int64_t m = (s < 0 ? -s : s) / n;
-            agg = static_cast<uint64_t>(s < 0 ? -m : (s > 0 ? m : 0));
-          }
-        }
-        store_value(cl.cur, cl.out_type, op, e, agg);
-        store_value(cl.out, cl.out_type, op, E + e, agg);
-        continue;
-      }
-      default: {  // min / max
-        const int op = a.lane_op[cl.lane];
-        const uint64_t v = lane_at(a, cl.lane, i, start);
-        store_value(cl.cur, cl.out_type, op, e, v);
-        store_value(cl.out, cl.out_type, op, E + e, v);
-        continue;
-      }
+    const int w = cl.out_width;
+    rw_gather_plane(static_cast<const uint8_t*>(cl.prev) + e0 * w,
+                    static_cast<uint8_t*>(cl.out) + e0 * w, nullptr, w, n,
+                    [](int r) { return r; }, t, FT);
+    if (cl.out_type == OW_STR) {
+      rw_gather_plane(cl.prev_lens + e0, cl.out_lens + e0, nullptr, 4, n,
+                      [](int r) { return r; }, t, FT);
     }
-    store_int(cl.cur, cl.out_type, e, r);
-    store_int(cl.out, cl.out_type, E + e, r);
   }
-  a.cur_live[e] = live;
-  a.cur_hash[e] = live ? row_hash(a, e) : 0ull;
 }
 
 extern "C" int rw_over_window(OverWindowArgs args, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (args.P > 0) {
-    ow_scan_local<<<args.nb, OW_BLOCK, 0, s>>>(args);
-    if (args.n_lanes > 0) ow_scan_carry<<<1, OW_BLOCK, 0, s>>>(args);
+    if (args.n_tiles != (args.P + OT - 1) / OT) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    ow_scan<<<args.n_tiles, OT, 0, s>>>(args);
   }
   if (args.E > 0) {
-    const int threads = 256;
-    ow_finish<<<(args.E + threads - 1) / threads, threads, 0, s>>>(args);
+    ow_finish<<<(args.E + FT - 1) / FT, FT, 0, s>>>(args);
   }
   return static_cast<int>(cudaGetLastError());
 }

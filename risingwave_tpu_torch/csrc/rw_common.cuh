@@ -93,6 +93,29 @@ __device__ __forceinline__ uint64_t rw_fold_str(uint64_t st,
   return rw_mix64(st ^ static_cast<uint64_t>(static_cast<int64_t>(len)));
 }
 
+// rw_fold_str read in 8-byte words where the row and its width are
+// 8-byte aligned (the bytes at and past `len` masked), else a byte at a
+// time: the same value either way.
+__device__ __forceinline__ uint64_t rw_fold_str_words(uint64_t st,
+                                                      const uint8_t* p,
+                                                      int w, int32_t len) {
+  if (((reinterpret_cast<uintptr_t>(p) | static_cast<uintptr_t>(w)) & 7) !=
+      0) {
+    return rw_fold_str(st, p, w, len);
+  }
+  const uint64_t* q = reinterpret_cast<const uint64_t*>(p);
+  for (int j = 0; j < w; j += 8) {
+    uint64_t word = 0;
+    if (len >= j + 8) {
+      word = q[j >> 3];
+    } else if (len > j) {
+      word = q[j >> 3] & ((1ull << (8 * (len - j))) - 1ull);
+    }
+    st = rw_mix64(st ^ (word * RW_K1));
+  }
+  return rw_mix64(st ^ static_cast<uint64_t>(static_cast<int64_t>(len)));
+}
+
 // A float32 key's word: subnormals and -0.0 as +0.0, NaN as one NaN.
 __device__ __forceinline__ uint32_t rw_f32_word(float x) {
   if (isnan(x)) return 0x7FC00000u;

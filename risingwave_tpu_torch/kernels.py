@@ -305,6 +305,30 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def lookback_scratch(cache: dict, dev: torch.device, n: int, epochs: int,
+                     make) -> tuple:
+    """The scratch of a look-back kernel, cached in ``cache`` per (device,
+    stream): two calls on different streams could overlap.  ``make(size,
+    dev)`` builds its tensors for ``size`` (a power of two, at least
+    ``n``) with their status words zeroed and their tickets at rest; the
+    kernel tags the words with the call's epoch, so no call resets them.
+    The scratch is built anew, larger, when ``n`` outgrows it, and zeroed
+    before the epoch reaches ``epochs``.  Returns (the tensors, this call's
+    epoch)."""
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    key = (dev, stream_ptr(dev))
+    e = cache.get(key)
+    if e is None or e[0] < n or e[2] + 1 >= epochs:
+        size = 1 << max(n - 1, 0).bit_length()
+        if e is not None:
+            size = max(size, e[0])
+        e = [size, make(size, dev), 0]
+        cache[key] = e
+    e[2] += 1
+    return e[1], e[2]
+
+
 def check(rc: int, name: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` from a launch."""
     if rc != 0:

@@ -347,29 +347,16 @@ class _PreaggArgs(ctypes.Structure):
 #: MAX_PRIMS primitives)
 _PREAGG_TILE = 512
 _PREAGG_MAXQ = 2 + MAX_PRIMS
-#: (device, stream) -> [status int64 [p], carry int64 [p * 2 * PA_MAXQ],
-#: epoch]: K5's look-back scratch for up to p tiles (a power of two, grown
-#: to the largest chunk so far) and the epoch of its last call.  The status
-#: words are tagged with their call's epoch, so no call resets them; one a
-#: stream, as calls on two streams could overlap.
+#: the status words carry the epoch above their low 8 bits
+_PREAGG_EPOCHS = 1 << 56
+#: (device, stream) -> K5's look-back scratch (``kernels.lookback_scratch``)
+#: for up to p tiles: status int64 [p] and carry int64 [p * 2 * PA_MAXQ]
 _PREAGG_SCRATCH: dict = {}
 
 
-def _preagg_scratch(dev: torch.device, n: int):
-    """K5's look-back scratch for ``n`` rows and this call's epoch."""
-    if dev.index is None:
-        dev = torch.device(dev.type, torch.cuda.current_device())
-    tiles = max(1, -(-n // _PREAGG_TILE))
-    key = (dev, kernels.stream_ptr(dev))
-    e = _PREAGG_SCRATCH.get(key)
-    if e is None or e[0].numel() < tiles:
-        p = 1 << (tiles - 1).bit_length()
-        e = [torch.zeros(p, dtype=torch.int64, device=dev),
-             torch.empty(p * 2 * _PREAGG_MAXQ, dtype=torch.int64, device=dev),
-             0 if e is None else e[2]]
-        _PREAGG_SCRATCH[key] = e
-    e[2] += 1
-    return e[0], e[1], e[2]
+def _preagg_tensors(p: int, dev: torch.device) -> tuple:
+    return (torch.zeros(p, dtype=torch.int64, device=dev),
+            torch.empty(p * 2 * _PREAGG_MAXQ, dtype=torch.int64, device=dev))
 
 
 def agg_preagg_cuda(sort_key, perm, key_cols, valid, signs, modes, inits,
@@ -449,7 +436,9 @@ def agg_preagg_cuda(sort_key, perm, key_cols, valid, signs, modes, inits,
     args.rep, args.seg_rows = rep.data_ptr(), seg_rows.data_ptr()
     args.seg_signs = seg_signs.data_ptr()
     args.n = n
-    status, carry, args.epoch = _preagg_scratch(dev, n)
+    (status, carry), args.epoch = kernels.lookback_scratch(
+        _PREAGG_SCRATCH, dev, max(1, -(-n // _PREAGG_TILE)), _PREAGG_EPOCHS,
+        _preagg_tensors)
     args.status, args.carry = status.data_ptr(), carry.data_ptr()
     fn = kernels.entry("agg_preagg", "rw_agg_preagg",
                        [_PreaggArgs, ctypes.c_void_p])

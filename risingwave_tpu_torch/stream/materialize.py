@@ -299,8 +299,9 @@ def ring_append_plain(values: tuple, cursor: torch.Tensor,
 _RING_TILE = 256
 #: the status words carry the epoch in their top 30 bits
 _RING_EPOCHS = 1 << 30
-#: K8-ring's look-back scratch per (device, stream): [status words,
-#: control words, epoch]
+#: (device, stream) -> K8-ring's look-back scratch
+#: (``kernels.lookback_scratch``): status words int64 [tiles] and its two
+#: tickets int32 [2]
 _RING_SCRATCH: dict = {}
 
 
@@ -316,23 +317,9 @@ class _RingArgs(ctypes.Structure):
     ]
 
 
-def _ring_scratch(dev: torch.device, tiles: int):
-    """K8-ring's status words for ``tiles`` tiles, its two tickets (at
-    rest at 0) and this call's epoch; the words are zeroed only when
-    they grow or the epoch wraps."""
-    if dev.index is None:
-        dev = torch.device(dev.type, torch.cuda.current_device())
-    key = (dev, kernels.stream_ptr(dev))
-    e = _RING_SCRATCH.get(key)
-    if e is None or e[0].numel() < tiles or e[2] + 1 >= _RING_EPOCHS:
-        size = 1 << max(tiles - 1, 0).bit_length()
-        if e is not None:
-            size = max(size, e[0].numel())
-        e = [torch.zeros(size, dtype=torch.int64, device=dev),
-             torch.zeros(2, dtype=torch.int32, device=dev), 0]
-        _RING_SCRATCH[key] = e
-    e[2] += 1
-    return e[0], e[1], e[2]
+def _ring_tensors(tiles: int, dev: torch.device) -> tuple:
+    return (torch.zeros(tiles, dtype=torch.int64, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev))
 
 
 def ring_append_cuda(values: tuple, cursor: torch.Tensor,
@@ -363,7 +350,8 @@ def ring_append_cuda(values: tuple, cursor: torch.Tensor,
     valid_u8 = chunk.valid.contiguous().view(torch.uint8)
     kernels.require_cuda("ring_append", valid_u8, cursor, overflow, *keep)
     tiles = max(1, -(-chunk.capacity // _RING_TILE))
-    status, ctl, epoch = _ring_scratch(valid_u8.device, tiles)
+    (status, ctl), epoch = kernels.lookback_scratch(
+        _RING_SCRATCH, valid_u8.device, tiles, _RING_EPOCHS, _ring_tensors)
     args.valid = valid_u8.data_ptr()
     args.cursor, args.overflow = cursor.data_ptr(), overflow.data_ptr()
     args.status, args.ctl, args.epoch = (status.data_ptr(), ctl.data_ptr(),

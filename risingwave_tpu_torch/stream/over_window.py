@@ -26,10 +26,11 @@ On the card:
   hashes the partition columns; the three stable sorts stay
   ``torch.sort``;
 - K20 ``over_window`` (``csrc/over_window.cu``) is ``_compute_outputs``
-  and the gather and row hash of ``flush``: multi-block scans for the
-  ranks and the sums, a binary-searched segment start per position, and
-  one thread per emitted row that writes the changelog's two halves, the
-  new emitted rows (buffers of their own) and the row's hash;
+  and the gather and row hash of ``flush``: one grid scan of every lane
+  (the segment start among them) with a decoupled look-back, then one
+  thread per emitted row for its window values and hash, and its block
+  moving the changelog's two halves and the new emitted rows (buffers of
+  their own) plane by plane in words;
 - K18's membership launch (``rw_topn_flush_diff``) diffs the hashes.
 
 ``flush_plain`` is the plain PyTorch version, used for CPU tensors.
@@ -136,7 +137,7 @@ def _sum_dtype(dt: torch.dtype) -> torch.dtype:
 
 MAX_CALLS = 16
 MAX_LEAVES = kernels.MAX_COLS
-MAX_LANES = MAX_CALLS + 2
+MAX_LANES = MAX_CALLS + 3
 _KINDS = ("row_number", "rank", "dense_rank", "lag", "lead", "sum", "count",
           "avg", "min", "max")
 _TYPES = {torch.int8: 0, torch.bool: 0, torch.uint8: 0, torch.int16: 1,
@@ -176,18 +177,32 @@ class _OverWindowArgs(ctypes.Structure):
         ("n_lanes", ctypes.c_int),
         ("lane_op", ctypes.c_int * MAX_LANES),
         ("lane_flagged", ctypes.c_int * MAX_LANES),
-        ("anchor_lane", ctypes.c_int), ("dense_lane", ctypes.c_int),
-        ("lane_local", ctypes.c_void_p), ("lane_carry", ctypes.c_void_p),
-        ("blk_flag", ctypes.c_void_p), ("ps", ctypes.c_void_p),
+        ("start_lane", ctypes.c_int), ("anchor_lane", ctypes.c_int),
+        ("dense_lane", ctypes.c_int),
+        ("lane_val", ctypes.c_void_p), ("status", ctypes.c_void_p),
+        ("tile_agg", ctypes.c_void_p), ("tile_incl", ctypes.c_void_p),
+        ("ctl", ctypes.c_void_p), ("epoch", ctypes.c_ulonglong),
         ("cur_hash", ctypes.c_void_p), ("cur_live", ctypes.c_void_p),
         ("overflow", ctypes.c_void_p),
         ("S", ctypes.c_int), ("E", ctypes.c_int), ("P", ctypes.c_int),
-        ("nb", ctypes.c_int),
+        ("n_tiles", ctypes.c_int),
     ]
 
 
-#: positions per block of K20's scans (``OW_BLOCK``)
-SCAN_BLOCK = 1024
+#: positions a tile of K20's scan (``OT`` in ``csrc/over_window.cu``)
+SCAN_TILE = 512
+#: epochs a status word can tag (``epoch << 34`` in a 64-bit word)
+_SCAN_EPOCHS = 1 << 30
+#: (device, stream) -> K20's look-back scratch (``kernels.lookback_scratch``)
+#: for up to p tiles: status words int64 [p], tile lanes int64 [2, p,
+#: MAX_LANES] (totals, inclusive) and the two tickets int32 [2]
+_SCAN_SCRATCH: dict = {}
+
+
+def _scan_tensors(p: int, dev: torch.device) -> tuple:
+    return (torch.zeros(p, dtype=torch.int64, device=dev),
+            torch.empty((2, p, MAX_LANES), dtype=torch.int64, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev))
 
 
 class OverWindowExecutor(Executor):
@@ -439,8 +454,9 @@ class OverWindowExecutor(Executor):
             return len(lanes) - 1
 
         used = {c.kind for c in self.calls}
+        a.start_lane = lane(MAX_I64, 0)
         a.anchor_lane = lane(MAX_I64, 0) if "rank" in used else -1
-        a.dense_lane = lane(ADD_I64, 0) if "dense_rank" in used else -1
+        a.dense_lane = lane(ADD_I64, 1) if "dense_rank" in used else -1
         a.n_calls = len(self.calls)
         for j, call in enumerate(self.calls):
             c = a.call[j]
@@ -488,7 +504,7 @@ class OverWindowExecutor(Executor):
                     cc.data_ptr()
                 keep += [prev, oc, cc]
             if call.kind == "count":
-                c.lane = lane(ADD_I64, 0)
+                c.lane = lane(ADD_I64, 1)
             elif call.kind in ("sum", "avg"):
                 dt = arg.dtype
                 if call.kind == "avg" and not c.decimal_avg:
@@ -498,7 +514,7 @@ class OverWindowExecutor(Executor):
                           torch.float32: ADD_F32}.get(dt, ADD_I64)
                 if dt == torch.bool:
                     raise NotImplementedError(f"{call.kind} over booleans")
-                c.lane = lane(op, 0)
+                c.lane = lane(op, 1)
             elif call.kind in ("min", "max"):
                 fl = arg.dtype.is_floating_point
                 op = {("min", False): MIN_I64, ("max", False): MAX_I64,
@@ -510,22 +526,22 @@ class OverWindowExecutor(Executor):
             a.lane_op[j], a.lane_flagged[j] = op, flagged
 
         P = min(E, S)
-        nb = (P + SCAN_BLOCK - 1) // SCAN_BLOCK
+        n_tiles = (P + SCAN_TILE - 1) // SCAN_TILE
+        (status, tile_lanes, ctl), a.epoch = kernels.lookback_scratch(
+            _SCAN_SCRATCH, dev, n_tiles, _SCAN_EPOCHS, _scan_tensors)
         i64 = dict(dtype=torch.int64, device=dev)
-        lane_local = torch.empty((max(1, len(lanes)), P), **i64)
-        lane_carry = torch.empty((max(1, len(lanes)), max(1, nb)), **i64)
-        blk_flag = torch.empty(max(1, nb), dtype=torch.uint8, device=dev)
-        ps = torch.empty(max(1, P), **i64)
+        lane_val = torch.empty((len(lanes), P), **i64)
         cur_hash = torch.empty(E, **i64)
         cur_live = torch.empty(E, dtype=torch.bool, device=dev)
-        keep += [lane_local, lane_carry, blk_flag, ps, cur_hash, cur_live,
+        keep += [lane_val, status, tile_lanes, ctl, cur_hash, cur_live,
                  state.overflow]
-        a.lane_local, a.lane_carry = lane_local.data_ptr(), \
-            lane_carry.data_ptr()
-        a.blk_flag, a.ps = blk_flag.data_ptr(), ps.data_ptr()
+        a.lane_val, a.status = lane_val.data_ptr(), status.data_ptr()
+        a.tile_agg, a.tile_incl = tile_lanes[0].data_ptr(), \
+            tile_lanes[1].data_ptr()
+        a.ctl = ctl.data_ptr()
         a.cur_hash, a.cur_live = cur_hash.data_ptr(), cur_live.data_ptr()
         a.overflow = state.overflow.data_ptr()
-        a.S, a.E, a.P, a.nb = S, E, P, nb
+        a.S, a.E, a.P, a.n_tiles = S, E, P, n_tiles
         kernels.require_cuda("over_window", *keep)
         fn = kernels.entry("over_window", "rw_over_window",
                            [_OverWindowArgs, ctypes.c_void_p])

@@ -45,10 +45,12 @@ On the card:
   start and scatters the band and the 1-based rank back.
 - K18 ``topn_flush`` (``csrc/topn_flush.cu``) is ``flush``'s band diff
   after K7's compaction: one launch gathers the band rows (row S-1 for
-  dead entries, as the reference's clamp does) and the old band into
-  the out chunk and folds the rank into the hash; after a stable sort
-  of each side's hashes, one launch decides the rank-aware multiset
-  membership of both sides by binary search (no ``[E, E]`` matrix).
+  dead entries, as the reference's clamp does) and copies the old band
+  into the out chunk, plane by plane in words, and folds the rank into
+  the hash; after a stable sort of each side's hashes, a grid scan
+  (decoupled look-back) counts each hash run's live entries and a
+  merge of the two sorted sides decides the rank-aware multiset
+  membership of both (no ``[E, E]`` matrix, no search per entry).
 - K19a ``topn_clean`` (``csrc/topn_clean.cu``) is ``clean_below``: one
   launch drops the pool rows and the emitted-band rows whose watermark
   column is below the threshold, a device scalar.
@@ -607,9 +609,28 @@ class _DiffArgs(ctypes.Structure):
 
     _fields_ = [
         ("skey", ctypes.c_void_p * 2), ("perm", ctypes.c_void_p * 2),
-        ("live", ctypes.c_void_p * 2), ("pref", ctypes.c_void_p * 2),
-        ("out_valid", ctypes.c_void_p), ("E", ctypes.c_int),
+        ("live", ctypes.c_void_p * 2), ("seg", ctypes.c_void_p * 2),
+        ("status", ctypes.c_void_p), ("ctl", ctypes.c_void_p),
+        ("epoch", ctypes.c_ulonglong), ("out_valid", ctypes.c_void_p),
+        ("E", ctypes.c_int), ("n_tiles", ctypes.c_int),
     ]
+
+
+#: sorted positions a tile of K18's scan (``ST`` in ``csrc/topn_flush.cu``)
+DIFF_SCAN_TILE = 512
+#: epochs a status word can tag (``epoch << 35`` in a 64-bit word)
+_DIFF_EPOCHS = 1 << 29
+#: (device, stream) -> K18's membership scratch (``kernels.lookback_scratch``)
+#: for bands of up to e entries: run counts int32 [2, e], status words int64
+#: [2 * tiles] and the two tickets int32 [2]
+_DIFF_SCRATCH: dict = {}
+
+
+def _diff_tensors(e: int, dev: torch.device) -> tuple:
+    tiles = (e + DIFF_SCAN_TILE - 1) // DIFF_SCAN_TILE
+    return (torch.empty((2, e), dtype=torch.int32, device=dev),
+            torch.zeros(2 * tiles, dtype=torch.int64, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev))
 
 
 def band_diff_cuda(rows: tuple, row_hash: torch.Tensor, ranks, band_idx,
@@ -670,14 +691,16 @@ def band_diff_cuda(rows: tuple, row_hash: torch.Tensor, ranks, band_idx,
 
 
 def band_membership_cuda(prev_hash, prev_valid, cur_hash, cur_live):
-    """K18's second launch (``rw_topn_flush_diff``) after a stable sort of
-    each side's hashes (``torch.sort``): ``band_membership_plain`` on the
-    card, for any pair of (hash, live) sides of E entries."""
+    """K18's membership (``rw_topn_flush_diff``: the run scan, then the
+    merge) after a stable sort of each side's hashes (``torch.sort``):
+    ``band_membership_plain`` on the card, for any pair of (hash, live)
+    sides of E entries."""
     E = cur_hash.shape[0]
     dev = cur_hash.device
     d = _DiffArgs()
     out_valid = torch.empty(2 * E, dtype=torch.bool, device=dev)
-    pref = torch.empty((2, E + 1), dtype=torch.int32, device=dev)
+    (seg, status, ctl), d.epoch = kernels.lookback_scratch(
+        _DIFF_SCRATCH, dev, E, _DIFF_EPOCHS, _diff_tensors)
     sides = []
     for s, (h, live) in enumerate(((prev_hash, prev_valid),
                                    (cur_hash, cur_live))):
@@ -685,9 +708,11 @@ def band_membership_cuda(prev_hash, prev_valid, cur_hash, cur_live):
         live_u8 = live.contiguous().view(torch.uint8)
         sides += [skey, perm, live_u8]
         d.skey[s], d.perm[s] = skey.data_ptr(), perm.data_ptr()
-        d.live[s], d.pref[s] = live_u8.data_ptr(), pref[s].data_ptr()
-    kernels.require_cuda("topn_flush", out_valid, pref, *sides)
+        d.live[s], d.seg[s] = live_u8.data_ptr(), seg[s].data_ptr()
+    kernels.require_cuda("topn_flush", out_valid, seg, status, ctl, *sides)
+    d.status, d.ctl = status.data_ptr(), ctl.data_ptr()
     d.out_valid, d.E = out_valid.data_ptr(), E
+    d.n_tiles = (E + DIFF_SCAN_TILE - 1) // DIFF_SCAN_TILE
     fn = kernels.entry("topn_flush", "rw_topn_flush_diff",
                        [_DiffArgs, ctypes.c_void_p])
     kernels.count_launch("topn_flush")

@@ -13,10 +13,16 @@ The timed kernels (all by default, or those ``--only`` names):
   k12   K12 ranked on a bench-size q8 engine's auction side;
   k8    K8-ring at q1's (4 int64) and q22's (176 B string rows) shapes;
   k16   K16 at q19's shape (a bench-size q19 engine's next 8 chunks) and
-        at ow_bid's (8192 bids into a 2^22 pool with 2,818,048 live).
-The K8 and K16 shapes are built by this script's own checkout's
-``chip_smoke.py`` (``ring_shape``, ``k16_ow_bid_shape``) over ROOT's
-port, so an older ROOT gets the same inputs.  Kernel times are device
+        at ow_bid's (8192 bids into a 2^22 pool with 2,818,048 live);
+  k18   K18 at q19's shape (the band diff of that pool after its 8
+        chunks against the emitted band, the two sorts included) and its
+        membership at ow_bid's (2 x 2^22 entries, 2,818,048 live);
+  k20   K20 on q6_bid's over-window state after the top-N's next flush
+        (pool 2^18, emit 2^16), alone and in the whole flush.
+The K8, K16 and K18 ow_bid shapes are built by this script's own
+checkout's ``chip_smoke.py`` (``ring_shape``, ``k16_ow_bid_shape``,
+``k18_ow_bid_shape``) over ROOT's port, so an older ROOT gets the same
+inputs.  K20 at ow_bid's pool is ``--main ow_bid``'s.  Kernel times are device
 times (CUDA events over calls queued behind a sleep); ``--paths`` adds
 chip_smoke's q5-sharded and q8 main paths of ROOT (their rows/s and
 profiled windows); ``--main Q[,Q...]`` adds chip_smoke's main path of
@@ -174,6 +180,53 @@ def k16_times(dev, out):
     out["k16_ow_bid_ms"] = timed(run, 20)
 
 
+def k18_times(dev, out):
+    """K18 at q19's shape (``phase_topn_kernels``' band diff) and its
+    membership at ow_bid's shape."""
+    from risingwave_tpu_torch.common.compact import mask_indices
+
+    eng = cs._topn_engine(torch, dev, 1, "q19", cs.WARMUP_BARRIERS)
+    ti = cs._topn_index(eng)
+    tex = eng.jobs[0].fragment.executors[ti]
+    S, E = tex.pool_size, tex.emit_capacity
+    base = eng.jobs[0].states[ti]
+    a = tree_map(torch.clone, base)
+    for c in cs._topn_inputs(torch, eng, cs.CHUNKS_PER_BARRIER):
+        top_n.pool_apply_cuda(a.rows, a.valid, a.row_hash, c, S, a.overflow,
+                              a.inconsistency)
+    order_cols, desc, group_cols = tex.band_inputs(a)
+    band, ranks = top_n.band_mask_cuda(order_cols, desc, group_cols, a.valid,
+                                       tex.offset, tex.limit)
+    args = (a.rows, a.row_hash, ranks, mask_indices(band, E, S),
+            base.prev_rows, base.prev_valid, base.prev_hash)
+    out["k18_q19_ms"] = timed(lambda i: top_n.band_diff_cuda(*args), 20)
+    del eng, base, a, args
+    sides = here.k18_ow_bid_shape(torch, dev, 1)[:4]
+    out["k18_member_ow_bid_ms"] = timed(
+        lambda i: top_n.band_membership_cuda(*sides), 10)
+
+
+def k20_times(dev, out):
+    """K20 on q6_bid's over-window state after the top-N's next flush, as
+    ``phase_window_kernels`` times it: alone and in the whole flush."""
+    eng = cs._window_engine(torch, dev, 1, "q6_bid", cs.WARMUP_BARRIERS)
+    job = eng.jobs[0]
+    oi = cs._executor_index(eng, "OverWindowExecutor")
+    tix = cs._executor_index(eng, "GroupTopNExecutor")
+    ow, tex = job.fragment.executors[oi], job.fragment.executors[tix]
+    tst = tree_map(torch.clone, job.states[tix])
+    for c in cs._topn_inputs(torch, eng, cs.CHUNKS_PER_BARRIER):
+        tex.apply(tst, c)
+    _, chunk = tex.flush(tst, 0)
+    for i in range(tix + 1, oi):
+        _, chunk = job.fragment.executors[i].apply((), chunk)
+    st, _ = ow.apply(tree_map(torch.clone, job.states[oi]), chunk)
+    sorted_args = ow.sorted_order_cuda(st)
+    out["k20_q6_bid_ms"] = timed(
+        lambda i: ow.window_rows_cuda(st, *sorted_args), 20)
+    out["k20_q6_bid_flush_ms"] = timed(lambda i: ow.flush_cuda(st), 10)
+
+
 def launches_by_kernel(dev, query: str) -> dict:
     """{kernel name: launches} over a profiled window of ``query`` (2
     barriers x 8 chunks after the warm-up barriers), and the total."""
@@ -222,6 +275,10 @@ def main() -> int:
         k8_times(dev, out)
     if only is None or "k16" in only:
         k16_times(dev, out)
+    if only is None or "k18" in only:
+        k18_times(dev, out)
+    if only is None or "k20" in only:
+        k20_times(dev, out)
     print("[compare] " + json.dumps(out), flush=True)
     if "--launches" in sys.argv:
         for q in sys.argv[sys.argv.index("--launches") + 1].split(","):
